@@ -1,0 +1,127 @@
+"""Build and load the CUDA kernels of ``csrc/``.
+
+``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a
+plain C interface, loaded with ctypes (no PyTorch headers, so a build
+takes seconds).  The library lands in ``divergence_tpu_torch/_build/``
+under a name keyed by a hash of the sources and flags, so an edit
+rebuilds and an unchanged tree reuses the last build.  Nothing here runs
+at import: :func:`library` builds on first use.
+
+Flags: ``sm_90a`` (Hopper), ``-O3``, and ``--fmad=false`` — the plain
+torch versions run multiplies and adds as separate rounded operations,
+and a contracted ``a*b + c`` would move the kernels' results by an ulp
+(enough to flip a bootstrap rank at a ``ceil`` boundary).  ``-Xptxas -v``
+writes each kernel's registers, spills and shared memory to the build
+log.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")   # when nvcc is not on PATH
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "--fmad=false",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_I64 = ctypes.c_int64
+_U32 = ctypes.c_uint32
+_D = ctypes.c_double
+# symbol -> argtypes (every pointer and the trailing stream as c_void_p)
+_SIGNATURES = {
+    # lf, nmax, asize, bsize, maxs, out, stream
+    "fet_lut_build_{t}": (_P, _I, _I, _I, _I, _P, _P),
+    # vals, n, asize, bsize, lut (nullable), lf, nmax, maxs, out, stream
+    "fet_snp_logs_{t}": (_P, _I64, _I, _I, _P, _P, _I, _I, _P, _P),
+    # logs, rows[3, B], B, key0, key1, perc, nsamples, pmax, out, stream
+    "fet_aggregate_{t}": (_P, _P, _I64, _U32, _U32, _D, _I, _I, _P, _P),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class BuildInfo:
+    path: Path       # the shared library
+    seconds: float   # nvcc wall time; 0.0 when an earlier build was reused
+    log: str         # nvcc / ptxas output
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if DEFAULT_NVCC.exists():
+        return str(DEFAULT_NVCC)
+    raise RuntimeError(
+        "nvcc not found (PATH or /usr/local/cuda/bin): the CUDA kernels "
+        "of divergence_tpu_torch/csrc cannot be built"
+    )
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+@functools.cache
+def build() -> BuildInfo:
+    """Compile ``csrc/*.cu`` unless a library of the same sources and
+    flags is already in ``_build/``."""
+    BUILD_DIR.mkdir(exist_ok=True)
+    lib = BUILD_DIR / f"libfet_kernels_{_digest()}.so"
+    log_path = lib.with_suffix(".log")
+    if lib.exists():
+        log = log_path.read_text() if log_path.exists() else ""
+        return BuildInfo(lib, 0.0, log)
+    # unique temporary name, then an atomic rename: concurrent builds
+    # never load a half-written library
+    tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}"
+        )
+    log_path.write_text(log)
+    os.replace(tmp, lib)
+    return BuildInfo(lib, seconds, log)
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The kernel library, built on first use, with every entry point's
+    ``argtypes`` and ``restype`` declared."""
+    lib = ctypes.CDLL(str(build().path))
+    for pattern, argtypes in _SIGNATURES.items():
+        for t in ("f64", "f32"):
+            fn = getattr(lib, pattern.format(t=t))
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    lib.fet_cuda_error_string.argtypes = (ctypes.c_int,)
+    lib.fet_cuda_error_string.restype = ctypes.c_char_p
+    return lib

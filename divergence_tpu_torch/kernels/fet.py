@@ -1,0 +1,574 @@
+"""Batched Fisher's Exact Test: per-SNP scores (K1) and the window
+percentile + bootstrap stddev (K2).
+
+Port of ``divergence_tpu/kernels/fet.py``; every function keeps its JAX
+name and semantics (the reference's Zar-shortcut two-tailed test,
+reference statistics/fisher/cFisher.c:405-455, and the order-statistic
+bootstrap of the window percentile, cFisher.c:562-597).  The math is
+plain torch on tensors of any device.
+
+Three functions launch hand-written CUDA kernels (``csrc/``) when their
+tensors lie on a CUDA device, and run the plain torch version when they
+lie on the CPU:
+
+* :func:`fet_lut`        — ``csrc/fet_snp.cu:fet_lut_build``, the score of
+  every possible table (K1, LUT regime);
+* :func:`fet_snp_logs`   — ``csrc/fet_snp.cu:fet_snp_logs``, the score of
+  every SNP (K1);
+* :func:`fet_aggregate`  — ``csrc/fet_aggregate.cu``, every window of a
+  chromosome in one launch (K2).
+
+There is no fallback: on a CUDA tensor the kernel runs or the call
+raises.  Each launch adds one to :data:`LAUNCHES`.
+
+Not ported, because they exist only for the TPU and are bit-identical to
+the float path (``divergence_tpu/kernels/fet.py`` docstrings and
+``tests/test_fet_kernel.py::test_rank_path_bit_identical``): the int32
+LUT-rank path, the one-hot MXU picks and the two-stage window gather.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from divergence_tpu_torch import compute_dtype, rng
+
+_LUT_MAX_BUILD_OPS = 100_000_000
+
+# K2 sorts a window's scores in shared memory: at most this many SNPs
+# (a 2500 bp window holds at most 2501 unique positions)
+MAX_WINDOW_SNPS = 4096
+_SMEM_LIMIT = 232_448          # bytes of shared memory a Hopper block may use
+_AGG_WINDOW_CHUNK = 65_536     # windows per step of the plain aggregate
+
+# kernel launches since the last reset_launches(), by kernel name
+LAUNCHES = {"fet_lut_build": 0, "fet_snp_logs": 0, "fet_aggregate": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def support_size(asize: int, bsize: int) -> int:
+    """Static bound on the hypergeometric support after table shifting.
+
+    With the minimum cell leading, hi = min(R1', C1') <= N/2 where
+    N <= asize + bsize individuals enter the table."""
+    return (asize + bsize) // 2 + 2
+
+
+def _log_factorials(nmax: int) -> np.ndarray:
+    """lgamma(i+1) for i in 0..nmax, computed host-side once."""
+    from scipy.special import gammaln
+
+    return gammaln(np.arange(nmax + 1, dtype=np.float64) + 1.0)
+
+
+@functools.lru_cache(maxsize=16)
+def _lf_table(nmax: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """:func:`_log_factorials` on ``device``, uploaded once per
+    (nmax, dtype, device): a fresh upload from pageable memory would wait
+    for the work already queued on the stream.  Read-only."""
+    return torch.as_tensor(_log_factorials(nmax), dtype=dtype, device=device)
+
+
+def _const(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype`` (JAX's ``dtype(np.log(...))``
+    constants), returned as a Python float that ``dtype`` holds exactly."""
+    return float(np.float32(value)) if dtype == torch.float32 else float(value)
+
+
+def count_tables(avals: torch.Tensor, bvals: torch.Tensor) -> torch.Tensor:
+    """2x2 allele-count tables for every SNP.
+
+    ``avals``: [..., asize], ``bvals``: [..., bsize] genotype codes.
+    Only homozygous calls are counted (reference statistics/fisher/cFisher.c:208-238).
+    Returns [..., 4] int32 (f0..f3)."""
+    f0 = (avals == 3).sum(-1, dtype=torch.int32)
+    f1 = (avals == -3).sum(-1, dtype=torch.int32)
+    f2 = (bvals == 3).sum(-1, dtype=torch.int32)
+    f3 = (bvals == -3).sum(-1, dtype=torch.int32)
+    return torch.stack([f0, f1, f2, f3], dim=-1)
+
+
+def _shift_min_first(f: torch.Tensor) -> torch.Tensor:
+    """Rotate each table in clockwise order so the minimum cell leads
+    (reference statistics/fisher/cFisher.c:327-346).  argmin == first
+    minimum, like min_idx."""
+    cw = torch.stack([f[..., 0], f[..., 1], f[..., 3], f[..., 2]], dim=-1)
+    idx = torch.argmin(cw, dim=-1)
+    offs = (idx[..., None] + torch.arange(4, device=f.device)) % 4
+    rot = torch.gather(cw, -1, offs)
+    return torch.stack(
+        [rot[..., 0], rot[..., 1], rot[..., 3], rot[..., 2]], dim=-1
+    )
+
+
+def _support_logp(tables, maxs, nmax, dtype):
+    """Shared support-scan prelude of :func:`fet_two_tailed` and
+    :func:`fet_two_tailed_neglog10`: the table normalization, margin
+    test, and per-support-point log point probabilities.  Returns
+    ``(x, logp, valid, a0, equal_margins)`` with ``logp`` unmasked
+    (``-inf`` only at impossible cell combinations)."""
+    dev = tables.device
+    lf = _lf_table(nmax, dtype, dev)
+
+    def lchoose(n, k):
+        ok = (k >= 0) & (k <= n) & (n >= 0)
+        kc = k.clamp(0, nmax)
+        nc = n.clamp(0, nmax)
+        val = lf[nc] - lf[kc] - lf[(nc - kc).clamp(0, nmax)]
+        return torch.where(ok, val, float("-inf"))
+
+    f = tables.to(torch.int64)
+    R1 = f[..., 0] + f[..., 1]
+    R2 = f[..., 2] + f[..., 3]
+    C1 = f[..., 0] + f[..., 2]
+    C2 = f[..., 1] + f[..., 3]
+    equal_margins = (R1 == R2) | (C1 == C2)
+
+    s = _shift_min_first(f)
+    a0 = s[..., 0]
+    r1 = s[..., 0] + s[..., 1]
+    r2 = s[..., 2] + s[..., 3]
+    c1 = s[..., 0] + s[..., 2]
+    n = r1 + r2
+    hi = torch.minimum(r1, c1)
+
+    x = torch.arange(maxs, device=dev).reshape((1,) * a0.ndim + (maxs,))
+    r1e, r2e, c1e, ne = (t[..., None] for t in (r1, r2, c1, n))
+    logp = lchoose(r1e, x) + lchoose(r2e, c1e - x) - lchoose(ne, c1e)
+    valid = x <= hi[..., None]
+    return x, logp, valid, a0, equal_margins
+
+
+def _observed(values, a0, maxs):
+    """``values`` at the observed table's support point.  ``a0 < maxs``
+    for every table a panel can produce; the clamp only keeps the
+    unreachable LUT grid entries (f0 + f1 > asize) in bounds, where JAX's
+    out-of-range gather fills instead."""
+    return torch.gather(values, -1, a0.clamp(max=maxs - 1)[..., None])
+
+
+def _suffix_blocked(bad: torch.Tensor) -> torch.Tensor:
+    """Number of ``bad`` support points at or above each point."""
+    return bad.flip(-1).to(torch.int32).cumsum(-1).flip(-1)
+
+
+def fet_two_tailed(
+    tables: torch.Tensor, maxs: int, nmax: int, dtype=torch.float64
+) -> torch.Tensor:
+    """Two-tailed FET p for a batch of 2x2 tables (Zar-shortcut
+    semantics, ``divergence_tpu/kernels/fet.py:fet_two_tailed``).
+
+    ``tables``: [..., 4] integer; ``maxs``: support bound; ``nmax``: max
+    total count (for the log-factorial table).  Returns [...] in ``dtype``."""
+    x, logp, valid, a0, equal_margins = _support_logp(tables, maxs, nmax, dtype)
+    p = torch.where(valid, torch.exp(logp), 0.0)
+    p0 = _observed(p, a0, maxs)
+    a0e = a0[..., None]
+    # first tail: every table from the observed minimum cell down to zero
+    # (reference statistics/fisher/cFisher.c:422-427)
+    t1 = torch.where(x <= a0e, p, 0.0).sum(-1)
+    # second tail: scanned from the opposite extreme inward while STRICTLY
+    # less probable than the observed table (cFisher.c:440); a position
+    # contributes iff no valid table at >= x fails the comparison
+    tie_rtol = 1e-12 if dtype == torch.float64 else 1e-5
+    bad = (p >= p0 * (1.0 - tie_rtol)) & valid
+    ok = (_suffix_blocked(bad) == 0) & valid & (x > a0e)
+    t2 = torch.where(ok, p, 0.0).sum(-1)
+
+    total = torch.where(equal_margins, 2.0 * t1, t1 + t2)
+    # snap round-off-shy-of-1 totals to exactly 1 and clamp the >1
+    # overshoots (cFisher.c:451-452)
+    snap = 1e-12 if dtype == torch.float64 else 1e-5
+    return torch.where(total > 1.0 - snap, 1.0, total)
+
+
+def fet_two_tailed_neglog10(
+    tables: torch.Tensor, maxs: int, nmax: int, dtype=torch.float32
+) -> torch.Tensor:
+    """``-log10`` of :func:`fet_two_tailed` computed without ever
+    materializing ``p`` — the fast (f32) path's score function: a
+    max-shifted log-sum-exp over the same selected support keeps every
+    score finite where f32 ``p`` would underflow (large panels).  Tie and
+    snap rules mirror the linear path's f32 band in log space."""
+    x, logp, valid, a0, equal_margins = _support_logp(tables, maxs, nmax, dtype)
+    logp = torch.where(valid, logp, float("-inf"))
+    logp0 = _observed(logp, a0, maxs)
+    a0e = a0[..., None]
+    tie_rtol = 1e-12 if dtype == torch.float64 else 1e-5
+    bad = (logp >= logp0 + _const(np.log1p(-tie_rtol), dtype)) & valid
+    sel1 = (x <= a0e) & valid
+    sel2 = (_suffix_blocked(bad) == 0) & valid & (x > a0e)
+    sel = torch.where(equal_margins[..., None], sel1, sel1 | sel2)
+
+    # the observed table is always selected, so the max is finite
+    lm = torch.where(sel, logp, float("-inf"))
+    M = lm.amax(-1, keepdim=True)
+    ssum = torch.where(sel, torch.exp(lm - M), 0.0).sum(-1)
+    log_total = M[..., 0] + torch.log(ssum)
+    log_total = log_total + equal_margins.to(dtype) * _const(np.log(2.0), dtype)
+
+    snap = 1e-12 if dtype == torch.float64 else 1e-5
+    neglog10 = -log_total / _const(np.log(10.0), dtype)
+    return torch.where(
+        log_total > _const(np.log1p(-snap), dtype), 0.0, neglog10
+    )
+
+
+def _neglog10_p(tables, maxs, nmax, dtype):
+    """Per-table score ``-log10 p``: linear f64 for exact mode (the C's
+    doubles), log-space for f32 (:func:`fet_two_tailed_neglog10`)."""
+    if dtype == torch.float64:
+        return -torch.log10(fet_two_tailed(tables, maxs, nmax, dtype=dtype))
+    return fet_two_tailed_neglog10(tables, maxs, nmax, dtype=dtype)
+
+
+def _table_grid(asize: int, bsize: int) -> np.ndarray:
+    """Every rectangular (f0, f1, f2, f3) combination with f0, f1 in
+    [0, asize] and f2, f3 in [0, bsize], flattened row-major.  Includes
+    unreachable combos (f0 + f1 > asize); they are never gathered."""
+    A1, B1 = asize + 1, bsize + 1
+    g = np.indices((A1, A1, B1, B1), dtype=np.int32)
+    return g.reshape(4, -1).T
+
+
+def lut_active(asize: int, bsize: int) -> bool:
+    """Whether the per-SNP scores go through the possible-table LUT.
+
+    Depends on the panel only, never on the chromosome length (the JAX
+    package's round-5 rule: every host of a run takes the same branch).
+    The bound caps the one-off LUT build at ~1e8 support-scan ops; the
+    G < 2^24 term mirrors the JAX package's rank-path guard so that both
+    packages switch at the same panels."""
+    grid = (asize + 1) ** 2 * (bsize + 1) ** 2
+    return (
+        grid * support_size(asize, bsize) <= _LUT_MAX_BUILD_OPS
+        and grid < (1 << 24)
+    )
+
+
+def _lut_index(tables: torch.Tensor, asize: int, bsize: int) -> torch.Tensor:
+    A1, B1 = asize + 1, bsize + 1
+    t = tables.to(torch.int64)
+    return ((t[..., 0] * A1 + t[..., 1]) * B1 + t[..., 2]) * B1 + t[..., 3]
+
+
+# --------------------------------------------------------------------------
+# CUDA launch plumbing
+# --------------------------------------------------------------------------
+
+def _dtype_suffix(dtype: torch.dtype) -> str:
+    if dtype == torch.float64:
+        return "f64"
+    if dtype == torch.float32:
+        return "f32"
+    raise TypeError(f"FET kernels take float32 or float64, got {dtype}")
+
+
+def _is_cpu(t: torch.Tensor | torch.device) -> bool:
+    dev = t if isinstance(t, torch.device) else t.device
+    if dev.type == "cpu":
+        return True
+    if dev.type != "cuda":
+        raise ValueError(f"FET kernels run on CUDA or CPU tensors, got {dev}")
+    return False
+
+
+def _launch(kernel: str, symbol: str, device: torch.device, *args) -> None:
+    """Call ``symbol`` of the kernel library on ``device``'s current
+    stream, raise on a refused launch, count it under ``kernel``."""
+    from divergence_tpu_torch.kernels import _build
+
+    lib = _build.library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, symbol)(*args, ctypes.c_void_p(stream))
+    if rc != 0:
+        msg = lib.fet_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{symbol} launch failed: CUDA error {rc} ({msg})")
+    LAUNCHES[kernel] += 1
+
+
+def _ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+# --------------------------------------------------------------------------
+# K1: per-SNP scores
+# --------------------------------------------------------------------------
+
+def fet_lut_plain(asize, bsize, maxs, nmax, dtype, device) -> torch.Tensor:
+    """Plain torch version of :func:`fet_lut`."""
+    grid = torch.from_numpy(_table_grid(asize, bsize)).to(device)
+    return _neglog10_p(grid, maxs, nmax, dtype)
+
+
+def fet_lut(asize, bsize, maxs, nmax, dtype, device) -> torch.Tensor:
+    """Score ``-log10 p`` of every table of the (asize+1)^2 (bsize+1)^2
+    grid (``divergence_tpu/kernels/fet.py:fet_snp_logs``' LUT), row-major
+    in (f0, f1, f2, f3)."""
+    device = torch.device(device)
+    if _is_cpu(device):
+        return fet_lut_plain(asize, bsize, maxs, nmax, dtype, device)
+    lf = _lf_table(nmax, dtype, device)
+    out = torch.empty(
+        (asize + 1) ** 2 * (bsize + 1) ** 2, dtype=dtype, device=device
+    )
+    _launch(
+        "fet_lut_build", f"fet_lut_build_{_dtype_suffix(dtype)}", device,
+        _ptr(lf), nmax, asize, bsize, maxs, _ptr(out),
+    )
+    return out
+
+
+def fet_snp_logs_plain(
+    vals: torch.Tensor, asize: int, maxs: int, nmax: int, fast: bool = False
+) -> torch.Tensor:
+    """Plain torch version of :func:`fet_snp_logs`."""
+    dtype = compute_dtype("fast" if fast else "exact")
+    bsize = vals.shape[1] - asize
+    tables = count_tables(vals[:, :asize], vals[:, asize:])
+    if not lut_active(asize, bsize):
+        return _neglog10_p(tables, maxs, nmax, dtype)
+    lut = fet_lut_plain(asize, bsize, maxs, nmax, dtype, vals.device)
+    return lut[_lut_index(tables, asize, bsize)]
+
+
+def fet_snp_logs(
+    vals: torch.Tensor, asize: int, maxs: int, nmax: int, fast: bool = False
+) -> torch.Tensor:
+    """-log10 two-tailed FET p for every SNP of a chromosome, once
+    (``divergence_tpu/kernels/fet.py:fet_snp_logs_joint``).
+
+    ``vals``: [N, asize+bsize] joint genotype codes, group A first
+    (:meth:`SnpPair.to_device`).  When :func:`lut_active`, the test is
+    evaluated once per possible table and each SNP reads its table's
+    score; otherwise each SNP scans its own support.  Returns [N] float64
+    (exact) or float32 (``fast``)."""
+    if _is_cpu(vals):
+        return fet_snp_logs_plain(vals, asize, maxs, nmax, fast)
+    dtype = compute_dtype("fast" if fast else "exact")
+    if vals.dtype != torch.int16:
+        raise TypeError(
+            f"fet_snp_logs kernel takes int16 genotype codes, got {vals.dtype}"
+        )
+    if vals.dim() != 2 or not vals.is_contiguous():
+        raise ValueError("fet_snp_logs kernel takes a contiguous [N, a+b] tensor")
+    bsize = vals.shape[1] - asize
+    lut = (
+        fet_lut(asize, bsize, maxs, nmax, dtype, vals.device)
+        if lut_active(asize, bsize) else None
+    )
+    lf = _lf_table(nmax, dtype, vals.device)
+    out = torch.empty(vals.shape[0], dtype=dtype, device=vals.device)
+    _launch(
+        "fet_snp_logs", f"fet_snp_logs_{_dtype_suffix(dtype)}", vals.device,
+        _ptr(vals), vals.shape[0], asize, bsize, _ptr(lut), _ptr(lf), nmax,
+        maxs, _ptr(out),
+    )
+    return out
+
+
+# --------------------------------------------------------------------------
+# K2: window percentile + bootstrap stddev
+# --------------------------------------------------------------------------
+
+def _interp_ranks(npos: torch.Tensor, perc: float, dtype=torch.float64):
+    """(idx, hi_idx, delta) of the reference's interpolated percentile
+    (reference statistics/fisher/cFisher.c:136-144): with ascending order
+    statistics s[.], result = (1-d)*s[idx] + d*s[hi_idx],
+    idx = int((n-1)*perc), hi_idx = min(idx+1, n-1)."""
+    nf = npos.to(dtype)
+    xpos = (nf - 1.0) * _const(perc, dtype)
+    idx = torch.floor(xpos).to(torch.int64)
+    delta = xpos - idx.to(dtype)
+    hi_idx = torch.minimum(idx + 1, (npos - 1).clamp(min=0))
+    return idx, hi_idx, delta
+
+
+def _sorted_pick(sorted_asc: torch.Tensor, npos: torch.Tensor, rank: torch.Tensor):
+    """Value of ascending order statistic ``rank`` (0-based, per window)
+    from a padded ascending sort where the n valid values occupy the LAST
+    n positions (padding = -inf sorts first).  ``rank`` is [B, S]."""
+    P = sorted_asc.shape[-1]
+    pos = (P - npos[:, None] + rank).clamp(0, P - 1)
+    return torch.gather(sorted_asc, -1, pos)
+
+
+def _steps_max(P: int, perc: float, dtype) -> int:
+    """Upper bound on the Renyi steps t1 = (n-1) - idx(n) over every
+    window size n <= P, in the SAME dtype arithmetic as
+    :func:`_interp_ranks` (a float32-rounded (n-1)*perc can floor one
+    below the Python-float value)."""
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    n1 = np.arange(P, dtype=np_dtype)              # n - 1 for n = 1..P
+    idx = np.floor(n1 * np_dtype(perc))
+    return int(np.max(n1 - idx))
+
+
+def _order_stat_uniforms(wkeys, nf, t1, t2, nsamples, steps_max, dtype):
+    """(U_(k1), U_(k2)) joint order statistics of n iid uniforms via the
+    Renyi top-down recursion U_(n) = V^(1/n), U_(k) = U_(k+1) * V^(1/k).
+
+    Step j draws ``uniform(fold_in(wkey, j), (nsamples,))`` and produces
+    U_(n-j); the per-window targets t1 >= t2 are captured with masks, so
+    one fixed-length loop serves windows of every n.  Keys are per window
+    (slot-derived), so every stream is a pure function of the window's
+    genomic identity."""
+    B = nf.shape[0]
+    u = torch.ones((B, nsamples), dtype=dtype, device=nf.device)
+    u1 = u
+    u2 = u
+    for j in range(steps_max + 1):
+        jf = float(j)
+        v_j = rng.uniform(rng.fold_in(wkeys, j), nsamples, dtype)   # [B, S]
+        # a tensor exponent: the elementwise pow the kernel also calls
+        factor = v_j ** (torch.ones_like(nf) / torch.clamp(nf - jf, min=1.0))
+        u = torch.where(jf <= t1, u * factor, u)
+        u2 = torch.where(jf == t2, u, u2)
+        u1 = torch.where(jf == t1, u, u1)
+    return u1, u2
+
+
+def _aggregate(logs, npos, perc, wkeys, nsamples, dtype):
+    """Window score (interpolated percentile of ``logs[b, :npos[b]]``)
+    and bootstrap stddev, for ``logs`` [B, P] and keys [B, 2]."""
+    B, P = logs.shape
+    snp_mask = torch.arange(P, device=logs.device)[None, :] < npos[:, None]
+    logs_sorted = torch.sort(
+        torch.where(snp_mask, logs, float("-inf")), dim=-1
+    ).values
+
+    idx, hi_idx, delta = _interp_ranks(npos, perc, dtype=dtype)
+    v_lo = _sorted_pick(logs_sorted, npos, idx[:, None])[:, 0]
+    v_hi = _sorted_pick(logs_sorted, npos, hi_idx[:, None])[:, 0]
+    scores = (1.0 - delta) * v_lo + delta * v_hi
+
+    # Bootstrap stddev via order statistics: the percentile of a resample
+    # of n draws interpolates its ascending order statistics at ranks
+    # k1 = idx+1 and k2 = hi_idx+1; X_(k) = sorted[ceil(n*U_(k)) - 1].
+    nf = npos.to(dtype)[:, None]                            # [B, 1]
+    idx_f = idx.to(dtype)[:, None]
+    hi_f = hi_idx.to(dtype)[:, None]
+    t1 = torch.clamp(nf - 1.0 - idx_f, min=0.0)
+    t2 = nf - 1.0 - hi_f
+    steps_max = _steps_max(P, perc, dtype)
+    u1, u2 = _order_stat_uniforms(wkeys, nf, t1, t2, nsamples, steps_max, dtype)
+
+    def rank_of(u):
+        r = torch.ceil(nf * u) - 1.0
+        r = torch.minimum(torch.clamp(r, min=0.0), torch.clamp(nf - 1.0, min=0.0))
+        return r.to(torch.int64)
+
+    x1 = _sorted_pick(logs_sorted, npos, rank_of(u1))       # [B, S]
+    same = (hi_idx == idx)[:, None]
+    x2 = torch.where(same, x1, _sorted_pick(logs_sorted, npos, rank_of(u2)))
+    reps = (1.0 - delta[:, None]) * x1 + delta[:, None] * x2
+    mu = reps.mean(-1, keepdim=True)
+    stddev = torch.sqrt(((reps - mu) ** 2).mean(-1))
+
+    valid_w = npos > 0
+    return (
+        torch.where(valid_w, scores, 0.0),
+        torch.where(valid_w, stddev, 0.0),
+    )
+
+
+def _window_pad(max_npos: int) -> int:
+    """Padded per-window SNP count: the next power of two >= the largest
+    window, at least 32 (the JAX engine's ``P``)."""
+    P = 32
+    while P < max_npos:
+        P *= 2
+    return P
+
+
+def fet_aggregate_plain(
+    snp_logs, lo, npos, slot, chrom_key, perc, nsamples
+) -> torch.Tensor:
+    """Plain torch version of :func:`fet_aggregate` (windows processed in
+    chunks of ``_AGG_WINDOW_CHUNK`` to bound memory; every window's result
+    depends on that window alone)."""
+    dev = snp_logs.device
+    dtype = snp_logs.dtype
+    lo, npos, slot = (t.to(dev, torch.int64) for t in (lo, npos, slot))
+    key = chrom_key.to(dev, torch.int64)
+    B = lo.shape[0]
+    out = torch.zeros((2, B), dtype=dtype, device=dev)
+    if B == 0:
+        return out
+    P = _window_pad(int(npos.max()))
+    offs = torch.arange(P, device=dev)[None, :]
+    for s in range(0, B, _AGG_WINDOW_CHUNK):
+        sl = slice(s, min(s + _AGG_WINDOW_CHUNK, B))
+        gidx = torch.where(offs < npos[sl, None], lo[sl, None] + offs, 0)
+        logs = snp_logs[gidx]                                # [b, P]
+        wkeys = rng.slot_keys(key, slot[sl])
+        sc, sd = _aggregate(logs, npos[sl], perc, wkeys, nsamples, dtype)
+        out[0, sl] = sc
+        out[1, sl] = sd
+    return out
+
+
+def fet_aggregate(
+    snp_logs: torch.Tensor,   # [N] per-SNP -log10 p (fet_snp_logs)
+    lo: torch.Tensor,         # [B] first SNP index per window
+    npos: torch.Tensor,       # [B] SNP count per window (> 0)
+    slot: torch.Tensor,       # [B] output slot (window genomic identity)
+    chrom_key: torch.Tensor,  # [2] chromosome key; windows fold in their slot
+    perc: float,
+    nsamples: int,
+) -> torch.Tensor:
+    """Window percentile + bootstrap stddev of every window of one
+    chromosome (``divergence_tpu/kernels/fet.py:fet_aggregate_all``).
+    Returns [2, B] (scores, stddev) in ``snp_logs.dtype``.
+
+    Window descriptors may live on the host; on a CUDA ``snp_logs`` the
+    wrapper reads the largest window from them (host tensors avoid a
+    device sync) and uploads them packed."""
+    if _is_cpu(snp_logs):
+        return fet_aggregate_plain(
+            snp_logs, lo, npos, slot, chrom_key, perc, nsamples
+        )
+    dev = snp_logs.device
+    dtype = snp_logs.dtype
+    if snp_logs.dim() != 1 or not snp_logs.is_contiguous():
+        raise ValueError("fet_aggregate kernel takes contiguous [N] scores")
+    B = lo.shape[0]
+    out = torch.empty((2, B), dtype=dtype, device=dev)
+    if B == 0:
+        return out
+    pmax = _window_pad(int(npos.max()))
+    if pmax > MAX_WINDOW_SNPS:
+        raise ValueError(
+            f"a window holds {int(npos.max())} SNPs; the fet_aggregate "
+            f"kernel sorts at most {MAX_WINDOW_SNPS} per window"
+        )
+    smem = (pmax + nsamples) * snp_logs.element_size()
+    if smem > _SMEM_LIMIT:
+        raise ValueError(
+            f"fet_aggregate needs {smem} B of shared memory per window "
+            f"(P={pmax}, nsamples={nsamples}); a block has {_SMEM_LIMIT}"
+        )
+    if int(lo.min()) < 0 or int((lo + npos).max()) > snp_logs.shape[0]:
+        raise ValueError("window descriptors reach outside snp_logs")
+    rows = torch.stack([lo, npos, slot]).to(torch.int64)
+    if rows.device.type == "cpu":
+        # pinned + non_blocking: the upload queues behind K1 instead of
+        # waiting for it
+        rows = rows.pin_memory()
+    rows = rows.to(dev, non_blocking=True)
+    k0, k1 = (int(w) for w in chrom_key.tolist())
+    _launch(
+        "fet_aggregate", f"fet_aggregate_{_dtype_suffix(dtype)}", dev,
+        _ptr(snp_logs), _ptr(rows), B, ctypes.c_uint32(k0),
+        ctypes.c_uint32(k1), ctypes.c_double(perc), nsamples, pmax, _ptr(out),
+    )
+    return out

@@ -1,0 +1,124 @@
+"""Threefry-2x32 replica of ``jax.random`` — bit-equal keys and uniforms.
+
+The JAX package derives every random stream as a pure function of
+(seed, chromosome, window slot, step):
+``uniform(fold_in(fold_in(fold_in(PRNGKey(seed), chrom_hash(seqid)), slot), j),
+(nsamples,), dtype)`` (``divergence_tpu/kernels/fet.py:_order_stat_uniforms``,
+``divergence_tpu/kernels/perm.py:slot_keys``).  A ``torch.Generator``
+would give other numbers, so this module reproduces JAX's generator word
+for word, with ``jax_threefry_partitionable`` on (the JAX default):
+
+* ``PRNGKey(seed)`` = the 64-bit seed split into ``[seed >> 32, seed & 0xFFFFFFFF]``;
+* ``fold_in(key, d)`` = ``threefry2x32(key, (0, d))``;
+* ``uniform(key, (n,))`` draws element ``i`` from ``(b0, b1) =
+  threefry2x32(key, (0, i))``: float32 takes ``b0 ^ b1``, float64 takes
+  ``b0 << 32 | b1``; the top mantissa bits under exponent 0 give a float
+  in [1, 2), minus 1.
+
+Keys are int64 tensors of shape ``[..., 2]`` holding uint32 words (torch's
+CPU ``uint32`` lacks shifts and xor in places); every word op masks to
+32 bits.  ``csrc/threefry.cuh`` is the device-side twin.
+"""
+
+from __future__ import annotations
+
+import zlib
+
+import numpy as np
+import torch
+
+MASK32 = 0xFFFFFFFF
+_KS_PARITY = 0x1BD11BDA
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_MANT52 = (1 << 52) - 1
+
+
+def chrom_hash(seqid: str) -> int:
+    """Stable 31-bit chromosome identifier for RNG stream derivation
+    (``divergence_tpu/kernels/perm.py:chrom_hash``)."""
+    return zlib.crc32(seqid.encode()) & 0x7FFFFFFF
+
+
+def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
+    return ((x << r) | (x >> (32 - r))) & MASK32
+
+
+def threefry2x32(k0, k1, x0, x1) -> tuple[torch.Tensor, torch.Tensor]:
+    """Threefry-2x32, 20 rounds, on int64 tensors of uint32 words
+    (broadcasting).  The key schedule and rotations of
+    ``jax/_src/prng.py:_threefry2x32_lowering``."""
+    ks = (k0, k1, k0 ^ k1 ^ _KS_PARITY)
+    x0 = (x0 + k0) & MASK32
+    x1 = (x1 + k1) & MASK32
+    for g in range(5):
+        for r in _ROTATIONS[g % 2]:
+            x0 = (x0 + x1) & MASK32
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(g + 1) % 3]) & MASK32
+        x1 = (x1 + ks[(g + 2) % 3] + (g + 1)) & MASK32
+    return x0, x1
+
+
+def prng_key(seed: int, device: str | torch.device = "cpu") -> torch.Tensor:
+    """``jax.random.PRNGKey(seed)`` (64-bit seed, as under x64) as a
+    ``[2]`` int64 tensor of uint32 words."""
+    s = int(seed) % (1 << 64)
+    return torch.tensor([s >> 32, s & MASK32], dtype=torch.int64, device=device)
+
+
+def key_from_words(words: np.ndarray, device: str | torch.device = "cpu") -> torch.Tensor:
+    """A key from its uint32 words (e.g. ``jax.random.key_data(key)``)."""
+    w = np.asarray(words, dtype=np.uint32).astype(np.int64)
+    return torch.from_numpy(w).to(device)
+
+
+def fold_in(key: torch.Tensor, data) -> torch.Tensor:
+    """``jax.random.fold_in``: ``key`` ``[..., 2]``, ``data`` an int or an
+    integer tensor broadcasting against ``key[..., 0]`` (taken mod 2**32,
+    as JAX's cast to uint32)."""
+    if not torch.is_tensor(data):
+        data = torch.tensor(int(data) & MASK32, dtype=torch.int64, device=key.device)
+    data = data.to(torch.int64) & MASK32
+    zero = torch.zeros_like(data)
+    b0, b1 = threefry2x32(key[..., 0], key[..., 1], zero, data)
+    return torch.stack([b0, b1], dim=-1)
+
+
+def slot_keys(key: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
+    """Per-window keys ``[B, 2]`` from a chromosome key:
+    ``fold_in(key, slot)`` (``divergence_tpu/kernels/perm.py:slot_keys``)."""
+    return fold_in(key, slots)
+
+
+def _counter_bits(key: torch.Tensor, n: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``threefry2x32(key, (0, i))`` for i < n: two ``[..., n]`` words."""
+    ctr = torch.arange(n, dtype=torch.int64, device=key.device)
+    return threefry2x32(
+        key[..., 0:1], key[..., 1:2], torch.zeros_like(ctr), ctr
+    )
+
+
+def uniform_bits32(key: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.bits(key, (n,), uint32)`` as int64 ``[..., n]``."""
+    b0, b1 = _counter_bits(key, n)
+    return b0 ^ b1
+
+
+def uniform_bits64(key: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.bits(key, (n,), uint64)`` as int64 ``[..., n]`` holding
+    the uint64 bit pattern (values >= 2**63 read as negative)."""
+    b0, b1 = _counter_bits(key, n)
+    return (b0 << 32) | b1
+
+
+def uniform(key: torch.Tensor, n: int, dtype: torch.dtype) -> torch.Tensor:
+    """``jax.random.uniform(key, (n,), dtype)`` in [0, 1), for a key
+    ``[..., 2]`` → ``[..., n]``."""
+    if dtype == torch.float32:
+        bits = (uniform_bits32(key, n) >> 9) | 0x3F800000
+        return bits.to(torch.int32).view(torch.float32) - 1.0
+    if dtype == torch.float64:
+        # arithmetic shift, then mask: the sign-extended bits drop out
+        bits = ((uniform_bits64(key, n) >> 12) & _MANT52) | 0x3FF0000000000000
+        return bits.view(torch.float64) - 1.0
+    raise TypeError(f"uniform supports float32 and float64, got {dtype}")

@@ -1,0 +1,145 @@
+"""The port carries copies of the JAX package's jax-free host modules
+(importing ``divergence_tpu`` imports jax, which the port must not need).
+These tests hold each copy equal to its original: same source for the
+verbatim parts, same output on the same input."""
+
+import inspect
+
+import numpy as np
+import pytest
+
+import divergence_tpu.config as jconfig
+import divergence_tpu.core.windows as jwindows
+import divergence_tpu.io.genome as jgenome
+import divergence_tpu.io.gtrack as jgtrack
+import divergence_tpu.utils.summary as jsummary
+import divergence_tpu_torch.config as tconfig
+import divergence_tpu_torch.core.windows as twindows
+import divergence_tpu_torch.io.genome as tgenome
+import divergence_tpu_torch.io.gtrack as tgtrack
+import divergence_tpu_torch.utils.summary as tsummary
+from divergence_tpu_torch.tools import synth
+
+VERBATIM = [
+    (jwindows, twindows, "WindowPlan"),
+    (jwindows, twindows, "plan_windows"),
+    (jgtrack, tgtrack, "PopulationTrack"),
+    (jgtrack, tgtrack, "_infer_population_size"),
+    (jgtrack, tgtrack, "_read_rows_chunked"),
+    (jgtrack, tgtrack, "_group_rows_indexed"),
+    (jgtrack, tgtrack, "gtrack_points_header"),
+    (jgtrack, tgtrack, "write_score_track"),
+    (jgtrack, tgtrack, "read_score_track"),
+    (jgenome, tgenome, "read_chrom_sizes"),
+    (jgenome, tgenome, "write_chrom_sizes"),
+    (jsummary, tsummary, "RunSummary"),
+    (jsummary, tsummary, "StageTimer"),
+    (jconfig, tconfig, "WindowConfig"),
+    (jconfig, tconfig, "FetConfig"),
+]
+
+
+@pytest.mark.parametrize(
+    "orig,copy,name", VERBATIM, ids=[f"{m.__name__}.{n}" for m, _, n in VERBATIM]
+)
+def test_copy_is_verbatim(orig, copy, name):
+    assert inspect.getsource(getattr(copy, name)) == inspect.getsource(
+        getattr(orig, name)
+    )
+
+
+@pytest.mark.parametrize(
+    "wsize,wstep,regend",
+    [(2500, 500, 20_000), (1000, 1000, 7_777), (300, 700, 15_000), (5000, 500, 3000)],
+)
+def test_plan_windows_equal(wsize, wstep, regend):
+    rs = np.random.default_rng(wsize + wstep)
+    positions = np.sort(rs.choice(np.arange(1, regend + 500), 300, replace=False))
+    a = jwindows.plan_windows(positions, regend, wsize, wstep)
+    b = twindows.plan_windows(positions, regend, wsize, wstep)
+    for f in ("starts", "lo", "npos", "slot"):
+        assert np.array_equal(getattr(a, f), getattr(b, f)), f
+    assert (a.nslots, a.wsize, a.wstep) == (b.nslots, b.wsize, b.wstep)
+    assert np.array_equal(a.valid_mask(), b.valid_mask())
+
+
+def _equal_tracks(a, b):
+    assert list(a) == list(b)
+    for seqid in a:
+        x, y = a[seqid], b[seqid]
+        assert (x.seqid, x.size) == (y.seqid, y.size)
+        assert np.array_equal(x.pos, y.pos) and np.array_equal(x.vals, y.vals)
+
+
+def test_gtrack_reader_equal(tmp_path):
+    """Port reader (Python parser) == JAX reader (native parser where built)
+    on a multi-chromosome file with comments and out-of-order blocks."""
+    path = tmp_path / "pop.gtrack"
+    lines = []
+    for seqid, seed in (("chrB", 1), ("chrA", 2), ("chrC", 3)):
+        pos, am, _ = synth.make_panel(60, 5000, 4, 3, seed=seed)
+        synth.write_gtrack(tmp_path / "one.gtrack", seqid, pos, am)
+        lines += (tmp_path / "one.gtrack").read_text().splitlines(keepends=True)
+        lines.append("# an interleaved comment\n")
+    # move one block of chrA's rows ahead of chrB: forces the lexsort path
+    chra = [ln for ln in lines if ln.startswith("chrA\t")][:4]
+    rest = [ln for ln in lines if ln not in chra]
+    path.write_text("".join(chra + rest))
+    _equal_tracks(
+        jgtrack.read_gtrack_points(path), tgtrack.read_gtrack_points(path)
+    )
+    _equal_tracks(
+        jgtrack.read_gtrack_points(path, seqids=["chrC"]),
+        tgtrack.read_gtrack_points(path, seqids=["chrC"]),
+    )
+
+
+def test_synth_gtrack_round_trip(tmp_path):
+    pos, am, bm = synth.make_panel(500, 40_000, 11, 10, seed=5)
+    assert am.dtype == np.int16 and am.shape == (500, 11) and bm.shape == (500, 10)
+    assert set(np.unique(np.concatenate([am, bm], axis=1))) <= {3, -3, 0, -10000}
+    assert np.all(np.diff(pos) > 0)
+    synth.write_gtrack(tmp_path / "a.gtrack", "chrX", pos, am)
+    track = tgtrack.read_gtrack_points(tmp_path / "a.gtrack")["chrX"]
+    assert track.size == 11
+    assert np.array_equal(track.positions_unique(), pos)
+    assert np.array_equal(track.values_matrix(), am)
+
+
+def test_score_track_writer_and_reader_equal(tmp_path):
+    rs = np.random.default_rng(9)
+    results = {}
+    for seqid in ("chr2", "chr1"):
+        s = rs.uniform(0, 6, 40)
+        s[rs.random(40) < 0.3] = 0.0
+        results[seqid] = (s, rs.uniform(0, 1, 40))
+    jgtrack.write_score_track(tmp_path / "j.track", results, 500)
+    tgtrack.write_score_track(tmp_path / "t.track", results, 500)
+    assert (tmp_path / "j.track").read_bytes() == (tmp_path / "t.track").read_bytes()
+    a = jgtrack.read_score_track(tmp_path / "j.track")
+    b = tgtrack.read_score_track(tmp_path / "t.track")
+    assert a[0] == b[0]
+    for x, y in zip(a[1:], b[1:]):
+        assert np.array_equal(x, y)
+
+
+def test_chrom_sizes_equal(tmp_path):
+    path = tmp_path / "g.sizes"
+    path.write_text("# sizes\nchrI\t29000000\nchrII  23000000\n\nchrUn\t5\n")
+    assert jgenome.read_chrom_sizes(path) == tgenome.read_chrom_sizes(path)
+
+
+def test_config_defaults_and_validation_equal():
+    t, j = tconfig.FetConfig(), jconfig.FetConfig()
+    assert t.__dict__.keys() == j.__dict__.keys()
+    assert (t.percentile, t.bootstrap_samples, t.seed, t.precision) == (
+        j.percentile, j.bootstrap_samples, j.seed, j.precision
+    )
+    assert t.precision == "exact"           # the library default
+    assert (t.window.wsize, t.window.wstep) == (j.window.wsize, j.window.wstep)
+    for bad in ({"percentile": 1.5}, {"bootstrap_samples": 1}, {"precision": "x"}):
+        with pytest.raises(ValueError):
+            tconfig.FetConfig(**bad)
+    w = tconfig.WindowConfig(wsize=2500, wstep=500)
+    assert w.num_slots(20_001) == jconfig.WindowConfig().num_slots(20_001)
+    assert w.num_windows(20_001) == jconfig.WindowConfig().num_windows(20_001)

@@ -1,0 +1,117 @@
+"""The port's threefry replica (divergence_tpu_torch.rng) is bit-equal to
+jax.random: keys, fold_in, slot keys, raw bits and float32/float64
+uniforms, over several seeds, slots and shapes."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import divergence_tpu  # noqa: F401  (x64 on, as the JAX package runs)
+from divergence_tpu.kernels import perm as kperm
+from divergence_tpu_torch import rng
+
+SEEDS = [0, 1, 42, 987654321, 2**32 + 7]
+FOLD_DATA = [0, 1, 7, 255, 123456, 2**31 - 1, 2**32 - 1]
+
+
+def _words(key) -> np.ndarray:
+    return np.asarray(jax.random.key_data(key)).astype(np.int64)
+
+
+def _bits_of(a: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(a).view(np.uint8)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_prng_key(seed):
+    assert np.array_equal(rng.prng_key(seed).numpy(), _words(jax.random.PRNGKey(seed)))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_fold_in_scalar(seed):
+    key = jax.random.PRNGKey(seed)
+    tkey = rng.prng_key(seed)
+    for d in FOLD_DATA:
+        want = _words(jax.random.fold_in(key, d))
+        assert np.array_equal(rng.fold_in(tkey, d).numpy(), want), d
+
+
+def test_fold_in_tensor_data_and_key_words():
+    key = jax.random.fold_in(jax.random.PRNGKey(3), 99)
+    tkey = rng.key_from_words(np.asarray(jax.random.key_data(key)))
+    data = np.array([0, 5, 77, 2**31 + 3, 4000000000], dtype=np.int64)
+    got = rng.fold_in(tkey, torch.from_numpy(data)).numpy()
+    want = np.stack([_words(jax.random.fold_in(key, int(d))) for d in data])
+    assert np.array_equal(got, want)
+
+
+def test_chrom_hash():
+    for s in ["chrI", "chrXXI", "_", "scaffold_1234", "chrUn"]:
+        assert rng.chrom_hash(s) == kperm.chrom_hash(s)
+
+
+@pytest.mark.parametrize("seed", SEEDS[:3])
+def test_slot_keys(seed):
+    ck = jax.random.fold_in(jax.random.PRNGKey(seed), kperm.chrom_hash("chrVII"))
+    slots = np.array([0, 1, 40, 123456, 799999, 2**31 - 1], dtype=np.int64)
+    want = np.asarray(jax.random.key_data(kperm.slot_keys(ck, jnp.asarray(slots))))
+    tck = rng.fold_in(rng.prng_key(seed), rng.chrom_hash("chrVII"))
+    got = rng.slot_keys(tck, torch.from_numpy(slots)).numpy()
+    assert np.array_equal(got, want.astype(np.int64))
+
+
+@pytest.mark.parametrize("seed", SEEDS[:3])
+@pytest.mark.parametrize("n", [1, 2, 33, 100])
+def test_raw_bits(seed, n):
+    key = jax.random.fold_in(jax.random.PRNGKey(seed), 11)
+    tkey = rng.key_from_words(np.asarray(jax.random.key_data(key)))
+    b32 = np.asarray(jax.random.bits(key, (n,), jnp.uint32))
+    b64 = np.asarray(jax.random.bits(key, (n,), jnp.uint64))
+    assert np.array_equal(rng.uniform_bits32(tkey, n).numpy(), b32.astype(np.int64))
+    assert np.array_equal(rng.uniform_bits64(tkey, n).numpy().view(np.uint64), b64)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("n", [1, 2, 100, 1001])
+def test_uniform_bootstrap_chain_bit_equal(dtype, n):
+    """The bootstrap's exact draw chain:
+    uniform(fold_in(fold_in(fold_in(PRNGKey(seed), chrom), slot), j), (n,))."""
+    jdt = jnp.dtype(dtype)
+    tdt = getattr(torch, dtype)
+    for seed in (0, 5):
+        ck = jax.random.fold_in(jax.random.PRNGKey(seed), kperm.chrom_hash("chrII"))
+        tck = rng.fold_in(rng.prng_key(seed), rng.chrom_hash("chrII"))
+        for slot in (0, 17, 50000):
+            wk = jax.random.fold_in(ck, slot)
+            twk = rng.fold_in(tck, slot)
+            for j in (0, 1, 9):
+                want = np.asarray(
+                    jax.random.uniform(jax.random.fold_in(wk, j), (n,), dtype=jdt)
+                )
+                got = rng.uniform(rng.fold_in(twk, j), n, tdt).numpy()
+                assert got.dtype == want.dtype
+                assert np.array_equal(_bits_of(got), _bits_of(want)), (seed, slot, j)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_uniform_batched_keys(dtype):
+    """A [B, 2] key batch draws [B, n], row b equal to the JAX draw of key b."""
+    ck = jax.random.fold_in(jax.random.PRNGKey(8), 1234)
+    slots = np.arange(0, 700, 37, dtype=np.int64)
+    wkeys = kperm.slot_keys(ck, jnp.asarray(slots))
+    want = np.asarray(
+        jax.vmap(lambda k: jax.random.uniform(k, (100,), dtype=jnp.dtype(dtype)))(wkeys)
+    )
+    tck = rng.key_from_words(np.asarray(jax.random.key_data(ck)))
+    got = rng.uniform(rng.slot_keys(tck, torch.from_numpy(slots)), 100, getattr(torch, dtype))
+    assert got.shape == (len(slots), 100)
+    assert np.array_equal(_bits_of(got.numpy()), _bits_of(want))
+
+
+def test_uniform_range_and_type_check():
+    u = rng.uniform(rng.prng_key(0), 5000, torch.float32)
+    assert float(u.min()) >= 0.0 and float(u.max()) < 1.0
+    with pytest.raises(TypeError):
+        rng.uniform(rng.prng_key(0), 4, torch.float16)
