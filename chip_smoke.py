@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of ``divergence_tpu_torch`` — the FET scan (``run-fet``) on one
-CUDA GPU, at the JAX package's bench scale.
+"""Smoke run of ``divergence_tpu_torch`` — the FET scan (``run-fet``) and the
+CSS scan (``run-css``) on one CUDA GPU, at the JAX package's bench scale.
 
 Usage, from the repository root, on a machine with one CUDA GPU::
 
@@ -10,25 +10,43 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. the card (``nvidia-smi`` name and power limit) and the nvcc build of
    ``divergence_tpu_torch/csrc``;
-2. every kernel against its plain torch version on the card, at the main
-   path's shapes, in both precisions: K1's LUT build at 11+10, K1 per SNP
-   at 8 M SNPs (11+10, LUT) and at 1 M SNPs on a 48+48 panel (no LUT), K2
-   on the ~800 k windows of the bench chromosome; plus the reference's
+2. every FET kernel against its plain torch version on the card, at the
+   main path's shapes, in both precisions: K1's LUT build at 11+10, K1 per
+   SNP at 8 M SNPs (11+10, LUT) and at 1 M SNPs on a 48+48 panel (no LUT),
+   K2 on the ~800 k windows of the bench chromosome; plus the reference's
    golden tables;
-3. the CLI slice: a seeded 500 k-SNP / 25 Mbp GTrack pair (11+10) through
+3. the FET CLI: a seeded 500 k-SNP / 25 Mbp GTrack pair (11+10) through
    ``run-fet`` in both precisions;
-4. the library: ``run_fet`` on the 8 M-SNP / 400 Mbp bench chromosome in
-   both precisions (warm wall time, SNP tests/s), and ``run_fet_multi`` on
-   the card against the plain torch path on the CPU on a small genome.
+4. the FET library: ``run_fet`` on the 8 M-SNP / 400 Mbp bench chromosome
+   in both precisions (warm wall time, SNP tests/s), and ``run_fet_multi``
+   on the card against the plain torch path on the CPU on a small genome;
+5. every CSS kernel against its plain torch version on the card:
+   ``css_dissim`` on the bench chromosome's ~800 k windows (against the
+   per-window counts) and on a 500 k-SNP stickleback panel (against the
+   prefix), exact integer equality; ``css_cmds`` on the ~800 k windows'
+   counts in both precisions; ``css_mc_coeff`` for the first 16 chunks,
+   bit-equal; ``css_mc_shared`` on the bench's 16x worst case (160 k SNPs,
+   every window to the 200 k cap);
+6. the CSS CLI: ``run-css`` (default fast) on phase 3's GTrack pair;
+7. the CSS library: ``run_css`` on the bench's three CSS workloads (warm
+   wall, windows/s, MC permutations/s), and ``run_css_multi`` on the card
+   against ``run_css`` on the CPU on a small genome, both precisions.
 
-Kernel launch counts are reset before phase 3 and read after phase 4.  The
-last three lines are a JSON line of per-kernel results, the card's name and
-power limit, and ``{"ok": true, "device": {...}}``.
+Kernel launch counts are reset before phase 3 and read after phase 4 (the
+FET path), and reset before phase 6 and read after phase 7 (the CSS path).
+The last three lines are a JSON line of per-kernel results, the card's
+name and power limit, and ``{"ok": true, "device": {...}}``.
 
-Tolerances (relative to max(|reference|, 1)): exact (float64) 1e-12, fast
-(float32) 1e-5.  K2's stddev must meet them on at least 99.99 % of windows:
-a window beyond would be a ceil(n*u) rank flip from a 1-ulp difference in
-pow; the count is printed.
+Tolerances (relative to max(|reference|, 1)): FET exact (float64) 1e-12,
+fast (float32) 1e-5; K2's stddev must meet them on at least 99.99 % of
+windows (a ceil(n*u) rank flip from a 1-ulp pow difference; the count is
+printed).  CSS counts and the MC coefficients: exactly equal.  CMDS
+scores: exact 1e-9, fast rtol 2e-3 atol 1e-4 (the JAX package's
+fast-vs-exact band), on windows whose eigengap (l2 - l3) / max(|l1|, 1)
+exceeds 1e-6 (below it the 2-D embedding is the eigensolver's choice; the
+excluded windows are counted and may be at most 1 %).  MC: pvals, nscores
+and hits identical on at least 99.9 % of windows (a float32 near tie can
+flip between summation orders; the count is printed).
 """
 
 from __future__ import annotations
@@ -58,15 +76,35 @@ CLI_SNPS, CLI_REGION = 500_000, 25_000_000
 # the large-panel K1 check: no LUT at 48 + 48
 BIG_SNPS, BIG_REGION = 1_000_000, 50_000_000
 ASIZE, BSIZE = 11, 10
+# CSS: the bench's 16x worst case (bench.py:425) and its three CSS
+# workloads (bench.py:357-358, :425, :475-476) with the precisions run
+WORST_CSS, WORST_SEED = (160_000, 8_000_000), 11
+CSS_WORKLOADS = [
+    (10_000, 500_000, 11, ("fast", "exact")),
+    (160_000, 8_000_000, 11, ("fast",)),
+    (200_000, 10_000_000, 7, ("fast",)),
+]
+TOL_CSS = 1e-9                   # CMDS scores, exact
+FAST_RTOL, FAST_ATOL = 2e-3, 1e-4   # CMDS scores, fast
+GAP_BOUND = 1e-6                 # eigengap below which a window is excluded
+MC_DIFFER_SHARE = 1e-3           # MC windows allowed to differ (near ties)
 REPLACES = {
     "fet_lut_build": "divergence_tpu/kernels/fet.py:372",
     "fet_snp_logs": "divergence_tpu/kernels/fet.py:318",
     "fet_aggregate": "divergence_tpu/kernels/fet.py:630",
+    "css_dissim": "divergence_tpu/kernels/css.py:55",
+    "css_cmds": "divergence_tpu/kernels/css.py:478",
+    "css_mc_coeff": "divergence_tpu/kernels/perm.py:249",
+    "css_mc_shared": "divergence_tpu/kernels/perm.py:302",
 }
 SOURCES = {
     "fet_lut_build": "divergence_tpu_torch/csrc/fet_snp.cu",
     "fet_snp_logs": "divergence_tpu_torch/csrc/fet_snp.cu",
     "fet_aggregate": "divergence_tpu_torch/csrc/fet_aggregate.cu",
+    "css_dissim": "divergence_tpu_torch/csrc/css_dissim.cu",
+    "css_cmds": "divergence_tpu_torch/csrc/css_cmds.cu",
+    "css_mc_coeff": "divergence_tpu_torch/csrc/css_mc.cu",
+    "css_mc_shared": "divergence_tpu_torch/csrc/css_mc.cu",
 }
 
 
@@ -234,8 +272,9 @@ def phase_kernels(torch, kfet, pair, plan_ids, dev, results) -> None:
         results["fet_aggregate"][prec + "_out"] = ka
 
 
-def phase_cli(torch, kfet, dev, tmp: Path) -> None:
-    """Phase 3: run-fet through the CLI on a 500 k-SNP GTrack pair."""
+def phase_cli(torch, kfet, dev, tmp: Path) -> tuple[Path, Path, Path]:
+    """Phase 3: run-fet through the CLI on a 500 k-SNP GTrack pair.
+    Returns the pair's files and chrom.sizes (phase 6 reuses them)."""
     import numpy as np
 
     from divergence_tpu_torch.io import read_score_track
@@ -281,6 +320,7 @@ def phase_cli(torch, kfet, dev, tmp: Path) -> None:
     check(all(v > 0 for v in kfet.LAUNCHES.values()),
           f"cli slice did not launch every kernel: {kfet.LAUNCHES}")
     say(f"[cli] launch counts so far: {kfet.LAUNCHES}")
+    return a_path, b_path, sizes
 
 
 def phase_library(torch, pair, n_tests, dev, card, k2_out) -> None:
@@ -336,6 +376,262 @@ def phase_library(torch, pair, n_tests, dev, card, k2_out) -> None:
             f"(3 x 20000 SNPs) within {TOL[prec]:g}")
 
 
+def gap_ok(torch, kcss, dis) -> "torch.Tensor":
+    """Windows whose CMDS embedding the eigensolver does not choose:
+    (l2 - l3) / max(|l1|, 1) > GAP_BOUND, from float64 eigenvalues of the
+    double-centred matrix (computed in window batches)."""
+    out = []
+    step = kcss._CMDS_BATCH          # the batch cuSOLVER's eigh accepts
+    for s in range(0, dis.shape[0], step):
+        filled, _ = kcss.fill_averages(dis[s:s + step].double())
+        ev = torch.linalg.eigvalsh(kcss.double_centre(filled)).flip(-1)
+        out.append((ev[:, 1] - ev[:, 2]) / ev[:, 0].abs().clamp(min=1.0) > GAP_BOUND)
+    return torch.cat(out)
+
+
+def windows_of(torch, positions, region):
+    """(lo, npos, slot) host tensors of the valid windows at 2500 / 500."""
+    import numpy as np
+
+    from divergence_tpu_torch.core.windows import plan_windows
+
+    plan = plan_windows(positions, region, 2500, 500)
+    ids = np.nonzero(plan.valid_mask() & (plan.npos > 0))[0]
+    return tuple(torch.from_numpy(a[ids].copy()) for a in (plan.lo, plan.npos, plan.slot))
+
+
+def phase_css_kernels(torch, pair, plan_ids, dev, results) -> None:
+    """Phase 5: the CSS kernels against their plain torch versions on the
+    card, both precisions (the MC is float32 in both)."""
+    import numpy as np
+
+    from divergence_tpu_torch import rng
+    from divergence_tpu_torch.engine import SnpPair
+    from divergence_tpu_torch.kernels import css as kcss
+    from divergence_tpu_torch.kernels import perm as kperm
+    from divergence_tpu_torch.tools.synth import make_chromosome, make_panel
+
+    vals = pair.to_device(dev)
+    lo, npos, _ = plan_ids
+    npos_d = npos.to(dev)
+    pos, am, bm = make_panel(CLI_SNPS, CLI_REGION, ASIZE, BSIZE, seed=5)
+    panel = SnpPair(pos, am, bm)
+    p_vals = panel.to_device(dev)
+    p_lo, p_npos, _ = windows_of(torch, pos, CLI_REGION)
+    check((p_vals.shape[0] + 1) * (ASIZE + BSIZE) ** 2 <= kcss.PREFIX_MAX_ELEMS,
+          "the stickleback panel must take the prefix twin")
+    check((vals.shape[0] + 1) * (ASIZE + BSIZE) ** 2 > kcss.PREFIX_MAX_ELEMS,
+          "the bench chromosome must take the counts twin")
+
+    # K3/K4: exact integer counts
+    plain64 = kcss.dissimilarity_plain(vals, lo, npos)
+    p_plain = kcss.dissimilarity_plain(p_vals, p_lo, p_npos)
+    for prec in ("fast", "exact"):
+        dt = torch.float32 if prec == "fast" else torch.float64
+        k = kcss.css_dissim(vals, lo, npos, dt)
+        kp = kcss.css_dissim(p_vals, p_lo, p_npos, dt)
+        torch.cuda.synchronize()
+        diff = max(abs_err(k, plain64), abs_err(kp, p_plain))
+        ms = cuda_ms(torch, lambda: kcss.css_dissim(vals, lo, npos, dt), 5)
+        pms = cuda_ms(torch, lambda: kcss.dissimilarity_plain(vals, lo, npos).to(dt), 1)
+        ms_p = cuda_ms(torch, lambda: kcss.css_dissim(p_vals, p_lo, p_npos, dt), 5)
+        pms_p = cuda_ms(torch, lambda: kcss.dissimilarity_plain(p_vals, p_lo, p_npos).to(dt), 1)
+        say(f"[K3 css_dissim {prec}] bench B={lo.numel()} windows vs the counts "
+            f"twin, panel B={p_lo.numel()} vs the prefix twin: max_abs_diff={diff} "
+            f"(exact counts); kernel {ms:.4f} ms plain {pms:.4f} ms; panel kernel "
+            f"{ms_p:.4f} ms plain {pms_p:.4f} ms")
+        check(diff == 0.0, f"css_dissim {prec}: counts differ by {diff}")
+        results["css_dissim"][prec] = (diff, diff, ms, pms)
+        del kp
+    del p_plain, p_vals
+
+    # K5: CMDS on the bench windows' counts
+    ok = gap_ok(torch, kcss, plain64)
+    excluded = int((~ok).sum())
+    for prec in ("fast", "exact"):
+        dt = torch.float32 if prec == "fast" else torch.float64
+        dis = plain64.to(dt)
+        ks, kd, kv = kcss.css_cmds(dis, npos_d, ASIZE, BSIZE)
+        ps, pd, pv = kcss.css_cmds_plain(dis, npos_d, ASIZE, BSIZE)
+        torch.cuda.synchronize()
+        check(torch.equal(kv, pv), f"css_cmds {prec}: valid flags differ")
+        check(torch.equal(ks.isnan(), ps.isnan()), f"css_cmds {prec}: NaN patterns differ")
+        sel = ok & ~ps.isnan()
+        got, want = ks.double()[sel], ps.double()[sel]
+        err = rel_err(got, want)
+        if prec == "exact":
+            bad = int((((got - want).abs() / want.abs().clamp(min=1.0)) > TOL_CSS).sum())
+            tol_txt = f"tol {TOL_CSS:g}"
+        else:
+            bad = int(((got - want).abs() > FAST_ATOL + FAST_RTOL * want.abs()).sum())
+            tol_txt = f"rtol {FAST_RTOL:g} atol {FAST_ATOL:g}"
+        ms = cuda_ms(torch, lambda: kcss.css_cmds(dis, npos_d, ASIZE, BSIZE), 3)
+        pms = cuda_ms(torch, lambda: kcss.css_cmds_plain(dis, npos_d, ASIZE, BSIZE), 1)
+        say(f"[K5 css_cmds {prec}] B={dis.shape[0]} windows, {excluded} excluded "
+            f"(eigengap <= {GAP_BOUND:g}; allowed {int(0.01 * dis.shape[0])}), "
+            f"{int(kv.sum())} valid, {int(ks.isnan().sum())} NaN in both: scores "
+            f"max_rel_err={err:.3e}, {bad} beyond {tol_txt}; kernel {ms:.4f} ms "
+            f"plain {pms:.4f} ms")
+        check(excluded <= 0.01 * dis.shape[0], f"css_cmds: {excluded} degenerate windows")
+        check(bad == 0, f"css_cmds {prec}: {bad} windows beyond tolerance")
+        results["css_cmds"][prec] = (abs_err(got, want), err, ms, pms)
+        results["css_cmds"][prec + "_excluded"] = excluded
+        del ks, kd, kv, ps, pd, pv, dis
+    del plain64
+    torch.cuda.empty_cache()
+
+    # K7 part 1: the coefficient matrix of the first 16 chunks, bit-equal
+    key = rng.fold_in(rng.prng_key(0), 2)
+    m = ASIZE + BSIZE
+    coeff = lambda: kperm.shared_coeff(key, 0, 16, m, ASIZE, BSIZE, 256, dev)  # noqa: E731
+    coeff_plain = lambda: kperm.shared_coeff_plain(key, 0, 16, m, ASIZE, BSIZE, 256, dev)  # noqa: E731
+    k, p = coeff(), coeff_plain()
+    torch.cuda.synchronize()
+    same = torch.equal(k.view(torch.int32), p.view(torch.int32))
+    ms = cuda_ms(torch, coeff, 20)
+    pms = cuda_ms(torch, coeff_plain, 3)
+    say(f"[K7 css_mc_coeff] M [{m * m}, {16 * 256}] of chunks 0-15: bit-equal={same}; "
+        f"kernel {ms:.4f} ms plain {pms:.4f} ms")
+    check(same, "css_mc_coeff: M differs from _shared_coeff")
+    results["css_mc_coeff"]["fast"] = (abs_err(k, p), rel_err(k, p), ms, pms)
+
+    # K7 part 2: the 16x worst case, every window to the 200 k cap
+    wpos, wam, wbm = make_chromosome(*WORST_CSS, ASIZE, BSIZE, WORST_SEED)
+    wpair = SnpPair(wpos, wam, wbm)
+    w_lo, w_npos, _ = windows_of(torch, wpos, WORST_CSS[1])
+    s, d, v = kcss.css_phase1(wpair.to_device(dev), w_lo, w_npos, ASIZE, BSIZE, fast=True)
+    dist, scores = d[v], s[v].double().cpu().numpy()
+    B = dist.shape[0]
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    kern = lambda: kperm.significance(dist, scores, ASIZE, BSIZE, 10, 200_000, key)  # noqa: E731
+    plain = lambda: kperm.mc_significance(dist, scores, key, ASIZE, BSIZE, 256, 200_000, 10)  # noqa: E731
+    kern()                                   # warm-up
+    got, ms = timed(kern)
+    (pv, n, h), pms = timed(plain)
+    differ = (got.nscores != n) | (got.hits != h) | (got.pvals != pv)
+    nd = int(differ.sum())
+    perms = int(n.sum())
+    say(f"[K7 css_mc_shared] {B} windows, {perms} permutations, "
+        f"{int((n == 200_000).sum())} to the 200 k cap: {nd} windows differ "
+        f"(allowed {int(MC_DIFFER_SHARE * B)}: float32 near ties); kernel "
+        f"{ms:.1f} ms plain {pms:.1f} ms (host wall, one call each; "
+        f"{perms / ms * 1e3:,.0f} vs {perms / pms * 1e3:,.0f} perms/s)")
+    check(nd <= MC_DIFFER_SHARE * B, f"css_mc_shared: {nd} windows differ")
+    pdiff = float(np.abs(got.pvals - pv).max()) if B else 0.0
+    results["css_mc_shared"]["fast"] = (pdiff, float(nd), ms, pms)
+    results["css_mc_shared"]["differ"] = nd
+
+
+def phase_css_cli(torch, dev, tmp: Path, files) -> None:
+    """Phase 6: run-css through the CLI (default fast) on phase 3's pair."""
+    import numpy as np
+
+    from divergence_tpu_torch.io import read_score_track
+    from divergence_tpu_torch.tools import cli
+
+    a_path, b_path, sizes = files
+    out, summary = tmp / "css_fast.track", tmp / "css_fast.json"
+    t0 = time.perf_counter()
+    cli.main([
+        "run-css", "--pop-a", str(a_path), "--pop-b", str(b_path),
+        "--out", str(out), "--chrom-sizes", str(sizes), "--summary", str(summary),
+        "--device", str(dev),
+    ])
+    wall = time.perf_counter() - t0
+    seqids, starts, sc, pv = read_score_track(out)
+    counters = json.loads(summary.read_text())
+    timings, counters = counters["timings_s"], counters["counters"]
+    nslots = CLI_REGION // 500
+    say(f"[css cli fast] {len(starts)} scored windows of {nslots} slots, "
+        f"{int(np.isnan(sc).sum())} NaN scores, p in [{pv.min():.3g}, {pv.max():.3g}], "
+        f"{counters['mc_permutations']} MC permutations; wall {wall:.2f} s "
+        f"(GTrack parse included; engine {timings.get('chrI', 0.0):.3f} s)")
+    check(len(starts) == counters["windows_scored"] > 0, "css cli: rows != scored windows")
+    check(bool(((starts // 500) < nslots).all()) and len(set(starts.tolist())) == len(starts),
+          "css cli: rows outside the slots")
+    check(not np.isnan(sc).any() and not np.isnan(pv).any(), "css cli: NaN in the track")
+    check(bool(((pv > 0) & (pv <= 1)).all()), "css cli: p outside (0, 1]")
+
+
+def phase_css_library(torch, dev, card) -> None:
+    """Phase 7: run_css on the bench's three CSS workloads; run_css_multi
+    on the card against run_css on the CPU."""
+    import numpy as np
+
+    from divergence_tpu_torch.config import CssConfig
+    from divergence_tpu_torch.engine import SnpPair, run_css, run_css_multi
+    from divergence_tpu_torch.tools.synth import make_chromosome, make_panel
+    from divergence_tpu_torch.utils.summary import RunSummary
+
+    for npos_, region, seed, precs in CSS_WORKLOADS:
+        pos, am, bm = make_chromosome(npos_, region, ASIZE, BSIZE, seed)
+        pair = SnpPair(pos, am, bm)
+        for prec in precs:
+            cfg = CssConfig(precision=prec)
+            run_css(pair, region, cfg, device=dev)          # warm-up
+            walls = []
+            for _ in range(3):
+                summary = RunSummary()
+                t0 = time.perf_counter()
+                scores, pvals = run_css(pair, region, cfg, device=dev, summary=summary)
+                walls.append(time.perf_counter() - t0)
+            c = summary.counters
+            check(scores.shape == (region // 500,) and pvals.shape == scores.shape,
+                  f"run_css {npos_} {prec}: shape")
+            check(not np.isnan(scores).any() and not np.isnan(pvals).any(),
+                  f"run_css {npos_} {prec}: NaN")
+            scored = scores != 0
+            check(c["windows_scored"] == int(scored.sum()) > 0, f"run_css {npos_}: scored")
+            check(bool(((pvals[scored] > 0) & (pvals[scored] <= 1)).all()), "run_css p range")
+            best, med = min(walls), float(np.median(walls))
+            t = summary.timings_s
+            say(f"[css library {prec}] run_css {npos_} SNPs / {region} bp seed {seed}: "
+                f"{c['windows_scored']} windows scored, {c['mc_permutations']} MC "
+                f"permutations; warm wall min {best:.4f} s median {med:.4f} s; "
+                f"{c['windows_scored'] / best:,.0f} windows/s, "
+                f"{c['mc_permutations'] / best:,.0f} perms/s (stages: dispatch "
+                f"{t.get('css_dispatch', 0):.4f} s, phase-1 sync "
+                f"{t.get('css_phase1_sync', 0):.4f} s, MC {t.get('css_mc', 0):.4f} s) "
+                f"on {card}")
+
+    pairs = {}
+    for i, seqid in enumerate(("chrII", "chrIII", "chrIV")):
+        pos, am, bm = make_panel(20_000, 1_000_000, ASIZE, BSIZE, seed=20 + i)
+        pairs[seqid] = (SnpPair(pos, am, bm), 1_000_000)
+    for prec in ("fast", "exact"):
+        cfg = CssConfig(precision=prec, seed=3, mc_runs=20_000)
+        gpu = run_css_multi(pairs, cfg, device=dev)
+        n_scored = n_pdiff = 0
+        worst = 0.0
+        for seqid, (p, regend) in pairs.items():
+            cpu = run_css(p, regend, cfg, device="cpu", seqid=seqid)
+            g, c = gpu[seqid], cpu
+            check(np.array_equal(g[0] != 0, c[0] != 0), f"{seqid} {prec}: scored windows differ")
+            ok = c[0] != 0
+            n_scored += int(ok.sum())
+            n_pdiff += int((g[1] != c[1]).sum())
+            if prec == "exact":
+                err = np.abs(g[0] - c[0]) / np.maximum(np.abs(c[0]), 1.0)
+                worst = max(worst, float(err.max()))
+            else:
+                check(np.allclose(g[0], c[0], rtol=FAST_RTOL, atol=FAST_ATOL),
+                      f"{seqid} fast scores")
+                worst = max(worst, float(np.max(np.abs(g[0] - c[0]))))
+        say(f"[css library {prec}] run_css_multi on the card vs run_css on the CPU "
+            f"(3 x 20000 SNPs, {n_scored} windows): scores max_err={worst:.3e}, "
+            f"p differs on {n_pdiff} windows (float32 near ties)")
+        if prec == "exact":
+            check(worst <= 1e-9 or n_scored == 0, f"run_css_multi exact: {worst}")
+        check(n_pdiff <= 0.01 * max(n_scored, 1), f"run_css_multi {prec}: {n_pdiff} p differ")
+
+
 def smoke(torch, dev) -> tuple[str, list[dict]]:
     """Every phase on ``dev``; returns (card line, per-kernel results).
     Raises on the first failure."""
@@ -344,7 +640,9 @@ def smoke(torch, dev) -> tuple[str, list[dict]]:
     from divergence_tpu_torch.core.windows import plan_windows
     from divergence_tpu_torch.engine import SnpPair
     from divergence_tpu_torch.kernels import _build
+    from divergence_tpu_torch.kernels import css as kcss
     from divergence_tpu_torch.kernels import fet as kfet
+    from divergence_tpu_torch.kernels import perm as kperm
     from divergence_tpu_torch.tools.synth import make_chromosome
 
     card = card_line()
@@ -366,8 +664,14 @@ def smoke(torch, dev) -> tuple[str, list[dict]]:
         f"{len(ids)} windows, {n_tests} SNP tests, max window "
         f"{int(plan.npos.max())} SNPs ({time.perf_counter() - t0:.2f} s)")
 
+    def timed_phase(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        say(f"[phase {name}] {time.perf_counter() - t:.1f} s")
+        return out
+
     results = {name: {} for name in REPLACES}
-    phase_kernels(torch, kfet, pair, (lo, npos, slot), dev, results)
+    timed_phase("2", phase_kernels, torch, kfet, pair, (lo, npos, slot), dev, results)
     k2_out = {
         "fast": results["fet_aggregate"].pop("fast_out"),
         "exact": results["fet_aggregate"].pop("exact_out"),
@@ -377,32 +681,52 @@ def smoke(torch, dev) -> tuple[str, list[dict]]:
     kfet.reset_launches()
     tmp = Path(tempfile.mkdtemp(prefix=".chip_smoke_", dir=ROOT))
     try:
-        phase_cli(torch, kfet, dev, tmp)
-        phase_library(torch, pair, n_tests, dev, card, k2_out)
+        files = timed_phase("3", phase_cli, torch, kfet, dev, tmp)
+        timed_phase("4", phase_library, torch, pair, n_tests, dev, card, k2_out)
+        launches = dict(kfet.LAUNCHES)
+        say(f"[FET main path] kernel launches: {launches}")
+        check(all(v > 0 for v in launches.values()),
+              f"the FET path did not launch every kernel: {launches}")
+        del k2_out
+        timed_phase("5", phase_css_kernels, torch, pair, (lo, npos, slot), dev, results)
+        torch.cuda.empty_cache()
+
+        kcss.reset_launches()
+        kperm.reset_launches()
+        timed_phase("6", phase_css_cli, torch, dev, tmp, files)
+        timed_phase("7", phase_css_library, torch, dev, card)
+        css_launches = {**kcss.LAUNCHES, **kperm.LAUNCHES}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    launches = dict(kfet.LAUNCHES)
-    say(f"[main path] kernel launches: {launches}")
-    check(all(v > 0 for v in launches.values()),
-          f"main path did not launch every kernel: {launches}")
+    say(f"[CSS main path] kernel launches: {css_launches}")
+    check(all(v > 0 for v in css_launches.values()),
+          f"the CSS path did not launch every kernel: {css_launches}")
+    launches.update(css_launches)
 
     kernels = []
     for name in REPLACES:
         r = results[name]
         f_abs, f_rel, f_ms, f_pms = r["fast"]
-        e_abs, e_rel, e_ms, e_pms = r["exact"]
         entry = {
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[name],
-            "max_abs_err": max(f_abs, e_abs),
-            "ms": f_ms, "plain_ms": f_pms,
-            "ms_exact": e_ms, "plain_ms_exact": e_pms,
-            "max_rel_err_fast": f_rel, "max_rel_err_exact": e_rel,
+            "max_abs_err": f_abs, "ms": f_ms, "plain_ms": f_pms,
         }
+        if "exact" in r:
+            e_abs, e_rel, e_ms, e_pms = r["exact"]
+            entry.update({
+                "max_abs_err": max(f_abs, e_abs),
+                "ms_exact": e_ms, "plain_ms_exact": e_pms,
+                "max_rel_err_fast": f_rel, "max_rel_err_exact": e_rel,
+            })
         if name == "fet_aggregate":
             entry["stddev_windows_beyond_tol"] = {
                 "fast": r["fast_beyond"], "exact": r["exact_beyond"]
             }
+        if name == "css_cmds":
+            entry["windows_excluded_eigengap"] = r["exact_excluded"]
+        if name == "css_mc_shared":
+            entry["windows_differ"] = r["differ"]
         kernels.append(entry)
     return card, kernels
 

@@ -1,5 +1,5 @@
-"""divergence_tpu_torch — the FET window scan of ``divergence_tpu`` in
-PyTorch, with hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
+"""divergence_tpu_torch — the FET and CSS window scans of ``divergence_tpu``
+in PyTorch, with hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
 The JAX package stays the reference; every module here mirrors the JAX
 module of the same name.  This package imports ``torch`` (and numpy /
@@ -8,14 +8,17 @@ scipy) and never ``jax``.
 Layers (bottom up):
 
 * :mod:`divergence_tpu_torch.rng`     — threefry-2x32 replica of
-  ``jax.random`` (keys, ``fold_in``, uniform bits), bit-equal
-* :mod:`divergence_tpu_torch.kernels` — per-SNP FET scores (K1) and the
-  window percentile + bootstrap stddev (K2): a CUDA kernel for CUDA
-  tensors, the plain torch version for CPU tensors
+  ``jax.random`` (keys, ``fold_in``, uniform bits) and the MC's counter
+  mix, bit-equal
+* :mod:`divergence_tpu_torch.kernels` — per-SNP FET scores (K1), the
+  window percentile + bootstrap stddev (K2), CSS window dissimilarities
+  (K3/K4), CMDS scoring (K5) and the shared-stream permutation MC (K7): a
+  CUDA kernel for CUDA tensors, the plain torch version for CPU tensors
 * :mod:`divergence_tpu_torch.core`    — window planning
-* :mod:`divergence_tpu_torch.engine`  — ``run_fet`` / ``run_fet_multi``
+* :mod:`divergence_tpu_torch.engine`  — ``run_fet`` / ``run_fet_multi``,
+  ``run_css`` / ``run_css_multi``
 * :mod:`divergence_tpu_torch.io`      — GTrack reading / score-track writing
-* :mod:`divergence_tpu_torch.tools`   — the ``run-fet`` CLI
+* :mod:`divergence_tpu_torch.tools`   — the ``run-fet`` and ``run-css`` CLI
 
 No device is global: every entry point takes ``device=``.
 """
@@ -24,7 +27,7 @@ from __future__ import annotations
 
 import torch
 
-from divergence_tpu_torch.config import FetConfig, WindowConfig
+from divergence_tpu_torch.config import CssConfig, FetConfig, WindowConfig
 
 __version__ = "0.1.0"
 
@@ -55,6 +58,7 @@ def resolve_device(device: str | torch.device) -> torch.device:
 
 
 __all__ = [
+    "CssConfig",
     "FetConfig",
     "WindowConfig",
     "compute_dtype",

@@ -1,0 +1,197 @@
+"""Per-chromosome CSS engine (``divergence_tpu/engine/css_engine.py``).
+
+Window plan (host) -> phase 1: every valid window's dissimilarities and
+CMDS score in one call per chromosome (``kernels/css.py:css_phase1``) ->
+one host sync for the scores and valid flags of every chromosome (the
+distance matrices stay on the device) -> phase 2: the shared-stream
+permutation Monte-Carlo over all valid windows of a panel-size group at
+once (``kernels/perm.py:significance``) -> dense score / p tracks.
+
+Ported: the default ``CssConfig`` path (``mds=CMDS``, ``p_mode="mc"``,
+``perm_backend="xla"``, ``rng="mix"``, ``mc_stream="shared"``, no
+drosophila).  Every other option raises ``NotImplementedError`` naming
+the ROADMAP item that ports it; nothing silently runs something else.
+Left out against the JAX engine, because Hopper does not need them: the
+``PREFIX_MAX_ELEMS`` switch between prefix and gather programs (the
+dissimilarity kernel counts per window, with no prefix, at any
+chromosome length), the ``lax.map`` descriptor slices, and the padded
+MC rows (only valid windows enter the MC; each stops on its own).
+``mc_window_batch`` and ``perm_form`` therefore change nothing here.
+``slot_range=`` and ``sharding=`` are not ported yet (P11).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from divergence_tpu_torch import resolve_device, rng
+from divergence_tpu_torch.config import CssConfig, MdsAlgorithm
+from divergence_tpu_torch.core.windows import plan_windows
+from divergence_tpu_torch.engine.snp import SnpPair
+from divergence_tpu_torch.kernels import css as kcss
+from divergence_tpu_torch.kernels import perm as kperm
+from divergence_tpu_torch.utils.summary import RunSummary
+
+
+def check_supported(cfg: CssConfig) -> None:
+    """Raise ``NotImplementedError`` for every ``CssConfig`` option the
+    port does not run yet, naming its ROADMAP item."""
+    unported = []
+    if cfg.mds != MdsAlgorithm.CMDS:
+        unported.append(f"mds={cfg.mds.name} (SMACOF: P7)")
+    if cfg.drosophila:
+        unported.append("drosophila=True (frequency tracks, gather path: P8)")
+    if cfg.p_mode != "mc":
+        unported.append(f"p_mode={cfg.p_mode!r} (approx mode: P9)")
+    if cfg.mc_stream != "shared":
+        unported.append(f"mc_stream={cfg.mc_stream!r} (per-window streams: P9)")
+    if cfg.perm_backend != "xla":
+        unported.append(f"perm_backend={cfg.perm_backend!r} (native evaluator: P9)")
+    if cfg.rng != "mix":
+        unported.append(f"rng={cfg.rng!r} (threefry permutation draws: P9)")
+    if unported:
+        raise NotImplementedError(
+            "divergence_tpu_torch runs the default CSS path only; not "
+            "ported yet: " + "; ".join(unported)
+        )
+
+
+def _phase1_dispatch(pair: SnpPair, regend: int, cfg: CssConfig,
+                     device: torch.device):
+    """Enqueue one chromosome's phase 1 (no host sync).
+
+    Returns (nslots, num_windows, pending) with pending = (slots [Bw]
+    numpy, scores, dist, valid) on the device, or None."""
+    w = cfg.window
+    plan = plan_windows(pair.positions, regend, w.wsize, w.wstep)
+    if plan.num_windows == 0 or pair.npos == 0:
+        return plan.nslots, plan.num_windows, None
+    ids = np.nonzero(plan.valid_mask() & (plan.npos > 0))[0]
+    if len(ids) == 0:
+        return plan.nslots, plan.num_windows, None
+    # int16 codes: the counts only ==-compare them (engine/snp.py)
+    vals = pair.to_device(device, compact=True)
+    scores, dist, valid = kcss.css_phase1(
+        vals, plan.lo[ids], plan.npos[ids], pair.asize, pair.bsize,
+        fast=cfg.precision == "fast",
+    )
+    return plan.nslots, plan.num_windows, (plan.slot[ids], scores, dist, valid)
+
+
+def _phase1_fetch(pending: list) -> np.ndarray:
+    """ONE device-to-host copy of every chromosome's (score, valid) rows:
+    [sum Bw, 2] float64.  The distance matrices stay on the device."""
+    packed = torch.cat([
+        torch.stack([s.to(torch.float64), v.to(torch.float64)], dim=1)
+        for _, s, _, v in pending
+    ])
+    return packed.cpu().numpy()
+
+
+def run_css(
+    pair: SnpPair,
+    regend: int,
+    cfg: CssConfig | None = None,
+    *,
+    device: str | torch.device,
+    summary: RunSummary | None = None,
+    seqid: str = "_",
+) -> tuple[np.ndarray, np.ndarray]:
+    """CSS scan of one chromosome on ``device``.
+
+    Returns (scores, pvals) float64, each of ``regend // wstep`` slots
+    (reference statistics/CategoryClusterSeparationStat.py:70-80).
+    Discarded or empty windows keep score 0 / p 0.  The result equals the
+    same chromosome inside :func:`run_css_multi`: the MC stream is keyed
+    by (seed, chunk) alone."""
+    return run_css_multi(
+        {seqid: (pair, regend)}, cfg, device=device, summary=summary
+    )[seqid]
+
+
+def run_css_multi(
+    pairs: dict[str, tuple[SnpPair, int]],
+    cfg: CssConfig | None = None,
+    *,
+    device: str | torch.device,
+    summary: RunSummary | None = None,
+) -> dict[str, tuple[np.ndarray, np.ndarray]]:
+    """Genome-wide CSS: phase 1 of every chromosome is enqueued before the
+    single packed host sync, and the MC runs over all valid windows of a
+    panel-size group (asize, bsize) at once."""
+    cfg = cfg or CssConfig()
+    check_supported(cfg)
+    device = resolve_device(device)
+    if not pairs:
+        return {}
+    summary = summary or RunSummary()
+    key = rng.prng_key(cfg.seed)
+
+    per_chrom = []
+    planned_total = 0
+    with summary.stage("css_dispatch"):
+        for seqid, (pair, regend) in sorted(pairs.items()):
+            nslots, planned, pending = _phase1_dispatch(pair, regend, cfg, device)
+            planned_total += planned
+            per_chrom.append((seqid, nslots, pending, pair.asize, pair.bsize))
+
+    all_pending = [p for _, _, p, _, _ in per_chrom if p is not None]
+    with summary.stage("css_phase1_sync"):
+        fetched = _phase1_fetch(all_pending) if all_pending else None
+
+    # per chromosome: (seqid, nslots, slots, scores, valid, dist, a, b)
+    chrom_data = []
+    off = 0
+    n_discarded = 0
+    with summary.stage("css_collect"):
+        for seqid, nslots, pending, asz, bsz in per_chrom:
+            if pending is None:
+                chrom_data.append((seqid, nslots, None, None, None, None, asz, bsz))
+                continue
+            slots, _, dist, valid_d = pending
+            rows = fetched[off: off + len(slots)]
+            off += len(slots)
+            valid = rows[:, 1] != 0.0
+            # every dispatched window holds SNPs: an invalid one was discarded
+            n_discarded += int((~valid).sum())
+            chrom_data.append(
+                (seqid, nslots, slots, rows[:, 0], valid, dist[valid_d], asz, bsz)
+            )
+
+    n_scored = int(sum(c[4].sum() for c in chrom_data if c[4] is not None))
+    results: dict[str, tuple[np.ndarray, np.ndarray]] = {}
+    mc_perms = 0
+    groups: dict[tuple[int, int], list] = {}
+    for c in chrom_data:
+        groups.setdefault((c[6], c[7]), []).append(c)
+    mc_key = rng.fold_in(key, 2)
+    for (asz, bsz), group in groups.items():
+        live = [c for c in group if c[4] is not None and c[4].any()]
+        mc = None
+        if live:
+            with summary.stage("css_mc"):
+                mc = kperm.significance(
+                    torch.cat([c[5] for c in live]),
+                    np.concatenate([c[3][c[4]] for c in live]),
+                    asz, bsz, cfg.mc_threshold, cfg.mc_runs, mc_key,
+                    chunk=cfg.mc_chunk,
+                )
+        mc_off = 0
+        for seqid, nslots, slots, sc, valid, *_ in group:
+            scores = np.zeros(nslots, dtype=np.float64)
+            pvals = np.zeros(nslots, dtype=np.float64)
+            if valid is not None and valid.any():
+                n = int(valid.sum())
+                scores[slots[valid]] = sc[valid]
+                pvals[slots[valid]] = mc.pvals[mc_off: mc_off + n]
+                mc_perms += int(mc.nscores[mc_off: mc_off + n].sum())
+                mc_off += n
+            results[seqid] = (scores, pvals)
+
+    c = summary.counters
+    c["windows_planned"] = c.get("windows_planned", 0) + planned_total
+    c["windows_scored"] = c.get("windows_scored", 0) + n_scored
+    c["windows_discarded"] = c.get("windows_discarded", 0) + n_discarded
+    c["mc_permutations"] = c.get("mc_permutations", 0) + mc_perms
+    return results

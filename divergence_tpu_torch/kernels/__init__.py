@@ -1,1 +1,1 @@
-"""FET kernels: plain torch versions and their CUDA counterparts."""
+"""FET and CSS kernels: plain torch versions and their CUDA counterparts."""

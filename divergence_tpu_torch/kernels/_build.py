@@ -42,7 +42,9 @@ _I = ctypes.c_int
 _I64 = ctypes.c_int64
 _U32 = ctypes.c_uint32
 _D = ctypes.c_double
-# symbol -> argtypes (every pointer and the trailing stream as c_void_p)
+_F = ctypes.c_float
+# symbol -> argtypes (every pointer and the trailing stream as c_void_p);
+# a {t} symbol exists once per dtype, f64 and f32
 _SIGNATURES = {
     # lf, nmax, asize, bsize, maxs, out, stream
     "fet_lut_build_{t}": (_P, _I, _I, _I, _I, _P, _P),
@@ -50,6 +52,16 @@ _SIGNATURES = {
     "fet_snp_logs_{t}": (_P, _I64, _I, _I, _P, _P, _I, _I, _P, _P),
     # logs, rows[3, B], B, key0, key1, perc, nsamples, pmax, out, stream
     "fet_aggregate_{t}": (_P, _P, _I64, _U32, _U32, _D, _I, _I, _P, _P),
+    # vals, lo, npos, B, m, out, stream
+    "css_dissim_{t}": (_P, _P, _P, _I64, _I, _P, _P),
+    # dis, npos, B, asize, bsize, pairs, wa, wb, scores, dist, valid, stream
+    "css_cmds_{t}": (_P, _P, _I64, _I, _I, _P, _D, _D, _P, _P, _P, _P),
+    # key0, key1, k0, nk, chunk, m, asize, between, ca, cb, out, stream
+    "css_mc_coeff": (_U32, _U32, _I, _I, _I, _I, _I, _F, _F, _F, _P, _P),
+    # dist, obs, active, nact, m, M, k0, nk, chunk, runs, threshold,
+    # hits, nsc, done, stream
+    "css_mc_shared": (_P, _P, _P, _I64, _I, _P, _I, _I, _I, _I, _I, _P, _P,
+                      _P, _P),
 }
 
 
@@ -89,7 +101,7 @@ def build() -> BuildInfo:
     """Compile ``csrc/*.cu`` unless a library of the same sources and
     flags is already in ``_build/``."""
     BUILD_DIR.mkdir(exist_ok=True)
-    lib = BUILD_DIR / f"libfet_kernels_{_digest()}.so"
+    lib = BUILD_DIR / f"libdivergence_kernels_{_digest()}.so"
     log_path = lib.with_suffix(".log")
     if lib.exists():
         log = log_path.read_text() if log_path.exists() else ""
@@ -118,7 +130,7 @@ def library() -> ctypes.CDLL:
     ``argtypes`` and ``restype`` declared."""
     lib = ctypes.CDLL(str(build().path))
     for pattern, argtypes in _SIGNATURES.items():
-        for t in ("f64", "f32"):
+        for t in ("f64", "f32") if "{t}" in pattern else ("",):
             fn = getattr(lib, pattern.format(t=t))
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from divergence_tpu_torch import compute_dtype, rng
+from divergence_tpu_torch.kernels._cuda import dtype_suffix, is_cpu, launch, ptr
 
 _LUT_MAX_BUILD_OPS = 100_000_000
 
@@ -261,46 +262,6 @@ def _lut_index(tables: torch.Tensor, asize: int, bsize: int) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------
-# CUDA launch plumbing
-# --------------------------------------------------------------------------
-
-def _dtype_suffix(dtype: torch.dtype) -> str:
-    if dtype == torch.float64:
-        return "f64"
-    if dtype == torch.float32:
-        return "f32"
-    raise TypeError(f"FET kernels take float32 or float64, got {dtype}")
-
-
-def _is_cpu(t: torch.Tensor | torch.device) -> bool:
-    dev = t if isinstance(t, torch.device) else t.device
-    if dev.type == "cpu":
-        return True
-    if dev.type != "cuda":
-        raise ValueError(f"FET kernels run on CUDA or CPU tensors, got {dev}")
-    return False
-
-
-def _launch(kernel: str, symbol: str, device: torch.device, *args) -> None:
-    """Call ``symbol`` of the kernel library on ``device``'s current
-    stream, raise on a refused launch, count it under ``kernel``."""
-    from divergence_tpu_torch.kernels import _build
-
-    lib = _build.library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, symbol)(*args, ctypes.c_void_p(stream))
-    if rc != 0:
-        msg = lib.fet_cuda_error_string(rc).decode()
-        raise RuntimeError(f"{symbol} launch failed: CUDA error {rc} ({msg})")
-    LAUNCHES[kernel] += 1
-
-
-def _ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
-    return ctypes.c_void_p(None if t is None else t.data_ptr())
-
-
-# --------------------------------------------------------------------------
 # K1: per-SNP scores
 # --------------------------------------------------------------------------
 
@@ -315,15 +276,15 @@ def fet_lut(asize, bsize, maxs, nmax, dtype, device) -> torch.Tensor:
     grid (``divergence_tpu/kernels/fet.py:fet_snp_logs``' LUT), row-major
     in (f0, f1, f2, f3)."""
     device = torch.device(device)
-    if _is_cpu(device):
+    if is_cpu(device):
         return fet_lut_plain(asize, bsize, maxs, nmax, dtype, device)
     lf = _lf_table(nmax, dtype, device)
     out = torch.empty(
         (asize + 1) ** 2 * (bsize + 1) ** 2, dtype=dtype, device=device
     )
-    _launch(
-        "fet_lut_build", f"fet_lut_build_{_dtype_suffix(dtype)}", device,
-        _ptr(lf), nmax, asize, bsize, maxs, _ptr(out),
+    launch(
+        LAUNCHES, "fet_lut_build", f"fet_lut_build_{dtype_suffix(dtype)}", device,
+        ptr(lf), nmax, asize, bsize, maxs, ptr(out),
     )
     return out
 
@@ -352,7 +313,7 @@ def fet_snp_logs(
     evaluated once per possible table and each SNP reads its table's
     score; otherwise each SNP scans its own support.  Returns [N] float64
     (exact) or float32 (``fast``)."""
-    if _is_cpu(vals):
+    if is_cpu(vals):
         return fet_snp_logs_plain(vals, asize, maxs, nmax, fast)
     dtype = compute_dtype("fast" if fast else "exact")
     if vals.dtype != torch.int16:
@@ -368,10 +329,10 @@ def fet_snp_logs(
     )
     lf = _lf_table(nmax, dtype, vals.device)
     out = torch.empty(vals.shape[0], dtype=dtype, device=vals.device)
-    _launch(
-        "fet_snp_logs", f"fet_snp_logs_{_dtype_suffix(dtype)}", vals.device,
-        _ptr(vals), vals.shape[0], asize, bsize, _ptr(lut), _ptr(lf), nmax,
-        maxs, _ptr(out),
+    launch(
+        LAUNCHES, "fet_snp_logs", f"fet_snp_logs_{dtype_suffix(dtype)}", vals.device,
+        ptr(vals), vals.shape[0], asize, bsize, ptr(lut), ptr(lf), nmax,
+        maxs, ptr(out),
     )
     return out
 
@@ -533,7 +494,7 @@ def fet_aggregate(
     Window descriptors may live on the host; on a CUDA ``snp_logs`` the
     wrapper reads the largest window from them (host tensors avoid a
     device sync) and uploads them packed."""
-    if _is_cpu(snp_logs):
+    if is_cpu(snp_logs):
         return fet_aggregate_plain(
             snp_logs, lo, npos, slot, chrom_key, perc, nsamples
         )
@@ -566,9 +527,9 @@ def fet_aggregate(
         rows = rows.pin_memory()
     rows = rows.to(dev, non_blocking=True)
     k0, k1 = (int(w) for w in chrom_key.tolist())
-    _launch(
-        "fet_aggregate", f"fet_aggregate_{_dtype_suffix(dtype)}", dev,
-        _ptr(snp_logs), _ptr(rows), B, ctypes.c_uint32(k0),
-        ctypes.c_uint32(k1), ctypes.c_double(perc), nsamples, pmax, _ptr(out),
+    launch(
+        LAUNCHES, "fet_aggregate", f"fet_aggregate_{dtype_suffix(dtype)}", dev,
+        ptr(snp_logs), ptr(rows), B, ctypes.c_uint32(k0),
+        ctypes.c_uint32(k1), ctypes.c_double(perc), nsamples, pmax, ptr(out),
     )
     return out

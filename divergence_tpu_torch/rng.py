@@ -15,6 +15,10 @@ for word, with ``jax_threefry_partitionable`` on (the JAX default):
   ``b0 << 32 | b1``; the top mantissa bits under exponent 0 give a float
   in [1, 2), minus 1.
 
+The CSS Monte-Carlo expands a chunk key into many words with a cheaper
+counter mix instead (``divergence_tpu/kernels/perm.py:_mix_bits``):
+word ``c`` is ``mix32(mix32(k0 ^ c) + k1)``, see :func:`mix_bits`.
+
 Keys are int64 tensors of shape ``[..., 2]`` holding uint32 words (torch's
 CPU ``uint32`` lacks shifts and xor in places); every word op masks to
 32 bits.  ``csrc/threefry.cuh`` is the device-side twin.
@@ -31,6 +35,7 @@ MASK32 = 0xFFFFFFFF
 _KS_PARITY = 0x1BD11BDA
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _MANT52 = (1 << 52) - 1
+_MIX_MULS = (0x7FEB352D, 0x846CA68B)
 
 
 def chrom_hash(seqid: str) -> int:
@@ -122,3 +127,31 @@ def uniform(key: torch.Tensor, n: int, dtype: torch.dtype) -> torch.Tensor:
         bits = ((uniform_bits64(key, n) >> 12) & _MANT52) | 0x3FF0000000000000
         return bits.view(torch.float64) - 1.0
     raise TypeError(f"uniform supports float32 and float64, got {dtype}")
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """``x * c mod 2**32`` for uint32 words in int64, without int64
+    overflow: the high half of ``c`` only reaches the low 32 bits
+    through the low 16 bits of its partial product."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & MASK32
+
+
+def mix32(x: torch.Tensor) -> torch.Tensor:
+    """32-bit avalanche (murmur3-style finaliser, Prospector constants),
+    ``divergence_tpu/kernels/perm.py:_mix32``, on int64 tensors of
+    uint32 words."""
+    x = _mul32(x ^ (x >> 16), _MIX_MULS[0])
+    x = _mul32(x ^ (x >> 15), _MIX_MULS[1])
+    return x ^ (x >> 16)
+
+
+def mix_bits(key: torch.Tensor, n: int) -> torch.Tensor:
+    """``n`` counter-expanded words of a key ``[..., 2]``:
+    ``mix32(mix32(k0 ^ c) + k1)`` for ``c < n``, as int64 ``[..., n]``
+    (``divergence_tpu/kernels/perm.py:_mix_bits`` before its reshape to
+    ``[chunk, m]``)."""
+    ctr = torch.arange(n, dtype=torch.int64, device=key.device)
+    h = mix32(key[..., 0:1] ^ ctr)
+    return mix32((h + key[..., 1:2]) & MASK32)

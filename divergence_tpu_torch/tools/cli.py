@@ -1,15 +1,19 @@
 """Command-line tool of the port: ``run-fet``, the windowed Fisher's
-Exact Test scan (``divergence_tpu/tools/cli.py`` ``run-fet``; replaces
-reference tools/FisherExactTestSNPTool.py).
+Exact Test scan, and ``run-css``, the windowed Cluster Separation Score
+scan (``divergence_tpu/tools/cli.py``; replace reference
+tools/FisherExactTestSNPTool.py and tools/ClusterSeparationScore.py).
 
 Usage::
 
     python -m divergence_tpu_torch.tools.cli run-fet --pop-a A.gtrack \\
         --pop-b B.gtrack --out fet.track [--device cuda|cpu] ...
+    python -m divergence_tpu_torch.tools.cli run-css --pop-a A.gtrack \\
+        --pop-b B.gtrack --out css.track [--device cuda|cpu] ...
 
 Flags are the JAX CLI's, plus ``--device`` (default ``cuda``; without a
 CUDA device that default raises, there is no CPU fallback).  Not ported
-yet: ``--shard``, ``--num-hosts``/``--host-id`` and ``--profile``.
+yet: ``--shard``, ``--num-hosts``/``--host-id`` and ``--profile``; the
+``run-css`` options the port does not run raise (see ``cmd_run_css``).
 """
 
 from __future__ import annotations
@@ -47,26 +51,19 @@ def _load_pairs(args):
     return pairs
 
 
-def cmd_run_fet(args) -> None:
-    """Per-chromosome part files (``--resume``) make a failed genome-wide
+def _run_engine(args, engine, engine_multi, cfg, columns) -> None:
+    """The part-file and resume logic shared by ``run-fet`` and ``run-css``
+    (``divergence_tpu/tools/cli.py:_run_engine``).
+
+    Per-chromosome part files (``--resume``) make a failed genome-wide
     run resumable at chromosome granularity; the remaining chromosomes run
-    through :func:`run_fet_multi` (one host sync), a single one through
-    :func:`run_fet`.  Per-window RNG streams are (seed, chrom, slot)-pinned,
-    so resumed and fresh tracks are byte-identical."""
+    through ``engine_multi`` (one host sync), a single one through
+    ``engine``.  The random streams are (seed, chromosome, slot)- or
+    (seed, chunk)-pinned, so resumed and fresh tracks are byte-identical."""
     from divergence_tpu_torch import resolve_device
-    from divergence_tpu_torch.config import FetConfig, WindowConfig
-    from divergence_tpu_torch.engine import run_fet, run_fet_multi
     from divergence_tpu_torch.io import read_score_track, write_score_track
     from divergence_tpu_torch.utils.summary import RunSummary
 
-    cfg = FetConfig(
-        window=WindowConfig(wsize=args.wsize, wstep=args.wstep),
-        percentile=args.percentile,
-        bootstrap_samples=args.bootstrap_samples,
-        seed=args.seed,
-        precision=args.precision,
-    )
-    columns = ("score", "stddev")
     device = resolve_device(args.device)
     summary = RunSummary(name=args.cmd)
     pairs = _load_pairs(args)
@@ -105,9 +102,8 @@ def cmd_run_fet(args) -> None:
         nw = int((results[seqid][0] != 0).sum())
         total_windows += nw
         print(f"{seqid}: {nw} scored windows")
-        # NaNs should be impossible in either column (scores are
-        # log-space-finite); say so loudly instead of letting a poisoned
-        # track flow into region calling
+        # a NaN in either column would poison region calling (BH-FDR
+        # ranks the p column): say so loudly
         n_nan = int(
             np.isnan(results[seqid][0]).sum()
             + np.isnan(results[seqid][1]).sum()
@@ -128,14 +124,14 @@ def cmd_run_fet(args) -> None:
     if len(remaining) > 1:
         with summary.stage("genome"):
             results.update(
-                run_fet_multi(remaining, cfg, device=device, summary=summary)
+                engine_multi(remaining, cfg, device=device, summary=summary)
             )
         for seqid in remaining:
             _finish_chrom(seqid)
     else:
         for seqid, (pair, regend) in remaining.items():
             with summary.stage(seqid):
-                results[seqid] = run_fet(
+                results[seqid] = engine(
                     pair, regend, cfg, device=device, summary=summary,
                     seqid=seqid,
                 )
@@ -153,14 +149,61 @@ def cmd_run_fet(args) -> None:
         summary.write(args.summary)
 
 
-def build_parser() -> argparse.ArgumentParser:
-    ap = argparse.ArgumentParser(
-        prog="divergence_tpu_torch",
-        description="genome-wide divergence analysis on CUDA (FET scan)",
-    )
-    sub = ap.add_subparsers(dest="cmd", required=True)
+def cmd_run_fet(args) -> None:
+    from divergence_tpu_torch.config import FetConfig, WindowConfig
+    from divergence_tpu_torch.engine import run_fet, run_fet_multi
 
-    p = sub.add_parser("run-fet", help="windowed Fisher's Exact Test scan")
+    cfg = FetConfig(
+        window=WindowConfig(wsize=args.wsize, wstep=args.wstep),
+        percentile=args.percentile,
+        bootstrap_samples=args.bootstrap_samples,
+        seed=args.seed,
+        precision=args.precision,
+    )
+    _run_engine(args, run_fet, run_fet_multi, cfg, ("score", "stddev"))
+
+
+def _mds_enum(name):
+    """The --mds string -> enum map (``divergence_tpu/tools/cli.py:_mds_enum``)."""
+    from divergence_tpu_torch.config import MdsAlgorithm
+
+    return {
+        "cmds": MdsAlgorithm.CMDS,
+        "smacof": MdsAlgorithm.SMACOF,
+        "cmds+smacof": MdsAlgorithm.CMDS_SMACOF,
+    }[name]
+
+
+def cmd_run_css(args) -> None:
+    """The CSS scan.  The flags are the JAX CLI's; the options the port
+    does not run yet (``--mds smacof|cmds+smacof``, ``--p-mode approx``,
+    ``--mc-stream window``, ``--drosophila``, ``--perm-backend native``,
+    ``--rng threefry``) raise ``NotImplementedError`` naming their ROADMAP
+    item, before any file is read."""
+    from divergence_tpu_torch.config import CssConfig, WindowConfig
+    from divergence_tpu_torch.engine import run_css, run_css_multi
+    from divergence_tpu_torch.engine.css_engine import check_supported
+
+    cfg = CssConfig(
+        window=WindowConfig(wsize=args.wsize, wstep=args.wstep),
+        mc_threshold=args.mc_threshold,
+        mc_runs=args.mc_runs,
+        drosophila=args.drosophila,
+        mds=_mds_enum(args.mds),
+        seed=args.seed,
+        mc_chunk=args.mc_chunk,
+        precision=args.precision,
+        p_mode=args.p_mode,
+        perm_backend=args.perm_backend,
+        rng=args.rng,
+        perm_form=args.perm_form,
+        mc_stream=args.mc_stream,
+    )
+    check_supported(cfg)
+    _run_engine(args, run_css, run_css_multi, cfg, ("score", "p"))
+
+
+def _add_run_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--pop-a", required=True, help="population A GTrack file")
     p.add_argument("--pop-b", required=True, help="population B GTrack file")
     p.add_argument("--out", required=True, help="output score track")
@@ -186,15 +229,61 @@ def build_parser() -> argparse.ArgumentParser:
         help="fast = float32 (the CLI default, as in the JAX CLI; ~1e-5 "
         "relative score accuracy); exact = float64 end to end",
     )
-    p.add_argument("--percentile", type=float, default=0.95)
-    p.add_argument("--bootstrap-samples", type=int, default=100)
     p.add_argument(
         "--device",
         default="cuda",
         help="torch device: cuda (default; raises without a CUDA device) "
         "or cpu (the plain torch path)",
     )
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="divergence_tpu_torch",
+        description="genome-wide divergence analysis on CUDA (FET and CSS scans)",
+    )
+    sub = ap.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser("run-fet", help="windowed Fisher's Exact Test scan")
+    _add_run_common(p)
+    p.add_argument("--percentile", type=float, default=0.95)
+    p.add_argument("--bootstrap-samples", type=int, default=100)
     p.set_defaults(fn=cmd_run_fet)
+
+    p = sub.add_parser("run-css", help="windowed Cluster Separation Score scan")
+    _add_run_common(p)
+    p.add_argument(
+        "--mds", choices=["cmds", "smacof", "cmds+smacof"], default="cmds",
+        help="cmds (ported); smacof and cmds+smacof raise (ROADMAP P7)",
+    )
+    p.add_argument("--mc-threshold", type=int, default=10)
+    p.add_argument("--mc-runs", type=int, default=200_000)
+    p.add_argument("--mc-chunk", type=int, default=256)
+    p.add_argument(
+        "--p-mode", choices=["mc", "approx"], default="mc",
+        help="mc = the reference's adaptive Monte-Carlo (ported); approx "
+        "raises (ROADMAP P9)",
+    )
+    p.add_argument("--drosophila", action="store_true",
+                   help="frequency-track mode; raises (ROADMAP P8)")
+    p.add_argument(
+        "--perm-backend", choices=["xla", "native"], default="xla",
+        help="xla = the device evaluator (ported); native raises (ROADMAP P9)",
+    )
+    p.add_argument(
+        "--rng", choices=["mix", "threefry"], default="mix",
+        help="permutation draws: mix (ported); threefry raises (ROADMAP P9)",
+    )
+    p.add_argument(
+        "--perm-form", choices=["broadcast", "matmul"], default="broadcast",
+        help="per-window-stream evaluator form; no effect on the shared stream",
+    )
+    p.add_argument(
+        "--mc-stream", choices=["shared", "window"], default="shared",
+        help="shared = one genome-wide label permutation per draw (ported); "
+        "window raises (ROADMAP P9)",
+    )
+    p.set_defaults(fn=cmd_run_css)
     return ap
 
 

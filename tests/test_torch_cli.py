@@ -1,7 +1,11 @@
-"""The port's ``run-fet`` CLI (``--device cpu``) against the JAX CLI's
-``run-fet`` on the same toy GTrack pair: identical rows (seqid, start),
-values within 1e-12 (exact) / 1e-5 (fast) relative to max(|ref|, 1), and
-``--resume`` reproducing the fresh track byte for byte."""
+"""The port's ``run-fet`` and ``run-css`` CLI (``--device cpu``) against
+the JAX CLI on the same toy GTrack pair: identical rows (seqid, start),
+values within tolerance relative to max(|ref|, 1), and ``--resume``
+reproducing the fresh track byte for byte.
+
+run-fet: 1e-12 (exact) / 1e-5 (fast).  run-css: scores 1e-9 (exact) /
+the JAX package's fast-vs-exact band, rtol 2e-3 atol 1e-4 (fast); p equal
+except on near-tie windows (tests/test_torch_mc.py)."""
 
 import json
 
@@ -88,3 +92,65 @@ def test_default_device_is_cuda(toy_pair, tmp_path):
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="is_available"):
         torch_cli(_args(toy_pair, tmp_path / "x.track", "fast"))
+
+
+def _css_args(tmp, out, prec, *extra):
+    return [
+        "run-css", "--pop-a", str(tmp / "popA.gtrack"),
+        "--pop-b", str(tmp / "popB.gtrack"), "--out", str(out),
+        "--chrom-sizes", str(tmp / "chrom.sizes"), "--precision", prec,
+        "--seed", "4", "--mc-runs", "2000", *extra,
+    ]
+
+
+@pytest.mark.parametrize("prec", ["exact", "fast"])
+def test_run_css_cli_matches_jax_cli(toy_pair, prec):
+    tmp = toy_pair
+    jax_cli(_css_args(tmp, tmp / f"jax_css_{prec}.track", prec))
+    torch_cli(
+        _css_args(tmp, tmp / f"torch_css_{prec}.track", prec, "--device", "cpu",
+                  "--summary", str(tmp / f"torch_css_{prec}.json"))
+    )
+    js, jstart, jsc, jp = jax_read_score_track(tmp / f"jax_css_{prec}.track")
+    ts, tstart, tsc, tp = read_score_track(tmp / f"torch_css_{prec}.track")
+    assert ts == js and np.array_equal(tstart, jstart)
+    assert len(ts) > 50 and set(ts) == {"chrA", "chrB"}
+    assert not np.isnan(tsc).any() and not np.isnan(tp).any()
+    if prec == "exact":
+        err = np.abs(tsc - jsc) / np.maximum(np.abs(jsc), 1.0)
+        assert err.max() <= 1e-9, err.max()
+    else:
+        np.testing.assert_allclose(tsc, jsc, rtol=2e-3, atol=1e-4)
+    assert (tp > 0).all() and (tp <= 1).all()
+    assert (tp != jp).sum() <= 0.02 * len(tp)
+    counters = json.loads((tmp / f"torch_css_{prec}.json").read_text())["counters"]
+    assert counters["device"] == "cpu" and counters["windows_scored"] == len(ts)
+    assert counters["mc_permutations"] > 0
+
+
+def test_run_css_resume_reproduces_fresh_track(toy_pair):
+    tmp = toy_pair
+    fresh = tmp / "css_fresh.track"
+    torch_cli(_css_args(tmp, fresh, "fast", "--device", "cpu"))
+    resumed = tmp / "css_resumed.track"
+    torch_cli(_css_args(tmp, resumed, "fast", "--device", "cpu", "--resume"))
+    parts = tmp / "css_resumed.track.parts"
+    assert sorted(p.name for p in parts.iterdir()) == ["chrA.tsv", "chrB.tsv"]
+    assert resumed.read_bytes() == fresh.read_bytes()
+    (parts / "chrA.tsv").unlink()
+    resumed.unlink()
+    torch_cli(_css_args(tmp, resumed, "fast", "--device", "cpu", "--resume"))
+    assert resumed.read_bytes() == fresh.read_bytes()
+
+
+@pytest.mark.parametrize("flags,item", [
+    (["--mds", "smacof"], "P7"), (["--mds", "cmds+smacof"], "P7"),
+    (["--drosophila"], "P8"), (["--p-mode", "approx"], "P9"),
+    (["--mc-stream", "window"], "P9"), (["--perm-backend", "native"], "P9"),
+    (["--rng", "threefry"], "P9"),
+])
+def test_run_css_cli_unsupported_flags_raise(toy_pair, tmp_path, flags, item):
+    with pytest.raises(NotImplementedError, match=item):
+        torch_cli(_css_args(toy_pair, tmp_path / "x.track", "fast", "--device",
+                            "cpu", *flags))
+    assert not (tmp_path / "x.track").exists()

@@ -1,0 +1,173 @@
+"""The port's CSS engine (divergence_tpu_torch.engine.css_engine, CPU
+path) against the JAX engine: run_css and run_css_multi in both
+precisions, the run counters, the empty region, multi against looped,
+and the options the port does not run.
+
+Tolerances, relative to max(|reference|, 1): exact 1e-9 on windows with
+eigengap above 1e-6, fast the JAX package's fast-vs-exact band (rtol
+2e-3, atol 1e-4); valid and NaN patterns identical; p-values equal except
+on near-tie windows, which tests/test_torch_mc.py explains."""
+
+import numpy as np
+import pytest
+import torch
+
+import divergence_tpu  # noqa: F401  (x64 on)
+from divergence_tpu.config import CssConfig as JCssConfig
+from divergence_tpu.config import MdsAlgorithm as JMds
+from divergence_tpu.config import WindowConfig as JWindowConfig
+from divergence_tpu.engine import run_css as jax_run_css
+from divergence_tpu.engine.css_engine import run_css_multi as jax_run_css_multi
+from divergence_tpu.engine.snp import SnpPair as JSnpPair
+from divergence_tpu.utils.summary import RunSummary as JRunSummary
+from divergence_tpu_torch.config import CssConfig, MdsAlgorithm, WindowConfig
+from divergence_tpu_torch.engine import SnpPair, run_css, run_css_multi
+from divergence_tpu_torch.tools.synth import make_panel
+from divergence_tpu_torch.utils.summary import RunSummary
+
+REGEND = 20_000
+MAX_P_DIFF_SHARE = 0.02   # near-tie windows allowed, relative to scored windows
+
+
+def _cfgs(prec, **kw):
+    wkw = kw.pop("window", {})
+    return (
+        CssConfig(window=WindowConfig(**wkw), precision=prec, **kw),
+        JCssConfig(window=JWindowConfig(**wkw), precision=prec, **kw),
+    )
+
+
+def assert_scores_close(got, want, prec):
+    assert got.shape == want.shape and got.dtype == np.float64
+    assert np.array_equal(np.isnan(got), np.isnan(want))
+    assert np.array_equal(got != 0, want != 0)
+    ok = ~np.isnan(want)
+    if prec == "exact":
+        err = np.abs(got[ok] - want[ok]) / np.maximum(np.abs(want[ok]), 1.0)
+        assert err.max(initial=0.0) <= 1e-9, err.max()
+    else:
+        np.testing.assert_allclose(got[ok], want[ok], rtol=2e-3, atol=1e-4)
+
+
+def assert_pvals_match(got, want):
+    scored = want != 0
+    differ = (got != want) & scored
+    assert differ.sum() <= MAX_P_DIFF_SHARE * scored.sum(), differ.sum()
+    assert np.array_equal(got != 0, want != 0)
+
+
+@pytest.mark.parametrize("prec", ["exact", "fast"])
+def test_run_css_matches_jax(panel, prec):
+    _, _, _, _, positions, amat, bmat = panel
+    cfg, jcfg = _cfgs(prec, mc_runs=2000, seed=4)
+    summary, jsummary = RunSummary(), JRunSummary()
+    s, p = run_css(SnpPair(positions, amat, bmat), REGEND, cfg, device="cpu",
+                   summary=summary, seqid="chrT")
+    js, jp = jax_run_css(JSnpPair(positions, amat, bmat), REGEND, jcfg,
+                         summary=jsummary, seqid="chrT")
+    assert s.shape == (REGEND // 500,)
+    assert (s != 0).sum() > 10
+    assert_scores_close(s, js, prec)
+    assert_pvals_match(p, jp)
+    assert ((p > 0) & (p <= 1))[s != 0].all()
+    for name in ("windows_planned", "windows_scored", "windows_discarded"):
+        assert summary.counters[name] == jsummary.counters[name], name
+    if np.array_equal(p, jp):
+        assert summary.counters["mc_permutations"] == jsummary.counters["mc_permutations"]
+    assert {"css_dispatch", "css_phase1_sync", "css_collect", "css_mc"} <= set(summary.timings_s)
+
+
+def _genome(panels=((11, 10), (11, 10), (5, 4)), npos=300, region=15_000):
+    genome = {}
+    for i, (a, b) in enumerate(panels):
+        pos, am, bm = make_panel(npos + 40 * i, region, a, b, seed=60 + i)
+        genome[f"chr{i + 1}"] = (pos, am, bm, region + 1000 * i)
+    return genome
+
+
+@pytest.mark.parametrize("prec", ["exact", "fast"])
+def test_run_css_multi_matches_jax(prec):
+    """Three chromosomes in two panel-size groups (one MC per group)."""
+    genome = _genome()
+    cfg, jcfg = _cfgs(prec, mc_runs=1500, mc_chunk=128, window={"wsize": 2000, "wstep": 400})
+    summary, jsummary = RunSummary(), JRunSummary()
+    got = run_css_multi(
+        {k: (SnpPair(p, a, b), r) for k, (p, a, b, r) in genome.items()},
+        cfg, device="cpu", summary=summary,
+    )
+    want = jax_run_css_multi(
+        {k: (JSnpPair(p, a, b), r) for k, (p, a, b, r) in genome.items()},
+        jcfg, summary=jsummary,
+    )
+    assert sorted(got) == sorted(want)
+    for seqid in want:
+        assert_scores_close(got[seqid][0], want[seqid][0], prec)
+        assert_pvals_match(got[seqid][1], want[seqid][1])
+    for name in ("windows_planned", "windows_scored", "windows_discarded"):
+        assert summary.counters[name] == jsummary.counters[name], name
+
+
+def test_multi_equals_per_chromosome():
+    """The shared stream is keyed by (seed, chunk) alone: a chromosome
+    inside run_css_multi gets exactly its run_css result."""
+    genome = _genome(panels=((11, 10), (11, 10), (6, 6)))
+    cfg = CssConfig(mc_runs=1000, seed=2)
+    multi = run_css_multi(
+        {k: (SnpPair(p, a, b), r) for k, (p, a, b, r) in genome.items()},
+        cfg, device="cpu",
+    )
+    for seqid, (p, a, b, r) in genome.items():
+        s, pv = run_css(SnpPair(p, a, b), r, cfg, device="cpu", seqid=seqid)
+        assert np.array_equal(s, multi[seqid][0])
+        assert np.array_equal(pv, multi[seqid][1])
+
+
+def test_empty_region_gives_zero_tracks():
+    pos = np.array([50_000, 60_000], dtype=np.int64)
+    mat = np.full((2, 3), 3, dtype=np.int16)
+    s, p = run_css(SnpPair(pos, mat, mat), 10_000, CssConfig(), device="cpu")
+    assert s.shape == (20,) and not s.any() and not p.any()
+    s, p = run_css(SnpPair(pos, mat, mat), 100, CssConfig(), device="cpu")
+    assert s.shape == (0,)
+    assert run_css_multi({}, CssConfig(), device="cpu") == {}
+
+
+def test_all_windows_discarded_gives_zero_tracks():
+    pos = np.arange(1, 200, dtype=np.int64) * 50
+    mat = np.full((199, 3), -10000, dtype=np.int16)
+    summary = RunSummary()
+    s, p = run_css(SnpPair(pos, mat, mat), 10_000, CssConfig(), device="cpu",
+                   summary=summary)
+    assert not s.any() and not p.any()
+    assert summary.counters["windows_discarded"] == summary.counters["windows_planned"] > 0
+    assert summary.counters["mc_permutations"] == 0
+
+
+UNSUPPORTED = [
+    ({"mds": MdsAlgorithm.SMACOF}, "P7"),
+    ({"mds": MdsAlgorithm.CMDS_SMACOF}, "P7"),
+    ({"drosophila": True}, "P8"),
+    ({"p_mode": "approx"}, "P9"),
+    ({"mc_stream": "window"}, "P9"),
+    ({"perm_backend": "native"}, "P9"),
+    ({"rng": "threefry"}, "P9"),
+]
+
+
+@pytest.mark.parametrize("kw,item", UNSUPPORTED, ids=[str(k) for k, _ in UNSUPPORTED])
+def test_unsupported_options_raise(panel, kw, item):
+    _, _, _, _, positions, amat, bmat = panel
+    with pytest.raises(NotImplementedError, match=item):
+        run_css(SnpPair(positions, amat, bmat), REGEND, CssConfig(**kw), device="cpu")
+
+
+def test_config_enum_matches_jax():
+    assert [(e.name, int(e)) for e in MdsAlgorithm] == [(e.name, int(e)) for e in JMds]
+
+
+def test_cuda_device_without_cuda_raises(panel):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    _, _, _, _, positions, amat, bmat = panel
+    with pytest.raises(RuntimeError, match="is_available"):
+        run_css(SnpPair(positions, amat, bmat), REGEND, device="cuda")

@@ -36,6 +36,9 @@ VERBATIM = [
     (jsummary, tsummary, "StageTimer"),
     (jconfig, tconfig, "WindowConfig"),
     (jconfig, tconfig, "FetConfig"),
+    (jconfig, tconfig, "MdsAlgorithm"),
+    (jconfig, tconfig, "SmacofConfig"),
+    (jconfig, tconfig, "CssConfig"),
 ]
 
 
@@ -143,3 +146,26 @@ def test_config_defaults_and_validation_equal():
     w = tconfig.WindowConfig(wsize=2500, wstep=500)
     assert w.num_slots(20_001) == jconfig.WindowConfig().num_slots(20_001)
     assert w.num_windows(20_001) == jconfig.WindowConfig().num_windows(20_001)
+
+
+def test_css_config_defaults_and_validation_equal():
+    t, j = tconfig.CssConfig(), jconfig.CssConfig()
+    assert t.__dict__.keys() == j.__dict__.keys()
+    for name in t.__dict__:
+        if name not in ("window", "smacof", "mds"):
+            assert getattr(t, name) == getattr(j, name), name
+    assert int(t.mds) == int(j.mds) == 0
+    assert t.smacof.__dict__ == j.smacof.__dict__
+    assert (t.precision, t.p_mode, t.mc_stream, t.rng, t.perm_backend) == (
+        "exact", "mc", "shared", "mix", "xla"
+    )
+    bad = [{"mc_threshold": 0}, {"mc_chunk": 0}, {"precision": "x"},
+           {"p_mode": "x"}, {"rng": "x"}, {"mc_stream": "x"},
+           {"perm_backend": "native", "rng": "threefry"}]
+    for kw in bad:
+        with pytest.raises(ValueError):
+            tconfig.CssConfig(**kw)
+        with pytest.raises(ValueError):
+            jconfig.CssConfig(**kw)
+    # the native backend switches the stream, as in the JAX package
+    assert tconfig.CssConfig(perm_backend="native").mc_stream == "window"

@@ -1,6 +1,6 @@
 """divergence_tpu_torch runs where JAX is absent: a fresh interpreter with
 ``sys.modules["jax"] = None`` (every ``import jax`` raises) imports the
-package and runs run_fet and the CLI on the CPU."""
+package and runs run_fet, run_css and both CLI scans on the CPU."""
 
 import subprocess
 import sys
@@ -14,8 +14,9 @@ sys.modules["jax"] = None
 sys.path.insert(0, sys.argv[1])
 import numpy as np
 import divergence_tpu_torch
-from divergence_tpu_torch.config import FetConfig
-from divergence_tpu_torch.engine import SnpPair, run_fet
+from divergence_tpu_torch.config import CssConfig, FetConfig
+from divergence_tpu_torch.engine import SnpPair, run_css, run_fet
+from divergence_tpu_torch.kernels import css, linalg, perm
 from divergence_tpu_torch.tools import cli, synth
 assert "divergence_tpu" not in sys.modules
 for name, mod in list(sys.modules.items()):
@@ -24,11 +25,16 @@ pos, am, bm = synth.make_panel(300, 20_000, 11, 10, seed=1)
 for prec in ("exact", "fast"):
     s, d = run_fet(SnpPair(pos, am, bm), 20_000, FetConfig(precision=prec), device="cpu")
     assert s.shape == (40,) and np.isfinite(s).all() and (s != 0).sum() > 10
+    s, p = run_css(SnpPair(pos, am, bm), 20_000, CssConfig(precision=prec, mc_runs=500),
+                   device="cpu")
+    assert s.shape == (40,) and np.isfinite(s).all() and ((p > 0) == (s != 0)).all()
 tmp = sys.argv[2]
 synth.write_gtrack(tmp + "/a.gtrack", "chrZ", pos, am)
 synth.write_gtrack(tmp + "/b.gtrack", "chrZ", pos, bm)
 cli.main(["run-fet", "--pop-a", tmp + "/a.gtrack", "--pop-b", tmp + "/b.gtrack",
           "--out", tmp + "/o.track", "--device", "cpu"])
+cli.main(["run-css", "--pop-a", tmp + "/a.gtrack", "--pop-b", tmp + "/b.gtrack",
+          "--out", tmp + "/c.track", "--device", "cpu", "--mc-runs", "500"])
 print("NOJAX-OK")
 """
 
@@ -40,7 +46,7 @@ def test_port_runs_without_jax(tmp_path):
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "NOJAX-OK" in proc.stdout
-    assert (tmp_path / "o.track").exists()
+    assert (tmp_path / "o.track").exists() and (tmp_path / "c.track").exists()
 
 
 def test_port_sources_never_import_jax():

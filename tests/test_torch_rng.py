@@ -115,3 +115,33 @@ def test_uniform_range_and_type_check():
     assert float(u.min()) >= 0.0 and float(u.max()) < 1.0
     with pytest.raises(TypeError):
         rng.uniform(rng.prng_key(0), 4, torch.float16)
+
+
+def test_mix32_bit_equal(rng):
+    """The MC's counter mix (perm.py:_mix32) on uint32 words held in
+    int64, over random words and the extremes."""
+    x = rng.integers(0, 2**32, 20_000, dtype=np.uint64).astype(np.uint32)
+    x[:4] = [0, 1, 2**31, 2**32 - 1]
+    want = np.asarray(kperm._mix32(jnp.asarray(x))).astype(np.int64)
+    assert np.array_equal(rng_mix32(x), want)
+
+
+def rng_mix32(x: np.ndarray) -> np.ndarray:
+    return rng.mix32(torch.from_numpy(x.astype(np.int64))).numpy()
+
+
+@pytest.mark.parametrize("chunk,m", [(256, 21), (16, 9), (7, 4)])
+def test_mix_bits_bit_equal(chunk, m):
+    """``mix_bits(key, chunk*m)`` is perm.py:_mix_bits flattened, for a
+    batch of keys, including the shared stream's fold_in(fold_in(
+    PRNGKey(seed), 2), k) chain."""
+    mc_key = jax.random.fold_in(jax.random.PRNGKey(11), 2)
+    keys = jnp.stack([jax.random.fold_in(mc_key, k) for k in (0, 1, 781)])
+    want = np.asarray(kperm._mix_bits(keys, chunk, m)).reshape(3, -1)
+    tmc = rng.fold_in(rng.prng_key(11), 2)
+    tkeys = torch.stack([rng.fold_in(tmc, k) for k in (0, 1, 781)])
+    assert np.array_equal(
+        tkeys.numpy(), np.asarray(jax.random.key_data(keys)).astype(np.int64)
+    )
+    got = rng.mix_bits(tkeys, chunk * m).numpy()
+    assert np.array_equal(got, want.astype(np.int64))
