@@ -30,12 +30,26 @@ Phases (any failure exits non-zero and prints no result line):
 6. the CSS CLI: ``run-css`` (default fast) on phase 3's GTrack pair;
 7. the CSS library: ``run_css`` on the bench's three CSS workloads (warm
    wall, windows/s, MC permutations/s), and ``run_css_multi`` on the card
-   against ``run_css`` on the CPU on a small genome, both precisions.
+   against ``run_css`` on the CPU on a small genome, both precisions;
+8. SMACOF (K6) against its plain torch version on the card, both
+   precisions: ``css_smacof`` mode 1 (4 random restarts) and mode 2 (from
+   CMDS) on the 19,997 windows of the 200 k-SNP / 10 Mbp workload;
+   drosophila mode on a 1 M-SNP / 25 Mbp frequency chromosome through
+   ``css_cmds`` + K7 and ``css_smacof`` mode 1 at m = 2; and the kernel
+   alone, mode 1 fast, on the ~800 k bench windows;
+9. the library and CLI with the new options: ``run_css`` with
+   ``mds=SMACOF`` and ``mds=CMDS_SMACOF`` on the 200 k-SNP workload and
+   with ``drosophila=True`` on the frequency chromosome (warm wall,
+   windows/s, MC permutations/s), ``run_css_multi`` on the card against
+   ``run_css`` on the CPU (exact, mds 1 and drosophila, 3 x 5,000 SNPs),
+   and ``run-css --mds smacof`` / ``run-css --drosophila`` on small files.
 
 Kernel launch counts are reset before phase 3 and read after phase 4 (the
-FET path), and reset before phase 6 and read after phase 7 (the CSS path).
-The last three lines are a JSON line of per-kernel results, the card's
-name and power limit, and ``{"ok": true, "device": {...}}``.
+FET path), reset before phase 6 and read after phase 7 (the CMDS CSS
+path), and reset before phase 9 and read after it (the SMACOF and
+drosophila CSS path).  The last three lines are a JSON line of per-kernel
+results, the card's name and power limit, and ``{"ok": true, "device":
+{...}}``.
 
 Tolerances (relative to max(|reference|, 1)): FET exact (float64) 1e-12,
 fast (float32) 1e-5; K2's stddev must meet them on at least 99.99 % of
@@ -46,7 +60,14 @@ fast-vs-exact band), on windows whose eigengap (l2 - l3) / max(|l1|, 1)
 exceeds 1e-6 (below it the 2-D embedding is the eigensolver's choice; the
 excluded windows are counted and may be at most 1 %).  MC: pvals, nscores
 and hits identical on at least 99.9 % of windows (a float32 near tie can
-flip between summation orders; the count is printed).
+flip between summation orders; the count is printed).  SMACOF: exact 1e-9
+on windows whose chosen restart and transform count agree with the plain
+version's (a 1e-12 summation-order difference can flip a stop decision
+or the best of two near-equal restarts), the rest counted and at most
+0.1 %; fast within SMACOF_FAST_BAND, the JAX package's own float32 vs
+float64 band measured on the CPU (tests/test_torch_smacof.py), max and
+90th percentile.  Drosophila (m = 2) CMDS as the CMDS tolerances, with no
+window excluded (there is no third eigenvalue).
 """
 
 from __future__ import annotations
@@ -88,12 +109,23 @@ TOL_CSS = 1e-9                   # CMDS scores, exact
 FAST_RTOL, FAST_ATOL = 2e-3, 1e-4   # CMDS scores, fast
 GAP_BOUND = 1e-6                 # eigengap below which a window is excluded
 MC_DIFFER_SHARE = 1e-3           # MC windows allowed to differ (near ties)
+# SMACOF: the 200 k-SNP / 10 Mbp workload, a Drosophila-arm-scale
+# frequency chromosome (2L is ~23.5 Mbp), the CPU comparison genome
+SMACOF_WORKLOAD = CSS_WORKLOADS[2]
+DROS_SNPS, DROS_REGION, DROS_SEED = 1_000_000, 25_000_000, 13
+MULTI_SNPS, MULTI_REGION = 5_000, 250_000
+SMALL_SNPS, SMALL_REGION = 20_000, 1_000_000   # phase 9's CLI files
+SMACOF_DIFFER_SHARE = 1e-3       # exact: windows whose restart or count differ
+# fast: mds -> (max, 90th percentile) of |f32 - f64| / max(|f64|, 1), the
+# JAX package's own band measured on the CPU (tests/test_torch_smacof.py)
+SMACOF_FAST_BAND = {1: (5.5e-2, 7e-4), 2: (1.53e-1, 7e-4)}
 REPLACES = {
     "fet_lut_build": "divergence_tpu/kernels/fet.py:372",
     "fet_snp_logs": "divergence_tpu/kernels/fet.py:318",
     "fet_aggregate": "divergence_tpu/kernels/fet.py:630",
     "css_dissim": "divergence_tpu/kernels/css.py:55",
     "css_cmds": "divergence_tpu/kernels/css.py:478",
+    "css_smacof": "divergence_tpu/kernels/css.py:225",
     "css_mc_coeff": "divergence_tpu/kernels/perm.py:249",
     "css_mc_shared": "divergence_tpu/kernels/perm.py:302",
 }
@@ -103,6 +135,7 @@ SOURCES = {
     "fet_aggregate": "divergence_tpu_torch/csrc/fet_aggregate.cu",
     "css_dissim": "divergence_tpu_torch/csrc/css_dissim.cu",
     "css_cmds": "divergence_tpu_torch/csrc/css_cmds.cu",
+    "css_smacof": "divergence_tpu_torch/csrc/css_smacof.cu",
     "css_mc_coeff": "divergence_tpu_torch/csrc/css_mc.cu",
     "css_mc_shared": "divergence_tpu_torch/csrc/css_mc.cu",
 }
@@ -632,6 +665,251 @@ def phase_css_library(torch, dev, card) -> None:
         check(n_pdiff <= 0.01 * max(n_scored, 1), f"run_css_multi {prec}: {n_pdiff} p differ")
 
 
+def event_ms(torch, fn):
+    """(fn(), device ms of that one call), by CUDA events."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def smacof_check(torch, kcss, dis, npos, asize, bsize, mds, key, slots, prec, label):
+    """css_smacof against css_smacof_plain on the card at one precision.
+    Returns ((max_abs_err, max_rel_err, kernel ms, plain ms), windows whose
+    chosen restart or transform count differ)."""
+    dt = torch.float32 if prec == "fast" else torch.float64
+    d = dis.to(dt).contiguous()
+    kern = lambda: kcss.css_smacof(d, npos, asize, bsize, mds, key, slots)  # noqa: E731
+    ks, kd, kv, kr, kn = kern()
+    (ps, pd, pv, pr, pn), pms = event_ms(
+        torch, lambda: kcss.css_smacof_plain(d, npos, asize, bsize, mds, key, slots)
+    )
+    torch.cuda.synchronize()
+    check(torch.equal(kv, pv), f"{label} {prec}: valid flags differ")
+    check(torch.equal(ks.isnan(), ps.isnan()), f"{label} {prec}: NaN patterns differ")
+    B = d.shape[0]
+    sel = pv & ~ps.isnan()
+    agree = ((kr == pr) & (kn == pn))[sel]
+    got, want = ks.double()[sel], ps.double()[sel]
+    rel = (got - want).abs() / want.abs().clamp(min=1.0)
+    differ = int((~agree).sum())
+    if prec == "exact":
+        err = float(rel[agree].max()) if bool(agree.any()) else 0.0
+        tol_txt = (f"max_rel_err={err:.3e} on the {int(agree.sum())} windows whose restart "
+                   f"and transform count agree (tol {TOL_CSS:g}), {differ} differ "
+                   f"(allowed {int(SMACOF_DIFFER_SHARE * B)})")
+        check(err <= TOL_CSS, f"{label} {prec}: {err} > {TOL_CSS}")
+        check(differ <= SMACOF_DIFFER_SHARE * B, f"{label} {prec}: {differ} windows differ")
+    else:
+        top, q90 = SMACOF_FAST_BAND[mds]
+        err = float(rel.max()) if rel.numel() else 0.0
+        q = float(torch.quantile(rel, 0.9)) if rel.numel() else 0.0
+        tol_txt = (f"max_rel_err={err:.3e} (band {top:g}), 90th percentile {q:.3e} "
+                   f"(band {q90:g}); {differ} windows stop differently")
+        check(err <= top and q <= q90, f"{label} {prec}: {err}, q90 {q} beyond the band")
+    ms = cuda_ms(torch, kern, 2)
+    steps = kn[kv].double()
+    say(f"[K6 {label} {prec}] B={B} windows, {int(kv.sum())} valid, "
+        f"{int(ks.isnan().sum())} NaN in both, mean {float(steps.mean()):.1f} / max "
+        f"{int(kn.max())} Guttman transforms on the chosen restart: {tol_txt}; "
+        f"kernel {ms:.3f} ms plain {pms:.3f} ms")
+    return (abs_err(got, want), err, ms, pms), differ
+
+
+def phase_smacof_kernels(torch, pair, plan_ids, dev, results) -> None:
+    """Phase 8: K6 against its plain torch version on the card; drosophila
+    shapes through K5, K6 and K7 at m = 2; K6 alone on the bench windows."""
+    import numpy as np
+
+    from divergence_tpu_torch import rng
+    from divergence_tpu_torch.engine import SnpPair
+    from divergence_tpu_torch.kernels import css as kcss
+    from divergence_tpu_torch.kernels import perm as kperm
+    from divergence_tpu_torch.tools.synth import make_chromosome, make_freq_chromosome
+
+    key = rng.fold_in(rng.prng_key(0), rng.chrom_hash("_"))   # run_css's default
+    npos_, region, seed, _ = SMACOF_WORKLOAD
+    pos, am, bm = make_chromosome(npos_, region, ASIZE, BSIZE, seed)
+    lo, npos, slot = windows_of(torch, pos, region)
+    dis = kcss.dissimilarity_plain(SnpPair(pos, am, bm).to_device(dev), lo, npos)
+    npos_d, slot_d = npos.to(dev), slot.to(dev)
+    r = results["css_smacof"]
+    for mds in (1, 2):
+        for prec in ("fast", "exact"):
+            out, differ = smacof_check(torch, kcss, dis, npos_d, ASIZE, BSIZE, mds, key,
+                                       slot_d, prec, f"css_smacof mds={mds} {npos_} SNPs")
+            tag = prec if mds == 1 else f"mds2_{prec}"
+            r[tag] = out
+            r.setdefault("differ", {})[f"mds{mds}_{prec}"] = differ
+    del dis
+    torch.cuda.empty_cache()
+
+    # drosophila: K5, K7 and K6 at m = 2 on a frequency chromosome
+    fpos, fa, fb = make_freq_chromosome(DROS_SNPS, DROS_REGION, DROS_SEED)
+    f_lo, f_npos, f_slot = windows_of(torch, fpos, DROS_REGION)
+    fvals = SnpPair(fpos, fa, fb).to_device(dev, compact=False)
+    fdis = kcss.dissimilarity_freq_windows(fvals[:, 0], fvals[:, 1], f_lo, f_npos)
+    f_npos_d, f_slot_d = f_npos.to(dev), f_slot.to(dev)
+    mc_key = rng.fold_in(rng.prng_key(0), 2)
+    for prec in ("fast", "exact"):
+        dt = torch.float32 if prec == "fast" else torch.float64
+        d = fdis.to(dt)
+        ks, kd, kv = kcss.css_cmds(d, f_npos_d, 1, 1)
+        ps, pd, pv = kcss.css_cmds_plain(d, f_npos_d, 1, 1)
+        torch.cuda.synchronize()
+        check(torch.equal(kv, pv), f"drosophila css_cmds {prec}: valid flags differ")
+        check(not bool(ks.isnan().any() or ps.isnan().any()),
+              f"drosophila css_cmds {prec}: NaN (the m = 2 dust clamp)")
+        got, want = ks.double()[pv], ps.double()[pv]
+        err = rel_err(got, want)
+        if prec == "exact":
+            bad = int((((got - want).abs() / want.abs().clamp(min=1.0)) > TOL_CSS).sum())
+        else:
+            bad = int(((got - want).abs() > FAST_ATOL + FAST_RTOL * want.abs()).sum())
+        ms = cuda_ms(torch, lambda: kcss.css_cmds(d, f_npos_d, 1, 1), 3)
+        pms = cuda_ms(torch, lambda: kcss.css_cmds_plain(d, f_npos_d, 1, 1), 1)
+        sc = ks[kv].double().cpu().numpy()
+        mc = kperm.significance(kd[kv], sc, 1, 1, 10, 200_000, mc_key)
+        pv_, n_, h_ = kperm.mc_significance(kd[kv], sc, mc_key, 1, 1, 256, 200_000, 10)
+        same = (np.array_equal(mc.pvals, pv_) and np.array_equal(mc.nscores, n_)
+                and np.array_equal(mc.hits, h_))
+        say(f"[K5+K7 drosophila {prec}] B={d.shape[0]} windows (m = 2), {int(kv.sum())} "
+            f"valid, 0 NaN: css_cmds max_rel_err={err:.3e}, {bad} beyond tolerance, "
+            f"kernel {ms:.4f} ms plain {pms:.4f} ms; MC p == 1 on "
+            f"{int((mc.pvals == 1.0).sum())} of {len(sc)}, identical to the plain loop: {same}")
+        check(bad == 0, f"drosophila css_cmds {prec}: {bad} windows beyond tolerance")
+        check(bool((mc.pvals == 1.0).all()) and same, f"drosophila MC {prec}")
+        r[f"drosophila_cmds_{prec}"] = (abs_err(got, want), err, ms, pms)
+        out, differ = smacof_check(torch, kcss, fdis, f_npos_d, 1, 1, 1, key, f_slot_d,
+                                   prec, f"css_smacof mds=1 drosophila {DROS_SNPS} SNPs")
+        r[f"drosophila_{prec}"] = out
+        r["differ"][f"drosophila_{prec}"] = differ
+    del fdis, fvals
+
+    # the kernel alone, mode 1 fast, on the ~800 k bench windows
+    lo8, npos8, slot8 = plan_ids
+    d8 = kcss.css_dissim(pair.to_device(dev), lo8, npos8, torch.float32)
+    npos8_d, slot8_d = npos8.to(dev), slot8.to(dev)
+    (s8, _, v8, _, n8), ms = event_ms(
+        torch, lambda: kcss.css_smacof(d8, npos8_d, ASIZE, BSIZE, 1, key, slot8_d)
+    )
+    check(bool(torch.isfinite(s8[v8]).all()) and int(v8.sum()) > 0, "css_smacof bench: non-finite")
+    say(f"[K6 css_smacof mds=1 fast bench] B={d8.shape[0]} windows, {int(v8.sum())} valid, "
+        f"mean {float(n8[v8].double().mean()):.1f} transforms: kernel {ms:.1f} ms "
+        f"({d8.shape[0] / ms * 1e3:,.0f} windows/s, one call); plain version not run "
+        "at this size")
+    r["bench_fast_ms"] = ms
+    del d8, s8, v8, n8
+    torch.cuda.empty_cache()
+
+
+def phase_smacof_library(torch, dev, card, tmp: Path) -> None:
+    """Phase 9: run_css with the SMACOF modes and drosophila mode; the card
+    against the CPU; the CLI with --mds smacof and --drosophila."""
+    import numpy as np
+
+    from divergence_tpu_torch.config import CssConfig, MdsAlgorithm
+    from divergence_tpu_torch.engine import SnpPair, run_css, run_css_multi
+    from divergence_tpu_torch.io import read_score_track
+    from divergence_tpu_torch.tools import cli, synth
+    from divergence_tpu_torch.utils.summary import RunSummary
+
+    npos_, region, seed, _ = SMACOF_WORKLOAD
+    pos, am, bm = synth.make_chromosome(npos_, region, ASIZE, BSIZE, seed)
+    fpos, fa, fb = synth.make_freq_chromosome(DROS_SNPS, DROS_REGION, DROS_SEED)
+    runs = [(SnpPair(pos, am, bm), region, f"{npos_} SNPs / {region} bp", {"mds": m})
+            for m in (MdsAlgorithm.SMACOF, MdsAlgorithm.CMDS_SMACOF)]
+    runs.append((SnpPair(fpos, fa, fb), DROS_REGION,
+                 f"drosophila {DROS_SNPS} SNPs / {DROS_REGION} bp", {"drosophila": True}))
+    for pair, reg, what, kw in runs:
+        for prec in ("fast", "exact"):
+            cfg = CssConfig(precision=prec, **kw)
+            run_css(pair, reg, cfg, device=dev)          # warm-up
+            walls = []
+            for _ in range(3):
+                summary = RunSummary()
+                t0 = time.perf_counter()
+                scores, pvals = run_css(pair, reg, cfg, device=dev, summary=summary)
+                walls.append(time.perf_counter() - t0)
+            c, t = summary.counters, summary.timings_s
+            scored = scores != 0
+            check(scores.shape == (reg // 500,) and not np.isnan(scores).any()
+                  and not np.isnan(pvals).any(), f"run_css {what} {prec}: shape or NaN")
+            check(c["windows_scored"] == int(scored.sum()) > 0, f"run_css {what}: scored")
+            check(bool(((pvals[scored] > 0) & (pvals[scored] <= 1)).all()), "run_css p range")
+            if kw.get("drosophila"):
+                check(bool((pvals[scored] == 1.0).all()), f"drosophila {prec}: p != 1")
+            best, med = min(walls), float(np.median(walls))
+            say(f"[smacof library {prec}] run_css {what} {kw}: {c['windows_scored']} windows "
+                f"scored, {c['mc_permutations']} MC permutations; warm wall min {best:.4f} s "
+                f"median {med:.4f} s; {c['windows_scored'] / best:,.0f} windows/s, "
+                f"{c['mc_permutations'] / best:,.0f} perms/s (stages: dispatch "
+                f"{t.get('css_dispatch', 0):.4f} s, phase-1 sync "
+                f"{t.get('css_phase1_sync', 0):.4f} s, MC {t.get('css_mc', 0):.4f} s) on {card}")
+
+    # the card against the CPU, exact
+    for kw in ({"mds": MdsAlgorithm.SMACOF}, {"drosophila": True}):
+        pairs = {}
+        for i, seqid in enumerate(("chrII", "chrIII", "chrIV")):
+            if kw.get("drosophila"):
+                p, a, b = synth.make_freq_chromosome(MULTI_SNPS, MULTI_REGION, 30 + i)
+            else:
+                p, a, b = synth.make_panel(MULTI_SNPS, MULTI_REGION, ASIZE, BSIZE, seed=30 + i)
+            pairs[seqid] = (SnpPair(p, a, b), MULTI_REGION)
+        cfg = CssConfig(precision="exact", seed=3, mc_runs=20_000, **kw)
+        t0 = time.perf_counter()
+        gpu = run_css_multi(pairs, cfg, device=dev)
+        t_gpu = time.perf_counter() - t0
+        n_scored = n_beyond = n_pdiff = 0
+        worst = 0.0
+        t0 = time.perf_counter()
+        for seqid, (p, regend) in pairs.items():
+            g, c = gpu[seqid], run_css(p, regend, cfg, device="cpu", seqid=seqid)
+            check(np.array_equal(g[0] != 0, c[0] != 0), f"{seqid} {kw}: scored windows differ")
+            err = np.abs(g[0] - c[0]) / np.maximum(np.abs(c[0]), 1.0)
+            n_scored += int((c[0] != 0).sum())
+            n_beyond += int((err > TOL_CSS).sum())
+            n_pdiff += int((g[1] != c[1]).sum())
+            worst = max(worst, float(err.max()))
+        t_cpu = time.perf_counter() - t0
+        say(f"[smacof library exact] run_css_multi {kw} on the card vs run_css on the CPU "
+            f"(3 x {MULTI_SNPS} SNPs, {n_scored} windows): {n_beyond} windows beyond "
+            f"{TOL_CSS:g} (allowed {int(SMACOF_DIFFER_SHARE * n_scored)}: a flipped stop "
+            f"or restart), max_rel_err {worst:.3e}; p differs on {n_pdiff} "
+            f"windows; card {t_gpu:.2f} s, CPU {t_cpu:.2f} s")
+        check(n_scored > 0 and n_beyond <= SMACOF_DIFFER_SHARE * n_scored,
+              f"run_css_multi {kw}: {n_beyond} windows beyond {TOL_CSS}")
+        check(n_pdiff <= 0.01 * n_scored, f"run_css_multi {kw}: {n_pdiff} p differ")
+
+    # the CLI on small files
+    spos, sam, sbm = synth.make_panel(SMALL_SNPS, SMALL_REGION, ASIZE, BSIZE, seed=40)
+    fpos, fa, fb = synth.make_freq_chromosome(SMALL_SNPS, SMALL_REGION, 41)
+    files = {}
+    for name, p, mat in (("popA", spos, sam), ("popB", spos, sbm), ("freqA", fpos, fa),
+                         ("freqB", fpos, fb)):
+        files[name] = tmp / f"small_{name}.gtrack"
+        synth.write_gtrack(files[name], "chrS", p, mat)
+    for flags, a, b in ((["--mds", "smacof"], "popA", "popB"),
+                        (["--drosophila"], "freqA", "freqB")):
+        out, summary = tmp / "small_css.track", tmp / "small_css.json"
+        t0 = time.perf_counter()
+        cli.main(["run-css", "--pop-a", str(files[a]), "--pop-b", str(files[b]),
+                  "--out", str(out), "--summary", str(summary), "--device", str(dev), *flags])
+        wall = time.perf_counter() - t0
+        _, starts, sc, pv = read_score_track(out)
+        counters = json.loads(summary.read_text())["counters"]
+        say(f"[smacof cli] run-css {' '.join(flags)}: {len(starts)} rows, p in "
+            f"[{pv.min():.3g}, {pv.max():.3g}], wall {wall:.2f} s")
+        check(len(starts) == counters["windows_scored"] > 0, f"cli {flags}: rows")
+        check(not np.isnan(sc).any() and bool(((pv > 0) & (pv <= 1)).all()), f"cli {flags}")
+        if "--drosophila" in flags:
+            check(bool((pv == 1.0).all()), "cli --drosophila: p != 1")
+
+
 def smoke(torch, dev) -> tuple[str, list[dict]]:
     """Every phase on ``dev``; returns (card line, per-kernel results).
     Raises on the first failure."""
@@ -696,12 +974,23 @@ def smoke(torch, dev) -> tuple[str, list[dict]]:
         timed_phase("6", phase_css_cli, torch, dev, tmp, files)
         timed_phase("7", phase_css_library, torch, dev, card)
         css_launches = {**kcss.LAUNCHES, **kperm.LAUNCHES}
+        say(f"[CSS main path, CMDS] kernel launches: {css_launches}")
+        cmds_path = ("css_dissim", "css_cmds", "css_mc_coeff", "css_mc_shared")
+        check(all(css_launches[k] > 0 for k in cmds_path),
+              f"the CMDS CSS path did not launch every kernel: {css_launches}")
+        launches.update({k: css_launches[k] for k in cmds_path})
+        timed_phase("8", phase_smacof_kernels, torch, pair, (lo, npos, slot), dev, results)
+
+        kcss.reset_launches()
+        kperm.reset_launches()
+        timed_phase("9", phase_smacof_library, torch, dev, card, tmp)
+        smacof_launches = {**kcss.LAUNCHES, **kperm.LAUNCHES}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    say(f"[CSS main path] kernel launches: {css_launches}")
-    check(all(v > 0 for v in css_launches.values()),
-          f"the CSS path did not launch every kernel: {css_launches}")
-    launches.update(css_launches)
+    say(f"[CSS main path, SMACOF + drosophila] kernel launches: {smacof_launches}")
+    check(all(v > 0 for v in smacof_launches.values()),
+          f"the SMACOF / drosophila CSS path did not launch every kernel: {smacof_launches}")
+    launches["css_smacof"] = smacof_launches["css_smacof"]
 
     kernels = []
     for name in REPLACES:
@@ -727,6 +1016,14 @@ def smoke(torch, dev) -> tuple[str, list[dict]]:
             entry["windows_excluded_eigengap"] = r["exact_excluded"]
         if name == "css_mc_shared":
             entry["windows_differ"] = r["differ"]
+        if name == "css_smacof":
+            # ms / plain_ms: mode 1 at 19,997 windows; then mode 2, the
+            # drosophila chromosome (m = 2) and the ~800 k bench windows
+            entry["windows_differ"] = r["differ"]
+            for tag in ("mds2_fast", "mds2_exact", "drosophila_fast", "drosophila_exact"):
+                entry[f"ms_{tag}"], entry[f"plain_ms_{tag}"] = r[tag][2], r[tag][3]
+                entry["max_abs_err"] = max(entry["max_abs_err"], r[tag][0])
+            entry["ms_bench_800k_fast"] = r["bench_fast_ms"]
         kernels.append(entry)
     return card, kernels
 

@@ -1,23 +1,25 @@
 """Per-chromosome CSS engine (``divergence_tpu/engine/css_engine.py``).
 
 Window plan (host) -> phase 1: every valid window's dissimilarities and
-CMDS score in one call per chromosome (``kernels/css.py:css_phase1``) ->
-one host sync for the scores and valid flags of every chromosome (the
-distance matrices stay on the device) -> phase 2: the shared-stream
-permutation Monte-Carlo over all valid windows of a panel-size group at
-once (``kernels/perm.py:significance``) -> dense score / p tracks.
+CMDS or SMACOF score in one call per chromosome
+(``kernels/css.py:css_phase1``) -> one host sync for the scores and valid
+flags of every chromosome (the distance matrices stay on the device) ->
+phase 2: the shared-stream permutation Monte-Carlo over all valid windows
+of a panel-size group at once (``kernels/perm.py:significance``) -> dense
+score / p tracks.
 
-Ported: the default ``CssConfig`` path (``mds=CMDS``, ``p_mode="mc"``,
-``perm_backend="xla"``, ``rng="mix"``, ``mc_stream="shared"``, no
-drosophila).  Every other option raises ``NotImplementedError`` naming
-the ROADMAP item that ports it; nothing silently runs something else.
-Left out against the JAX engine, because Hopper does not need them: the
-``PREFIX_MAX_ELEMS`` switch between prefix and gather programs (the
-dissimilarity kernel counts per window, with no prefix, at any
-chromosome length), the ``lax.map`` descriptor slices, and the padded
-MC rows (only valid windows enter the MC; each stops on its own).
-``mc_window_batch`` and ``perm_form`` therefore change nothing here.
-``slot_range=`` and ``sharding=`` are not ported yet (P11).
+Ported: all three MDS modes (``mds`` CMDS, SMACOF, CMDS_SMACOF) and
+drosophila mode (frequency tracks, two pseudo-individuals scored and
+permuted as 1 + 1), with ``p_mode="mc"``, ``perm_backend="xla"``,
+``rng="mix"``, ``mc_stream="shared"``.  Every other option raises
+``NotImplementedError`` naming the ROADMAP item that ports it; nothing
+silently runs something else.  Left out against the JAX engine, because
+Hopper does not need them: the ``PREFIX_MAX_ELEMS`` switch between prefix
+and gather programs (the dissimilarity kernel counts per window, with no
+prefix, at any chromosome length), the ``lax.map`` descriptor slices, and
+the padded MC rows (only valid windows enter the MC; each stops on its
+own).  ``mc_window_batch`` and ``perm_form`` therefore change nothing
+here.  ``slot_range=`` and ``sharding=`` are not ported yet (P11).
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ import numpy as np
 import torch
 
 from divergence_tpu_torch import resolve_device, rng
-from divergence_tpu_torch.config import CssConfig, MdsAlgorithm
+from divergence_tpu_torch.config import CssConfig
 from divergence_tpu_torch.core.windows import plan_windows
 from divergence_tpu_torch.engine.snp import SnpPair
 from divergence_tpu_torch.kernels import css as kcss
@@ -38,10 +40,6 @@ def check_supported(cfg: CssConfig) -> None:
     """Raise ``NotImplementedError`` for every ``CssConfig`` option the
     port does not run yet, naming its ROADMAP item."""
     unported = []
-    if cfg.mds != MdsAlgorithm.CMDS:
-        unported.append(f"mds={cfg.mds.name} (SMACOF: P7)")
-    if cfg.drosophila:
-        unported.append("drosophila=True (frequency tracks, gather path: P8)")
     if cfg.p_mode != "mc":
         unported.append(f"p_mode={cfg.p_mode!r} (approx mode: P9)")
     if cfg.mc_stream != "shared":
@@ -52,13 +50,13 @@ def check_supported(cfg: CssConfig) -> None:
         unported.append(f"rng={cfg.rng!r} (threefry permutation draws: P9)")
     if unported:
         raise NotImplementedError(
-            "divergence_tpu_torch runs the default CSS path only; not "
-            "ported yet: " + "; ".join(unported)
+            "divergence_tpu_torch runs the shared-stream MC p-values only; "
+            "not ported yet: " + "; ".join(unported)
         )
 
 
 def _phase1_dispatch(pair: SnpPair, regend: int, cfg: CssConfig,
-                     device: torch.device):
+                     device: torch.device, key: torch.Tensor, seqid: str):
     """Enqueue one chromosome's phase 1 (no host sync).
 
     Returns (nslots, num_windows, pending) with pending = (slots [Bw]
@@ -70,11 +68,18 @@ def _phase1_dispatch(pair: SnpPair, regend: int, cfg: CssConfig,
     ids = np.nonzero(plan.valid_mask() & (plan.npos > 0))[0]
     if len(ids) == 0:
         return plan.nslots, plan.num_windows, None
-    # int16 codes: the counts only ==-compare them (engine/snp.py)
-    vals = pair.to_device(device, compact=True)
+    # int16 codes: the counts only ==-compare them (engine/snp.py);
+    # drosophila frequencies keep their float values (css.c:245-264)
+    vals = pair.to_device(device, compact=not cfg.drosophila)
+    # chromosome-pinned restart keys: the scores do not depend on which
+    # other chromosomes share the run
+    ckey = rng.fold_in(key, rng.chrom_hash(seqid))
+    sm = cfg.smacof
     scores, dist, valid = kcss.css_phase1(
         vals, plan.lo[ids], plan.npos[ids], pair.asize, pair.bsize,
-        fast=cfg.precision == "fast",
+        fast=cfg.precision == "fast", mds=int(cfg.mds), key=ckey,
+        slots=plan.slot[ids], drosophila=cfg.drosophila,
+        smacof_iters=sm.max_iters, smacof_inits=sm.n_init, smacof_eps=sm.epsilon,
     )
     return plan.nslots, plan.num_windows, (plan.slot[ids], scores, dist, valid)
 
@@ -132,9 +137,13 @@ def run_css_multi(
     planned_total = 0
     with summary.stage("css_dispatch"):
         for seqid, (pair, regend) in sorted(pairs.items()):
-            nslots, planned, pending = _phase1_dispatch(pair, regend, cfg, device)
+            nslots, planned, pending = _phase1_dispatch(
+                pair, regend, cfg, device, key, seqid
+            )
             planned_total += planned
-            per_chrom.append((seqid, nslots, pending, pair.asize, pair.bsize))
+            # drosophila scores and permutes two pseudo-individuals
+            sizes = (1, 1) if cfg.drosophila else (pair.asize, pair.bsize)
+            per_chrom.append((seqid, nslots, pending, *sizes))
 
     all_pending = [p for _, _, p, _, _ in per_chrom if p is not None]
     with summary.stage("css_phase1_sync"):

@@ -56,6 +56,11 @@ _SIGNATURES = {
     "css_dissim_{t}": (_P, _P, _P, _I64, _I, _P, _P),
     # dis, npos, B, asize, bsize, pairs, wa, wb, scores, dist, valid, stream
     "css_cmds_{t}": (_P, _P, _I64, _I, _I, _P, _D, _D, _P, _P, _P, _P),
+    # dis, npos, slots, B, key0, key1, asize, bsize, mode, n_init,
+    # max_iters, eps, pairs, wa, wb, scores, dist, valid, restart, ntrans,
+    # stream
+    "css_smacof_{t}": (_P, _P, _P, _I64, _U32, _U32, _I, _I, _I, _I, _I, _D,
+                       _P, _D, _D, _P, _P, _P, _P, _P, _P),
     # key0, key1, k0, nk, chunk, m, asize, between, ca, cb, out, stream
     "css_mc_coeff": (_U32, _U32, _I, _I, _I, _I, _I, _F, _F, _F, _P, _P),
     # dist, obs, active, nact, m, M, k0, nk, chunk, runs, threshold,

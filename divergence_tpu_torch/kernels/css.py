@@ -1,42 +1,50 @@
 """Batched Cluster Separation Score, phase 1: window dissimilarities
-(K3/K4) and CMDS scoring (K5).
+(K3/K4, and the drosophila frequency metric), CMDS scoring (K5) and
+SMACOF scoring (K6).
 
-Port of ``divergence_tpu/kernels/css.py`` for the CMDS (``mds=0``)
-stickleback path; every function keeps its JAX name and semantics:
+Port of ``divergence_tpu/kernels/css.py``; every function keeps its JAX
+name and semantics:
 
 * dissimilarity counting (reference statistics/css/css.c:277-327): the
   number of SNPs at which individuals i and j are opposite homozygotes;
+* the drosophila metric (css.c:245-264): two pseudo-individuals whose
+  dissimilarity is the mean absolute frequency difference;
 * fill-averages + discard rule (css.c:337-366), quirks preserved: the
   average divides by all m^2 cells, the diagonal is filled too, and a
   window with more than m*m//2 near-zero cells is discarded;
 * classical MDS (css.c:505-560): double centring, top-2 eigenpairs,
   X = Q sqrt(L) with the JAX package's dust clamp;
+* SMACOF (css.c:852-938): Guttman transforms until the stress improves by
+  at most epsilon, from ``n_init`` slot-keyed uniform restarts (mds=1) or
+  from the CMDS embedding (mds=2);
 * the CSS score (css.c:608-647): between-group mean minus the weighted
   adjacent-chain terms.
 
-Two wrappers launch hand-written CUDA kernels when their tensors lie on a
-CUDA device, and run the plain torch version on the CPU:
+Three wrappers launch hand-written CUDA kernels when their tensors lie on
+a CUDA device, and run the plain torch version on the CPU:
 
 * :func:`css_dissim` — ``csrc/css_dissim.cu``: every window's counts
   straight from the joint int16 codes (K3, and K4's gather form: the
   same integer counts);
 * :func:`css_cmds`   — ``csrc/css_cmds.cu``: fill, centring, Jacobi
-  eigensolver, embedding, distances and score per window (K5).
+  eigensolver, embedding, distances and score per window (K5);
+* :func:`css_smacof` — ``csrc/css_smacof.cu``: fill, the restarts'
+  SMACOF loops, the best restart, distances and score per window (K6).
 
 There is no fallback: on a CUDA tensor the kernel runs or the call
-raises.  Each launch adds one to :data:`LAUNCHES`.  Not ported here: the
-drosophila frequency metric (``dissimilarity_freq``, P8) and SMACOF (K6,
-P7).
+raises.  Each launch adds one to :data:`LAUNCHES`.  The drosophila metric
+(:func:`dissimilarity_freq_windows`) is plain torch on every device.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
 import torch
 
-from divergence_tpu_torch import compute_dtype
+from divergence_tpu_torch import compute_dtype, rng
 from divergence_tpu_torch.kernels._cuda import dtype_suffix, is_cpu, launch, ptr
 from divergence_tpu_torch.kernels.fet import _window_pad
 from divergence_tpu_torch.kernels.linalg import top2_eig
@@ -49,12 +57,13 @@ _COUNT_BATCH_ELEMS = 1 << 24   # [b, P, m] elements per step of the counts form
 # windows per step of the plain CMDS: cuSOLVER's batched eigh refuses
 # batches of 65 536 21x21 matrices on the card (CUSOLVER_STATUS_INVALID_VALUE)
 _CMDS_BATCH = 16_384
-CMDS_MAX_M = 64                # css_cmds keeps a window's Jacobi in shared memory
+CMDS_MAX_M = 64                # css_cmds / css_smacof keep a window in shared memory
+SMACOF_MAX_INITS = 8           # css_smacof runs one warp per restart
 _SMEM_LIMIT = 232_448          # bytes of shared memory a Hopper block may use
 _DISSIM_WORDS = 8              # css_dissim packs 8 x 32 SNPs per pass
 
 # kernel launches since the last reset_launches(), by kernel name
-LAUNCHES = {"css_dissim": 0, "css_cmds": 0}
+LAUNCHES = {"css_dissim": 0, "css_cmds": 0, "css_smacof": 0}
 
 
 def reset_launches() -> None:
@@ -165,6 +174,49 @@ def css_dissim(
     return out
 
 
+def dissimilarity_freq(
+    avals: torch.Tensor, bvals: torch.Tensor, npos: torch.Tensor,
+    snp_mask: torch.Tensor,
+) -> torch.Tensor:
+    """Drosophila frequency metric (reference statistics/css/css.c:245-264):
+    a 2x2 matrix with the mean absolute frequency difference off the
+    diagonal, summed in float64.  ``avals``/``bvals``: [B, P, 1] gathered
+    frequencies, ``snp_mask`` [B, P] -> [B, 2, 2] float64."""
+    diff = (avals[..., 0].to(torch.float64) - bvals[..., 0].to(torch.float64)).abs()
+    avg = torch.where(snp_mask, diff, 0.0).sum(dim=-1) / torch.clamp(
+        npos.to(torch.float64), min=1.0
+    )
+    zero = torch.zeros_like(avg)
+    return torch.stack(
+        [torch.stack([zero, avg], dim=-1), torch.stack([avg, zero], dim=-1)], dim=-2
+    )
+
+
+def dissimilarity_freq_windows(
+    fa: torch.Tensor, fb: torch.Tensor, lo: torch.Tensor, npos: torch.Tensor
+) -> torch.Tensor:
+    """Every window's drosophila matrix [B, 2, 2] float64 from the
+    chromosome's frequency columns ``fa``/``fb`` [N] (the JAX engine's
+    gather path, ``css_gather_all``): windows gathered at a padded width
+    in batches of ``_COUNT_BATCH_ELEMS`` values, so memory stays bounded.
+    Plain torch on every device (ROADMAP queue 2: no hand kernel)."""
+    dev = fa.device
+    lo, npos = lo.to(dev, torch.int64), npos.to(dev, torch.int64)
+    B = lo.shape[0]
+    out = torch.empty((B, 2, 2), dtype=torch.float64, device=dev)
+    if B == 0:
+        return out
+    P = _window_pad(int(npos.max()))
+    step = max(1, _COUNT_BATCH_ELEMS // P)
+    offs = torch.arange(P, device=dev)[None, :]
+    for s in range(0, B, step):
+        sl = slice(s, min(s + step, B))
+        mask = offs < npos[sl, None]
+        idx = torch.where(mask, lo[sl, None] + offs, 0)
+        out[sl] = dissimilarity_freq(fa[idx][..., None], fb[idx][..., None], npos[sl], mask)
+    return out
+
+
 # --------------------------------------------------------------------------
 # K5: fill-averages, CMDS, distances, score
 # --------------------------------------------------------------------------
@@ -236,30 +288,167 @@ def css_from_dist(dist: torch.Tensor, asize: int, bsize: int) -> torch.Tensor:
     return bet - m * (diag1 * w).sum(dim=-1)
 
 
+def _stress(dis: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """Raw stress over unordered pairs (reference statistics/css/css.c:767-777):
+    half the full-matrix sum.  The diagonal counts too: ``d``'s is zero,
+    but a filled ``dis`` holds the fill average there, so the stress
+    carries the constant 0.5 m avg^2, as in the JAX package."""
+    diff = d - dis
+    return 0.5 * (diff * diff).sum(dim=(-1, -2))
+
+
+def _guttman(x: torch.Tensor, d: torch.Tensor, dis: torch.Tensor) -> torch.Tensor:
+    """One Guttman transform (reference statistics/css/css.c:811-836):
+    X' = B(Z) Z / m, B off-diagonal -dis/d where d >= 1e-5, diagonal
+    -rowsum."""
+    m = dis.shape[-1]
+    eye = torch.eye(m, dtype=torch.bool, device=dis.device)
+    b = torch.where(~eye & (d >= 0.00001), -dis / torch.where(d == 0, 1.0, d), 0.0)
+    rowsum = b.sum(dim=-1)
+    b = b - rowsum[..., None] * eye.to(b.dtype)
+    return (b @ x) / m
+
+
+def _smacof_loop(
+    dis: torch.Tensor, x0: torch.Tensor, max_iters: int, epsilon: float
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`smacof` plus each element's transform count (int32).  The
+    masked loop of the JAX scan, stopped once no element is active: a
+    frozen element never changes, so the result equals the fixed
+    ``max_iters + 1``-step scan's."""
+    x = x0
+    d = calc_dist(x0)
+    sig = _stress(dis, d)
+    active = sig == sig       # as JAX: a NaN start never iterates
+    n = torch.zeros(sig.shape, dtype=torch.int32, device=sig.device)
+    for _ in range(max_iters + 1):
+        if not bool(active.any()):
+            break
+        xn = _guttman(x, d, dis)
+        dn = calc_dist(xn)
+        sign = _stress(dis, dn)
+        improved = (sig - sign) > epsilon
+        x = torch.where(active[..., None, None], xn, x)
+        d = torch.where(active[..., None, None], dn, d)
+        sig = torch.where(active, sign, sig)
+        n = n + active.to(torch.int32)
+        active = active & improved
+    return x, sig, n
+
+
+def smacof(
+    dis: torch.Tensor, x0: torch.Tensor, max_iters: int = 300, epsilon: float = 1e-6
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Batched SMACOF (reference statistics/css/css.c:907-938).
+
+    ``dis``: [..., m, m], ``x0``: [..., m, 2].  The reference's loop
+    protocol: the first transform is unconditional, then transforms go on
+    while the stress improvement exceeds epsilon and k <= max_iters (so up
+    to max_iters + 1), each element freezing on its own.  Returns (x,
+    sigma)."""
+    x, sig, _ = _smacof_loop(dis, x0, max_iters, epsilon)
+    return x, sig
+
+
+def _argmin_nan_first(sig: torch.Tensor) -> torch.Tensor:
+    """numpy's argmin over dim 0: the first NaN, else the first minimum
+    (stresses are >= 0, so a NaN can stand in as -inf)."""
+    return torch.where(sig.isnan(), -torch.inf, sig).argmin(dim=0)
+
+
+def _smacof_best(
+    dis: torch.Tensor, wkeys: torch.Tensor, n_init: int, max_iters: int,
+    epsilon: float,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`smacof_runs` plus each window's chosen restart and that
+    restart's transform count: (x [B, m, 2], restart, ntrans)."""
+    B, m = dis.shape[0], dis.shape[-1]
+    x0 = rng.smacof_inits(wkeys.to(dis.device), n_init, m, dis.dtype)   # [B, I, m, 2]
+    x, sig, n = _smacof_loop(dis[None], x0.movedim(1, 0), max_iters, epsilon)
+    best = _argmin_nan_first(sig)                                      # [B]
+    cols = torch.arange(B, device=dis.device)
+    return x[best, cols], best.to(torch.int32), n[best, cols]
+
+
+def smacof_runs(
+    dis: torch.Tensor,
+    wkeys: torch.Tensor,     # [B, 2] per-window keys (rng.slot_keys)
+    n_init: int = 4,
+    max_iters: int = 300,
+    epsilon: float = 1e-6,
+) -> torch.Tensor:
+    """SMACOF with random restarts, best of ``n_init`` by stress
+    (reference statistics/css/css.c:852-884).  Each window draws its
+    restarts from its own slot key (:func:`rng.smacof_inits`), so the
+    chosen embedding does not depend on the batching.  ``dis``:
+    [B, m, m] -> [B, m, 2]."""
+    return _smacof_best(dis, wkeys, n_init, max_iters, epsilon)[0]
+
+
+def _score_pipeline(
+    dis: torch.Tensor,        # [B, m, m] window dissimilarities (dtype set)
+    npos: torch.Tensor,
+    wkeys: torch.Tensor | None,   # [B, 2] per-window keys (mds=1)
+    a_sz: int,
+    b_sz: int,
+    mds: int,
+    smacof_iters: int = 300,
+    smacof_inits: int = 4,
+    smacof_eps: float = 1e-6,
+) -> tuple[torch.Tensor, ...]:
+    """``divergence_tpu/kernels/css.py:_score_pipeline`` for one batch:
+    (scores, dist, valid, restart, ntrans).  The last two are the SMACOF
+    diagnostics (the chosen restart and its transform count; zeros for
+    CMDS)."""
+    filled, keep = fill_averages(dis)
+    B = dis.shape[0]
+    restart = torch.zeros(B, dtype=torch.int32, device=dis.device)
+    ntrans = torch.zeros(B, dtype=torch.int32, device=dis.device)
+    if mds == 0:
+        x = cmds(filled)
+    elif mds == 1:
+        x, restart, ntrans = _smacof_best(
+            filled, wkeys, smacof_inits, smacof_iters, smacof_eps
+        )
+    else:
+        x, _, ntrans = _smacof_loop(filled, cmds(filled), smacof_iters, smacof_eps)
+    dist = calc_dist(x)
+    scores = css_from_dist(dist, a_sz, b_sz)
+    valid = keep & (npos > 0)
+    return torch.where(valid, scores, 0.0), dist, valid, restart, ntrans
+
+
+def _score_plain(
+    dis: torch.Tensor, npos: torch.Tensor, asize: int, bsize: int, mds: int,
+    wkeys: torch.Tensor | None = None, **smacof_kw,
+) -> tuple[torch.Tensor, ...]:
+    """:func:`_score_pipeline` over window batches of ``_CMDS_BATCH``."""
+    B, m = dis.shape[0], dis.shape[-1]
+    npos = npos.to(dis.device)
+    if B == 0:
+        dev = dis.device
+        return (torch.zeros(0, dtype=torch.float64, device=dev),
+                torch.zeros((0, m, m), dtype=dis.dtype, device=dev),
+                torch.zeros(0, dtype=torch.bool, device=dev),
+                torch.zeros(0, dtype=torch.int32, device=dev),
+                torch.zeros(0, dtype=torch.int32, device=dev))
+    parts = []
+    for s in range(0, B, _CMDS_BATCH):
+        sl = slice(s, min(s + _CMDS_BATCH, B))
+        parts.append(_score_pipeline(
+            dis[sl], npos[sl], None if wkeys is None else wkeys[sl],
+            asize, bsize, mds, **smacof_kw,
+        ))
+    return tuple(torch.cat(cols) for cols in zip(*parts))
+
+
 def css_cmds_plain(
     dis: torch.Tensor, npos: torch.Tensor, asize: int, bsize: int
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain torch version of :func:`css_cmds`
     (``divergence_tpu/kernels/css.py:_score_pipeline`` with ``mds=0``),
     over window batches of ``_CMDS_BATCH``."""
-    B = dis.shape[0]
-    npos = npos.to(dis.device)
-    scores, dists, valids = [], [], []
-    for s in range(0, B, _CMDS_BATCH):
-        sl = slice(s, min(s + _CMDS_BATCH, B))
-        filled, keep = fill_averages(dis[sl])
-        dist = calc_dist(cmds(filled))
-        sc = css_from_dist(dist, asize, bsize)
-        valid = keep & (npos[sl] > 0)
-        scores.append(torch.where(valid, sc, 0.0))
-        dists.append(dist)
-        valids.append(valid)
-    if B == 0:
-        m = dis.shape[-1]
-        return (torch.zeros(0, dtype=torch.float64, device=dis.device),
-                torch.zeros((0, m, m), dtype=dis.dtype, device=dis.device),
-                torch.zeros(0, dtype=torch.bool, device=dis.device))
-    return torch.cat(scores), torch.cat(dists), torch.cat(valids)
+    return _score_plain(dis, npos, asize, bsize, 0)[:3]
 
 
 def _round_robin_pairs(n: int) -> np.ndarray:
@@ -321,29 +510,135 @@ def css_cmds(
 
 
 # --------------------------------------------------------------------------
+# K6: fill-averages, SMACOF, distances, score
+# --------------------------------------------------------------------------
+
+def css_smacof_plain(
+    dis: torch.Tensor, npos: torch.Tensor, asize: int, bsize: int, mds: int,
+    key: torch.Tensor, slots: torch.Tensor, n_init: int = 4,
+    max_iters: int = 300, epsilon: float = 1e-6,
+) -> tuple[torch.Tensor, ...]:
+    """Plain torch version of :func:`css_smacof`
+    (``divergence_tpu/kernels/css.py:_score_pipeline`` with ``mds`` 1 or
+    2), over window batches of ``_CMDS_BATCH``."""
+    wkeys = None
+    if mds == 1:
+        slots = torch.as_tensor(slots, dtype=torch.int64).to(dis.device)
+        wkeys = rng.slot_keys(key.to(dis.device), slots)
+    return _score_plain(
+        dis, npos, asize, bsize, mds, wkeys, smacof_iters=max_iters,
+        smacof_inits=n_init, smacof_eps=epsilon,
+    )
+
+
+def css_smacof(
+    dis: torch.Tensor,    # [B, m, m] window dissimilarities (compute dtype)
+    npos: torch.Tensor,   # [B] SNPs per window (a window with none is invalid)
+    asize: int,
+    bsize: int,
+    mds: int,             # 1: n_init uniform restarts; 2: one, from CMDS
+    key: torch.Tensor,    # [2] chromosome key, fold_in(PRNGKey(seed), chrom)
+    slots: torch.Tensor,  # [B] window slots: restart keys fold_in(key, slot)
+    n_init: int = 4,
+    max_iters: int = 300,
+    epsilon: float = 1e-6,
+) -> tuple[torch.Tensor, ...]:
+    """SMACOF scores of every window: (scores [B], dist [B, m, m], valid
+    [B], restart [B], ntrans [B]) (``divergence_tpu/kernels/css.py:
+    _score_pipeline``, ``mds`` 1 or 2).  ``restart`` and ``ntrans`` (int32)
+    are diagnostics for testing: each window's chosen restart and that
+    restart's number of Guttman transforms."""
+    if mds not in (1, 2):
+        raise ValueError(f"css_smacof runs mds 1 or 2, got {mds}")
+    if is_cpu(dis):
+        return css_smacof_plain(
+            dis, npos, asize, bsize, mds, key, slots, n_init, max_iters, epsilon
+        )
+    dev = dis.device
+    B, m = dis.shape[0], dis.shape[-1]
+    if m != asize + bsize or dis.shape != (B, m, m) or not dis.is_contiguous():
+        raise ValueError("css_smacof kernel takes a contiguous [B, m, m] tensor, m = a + b")
+    if m > CMDS_MAX_M:
+        raise NotImplementedError(
+            f"css_smacof runs panels of at most {CMDS_MAX_M} individuals on "
+            f"CUDA (m={m}); larger panels are ROADMAP item P12"
+        )
+    if mds == 1 and not 1 <= n_init <= SMACOF_MAX_INITS:
+        raise ValueError(
+            f"css_smacof runs 1 to {SMACOF_MAX_INITS} restarts on CUDA, got {n_init}"
+        )
+    scores = torch.empty(B, dtype=dis.dtype, device=dev)
+    dist = torch.empty_like(dis)
+    valid = torch.empty(B, dtype=torch.bool, device=dev)
+    restart = torch.empty(B, dtype=torch.int32, device=dev)
+    ntrans = torch.empty(B, dtype=torch.int32, device=dev)
+    if B == 0:
+        return scores, dist, valid, restart, ntrans
+    w = chain_weights_host(asize, bsize)
+    wa = float(w[0]) if asize > 1 else 0.0
+    wb = float(w[-1]) if bsize > 1 else 0.0
+    npos_d = npos.to(dev, torch.int64).contiguous()
+    slots_d = torch.as_tensor(slots, dtype=torch.int64).to(dev).contiguous()
+    k0, k1 = (int(v) for v in key.tolist())
+    launch(
+        LAUNCHES, "css_smacof", f"css_smacof_{dtype_suffix(dis.dtype)}", dev,
+        ptr(dis), ptr(npos_d), ptr(slots_d), B, ctypes.c_uint32(k0),
+        ctypes.c_uint32(k1), asize, bsize, mds, n_init, max_iters,
+        float(epsilon), ptr(_pairs(m + (m % 2), dev)), wa, wb, ptr(scores),
+        ptr(dist), ptr(valid), ptr(restart), ptr(ntrans),
+    )
+    return scores, dist, valid, restart, ntrans
+
+
+# --------------------------------------------------------------------------
 # phase 1 of a chromosome
 # --------------------------------------------------------------------------
 
 def css_phase1(
-    vals: torch.Tensor,   # [N, m] joint genotype codes (SnpPair.to_device)
+    vals: torch.Tensor,   # [N, a+b] joint codes or frequencies (SnpPair.to_device)
     lo: np.ndarray | torch.Tensor,     # [B] first SNP of each window
     npos: np.ndarray | torch.Tensor,   # [B] SNPs per window
     asize: int,
     bsize: int,
     fast: bool = False,
+    mds: int = 0,
+    key: torch.Tensor | None = None,   # [2] chromosome key (mds=1)
+    slots: np.ndarray | torch.Tensor | None = None,  # [B] window slots (mds=1)
+    drosophila: bool = False,
+    smacof_iters: int = 300,
+    smacof_inits: int = 4,
+    smacof_eps: float = 1e-6,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Every window of a chromosome in one call: dissimilarities, then
-    CMDS scoring (``divergence_tpu/kernels/css.py:css_prefix_all`` with
-    ``mds=0``).  Returns (scores [B], dist [B, m, m], valid [B]) on
-    ``vals.device``, in the compute dtype of ``fast``."""
+    CMDS (``mds=0``) or SMACOF (``mds`` 1, 2) scoring
+    (``divergence_tpu/kernels/css.py:css_prefix_all`` and
+    ``css_gather_all``).  Drosophila mode scores the two frequency
+    pseudo-individuals (columns 0 and ``asize`` of ``vals``) with
+    ``asize = bsize = 1``.  Returns (scores [B], dist [B, m, m], valid [B])
+    on ``vals.device``, in the compute dtype of ``fast``."""
     dtype = compute_dtype("fast" if fast else "exact")
     lo = torch.as_tensor(lo, dtype=torch.int64)
     npos = torch.as_tensor(npos, dtype=torch.int64)
     if lo.numel() and (int(lo.min()) < 0 or int((lo + npos).max()) > vals.shape[0]):
         raise ValueError("window descriptors reach outside the SNP matrix")
+    if mds == 1 and (key is None or slots is None):
+        raise ValueError("mds=1 draws its restarts from the chromosome key and slots")
     if not is_cpu(vals) and lo.device.type == "cpu":
-        # one pinned upload serves both kernels
-        rows = torch.stack([lo, npos]).pin_memory().to(vals.device, non_blocking=True)
+        # one pinned upload serves every kernel
+        rows = [lo, npos]
+        if slots is not None:
+            rows.append(torch.as_tensor(slots, dtype=torch.int64))
+        rows = torch.stack(rows).pin_memory().to(vals.device, non_blocking=True)
         lo, npos = rows[0], rows[1]
-    dis = css_dissim(vals, lo, npos, dtype)
-    return css_cmds(dis, npos, asize, bsize)
+        slots = None if slots is None else rows[2]
+    if drosophila:
+        dis = dissimilarity_freq_windows(vals[:, 0], vals[:, asize], lo, npos).to(dtype)
+        asize = bsize = 1
+    else:
+        dis = css_dissim(vals, lo, npos, dtype)
+    if mds == 0:
+        return css_cmds(dis, npos, asize, bsize)
+    return css_smacof(
+        dis, npos, asize, bsize, mds, key, slots, smacof_inits, smacof_iters,
+        smacof_eps,
+    )[:3]

@@ -129,6 +129,16 @@ def uniform(key: torch.Tensor, n: int, dtype: torch.dtype) -> torch.Tensor:
     raise TypeError(f"uniform supports float32 and float64, got {dtype}")
 
 
+def smacof_inits(wkeys: torch.Tensor, n_init: int, m: int, dtype: torch.dtype) -> torch.Tensor:
+    """The SMACOF restarts' uniform starting configurations, ``[B, n_init,
+    m, 2]`` from per-window keys ``[B, 2]``:
+    ``jax.random.uniform(wkey, (n_init, m, 2), dtype)`` under ``vmap``
+    (``divergence_tpu/kernels/css.py:smacof_runs``).  The partitionable
+    layout counts a multi-dimensional draw by its flat index, so element
+    ``(i, j, c)`` is flat draw ``(i*m + j)*2 + c``."""
+    return uniform(wkeys, n_init * m * 2, dtype).reshape(-1, n_init, m, 2)
+
+
 def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
     """``x * c mod 2**32`` for uint32 words in int64, without int64
     overflow: the high half of ``c`` only reaches the low 32 bits

@@ -175,11 +175,12 @@ def _mds_enum(name):
 
 
 def cmd_run_css(args) -> None:
-    """The CSS scan.  The flags are the JAX CLI's; the options the port
-    does not run yet (``--mds smacof|cmds+smacof``, ``--p-mode approx``,
-    ``--mc-stream window``, ``--drosophila``, ``--perm-backend native``,
-    ``--rng threefry``) raise ``NotImplementedError`` naming their ROADMAP
-    item, before any file is read."""
+    """The CSS scan.  The flags are the JAX CLI's: all three ``--mds``
+    modes and ``--drosophila`` (frequency tracks) run; the options the
+    port does not run yet (``--p-mode approx``, ``--mc-stream window``,
+    ``--perm-backend native``, ``--rng threefry``) raise
+    ``NotImplementedError`` naming their ROADMAP item, before any file is
+    read."""
     from divergence_tpu_torch.config import CssConfig, WindowConfig
     from divergence_tpu_torch.engine import run_css, run_css_multi
     from divergence_tpu_torch.engine.css_engine import check_supported
@@ -254,7 +255,8 @@ def build_parser() -> argparse.ArgumentParser:
     _add_run_common(p)
     p.add_argument(
         "--mds", choices=["cmds", "smacof", "cmds+smacof"], default="cmds",
-        help="cmds (ported); smacof and cmds+smacof raise (ROADMAP P7)",
+        help="cmds = classical MDS; smacof = SMACOF from 4 random restarts; "
+        "cmds+smacof = SMACOF refining the CMDS embedding",
     )
     p.add_argument("--mc-threshold", type=int, default=10)
     p.add_argument("--mc-runs", type=int, default=200_000)
@@ -265,7 +267,9 @@ def build_parser() -> argparse.ArgumentParser:
         "raises (ROADMAP P9)",
     )
     p.add_argument("--drosophila", action="store_true",
-                   help="frequency-track mode; raises (ROADMAP P8)")
+                   help="frequency-track mode: one value per SNP and "
+                   "population (an allele frequency), scored as two "
+                   "pseudo-individuals")
     p.add_argument(
         "--perm-backend", choices=["xla", "native"], default="xla",
         help="xla = the device evaluator (ported); native raises (ROADMAP P9)",

@@ -7,10 +7,14 @@
 * :func:`make_panel` — stickleback-shaped two-population panel
   (``tests/conftest.py:make_panel``, vectorised): a fraction of SNPs is
   divergent between the groups, the rest share one frequency.
+* :func:`make_freq_chromosome` — drosophila-mode test data: one
+  allele-frequency column per population (``tests/test_engines.py``
+  drosophila test, vectorised).
 * :func:`write_gtrack` — one population as a GTrack valued-points file.
 
 Genotype codes: 3 / -3 homozygous, 0 heterozygous, -10000 missing
-(reference tools/VCFConvert.py:8-17).  Matrices are int16.
+(reference tools/VCFConvert.py:8-17).  Genotype matrices are int16,
+frequency columns float64.
 """
 
 from __future__ import annotations
@@ -91,6 +95,18 @@ def make_panel(
         return np.where(miss, -10000, hw).astype(np.int16)
 
     return positions, draw(asize, pa), draw(bsize, pb)
+
+
+def make_freq_chromosome(
+    npos: int, region: int, seed: int
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(positions, fa, fb): sorted distinct positions in [1, region) and
+    two independent uniform [0, 1) frequency columns [npos, 1]."""
+    rng = np.random.default_rng(seed)
+    positions = np.sort(rng.choice(region - 1, size=npos, replace=False) + 1)
+    fa = rng.uniform(0.0, 1.0, (npos, 1))
+    fb = rng.uniform(0.0, 1.0, (npos, 1))
+    return positions.astype(np.int64), fa, fb
 
 
 def write_gtrack(

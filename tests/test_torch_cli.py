@@ -1,7 +1,8 @@
 """The port's ``run-fet`` and ``run-css`` CLI (``--device cpu``) against
 the JAX CLI on the same toy GTrack pair: identical rows (seqid, start),
 values within tolerance relative to max(|ref|, 1), and ``--resume``
-reproducing the fresh track byte for byte.
+reproducing the fresh track byte for byte; ``run-css`` in its three MDS
+modes and in drosophila mode on a frequency-track pair.
 
 run-fet: 1e-12 (exact) / 1e-5 (fast).  run-css: scores 1e-9 (exact) /
 the JAX package's fast-vs-exact band, rtol 2e-3 atol 1e-4 (fast); p equal
@@ -18,6 +19,7 @@ from divergence_tpu.tools.cli import main as jax_cli
 from divergence_tpu_torch.io import read_score_track
 from divergence_tpu_torch.tools import synth
 from divergence_tpu_torch.tools.cli import main as torch_cli
+from test_torch_smacof import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = {"exact": 1e-12, "fast": 1e-5}
 
@@ -143,11 +145,84 @@ def test_run_css_resume_reproduces_fresh_track(toy_pair):
     assert resumed.read_bytes() == fresh.read_bytes()
 
 
+@pytest.mark.parametrize("flags", [["--mds", "smacof"], ["--mds", "cmds+smacof"]])
+def test_run_css_cli_smacof_matches_jax_cli(toy_pair, flags):
+    """--mds smacof and --mds cmds+smacof, exact: rows identical, scores
+    1e-9, p equal (the restarts are keyed by seed, chromosome and slot)."""
+    tmp = toy_pair
+    tag = flags[1].replace("+", "_")
+    jax_cli(_css_args(tmp, tmp / f"jax_{tag}.track", "exact", *flags))
+    torch_cli(_css_args(tmp, tmp / f"torch_{tag}.track", "exact", "--device", "cpu", *flags))
+    js, jstart, jsc, jp = jax_read_score_track(tmp / f"jax_{tag}.track")
+    ts, tstart, tsc, tp = read_score_track(tmp / f"torch_{tag}.track")
+    assert ts == js and np.array_equal(tstart, jstart) and len(ts) > 50
+    err = np.abs(tsc - jsc) / np.maximum(np.abs(jsc), 1.0)
+    assert err.max() <= 1e-9, err.max()
+    assert np.array_equal(tp, jp)
+
+
+@pytest.fixture(scope="module")
+def freq_pair(tmp_path_factory):
+    """Drosophila-mode input: one allele-frequency value per SNP and
+    population, two chromosomes."""
+    tmp = tmp_path_factory.mktemp("torch_cli_freq")
+    sizes = {"2L": 30_000, "2R": 24_000}
+    for i, (seqid, region) in enumerate(sizes.items()):
+        pos, fa, fb = synth.make_freq_chromosome(300, region, seed=80 + i)
+        mode = "w" if i == 0 else "a"
+        for name, col in (("freqA", fa), ("freqB", fb)):
+            path = tmp / f"{name}_{seqid}.gtrack"
+            synth.write_gtrack(path, seqid, pos, col)
+            with open(tmp / f"{name}.gtrack", mode) as out:
+                out.write(path.read_text())
+    (tmp / "chrom.sizes").write_text("".join(f"{s}\t{n}\n" for s, n in sizes.items()))
+    return tmp
+
+
+def _freq_args(tmp, out, prec, *extra):
+    return [
+        "run-css", "--pop-a", str(tmp / "freqA.gtrack"),
+        "--pop-b", str(tmp / "freqB.gtrack"), "--out", str(out),
+        "--chrom-sizes", str(tmp / "chrom.sizes"), "--precision", prec,
+        "--drosophila", "--mc-runs", "500", *extra,
+    ]
+
+
+@pytest.mark.parametrize("prec", ["exact", "fast"])
+def test_run_css_cli_drosophila_matches_jax_cli(freq_pair, prec):
+    """--drosophila: rows identical, scores 1e-9 (exact) or the CMDS fast
+    band, p == 1 on every row in both CLIs (the reference's quirk)."""
+    tmp = freq_pair
+    jax_cli(_freq_args(tmp, tmp / f"jax_{prec}.track", prec))
+    torch_cli(_freq_args(tmp, tmp / f"torch_{prec}.track", prec, "--device", "cpu"))
+    js, jstart, jsc, jp = jax_read_score_track(tmp / f"jax_{prec}.track")
+    ts, tstart, tsc, tp = read_score_track(tmp / f"torch_{prec}.track")
+    assert ts == js and np.array_equal(tstart, jstart)
+    assert len(ts) > 50 and set(ts) == {"2L", "2R"}
+    if prec == "exact":
+        err = np.abs(tsc - jsc) / np.maximum(np.abs(jsc), 1.0)
+        assert err.max() <= 1e-9, err.max()
+    else:
+        np.testing.assert_allclose(tsc, jsc, rtol=2e-3, atol=1e-4)
+    assert (tp == 1.0).all() and np.array_equal(tp, jp)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--mds", "smacof"], ["--mds", "cmds+smacof"], ["--drosophila"],
+])
+def test_run_css_cli_ported_flags_run(toy_pair, tmp_path, flags):
+    """The flags that raised before the port ran SMACOF and drosophila
+    mode now write a track."""
+    out = tmp_path / "x.track"
+    torch_cli(_css_args(toy_pair, out, "fast", "--device", "cpu", *flags))
+    seqids, starts, sc, pv = read_score_track(out)
+    assert len(starts) > 50 and not np.isnan(sc).any()
+    assert ((pv > 0) & (pv <= 1)).all()
+
+
 @pytest.mark.parametrize("flags,item", [
-    (["--mds", "smacof"], "P7"), (["--mds", "cmds+smacof"], "P7"),
-    (["--drosophila"], "P8"), (["--p-mode", "approx"], "P9"),
-    (["--mc-stream", "window"], "P9"), (["--perm-backend", "native"], "P9"),
-    (["--rng", "threefry"], "P9"),
+    (["--p-mode", "approx"], "P9"), (["--mc-stream", "window"], "P9"),
+    (["--perm-backend", "native"], "P9"), (["--rng", "threefry"], "P9"),
 ])
 def test_run_css_cli_unsupported_flags_raise(toy_pair, tmp_path, flags, item):
     with pytest.raises(NotImplementedError, match=item):

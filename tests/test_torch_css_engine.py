@@ -1,12 +1,14 @@
 """The port's CSS engine (divergence_tpu_torch.engine.css_engine, CPU
 path) against the JAX engine: run_css and run_css_multi in both
-precisions, the run counters, the empty region, multi against looped,
-and the options the port does not run.
+precisions and all three MDS modes, the run counters, the empty region,
+multi against looped, and the options the port does not run.
 
 Tolerances, relative to max(|reference|, 1): exact 1e-9 on windows with
 eigengap above 1e-6, fast the JAX package's fast-vs-exact band (rtol
-2e-3, atol 1e-4); valid and NaN patterns identical; p-values equal except
-on near-tie windows, which tests/test_torch_mc.py explains."""
+2e-3, atol 1e-4) for CMDS and the measured SMACOF band of
+tests/test_torch_smacof.py for mds 1 and 2; valid and NaN patterns
+identical; p-values equal except on near-tie windows, which
+tests/test_torch_mc.py explains."""
 
 import numpy as np
 import pytest
@@ -20,10 +22,11 @@ from divergence_tpu.engine import run_css as jax_run_css
 from divergence_tpu.engine.css_engine import run_css_multi as jax_run_css_multi
 from divergence_tpu.engine.snp import SnpPair as JSnpPair
 from divergence_tpu.utils.summary import RunSummary as JRunSummary
-from divergence_tpu_torch.config import CssConfig, MdsAlgorithm, WindowConfig
+from divergence_tpu_torch.config import CssConfig, MdsAlgorithm, SmacofConfig, WindowConfig
 from divergence_tpu_torch.engine import SnpPair, run_css, run_css_multi
 from divergence_tpu_torch.tools.synth import make_panel
 from divergence_tpu_torch.utils.summary import RunSummary
+from test_torch_smacof import assert_in_fast_band, one_torch_thread  # noqa: F401 (autouse)
 
 REGEND = 20_000
 MAX_P_DIFF_SHARE = 0.02   # near-tie windows allowed, relative to scored windows
@@ -144,9 +147,6 @@ def test_all_windows_discarded_gives_zero_tracks():
 
 
 UNSUPPORTED = [
-    ({"mds": MdsAlgorithm.SMACOF}, "P7"),
-    ({"mds": MdsAlgorithm.CMDS_SMACOF}, "P7"),
-    ({"drosophila": True}, "P8"),
     ({"p_mode": "approx"}, "P9"),
     ({"mc_stream": "window"}, "P9"),
     ({"perm_backend": "native"}, "P9"),
@@ -159,6 +159,69 @@ def test_unsupported_options_raise(panel, kw, item):
     _, _, _, _, positions, amat, bmat = panel
     with pytest.raises(NotImplementedError, match=item):
         run_css(SnpPair(positions, amat, bmat), REGEND, CssConfig(**kw), device="cpu")
+
+
+PORTED = [
+    {"mds": MdsAlgorithm.SMACOF},
+    {"mds": MdsAlgorithm.CMDS_SMACOF},
+    {"drosophila": True},
+]
+
+
+@pytest.mark.parametrize("kw", PORTED, ids=[str(k) for k in PORTED])
+def test_ported_options_run(panel, kw):
+    """The SMACOF modes and drosophila mode run (they raised before the
+    port covered them); drosophila reads the first column of each group
+    as its value track."""
+    _, _, _, _, positions, amat, bmat = panel
+    cfg = CssConfig(mc_runs=300, smacof=SmacofConfig(max_iters=30), **kw)
+    s, p = run_css(SnpPair(positions, amat, bmat), REGEND, cfg, device="cpu")
+    assert s.shape == p.shape == (REGEND // 500,)
+    assert (s != 0).sum() > 10 and not np.isnan(s).any()
+    assert ((p > 0) & (p <= 1))[s != 0].all()
+
+
+@pytest.mark.parametrize("mds", [1, 2])
+@pytest.mark.parametrize("prec", ["exact", "fast"])
+def test_run_css_smacof_matches_jax(panel, mds, prec):
+    _, _, _, _, positions, amat, bmat = panel
+    cfg, jcfg = _cfgs(prec, mc_runs=2000, seed=6, mds=mds)
+    summary, jsummary = RunSummary(), JRunSummary()
+    s, p = run_css(SnpPair(positions, amat, bmat), REGEND, cfg, device="cpu",
+                   summary=summary, seqid="chrS")
+    js, jp = jax_run_css(JSnpPair(positions, amat, bmat), REGEND, jcfg,
+                         summary=jsummary, seqid="chrS")
+    assert (s != 0).sum() > 10
+    if prec == "exact":
+        assert_scores_close(s, js, prec)
+        assert_pvals_match(p, jp)
+    else:
+        assert np.array_equal(np.isnan(s), np.isnan(js))
+        assert np.array_equal(s != 0, js != 0)
+        assert_in_fast_band(s[js != 0], js[js != 0], mds)
+        assert np.array_equal(p != 0, jp != 0)
+    for name in ("windows_planned", "windows_scored", "windows_discarded"):
+        assert summary.counters[name] == jsummary.counters[name], name
+
+
+def test_run_css_multi_smacof_matches_jax():
+    """SMACOF restarts are keyed by (seed, chromosome, slot): three
+    chromosomes in one run_css_multi get the JAX package's scores."""
+    genome = _genome()
+    cfg, jcfg = _cfgs("exact", mc_runs=1000, mc_chunk=128, mds=1)
+    got = run_css_multi(
+        {k: (SnpPair(p, a, b), r) for k, (p, a, b, r) in genome.items()},
+        cfg, device="cpu",
+    )
+    want = jax_run_css_multi(
+        {k: (JSnpPair(p, a, b), r) for k, (p, a, b, r) in genome.items()}, jcfg,
+    )
+    for seqid in want:
+        assert_scores_close(got[seqid][0], want[seqid][0], "exact")
+        assert_pvals_match(got[seqid][1], want[seqid][1])
+    single = run_css(SnpPair(*genome["chr2"][:3]), genome["chr2"][3], cfg,
+                     device="cpu", seqid="chr2")
+    assert np.array_equal(single[0], got["chr2"][0])
 
 
 def test_config_enum_matches_jax():

@@ -10,7 +10,11 @@ Tolerances, relative to max(|reference|, 1): FET exact 1e-12, fast 1e-5.
 CSS: counts and the MC coefficients exactly equal; CMDS scores exact 1e-9
 on windows with eigengap above 1e-6, fast rtol 2e-3 atol 1e-4 (the JAX
 package's fast-vs-exact band); MC (nscores, hits) equal on >= 99.9 % of
-windows (a float32 near tie may flip between summation orders)."""
+windows (a float32 near tie may flip between summation orders).  SMACOF
+(K6): exact 1e-9 on windows whose chosen restart and transform count
+agree with the plain version's, the rest at most 0.1 % of windows (+1);
+fast within FAST_BAND, the JAX package's float32-vs-float64 band measured
+on the CPU (tests/test_torch_smacof.py; this file runs without jax)."""
 
 import shutil
 from pathlib import Path
@@ -27,9 +31,11 @@ from divergence_tpu_torch.kernels import _build
 from divergence_tpu_torch.kernels import css as kcss
 from divergence_tpu_torch.kernels import fet as kfet
 from divergence_tpu_torch.kernels import perm as kperm
-from divergence_tpu_torch.tools.synth import make_chromosome, make_panel
+from divergence_tpu_torch.tools.synth import make_chromosome, make_freq_chromosome, make_panel
 
 TOL = {"exact": 1e-12, "fast": 1e-5}
+# mds -> (max, 90th percentile): tests/test_torch_smacof.py FAST_BAND
+FAST_BAND = {1: (5.5e-2, 7e-4), 2: (1.53e-1, 7e-4)}
 
 
 @pytest.fixture
@@ -231,10 +237,121 @@ def test_run_css_cuda_matches_cpu(cuda, prec):
     kcss.reset_launches()
     kperm.reset_launches()
     g = run_css(SnpPair(pos, am, bm), 1_000_000, cfg, device=cuda, seqid="c")
-    assert all(v >= 1 for v in kcss.LAUNCHES.values()), kcss.LAUNCHES
+    assert kcss.LAUNCHES["css_dissim"] >= 1 and kcss.LAUNCHES["css_cmds"] >= 1, kcss.LAUNCHES
     assert all(v >= 1 for v in kperm.LAUNCHES.values()), kperm.LAUNCHES
     c = run_css(SnpPair(pos, am, bm), 1_000_000, cfg, device="cpu", seqid="c")
     assert np.array_equal(g[0] != 0, c[0] != 0)
     tol = (1e-9, 0.0) if prec == "exact" else (2e-3, 1e-4)
     np.testing.assert_allclose(g[0], c[0], rtol=tol[0], atol=tol[1])
     assert (g[1] != c[1]).sum() <= 0.01 * (c[0] != 0).sum()
+
+
+def _smacof_dis(cuda, m, dt):
+    """[B, m, m] window dissimilarities on the card, and (asize, bsize,
+    npos, slots): frequency windows at m = 2, stickleback counts else."""
+    if m == 2:
+        pos, fa, fb = make_freq_chromosome(40_000, 2_000_000, 5)
+        plan = plan_windows(pos, 2_000_000, 2500, 500)
+        ids = np.nonzero(plan.valid_mask() & (plan.npos > 0))[0]
+        dis = kcss.dissimilarity_freq_windows(
+            torch.from_numpy(fa[:, 0]).to(cuda), torch.from_numpy(fb[:, 0]).to(cuda),
+            torch.from_numpy(plan.lo[ids]), torch.from_numpy(plan.npos[ids]),
+        )
+        asize = bsize = 1
+    else:
+        asize, bsize = (m + 1) // 2, m // 2
+        pos, am, bm = make_panel(20_000, 1_000_000, asize, bsize, seed=m)
+        plan = plan_windows(pos, 1_000_000, 2500, 500)
+        ids = np.nonzero(plan.valid_mask() & (plan.npos > 0))[0]
+        vals = torch.from_numpy(np.concatenate([am, bm], axis=1)).to(cuda)
+        dis = kcss.css_dissim(vals, torch.from_numpy(plan.lo[ids]),
+                              torch.from_numpy(plan.npos[ids]), torch.float64)
+    npos = torch.from_numpy(plan.npos[ids].copy()).to(cuda)
+    slots = torch.from_numpy(plan.slot[ids].copy()).to(cuda)
+    return dis.to(dt).contiguous(), asize, bsize, npos, slots
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prec", ["exact", "fast"])
+@pytest.mark.parametrize("mds", [1, 2])
+@pytest.mark.parametrize("m", [2, 9, 21, 64])
+def test_css_smacof_kernel(cuda, prec, mds, m):
+    dt = torch.float64 if prec == "exact" else torch.float32
+    dis, asize, bsize, npos, slots = _smacof_dis(cuda, m, dt)
+    key = rng.fold_in(rng.prng_key(3), rng.chrom_hash("chrK"))
+    before = kcss.LAUNCHES["css_smacof"]
+    ks, kd, kv, kr, kn = kcss.css_smacof(dis, npos, asize, bsize, mds, key, slots)
+    ps, pd, pv, pr, pn = kcss.css_smacof_plain(dis, npos, asize, bsize, mds, key, slots)
+    torch.cuda.synchronize()
+    assert kcss.LAUNCHES["css_smacof"] == before + 1
+    assert torch.equal(kv, pv) and torch.equal(ks.isnan(), ps.isnan())
+    assert int(kn.max()) <= 301 and int(kn.min()) >= 1
+    B = dis.shape[0]
+    sel = ~ps.isnan() & pv
+    got, want = ks.double()[sel].cpu().numpy(), ps.double()[sel].cpu().numpy()
+    rel = np.abs(got - want) / np.maximum(np.abs(want), 1.0)
+    if prec == "exact":
+        agree = ((kr == pr) & (kn == pn))[sel].cpu().numpy()
+        assert rel[agree].max(initial=0.0) <= 1e-9
+        assert int((~agree).sum()) <= 1e-3 * B + 1
+    else:
+        top, q90 = FAST_BAND[mds]
+        assert rel.max(initial=0.0) <= top and np.quantile(rel, 0.9) <= q90
+
+
+@pytest.mark.gpu
+def test_css_smacof_kernel_refuses(cuda):
+    dis = torch.zeros((2, 65, 65), dtype=torch.float64, device=cuda)
+    one = torch.ones(2, dtype=torch.int64)
+    key = rng.prng_key(0)
+    with pytest.raises(NotImplementedError, match="P12"):
+        kcss.css_smacof(dis, one, 33, 32, 1, key, one)
+    with pytest.raises(ValueError, match="restarts"):
+        kcss.css_smacof(dis[:, :8, :8].contiguous(), one, 4, 4, 1, key, one, n_init=9)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prec", ["exact", "fast"])
+def test_css_cmds_and_mc_kernels_at_m2(cuda, prec):
+    """Drosophila's shapes: K5 at m = 2 (one rotation pair, an
+    exactly-zero second eigenvalue) and K7 at 1 + 1 (p == 1)."""
+    dt = torch.float64 if prec == "exact" else torch.float32
+    dis, _, _, npos, _ = _smacof_dis(cuda, 2, dt)
+    ks, kd, kv = kcss.css_cmds(dis, npos, 1, 1)
+    ps, pd, pv = kcss.css_cmds_plain(dis, npos, 1, 1)
+    torch.cuda.synchronize()
+    assert torch.equal(kv, pv) and kv.all() and not ks.isnan().any()
+    if prec == "exact":
+        assert _rel(ks, ps) <= 1e-9
+    else:
+        np.testing.assert_allclose(ks.double().cpu().numpy(), ps.double().cpu().numpy(),
+                                   rtol=2e-3, atol=1e-4)
+    key = rng.fold_in(rng.prng_key(1), 2)
+    k = kperm.shared_coeff(key, 0, 16, 2, 1, 1, 256, cuda)
+    p = kperm.shared_coeff_plain(key, 0, 16, 2, 1, 1, 256, cuda)
+    assert torch.equal(k.view(torch.int32), p.view(torch.int32))
+    scores = ks.double().cpu().numpy()
+    got = kperm.significance(kd, scores, 1, 1, 10, 5000, key)
+    pvals, n, h = kperm.mc_significance(kd, scores, key, 1, 1, 256, 5000, 10)
+    assert (got.pvals == 1.0).all() and np.array_equal(got.pvals, pvals)
+    assert np.array_equal(got.nscores, n) and (n == 10).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kw", [{"mds": 1}, {"mds": 2}, {"drosophila": True}])
+def test_run_css_smacof_and_drosophila_cuda_matches_cpu(cuda, kw):
+    if kw.get("drosophila"):
+        pos, am, bm = make_freq_chromosome(20_000, 1_000_000, 9)
+    else:
+        pos, am, bm = make_panel(5_000, 250_000, 11, 10, seed=8)
+    region = int(pos[-1]) + 1
+    cfg = CssConfig(precision="exact", mc_runs=5000, **kw)
+    kcss.reset_launches()
+    g = run_css(SnpPair(pos, am, bm), region, cfg, device=cuda, seqid="c")
+    name = "css_cmds" if kw.get("drosophila") else "css_smacof"
+    assert kcss.LAUNCHES[name] == 1, kcss.LAUNCHES
+    c = run_css(SnpPair(pos, am, bm), region, cfg, device="cpu", seqid="c")
+    assert np.array_equal(g[0] != 0, c[0] != 0) and (c[0] != 0).sum() > 100
+    err = np.abs(g[0] - c[0]) / np.maximum(np.abs(c[0]), 1.0)
+    assert (err > 1e-9).sum() <= 1e-3 * (c[0] != 0).sum() + 1
+    assert (g[1] != c[1]).sum() <= 0.01 * (c[0] != 0).sum() + 1

@@ -1,6 +1,7 @@
 """divergence_tpu_torch runs where JAX is absent: a fresh interpreter with
 ``sys.modules["jax"] = None`` (every ``import jax`` raises) imports the
-package and runs run_fet, run_css and both CLI scans on the CPU."""
+package and runs run_fet, run_css (CMDS, SMACOF, drosophila) and both CLI
+scans on the CPU."""
 
 import subprocess
 import sys
@@ -12,6 +13,8 @@ SCRIPT = r"""
 import sys
 sys.modules["jax"] = None
 sys.path.insert(0, sys.argv[1])
+import torch
+torch.set_num_threads(1)   # small ops; the test workers share the cores
 import numpy as np
 import divergence_tpu_torch
 from divergence_tpu_torch.config import CssConfig, FetConfig
@@ -28,6 +31,12 @@ for prec in ("exact", "fast"):
     s, p = run_css(SnpPair(pos, am, bm), 20_000, CssConfig(precision=prec, mc_runs=500),
                    device="cpu")
     assert s.shape == (40,) and np.isfinite(s).all() and ((p > 0) == (s != 0)).all()
+s, p = run_css(SnpPair(pos, am, bm), 20_000, CssConfig(mds=1, mc_runs=300), device="cpu")
+assert np.isfinite(s).all() and (s != 0).sum() > 10
+fpos, fa, fb = synth.make_freq_chromosome(300, 20_000, 2)
+s, p = run_css(SnpPair(fpos, fa, fb), 20_000, CssConfig(drosophila=True, mc_runs=300),
+               device="cpu")
+assert (s != 0).sum() > 10 and (p[s != 0] == 1.0).all()
 tmp = sys.argv[2]
 synth.write_gtrack(tmp + "/a.gtrack", "chrZ", pos, am)
 synth.write_gtrack(tmp + "/b.gtrack", "chrZ", pos, bm)

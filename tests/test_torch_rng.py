@@ -145,3 +145,21 @@ def test_mix_bits_bit_equal(chunk, m):
     )
     got = rng.mix_bits(tkeys, chunk * m).numpy()
     assert np.array_equal(got, want.astype(np.int64))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("n_init,m", [(4, 21), (4, 2), (1, 9), (6, 64)])
+def test_smacof_inits_bit_equal(dtype, n_init, m):
+    """The SMACOF restarts' starting configurations (css.py:smacof_runs):
+    uniform(fold_in(fold_in(PRNGKey(seed), chrom), slot), (n_init, m, 2))
+    under vmap, bit for bit."""
+    ck = jax.random.fold_in(jax.random.PRNGKey(7), kperm.chrom_hash("chr2L"))
+    slots = np.array([0, 3, 999, 123456, 2**31 - 1], dtype=np.int64)
+    want = np.asarray(jax.vmap(
+        lambda k: jax.random.uniform(k, (n_init, m, 2), dtype=jnp.dtype(dtype))
+    )(kperm.slot_keys(ck, jnp.asarray(slots))))
+    tck = rng.fold_in(rng.prng_key(7), rng.chrom_hash("chr2L"))
+    got = rng.smacof_inits(rng.slot_keys(tck, torch.from_numpy(slots)), n_init, m,
+                           getattr(torch, dtype)).numpy()
+    assert got.shape == (len(slots), n_init, m, 2) and got.dtype == want.dtype
+    assert np.array_equal(_bits_of(got), _bits_of(want))
