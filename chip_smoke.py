@@ -42,14 +42,35 @@ Phases (any failure exits non-zero and prints no result line):
    with ``drosophila=True`` on the frequency chromosome (warm wall,
    windows/s, MC permutations/s), ``run_css_multi`` on the card against
    ``run_css`` on the CPU (exact, mds 1 and drosophila, 3 x 5,000 SNPs),
-   and ``run-css --mds smacof`` / ``run-css --drosophila`` on small files.
+   and ``run-css --mds smacof`` / ``run-css --drosophila`` on small files;
+10. K7's coefficients under threefry draws (bit-equal, tied draws
+   counted), K8 ``css_mc_window`` in its three forms (float32 mix, float32
+   threefry, the float64 native form) on the 997 windows of the 10 k-SNP
+   workload to the 200 k cap against its plain versions, K8 alone on the
+   16x worst case with K7 beside it, K9 ``css_mc_power`` in both streams on
+   the 19,997 windows of the 200 k-SNP workload against its plain version
+   (and approx p against the plain approx), K9 alone on the ~800 k bench
+   windows;
+11. the library and CLI with the phase-2 options: ``run_css`` on the 200 k
+   workload with approx mode (both streams), the window stream (mix, and
+   threefry fast), the shared stream with threefry (fast) and the native
+   evaluator, in both precisions; ``run_css_multi`` on the card against
+   ``run_css`` on the CPU, exact, each option, with the MC cut to
+   ``MULTI_MC_RUNS`` permutations (the window stream's plain loop on the
+   host CPU stays within seconds); ``run-css --p-mode approx``,
+   ``--mc-stream window --rng threefry`` and ``--perm-backend native`` on
+   phase 9's small files.
 
 Kernel launch counts are reset before phase 3 and read after phase 4 (the
 FET path), reset before phase 6 and read after phase 7 (the CMDS CSS
-path), and reset before phase 9 and read after it (the SMACOF and
-drosophila CSS path).  The last three lines are a JSON line of per-kernel
-results, the card's name and power limit, and ``{"ok": true, "device":
-{...}}``.
+path), reset before phase 9 and read after it (the SMACOF and drosophila
+CSS path), and reset before phase 11 and read after it (K8, K9 and K7
+under threefry).  The last three lines are a JSON line of per-kernel
+results (with each kernel's ``bound_ms``: the larger of its bytes over
+3.35 TB/s and its operations over 67 TFLOP/s float32 / 34 TFLOP/s
+float64, from this run's inputs; and ``library_ms``, one PyTorch call
+computing the same product where one exists), the card's name and power
+limit, and ``{"ok": true, "device": {...}}``.
 
 Tolerances (relative to max(|reference|, 1)): FET exact (float64) 1e-12,
 fast (float32) 1e-5; K2's stddev must meet them on at least 99.99 % of
@@ -67,7 +88,12 @@ or the best of two near-equal restarts), the rest counted and at most
 0.1 %; fast within SMACOF_FAST_BAND, the JAX package's own float32 vs
 float64 band measured on the CPU (tests/test_torch_smacof.py), max and
 90th percentile.  Drosophila (m = 2) CMDS as the CMDS tolerances, with no
-window excluded (there is no third eigenvalue).
+window excluded (there is no third eigenvalue).  K8: (p, n, hits)
+identical on at least 99.9 % of windows, each differing window shown to
+be a near tie (TIE_RTOL float32, TIE_RTOL_F64 float64).  K9: power sums
+within POWER_RTOL, approx nscores identical on 99.9 % of windows and
+|log10 p| within LOG10_P_BAND where they agree (tests/test_torch_approx.py,
+measured on the CPU).
 """
 
 from __future__ import annotations
@@ -119,6 +145,25 @@ SMACOF_DIFFER_SHARE = 1e-3       # exact: windows whose restart or count differ
 # fast: mds -> (max, 90th percentile) of |f32 - f64| / max(|f64|, 1), the
 # JAX package's own band measured on the CPU (tests/test_torch_smacof.py)
 SMACOF_FAST_BAND = {1: (5.5e-2, 7e-4), 2: (1.53e-1, 7e-4)}
+# the window stream (K8) and approx mode (K9): the 997 windows of the 10 k
+# workload to the 200 k cap, the 16x worst case, and the 19,997 windows of
+# the 200 k workload at approx mode's chunk (max(mc_chunk, 512)) and two
+# chunks; the card-vs-CPU genome's MC cut to 2,000 permutations (the
+# window stream's plain loop on the host CPU stays within seconds)
+WINDOW_WORKLOAD = CSS_WORKLOADS[0]
+MC_RUNS = 200_000                # the MC cap of phases 10-11 (CssConfig's default)
+POWER_WORKLOAD = CSS_WORKLOADS[2]
+APPROX_CHUNK, APPROX_CHUNKS = 512, 2
+MULTI_MC_RUNS = 2_000
+TIE_RTOL = 1e-5                  # float32 near tie (tests/test_torch_mc.py)
+TIE_RTOL_F64 = 1e-12             # float64 near tie (the native form)
+# approx mode (tests/test_torch_approx.py, measured on the CPU): power sums
+# relative to the plain version, and |log10 p| where nscores agree
+POWER_RTOL, LOG10_P_BAND, NSCORES_SAME_SHARE = 1e-6, 2e-5, 0.999   # m <= 21
+# the card's published peaks (NVIDIA's H100 SXM data sheet, dense, at
+# 700 W; float32 and float64 outside the tensor cores)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"f32": 67e12, "f64": 34e12}
 REPLACES = {
     "fet_lut_build": "divergence_tpu/kernels/fet.py:372",
     "fet_snp_logs": "divergence_tpu/kernels/fet.py:318",
@@ -128,6 +173,8 @@ REPLACES = {
     "css_smacof": "divergence_tpu/kernels/css.py:225",
     "css_mc_coeff": "divergence_tpu/kernels/perm.py:249",
     "css_mc_shared": "divergence_tpu/kernels/perm.py:302",
+    "css_mc_window": "divergence_tpu/kernels/perm.py:164",
+    "css_mc_power": "divergence_tpu/kernels/perm.py:599",
 }
 SOURCES = {
     "fet_lut_build": "divergence_tpu_torch/csrc/fet_snp.cu",
@@ -138,6 +185,8 @@ SOURCES = {
     "css_smacof": "divergence_tpu_torch/csrc/css_smacof.cu",
     "css_mc_coeff": "divergence_tpu_torch/csrc/css_mc.cu",
     "css_mc_shared": "divergence_tpu_torch/csrc/css_mc.cu",
+    "css_mc_window": "divergence_tpu_torch/csrc/css_mc_window.cu",
+    "css_mc_power": "divergence_tpu_torch/csrc/css_mc_power.cu",
 }
 
 
@@ -166,6 +215,18 @@ def abs_err(got, ref) -> float:
     if ref.numel() == 0:
         return 0.0
     return float((got.double() - ref.double()).abs().max())
+
+
+def bound(nbytes: float, ops: dict) -> tuple[float, str]:
+    """(bound_ms, bound_by): the least time the card could take for a
+    kernel's work, the larger of ``nbytes`` (each input read once, each
+    output written once) over the memory rate and the operations over the
+    peak rate of their type (``ops``: {"f32": n, "f64": n}; integer
+    operations are counted at the float32 rate, an underestimate of their
+    time).  A multiply-add is two operations."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = sum(n / PEAK_OPS_PER_S[t] for t, n in ops.items()) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def cuda_ms(torch, fn, reps: int) -> float:
@@ -232,6 +293,9 @@ def phase_kernels(torch, kfet, pair, plan_ids, dev, results) -> None:
             f"(tol {tol:g}) kernel {ms:.4f} ms plain {pms:.4f} ms")
         check(err <= tol, f"fet_lut_build {prec}: {err} > {tol}")
         results["fet_lut_build"][prec] = (abs_err(k, p), err, ms, pms)
+        if fast:   # a table's support scan: ~4 operations per support point
+            results["fet_lut_build"]["bound"] = bound(
+                k.numel() * k.element_size(), {"f32": 4 * k.numel() * maxs})
 
         # golden tables through the LUT (11 + 10) and the direct scan (48 + 48)
         t = torch.tensor(GOLDEN_TABLES, device=dev)
@@ -272,6 +336,9 @@ def phase_kernels(torch, kfet, pair, plan_ids, dev, results) -> None:
         results["fet_snp_logs"][prec] = (
             max(abs_err(ks, ps), abs_err(kb, pb)), max(err_s, err_b), ms, pms
         )
+        if fast:   # 8 M SNPs: the codes in, the scores out; two compares a code
+            results["fet_snp_logs"]["bound"] = bound(
+                vals.numel() * 2 + ks.numel() * 4, {"f32": 2 * vals.numel()})
 
         # K2 on every window of the bench chromosome
         agg = lambda: kfet.fet_aggregate(ks, lo, npos, slot, key, 0.95, 100)  # noqa: E731
@@ -303,6 +370,10 @@ def phase_kernels(torch, kfet, pair, plan_ids, dev, results) -> None:
         )
         results["fet_aggregate"][prec + "_beyond"] = beyond
         results["fet_aggregate"][prec + "_out"] = ka
+        if fast:   # logs and descriptors in, 2 values out; at least one
+            # threefry draw (~60 integer operations) per bootstrap sample
+            results["fet_aggregate"]["bound"] = bound(
+                ks.numel() * 4 + B * 3 * 8 + B * 2 * 4, {"f32": B * 100 * 60})
 
 
 def phase_cli(torch, kfet, dev, tmp: Path) -> tuple[Path, Path, Path]:
@@ -475,6 +546,13 @@ def phase_css_kernels(torch, pair, plan_ids, dev, results) -> None:
             f"{ms_p:.4f} ms plain {pms_p:.4f} ms")
         check(diff == 0.0, f"css_dissim {prec}: counts differ by {diff}")
         results["css_dissim"][prec] = (diff, diff, ms, pms)
+        if prec == "fast":   # codes in once, m x m counts out; the pair
+            # popcounts (2 per pair and 32-SNP word) are integer operations
+            m = ASIZE + BSIZE
+            words = int(((npos + 31) // 32).sum())
+            results["css_dissim"]["bound"] = bound(
+                vals.numel() * 2 + lo.numel() * (16 + m * m * 4),
+                {"f32": 4 * words * m * (m - 1) // 2})
         del kp
     del p_plain, p_vals
 
@@ -509,6 +587,11 @@ def phase_css_kernels(torch, pair, plan_ids, dev, results) -> None:
         check(bad == 0, f"css_cmds {prec}: {bad} windows beyond tolerance")
         results["css_cmds"][prec] = (abs_err(got, want), err, ms, pms)
         results["css_cmds"][prec + "_excluded"] = excluded
+        if prec == "fast":   # D in, distances out; an eigensolver needs at
+            # least the (4/3) m^3 of a tridiagonal reduction
+            m, B = ASIZE + BSIZE, dis.shape[0]
+            results["css_cmds"]["bound"] = bound(
+                B * (2 * m * m * 4 + 8 + 5), {"f32": B * 4 * m**3 // 3})
         del ks, kd, kv, ps, pd, pv, dis
     del plain64
     torch.cuda.empty_cache()
@@ -527,6 +610,9 @@ def phase_css_kernels(torch, pair, plan_ids, dev, results) -> None:
         f"kernel {ms:.4f} ms plain {pms:.4f} ms")
     check(same, "css_mc_coeff: M differs from _shared_coeff")
     results["css_mc_coeff"]["fast"] = (abs_err(k, p), rel_err(k, p), ms, pms)
+    # M out; per column m draws (two mix32, ~12 integer operations each)
+    # and m^2 rank compares
+    results["css_mc_coeff"]["bound"] = bound(k.numel() * 4, {"f32": 4096 * (m * m + 12 * m)})
 
     # K7 part 2: the 16x worst case, every window to the 200 k cap
     wpos, wam, wbm = make_chromosome(*WORST_CSS, ASIZE, BSIZE, WORST_SEED)
@@ -560,6 +646,19 @@ def phase_css_kernels(torch, pair, plan_ids, dev, results) -> None:
     pdiff = float(np.abs(got.pvals - pv).max()) if B else 0.0
     results["css_mc_shared"]["fast"] = (pdiff, float(nd), ms, pms)
     results["css_mc_shared"]["differ"] = nd
+    # a multiply-add per D entry and permutation consumed; D and the
+    # deepest range's M in, 3 values per window out
+    ncols = -(-int(n.max()) // 256) * 256
+    results["css_mc_shared"]["bound"] = bound(
+        B * (m * m * 4 + 4 + 12) + m * m * ncols * 4, {"f32": 2 * m * m * perms})
+    # the library yardstick: the product alone, torch.matmul(D, M) over
+    # the columns the deepest window consumed (float32, TF32 off)
+    M = kperm.shared_coeff(key, 0, ncols // 256, m, ASIZE, BSIZE, 256, dev)
+    flat = dist.float().reshape(B, m * m).contiguous()
+    results["css_mc_shared"]["library_ms"] = cuda_ms(torch, lambda: flat @ M, 2)
+    say(f"[K7 css_mc_shared] library yardstick torch.matmul [{B}, {m * m}] @ "
+        f"[{m * m}, {ncols}]: {results['css_mc_shared']['library_ms']:.1f} ms")
+    del M
 
 
 def phase_css_cli(torch, dev, tmp: Path, files) -> None:
@@ -593,6 +692,21 @@ def phase_css_cli(torch, dev, tmp: Path, files) -> None:
     check(bool(((pv > 0) & (pv <= 1)).all()), "css cli: p outside (0, 1]")
 
 
+def warm_runs(run, reps: int = 3):
+    """A warm-up call of ``run(summary)``, then ``reps`` timed calls, each
+    with a fresh RunSummary: (the last output, its summary, host walls s)."""
+    from divergence_tpu_torch.utils.summary import RunSummary
+
+    run(RunSummary())
+    walls = []
+    for _ in range(reps):
+        summary = RunSummary()
+        t0 = time.perf_counter()
+        out = run(summary)
+        walls.append(time.perf_counter() - t0)
+    return out, summary, walls
+
+
 def phase_css_library(torch, dev, card) -> None:
     """Phase 7: run_css on the bench's three CSS workloads; run_css_multi
     on the card against run_css on the CPU."""
@@ -601,20 +715,14 @@ def phase_css_library(torch, dev, card) -> None:
     from divergence_tpu_torch.config import CssConfig
     from divergence_tpu_torch.engine import SnpPair, run_css, run_css_multi
     from divergence_tpu_torch.tools.synth import make_chromosome, make_panel
-    from divergence_tpu_torch.utils.summary import RunSummary
 
     for npos_, region, seed, precs in CSS_WORKLOADS:
         pos, am, bm = make_chromosome(npos_, region, ASIZE, BSIZE, seed)
         pair = SnpPair(pos, am, bm)
         for prec in precs:
             cfg = CssConfig(precision=prec)
-            run_css(pair, region, cfg, device=dev)          # warm-up
-            walls = []
-            for _ in range(3):
-                summary = RunSummary()
-                t0 = time.perf_counter()
-                scores, pvals = run_css(pair, region, cfg, device=dev, summary=summary)
-                walls.append(time.perf_counter() - t0)
+            (scores, pvals), summary, walls = warm_runs(
+                lambda sm: run_css(pair, region, cfg, device=dev, summary=sm))
             c = summary.counters
             check(scores.shape == (region // 500,) and pvals.shape == scores.shape,
                   f"run_css {npos_} {prec}: shape")
@@ -680,7 +788,8 @@ def event_ms(torch, fn):
 def smacof_check(torch, kcss, dis, npos, asize, bsize, mds, key, slots, prec, label):
     """css_smacof against css_smacof_plain on the card at one precision.
     Returns ((max_abs_err, max_rel_err, kernel ms, plain ms), windows whose
-    chosen restart or transform count differ)."""
+    chosen restart or transform count differ, Guttman transforms of the
+    chosen restarts summed over the windows)."""
     dt = torch.float32 if prec == "fast" else torch.float64
     d = dis.to(dt).contiguous()
     kern = lambda: kcss.css_smacof(d, npos, asize, bsize, mds, key, slots)  # noqa: E731
@@ -717,7 +826,7 @@ def smacof_check(torch, kcss, dis, npos, asize, bsize, mds, key, slots, prec, la
         f"{int(ks.isnan().sum())} NaN in both, mean {float(steps.mean()):.1f} / max "
         f"{int(kn.max())} Guttman transforms on the chosen restart: {tol_txt}; "
         f"kernel {ms:.3f} ms plain {pms:.3f} ms")
-    return (abs_err(got, want), err, ms, pms), differ
+    return (abs_err(got, want), err, ms, pms), differ, int(kn.sum())
 
 
 def phase_smacof_kernels(torch, pair, plan_ids, dev, results) -> None:
@@ -740,11 +849,18 @@ def phase_smacof_kernels(torch, pair, plan_ids, dev, results) -> None:
     r = results["css_smacof"]
     for mds in (1, 2):
         for prec in ("fast", "exact"):
-            out, differ = smacof_check(torch, kcss, dis, npos_d, ASIZE, BSIZE, mds, key,
-                                       slot_d, prec, f"css_smacof mds={mds} {npos_} SNPs")
+            out, differ, steps = smacof_check(
+                torch, kcss, dis, npos_d, ASIZE, BSIZE, mds, key, slot_d, prec,
+                f"css_smacof mds={mds} {npos_} SNPs")
             tag = prec if mds == 1 else f"mds2_{prec}"
             r[tag] = out
             r.setdefault("differ", {})[f"mds{mds}_{prec}"] = differ
+            if tag == "fast":   # D in, distances out; a transform is at
+                # least 3 m^2 flops and 2 m^2 square roots and divisions,
+                # counted on the chosen restarts only
+                m = ASIZE + BSIZE
+                r["bound"] = bound(dis.shape[0] * (2 * m * m * 4 + 9),
+                                   {"f32": 5 * m * m * steps})
     del dis
     torch.cuda.empty_cache()
 
@@ -784,8 +900,8 @@ def phase_smacof_kernels(torch, pair, plan_ids, dev, results) -> None:
         check(bad == 0, f"drosophila css_cmds {prec}: {bad} windows beyond tolerance")
         check(bool((mc.pvals == 1.0).all()) and same, f"drosophila MC {prec}")
         r[f"drosophila_cmds_{prec}"] = (abs_err(got, want), err, ms, pms)
-        out, differ = smacof_check(torch, kcss, fdis, f_npos_d, 1, 1, 1, key, f_slot_d,
-                                   prec, f"css_smacof mds=1 drosophila {DROS_SNPS} SNPs")
+        out, differ, _ = smacof_check(torch, kcss, fdis, f_npos_d, 1, 1, 1, key, f_slot_d,
+                                      prec, f"css_smacof mds=1 drosophila {DROS_SNPS} SNPs")
         r[f"drosophila_{prec}"] = out
         r["differ"][f"drosophila_{prec}"] = differ
     del fdis, fvals
@@ -816,7 +932,6 @@ def phase_smacof_library(torch, dev, card, tmp: Path) -> None:
     from divergence_tpu_torch.engine import SnpPair, run_css, run_css_multi
     from divergence_tpu_torch.io import read_score_track
     from divergence_tpu_torch.tools import cli, synth
-    from divergence_tpu_torch.utils.summary import RunSummary
 
     npos_, region, seed, _ = SMACOF_WORKLOAD
     pos, am, bm = synth.make_chromosome(npos_, region, ASIZE, BSIZE, seed)
@@ -828,13 +943,8 @@ def phase_smacof_library(torch, dev, card, tmp: Path) -> None:
     for pair, reg, what, kw in runs:
         for prec in ("fast", "exact"):
             cfg = CssConfig(precision=prec, **kw)
-            run_css(pair, reg, cfg, device=dev)          # warm-up
-            walls = []
-            for _ in range(3):
-                summary = RunSummary()
-                t0 = time.perf_counter()
-                scores, pvals = run_css(pair, reg, cfg, device=dev, summary=summary)
-                walls.append(time.perf_counter() - t0)
+            (scores, pvals), summary, walls = warm_runs(
+                lambda sm: run_css(pair, reg, cfg, device=dev, summary=sm))
             c, t = summary.counters, summary.timings_s
             scored = scores != 0
             check(scores.shape == (reg // 500,) and not np.isnan(scores).any()
@@ -908,6 +1018,367 @@ def phase_smacof_library(torch, dev, card, tmp: Path) -> None:
         check(not np.isnan(sc).any() and bool(((pv > 0) & (pv <= 1)).all()), f"cli {flags}")
         if "--drosophila" in flags:
             check(bool((pv == 1.0).all()), "cli --drosophila: p != 1")
+
+
+def host_ms(torch, fn):
+    """(fn(), host wall ms of that one call, synchronised on both ends)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def device_profile(torch, fn) -> tuple[float, float, list]:
+    """(wall ms, device ms, the three kernels of most device time) of one
+    call under torch.profiler: the device's busy time is the sum of the
+    device events' self time (kernels and copies; overlap is not removed)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = [(e.self_device_time_total / 1e3, e.key) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    rows.sort(reverse=True)
+    return wall, sum(ms for ms, _ in rows), rows[:3]
+
+
+def mc_windows(torch, workload, dev):
+    """(dist [B, m, m] float32 on the card, float64 observed scores,
+    chromosome hashes, slots) of a CSS workload's valid windows: phase 1
+    in fast mode, as the engine gives them to phase 2."""
+    import numpy as np
+
+    from divergence_tpu_torch import rng
+    from divergence_tpu_torch.engine import SnpPair
+    from divergence_tpu_torch.kernels import css as kcss
+    from divergence_tpu_torch.tools.synth import make_chromosome
+
+    npos_, region, seed = workload[:3]
+    pos, am, bm = make_chromosome(npos_, region, ASIZE, BSIZE, seed)
+    lo, npos, slot = windows_of(torch, pos, region)
+    s, d, v = kcss.css_phase1(SnpPair(pos, am, bm).to_device(dev), lo, npos, ASIZE, BSIZE,
+                              fast=True)
+    keep = v.cpu().numpy()
+    slots = slot.numpy()[keep]
+    chroms = np.full(len(slots), rng.chrom_hash("_"), dtype=np.int64)
+    return d[v].float().contiguous(), s[v].double().cpu().numpy(), chroms, slots
+
+
+def window_ops(form: str, m: int, asize: int) -> dict:
+    """Operations of one window-stream permutation, by type: m draws (two
+    mix32, ~12 integer operations, or a threefry-2x32, ~70), m^2 rank
+    compares, and the score: a*b + m - 2 float32 products and sums, or in
+    the float64 form about C(g, 2) + g + m float64 sums over the rank order
+    (g the smaller group)."""
+    bsize = m - asize
+    draws = 70 * m if form == "threefry" else 12 * m
+    if form == "native":
+        g = min(asize, bsize)
+        return {"f32": draws + m * m, "f64": g * (g - 1) // 2 + g + m + 6}
+    return {"f32": draws + m * m + 2 * (asize * bsize + m - 2)}
+
+
+def explain_differences(torch, kperm, rng, dist, scores, wkeys, got, n, h, chunk,
+                        bitgen, native) -> int:
+    """Windows whose (nscores, hits) differ between a kernel and its plain
+    version; each must hold a permutation, among those either consumed,
+    whose score lies within TIE_RTOL (float32 forms, rescored in float64)
+    or TIE_RTOL_F64 (the float64 form, rescored in its own order) of the
+    observed score: a near tie.  Returns their count."""
+    import numpy as np
+
+    m = ASIZE + BSIZE
+    bad = np.nonzero((got.nscores != n) | (got.hits != h))[0]
+    for w in bad:
+        nn = int(max(got.nscores[w], n[w]))
+        r = torch.cat([kperm._ranks(rng.fold_in(wkeys[w:w + 1], k), chunk, m, bitgen)
+                       for k in range(-(-nn // chunk))], dim=-1)
+        D = dist[w:w + 1].double()
+        obs = float(np.float32(scores[w]))
+        if native:
+            s64 = kperm._native_scores(D, kperm._row_totals(D), r, ASIZE, BSIZE)[0]
+        else:
+            s64 = (D[..., None] * kperm._rank_coeff(r, ASIZE, BSIZE).double()).sum(dim=(1, 2))[0]
+        gap = float((s64[:nn] - obs).abs().min()) / max(abs(obs), 1.0)
+        say(f"[K8] window {w}: (n, hits) kernel ({got.nscores[w]}, {got.hits[w]}) plain "
+            f"({n[w]}, {h[w]}); nearest permuted score {gap:.2e} from the observed")
+        check(gap <= (TIE_RTOL_F64 if native else TIE_RTOL),
+              f"css_mc_window: window {w} differs without a near tie ({gap})")
+    return len(bad)
+
+
+def phase_window_kernels(torch, pair, plan_ids, dev, results) -> None:
+    """Phase 10: K7 under threefry draws, K8 in its three forms and K9 in
+    both streams against their plain versions on the card; K8 alone on the
+    16x worst case and K9 alone on the ~800 k bench windows."""
+    import numpy as np
+
+    from divergence_tpu_torch import rng
+    from divergence_tpu_torch.kernels import css as kcss
+    from divergence_tpu_torch.kernels import perm as kperm
+
+    m = ASIZE + BSIZE
+    key = rng.fold_in(rng.prng_key(0), 2).to(dev)
+
+    # K7 under threefry: M of the first 16 chunks, bit-equal
+    coeff = lambda: kperm.shared_coeff(key, 0, 16, m, ASIZE, BSIZE, 256, dev, "threefry")  # noqa: E731
+    coeff_plain = lambda: kperm.shared_coeff_plain(  # noqa: E731
+        key, 0, 16, m, ASIZE, BSIZE, 256, dev, "threefry")
+    k, p = coeff(), coeff_plain()
+    torch.cuda.synchronize()
+    same = torch.equal(k.view(torch.int32), p.view(torch.int32))
+    u = kperm._draws(torch.stack([rng.fold_in(key, c) for c in range(16)]), 256, m,
+                     "threefry").sort(dim=-1).values
+    ties = int((u.diff(dim=-1) == 0).any(dim=-1).sum())
+    ms = cuda_ms(torch, coeff, 20)
+    pms = cuda_ms(torch, coeff_plain, 3)
+    say(f"[K7 css_mc_coeff threefry] M [{m * m}, {16 * 256}] of chunks 0-15: bit-equal="
+        f"{same}; {ties} of 4096 permutations hold tied float32 draws; kernel {ms:.4f} ms "
+        f"plain {pms:.4f} ms")
+    check(same, "css_mc_coeff threefry: M differs from _shared_coeff")
+    results["css_mc_coeff"]["threefry"] = (abs_err(k, p), rel_err(k, p), ms, pms)
+    del k, p, u
+
+    # K8 on the 997 windows of the 10 k workload to the MC_RUNS cap
+    dist, scores, chroms, slots = mc_windows(torch, WINDOW_WORKLOAD, dev)
+    B = dist.shape[0]
+    wkeys = rng.window_keys(key, chroms, slots)
+    r = results["css_mc_window"]
+    r["differ"] = {}
+    for form, bitgen, backend in (("mix", "mix", "xla"), ("threefry", "threefry", "xla"),
+                                  ("native", "mix", "native")):
+        kern = lambda: kperm.significance(  # noqa: E731
+            dist, scores, ASIZE, BSIZE, 10, MC_RUNS, key, chroms=chroms, slots=slots,
+            backend=backend, bitgen=bitgen, stream="window")
+        if backend == "native":
+            plain = lambda: kperm.mc_native_plain(  # noqa: E731
+                dist, scores, wkeys, ASIZE, BSIZE, 256, MC_RUNS, 10)
+        else:
+            plain = lambda: kperm.mc_significance(  # noqa: E731
+                dist, scores, wkeys, ASIZE, BSIZE, 256, MC_RUNS, 10, stream="window",
+                bitgen=bitgen)
+        kern()                                   # warm-up
+        got, ms = host_ms(torch, kern)
+        (pv, n, h), pms = host_ms(torch, plain)
+        nd = explain_differences(torch, kperm, rng, dist, scores, wkeys, got, n, h, 256,
+                                 bitgen, backend == "native")
+        perms = int(n.sum())
+        say(f"[K8 css_mc_window {form}] {B} windows, {perms} permutations, "
+            f"{int((n == MC_RUNS).sum())} to the {MC_RUNS} cap: {nd} windows differ (allowed "
+            f"{int(MC_DIFFER_SHARE * B)}: near ties); kernel {ms:.1f} ms plain {pms:.1f} ms "
+            f"(host wall, one call each; {perms / ms * 1e3:,.0f} vs "
+            f"{perms / pms * 1e3:,.0f} perms/s)")
+        check(nd <= MC_DIFFER_SHARE * B, f"css_mc_window {form}: {nd} windows differ")
+        check(bool(((got.hits == 10) | (got.nscores == MC_RUNS)).all()),
+              f"css_mc_window {form}: a window stopped outside the rule")
+        ops = {t: v * perms for t, v in window_ops(form, m, ASIZE).items()}
+        r[form] = (float(np.abs(got.pvals - pv).max()), float(nd), ms, pms)
+        r[f"bound_{form}"] = bound(B * (m * m * 4 + 4 + 16 + 8), ops)
+        r["differ"][form] = nd
+    r["fast"], r["bound"] = r["mix"], r["bound_mix"]
+    del dist, wkeys
+
+    # K8 alone (mix) on the 16x worst case, K7 beside it on the same windows
+    wdist, wscores, wchroms, wslots = mc_windows(torch, (*WORST_CSS, WORST_SEED), dev)
+    kern = lambda: kperm.significance(  # noqa: E731
+        wdist, wscores, ASIZE, BSIZE, 10, MC_RUNS, key, chroms=wchroms, slots=wslots,
+        stream="window")
+    k7 = lambda: kperm.significance(wdist, wscores, ASIZE, BSIZE, 10, MC_RUNS, key)  # noqa: E731
+    got, ms = host_ms(torch, kern)
+    k7()
+    got7, ms7 = host_ms(torch, k7)
+    perms, perms7 = int(got.nscores.sum()), int(got7.nscores.sum())
+    say(f"[K8 css_mc_window mix, 16x worst case] {wdist.shape[0]} windows, {perms} "
+        f"permutations: kernel {ms:.1f} ms ({perms / ms * 1e3:,.0f} perms/s; host wall, "
+        f"one call); K7 css_mc_shared on the same windows {ms7:.1f} ms for {perms7} "
+        f"permutations ({perms7 / ms7 * 1e3:,.0f} perms/s); plain version not run at this "
+        "size")
+    check(bool(((got.hits == 10) | (got.nscores == MC_RUNS)).all()), "css_mc_window 16x")
+    r["worst_ms"], r["worst_k7_ms"] = ms, ms7
+    del wdist
+    torch.cuda.empty_cache()
+
+    # K9 on the 19,997 windows of the 200 k workload, both streams
+    pdist, pscores, pchroms, pslots = mc_windows(torch, POWER_WORKLOAD, dev)
+    PB = pdist.shape[0]
+    pwkeys = rng.window_keys(key, pchroms, pslots)
+    nperm = PB * APPROX_CHUNK * APPROX_CHUNKS
+    r9 = results["css_mc_power"]
+    r9["differ"] = {}
+    for stream in ("shared", "window"):
+        keys = key if stream == "shared" else pwkeys
+        args = (pdist, keys, ASIZE, BSIZE, APPROX_CHUNK, 0, APPROX_CHUNKS, stream)
+        kern = lambda: kperm.null_power_sums(*args)  # noqa: E731
+        plain = lambda: kperm.null_power_sums_plain(*args)  # noqa: E731
+        kp, pp = kern(), plain()
+        torch.cuda.synchronize()
+        prel = float(((kp - pp).abs() / pp.abs().clamp(min=1e-300)).max())
+        ms = cuda_ms(torch, kern, 3)
+        pms = cuda_ms(torch, plain, 1)
+        akw = dict(chunk=APPROX_CHUNK, chroms=pchroms, slots=pslots, stream=stream)
+        ap = kperm.approx_significance(pdist, pscores, ASIZE, BSIZE, key, **akw)
+        aq = kperm.approx_significance_plain(pdist, pscores, ASIZE, BSIZE, key, **akw)
+        same = ap.nscores == aq.nscores
+        dl = np.abs(np.log10(ap.pvals[same]) - np.log10(aq.pvals[same]))
+        nd = int((~same).sum())
+        say(f"[K9 css_mc_power {stream}] {PB} windows x {APPROX_CHUNKS} chunks of "
+            f"{APPROX_CHUNK}: power sums max_rel_err={prel:.3e} (band {POWER_RTOL:g}); "
+            f"approx: nscores differ on {nd} windows (allowed "
+            f"{int((1 - NSCORES_SAME_SHARE) * PB)}), max |dlog10 p|={dl.max():.3e} "
+            f"(band {LOG10_P_BAND:g}), {int((ap.nscores > 1024).sum())} windows escalated; "
+            f"kernel {ms:.3f} ms plain {pms:.3f} ms")
+        check(prel <= POWER_RTOL, f"css_mc_power {stream}: power sums {prel}")
+        check(same.mean() >= NSCORES_SAME_SHARE, f"css_mc_power {stream}: {nd} nscores differ")
+        check(float(dl.max()) <= LOG10_P_BAND, f"css_mc_power {stream}: p {dl.max()}")
+        r9[stream] = (abs_err(kp, pp), prel, ms, pms)
+        r9["differ"][stream] = nd
+        out_bytes = APPROX_CHUNKS * 3 * PB * 8
+        if stream == "shared":
+            M = kperm.shared_coeff(key, 0, APPROX_CHUNKS, m, ASIZE, BSIZE, APPROX_CHUNK, dev)
+            r9["bound_shared"] = bound(PB * m * m * 4 + M.numel() * 4 + out_bytes,
+                                       {"f32": 2 * m * m * nperm, "f64": 5 * nperm})
+            flat = pdist.reshape(PB, m * m)
+            r9["library_ms"] = cuda_ms(torch, lambda: flat @ M, 3)
+            say(f"[K9] library yardstick torch.matmul [{PB}, {m * m}] @ [{m * m}, "
+                f"{M.shape[1]}]: {r9['library_ms']:.3f} ms")
+            del M
+        else:
+            ops = {t: v * nperm for t, v in window_ops("mix", m, ASIZE).items()}
+            ops["f64"] = 5 * nperm
+            r9["bound_window"] = bound(PB * (m * m * 4 + 16) + out_bytes, ops)
+        del kp, pp
+    r9["fast"], r9["bound"] = r9["shared"], r9["bound_shared"]
+    del pdist, pwkeys
+
+    # K9 alone on the ~800 k bench windows' CMDS distances
+    lo8, npos8, slot8 = plan_ids
+    npos8_d = npos8.to(dev)
+    d8 = kcss.css_cmds(kcss.css_dissim(pair.to_device(dev), lo8, npos8, torch.float32),
+                       npos8_d, ASIZE, BSIZE)[1]
+    wk8 = rng.window_keys(key, np.zeros(len(slot8), np.int64), slot8.numpy())
+    r9["bench_ms"] = {}
+    for stream in ("shared", "window"):
+        keys = key if stream == "shared" else wk8
+        _, ms = event_ms(torch, lambda: kperm.null_power_sums(
+            d8, keys, ASIZE, BSIZE, APPROX_CHUNK, 0, APPROX_CHUNKS, stream))
+        r9["bench_ms"][stream] = ms
+        say(f"[K9 css_mc_power {stream}, bench] {d8.shape[0]} windows x {APPROX_CHUNKS} "
+            f"chunks of {APPROX_CHUNK}: kernel {ms:.1f} ms "
+            f"({d8.shape[0] * APPROX_CHUNK * APPROX_CHUNKS / ms * 1e3:,.0f} permutations/s, "
+            "one call)")
+    del d8, wk8
+    torch.cuda.empty_cache()
+
+
+PHASE11_OPTIONS = [
+    ({"p_mode": "approx"}, ("fast", "exact")),
+    ({"p_mode": "approx", "mc_stream": "window"}, ("fast", "exact")),
+    ({"mc_stream": "window"}, ("fast", "exact")),
+    ({"mc_stream": "window", "rng": "threefry"}, ("fast",)),
+    ({"rng": "threefry"}, ("fast",)),
+    ({"perm_backend": "native"}, ("fast", "exact")),
+]
+
+
+def phase_window_library(torch, dev, card, tmp: Path) -> None:
+    """Phase 11: run_css with every phase-2 option on the 200 k-SNP
+    workload; run_css_multi on the card against run_css on the CPU; the CLI
+    with the new flags on phase 9's small files."""
+    import numpy as np
+
+    from divergence_tpu_torch.config import CssConfig
+    from divergence_tpu_torch.engine import SnpPair, run_css, run_css_multi
+    from divergence_tpu_torch.io import read_score_track
+    from divergence_tpu_torch.tools import cli, synth
+
+    npos_, region, seed, _ = POWER_WORKLOAD
+    pos, am, bm = synth.make_chromosome(npos_, region, ASIZE, BSIZE, seed)
+    pair = SnpPair(pos, am, bm)
+    for kw, precs in PHASE11_OPTIONS:
+        for prec in precs:
+            cfg = CssConfig(precision=prec, mc_runs=MC_RUNS, **kw)
+            (scores, pvals), summary, walls = warm_runs(
+                lambda sm: run_css(pair, region, cfg, device=dev, summary=sm))
+            c, t = summary.counters, summary.timings_s
+            scored = scores != 0
+            check(scores.shape == (region // 500,) and not np.isnan(scores).any()
+                  and not np.isnan(pvals).any(), f"run_css {kw} {prec}: shape or NaN")
+            check(c["windows_scored"] == int(scored.sum()) > 0, f"run_css {kw}: scored")
+            check(bool(((pvals[scored] > 0) & (pvals[scored] <= 1)).all()), "run_css p range")
+            best, med = min(walls), float(np.median(walls))
+            say(f"[window library {prec}] run_css {npos_} SNPs / {region} bp {kw}: "
+                f"{c['windows_scored']} windows scored, {c['mc_permutations']} MC "
+                f"permutations; warm wall min {best:.4f} s median {med:.4f} s; "
+                f"{c['windows_scored'] / best:,.0f} windows/s, "
+                f"{c['mc_permutations'] / best:,.0f} perms/s (stages: dispatch "
+                f"{t.get('css_dispatch', 0):.4f} s, phase-1 sync "
+                f"{t.get('css_phase1_sync', 0):.4f} s, phase 2 {t.get('css_mc', 0):.4f} s) "
+                f"on {card}")
+            if prec == "fast":
+                wall, dev_ms, top = device_profile(
+                    torch, lambda: run_css(pair, region, cfg, device=dev))
+                check(dev_ms > 0, f"run_css {kw}: the profiler saw no device time")
+                say(f"[window library fast] profiled run_css {kw}: wall {wall:.1f} ms, device "
+                    f"{dev_ms:.1f} ms ({100 * dev_ms / wall:.1f} % busy); most device time: "
+                    + "; ".join(f"{name[:60]} {ms:.2f} ms" for ms, name in top))
+
+    # the card against the CPU, exact, the MC cut to MULTI_MC_RUNS
+    pairs = {}
+    for i, seqid in enumerate(("chrII", "chrIII", "chrIV")):
+        p, a, b = synth.make_panel(MULTI_SNPS, MULTI_REGION, ASIZE, BSIZE, seed=30 + i)
+        pairs[seqid] = (SnpPair(p, a, b), MULTI_REGION)
+    for kw, _ in PHASE11_OPTIONS:
+        cfg = CssConfig(precision="exact", seed=3, mc_runs=MULTI_MC_RUNS, **kw)
+        t0 = time.perf_counter()
+        gpu = run_css_multi(pairs, cfg, device=dev)
+        t_gpu = time.perf_counter() - t0
+        n_scored = n_beyond = n_pdiff = 0
+        worst = 0.0
+        t0 = time.perf_counter()
+        for seqid, (p, regend) in pairs.items():
+            g, c = gpu[seqid], run_css(p, regend, cfg, device="cpu", seqid=seqid)
+            check(np.array_equal(g[0] != 0, c[0] != 0), f"{seqid} {kw}: scored windows differ")
+            ok = c[0] != 0
+            err = np.abs(g[0] - c[0]) / np.maximum(np.abs(c[0]), 1.0)
+            n_scored += int(ok.sum())
+            n_beyond += int((err > TOL_CSS).sum())
+            worst = max(worst, float(err.max()))
+            if kw.get("p_mode") == "approx":
+                dl = np.abs(np.log10(g[1][ok]) - np.log10(c[1][ok]))
+                n_pdiff += int((dl > LOG10_P_BAND).sum())
+            else:
+                n_pdiff += int((g[1] != c[1]).sum())
+        t_cpu = time.perf_counter() - t0
+        rule = f"|dlog10 p| > {LOG10_P_BAND:g}" if kw.get("p_mode") == "approx" else "p differs"
+        say(f"[window library exact] run_css_multi {kw} on the card vs run_css on the CPU "
+            f"(3 x {MULTI_SNPS} SNPs, {n_scored} windows, mc_runs {MULTI_MC_RUNS}): "
+            f"scores max_rel_err {worst:.3e}, {n_beyond} beyond {TOL_CSS:g}; {rule} on "
+            f"{n_pdiff} windows; card {t_gpu:.2f} s, CPU {t_cpu:.2f} s")
+        check(n_scored > 0 and n_beyond == 0, f"run_css_multi {kw}: {n_beyond} windows beyond")
+        check(n_pdiff <= 0.01 * n_scored, f"run_css_multi {kw}: {n_pdiff} p differ")
+
+    # the CLI with the new flags on phase 9's small files
+    a_path, b_path = tmp / "small_popA.gtrack", tmp / "small_popB.gtrack"
+    check(a_path.exists() and b_path.exists(), "phase 9's small GTrack files are missing")
+    for flags in (["--p-mode", "approx"], ["--mc-stream", "window", "--rng", "threefry"],
+                  ["--perm-backend", "native"]):
+        out, summary = tmp / "small_window.track", tmp / "small_window.json"
+        t0 = time.perf_counter()
+        cli.main(["run-css", "--pop-a", str(a_path), "--pop-b", str(b_path), "--out", str(out),
+                  "--summary", str(summary), "--device", str(dev), *flags])
+        wall = time.perf_counter() - t0
+        _, starts, sc, pv = read_score_track(out)
+        counters = json.loads(summary.read_text())["counters"]
+        say(f"[window cli] run-css {' '.join(flags)}: {len(starts)} rows, p in "
+            f"[{pv.min():.3g}, {pv.max():.3g}], {counters['mc_permutations']} permutations, "
+            f"wall {wall:.2f} s")
+        check(len(starts) == counters["windows_scored"] > 0, f"cli {flags}: rows")
+        check(not np.isnan(sc).any() and bool(((pv > 0) & (pv <= 1)).all()), f"cli {flags}")
 
 
 def smoke(torch, dev) -> tuple[str, list[dict]]:
@@ -985,21 +1456,42 @@ def smoke(torch, dev) -> tuple[str, list[dict]]:
         kperm.reset_launches()
         timed_phase("9", phase_smacof_library, torch, dev, card, tmp)
         smacof_launches = {**kcss.LAUNCHES, **kperm.LAUNCHES}
+        say(f"[CSS main path, SMACOF + drosophila] kernel launches: {smacof_launches}")
+        smacof_path = ("css_dissim", "css_cmds", "css_smacof", "css_mc_coeff", "css_mc_shared")
+        check(all(smacof_launches[k] > 0 for k in smacof_path),
+              f"the SMACOF / drosophila CSS path did not launch every kernel: {smacof_launches}")
+        launches["css_smacof"] = smacof_launches["css_smacof"]
+        timed_phase("10", phase_window_kernels, torch, pair, (lo, npos, slot), dev, results)
+
+        kcss.reset_launches()
+        kperm.reset_launches()
+        timed_phase("11", phase_window_library, torch, dev, card, tmp)
+        window_launches = {**kperm.LAUNCHES}
+        coeff_by_bitgen = dict(kperm.COEFF_LAUNCHES)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    say(f"[CSS main path, SMACOF + drosophila] kernel launches: {smacof_launches}")
-    check(all(v > 0 for v in smacof_launches.values()),
-          f"the SMACOF / drosophila CSS path did not launch every kernel: {smacof_launches}")
-    launches["css_smacof"] = smacof_launches["css_smacof"]
+    say(f"[CSS main path, phase-2 options] kernel launches: {window_launches}; "
+        f"css_mc_coeff by draw stream: {coeff_by_bitgen}")
+    check(window_launches["css_mc_window"] > 0 and window_launches["css_mc_power"] > 0
+          and coeff_by_bitgen["threefry"] > 0,
+          f"the phase-2 options did not launch K8, K9 and threefry K7: {window_launches}, "
+          f"{coeff_by_bitgen}")
+    launches["css_mc_window"] = window_launches["css_mc_window"]
+    launches["css_mc_power"] = window_launches["css_mc_power"]
 
     kernels = []
     for name in REPLACES:
         r = results[name]
         f_abs, f_rel, f_ms, f_pms = r["fast"]
+        b_ms, b_by = r["bound"]
         entry = {
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": f_abs, "ms": f_ms, "plain_ms": f_pms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": r.get("library_ms"),
+            # windows (elements, for the per-SNP and M kernels) differing from
+            # the plain version; the checks hold the rest to 0
+            "windows_differ": r.get("differ", 0),
         }
         if "exact" in r:
             e_abs, e_rel, e_ms, e_pms = r["exact"]
@@ -1012,18 +1504,36 @@ def smoke(torch, dev) -> tuple[str, list[dict]]:
             entry["stddev_windows_beyond_tol"] = {
                 "fast": r["fast_beyond"], "exact": r["exact_beyond"]
             }
+            entry["windows_differ"] = entry["stddev_windows_beyond_tol"]
         if name == "css_cmds":
             entry["windows_excluded_eigengap"] = r["exact_excluded"]
-        if name == "css_mc_shared":
-            entry["windows_differ"] = r["differ"]
+        if name == "css_mc_coeff":
+            entry["ms_threefry"], entry["plain_ms_threefry"] = r["threefry"][2], r["threefry"][3]
         if name == "css_smacof":
             # ms / plain_ms: mode 1 at 19,997 windows; then mode 2, the
             # drosophila chromosome (m = 2) and the ~800 k bench windows
-            entry["windows_differ"] = r["differ"]
             for tag in ("mds2_fast", "mds2_exact", "drosophila_fast", "drosophila_exact"):
                 entry[f"ms_{tag}"], entry[f"plain_ms_{tag}"] = r[tag][2], r[tag][3]
                 entry["max_abs_err"] = max(entry["max_abs_err"], r[tag][0])
             entry["ms_bench_800k_fast"] = r["bench_fast_ms"]
+        if name == "css_mc_window":
+            # ms / plain_ms: float32 mix on the 997 windows of the 10 k
+            # workload to the 200 k cap; then threefry, the float64 form and
+            # the 16x worst case (K7 on the same windows beside it)
+            for form in ("threefry", "native"):
+                entry[f"ms_{form}"], entry[f"plain_ms_{form}"] = r[form][2], r[form][3]
+                entry[f"bound_ms_{form}"], entry[f"bound_by_{form}"] = r[f"bound_{form}"]
+                entry["max_abs_err"] = max(entry["max_abs_err"], r[form][0])
+            entry["ms_worst_case_16x"] = r["worst_ms"]
+            entry["k7_ms_worst_case_16x"] = r["worst_k7_ms"]
+        if name == "css_mc_power":
+            # ms / plain_ms: the shared stream on 19,997 windows x 1,024
+            # permutations; then the window stream and the ~800 k bench windows
+            entry["ms_window"], entry["plain_ms_window"] = r["window"][2], r["window"][3]
+            entry["bound_ms_window"], entry["bound_by_window"] = r["bound_window"]
+            entry["max_rel_err_power_sums"] = max(f_rel, r["window"][1])
+            entry["max_abs_err"] = max(f_abs, r["window"][0])
+            entry["ms_bench_800k"] = r["bench_ms"]
         kernels.append(entry)
     return card, kernels
 

@@ -12,8 +12,10 @@ Layers (bottom up):
   mix, bit-equal
 * :mod:`divergence_tpu_torch.kernels` — per-SNP FET scores (K1), the
   window percentile + bootstrap stddev (K2), CSS window dissimilarities
-  (K3/K4), CMDS scoring (K5) and the shared-stream permutation MC (K7): a
-  CUDA kernel for CUDA tensors, the plain torch version for CPU tensors
+  (K3/K4), CMDS (K5) and SMACOF (K6) scoring, the permutation MC on the
+  shared (K7) and the per-window stream (K8), and approx mode's null power
+  sums (K9): a CUDA kernel for CUDA tensors, the plain torch version for
+  CPU tensors
 * :mod:`divergence_tpu_torch.core`    — window planning
 * :mod:`divergence_tpu_torch.engine`  — ``run_fet`` / ``run_fet_multi``,
   ``run_css`` / ``run_css_multi``

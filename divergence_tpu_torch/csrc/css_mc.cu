@@ -8,8 +8,8 @@
 // css_mc_coeff — the coefficient matrix M [m*m, ncols] of a range of
 // chunks, one thread per permutation column:
 //   key_k = fold_in(mc_key, k) (threefry, threefry.cuh);
-//   x_j = mix32(mix32(key_k.x ^ c) + key_k.y), c = K*m + j (perm.py:_mix_bits);
-//   r_j = #{l : x_j > x_l or (x_j == x_l and j > l)} (perm.py:_ranks);
+//   the m draws of column K and their ranks r_j, mix or threefry
+//   (css_perm_common.cuh; perm.py:_mix_bits, _ranks);
 //   M[j*m + l][col] = (u_j && !u_l ? 1/(ab) : 0) - (r_l == r_j + 1 ? cw(r_j) : 0)
 // with u_j = r_j < a and cw = (a+b) w_a on the a-chain, (a+b) w_b on the
 // b-chain.  The three float32 constants come from the host, rounded as
@@ -22,7 +22,7 @@
 //   for each chunk k (until every window of the tile is done):
 //     scores[w][K] = sum_e D[w][e] M[e][K], float32 FMAs in SIMT (no
 //       tensor cores, no TF32), one column per thread, D staged in shared
-//       memory 64 entries at a time;
+//       memory 64 entries at a time (permk::tile_product, shared with K9);
 //     hit = scores >= observed (float32) and offset + K < runs;
 //     per window, the in-chunk count of hits in column order (warp
 //       ballots) and the column of the need-th hit, need = threshold - hits;
@@ -40,27 +40,24 @@
 // broadcast float4 reads of D from shared memory.  16 k windows x 200 k
 // permutations at m = 21 is 1.4e12 FMAs, ~42 ms at the 67 TFLOP/s
 // float32 peak.
+#include "css_perm_common.cuh"
 #include "fet_common.cuh"
 #include "threefry.cuh"
 
 namespace {
 
-constexpr int kCoeffThreads = 128;
-constexpr int kMaxM = 64;
-constexpr int kTW = 32;          // windows per tile
-constexpr int kTC = 256;         // columns per pass = threads per block
-constexpr int kE = 64;           // D entries staged per step
-constexpr int kWarps = kTC / 32;
+using permk::kE;
+using permk::kMaxM;
+using permk::kTC;
+using permk::kTW;
 
-__device__ __forceinline__ uint32_t mix32(uint32_t x) {
-    x = (x ^ (x >> 16)) * 0x7FEB352Du;
-    x = (x ^ (x >> 15)) * 0x846CA68Bu;
-    return x ^ (x >> 16);
-}
+constexpr int kCoeffThreads = 128;
+constexpr int kWarps = kTC / 32;
 
 __global__ void __launch_bounds__(kCoeffThreads)
 css_mc_coeff(uint2 mc_key, int k0, int nk, int chunk, int m, int asize,
-             float between, float ca, float cb, float* __restrict__ out) {
+             int bitgen, float between, float ca, float cb,
+             float* __restrict__ out) {
     const int64_t ncols = static_cast<int64_t>(nk) * chunk;
     const int64_t col = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
     if (col >= ncols) return;
@@ -69,17 +66,9 @@ css_mc_coeff(uint2 mc_key, int k0, int nk, int chunk, int m, int asize,
     const uint2 key = tf::fold_in(mc_key, static_cast<uint32_t>(kc));
     uint32_t x[kMaxM];
     int r[kMaxM];
-    for (int j = 0; j < m; ++j) {
-        const uint32_t c = K * static_cast<uint32_t>(m) + static_cast<uint32_t>(j);
-        x[j] = mix32(mix32(key.x ^ c) + key.y);
-    }
-    for (int j = 0; j < m; ++j) {
-        int rank = 0;
-        for (int l = 0; l < m; ++l) {
-            rank += (x[j] > x[l]) || (x[j] == x[l] && j > l);
-        }
-        r[j] = rank;
-    }
+    int ord[kMaxM];
+    permk::draw(key, K, m, bitgen, x);
+    permk::rank(x, m, r, ord);
     for (int j = 0; j < m; ++j) {
         const bool uj = r[j] < asize;
         const float cw = r[j] < asize - 1 ? ca
@@ -145,31 +134,7 @@ css_mc_shared(const float* __restrict__ dist, const float* __restrict__ obs,
             const bool in_chunk = K < chunk;
             const bool counted = in_chunk && offset + K < runs;
             float acc[kTW];
-#pragma unroll
-            for (int w = 0; w < kTW; ++w) acc[w] = 0.0f;
-            for (int e0 = 0; e0 < mm; e0 += kE) {
-                const int elen = min(kE, mm - e0);
-                __syncthreads();   // the previous step has read Ds
-                for (int i = tid; i < kE * kTW; i += kTC) {
-                    const int e = i / kTW;
-                    const int w = i - e * kTW;
-                    const int64_t row = s_row[w];
-                    Ds[e][w] = (e < elen && row >= 0) ? dist[row * mm + e0 + e] : 0.0f;
-                }
-                __syncthreads();
-                for (int e = 0; e < elen; ++e) {
-                    const float mv = in_chunk ? Mk[static_cast<int64_t>(e0 + e) * ncols + K] : 0.0f;
-                    const float4* d4 = reinterpret_cast<const float4*>(&Ds[e][0]);
-#pragma unroll
-                    for (int q = 0; q < kTW / 4; ++q) {
-                        const float4 d = d4[q];
-                        acc[4 * q + 0] = __fmaf_rn(d.x, mv, acc[4 * q + 0]);
-                        acc[4 * q + 1] = __fmaf_rn(d.y, mv, acc[4 * q + 1]);
-                        acc[4 * q + 2] = __fmaf_rn(d.z, mv, acc[4 * q + 2]);
-                        acc[4 * q + 3] = __fmaf_rn(d.w, mv, acc[4 * q + 3]);
-                    }
-                }
-            }
+            permk::tile_product(dist, s_row, mm, Mk, ncols, K, in_chunk, Ds, acc);
 #pragma unroll
             for (int w = 0; w < kTW; ++w) {
                 const uint32_t b = __ballot_sync(0xffffffffu, counted && acc[w] >= s_obs[w]);
@@ -219,15 +184,19 @@ css_mc_shared(const float* __restrict__ dist, const float* __restrict__ obs,
 }  // namespace
 
 FET_EXPORT int css_mc_coeff(uint32_t key0, uint32_t key1, int k0, int nk,
-                            int chunk, int m, int asize, float between,
-                            float ca, float cb, float* out, void* stream) {
-    if (m > kMaxM) return static_cast<int>(cudaErrorInvalidValue);
+                            int chunk, int m, int asize, int bitgen,
+                            float between, float ca, float cb, float* out,
+                            void* stream) {
+    if (m > kMaxM || bitgen < 0 || bitgen > 1) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
     const int64_t ncols = static_cast<int64_t>(nk) * chunk;
     if (ncols == 0) return 0;
     const unsigned blocks =
         static_cast<unsigned>((ncols + kCoeffThreads - 1) / kCoeffThreads);
     css_mc_coeff<<<blocks, kCoeffThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        make_uint2(key0, key1), k0, nk, chunk, m, asize, between, ca, cb, out);
+        make_uint2(key0, key1), k0, nk, chunk, m, asize, bitgen, between, ca, cb,
+        out);
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -4,22 +4,26 @@ Window plan (host) -> phase 1: every valid window's dissimilarities and
 CMDS or SMACOF score in one call per chromosome
 (``kernels/css.py:css_phase1``) -> one host sync for the scores and valid
 flags of every chromosome (the distance matrices stay on the device) ->
-phase 2: the shared-stream permutation Monte-Carlo over all valid windows
-of a panel-size group at once (``kernels/perm.py:significance``) -> dense
-score / p tracks.
+phase 2: the permutation p-values over all valid windows of a panel-size
+group at once (``kernels/perm.py``: ``significance`` for the adaptive MC,
+``approx_significance`` for ``p_mode="approx"``) -> dense score / p
+tracks.
 
-Ported: all three MDS modes (``mds`` CMDS, SMACOF, CMDS_SMACOF) and
-drosophila mode (frequency tracks, two pseudo-individuals scored and
-permuted as 1 + 1), with ``p_mode="mc"``, ``perm_backend="xla"``,
-``rng="mix"``, ``mc_stream="shared"``.  Every other option raises
-``NotImplementedError`` naming the ROADMAP item that ports it; nothing
-silently runs something else.  Left out against the JAX engine, because
-Hopper does not need them: the ``PREFIX_MAX_ELEMS`` switch between prefix
-and gather programs (the dissimilarity kernel counts per window, with no
-prefix, at any chromosome length), the ``lax.map`` descriptor slices, and
-the padded MC rows (only valid windows enter the MC; each stops on its
-own).  ``mc_window_batch`` and ``perm_form`` therefore change nothing
-here.  ``slot_range=`` and ``sharding=`` are not ported yet (P11).
+Every ``CssConfig`` option runs: the three MDS modes, drosophila mode
+(frequency tracks, two pseudo-individuals scored and permuted as 1 + 1),
+``p_mode`` "mc" or "approx", ``mc_stream`` "shared" or "window", ``rng``
+"mix" or "threefry", ``perm_backend`` "xla" or "native" (the window
+stream scored in float64 in ``mc_native``'s order: K8's float64 form on
+the card, ``kernels/perm.py:mc_native_plain`` on the CPU).  Each valid
+window carries (``chrom_hash(seqid)``, slot) into phase 2, the key of its
+window stream.  Left out against the JAX engine, because Hopper does not
+need them: the ``PREFIX_MAX_ELEMS`` switch between prefix and gather
+programs (the dissimilarity kernel counts per window, with no prefix, at
+any chromosome length), the ``lax.map`` descriptor slices, and the padded
+MC rows (only valid windows enter phase 2; each stops on its own, and a
+window's result depends on its own stream only).  ``mc_window_batch`` and
+``perm_form`` therefore change nothing here.  ``slot_range=`` and
+``sharding=`` are not ported yet (P11).
 """
 
 from __future__ import annotations
@@ -34,25 +38,6 @@ from divergence_tpu_torch.engine.snp import SnpPair
 from divergence_tpu_torch.kernels import css as kcss
 from divergence_tpu_torch.kernels import perm as kperm
 from divergence_tpu_torch.utils.summary import RunSummary
-
-
-def check_supported(cfg: CssConfig) -> None:
-    """Raise ``NotImplementedError`` for every ``CssConfig`` option the
-    port does not run yet, naming its ROADMAP item."""
-    unported = []
-    if cfg.p_mode != "mc":
-        unported.append(f"p_mode={cfg.p_mode!r} (approx mode: P9)")
-    if cfg.mc_stream != "shared":
-        unported.append(f"mc_stream={cfg.mc_stream!r} (per-window streams: P9)")
-    if cfg.perm_backend != "xla":
-        unported.append(f"perm_backend={cfg.perm_backend!r} (native evaluator: P9)")
-    if cfg.rng != "mix":
-        unported.append(f"rng={cfg.rng!r} (threefry permutation draws: P9)")
-    if unported:
-        raise NotImplementedError(
-            "divergence_tpu_torch runs the shared-stream MC p-values only; "
-            "not ported yet: " + "; ".join(unported)
-        )
 
 
 def _phase1_dispatch(pair: SnpPair, regend: int, cfg: CssConfig,
@@ -108,8 +93,8 @@ def run_css(
     Returns (scores, pvals) float64, each of ``regend // wstep`` slots
     (reference statistics/CategoryClusterSeparationStat.py:70-80).
     Discarded or empty windows keep score 0 / p 0.  The result equals the
-    same chromosome inside :func:`run_css_multi`: the MC stream is keyed
-    by (seed, chunk) alone."""
+    same chromosome inside :func:`run_css_multi`: the MC streams are keyed
+    by (seed, chunk) or (seed, chromosome, slot, chunk)."""
     return run_css_multi(
         {seqid: (pair, regend)}, cfg, device=device, summary=summary
     )[seqid]
@@ -123,10 +108,9 @@ def run_css_multi(
     summary: RunSummary | None = None,
 ) -> dict[str, tuple[np.ndarray, np.ndarray]]:
     """Genome-wide CSS: phase 1 of every chromosome is enqueued before the
-    single packed host sync, and the MC runs over all valid windows of a
+    single packed host sync, and phase 2 runs over all valid windows of a
     panel-size group (asize, bsize) at once."""
     cfg = cfg or CssConfig()
-    check_supported(cfg)
     device = resolve_device(device)
     if not pairs:
         return {}
@@ -180,12 +164,27 @@ def run_css_multi(
         mc = None
         if live:
             with summary.stage("css_mc"):
-                mc = kperm.significance(
-                    torch.cat([c[5] for c in live]),
-                    np.concatenate([c[3][c[4]] for c in live]),
-                    asz, bsz, cfg.mc_threshold, cfg.mc_runs, mc_key,
-                    chunk=cfg.mc_chunk,
-                )
+                dist = torch.cat([c[5] for c in live])
+                scores = np.concatenate([c[3][c[4]] for c in live])
+                # the window streams' keys: (chromosome, slot) of each window
+                chroms = np.concatenate([
+                    np.full(int(c[4].sum()), rng.chrom_hash(c[0]), dtype=np.int64)
+                    for c in live
+                ])
+                slots = np.concatenate([c[2][c[4]] for c in live])
+                if cfg.p_mode == "approx":
+                    mc = kperm.approx_significance(
+                        dist, scores, asz, bsz, mc_key,
+                        chunk=max(cfg.mc_chunk, 512), chroms=chroms, slots=slots,
+                        bitgen=cfg.rng, stream=cfg.mc_stream,
+                    )
+                else:
+                    mc = kperm.significance(
+                        dist, scores, asz, bsz, cfg.mc_threshold, cfg.mc_runs,
+                        mc_key, chunk=cfg.mc_chunk, chroms=chroms, slots=slots,
+                        backend=cfg.perm_backend, bitgen=cfg.rng,
+                        stream=cfg.mc_stream,
+                    )
         mc_off = 0
         for seqid, nslots, slots, sc, valid, *_ in group:
             scores = np.zeros(nslots, dtype=np.float64)

@@ -61,12 +61,23 @@ _SIGNATURES = {
     # stream
     "css_smacof_{t}": (_P, _P, _P, _I64, _U32, _U32, _I, _I, _I, _I, _I, _D,
                        _P, _D, _D, _P, _P, _P, _P, _P, _P),
-    # key0, key1, k0, nk, chunk, m, asize, between, ca, cb, out, stream
-    "css_mc_coeff": (_U32, _U32, _I, _I, _I, _I, _I, _F, _F, _F, _P, _P),
+    # key0, key1, k0, nk, chunk, m, asize, bitgen, between, ca, cb, out,
+    # stream
+    "css_mc_coeff": (_U32, _U32, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P, _P),
     # dist, obs, active, nact, m, M, k0, nk, chunk, runs, threshold,
     # hits, nsc, done, stream
     "css_mc_shared": (_P, _P, _P, _I64, _I, _P, _I, _I, _I, _I, _I, _P, _P,
                       _P, _P),
+    # dist, obs, wkeys, B, m, asize, chunk, runs, threshold, bitgen, f64,
+    # between, ca, cb, wa, wb, inv_ab, hits, nsc, stream
+    "css_mc_window": (_P, _P, _P, _I64, _I, _I, _I, _I, _I, _I, _I, _F, _F,
+                      _F, _D, _D, _D, _P, _P, _P),
+    # dist, B, m, M, nk, chunk, out, stream
+    "css_mc_power_shared": (_P, _I64, _I, _P, _I, _I, _P, _P),
+    # dist, wkeys, B, m, asize, k0, nk, chunk, bitgen, between, ca, cb, out,
+    # stream
+    "css_mc_power_window": (_P, _P, _I64, _I, _I, _I, _I, _I, _I, _F, _F, _F,
+                            _P, _P),
 }
 
 

@@ -1,31 +1,54 @@
-"""Adaptive permutation Monte-Carlo for CSS significance, shared stream
-(K7).
+"""Permutation p-values for CSS significance: the adaptive Monte-Carlo
+(K7, K8) and the Pearson-III approximation (K9).
 
-Port of ``divergence_tpu/kernels/perm.py`` for the default
-``mc_stream="shared"``, ``rng="mix"`` path.  Each chunk ``k`` of
-``chunk`` permutations is keyed by ``fold_in(key, k)`` alone and shared
-by every window, so the CSS of every (window, permutation) pair is one
-product ``D_flat [B, m^2] @ M_k [m^2, chunk]`` with the rank-coefficient
-matrix ``M_k`` (:func:`_shared_coeff`).  The estimator is the
-reference's (reference statistics/css/css.c:727-752): a window stops at
-its ``threshold``-th hit (a permuted score ``>=`` the observed one, both
-float32) or at ``runs``; ``n`` is the 1-based index of that hit or
-``runs``, and ``p = (hits+1)/(n+1)``.
+Port of ``divergence_tpu/kernels/perm.py``.  The estimator of the MC is
+the reference's (reference statistics/css/css.c:727-752): a window stops
+at its ``threshold``-th hit (a permuted score ``>=`` the observed one,
+both float32) or at ``runs``; ``n`` is the 1-based index of that hit or
+``runs``, and ``p = (hits+1)/(n+1)``.  Two permutation streams:
 
-Two kernels (``csrc/css_mc.cu``) carry it on a CUDA device:
+* ``stream="shared"`` — chunk ``k`` of ``chunk`` permutations is keyed by
+  ``fold_in(key, k)`` alone and shared by every window, so the CSS of
+  every (window, permutation) pair is one product ``D_flat [B, m^2] @ M_k
+  [m^2, chunk]`` with the rank-coefficient matrix ``M_k``
+  (:func:`_shared_coeff`);
+* ``stream="window"`` — window ``w`` owns ``fold_in(fold_in(key, chrom),
+  slot)`` (:func:`rng.window_keys`) and chunk ``k`` of it is keyed by
+  ``fold_in(wkey, k)``: independent noise per window, scored from the
+  permutation ranks (:func:`_perm_scores`).
 
-* ``css_mc_coeff``  — the columns of ``M`` for a range of chunks, bit-equal
-  to :func:`_shared_coeff`;
-* ``css_mc_shared`` — the chunk loop for tiles of windows: product, hit
-  test, the position of the threshold-th hit, the adaptive stop.
+The draws of a chunk are ranked: ``bitgen="mix"`` ranks the counter words
+``mix32(mix32(k0 ^ c) + k1)``, ``bitgen="threefry"`` the float32 uniforms
+of the chunk key (the round-1 stream).  ``backend="native"`` is the JAX
+package's host C++ evaluator (``native/mc_native.cpp``): the window
+stream with ``mix`` draws, scored in float64 in a fixed order.  The port
+does not copy its thread pool: on the CPU :func:`mc_native_plain` runs
+the same arithmetic as torch, and on the card K8 runs it in its float64
+form, with the same stream and the same per-window early exit.
 
-:func:`significance` runs them on a CUDA ``dist`` and the plain chunk loop
-(:func:`mc_significance`) on a CPU one.  Each stop is per window, so
+Kernels (``csrc/``) carry the work on a CUDA device:
+
+* ``css_mc_coeff``  (K7) — the columns of ``M`` for a range of chunks,
+  bit-equal to :func:`_shared_coeff`, for either bitgen;
+* ``css_mc_shared`` (K7) — the shared-stream chunk loop for tiles of
+  windows: product, hit test, the position of the threshold-th hit, the
+  adaptive stop;
+* ``css_mc_window`` (K8) — the window-stream MC, one warp per window
+  carrying its own stream to its own stop, in float32 (the terms of
+  :func:`_scores_from_ranks`) or float64 (``mc_native``'s order);
+* ``css_mc_power``  (K9) — per-chunk float64 power sums of the permuted
+  scores (:func:`null_power_sums`), shared or window stream, for
+  :func:`approx_significance`.
+
+:func:`significance`, :func:`null_power_sums` and
+:func:`approx_significance` launch them on a CUDA ``dist`` (or raise) and
+run the plain torch versions on a CPU one.  Each stop is per window, so
 there is no window batching, padding or two-stage compaction (the JAX
 package's ``lax.map`` slices existed for XLA on the TPU); the results are
-those of the JAX package's single-pass loop.  Each launch adds one to
-:data:`LAUNCHES`.  Not ported here: the per-window stream (``stream=
-"window"``, K8) and approx mode (K9), both ROADMAP item P9.
+those of the JAX package's single-pass loop.  The JAX ``perm_form``
+("broadcast" / "matmul") scores the same permutations in two float32
+layouts; the port has one.  Each launch adds one to :data:`LAUNCHES`.
+The function defaults follow ``CssConfig`` (``stream="shared"``).
 """
 
 from __future__ import annotations
@@ -40,17 +63,24 @@ import torch
 from divergence_tpu_torch import rng
 from divergence_tpu_torch.kernels._cuda import is_cpu, launch, ptr
 
-MC_MAX_M = 64                   # css_mc_coeff ranks m words per thread
+MC_MAX_M = 64                   # the MC kernels rank m words per thread
+BITGENS = ("mix", "threefry")   # kernel argument: the index in this tuple
+STREAMS = ("shared", "window")
 _FIRST_RANGE_CHUNKS = 16        # the first launch: 4096 permutations at chunk 256
 _RANGE_COEFF_BYTES = 64 << 20   # later launches: at most this much of M at once
+# [b, m, m, K] elements per step of the window-stream twins, by device type
+_PLAIN_BATCH_ELEMS = {"cpu": 1 << 24, "cuda": 1 << 28}
 
 # kernel launches since the last reset_launches(), by kernel name
-LAUNCHES = {"css_mc_coeff": 0, "css_mc_shared": 0}
+LAUNCHES = {"css_mc_coeff": 0, "css_mc_shared": 0, "css_mc_window": 0, "css_mc_power": 0}
+# css_mc_coeff launches by bitgen (counted with LAUNCHES["css_mc_coeff"])
+COEFF_LAUNCHES = {name: 0 for name in BITGENS}
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, COEFF_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def _chain_weights(asize: int, bsize: int) -> tuple[float, float]:
@@ -59,19 +89,36 @@ def _chain_weights(asize: int, bsize: int) -> tuple[float, float]:
     return wa, wb
 
 
-def _ranks(keys: torch.Tensor, chunk: int, m: int) -> torch.Tensor:
+def _check_bitgen(bitgen: str) -> int:
+    if bitgen not in BITGENS:
+        raise ValueError(f"bitgen must be one of {BITGENS}, got {bitgen!r}")
+    return BITGENS.index(bitgen)
+
+
+def _draws(keys: torch.Tensor, chunk: int, m: int, bitgen: str) -> torch.Tensor:
+    """The [B, chunk, m] draws of keys [B, 2] that a chunk's ranks order:
+    element (K, j) is flat draw ``K*m + j`` of ``mix_bits`` or of
+    ``uniform(key, (chunk, m), float32)``."""
+    _check_bitgen(bitgen)
+    if bitgen == "mix":
+        x = rng.mix_bits(keys, chunk * m)
+    else:
+        x = rng.uniform(keys, chunk * m, torch.float32)
+    return x.reshape(keys.shape[0], chunk, m)
+
+
+def _ranks(keys: torch.Tensor, chunk: int, m: int, bitgen: str = "mix") -> torch.Tensor:
     """Permutation ranks [B, m, K]: the position of individual j in the
-    stable ascending order of the ``mix`` draws of keys [B, 2], by
-    pairwise compares with index tie-break (``perm.py:_ranks``,
-    ``bitgen="mix"``)."""
-    x = rng.mix_bits(keys, chunk * m).reshape(keys.shape[0], chunk, m)
-    xt = x.transpose(-1, -2)                             # [B, m, K]
+    stable ascending order of the draws of keys [B, 2], by pairwise
+    compares with index tie-break (``perm.py:_ranks``).  Threefry draws
+    compare as float32 values, so equal uniforms tie on the index."""
+    xt = _draws(keys, chunk, m, bitgen).transpose(-1, -2)   # [B, m, K]
     xj = xt[:, :, None, :]
     xl = xt[:, None, :, :]
     idx = torch.arange(m, device=keys.device)
     tie = (idx[:, None] > idx[None, :])[None, :, :, None]
     cmp = (xj > xl) | ((xj == xl) & tie)
-    return cmp.sum(dim=2)                                # [B, m, K]
+    return cmp.sum(dim=2)                                    # [B, m, K]
 
 
 def _coeff_constants(asize: int, bsize: int) -> tuple[float, float, float]:
@@ -85,32 +132,88 @@ def _coeff_constants(asize: int, bsize: int) -> tuple[float, float, float]:
     return float(between), float(np.float32(m * wa)), float(np.float32(m * wb))
 
 
-def _shared_coeff(key: torch.Tensor, k: int, m: int, asize: int, bsize: int,
-                  chunk: int) -> torch.Tensor:
-    """Rank-coefficient matrix M [m*m, chunk] float32 of shared chunk ``k``
-    (``perm.py:_shared_coeff``): column K holds vec(C) with
+def _rank_coeff(r: torch.Tensor, asize: int, bsize: int) -> torch.Tensor:
+    """Coefficients [..., m, m, K] float32 of ranks r [..., m, K]:
     C[j, l] = u_j (1-u_l)/(a b) - (a+b) w(r_j) 1[r_l = r_j + 1],
-    u_j = 1[r_j < a], for the ranks r of ``fold_in(key, k)``'s draws."""
-    kc = rng.fold_in(key, k)
-    r = _ranks(kc[None], chunk, m)[0]                    # [m, K]
+    u_j = 1[r_j < a], the values the JAX package builds in float32."""
+    m = asize + bsize
     between, ca, cb = _coeff_constants(asize, bsize)
     cw = torch.where(
         r < asize - 1, ca, torch.where((r >= asize) & (r < m - 1), cb, 0.0)
     ).to(torch.float32)
-    adj = r[None, :, :] == r[:, None, :] + 1             # [j, l, K]
+    adj = r[..., None, :, :] == r[..., :, None, :] + 1      # [..., j, l, K]
     u = r < asize
-    bet = torch.where(u[:, None, :] & ~u[None, :, :], between, 0.0).to(torch.float32)
-    chain = torch.where(adj, cw[:, None, :], 0.0).to(torch.float32)
-    return (bet - chain).reshape(m * m, chunk)
+    bet = torch.where(u[..., :, None, :] & ~u[..., None, :, :], between, 0.0)
+    chain = torch.where(adj, cw[..., :, None, :], 0.0)
+    return bet.to(torch.float32) - chain.to(torch.float32)
 
 
-def shared_coeff_plain(key, k0, nk, m, asize, bsize, chunk, device) -> torch.Tensor:
+def _shared_coeff(key: torch.Tensor, k: int, m: int, asize: int, bsize: int,
+                  chunk: int, bitgen: str = "mix") -> torch.Tensor:
+    """Rank-coefficient matrix M [m*m, chunk] float32 of shared chunk ``k``
+    (``perm.py:_shared_coeff``): column K holds vec(C) of the ranks of
+    ``fold_in(key, k)``'s draws."""
+    kc = rng.fold_in(key, k)
+    r = _ranks(kc[None], chunk, m, bitgen)[0]            # [m, K]
+    return _rank_coeff(r, asize, bsize).reshape(m * m, chunk)
+
+
+def _scores_from_ranks(distf: torch.Tensor, r: torch.Tensor, asize: int,
+                       bsize: int) -> torch.Tensor:
+    """CSS [B, K] float32 of the rank-encoded permutations r [B, m, K]
+    against distf [B, m, m] float32 (``perm.py:_scores_from_ranks``,
+    ``form="broadcast"``): the float32 products D[j, l] C[j, l] added one
+    after another in row-major (j, l) order, from 0.  That is the order of
+    XLA's fused reduction on the CPU, so the scores equal the JAX
+    package's bit for bit; K8 adds the same products in the same order."""
+    prod = distf[..., None] * _rank_coeff(r, asize, bsize)   # [B, m, m, K]
+    m = distf.shape[-1]
+    acc = torch.zeros_like(prod[:, 0, 0])
+    for j in range(m):
+        for l in range(m):
+            acc += prod[:, j, l]
+    return acc
+
+
+def _window_step(dev: torch.device, m: int, chunk: int) -> int:
+    """Windows per step of a window-stream twin: its [b, m, m, K]
+    temporaries stay within ``_PLAIN_BATCH_ELEMS``."""
+    return max(1, _PLAIN_BATCH_ELEMS[dev.type] // (m * m * chunk))
+
+
+def _perm_scores(distf: torch.Tensor, keys: torch.Tensor, asize: int,
+                 bsize: int, chunk: int, bitgen: str = "mix") -> torch.Tensor:
+    """CSS [B, K] float32 of ``chunk`` permutations per window, window w's
+    drawn from keys[w] (``perm.py:_perm_scores``), in window batches of
+    at most ``_PLAIN_BATCH_ELEMS`` coefficients."""
+    B, m = distf.shape[0], distf.shape[-1]
+    step = _window_step(distf.device, m, chunk)
+    out = torch.empty((B, chunk), dtype=torch.float32, device=distf.device)
+    for s in range(0, B, step):
+        sl = slice(s, min(s + step, B))
+        out[sl] = _scores_from_ranks(
+            distf[sl], _ranks(keys[sl], chunk, m, bitgen), asize, bsize
+        )
+    return out
+
+
+def shared_coeff_plain(key, k0, nk, m, asize, bsize, chunk, device,
+                       bitgen: str = "mix") -> torch.Tensor:
     """Plain torch version of :func:`shared_coeff`."""
     key = key.to(device)
     return torch.cat(
-        [_shared_coeff(key, k, m, asize, bsize, chunk) for k in range(k0, k0 + nk)],
+        [_shared_coeff(key, k, m, asize, bsize, chunk, bitgen)
+         for k in range(k0, k0 + nk)],
         dim=1,
     )
+
+
+def _check_m(m: int, kernel: str) -> None:
+    if m > MC_MAX_M:
+        raise NotImplementedError(
+            f"{kernel} ranks panels of at most {MC_MAX_M} individuals on "
+            f"CUDA (m={m}); larger panels are ROADMAP item P12"
+        )
 
 
 def shared_coeff(
@@ -122,28 +225,27 @@ def shared_coeff(
     bsize: int,
     chunk: int,
     device: str | torch.device,
+    bitgen: str = "mix",
 ) -> torch.Tensor:
     """The shared coefficient matrices of chunks ``k0 .. k0+nk-1`` side by
     side: [m*m, nk*chunk] float32, column ``(k - k0)*chunk + K`` equal to
     column K of ``_shared_coeff(key, k)``."""
     device = torch.device(device)
+    gen = _check_bitgen(bitgen)
     if is_cpu(device):
-        return shared_coeff_plain(key, k0, nk, m, asize, bsize, chunk, device)
-    if m > MC_MAX_M:
-        raise NotImplementedError(
-            f"css_mc_coeff ranks panels of at most {MC_MAX_M} individuals on "
-            f"CUDA (m={m}); larger panels are ROADMAP item P12"
-        )
+        return shared_coeff_plain(key, k0, nk, m, asize, bsize, chunk, device, bitgen)
+    _check_m(m, "css_mc_coeff")
     ncols = nk * chunk
     out = torch.empty((m * m, ncols), dtype=torch.float32, device=device)
     between, ca, cb = _coeff_constants(asize, bsize)
     k0w, k1w = (int(w) for w in key.tolist())
     launch(
         LAUNCHES, "css_mc_coeff", "css_mc_coeff", device,
-        ctypes.c_uint32(k0w), ctypes.c_uint32(k1w), k0, nk, chunk, m, asize,
+        ctypes.c_uint32(k0w), ctypes.c_uint32(k1w), k0, nk, chunk, m, asize, gen,
         ctypes.c_float(between), ctypes.c_float(ca), ctypes.c_float(cb),
         ptr(out),
     )
+    COEFF_LAUNCHES[bitgen] += 1
     return out
 
 
@@ -159,54 +261,164 @@ def _full_f32_matmul():
         torch.backends.cuda.matmul.allow_tf32 = saved
 
 
+def _chunk_update(hit, k, chunk, runs, threshold, hits, nsc):
+    """One chunk of the adaptive loop for windows not yet done
+    (``perm.py:362-380``): hit [b, K] bool of the chunk's permutations,
+    counted ones only.  Returns (hits, nsc, reached)."""
+    offset = k * chunk
+    counted = (offset + torch.arange(hit.shape[1], device=hit.device)) < runs
+    hit = hit & counted[None, :]
+    cum = torch.cumsum(hit.to(torch.int64), dim=-1)
+    chunk_hits = cum[:, -1]
+    n_counted = int(counted.sum())
+    need = threshold - hits
+    reached = chunk_hits >= need
+    pos = torch.argmax((cum >= need[:, None]).to(torch.int8), dim=-1)
+    hits = torch.where(reached, threshold, hits + chunk_hits)
+    nsc = torch.where(reached, offset + pos + 1, offset + n_counted)
+    return hits, nsc, reached
+
+
+def _mc_loop(B, dev, chunk, runs, threshold, chunk_hits_of):
+    """The host-driven chunk loop shared by the plain MCs: chunk_hits_of(k,
+    rows) gives hit [len(rows), chunk] for the windows still running;
+    stops once every window is done.  Returns (pvals, nscores, hits)."""
+    hits = torch.zeros(B, dtype=torch.int64, device=dev)
+    nsc = torch.zeros(B, dtype=torch.int64, device=dev)
+    active = torch.arange(B, device=dev)
+    for k in range((runs + chunk - 1) // chunk):
+        if active.numel() == 0:
+            break
+        h, n, reached = _chunk_update(
+            chunk_hits_of(k, active), k, chunk, runs, threshold, hits[active], nsc[active]
+        )
+        hits[active] = h
+        nsc[active] = n
+        active = active[~reached]
+    hits_np = hits.cpu().numpy()
+    nsc_np = nsc.cpu().numpy()
+    return (hits_np + 1.0) / (nsc_np + 1.0), nsc_np, hits_np
+
+
+def _observed_f32(scores, dev) -> torch.Tensor:
+    return torch.as_tensor(scores, dtype=torch.float64).to(torch.float32).to(dev)
+
+
 def mc_significance(
     dist: torch.Tensor,     # [B, m, m]
     scores,                 # [B] observed CSS
-    key: torch.Tensor,      # [2] run-level MC key
+    key: torch.Tensor,      # [2] run-level MC key (shared) or [B, 2] window keys
+    asize: int,
+    bsize: int,
+    chunk: int,
+    runs: int,
+    threshold: int,
+    stream: str = "shared",
+    bitgen: str = "mix",
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Plain torch version of the float32 MC (``perm.py:mc_significance``):
+    a host-driven chunk loop with the same ``counted``/``cum``/``need``/
+    ``pos`` arithmetic, on ``dist``'s device, carrying only the windows
+    still running (each window's result depends on its own stream only).
+    Returns (pvals float64, nscores, hits) as numpy arrays."""
+    dev = dist.device
+    B, m = dist.shape[0], dist.shape[-1]
+    distf = dist.to(torch.float32)
+    obs = _observed_f32(scores, dev)
+    key = key.to(dev)
+    if stream == "shared":
+        flat = distf.reshape(B, m * m)
+
+        def chunk_hits(k, rows):
+            M = _shared_coeff(key, k, m, asize, bsize, chunk, bitgen)
+            with _full_f32_matmul():
+                return (flat[rows] @ M) >= obs[rows, None]
+    elif stream == "window":
+        def chunk_hits(k, rows):
+            s = _perm_scores(distf[rows], rng.fold_in(key[rows], k), asize, bsize,
+                             chunk, bitgen)
+            return s >= obs[rows, None]
+    else:
+        raise ValueError(f"stream must be one of {STREAMS}, got {stream!r}")
+    return _mc_loop(B, dev, chunk, runs, threshold, chunk_hits)
+
+
+def _native_scores(D: torch.Tensor, rowtot: torch.Tensor, r: torch.Tensor,
+                   asize: int, bsize: int) -> torch.Tensor:
+    """float64 CSS [b, K] of ranks r [b, m, K] against D [b, m, m] float64
+    in ``mc_native``'s order (``native/mc_native.cpp:272-294``), looping
+    over rank positions: row totals over the smaller group and
+    ``between = rt - 2 within``, the a- and b-chains over rank-adjacent
+    pairs, ``s = between inv_ab - m (wa chain_a + wb chain_b)``."""
+    b, m, K = r.shape
+    wa, wb = _chain_weights(asize, bsize)
+    inv_ab = 1.0 / (asize * bsize)
+    order = torch.empty_like(r)                              # order[rank] = j
+    order.scatter_(1, r, torch.arange(m, device=r.device)[None, :, None].expand(b, m, K))
+    flat = D.reshape(b, m * m)
+
+    def d_at(j, l):
+        return flat.gather(1, j * m + l)
+
+    g_lo, g_hi = (asize, m) if bsize <= asize else (0, asize)
+    zero = torch.zeros((b, K), dtype=torch.float64, device=D.device)
+    rt, within = zero, zero
+    for p in range(g_lo, g_hi):
+        j = order[:, p]
+        rt = rt + rowtot.gather(1, j)
+        acc = zero
+        for q in range(p + 1, g_hi):
+            acc = acc + d_at(j, order[:, q])
+        within = within + acc
+    between = rt - 2.0 * within
+    chain_a, chain_b = zero, zero
+    for p in range(0, asize - 1):
+        chain_a = chain_a + d_at(order[:, p], order[:, p + 1])
+    for p in range(asize, m - 1):
+        chain_b = chain_b + d_at(order[:, p], order[:, p + 1])
+    return between * inv_ab - float(m) * (wa * chain_a + wb * chain_b)
+
+
+def _row_totals(D: torch.Tensor) -> torch.Tensor:
+    """Row sums of D [b, m, m] float64, l = 0, 1, ... in order."""
+    acc = torch.zeros(D.shape[:2], dtype=torch.float64, device=D.device)
+    for l in range(D.shape[-1]):
+        acc = acc + D[:, :, l]
+    return acc
+
+
+def mc_native_plain(
+    dist: torch.Tensor,     # [B, m, m]
+    scores,                 # [B] observed CSS
+    wkeys: torch.Tensor,    # [B, 2] window keys
     asize: int,
     bsize: int,
     chunk: int,
     runs: int,
     threshold: int,
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Plain torch version of the shared-stream MC
-    (``perm.py:mc_significance``, ``stream="shared"``): a host-driven
-    chunk loop with the same ``counted``/``cum``/``need``/``pos``
-    arithmetic, on ``dist``'s device, stopping once every window is done.
-    Returns (pvals float64, nscores, hits) as numpy arrays."""
+    """Plain torch version of ``perm_backend="native"``
+    (``native/mc_native.cpp:mc_native``): the window stream with ``mix``
+    draws, float32 distances widened to float64, scored by
+    :func:`_native_scores`, a hit when the score is ``>=`` the float32
+    observed score widened to float64.  Returns (pvals, nscores, hits)."""
     dev = dist.device
     B, m = dist.shape[0], dist.shape[-1]
-    distf = dist.to(torch.float32).reshape(B, m * m)
-    scoresf = torch.as_tensor(scores, dtype=torch.float64).to(torch.float32).to(dev)
-    hits = torch.zeros(B, dtype=torch.int64, device=dev)
-    nsc = torch.zeros(B, dtype=torch.int64, device=dev)
-    done = torch.zeros(B, dtype=torch.bool, device=dev)
-    n_chunks = (runs + chunk - 1) // chunk
-    key = key.to(dev)
-    arange = torch.arange(chunk, device=dev)
-    for k in range(n_chunks):
-        if B == 0 or bool(done.all()):
-            break
-        M = _shared_coeff(key, k, m, asize, bsize, chunk)
-        with _full_f32_matmul():
-            new_scores = distf @ M                        # [B, K]
-        offset = k * chunk
-        counted = (offset + arange) < runs
-        hit = (new_scores >= scoresf[:, None]) & counted[None, :]
-        cum = torch.cumsum(hit.to(torch.int64), dim=-1)
-        chunk_hits = cum[:, -1]
-        n_counted = int(counted.sum())
-        need = threshold - hits
-        reached = (chunk_hits >= need) & ~done
-        pos = torch.argmax((cum >= need[:, None]).to(torch.int8), dim=-1)
-        hits = torch.where(done, hits, torch.where(reached, threshold, hits + chunk_hits))
-        nsc = torch.where(
-            done, nsc, torch.where(reached, offset + pos + 1, offset + n_counted)
-        )
-        done = done | reached
-    hits_np = hits.cpu().numpy()
-    nsc_np = nsc.cpu().numpy()
-    return (hits_np + 1.0) / (nsc_np + 1.0), nsc_np, hits_np
+    D = dist.to(torch.float32).to(torch.float64)
+    rowtot = _row_totals(D)
+    obs = _observed_f32(scores, dev).to(torch.float64)
+    wkeys = wkeys.to(dev)
+    step = _window_step(dev, m, chunk)
+
+    def chunk_hits(k, rows):
+        out = torch.empty((rows.numel(), chunk), dtype=torch.bool, device=dev)
+        for s in range(0, rows.numel(), step):
+            sel = rows[s:s + step]
+            r = _ranks(rng.fold_in(wkeys[sel], k), chunk, m, "mix")
+            out[s:s + step] = _native_scores(D[sel], rowtot[sel], r, asize, bsize) >= obs[sel, None]
+        return out
+
+    return _mc_loop(B, dev, chunk, runs, threshold, chunk_hits)
 
 
 def mc_shared(
@@ -218,6 +430,7 @@ def mc_shared(
     chunk: int,
     runs: int,
     threshold: int,
+    bitgen: str = "mix",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The shared-stream MC on the card: (nscores, hits) int32 [B].
 
@@ -241,7 +454,7 @@ def mc_shared(
     k = 0
     while k < n_chunks and active.numel():
         nk = min(_FIRST_RANGE_CHUNKS if k == 0 else later, n_chunks - k)
-        M = shared_coeff(key, k, nk, m, asize, bsize, chunk, dev)
+        M = shared_coeff(key, k, nk, m, asize, bsize, chunk, dev, bitgen)
         launch(
             LAUNCHES, "css_mc_shared", "css_mc_shared", dev,
             ptr(distf), ptr(obs), ptr(active), active.numel(), m, ptr(M),
@@ -253,11 +466,76 @@ def mc_shared(
     return nsc, hits
 
 
+def _flat_f32(dist: torch.Tensor, kernel: str) -> torch.Tensor:
+    """[B, m*m] contiguous float32 distances for a kernel, m checked."""
+    B, m = dist.shape[0], dist.shape[-1]
+    if dist.dim() != 3 or dist.shape[1] != m:
+        raise ValueError(f"{kernel} takes [B, m, m] distances, got {tuple(dist.shape)}")
+    _check_m(m, kernel)
+    return dist.to(torch.float32).reshape(B, m * m).contiguous()
+
+
+def _window_key_words(wkeys: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """[B, 2] int64 key words on the card, contiguous, for the kernels."""
+    if wkeys.dim() != 2 or wkeys.shape[1] != 2:
+        raise ValueError(f"window keys must be [B, 2], got {tuple(wkeys.shape)}")
+    return wkeys.to(device=dev, dtype=torch.int64).contiguous()
+
+
+def mc_window(
+    dist: torch.Tensor,    # [B, m, m] on the card
+    obs: torch.Tensor,     # [B] float32 observed scores on the card
+    wkeys: torch.Tensor,   # [B, 2] window keys
+    asize: int,
+    bsize: int,
+    chunk: int,
+    runs: int,
+    threshold: int,
+    bitgen: str = "mix",
+    native: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The window-stream MC on the card (K8): (nscores, hits) int32 [B],
+    one launch, each window to its own stop.  ``native=True`` scores in
+    float64 in ``mc_native``'s order (``mix`` draws only)."""
+    dev = dist.device
+    B = dist.shape[0]
+    distf = _flat_f32(dist, "css_mc_window")
+    gen = _check_bitgen(bitgen)
+    if native and bitgen != "mix":
+        raise ValueError("perm_backend='native' replays the 'mix' stream only")
+    keys = _window_key_words(wkeys, dev)
+    obs = obs.to(device=dev, dtype=torch.float32).contiguous()
+    hits = torch.empty(B, dtype=torch.int32, device=dev)
+    nsc = torch.empty(B, dtype=torch.int32, device=dev)
+    between, ca, cb = _coeff_constants(asize, bsize)
+    wa, wb = _chain_weights(asize, bsize)
+    launch(
+        LAUNCHES, "css_mc_window", "css_mc_window", dev,
+        ptr(distf), ptr(obs), ptr(keys), B, asize + bsize, asize, chunk, runs,
+        threshold, gen, int(native), ctypes.c_float(between), ctypes.c_float(ca),
+        ctypes.c_float(cb), ctypes.c_double(wa), ctypes.c_double(wb),
+        ctypes.c_double(1.0 / (asize * bsize)), ptr(hits), ptr(nsc),
+    )
+    return nsc, hits
+
+
 @dataclasses.dataclass
 class McResult:
     pvals: np.ndarray      # [B]
     nscores: np.ndarray    # [B] permutations consumed
     hits: np.ndarray       # [B]
+
+
+def _stream_keys(key, B, chroms, slots, stream, dev) -> torch.Tensor:
+    """The run-level key (shared) or the [B, 2] window keys (window)."""
+    if stream not in STREAMS:
+        raise ValueError(f"stream must be one of {STREAMS}, got {stream!r}")
+    key = key.to(dev)
+    if stream == "shared":
+        return key
+    chroms = np.zeros(B, dtype=np.int64) if chroms is None else chroms
+    slots = np.arange(B, dtype=np.int64) if slots is None else slots
+    return rng.window_keys(key, chroms, slots)
 
 
 def significance(
@@ -269,24 +547,265 @@ def significance(
     runs: int,
     key: torch.Tensor,      # [2] run-level MC key
     chunk: int = 256,
+    chroms=None,            # [B] chromosome hashes (window stream)
+    slots=None,             # [B] window slots (window stream)
+    backend: str = "xla",
+    bitgen: str = "mix",
+    stream: str = "shared",
 ) -> McResult:
     """Adaptive permutation p-values for a set of windows
-    (``perm.py:significance`` with ``stream="shared"``, ``bitgen="mix"``):
-    the kernels on a CUDA ``dist``, the plain chunk loop on a CPU one."""
+    (``perm.py:significance``): the kernels on a CUDA ``dist``, the plain
+    chunk loops on a CPU one.  Window w of the window stream is keyed by
+    (chroms[w], slots[w]); ``backend="native"`` needs that stream and
+    ``mix`` draws, as in the JAX package."""
+    if backend not in ("xla", "native"):
+        raise ValueError(f"backend must be 'xla' or 'native', got {backend!r}")
+    if backend == "native" and stream == "shared":
+        raise ValueError(
+            f"backend={backend!r} replays per-window streams; use stream='window'"
+        )
+    if backend == "native" and bitgen != "mix":
+        raise ValueError("perm_backend='native' replays the 'mix' stream only")
+    _check_bitgen(bitgen)
     B = dist.shape[0]
+    keys = _stream_keys(key, B, chroms, slots, stream, dist.device)
     if B == 0:
         z = np.zeros(0, dtype=np.int64)
         return McResult(pvals=np.zeros(0), nscores=z, hits=z.copy())
     if is_cpu(dist):
-        pv, n, h = mc_significance(
-            dist, scores, key, asize, bsize, chunk, runs, threshold
-        )
+        if backend == "native":
+            pv, n, h = mc_native_plain(dist, scores, keys, asize, bsize, chunk,
+                                       runs, threshold)
+        else:
+            pv, n, h = mc_significance(dist, scores, keys, asize, bsize, chunk, runs,
+                                       threshold, stream=stream, bitgen=bitgen)
         return McResult(pvals=pv, nscores=n, hits=h)
-    m = dist.shape[-1]
-    distf = dist.to(torch.float32).reshape(B, m * m).contiguous()
-    obs = torch.as_tensor(scores, dtype=torch.float64).to(torch.float32)
-    obs = obs.to(dist.device)
-    nsc, hits = mc_shared(distf, obs, key, asize, bsize, chunk, runs, threshold)
+    obs = _observed_f32(scores, dist.device)
+    if stream == "shared":
+        m = dist.shape[-1]
+        distf = dist.to(torch.float32).reshape(B, m * m).contiguous()
+        nsc, hits = mc_shared(distf, obs, keys, asize, bsize, chunk, runs, threshold,
+                              bitgen)
+    else:
+        nsc, hits = mc_window(dist, obs, keys, asize, bsize, chunk, runs, threshold,
+                              bitgen, native=backend == "native")
     n = nsc.cpu().numpy().astype(np.int64)
     h = hits.cpu().numpy().astype(np.int64)
     return McResult(pvals=(h + 1.0) / (n + 1.0), nscores=n, hits=h)
+
+
+# ---------------------------------------------------------------- approx mode
+
+
+def null_power_sums_plain(
+    dist: torch.Tensor,     # [B, m, m]
+    keys: torch.Tensor,     # [2] run-level key (shared) or [B, 2] window keys
+    asize: int,
+    bsize: int,
+    chunk: int,
+    k0: int,
+    n_chunks: int,
+    stream: str = "shared",
+    bitgen: str = "mix",
+) -> torch.Tensor:
+    """Plain torch version of :func:`null_power_sums`
+    (``perm.py:_null_power_sums``)."""
+    dev = dist.device
+    B, m = dist.shape[0], dist.shape[-1]
+    distf = dist.to(torch.float32)
+    keys = keys.to(dev)
+    out = torch.empty((n_chunks, 3, B), dtype=torch.float64, device=dev)
+    for i, k in enumerate(range(k0, k0 + n_chunks)):
+        if stream == "shared":
+            M = _shared_coeff(keys, k, m, asize, bsize, chunk, bitgen)
+            with _full_f32_matmul():
+                s = distf.reshape(B, m * m) @ M
+        else:
+            s = _perm_scores(distf, rng.fold_in(keys, k), asize, bsize, chunk, bitgen)
+        s64 = s.to(torch.float64)
+        out[i, 0] = s64.sum(dim=-1)
+        out[i, 1] = (s64 * s64).sum(dim=-1)
+        out[i, 2] = (s64 * s64 * s64).sum(dim=-1)
+    return out
+
+
+def null_power_sums(
+    dist: torch.Tensor,     # [B, m, m]
+    keys: torch.Tensor,     # [2] run-level key (shared) or [B, 2] window keys
+    asize: int,
+    bsize: int,
+    chunk: int,
+    k0: int,
+    n_chunks: int,
+    stream: str = "shared",
+    bitgen: str = "mix",
+) -> torch.Tensor:
+    """Power sums of the permutation null per chunk: [n_chunks, 3, B]
+    float64, rows (sum s, sum s^2, sum s^3) over the float32 scores of
+    chunks ``k0 .. k0+n_chunks-1`` (``perm.py:_null_power_sums``).  K9
+    on a CUDA ``dist``, the plain version on a CPU one."""
+    if stream not in STREAMS:
+        raise ValueError(f"stream must be one of {STREAMS}, got {stream!r}")
+    gen = _check_bitgen(bitgen)
+    if is_cpu(dist):
+        return null_power_sums_plain(dist, keys, asize, bsize, chunk, k0, n_chunks,
+                                     stream, bitgen)
+    dev = dist.device
+    B, m = dist.shape[0], dist.shape[-1]
+    distf = _flat_f32(dist, "css_mc_power")
+    out = torch.empty((n_chunks, 3, B), dtype=torch.float64, device=dev)
+    if B == 0 or n_chunks == 0:
+        return out
+    if stream == "shared":
+        M = shared_coeff(keys, k0, n_chunks, m, asize, bsize, chunk, dev, bitgen)
+        launch(
+            LAUNCHES, "css_mc_power", "css_mc_power_shared", dev,
+            ptr(distf), B, m, ptr(M), n_chunks, chunk, ptr(out),
+        )
+    else:
+        wk = _window_key_words(keys, dev)
+        between, ca, cb = _coeff_constants(asize, bsize)
+        launch(
+            LAUNCHES, "css_mc_power", "css_mc_power_window", dev,
+            ptr(distf), ptr(wk), B, m, asize, k0, n_chunks, chunk, gen,
+            ctypes.c_float(between), ctypes.c_float(ca), ctypes.c_float(cb), ptr(out),
+        )
+    return out
+
+
+def _pearson3_tail(scores, s1, s2, s3, n):
+    """Upper-tail p under a Pearson-III fit to power sums (host, scipy)."""
+    from scipy import stats as sstats
+
+    mean = s1 / n
+    var = np.maximum(s2 / n - mean**2, 1e-30)
+    mu3 = s3 / n - 3 * mean * var - mean**3
+    sd = np.sqrt(var)
+    skew = mu3 / np.maximum(sd**3, 1e-30)
+    z = (scores - mean) / sd
+
+    small = np.abs(skew) < 1e-3
+    p = np.empty(len(scores))
+    p[small] = sstats.norm.sf(z[small])
+    big = ~small
+    if big.any():
+        a = 4.0 / (skew[big] ** 2)
+        pos = skew[big] > 0
+        # X = (Z * sign) * sqrt(a) + a  ~ Gamma(a, 1) under Pearson III
+        zz = np.where(pos, z[big], -z[big])
+        x = zz * np.sqrt(a) + a
+        tail_hi = sstats.gamma.sf(np.maximum(x, 0.0), a)
+        tail_lo = sstats.gamma.cdf(np.maximum(x, 0.0), a)
+        p[big] = np.where(pos, tail_hi, tail_lo)
+        # beyond the distribution's support bound, the tail is 0/1
+        p[big] = np.where(x <= 0.0, np.where(pos, 1.0, 0.0), p[big])
+    return np.clip(p, 1e-300, 1.0)
+
+
+def _approx(power, scores, B, chunk, n_chunks, stable_log10, max_rounds) -> McResult:
+    """The drift and escalation loop of ``perm.py:approx_significance``
+    (host): power(rows, k0, n) gives the [n, 3, len(rows)] power sums of
+    chunks k0 .. k0+n-1 for the windows ``rows`` (one device-to-host copy
+    each).  A window whose half-sample and full-sample fits differ by more
+    than ``stable_log10`` in log10 p extends its stream from chunk
+    ``k_done`` by ``k_done`` chunks, up to ``max_rounds`` times."""
+    scores = np.asarray(scores, dtype=np.float64)
+    pvals = np.zeros(B)
+    nsc = np.zeros(B, dtype=np.int64)
+
+    def _drift(sc, half, n_half, tot, n_tot):
+        p_full = _pearson3_tail(sc, tot[0], tot[1], tot[2], n_tot)
+        p_half = _pearson3_tail(sc, half[0], half[1], half[2], n_half)
+        return p_full, np.abs(np.log10(p_full) - np.log10(p_half))
+
+    per_chunk = power(np.arange(B), 0, n_chunks)             # [K0, 3, B]
+    tot = per_chunk.sum(axis=0)
+    half_k = max(n_chunks // 2, 1)
+    half = per_chunk[:half_k].sum(axis=0)
+    k_done = n_chunks
+    p_full, drift = _drift(scores, half, half_k * chunk, tot, k_done * chunk)
+    pvals[:] = p_full
+    nsc[:] = k_done * chunk
+    active = np.nonzero(drift > stable_log10)[0]
+    for _round in range(max_rounds):
+        if len(active) == 0:
+            break
+        new = power(active, k_done, k_done)                  # [k_done, 3, A]
+        half2 = tot[:, active]                               # first half = old
+        tot2 = half2 + new.sum(axis=0)
+        p2, d2 = _drift(scores[active], half2, k_done * chunk, tot2, 2 * k_done * chunk)
+        pvals[active] = p2
+        nsc[active] = 2 * k_done * chunk
+        tot[:, active] = tot2
+        drift[active] = d2
+        k_done *= 2
+        active = active[drift[active] > stable_log10]
+    return McResult(pvals=pvals, nscores=nsc, hits=np.zeros(B, dtype=np.int64))
+
+
+def _approx_dispatch(sums_fn, dist, scores, asize, bsize, key, chunk, chroms, slots,
+                     n_chunks, stable_log10, max_rounds, bitgen, stream) -> McResult:
+    B = dist.shape[0]
+    keys = _stream_keys(key, B, chroms, slots, stream, dist.device)
+    if B == 0:
+        z = np.zeros(0)
+        return McResult(pvals=z, nscores=z.astype(np.int64), hits=z.astype(np.int64))
+
+    def power(rows, k0, n):
+        if len(rows) == B:
+            d, ks = dist, keys
+        else:
+            idx = torch.from_numpy(rows).to(dist.device)
+            d, ks = dist[idx], keys if stream == "shared" else keys[idx]
+        out = sums_fn(d, ks, asize, bsize, chunk, k0, n, stream, bitgen)
+        return out.cpu().numpy()
+
+    return _approx(power, scores, B, chunk, n_chunks, stable_log10, max_rounds)
+
+
+def approx_significance(
+    dist: torch.Tensor,     # [B, m, m]
+    scores,                 # [B] observed CSS (float64)
+    asize: int,
+    bsize: int,
+    key: torch.Tensor,      # [2] run-level MC key
+    chunk: int = 1024,
+    chroms=None,
+    slots=None,
+    n_chunks: int = 2,
+    stable_log10: float = 0.5,
+    max_rounds: int = 3,
+    bitgen: str = "mix",
+    stream: str = "shared",
+) -> McResult:
+    """Pearson-III (moment-fitted) permutation p-values
+    (``perm.py:approx_significance``): the first three moments of each
+    window's null from ``n_chunks`` chunks of its permutations, the tail
+    from scipy, escalation as :func:`_approx` says.  ``nscores`` records
+    the permutations spent; ``hits`` is 0.  K9 on a CUDA ``dist``, the
+    plain power sums on a CPU one."""
+    return _approx_dispatch(null_power_sums, dist, scores, asize, bsize, key, chunk,
+                            chroms, slots, n_chunks, stable_log10, max_rounds, bitgen,
+                            stream)
+
+
+def approx_significance_plain(
+    dist: torch.Tensor,
+    scores,
+    asize: int,
+    bsize: int,
+    key: torch.Tensor,
+    chunk: int = 1024,
+    chroms=None,
+    slots=None,
+    n_chunks: int = 2,
+    stable_log10: float = 0.5,
+    max_rounds: int = 3,
+    bitgen: str = "mix",
+    stream: str = "shared",
+) -> McResult:
+    """:func:`approx_significance` with the plain power sums on any device
+    (the twin a card run is held against)."""
+    return _approx_dispatch(null_power_sums_plain, dist, scores, asize, bsize, key,
+                            chunk, chroms, slots, n_chunks, stable_log10, max_rounds,
+                            bitgen, stream)

@@ -13,7 +13,12 @@ for word, with ``jax_threefry_partitionable`` on (the JAX default):
 * ``uniform(key, (n,))`` draws element ``i`` from ``(b0, b1) =
   threefry2x32(key, (0, i))``: float32 takes ``b0 ^ b1``, float64 takes
   ``b0 << 32 | b1``; the top mantissa bits under exponent 0 give a float
-  in [1, 2), minus 1.
+  in [1, 2), minus 1.  A multi-dimensional draw counts its elements by
+  flat index.
+
+The per-window MC streams are ``fold_in(fold_in(fold_in(PRNGKey(seed), 2),
+chrom_hash(seqid)), slot)`` (:func:`window_keys`), chunk ``k`` of a window
+``fold_in(wkey, k)``.
 
 The CSS Monte-Carlo expands a chunk key into many words with a cheaper
 counter mix instead (``divergence_tpu/kernels/perm.py:_mix_bits``):
@@ -93,6 +98,16 @@ def slot_keys(key: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
     """Per-window keys ``[B, 2]`` from a chromosome key:
     ``fold_in(key, slot)`` (``divergence_tpu/kernels/perm.py:slot_keys``)."""
     return fold_in(key, slots)
+
+
+def window_keys(key: torch.Tensor, chroms, slots) -> torch.Tensor:
+    """Per-window MC keys ``[B, 2]`` from the run-level MC key:
+    ``fold_in(fold_in(key, chrom), slot)`` elementwise, the chromosome
+    first (``divergence_tpu/kernels/perm.py:window_keys``).  ``chroms``
+    and ``slots`` are integer arrays or tensors of length B."""
+    chroms = torch.as_tensor(np.asarray(chroms, dtype=np.int64)).to(key.device)
+    slots = torch.as_tensor(np.asarray(slots, dtype=np.int64)).to(key.device)
+    return fold_in(fold_in(key, chroms), slots)
 
 
 def _counter_bits(key: torch.Tensor, n: int) -> tuple[torch.Tensor, torch.Tensor]:

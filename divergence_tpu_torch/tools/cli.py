@@ -12,8 +12,7 @@ Usage::
 
 Flags are the JAX CLI's, plus ``--device`` (default ``cuda``; without a
 CUDA device that default raises, there is no CPU fallback).  Not ported
-yet: ``--shard``, ``--num-hosts``/``--host-id`` and ``--profile``; the
-``run-css`` options the port does not run raise (see ``cmd_run_css``).
+yet: ``--shard``, ``--num-hosts``/``--host-id`` and ``--profile``.
 """
 
 from __future__ import annotations
@@ -175,16 +174,23 @@ def _mds_enum(name):
 
 
 def cmd_run_css(args) -> None:
-    """The CSS scan.  The flags are the JAX CLI's: all three ``--mds``
-    modes and ``--drosophila`` (frequency tracks) run; the options the
-    port does not run yet (``--p-mode approx``, ``--mc-stream window``,
-    ``--perm-backend native``, ``--rng threefry``) raise
-    ``NotImplementedError`` naming their ROADMAP item, before any file is
-    read."""
+    """The CSS scan.  The flags are the JAX CLI's and all of them run: the
+    three ``--mds`` modes, ``--drosophila`` (frequency tracks), ``--p-mode
+    mc|approx``, ``--mc-stream shared|window``, ``--rng mix|threefry`` and
+    ``--perm-backend xla|native``.  ``--perm-form`` is accepted and
+    changes nothing: both JAX forms score the same permutations and differ
+    only in float32 rounding; the port has one form."""
     from divergence_tpu_torch.config import CssConfig, WindowConfig
     from divergence_tpu_torch.engine import run_css, run_css_multi
-    from divergence_tpu_torch.engine.css_engine import check_supported
 
+    if args.p_mode == "approx":
+        # the model error the JAX CLI states (baseline/exp_approx_tail.py)
+        print(
+            "WARNING: --p-mode approx is ANTI-conservative in the extreme "
+            "tail (p up to ~4x too small for true p <= 1e-3; docs/PARITY.md) "
+            "— prefer the default --p-mode mc",
+            file=sys.stderr,
+        )
     cfg = CssConfig(
         window=WindowConfig(wsize=args.wsize, wstep=args.wstep),
         mc_threshold=args.mc_threshold,
@@ -200,7 +206,6 @@ def cmd_run_css(args) -> None:
         perm_form=args.perm_form,
         mc_stream=args.mc_stream,
     )
-    check_supported(cfg)
     _run_engine(args, run_css, run_css_multi, cfg, ("score", "p"))
 
 
@@ -263,8 +268,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mc-chunk", type=int, default=256)
     p.add_argument(
         "--p-mode", choices=["mc", "approx"], default="mc",
-        help="mc = the reference's adaptive Monte-Carlo (ported); approx "
-        "raises (ROADMAP P9)",
+        help="mc = the reference's adaptive Monte-Carlo; approx = a "
+        "Pearson-III null fitted to three moments from a few permutation "
+        "chunks per window: ANTI-conservative in the extreme tail (p up to "
+        "~4x too small for true p <= 1e-3; docs/PARITY.md)",
     )
     p.add_argument("--drosophila", action="store_true",
                    help="frequency-track mode: one value per SNP and "
@@ -272,20 +279,24 @@ def build_parser() -> argparse.ArgumentParser:
                    "pseudo-individuals")
     p.add_argument(
         "--perm-backend", choices=["xla", "native"], default="xla",
-        help="xla = the device evaluator (ported); native raises (ROADMAP P9)",
+        help="xla = the float32 evaluator; native = the window stream scored "
+        "in float64 in the JAX package's host evaluator's order (implies "
+        "--mc-stream window; mix draws only)",
     )
     p.add_argument(
         "--rng", choices=["mix", "threefry"], default="mix",
-        help="permutation draws: mix (ported); threefry raises (ROADMAP P9)",
+        help="permutation draws: mix = counter-mixed words; threefry = "
+        "float32 uniforms (the round-1 stream)",
     )
     p.add_argument(
         "--perm-form", choices=["broadcast", "matmul"], default="broadcast",
-        help="per-window-stream evaluator form; no effect on the shared stream",
+        help="accepted for the JAX CLI's sake and without effect: both forms "
+        "score the same permutations",
     )
     p.add_argument(
         "--mc-stream", choices=["shared", "window"], default="shared",
-        help="shared = one genome-wide label permutation per draw (ported); "
-        "window raises (ROADMAP P9)",
+        help="shared = one genome-wide label permutation per draw; window = "
+        "independent streams keyed by (seed, chromosome, slot)",
     )
     p.set_defaults(fn=cmd_run_css)
     return ap

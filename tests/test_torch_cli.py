@@ -2,11 +2,14 @@
 the JAX CLI on the same toy GTrack pair: identical rows (seqid, start),
 values within tolerance relative to max(|ref|, 1), and ``--resume``
 reproducing the fresh track byte for byte; ``run-css`` in its three MDS
-modes and in drosophila mode on a frequency-track pair.
+modes, in drosophila mode on a frequency-track pair, and with every
+phase-2 option (``--p-mode approx``, ``--mc-stream window``, ``--rng
+threefry``, ``--perm-backend native``).
 
 run-fet: 1e-12 (exact) / 1e-5 (fast).  run-css: scores 1e-9 (exact) /
 the JAX package's fast-vs-exact band, rtol 2e-3 atol 1e-4 (fast); p equal
-except on near-tie windows (tests/test_torch_mc.py)."""
+except on near-tie windows (tests/test_torch_mc.py), approx p within the
+band of tests/test_torch_approx.py."""
 
 import json
 
@@ -19,6 +22,7 @@ from divergence_tpu.tools.cli import main as jax_cli
 from divergence_tpu_torch.io import read_score_track
 from divergence_tpu_torch.tools import synth
 from divergence_tpu_torch.tools.cli import main as torch_cli
+from test_torch_css_engine import assert_new_option_pvals_match
 from test_torch_smacof import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = {"exact": 1e-12, "fast": 1e-5}
@@ -220,12 +224,29 @@ def test_run_css_cli_ported_flags_run(toy_pair, tmp_path, flags):
     assert ((pv > 0) & (pv <= 1)).all()
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--p-mode", "approx"], "P9"), (["--mc-stream", "window"], "P9"),
-    (["--perm-backend", "native"], "P9"), (["--rng", "threefry"], "P9"),
-])
-def test_run_css_cli_unsupported_flags_raise(toy_pair, tmp_path, flags, item):
-    with pytest.raises(NotImplementedError, match=item):
-        torch_cli(_css_args(toy_pair, tmp_path / "x.track", "fast", "--device",
-                            "cpu", *flags))
-    assert not (tmp_path / "x.track").exists()
+NEW_FLAGS = [
+    ["--p-mode", "approx"],
+    ["--mc-stream", "window"],
+    ["--mc-stream", "window", "--rng", "threefry"],
+    ["--perm-backend", "native"],
+    ["--rng", "threefry"],
+]
+
+
+@pytest.mark.parametrize("flags", NEW_FLAGS, ids=[" ".join(f) for f in NEW_FLAGS])
+def test_run_css_cli_new_flags_match_jax_cli(toy_pair, flags):
+    """The phase-2 options, exact: rows identical, scores 1e-9, p by the
+    option's rule (tests/test_torch_css_engine.py)."""
+    tmp = toy_pair
+    tag = "_".join(f.strip("-") for f in flags)
+    jax_cli(_css_args(tmp, tmp / f"jax_{tag}.track", "exact", *flags))
+    torch_cli(_css_args(tmp, tmp / f"torch_{tag}.track", "exact", "--device", "cpu", *flags))
+    js, jstart, jsc, jp = jax_read_score_track(tmp / f"jax_{tag}.track")
+    ts, tstart, tsc, tp = read_score_track(tmp / f"torch_{tag}.track")
+    assert ts == js and np.array_equal(tstart, jstart) and len(ts) > 50
+    err = np.abs(tsc - jsc) / np.maximum(np.abs(jsc), 1.0)
+    assert err.max() <= 1e-9, err.max()
+    kw = {"p_mode": "approx"} if "approx" in flags else (
+        {"perm_backend": "native"} if "native" in flags else {})
+    assert_new_option_pvals_match(tp, jp, kw)
+    assert ((tp > 0) & (tp <= 1)).all()

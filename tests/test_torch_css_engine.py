@@ -1,20 +1,23 @@
 """The port's CSS engine (divergence_tpu_torch.engine.css_engine, CPU
 path) against the JAX engine: run_css and run_css_multi in both
-precisions and all three MDS modes, the run counters, the empty region,
-multi against looped, and the options the port does not run.
+precisions, all three MDS modes and every phase-2 option (approx mode,
+the window streams, threefry draws, the native evaluator), the run
+counters, the empty region and multi against looped.
 
 Tolerances, relative to max(|reference|, 1): exact 1e-9 on windows with
 eigengap above 1e-6, fast the JAX package's fast-vs-exact band (rtol
 2e-3, atol 1e-4) for CMDS and the measured SMACOF band of
 tests/test_torch_smacof.py for mds 1 and 2; valid and NaN patterns
 identical; p-values equal except on near-tie windows, which
-tests/test_torch_mc.py explains."""
+tests/test_torch_mc.py explains; approx p within the band of
+tests/test_torch_approx.py."""
 
 import numpy as np
 import pytest
 import torch
 
 import divergence_tpu  # noqa: F401  (x64 on)
+from divergence_tpu import native
 from divergence_tpu.config import CssConfig as JCssConfig
 from divergence_tpu.config import MdsAlgorithm as JMds
 from divergence_tpu.config import WindowConfig as JWindowConfig
@@ -26,6 +29,7 @@ from divergence_tpu_torch.config import CssConfig, MdsAlgorithm, SmacofConfig, W
 from divergence_tpu_torch.engine import SnpPair, run_css, run_css_multi
 from divergence_tpu_torch.tools.synth import make_panel
 from divergence_tpu_torch.utils.summary import RunSummary
+from test_torch_approx import LOG10_P_BAND
 from test_torch_smacof import assert_in_fast_band, one_torch_thread  # noqa: F401 (autouse)
 
 REGEND = 20_000
@@ -146,19 +150,90 @@ def test_all_windows_discarded_gives_zero_tracks():
     assert summary.counters["mc_permutations"] == 0
 
 
-UNSUPPORTED = [
-    ({"p_mode": "approx"}, "P9"),
-    ({"mc_stream": "window"}, "P9"),
-    ({"perm_backend": "native"}, "P9"),
-    ({"rng": "threefry"}, "P9"),
+NEW_OPTIONS = [
+    {"p_mode": "approx"},
+    {"p_mode": "approx", "mc_stream": "window"},
+    {"mc_stream": "window"},
+    {"mc_stream": "window", "rng": "threefry"},
+    {"rng": "threefry"},
+    {"perm_backend": "native"},
 ]
 
 
-@pytest.mark.parametrize("kw,item", UNSUPPORTED, ids=[str(k) for k, _ in UNSUPPORTED])
-def test_unsupported_options_raise(panel, kw, item):
+def assert_new_option_pvals_match(got, want, kw):
+    """approx: LOG10_P_BAND (tests/test_torch_approx.py) on >= 99.9 % of
+    the scored windows; native: equal (float64 in mc_native's order, when
+    the JAX package's native build exists); the float32 MCs: equal except
+    on near ties (assert_pvals_match)."""
+    assert np.array_equal(got != 0, want != 0)
+    scored = want != 0
+    if kw.get("p_mode") == "approx":
+        dl = np.abs(np.log10(got[scored]) - np.log10(want[scored]))
+        assert (dl > LOG10_P_BAND[21]).sum() <= 1e-3 * scored.sum(), dl.max()
+    elif kw.get("perm_backend") == "native" and native.native_available():
+        assert np.array_equal(got, want)
+    else:
+        assert_pvals_match(got, want)
+
+
+@pytest.fixture(scope="module")
+def gap_panel(panel):
+    """The conftest panel with every genotype of 8-12.5 kbp missing: the
+    windows inside the gap are discarded, and the JAX engine carries them
+    through its MC as padded rows while the port leaves them out."""
     _, _, _, _, positions, amat, bmat = panel
-    with pytest.raises(NotImplementedError, match=item):
-        run_css(SnpPair(positions, amat, bmat), REGEND, CssConfig(**kw), device="cpu")
+    gap = (positions >= 8_000) & (positions < 12_500)
+    amat, bmat = amat.copy(), bmat.copy()
+    amat[gap] = -10000
+    bmat[gap] = -10000
+    return positions, amat, bmat
+
+
+@pytest.mark.parametrize("kw", NEW_OPTIONS, ids=[str(k) for k in NEW_OPTIONS])
+def test_new_options_match_jax(gap_panel, kw):
+    """Each run-css option the port runs since the per-window streams and
+    approx mode were ported, against the JAX engine: scores 1e-9 (exact),
+    p by the option's rule, the run counters equal.  The window-stream
+    results on the valid windows equal JAX's although JAX's MC also holds
+    the discarded windows' rows: a window's stream is keyed by its own
+    (chromosome, slot)."""
+    positions, amat, bmat = gap_panel
+    cfg, jcfg = _cfgs("exact", mc_runs=2000, seed=4, **kw)
+    summary, jsummary = RunSummary(), JRunSummary()
+    s, p = run_css(SnpPair(positions, amat, bmat), REGEND, cfg, device="cpu",
+                   summary=summary, seqid="chrT")
+    js, jp = jax_run_css(JSnpPair(positions, amat, bmat), REGEND, jcfg,
+                         summary=jsummary, seqid="chrT")
+    assert (s != 0).sum() > 10 and jsummary.counters["windows_discarded"] > 0
+    assert_scores_close(s, js, "exact")
+    assert_new_option_pvals_match(p, jp, kw)
+    assert ((p > 0) & (p <= 1))[s != 0].all()
+    for name in ("windows_planned", "windows_scored", "windows_discarded"):
+        assert summary.counters[name] == jsummary.counters[name], name
+    if np.array_equal(p, jp) or kw.get("p_mode") == "approx":
+        assert summary.counters["mc_permutations"] == jsummary.counters["mc_permutations"]
+
+
+@pytest.mark.parametrize("kw", NEW_OPTIONS, ids=[str(k) for k in NEW_OPTIONS])
+def test_new_options_multi_match_jax(kw):
+    """Three chromosomes in two panel-size groups: the window streams are
+    keyed by (chromosome, slot) across the genome-wide phase 2."""
+    genome = _genome()
+    cfg, jcfg = _cfgs("exact", mc_runs=1500, mc_chunk=128,
+                      window={"wsize": 2000, "wstep": 400}, **kw)
+    got = run_css_multi(
+        {k: (SnpPair(p, a, b), r) for k, (p, a, b, r) in genome.items()},
+        cfg, device="cpu",
+    )
+    want = jax_run_css_multi(
+        {k: (JSnpPair(p, a, b), r) for k, (p, a, b, r) in genome.items()}, jcfg,
+    )
+    for seqid in want:
+        assert_scores_close(got[seqid][0], want[seqid][0], "exact")
+        assert_new_option_pvals_match(got[seqid][1], want[seqid][1], kw)
+    single = run_css(SnpPair(*genome["chr3"][:3]), genome["chr3"][3], cfg,
+                     device="cpu", seqid="chr3")
+    assert np.array_equal(single[1], got["chr3"][1])
 
 
 PORTED = [

@@ -14,7 +14,13 @@ windows (a float32 near tie may flip between summation orders).  SMACOF
 (K6): exact 1e-9 on windows whose chosen restart and transform count
 agree with the plain version's, the rest at most 0.1 % of windows (+1);
 fast within FAST_BAND, the JAX package's float32-vs-float64 band measured
-on the CPU (tests/test_torch_smacof.py; this file runs without jax)."""
+on the CPU (tests/test_torch_smacof.py; this file runs without jax).  K8
+(``css_mc_window``, float32 mix / threefry and the float64 native form):
+(p, n, hits) identical to the plain versions on >= 99.9 % of windows (the
+float32 form adds the twin's products in the twin's order).  K9
+(``css_mc_power``): power sums within POWER_RTOL of the plain version and
+approx p within LOG10_P_BAND where nscores agree (>= 99.9 % of windows),
+the bands measured on the CPU (tests/test_torch_approx.py)."""
 
 import shutil
 from pathlib import Path
@@ -34,6 +40,14 @@ from divergence_tpu_torch.kernels import perm as kperm
 from divergence_tpu_torch.tools.synth import make_chromosome, make_freq_chromosome, make_panel
 
 TOL = {"exact": 1e-12, "fast": 1e-5}
+# approx mode, keyed by the largest m they cover (tests/test_torch_approx.py)
+POWER_RTOL = {21: 1e-6, 64: 3e-6}
+LOG10_P_BAND = {21: 2e-5, 64: 3e-4}
+
+
+def band(table: dict, m: int) -> float:
+    return table[min(k for k in table if k >= m)]
+
 # mds -> (max, 90th percentile): tests/test_torch_smacof.py FAST_BAND
 FAST_BAND = {1: (5.5e-2, 7e-4), 2: (1.53e-1, 7e-4)}
 
@@ -238,7 +252,8 @@ def test_run_css_cuda_matches_cpu(cuda, prec):
     kperm.reset_launches()
     g = run_css(SnpPair(pos, am, bm), 1_000_000, cfg, device=cuda, seqid="c")
     assert kcss.LAUNCHES["css_dissim"] >= 1 and kcss.LAUNCHES["css_cmds"] >= 1, kcss.LAUNCHES
-    assert all(v >= 1 for v in kperm.LAUNCHES.values()), kperm.LAUNCHES
+    assert kperm.LAUNCHES["css_mc_coeff"] >= 1 and kperm.LAUNCHES["css_mc_shared"] >= 1, \
+        kperm.LAUNCHES
     c = run_css(SnpPair(pos, am, bm), 1_000_000, cfg, device="cpu", seqid="c")
     assert np.array_equal(g[0] != 0, c[0] != 0)
     tol = (1e-9, 0.0) if prec == "exact" else (2e-3, 1e-4)
@@ -355,3 +370,142 @@ def test_run_css_smacof_and_drosophila_cuda_matches_cpu(cuda, kw):
     err = np.abs(g[0] - c[0]) / np.maximum(np.abs(c[0]), 1.0)
     assert (err > 1e-9).sum() <= 1e-3 * (c[0] != 0).sum() + 1
     assert (g[1] != c[1]).sum() <= 0.01 * (c[0] != 0).sum() + 1
+
+
+def _mc_windows(cuda, m, limit):
+    """(dist [B, m, m] float32, float64 observed scores, asize, bsize,
+    chroms, slots) of at most ``limit`` valid windows on the card: a
+    frequency chromosome at m = 2, a stickleback-shaped panel else."""
+    if m == 2:
+        dis, asize, bsize, npos, slots = _smacof_dis(cuda, 2, torch.float32)
+        s, d, v = kcss.css_cmds(dis, npos, 1, 1)
+    else:
+        asize, bsize = (m + 1) // 2, m // 2
+        vals, lo, npos_h = _css_windows(cuda, asize, bsize, npos=40_000, region=2_000_000,
+                                        seed=m)
+        s, d, v = kcss.css_phase1(vals, lo, npos_h, asize, bsize, fast=True)
+        plan = plan_windows(make_panel(40_000, 2_000_000, asize, bsize, seed=m)[0],
+                            2_000_000, 2500, 500)
+        slots = torch.from_numpy(plan.slot[plan.valid_mask() & (plan.npos > 0)].copy())
+    keep = v.cpu().numpy()
+    idx = np.nonzero(keep)[0][:limit]
+    dist = d[torch.from_numpy(idx).to(cuda)].float().contiguous()
+    scores = s.double().cpu().numpy()[idx]
+    chroms = np.full(len(idx), rng.chrom_hash("chrK"), dtype=np.int64)
+    return dist, scores, asize, bsize, chroms, slots.cpu().numpy()[idx]
+
+
+FORMS = [("mix", "xla"), ("threefry", "xla"), ("mix", "native")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bitgen,backend", FORMS)
+@pytest.mark.parametrize("m", [2, 9, 21, 64])
+def test_css_mc_window_kernel(cuda, m, bitgen, backend):
+    limit, runs = (64, 2000) if m == 64 else (512, 5000)
+    dist, scores, asize, bsize, chroms, slots = _mc_windows(cuda, m, limit)
+    key = rng.fold_in(rng.prng_key(6), 2)
+    before = kperm.LAUNCHES["css_mc_window"]
+    got = kperm.significance(dist, scores, asize, bsize, 10, runs, key, chroms=chroms,
+                             slots=slots, backend=backend, bitgen=bitgen, stream="window")
+    torch.cuda.synchronize()
+    assert kperm.LAUNCHES["css_mc_window"] == before + 1
+    wkeys = rng.window_keys(key.to(cuda), chroms, slots)
+    if backend == "native":
+        pv, n, h = kperm.mc_native_plain(dist, scores, wkeys, asize, bsize, 256, runs, 10)
+    else:
+        pv, n, h = kperm.mc_significance(dist, scores, wkeys, asize, bsize, 256, runs, 10,
+                                         stream="window", bitgen=bitgen)
+    differ = (got.nscores != n) | (got.hits != h) | (got.pvals != pv)
+    assert differ.sum() <= 1e-3 * len(scores), int(differ.sum())
+    if m == 2:
+        assert (got.pvals == 1.0).all() and (got.nscores == 10).all()
+    else:
+        assert (n < runs).any() and (n == runs).any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bitgen", ["mix", "threefry"])
+@pytest.mark.parametrize("stream", ["shared", "window"])
+@pytest.mark.parametrize("m", [2, 9, 21, 64])
+def test_css_mc_power_kernel(cuda, m, stream, bitgen):
+    dist, scores, asize, bsize, chroms, slots = _mc_windows(cuda, m, 64 if m == 64 else 2048)
+    key = rng.fold_in(rng.prng_key(7), 2)
+    keys = key.to(cuda) if stream == "shared" else rng.window_keys(key.to(cuda), chroms, slots)
+    before = kperm.LAUNCHES["css_mc_power"]
+    k = kperm.null_power_sums(dist, keys, asize, bsize, 512, 3, 2, stream, bitgen)
+    p = kperm.null_power_sums_plain(dist, keys, asize, bsize, 512, 3, 2, stream, bitgen)
+    torch.cuda.synchronize()
+    assert kperm.LAUNCHES["css_mc_power"] == before + 1
+    assert k.shape == p.shape == (2, 3, dist.shape[0]) and k.dtype == torch.float64
+    rel = ((k - p).abs() / p.abs().clamp(min=1e-300)).max()
+    assert float(rel) <= band(POWER_RTOL, m), float(rel)
+    if m == 2:   # every permutation scores the same: the fit is degenerate
+        return
+    got = kperm.approx_significance(dist, scores, asize, bsize, key, chunk=512,
+                                    chroms=chroms, slots=slots, bitgen=bitgen, stream=stream)
+    want = kperm.approx_significance_plain(dist, scores, asize, bsize, key, chunk=512,
+                                           chroms=chroms, slots=slots, bitgen=bitgen,
+                                           stream=stream)
+    same = got.nscores == want.nscores
+    assert same.mean() >= 0.999
+    dl = np.abs(np.log10(got.pvals[same]) - np.log10(want.pvals[same]))
+    assert dl.max() <= band(LOG10_P_BAND, m), dl.max()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("asize,bsize", [(11, 10), (5, 4), (1, 1), (32, 32)])
+def test_css_mc_coeff_threefry_kernel_bit_equal(cuda, asize, bsize):
+    """Threefry draws: 32 chunks of 512 permutations, bit-equal M; at
+    32 + 32 some permutations hold tied float32 draws."""
+    key = rng.fold_in(rng.prng_key(5), 2)
+    m = asize + bsize
+    k = kperm.shared_coeff(key, 3, 32, m, asize, bsize, 512, cuda, "threefry")
+    p = kperm.shared_coeff_plain(key, 3, 32, m, asize, bsize, 512, cuda, "threefry")
+    torch.cuda.synchronize()
+    assert torch.equal(k.view(torch.int32), p.view(torch.int32))
+    if m == 64:
+        keys = torch.stack([rng.fold_in(key, c) for c in range(3, 35)]).to(cuda)
+        u = kperm._draws(keys, 512, m, "threefry").sort(dim=-1).values
+        assert int((u.diff(dim=-1) == 0).any(dim=-1).sum()) > 0
+
+
+@pytest.mark.gpu
+def test_mc_kernels_refuse_large_panels(cuda):
+    dist = torch.zeros((2, 65, 65), device=cuda)
+    key = rng.prng_key(0)
+    with pytest.raises(NotImplementedError, match="P12"):
+        kperm.significance(dist, np.zeros(2), 33, 32, 10, 100, key, stream="window")
+    with pytest.raises(NotImplementedError, match="P12"):
+        kperm.null_power_sums(dist, rng.window_keys(key, [0, 0], [0, 1]), 33, 32, 512, 0, 2,
+                              "window")
+    with pytest.raises(NotImplementedError, match="P12"):
+        kperm.shared_coeff(key, 0, 1, 65, 33, 32, 256, cuda, "threefry")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kw", [
+    {"p_mode": "approx"}, {"p_mode": "approx", "mc_stream": "window"},
+    {"mc_stream": "window"}, {"mc_stream": "window", "rng": "threefry"},
+    {"rng": "threefry"}, {"perm_backend": "native"},
+])
+def test_run_css_new_options_cuda_matches_cpu(cuda, kw):
+    pos, am, bm = make_panel(5_000, 250_000, 11, 10, seed=8)
+    cfg = CssConfig(precision="exact", mc_runs=5000, **kw)
+    kperm.reset_launches()
+    g = run_css(SnpPair(pos, am, bm), 250_000, cfg, device=cuda, seqid="c")
+    if kw.get("p_mode") == "approx":
+        assert kperm.LAUNCHES["css_mc_power"] >= 1, kperm.LAUNCHES
+    elif kw.get("mc_stream") == "window" or kw.get("perm_backend") == "native":
+        assert kperm.LAUNCHES["css_mc_window"] == 1, kperm.LAUNCHES
+    else:
+        assert kperm.COEFF_LAUNCHES["threefry"] >= 1, kperm.COEFF_LAUNCHES
+    c = run_css(SnpPair(pos, am, bm), 250_000, cfg, device="cpu", seqid="c")
+    assert np.array_equal(g[0] != 0, c[0] != 0) and (c[0] != 0).sum() > 100
+    np.testing.assert_allclose(g[0], c[0], rtol=1e-9, atol=0.0)
+    scored = c[0] != 0
+    if kw.get("p_mode") == "approx":
+        dl = np.abs(np.log10(g[1][scored]) - np.log10(c[1][scored]))
+        assert (dl > LOG10_P_BAND[21]).sum() <= 1e-3 * scored.sum() + 1, dl.max()
+    else:
+        assert (g[1] != c[1]).sum() <= 1e-3 * scored.sum() + 1

@@ -1,7 +1,8 @@
 """divergence_tpu_torch runs where JAX is absent: a fresh interpreter with
 ``sys.modules["jax"] = None`` (every ``import jax`` raises) imports the
-package and runs run_fet, run_css (CMDS, SMACOF, drosophila) and both CLI
-scans on the CPU."""
+package and runs run_fet, run_css (CMDS, SMACOF, drosophila, approx mode,
+the window stream with threefry draws, the native evaluator) and both
+CLI scans on the CPU."""
 
 import subprocess
 import sys
@@ -33,6 +34,10 @@ for prec in ("exact", "fast"):
     assert s.shape == (40,) and np.isfinite(s).all() and ((p > 0) == (s != 0)).all()
 s, p = run_css(SnpPair(pos, am, bm), 20_000, CssConfig(mds=1, mc_runs=300), device="cpu")
 assert np.isfinite(s).all() and (s != 0).sum() > 10
+for kw in ({"p_mode": "approx"}, {"mc_stream": "window", "rng": "threefry"},
+           {"perm_backend": "native"}):
+    s, p = run_css(SnpPair(pos, am, bm), 20_000, CssConfig(mc_runs=300, **kw), device="cpu")
+    assert (s != 0).sum() > 10 and ((p > 0) == (s != 0)).all(), kw
 fpos, fa, fb = synth.make_freq_chromosome(300, 20_000, 2)
 s, p = run_css(SnpPair(fpos, fa, fb), 20_000, CssConfig(drosophila=True, mc_runs=300),
                device="cpu")

@@ -163,3 +163,50 @@ def test_smacof_inits_bit_equal(dtype, n_init, m):
                            getattr(torch, dtype)).numpy()
     assert got.shape == (len(slots), n_init, m, 2) and got.dtype == want.dtype
     assert np.array_equal(_bits_of(got), _bits_of(want))
+
+
+@pytest.mark.parametrize("seed", SEEDS[:3])
+def test_window_keys_bit_equal(seed):
+    """perm.py:window_keys: fold_in(fold_in(key, chrom), slot), the
+    chromosome first, on the MC key fold_in(PRNGKey(seed), 2)."""
+    key = jax.random.fold_in(jax.random.PRNGKey(seed), 2)
+    tkey = rng.fold_in(rng.prng_key(seed), 2)
+    chroms = np.array([kperm.chrom_hash(s) for s in ("chrI", "chrXXI", "_", "2L")] * 2,
+                      dtype=np.int64)
+    slots = np.array([0, 1, 40, 123456, 799999, 2**31 - 1, 5, 2**32 - 1], dtype=np.int64)
+    want = np.asarray(jax.random.key_data(
+        kperm.window_keys(key, jnp.asarray(chroms), jnp.asarray(slots))))
+    got = rng.window_keys(tkey, chroms, slots)
+    assert np.array_equal(got.numpy(), want.astype(np.int64))
+    swapped = rng.window_keys(tkey, slots, chroms).numpy()
+    assert not np.array_equal(swapped, got.numpy())
+
+
+def test_fold_chunk_bit_equal():
+    """perm.py:_fold_chunk: the chunk key fold_in(wkey, k) of every window."""
+    key = jax.random.fold_in(jax.random.PRNGKey(9), 2)
+    chroms = np.full(5, kperm.chrom_hash("chrIV"), dtype=np.int64)
+    slots = np.arange(100, 105, dtype=np.int64)
+    jk = kperm.window_keys(key, jnp.asarray(chroms), jnp.asarray(slots))
+    tk = rng.window_keys(rng.fold_in(rng.prng_key(9), 2), chroms, slots)
+    for k in (0, 1, 781, 2**20):
+        want = np.asarray(jax.random.key_data(kperm._fold_chunk(jk, k))).astype(np.int64)
+        assert np.array_equal(rng.fold_in(tk, k).numpy(), want), k
+
+
+def test_threefry_permutation_draws_bit_equal_with_ties():
+    """The threefry MC draws jax.random.uniform(fold_in(wkey, k), (chunk, m),
+    float32) under vmap: element (K, j) is flat draw K*m + j.  At m = 64
+    over 3 x 4096 permutations some permutations hold tied draws."""
+    chunk, m = 4096, 64
+    key = jax.random.fold_in(jax.random.PRNGKey(1), 2)
+    chroms = np.zeros(3, dtype=np.int64)
+    slots = np.array([7, 8, 2**31 - 1], dtype=np.int64)
+    jk = kperm._fold_chunk(kperm.window_keys(key, jnp.asarray(chroms), jnp.asarray(slots)), 5)
+    want = np.asarray(jax.vmap(
+        lambda k: jax.random.uniform(k, (chunk, m), dtype=jnp.float32))(jk))
+    tk = rng.fold_in(rng.window_keys(rng.fold_in(rng.prng_key(1), 2), chroms, slots), 5)
+    got = rng.uniform(tk, chunk * m, torch.float32).reshape(3, chunk, m).numpy()
+    assert np.array_equal(_bits_of(got), _bits_of(want))
+    tied = (np.diff(np.sort(got, axis=-1), axis=-1) == 0).any(axis=-1)
+    assert int(tied.sum()) > 0
