@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Smoke run of ``divergence_tpu_torch`` — the FET scan (``run-fet``) and the
-CSS scan (``run-css``) on one CUDA GPU, at the JAX package's bench scale.
+"""Smoke run of ``divergence_tpu_torch`` — the FET scan (``run-fet``), the
+CSS scan (``run-css``) and the sharded divergence step on one CUDA GPU, at
+the JAX package's bench scale.
 
 Usage, from the repository root, on a machine with one CUDA GPU::
 
@@ -59,13 +60,26 @@ Phases (any failure exits non-zero and prints no result line):
    ``MULTI_MC_RUNS`` permutations (the window stream's plain loop on the
    host CPU stays within seconds); ``run-css --p-mode approx``,
    ``--mc-stream window --rng threefry`` and ``--perm-backend native`` on
-   phase 9's small files.
+   phase 9's small files;
+12. K10 ``fet_window`` (both precisions) and K11 ``css_perm_chunk`` (both
+   draw streams) against their plain versions on the 19,997 windows of the
+   200 k-SNP workload, K11 again on a 200 k-SNP stickleback-shaped panel
+   (whose null is hit) and against K8's first chunk there, and K10 on the
+   ~800 k bench windows gathered at P = 128, bit-equal to phase 2's K1 ->
+   K2;
+13. the sharded step (``make_divergence_step(11, 10)`` at its defaults) on
+   those ~800 k windows: warm wall and a torch.profiler call, four shares
+   of the card against one (bit-equal), the all-plain step on 20,000 of
+   them; ``bench-scaling`` at its defaults; ``run-fet`` and ``run-css``
+   with ``--shard`` and with ``--num-hosts 2`` + ``merge-tracks`` on phase
+   9's small files, byte-equal to the unsharded tracks.
 
 Kernel launch counts are reset before phase 3 and read after phase 4 (the
 FET path), reset before phase 6 and read after phase 7 (the CMDS CSS
 path), reset before phase 9 and read after it (the SMACOF and drosophila
-CSS path), and reset before phase 11 and read after it (K8, K9 and K7
-under threefry).  The last three lines are a JSON line of per-kernel
+CSS path), reset before phase 11 and read after it (K8, K9 and K7 under
+threefry), and reset before phase 13 and read after it (the sharded step:
+K10, K3, K5, K11).  The last three lines are a JSON line of per-kernel
 results (with each kernel's ``bound_ms``: the larger of its bytes over
 3.35 TB/s and its operations over 67 TFLOP/s float32 / 34 TFLOP/s
 float64, from this run's inputs; and ``library_ms``, one PyTorch call
@@ -93,7 +107,11 @@ identical on at least 99.9 % of windows, each differing window shown to
 be a near tie (TIE_RTOL float32, TIE_RTOL_F64 float64).  K9: power sums
 within POWER_RTOL, approx nscores identical on 99.9 % of windows and
 |log10 p| within LOG10_P_BAND where they agree (tests/test_torch_approx.py,
-measured on the CPU).
+measured on the CPU).  K10: as K2, and bit-equal to K1 -> K2 on the bench
+windows.  K11: (hits, reached, pos) identical on every window.  The step:
+per-window outputs bit-equal across 1 and 4 shares; against its all-plain
+version FET exact 1e-12, CSS 1e-9 on the eigengap windows, hits equal on
+99.9 % of windows.
 """
 
 from __future__ import annotations
@@ -164,6 +182,16 @@ POWER_RTOL, LOG10_P_BAND, NSCORES_SAME_SHARE = 1e-6, 2e-5, 0.999   # m <= 21
 # 700 W; float32 and float64 outside the tensor cores)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"f32": 67e12, "f64": 34e12}
+# the sharded step (phases 12-13): the bench chromosome's windows gathered
+# at P = 128 and padded to a multiple of the 4-share check's mesh; the step
+# against its all-plain version on the first STEP_PLAIN_WINDOWS of them
+STEP_P, STEP_SHARES, STEP_PLAIN_WINDOWS = 128, 4, 20_000
+STEP_WORKLOAD = CSS_WORKLOADS[2]   # K10 / K11 against their plain versions
+# K11 again where the null is hit (STEP_WORKLOAD's windows are all
+# divergent: no permutation reaches their scores): a stickleback-shaped
+# panel of the same size, which K11 and K8's first chunk also meet on
+HIT_PANEL = (200_000, 10_000_000, 7)
+PERM_CHUNK = 128                   # make_divergence_step's mc_chunk default
 REPLACES = {
     "fet_lut_build": "divergence_tpu/kernels/fet.py:372",
     "fet_snp_logs": "divergence_tpu/kernels/fet.py:318",
@@ -175,6 +203,8 @@ REPLACES = {
     "css_mc_shared": "divergence_tpu/kernels/perm.py:302",
     "css_mc_window": "divergence_tpu/kernels/perm.py:164",
     "css_mc_power": "divergence_tpu/kernels/perm.py:599",
+    "fet_window": "divergence_tpu/kernels/fet.py:668",
+    "css_perm_chunk": "divergence_tpu/kernels/perm.py:396",
 }
 SOURCES = {
     "fet_lut_build": "divergence_tpu_torch/csrc/fet_snp.cu",
@@ -187,6 +217,8 @@ SOURCES = {
     "css_mc_shared": "divergence_tpu_torch/csrc/css_mc.cu",
     "css_mc_window": "divergence_tpu_torch/csrc/css_mc_window.cu",
     "css_mc_power": "divergence_tpu_torch/csrc/css_mc_power.cu",
+    "fet_window": "divergence_tpu_torch/csrc/fet_window.cu",
+    "css_perm_chunk": "divergence_tpu_torch/csrc/css_perm_chunk.cu",
 }
 
 
@@ -421,7 +453,7 @@ def phase_cli(torch, kfet, dev, tmp: Path) -> tuple[Path, Path, Path]:
     say(f"[cli] fast vs exact scores max_rel_err={err:.3e} (tol 1e-5: float32 "
         "rounding of the same statistic)")
     check(err <= 1e-5, f"cli fast vs exact: {err}")
-    check(all(v > 0 for v in kfet.LAUNCHES.values()),
+    check(all(kfet.LAUNCHES[k] > 0 for k in ("fet_lut_build", "fet_snp_logs", "fet_aggregate")),
           f"cli slice did not launch every kernel: {kfet.LAUNCHES}")
     say(f"[cli] launch counts so far: {kfet.LAUNCHES}")
     return a_path, b_path, sizes
@@ -1381,6 +1413,306 @@ def phase_window_library(torch, dev, card, tmp: Path) -> None:
         check(not np.isnan(sc).any() and bool(((pv > 0) & (pv <= 1)).all()), f"cli {flags}")
 
 
+def gather_windows(torch, vals, lo, npos, P: int, pad_to: int = 1):
+    """[B', P, a] and [B', P, b] int16 codes on ``vals``' device of the
+    windows (lo, npos) — rows past a window's npos repeat its first row —
+    and host (npos, slot-padding) counts: B' = B rounded up to a multiple
+    of ``pad_to``, the extra windows empty (npos 0)."""
+    from divergence_tpu_torch.parallel import pad_to_multiple
+
+    dev = vals.device
+    B = lo.numel()
+    Bp = pad_to_multiple(B, pad_to)
+    offs = torch.arange(P, device=dev)[None, :]
+    lo_d, npos_d = lo.to(dev), npos.to(dev)
+    idx = torch.where(offs < npos_d[:, None], lo_d[:, None] + offs, lo_d[:, None])
+    g = vals[idx]                                          # [B, P, a+b]
+    del idx
+    av = torch.zeros((Bp, P, ASIZE), dtype=torch.int16, device=dev)
+    bv = torch.zeros((Bp, P, BSIZE), dtype=torch.int16, device=dev)
+    av[:B] = g[..., :ASIZE]
+    bv[:B] = g[..., ASIZE:]
+    del g
+    return av, bv, Bp
+
+
+def phase_step_kernels(torch, pair, plan, ids, dev, results, k2_bench) -> dict:
+    """Phase 12: K10 and K11 against their plain versions on the 19,997
+    windows of the 200 k workload (K10 both precisions, K11 both draw
+    streams; K11 also on a 200 k-SNP stickleback-shaped panel, where the
+    null is hit), K11 against K8's first chunk on that panel, and K10 on
+    the ~800 k bench windows bit-equal to phase 2's K1 -> K2.  Returns the
+    bench windows, gathered for phase 13."""
+    import numpy as np
+
+    from divergence_tpu_torch import rng
+    from divergence_tpu_torch.engine import SnpPair
+    from divergence_tpu_torch.engine.fet_engine import chromosome_key
+    from divergence_tpu_torch.kernels import css as kcss
+    from divergence_tpu_torch.kernels import fet as kfet
+    from divergence_tpu_torch.kernels import perm as kperm
+    from divergence_tpu_torch.tools.synth import make_chromosome, make_panel
+
+    maxs, nmax = kfet.support_size(ASIZE, BSIZE), ASIZE + BSIZE + 2
+    m = ASIZE + BSIZE
+    r10, r11 = results["fet_window"], results["css_perm_chunk"]
+
+    # K10 against its plain version on the 200 k workload's windows
+    npos_, region, seed = STEP_WORKLOAD[:3]
+    pos, am, bm = make_chromosome(npos_, region, ASIZE, BSIZE, seed)
+    lo, npos, slot = windows_of(torch, pos, region)
+    P = kfet._window_pad(int(npos.max()))
+    av, bv, B = gather_windows(torch, SnpPair(pos, am, bm).to_device(dev), lo, npos, P)
+    n_tests = int(npos.sum())
+    key = rng.fold_in(rng.prng_key(0), 0)
+    r10["differ"] = {}
+    for prec in ("fast", "exact"):
+        fast = prec == "fast"
+        tol = TOL[prec]
+        kern = lambda: kfet.fet_window_batch(  # noqa: E731
+            av, bv, npos, 0.95, key, 100, maxs, nmax, fast, slot)
+        plain = lambda: kfet.fet_window_batch_plain(  # noqa: E731
+            av, bv, npos, 0.95, key, 100, maxs, nmax, fast, slot)
+        (ks, kd), (ps, pd) = kern(), plain()
+        torch.cuda.synchronize()
+        err_sc = rel_err(ks, ps)
+        sd_rel = (kd.double() - pd.double()).abs() / pd.double().abs().clamp(min=1.0)
+        beyond = int((sd_rel > tol).sum())
+        ms = cuda_ms(torch, kern, 10)
+        pms = cuda_ms(torch, plain, 2)
+        say(f"[K10 fet_window {prec}] {B} windows (P={P}, {n_tests} SNP tests): scores "
+            f"max_rel_err={err_sc:.3e} (tol {tol:g}); stddev {beyond} windows beyond tol "
+            f"(allowed {int(STDDEV_BEYOND_SHARE * B) + 1}); kernel {ms:.4f} ms plain "
+            f"{pms:.4f} ms")
+        check(err_sc <= tol, f"fet_window {prec} scores: {err_sc}")
+        check(beyond <= STDDEV_BEYOND_SHARE * B + 1, f"fet_window {prec} stddev: {beyond}")
+        check(bool(torch.isfinite(ks).all() and torch.isfinite(kd).all()),
+              f"fet_window {prec}: non-finite")
+        r10[prec] = (max(abs_err(ks, ps), abs_err(kd, pd)), max(err_sc, float(sd_rel.max())),
+                     ms, pms)
+        r10["differ"][prec] = beyond
+        if fast:   # the windows' codes in, 2 values out; two compares a code and
+            # at least one threefry draw (~60 integer operations) per sample
+            r10["bound"] = bound(n_tests * m * 2 + B * 16 + B * 2 * 4,
+                                 {"f32": 2 * m * n_tests + B * 100 * 60})
+
+    # K11 against its plain version on the windows' exact CSS distances (as
+    # the step gives them), timed on the workload's; then on the panel's
+    mc_key = rng.fold_in(rng.prng_key(0), 2).to(dev)
+    r11["differ"] = {}
+    hpos, ham, hbm = make_panel(*HIT_PANEL[:2], ASIZE, BSIZE, seed=HIT_PANEL[2])
+    hlo, hnpos, hslot = windows_of(torch, hpos, HIT_PANEL[1])
+    hav, hbv, HB = gather_windows(torch, SnpPair(hpos, ham, hbm).to_device(dev), hlo, hnpos,
+                                  kfet._window_pad(int(hnpos.max())))
+    for label, (wa, wb, wn, ws) in (("workload", (av, bv, npos, slot)),
+                                    ("panel", (hav, hbv, hnpos, hslot))):
+        css_s, dist, _ = kcss.css_window_batch(
+            wa, wb, wn, rng.fold_in(rng.prng_key(0), 1), ASIZE, BSIZE, slot=ws)
+        wkeys = rng.fold_in(rng.fold_in(mc_key, 0), ws.to(dev))
+        WB = wn.numel()
+        ones = torch.ones(WB, dtype=torch.int32, device=dev)
+        perms = WB * PERM_CHUNK
+        for bitgen in ("mix", "threefry"):
+            kern = lambda: kperm.permutation_chunk(  # noqa: E731
+                dist, css_s, ones, PERM_CHUNK, wkeys, ASIZE, BSIZE, PERM_CHUNK, bitgen)
+            plain = lambda: kperm.permutation_chunk_plain(  # noqa: E731
+                dist, css_s, ones, PERM_CHUNK, wkeys, ASIZE, BSIZE, PERM_CHUNK, bitgen)
+            k, q = kern(), plain()
+            torch.cuda.synchronize()
+            differ = (k[0] != q[0]) | (k[1] != q[1]) | (k[2] != q[2])
+            nd = int(differ.sum())
+            timing = ""
+            if label == "workload":
+                ms = cuda_ms(torch, kern, 10)
+                pms = cuda_ms(torch, plain, 1)
+                timing = (f"; kernel {ms:.4f} ms plain {pms:.4f} ms "
+                          f"({perms / ms * 1e3:,.0f} permutations/s)")
+                r11[bitgen] = (float((k[0] - q[0]).abs().max()), 0.0, ms, pms)
+                ops = {t: v * perms for t, v in window_ops(bitgen, m, ASIZE).items()}
+                r11[f"bound_{bitgen}"] = bound(WB * (m * m * 4 + 4 + 4 + 16) + WB * 9, ops)
+            say(f"[K11 css_perm_chunk {bitgen}, {label}] {WB} windows x {PERM_CHUNK} "
+                f"permutations ({int(k[0].sum())} hits, {int(k[1].sum())} windows reach "
+                f"need = 1): {nd} windows differ from the plain version (allowed 0){timing}")
+            check(nd == 0, f"css_perm_chunk {bitgen} ({label}): {nd} windows differ")
+            r11["differ"][f"{bitgen}_{label}"] = nd
+    r11["fast"], r11["bound"] = r11["mix"], r11["bound_mix"]
+    check(int(k[0].sum()) > 0, "css_perm_chunk: the panel's null is never hit")
+
+    # K11 against K8's first chunk on the panel: keys fold_in(wkey, 0), need =
+    # threshold
+    B = HB
+    chunk8 = 256
+    nsc8, hits8 = kperm.mc_window(dist, css_s.float(), wkeys, ASIZE, BSIZE, chunk8, chunk8, 10)
+    h11, reached, pos11 = kperm.permutation_chunk(
+        dist, css_s, torch.full((B,), 10, dtype=torch.int32, device=dev), chunk8,
+        rng.fold_in(wkeys, 0), ASIZE, BSIZE, chunk8)
+    stopped = hits8 == 10
+    same = (torch.equal(reached, stopped)
+            and torch.equal((pos11 + 1)[stopped], nsc8[stopped])
+            and torch.equal(h11[~stopped], hits8[~stopped]))
+    say(f"[K11 vs K8] first chunk of {chunk8}, threshold 10: K8 stops {int(stopped.sum())} "
+        f"of {B} windows inside it; K11 reaches the threshold on the same windows at the "
+        f"same permutation and counts the others' hits alike: {same}")
+    check(same, "css_perm_chunk disagrees with css_mc_window's first chunk")
+    check(int(stopped.sum()) > 0, "css_mc_window stops no panel window in its first chunk")
+    r11["k8_stopped"] = int(stopped.sum())
+    del av, bv, hav, hbv, dist, css_s, wkeys
+    torch.cuda.empty_cache()
+
+    # K10 on the ~800 k bench windows: phase 2's K1 -> K2 bit for bit
+    lo8, npos8, slot8 = (torch.from_numpy(a[ids].copy()) for a in (plan.lo, plan.npos, plan.slot))
+    bav, bbv, Bp = gather_windows(torch, pair.to_device(dev), lo8, npos8, STEP_P, STEP_SHARES)
+    B8 = lo8.numel()
+    ckey = chromosome_key(0, "chrBench")
+    r10["bench_ms"], r10["bit_equal"] = {}, True
+    for prec in ("fast", "exact"):
+        fast = prec == "fast"
+        (s, d), ms = event_ms(torch, lambda: kfet.fet_window_batch(
+            bav[:B8], bbv[:B8], npos8, 0.95, ckey, 100, maxs, nmax, fast, slot8))
+        eq = torch.equal(s, k2_bench[prec][0]) and torch.equal(d, k2_bench[prec][1])
+        say(f"[K10 fet_window {prec}, bench] {B8} windows at P={STEP_P}: bit-equal to phase "
+            f"2's K1 -> K2: {eq}; kernel {ms:.3f} ms (one call)")
+        check(eq, f"fet_window {prec} differs from K1 -> K2 on the bench windows")
+        r10["bench_ms"][prec] = ms
+    pad = Bp - B8
+    return {
+        "av": bav, "bv": bbv, "B": B8,
+        "npos": torch.cat([npos8, torch.zeros(pad, dtype=torch.int64)]),
+        "slot": torch.cat([slot8, torch.zeros(pad, dtype=torch.int64)]),
+    }
+
+
+def phase_step_library(torch, gathered, dev, card, tmp: Path, results) -> None:
+    """Phase 13: the sharded step at full width on the ~800 k bench windows
+    (warm min of 3, profiled), over 4 shares of the card against 1 (bit-
+    equal), against its all-plain version on 20,000 windows; bench-scaling
+    at its defaults; run-fet and run-css with --shard and with
+    --num-hosts 2 + merge-tracks on phase 9's small files, byte-equal to
+    the unsharded tracks."""
+    import numpy as np
+
+    from divergence_tpu_torch import rng
+    from divergence_tpu_torch.kernels import css as kcss
+    from divergence_tpu_torch.parallel import make_divergence_step, make_mesh
+    from divergence_tpu_torch.tools import cli
+    from divergence_tpu_torch.tools.bench_scaling import run_scaling_bench
+
+    av, bv, npos, slot, B = (gathered[k] for k in ("av", "bv", "npos", "slot", "B"))
+    Bp = av.shape[0]
+    key = rng.prng_key(0)
+    names = ("fet_scores", "fet_stddev", "css_scores", "css_valid", "mc_hits")
+    one = make_divergence_step(make_mesh(devices=[dev]), ASIZE, BSIZE)
+    four = make_divergence_step(make_mesh(devices=[dev] * STEP_SHARES), ASIZE, BSIZE)
+
+    def step_walls(step, reps=3):
+        step(av, bv, npos, slot, key)                       # warm
+        walls = []
+        for _ in range(reps):
+            out, ms = host_ms(torch, lambda: step(av, bv, npos, slot, key))
+            walls.append(ms)
+        return out, walls
+
+    out1, walls1 = step_walls(one)
+    n_eval = float(out1["windows_evaluated"])
+    n_valid = int(out1["css_valid"].sum())
+    check(all(out1[k].shape == (Bp,) for k in names), "step: output shapes")
+    check(n_eval == B, f"step: windows_evaluated {n_eval} != {B}")
+    check(bool(torch.isfinite(out1["fet_scores"]).all() and torch.isfinite(out1["fet_stddev"]).all()
+               and torch.isfinite(out1["css_scores"]).all()), "step: non-finite outputs")
+    check(bool(((out1["mc_hits"] >= 0) & (out1["mc_hits"] <= PERM_CHUNK)).all()), "step: hits")
+    check(np.isfinite(float(out1["score_sum"])) and n_valid > 0.9 * B, "step: score_sum / valid")
+    wall, dev_ms, top = device_profile(torch, lambda: one(av, bv, npos, slot, key))
+    check(dev_ms > 0, "step: the profiler saw no device time")
+    say(f"[step] make_divergence_step(11, 10) defaults on {B} bench windows (+{Bp - B} empty, "
+        f"P={STEP_P}), 1 device: warm wall min {min(walls1):.1f} ms median "
+        f"{float(np.median(walls1)):.1f} ms ({B / min(walls1) * 1e3:,.0f} windows/s); "
+        f"{n_valid} CSS-valid windows, score_sum {float(out1['score_sum']):.6f}, "
+        f"{int(out1['mc_hits'].sum())} MC hits; profiled wall {wall:.1f} ms, device "
+        f"{dev_ms:.1f} ms ({100 * dev_ms / wall:.1f} % busy); most device time: "
+        + "; ".join(f"{name[:50]} {ms:.2f} ms" for ms, name in top) + f" on {card}")
+
+    out4, walls4 = step_walls(four)
+    same = {k: torch.equal(out1[k], out4[k]) for k in names}
+    s1, s4 = float(out1["score_sum"]), float(out4["score_sum"])
+    say(f"[step] {STEP_SHARES} shares of the card: warm wall min {min(walls4):.1f} ms; "
+        f"per-window outputs bit-equal to 1 share: {same}; score_sum rel diff "
+        f"{abs(s1 - s4) / abs(s1):.2e} (tol 1e-9)")
+    check(all(same.values()), f"step over {STEP_SHARES} shares differs: {same}")
+    check(abs(s1 - s4) <= 1e-9 * abs(s1), "step over shares: score_sum")
+    check(float(out4["windows_evaluated"]) == n_eval, "step over shares: windows_evaluated")
+    del out4
+
+    # the step against its all-plain version on the first windows
+    n = STEP_PLAIN_WINDOWS
+    args = (av[:n], bv[:n], npos[:n], slot[:n], key)
+    outk = one(*args)
+    plain = make_divergence_step(make_mesh(devices=[dev]), ASIZE, BSIZE, plain=True)
+    outp, pms = host_ms(torch, lambda: plain(*args))
+    _, kms = host_ms(torch, lambda: one(*args))
+    err_f = rel_err(outk["fet_scores"], outp["fet_scores"])
+    sd_rel = ((outk["fet_stddev"] - outp["fet_stddev"]).abs()
+              / outp["fet_stddev"].abs().clamp(min=1.0))
+    sd_beyond = int((sd_rel > TOL["exact"]).sum())
+    joint = torch.cat([av[:n], bv[:n]], dim=-1).reshape(n * STEP_P, ASIZE + BSIZE)
+    dis = kcss.css_dissim(joint, torch.arange(n) * STEP_P, npos[:n], torch.float64)
+    ok = gap_ok(torch, kcss, dis)
+    dcss = (outk["css_scores"] - outp["css_scores"]).abs()
+    err_c = float((dcss / outp["css_scores"].abs().clamp(min=1.0))[ok].max())
+    hits_differ = int((outk["mc_hits"] != outp["mc_hits"]).sum())
+    dsum = abs(float(outk["score_sum"]) - float(outp["score_sum"]))
+    allowed_sum = 1e-9 * abs(float(outp["score_sum"])) + float(dcss[~ok].sum())
+    say(f"[step vs plain] {n} windows: fet max_rel_err {err_f:.3e}, stddev {sd_beyond} beyond "
+        f"{TOL['exact']:g}; css max_rel_err {err_c:.3e} on {int(ok.sum())} windows (eigengap "
+        f"> {GAP_BOUND:g}); valid equal {torch.equal(outk['css_valid'], outp['css_valid'])}; "
+        f"mc_hits differ on {hits_differ} (allowed {int(MC_DIFFER_SHARE * n) + 1}); "
+        f"score_sum diff {dsum:.3e} (allowed {allowed_sum:.3e}); step {kms:.1f} ms, plain "
+        f"step {pms:.1f} ms (host wall, one call)")
+    check(err_f <= TOL["exact"] and sd_beyond <= STDDEV_BEYOND_SHARE * n + 1, "step vs plain: fet")
+    check(err_c <= TOL_CSS and ok.float().mean() >= 0.99, "step vs plain: css")
+    check(torch.equal(outk["css_valid"], outp["css_valid"]), "step vs plain: valid")
+    check(hits_differ <= MC_DIFFER_SHARE * n + 1, f"step vs plain: {hits_differ} hits differ")
+    check(float(outk["windows_evaluated"]) == float(outp["windows_evaluated"]) and
+          dsum <= allowed_sum, "step vs plain: summaries")
+    results["step"] = {"wall_ms": min(walls1), "wall_4_ms": min(walls4), "busy": dev_ms / wall,
+                       "plain_ms": pms, "kernel_ms_20k": kms}
+    del outk, outp, joint, dis
+
+    # bench-scaling at its defaults over the card's devices
+    t0 = time.perf_counter()
+    report = run_scaling_bench()
+    say(f"[bench-scaling] {json.dumps(report)} ({time.perf_counter() - t0:.1f} s)")
+    check(report["backend"] == "cuda" and all(
+        np.isfinite(r["efficiency"]) and r["windows_per_s"] > 0
+        for series in ("weak_scaling", "strong_scaling") for r in report[series]),
+        "bench-scaling report")
+
+    # the CLI: --shard, and two hosts merged, byte-equal to the plain run
+    a_path, b_path = tmp / "small_popA.gtrack", tmp / "small_popB.gtrack"
+    check(a_path.exists() and b_path.exists(), "phase 9's small GTrack files are missing")
+    for sub in ("run-fet", "run-css"):
+        base = [sub, "--pop-a", str(a_path), "--pop-b", str(b_path), "--device", str(dev)]
+        ref, shard = tmp / "step_ref.track", tmp / "step_shard.track"
+        walls = {}
+        for name, out, extra in (("plain", ref, []), ("shard", shard, ["--shard"])):
+            t0 = time.perf_counter()
+            cli.main(base + ["--out", str(out), *extra])
+            walls[name] = time.perf_counter() - t0
+        shards = [tmp / f"step_h{h}.track" for h in (0, 1)]
+        t0 = time.perf_counter()
+        for h, out in enumerate(shards):
+            cli.main(base + ["--out", str(out), "--num-hosts", "2", "--host-id", str(h)])
+        walls["2 hosts"] = time.perf_counter() - t0
+        merged = tmp / "step_merged.track"
+        cli.main(["merge-tracks", "--inputs", *map(str, shards), "--out", str(merged)])
+        rows = [len(p.read_text().splitlines()) - 1 for p in shards]
+        eq_shard = shard.read_bytes() == ref.read_bytes()
+        eq_merge = merged.read_bytes() == ref.read_bytes()
+        say(f"[step cli] {sub}: --shard byte-equal {eq_shard}; --num-hosts 2 shards of "
+            f"{rows} rows merged byte-equal {eq_merge}; walls "
+            + ", ".join(f"{k} {v:.2f} s" for k, v in walls.items()))
+        check(eq_shard and eq_merge and min(rows) > 0, f"{sub}: sharded or merged track differs")
+
+
 def smoke(torch, dev) -> tuple[str, list[dict]]:
     """Every phase on ``dev``; returns (card line, per-kernel results).
     Raises on the first failure."""
@@ -1432,10 +1764,12 @@ def smoke(torch, dev) -> tuple[str, list[dict]]:
     try:
         files = timed_phase("3", phase_cli, torch, kfet, dev, tmp)
         timed_phase("4", phase_library, torch, pair, n_tests, dev, card, k2_out)
-        launches = dict(kfet.LAUNCHES)
+        fet_path = ("fet_lut_build", "fet_snp_logs", "fet_aggregate")
+        launches = {k: kfet.LAUNCHES[k] for k in fet_path}
         say(f"[FET main path] kernel launches: {launches}")
         check(all(v > 0 for v in launches.values()),
               f"the FET path did not launch every kernel: {launches}")
+        k2_bench = {prec: k2_out[prec] for prec in ("fast", "exact")}
         del k2_out
         timed_phase("5", phase_css_kernels, torch, pair, (lo, npos, slot), dev, results)
         torch.cuda.empty_cache()
@@ -1468,16 +1802,31 @@ def smoke(torch, dev) -> tuple[str, list[dict]]:
         timed_phase("11", phase_window_library, torch, dev, card, tmp)
         window_launches = {**kperm.LAUNCHES}
         coeff_by_bitgen = dict(kperm.COEFF_LAUNCHES)
+        say(f"[CSS main path, phase-2 options] kernel launches: {window_launches}; "
+            f"css_mc_coeff by draw stream: {coeff_by_bitgen}")
+        check(window_launches["css_mc_window"] > 0 and window_launches["css_mc_power"] > 0
+              and coeff_by_bitgen["threefry"] > 0,
+              f"the phase-2 options did not launch K8, K9 and threefry K7: "
+              f"{window_launches}, {coeff_by_bitgen}")
+        launches["css_mc_window"] = window_launches["css_mc_window"]
+        launches["css_mc_power"] = window_launches["css_mc_power"]
+
+        gathered = timed_phase("12", phase_step_kernels, torch, pair, plan, ids, dev,
+                               results, k2_bench)
+        del k2_bench
+        for mod in (kfet, kcss, kperm):
+            mod.reset_launches()
+        timed_phase("13", phase_step_library, torch, gathered, dev, card, tmp, results)
+        step_launches = {**kfet.LAUNCHES, **kcss.LAUNCHES, **kperm.LAUNCHES}
+        say(f"[sharded step main path] kernel launches: {step_launches}")
+        step_path = ("fet_window", "fet_lut_build", "css_dissim", "css_cmds",
+                     "css_perm_chunk")
+        check(all(step_launches[k] > 0 for k in step_path),
+              f"the sharded step did not launch every kernel: {step_launches}")
+        launches["fet_window"] = step_launches["fet_window"]
+        launches["css_perm_chunk"] = step_launches["css_perm_chunk"]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    say(f"[CSS main path, phase-2 options] kernel launches: {window_launches}; "
-        f"css_mc_coeff by draw stream: {coeff_by_bitgen}")
-    check(window_launches["css_mc_window"] > 0 and window_launches["css_mc_power"] > 0
-          and coeff_by_bitgen["threefry"] > 0,
-          f"the phase-2 options did not launch K8, K9 and threefry K7: {window_launches}, "
-          f"{coeff_by_bitgen}")
-    launches["css_mc_window"] = window_launches["css_mc_window"]
-    launches["css_mc_power"] = window_launches["css_mc_power"]
 
     kernels = []
     for name in REPLACES:
@@ -1526,6 +1875,16 @@ def smoke(torch, dev) -> tuple[str, list[dict]]:
                 entry["max_abs_err"] = max(entry["max_abs_err"], r[form][0])
             entry["ms_worst_case_16x"] = r["worst_ms"]
             entry["k7_ms_worst_case_16x"] = r["worst_k7_ms"]
+        if name == "fet_window":
+            # ms / plain_ms: 19,997 windows of the 200 k workload; then the
+            # ~800 k bench windows, bit-equal to phase 2's K1 -> K2
+            entry["ms_bench_800k"] = r["bench_ms"]
+            entry["bit_equal_k1_k2_800k"] = r["bit_equal"]
+        if name == "css_perm_chunk":
+            # ms / plain_ms: mix draws; then threefry, on the same windows
+            entry["ms_threefry"], entry["plain_ms_threefry"] = r["threefry"][2], r["threefry"][3]
+            entry["bound_ms_threefry"], entry["bound_by_threefry"] = r["bound_threefry"]
+            entry["k8_first_chunk_windows_stopped"] = r["k8_stopped"]
         if name == "css_mc_power":
             # ms / plain_ms: the shared stream on 19,997 windows x 1,024
             # permutations; then the window stream and the ~800 k bench windows

@@ -13,16 +13,21 @@ Layers (bottom up):
 * :mod:`divergence_tpu_torch.kernels` — per-SNP FET scores (K1), the
   window percentile + bootstrap stddev (K2), CSS window dissimilarities
   (K3/K4), CMDS (K5) and SMACOF (K6) scoring, the permutation MC on the
-  shared (K7) and the per-window stream (K8), and approx mode's null power
-  sums (K9): a CUDA kernel for CUDA tensors, the plain torch version for
-  CPU tensors
+  shared (K7) and the per-window stream (K8), approx mode's null power
+  sums (K9), FET on pre-gathered windows (K10) and one fixed MC chunk per
+  window (K11): a CUDA kernel for CUDA tensors, the plain torch version
+  for CPU tensors
 * :mod:`divergence_tpu_torch.core`    — window planning
 * :mod:`divergence_tpu_torch.engine`  — ``run_fet`` / ``run_fet_multi``,
   ``run_css`` / ``run_css_multi``
+* :mod:`divergence_tpu_torch.parallel` — device meshes, the sharded
+  divergence step (``make_divergence_step``), multi-host partitioning
 * :mod:`divergence_tpu_torch.io`      — GTrack reading / score-track writing
-* :mod:`divergence_tpu_torch.tools`   — the ``run-fet`` and ``run-css`` CLI
+* :mod:`divergence_tpu_torch.tools`   — the CLI (``run-fet``, ``run-css``,
+  ``merge-tracks``, ``bench-scaling``)
 
-No device is global: every entry point takes ``device=``.
+No device is global: every entry point takes ``device=`` or a
+``sharding=`` mesh.
 """
 
 from __future__ import annotations

@@ -6,7 +6,9 @@
 // _mc_stage1_all / _mc_stage2_all run it, and in its float64 form
 // native/mc_native.cpp:mc_native (perm_backend="native").  Plain torch
 // versions: divergence_tpu_torch/kernels/perm.py mc_significance
-// (stream="window") and mc_native_plain.
+// (stream="window") and mc_native_plain.  Its draws, ranks and scores are
+// css_perm_common.cuh's, which K11 (css_perm_chunk.cu, one fixed chunk per
+// window for the sharded step) runs too.
 //
 // css_mc_window (kernel window_mc) — one warp per window, several windows
 // per block:

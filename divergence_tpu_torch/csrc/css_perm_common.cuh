@@ -1,5 +1,6 @@
 // Permutation draws, ranks and scores shared by the CSS Monte-Carlo
-// kernels: K7 (css_mc.cu), K8 (css_mc_window.cu) and K9 (css_mc_power.cu).
+// kernels: K7 (css_mc.cu), K8 (css_mc_window.cu), K9 (css_mc_power.cu) and
+// K11 (css_perm_chunk.cu).
 //
 // A permutation of chunk k is drawn from the chunk key fold_in(key, k)
 // (threefry.cuh) as m words, and individual j's rank is its position in

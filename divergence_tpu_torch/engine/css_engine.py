@@ -22,8 +22,14 @@ programs (the dissimilarity kernel counts per window, with no prefix, at
 any chromosome length), the ``lax.map`` descriptor slices, and the padded
 MC rows (only valid windows enter phase 2; each stops on its own, and a
 window's result depends on its own stream only).  ``mc_window_batch`` and
-``perm_form`` therefore change nothing here.  ``slot_range=`` and
-``sharding=`` are not ported yet (P11).
+``perm_form`` therefore change nothing here.
+
+``sharding=`` (a ``parallel.make_mesh`` tuple) cuts phase 1's windows of
+each chromosome, and phase 2's valid windows, into contiguous shares, one
+per device (``kernels/perm.py`` ``sharding=``); ``slot_range(s)=``
+restricts a chromosome to the slots a host owns (multi-host
+partitioning).  Every window's result depends on its own streams and
+stop, so both give the unsplit run's values.
 """
 
 from __future__ import annotations
@@ -31,52 +37,65 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from divergence_tpu_torch import resolve_device, rng
+from divergence_tpu_torch import rng
 from divergence_tpu_torch.config import CssConfig
 from divergence_tpu_torch.core.windows import plan_windows
 from divergence_tpu_torch.engine.snp import SnpPair
 from divergence_tpu_torch.kernels import css as kcss
 from divergence_tpu_torch.kernels import perm as kperm
+from divergence_tpu_torch.parallel.mesh import mesh_devices, to_host, window_slices
 from divergence_tpu_torch.utils.summary import RunSummary
 
 
 def _phase1_dispatch(pair: SnpPair, regend: int, cfg: CssConfig,
-                     device: torch.device, key: torch.Tensor, seqid: str):
-    """Enqueue one chromosome's phase 1 (no host sync).
+                     devices: tuple[torch.device, ...], key: torch.Tensor, seqid: str,
+                     slot_range: tuple[int, int] | None = None):
+    """Enqueue one chromosome's phase 1 (no host sync), the windows cut
+    into one contiguous share per device.
 
     Returns (nslots, num_windows, pending) with pending = (slots [Bw]
-    numpy, scores, dist, valid) on the device, or None."""
+    numpy, [(scores, dist, valid) per share, in window order]) on the
+    devices, or None."""
     w = cfg.window
     plan = plan_windows(pair.positions, regend, w.wsize, w.wstep)
     if plan.num_windows == 0 or pair.npos == 0:
         return plan.nslots, plan.num_windows, None
-    ids = np.nonzero(plan.valid_mask() & (plan.npos > 0))[0]
+    valid = plan.valid_mask() & (plan.npos > 0)
+    if slot_range is not None:
+        valid &= (plan.slot >= slot_range[0]) & (plan.slot < slot_range[1])
+    ids = np.nonzero(valid)[0]
     if len(ids) == 0:
         return plan.nslots, plan.num_windows, None
-    # int16 codes: the counts only ==-compare them (engine/snp.py);
-    # drosophila frequencies keep their float values (css.c:245-264)
-    vals = pair.to_device(device, compact=not cfg.drosophila)
     # chromosome-pinned restart keys: the scores do not depend on which
     # other chromosomes share the run
     ckey = rng.fold_in(key, rng.chrom_hash(seqid))
     sm = cfg.smacof
-    scores, dist, valid = kcss.css_phase1(
-        vals, plan.lo[ids], plan.npos[ids], pair.asize, pair.bsize,
-        fast=cfg.precision == "fast", mds=int(cfg.mds), key=ckey,
-        slots=plan.slot[ids], drosophila=cfg.drosophila,
-        smacof_iters=sm.max_iters, smacof_inits=sm.n_init, smacof_eps=sm.epsilon,
-    )
-    return plan.nslots, plan.num_windows, (plan.slot[ids], scores, dist, valid)
+    parts = []
+    for dev, sl in zip(devices, window_slices(len(ids), devices)):
+        if sl.start == sl.stop:
+            continue
+        # int16 codes: the counts only ==-compare them (engine/snp.py);
+        # drosophila frequencies keep their float values (css.c:245-264)
+        vals = pair.to_device(dev, compact=not cfg.drosophila)
+        share = ids[sl]
+        parts.append(kcss.css_phase1(
+            vals, plan.lo[share], plan.npos[share], pair.asize, pair.bsize,
+            fast=cfg.precision == "fast", mds=int(cfg.mds), key=ckey,
+            slots=plan.slot[share], drosophila=cfg.drosophila,
+            smacof_iters=sm.max_iters, smacof_inits=sm.n_init, smacof_eps=sm.epsilon,
+        ))
+    return plan.nslots, plan.num_windows, (plan.slot[ids], parts)
 
 
 def _phase1_fetch(pending: list) -> np.ndarray:
-    """ONE device-to-host copy of every chromosome's (score, valid) rows:
-    [sum Bw, 2] float64.  The distance matrices stay on the device."""
-    packed = torch.cat([
+    """ONE device-to-host copy per device of every chromosome's (score,
+    valid) rows: [sum Bw, 2] float64.  The distance matrices stay on the
+    devices."""
+    rows = [
         torch.stack([s.to(torch.float64), v.to(torch.float64)], dim=1)
-        for _, s, _, v in pending
-    ])
-    return packed.cpu().numpy()
+        for _, parts in pending for s, _, v in parts
+    ]
+    return np.concatenate(to_host(rows))
 
 
 def run_css(
@@ -84,19 +103,26 @@ def run_css(
     regend: int,
     cfg: CssConfig | None = None,
     *,
-    device: str | torch.device,
+    device: str | torch.device | None = None,
     summary: RunSummary | None = None,
     seqid: str = "_",
+    sharding=None,
+    slot_range: tuple[int, int] | None = None,
 ) -> tuple[np.ndarray, np.ndarray]:
-    """CSS scan of one chromosome on ``device``.
+    """CSS scan of one chromosome on ``device``, or over the ``sharding``
+    mesh's devices (a ``parallel.make_mesh`` tuple; it takes the place of
+    ``device``).
 
     Returns (scores, pvals) float64, each of ``regend // wstep`` slots
     (reference statistics/CategoryClusterSeparationStat.py:70-80).
-    Discarded or empty windows keep score 0 / p 0.  The result equals the
-    same chromosome inside :func:`run_css_multi`: the MC streams are keyed
-    by (seed, chunk) or (seed, chromosome, slot, chunk)."""
+    Discarded or empty windows, and slots outside ``slot_range``, keep
+    score 0 / p 0.  The result equals the same chromosome inside
+    :func:`run_css_multi`: the MC streams are keyed by (seed, chunk) or
+    (seed, chromosome, slot, chunk)."""
     return run_css_multi(
-        {seqid: (pair, regend)}, cfg, device=device, summary=summary
+        {seqid: (pair, regend)}, cfg, device=device, summary=summary,
+        sharding=sharding,
+        slot_ranges=None if slot_range is None else {seqid: slot_range},
     )[seqid]
 
 
@@ -104,14 +130,18 @@ def run_css_multi(
     pairs: dict[str, tuple[SnpPair, int]],
     cfg: CssConfig | None = None,
     *,
-    device: str | torch.device,
+    device: str | torch.device | None = None,
     summary: RunSummary | None = None,
+    sharding=None,
+    slot_ranges: dict[str, tuple[int, int]] | None = None,
 ) -> dict[str, tuple[np.ndarray, np.ndarray]]:
     """Genome-wide CSS: phase 1 of every chromosome is enqueued before the
-    single packed host sync, and phase 2 runs over all valid windows of a
-    panel-size group (asize, bsize) at once."""
+    packed host sync (one per device), and phase 2 runs over all valid
+    windows of a panel-size group (asize, bsize) at once, split over the
+    mesh when ``sharding`` is given.  ``slot_ranges`` maps a chromosome to
+    the slot range this host owns."""
     cfg = cfg or CssConfig()
-    device = resolve_device(device)
+    devices = mesh_devices(device, sharding)
     if not pairs:
         return {}
     summary = summary or RunSummary()
@@ -122,7 +152,7 @@ def run_css_multi(
     with summary.stage("css_dispatch"):
         for seqid, (pair, regend) in sorted(pairs.items()):
             nslots, planned, pending = _phase1_dispatch(
-                pair, regend, cfg, device, key, seqid
+                pair, regend, cfg, devices, key, seqid, (slot_ranges or {}).get(seqid)
             )
             planned_total += planned
             # drosophila scores and permutes two pseudo-individuals
@@ -142,14 +172,16 @@ def run_css_multi(
             if pending is None:
                 chrom_data.append((seqid, nslots, None, None, None, None, asz, bsz))
                 continue
-            slots, _, dist, valid_d = pending
+            slots, parts = pending
             rows = fetched[off: off + len(slots)]
             off += len(slots)
             valid = rows[:, 1] != 0.0
             # every dispatched window holds SNPs: an invalid one was discarded
             n_discarded += int((~valid).sum())
+            # the valid windows' distances, gathered on the first device
+            dist = torch.cat([d[v].to(devices[0]) for _, d, v in parts])
             chrom_data.append(
-                (seqid, nslots, slots, rows[:, 0], valid, dist[valid_d], asz, bsz)
+                (seqid, nslots, slots, rows[:, 0], valid, dist, asz, bsz)
             )
 
     n_scored = int(sum(c[4].sum() for c in chrom_data if c[4] is not None))
@@ -159,6 +191,7 @@ def run_css_multi(
     for c in chrom_data:
         groups.setdefault((c[6], c[7]), []).append(c)
     mc_key = rng.fold_in(key, 2)
+    mc_mesh = None if sharding is None else devices
     for (asz, bsz), group in groups.items():
         live = [c for c in group if c[4] is not None and c[4].any()]
         mc = None
@@ -176,14 +209,14 @@ def run_css_multi(
                     mc = kperm.approx_significance(
                         dist, scores, asz, bsz, mc_key,
                         chunk=max(cfg.mc_chunk, 512), chroms=chroms, slots=slots,
-                        bitgen=cfg.rng, stream=cfg.mc_stream,
+                        bitgen=cfg.rng, stream=cfg.mc_stream, sharding=mc_mesh,
                     )
                 else:
                     mc = kperm.significance(
                         dist, scores, asz, bsz, cfg.mc_threshold, cfg.mc_runs,
                         mc_key, chunk=cfg.mc_chunk, chroms=chroms, slots=slots,
                         backend=cfg.perm_backend, bitgen=cfg.rng,
-                        stream=cfg.mc_stream,
+                        stream=cfg.mc_stream, sharding=mc_mesh,
                     )
         mc_off = 0
         for seqid, nslots, slots, sc, valid, *_ in group:

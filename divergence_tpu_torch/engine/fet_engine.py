@@ -2,14 +2,21 @@
 
 Window plan (host) -> per-SNP scores once per chromosome (K1) -> every
 window's percentile and bootstrap stddev in one launch (K2) -> dense
-score / stddev tracks, with one device-to-host copy per run.
+score / stddev tracks, with one device-to-host copy per device and run.
+
+``sharding=`` (a ``parallel.make_mesh`` tuple) cuts the valid windows
+into contiguous shares, one per device: each device runs K1 over the
+chromosome (one upload per device, cached on the ``SnpPair``) and K2 over
+its share.  ``slot_range=`` restricts the windows to the slots a host
+owns (multi-host partitioning, ``parallel/multihost.py``).  The bootstrap
+streams are keyed by (seed, chromosome, slot), so both give the unsplit
+run's values.
 
 Left out against the JAX engine, because Hopper does not need them: the
 ``lax.map`` window slices (``Bp``), the power-of-two ``P`` buckets, the
 two-stage gather bound (``slice_span_bound``) and the int32 LUT-rank
 path — the K2 kernel takes every window of a chromosome at once and
-sorts floats natively.  ``slot_range=`` and ``sharding=`` (multi-host /
-multi-device partitioning) are not ported yet.
+sorts floats natively.
 """
 
 from __future__ import annotations
@@ -17,11 +24,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from divergence_tpu_torch import resolve_device, rng
+from divergence_tpu_torch import rng
 from divergence_tpu_torch.config import FetConfig
 from divergence_tpu_torch.core.windows import plan_windows
 from divergence_tpu_torch.engine.snp import SnpPair
 from divergence_tpu_torch.kernels import fet as kfet
+from divergence_tpu_torch.parallel.mesh import mesh_devices, to_host, window_slices
 from divergence_tpu_torch.utils.summary import RunSummary
 
 
@@ -37,17 +45,23 @@ def _fet_dispatch(
     cfg: FetConfig,
     summary: RunSummary | None,
     key: torch.Tensor,
-    device: torch.device,
+    devices: tuple[torch.device, ...],
+    slot_range: tuple[int, int] | None = None,
 ):
     """Enqueue one chromosome's FET sweep (no host sync).
 
-    Returns (nslots, pending) with pending = (slots, out_2xB) or None."""
+    Returns (nslots, pending) with pending = (slots, [out_2xb per
+    device share, in window order]) or None."""
     w = cfg.window
     plan = plan_windows(pair.positions, regend, w.wsize, w.wstep)
     nslots = plan.nslots
     if plan.num_windows == 0 or pair.npos == 0:
         return nslots, None
     valid = plan.valid_mask() & (plan.npos > 0)
+    if slot_range is not None:
+        # multi-host: only the owned slots (the halo SNPs they read are in
+        # this host's input span, parallel/multihost.py)
+        valid &= (plan.slot >= slot_range[0]) & (plan.slot < slot_range[1])
     ids = np.nonzero(valid)[0]
     if summary is not None:
         # accumulate across chromosomes (one summary spans a whole run)
@@ -58,33 +72,35 @@ def _fet_dispatch(
         return nslots, None
 
     fast = cfg.precision == "fast"
-    # int16 codes: FET only ==-compares them, so the compact upload is
-    # result-identical (engine/snp.py)
-    vals = pair.to_device(device, compact=True)
-    snp_logs = kfet.fet_snp_logs(
-        vals,
-        pair.asize,
-        kfet.support_size(pair.asize, pair.bsize),
-        pair.asize + pair.bsize + 2,
-        fast=fast,
-    )
-    lo, npos, slot = (
-        torch.from_numpy(np.ascontiguousarray(a[ids]))
-        for a in (plan.lo, plan.npos, plan.slot)
-    )
-    out = kfet.fet_aggregate(
-        snp_logs, lo, npos, slot, key,
-        perc=float(cfg.percentile),
-        nsamples=cfg.bootstrap_samples,
-    )
-    return nslots, (plan.slot[ids], out)
+    maxs = kfet.support_size(pair.asize, pair.bsize)
+    nmax = pair.asize + pair.bsize + 2
+    logs_of = {}   # per device: a device repeated in the mesh reuses K1's scores
+    outs = []
+    for dev, sl in zip(devices, window_slices(len(ids), devices)):
+        if sl.start == sl.stop:
+            continue
+        if dev not in logs_of:
+            # int16 codes: FET only ==-compares them, so the compact upload
+            # is result-identical (engine/snp.py)
+            vals = pair.to_device(dev, compact=True)
+            logs_of[dev] = kfet.fet_snp_logs(vals, pair.asize, maxs, nmax, fast=fast)
+        lo, npos, slot = (
+            torch.from_numpy(np.ascontiguousarray(a[ids[sl]]))
+            for a in (plan.lo, plan.npos, plan.slot)
+        )
+        outs.append(kfet.fet_aggregate(
+            logs_of[dev], lo, npos, slot, key,
+            perc=float(cfg.percentile),
+            nsamples=cfg.bootstrap_samples,
+        ))
+    return nslots, (plan.slot[ids], outs)
 
 
 def _fetch(pending: list) -> np.ndarray:
-    """ONE device-to-host copy for any number of chromosomes' results."""
-    outs = [out for _, out in pending]
-    packed = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
-    return packed.cpu().numpy().astype(np.float64, copy=False)
+    """ONE device-to-host copy per device for any number of chromosomes'
+    results: [2, total] float64 in pending order."""
+    outs = [out for _, parts in pending for out in parts]
+    return np.concatenate(to_host(outs, dim=1), axis=1).astype(np.float64, copy=False)
 
 
 def _scatter(slots, fetched, off, nslots):
@@ -101,22 +117,27 @@ def run_fet(
     regend: int,
     cfg: FetConfig | None = None,
     *,
-    device: str | torch.device,
+    device: str | torch.device | None = None,
     summary: RunSummary | None = None,
     seqid: str = "_",
+    sharding=None,
+    slot_range: tuple[int, int] | None = None,
 ) -> tuple[np.ndarray, np.ndarray]:
-    """FET scan of one chromosome on ``device``.
+    """FET scan of one chromosome on ``device``, or over the ``sharding``
+    mesh's devices (a ``parallel.make_mesh`` tuple; it takes the place of
+    ``device``).
 
     Returns (scores, stddev) float64, each of ``regend // wstep`` slots —
     slot ``w.start // wstep`` like the reference adapter
     (statistics/FisherExactScoreStat.py:51-58).  ``seqid`` pins the
     bootstrap RNG stream to the chromosome identity, so the result equals
     the same chromosome inside :func:`run_fet_multi` and the JAX
-    package's ``run_fet`` (exactly in law; to round-off in value)."""
+    package's ``run_fet`` (exactly in law; to round-off in value), under
+    any mesh and any ``slot_range`` split (slots outside the range stay 0)."""
     cfg = cfg or FetConfig()
-    device = resolve_device(device)
+    devices = mesh_devices(device, sharding)
     key = chromosome_key(cfg.seed, seqid)
-    nslots, pending = _fet_dispatch(pair, regend, cfg, summary, key, device)
+    nslots, pending = _fet_dispatch(pair, regend, cfg, summary, key, devices, slot_range)
     if pending is None:
         return np.zeros(nslots), np.zeros(nslots)
     scores, stddev, _ = _scatter(pending[0], _fetch([pending]), 0, nslots)
@@ -127,21 +148,25 @@ def run_fet_multi(
     pairs: dict[str, tuple[SnpPair, int]],
     cfg: FetConfig | None = None,
     *,
-    device: str | torch.device,
+    device: str | torch.device | None = None,
     summary: RunSummary | None = None,
+    sharding=None,
+    slot_ranges: dict[str, tuple[int, int]] | None = None,
 ) -> dict[str, tuple[np.ndarray, np.ndarray]]:
     """Genome-wide FET: every chromosome's kernels are enqueued before the
-    single device-to-host copy (the per-chromosome result is identical
-    to :func:`run_fet`)."""
+    device-to-host copies, one per device (the per-chromosome result is
+    identical to :func:`run_fet`).  ``slot_ranges`` maps a chromosome to
+    the slot range this host owns."""
     cfg = cfg or FetConfig()
-    device = resolve_device(device)
+    devices = mesh_devices(device, sharding)
     summary = summary or RunSummary()
     per_chrom = []
     with summary.stage("fet_dispatch"):
         for seqid, (pair, regend) in sorted(pairs.items()):
             key = chromosome_key(cfg.seed, seqid)
             nslots, pending = _fet_dispatch(
-                pair, regend, cfg, summary, key, device
+                pair, regend, cfg, summary, key, devices,
+                (slot_ranges or {}).get(seqid),
             )
             per_chrom.append((seqid, nslots, pending))
 

@@ -86,6 +86,21 @@ class SnpPair:
     def npos(self) -> int:
         return len(self.positions)
 
+    def slice_span(self, pos_lo: int, pos_hi: int) -> "SnpPair":
+        """New pair restricted to positions in ``[pos_lo, pos_hi]``
+        (inclusive, the window span of ``core/windows.plan_windows``), with
+        a device cache of its own.  Slot-range multi-host partitioning
+        gives a host its owned slots' span plus the wsize - wstep halo at
+        each cut: window contents, and so scores and slot-keyed streams,
+        are unchanged."""
+        i0 = int(np.searchsorted(self.positions, pos_lo, side="left"))
+        i1 = int(np.searchsorted(self.positions, pos_hi, side="right"))
+        return SnpPair(
+            positions=self.positions[i0:i1],
+            avals=self.avals[i0:i1],
+            bvals=self.bvals[i0:i1],
+        )
+
     @classmethod
     def from_tracks(cls, a: PopulationTrack, b: PopulationTrack) -> "SnpPair":
         pa = a.positions_unique()

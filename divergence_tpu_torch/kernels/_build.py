@@ -2,10 +2,11 @@
 
 ``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a
 plain C interface, loaded with ctypes (no PyTorch headers, so a build
-takes seconds).  The library lands in ``divergence_tpu_torch/_build/``
-under a name keyed by a hash of the sources and flags, so an edit
-rebuilds and an unchanged tree reuses the last build.  Nothing here runs
-at import: :func:`library` builds on first use.
+takes seconds): one ``nvcc -c`` per source, all started together, then
+one link.  The library lands in ``divergence_tpu_torch/_build/`` under a
+name keyed by a hash of the sources and flags, so an edit rebuilds and an
+unchanged tree reuses the last build.  Nothing here runs at import:
+:func:`library` builds on first use.
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, and ``--fmad=false`` — the plain
 torch versions run multiplies and adds as separate rounded operations,
@@ -34,7 +35,7 @@ DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")   # when nvcc is not on PATH
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -52,6 +53,10 @@ _SIGNATURES = {
     "fet_snp_logs_{t}": (_P, _I64, _I, _I, _P, _P, _I, _I, _P, _P),
     # logs, rows[3, B], B, key0, key1, perc, nsamples, pmax, out, stream
     "fet_aggregate_{t}": (_P, _P, _I64, _U32, _U32, _D, _I, _I, _P, _P),
+    # av, bv, npos, slots, B, p_in, asize, bsize, lut (nullable), lf, nmax,
+    # maxs, key0, key1, perc, nsamples, pmax, out, stream
+    "fet_window_{t}": (_P, _P, _P, _P, _I64, _I, _I, _I, _P, _P, _I, _I, _U32,
+                       _U32, _D, _I, _I, _P, _P),
     # vals, lo, npos, B, m, out, stream
     "css_dissim_{t}": (_P, _P, _P, _I64, _I, _P, _P),
     # dis, npos, B, asize, bsize, pairs, wa, wb, scores, dist, valid, stream
@@ -72,6 +77,10 @@ _SIGNATURES = {
     # between, ca, cb, wa, wb, inv_ab, hits, nsc, stream
     "css_mc_window": (_P, _P, _P, _I64, _I, _I, _I, _I, _I, _I, _I, _F, _F,
                       _F, _D, _D, _D, _P, _P, _P),
+    # dist, obs, need, keys, B, m, asize, chunk, limit, bitgen, between,
+    # ca, cb, hits, reached, pos, stream
+    "css_perm_chunk": (_P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _F, _F, _F,
+                       _P, _P, _P, _P),
     # dist, B, m, M, nk, chunk, out, stream
     "css_mc_power_shared": (_P, _I64, _I, _P, _I, _I, _P, _P),
     # dist, wkeys, B, m, asize, k0, nk, chunk, bitgen, between, ca, cb, out,
@@ -122,19 +131,40 @@ def build() -> BuildInfo:
     if lib.exists():
         log = log_path.read_text() if log_path.exists() else ""
         return BuildInfo(lib, 0.0, log)
-    # unique temporary name, then an atomic rename: concurrent builds
+    # unique temporary names, then an atomic rename: concurrent builds
     # never load a half-written library
-    tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    tag = f"{lib.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
+    tmp = BUILD_DIR / f"{tag}.tmp.so"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}"
+    procs = [
+        (src, subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for src, obj in zip(_sources(), objs)
+    ]
+    logs, failed = [], []
+    for src, proc in procs:
+        out, _ = proc.communicate()
+        logs.append(f"== {src.name}\n{out}")
+        if proc.returncode != 0:
+            failed.append(src.name)
+    if not failed:
+        link = subprocess.run(
+            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", str(tmp),
+             *map(str, objs)],
+            capture_output=True, text=True, check=False,
         )
+        logs.append(f"== link\n{link.stdout}{link.stderr}")
+        if link.returncode != 0:
+            failed.append("link")
+    seconds = time.perf_counter() - t0
+    log = "".join(logs)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{log}")
     log_path.write_text(log)
     os.replace(tmp, lib)
     return BuildInfo(lib, seconds, log)

@@ -34,6 +34,8 @@ a CUDA device, and run the plain torch version on the CPU:
 There is no fallback: on a CUDA tensor the kernel runs or the call
 raises.  Each launch adds one to :data:`LAUNCHES`.  The drosophila metric
 (:func:`dissimilarity_freq_windows`) is plain torch on every device.
+:func:`css_window_batch`, the sharded step's form on pre-gathered windows,
+runs :func:`css_phase1` and needs no kernel of its own.
 """
 
 from __future__ import annotations
@@ -46,7 +48,7 @@ import torch
 
 from divergence_tpu_torch import compute_dtype, rng
 from divergence_tpu_torch.kernels._cuda import dtype_suffix, is_cpu, launch, ptr
-from divergence_tpu_torch.kernels.fet import _window_pad
+from divergence_tpu_torch.kernels.fet import _window_pad, codes_int16
 from divergence_tpu_torch.kernels.linalg import top2_eig
 
 # the JAX engine's memory guardrail for the prefix form
@@ -641,4 +643,60 @@ def css_phase1(
     return css_smacof(
         dis, npos, asize, bsize, mds, key, slots, smacof_inits, smacof_iters,
         smacof_eps,
+    )[:3]
+
+
+def css_window_batch(
+    avals: torch.Tensor,   # [B, P, asize] codes (frequencies in drosophila mode)
+    bvals: torch.Tensor,   # [B, P, bsize]
+    npos: torch.Tensor,    # [B] true SNP count per window
+    key: torch.Tensor,     # [2] key; window b's restarts fold in slot[b] (mds=1)
+    asize: int,
+    bsize: int,
+    drosophila: bool = False,
+    mds: int = 0,
+    smacof_iters: int = 300,
+    smacof_inits: int = 4,
+    smacof_eps: float = 1e-6,
+    fast: bool = False,
+    slot: torch.Tensor | None = None,   # [B] window slots; default arange(B)
+    plain: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """CSS scores of a batch of pre-gathered windows
+    (``divergence_tpu/kernels/css.py:css_window_batch``): (scores [B],
+    dist [B, m, m], valid [B]).  ``valid`` is False for empty windows and
+    fill-averages discards, whose score is 0.
+
+    The windows are one joint ``[B*P, a+b]`` matrix with window b at rows
+    ``b*P .. b*P + npos[b]``, scored by :func:`css_phase1` (K3's counts,
+    then K5 or K6; the same integer counts as ``dissimilarity_counts``).
+    Genotype codes go in as int16 (``codes_int16``: the counts only
+    ``==``-compare them); drosophila frequencies keep their float values
+    (columns 0 and ``asize``).  ``plain=True`` runs the plain torch
+    versions on any device (the twin a card run is held against)."""
+    B, P = avals.shape[:2]
+    npos = torch.as_tensor(npos).to(torch.int64)
+    slot = torch.arange(B) if slot is None else torch.as_tensor(slot).to(torch.int64)
+    joint = torch.cat([avals, bvals], dim=-1).reshape(B * P, asize + bsize)
+    if not drosophila:
+        joint = codes_int16(joint).contiguous()
+    lo = torch.arange(B, dtype=torch.int64) * P
+    if not plain:
+        return css_phase1(
+            joint, lo, npos.cpu(), asize, bsize, fast=fast, mds=mds, key=key,
+            slots=slot.cpu(), drosophila=drosophila, smacof_iters=smacof_iters,
+            smacof_inits=smacof_inits, smacof_eps=smacof_eps,
+        )
+    dtype = compute_dtype("fast" if fast else "exact")
+    dev = joint.device
+    lo, npos = lo.to(dev), npos.to(dev)
+    if drosophila:
+        dis = dissimilarity_freq_windows(joint[:, 0], joint[:, asize], lo, npos).to(dtype)
+        asize = bsize = 1
+    else:
+        dis = dissimilarity_plain(joint, lo, npos).to(dtype)
+    if mds == 0:
+        return css_cmds_plain(dis, npos, asize, bsize)
+    return css_smacof_plain(
+        dis, npos, asize, bsize, mds, key, slot, smacof_inits, smacof_iters, smacof_eps
     )[:3]

@@ -7,16 +7,19 @@ reference statistics/fisher/cFisher.c:405-455, and the order-statistic
 bootstrap of the window percentile, cFisher.c:562-597).  The math is
 plain torch on tensors of any device.
 
-Three functions launch hand-written CUDA kernels (``csrc/``) when their
+Four functions launch hand-written CUDA kernels (``csrc/``) when their
 tensors lie on a CUDA device, and run the plain torch version when they
 lie on the CPU:
 
-* :func:`fet_lut`        — ``csrc/fet_snp.cu:fet_lut_build``, the score of
-  every possible table (K1, LUT regime);
-* :func:`fet_snp_logs`   — ``csrc/fet_snp.cu:fet_snp_logs``, the score of
-  every SNP (K1);
-* :func:`fet_aggregate`  — ``csrc/fet_aggregate.cu``, every window of a
-  chromosome in one launch (K2).
+* :func:`fet_lut`          — ``csrc/fet_snp.cu:fet_lut_build``, the score
+  of every possible table (K1, LUT regime);
+* :func:`fet_snp_logs`     — ``csrc/fet_snp.cu:fet_snp_logs``, the score
+  of every SNP (K1);
+* :func:`fet_aggregate`    — ``csrc/fet_aggregate.cu``, every window of a
+  chromosome in one launch (K2);
+* :func:`fet_window_batch` — ``csrc/fet_window.cu``, K1's per-table score
+  and K2's window body on pre-gathered windows (K10), the sharded step's
+  FET part.
 
 There is no fallback: on a CUDA tensor the kernel runs or the call
 raises.  Each launch adds one to :data:`LAUNCHES`.
@@ -47,7 +50,7 @@ _SMEM_LIMIT = 232_448          # bytes of shared memory a Hopper block may use
 _AGG_WINDOW_CHUNK = 65_536     # windows per step of the plain aggregate
 
 # kernel launches since the last reset_launches(), by kernel name
-LAUNCHES = {"fet_lut_build": 0, "fet_snp_logs": 0, "fet_aggregate": 0}
+LAUNCHES = {"fet_lut_build": 0, "fet_snp_logs": 0, "fet_aggregate": 0, "fet_window": 0}
 
 
 def reset_launches() -> None:
@@ -533,3 +536,104 @@ def fet_aggregate(
         ctypes.c_uint32(k1), ctypes.c_double(perc), nsamples, pmax, ptr(out),
     )
     return out
+
+
+# --------------------------------------------------------------------------
+# K10: FET on pre-gathered windows
+# --------------------------------------------------------------------------
+
+def codes_int16(x: torch.Tensor) -> torch.Tensor:
+    """Genotype codes of any dtype as int16 in {3, -3, 0}:
+    ``3*(x == 3) - 3*(x == -3)``.  :func:`count_tables` only ``==``-compares
+    the codes, so the map is result-identical (drosophila frequencies
+    too).  An int16 tensor is returned as it is: its comparisons are the
+    same."""
+    if x.dtype == torch.int16:
+        return x
+    return (3 * (x == 3).to(torch.int16) - 3 * (x == -3).to(torch.int16))
+
+
+def fet_window_batch_plain(
+    avals, bvals, npos, perc, key, nsamples, maxs, nmax, fast=False, slot=None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch version of :func:`fet_window_batch`
+    (``divergence_tpu/kernels/fet.py:fet_window_batch``):
+    :func:`count_tables`, :func:`_neglog10_p`, then :func:`_aggregate`
+    keyed by ``slot_keys(key, slot)``."""
+    dtype = compute_dtype("fast" if fast else "exact")
+    dev = avals.device
+    npos = torch.as_tensor(npos).to(dev, torch.int64)
+    slot = (torch.arange(npos.shape[0], device=dev) if slot is None
+            else torch.as_tensor(slot).to(dev, torch.int64))
+    logs = _neglog10_p(count_tables(avals, bvals), maxs, nmax, dtype)      # [B, P]
+    wkeys = rng.slot_keys(key.to(dev, torch.int64), slot)
+    return _aggregate(logs, npos, perc, wkeys, nsamples, dtype)
+
+
+def fet_window_batch(
+    avals: torch.Tensor,      # [B, P, asize] genotype codes (any dtype)
+    bvals: torch.Tensor,      # [B, P, bsize]
+    npos: torch.Tensor,       # [B] true SNP count per window
+    perc: float,
+    key: torch.Tensor,        # [2] key; window b folds in slot[b]
+    nsamples: int,
+    maxs: int,
+    nmax: int,
+    fast: bool = False,
+    slot: torch.Tensor | None = None,   # [B] window slots; default arange(B)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """FET scores and bootstrap stddev of a batch of pre-gathered windows
+    (``divergence_tpu/kernels/fet.py:fet_window_batch``), the sharded
+    step's form: (scores [B], stddev [B]) in float64, or float32 when
+    ``fast``.  Rows at or past ``npos`` never influence a window.  The
+    ``arange`` default of ``slot`` is only stream-correct when the batch is
+    the complete, ordered window set; callers pass genomic slots.
+
+    On a CUDA tensor the codes go to K10 as int16 (:func:`codes_int16`),
+    with K1's LUT where :func:`lut_active`; ``npos`` and ``slot`` may lie
+    on the host or the card."""
+    if is_cpu(avals):
+        return fet_window_batch_plain(
+            avals, bvals, npos, perc, key, nsamples, maxs, nmax, fast, slot
+        )
+    dev = avals.device
+    dtype = compute_dtype("fast" if fast else "exact")
+    if avals.dim() != 3 or bvals.dim() != 3 or avals.shape[:2] != bvals.shape[:2]:
+        raise ValueError("fet_window_batch takes [B, P, a] and [B, P, b] codes")
+    B, P, asize = avals.shape
+    bsize = bvals.shape[2]
+    npos = torch.as_tensor(npos)
+    slot = torch.arange(B) if slot is None else torch.as_tensor(slot)
+    if npos.shape != (B,) or slot.shape != (B,):
+        raise ValueError("fet_window_batch takes [B] npos and slot")
+    out = torch.empty((2, B), dtype=dtype, device=dev)
+    if B == 0:
+        return out[0], out[1]
+    nmax_win = int(npos.max())
+    if nmax_win > P:
+        raise ValueError(f"a window claims {nmax_win} SNPs; the batch holds {P} rows")
+    pmax = _window_pad(nmax_win)
+    if pmax > MAX_WINDOW_SNPS:
+        raise ValueError(
+            f"a window holds {nmax_win} SNPs; the fet_window kernel sorts at "
+            f"most {MAX_WINDOW_SNPS} per window"
+        )
+    smem = (pmax + nsamples) * out.element_size()
+    if smem > _SMEM_LIMIT:
+        raise ValueError(
+            f"fet_window needs {smem} B of shared memory per window "
+            f"(P={pmax}, nsamples={nsamples}); a block has {_SMEM_LIMIT}"
+        )
+    a16 = codes_int16(avals).contiguous()
+    b16 = codes_int16(bvals).contiguous()
+    npos_d, slot_d = (t.to(dev, torch.int64).contiguous() for t in (npos, slot))
+    lut = fet_lut(asize, bsize, maxs, nmax, dtype, dev) if lut_active(asize, bsize) else None
+    lf = _lf_table(nmax, dtype, dev)
+    k0, k1 = (int(w) for w in key.tolist())
+    launch(
+        LAUNCHES, "fet_window", f"fet_window_{dtype_suffix(dtype)}", dev,
+        ptr(a16), ptr(b16), ptr(npos_d), ptr(slot_d), B, P, asize, bsize,
+        ptr(lut), ptr(lf), nmax, maxs, ctypes.c_uint32(k0), ctypes.c_uint32(k1),
+        ctypes.c_double(perc), nsamples, pmax, ptr(out),
+    )
+    return out[0], out[1]

@@ -38,11 +38,18 @@ Kernels (``csrc/``) carry the work on a CUDA device:
   :func:`_scores_from_ranks`) or float64 (``mc_native``'s order);
 * ``css_mc_power``  (K9) — per-chunk float64 power sums of the permuted
   scores (:func:`null_power_sums`), shared or window stream, for
-  :func:`approx_significance`.
+  :func:`approx_significance`;
+* ``css_perm_chunk`` (K11) — one fixed chunk of the null per window with a
+  hit target (:func:`permutation_chunk`), the sharded step's MC.
 
-:func:`significance`, :func:`null_power_sums` and
-:func:`approx_significance` launch them on a CUDA ``dist`` (or raise) and
-run the plain torch versions on a CPU one.  Each stop is per window, so
+:func:`significance`, :func:`null_power_sums`,
+:func:`approx_significance` and :func:`permutation_chunk` launch them on a
+CUDA ``dist`` (or raise) and run the plain torch versions on a CPU one.
+``sharding=`` (a ``parallel.make_mesh`` tuple) splits the windows of
+:func:`significance` and :func:`approx_significance` into contiguous
+shares, one per device, run one after another: every window's result
+depends on its own stream and stop only, so the union equals the
+unsharded run.  Each stop is per window, so
 there is no window batching, padding or two-stage compaction (the JAX
 package's ``lax.map`` slices existed for XLA on the TPU); the results are
 those of the JAX package's single-pass loop.  The JAX ``perm_form``
@@ -72,7 +79,8 @@ _RANGE_COEFF_BYTES = 64 << 20   # later launches: at most this much of M at once
 _PLAIN_BATCH_ELEMS = {"cpu": 1 << 24, "cuda": 1 << 28}
 
 # kernel launches since the last reset_launches(), by kernel name
-LAUNCHES = {"css_mc_coeff": 0, "css_mc_shared": 0, "css_mc_window": 0, "css_mc_power": 0}
+LAUNCHES = {"css_mc_coeff": 0, "css_mc_shared": 0, "css_mc_window": 0, "css_mc_power": 0,
+            "css_perm_chunk": 0}
 # css_mc_coeff launches by bitgen (counted with LAUNCHES["css_mc_coeff"])
 COEFF_LAUNCHES = {name: 0 for name in BITGENS}
 
@@ -526,6 +534,25 @@ class McResult:
     hits: np.ndarray       # [B]
 
 
+def _over_shares(sharding, dist, scores, chroms, slots, run) -> McResult:
+    """``run(dist, scores, chroms, slots)`` on each device's contiguous
+    share of the windows, in device order, the results concatenated.  The
+    window-stream defaults (chromosome 0, slot = window index) are fixed
+    over the whole batch first, so a share keeps its windows' streams."""
+    from divergence_tpu_torch.parallel.mesh import window_slices
+
+    B = dist.shape[0]
+    scores = np.asarray(scores, dtype=np.float64)
+    chroms = np.zeros(B, dtype=np.int64) if chroms is None else np.asarray(chroms)
+    slots = np.arange(B, dtype=np.int64) if slots is None else np.asarray(slots)
+    parts = [
+        run(dist[sl].to(dev), scores[sl], chroms[sl], slots[sl])
+        for dev, sl in zip(sharding, window_slices(B, sharding))
+    ]
+    return McResult(*(np.concatenate([getattr(r, f) for r in parts])
+                      for f in ("pvals", "nscores", "hits")))
+
+
 def _stream_keys(key, B, chroms, slots, stream, dev) -> torch.Tensor:
     """The run-level key (shared) or the [B, 2] window keys (window)."""
     if stream not in STREAMS:
@@ -552,12 +579,22 @@ def significance(
     backend: str = "xla",
     bitgen: str = "mix",
     stream: str = "shared",
+    sharding=None,          # a parallel.make_mesh tuple: one share per device
 ) -> McResult:
     """Adaptive permutation p-values for a set of windows
     (``perm.py:significance``): the kernels on a CUDA ``dist``, the plain
     chunk loops on a CPU one.  Window w of the window stream is keyed by
     (chroms[w], slots[w]); ``backend="native"`` needs that stream and
-    ``mix`` draws, as in the JAX package."""
+    ``mix`` draws, as in the JAX package.  With ``sharding`` each device
+    takes a contiguous share of the windows."""
+    if sharding is not None:
+        return _over_shares(
+            sharding, dist, scores, chroms, slots,
+            lambda d, sc, ch, sl: significance(
+                d, sc, asize, bsize, threshold, runs, key, chunk, ch, sl, backend,
+                bitgen, stream,
+            ),
+        )
     if backend not in ("xla", "native"):
         raise ValueError(f"backend must be 'xla' or 'native', got {backend!r}")
     if backend == "native" and stream == "shared":
@@ -777,13 +814,23 @@ def approx_significance(
     max_rounds: int = 3,
     bitgen: str = "mix",
     stream: str = "shared",
+    sharding=None,          # a parallel.make_mesh tuple: one share per device
 ) -> McResult:
     """Pearson-III (moment-fitted) permutation p-values
     (``perm.py:approx_significance``): the first three moments of each
     window's null from ``n_chunks`` chunks of its permutations, the tail
     from scipy, escalation as :func:`_approx` says.  ``nscores`` records
     the permutations spent; ``hits`` is 0.  K9 on a CUDA ``dist``, the
-    plain power sums on a CPU one."""
+    plain power sums on a CPU one.  With ``sharding`` each device takes a
+    contiguous share of the windows (escalation is per window)."""
+    if sharding is not None:
+        return _over_shares(
+            sharding, dist, scores, chroms, slots,
+            lambda d, sc, ch, sl: approx_significance(
+                d, sc, asize, bsize, key, chunk, ch, sl, n_chunks, stable_log10,
+                max_rounds, bitgen, stream,
+            ),
+        )
     return _approx_dispatch(null_power_sums, dist, scores, asize, bsize, key, chunk,
                             chroms, slots, n_chunks, stable_log10, max_rounds, bitgen,
                             stream)
@@ -809,3 +856,70 @@ def approx_significance_plain(
     return _approx_dispatch(null_power_sums_plain, dist, scores, asize, bsize, key,
                             chunk, chroms, slots, n_chunks, stable_log10, max_rounds,
                             bitgen, stream)
+
+
+# ------------------------------------------------------- the sharded step's chunk
+
+
+def permutation_chunk_plain(dist, scores, need, limit, keys, asize, bsize, chunk,
+                            bitgen: str = "mix"):
+    """Plain torch version of :func:`permutation_chunk`: :func:`_perm_scores`
+    and the ``counted``/``cumsum``/``argmax`` epilogue of
+    ``perm.py:permutation_chunk``."""
+    dev = dist.device
+    B = dist.shape[0]
+    need = torch.as_tensor(need).to(dev, torch.int64)
+    if B == 0:
+        z = torch.zeros(0, dtype=torch.int32, device=dev)
+        return z, z >= need, z.clone()
+    new = _perm_scores(dist.to(torch.float32), keys.to(dev, torch.int64), asize, bsize,
+                       chunk, bitgen)
+    obs = torch.as_tensor(scores).to(dev).to(torch.float32)
+    counted = torch.arange(chunk, device=dev)[None, :] < int(limit)
+    hit = (new >= obs[:, None]) & counted
+    cum = torch.cumsum(hit.to(torch.int32), dim=-1, dtype=torch.int32)
+    total = cum[:, -1]
+    pos = torch.argmax((cum >= need[:, None]).to(torch.int8), dim=-1)
+    return total, total >= need, pos.to(torch.int32)
+
+
+def permutation_chunk(
+    dist: torch.Tensor,     # [B, m, m] distances (scored in float32)
+    scores: torch.Tensor,   # [B] observed CSS (compared in float32)
+    need: torch.Tensor,     # [B] hits still needed to reach the threshold
+    limit: int,             # permutations of the chunk that count: K < limit
+    keys: torch.Tensor,     # [B, 2] window keys, used as given (no chunk fold)
+    asize: int,
+    bsize: int,
+    chunk: int,
+    bitgen: str = "mix",
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One fixed-shape chunk of the null per window
+    (``perm.py:permutation_chunk``): (chunk_hits [B] int32, reached [B]
+    bool, pos [B] int32), ``pos`` the 0-based in-chunk index of the
+    permutation that delivered the ``need``-th hit (0 where it is not
+    reached).  K11 on a CUDA ``dist`` (m <= 64), the plain version on a
+    CPU one."""
+    gen = _check_bitgen(bitgen)
+    if is_cpu(dist):
+        return permutation_chunk_plain(dist, scores, need, limit, keys, asize, bsize,
+                                       chunk, bitgen)
+    dev = dist.device
+    B = dist.shape[0]
+    distf = _flat_f32(dist, "css_perm_chunk")
+    obs = torch.as_tensor(scores).to(dev).to(torch.float32).contiguous()
+    need_d = torch.as_tensor(need).to(dev, torch.int32).contiguous()
+    wk = _window_key_words(keys, dev)
+    hits = torch.empty(B, dtype=torch.int32, device=dev)
+    reached = torch.empty(B, dtype=torch.bool, device=dev)
+    pos = torch.empty(B, dtype=torch.int32, device=dev)
+    if B == 0:
+        return hits, reached, pos
+    between, ca, cb = _coeff_constants(asize, bsize)
+    launch(
+        LAUNCHES, "css_perm_chunk", "css_perm_chunk", dev,
+        ptr(distf), ptr(obs), ptr(need_d), ptr(wk), B, asize + bsize, asize, chunk,
+        min(int(limit), chunk), gen, ctypes.c_float(between), ctypes.c_float(ca),
+        ctypes.c_float(cb), ptr(hits), ptr(reached), ptr(pos),
+    )
+    return hits, reached, pos

@@ -1,7 +1,9 @@
-"""Command-line tool of the port: ``run-fet``, the windowed Fisher's
-Exact Test scan, and ``run-css``, the windowed Cluster Separation Score
-scan (``divergence_tpu/tools/cli.py``; replace reference
-tools/FisherExactTestSNPTool.py and tools/ClusterSeparationScore.py).
+"""Command-line tool of the port (``divergence_tpu/tools/cli.py``):
+``run-fet``, the windowed Fisher's Exact Test scan, and ``run-css``, the
+windowed Cluster Separation Score scan (they replace reference
+tools/FisherExactTestSNPTool.py and tools/ClusterSeparationScore.py);
+``merge-tracks``, which joins the score-track shards of a multi-host run;
+and ``bench-scaling``, the sharded step over 1..N devices.
 
 Usage::
 
@@ -9,15 +11,23 @@ Usage::
         --pop-b B.gtrack --out fet.track [--device cuda|cpu] ...
     python -m divergence_tpu_torch.tools.cli run-css --pop-a A.gtrack \\
         --pop-b B.gtrack --out css.track [--device cuda|cpu] ...
+    # host k of N (k = 0 .. N-1), then join the shards anywhere
+    python -m divergence_tpu_torch.tools.cli run-fet ... --num-hosts N \\
+        --host-id k --out fet.hk.track
+    python -m divergence_tpu_torch.tools.cli merge-tracks \\
+        --inputs fet.h*.track --out fet.track
 
 Flags are the JAX CLI's, plus ``--device`` (default ``cuda``; without a
-CUDA device that default raises, there is no CPU fallback).  Not ported
-yet: ``--shard``, ``--num-hosts``/``--host-id`` and ``--profile``.
+CUDA device that default raises, there is no CPU fallback).  ``--shard``
+cuts each chromosome's windows over every CUDA device (``(cpu,)`` with
+``--device cpu``); ``--profile DIR`` writes a ``torch.profiler`` trace
+(``DIR/trace.json``) of the scan.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import sys
 import time
 from pathlib import Path
@@ -50,27 +60,116 @@ def _load_pairs(args):
     return pairs
 
 
+def _host_filter(pairs, args):
+    """Multi-host work partitioning (deterministic, no communication;
+    ``divergence_tpu/tools/cli.py:_host_filter``).
+
+    A chromosome whose weight exceeds the per-host average is cut into
+    contiguous slot ranges, so a genome that is one large chromosome still
+    spreads over hosts.  Each host's input is sliced to its owned span
+    plus the wsize - wstep halo at each cut; slot-keyed streams make the
+    union of the host outputs identical to the single-host run.
+
+    Returns (pairs, slot_ranges), slot_ranges carrying entries only for
+    partial-chromosome assignments."""
+    if args.num_hosts <= 1:
+        return pairs, None
+    from divergence_tpu_torch.parallel import partition_chromosomes
+
+    weights = {s: p.npos for s, (p, _) in pairs.items()}
+    nslots = {s: r // args.wstep for s, (_, r) in pairs.items()}
+    assignment = partition_chromosomes(
+        weights, args.num_hosts, args.host_id, seqid_nslots=nslots
+    )
+    out, slot_ranges = {}, {}
+    for wr in assignment.ranges:
+        # partition_chromosomes gives a host at most one (merged) range per
+        # chromosome; this dict cannot hold more, so refuse rather than
+        # drop windows
+        if wr.seqid in out:
+            raise AssertionError(
+                f"host {args.host_id}: multiple ranges for {wr.seqid} — "
+                "partitioner invariant violated"
+            )
+        pair, regend = pairs[wr.seqid]
+        if wr.covers(nslots[wr.seqid]):
+            out[wr.seqid] = (pair, regend)
+            continue
+        # partial chromosome: the SNP span this range can read,
+        # [slot_lo*wstep, (slot_hi-1)*wstep + wsize] inclusive
+        hi_slot = min(wr.slot_hi, nslots[wr.seqid]) - 1
+        span_lo = wr.slot_lo * args.wstep
+        span_hi = hi_slot * args.wstep + args.wsize
+        out[wr.seqid] = (pair.slice_span(span_lo, span_hi), regend)
+        slot_ranges[wr.seqid] = (wr.slot_lo, wr.slot_hi)
+    desc = [
+        f"{r.seqid}" if r.covers(nslots[r.seqid])
+        else f"{r.seqid}[{r.slot_lo}:{min(r.slot_hi, nslots[r.seqid])}]"
+        for r in assignment.ranges
+    ]
+    print(f"host {args.host_id}/{args.num_hosts} takes {desc}")
+    return out, slot_ranges or None
+
+
+def _mesh_sharding(args, device):
+    """``--shard``: every CUDA device, or ``(cpu,)`` with ``--device cpu``."""
+    if not args.shard:
+        return None
+    from divergence_tpu_torch.parallel import make_mesh
+
+    return make_mesh() if device.type == "cuda" else make_mesh(devices=[device])
+
+
+@contextlib.contextmanager
+def _profile(directory, devices):
+    """A ``torch.profiler`` trace of the block, written to
+    ``directory/trace.json`` (CUDA activity too on a CUDA mesh)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if any(d.type == "cuda" for d in devices):
+        acts.append(ProfilerActivity.CUDA)
+    out = Path(directory)
+    out.mkdir(parents=True, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield
+    prof.export_chrome_trace(str(out / "trace.json"))
+    print(f"wrote {out / 'trace.json'}")
+
+
 def _run_engine(args, engine, engine_multi, cfg, columns) -> None:
     """The part-file and resume logic shared by ``run-fet`` and ``run-css``
     (``divergence_tpu/tools/cli.py:_run_engine``).
 
     Per-chromosome part files (``--resume``) make a failed genome-wide
-    run resumable at chromosome granularity; the remaining chromosomes run
-    through ``engine_multi`` (one host sync), a single one through
-    ``engine``.  The random streams are (seed, chromosome, slot)- or
-    (seed, chunk)-pinned, so resumed and fresh tracks are byte-identical."""
+    run resumable at chromosome granularity; a host's partial chromosome
+    (``--num-hosts``) gets its slot range in the part file's name, so a
+    re-partitioned resume never reuses a stale part.  The remaining
+    chromosomes run through ``engine_multi`` (one host sync), a single one
+    through ``engine``.  The random streams are (seed, chromosome, slot)-
+    or (seed, chunk)-pinned, so resumed, sharded and fresh tracks are
+    byte-identical."""
     from divergence_tpu_torch import resolve_device
     from divergence_tpu_torch.io import read_score_track, write_score_track
     from divergence_tpu_torch.utils.summary import RunSummary
 
     device = resolve_device(args.device)
     summary = RunSummary(name=args.cmd)
-    pairs = _load_pairs(args)
+    pairs, slot_ranges = _host_filter(_load_pairs(args), args)
+    sharding = _mesh_sharding(args, device)
+
+    def _part_name(seqid):
+        r = (slot_ranges or {}).get(seqid)
+        return f"{seqid}.tsv" if r is None else f"{seqid}@{r[0]}-{r[1]}.tsv"
 
     parts_dir = None
     if args.resume:
         parts_dir = Path(args.out + ".parts")
         parts_dir.mkdir(exist_ok=True)
+
+    profile_ctx = contextlib.nullcontext()
+    if args.profile:
+        profile_ctx = _profile(args.profile, sharding or (device,))
 
     results = {}
     t0 = time.perf_counter()
@@ -82,7 +181,7 @@ def _run_engine(args, engine, engine_multi, cfg, columns) -> None:
     if parts_dir is not None:
         remaining = {}
         for seqid, (pair, regend) in pairs.items():
-            part = parts_dir / f"{seqid}.tsv"
+            part = parts_dir / _part_name(seqid)
             if not part.exists():
                 remaining[seqid] = (pair, regend)
                 continue
@@ -114,29 +213,39 @@ def _run_engine(args, engine, engine_multi, cfg, columns) -> None:
             )
         if parts_dir is not None:
             write_score_track(
-                parts_dir / f"{seqid}.tsv",
+                parts_dir / _part_name(seqid),
                 {seqid: results[seqid]},
                 cfg.window.wstep,
                 columns,
             )
 
     if len(remaining) > 1:
-        with summary.stage("genome"):
+        with profile_ctx, summary.stage("genome"):
             results.update(
-                engine_multi(remaining, cfg, device=device, summary=summary)
+                engine_multi(
+                    remaining, cfg, device=device, summary=summary,
+                    sharding=sharding,
+                    slot_ranges={
+                        s: r for s, r in (slot_ranges or {}).items() if s in remaining
+                    } or None,
+                )
             )
         for seqid in remaining:
             _finish_chrom(seqid)
     else:
-        for seqid, (pair, regend) in remaining.items():
-            with summary.stage(seqid):
-                results[seqid] = engine(
-                    pair, regend, cfg, device=device, summary=summary,
-                    seqid=seqid,
-                )
-            _finish_chrom(seqid)
+        with profile_ctx:
+            for seqid, (pair, regend) in remaining.items():
+                with summary.stage(seqid):
+                    results[seqid] = engine(
+                        pair, regend, cfg, device=device, summary=summary,
+                        seqid=seqid, sharding=sharding,
+                        slot_range=(slot_ranges or {}).get(seqid),
+                    )
+                _finish_chrom(seqid)
     elapsed = time.perf_counter() - t0
     summary.counters["device"] = str(device)
+    if sharding is not None:
+        summary.counters["mesh"] = [str(d) for d in sharding]
     summary.counters["total_s"] = round(elapsed, 3)
     summary.counters["windows_per_s"] = round(total_windows / elapsed, 1)
     # chromosome order in the track is the load order, not the (resume
@@ -209,6 +318,57 @@ def cmd_run_css(args) -> None:
     _run_engine(args, run_css, run_css_multi, cfg, ("score", "p"))
 
 
+def cmd_merge_tracks(args) -> None:
+    """Merge per-host score-track shards into one genome-wide track
+    (``divergence_tpu/tools/cli.py:_cmd_merge_tracks``).
+
+    Slot-range shards may split one chromosome across hosts, so overlap
+    is detected per row: the same (seqid, start) window in two shards
+    means the partitions overlap (or a shard was passed twice), and the
+    merge is refused.  Rows are sorted by (seqid, start), as the
+    single-host run writes them."""
+    from divergence_tpu_torch.io import read_score_track
+
+    seen_rows: dict[tuple[str, int], str] = {}
+    rows: list[tuple[str, int, str]] = []
+    header = None
+    for path in args.inputs:
+        with open(path) as fh:
+            first = fh.readline().rstrip("\n")
+        if first.startswith("#"):
+            if header is None:
+                header = first
+            elif first != header:
+                raise SystemExit(
+                    f"{path}: column header {first!r} differs from "
+                    f"{header!r} — refusing to merge mixed track types"
+                )
+        seqids, starts, c2, c3 = read_score_track(path)
+        for s, st, a, b in zip(seqids, starts, c2, c3):
+            rk = (s, int(st))
+            if rk in seen_rows:
+                raise SystemExit(
+                    f"window {s}:{st} appears in both {seen_rows[rk]} "
+                    f"and {path} — host shards overlap"
+                )
+            seen_rows[rk] = str(path)
+            rows.append(
+                (s, int(st), f"{s}\t{st}\t{float(a)!r}\t{float(b)!r}\n")
+            )
+    rows.sort(key=lambda r: (r[0], r[1]))
+    with open(args.out, "w") as out:
+        out.write((header or "#seqid\tstart\tscore\taux") + "\n")
+        for _, _, line in rows:
+            out.write(line)
+    print(f"merged {len(args.inputs)} shards, {len(rows)} rows -> {args.out}")
+
+
+def cmd_bench_scaling(args) -> None:
+    from divergence_tpu_torch.tools.bench_scaling import main as bench_main
+
+    bench_main(args)
+
+
 def _add_run_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--pop-a", required=True, help="population A GTrack file")
     p.add_argument("--pop-b", required=True, help="population B GTrack file")
@@ -241,6 +401,17 @@ def _add_run_common(p: argparse.ArgumentParser) -> None:
         help="torch device: cuda (default; raises without a CUDA device) "
         "or cpu (the plain torch path)",
     )
+    p.add_argument(
+        "--shard", action="store_true",
+        help="cut each chromosome's windows over every CUDA device "
+        "((cpu,) with --device cpu)",
+    )
+    p.add_argument("--num-hosts", type=int, default=1,
+                   help="hosts of a multi-host run (each writes a shard; "
+                   "join them with merge-tracks)")
+    p.add_argument("--host-id", type=int, default=0, help="this host, 0 .. N-1")
+    p.add_argument("--profile", default=None,
+                   help="write a torch.profiler trace (trace.json) to this directory")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -299,6 +470,28 @@ def build_parser() -> argparse.ArgumentParser:
         "independent streams keyed by (seed, chromosome, slot)",
     )
     p.set_defaults(fn=cmd_run_css)
+
+    p = sub.add_parser(
+        "merge-tracks",
+        help="merge per-host score-track shards (disjoint chromosomes or "
+        "slot ranges; duplicate windows are refused)",
+    )
+    p.add_argument("--inputs", nargs="+", required=True)
+    p.add_argument("--out", required=True)
+    p.set_defaults(fn=cmd_merge_tracks)
+
+    p = sub.add_parser(
+        "bench-scaling",
+        help="weak and strong scaling of the sharded step over 1..N devices",
+    )
+    p.add_argument("--devices", type=int, default=None,
+                   help="largest mesh (default: every CUDA device; with "
+                   "--device cpu, a mesh of this many CPU shares)")
+    p.add_argument("--windows-per-device", type=int, default=256)
+    p.add_argument("--total-windows", type=int, default=None)
+    p.add_argument("--mc-chunk", type=int, default=128)
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.set_defaults(fn=cmd_bench_scaling)
     return ap
 
 

@@ -250,3 +250,77 @@ def test_run_css_cli_new_flags_match_jax_cli(toy_pair, flags):
         {"perm_backend": "native"} if "native" in flags else {})
     assert_new_option_pvals_match(tp, jp, kw)
     assert ((tp > 0) & (tp <= 1)).all()
+
+
+@pytest.fixture(scope="module")
+def one_chrom(tmp_path_factory):
+    """A one-chromosome genome: --num-hosts 2 must cut it into slot ranges."""
+    tmp = tmp_path_factory.mktemp("torch_cli_hosts")
+    pos, am, bm = synth.make_panel(1200, 60_000, 6, 5, seed=91)
+    synth.write_gtrack(tmp / "popA.gtrack", "chrS", pos, am)
+    synth.write_gtrack(tmp / "popB.gtrack", "chrS", pos, bm)
+    (tmp / "chrom.sizes").write_text("chrS\t60000\n")
+    return tmp
+
+
+def _rows(path):
+    return [ln for ln in path.read_text().splitlines() if ln and not ln.startswith("#")]
+
+
+@pytest.mark.parametrize("sub,extra", [("run-fet", []), ("run-css", ["--mc-runs", "2000"])])
+def test_multihost_merge_is_byte_identical(one_chrom, tmp_path, sub, extra, capsys):
+    """Two hosts each score one slot half of the chromosome; the port's
+    merge-tracks joins them into the single-host track byte for byte, and
+    writes the JAX CLI's bytes from the same shards."""
+    tmp = one_chrom
+    common = [sub, "--pop-a", str(tmp / "popA.gtrack"), "--pop-b", str(tmp / "popB.gtrack"),
+              "--chrom-sizes", str(tmp / "chrom.sizes"), "--device", "cpu", *extra]
+    single = tmp_path / "single.track"
+    torch_cli(common + ["--out", str(single)])
+    shards = []
+    for host in ("0", "1"):
+        shards.append(tmp_path / f"h{host}.track")
+        torch_cli(common + ["--out", str(shards[-1]), "--num-hosts", "2", "--host-id", host,
+                            "--resume"])
+    out = capsys.readouterr().out
+    assert "host 0/2 takes ['chrS[0:60]']" in out and "host 1/2 takes ['chrS[60:120]']" in out
+    # a partial chromosome's part file carries its slot range
+    assert (tmp_path / "h1.track.parts" / f"chrS@60-{1 << 62}.tsv").exists()
+    h0, h1 = _rows(shards[0]), _rows(shards[1])
+    assert h0 and h1
+    assert all(int(ln.split("\t")[1]) < 30_000 for ln in h0)
+    assert all(int(ln.split("\t")[1]) >= 30_000 for ln in h1)
+    merged, jmerged = tmp_path / "merged.track", tmp_path / "jax_merged.track"
+    torch_cli(["merge-tracks", "--inputs", *map(str, shards), "--out", str(merged)])
+    jax_cli(["merge-tracks", "--inputs", *map(str, shards), "--out", str(jmerged)])
+    assert merged.read_bytes() == single.read_bytes()
+    assert merged.read_bytes() == jmerged.read_bytes()
+    # a second copy of a shard overlaps: refused
+    with pytest.raises(SystemExit):
+        torch_cli(["merge-tracks", "--inputs", str(shards[0]), str(shards[0]),
+                   "--out", str(tmp_path / "bad.track")])
+
+
+@pytest.mark.parametrize("sub", ["run-fet", "run-css"])
+def test_shard_and_profile_flags(toy_pair, tmp_path, sub):
+    """--shard (a (cpu,) mesh with --device cpu) writes the unsharded
+    track's bytes; --profile writes a torch.profiler trace."""
+    args = (_args if sub == "run-fet" else _css_args)(
+        toy_pair, tmp_path / "plain.track", "fast", "--device", "cpu")
+    torch_cli(args)
+    sharded = tmp_path / "sharded.track"
+    args = (_args if sub == "run-fet" else _css_args)(
+        toy_pair, sharded, "fast", "--device", "cpu", "--shard",
+        "--profile", str(tmp_path / "prof"), "--summary", str(tmp_path / "s.json"))
+    torch_cli(args)
+    assert sharded.read_bytes() == (tmp_path / "plain.track").read_bytes()
+    assert json.loads((tmp_path / "prof" / "trace.json").read_text())
+    assert json.loads((tmp_path / "s.json").read_text())["counters"]["mesh"] == ["cpu"]
+
+
+def test_bench_scaling_cli(capsys):
+    torch_cli(["bench-scaling", "--device", "cpu", "--devices", "2",
+               "--windows-per-device", "4", "--mc-chunk", "8"])
+    report = json.loads(capsys.readouterr().out)
+    assert report["backend"] == "cpu"
+    assert [r["devices"] for r in report["weak_scaling"]] == [1, 2]

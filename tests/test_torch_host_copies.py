@@ -12,11 +12,15 @@ import divergence_tpu.config as jconfig
 import divergence_tpu.core.windows as jwindows
 import divergence_tpu.io.genome as jgenome
 import divergence_tpu.io.gtrack as jgtrack
+import divergence_tpu.parallel.mesh as jmesh
+import divergence_tpu.parallel.multihost as jmultihost
 import divergence_tpu.utils.summary as jsummary
 import divergence_tpu_torch.config as tconfig
 import divergence_tpu_torch.core.windows as twindows
 import divergence_tpu_torch.io.genome as tgenome
 import divergence_tpu_torch.io.gtrack as tgtrack
+import divergence_tpu_torch.parallel.mesh as tmesh
+import divergence_tpu_torch.parallel.multihost as tmultihost
 import divergence_tpu_torch.utils.summary as tsummary
 from divergence_tpu_torch.tools import synth
 
@@ -39,6 +43,11 @@ VERBATIM = [
     (jconfig, tconfig, "MdsAlgorithm"),
     (jconfig, tconfig, "SmacofConfig"),
     (jconfig, tconfig, "CssConfig"),
+    (jmesh, tmesh, "pad_to_multiple"),
+    (jmultihost, tmultihost, "WorkRange"),
+    (jmultihost, tmultihost, "HostAssignment"),
+    (jmultihost, tmultihost, "partition_chromosomes"),
+    (jmultihost, tmultihost, "merge_score_shards"),
 ]
 
 
@@ -169,3 +178,20 @@ def test_css_config_defaults_and_validation_equal():
             jconfig.CssConfig(**kw)
     # the native backend switches the stream, as in the JAX package
     assert tconfig.CssConfig(perm_backend="native").mc_stream == "window"
+
+
+@pytest.mark.parametrize("num", [1, 2, 3, 5])
+def test_partition_chromosomes_equal(num):
+    """Same assignment from both copies, slot-granular included; the
+    open-ended sentinel is the same."""
+    assert tmultihost.TO_END == jmultihost.TO_END
+    weights = {"chr1": 9000, "chr2": 400, "chr3": 2500, "chrUn": 1}
+    nslots = {"chr1": 800, "chr2": 40, "chr3": 300, "chrUn": 2}
+    for pid in range(num):
+        for kw in ({}, {"seqid_nslots": nslots}):
+            a = jmultihost.partition_chromosomes(weights, num, pid, **kw)
+            b = tmultihost.partition_chromosomes(weights, num, pid, **kw)
+            assert (a.seqids, a.num_processes, a.process_id) == (
+                b.seqids, b.num_processes, b.process_id)
+            assert [(r.seqid, r.slot_lo, r.slot_hi) for r in a.ranges] == [
+                (r.seqid, r.slot_lo, r.slot_hi) for r in b.ranges]

@@ -20,7 +20,13 @@ on the CPU (tests/test_torch_smacof.py; this file runs without jax).  K8
 float32 form adds the twin's products in the twin's order).  K9
 (``css_mc_power``): power sums within POWER_RTOL of the plain version and
 approx p within LOG10_P_BAND where nscores agree (>= 99.9 % of windows),
-the bands measured on the CPU (tests/test_torch_approx.py)."""
+the bands measured on the CPU (tests/test_torch_approx.py).  K10
+(``fet_window``): FET tolerances against its plain version (stddev beyond
+them on at most 0.01 % of windows, + 1) and bit-equal to K1 -> K2 on a
+chromosome's windows.  K11 (``css_perm_chunk``): (hits, reached, pos)
+identical to the plain version on every window (the twin's scores, bit
+for bit).  The sharded step: bit-equal per window across a 1- and a
+4-share mesh of one card."""
 
 import shutil
 from pathlib import Path
@@ -144,7 +150,8 @@ def test_run_fet_cuda_matches_cpu(cuda, prec):
     cfg = FetConfig(precision=prec)
     kfet.reset_launches()
     g = run_fet(SnpPair(pos, am, bm), 1_000_000, cfg, device=cuda, seqid="c")
-    assert all(v == 1 for v in kfet.LAUNCHES.values()), kfet.LAUNCHES
+    assert all(kfet.LAUNCHES[k] == 1 for k in ("fet_lut_build", "fet_snp_logs",
+                                              "fet_aggregate")), kfet.LAUNCHES
     c = run_fet(SnpPair(pos, am, bm), 1_000_000, cfg, device="cpu", seqid="c")
     for a, b in zip(g, c):
         assert np.max(np.abs(a - b) / np.maximum(np.abs(b), 1.0)) <= TOL[prec]
@@ -509,3 +516,112 @@ def test_run_css_new_options_cuda_matches_cpu(cuda, kw):
         assert (dl > LOG10_P_BAND[21]).sum() <= 1e-3 * scored.sum() + 1, dl.max()
     else:
         assert (g[1] != c[1]).sum() <= 1e-3 * scored.sum() + 1
+
+
+def _gathered(plan, ids, am, bm):
+    """[B, P, a] and [B, P, b] codes of the windows ``ids`` at P = the
+    largest window's padded width (rows past a window's npos hold row 0's
+    codes), with npos and slots."""
+    lo, npos = plan.lo[ids], plan.npos[ids]
+    P = kfet._window_pad(int(npos.max()))
+    offs = np.arange(P)[None, :]
+    idx = np.where(offs < npos[:, None], lo[:, None] + offs, 0)
+    return (torch.from_numpy(am[idx]), torch.from_numpy(bm[idx]),
+            torch.from_numpy(npos.copy()), torch.from_numpy(plan.slot[ids].copy()))
+
+
+PANELS_M = {2: (1, 1), 9: (5, 4), 21: (11, 10), 64: (32, 32)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prec", ["exact", "fast"])
+@pytest.mark.parametrize("m", [2, 9, 21, 64])
+def test_fet_window_kernel(cuda, prec, m):
+    asize, bsize = PANELS_M[m]
+    pos, am, bm = make_panel(20_000, 1_000_000, asize, bsize, seed=m)
+    plan = plan_windows(pos, 1_000_000, 2500, 500)
+    ids = np.nonzero(plan.valid_mask() & (plan.npos > 0))[0]
+    av, bv, npos, slot = _gathered(plan, ids, am, bm)
+    av, bv = av.to(cuda), bv.to(cuda)
+    maxs, nmax = kfet.support_size(asize, bsize), asize + bsize + 2
+    key = rng.fold_in(rng.prng_key(3), 0)
+    fast = prec == "fast"
+    before = kfet.LAUNCHES["fet_window"]
+    k = kfet.fet_window_batch(av, bv, npos, 0.95, key, 100, maxs, nmax, fast, slot)
+    p = kfet.fet_window_batch_plain(av, bv, npos, 0.95, key, 100, maxs, nmax, fast, slot)
+    torch.cuda.synchronize()
+    assert kfet.LAUNCHES["fet_window"] == before + 1
+    assert k[0].dtype == (torch.float32 if fast else torch.float64)
+    assert _rel(k[0], p[0]) <= TOL[prec]
+    sd = (k[1].double() - p[1].double()).abs() / p[1].double().abs().clamp(min=1.0)
+    assert int((sd > TOL[prec]).sum()) <= 1e-4 * len(ids) + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prec", ["exact", "fast"])
+def test_fet_window_kernel_equals_k1_k2(cuda, prec):
+    """K10 on gathered windows, keyed by the chromosome key, is K1 -> K2
+    bit for bit: both run fet_table.cuh and fet_window_stats.cuh."""
+    pos, am, bm = make_panel(40_000, 2_000_000, 11, 10, seed=3)
+    plan = plan_windows(pos, 2_000_000, 2500, 500)
+    ids = np.nonzero(plan.valid_mask() & (plan.npos > 0))[0]
+    vals = torch.from_numpy(np.concatenate([am, bm], axis=1)).to(cuda)
+    fast = prec == "fast"
+    maxs, nmax = kfet.support_size(11, 10), 23
+    logs = kfet.fet_snp_logs(vals, 11, maxs, nmax, fast)
+    lo, npos, slot = (torch.from_numpy(a[ids].copy()) for a in (plan.lo, plan.npos, plan.slot))
+    key = rng.fold_in(rng.prng_key(2), rng.chrom_hash("chrG"))
+    k2 = kfet.fet_aggregate(logs, lo, npos, slot, key, 0.95, 100)
+    av, bv, npos_w, slot_w = _gathered(plan, ids, am, bm)
+    s, d = kfet.fet_window_batch(av.to(cuda), bv.to(cuda), npos_w, 0.95, key, 100, maxs,
+                                 nmax, fast, slot_w)
+    assert torch.equal(s, k2[0]) and torch.equal(d, k2[1])
+
+
+@pytest.mark.gpu
+def test_fet_window_kernel_refuses(cuda):
+    av = torch.zeros((2, 8, 3), dtype=torch.int16, device=cuda)
+    key = rng.prng_key(0)
+    with pytest.raises(ValueError, match="rows"):
+        kfet.fet_window_batch(av, av, torch.tensor([3, 9]), 0.95, key, 10, 5, 8)
+    big = torch.zeros((1, 5000, 3), dtype=torch.int16, device=cuda)
+    with pytest.raises(ValueError, match="at most"):
+        kfet.fet_window_batch(big, big, torch.tensor([4500]), 0.95, key, 10, 5, 8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bitgen", ["mix", "threefry"])
+@pytest.mark.parametrize("m", [2, 9, 21, 64])
+def test_perm_chunk_kernel(cuda, m, bitgen):
+    dist, scores, asize, bsize, chroms, slots = _mc_windows(cuda, m, 4096)
+    B = dist.shape[0]
+    keys = rng.window_keys(rng.fold_in(rng.prng_key(5), 2).to(cuda), chroms, slots)
+    need = torch.from_numpy(np.random.default_rng(m).integers(0, 12, size=B)).to(cuda)
+    obs = torch.from_numpy(scores).to(cuda)
+    for chunk, limit in ((128, 128), (256, 200)):
+        before = kperm.LAUNCHES["css_perm_chunk"]
+        k = kperm.permutation_chunk(dist, obs, need, limit, keys, asize, bsize, chunk, bitgen)
+        p = kperm.permutation_chunk_plain(dist, obs, need, limit, keys, asize, bsize, chunk,
+                                          bitgen)
+        torch.cuda.synchronize()
+        assert kperm.LAUNCHES["css_perm_chunk"] == before + 1
+        for a, b in zip(k, p):
+            assert torch.equal(a.cpu(), b.cpu())
+
+
+@pytest.mark.gpu
+def test_sharded_step_one_vs_four_shares(cuda):
+    from divergence_tpu_torch.parallel import make_divergence_step, make_mesh
+
+    pos, am, bm = make_panel(20_000, 1_000_000, 11, 10, seed=4)
+    plan = plan_windows(pos, 1_000_000, 2500, 500)
+    ids = np.nonzero(plan.valid_mask() & (plan.npos > 0))[0][:1996]
+    av, bv, npos, slot = _gathered(plan, ids, am, bm)
+    key = rng.prng_key(1)
+    outs = [make_divergence_step(make_mesh(devices=[cuda] * n), 11, 10)(
+        av.to(cuda), bv.to(cuda), npos, slot, key) for n in (1, 4)]
+    for name in ("fet_scores", "fet_stddev", "css_scores", "css_valid", "mc_hits"):
+        assert torch.equal(outs[0][name], outs[1][name]), name
+    assert float(outs[0]["windows_evaluated"]) == len(ids)
+    s1, s4 = float(outs[0]["score_sum"]), float(outs[1]["score_sum"])
+    assert abs(s1 - s4) <= 1e-9 * abs(s1)

@@ -1,8 +1,9 @@
 """divergence_tpu_torch runs where JAX is absent: a fresh interpreter with
 ``sys.modules["jax"] = None`` (every ``import jax`` raises) imports the
 package and runs run_fet, run_css (CMDS, SMACOF, drosophila, approx mode,
-the window stream with threefry draws, the native evaluator) and both
-CLI scans on the CPU."""
+the window stream with threefry draws, the native evaluator), the sharded
+step and the engines over a CPU mesh, bench-scaling, and both CLI scans
+(one of them split over two hosts and merged) on the CPU."""
 
 import subprocess
 import sys
@@ -21,7 +22,8 @@ import divergence_tpu_torch
 from divergence_tpu_torch.config import CssConfig, FetConfig
 from divergence_tpu_torch.engine import SnpPair, run_css, run_fet
 from divergence_tpu_torch.kernels import css, linalg, perm
-from divergence_tpu_torch.tools import cli, synth
+from divergence_tpu_torch.tools import bench_scaling, cli, synth
+from divergence_tpu_torch.parallel import make_divergence_step, make_mesh
 assert "divergence_tpu" not in sys.modules
 for name, mod in list(sys.modules.items()):
     assert mod is None or not name.startswith("jax"), name
@@ -42,6 +44,20 @@ fpos, fa, fb = synth.make_freq_chromosome(300, 20_000, 2)
 s, p = run_css(SnpPair(fpos, fa, fb), 20_000, CssConfig(drosophila=True, mc_runs=300),
                device="cpu")
 assert (s != 0).sum() > 10 and (p[s != 0] == 1.0).all()
+cpu = torch.device("cpu")
+mesh = make_mesh(devices=[cpu] * 2)
+codes = np.random.default_rng(0).choice(np.array([3, -3, 0], np.int16), size=(8, 32, 21))
+out = make_divergence_step(mesh, 11, 10, nsamples=4, mc_chunk=8)(
+    codes[..., :11], codes[..., 11:], np.full(8, 30), np.arange(8), divergence_tpu_torch.rng.prng_key(0))
+assert float(out["windows_evaluated"]) == 8 and np.isfinite(float(out["score_sum"]))
+s0, _ = run_fet(SnpPair(pos, am, bm), 20_000, FetConfig(), device="cpu")
+s1, _ = run_fet(SnpPair(pos, am, bm), 20_000, FetConfig(), sharding=mesh)
+assert np.array_equal(s0, s1)
+s, p = run_css(SnpPair(pos, am, bm), 20_000, CssConfig(mc_runs=300), sharding=mesh)
+assert (s != 0).sum() > 10
+rep = bench_scaling.run_scaling_bench(max_devices=2, windows_per_device=4, npos=16,
+                                      nsamples=2, mc_chunk=8, repeats=1, devices=[cpu] * 2)
+assert rep["backend"] == "cpu"
 tmp = sys.argv[2]
 synth.write_gtrack(tmp + "/a.gtrack", "chrZ", pos, am)
 synth.write_gtrack(tmp + "/b.gtrack", "chrZ", pos, bm)
@@ -49,6 +65,13 @@ cli.main(["run-fet", "--pop-a", tmp + "/a.gtrack", "--pop-b", tmp + "/b.gtrack",
           "--out", tmp + "/o.track", "--device", "cpu"])
 cli.main(["run-css", "--pop-a", tmp + "/a.gtrack", "--pop-b", tmp + "/b.gtrack",
           "--out", tmp + "/c.track", "--device", "cpu", "--mc-runs", "500"])
+for h in ("0", "1"):
+    cli.main(["run-fet", "--pop-a", tmp + "/a.gtrack", "--pop-b", tmp + "/b.gtrack",
+              "--out", tmp + "/o" + h + ".track", "--device", "cpu", "--num-hosts", "2",
+              "--host-id", h, "--shard"])
+cli.main(["merge-tracks", "--inputs", tmp + "/o0.track", tmp + "/o1.track", "--out",
+          tmp + "/m.track"])
+assert open(tmp + "/m.track").read() == open(tmp + "/o.track").read()
 print("NOJAX-OK")
 """
 
