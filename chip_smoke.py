@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of ``divergence_tpu_torch`` — the FET scan (``run-fet``), the
-CSS scan (``run-css``) and the sharded divergence step on one CUDA GPU, at
-the JAX package's bench scale.
+CSS scan (``run-css``), the sharded divergence step and the whole pipeline
+(``run-all``) on one CUDA GPU, at the JAX package's bench scale.
 
 Usage, from the repository root, on a machine with one CUDA GPU::
 
@@ -17,7 +17,8 @@ Phases (any failure exits non-zero and prints no result line):
    K2 on the ~800 k windows of the bench chromosome; plus the reference's
    golden tables;
 3. the FET CLI: a seeded 500 k-SNP / 25 Mbp GTrack pair (11+10) through
-   ``run-fet`` in both precisions;
+   ``run-fet`` in both precisions (exact mode takes the rank path, K1r ->
+   K2r);
 4. the FET library: ``run_fet`` on the 8 M-SNP / 400 Mbp bench chromosome
    in both precisions (warm wall time, SNP tests/s), and ``run_fet_multi``
    on the card against the plain torch path on the CPU on a small genome;
@@ -72,14 +73,27 @@ Phases (any failure exits non-zero and prints no result line):
    of the card against one (bit-equal), the all-plain step on 20,000 of
    them; ``bench-scaling`` at its defaults; ``run-fet`` and ``run-css``
    with ``--shard`` and with ``--num-hosts 2`` + ``merge-tracks`` on phase
-   9's small files, byte-equal to the unsharded tracks.
+   9's small files, byte-equal to the unsharded tracks;
+14. K1r (``fet_lut_rank``, ``fet_snp_ranks``) and K2r
+   (``fet_aggregate_ranks``) on the bench FET workload in both precisions:
+   the LUT sort against its plain version, exactly, at 11+10 and at 38+38
+   (the largest symmetric panel with a LUT, 2.3 M entries); the ranks of 8 M
+   SNPs; K2r on the ~800 k windows against its plain version and equal to
+   phase 2's K1 -> K2 on every window, timed beside K2; ``run_fet`` exact
+   by the old route (K1 -> K2) and the rank route, warm walls in turns;
+15. ``run-all`` on phase 3's 500 k-SNP pair at the CLI default (fast) and
+   at ``--precision exact`` (tracks byte-equal to phases 3 and 6's staged
+   runs; walls and the stage split of ``*_summary.json``), on phase 9's
+   small files against the staged subcommands (byte-equal), and with
+   ``--num-hosts 2`` (no regions; merged shards = the one-host tracks).
 
 Kernel launch counts are reset before phase 3 and read after phase 4 (the
 FET path), reset before phase 6 and read after phase 7 (the CMDS CSS
 path), reset before phase 9 and read after it (the SMACOF and drosophila
 CSS path), reset before phase 11 and read after it (K8, K9 and K7 under
-threefry), and reset before phase 13 and read after it (the sharded step:
-K10, K3, K5, K11).  The last three lines are a JSON line of per-kernel
+threefry), reset before phase 13 and read after it (the sharded step:
+K10, K3, K5, K11), and reset before phase 15 and read after it (run-all:
+K1, K2, K1r, K2r, K3, K5, K7).  The last three lines are a JSON line of per-kernel
 results (with each kernel's ``bound_ms``: the larger of its bytes over
 3.35 TB/s and its operations over 67 TFLOP/s float32 / 34 TFLOP/s
 float64, from this run's inputs; and ``library_ms``, one PyTorch call
@@ -108,7 +122,11 @@ be a near tie (TIE_RTOL float32, TIE_RTOL_F64 float64).  K9: power sums
 within POWER_RTOL, approx nscores identical on 99.9 % of windows and
 |log10 p| within LOG10_P_BAND where they agree (tests/test_torch_approx.py,
 measured on the CPU).  K10: as K2, and bit-equal to K1 -> K2 on the bench
-windows.  K11: (hits, reached, pos) identical on every window.  The step:
+windows.  K1r: the sorted LUT and its ranks equal to the plain version's,
+bit for bit; the 8 M SNPs' ranks those of the kernel's own LUT, their
+scores within the FET tolerances of the plain version's.  K2r: as K2, and
+equal to K1 -> K2 on every bench window (-0.0 == 0.0).  K11: (hits,
+reached, pos) identical on every window.  The step:
 per-window outputs bit-equal across 1 and 4 shares; against its all-plain
 version FET exact 1e-12, CSS 1e-9 on the eigengap windows, hits equal on
 99.9 % of windows.
@@ -205,6 +223,9 @@ REPLACES = {
     "css_mc_power": "divergence_tpu/kernels/perm.py:599",
     "fet_window": "divergence_tpu/kernels/fet.py:668",
     "css_perm_chunk": "divergence_tpu/kernels/perm.py:396",
+    "fet_lut_rank": "divergence_tpu/kernels/fet.py:454",
+    "fet_snp_ranks": "divergence_tpu/kernels/fet.py:454",
+    "fet_aggregate_ranks": "divergence_tpu/kernels/fet.py:495",
 }
 SOURCES = {
     "fet_lut_build": "divergence_tpu_torch/csrc/fet_snp.cu",
@@ -219,7 +240,18 @@ SOURCES = {
     "css_mc_power": "divergence_tpu_torch/csrc/css_mc_power.cu",
     "fet_window": "divergence_tpu_torch/csrc/fet_window.cu",
     "css_perm_chunk": "divergence_tpu_torch/csrc/css_perm_chunk.cu",
+    "fet_lut_rank": "divergence_tpu_torch/csrc/fet_rank.cu",
+    "fet_snp_ranks": "divergence_tpu_torch/csrc/fet_rank.cu",
+    "fet_aggregate_ranks": "divergence_tpu_torch/csrc/fet_aggregate_ranks.cu",
 }
+# K1r's LUT sort also at the largest symmetric panel where the LUT is on
+# (39^4 = 2,313,441 entries; 39 + 39 fails lut_active's 1e8 bound)
+RANK_BIG_PANEL = 38
+# the FET kernels of run-fet / run_fet: K1 -> K2 in fast mode, K1's LUT
+# build -> K1r -> K2r in exact mode (the LUT regime)
+FET_PATH = ("fet_lut_build", "fet_snp_logs", "fet_aggregate", "fet_lut_rank",
+            "fet_snp_ranks", "fet_aggregate_ranks")
+CSS_CMDS_PATH = ("css_dissim", "css_cmds", "css_mc_coeff", "css_mc_shared")
 
 
 class SmokeFailure(Exception):
@@ -453,8 +485,8 @@ def phase_cli(torch, kfet, dev, tmp: Path) -> tuple[Path, Path, Path]:
     say(f"[cli] fast vs exact scores max_rel_err={err:.3e} (tol 1e-5: float32 "
         "rounding of the same statistic)")
     check(err <= 1e-5, f"cli fast vs exact: {err}")
-    check(all(kfet.LAUNCHES[k] > 0 for k in ("fet_lut_build", "fet_snp_logs", "fet_aggregate")),
-          f"cli slice did not launch every kernel: {kfet.LAUNCHES}")
+    check(all(kfet.LAUNCHES[k] > 0 for k in FET_PATH), f"cli slice did not launch every kernel: "
+          f"{kfet.LAUNCHES}")
     say(f"[cli] launch counts so far: {kfet.LAUNCHES}")
     return a_path, b_path, sizes
 
@@ -1713,6 +1745,244 @@ def phase_step_library(torch, gathered, dev, card, tmp: Path, results) -> None:
         check(eq_shard and eq_merge and min(rows) > 0, f"{sub}: sharded or merged track differs")
 
 
+def float_bits(torch, t):
+    """A float tensor's bits, for equality that tells -0.0 from +0.0."""
+    return t.view(torch.int64 if t.dtype == torch.float64 else torch.int32)
+
+
+def phase_rank_kernels(torch, pair, plan_ids, dev, results, k2_bench, card) -> None:
+    """Phase 14: K1r and K2r on the bench FET workload, both precisions:
+    ``fet_lut_rank`` against its plain version on K1's LUT, exactly, at
+    11 + 10 and at RANK_BIG_PANEL; ``fet_snp_ranks`` on the 8 M SNPs (the
+    ranks of the kernel's own LUT exactly, the scores against the plain
+    version's); ``fet_aggregate_ranks`` on the ~800 k windows against its
+    plain version and equal to phase 2's K1 -> K2 on every window (-0.0 ==
+    0.0), timed beside K2; ``run_fet`` exact by the old route (K1 -> K2) and
+    the rank route, warm walls in turns, equal outputs."""
+    import numpy as np
+
+    from divergence_tpu_torch.config import FetConfig
+    from divergence_tpu_torch.engine import fet_engine, run_fet
+    from divergence_tpu_torch.engine.fet_engine import chromosome_key
+    from divergence_tpu_torch.kernels import fet as kfet
+
+    maxs, nmax = kfet.support_size(ASIZE, BSIZE), ASIZE + BSIZE + 2
+    vals = pair.to_device(dev)
+    lo, npos, slot = plan_ids
+    B, N = lo.numel(), vals.shape[0]
+    key = chromosome_key(0, "chrBench")
+    idx = kfet._lut_index(kfet.count_tables(vals[:, :ASIZE], vals[:, ASIZE:]), ASIZE, BSIZE)
+    rl, rs, ra = (results[k] for k in ("fet_lut_rank", "fet_snp_ranks", "fet_aggregate_ranks"))
+    big = RANK_BIG_PANEL
+    check(kfet.lut_active(big, big) and not kfet.lut_active(big + 1, big + 1),
+          f"{big} + {big} must be the largest symmetric panel with a LUT")
+    for prec in ("fast", "exact"):
+        fast = prec == "fast"
+        dt = torch.float32 if fast else torch.float64
+        tol = TOL[prec]
+
+        # K1r's LUT sort: one counting pass at 11 + 10, runs + merges at 38 + 38
+        for a, b in ((ASIZE, BSIZE), (big, big)):
+            label = f"{a}+{b}"
+            lut = kfet.fet_lut(a, b, kfet.support_size(a, b), a + b + 2, dt, dev)
+            (ks, kr), (ps, pr) = kfet.fet_lut_rank(lut), kfet.fet_lut_rank_plain(lut)
+            torch.cuda.synchronize()
+            eq = torch.equal(kr, pr) and torch.equal(float_bits(torch, ks), float_bits(torch, ps))
+            ms = cuda_ms(torch, lambda: kfet.fet_lut_rank(lut), 20)
+            pms = cuda_ms(torch, lambda: kfet.fet_lut_rank_plain(lut), 5)
+            G = lut.numel()
+            say(f"[K1r fet_lut_rank {prec}, {label}] G={G}: sorted LUT and ranks equal to the "
+                f"plain version's: {eq}; kernel {ms:.4f} ms plain {pms:.4f} ms")
+            check(eq, f"fet_lut_rank {prec} {label} differs from its plain version")
+            if a == ASIZE:
+                rl[prec] = (0.0, 0.0, ms, pms)
+                if fast:   # G values in, G values and ranks out; a comparison
+                    # sort's G log2 G compares of (value, index)
+                    rl["bound"] = bound(G * 4 * 3, {"f32": 2 * G * int(np.ceil(np.log2(G)))})
+            else:
+                rl[f"big_{prec}"] = (G, ms, pms)
+        del lut, ks, kr, ps, pr
+
+        # K1r per SNP: the 8 M SNPs (K1's LUT build, the sort, the lookup)
+        ls, r = kfet.fet_snp_ranks(vals, ASIZE, maxs, nmax, fast)
+        pls, prr = kfet.fet_snp_ranks_plain(vals, ASIZE, maxs, nmax, fast)
+        _, own = kfet.fet_lut_rank_plain(kfet.fet_lut(ASIZE, BSIZE, maxs, nmax, dt, dev))
+        torch.cuda.synchronize()
+        same = torch.equal(r, own[idx])
+        got, want = ls[r.long()], pls[prr.long()]
+        err = rel_err(got, want)
+        ms = cuda_ms(torch, lambda: kfet.fet_snp_ranks(vals, ASIZE, maxs, nmax, fast), 10)
+        pms = cuda_ms(torch, lambda: kfet.fet_snp_ranks_plain(vals, ASIZE, maxs, nmax, fast), 3)
+        say(f"[K1r fet_snp_ranks {prec}] N={N}: ranks of the kernel's LUT exact: {same}; scores "
+            f"lut_sorted[ranks] max_rel_err={err:.3e} (tol {tol:g}) against the plain "
+            f"version's; kernel {ms:.4f} ms plain {pms:.4f} ms (LUT build, sort and lookup)")
+        check(same and err <= tol, f"fet_snp_ranks {prec}: ranks {same}, scores {err}")
+        rs[prec] = (abs_err(got, want), err, ms, pms)
+        if fast:   # the codes in, the ranks out; two compares a code
+            rs["bound"] = bound(vals.numel() * 2 + N * 4, {"f32": 2 * vals.numel()})
+        del got, want, pls, prr, own
+
+        # K2r on every window of the bench chromosome
+        agg = lambda: kfet.fet_aggregate_ranks(ls, r, lo, npos, slot, key, 0.95, 100)  # noqa: E731
+        plain = lambda: kfet.fet_aggregate_ranks_plain(  # noqa: E731
+            ls, r, lo, npos, slot, key, 0.95, 100)
+        ka, pa = agg(), plain()
+        torch.cuda.synchronize()
+        err_sc = rel_err(ka[0], pa[0])
+        sd_rel = (ka[1].double() - pa[1].double()).abs() / pa[1].double().abs().clamp(min=1.0)
+        beyond = int((sd_rel > tol).sum())
+        equal_k2 = torch.equal(ka, k2_bench[prec])
+        ms = cuda_ms(torch, agg, 10)
+        pms = cuda_ms(torch, plain, 2)
+        k2_ms = results["fet_aggregate"][prec][2]
+        say(f"[K2r fet_aggregate_ranks {prec}] B={B} windows: scores max_rel_err={err_sc:.3e} "
+            f"(tol {tol:g}); stddev {beyond} windows beyond tol (allowed "
+            f"{int(STDDEV_BEYOND_SHARE * B)}); equal to phase 2's K1 -> K2 on every window: "
+            f"{equal_k2}; kernel {ms:.4f} ms plain {pms:.4f} ms; K2 in phase 2 {k2_ms:.4f} ms "
+            f"(fast {results['fet_aggregate']['fast'][2]:.4f}, exact "
+            f"{results['fet_aggregate']['exact'][2]:.4f})")
+        check(err_sc <= tol and beyond <= STDDEV_BEYOND_SHARE * B,
+              f"fet_aggregate_ranks {prec}: {err_sc}, {beyond} stddev beyond")
+        check(equal_k2, f"fet_aggregate_ranks {prec} differs from K1 -> K2 on the bench windows")
+        check(bool(torch.isfinite(ka).all()), f"fet_aggregate_ranks {prec}: non-finite")
+        ra[prec] = (max(abs_err(ka[0], pa[0]), abs_err(ka[1], pa[1])),
+                    max(err_sc, float(sd_rel.max())), ms, pms)
+        ra[prec + "_beyond"] = beyond
+        if fast:   # ranks, LUT and descriptors in, 2 values out; at least one
+            # threefry draw (~60 integer operations) per bootstrap sample
+            ra["bound"] = bound(N * 4 + ls.numel() * 4 + B * 3 * 8 + B * 2 * 4,
+                                {"f32": B * 100 * 60})
+        del ls, r, ka, pa
+    ra["equal_k1_k2_800k"] = True
+
+    # run_fet exact by the old route (K1 -> K2) and the rank route, in turns
+    cfg = FetConfig(precision="exact")
+    ranked = fet_engine.use_ranks
+    walls, outs = {"K1 -> K2": [], "K1r -> K2r": []}, {}
+    try:
+        for route in ("K1 -> K2", "K1r -> K2r", "K1r -> K2r", "K1 -> K2"):
+            fet_engine.use_ranks = ranked if route == "K1r -> K2r" else (lambda cfg, pair: False)
+            run_fet(pair, BENCH_REGION, cfg, device=dev, seqid="chrBench")    # warm
+            for _ in range(3):
+                t0 = time.perf_counter()
+                outs[route] = run_fet(pair, BENCH_REGION, cfg, device=dev, seqid="chrBench")
+                walls[route].append(time.perf_counter() - t0)
+    finally:
+        fet_engine.use_ranks = ranked
+    same = all(np.array_equal(a, b) for a, b in zip(outs["K1 -> K2"], outs["K1r -> K2r"]))
+    say(f"[run_fet exact, bench] warm wall min / median: K1 -> K2 "
+        f"{min(walls['K1 -> K2']):.4f} / {float(np.median(walls['K1 -> K2'])):.4f} s, "
+        f"K1r -> K2r {min(walls['K1r -> K2r']):.4f} / "
+        f"{float(np.median(walls['K1r -> K2r'])):.4f} s (turns old, new, new, old; 3 calls "
+        f"each); outputs equal: {same}; on {card}")
+    check(same, "run_fet exact: the rank route's output differs from K1 -> K2")
+    ra["run_fet_exact_s"] = {k: min(v) for k, v in walls.items()}
+
+
+def phase_run_all(torch, dev, tmp: Path, files) -> dict:
+    """Phase 15: run-all on the card: phase 3's 500 k-SNP pair at the CLI
+    default (fast) and at --precision exact, each track byte-equal to the
+    staged run of phases 3 and 6; phase 9's 20,000-SNP files through
+    run-all and through the staged subcommands, byte-equal (the report but
+    for its run-summary timings); --num-hosts 2 writes no regions and its
+    merged shards are the one-host tracks.  Returns the walls."""
+    import os
+
+    import numpy as np
+
+    from divergence_tpu_torch.io import read_score_track
+    from divergence_tpu_torch.tools import cli
+
+    a_path, b_path, sizes = files
+    walls = {}
+    for prec in ("fast", "exact"):
+        out = tmp / f"all_{prec}"
+        t0 = time.perf_counter()
+        cli.main(["run-all", "--pop-a", str(a_path), "--pop-b", str(b_path), "--outdir", str(out),
+                  "--chrom-sizes", str(sizes), "--precision", prec, "--device", str(dev)])
+        walls[prec] = time.perf_counter() - t0
+        split = {name: json.loads((out / f"{name}_summary.json").read_text())["timings_s"]
+                 for name in ("fet", "css")}
+        _, fstarts, fsc, fsd = read_score_track(out / "fet.track")
+        _, cstarts, csc, cp = read_score_track(out / "css.track")
+        regions = {f: len([ln for ln in (out / f).read_text().splitlines()
+                           if ln and not ln.startswith("#")])
+                   for f in ("fet_regions.gtrack", "css_regions.gtrack")}
+        same_fet = (out / "fet.track").read_bytes() == (tmp / f"fet_{prec}.track").read_bytes()
+        same_css = prec != "fast" or (
+            (out / "css.track").read_bytes() == (tmp / "css_fast.track").read_bytes())
+        html = (out / "report.html").read_text()
+        say(f"[run-all {prec}] {CLI_SNPS} SNPs: wall {walls[prec]:.2f} s (GTrack parse once); "
+            f"stage split fet {split['fet']}, css {split['css']}; {len(fstarts)} FET and "
+            f"{len(cstarts)} CSS rows, regions {regions}; fet.track byte-equal to phase 3's "
+            f"run-fet: {same_fet}" + ("; css.track byte-equal to phase 6's run-css: "
+                                      f"{same_css}" if prec == "fast" else ""))
+        check(len(fstarts) > 0 and len(cstarts) > 0, f"run-all {prec}: empty track")
+        check(bool(np.isfinite(fsc).all() and np.isfinite(fsd).all() and np.isfinite(csc).all()),
+              f"run-all {prec}: non-finite values")
+        check(bool(((cp > 0) & (cp <= 1)).all()), f"run-all {prec}: p outside (0, 1]")
+        check(same_fet and same_css, f"run-all {prec}: a track differs from the staged run")
+        check("FET score track" in html and "CSS regions" in html, f"run-all {prec}: report")
+
+    # phase 9's small files: run-all against the staged subcommands
+    small_a, small_b = tmp / "small_popA.gtrack", tmp / "small_popB.gtrack"
+    check(small_a.exists() and small_b.exists(), "phase 9's small GTrack files are missing")
+    inputs = ["--pop-a", str(small_a), "--pop-b", str(small_b), "--device", str(dev)]
+    cwd = os.getcwd()
+    try:
+        for d in ("all", "staged"):
+            (tmp / "pipe" / d / "out").mkdir(parents=True)
+        os.chdir(tmp / "pipe" / "all")
+        t0 = time.perf_counter()
+        cli.main(["run-all", *inputs, "--outdir", "out"])
+        walls["small run-all"] = time.perf_counter() - t0
+        os.chdir(tmp / "pipe" / "staged")
+        t0 = time.perf_counter()
+        cli.main(["run-fet", *inputs, "--out", "out/fet.track", "--summary",
+                  "out/fet_summary.json"])
+        cli.main(["run-css", *inputs, "--out", "out/css.track"])
+        cli.main(["filter-fet", "--scores", "out/fet.track", "--out", "out/fet_regions.gtrack"])
+        cli.main(["call-css-regions", "--scores", "out/css.track", "--out",
+                  "out/css_regions.gtrack"])
+        cli.main(["report", "--fet-track", "out/fet.track", "--css-track", "out/css.track",
+                  "--fet-regions", "out/fet_regions.gtrack", "--css-regions",
+                  "out/css_regions.gtrack", "--run-summary", "out/fet_summary.json",
+                  "--out", "out/report.html"])
+        walls["small staged"] = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    a, b = tmp / "pipe" / "all" / "out", tmp / "pipe" / "staged" / "out"
+    names = ("fet.track", "css.track", "fet_regions.gtrack", "css_regions.gtrack")
+    same = {f: (a / f).read_bytes() == (b / f).read_bytes() for f in names}
+
+    def without_summary(path):
+        head, _, rest = path.read_text().partition("<h2>Run summary</h2>")
+        return head + rest.partition("</pre>")[2]
+
+    same["report.html"] = without_summary(a / "report.html") == without_summary(b / "report.html")
+    say(f"[run-all small] {SMALL_SNPS} SNPs: byte-equal to the staged subcommands {same}; "
+        f"walls run-all {walls['small run-all']:.2f} s, staged {walls['small staged']:.2f} s")
+    check(all(same.values()), f"run-all differs from the staged subcommands: {same}")
+
+    # two hosts: shards only, merged = the one-host tracks
+    hosts = [tmp / "pipe" / f"host{h}" for h in (0, 1)]
+    t0 = time.perf_counter()
+    for h, d in enumerate(hosts):
+        cli.main(["run-all", *inputs, "--outdir", str(d), "--num-hosts", "2", "--host-id", str(h)])
+    walls["small 2 hosts"] = time.perf_counter() - t0
+    no_regions = not any((d / f).exists() for d in hosts
+                         for f in ("fet_regions.gtrack", "css_regions.gtrack", "report.html"))
+    merged = {}
+    for f in ("fet.track", "css.track"):
+        cli.main(["merge-tracks", "--inputs", *(str(d / f) for d in hosts), "--out",
+                  str(tmp / "pipe" / f"merged_{f}")])
+        merged[f] = (tmp / "pipe" / f"merged_{f}").read_bytes() == (a / f).read_bytes()
+    say(f"[run-all --num-hosts 2] no region files or report: {no_regions}; merged shards "
+        f"byte-equal to the one-host tracks {merged}; both hosts {walls['small 2 hosts']:.2f} s")
+    check(no_regions and all(merged.values()), "run-all --num-hosts 2")
+    return walls
+
+
 def smoke(torch, dev) -> tuple[str, list[dict]]:
     """Every phase on ``dev``; returns (card line, per-kernel results).
     Raises on the first failure."""
@@ -1764,8 +2034,7 @@ def smoke(torch, dev) -> tuple[str, list[dict]]:
     try:
         files = timed_phase("3", phase_cli, torch, kfet, dev, tmp)
         timed_phase("4", phase_library, torch, pair, n_tests, dev, card, k2_out)
-        fet_path = ("fet_lut_build", "fet_snp_logs", "fet_aggregate")
-        launches = {k: kfet.LAUNCHES[k] for k in fet_path}
+        launches = {k: kfet.LAUNCHES[k] for k in FET_PATH}
         say(f"[FET main path] kernel launches: {launches}")
         check(all(v > 0 for v in launches.values()),
               f"the FET path did not launch every kernel: {launches}")
@@ -1780,10 +2049,9 @@ def smoke(torch, dev) -> tuple[str, list[dict]]:
         timed_phase("7", phase_css_library, torch, dev, card)
         css_launches = {**kcss.LAUNCHES, **kperm.LAUNCHES}
         say(f"[CSS main path, CMDS] kernel launches: {css_launches}")
-        cmds_path = ("css_dissim", "css_cmds", "css_mc_coeff", "css_mc_shared")
-        check(all(css_launches[k] > 0 for k in cmds_path),
+        check(all(css_launches[k] > 0 for k in CSS_CMDS_PATH),
               f"the CMDS CSS path did not launch every kernel: {css_launches}")
-        launches.update({k: css_launches[k] for k in cmds_path})
+        launches.update({k: css_launches[k] for k in CSS_CMDS_PATH})
         timed_phase("8", phase_smacof_kernels, torch, pair, (lo, npos, slot), dev, results)
 
         kcss.reset_launches()
@@ -1813,7 +2081,6 @@ def smoke(torch, dev) -> tuple[str, list[dict]]:
 
         gathered = timed_phase("12", phase_step_kernels, torch, pair, plan, ids, dev,
                                results, k2_bench)
-        del k2_bench
         for mod in (kfet, kcss, kperm):
             mod.reset_launches()
         timed_phase("13", phase_step_library, torch, gathered, dev, card, tmp, results)
@@ -1825,6 +2092,23 @@ def smoke(torch, dev) -> tuple[str, list[dict]]:
               f"the sharded step did not launch every kernel: {step_launches}")
         launches["fet_window"] = step_launches["fet_window"]
         launches["css_perm_chunk"] = step_launches["css_perm_chunk"]
+        del gathered
+        torch.cuda.empty_cache()
+        timed_phase("14", phase_rank_kernels, torch, pair, (lo, npos, slot), dev, results,
+                    k2_bench, card)
+        del k2_bench
+
+        # this slice's main path: run-all at the CLI default and exact
+        for mod in (kfet, kcss, kperm):
+            mod.reset_launches()
+        pipeline_walls = timed_phase("15", phase_run_all, torch, dev, tmp, files)
+        all_launches = {**kfet.LAUNCHES, **kcss.LAUNCHES, **kperm.LAUNCHES}
+        say(f"[run-all main path] kernel launches: {all_launches}")
+        check(all(all_launches[k] > 0 for k in FET_PATH + CSS_CMDS_PATH),
+              f"run-all did not launch every kernel of its path: {all_launches}")
+        for k in ("fet_lut_rank", "fet_snp_ranks", "fet_aggregate_ranks"):
+            launches[k] = all_launches[k]
+        results["run_all_walls_s"] = pipeline_walls
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1885,6 +2169,26 @@ def smoke(torch, dev) -> tuple[str, list[dict]]:
             entry["ms_threefry"], entry["plain_ms_threefry"] = r["threefry"][2], r["threefry"][3]
             entry["bound_ms_threefry"], entry["bound_by_threefry"] = r["bound_threefry"]
             entry["k8_first_chunk_windows_stopped"] = r["k8_stopped"]
+        if name in FET_PATH + CSS_CMDS_PATH:
+            entry["launches_run_all"] = all_launches[name]
+        if name == "fet_lut_rank":
+            # ms / plain_ms: 11 + 10 (one counting pass); then the largest
+            # symmetric panel with a LUT (runs and merge passes)
+            for prec in ("fast", "exact"):
+                G, ms, pms = r[f"big_{prec}"]
+                entry[f"ms_{RANK_BIG_PANEL}_{RANK_BIG_PANEL}_{prec}"] = ms
+                entry[f"plain_ms_{RANK_BIG_PANEL}_{RANK_BIG_PANEL}_{prec}"] = pms
+            entry["entries_big"] = r["big_fast"][0]
+        if name == "fet_snp_ranks":
+            entry["ms_includes"] = "K1's LUT build, the LUT sort and the per-SNP lookup"
+        if name == "fet_aggregate_ranks":
+            entry["stddev_windows_beyond_tol"] = {
+                "fast": r["fast_beyond"], "exact": r["exact_beyond"]
+            }
+            entry["windows_differ"] = entry["stddev_windows_beyond_tol"]
+            entry["equal_k1_k2_800k"] = r["equal_k1_k2_800k"]
+            entry["run_fet_exact_wall_s"] = r["run_fet_exact_s"]
+            entry["run_all_walls_s"] = results["run_all_walls_s"]
         if name == "css_mc_power":
             # ms / plain_ms: the shared stream on 19,997 windows x 1,024
             # permutations; then the window stream and the ~800 k bench windows

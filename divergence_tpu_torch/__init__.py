@@ -11,7 +11,8 @@ Layers (bottom up):
   ``jax.random`` (keys, ``fold_in``, uniform bits) and the MC's counter
   mix, bit-equal
 * :mod:`divergence_tpu_torch.kernels` — per-SNP FET scores (K1), the
-  window percentile + bootstrap stddev (K2), CSS window dissimilarities
+  window percentile + bootstrap stddev (K2), their LUT-rank forms for
+  exact mode (K1r, K2r), CSS window dissimilarities
   (K3/K4), CMDS (K5) and SMACOF (K6) scoring, the permutation MC on the
   shared (K7) and the per-window stream (K8), approx mode's null power
   sums (K9), FET on pre-gathered windows (K10) and one fixed MC chunk per
@@ -22,9 +23,13 @@ Layers (bottom up):
   ``run_css`` / ``run_css_multi``
 * :mod:`divergence_tpu_torch.parallel` — device meshes, the sharded
   divergence step (``make_divergence_step``), multi-host partitioning
-* :mod:`divergence_tpu_torch.io`      — GTrack reading / score-track writing
+* :mod:`divergence_tpu_torch.io`      — GTrack reading / score-track and
+  segments writing
+* :mod:`divergence_tpu_torch.stats`   — region calling (Burke limit, BH-FDR,
+  top-N) over score tracks, host numpy
 * :mod:`divergence_tpu_torch.tools`   — the CLI (``run-fet``, ``run-css``,
-  ``merge-tracks``, ``bench-scaling``)
+  ``filter-fet``, ``call-css-regions``, ``report``, ``run-all``,
+  ``merge-tracks``, ``bench-scaling``) and the HTML report
 
 No device is global: every entry point takes ``device=`` or a
 ``sharding=`` mesh.

@@ -1,7 +1,8 @@
-"""Typed configuration for the FET and CSS scans.
+"""Typed configuration for the FET and CSS scans and the region callers.
 
-``MdsAlgorithm``, ``WindowConfig``, ``FetConfig``, ``SmacofConfig`` and
-``CssConfig`` copied verbatim from ``divergence_tpu/config.py`` (the JAX
+``MdsAlgorithm``, ``WindowConfig``, ``FetConfig``, ``SmacofConfig``,
+``CssConfig``, ``FetFilterConfig`` and ``CssRegionConfig`` copied
+verbatim from ``divergence_tpu/config.py`` (the JAX
 package imports jax, and the port runs where jax is not installed);
 ``tests/test_torch_host_copies.py`` holds the copies equal.  As there,
 the library defaults to ``precision="exact"`` and the CLI to ``fast``.
@@ -215,3 +216,47 @@ class CssConfig:
         if self.perm_backend == "native" and self.mc_stream == "shared":
             # the native evaluator replays per-window streams
             object.__setattr__(self, "mc_stream", "window")
+
+
+@dataclasses.dataclass(frozen=True)
+class FetFilterConfig:
+    """Region-calling thresholds for FET score tracks.
+
+    Burke et al. formula: ``median(scores) + qnorm(normquantile) *
+    percentile(stddevs, stddev_percentile)``
+    (reference tools/FilterFisherScores.py:40-48, :84-87).
+    """
+
+    max_distance: int = 100_000       # merge windows closer than this
+    norm_quantile: float = 0.999
+    stddev_percentile: float = 75.0
+
+    def __post_init__(self) -> None:
+        if self.max_distance < 0:
+            raise ValueError("max_distance must be >= 0")
+        if not 0.0 < self.norm_quantile < 1.0:
+            # 1.0 would put qnorm at +inf and silently call zero regions
+            raise ValueError("norm_quantile must be in (0, 1)")
+        if not 0.0 <= self.stddev_percentile <= 100.0:
+            raise ValueError("stddev_percentile must be in [0, 100]")
+
+
+@dataclasses.dataclass(frozen=True)
+class CssRegionConfig:
+    """Region calling for CSS tracks: BH-FDR or top-N
+    (reference tools/SignificantCSSRegions.py:37-50)."""
+
+    mode: str = "fdr"          # "fdr" | "top"
+    fdr: float = 0.05
+    num_top: int = 100
+    window_size: int = 2500    # merge span
+
+    def __post_init__(self) -> None:
+        if self.mode not in ("fdr", "top"):
+            raise ValueError("mode must be 'fdr' or 'top'")
+        if not 0.0 < self.fdr <= 1.0:
+            raise ValueError("fdr must be in (0, 1]")
+        if self.num_top <= 0:
+            raise ValueError("num_top must be positive")
+        if self.window_size <= 0:
+            raise ValueError("window_size must be positive")

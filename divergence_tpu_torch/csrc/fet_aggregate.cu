@@ -52,8 +52,8 @@ fet_aggregate(const T* __restrict__ logs, const int64_t* __restrict__ rows,
         sorted[i] = i < n ? logs[lo + i] : neg_inf<T>();
     }
     __syncthreads();
-    window_stats<T>(sorted, reps, n, P, tf::fold_in(chrom_key, slot), perc,
-                    nsamples, out + w, out + nwin + w);
+    window_stats(sorted, reps, n, P, tf::fold_in(chrom_key, slot), perc,
+                 nsamples, KeyIsValue<T>{}, out + w, out + nwin + w);
 }
 
 template <typename T>

@@ -1,0 +1,119 @@
+// K2r: K2 in LUT-rank space — the window score and bootstrap stddev of
+// every window of a chromosome from its SNPs' int32 ranks into the
+// ascending LUT (K1r, fet_rank.cu).
+//
+// Replaces divergence_tpu/kernels/fet.py: fet_aggregate_all_ranks ->
+// _aggregate_ranks (the int32 sort with -1 pads, _sorted_pick, and the
+// picks mapped through lut_sorted just before interpolation).  Plain
+// torch version: divergence_tpu_torch/kernels/fet.py
+// fet_aggregate_ranks_plain.
+//
+// One block per window: load ranks[lo, lo+n) contiguously into shared
+// memory, -1 pads up to P = the next power of two >= n (at least 32),
+// then fet_window_stats.cuh:window_stats with value_of = a read of
+// lut_sorted.  The sort, picks, Renyi bootstrap and stddev are K2's own
+// code, so the result equals K1 -> K2 bit for bit: the window's ranks map
+// to the same multiset of scores in the same order.
+//
+// What bounds it on H100: as K2, the latency of small blocks (about 50
+// ranks a window, ~21 sort stages, (t1+1) x nsamples threefry hashes and
+// pow calls).  Against K2 the sort moves 4-byte keys instead of 8-byte
+// doubles in exact mode, and each pick adds one read of lut_sorted (139 KB
+// in float64 at 11 + 10, resident in L1/L2).
+#include "fet_window_stats.cuh"
+
+namespace {
+
+using namespace fetk;
+
+constexpr int kThreads = 128;
+
+// The score of a LUT rank.  end-anchored picks never read a -1 pad of a
+// window with n > 0; the clamp keeps any rank in range, as JAX's clip.
+template <typename T>
+struct LutValue {
+    const T* __restrict__ lut_sorted;
+    int G;
+    __device__ __forceinline__ T operator()(int rank) const {
+        return __ldg(lut_sorted + min(max(rank, 0), G - 1));
+    }
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+fet_aggregate_ranks(const T* __restrict__ lut_sorted, int G,
+                    const int* __restrict__ ranks,
+                    const int64_t* __restrict__ rows, int64_t nwin,
+                    uint2 chrom_key, T perc, int nsamples, int pmax,
+                    T* __restrict__ out) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    T* reps = reinterpret_cast<T*>(smem_raw);
+    int* sorted = reinterpret_cast<int*>(reps + nsamples);
+
+    const int64_t w = blockIdx.x;
+    const int64_t lo = rows[w];
+    const int n = static_cast<int>(rows[nwin + w]);
+    const uint32_t slot = static_cast<uint32_t>(rows[2 * nwin + w]);
+    if (n <= 0) {
+        if (threadIdx.x == 0) {
+            out[w] = T(0);
+            out[nwin + w] = T(0);
+        }
+        return;
+    }
+    const int P = window_pad(n);
+    for (int i = threadIdx.x; i < P; i += blockDim.x) {
+        sorted[i] = i < n ? ranks[lo + i] : -1;
+    }
+    __syncthreads();
+    window_stats(sorted, reps, n, P, tf::fold_in(chrom_key, slot), perc,
+                 nsamples, LutValue<T>{lut_sorted, G}, out + w, out + nwin + w);
+}
+
+template <typename T>
+int launch_aggregate_ranks(const T* lut_sorted, int G, const int* ranks,
+                           const int64_t* rows, int64_t nwin, uint32_t key0,
+                           uint32_t key1, double perc, int nsamples, int pmax,
+                           T* out, void* stream) {
+    if (nwin == 0) return 0;
+    if (G < 1 || pmax < 32 || nsamples < 1) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const size_t smem = static_cast<size_t>(nsamples) * sizeof(T) +
+                        static_cast<size_t>(pmax) * sizeof(int);
+    if (smem > 48 * 1024) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            fet_aggregate_ranks<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            static_cast<int>(smem));
+        if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    fet_aggregate_ranks<T><<<static_cast<unsigned>(nwin), kThreads, smem,
+                             static_cast<cudaStream_t>(stream)>>>(
+        lut_sorted, G, ranks, rows, nwin, make_uint2(key0, key1),
+        static_cast<T>(perc), nsamples, pmax, out);
+    return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+FET_EXPORT int fet_aggregate_ranks_f64(const double* lut_sorted, int G,
+                                       const int* ranks, const int64_t* rows,
+                                       int64_t nwin, uint32_t key0,
+                                       uint32_t key1, double perc,
+                                       int nsamples, int pmax, double* out,
+                                       void* stream) {
+    return launch_aggregate_ranks<double>(lut_sorted, G, ranks, rows, nwin,
+                                          key0, key1, perc, nsamples, pmax,
+                                          out, stream);
+}
+
+FET_EXPORT int fet_aggregate_ranks_f32(const float* lut_sorted, int G,
+                                       const int* ranks, const int64_t* rows,
+                                       int64_t nwin, uint32_t key0,
+                                       uint32_t key1, double perc,
+                                       int nsamples, int pmax, float* out,
+                                       void* stream) {
+    return launch_aggregate_ranks<float>(lut_sorted, G, ranks, rows, nwin,
+                                         key0, key1, perc, nsamples, pmax,
+                                         out, stream);
+}

@@ -56,18 +56,8 @@ __global__ void fet_snp_logs(const int16_t* __restrict__ vals, int64_t n,
     const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
     const int16_t* row = vals + i * (asize + bsize);
-    int f0 = 0, f1 = 0, f2 = 0, f3 = 0;
-    for (int k = 0; k < asize; ++k) {
-        const int v = row[k];
-        f0 += v == 3;
-        f1 += v == -3;
-    }
-    for (int k = asize; k < asize + bsize; ++k) {
-        const int v = row[k];
-        f2 += v == 3;
-        f3 += v == -3;
-    }
-    out[i] = snp_score(f0, f1, f2, f3, asize, bsize, lut, lf, nmax, maxs);
+    const Table t = count_table(row, asize, row + asize, bsize);
+    out[i] = snp_score(t, asize, bsize, lut, lf, nmax, maxs);
 }
 
 constexpr int kThreads = 256;

@@ -1,6 +1,7 @@
 // The per-table Fisher's exact test score -log10 p, shared by K1
-// (fet_snp.cu) and K10 (fet_window.cu): one definition, so both kernels
-// give the same value for the same 2x2 table, bit for bit.
+// (fet_snp.cu) and K10 (fet_window.cu), and the table count and grid
+// index that K1r (fet_rank.cu) uses too: one definition, so every kernel
+// gives the same value for the same 2x2 table, bit for bit.
 //
 // Replaces divergence_tpu/kernels/fet.py: _shift_min_first,
 // _support_logp, fet_two_tailed (exact, f64) and fet_two_tailed_neglog10
@@ -145,19 +146,47 @@ __device__ inline float neglog10_p(int f0, int f1, int f2, int f3, int maxs,
     return log_total > kLog1pNegTolF ? 0.0f : neglog10;
 }
 
-// The score of one SNP from its (f0, f1, f2, f3) table: the LUT entry
-// where the panel's LUT is on (lut != nullptr), else the support scan.
+// The 2x2 allele-count table of one SNP from its int16 genotype codes:
+// homozygous calls only (count_tables; reference
+// statistics/fisher/cFisher.c:208-238).  ra holds asize codes, rb bsize.
+struct Table {
+    int f0, f1, f2, f3;
+};
+
+__device__ __forceinline__ Table count_table(const int16_t* ra, int asize,
+                                             const int16_t* rb, int bsize) {
+    Table t{0, 0, 0, 0};
+    for (int k = 0; k < asize; ++k) {
+        const int c = ra[k];
+        t.f0 += c == 3;
+        t.f1 += c == -3;
+    }
+    for (int k = 0; k < bsize; ++k) {
+        const int c = rb[k];
+        t.f2 += c == 3;
+        t.f3 += c == -3;
+    }
+    return t;
+}
+
+// The table's entry of the row-major (f0, f1, f2, f3) grid (_lut_index).
+__device__ __forceinline__ int table_index(const Table& t, int asize,
+                                           int bsize) {
+    const int A1 = asize + 1, B1 = bsize + 1;
+    return ((t.f0 * A1 + t.f1) * B1 + t.f2) * B1 + t.f3;
+}
+
+// The score of one SNP from its table: the LUT entry where the panel's
+// LUT is on (lut != nullptr), else the support scan.
 template <typename T>
-__device__ __forceinline__ T snp_score(int f0, int f1, int f2, int f3,
-                                       int asize, int bsize,
+__device__ __forceinline__ T snp_score(const Table& t, int asize, int bsize,
                                        const T* __restrict__ lut,
                                        const T* __restrict__ lf, int nmax,
                                        int maxs) {
     if (lut != nullptr) {
-        const int A1 = asize + 1, B1 = bsize + 1;
-        return __ldg(lut + (((f0 * A1 + f1) * B1 + f2) * B1 + f3));
+        return __ldg(lut + table_index(t, asize, bsize));
     }
-    return neglog10_p(f0, f1, f2, f3, maxs, lf, nmax);
+    return neglog10_p(t.f0, t.f1, t.f2, t.f3, maxs, lf, nmax);
 }
 
 }  // namespace fetk

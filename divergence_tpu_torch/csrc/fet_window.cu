@@ -61,27 +61,16 @@ fet_window(const int16_t* __restrict__ av, const int16_t* __restrict__ bv,
     for (int i = threadIdx.x; i < P; i += blockDim.x) {
         T v = neg_inf<T>();
         if (i < n) {
-            const int16_t* ra = a + static_cast<int64_t>(i) * asize;
-            const int16_t* rb = b + static_cast<int64_t>(i) * bsize;
-            int f0 = 0, f1 = 0, f2 = 0, f3 = 0;
-            for (int k = 0; k < asize; ++k) {
-                const int c = ra[k];
-                f0 += c == 3;
-                f1 += c == -3;
-            }
-            for (int k = 0; k < bsize; ++k) {
-                const int c = rb[k];
-                f2 += c == 3;
-                f3 += c == -3;
-            }
-            v = snp_score(f0, f1, f2, f3, asize, bsize, lut, lf, nmax, maxs);
+            const Table t = count_table(a + static_cast<int64_t>(i) * asize, asize,
+                                        b + static_cast<int64_t>(i) * bsize, bsize);
+            v = snp_score(t, asize, bsize, lut, lf, nmax, maxs);
         }
         sorted[i] = v;
     }
     __syncthreads();
     const uint32_t slot = static_cast<uint32_t>(slots[w]);
-    window_stats<T>(sorted, reps, n, P, tf::fold_in(key, slot), perc,
-                    nsamples, out + w, out + nwin + w);
+    window_stats(sorted, reps, n, P, tf::fold_in(key, slot), perc, nsamples,
+                 KeyIsValue<T>{}, out + w, out + nwin + w);
 }
 
 template <typename T>

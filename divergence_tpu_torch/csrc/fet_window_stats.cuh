@@ -1,16 +1,24 @@
-// The per-window body of K2, shared by K2 (fet_aggregate.cu) and K10
-// (fet_window.cu): one block holds a window's n per-SNP scores in shared
-// memory and computes its score and bootstrap stddev.  One definition, so
-// K10 on gathered windows equals K1 -> K2 on the chromosome bit for bit.
+// The per-window body of K2, shared by K2 (fet_aggregate.cu), K10
+// (fet_window.cu) and K2r (fet_aggregate_ranks.cu): one block holds a
+// window's n per-SNP sort keys in shared memory and computes its score and
+// bootstrap stddev.  One definition, so K10 on gathered windows and K2r
+// on LUT ranks equal K1 -> K2 on the chromosome bit for bit.
 //
-// Replaces divergence_tpu/kernels/fet.py: _aggregate, with _interp_ranks,
-// _sorted_pick, _steps_max and _order_stat_uniforms.  Plain torch
-// version: divergence_tpu_torch/kernels/fet.py _aggregate.
+// Replaces divergence_tpu/kernels/fet.py: _aggregate and _aggregate_ranks,
+// with _interp_ranks, _sorted_pick, _steps_max and _order_stat_uniforms.
+// Plain torch version: divergence_tpu_torch/kernels/fet.py
+// _aggregate_sorted.
+//
+// The keys are the scores themselves (K2, K10: value_of is KeyIsValue) or
+// int32 ranks into the ascending LUT (K2r: value_of reads lut_sorted).
+// value_of is non-decreasing, so the order statistics of the keys map to
+// those of the scores, and every pick below is the same score either way.
 //
 //   1. bitonic sort of sorted[0, P), ascending: the caller has put the n
-//      scores in front and -inf pads up to P (the pads sort first);
+//      keys in front and pads that sort first (-inf, or rank -1) up to P;
 //   2. score = (1-d) s[idx] + d s[hi] with end-anchored picks
-//      s[P - n + rank] (reference statistics/fisher/cFisher.c:136-144);
+//      s[P - n + rank] = value_of(sorted[P - n + rank]) (reference
+//      statistics/fisher/cFisher.c:136-144);
 //   3. bootstrap, one thread per sample s: the Renyi recursion
 //      U_(n-j) = U_(n-j+1) * V_j^(1/max(n-j,1)), V_j = uniform(fold_in(
 //      wkey, j), (nsamples,))[s] drawn with the threefry replica; the
@@ -39,20 +47,27 @@ __device__ __forceinline__ int window_pad(int n) {
     return P;
 }
 
+// The value of a sort key that is the score itself (K2, K10).
+template <typename T>
+struct KeyIsValue {
+    __device__ __forceinline__ T operator()(T key) const { return key; }
+};
+
 // Every thread of the block calls it, after a barrier that publishes
 // sorted[0, P).  reps holds nsamples values.  Thread 0 writes the window's
 // score and stddev.
-template <typename T>
-__device__ void window_stats(T* sorted, T* reps, int n, int P, uint2 wkey,
-                             T perc, int nsamples, T* __restrict__ score_out,
+template <typename T, typename K, typename ValueOf>
+__device__ void window_stats(K* sorted, T* reps, int n, int P, uint2 wkey,
+                             T perc, int nsamples, ValueOf value_of,
+                             T* __restrict__ score_out,
                              T* __restrict__ stddev_out) {
     for (int k = 2; k <= P; k <<= 1) {
         for (int j = k >> 1; j > 0; j >>= 1) {
             for (int i = threadIdx.x; i < P; i += blockDim.x) {
                 const int ixj = i ^ j;
                 if (ixj > i) {
-                    const T a = sorted[i];
-                    const T b = sorted[ixj];
+                    const K a = sorted[i];
+                    const K b = sorted[ixj];
                     const bool up = (i & k) == 0;
                     if (up ? (a > b) : (a < b)) {
                         sorted[i] = b;
@@ -73,7 +88,7 @@ __device__ void window_stats(T* sorted, T* reps, int n, int P, uint2 wkey,
     const int hi = min(idx + 1, max(n - 1, 0));
     const int base = P - n;
     auto pick = [&](int rank) {
-        return sorted[min(max(base + rank, 0), P - 1)];
+        return value_of(sorted[min(max(base + rank, 0), P - 1)]);
     };
     if (threadIdx.x == 0) {
         *score_out = (one - delta) * pick(idx) + delta * pick(hi);

@@ -4,19 +4,23 @@ Window plan (host) -> per-SNP scores once per chromosome (K1) -> every
 window's percentile and bootstrap stddev in one launch (K2) -> dense
 score / stddev tracks, with one device-to-host copy per device and run.
 
+Exact mode in the LUT regime takes the JAX engine's rank route instead:
+K1r (the sorted LUT and each SNP's int32 rank into it) once per
+chromosome, then K2r (K2 on the ranks), whose results equal K1 -> K2
+bit for bit.  Fast mode and panels without a LUT keep K1 -> K2, as there.
+
 ``sharding=`` (a ``parallel.make_mesh`` tuple) cuts the valid windows
-into contiguous shares, one per device: each device runs K1 over the
-chromosome (one upload per device, cached on the ``SnpPair``) and K2 over
-its share.  ``slot_range=`` restricts the windows to the slots a host
-owns (multi-host partitioning, ``parallel/multihost.py``).  The bootstrap
-streams are keyed by (seed, chromosome, slot), so both give the unsplit
-run's values.
+into contiguous shares, one per device: each device runs K1 (or K1r)
+over the chromosome (one upload per device, cached on the ``SnpPair``)
+and K2 (or K2r) over its share.  ``slot_range=`` restricts the windows to
+the slots a host owns (multi-host partitioning,
+``parallel/multihost.py``).  The bootstrap streams are keyed by (seed,
+chromosome, slot), so both give the unsplit run's values.
 
 Left out against the JAX engine, because Hopper does not need them: the
-``lax.map`` window slices (``Bp``), the power-of-two ``P`` buckets, the
-two-stage gather bound (``slice_span_bound``) and the int32 LUT-rank
-path — the K2 kernel takes every window of a chromosome at once and
-sorts floats natively.
+``lax.map`` window slices (``Bp``), the power-of-two ``P`` buckets and
+the two-stage gather bound (``slice_span_bound``) — the K2 and K2r
+kernels take every window of a chromosome at once.
 """
 
 from __future__ import annotations
@@ -37,6 +41,13 @@ def chromosome_key(seed: int, seqid: str) -> torch.Tensor:
     """``fold_in(PRNGKey(seed), chrom_hash(seqid))`` on the host: the
     stream every window of ``seqid`` folds its slot into."""
     return rng.fold_in(rng.prng_key(seed), rng.chrom_hash(seqid))
+
+
+def use_ranks(cfg: FetConfig, pair: SnpPair) -> bool:
+    """Whether the sweep takes the rank route (K1r -> K2r): exact mode
+    where the panel's LUT is on (``divergence_tpu/engine/fet_engine.py``'s
+    ``use_ranks``)."""
+    return cfg.precision != "fast" and kfet.lut_active(pair.asize, pair.bsize)
 
 
 def _fet_dispatch(
@@ -72,27 +83,29 @@ def _fet_dispatch(
         return nslots, None
 
     fast = cfg.precision == "fast"
+    ranked = use_ranks(cfg, pair)
     maxs = kfet.support_size(pair.asize, pair.bsize)
     nmax = pair.asize + pair.bsize + 2
-    logs_of = {}   # per device: a device repeated in the mesh reuses K1's scores
+    per_snp = {}   # per device: a device repeated in the mesh reuses K1's (K1r's) output
     outs = []
     for dev, sl in zip(devices, window_slices(len(ids), devices)):
         if sl.start == sl.stop:
             continue
-        if dev not in logs_of:
+        if dev not in per_snp:
             # int16 codes: FET only ==-compares them, so the compact upload
             # is result-identical (engine/snp.py)
             vals = pair.to_device(dev, compact=True)
-            logs_of[dev] = kfet.fet_snp_logs(vals, pair.asize, maxs, nmax, fast=fast)
+            snp_fn = kfet.fet_snp_ranks if ranked else kfet.fet_snp_logs
+            per_snp[dev] = snp_fn(vals, pair.asize, maxs, nmax, fast=fast)
         lo, npos, slot = (
             torch.from_numpy(np.ascontiguousarray(a[ids[sl]]))
             for a in (plan.lo, plan.npos, plan.slot)
         )
-        outs.append(kfet.fet_aggregate(
-            logs_of[dev], lo, npos, slot, key,
-            perc=float(cfg.percentile),
-            nsamples=cfg.bootstrap_samples,
-        ))
+        window_args = (lo, npos, slot, key, float(cfg.percentile), cfg.bootstrap_samples)
+        if ranked:
+            outs.append(kfet.fet_aggregate_ranks(*per_snp[dev], *window_args))
+        else:
+            outs.append(kfet.fet_aggregate(per_snp[dev], *window_args))
     return nslots, (plan.slot[ids], outs)
 
 

@@ -6,6 +6,7 @@ from divergence_tpu_torch.io.gtrack import (
     read_gtrack_points,
     read_score_track,
     write_score_track,
+    write_segments_track,
 )
 
 __all__ = [
@@ -14,4 +15,5 @@ __all__ = [
     "read_gtrack_points",
     "read_score_track",
     "write_score_track",
+    "write_segments_track",
 ]

@@ -11,7 +11,7 @@ Genotype codes: 3 homozygous major, -3 homozygous minor, 0 heterozygous,
 
 Copied from ``divergence_tpu/io/gtrack.py`` (the JAX package imports
 jax, and the port runs where jax is not installed): the Python reader,
-the score-track writer and reader, verbatim.  The JAX package's native
+the score-track writer and reader and the segments writer, verbatim.  The JAX package's native
 C++ parser is not used here; :func:`read_gtrack_points` always takes the
 Python reader.  ``tests/test_torch_host_copies.py`` holds the copies
 equal to the originals.
@@ -254,3 +254,22 @@ def read_score_track(
         np.asarray(c3, dtype=np.float64),
     )
 
+
+def write_segments_track(
+    path: str | Path,
+    segments: list[tuple[str, int, int]],
+    sorted_elements: bool = False,
+) -> None:
+    """Write a GTrack segments file (region-calling output; reference
+    tools/FilterFisherScores.py:75-80)."""
+    with open(path, "w") as fh:
+        fh.write(
+            "##gtrack version: 1.0\n"
+            "##track type: segments\n"
+            "##uninterrupted data lines: true\n"
+            f"##sorted elements: {'true' if sorted_elements else 'false'}\n"
+            "##no overlapping elements: true\n"
+            "###seqid\tstart\tend\n"
+        )
+        for seqid, start, end in segments:
+            fh.write(f"{seqid}\t{start}\t{end}\n")

@@ -53,6 +53,15 @@ _SIGNATURES = {
     "fet_snp_logs_{t}": (_P, _I64, _I, _I, _P, _P, _I, _I, _P, _P),
     # logs, rows[3, B], B, key0, key1, perc, nsamples, pmax, out, stream
     "fet_aggregate_{t}": (_P, _P, _I64, _U32, _U32, _D, _I, _I, _P, _P),
+    # lut, G, span, scratch keys / index x 2 (nullable), lut_sorted,
+    # rank_of_entry, stream
+    "fet_lut_rank_{t}": (_P, _I, _I, _P, _P, _P, _P, _P, _P, _P),
+    # vals, n, asize, bsize, rank_of_entry, out, stream
+    "fet_snp_ranks": (_P, _I64, _I, _I, _P, _P, _P),
+    # lut_sorted, G, ranks, rows[3, B], B, key0, key1, perc, nsamples, pmax,
+    # out, stream
+    "fet_aggregate_ranks_{t}": (_P, _I, _P, _P, _I64, _U32, _U32, _D, _I, _I, _P,
+                                _P),
     # av, bv, npos, slots, B, p_in, asize, bsize, lut (nullable), lf, nmax,
     # maxs, key0, key1, perc, nsamples, pmax, out, stream
     "fet_window_{t}": (_P, _P, _P, _P, _I64, _I, _I, _I, _P, _P, _I, _I, _U32,

@@ -7,27 +7,34 @@ reference statistics/fisher/cFisher.c:405-455, and the order-statistic
 bootstrap of the window percentile, cFisher.c:562-597).  The math is
 plain torch on tensors of any device.
 
-Four functions launch hand-written CUDA kernels (``csrc/``) when their
+These functions launch hand-written CUDA kernels (``csrc/``) when their
 tensors lie on a CUDA device, and run the plain torch version when they
 lie on the CPU:
 
-* :func:`fet_lut`          — ``csrc/fet_snp.cu:fet_lut_build``, the score
-  of every possible table (K1, LUT regime);
-* :func:`fet_snp_logs`     — ``csrc/fet_snp.cu:fet_snp_logs``, the score
-  of every SNP (K1);
-* :func:`fet_aggregate`    — ``csrc/fet_aggregate.cu``, every window of a
-  chromosome in one launch (K2);
-* :func:`fet_window_batch` — ``csrc/fet_window.cu``, K1's per-table score
-  and K2's window body on pre-gathered windows (K10), the sharded step's
-  FET part.
+* :func:`fet_lut`             — ``csrc/fet_snp.cu:fet_lut_build``, the
+  score of every possible table (K1, LUT regime);
+* :func:`fet_snp_logs`        — ``csrc/fet_snp.cu:fet_snp_logs``, the
+  score of every SNP (K1);
+* :func:`fet_aggregate`       — ``csrc/fet_aggregate.cu``, every window of
+  a chromosome in one launch (K2);
+* :func:`fet_lut_rank`        — ``csrc/fet_rank.cu:fet_lut_rank``, the
+  stable ascending sort of the LUT (K1r);
+* :func:`fet_snp_ranks`       — ``csrc/fet_rank.cu:fet_snp_ranks``, every
+  SNP's rank into the sorted LUT (K1r, with K1's LUT build and the sort);
+* :func:`fet_aggregate_ranks` — ``csrc/fet_aggregate_ranks.cu``, K2 on the
+  ranks, mapped through the sorted LUT (K2r);
+* :func:`fet_window_batch`    — ``csrc/fet_window.cu``, K1's per-table
+  score and K2's window body on pre-gathered windows (K10), the sharded
+  step's FET part.
 
 There is no fallback: on a CUDA tensor the kernel runs or the call
 raises.  Each launch adds one to :data:`LAUNCHES`.
 
-Not ported, because they exist only for the TPU and are bit-identical to
-the float path (``divergence_tpu/kernels/fet.py`` docstrings and
-``tests/test_fet_kernel.py::test_rank_path_bit_identical``): the int32
-LUT-rank path, the one-hot MXU picks and the two-stage window gather.
+The rank path (K1r -> K2r) is the JAX package's exact-mode route in the
+LUT regime (``divergence_tpu/engine/fet_engine.py``): its window sort
+runs on int32 ranks, and its results equal the float path's (K1 -> K2)
+bit for bit.  Not ported, because they exist only for the TPU: the
+one-hot MXU picks and the two-stage window gather.
 """
 
 from __future__ import annotations
@@ -50,7 +57,15 @@ _SMEM_LIMIT = 232_448          # bytes of shared memory a Hopper block may use
 _AGG_WINDOW_CHUNK = 65_536     # windows per step of the plain aggregate
 
 # kernel launches since the last reset_launches(), by kernel name
-LAUNCHES = {"fet_lut_build": 0, "fet_snp_logs": 0, "fet_aggregate": 0, "fet_window": 0}
+LAUNCHES = {"fet_lut_build": 0, "fet_snp_logs": 0, "fet_aggregate": 0, "fet_window": 0,
+            "fet_lut_rank": 0, "fet_snp_ranks": 0, "fet_aggregate_ranks": 0}
+
+# K1r's LUT sort: one counting pass over the whole LUT up to this many
+# entries (17,424 at 11 + 10); above it, counting runs of _LUT_RANK_RUN
+# entries and merge passes (2.3 M entries at 38 + 38, the largest
+# symmetric panel where the LUT is on)
+_LUT_RANK_WHOLE = 1 << 16
+_LUT_RANK_RUN = 1024
 
 
 def reset_launches() -> None:
@@ -401,18 +416,15 @@ def _order_stat_uniforms(wkeys, nf, t1, t2, nsamples, steps_max, dtype):
     return u1, u2
 
 
-def _aggregate(logs, npos, perc, wkeys, nsamples, dtype):
-    """Window score (interpolated percentile of ``logs[b, :npos[b]]``)
-    and bootstrap stddev, for ``logs`` [B, P] and keys [B, 2]."""
-    B, P = logs.shape
-    snp_mask = torch.arange(P, device=logs.device)[None, :] < npos[:, None]
-    logs_sorted = torch.sort(
-        torch.where(snp_mask, logs, float("-inf")), dim=-1
-    ).values
-
+def _aggregate_sorted(keys_sorted, npos, perc, wkeys, nsamples, dtype, value_of):
+    """Window score (interpolated percentile) and bootstrap stddev from
+    each window's ascending sort keys ``keys_sorted`` [B, P], the n valid
+    keys last; ``value_of`` maps picked keys to scores (non-decreasing, so
+    the keys' order statistics are the scores').  Keys [B, 2]."""
+    P = keys_sorted.shape[-1]
     idx, hi_idx, delta = _interp_ranks(npos, perc, dtype=dtype)
-    v_lo = _sorted_pick(logs_sorted, npos, idx[:, None])[:, 0]
-    v_hi = _sorted_pick(logs_sorted, npos, hi_idx[:, None])[:, 0]
+    v_lo = value_of(_sorted_pick(keys_sorted, npos, idx[:, None])[:, 0])
+    v_hi = value_of(_sorted_pick(keys_sorted, npos, hi_idx[:, None])[:, 0])
     scores = (1.0 - delta) * v_lo + delta * v_hi
 
     # Bootstrap stddev via order statistics: the percentile of a resample
@@ -431,9 +443,9 @@ def _aggregate(logs, npos, perc, wkeys, nsamples, dtype):
         r = torch.minimum(torch.clamp(r, min=0.0), torch.clamp(nf - 1.0, min=0.0))
         return r.to(torch.int64)
 
-    x1 = _sorted_pick(logs_sorted, npos, rank_of(u1))       # [B, S]
+    x1 = value_of(_sorted_pick(keys_sorted, npos, rank_of(u1)))       # [B, S]
     same = (hi_idx == idx)[:, None]
-    x2 = torch.where(same, x1, _sorted_pick(logs_sorted, npos, rank_of(u2)))
+    x2 = torch.where(same, x1, value_of(_sorted_pick(keys_sorted, npos, rank_of(u2))))
     reps = (1.0 - delta[:, None]) * x1 + delta[:, None] * x2
     mu = reps.mean(-1, keepdim=True)
     stddev = torch.sqrt(((reps - mu) ** 2).mean(-1))
@@ -445,6 +457,32 @@ def _aggregate(logs, npos, perc, wkeys, nsamples, dtype):
     )
 
 
+def _aggregate(logs, npos, perc, wkeys, nsamples, dtype):
+    """Window score and bootstrap stddev for per-SNP scores ``logs``
+    [B, P] (``divergence_tpu/kernels/fet.py:_aggregate``): -inf pads sort
+    first."""
+    P = logs.shape[-1]
+    snp_mask = torch.arange(P, device=logs.device)[None, :] < npos[:, None]
+    logs_sorted = torch.sort(
+        torch.where(snp_mask, logs, float("-inf")), dim=-1
+    ).values
+    return _aggregate_sorted(logs_sorted, npos, perc, wkeys, nsamples, dtype,
+                             lambda v: v)
+
+
+def _aggregate_ranks(ranks, npos, perc, wkeys, nsamples, lut_sorted):
+    """:func:`_aggregate` in LUT-rank space
+    (``divergence_tpu/kernels/fet.py:_aggregate_ranks``): the window sort
+    runs on int32 ranks ``ranks`` [B, P] with -1 pads (they sort first),
+    and each pick maps through ``lut_sorted`` just before interpolation."""
+    P = ranks.shape[-1]
+    G = lut_sorted.shape[0]
+    snp_mask = torch.arange(P, device=ranks.device)[None, :] < npos[:, None]
+    r_sorted = torch.sort(torch.where(snp_mask, ranks, -1), dim=-1).values
+    return _aggregate_sorted(r_sorted, npos, perc, wkeys, nsamples, lut_sorted.dtype,
+                             lambda r: lut_sorted[r.clamp(0, G - 1)])
+
+
 def _window_pad(max_npos: int) -> int:
     """Padded per-window SNP count: the next power of two >= the largest
     window, at least 32 (the JAX engine's ``P``)."""
@@ -454,14 +492,11 @@ def _window_pad(max_npos: int) -> int:
     return P
 
 
-def fet_aggregate_plain(
-    snp_logs, lo, npos, slot, chrom_key, perc, nsamples
-) -> torch.Tensor:
-    """Plain torch version of :func:`fet_aggregate` (windows processed in
-    chunks of ``_AGG_WINDOW_CHUNK`` to bound memory; every window's result
-    depends on that window alone)."""
-    dev = snp_logs.device
-    dtype = snp_logs.dtype
+def _plain_over_windows(per_snp, lo, npos, slot, chrom_key, dtype, body):
+    """Gather ``per_snp`` [N] into [b, P] windows in chunks of
+    ``_AGG_WINDOW_CHUNK`` (to bound memory; every window's result depends
+    on that window alone) and run ``body(windows, npos, wkeys)`` on each."""
+    dev = per_snp.device
     lo, npos, slot = (t.to(dev, torch.int64) for t in (lo, npos, slot))
     key = chrom_key.to(dev, torch.int64)
     B = lo.shape[0]
@@ -473,12 +508,47 @@ def fet_aggregate_plain(
     for s in range(0, B, _AGG_WINDOW_CHUNK):
         sl = slice(s, min(s + _AGG_WINDOW_CHUNK, B))
         gidx = torch.where(offs < npos[sl, None], lo[sl, None] + offs, 0)
-        logs = snp_logs[gidx]                                # [b, P]
-        wkeys = rng.slot_keys(key, slot[sl])
-        sc, sd = _aggregate(logs, npos[sl], perc, wkeys, nsamples, dtype)
+        sc, sd = body(per_snp[gidx], npos[sl], rng.slot_keys(key, slot[sl]))
         out[0, sl] = sc
         out[1, sl] = sd
     return out
+
+
+def fet_aggregate_plain(
+    snp_logs, lo, npos, slot, chrom_key, perc, nsamples
+) -> torch.Tensor:
+    """Plain torch version of :func:`fet_aggregate`."""
+    dtype = snp_logs.dtype
+    return _plain_over_windows(
+        snp_logs, lo, npos, slot, chrom_key, dtype,
+        lambda logs, n, wkeys: _aggregate(logs, n, perc, wkeys, nsamples, dtype),
+    )
+
+
+def _window_rows(kernel, lo, npos, slot, nsnps, dev, smem_bytes):
+    """The window descriptors packed [3, B] int64 on ``dev``, after the
+    checks every window kernel needs; and the largest window's padded
+    width P.  ``smem_bytes(P)`` is a block's shared memory."""
+    pmax = _window_pad(int(npos.max()))
+    if pmax > MAX_WINDOW_SNPS:
+        raise ValueError(
+            f"a window holds {int(npos.max())} SNPs; the {kernel} "
+            f"kernel sorts at most {MAX_WINDOW_SNPS} per window"
+        )
+    smem = smem_bytes(pmax)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(
+            f"{kernel} needs {smem} B of shared memory per window "
+            f"(P={pmax}); a block has {_SMEM_LIMIT}"
+        )
+    if int(lo.min()) < 0 or int((lo + npos).max()) > nsnps:
+        raise ValueError(f"window descriptors reach outside the {nsnps} SNPs")
+    rows = torch.stack([lo, npos, slot]).to(torch.int64)
+    if rows.device.type == "cpu":
+        # pinned + non_blocking: the upload queues behind K1 instead of
+        # waiting for it
+        rows = rows.pin_memory()
+    return rows.to(dev, non_blocking=True), pmax
 
 
 def fet_aggregate(
@@ -509,31 +579,160 @@ def fet_aggregate(
     out = torch.empty((2, B), dtype=dtype, device=dev)
     if B == 0:
         return out
-    pmax = _window_pad(int(npos.max()))
-    if pmax > MAX_WINDOW_SNPS:
-        raise ValueError(
-            f"a window holds {int(npos.max())} SNPs; the fet_aggregate "
-            f"kernel sorts at most {MAX_WINDOW_SNPS} per window"
-        )
-    smem = (pmax + nsamples) * snp_logs.element_size()
-    if smem > _SMEM_LIMIT:
-        raise ValueError(
-            f"fet_aggregate needs {smem} B of shared memory per window "
-            f"(P={pmax}, nsamples={nsamples}); a block has {_SMEM_LIMIT}"
-        )
-    if int(lo.min()) < 0 or int((lo + npos).max()) > snp_logs.shape[0]:
-        raise ValueError("window descriptors reach outside snp_logs")
-    rows = torch.stack([lo, npos, slot]).to(torch.int64)
-    if rows.device.type == "cpu":
-        # pinned + non_blocking: the upload queues behind K1 instead of
-        # waiting for it
-        rows = rows.pin_memory()
-    rows = rows.to(dev, non_blocking=True)
+    size = snp_logs.element_size()
+    rows, pmax = _window_rows("fet_aggregate", lo, npos, slot, snp_logs.shape[0], dev,
+                              lambda P: (P + nsamples) * size)
     k0, k1 = (int(w) for w in chrom_key.tolist())
     launch(
         LAUNCHES, "fet_aggregate", f"fet_aggregate_{dtype_suffix(dtype)}", dev,
         ptr(snp_logs), ptr(rows), B, ctypes.c_uint32(k0),
         ctypes.c_uint32(k1), ctypes.c_double(perc), nsamples, pmax, ptr(out),
+    )
+    return out
+
+
+# --------------------------------------------------------------------------
+# K1r / K2r: the LUT-rank path (exact mode in the LUT regime)
+# --------------------------------------------------------------------------
+
+def _require_lut(asize: int, bsize: int) -> None:
+    if not lut_active(asize, bsize):
+        raise ValueError(
+            f"the rank path needs the table LUT, which is off at {asize} + {bsize}"
+        )
+
+
+def fet_lut_rank_plain(lut: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch version of :func:`fet_lut_rank`.  ``lut + 0.0`` turns
+    -0.0 into +0.0, so the stable sort ties the two zeros as IEEE ``<``
+    does (torch's CUDA sort orders float bits)."""
+    G = lut.shape[0]
+    order = torch.sort(lut + 0.0, stable=True).indices
+    rank_of_entry = torch.empty(G, dtype=torch.int32, device=lut.device)
+    rank_of_entry[order] = torch.arange(G, dtype=torch.int32, device=lut.device)
+    return lut[order], rank_of_entry
+
+
+def fet_lut_rank(lut: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(lut_sorted, rank_of_entry)``: the LUT in ascending order and each
+    entry's place in it, int32 (``divergence_tpu/kernels/fet.py:
+    fet_snp_ranks_joint``'s stable ``jnp.argsort``: IEEE ``<`` on the
+    values, ties by index, -0.0 == +0.0)."""
+    if is_cpu(lut):
+        return fet_lut_rank_plain(lut)
+    if lut.dim() != 1 or not lut.is_contiguous():
+        raise ValueError("fet_lut_rank kernel takes a contiguous [G] LUT")
+    G = lut.shape[0]
+    if G >= 1 << 24:
+        raise ValueError(f"fet_lut_rank takes fewer than 2^24 entries, got {G}")
+    dev = lut.device
+    span = G if G <= _LUT_RANK_WHOLE else _LUT_RANK_RUN
+    lut_sorted = torch.empty_like(lut)
+    rank_of_entry = torch.empty(G, dtype=torch.int32, device=dev)
+    scratch = [None] * 4         # two (keys, index) run buffers for the merges
+    if span < G:
+        scratch = [torch.empty_like(lut), torch.empty_like(rank_of_entry),
+                   torch.empty_like(lut), torch.empty_like(rank_of_entry)]
+    launch(
+        LAUNCHES, "fet_lut_rank", f"fet_lut_rank_{dtype_suffix(lut.dtype)}", dev,
+        ptr(lut), G, span, *map(ptr, scratch), ptr(lut_sorted), ptr(rank_of_entry),
+    )
+    return lut_sorted, rank_of_entry
+
+
+def fet_snp_ranks_plain(
+    vals: torch.Tensor, asize: int, maxs: int, nmax: int, fast: bool = False
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch version of :func:`fet_snp_ranks`."""
+    bsize = vals.shape[1] - asize
+    _require_lut(asize, bsize)
+    dtype = compute_dtype("fast" if fast else "exact")
+    lut_sorted, rank_of_entry = fet_lut_rank_plain(
+        fet_lut_plain(asize, bsize, maxs, nmax, dtype, vals.device)
+    )
+    tables = count_tables(vals[:, :asize], vals[:, asize:])
+    return lut_sorted, rank_of_entry[_lut_index(tables, asize, bsize)]
+
+
+def fet_snp_ranks(
+    vals: torch.Tensor, asize: int, maxs: int, nmax: int, fast: bool = False
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(lut_sorted [G], ranks [N] int32)``: the ascending table LUT and
+    every SNP's rank into it, so ``lut_sorted[ranks]`` are the SNPs'
+    scores (``divergence_tpu/kernels/fet.py:fet_snp_ranks_joint``).  Only
+    where :func:`lut_active`.  ``vals`` as :func:`fet_snp_logs`."""
+    if is_cpu(vals):
+        return fet_snp_ranks_plain(vals, asize, maxs, nmax, fast)
+    if vals.dtype != torch.int16:
+        raise TypeError(
+            f"fet_snp_ranks kernel takes int16 genotype codes, got {vals.dtype}"
+        )
+    if vals.dim() != 2 or not vals.is_contiguous():
+        raise ValueError("fet_snp_ranks kernel takes a contiguous [N, a+b] tensor")
+    bsize = vals.shape[1] - asize
+    _require_lut(asize, bsize)
+    dtype = compute_dtype("fast" if fast else "exact")
+    lut_sorted, rank_of_entry = fet_lut_rank(
+        fet_lut(asize, bsize, maxs, nmax, dtype, vals.device)
+    )
+    out = torch.empty(vals.shape[0], dtype=torch.int32, device=vals.device)
+    launch(
+        LAUNCHES, "fet_snp_ranks", "fet_snp_ranks", vals.device,
+        ptr(vals), vals.shape[0], asize, bsize, ptr(rank_of_entry), ptr(out),
+    )
+    return lut_sorted, out
+
+
+def fet_aggregate_ranks_plain(
+    lut_sorted, ranks, lo, npos, slot, chrom_key, perc, nsamples
+) -> torch.Tensor:
+    """Plain torch version of :func:`fet_aggregate_ranks`."""
+    return _plain_over_windows(
+        ranks, lo, npos, slot, chrom_key, lut_sorted.dtype,
+        lambda r, n, wkeys: _aggregate_ranks(r, n, perc, wkeys, nsamples, lut_sorted),
+    )
+
+
+def fet_aggregate_ranks(
+    lut_sorted: torch.Tensor,  # [G] ascending LUT (fet_snp_ranks)
+    ranks: torch.Tensor,       # [N] int32 per-SNP ranks into lut_sorted
+    lo: torch.Tensor,          # [B] first SNP index per window
+    npos: torch.Tensor,        # [B] SNP count per window (> 0)
+    slot: torch.Tensor,        # [B] output slot (window genomic identity)
+    chrom_key: torch.Tensor,   # [2] chromosome key; windows fold in their slot
+    perc: float,
+    nsamples: int,
+) -> torch.Tensor:
+    """:func:`fet_aggregate` in LUT-rank space
+    (``divergence_tpu/kernels/fet.py:fet_aggregate_all_ranks``): every
+    window's percentile and bootstrap stddev from its SNPs' ranks, equal
+    bit for bit to :func:`fet_aggregate` on ``lut_sorted[ranks]``.
+    Returns [2, B] in ``lut_sorted.dtype``; descriptors as there."""
+    if is_cpu(ranks):
+        return fet_aggregate_ranks_plain(
+            lut_sorted, ranks, lo, npos, slot, chrom_key, perc, nsamples
+        )
+    dev = ranks.device
+    dtype = lut_sorted.dtype
+    if ranks.dtype != torch.int32 or ranks.dim() != 1 or not ranks.is_contiguous():
+        raise ValueError("fet_aggregate_ranks kernel takes contiguous [N] int32 ranks")
+    if lut_sorted.dim() != 1 or not lut_sorted.is_contiguous() or lut_sorted.device != dev:
+        raise ValueError(
+            "fet_aggregate_ranks kernel takes a contiguous [G] LUT on the ranks' device"
+        )
+    B = lo.shape[0]
+    out = torch.empty((2, B), dtype=dtype, device=dev)
+    if B == 0:
+        return out
+    size = lut_sorted.element_size()
+    rows, pmax = _window_rows("fet_aggregate_ranks", lo, npos, slot, ranks.shape[0], dev,
+                              lambda P: P * 4 + nsamples * size)
+    k0, k1 = (int(w) for w in chrom_key.tolist())
+    launch(
+        LAUNCHES, "fet_aggregate_ranks", f"fet_aggregate_ranks_{dtype_suffix(dtype)}", dev,
+        ptr(lut_sorted), lut_sorted.shape[0], ptr(ranks), ptr(rows), B,
+        ctypes.c_uint32(k0), ctypes.c_uint32(k1), ctypes.c_double(perc), nsamples, pmax,
+        ptr(out),
     )
     return out
 

@@ -2,8 +2,11 @@
 ``run-fet``, the windowed Fisher's Exact Test scan, and ``run-css``, the
 windowed Cluster Separation Score scan (they replace reference
 tools/FisherExactTestSNPTool.py and tools/ClusterSeparationScore.py);
-``merge-tracks``, which joins the score-track shards of a multi-host run;
-and ``bench-scaling``, the sharded step over 1..N devices.
+``filter-fet`` and ``call-css-regions``, the region callers (reference
+tools/FilterFisherScores.py and tools/SignificantCSSRegions.py);
+``report``, an HTML summary; ``run-all``, the whole pipeline in one
+process; ``merge-tracks``, which joins the score-track shards of a
+multi-host run; and ``bench-scaling``, the sharded step over 1..N devices.
 
 Usage::
 
@@ -11,6 +14,13 @@ Usage::
         --pop-b B.gtrack --out fet.track [--device cuda|cpu] ...
     python -m divergence_tpu_torch.tools.cli run-css --pop-a A.gtrack \\
         --pop-b B.gtrack --out css.track [--device cuda|cpu] ...
+    python -m divergence_tpu_torch.tools.cli filter-fet --scores fet.track \\
+        --out fet_regions.gtrack
+    python -m divergence_tpu_torch.tools.cli call-css-regions \\
+        --scores css.track --out css_regions.gtrack
+    # both scans, both region callers and report.html into one directory
+    python -m divergence_tpu_torch.tools.cli run-all --pop-a A.gtrack \\
+        --pop-b B.gtrack --outdir out/ [--device cuda|cpu] ...
     # host k of N (k = 0 .. N-1), then join the shards anywhere
     python -m divergence_tpu_torch.tools.cli run-fet ... --num-hosts N \\
         --host-id k --out fet.hk.track
@@ -28,6 +38,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import json
 import sys
 import time
 from pathlib import Path
@@ -137,7 +148,7 @@ def _profile(directory, devices):
     print(f"wrote {out / 'trace.json'}")
 
 
-def _run_engine(args, engine, engine_multi, cfg, columns) -> None:
+def _run_engine(args, engine, engine_multi, cfg, columns, preloaded=None) -> None:
     """The part-file and resume logic shared by ``run-fet`` and ``run-css``
     (``divergence_tpu/tools/cli.py:_run_engine``).
 
@@ -148,15 +159,20 @@ def _run_engine(args, engine, engine_multi, cfg, columns) -> None:
     chromosomes run through ``engine_multi`` (one host sync), a single one
     through ``engine``.  The random streams are (seed, chromosome, slot)-
     or (seed, chunk)-pinned, so resumed, sharded and fresh tracks are
-    byte-identical."""
+    byte-identical.  ``preloaded`` = (pairs, slot_ranges, sharding) lets
+    ``run-all`` read, align and upload the genome once for both engines
+    (the upload is cached on each ``SnpPair``, engine/snp.py)."""
     from divergence_tpu_torch import resolve_device
     from divergence_tpu_torch.io import read_score_track, write_score_track
     from divergence_tpu_torch.utils.summary import RunSummary
 
     device = resolve_device(args.device)
     summary = RunSummary(name=args.cmd)
-    pairs, slot_ranges = _host_filter(_load_pairs(args), args)
-    sharding = _mesh_sharding(args, device)
+    if preloaded is None:
+        pairs, slot_ranges = _host_filter(_load_pairs(args), args)
+        sharding = _mesh_sharding(args, device)
+    else:
+        pairs, slot_ranges, sharding = preloaded
 
     def _part_name(seqid):
         r = (slot_ranges or {}).get(seqid)
@@ -257,18 +273,22 @@ def _run_engine(args, engine, engine_multi, cfg, columns) -> None:
         summary.write(args.summary)
 
 
-def cmd_run_fet(args) -> None:
+def _fet_config(args):
     from divergence_tpu_torch.config import FetConfig, WindowConfig
-    from divergence_tpu_torch.engine import run_fet, run_fet_multi
 
-    cfg = FetConfig(
+    return FetConfig(
         window=WindowConfig(wsize=args.wsize, wstep=args.wstep),
         percentile=args.percentile,
         bootstrap_samples=args.bootstrap_samples,
         seed=args.seed,
         precision=args.precision,
     )
-    _run_engine(args, run_fet, run_fet_multi, cfg, ("score", "stddev"))
+
+
+def cmd_run_fet(args) -> None:
+    from divergence_tpu_torch.engine import run_fet, run_fet_multi
+
+    _run_engine(args, run_fet, run_fet_multi, _fet_config(args), ("score", "stddev"))
 
 
 def _mds_enum(name):
@@ -282,25 +302,18 @@ def _mds_enum(name):
     }[name]
 
 
-def cmd_run_css(args) -> None:
-    """The CSS scan.  The flags are the JAX CLI's and all of them run: the
-    three ``--mds`` modes, ``--drosophila`` (frequency tracks), ``--p-mode
-    mc|approx``, ``--mc-stream shared|window``, ``--rng mix|threefry`` and
+def _css_config(args):
+    """The CSS scan's configuration, shared by ``run-css`` and ``run-all``
+    (one copy, so the two write the same track).  The flags are the JAX
+    CLI's and all of them run: the three ``--mds`` modes,
+    ``--drosophila`` (frequency tracks), ``--p-mode mc|approx``,
+    ``--mc-stream shared|window``, ``--rng mix|threefry`` and
     ``--perm-backend xla|native``.  ``--perm-form`` is accepted and
     changes nothing: both JAX forms score the same permutations and differ
     only in float32 rounding; the port has one form."""
     from divergence_tpu_torch.config import CssConfig, WindowConfig
-    from divergence_tpu_torch.engine import run_css, run_css_multi
 
-    if args.p_mode == "approx":
-        # the model error the JAX CLI states (baseline/exp_approx_tail.py)
-        print(
-            "WARNING: --p-mode approx is ANTI-conservative in the extreme "
-            "tail (p up to ~4x too small for true p <= 1e-3; docs/PARITY.md) "
-            "— prefer the default --p-mode mc",
-            file=sys.stderr,
-        )
-    cfg = CssConfig(
+    return CssConfig(
         window=WindowConfig(wsize=args.wsize, wstep=args.wstep),
         mc_threshold=args.mc_threshold,
         mc_runs=args.mc_runs,
@@ -315,7 +328,177 @@ def cmd_run_css(args) -> None:
         perm_form=args.perm_form,
         mc_stream=args.mc_stream,
     )
-    _run_engine(args, run_css, run_css_multi, cfg, ("score", "p"))
+
+
+def cmd_run_css(args) -> None:
+    from divergence_tpu_torch.engine import run_css, run_css_multi
+
+    if args.p_mode == "approx":
+        # the model error the JAX CLI states (baseline/exp_approx_tail.py)
+        print(
+            "WARNING: --p-mode approx is ANTI-conservative in the extreme "
+            "tail (p up to ~4x too small for true p <= 1e-3; docs/PARITY.md) "
+            "— prefer the default --p-mode mc",
+            file=sys.stderr,
+        )
+    _run_engine(args, run_css, run_css_multi, _css_config(args), ("score", "p"))
+
+
+def cmd_run_all(args) -> None:
+    """The whole pipeline in one process: ``run-fet``, ``run-css``, both
+    region callers and the HTML report (``divergence_tpu/tools/cli.py:
+    cmd_run_all``).
+
+    The genome is read, aligned and uploaded once (the ``SnpPair`` device
+    cache serves both engines), and the outputs are byte-identical to the
+    staged subcommands: the random streams are (seed, chromosome, slot)-
+    pinned.  The JAX CLI's backend-warm thread has no counterpart: each
+    engine's ``device_init`` stage touches the device before its scan.
+    Under ``--num-hosts`` a host writes its track shards only: the region
+    thresholds (the Burke limit's median, BH-FDR's ranks) are genome-wide
+    statistics, called once on the merged tracks."""
+    from divergence_tpu_torch import resolve_device
+    from divergence_tpu_torch.engine import run_css, run_css_multi, run_fet, run_fet_multi
+
+    outdir = Path(args.outdir)
+    outdir.mkdir(parents=True, exist_ok=True)
+    pairs, slot_ranges = _host_filter(_load_pairs(args), args)
+    preloaded = (pairs, slot_ranges, _mesh_sharding(args, resolve_device(args.device)))
+
+    def stage_args(name, out):
+        stage = dict(vars(args), cmd=f"run-{name}", out=str(out),
+                     summary=str(outdir / f"{name}_summary.json"))
+        if args.profile:
+            stage["profile"] = str(Path(args.profile) / name)
+        return argparse.Namespace(**stage)
+
+    fet_track, css_track = outdir / "fet.track", outdir / "css.track"
+    _run_engine(stage_args("fet", fet_track), run_fet, run_fet_multi, _fet_config(args),
+                ("score", "stddev"), preloaded)
+    _run_engine(stage_args("css", css_track), run_css, run_css_multi, _css_config(args),
+                ("score", "p"), preloaded)
+
+    # a user --summary gets both engines' summaries
+    if args.summary:
+        combined = {
+            name: json.loads((outdir / f"{name}_summary.json").read_text())
+            for name in ("fet", "css")
+        }
+        Path(args.summary).write_text(json.dumps(combined, indent=1) + "\n")
+        print(f"wrote {args.summary}")
+
+    if args.num_hosts > 1:
+        print(
+            f"multi-host shard {args.host_id}/{args.num_hosts}: wrote "
+            "track shards only (region thresholds are genome-wide "
+            "statistics).  After all hosts finish: merge-tracks the "
+            "fet/css shards, then filter-fet + call-css-regions + "
+            "report on the merged tracks."
+        )
+        return
+
+    cmd_filter_fet(argparse.Namespace(
+        scores=str(fet_track),
+        out=str(outdir / "fet_regions.gtrack"),
+        max_distance=args.max_distance,
+        norm_quantile=args.norm_quantile,
+        stddev_percentile=args.stddev_percentile,
+        chrom_sizes=args.chrom_sizes,
+    ))
+    cmd_call_css_regions(argparse.Namespace(
+        scores=str(css_track),
+        out=str(outdir / "css_regions.gtrack"),
+        mode=args.mode,
+        fdr=args.fdr,
+        num_top=args.num_top,
+        window_size=args.wsize,
+        chrom_sizes=args.chrom_sizes,
+    ))
+    cmd_report(argparse.Namespace(
+        fet_track=str(fet_track),
+        css_track=str(css_track),
+        fet_regions=str(outdir / "fet_regions.gtrack"),
+        css_regions=str(outdir / "css_regions.gtrack"),
+        run_summary=str(outdir / "fet_summary.json"),
+        out=str(outdir / "report.html"),
+        title=args.title,
+    ))
+
+
+def cmd_report(args) -> None:
+    from divergence_tpu_torch.tools.report import write_report
+
+    write_report(
+        args.out,
+        fet_track=args.fet_track,
+        css_track=args.css_track,
+        fet_regions=args.fet_regions,
+        css_regions=args.css_regions,
+        summary_json=args.run_summary,
+        title=args.title,
+    )
+    print(f"wrote {args.out}")
+
+
+def cmd_filter_fet(args) -> None:
+    """FET region calling (the Burke limit), printing the JAX CLI's JSON
+    line (``divergence_tpu/tools/cli.py:cmd_filter_fet``)."""
+    from divergence_tpu_torch.config import FetFilterConfig
+    from divergence_tpu_torch.io import read_chrom_sizes, read_score_track, write_segments_track
+    from divergence_tpu_torch.stats import filter_fet_regions
+
+    seqids, starts, scores, stddevs = read_score_track(args.scores)
+    sizes = read_chrom_sizes(args.chrom_sizes) if args.chrom_sizes else None
+    call = filter_fet_regions(
+        seqids,
+        starts,
+        scores,
+        stddevs,
+        FetFilterConfig(
+            max_distance=args.max_distance,
+            norm_quantile=args.norm_quantile,
+            stddev_percentile=args.stddev_percentile,
+        ),
+        chrom_lengths=sizes,
+    )
+    write_segments_track(args.out, call.segments)
+    print(json.dumps({
+        "windows_passing": call.n_windows_passing,
+        "limit": call.threshold,
+        "regions": len(call.segments),
+        **call.info,
+    }))
+
+
+def cmd_call_css_regions(args) -> None:
+    """CSS region calling (BH-FDR or top-N), printing the JAX CLI's JSON
+    line (``divergence_tpu/tools/cli.py:cmd_call_css_regions``)."""
+    from divergence_tpu_torch.config import CssRegionConfig
+    from divergence_tpu_torch.io import read_chrom_sizes, read_score_track, write_segments_track
+    from divergence_tpu_torch.stats import call_css_regions
+
+    seqids, starts, scores, pvals = read_score_track(args.scores)
+    sizes = read_chrom_sizes(args.chrom_sizes) if args.chrom_sizes else None
+    call = call_css_regions(
+        seqids,
+        starts,
+        scores,
+        pvals,
+        CssRegionConfig(
+            mode=args.mode,
+            fdr=args.fdr,
+            num_top=args.num_top,
+            window_size=args.window_size,
+        ),
+        chrom_lengths=sizes,
+    )
+    write_segments_track(args.out, call.segments)
+    print(json.dumps({
+        "windows_passing": call.n_windows_passing,
+        "threshold": call.threshold,
+        "regions": len(call.segments),
+        **call.info,
+    }))
 
 
 def cmd_merge_tracks(args) -> None:
@@ -369,10 +552,11 @@ def cmd_bench_scaling(args) -> None:
     bench_main(args)
 
 
-def _add_run_common(p: argparse.ArgumentParser) -> None:
+def _add_run_common(p: argparse.ArgumentParser, with_out: bool = True) -> None:
     p.add_argument("--pop-a", required=True, help="population A GTrack file")
     p.add_argument("--pop-b", required=True, help="population B GTrack file")
-    p.add_argument("--out", required=True, help="output score track")
+    if with_out:
+        p.add_argument("--out", required=True, help="output score track")
     p.add_argument("--wsize", type=int, default=2500)
     p.add_argument("--wstep", type=int, default=500)
     p.add_argument("--seed", type=int, default=0)
@@ -414,21 +598,12 @@ def _add_run_common(p: argparse.ArgumentParser) -> None:
                    help="write a torch.profiler trace (trace.json) to this directory")
 
 
-def build_parser() -> argparse.ArgumentParser:
-    ap = argparse.ArgumentParser(
-        prog="divergence_tpu_torch",
-        description="genome-wide divergence analysis on CUDA (FET and CSS scans)",
-    )
-    sub = ap.add_subparsers(dest="cmd", required=True)
-
-    p = sub.add_parser("run-fet", help="windowed Fisher's Exact Test scan")
-    _add_run_common(p)
+def _add_fet_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--percentile", type=float, default=0.95)
     p.add_argument("--bootstrap-samples", type=int, default=100)
-    p.set_defaults(fn=cmd_run_fet)
 
-    p = sub.add_parser("run-css", help="windowed Cluster Separation Score scan")
-    _add_run_common(p)
+
+def _add_css_args(p: argparse.ArgumentParser) -> None:
     p.add_argument(
         "--mds", choices=["cmds", "smacof", "cmds+smacof"], default="cmds",
         help="cmds = classical MDS; smacof = SMACOF from 4 random restarts; "
@@ -469,7 +644,81 @@ def build_parser() -> argparse.ArgumentParser:
         help="shared = one genome-wide label permutation per draw; window = "
         "independent streams keyed by (seed, chromosome, slot)",
     )
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="divergence_tpu_torch",
+        description="genome-wide divergence analysis on CUDA (FET and CSS "
+        "scans, region calling, report)",
+    )
+    sub = ap.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser("run-fet", help="windowed Fisher's Exact Test scan")
+    _add_run_common(p)
+    _add_fet_args(p)
+    p.set_defaults(fn=cmd_run_fet)
+
+    p = sub.add_parser("run-css", help="windowed Cluster Separation Score scan")
+    _add_run_common(p)
+    _add_css_args(p)
     p.set_defaults(fn=cmd_run_css)
+
+    p = sub.add_parser(
+        "run-all",
+        help="whole pipeline in one process: run-fet + run-css + both "
+        "region callers + HTML report (the genome is read and uploaded "
+        "once; outputs byte-identical to the staged subcommands)",
+    )
+    _add_run_common(p, with_out=False)
+    p.add_argument(
+        "--outdir", required=True,
+        help="output directory: fet.track, css.track, fet_regions.gtrack, "
+        "css_regions.gtrack, report.html, *_summary.json",
+    )
+    _add_fet_args(p)
+    _add_css_args(p)
+    p.add_argument("--max-distance", type=int, default=100_000)
+    p.add_argument("--norm-quantile", type=float, default=0.999)
+    p.add_argument("--stddev-percentile", type=float, default=75.0)
+    p.add_argument("--mode", choices=["fdr", "top"], default="fdr")
+    p.add_argument("--fdr", type=float, default=0.05)
+    p.add_argument("--num-top", type=int, default=100)
+    p.add_argument("--title", default="divergence_tpu run report")
+    p.set_defaults(fn=cmd_run_all)
+
+    p = sub.add_parser(
+        "report", help="self-contained HTML summary of score tracks/regions"
+    )
+    p.add_argument("--fet-track", default=None)
+    p.add_argument("--css-track", default=None)
+    p.add_argument("--fet-regions", default=None)
+    p.add_argument("--css-regions", default=None)
+    p.add_argument("--run-summary", default=None, help="run-summary JSON file")
+    p.add_argument("--out", required=True)
+    p.add_argument("--title", default="divergence_tpu run report")
+    p.set_defaults(fn=cmd_report)
+
+    p = sub.add_parser("filter-fet", help="FET region calling (Burke limit)")
+    p.add_argument("--scores", required=True)
+    p.add_argument("--out", required=True)
+    p.add_argument("--max-distance", type=int, default=100_000)
+    p.add_argument("--norm-quantile", type=float, default=0.999)
+    p.add_argument("--stddev-percentile", type=float, default=75.0)
+    p.add_argument("--chrom-sizes", default=None)
+    p.set_defaults(fn=cmd_filter_fet)
+
+    p = sub.add_parser(
+        "call-css-regions", help="CSS region calling (BH-FDR / top-N)"
+    )
+    p.add_argument("--scores", required=True)
+    p.add_argument("--out", required=True)
+    p.add_argument("--mode", choices=["fdr", "top"], default="fdr")
+    p.add_argument("--fdr", type=float, default=0.05)
+    p.add_argument("--num-top", type=int, default=100)
+    p.add_argument("--window-size", type=int, default=2500)
+    p.add_argument("--chrom-sizes", default=None)
+    p.set_defaults(fn=cmd_call_css_regions)
 
     p = sub.add_parser(
         "merge-tracks",

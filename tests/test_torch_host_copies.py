@@ -14,6 +14,8 @@ import divergence_tpu.io.genome as jgenome
 import divergence_tpu.io.gtrack as jgtrack
 import divergence_tpu.parallel.mesh as jmesh
 import divergence_tpu.parallel.multihost as jmultihost
+import divergence_tpu.stats.regions as jregions
+import divergence_tpu.tools.report as jreport
 import divergence_tpu.utils.summary as jsummary
 import divergence_tpu_torch.config as tconfig
 import divergence_tpu_torch.core.windows as twindows
@@ -21,6 +23,8 @@ import divergence_tpu_torch.io.genome as tgenome
 import divergence_tpu_torch.io.gtrack as tgtrack
 import divergence_tpu_torch.parallel.mesh as tmesh
 import divergence_tpu_torch.parallel.multihost as tmultihost
+import divergence_tpu_torch.stats.regions as tregions
+import divergence_tpu_torch.tools.report as treport
 import divergence_tpu_torch.utils.summary as tsummary
 from divergence_tpu_torch.tools import synth
 
@@ -48,6 +52,20 @@ VERBATIM = [
     (jmultihost, tmultihost, "HostAssignment"),
     (jmultihost, tmultihost, "partition_chromosomes"),
     (jmultihost, tmultihost, "merge_score_shards"),
+    (jconfig, tconfig, "FetFilterConfig"),
+    (jconfig, tconfig, "CssRegionConfig"),
+    (jgtrack, tgtrack, "write_segments_track"),
+    (jregions, tregions, "RegionCall"),
+    (jregions, tregions, "burke_components"),
+    (jregions, tregions, "burke_limit"),
+    (jregions, tregions, "bh_threshold"),
+    (jregions, tregions, "top_n_threshold"),
+    (jregions, tregions, "merge_windows"),
+    (jregions, tregions, "filter_fet_regions"),
+    (jregions, tregions, "call_css_regions"),
+    (jreport, treport, "_track_section"),
+    (jreport, treport, "_regions_section"),
+    (jreport, treport, "write_report"),
 ]
 
 
@@ -195,3 +213,30 @@ def test_partition_chromosomes_equal(num):
                 b.seqids, b.num_processes, b.process_id)
             assert [(r.seqid, r.slot_lo, r.slot_hi) for r in a.ranges] == [
                 (r.seqid, r.slot_lo, r.slot_hi) for r in b.ranges]
+
+
+def test_region_configs_equal():
+    t, j = tconfig.FetFilterConfig(), jconfig.FetFilterConfig()
+    assert t.__dict__ == j.__dict__
+    t, j = tconfig.CssRegionConfig(), jconfig.CssRegionConfig()
+    assert t.__dict__ == j.__dict__
+    for cls in ("FetFilterConfig", "CssRegionConfig"):
+        for bad in ({"max_distance": -1}, {"norm_quantile": 1.0}, {"stddev_percentile": 101.0},
+                    {"mode": "x"}, {"fdr": 0.0}, {"num_top": 0}, {"window_size": 0}):
+            kw = {k: v for k, v in bad.items() if k in getattr(jconfig, cls).__dataclass_fields__}
+            if not kw:
+                continue
+            with pytest.raises(ValueError):
+                getattr(tconfig, cls)(**kw)
+            with pytest.raises(ValueError):
+                getattr(jconfig, cls)(**kw)
+
+
+def test_report_style_and_segments_writer_equal(tmp_path):
+    """The report's stylesheet, and the segments files both writers give."""
+    assert treport._STYLE == jreport._STYLE
+    segs = [("chr2", 0, 101_000), ("chr10", 5, 7), ("chrUn", 300_000, 349_999)]
+    for sorted_elements in (False, True):
+        jgtrack.write_segments_track(tmp_path / "j.gtrack", segs, sorted_elements)
+        tgtrack.write_segments_track(tmp_path / "t.gtrack", segs, sorted_elements)
+        assert (tmp_path / "j.gtrack").read_bytes() == (tmp_path / "t.gtrack").read_bytes()

@@ -23,7 +23,11 @@ approx p within LOG10_P_BAND where nscores agree (>= 99.9 % of windows),
 the bands measured on the CPU (tests/test_torch_approx.py).  K10
 (``fet_window``): FET tolerances against its plain version (stddev beyond
 them on at most 0.01 % of windows, + 1) and bit-equal to K1 -> K2 on a
-chromosome's windows.  K11 (``css_perm_chunk``): (hits, reached, pos)
+chromosome's windows.  K1r (``fet_lut_rank``, ``fet_snp_ranks``): the
+sorted LUT and every rank equal to the plain version's on the kernel's own
+LUT (signed zeros tied), the scores lut_sorted[ranks] at the FET
+tolerances.  K2r (``fet_aggregate_ranks``): FET tolerances against its
+plain version and bit-equal to K1 -> K2.  K11 (``css_perm_chunk``): (hits, reached, pos)
 identical to the plain version on every window (the twin's scores, bit
 for bit).  The sharded step: bit-equal per window across a 1- and a
 4-share mesh of one card."""
@@ -150,11 +154,113 @@ def test_run_fet_cuda_matches_cpu(cuda, prec):
     cfg = FetConfig(precision=prec)
     kfet.reset_launches()
     g = run_fet(SnpPair(pos, am, bm), 1_000_000, cfg, device=cuda, seqid="c")
-    assert all(kfet.LAUNCHES[k] == 1 for k in ("fet_lut_build", "fet_snp_logs",
-                                              "fet_aggregate")), kfet.LAUNCHES
+    # exact mode takes the rank path (K1r -> K2r), fast mode K1 -> K2
+    path = (("fet_lut_build", "fet_lut_rank", "fet_snp_ranks", "fet_aggregate_ranks")
+            if prec == "exact" else ("fet_lut_build", "fet_snp_logs", "fet_aggregate"))
+    assert {k: v for k, v in kfet.LAUNCHES.items() if v} == dict.fromkeys(path, 1), \
+        kfet.LAUNCHES
     c = run_fet(SnpPair(pos, am, bm), 1_000_000, cfg, device="cpu", seqid="c")
     for a, b in zip(g, c):
         assert np.max(np.abs(a - b) / np.maximum(np.abs(b), 1.0)) <= TOL[prec]
+
+
+def _bits(t):
+    return t.view(torch.int64 if t.dtype == torch.float64 else torch.int32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("G", [5000, 100_000])
+def test_lut_rank_kernel_ties_signed_zeros(cuda, dtype, G):
+    """K1r's sort on a LUT of few values with both signed zeros: the CPU
+    plain version's order (IEEE <, ties by index), in one counting pass
+    (5,000 entries) and through runs and merge passes (100,000)."""
+    rs = np.random.default_rng(G)
+    lut = torch.from_numpy(rs.choice(np.array([0.0, -0.0, 2.5, 0.125, 7.0]), size=G)).to(dtype)
+    ks, kr = kfet.fet_lut_rank(lut.to(cuda))
+    ps, pr = kfet.fet_lut_rank_plain(lut)
+    torch.cuda.synchronize()
+    assert torch.equal(kr.cpu(), pr)
+    assert torch.equal(_bits(ks.cpu()), _bits(ps))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prec", ["exact", "fast"])
+@pytest.mark.parametrize("asize,bsize,whole", [(11, 10, None), (11, 10, 1024), (38, 38, None)])
+def test_lut_rank_kernel(cuda, monkeypatch, prec, asize, bsize, whole):
+    """K1r's LUT sort against its plain version on K1's LUT, exactly: one
+    counting pass at 11 + 10, runs and merges at 11 + 10 (forced) and at
+    38 + 38, the largest symmetric panel with a LUT (2.3 M entries)."""
+    if whole is not None:
+        monkeypatch.setattr(kfet, "_LUT_RANK_WHOLE", whole)
+    dt = torch.float64 if prec == "exact" else torch.float32
+    maxs, nmax = kfet.support_size(asize, bsize), asize + bsize + 2
+    assert kfet.lut_active(asize, bsize)
+    lut = kfet.fet_lut(asize, bsize, maxs, nmax, dt, cuda)
+    before = kfet.LAUNCHES["fet_lut_rank"]
+    ks, kr = kfet.fet_lut_rank(lut)
+    ps, pr = kfet.fet_lut_rank_plain(lut)
+    torch.cuda.synchronize()
+    assert kfet.LAUNCHES["fet_lut_rank"] == before + 1
+    assert torch.equal(kr, pr)
+    assert torch.equal(_bits(ks), _bits(ps))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prec", ["exact", "fast"])
+@pytest.mark.parametrize("asize,bsize", [(11, 10), (38, 38)])
+def test_snp_ranks_kernel(cuda, prec, asize, bsize):
+    """K1r per SNP: the ranks of the kernel's own LUT exactly, and scores
+    lut_sorted[ranks] within the FET tolerances of the plain version's."""
+    vals = _codes(200_000, asize + bsize, 4).to(cuda)
+    maxs, nmax = kfet.support_size(asize, bsize), asize + bsize + 2
+    fast = prec == "fast"
+    before = dict(kfet.LAUNCHES)
+    ls, r = kfet.fet_snp_ranks(vals, asize, maxs, nmax, fast)
+    pls, pr = kfet.fet_snp_ranks_plain(vals, asize, maxs, nmax, fast)
+    torch.cuda.synchronize()
+    assert all(kfet.LAUNCHES[k] == before[k] + 1
+               for k in ("fet_lut_build", "fet_lut_rank", "fet_snp_ranks")), kfet.LAUNCHES
+    assert r.dtype == torch.int32 and r.shape == (200_000,)
+    assert _rel(ls[r.long()], pls[pr.long()]) <= TOL[prec]
+    _, rank_of_entry = kfet.fet_lut_rank_plain(
+        kfet.fet_lut(asize, bsize, maxs, nmax, ls.dtype, cuda))
+    tables = kfet.count_tables(vals[:, :asize], vals[:, asize:])
+    assert torch.equal(r, rank_of_entry[kfet._lut_index(tables, asize, bsize)])
+    with pytest.raises(TypeError, match="int16"):
+        kfet.fet_snp_ranks(vals.float(), asize, maxs, nmax, fast)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prec", ["exact", "fast"])
+def test_aggregate_ranks_kernel(cuda, prec):
+    """K2r against its plain version at the FET tolerances, and bit-equal
+    to K1 -> K2 on the same windows (also with 8,000 bootstrap samples,
+    whose shared memory passes 48 KB)."""
+    pos, am, bm = make_panel(40_000, 2_000_000, 11, 10, seed=3)
+    vals = torch.from_numpy(np.concatenate([am, bm], axis=1)).to(cuda)
+    fast = prec == "fast"
+    maxs = kfet.support_size(11, 10)
+    ls, r = kfet.fet_snp_ranks(vals, 11, maxs, 23, fast)
+    logs = kfet.fet_snp_logs(vals, 11, maxs, 23, fast)
+    plan = plan_windows(pos, 2_000_000, 2500, 500)
+    ids = np.nonzero(plan.valid_mask() & (plan.npos > 0))[0]
+    lo, npos, slot = (torch.from_numpy(a[ids].copy()) for a in (plan.lo, plan.npos, plan.slot))
+    key = rng.fold_in(rng.prng_key(2), rng.chrom_hash("chrG"))
+    k = kfet.fet_aggregate_ranks(ls, r, lo, npos, slot, key, 0.95, 100)
+    p = kfet.fet_aggregate_ranks_plain(ls, r, lo, npos, slot, key, 0.95, 100)
+    torch.cuda.synchronize()
+    assert _rel(k[0], p[0]) <= TOL[prec]
+    assert _rel(k[1], p[1]) <= TOL[prec]
+    for nsamples in (100, 8000):
+        kr = kfet.fet_aggregate_ranks(ls, r, lo, npos, slot, key, 0.95, nsamples)
+        k2 = kfet.fet_aggregate(logs, lo, npos, slot, key, 0.95, nsamples)
+        assert torch.equal(kr, k2), nsamples
+    with pytest.raises(ValueError, match="int32"):
+        kfet.fet_aggregate_ranks(ls, r.long(), lo, npos, slot, key, 0.95, 100)
+    one = torch.zeros(1, dtype=torch.int64)
+    with pytest.raises(ValueError, match="at most"):
+        kfet.fet_aggregate_ranks(ls, r, one, one + 4500, one, key, 0.95, 100)
 
 
 def _css_windows(cuda, asize=11, bsize=10, npos=40_000, region=2_000_000, seed=3):

@@ -2,8 +2,9 @@
 ``sys.modules["jax"] = None`` (every ``import jax`` raises) imports the
 package and runs run_fet, run_css (CMDS, SMACOF, drosophila, approx mode,
 the window stream with threefry draws, the native evaluator), the sharded
-step and the engines over a CPU mesh, bench-scaling, and both CLI scans
-(one of them split over two hosts and merged) on the CPU."""
+step and the engines over a CPU mesh, bench-scaling, both CLI scans (one
+of them split over two hosts and merged), and ``run-all`` with the exact
+FET rank path, the region callers and the report, on the CPU."""
 
 import subprocess
 import sys
@@ -22,11 +23,18 @@ import divergence_tpu_torch
 from divergence_tpu_torch.config import CssConfig, FetConfig
 from divergence_tpu_torch.engine import SnpPair, run_css, run_fet
 from divergence_tpu_torch.kernels import css, linalg, perm
-from divergence_tpu_torch.tools import bench_scaling, cli, synth
+from divergence_tpu_torch.tools import bench_scaling, cli, report, synth
 from divergence_tpu_torch.parallel import make_divergence_step, make_mesh
-assert "divergence_tpu" not in sys.modules
-for name, mod in list(sys.modules.items()):
-    assert mod is None or not name.startswith("jax"), name
+from divergence_tpu_torch.stats import call_css_regions, filter_fet_regions
+
+
+def no_jax():
+    assert "divergence_tpu" not in sys.modules
+    for name, mod in list(sys.modules.items()):
+        assert mod is None or not name.startswith("jax"), name
+
+
+no_jax()
 pos, am, bm = synth.make_panel(300, 20_000, 11, 10, seed=1)
 for prec in ("exact", "fast"):
     s, d = run_fet(SnpPair(pos, am, bm), 20_000, FetConfig(precision=prec), device="cpu")
@@ -72,6 +80,13 @@ for h in ("0", "1"):
 cli.main(["merge-tracks", "--inputs", tmp + "/o0.track", tmp + "/o1.track", "--out",
           tmp + "/m.track"])
 assert open(tmp + "/m.track").read() == open(tmp + "/o.track").read()
+cli.main(["run-all", "--pop-a", tmp + "/a.gtrack", "--pop-b", tmp + "/b.gtrack", "--outdir",
+          tmp + "/all", "--device", "cpu", "--mc-runs", "300", "--precision", "exact"])
+import os
+for f in ("fet.track", "css.track", "fet_regions.gtrack", "css_regions.gtrack", "report.html"):
+    assert os.path.getsize(tmp + "/all/" + f) > 0, f
+cli.main(["report", "--fet-track", tmp + "/all/fet.track", "--out", tmp + "/r.html"])
+no_jax()
 print("NOJAX-OK")
 """
 
@@ -84,6 +99,7 @@ def test_port_runs_without_jax(tmp_path):
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "NOJAX-OK" in proc.stdout
     assert (tmp_path / "o.track").exists() and (tmp_path / "c.track").exists()
+    assert (tmp_path / "all" / "report.html").exists()
 
 
 def test_port_sources_never_import_jax():
