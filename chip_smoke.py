@@ -27,12 +27,19 @@ Phases (any failure exits non-zero and prints no result line):
    per-window counts) and on a 500 k-SNP stickleback panel (against the
    prefix), exact integer equality; ``css_cmds`` on the ~800 k windows'
    counts in both precisions; ``css_mc_coeff`` for the first 16 chunks,
-   bit-equal; ``css_mc_shared`` on the bench's 16x worst case (160 k SNPs,
-   every window to the 200 k cap);
+   bit-equal; K7 (``css_mc_coeff``, ``css_mc_shared``, ``css_mc_scan``)
+   on the bench's 16x worst case (160 k SNPs, nearly every window to the
+   200 k cap) and on the 997 windows of the 10 k workload: host wall
+   against the plain loop, the launches alone by CUDA events, the
+   permutations its ranges computed against those consumed, and the
+   torch.matmul yardstick; ``css_mc_scan`` alone on the 16x case's
+   deepest range against its plain version;
 6. the CSS CLI: ``run-css`` (default fast) on phase 3's GTrack pair;
 7. the CSS library: ``run_css`` on the bench's three CSS workloads (warm
-   wall, windows/s, MC permutations/s), and ``run_css_multi`` on the card
-   against ``run_css`` on the CPU on a small genome, both precisions;
+   wall, windows/s, MC permutations/s) and a torch.profiler call of each
+   and of the 500 k-SNP CLI panel (device busy share, K7's device time),
+   and ``run_css_multi`` on the card against ``run_css`` on the CPU on a
+   small genome, both precisions;
 8. SMACOF (K6) against its plain torch version on the card, both
    precisions: ``css_smacof`` mode 1 (4 random restarts) and mode 2 (from
    CMDS) on the 19,997 windows of the 200 k-SNP / 10 Mbp workload;
@@ -51,8 +58,8 @@ Phases (any failure exits non-zero and prints no result line):
    workload to the 200 k cap against its plain versions, K8 alone on the
    16x worst case with K7 beside it, K9 ``css_mc_power`` in both streams on
    the 19,997 windows of the 200 k-SNP workload against its plain version
-   (and approx p against the plain approx), K9 alone on the ~800 k bench
-   windows;
+   (and approx p against the plain approx; two calls bit-equal), K9 alone
+   on the ~800 k bench windows;
 11. the library and CLI with the phase-2 options: ``run_css`` on the 200 k
    workload with approx mode (both streams), the window stream (mix, and
    threefry fast), the shared stream with threefry (fast) and the native
@@ -109,7 +116,9 @@ fast-vs-exact band), on windows whose eigengap (l2 - l3) / max(|l1|, 1)
 exceeds 1e-6 (below it the 2-D embedding is the eigensolver's choice; the
 excluded windows are counted and may be at most 1 %).  MC: pvals, nscores
 and hits identical on at least 99.9 % of windows (a float32 near tie can
-flip between summation orders; the count is printed).  SMACOF: exact 1e-9
+flip between summation orders; the count is printed), each differing
+window of K7 shown to be a near tie (TIE_RTOL); K7's stop scan equal to
+its plain version on every window.  SMACOF: exact 1e-9
 on windows whose chosen restart and transform count agree with the plain
 version's (a 1e-12 summation-order difference can flip a stop decision
 or the best of two near-equal restarts), the rest counted and at most
@@ -134,6 +143,7 @@ version FET exact 1e-12, CSS 1e-9 on the eigengap windows, hits equal on
 
 from __future__ import annotations
 
+import contextlib
 import json
 import shutil
 import subprocess
@@ -218,7 +228,8 @@ REPLACES = {
     "css_cmds": "divergence_tpu/kernels/css.py:478",
     "css_smacof": "divergence_tpu/kernels/css.py:225",
     "css_mc_coeff": "divergence_tpu/kernels/perm.py:249",
-    "css_mc_shared": "divergence_tpu/kernels/perm.py:302",
+    "css_mc_shared": "divergence_tpu/kernels/perm.py:281",
+    "css_mc_scan": "divergence_tpu/kernels/perm.py:362",
     "css_mc_window": "divergence_tpu/kernels/perm.py:164",
     "css_mc_power": "divergence_tpu/kernels/perm.py:599",
     "fet_window": "divergence_tpu/kernels/fet.py:668",
@@ -236,6 +247,7 @@ SOURCES = {
     "css_smacof": "divergence_tpu_torch/csrc/css_smacof.cu",
     "css_mc_coeff": "divergence_tpu_torch/csrc/css_mc.cu",
     "css_mc_shared": "divergence_tpu_torch/csrc/css_mc.cu",
+    "css_mc_scan": "divergence_tpu_torch/csrc/css_mc.cu",
     "css_mc_window": "divergence_tpu_torch/csrc/css_mc_window.cu",
     "css_mc_power": "divergence_tpu_torch/csrc/css_mc_power.cu",
     "fet_window": "divergence_tpu_torch/csrc/fet_window.cu",
@@ -251,7 +263,7 @@ RANK_BIG_PANEL = 38
 # build -> K1r -> K2r in exact mode (the LUT regime)
 FET_PATH = ("fet_lut_build", "fet_snp_logs", "fet_aggregate", "fet_lut_rank",
             "fet_snp_ranks", "fet_aggregate_ranks")
-CSS_CMDS_PATH = ("css_dissim", "css_cmds", "css_mc_coeff", "css_mc_shared")
+CSS_CMDS_PATH = ("css_dissim", "css_cmds", "css_mc_coeff", "css_mc_shared", "css_mc_scan")
 
 
 class SmokeFailure(Exception):
@@ -678,51 +690,162 @@ def phase_css_kernels(torch, pair, plan_ids, dev, results) -> None:
     # and m^2 rank compares
     results["css_mc_coeff"]["bound"] = bound(k.numel() * 4, {"f32": 4096 * (m * m + 12 * m)})
 
-    # K7 part 2: the 16x worst case, every window to the 200 k cap
+    # K7 part 2: the 16x worst case, every window to the 200 k cap, and the
+    # 997 windows of the 10 k workload
     wpos, wam, wbm = make_chromosome(*WORST_CSS, ASIZE, BSIZE, WORST_SEED)
     wpair = SnpPair(wpos, wam, wbm)
     w_lo, w_npos, _ = windows_of(torch, wpos, WORST_CSS[1])
     s, d, v = kcss.css_phase1(wpair.to_device(dev), w_lo, w_npos, ASIZE, BSIZE, fast=True)
-    dist, scores = d[v], s[v].double().cpu().numpy()
+    dist, scores = d[v].float().contiguous(), s[v].double().cpu().numpy()
+    del s, d, v
+    r7 = results["css_mc_shared"]
+    r7["16x"] = k7_case(torch, kperm, dist, scores, key, "16x worst case")
+    r7["fast"] = r7["16x"]["fast"]
+    r7["differ"] = r7["16x"]["differ"]
+    r7["bound"] = r7["16x"]["bound"]
+    r7["library_ms"] = r7["16x"]["library_ms"]
+    d10, s10, _, _ = mc_windows(torch, WINDOW_WORKLOAD, dev)
+    r7["10k"] = k7_case(torch, kperm, d10, s10, key, "10 k workload")
+    del d10
+
+    # K7's stop scan alone on the deepest range of the 16x case: the
+    # windows still running there, every one entering with no hits
+    k_big, nk_big, _ = max(r7["16x"]["ranges"], key=lambda r: r[1])
+    nsc_final = r7["16x"]["nsc"]
     B = dist.shape[0]
+    active = torch.nonzero(nsc_final > k_big * 256)[:, 0].contiguous()
+    flat = dist.reshape(B, m * m)
+    obs = torch.as_tensor(scores).to(dev).float()
+    M = kperm.coeff_range(key, k_big, nk_big, m, ASIZE, BSIZE, 256, dev)
+    words = kperm.mc_hit_words(flat, obs, active, M, k_big, nk_big, 256, MC_RUNS)
+    del M
+    fresh = lambda: (torch.zeros(B, dtype=torch.int32, device=dev),  # noqa: E731
+                     torch.full((B,), k_big * 256, dtype=torch.int32, device=dev),
+                     torch.zeros(B, dtype=torch.uint8, device=dev))
+    got, want = fresh(), fresh()
+    kperm.mc_scan(words, active, k_big, 256, MC_RUNS, 10, *got)
+    kperm.mc_scan_plain(words, active, k_big, 256, MC_RUNS, 10, *want)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    ms = cuda_ms(torch, lambda: kperm.mc_scan(words, active, k_big, 256, MC_RUNS, 10,
+                                                *fresh()), 5)
+    pms = cuda_ms(torch, lambda: kperm.mc_scan_plain(words, active, k_big, 256, MC_RUNS, 10,
+                                                       *fresh()), 1)
+    # words read up to each window's stop, the state read and written once
+    read = ((got[1][active].long() + 255) // 256 - k_big).clamp(0, nk_big)
+    n_words = int(read.sum()) * (256 // 32)
+    say(f"[K7 css_mc_scan] {active.numel()} windows x chunks {k_big}-{k_big + nk_big - 1} "
+        f"of the 16x case: equal to the plain scan={same}, {int(got[2].sum())} stopped; "
+        f"kernel {ms:.4f} ms plain {pms:.4f} ms")
+    check(same, "css_mc_scan: (hits, n, done) differ from the plain scan")
+    results["css_mc_scan"]["fast"] = (0.0, 0.0, ms, pms)
+    results["css_mc_scan"]["bound"] = bound(
+        4 * n_words + active.numel() * (8 + 2 * 9), {"f32": 4 * n_words})
+    del words, dist
 
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t0) * 1e3
 
-    kern = lambda: kperm.significance(dist, scores, ASIZE, BSIZE, 10, 200_000, key)  # noqa: E731
-    plain = lambda: kperm.mc_significance(dist, scores, key, ASIZE, BSIZE, 256, 200_000, 10)  # noqa: E731
+@contextlib.contextmanager
+def timed_launches(torch, kperm, names):
+    """A context in which every launch of the kernels ``names`` of
+    ``kperm`` runs between two CUDA events; it yields {name: [(start,
+    end), ...]} (read the times after a synchronise)."""
+    spans = {n: [] for n in names}
+    orig = kperm.launch
+
+    def timed(counts, kernel, symbol, device, *args):
+        if kernel not in spans:
+            return orig(counts, kernel, symbol, device, *args)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        orig(counts, kernel, symbol, device, *args)
+        end.record()
+        spans[kernel].append((start, end))
+
+    kperm.launch = timed
+    try:
+        yield spans
+    finally:
+        kperm.launch = orig
+
+
+def explain_shared_differences(torch, kperm, dist, scores, key, got, n, h, chunk) -> int:
+    """Windows whose (nscores, hits) differ between K7 and the plain loop;
+    each must hold a permutation, among those either consumed, whose
+    float64 score lies within TIE_RTOL of the float32 observed score: a
+    near tie.  Returns their count."""
+    import numpy as np
+
+    m = ASIZE + BSIZE
+    bad = np.nonzero((got.nscores != n) | (got.hits != h))[0]
+    for w in bad:
+        nn = int(max(got.nscores[w], n[w]))
+        M = kperm.shared_coeff(key, 0, -(-nn // chunk), m, ASIZE, BSIZE, chunk, dist.device)
+        s64 = dist[w].reshape(-1).double() @ M.double()
+        obs = float(np.float32(scores[w]))
+        gap = float((s64[:nn] - obs).abs().min()) / max(abs(obs), 1.0)
+        say(f"[K7] window {w}: (n, hits) kernel ({got.nscores[w]}, {got.hits[w]}) plain "
+            f"({n[w]}, {h[w]}); nearest permuted score {gap:.2e} from the observed")
+        check(gap <= TIE_RTOL, f"css_mc_shared: window {w} differs without a near tie ({gap})")
+    return len(bad)
+
+
+def k7_case(torch, kperm, dist, scores, key, label) -> dict:
+    """K7 on a workload's windows (dist [B, m, m] float32 on the card) to
+    the MC_RUNS cap at chunk 256: one call's host wall against the plain
+    chunk loop's, each differing window shown to be a near tie; then one
+    call of the range loop with the css_mc_shared and css_mc_scan launches
+    between CUDA events, its ranges and the permutations it computed
+    against those consumed; the bound and the torch.matmul yardstick."""
+    import numpy as np
+
+    m = ASIZE + BSIZE
+    B = dist.shape[0]
+    kern = lambda: kperm.significance(dist, scores, ASIZE, BSIZE, 10, MC_RUNS, key)  # noqa: E731
+    plain = lambda: kperm.mc_significance(dist, scores, key, ASIZE, BSIZE, 256, MC_RUNS, 10)  # noqa: E731
     kern()                                   # warm-up
-    got, ms = timed(kern)
-    (pv, n, h), pms = timed(plain)
-    differ = (got.nscores != n) | (got.hits != h) | (got.pvals != pv)
-    nd = int(differ.sum())
+    got, ms = host_ms(torch, kern)
+    (pv, n, h), pms = host_ms(torch, plain)
+    nd = explain_shared_differences(torch, kperm, dist, scores, key, got, n, h, 256)
+    check(nd <= MC_DIFFER_SHARE * B, f"css_mc_shared {label}: {nd} windows differ")
     perms = int(n.sum())
-    say(f"[K7 css_mc_shared] {B} windows, {perms} permutations, "
-        f"{int((n == 200_000).sum())} to the 200 k cap: {nd} windows differ "
-        f"(allowed {int(MC_DIFFER_SHARE * B)}: float32 near ties); kernel "
-        f"{ms:.1f} ms plain {pms:.1f} ms (host wall, one call each; "
-        f"{perms / ms * 1e3:,.0f} vs {perms / pms * 1e3:,.0f} perms/s)")
-    check(nd <= MC_DIFFER_SHARE * B, f"css_mc_shared: {nd} windows differ")
-    pdiff = float(np.abs(got.pvals - pv).max()) if B else 0.0
-    results["css_mc_shared"]["fast"] = (pdiff, float(nd), ms, pms)
-    results["css_mc_shared"]["differ"] = nd
+
+    flat = dist.reshape(B, m * m)
+    obs = torch.as_tensor(scores).to(dist.device).float()
+    ranges = []
+    names = ("css_mc_coeff", "css_mc_shared", "css_mc_scan")
+    with timed_launches(torch, kperm, names) as spans:
+        (nsc, hits), ms_loop = host_ms(torch, lambda: kperm.mc_shared(
+            flat, obs, key, ASIZE, BSIZE, 256, MC_RUNS, 10, ranges=ranges))
+    kms = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in spans.items()}
+    check(np.array_equal(nsc.cpu().numpy(), got.nscores), f"K7 {label}: rerun differs")
+    computed = sum(a * (min(MC_RUNS, (k + nk) * 256) - k * 256) for k, nk, a in ranges)
     # a multiply-add per D entry and permutation consumed; D and the
     # deepest range's M in, 3 values per window out
     ncols = -(-int(n.max()) // 256) * 256
-    results["css_mc_shared"]["bound"] = bound(
-        B * (m * m * 4 + 4 + 12) + m * m * ncols * 4, {"f32": 2 * m * m * perms})
+    bnd = bound(B * (m * m * 4 + 4 + 12) + m * m * ncols * 4, {"f32": 2 * m * m * perms})
     # the library yardstick: the product alone, torch.matmul(D, M) over
     # the columns the deepest window consumed (float32, TF32 off)
-    M = kperm.shared_coeff(key, 0, ncols // 256, m, ASIZE, BSIZE, 256, dev)
-    flat = dist.float().reshape(B, m * m).contiguous()
-    results["css_mc_shared"]["library_ms"] = cuda_ms(torch, lambda: flat @ M, 2)
-    say(f"[K7 css_mc_shared] library yardstick torch.matmul [{B}, {m * m}] @ "
-        f"[{m * m}, {ncols}]: {results['css_mc_shared']['library_ms']:.1f} ms")
+    M = kperm.shared_coeff(key, 0, ncols // 256, m, ASIZE, BSIZE, 256, dist.device)
+    lib = cuda_ms(torch, lambda: flat @ M, 2)
     del M
+    say(f"[K7 css_mc_shared {label}] {B} windows, {perms} permutations consumed, "
+        f"{int((n == MC_RUNS).sum())} to the {MC_RUNS} cap: {nd} windows differ (allowed "
+        f"{int(MC_DIFFER_SHARE * B)}: float32 near ties); kernel {ms:.1f} ms plain {pms:.1f} "
+        f"ms (host wall, one call each; {perms / ms * 1e3:,.0f} vs {perms / pms * 1e3:,.0f} "
+        f"perms/s); launches alone (CUDA events): css_mc_shared {kms['css_mc_shared']:.2f} "
+        f"ms, css_mc_scan {kms['css_mc_scan']:.3f} ms, css_mc_coeff "
+        f"{kms['css_mc_coeff']:.3f} ms in a {ms_loop:.1f} ms call; {len(ranges)} ranges "
+        f"(first chunk, chunks, windows) {ranges}; {computed} permutations computed for "
+        f"{perms} consumed ({computed / max(perms, 1):.4f}x); bound {bnd[0]:.2f} ms "
+        f"({bnd[1]}); yardstick torch.matmul [{B}, {m * m}] @ [{m * m}, {ncols}] {lib:.2f} ms")
+    return {
+        "fast": (float(np.abs(got.pvals - pv).max()) if B else 0.0, float(nd), ms, pms),
+        "differ": nd, "bound": bnd, "library_ms": lib, "ranges": ranges, "nsc": nsc,
+        "kernel_ms": kms["css_mc_shared"], "scan_ms": kms["css_mc_scan"],
+        "coeff_ms": kms["css_mc_coeff"], "perms_computed": computed,
+        "perms_consumed": perms,
+    }
 
 
 def phase_css_cli(torch, dev, tmp: Path, files) -> None:
@@ -771,15 +894,36 @@ def warm_runs(run, reps: int = 3):
     return out, summary, walls
 
 
+def profile_css(torch, run, label) -> None:
+    """One profiled call of ``run()`` (a run_css): wall, device time and
+    busy share, and K7's device time (css_mc_coeff, css_mc_shared_tile,
+    css_mc_scan) and share of the wall."""
+    wall, dev_ms, rows = device_profile(torch, run)
+    check(dev_ms > 0, f"run_css {label}: the profiler saw no device time")
+    k7 = {k: sum(ms for ms, name in rows if k in name)
+          for k in ("css_mc_coeff", "css_mc_shared_tile", "css_mc_scan")}
+    say(f"[css profile] run_css {label}: wall {wall:.1f} ms, device {dev_ms:.1f} ms "
+        f"({100 * dev_ms / wall:.1f} % busy); K7 {sum(k7.values()):.2f} ms "
+        f"({100 * sum(k7.values()) / wall:.1f} % of the wall: "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in k7.items()) + "); most device time: "
+        + "; ".join(f"{name[:50]} {ms:.2f} ms" for ms, name in rows[:4]))
+
+
 def phase_css_library(torch, dev, card) -> None:
-    """Phase 7: run_css on the bench's three CSS workloads; run_css_multi
-    on the card against run_css on the CPU."""
+    """Phase 7: run_css on the bench's three CSS workloads and the 500 k
+    CLI panel (warm walls, one profiled call each); run_css_multi on the
+    card against run_css on the CPU."""
     import numpy as np
 
     from divergence_tpu_torch.config import CssConfig
     from divergence_tpu_torch.engine import SnpPair, run_css, run_css_multi
     from divergence_tpu_torch.tools.synth import make_chromosome, make_panel
 
+    pos, am, bm = make_panel(CLI_SNPS, CLI_REGION, ASIZE, BSIZE, seed=5)
+    panel = SnpPair(pos, am, bm)
+    profile_css(torch, lambda: run_css(panel, CLI_REGION, CssConfig(precision="fast"),
+                                       device=dev), f"{CLI_SNPS} SNP panel fast")
+    del panel
     for npos_, region, seed, precs in CSS_WORKLOADS:
         pos, am, bm = make_chromosome(npos_, region, ASIZE, BSIZE, seed)
         pair = SnpPair(pos, am, bm)
@@ -805,6 +949,9 @@ def phase_css_library(torch, dev, card) -> None:
                 f"{t.get('css_dispatch', 0):.4f} s, phase-1 sync "
                 f"{t.get('css_phase1_sync', 0):.4f} s, MC {t.get('css_mc', 0):.4f} s) "
                 f"on {card}")
+            if prec == precs[0]:
+                profile_css(torch, lambda: run_css(pair, region, cfg, device=dev),
+                            f"{npos_} SNPs {prec}")
 
     pairs = {}
     for i, seqid in enumerate(("chrII", "chrIII", "chrIV")):
@@ -1094,9 +1241,10 @@ def host_ms(torch, fn):
 
 
 def device_profile(torch, fn) -> tuple[float, float, list]:
-    """(wall ms, device ms, the three kernels of most device time) of one
-    call under torch.profiler: the device's busy time is the sum of the
-    device events' self time (kernels and copies; overlap is not removed)."""
+    """(wall ms, device ms, [(device ms, name)] of every device event, most
+    first) of one call under torch.profiler: the device's busy time is the
+    sum of the device events' self time (kernels and copies; overlap is not
+    removed)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1108,7 +1256,7 @@ def device_profile(torch, fn) -> tuple[float, float, list]:
     rows = [(e.self_device_time_total / 1e3, e.key) for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
     rows.sort(reverse=True)
-    return wall, sum(ms for ms, _ in rows), rows[:3]
+    return wall, sum(ms for ms, _ in rows), rows
 
 
 def mc_windows(torch, workload, dev):
@@ -1282,6 +1430,8 @@ def phase_window_kernels(torch, pair, plan_ids, dev, results) -> None:
         kp, pp = kern(), plain()
         torch.cuda.synchronize()
         prel = float(((kp - pp).abs() / pp.abs().clamp(min=1e-300)).max())
+        repeat = torch.equal(kp.view(torch.int64), kern().view(torch.int64))
+        check(repeat, f"css_mc_power {stream}: two calls differ")
         ms = cuda_ms(torch, kern, 3)
         pms = cuda_ms(torch, plain, 1)
         akw = dict(chunk=APPROX_CHUNK, chroms=pchroms, slots=pslots, stream=stream)
@@ -1295,7 +1445,7 @@ def phase_window_kernels(torch, pair, plan_ids, dev, results) -> None:
             f"approx: nscores differ on {nd} windows (allowed "
             f"{int((1 - NSCORES_SAME_SHARE) * PB)}), max |dlog10 p|={dl.max():.3e} "
             f"(band {LOG10_P_BAND:g}), {int((ap.nscores > 1024).sum())} windows escalated; "
-            f"kernel {ms:.3f} ms plain {pms:.3f} ms")
+            f"two calls bit-equal={repeat}; kernel {ms:.3f} ms plain {pms:.3f} ms")
         check(prel <= POWER_RTOL, f"css_mc_power {stream}: power sums {prel}")
         check(same.mean() >= NSCORES_SAME_SHARE, f"css_mc_power {stream}: {nd} nscores differ")
         check(float(dl.max()) <= LOG10_P_BAND, f"css_mc_power {stream}: p {dl.max()}")
@@ -1303,6 +1453,17 @@ def phase_window_kernels(torch, pair, plan_ids, dev, results) -> None:
         r9["differ"][stream] = nd
         out_bytes = APPROX_CHUNKS * 3 * PB * 8
         if stream == "shared":
+            # the launches alone: css_mc_coeff's M and the product with its
+            # power epilogue and tile sum (the wrapper syncs on the key)
+            with timed_launches(torch, kperm, ("css_mc_coeff", "css_mc_power")) as spans:
+                for _ in range(3):
+                    kern()
+            torch.cuda.synchronize()
+            kms = {k: sum(a.elapsed_time(b) for a, b in v) / 3 for k, v in spans.items()}
+            r9["kernel_ms"], r9["coeff_ms"] = kms["css_mc_power"], kms["css_mc_coeff"]
+            say(f"[K9 css_mc_power shared] launches alone (CUDA events, mean of 3 calls): "
+                f"css_mc_power {kms['css_mc_power']:.3f} ms, css_mc_coeff "
+                f"{kms['css_mc_coeff']:.4f} ms")
             M = kperm.shared_coeff(key, 0, APPROX_CHUNKS, m, ASIZE, BSIZE, APPROX_CHUNK, dev)
             r9["bound_shared"] = bound(PB * m * m * 4 + M.numel() * 4 + out_bytes,
                                        {"f32": 2 * m * m * nperm, "f64": 5 * nperm})
@@ -1389,7 +1550,7 @@ def phase_window_library(torch, dev, card, tmp: Path) -> None:
                 check(dev_ms > 0, f"run_css {kw}: the profiler saw no device time")
                 say(f"[window library fast] profiled run_css {kw}: wall {wall:.1f} ms, device "
                     f"{dev_ms:.1f} ms ({100 * dev_ms / wall:.1f} % busy); most device time: "
-                    + "; ".join(f"{name[:60]} {ms:.2f} ms" for ms, name in top))
+                    + "; ".join(f"{name[:60]} {ms:.2f} ms" for ms, name in top[:3]))
 
     # the card against the CPU, exact, the MC cut to MULTI_MC_RUNS
     pairs = {}
@@ -1661,7 +1822,7 @@ def phase_step_library(torch, gathered, dev, card, tmp: Path, results) -> None:
         f"{n_valid} CSS-valid windows, score_sum {float(out1['score_sum']):.6f}, "
         f"{int(out1['mc_hits'].sum())} MC hits; profiled wall {wall:.1f} ms, device "
         f"{dev_ms:.1f} ms ({100 * dev_ms / wall:.1f} % busy); most device time: "
-        + "; ".join(f"{name[:50]} {ms:.2f} ms" for ms, name in top) + f" on {card}")
+        + "; ".join(f"{name[:50]} {ms:.2f} ms" for ms, name in top[:3]) + f" on {card}")
 
     out4, walls4 = step_walls(four)
     same = {k: torch.equal(out1[k], out4[k]) for k in names}
@@ -2059,7 +2220,8 @@ def smoke(torch, dev) -> tuple[str, list[dict]]:
         timed_phase("9", phase_smacof_library, torch, dev, card, tmp)
         smacof_launches = {**kcss.LAUNCHES, **kperm.LAUNCHES}
         say(f"[CSS main path, SMACOF + drosophila] kernel launches: {smacof_launches}")
-        smacof_path = ("css_dissim", "css_cmds", "css_smacof", "css_mc_coeff", "css_mc_shared")
+        smacof_path = ("css_dissim", "css_cmds", "css_smacof", "css_mc_coeff", "css_mc_shared",
+                       "css_mc_scan")
         check(all(smacof_launches[k] > 0 for k in smacof_path),
               f"the SMACOF / drosophila CSS path did not launch every kernel: {smacof_launches}")
         launches["css_smacof"] = smacof_launches["css_smacof"]
@@ -2142,6 +2304,23 @@ def smoke(torch, dev) -> tuple[str, list[dict]]:
             entry["windows_excluded_eigengap"] = r["exact_excluded"]
         if name == "css_mc_coeff":
             entry["ms_threefry"], entry["plain_ms_threefry"] = r["threefry"][2], r["threefry"][3]
+        if name == "css_mc_shared":
+            # ms / plain_ms: the whole MC (coefficients, product, scan and
+            # the range syncs) on the 16x worst case, host wall; then the
+            # product's launches alone and the 10 k workload
+            for tag in ("16x", "10k"):
+                c = r[tag]
+                entry.update({
+                    f"kernel_ms_{tag}": c["kernel_ms"], f"scan_ms_{tag}": c["scan_ms"],
+                    f"coeff_ms_{tag}": c["coeff_ms"],
+                    f"perms_computed_{tag}": c["perms_computed"],
+                    f"perms_consumed_{tag}": c["perms_consumed"],
+                    f"ranges_{tag}": len(c["ranges"]),
+                })
+            c = r["10k"]
+            entry.update({"ms_10k": c["fast"][2], "plain_ms_10k": c["fast"][3],
+                          "bound_ms_10k": c["bound"][0], "library_ms_10k": c["library_ms"],
+                          "windows_differ_10k": c["differ"]})
         if name == "css_smacof":
             # ms / plain_ms: mode 1 at 19,997 windows; then mode 2, the
             # drosophila chromosome (m = 2) and the ~800 k bench windows
@@ -2191,7 +2370,10 @@ def smoke(torch, dev) -> tuple[str, list[dict]]:
             entry["run_all_walls_s"] = results["run_all_walls_s"]
         if name == "css_mc_power":
             # ms / plain_ms: the shared stream on 19,997 windows x 1,024
-            # permutations; then the window stream and the ~800 k bench windows
+            # permutations (the wrapper: coefficients, product, tile sum);
+            # then its launches alone, the window stream and the ~800 k
+            # bench windows
+            entry["kernel_ms"], entry["coeff_ms"] = r["kernel_ms"], r["coeff_ms"]
             entry["ms_window"], entry["plain_ms_window"] = r["window"][2], r["window"][3]
             entry["bound_ms_window"], entry["bound_by_window"] = r["bound_window"]
             entry["max_rel_err_power_sums"] = max(f_rel, r["window"][1])

@@ -3,10 +3,14 @@
 // Replaces divergence_tpu/kernels/perm.py: _shared_coeff,
 // _shared_perm_scores and mc_significance (stream="shared"), run there
 // inside _mc_stage1_all / _mc_stage2_all.  Plain torch versions:
-// divergence_tpu_torch/kernels/perm.py _shared_coeff and mc_significance.
+// divergence_tpu_torch/kernels/perm.py shared_coeff_plain,
+// hit_words_plain and scan_plain (the range loop: mc_shared).
 //
-// css_mc_coeff — the coefficient matrix M [m*m, ncols] of a range of
-// chunks, one thread per permutation column:
+// The host runs the chunks in ranges; for each range three launches:
+//
+// css_mc_coeff — the coefficient matrix M [m*m, nk*cstride] of the range's
+// nk chunks, chunk kk in columns [kk*cstride, kk*cstride + chunk), the
+// columns up to cstride (a multiple of 32) zero; one thread per column:
 //   key_k = fold_in(mc_key, k) (threefry, threefry.cuh);
 //   the m draws of column K and their ranks r_j, mix or threefry
 //   (css_perm_common.cuh; perm.py:_mix_bits, _ranks);
@@ -17,52 +21,66 @@
 // M is bit-equal to _shared_coeff.  Each thread writes one column, so a
 // warp writes 32 consecutive floats of a row.
 //
-// css_mc_shared — the adaptive chunk loop for tiles of 32 windows, over a
-// range of chunks whose M css_mc_coeff wrote:
-//   for each chunk k (until every window of the tile is done):
-//     scores[w][K] = sum_e D[w][e] M[e][K], float32 FMAs in SIMT (no
-//       tensor cores, no TF32), one column per thread, D staged in shared
-//       memory 64 entries at a time (permk::tile_product, shared with K9);
-//     hit = scores >= observed (float32) and offset + K < runs;
-//     per window, the in-chunk count of hits in column order (warp
-//       ballots) and the column of the need-th hit, need = threshold - hits;
-//     the update of perm.py:368-380: reached -> hits = threshold,
-//       n = offset + pos + 1, done; else hits += chunk hits,
-//       n = offset + counted.
-//   Windows that are done stay frozen, so a tile's early exit gives the
-//   single-pass loop's results; it replaces the JAX package's two-stage
-//   compaction.  The per-window state (hits, n, done) lives in device
-//   memory between launches.
+// css_mc_shared (kernel css_mc_shared_tile) — the range's product for
+// every active window and its hit-mask epilogue, over a 2-D grid of
+// (window tile, column tile), window tiles varying fastest so the blocks
+// in flight share one column tile of M in L2:
+//   scores = D_flat[active] @ M, float32 FMAs in depth order
+//     (permk::tile_gemm, 128 x 128 tiles, shared with K9);
+//   hit = score >= observed (float32), for columns K < chunk with
+//     offset + K < runs;
+//   hits packed into words [nact, nk, cstride / 32] of uint32, bit b of
+//     word q of chunk kk = column K = 32 q + b, by OR-shuffles over the 8
+//     threads that hold a word's 32 columns.  A word never spans two
+//     chunks, and a column tile holds whole words.
 //
-// What bounds it on H100: float32 FMA throughput.  A chunk costs
-// 32 x chunk x m^2 FMAs per tile; each thread issues 32 FMAs per M value
-// it loads (from L2: M of one range is at most 64 MB) and per 8
-// broadcast float4 reads of D from shared memory.  16 k windows x 200 k
-// permutations at m = 21 is 1.4e12 FMAs, ~42 ms at the 67 TFLOP/s
-// float32 peak.
+// css_mc_scan — the adaptive stop, one thread per active window, through
+// the range's chunks in order with the update of perm.py:362-380: need =
+// threshold - hits; the chunk's hits by popcount word after word, and
+// where they reach need the column of the need-th set bit (pos);
+// reached -> hits = threshold, n = offset + pos + 1, done; else hits +=
+// chunk hits, n = offset + counted.  A done window stays frozen, so the
+// results equal the single-pass loop's.  (hits, n, done) live in device
+// memory between ranges; the host compacts the active windows after each.
+//
+// What bounds it on H100: the float32 FMA rate in css_mc_shared.  A
+// range costs nact x nk*chunk x m^2 FMAs; each thread does 64 FMAs per 4 float4
+// shared-memory reads, the copies of the next slabs in flight meanwhile.
+// 16 k windows x 200 k permutations at m = 21 is 1.4e12 FMAs, ~42 ms at
+// the 67 TFLOP/s float32 peak.  Windows that stop inside a range still
+// pay for the rest of it: the host keeps the first range short and grows
+// later ones (perm.py:range_chunks).  The hit words are 1/32 of the
+// scores' bytes; the scan reads them once.
 #include "css_perm_common.cuh"
 #include "fet_common.cuh"
 #include "threefry.cuh"
 
 namespace {
 
-using permk::kE;
 using permk::kMaxM;
 using permk::kTC;
+using permk::kThreads;
 using permk::kTW;
+using permk::kWordBits;
 
 constexpr int kCoeffThreads = 128;
-constexpr int kWarps = kTC / 32;
+constexpr int kScanThreads = 128;
+constexpr int64_t kMaxGridY = 65535;
 
 __global__ void __launch_bounds__(kCoeffThreads)
-css_mc_coeff(uint2 mc_key, int k0, int nk, int chunk, int m, int asize,
+css_mc_coeff(uint2 mc_key, int k0, int nk, int chunk, int cstride, int m, int asize,
              int bitgen, float between, float ca, float cb,
              float* __restrict__ out) {
-    const int64_t ncols = static_cast<int64_t>(nk) * chunk;
+    const int64_t ncols = static_cast<int64_t>(nk) * cstride;
     const int64_t col = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
     if (col >= ncols) return;
-    const int kc = k0 + static_cast<int>(col / chunk);
-    const uint32_t K = static_cast<uint32_t>(col % chunk);
+    const int mm = m * m;
+    const int kc = k0 + static_cast<int>(col / cstride);
+    const uint32_t K = static_cast<uint32_t>(col % cstride);
+    if (K >= static_cast<uint32_t>(chunk)) {
+        for (int e = 0; e < mm; ++e) out[static_cast<int64_t>(e) * ncols + col] = 0.0f;
+        return;
+    }
     const uint2 key = tf::fold_in(mc_key, static_cast<uint32_t>(kc));
     uint32_t x[kMaxM];
     int r[kMaxM];
@@ -81,134 +99,153 @@ css_mc_coeff(uint2 mc_key, int k0, int nk, int chunk, int m, int asize,
     }
 }
 
-__global__ void __launch_bounds__(kTC)
-css_mc_shared(const float* __restrict__ dist, const float* __restrict__ obs,
-              const int64_t* __restrict__ active, int64_t nact, int m,
-              const float* __restrict__ M, int k0, int nk, int chunk, int runs,
-              int threshold, int* __restrict__ hits_g, int* __restrict__ nsc_g,
-              uint8_t* __restrict__ done_g) {
-    __shared__ __align__(16) float Ds[kE][kTW];
-    __shared__ uint32_t masks[kTW][kWarps];
-    __shared__ int64_t s_row[kTW];
-    __shared__ float s_obs[kTW];
-    __shared__ int s_hits[kTW], s_nsc[kTW], s_done[kTW];
-    __shared__ int s_cum[kTW], s_reached[kTW], s_pos[kTW];
-    __shared__ int s_all_done;
-
-    const int mm = m * m;
-    const int64_t ncols = static_cast<int64_t>(nk) * chunk;
-    const int tid = threadIdx.x;
-    const int lane = tid & 31;
-    const int warp = tid >> 5;
+__global__ void __launch_bounds__(kThreads, 2)
+css_mc_shared_tile(const float* __restrict__ dist, int mm,
+                   const int64_t* __restrict__ active, int64_t nact,
+                   const float* __restrict__ obs, const float* __restrict__ M, int64_t ldm,
+                   int64_t tile0, int k0, int chunk, int cstride, int runs,
+                   uint32_t* __restrict__ words) {
+    permk::TileSmem& sm = permk::tile_smem();
     const int64_t base = static_cast<int64_t>(blockIdx.x) * kTW;
+    const int64_t c0 = (tile0 + blockIdx.y) * kTC;
+    permk::load_tile_rows(sm, active, base, nact);
+    float acc[8][8];
+    permk::tile_gemm(dist, mm, M, ldm, c0, ldm, sm, acc);
 
-    if (tid < kTW) {
-        const bool live = base + tid < nact;
-        const int64_t row = live ? active[base + tid] : -1;
-        s_row[tid] = row;
-        s_obs[tid] = live ? obs[row] : 0.0f;
-        s_hits[tid] = live ? hits_g[row] : 0;
-        s_nsc[tid] = live ? nsc_g[row] : 0;
-        s_done[tid] = live ? done_g[row] : 1;
-    }
-    __syncthreads();
-
-    for (int kk = 0; kk < nk; ++kk) {
-        if (tid == 0) {
-            int all = 1;
-            for (int w = 0; w < kTW; ++w) all &= s_done[w];
-            s_all_done = all;
-        }
-        if (tid < kTW) {
-            s_cum[tid] = 0;
-            s_reached[tid] = 0;
-            s_pos[tid] = 0;
-        }
-        __syncthreads();
-        if (s_all_done) break;
-        const int64_t offset = static_cast<int64_t>(k0 + kk) * chunk;
-        const float* Mk = M + static_cast<int64_t>(kk) * chunk;
-
-        for (int ct = 0; ct < chunk; ct += kTC) {
-            const int K = ct + tid;
-            const bool in_chunk = K < chunk;
-            const bool counted = in_chunk && offset + K < runs;
-            float acc[kTW];
-            permk::tile_product(dist, s_row, mm, Mk, ncols, K, in_chunk, Ds, acc);
+    uint32_t counted = 0;   // bit j: this thread's column j counts
 #pragma unroll
-            for (int w = 0; w < kTW; ++w) {
-                const uint32_t b = __ballot_sync(0xffffffffu, counted && acc[w] >= s_obs[w]);
-                if (lane == 0) masks[w][warp] = b;
+    for (int j = 0; j < 8; ++j) {
+        const int64_t c = c0 + permk::tile_column(j);
+        const int64_t kk = c / cstride;
+        const int64_t K = c - kk * cstride;
+        if (c < ldm && K < chunk && (k0 + kk) * chunk + K < runs) counted |= 1u << j;
+    }
+    const int tx = threadIdx.x % 16;
+    const int64_t nwords = ldm / kWordBits;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+        const int w = permk::tile_window(i);
+        const int64_t row = sm.row[w];
+        const float o = row >= 0 ? obs[row] : 0.0f;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            uint32_t nib = 0;
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+                const int j = 4 * h + q;
+                if (((counted >> j) & 1u) && acc[i][j] >= o) nib |= 1u << q;
             }
-            __syncthreads();
-            if (tid < kTW && !s_done[tid] && !s_reached[tid]) {
-                const int need = threshold - s_hits[tid];
-                int cum = s_cum[tid];
-                for (int wp = 0; wp < kWarps; ++wp) {
-                    uint32_t b = masks[tid][wp];
-                    const int c = __popc(b);
-                    if (cum + c >= need) {
-                        for (int q = need - cum; q > 1; --q) b &= b - 1;
-                        s_pos[tid] = ct + wp * 32 + __ffs(b) - 1;
-                        s_reached[tid] = 1;
-                        break;
-                    }
-                    cum += c;
-                }
-                s_cum[tid] = cum;
+            // 8 threads (tx & 7 = 0..7) hold a word's 32 columns, 4 each
+            uint32_t word = nib << (4 * (tx & 7));
+            word |= __shfl_xor_sync(0xffffffffu, word, 1);
+            word |= __shfl_xor_sync(0xffffffffu, word, 2);
+            word |= __shfl_xor_sync(0xffffffffu, word, 4);
+            const int64_t col = c0 + 64 * h + kWordBits * (tx >> 3);
+            if ((tx & 7) == 0 && row >= 0 && col < ldm) {
+                words[(base + w) * nwords + col / kWordBits] = word;
             }
         }
-        __syncthreads();
-        if (tid < kTW && !s_done[tid]) {
-            if (s_reached[tid]) {
-                s_hits[tid] = threshold;
-                s_nsc[tid] = static_cast<int>(offset) + s_pos[tid] + 1;
-                s_done[tid] = 1;
+    }
+}
+
+__global__ void __launch_bounds__(kScanThreads)
+css_mc_scan(const uint32_t* __restrict__ words, const int64_t* __restrict__ active,
+            int64_t nact, int k0, int nk, int chunk, int wpc, int runs, int threshold,
+            int* __restrict__ hits_g, int* __restrict__ nsc_g,
+            uint8_t* __restrict__ done_g) {
+    const int64_t a = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+    if (a >= nact) return;
+    const int64_t row = active[a];
+    if (done_g[row]) return;
+    int hits = hits_g[row];
+    int nsc = nsc_g[row];
+    bool done = false;
+    const uint32_t* wp = words + a * static_cast<int64_t>(nk) * wpc;
+    for (int kk = 0; kk < nk && !done; ++kk) {
+        const int64_t offset = static_cast<int64_t>(k0 + kk) * chunk;
+        const int need = threshold - hits;
+        int cum = 0;
+        int pos = need <= 0 ? 0 : -1;   // argmax of an all-true cum >= need
+        for (int q = 0; q < wpc && pos < 0; ++q) {
+            uint32_t b = wp[kk * wpc + q];
+            const int c = __popc(b);
+            if (cum + c >= need) {
+                for (int r = need - cum; r > 1; --r) b &= b - 1;
+                pos = q * kWordBits + __ffs(b) - 1;
             } else {
-                const int64_t left = static_cast<int64_t>(runs) - offset;
-                const int n_counted = static_cast<int>(left < chunk ? left : chunk);
-                s_hits[tid] += s_cum[tid];
-                s_nsc[tid] = static_cast<int>(offset) + n_counted;
+                cum += c;
             }
         }
-        __syncthreads();
+        if (pos >= 0) {
+            hits = threshold;
+            nsc = static_cast<int>(offset) + pos + 1;
+            done = true;
+        } else {
+            const int64_t left = static_cast<int64_t>(runs) - offset;
+            hits += cum;
+            nsc = static_cast<int>(offset + (left < chunk ? left : chunk));
+        }
     }
-    if (tid < kTW && s_row[tid] >= 0) {
-        const int64_t row = s_row[tid];
-        hits_g[row] = s_hits[tid];
-        nsc_g[row] = s_nsc[tid];
-        done_g[row] = static_cast<uint8_t>(s_done[tid]);
-    }
+    hits_g[row] = hits;
+    nsc_g[row] = nsc;
+    done_g[row] = static_cast<uint8_t>(done);
 }
 
 }  // namespace
 
 FET_EXPORT int css_mc_coeff(uint32_t key0, uint32_t key1, int k0, int nk,
-                            int chunk, int m, int asize, int bitgen,
+                            int chunk, int cstride, int m, int asize, int bitgen,
                             float between, float ca, float cb, float* out,
                             void* stream) {
-    if (m > kMaxM || bitgen < 0 || bitgen > 1) {
+    if (m > kMaxM || bitgen < 0 || bitgen > 1 || chunk <= 0 || cstride < chunk) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
-    const int64_t ncols = static_cast<int64_t>(nk) * chunk;
+    const int64_t ncols = static_cast<int64_t>(nk) * cstride;
     if (ncols == 0) return 0;
     const unsigned blocks =
         static_cast<unsigned>((ncols + kCoeffThreads - 1) / kCoeffThreads);
     css_mc_coeff<<<blocks, kCoeffThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        make_uint2(key0, key1), k0, nk, chunk, m, asize, bitgen, between, ca, cb,
-        out);
+        make_uint2(key0, key1), k0, nk, chunk, cstride, m, asize, bitgen, between, ca,
+        cb, out);
     return static_cast<int>(cudaGetLastError());
 }
 
-FET_EXPORT int css_mc_shared(const float* dist, const float* obs,
-                             const int64_t* active, int64_t nact, int m,
-                             const float* M, int k0, int nk, int chunk,
-                             int runs, int threshold, int* hits, int* nsc,
-                             uint8_t* done, void* stream) {
-    if (nact == 0) return 0;
-    const unsigned blocks = static_cast<unsigned>((nact + kTW - 1) / kTW);
-    css_mc_shared<<<blocks, kTC, 0, static_cast<cudaStream_t>(stream)>>>(
-        dist, obs, active, nact, m, M, k0, nk, chunk, runs, threshold, hits,
+FET_EXPORT int css_mc_shared(const float* dist, int m, const int64_t* active,
+                             int64_t nact, const float* obs, const float* M, int k0,
+                             int nk, int chunk, int cstride, int runs, uint32_t* words,
+                             void* stream) {
+    if (chunk <= 0 || cstride < chunk || cstride % kWordBits != 0) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const int64_t ldm = static_cast<int64_t>(nk) * cstride;
+    if (nact == 0 || ldm == 0) return 0;
+    const cudaError_t attr = permk::set_tile_smem(css_mc_shared_tile);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    const int64_t wtiles = (nact + kTW - 1) / kTW;
+    const int64_t ctiles = (ldm + kTC - 1) / kTC;
+    for (int64_t t0 = 0; t0 < ctiles; t0 += kMaxGridY) {
+        const dim3 grid(static_cast<unsigned>(wtiles),
+                        static_cast<unsigned>(ctiles - t0 < kMaxGridY ? ctiles - t0 : kMaxGridY));
+        css_mc_shared_tile<<<grid, kThreads, sizeof(permk::TileSmem),
+                             static_cast<cudaStream_t>(stream)>>>(
+            dist, m * m, active, nact, obs, M, ldm, t0, k0, chunk, cstride, runs, words);
+        const cudaError_t err = cudaGetLastError();
+        if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    return 0;
+}
+
+FET_EXPORT int css_mc_scan(const uint32_t* words, const int64_t* active, int64_t nact,
+                           int k0, int nk, int chunk, int cstride, int runs,
+                           int threshold, int* hits, int* nsc, uint8_t* done,
+                           void* stream) {
+    if (chunk <= 0 || cstride < chunk || cstride % kWordBits != 0) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    if (nact == 0 || nk == 0) return 0;
+    const unsigned blocks = static_cast<unsigned>((nact + kScanThreads - 1) / kScanThreads);
+    css_mc_scan<<<blocks, kScanThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        words, active, nact, k0, nk, chunk, cstride / kWordBits, runs, threshold, hits,
         nsc, done);
     return static_cast<int>(cudaGetLastError());
 }

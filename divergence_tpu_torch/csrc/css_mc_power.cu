@@ -10,99 +10,117 @@
 // (s*s and (s*s)*s as in perm.py:629-635).  Every window takes every
 // chunk: there is no early exit.
 //
-// css_mc_power_shared (kernel power_shared) — the shared stream: tiles of
-//   32 windows, one column of M (css_mc_coeff's, all nk chunks side by
-//   side) per thread, K7's float32 product (permk::tile_product); each
-//   column's three powers are summed over the warp with shuffles, then
-//   over the block's warps, and over the chunk's column passes, in shared
-//   memory.
+// css_mc_power_shared (kernels power_shared, power_reduce) — the shared
+//   stream: M of the nk chunks side by side (css_mc_coeff's, chunk kk in
+//   columns [kk*cstride, kk*cstride + chunk)), and the product on K7's
+//   register-blocked body (permk::tile_gemm) over a 2-D grid of (window
+//   tile, column tile of a chunk), window tiles varying fastest.  Each
+//   thread sums its 8 columns' s, s^2, s^3 for each of its 8 windows in
+//   float64 (__dmul_rn, __dadd_rn, columns in order), the 16 threads that
+//   share a window add theirs by a fixed xor-shuffle tree, and the block
+//   writes one partial per (chunk, column tile, power, window);
+//   power_reduce adds a chunk's column tiles in order.  No atomics: the
+//   sums are the same bits run to run.  (A grid of one block per window
+//   tile and chunk, walking the chunk's tiles, would launch 314 blocks for
+//   19,997 windows x 2 chunks: 1.2 waves of 2 blocks per SM.)
 // css_mc_power_window (kernel power_window) — the window stream: one warp
 //   per window, K8's draws, ranks and float32 score (css_perm_common.cuh),
 //   lane i taking columns i, i + 32, ... of each chunk and summing its
 //   powers in registers, then a shuffle sum over the warp.
 //
 // What bounds it on H100: as K7 (float32 FMAs, m^2 per window and
-// permutation) for the shared stream and as K8 (instruction issue) for
-// the window stream; the float64 power sums add 5 float64 operations per
-// (window, permutation).  Memory is small: D is read once per tile or
-// window, M once per tile from L2, and 3 doubles per window and chunk are
-// written.
+// permutation, in tile_gemm) for the shared stream and as K8 (the
+// instruction rate) for the window stream; the float64 power sums add 5
+// float64 operations per (window, permutation).  Memory is small: D is read once
+// per column tile from L2, M once per window tile, and 3 doubles per
+// window, chunk and column tile are written (then read once by
+// power_reduce).
 #include "css_perm_common.cuh"
 #include "fet_common.cuh"
 #include "threefry.cuh"
 
 namespace {
 
-using permk::kE;
 using permk::kMaxM;
 using permk::kTC;
+using permk::kThreads;
 using permk::kTW;
+using permk::kWordBits;
 
-constexpr int kWarps = kTC / 32;
 constexpr int kWarpsPerBlock = 4;        // window stream: windows per block
 constexpr int kWindowThreads = 32 * kWarpsPerBlock;
+constexpr int kReduceThreads = 256;
+constexpr int64_t kMaxGridY = 65535;
 
 __device__ __forceinline__ double warp_sum(double v) {
     for (int o = 16; o > 0; o >>= 1) v = __dadd_rn(v, __shfl_xor_sync(0xffffffffu, v, o));
     return v;
 }
 
-__global__ void __launch_bounds__(kTC)
-power_shared(const float* __restrict__ dist, int64_t B, int m,
-                    const float* __restrict__ M, int nk, int chunk,
-                    double* __restrict__ out) {
-    __shared__ __align__(16) float Ds[kE][kTW];
-    __shared__ int64_t s_row[kTW];
-    __shared__ double red[kWarps][kTW][3];
-    __shared__ double sums[kTW][3];
-
-    const int mm = m * m;
-    const int64_t ncols = static_cast<int64_t>(nk) * chunk;
-    const int tid = threadIdx.x;
-    const int lane = tid & 31;
-    const int warp = tid >> 5;
+// partial[(g*3 + q)*B + w] for column tile g = kk*tpc + t (tile t of
+// chunk kk) = sum over the tile's columns K < chunk of s^(q+1).
+__global__ void __launch_bounds__(kThreads, 2)
+power_shared(const float* __restrict__ dist, int64_t B, int mm,
+             const float* __restrict__ M, int64_t ldm, int64_t g0, int chunk, int cstride,
+             int tpc, double* __restrict__ partial) {
+    permk::TileSmem& sm = permk::tile_smem();
     const int64_t base = static_cast<int64_t>(blockIdx.x) * kTW;
-    if (tid < kTW) s_row[tid] = base + tid < B ? base + tid : -1;
+    const int64_t g = g0 + blockIdx.y;
+    const int64_t kk = g / tpc;
+    const int t = static_cast<int>(g - kk * tpc);
+    const int64_t c0 = kk * cstride + static_cast<int64_t>(t) * kTC;
+    permk::load_tile_rows(sm, nullptr, base, B);
+    float acc[8][8];
+    permk::tile_gemm(dist, mm, M, ldm, c0, (kk + 1) * cstride, sm, acc);
 
-    for (int kk = 0; kk < nk; ++kk) {
-        if (tid < kTW * 3) sums[tid / 3][tid % 3] = 0.0;
-        const float* Mk = M + static_cast<int64_t>(kk) * chunk;
-        for (int ct = 0; ct < chunk; ct += kTC) {
-            const int K = ct + tid;
-            const bool in_chunk = K < chunk;
-            float acc[kTW];
-            permk::tile_product(dist, s_row, mm, Mk, ncols, K, in_chunk, Ds, acc);
+    uint32_t in_chunk = 0;   // bit j: this thread's column j is one of the chunk's
 #pragma unroll
-            for (int w = 0; w < kTW; ++w) {
-                const double v = in_chunk ? static_cast<double>(acc[w]) : 0.0;
-                const double v2 = __dmul_rn(v, v);
-                const double p1 = warp_sum(v);
-                const double p2 = warp_sum(v2);
-                const double p3 = warp_sum(__dmul_rn(v2, v));
-                if (lane == 0) {
-                    red[warp][w][0] = p1;
-                    red[warp][w][1] = p2;
-                    red[warp][w][2] = p3;
-                }
-            }
-            __syncthreads();
-            if (tid < kTW * 3) {
-                const int w = tid / 3;
-                const int q = tid % 3;
-                double t = sums[w][q];
-                for (int wp = 0; wp < kWarps; ++wp) t = __dadd_rn(t, red[wp][w][q]);
-                sums[w][q] = t;
-            }
-            // red is rewritten by the next pass only after tile_product's barriers
-        }
-        __syncthreads();
-        if (tid < kTW * 3) {
-            const int w = tid / 3;
-            const int q = tid % 3;
-            if (s_row[w] >= 0) out[(static_cast<int64_t>(kk) * 3 + q) * B + s_row[w]] = sums[w][q];
-        }
-        __syncthreads();
+    for (int j = 0; j < 8; ++j) {
+        if (t * kTC + permk::tile_column(j) < chunk) in_chunk |= 1u << j;
     }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+        double p[3] = {0.0, 0.0, 0.0};
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+            if ((in_chunk >> j) & 1u) {
+                const double v = static_cast<double>(acc[i][j]);
+                const double v2 = __dmul_rn(v, v);
+                p[0] = __dadd_rn(p[0], v);
+                p[1] = __dadd_rn(p[1], v2);
+                p[2] = __dadd_rn(p[2], __dmul_rn(v2, v));
+            }
+        }
+        // the 16 threads of one ty (one half-warp) share these windows
+#pragma unroll
+        for (int q = 0; q < 3; ++q) {
+#pragma unroll
+            for (int o = 1; o < 16; o <<= 1) {
+                p[q] = __dadd_rn(p[q], __shfl_xor_sync(0xffffffffu, p[q], o));
+            }
+        }
+        const int w = permk::tile_window(i);
+        if (threadIdx.x % 16 == 0 && sm.row[w] >= 0) {
+#pragma unroll
+            for (int q = 0; q < 3; ++q) partial[(g * 3 + q) * B + base + w] = p[q];
+        }
+    }
+}
+
+// out[(kk*3 + q)*B + w] = sum over t = 0 .. tpc-1, in order, of the
+// partials of chunk kk's column tiles.
+__global__ void __launch_bounds__(kReduceThreads)
+power_reduce(const double* __restrict__ partial, int64_t B, int64_t n, int tpc,
+             double* __restrict__ out) {
+    const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+    if (idx >= n) return;
+    const int64_t w = idx % B;
+    const int64_t kq = idx / B;          // kk*3 + q
+    const int64_t kk = kq / 3;
+    const int64_t q = kq - kk * 3;
+    double s = 0.0;
+    for (int t = 0; t < tpc; ++t) s = __dadd_rn(s, partial[((kk * tpc + t) * 3 + q) * B + w]);
+    out[idx] = s;
 }
 
 __global__ void __launch_bounds__(kWindowThreads)
@@ -149,13 +167,30 @@ power_window(const float* __restrict__ dist, const int64_t* __restrict__ wkeys,
 }  // namespace
 
 FET_EXPORT int css_mc_power_shared(const float* dist, int64_t B, int m,
-                                   const float* M, int nk, int chunk,
-                                   double* out, void* stream) {
-    if (m > kMaxM || chunk <= 0) return static_cast<int>(cudaErrorInvalidValue);
+                                   const float* M, int nk, int chunk, int cstride,
+                                   double* partial, double* out, void* stream) {
+    if (chunk <= 0 || cstride < chunk || cstride % kWordBits != 0) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
     if (B == 0 || nk == 0) return 0;
-    const unsigned blocks = static_cast<unsigned>((B + kTW - 1) / kTW);
-    power_shared<<<blocks, kTC, 0, static_cast<cudaStream_t>(stream)>>>(
-        dist, B, m, M, nk, chunk, out);
+    const cudaError_t attr = permk::set_tile_smem(power_shared);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const int tpc = (cstride + kTC - 1) / kTC;
+    const int64_t ldm = static_cast<int64_t>(nk) * cstride;
+    const int64_t wtiles = (B + kTW - 1) / kTW;
+    const int64_t tiles = static_cast<int64_t>(nk) * tpc;
+    for (int64_t g0 = 0; g0 < tiles; g0 += kMaxGridY) {
+        const dim3 grid(static_cast<unsigned>(wtiles),
+                        static_cast<unsigned>(tiles - g0 < kMaxGridY ? tiles - g0 : kMaxGridY));
+        power_shared<<<grid, kThreads, sizeof(permk::TileSmem), st>>>(
+            dist, B, m * m, M, ldm, g0, chunk, cstride, tpc, partial);
+        const cudaError_t err = cudaGetLastError();
+        if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    const int64_t n = static_cast<int64_t>(nk) * 3 * B;
+    power_reduce<<<static_cast<unsigned>((n + kReduceThreads - 1) / kReduceThreads),
+                   kReduceThreads, 0, st>>>(partial, B, n, tpc, out);
     return static_cast<int>(cudaGetLastError());
 }
 

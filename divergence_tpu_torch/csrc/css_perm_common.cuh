@@ -31,9 +31,22 @@
 // Build with --fmad=false: every product is rounded before its sum, as in
 // the plain versions.
 //
-// tile_product — the shared stream's product for a tile of kTW windows and
-// one column K of M per thread (K7's inner loop, also K9's): acc[w] =
-// sum_e D[w][e] M[e][K] as float32 FMAs in e order.
+// tile_gemm — the shared stream's product D_flat [B, m^2] @ M [m^2, ldm]
+// for one tile of kTW windows x kTC columns (K7's css_mc_shared and K9's
+// power_shared): acc = sum_e D[w][e] M[e][c] as float32 FMAs in e order
+// from 0, so every score equals the one-column-per-thread loop it
+// replaced bit for bit.  A SIMT GEMM tile (no tensor cores, no TF32):
+//   256 threads, each an 8 x 8 register tile: windows ty*4 + {0..3} and
+//     64 + ty*4 + {0..3}, columns tx*4 + {0..3} and 64 + tx*4 + {0..3}
+//     (ty = tid / 16, tx = tid % 16), so each depth step reads 2 float4 of D
+//     and 2 of M from shared memory for 64 FMAs;
+//   the depth m^2 in slabs of kE, staged by cp.async in a kStages ring with
+//     one barrier per slab: M as 16-byte copies of 4 columns (ldm is a
+//     multiple of 4), D as 4-byte copies gathered through the tile's row
+//     index and stored transposed, [kE][kTW + kDPad];
+//   the ragged edges (windows past the tile's rows, columns at or past
+//     climit, depth past m^2) are zero-filled by the copies, and a zero
+//     product leaves a sum unchanged.
 #pragma once
 
 #include <cstdint>
@@ -45,9 +58,13 @@ namespace permk {
 constexpr int kMaxM = 64;
 constexpr int kMix = 0;
 constexpr int kThreefry = 1;
-constexpr int kTW = 32;          // windows per tile (shared stream)
-constexpr int kTC = 256;         // columns per pass = threads per block
-constexpr int kE = 64;           // D entries staged per step
+constexpr int kTW = 128;         // windows per tile (shared stream)
+constexpr int kTC = 128;         // columns per tile
+constexpr int kThreads = 256;    // 16 x 16 threads of 8 x 8 scores
+constexpr int kE = 16;           // depth per staged slab
+constexpr int kStages = 3;       // cp.async ring
+constexpr int kDPad = 4;         // keeps D's rows 16-byte aligned, halves bank conflicts
+constexpr int kWordBits = 32;    // a chunk's columns are padded to whole hit words
 
 __device__ __forceinline__ uint32_t mix32(uint32_t x) {
     x = (x ^ (x >> 16)) * 0x7FEB352Du;
@@ -150,40 +167,144 @@ __device__ __forceinline__ double score_f64(const float* D, const double* rowtot
                      __dmul_rn(static_cast<double>(m), chains));
 }
 
-// acc[w] = sum_e D[s_row[w]][e] * Mk[e][K] for the kTW windows of a tile
-// (a row < 0 is a missing window: D = 0); M holds ncols columns.  Every
-// thread of the kTC-thread block must call it (it stages D in Ds).
-__device__ __forceinline__ void tile_product(const float* __restrict__ dist,
-                                             const int64_t* s_row, int mm,
-                                             const float* __restrict__ Mk,
-                                             int64_t ncols, int K, bool in_chunk,
-                                             float (&Ds)[kE][kTW], float (&acc)[kTW]) {
+// ---------------------------------------------------------------- tile_gemm
+
+// The shared memory of one tile: the staged slabs and the tile's D rows
+// (50,944 bytes: dynamic shared memory, see set_tile_smem).
+struct TileSmem {
+    __align__(16) float D[kStages][kE][kTW + kDPad];
+    __align__(16) float M[kStages][kE][kTC];
+    int64_t row[kTW];    // D row of each window of the tile; < 0: none
+};
+
+__device__ __forceinline__ TileSmem& tile_smem() {
+    extern __shared__ __align__(16) unsigned char tile_smem_raw[];
+    return *reinterpret_cast<TileSmem*>(tile_smem_raw);
+}
+
+// Let `kernel` take a TileSmem of dynamic shared memory (above 48 KB).
+template <typename Kernel>
+inline cudaError_t set_tile_smem(Kernel kernel) {
+    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(sizeof(TileSmem)));
+}
+
+// Fill sm.row for the tile of windows [base, base + kTW): active[a] (or a
+// itself when active is null) for a < n, else -1; then a barrier.
+__device__ __forceinline__ void load_tile_rows(TileSmem& sm, const int64_t* active,
+                                               int64_t base, int64_t n) {
+    if (threadIdx.x < kTW) {
+        const int64_t a = base + threadIdx.x;
+        sm.row[threadIdx.x] = a < n ? (active ? active[a] : a) : -1;
+    }
+    __syncthreads();
+}
+
+// Window and column of register (i, j) within the tile.
+__device__ __forceinline__ int tile_window(int i) {
+    return (threadIdx.x / 16) * 4 + (i & 3) + 64 * (i >> 2);
+}
+__device__ __forceinline__ int tile_column(int j) {
+    return (threadIdx.x % 16) * 4 + (j & 3) + 64 * (j >> 2);
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool valid) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(s), "l"(gmem), "r"(valid ? 4 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(s), "l"(gmem), "r"(valid ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Stage depth slab `slab` into ring slot `st`.
+__device__ __forceinline__ void stage_slab(const float* __restrict__ dist, int mm,
+                                           const float* __restrict__ M, int64_t ldm,
+                                           int64_t c0, int64_t climit, TileSmem& sm,
+                                           int slab, int st) {
     const int tid = threadIdx.x;
+    const int e0 = slab * kE;
+    // D: kTW x kE floats, 16 consecutive threads on one row's kE entries
 #pragma unroll
-    for (int w = 0; w < kTW; ++w) acc[w] = 0.0f;
-    for (int e0 = 0; e0 < mm; e0 += kE) {
-        const int elen = min(kE, mm - e0);
-        __syncthreads();   // the previous step has read Ds
-        for (int i = tid; i < kE * kTW; i += kTC) {
-            const int e = i / kTW;
-            const int w = i - e * kTW;
-            const int64_t row = s_row[w];
-            Ds[e][w] = (e < elen && row >= 0) ? dist[row * mm + e0 + e] : 0.0f;
-        }
-        __syncthreads();
-        for (int e = 0; e < elen; ++e) {
-            const float mv = in_chunk ? Mk[static_cast<int64_t>(e0 + e) * ncols + K] : 0.0f;
-            const float4* d4 = reinterpret_cast<const float4*>(&Ds[e][0]);
+    for (int i = 0; i < kE * kTW / kThreads; ++i) {
+        const int idx = tid + kThreads * i;
+        const int e = idx % kE;
+        const int w = idx / kE;
+        const int64_t row = sm.row[w];
+        const bool valid = row >= 0 && e0 + e < mm;
+        const float* src = valid ? dist + row * mm + e0 + e : dist;
+        cp_async4(&sm.D[st][e][w], src, valid);
+    }
+    // M: kE x kTC floats, a warp on 128 consecutive columns of one row
 #pragma unroll
-            for (int q = 0; q < kTW / 4; ++q) {
-                const float4 d = d4[q];
-                acc[4 * q + 0] = __fmaf_rn(d.x, mv, acc[4 * q + 0]);
-                acc[4 * q + 1] = __fmaf_rn(d.y, mv, acc[4 * q + 1]);
-                acc[4 * q + 2] = __fmaf_rn(d.z, mv, acc[4 * q + 2]);
-                acc[4 * q + 3] = __fmaf_rn(d.w, mv, acc[4 * q + 3]);
+    for (int i = 0; i < kE * kTC / 4 / kThreads; ++i) {
+        const int idx = tid + kThreads * i;
+        const int e = idx / (kTC / 4);
+        const int c = 4 * (idx % (kTC / 4));
+        const bool valid = e0 + e < mm && c0 + c < climit;
+        const float* src = valid ? M + static_cast<int64_t>(e0 + e) * ldm + c0 + c : M;
+        cp_async16(&sm.M[st][e][c], src, valid);
+    }
+}
+
+// acc[i][j] = sum_e D[row(tile_window(i))][e] * M[e][c0 + tile_column(j)]
+// for columns below climit (0 elsewhere and for windows without a row).
+// sm.row must hold the tile's rows and be visible to every thread; every
+// thread of the kThreads-thread block must call it.  On return the ring is
+// drained and free for reuse.
+__device__ __forceinline__ void tile_gemm(const float* __restrict__ dist, int mm,
+                                          const float* __restrict__ M, int64_t ldm,
+                                          int64_t c0, int64_t climit, TileSmem& sm,
+                                          float (&acc)[8][8]) {
+    const int ty4 = (threadIdx.x / 16) * 4;
+    const int tx4 = (threadIdx.x % 16) * 4;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+    }
+    const int nslab = (mm + kE - 1) / kE;
+#pragma unroll
+    for (int s = 0; s < kStages - 1; ++s) {
+        if (s < nslab) stage_slab(dist, mm, M, ldm, c0, climit, sm, s, s);
+        cp_async_commit();
+    }
+    for (int t = 0; t < nslab; ++t) {
+        cp_async_wait<kStages - 2>();   // this thread's copies of slab t landed
+        __syncthreads();                // everyone's did; slab t - 1 is consumed
+        const int next = t + kStages - 1;
+        if (next < nslab) stage_slab(dist, mm, M, ldm, c0, climit, sm, next, next % kStages);
+        cp_async_commit();
+        const int st = t % kStages;
+#pragma unroll
+        for (int e = 0; e < kE; ++e) {
+            const float4 a0 = *reinterpret_cast<const float4*>(&sm.D[st][e][ty4]);
+            const float4 a1 = *reinterpret_cast<const float4*>(&sm.D[st][e][ty4 + 64]);
+            const float4 b0 = *reinterpret_cast<const float4*>(&sm.M[st][e][tx4]);
+            const float4 b1 = *reinterpret_cast<const float4*>(&sm.M[st][e][tx4 + 64]);
+            const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+            const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+#pragma unroll
+                for (int j = 0; j < 8; ++j) acc[i][j] = __fmaf_rn(a[i], b[j], acc[i][j]);
             }
         }
     }
+    cp_async_wait<0>();
+    __syncthreads();
 }
 
 }  // namespace permk

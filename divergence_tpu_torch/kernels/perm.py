@@ -29,10 +29,12 @@ form, with the same stream and the same per-window early exit.
 Kernels (``csrc/``) carry the work on a CUDA device:
 
 * ``css_mc_coeff``  (K7) — the columns of ``M`` for a range of chunks,
-  bit-equal to :func:`_shared_coeff`, for either bitgen;
-* ``css_mc_shared`` (K7) — the shared-stream chunk loop for tiles of
-  windows: product, hit test, the position of the threshold-th hit, the
-  adaptive stop;
+  bit-equal to :func:`_shared_coeff`, for either bitgen, each chunk's
+  columns padded to whole 32-bit hit words (:func:`coeff_range`);
+* ``css_mc_shared`` (K7) — the product ``D_flat[active] @ M`` of a range
+  and its hit test, packed into words (:func:`mc_hit_words`);
+* ``css_mc_scan``   (K7) — the adaptive stop through a range's hit words,
+  the position of the threshold-th hit (:func:`mc_scan`);
 * ``css_mc_window`` (K8) — the window-stream MC, one warp per window
   carrying its own stream to its own stop, in float32 (the terms of
   :func:`_scores_from_ranks`) or float64 (``mc_native``'s order);
@@ -73,14 +75,19 @@ from divergence_tpu_torch.kernels._cuda import is_cpu, launch, ptr
 MC_MAX_M = 64                   # the MC kernels rank m words per thread
 BITGENS = ("mix", "threefry")   # kernel argument: the index in this tuple
 STREAMS = ("shared", "window")
-_FIRST_RANGE_CHUNKS = 16        # the first launch: 4096 permutations at chunk 256
-_RANGE_COEFF_BYTES = 64 << 20   # later launches: at most this much of M at once
+# the shared stream's ranges (range_chunks)
+_FIRST_RANGE_CHUNKS = 16        # at most: 4096 permutations at chunk 256
+_RANGE_FMAS = 1 << 32           # product work a range reaches where it can
+_RANGE_COEFF_BYTES = 64 << 20   # at most this much of M at once
+_RANGE_HIT_BYTES = 256 << 20    # at most this much of hit words at once
+WORD_BITS = 32                  # a chunk's columns are padded to whole words
+TILE_COLUMNS = 128              # columns of a product tile (csrc permk::kTC)
 # [b, m, m, K] elements per step of the window-stream twins, by device type
 _PLAIN_BATCH_ELEMS = {"cpu": 1 << 24, "cuda": 1 << 28}
 
 # kernel launches since the last reset_launches(), by kernel name
-LAUNCHES = {"css_mc_coeff": 0, "css_mc_shared": 0, "css_mc_window": 0, "css_mc_power": 0,
-            "css_perm_chunk": 0}
+LAUNCHES = {"css_mc_coeff": 0, "css_mc_shared": 0, "css_mc_scan": 0, "css_mc_window": 0,
+            "css_mc_power": 0, "css_perm_chunk": 0}
 # css_mc_coeff launches by bitgen (counted with LAUNCHES["css_mc_coeff"])
 COEFF_LAUNCHES = {name: 0 for name in BITGENS}
 
@@ -224,7 +231,22 @@ def _check_m(m: int, kernel: str) -> None:
         )
 
 
-def shared_coeff(
+def chunk_stride(chunk: int) -> int:
+    """Columns a chunk takes in a range's M: ``chunk`` rounded up to whole
+    hit words, so a word never spans two chunks."""
+    return -(-chunk // WORD_BITS) * WORD_BITS
+
+
+def coeff_range_plain(key, k0, nk, m, asize, bsize, chunk, device,
+                      bitgen: str = "mix") -> torch.Tensor:
+    """Plain torch version of :func:`coeff_range`."""
+    M = shared_coeff_plain(key, k0, nk, m, asize, bsize, chunk, device, bitgen)
+    pad = chunk_stride(chunk) - chunk
+    M = torch.nn.functional.pad(M.reshape(m * m, nk, chunk), (0, pad))
+    return M.reshape(m * m, nk * (chunk + pad))
+
+
+def coeff_range(
     key: torch.Tensor,     # [2] run-level MC key
     k0: int,               # first chunk
     nk: int,               # number of chunks
@@ -236,25 +258,35 @@ def shared_coeff(
     bitgen: str = "mix",
 ) -> torch.Tensor:
     """The shared coefficient matrices of chunks ``k0 .. k0+nk-1`` side by
-    side: [m*m, nk*chunk] float32, column ``(k - k0)*chunk + K`` equal to
-    column K of ``_shared_coeff(key, k)``."""
+    side, each padded with zero columns to ``cs = chunk_stride(chunk)``:
+    [m*m, nk*cs] float32, column ``(k - k0)*cs + K`` equal to column K of
+    ``_shared_coeff(key, k)`` for K < chunk.  K7's ``css_mc_coeff`` on a
+    CUDA device, the plain version on the CPU."""
     device = torch.device(device)
     gen = _check_bitgen(bitgen)
     if is_cpu(device):
-        return shared_coeff_plain(key, k0, nk, m, asize, bsize, chunk, device, bitgen)
+        return coeff_range_plain(key, k0, nk, m, asize, bsize, chunk, device, bitgen)
     _check_m(m, "css_mc_coeff")
-    ncols = nk * chunk
-    out = torch.empty((m * m, ncols), dtype=torch.float32, device=device)
+    cs = chunk_stride(chunk)
+    out = torch.empty((m * m, nk * cs), dtype=torch.float32, device=device)
     between, ca, cb = _coeff_constants(asize, bsize)
     k0w, k1w = (int(w) for w in key.tolist())
     launch(
         LAUNCHES, "css_mc_coeff", "css_mc_coeff", device,
-        ctypes.c_uint32(k0w), ctypes.c_uint32(k1w), k0, nk, chunk, m, asize, gen,
+        ctypes.c_uint32(k0w), ctypes.c_uint32(k1w), k0, nk, chunk, cs, m, asize, gen,
         ctypes.c_float(between), ctypes.c_float(ca), ctypes.c_float(cb),
         ptr(out),
     )
     COEFF_LAUNCHES[bitgen] += 1
     return out
+
+
+def shared_coeff(key, k0, nk, m, asize, bsize, chunk, device,
+                 bitgen: str = "mix") -> torch.Tensor:
+    """:func:`coeff_range` without the padding: [m*m, nk*chunk], column
+    ``(k - k0)*chunk + K`` equal to column K of ``_shared_coeff(key, k)``."""
+    M = coeff_range(key, k0, nk, m, asize, bsize, chunk, device, bitgen)
+    return M.reshape(m * m, nk, -1)[:, :, :chunk].reshape(m * m, nk * chunk)
 
 
 @contextlib.contextmanager
@@ -429,9 +461,177 @@ def mc_native_plain(
     return _mc_loop(B, dev, chunk, runs, threshold, chunk_hits)
 
 
+def _pack_words(hit: torch.Tensor) -> torch.Tensor:
+    """[..., n*32] bool -> [..., n] int32 words, bit b of word q = element
+    32 q + b (the bits of a uint32)."""
+    bits = hit.reshape(*hit.shape[:-1], -1, WORD_BITS).to(torch.int64)
+    v = (bits << torch.arange(WORD_BITS, device=hit.device)).sum(dim=-1)
+    return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
+
+
+def _unpack_words(words: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`_pack_words`: [..., n] -> [..., n*32] bool."""
+    bits = (words.to(torch.int64)[..., None]
+            >> torch.arange(WORD_BITS, device=words.device)) & 1
+    return bits.reshape(*words.shape[:-1], -1).bool()
+
+
+def _popcount32(x: torch.Tensor) -> torch.Tensor:
+    """Set bits of the 32-bit words held in int64 ``x``."""
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) & 0xFFFFFFFF) >> 24
+
+
+def _check_range(flat, obs, active, M, nk, chunk) -> int:
+    """m of a range's inputs for css_mc_shared; raises on what it does not
+    take."""
+    mm = flat.shape[-1]
+    m = round(mm ** 0.5)
+    if (flat.dim() != 2 or m * m != mm or flat.dtype != torch.float32
+            or not flat.is_contiguous()):
+        raise ValueError("css_mc_shared takes contiguous float32 [B, m*m] distances")
+    if obs.shape != flat.shape[:1] or obs.dtype != torch.float32 or not obs.is_contiguous():
+        raise ValueError("css_mc_shared takes contiguous float32 [B] observed scores")
+    if M.shape != (mm, nk * chunk_stride(chunk)) or not M.is_contiguous():
+        raise ValueError(f"css_mc_shared takes M [{mm}, {nk} * chunk_stride({chunk})], "
+                         f"got {tuple(M.shape)}")
+    if active.dtype != torch.int64 or not active.is_contiguous():
+        raise ValueError("css_mc_shared takes contiguous int64 active rows")
+    return m
+
+
+def mc_hit_words_plain(flat, obs, active, M, k0, nk, chunk, runs) -> torch.Tensor:
+    """Plain torch version of :func:`mc_hit_words`: the product in full
+    float32, the hit test, the words packed per chunk."""
+    cs = chunk_stride(chunk)
+    with _full_f32_matmul():
+        s = (flat[active] @ M).reshape(-1, nk, cs)
+    K = torch.arange(cs, device=flat.device)
+    offset = (k0 + torch.arange(nk, device=flat.device))[:, None] * chunk
+    counted = (K < chunk)[None, :] & (offset + K[None, :] < runs)      # [nk, cs]
+    return _pack_words((s >= obs[active][:, None, None]) & counted)
+
+
+def mc_hit_words(
+    flat: torch.Tensor,     # [B, m*m] float32 distances
+    obs: torch.Tensor,      # [B] float32 observed scores
+    active: torch.Tensor,   # [A] int64 rows of flat taking part
+    M: torch.Tensor,        # [m*m, nk*cs] coeff_range of chunks k0 .. k0+nk-1
+    k0: int,
+    nk: int,
+    chunk: int,
+    runs: int,
+) -> torch.Tensor:
+    """The hits of a range (K7 ``css_mc_shared``): int32 words [A, nk,
+    cs/32], bit b of word q of chunk kk set where permutation K = 32 q + b
+    of chunk k0 + kk counts (K < chunk, (k0 + kk)*chunk + K < runs) and
+    scores ``>=`` the window's observed score, both float32.  The kernel
+    on a CUDA ``flat``, the plain version on a CPU one."""
+    if is_cpu(flat):
+        return mc_hit_words_plain(flat, obs, active, M, k0, nk, chunk, runs)
+    m = _check_range(flat, obs, active, M, nk, chunk)
+    cs = chunk_stride(chunk)
+    words = torch.empty((active.numel(), nk, cs // WORD_BITS), dtype=torch.int32,
+                        device=flat.device)
+    launch(
+        LAUNCHES, "css_mc_shared", "css_mc_shared", flat.device,
+        ptr(flat), m, ptr(active), active.numel(), ptr(obs), ptr(M), k0, nk, chunk, cs,
+        runs, ptr(words),
+    )
+    return words
+
+
+def mc_scan_plain(words, active, k0, chunk, runs, threshold, hits, nsc, done) -> None:
+    """Plain torch version of :func:`mc_scan`, word by word as the kernel
+    goes: per chunk the words' popcounts, the first word whose running
+    count reaches ``need``, and the set bit within it that does."""
+    nk = words.shape[1]
+    w = words.to(torch.int64) & 0xFFFFFFFF                     # [A, nk, wpc]
+    h, n, d = hits[active].long(), nsc[active].long(), done[active] != 0
+    bit = torch.arange(WORD_BITS, device=words.device)
+    for kk in range(nk):
+        offset = (k0 + kk) * chunk
+        pc = _popcount32(w[:, kk])                             # [A, wpc]
+        cum = torch.cumsum(pc, dim=1)
+        total = cum[:, -1]
+        need = threshold - h
+        reached = ~d & (total >= need)
+        q = torch.argmax((cum >= need[:, None]).to(torch.int8), dim=1)
+        before = (cum - pc).gather(1, q[:, None])[:, 0]
+        word = w[:, kk].gather(1, q[:, None])[:, 0]
+        inword = torch.cumsum((word[:, None] >> bit) & 1, dim=1)
+        b = torch.argmax((inword >= (need - before)[:, None]).to(torch.int8), dim=1)
+        pos = torch.where(need <= 0, 0, q * WORD_BITS + b)
+        h = torch.where(d, h, torch.where(reached, threshold, h + total))
+        n = torch.where(d, n, torch.where(reached, offset + pos + 1,
+                                          offset + min(chunk, runs - offset)))
+        d = d | reached
+    hits[active] = h.to(hits.dtype)
+    nsc[active] = n.to(nsc.dtype)
+    done[active] = d.to(done.dtype)
+
+
+def mc_scan(
+    words: torch.Tensor,    # [A, nk, cs/32] int32, mc_hit_words of chunks k0 ..
+    active: torch.Tensor,   # [A] int64 rows
+    k0: int,
+    chunk: int,
+    runs: int,
+    threshold: int,
+    hits: torch.Tensor,     # [B] int32, updated in place
+    nsc: torch.Tensor,      # [B] int32, updated in place
+    done: torch.Tensor,     # [B] uint8, updated in place
+) -> None:
+    """The adaptive stop through a range (K7 ``css_mc_scan``): each window
+    ``active[a]`` not yet done goes through its chunks in order with the
+    update of ``perm.py:362-380`` (:func:`_chunk_update`) — a chunk whose
+    hits reach ``need = threshold - hits`` stops it at the column of the
+    need-th hit (hits = threshold, n = offset + pos + 1), any other adds
+    its hits and sets n = offset + counted.  The kernel on CUDA tensors,
+    the plain version on CPU ones."""
+    if is_cpu(words):
+        mc_scan_plain(words, active, k0, chunk, runs, threshold, hits, nsc, done)
+        return
+    A, nk, wpc = words.shape
+    if wpc != chunk_stride(chunk) // WORD_BITS or not words.is_contiguous():
+        raise ValueError(f"css_mc_scan takes contiguous words [A, nk, {wpc}]")
+    if (active.shape != (A,) or active.dtype != torch.int64
+            or [t.dtype for t in (hits, nsc, done)] != [torch.int32, torch.int32, torch.uint8]
+            or not all(t.is_contiguous() for t in (active, hits, nsc, done))):
+        raise ValueError("css_mc_scan takes contiguous int64 rows and int32 / int32 / "
+                         "uint8 state")
+    launch(
+        LAUNCHES, "css_mc_scan", "css_mc_scan", words.device,
+        ptr(words), ptr(active), A, k0, nk, chunk, chunk_stride(chunk), runs, threshold,
+        ptr(hits), ptr(nsc), ptr(done),
+    )
+
+
+def range_chunks(k: int, n_chunks: int, nact: int, mm: int, chunk: int) -> int:
+    """Chunks of the shared stream's range that starts at chunk ``k`` with
+    ``nact`` windows running.  A range's product costs nact x nk*chunk x
+    mm FMAs and every running window pays for all of it, though it may
+    stop in the first chunk; each range ends with one host sync.  So a
+    range takes as many chunks as came before it (a window that stops
+    inside pays at most as much again as it consumed) and at least enough
+    for ``_RANGE_FMAS`` of work (the sync stays small beside it), the first
+    at most ``_FIRST_RANGE_CHUNKS``; and never more M than
+    ``_RANGE_COEFF_BYTES`` or hit words than ``_RANGE_HIT_BYTES`` (one
+    chunk at least)."""
+    cs = chunk_stride(chunk)
+    nact = max(nact, 1)
+    want = max(k, _RANGE_FMAS // (nact * mm * chunk))
+    if k == 0:
+        want = min(want, _FIRST_RANGE_CHUNKS)
+    cap = min(_RANGE_COEFF_BYTES // (4 * mm * cs), _RANGE_HIT_BYTES // (nact * cs // 8))
+    return max(1, min(want, cap, n_chunks - k))
+
+
 def mc_shared(
-    distf: torch.Tensor,   # [B, m*m] float32 on the card
-    obs: torch.Tensor,     # [B] float32 observed scores on the card
+    distf: torch.Tensor,   # [B, m*m] float32
+    obs: torch.Tensor,     # [B] float32 observed scores
     key: torch.Tensor,     # [2] run-level MC key
     asize: int,
     bsize: int,
@@ -439,35 +639,34 @@ def mc_shared(
     runs: int,
     threshold: int,
     bitgen: str = "mix",
+    ranges: list | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The shared-stream MC on the card: (nscores, hits) int32 [B].
-
-    The chunks run in ranges: the coefficient kernel writes M for a range,
-    then the MC kernel carries every still-active window through it, each
-    tile of windows leaving the range as soon as all its windows are
-    done.  The first range is short (most windows finish there); after
-    each range the active windows are compacted, one host sync per
-    range."""
+    """The shared-stream MC in ranges of chunks: (nscores, hits) int32
+    [B].  For each range (:func:`range_chunks`) M of its chunks
+    (:func:`coeff_range`), the hit words of every running window
+    (:func:`mc_hit_words`) and the adaptive stop (:func:`mc_scan`); then
+    the running windows are compacted, one host sync per range.  The
+    kernels on the card, their plain versions on the CPU.  ``ranges``, if
+    given, gets (first chunk, chunks, running windows) of each range."""
     dev = distf.device
     B, mm = distf.shape
     m = asize + bsize
     if mm != m * m or not distf.is_contiguous() or distf.dtype != torch.float32:
         raise ValueError("css_mc_shared takes contiguous float32 [B, m*m] distances")
+    obs = obs.to(device=dev, dtype=torch.float32).contiguous()
     hits = torch.zeros(B, dtype=torch.int32, device=dev)
     nsc = torch.zeros(B, dtype=torch.int32, device=dev)
     done = torch.zeros(B, dtype=torch.uint8, device=dev)
     n_chunks = (runs + chunk - 1) // chunk
     active = torch.arange(B, dtype=torch.int64, device=dev)
-    later = max(1, _RANGE_COEFF_BYTES // (4 * mm * chunk))
     k = 0
     while k < n_chunks and active.numel():
-        nk = min(_FIRST_RANGE_CHUNKS if k == 0 else later, n_chunks - k)
-        M = shared_coeff(key, k, nk, m, asize, bsize, chunk, dev, bitgen)
-        launch(
-            LAUNCHES, "css_mc_shared", "css_mc_shared", dev,
-            ptr(distf), ptr(obs), ptr(active), active.numel(), m, ptr(M),
-            k, nk, chunk, runs, threshold, ptr(hits), ptr(nsc), ptr(done),
-        )
+        nk = range_chunks(k, n_chunks, active.numel(), mm, chunk)
+        M = coeff_range(key, k, nk, m, asize, bsize, chunk, dev, bitgen)
+        words = mc_hit_words(distf, obs, active, M, k, nk, chunk, runs)
+        mc_scan(words, active, k, chunk, runs, threshold, hits, nsc, done)
+        if ranges is not None:
+            ranges.append((k, nk, active.numel()))
         k += nk
         if k < n_chunks:
             active = active[done[active] == 0]
@@ -694,10 +893,13 @@ def null_power_sums(
     if B == 0 or n_chunks == 0:
         return out
     if stream == "shared":
-        M = shared_coeff(keys, k0, n_chunks, m, asize, bsize, chunk, dev, bitgen)
+        M = coeff_range(keys, k0, n_chunks, m, asize, bsize, chunk, dev, bitgen)
+        cs = chunk_stride(chunk)
+        tiles = -(-cs // TILE_COLUMNS)
+        partial = torch.empty((n_chunks, tiles, 3, B), dtype=torch.float64, device=dev)
         launch(
             LAUNCHES, "css_mc_power", "css_mc_power_shared", dev,
-            ptr(distf), B, m, ptr(M), n_chunks, chunk, ptr(out),
+            ptr(distf), B, m, ptr(M), n_chunks, chunk, cs, ptr(partial), ptr(out),
         )
     else:
         wk = _window_key_words(keys, dev)

@@ -10,8 +10,10 @@ Tolerances, relative to max(|reference|, 1): FET exact 1e-12, fast 1e-5.
 CSS: counts and the MC coefficients exactly equal; CMDS scores exact 1e-9
 on windows with eigengap above 1e-6, fast rtol 2e-3 atol 1e-4 (the JAX
 package's fast-vs-exact band); MC (nscores, hits) equal on >= 99.9 % of
-windows (a float32 near tie may flip between summation orders).  SMACOF
-(K6): exact 1e-9 on windows whose chosen restart and transform count
+windows (a float32 near tie may flip between summation orders), each
+differing window and each differing hit bit of K7's words a near tie
+(TIE_RTOL); K7's stop scan equal to its plain version on every window.
+SMACOF (K6): exact 1e-9 on windows whose chosen restart and transform count
 agree with the plain version's, the rest at most 0.1 % of windows (+1);
 fast within FAST_BAND, the JAX package's float32-vs-float64 band measured
 on the CPU (tests/test_torch_smacof.py; this file runs without jax).  K8
@@ -20,7 +22,9 @@ on the CPU (tests/test_torch_smacof.py; this file runs without jax).  K8
 float32 form adds the twin's products in the twin's order).  K9
 (``css_mc_power``): power sums within POWER_RTOL of the plain version and
 approx p within LOG10_P_BAND where nscores agree (>= 99.9 % of windows),
-the bands measured on the CPU (tests/test_torch_approx.py).  K10
+the bands measured on the CPU (tests/test_torch_approx.py); at the tile
+edges the shared stream's sums within the float32 rounding of the plain
+version's scores (see the test), and the same bits in two calls.  K10
 (``fet_window``): FET tolerances against its plain version (stddev beyond
 them on at most 0.01 % of windows, + 1) and bit-equal to K1 -> K2 on a
 chromosome's windows.  K1r (``fet_lut_rank``, ``fet_snp_ranks``): the
@@ -50,6 +54,7 @@ from divergence_tpu_torch.kernels import perm as kperm
 from divergence_tpu_torch.tools.synth import make_chromosome, make_freq_chromosome, make_panel
 
 TOL = {"exact": 1e-12, "fast": 1e-5}
+TIE_RTOL = 1e-5   # float32 near tie (tests/test_torch_mc.py)
 # approx mode, keyed by the largest m they cover (tests/test_torch_approx.py)
 POWER_RTOL = {21: 1e-6, 64: 3e-6}
 LOG10_P_BAND = {21: 2e-5, 64: 3e-4}
@@ -342,21 +347,6 @@ def test_css_mc_coeff_kernel_bit_equal(cuda, asize, bsize, chunk):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("chunk,runs", [(256, 20_000), (512, 3000), (100, 2500)])
-def test_css_mc_shared_kernel(cuda, chunk, runs):
-    vals, lo, npos = _css_windows(cuda, npos=60_000, region=3_000_000, seed=8)
-    s, d, v = kcss.css_phase1(vals, lo, npos, 11, 10, fast=True)
-    dist, scores = d[v], s[v].double().cpu().numpy()
-    key = rng.fold_in(rng.prng_key(0), 2)
-    got = kperm.significance(dist, scores, 11, 10, 10, runs, key, chunk=chunk)
-    pv, n, h = kperm.mc_significance(dist, scores, key, 11, 10, chunk, runs, 10)
-    differ = (got.nscores != n) | (got.hits != h)
-    assert differ.sum() <= 1e-3 * len(scores), int(differ.sum())
-    assert np.array_equal(got.pvals[~differ], pv[~differ])
-    assert (n < runs).any() and (n == runs).any()
-
-
-@pytest.mark.gpu
 @pytest.mark.parametrize("prec", ["exact", "fast"])
 def test_run_css_cuda_matches_cpu(cuda, prec):
     pos, am, bm = make_panel(20_000, 1_000_000, 11, 10, seed=8)
@@ -365,7 +355,7 @@ def test_run_css_cuda_matches_cpu(cuda, prec):
     kperm.reset_launches()
     g = run_css(SnpPair(pos, am, bm), 1_000_000, cfg, device=cuda, seqid="c")
     assert kcss.LAUNCHES["css_dissim"] >= 1 and kcss.LAUNCHES["css_cmds"] >= 1, kcss.LAUNCHES
-    assert kperm.LAUNCHES["css_mc_coeff"] >= 1 and kperm.LAUNCHES["css_mc_shared"] >= 1, \
+    assert all(kperm.LAUNCHES[k] >= 1 for k in ("css_mc_coeff", "css_mc_shared", "css_mc_scan")), \
         kperm.LAUNCHES
     c = run_css(SnpPair(pos, am, bm), 1_000_000, cfg, device="cpu", seqid="c")
     assert np.array_equal(g[0] != 0, c[0] != 0)
@@ -535,6 +525,136 @@ def test_css_mc_window_kernel(cuda, m, bitgen, backend):
         assert (got.pvals == 1.0).all() and (got.nscores == 10).all()
     else:
         assert (n < runs).any() and (n == runs).any()
+
+
+# K7 / K9 tile edges: window counts around the 128-window tile, m of 2,
+# 9, 21 (m^2 = 4, 81, 441: one, six and 28 depth slabs), chunks of 100
+# (a padded word), 256 and 512; the MC cap per chunk as before
+TILE_EDGE_WINDOWS = [1, 127, 129, 997]
+MC_RUNS_BY_CHUNK = {100: 2500, 256: 20_000, 512: 3000}
+
+
+def _near_tie_windows(dist, scores, got, n, h, key, asize, bsize, chunk) -> int:
+    """Windows whose (nscores, hits) differ from the plain version's; each
+    must hold a permutation, among those either consumed, whose float64
+    score lies within TIE_RTOL of the float32 observed score."""
+    m = asize + bsize
+    bad = np.nonzero((got.nscores != n) | (got.hits != h))[0]
+    for w in bad:
+        nn = int(max(got.nscores[w], n[w]))
+        M = kperm.shared_coeff(key, 0, -(-nn // chunk), m, asize, bsize, chunk, dist.device)
+        s64 = dist[w].reshape(-1).double() @ M.double()
+        obs = float(np.float32(scores[w]))
+        gap = float((s64[:nn] - obs).abs().min()) / max(abs(obs), 1.0)
+        assert gap <= TIE_RTOL, (w, gap)
+    return len(bad)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk", [100, 256, 512])
+@pytest.mark.parametrize("m", [2, 9, 21])
+@pytest.mark.parametrize("nwin", TILE_EDGE_WINDOWS)
+def test_css_mc_shared_kernel(cuda, nwin, m, chunk):
+    """K7 (css_mc_coeff, css_mc_shared, css_mc_scan) against the plain
+    chunk loop, and its first range's hit words against the plain ones
+    (bits differ only at float32 near ties)."""
+    runs = MC_RUNS_BY_CHUNK[chunk]
+    dist, scores, asize, bsize, _, _ = _mc_windows(cuda, m, nwin)
+    assert dist.shape[0] == nwin
+    key = rng.fold_in(rng.prng_key(0), 2).to(cuda)
+    before = {k: kperm.LAUNCHES[k] for k in ("css_mc_shared", "css_mc_scan")}
+    got = kperm.significance(dist, scores, asize, bsize, 10, runs, key, chunk=chunk)
+    torch.cuda.synchronize()
+    assert all(kperm.LAUNCHES[k] > before[k] for k in before), kperm.LAUNCHES
+    pv, n, h = kperm.mc_significance(dist, scores, key, asize, bsize, chunk, runs, 10)
+    nd = _near_tie_windows(dist, scores, got, n, h, key, asize, bsize, chunk)
+    assert nd <= 1e-3 * nwin + 1, nd
+    same = (got.nscores == n) & (got.hits == h)
+    assert np.array_equal(got.pvals[same], pv[same])
+    assert ((got.hits == 10) | (got.nscores == runs)).all()
+    if m == 2:
+        assert (got.pvals == 1.0).all() and (got.nscores == 10).all()
+    elif nwin == 997:
+        assert (n < runs).any() and (n == runs).any()
+    # the first range's words, kernel against plain
+    flat = dist.reshape(nwin, m * m).contiguous()
+    obs = torch.as_tensor(scores).to(cuda).float()
+    active = torch.arange(nwin, device=cuda)
+    M = kperm.coeff_range(key, 0, 4, m, asize, bsize, chunk, cuda)
+    kw = kperm.mc_hit_words(flat, obs, active, M, 0, 4, chunk, runs)
+    pw = kperm.mc_hit_words_plain(flat, obs, active, M, 0, 4, chunk, runs)
+    flip = kperm._unpack_words(kw ^ pw).reshape(nwin, -1)
+    gap = (flat.double() @ M.double() - obs.double()[:, None]).abs() \
+        / obs.double().abs().clamp(min=1.0)[:, None]
+    assert bool((gap[flip] <= TIE_RTOL).all()), float(gap[flip].max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk", [100, 256, 512])
+@pytest.mark.parametrize("nact", TILE_EDGE_WINDOWS)
+def test_css_mc_scan_kernel(cuda, nact, chunk):
+    """css_mc_scan against its plain version on random words and state:
+    (hits, nscores, done) equal on every window, rows outside ``active``
+    untouched."""
+    rs = np.random.default_rng(nact + chunk)
+    k0, nk, runs = 2, 7, 8 * chunk + 5
+    B = 2 * nact + 3
+    wpc = kperm.chunk_stride(chunk) // 32
+    rate = rs.uniform(0, 0.05, (nact, 1, 1))
+    bits = torch.from_numpy(rs.random((nact, nk, wpc * 32)) < rate)
+    K = torch.arange(wpc * 32)
+    offset = (k0 + torch.arange(nk))[:, None] * chunk
+    bits &= (K < chunk)[None, :] & (offset + K < runs)
+    words = kperm._pack_words(bits).to(cuda)
+    active = torch.from_numpy(rs.permutation(B)[:nact].copy()).to(cuda)
+    hits = torch.from_numpy(rs.integers(0, 10, B).astype(np.int32)).to(cuda)
+    nsc = torch.full((B,), k0 * chunk, dtype=torch.int32, device=cuda)
+    done = torch.from_numpy((rs.random(B) < 0.1).astype(np.uint8)).to(cuda)
+    state = [t.clone() for t in (hits, nsc, done)]
+    before = kperm.LAUNCHES["css_mc_scan"]
+    kperm.mc_scan(words, active, k0, chunk, runs, 10, *state)
+    torch.cuda.synchronize()
+    assert kperm.LAUNCHES["css_mc_scan"] == before + 1
+    plain = [t.cpu() for t in (hits, nsc, done)]
+    kperm.mc_scan_plain(words.cpu(), active.cpu(), k0, chunk, runs, 10, *plain)
+    for got, want in zip(state, plain):
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk", [100, 256, 512])
+@pytest.mark.parametrize("m", [2, 9, 21])
+@pytest.mark.parametrize("nwin", TILE_EDGE_WINDOWS)
+def test_css_mc_power_shared_tile_edges(cuda, nwin, m, chunk):
+    """K9's shared stream at the tile edges: the same bits in two calls,
+    and power sums within the float32 rounding of the scores of the plain
+    version.  POWER_RTOL does not apply here: the plain product is
+    cuBLAS's, which sums [997, 441] @ [441, 100] in another order than the
+    kernel's FMA chain (on 19,997 windows the two orders agree and the sums
+    meet POWER_RTOL, chip_smoke.py phase 10), and the terms D_e M_eK
+    cancel, so two orders of one score differ by up to 2 gamma_{m^2} sum_e
+    |D_e M_eK| (gamma_n = n u / (1 - n u), u = 2^-24), and sum s^q by up
+    to sum_K q a^(q-1) of that, a bounding |s|.  A wrong column or window
+    moves the sums by the scores themselves."""
+    dist, _, asize, bsize, _, _ = _mc_windows(cuda, m, nwin)
+    key = rng.fold_in(rng.prng_key(7), 2).to(cuda)
+    args = (dist, key, asize, bsize, chunk, 3, 2, "shared")
+    k = kperm.null_power_sums(*args)
+    k2 = kperm.null_power_sums(*args)
+    p = kperm.null_power_sums_plain(*args)
+    torch.cuda.synchronize()
+    assert k.shape == p.shape == (2, 3, nwin)
+    assert torch.equal(k.view(torch.int64), k2.view(torch.int64))
+    M = kperm.shared_coeff(key, 3, 2, m, asize, bsize, chunk, cuda).double()
+    D = dist.reshape(nwin, m * m).double()
+    s = (D @ M).reshape(nwin, 2, chunk)
+    u = 2.0 ** -24
+    ds = 2 * (m * m * u / (1 - m * m * u)) * (D.abs() @ M.abs()).reshape(nwin, 2, chunk)
+    a = s.abs() + ds
+    bound = torch.stack([ds.sum(-1), (2 * a * ds).sum(-1), (3 * a * a * ds).sum(-1)])
+    scale = torch.stack([(s.abs() ** q).sum(-1) for q in (1, 2, 3)])
+    bound = (bound + 1e-12 * scale).permute(2, 0, 1)          # [2, 3, nwin]
+    assert bool(((k - p).abs() <= bound).all()), float(((k - p).abs() / bound).max())
 
 
 @pytest.mark.gpu
