@@ -589,6 +589,7 @@ def phase_css_kernels(torch, pair, plan_ids, dev, results) -> None:
     from divergence_tpu_torch.engine import SnpPair
     from divergence_tpu_torch.kernels import css as kcss
     from divergence_tpu_torch.kernels import perm as kperm
+    from divergence_tpu_torch.kernels.linalg import INVERSE_ITERS
     from divergence_tpu_torch.tools.synth import make_chromosome, make_panel
 
     vals = pair.to_device(dev)
@@ -654,21 +655,35 @@ def phase_css_kernels(torch, pair, plan_ids, dev, results) -> None:
             tol_txt = f"rtol {FAST_RTOL:g} atol {FAST_ATOL:g}"
         ms = cuda_ms(torch, lambda: kcss.css_cmds(dis, npos_d, ASIZE, BSIZE), 3)
         pms = cuda_ms(torch, lambda: kcss.css_cmds_plain(dis, npos_d, ASIZE, BSIZE), 1)
+        # the eigensolver's multisection steps, and the library yardstick:
+        # torch.linalg.eigh on the same centred matrices, the eigen step
+        # alone (cuSOLVER, in the plain version's batches)
+        steps = torch.zeros(dis.shape[0], dtype=torch.int32, device=dev)
+        kcss.css_cmds(dis, npos_d, ASIZE, BSIZE, steps=steps)
+        centred = kcss.double_centre(kcss.fill_averages(dis)[0])
+        lib = cuda_ms(torch, lambda: [torch.linalg.eigh(centred[i:i + kcss._CMDS_BATCH])
+                                      for i in range(0, centred.shape[0], kcss._CMDS_BATCH)], 1)
+        del centred
         say(f"[K5 css_cmds {prec}] B={dis.shape[0]} windows, {excluded} excluded "
             f"(eigengap <= {GAP_BOUND:g}; allowed {int(0.01 * dis.shape[0])}), "
             f"{int(kv.sum())} valid, {int(ks.isnan().sum())} NaN in both: scores "
             f"max_rel_err={err:.3e}, {bad} beyond {tol_txt}; kernel {ms:.4f} ms "
-            f"plain {pms:.4f} ms")
+            f"plain {pms:.4f} ms; eigen step alone (torch.linalg.eigh) {lib:.4f} ms; "
+            f"multisection steps mean {float(steps.float().mean()):.2f} max "
+            f"{int(steps.max())}, inverse iteration {INVERSE_ITERS} solves a vector")
         check(excluded <= 0.01 * dis.shape[0], f"css_cmds: {excluded} degenerate windows")
         check(bad == 0, f"css_cmds {prec}: {bad} windows beyond tolerance")
         results["css_cmds"][prec] = (abs_err(got, want), err, ms, pms)
         results["css_cmds"][prec + "_excluded"] = excluded
-        if prec == "fast":   # D in, distances out; an eigensolver needs at
-            # least the (4/3) m^3 of a tridiagonal reduction
-            m, B = ASIZE + BSIZE, dis.shape[0]
-            results["css_cmds"]["bound"] = bound(
-                B * (2 * m * m * 4 + 8 + 5), {"f32": B * 4 * m**3 // 3})
-        del ks, kd, kv, ps, pd, pv, dis
+        results["css_cmds"][prec + "_library_ms"] = lib
+        results["css_cmds"][prec + "_steps"] = (float(steps.float().mean()), int(steps.max()))
+        # D in, distances out; an eigensolver needs at least the (4/3) m^3
+        # of a tridiagonal reduction, at the precision's rate
+        m, B = ASIZE + BSIZE, dis.shape[0]
+        esize, rate = (4, "f32") if prec == "fast" else (8, "f64")
+        results["css_cmds"]["bound" if prec == "fast" else "bound_exact"] = bound(
+            B * (2 * m * m * esize + 8 + esize + 1), {rate: B * 4 * m**3 // 3})
+        del ks, kd, kv, ps, pd, pv, dis, steps
     del plain64
     torch.cuda.empty_cache()
 
@@ -1324,6 +1339,23 @@ def explain_differences(torch, kperm, rng, dist, scores, wkeys, got, n, h, chunk
     return len(bad)
 
 
+def k8_launch_times(torch, kperm, dist, scores, wkeys, bitgen, native) -> dict:
+    """One call of K8's range loop to the MC_RUNS cap at chunk 256 with the
+    css_mc_window and css_mc_scan launches between CUDA events: their
+    summed device times, the host wall, the ranges and the permutations
+    computed (every running window pays for its whole range)."""
+    obs = torch.as_tensor(scores).to(dist.device).float()
+    ranges = []
+    with timed_launches(torch, kperm, ("css_mc_window", "css_mc_scan")) as spans:
+        (nsc, _), wall = host_ms(torch, lambda: kperm.mc_window(
+            dist, obs, wkeys, ASIZE, BSIZE, 256, MC_RUNS, 10, bitgen, native=native,
+            ranges=ranges))
+    kms = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in spans.items()}
+    computed = sum(a * (min(MC_RUNS, (k + nk) * 256) - k * 256) for k, nk, a in ranges)
+    return {"hits_ms": kms["css_mc_window"], "scan_ms": kms["css_mc_scan"], "wall_ms": wall,
+            "ranges": ranges, "computed": computed, "nsc": nsc.cpu().numpy()}
+
+
 def phase_window_kernels(torch, pair, plan_ids, dev, results) -> None:
     """Phase 10: K7 under threefry draws, K8 in its three forms and K9 in
     both streams against their plain versions on the card; K8 alone on the
@@ -1380,11 +1412,18 @@ def phase_window_kernels(torch, pair, plan_ids, dev, results) -> None:
         nd = explain_differences(torch, kperm, rng, dist, scores, wkeys, got, n, h, 256,
                                  bitgen, backend == "native")
         perms = int(n.sum())
+        lt = k8_launch_times(torch, kperm, dist, scores, wkeys, bitgen, backend == "native")
+        check(np.array_equal(lt["nsc"], got.nscores), f"css_mc_window {form}: rerun differs")
         say(f"[K8 css_mc_window {form}] {B} windows, {perms} permutations, "
             f"{int((n == MC_RUNS).sum())} to the {MC_RUNS} cap: {nd} windows differ (allowed "
             f"{int(MC_DIFFER_SHARE * B)}: near ties); kernel {ms:.1f} ms plain {pms:.1f} ms "
             f"(host wall, one call each; {perms / ms * 1e3:,.0f} vs "
-            f"{perms / pms * 1e3:,.0f} perms/s)")
+            f"{perms / pms * 1e3:,.0f} perms/s); launches alone (CUDA events): css_mc_window "
+            f"{lt['hits_ms']:.2f} ms, css_mc_scan {lt['scan_ms']:.3f} ms in a "
+            f"{lt['wall_ms']:.1f} ms call; {len(lt['ranges'])} ranges {lt['ranges']}; "
+            f"{lt['computed']} permutations computed for {perms} consumed "
+            f"({lt['computed'] / max(perms, 1):.4f}x)")
+        r[f"launches_{form}"] = lt
         check(nd <= MC_DIFFER_SHARE * B, f"css_mc_window {form}: {nd} windows differ")
         check(bool(((got.hits == 10) | (got.nscores == MC_RUNS)).all()),
               f"css_mc_window {form}: a window stopped outside the rule")
@@ -1401,17 +1440,28 @@ def phase_window_kernels(torch, pair, plan_ids, dev, results) -> None:
         wdist, wscores, ASIZE, BSIZE, 10, MC_RUNS, key, chroms=wchroms, slots=wslots,
         stream="window")
     k7 = lambda: kperm.significance(wdist, wscores, ASIZE, BSIZE, 10, MC_RUNS, key)  # noqa: E731
+    kern()                                       # warm-up
     got, ms = host_ms(torch, kern)
     k7()
     got7, ms7 = host_ms(torch, k7)
     perms, perms7 = int(got.nscores.sum()), int(got7.nscores.sum())
+    wkeys16 = rng.window_keys(key, wchroms, wslots)
+    lt = k8_launch_times(torch, kperm, wdist, wscores, wkeys16, "mix", False)
+    check(np.array_equal(lt["nsc"], got.nscores), "css_mc_window 16x: rerun differs")
+    bnd16 = bound(wdist.shape[0] * (m * m * 4 + 4 + 16 + 8),
+                  {t: v * perms for t, v in window_ops("mix", m, ASIZE).items()})
     say(f"[K8 css_mc_window mix, 16x worst case] {wdist.shape[0]} windows, {perms} "
         f"permutations: kernel {ms:.1f} ms ({perms / ms * 1e3:,.0f} perms/s; host wall, "
-        f"one call); K7 css_mc_shared on the same windows {ms7:.1f} ms for {perms7} "
-        f"permutations ({perms7 / ms7 * 1e3:,.0f} perms/s); plain version not run at this "
-        "size")
+        f"one call); launches alone (CUDA events): css_mc_window {lt['hits_ms']:.2f} ms, "
+        f"css_mc_scan {lt['scan_ms']:.3f} ms in a {lt['wall_ms']:.1f} ms call; "
+        f"{len(lt['ranges'])} ranges {lt['ranges']}; {lt['computed']} permutations "
+        f"computed for {perms} consumed ({lt['computed'] / max(perms, 1):.4f}x); bound "
+        f"{bnd16[0]:.2f} ms ({bnd16[1]}); K7 css_mc_shared on the same windows {ms7:.1f} ms "
+        f"for {perms7} permutations ({perms7 / ms7 * 1e3:,.0f} perms/s); plain version not "
+        "run at this size")
     check(bool(((got.hits == 10) | (got.nscores == MC_RUNS)).all()), "css_mc_window 16x")
     r["worst_ms"], r["worst_k7_ms"] = ms, ms7
+    r["launches_16x"], r["bound_16x"], r["perms_16x"] = lt, bnd16, perms
     del wdist
     torch.cuda.empty_cache()
 
@@ -1816,13 +1866,16 @@ def phase_step_library(torch, gathered, dev, card, tmp: Path, results) -> None:
     check(np.isfinite(float(out1["score_sum"])) and n_valid > 0.9 * B, "step: score_sum / valid")
     wall, dev_ms, top = device_profile(torch, lambda: one(av, bv, npos, slot, key))
     check(dev_ms > 0, "step: the profiler saw no device time")
+    k5_ms = sum(ms for ms, name in top if "css_cmds" in name)
+    check(k5_ms > 0, "step: the profiler saw no css_cmds time")
     say(f"[step] make_divergence_step(11, 10) defaults on {B} bench windows (+{Bp - B} empty, "
         f"P={STEP_P}), 1 device: warm wall min {min(walls1):.1f} ms median "
         f"{float(np.median(walls1)):.1f} ms ({B / min(walls1) * 1e3:,.0f} windows/s); "
         f"{n_valid} CSS-valid windows, score_sum {float(out1['score_sum']):.6f}, "
         f"{int(out1['mc_hits'].sum())} MC hits; profiled wall {wall:.1f} ms, device "
         f"{dev_ms:.1f} ms ({100 * dev_ms / wall:.1f} % busy); most device time: "
-        + "; ".join(f"{name[:50]} {ms:.2f} ms" for ms, name in top[:3]) + f" on {card}")
+        + "; ".join(f"{name[:50]} {ms:.2f} ms" for ms, name in top[:3]) + f"; K5 css_cmds "
+        f"{k5_ms:.2f} ms, {100 * k5_ms / wall:.1f} % of the wall, on {card}")
 
     out4, walls4 = step_walls(four)
     same = {k: torch.equal(out1[k], out4[k]) for k in names}
@@ -1867,6 +1920,7 @@ def phase_step_library(torch, gathered, dev, card, tmp: Path, results) -> None:
     check(float(outk["windows_evaluated"]) == float(outp["windows_evaluated"]) and
           dsum <= allowed_sum, "step vs plain: summaries")
     results["step"] = {"wall_ms": min(walls1), "wall_4_ms": min(walls4), "busy": dev_ms / wall,
+                       "k5_ms": k5_ms, "k5_share": k5_ms / wall,
                        "plain_ms": pms, "kernel_ms_20k": kms}
     del outk, outp, joint, dis
 
@@ -2234,8 +2288,8 @@ def smoke(torch, dev) -> tuple[str, list[dict]]:
         coeff_by_bitgen = dict(kperm.COEFF_LAUNCHES)
         say(f"[CSS main path, phase-2 options] kernel launches: {window_launches}; "
             f"css_mc_coeff by draw stream: {coeff_by_bitgen}")
-        check(window_launches["css_mc_window"] > 0 and window_launches["css_mc_power"] > 0
-              and coeff_by_bitgen["threefry"] > 0,
+        check(window_launches["css_mc_window"] > 0 and window_launches["css_mc_scan"] > 0
+              and window_launches["css_mc_power"] > 0 and coeff_by_bitgen["threefry"] > 0,
               f"the phase-2 options did not launch K8, K9 and threefry K7: "
               f"{window_launches}, {coeff_by_bitgen}")
         launches["css_mc_window"] = window_launches["css_mc_window"]
@@ -2301,7 +2355,16 @@ def smoke(torch, dev) -> tuple[str, list[dict]]:
             }
             entry["windows_differ"] = entry["stddev_windows_beyond_tol"]
         if name == "css_cmds":
+            # library_ms: torch.linalg.eigh on the centred matrices alone
             entry["windows_excluded_eigengap"] = r["exact_excluded"]
+            entry["library_ms"] = r["fast_library_ms"]
+            entry["library_is"] = "torch.linalg.eigh of the centred matrices (eigen step alone)"
+            entry["library_ms_exact"] = r["exact_library_ms"]
+            entry["bound_ms_exact"], entry["bound_by_exact"] = r["bound_exact"]
+            entry["multisection_steps_mean_max"] = {
+                "fast": r["fast_steps"], "exact": r["exact_steps"]}
+            entry["step_wall_ms"] = results["step"]["wall_ms"]
+            entry["step_k5_share"] = results["step"]["k5_share"]
         if name == "css_mc_coeff":
             entry["ms_threefry"], entry["plain_ms_threefry"] = r["threefry"][2], r["threefry"][3]
         if name == "css_mc_shared":
@@ -2338,6 +2401,15 @@ def smoke(torch, dev) -> tuple[str, list[dict]]:
                 entry["max_abs_err"] = max(entry["max_abs_err"], r[form][0])
             entry["ms_worst_case_16x"] = r["worst_ms"]
             entry["k7_ms_worst_case_16x"] = r["worst_k7_ms"]
+            entry["bound_ms_worst_case_16x"] = r["bound_16x"][0]
+            # the range loop's launches alone (CUDA events) and its waste
+            for tag in ("mix", "threefry", "native", "16x"):
+                lt = r[f"launches_{tag}"]
+                entry[f"kernel_ms_{tag}"] = lt["hits_ms"]
+                entry[f"scan_ms_{tag}"] = lt["scan_ms"]
+                entry[f"perms_computed_{tag}"] = lt["computed"]
+                entry[f"perms_consumed_{tag}"] = int(lt["nsc"].sum())
+                entry[f"ranges_{tag}"] = len(lt["ranges"])
         if name == "fet_window":
             # ms / plain_ms: 19,997 windows of the 200 k workload; then the
             # ~800 k bench windows, bit-equal to phase 2's K1 -> K2

@@ -24,7 +24,7 @@
 //   tile and chunk, walking the chunk's tiles, would launch 314 blocks for
 //   19,997 windows x 2 chunks: 1.2 waves of 2 blocks per SM.)
 // css_mc_power_window (kernel power_window) — the window stream: one warp
-//   per window, K8's draws, ranks and float32 score (css_perm_common.cuh),
+//   per window, the draws, ranks and float32 score of css_perm_common.cuh,
 //   lane i taking columns i, i + 32, ... of each chunk and summing its
 //   powers in registers, then a shuffle sum over the warp.
 //

@@ -5,39 +5,55 @@
 // _perm_scores_mlast layout, _fold_chunk, _mix32/_mix_bits), as
 // _mc_stage1_all / _mc_stage2_all run it, and in its float64 form
 // native/mc_native.cpp:mc_native (perm_backend="native").  Plain torch
-// versions: divergence_tpu_torch/kernels/perm.py mc_significance
-// (stream="window") and mc_native_plain.  Its draws, ranks and scores are
-// css_perm_common.cuh's, which K11 (css_perm_chunk.cu, one fixed chunk per
-// window for the sharded step) runs too.
+// versions: divergence_tpu_torch/kernels/perm.py mc_window_hit_words_plain
+// (a range's hits) with mc_scan_plain, and the whole loops
+// mc_significance (stream="window") and mc_native_plain.
 //
-// css_mc_window (kernel window_mc) — one warp per window, several windows
-// per block:
-//   the window's D (m*m float32) is staged once in shared memory (and, in
-//   the float64 form, its row totals);
-//   the warp walks the window's permutations in order, 32 at a time:
-//   lane i takes permutation g = base + i, chunk k = g / chunk, column
-//   K = g % chunk, draws its m words from fold_in(wkey, k) (mix or
-//   threefry), ranks them by pairwise compares with the index tie-break
-//   and scores it (css_perm_common.cuh: score_f32 adds the float32
-//   products of perm.py:_scores_from_ranks in the twin's order; score_f64
-//   is mc_native's order in float64 against the float32 observed score
-//   widened to float64);
-//   the hits of the 32 permutations are one ballot, counted in
-//   permutation order, so the need-th hit is found exactly; the warp
-//   stops there (n = its 1-based index, hits = threshold) or at runs
-//   (n = runs).  That is the single-pass loop's result (perm.py:368-380),
-//   and each warp stops on its own.
+// The host runs the chunks in ranges, as K7 does (perm.py: mc_window,
+// range_chunks); for each range two launches:
 //
-// What bounds it on H100: instruction issue, not memory (D is read once
-// per window).  Per permutation a lane does m draws (two mix32 or one
-// threefry-2x32 each) and m^2 rank compares; the float32 form then tests
-// all m^2 coefficients and does a float32 multiply and add for each (the
-// useful work: a*b + m - 2 nonzero terms), the float64 form about
-// C(min(a,b), 2) + m float64 adds over the rank order.  At m = 21 that is
-// some 3,000 instructions per lane and permutation.  The design keeps D in
-// shared memory (a broadcast read: every lane reads the same D[j][l] in
-// the float32 form), the draws and ranks in thread-local arrays (L1), and
-// gives each window its own early exit, so no warp computes past its stop.
+// css_mc_window (kernel window_hits) — the hit words [nact, nk, cstride/32]
+// of every running window over the range's nk chunks, K7's layout: bit b
+// of word q of chunk kk is permutation K = 32 q + b of chunk k0 + kk, set
+// where it counts (K < chunk, (k0 + kk)*chunk + K < runs) and scores >=
+// the observed score.  The grid spans (window, slice of kWordsPerBlock
+// words), so every range fills the card whatever the number of windows:
+//   a block stages its window's D once in shared memory (the float64
+//   form, with the row totals) or its products with the three nonzero
+//   coefficients (the float32 form: the rounded products score_f32
+//   forms), computes fold_in(wkey, k) once for each chunk of its slice,
+//   and flags a D with a non-finite entry;
+//   a warp takes one word, 32 consecutive permutations of one chunk: lane
+//   i draws permutation K = 32 q + i (mix or threefry, css_perm_common.cuh
+//   draw_unrolled), ranks it (rank_unrolled), and scores it: the float32
+//   form over its a*b + m - 2 nonzero terms in the twin's row-major order
+//   (score_f32_nonzero: the same hits as adding every product; a flagged
+//   window has none, as in the twin, where Inf or NaN times a zero
+//   coefficient is NaN), the float64 form in mc_native's order over the
+//   rank order (score_f64) against the float32 observed score widened;
+//   one ballot is the word.
+//   The kernel is instantiated for m <= 8, 16, 24, 32 and 64; at m <= 32
+//   the draws and ranks are indexed by constants and stay in registers,
+//   and the ranks, the rank order and the b-group list live in
+//   lane-interleaved shared memory ([k][32] bytes per warp), from where
+//   the score reads them by data.
+// css_mc_scan (css_mc.cu, K7's) then applies the stop rule of
+// perm.py:362-380 word by word, and the host compacts the running
+// windows: (p, n, hits) equal the single-pass loop's.
+//
+// What bounds it on H100: instruction issue (D is read once per block).
+// Per permutation a lane does m draws (two mix32, ~12 integer operations
+// each, or one threefry-2x32, ~70), m(m-1) rank compares and adds, and
+// a*b + m - 2 float32 multiply-adds (the float64 form about C(g, 2) + g +
+// m float64 adds, g the smaller group): at m = 21 some 1,500 operations
+// a permutation in mix.  The score's rows diverge: in each row j some
+// lanes hold an a-group individual, so the warp runs that row's b-group
+// loop (b + 1 steps) in nearly every row, about twice the terms a lane
+// needs; and the b-group list, star term and row loads take ~128
+// registers, so 16 warps share an SM.  The range loop keeps every SM busy
+// (the old kernel ran one warp per window to its stop, 997 warps on 132
+// SMs), and a window that stops inside a range pays for the rest of it:
+// range_chunks bounds that waste.
 #include "css_perm_common.cuh"
 #include "fet_common.cuh"
 #include "threefry.cuh"
@@ -46,117 +62,192 @@ namespace {
 
 using permk::kMaxM;
 
-constexpr int kWarpsPerBlock = 4;
-constexpr int kThreads = 32 * kWarpsPerBlock;
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kWordsPerBlock = 64;   // 8 words (256 permutations) a warp
 
-// Shared memory of one warp: D, then (float64 form) the row totals.
-__host__ __device__ constexpr int floats_per_warp(int m) {
-    return ((m * m + 1) / 2) * 2 + 2 * m;   // D padded to 8 bytes, m doubles
+// Bytes of a block's shared memory: the window's matrices (float64 form:
+// D; float32 form: its three products pb, pa, pc), each padded to 16
+// bytes, the row totals, the chunk keys, and per warp the ranks, the rank
+// order and the b-group list.
+__host__ __device__ constexpr int d_floats(int m) { return (m * m + 3) & ~3; }
+__host__ __device__ constexpr int rowtot_doubles(int m) { return (m + 1) & ~1; }
+__host__ __device__ constexpr int mat_floats(int m, bool f64) {
+    return (f64 ? 1 : 3) * d_floats(m);
+}
+__host__ __device__ constexpr size_t smem_bytes(int m, int mb, bool f64) {
+    return sizeof(float) * mat_floats(m, f64) + sizeof(double) * rowtot_doubles(m) +
+           sizeof(uint2) * kWordsPerBlock + 3 * static_cast<size_t>(kWarps) * mb * 32;
+}
+
+// The lane-interleaved tables of one permutation (css_perm_common.cuh
+// score_f32_nonzero): rk[j * 32] = r_j, ord[p * 32] = the individual at
+// rank p, bl[s * 32] = the s-th b-group individual (rank >= a) in index
+// order; returns the b-group's bit mask.
+template <int MB>
+__device__ __forceinline__ uint64_t rank_tables(const int (&r)[MB], int m, int asize,
+                                                uint8_t* rk, uint8_t* ord, uint8_t* bl) {
+    int nb = 0;
+    uint64_t bmask = 0;
+    if constexpr (MB <= 32) {
+#pragma unroll
+        for (int j = 0; j < MB; ++j) {
+            if (j >= m) break;
+            rk[j * 32] = static_cast<uint8_t>(r[j]);
+            ord[r[j] * 32] = static_cast<uint8_t>(j);
+            if (r[j] >= asize) {
+                bl[32 * nb++] = static_cast<uint8_t>(j);
+                bmask |= 1ull << j;
+            }
+        }
+    } else {
+        for (int j = 0; j < m; ++j) {
+            rk[j * 32] = static_cast<uint8_t>(r[j]);
+            ord[r[j] * 32] = static_cast<uint8_t>(j);
+            if (r[j] >= asize) {
+                bl[32 * nb++] = static_cast<uint8_t>(j);
+                bmask |= 1ull << j;
+            }
+        }
+    }
+    return bmask;
+}
+
+template <int MB, bool kF64>
+__global__ void __launch_bounds__(kThreads, 2)
+window_hits(const float* __restrict__ dist, const float* __restrict__ obs,
+            const int64_t* __restrict__ wkeys, const int64_t* __restrict__ active,
+            int m, int asize, int k0, int nk, int chunk, int wpc, int runs, int slices,
+            int bitgen, permk::CoeffConst cc, permk::NativeConst nc,
+            uint32_t* __restrict__ words) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const int mm = m * m;
+    float* D = reinterpret_cast<float*>(smem_raw);        // float64 form
+    float* pb = D;                                        // float32 form
+    float* pa = pb + d_floats(m);
+    float* pc = pa + d_floats(m);
+    double* rowtot = reinterpret_cast<double*>(D + mat_floats(m, kF64));
+    uint2* ckeys = reinterpret_cast<uint2*>(rowtot + rowtot_doubles(m));
+    uint8_t* ord_all = reinterpret_cast<uint8_t*>(ckeys + kWordsPerBlock);
+    uint8_t* bl_all = ord_all + kWarps * MB * 32;
+    uint8_t* rk_all = bl_all + kWarps * MB * 32;
+
+    const int64_t a = blockIdx.x / slices;
+    const int slice = static_cast<int>(blockIdx.x - a * slices);
+    const int64_t row = active[a];
+    const int q0 = slice * kWordsPerBlock;
+    const int q1 = min(q0 + kWordsPerBlock, nk * wpc);
+    const int kk0 = q0 / wpc;
+    const int nck = (q1 - 1) / wpc - kk0 + 1;
+
+    bool bad = false;
+    for (int i = threadIdx.x; i < mm; i += kThreads) {
+        const float d = dist[row * mm + i];
+        if (kF64) {
+            D[i] = d;
+        } else {
+            pb[i] = __fmul_rn(d, cc.between);
+            pa[i] = __fmul_rn(d, -cc.ca);
+            pc[i] = __fmul_rn(d, -cc.cb);
+        }
+        bad |= !isfinite(d);
+    }
+    const uint2 wkey = make_uint2(static_cast<uint32_t>(wkeys[2 * row]),
+                                  static_cast<uint32_t>(wkeys[2 * row + 1]));
+    for (int t = threadIdx.x; t < nck; t += kThreads) {
+        ckeys[t] = tf::fold_in(wkey, static_cast<uint32_t>(k0 + kk0 + t));
+    }
+    const bool flagged = __syncthreads_or(bad) != 0;
+    if (kF64) {
+        for (int j = threadIdx.x; j < m; j += kThreads) rowtot[j] = permk::row_total(D, m, j);
+        __syncthreads();
+    }
+
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    uint8_t* ord = ord_all + warp * MB * 32 + lane;
+    uint8_t* bl = bl_all + warp * MB * 32 + lane;
+    uint8_t* rk = rk_all + warp * MB * 32 + lane;
+    const float o32 = obs[row];
+    const double o64 = static_cast<double>(o32);
+    for (int q = q0 + warp; q < q1; q += kWarps) {
+        const int kk = q / wpc;
+        const int qq = q - kk * wpc;
+        const int K = qq * 32 + lane;
+        const int64_t g = static_cast<int64_t>(k0 + kk) * chunk + K;
+        bool hit = false;
+        if (K < chunk && g < runs && (kF64 || !flagged)) {
+            uint32_t x[MB];
+            int r[MB];
+            permk::draw_unrolled<MB>(ckeys[kk - kk0], static_cast<uint32_t>(K), m, bitgen, x);
+            permk::rank_unrolled<MB>(x, m, r);
+            const uint64_t bmask = rank_tables<MB>(r, m, asize, rk, ord, bl);
+            if constexpr (kF64) {
+                hit = permk::score_f64(D, rowtot, ord, 32, m, asize, nc) >= o64;
+            } else {
+                hit = permk::score_f32_nonzero<MB>(pb, pa, pc, m, asize, rk, ord, bl,
+                                                   bmask) >= o32;
+            }
+        }
+        const uint32_t b = __ballot_sync(0xffffffffu, hit);
+        if (lane == 0) words[(a * nk + kk) * wpc + qq] = b;
+    }
+}
+
+template <int MB, bool kF64>
+int launch_hits(const float* dist, const float* obs, const int64_t* wkeys,
+                const int64_t* active, int64_t nact, int m, int asize, int k0, int nk,
+                int chunk, int wpc, int runs, int bitgen, permk::CoeffConst cc,
+                permk::NativeConst nc, uint32_t* words, cudaStream_t s) {
+    const size_t smem = smem_bytes(m, MB, kF64);
+    const cudaError_t attr = cudaFuncSetAttribute(
+        window_hits<MB, kF64>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    const int slices = (nk * wpc + kWordsPerBlock - 1) / kWordsPerBlock;
+    const int64_t blocks = nact * slices;
+    if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidConfiguration);
+    window_hits<MB, kF64><<<static_cast<unsigned>(blocks), kThreads, smem, s>>>(
+        dist, obs, wkeys, active, m, asize, k0, nk, chunk, wpc, runs, slices, bitgen, cc,
+        nc, words);
+    return static_cast<int>(cudaGetLastError());
 }
 
 template <bool kF64>
-__global__ void __launch_bounds__(kThreads)
-window_mc(const float* __restrict__ dist, const float* __restrict__ obs,
-              const int64_t* __restrict__ wkeys, int64_t B, int m, int asize,
-              int chunk, int runs, int threshold, int bitgen,
-              permk::CoeffConst cc, permk::NativeConst nc,
-              int* __restrict__ hits_out, int* __restrict__ nsc_out) {
-    extern __shared__ __align__(16) float smem[];
-    const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
-    const int64_t w = static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + warp;
-    if (w >= B) return;   // warp-uniform; no block-wide barrier follows
-    const int mm = m * m;
-    float* D = smem + warp * floats_per_warp(m);
-    double* rowtot = reinterpret_cast<double*>(D + ((mm + 1) / 2) * 2);
-    for (int i = lane; i < mm; i += 32) D[i] = dist[w * mm + i];
-    __syncwarp();
-    if (kF64) {
-        for (int j = lane; j < m; j += 32) rowtot[j] = permk::row_total(D, m, j);
-        __syncwarp();
-    }
-    const float o32 = obs[w];
-    const double o64 = static_cast<double>(o32);
-    const uint2 wkey = make_uint2(static_cast<uint32_t>(wkeys[2 * w]),
-                                  static_cast<uint32_t>(wkeys[2 * w + 1]));
-
-    int hits = 0;
-    int n = runs;
-    int key_k = -1;
-    uint2 ck = wkey;
-    uint32_t x[kMaxM];
-    int r[kMaxM];
-    int ord[kMaxM];
-    for (int base = 0; base < runs; base += 32) {
-        const int g = base + lane;
-        bool hit = false;
-        if (g < runs) {
-            const int k = g / chunk;
-            if (k != key_k) {
-                ck = tf::fold_in(wkey, static_cast<uint32_t>(k));
-                key_k = k;
-            }
-            permk::draw(ck, static_cast<uint32_t>(g - k * chunk), m, bitgen, x);
-            permk::rank(x, m, r, ord);
-            if (kF64) {
-                hit = permk::score_f64(D, rowtot, ord, m, asize, nc) >= o64;
-            } else {
-                hit = permk::score_f32(D, r, m, asize, cc) >= o32;
-            }
-        }
-        uint32_t b = __ballot_sync(0xffffffffu, hit);
-        const int c = __popc(b);
-        const int need = threshold - hits;
-        if (c >= need) {
-            for (int q = need; q > 1; --q) b &= b - 1;
-            n = base + __ffs(b);   // 1-based index of the need-th hit
-            hits = threshold;
-            break;
-        }
-        hits += c;
-    }
-    if (lane == 0) {
-        hits_out[w] = hits;
-        nsc_out[w] = n;
-    }
+int dispatch_hits(const float* dist, const float* obs, const int64_t* wkeys,
+                  const int64_t* active, int64_t nact, int m, int asize, int k0, int nk,
+                  int chunk, int wpc, int runs, int bitgen, permk::CoeffConst cc,
+                  permk::NativeConst nc, uint32_t* words, cudaStream_t s) {
+#define DIVERGENCE_HITS(MB)                                                              \
+    launch_hits<MB, kF64>(dist, obs, wkeys, active, nact, m, asize, k0, nk, chunk, wpc, \
+                          runs, bitgen, cc, nc, words, s)
+    if (m <= 8) return DIVERGENCE_HITS(8);
+    if (m <= 16) return DIVERGENCE_HITS(16);
+    if (m <= 24) return DIVERGENCE_HITS(24);
+    if (m <= 32) return DIVERGENCE_HITS(32);
+    return DIVERGENCE_HITS(kMaxM);
+#undef DIVERGENCE_HITS
 }
 
 }  // namespace
 
-FET_EXPORT int css_mc_window(const float* dist, const float* obs,
-                             const int64_t* wkeys, int64_t B, int m, int asize,
-                             int chunk, int runs, int threshold, int bitgen,
-                             int f64, float between, float ca, float cb,
-                             double wa, double wb, double inv_ab, int* hits,
-                             int* nsc, void* stream) {
-    if (m > kMaxM || m < 2 || asize < 1 || asize >= m || chunk <= 0 ||
-        threshold <= 0 || bitgen < 0 || bitgen > 1 || (f64 && bitgen != 0)) {
+FET_EXPORT int css_mc_window(const float* dist, const float* obs, const int64_t* wkeys,
+                             const int64_t* active, int64_t nact, int m, int asize,
+                             int k0, int nk, int chunk, int cstride, int runs, int bitgen,
+                             int f64, float between, float ca, float cb, double wa,
+                             double wb, double inv_ab, uint32_t* words, void* stream) {
+    if (m > kMaxM || m < 2 || asize < 1 || asize >= m || chunk <= 0 || cstride < chunk ||
+        cstride % permk::kWordBits != 0 || bitgen < 0 || bitgen > 1 ||
+        (f64 && bitgen != 0)) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
-    if (B == 0) return 0;
-    const unsigned blocks =
-        static_cast<unsigned>((B + kWarpsPerBlock - 1) / kWarpsPerBlock);
-    const size_t smem = sizeof(float) * kWarpsPerBlock * floats_per_warp(m);
+    if (nact == 0 || nk == 0) return 0;
     const permk::CoeffConst cc{between, ca, cb};
     const permk::NativeConst nc{wa, wb, inv_ab};
+    const int wpc = cstride / permk::kWordBits;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    // above 48 KB (m > 54) dynamic shared memory must be asked for
-    const cudaError_t attr = f64
-        ? cudaFuncSetAttribute(window_mc<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem))
-        : cudaFuncSetAttribute(window_mc<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (attr != cudaSuccess) return static_cast<int>(attr);
-    if (f64) {
-        window_mc<true><<<blocks, kThreads, smem, s>>>(
-            dist, obs, wkeys, B, m, asize, chunk, runs, threshold, bitgen, cc, nc,
-            hits, nsc);
-    } else {
-        window_mc<false><<<blocks, kThreads, smem, s>>>(
-            dist, obs, wkeys, B, m, asize, chunk, runs, threshold, bitgen, cc, nc,
-            hits, nsc);
-    }
-    return static_cast<int>(cudaGetLastError());
+    return f64 ? dispatch_hits<true>(dist, obs, wkeys, active, nact, m, asize, k0, nk, chunk,
+                                     wpc, runs, bitgen, cc, nc, words, s)
+               : dispatch_hits<false>(dist, obs, wkeys, active, nact, m, asize, k0, nk,
+                                      chunk, wpc, runs, bitgen, cc, nc, words, s);
 }

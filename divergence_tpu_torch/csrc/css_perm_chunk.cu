@@ -6,7 +6,7 @@
 // Plain torch version: divergence_tpu_torch/kernels/perm.py
 // permutation_chunk_plain.
 //
-// css_perm_chunk (kernel perm_chunk) — K8's layout: one warp per window,
+// css_perm_chunk (kernel perm_chunk) — one warp per window,
 // several windows per block, the window's D (m*m float32) staged once in
 // shared memory.  Lane i takes the permutations K = base + i, base = 0,
 // 32, ... < chunk: it draws its m words from the window's key as given
@@ -19,7 +19,7 @@
 // 0 where it is never reached (the all-false argmax of perm.py:420) or
 // need <= 0 (the first index meets cum >= need).
 //
-// What bounds it on H100: instruction issue, as K8 (D is read once per
+// What bounds it on H100: instruction issue (D is read once per
 // window).  Per permutation a lane does m draws, m^2 rank compares and
 // tests m^2 coefficients; at m = 21 some 3,000 instructions.
 #include "css_perm_common.cuh"

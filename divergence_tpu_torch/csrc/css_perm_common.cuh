@@ -14,6 +14,10 @@
 //                       u = 1.m - 1 is monotone in those bits, so equal
 //                       floats are equal words and tie on the index.
 //   r_j = #{l : x_l < x_j, or x_l == x_j and l < j}.
+// draw / rank run loops to a runtime m (K7's css_mc_coeff, K9's window
+// stream, K11); draw_unrolled / rank_unrolled do the same draws and
+// compares for m up to a compile-time bound, so K8's x and r stay in
+// registers (m <= 32; up to 24 with one compare per pair).
 //
 // Scores of one permutation against D (row-major m x m float32, in shared
 // memory):
@@ -23,7 +27,10 @@
 //                cw(r_j) : 0, u_j = r_j < a, added one after another in
 //                row-major (j, l) order from 0 — the twin's order
 //                (kernels/perm.py:_scores_from_ranks), so the two agree bit
-//                for bit;
+//                for bit (K9, K11);
+//   score_f32_nonzero — the same sum over the a*b + m - 2 nonzero terms
+//                only, in the same order (K8; see its note for why the
+//                hits are the same);
 //   score_f64  — native/mc_native.cpp:272-294 step for step, in float64:
 //                row totals over the smaller group, between = rt -
 //                2 within, the a- and b-chains over rank-adjacent pairs,
@@ -72,17 +79,23 @@ __device__ __forceinline__ uint32_t mix32(uint32_t x) {
     return x ^ (x >> 16);
 }
 
+// Draw c = K*m + j of the chunk keyed by `key`.
+__device__ __forceinline__ uint32_t draw_one(uint2 key, uint32_t c, int bitgen) {
+    if (bitgen == kMix) return mix32(mix32(key.x ^ c) + key.y);
+    const uint2 b = tf::threefry2x32(key, 0u, c);
+    return (b.x ^ b.y) >> 9;
+}
+
+// Individual l precedes individual j in the stable ascending order.
+__device__ __forceinline__ int precedes(uint32_t xl, uint32_t xj, int l, int j) {
+    return (xj > xl) || (xj == xl && j > l);
+}
+
 // The m draws of permutation K of the chunk keyed by `key`.
 __device__ __forceinline__ void draw(uint2 key, uint32_t K, int m, int bitgen,
                                      uint32_t* x) {
     for (int j = 0; j < m; ++j) {
-        const uint32_t c = K * static_cast<uint32_t>(m) + static_cast<uint32_t>(j);
-        if (bitgen == kMix) {
-            x[j] = mix32(mix32(key.x ^ c) + key.y);
-        } else {
-            const uint2 b = tf::threefry2x32(key, 0u, c);
-            x[j] = (b.x ^ b.y) >> 9;
-        }
+        x[j] = draw_one(key, K * static_cast<uint32_t>(m) + static_cast<uint32_t>(j), bitgen);
     }
 }
 
@@ -91,11 +104,77 @@ __device__ __forceinline__ void rank(const uint32_t* x, int m, int* r, int* ord)
     for (int j = 0; j < m; ++j) {
         const uint32_t xj = x[j];
         int rj = 0;
-        for (int l = 0; l < m; ++l) {
-            rj += (xj > x[l]) || (xj == x[l] && j > l);
-        }
+        for (int l = 0; l < m; ++l) rj += precedes(x[l], xj, l, j);
         r[j] = rj;
         ord[rj] = j;
+    }
+}
+
+// draw and rank for m <= MB, a compile-time bound: the loops unroll in
+// full (each stops at m by a warp-uniform branch), so x and r are indexed
+// by constants and live in registers.  For MB > 32 only the inner loops
+// unroll (4096 compares of code would not fit the instruction cache), so
+// x and r go to local memory there.  The same draws and compares as
+// draw / rank, so the same ranks.
+template <int MB>
+__device__ __forceinline__ void draw_unrolled(uint2 key, uint32_t K, int m, int bitgen,
+                                              uint32_t (&x)[MB]) {
+    const uint32_t base = K * static_cast<uint32_t>(m);
+    if (bitgen == kMix) {
+#pragma unroll
+        for (int j = 0; j < MB; ++j) {
+            if (j >= m) break;
+            x[j] = draw_one(key, base + static_cast<uint32_t>(j), kMix);
+        }
+    } else {
+#pragma unroll
+        for (int j = 0; j < MB; ++j) {
+            if (j >= m) break;
+            x[j] = draw_one(key, base + static_cast<uint32_t>(j), kThreefry);
+        }
+    }
+}
+
+template <int MB>
+__device__ __forceinline__ int rank_of(const uint32_t (&x)[MB], int m, int j) {
+    const uint32_t xj = x[j];
+    int rj = 0;
+#pragma unroll
+    for (int l = 0; l < MB; ++l) {
+        if (l >= m) break;
+        rj += precedes(x[l], xj, l, j);
+    }
+    return rj;
+}
+
+template <int MB>
+__device__ __forceinline__ void rank_unrolled(const uint32_t (&x)[MB], int m, int (&r)[MB]) {
+    if constexpr (MB <= 24) {
+        // one compare per pair: l < j precedes j iff x_l <= x_j
+#pragma unroll
+        for (int j = 0; j < MB; ++j) {
+            if (j >= m) break;
+            r[j] = 0;
+        }
+#pragma unroll
+        for (int j = 1; j < MB; ++j) {
+            if (j >= m) break;
+#pragma unroll
+            for (int l = 0; l < j; ++l) {
+                const bool c = x[l] <= x[j];
+                r[j] += c;
+                r[l] += !c;
+            }
+        }
+    } else if constexpr (MB <= 32) {
+        // one rank at a time: the pairwise form's live ranks would spill
+#pragma unroll
+        for (int j = 0; j < MB; ++j) {
+            if (j >= m) break;
+            r[j] = rank_of(x, m, j);
+        }
+    } else {
+        for (int j = 0; j < m; ++j) r[j] = rank_of(x, m, j);
     }
 }
 
@@ -124,6 +203,66 @@ __device__ __forceinline__ float score_f32(const float* D, const int* r, int m,
     return acc;
 }
 
+// score_f32 over its nonzero terms only, in the same row-major (j, l)
+// order.  Row j of an a-group individual (r_j < a) holds the b-group
+// columns (coefficient 1/(ab)) and, when r_j < a - 1, its rank successor
+// in the a-group (-(a+b) w_a); row j of a b-group individual holds only
+// its rank successor when r_j < m - 1 (-(a+b) w_b).  Those are the
+// a*b + m - 2 nonzero coefficients (C[j][l] = bet - chain never has both
+// parts: bet needs r_l >= a, a nonzero chain r_l = r_j + 1 < a), and their
+// values are exact (1/(ab) - 0, 0 - cw).  For finite D each skipped
+// product is a zero, and adding a zero leaves the sum unchanged but for
+// the sign of a zero sum, which a >= compare does not see: the hits equal
+// score_f32's.  Non-finite D differs (Inf or NaN times a zero
+// coefficient is NaN in score_f32), so the caller gives a window with
+// any non-finite entry no hits (score_f32 gives it none: NaN anywhere
+// poisons every sum, and an Inf of a symmetric D meets a zero coefficient
+// at (j, l) or (l, j) in every permutation, as the diagonal always does).
+// The products are the window's, rounded once: pb = D * 1/(ab), pa =
+// D * -(a+b) w_a, pc = D * -(a+b) w_b (the same bits as score_f32's
+// D[j][l] * C[j][l] for those coefficients), so a term is one load and
+// one add.  The tables are lane-interleaved shared memory: rk[j * 32] =
+// r_j, ord[p * 32] = the individual at rank p, bl[s * 32] = the s-th
+// b-group individual in index order; bmask has bit l set for the
+// b-group.  The b-group list goes to registers once (MB a compile-time
+// bound on m), so a row's loads depend on no other load and issue ahead
+// of its chain of adds; the successor of an a-group row enters that chain
+// after the b-group columns below it (their count, a popcount of bmask).
+template <int MB>
+__device__ __forceinline__ float score_f32_nonzero(const float* pb, const float* pa,
+                                                   const float* pc, int m, int asize,
+                                                   const uint8_t* rk, const uint8_t* ord,
+                                                   const uint8_t* bl, uint64_t bmask) {
+    const int bsize = m - asize;
+    int blr[MB];
+#pragma unroll
+    for (int s = 0; s < MB; ++s) {
+        if (s >= bsize) break;
+        blr[s] = bl[s * 32];
+    }
+    float acc = 0.0f;
+    for (int j = 0; j < m; ++j) {
+        const int rj = rk[j * 32];
+        if (rj < asize) {
+            const float* row = pb + j * m;
+            const bool has_star = rj < asize - 1;
+            const int star = has_star ? ord[(rj + 1) * 32] : 0;
+            const float sterm = pa[j * m + star];
+            const int p = has_star ? __popcll(bmask & ((1ull << star) - 1ull)) : -1;
+#pragma unroll
+            for (int s = 0; s < MB; ++s) {
+                if (s >= bsize) break;
+                if (s == p) acc = __fadd_rn(acc, sterm);
+                acc = __fadd_rn(acc, row[blr[s]]);
+            }
+            if (p == bsize) acc = __fadd_rn(acc, sterm);
+        } else if (rj < m - 1) {
+            acc = __fadd_rn(acc, pc[j * m + ord[(rj + 1) * 32]]);
+        }
+    }
+    return acc;
+}
+
 // The float64 weights of mc_native: wa, wb and 1/(ab).
 struct NativeConst {
     double wa, wb, inv_ab;
@@ -136,31 +275,34 @@ __device__ __forceinline__ double row_total(const float* D, int m, int j) {
     return acc;
 }
 
+// ord[p * stride] = the individual at rank p.
 __device__ __forceinline__ double score_f64(const float* D, const double* rowtot,
-                                            const int* ord, int m, int asize,
-                                            NativeConst c) {
+                                            const uint8_t* ord, int stride, int m,
+                                            int asize, NativeConst c) {
     const int bsize = m - asize;
     const bool use_b = bsize <= asize;
     const int g_lo = use_b ? asize : 0;
     const int g_hi = use_b ? m : asize;
     double rt = 0.0, within = 0.0;
     for (int p = g_lo; p < g_hi; ++p) {
-        const int j = ord[p];
+        const int j = ord[p * stride];
         rt = __dadd_rn(rt, rowtot[j]);
         const float* row = D + j * m;
         double acc = 0.0;
         for (int q = p + 1; q < g_hi; ++q) {
-            acc = __dadd_rn(acc, static_cast<double>(row[ord[q]]));
+            acc = __dadd_rn(acc, static_cast<double>(row[ord[q * stride]]));
         }
         within = __dadd_rn(within, acc);
     }
     const double between = __dsub_rn(rt, __dmul_rn(2.0, within));
     double chain_a = 0.0, chain_b = 0.0;
     for (int p = 0; p + 1 < asize; ++p) {
-        chain_a = __dadd_rn(chain_a, static_cast<double>(D[ord[p] * m + ord[p + 1]]));
+        chain_a = __dadd_rn(chain_a, static_cast<double>(
+                                         D[ord[p * stride] * m + ord[(p + 1) * stride]]));
     }
     for (int p = asize; p + 1 < m; ++p) {
-        chain_b = __dadd_rn(chain_b, static_cast<double>(D[ord[p] * m + ord[p + 1]]));
+        chain_b = __dadd_rn(chain_b, static_cast<double>(
+                                         D[ord[p * stride] * m + ord[(p + 1) * stride]]));
     }
     const double chains = __dadd_rn(__dmul_rn(c.wa, chain_a), __dmul_rn(c.wb, chain_b));
     return __dsub_rn(__dmul_rn(between, c.inv_ab),

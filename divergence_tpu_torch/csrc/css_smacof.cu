@@ -15,8 +15,9 @@
 //     threefry draws of jax.random.uniform(wkey, (n_init, m, 2))
 //     (threefry.cuh; rng.smacof_inits);
 //   mode 2 — one restart from the CMDS embedding of F (css_common.cuh's
-//     cmds_embed, K5's code; the Guttman transform commutes with sign
-//     flips of X, so the Jacobi's eigenvector signs do not matter).
+//     cmds_embed, K5's code, run by the block's one warp; the Guttman
+//     transform commutes with sign flips of X, so the eigenvector signs
+//     do not matter).
 // Each warp iterates in shared memory, X and its transform XN [m][2] per
 // restart; lane l owns rows l and l + 32:
 //   guttman: XN_i = (sum_{j != i, d_ij >= 1e-5} b_ij x_j - (sum b_ij) x_i) / m,
@@ -57,12 +58,6 @@ namespace {
 using namespace cssk;
 
 constexpr int kMaxRestarts = 8;   // warps of a mode-1 block
-
-template <typename T>
-__device__ __forceinline__ T warp_sum(T v) {
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-    return v;
-}
 
 // 0.5 sum_ij (||x_i - x_j|| - F_ij)^2, the same value in every lane.
 template <typename T>
@@ -131,7 +126,7 @@ __global__ void __launch_bounds__(kMaxRestarts * 32)
 css_smacof(const T* __restrict__ dis, const int64_t* __restrict__ npos_arr,
            const int64_t* __restrict__ slots, uint2 chrom_key, int asize,
            int bsize, int mode, int nrest, int max_iters, T eps,
-           const int* __restrict__ pairs, T wa, T wb, T* __restrict__ scores,
+           T wa, T wb, T* __restrict__ scores,
            T* __restrict__ dist_out, uint8_t* __restrict__ valid_out,
            int* __restrict__ restart_out, int* __restrict__ ntrans_out) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -144,7 +139,7 @@ css_smacof(const T* __restrict__ dis, const int64_t* __restrict__ npos_arr,
     T* red = sig + nrest;                    // [32]
     T* extra = red + 32;                     // mode 2: CMDS scratch
     __shared__ int s_ntrans[kMaxRestarts];
-    __shared__ int s_flags[3];
+    __shared__ int s_best;
 
     const int64_t w = blockIdx.x;
     const T* D = dis + w * mm;
@@ -153,14 +148,9 @@ css_smacof(const T* __restrict__ dis, const int64_t* __restrict__ npos_arr,
     __syncthreads();
 
     if (mode == 2) {
-        const int mp = m + (m & 1);
-        T* A = extra;                        // [mp][mp]
-        T* V = A + mp * mp;                  // [mp][mp]
-        T* cs_c = V + mp * mp;               // [mp/2]
-        T* cs_s = cs_c + mp / 2;             // [mp/2]
-        T* rowm = cs_s + mp / 2;             // [m]
-        // F is already filled; filling it again changes nothing
-        cmds_embed(F, m, fs.avg, pairs, A, V, cs_c, cs_s, rowm, red, s_flags, X);
+        // one warp (nrest = 1); F is already filled, filling it again
+        // changes nothing
+        cmds_embed(F, m, fs.avg, extra, X);
     } else {
         const uint2 wkey = tf::fold_in(chrom_key, static_cast<uint32_t>(slots[w]));
         for (int p = threadIdx.x; p < nrest * 2 * m; p += blockDim.x) {
@@ -187,12 +177,12 @@ css_smacof(const T* __restrict__ dis, const int64_t* __restrict__ npos_arr,
         for (int r = 1; r < nrest && !isnan(sig[best]); ++r) {
             if (isnan(sig[r]) || sig[r] < sig[best]) best = r;
         }
-        s_flags[0] = best;
+        s_best = best;
         restart_out[w] = best;
         ntrans_out[w] = s_ntrans[best];
     }
     __syncthreads();
-    score_window(X + s_flags[0] * 2 * m, asize, bsize, wa, wb,
+    score_window(X + s_best * 2 * m, asize, bsize, wa, wb,
                  fs.keep && npos_arr[w] > 0, dist_out + w * mm, red,
                  scores + w, valid_out + w);
 }
@@ -201,7 +191,7 @@ template <typename T>
 int launch_smacof(const T* dis, const int64_t* npos, const int64_t* slots,
                   int64_t nwin, uint32_t key0, uint32_t key1, int asize,
                   int bsize, int mode, int n_init, int max_iters, double eps,
-                  const int* pairs, double wa, double wb, T* scores, T* dist,
+                  double wa, double wb, T* scores, T* dist,
                   uint8_t* valid, int* restart, int* ntrans, void* stream) {
     if (nwin == 0) return 0;
     const int nrest = mode == 1 ? n_init : 1;
@@ -210,9 +200,8 @@ int launch_smacof(const T* dis, const int64_t* npos, const int64_t* slots,
         return static_cast<int>(cudaErrorInvalidValue);
     }
     const int m = asize + bsize;
-    const int mp = m + (m & 1);
     size_t elems = static_cast<size_t>(m) * m + 4 * nrest * m + nrest + 32;
-    if (mode == 2) elems += 2 * static_cast<size_t>(mp) * mp + mp + m;
+    if (mode == 2) elems += cmds_scratch(m);
     const size_t smem = elems * sizeof(T);
     if (smem > 48 * 1024) {
         const cudaError_t e = cudaFuncSetAttribute(
@@ -220,12 +209,11 @@ int launch_smacof(const T* dis, const int64_t* npos, const int64_t* slots,
             static_cast<int>(smem));
         if (e != cudaSuccess) return static_cast<int>(e);
     }
-    // mode 2 runs cmds_embed, which K5 runs with kThreads threads
-    const int threads = mode == 1 ? 32 * nrest : kThreads;
+    const int threads = 32 * nrest;   // one warp per restart
     css_smacof<T><<<static_cast<unsigned>(nwin), threads, smem,
                     static_cast<cudaStream_t>(stream)>>>(
         dis, npos, slots, make_uint2(key0, key1), asize, bsize, mode, nrest,
-        max_iters, static_cast<T>(eps), pairs, static_cast<T>(wa),
+        max_iters, static_cast<T>(eps), static_cast<T>(wa),
         static_cast<T>(wb), scores, dist, valid, restart, ntrans);
     return static_cast<int>(cudaGetLastError());
 }
@@ -236,12 +224,12 @@ FET_EXPORT int css_smacof_f64(const double* dis, const int64_t* npos,
                               const int64_t* slots, int64_t nwin,
                               uint32_t key0, uint32_t key1, int asize,
                               int bsize, int mode, int n_init, int max_iters,
-                              double eps, const int* pairs, double wa,
+                              double eps, double wa,
                               double wb, double* scores, double* dist,
                               uint8_t* valid, int* restart, int* ntrans,
                               void* stream) {
     return launch_smacof<double>(dis, npos, slots, nwin, key0, key1, asize,
-                                 bsize, mode, n_init, max_iters, eps, pairs,
+                                 bsize, mode, n_init, max_iters, eps,
                                  wa, wb, scores, dist, valid, restart, ntrans,
                                  stream);
 }
@@ -250,12 +238,12 @@ FET_EXPORT int css_smacof_f32(const float* dis, const int64_t* npos,
                               const int64_t* slots, int64_t nwin,
                               uint32_t key0, uint32_t key1, int asize,
                               int bsize, int mode, int n_init, int max_iters,
-                              double eps, const int* pairs, double wa,
+                              double eps, double wa,
                               double wb, float* scores, float* dist,
                               uint8_t* valid, int* restart, int* ntrans,
                               void* stream) {
     return launch_smacof<float>(dis, npos, slots, nwin, key0, key1, asize,
-                                bsize, mode, n_init, max_iters, eps, pairs,
+                                bsize, mode, n_init, max_iters, eps,
                                 wa, wb, scores, dist, valid, restart, ntrans,
                                 stream);
 }

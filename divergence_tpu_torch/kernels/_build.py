@@ -68,13 +68,13 @@ _SIGNATURES = {
                        _U32, _D, _I, _I, _P, _P),
     # vals, lo, npos, B, m, out, stream
     "css_dissim_{t}": (_P, _P, _P, _I64, _I, _P, _P),
-    # dis, npos, B, asize, bsize, pairs, wa, wb, scores, dist, valid, stream
-    "css_cmds_{t}": (_P, _P, _I64, _I, _I, _P, _D, _D, _P, _P, _P, _P),
+    # dis, npos, B, asize, bsize, wa, wb, scores, dist, valid, steps
+    # (nullable), stream
+    "css_cmds_{t}": (_P, _P, _I64, _I, _I, _D, _D, _P, _P, _P, _P, _P),
     # dis, npos, slots, B, key0, key1, asize, bsize, mode, n_init,
-    # max_iters, eps, pairs, wa, wb, scores, dist, valid, restart, ntrans,
-    # stream
+    # max_iters, eps, wa, wb, scores, dist, valid, restart, ntrans, stream
     "css_smacof_{t}": (_P, _P, _P, _I64, _U32, _U32, _I, _I, _I, _I, _I, _D,
-                       _P, _D, _D, _P, _P, _P, _P, _P, _P),
+                       _D, _D, _P, _P, _P, _P, _P, _P),
     # key0, key1, k0, nk, chunk, cstride, m, asize, bitgen, between, ca, cb,
     # out, stream
     "css_mc_coeff": (_U32, _U32, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P, _P),
@@ -84,10 +84,10 @@ _SIGNATURES = {
     # words, active, nact, k0, nk, chunk, cstride, runs, threshold, hits,
     # nsc, done, stream
     "css_mc_scan": (_P, _P, _I64, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
-    # dist, obs, wkeys, B, m, asize, chunk, runs, threshold, bitgen, f64,
-    # between, ca, cb, wa, wb, inv_ab, hits, nsc, stream
-    "css_mc_window": (_P, _P, _P, _I64, _I, _I, _I, _I, _I, _I, _I, _F, _F,
-                      _F, _D, _D, _D, _P, _P, _P),
+    # dist, obs, wkeys, active, nact, m, asize, k0, nk, chunk, cstride, runs,
+    # bitgen, f64, between, ca, cb, wa, wb, inv_ab, words, stream
+    "css_mc_window": (_P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                      _F, _F, _F, _D, _D, _D, _P, _P),
     # dist, obs, need, keys, B, m, asize, chunk, limit, bitgen, between,
     # ca, cb, hits, reached, pos, stream
     "css_perm_chunk": (_P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _F, _F, _F,

@@ -26,8 +26,9 @@ a CUDA device, and run the plain torch version on the CPU:
 * :func:`css_dissim` — ``csrc/css_dissim.cu``: every window's counts
   straight from the joint int16 codes (K3, and K4's gather form: the
   same integer counts);
-* :func:`css_cmds`   — ``csrc/css_cmds.cu``: fill, centring, Jacobi
-  eigensolver, embedding, distances and score per window (K5);
+* :func:`css_cmds`   — ``csrc/css_cmds.cu``: fill, centring, the top-2
+  eigenpairs (tridiagonal reduction, bisection, inverse iteration; one
+  warp per window), embedding, distances and score per window (K5);
 * :func:`css_smacof` — ``csrc/css_smacof.cu``: fill, the restarts'
   SMACOF loops, the best restart, distances and score per window (K6).
 
@@ -41,7 +42,6 @@ runs :func:`css_phase1` and needs no kernel of its own.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import numpy as np
 import torch
@@ -453,35 +453,19 @@ def css_cmds_plain(
     return _score_plain(dis, npos, asize, bsize, 0)[:3]
 
 
-def _round_robin_pairs(n: int) -> np.ndarray:
-    """[n-1, n/2, 2] int32: the disjoint pairs (p < q) of each round of the
-    all-pairs round-robin (the circle method of
-    ``divergence_tpu/kernels/linalg.py:_round_robin_schedule``)."""
-    players = list(range(n))
-    out = np.empty((n - 1, n // 2, 2), dtype=np.int32)
-    for r in range(n - 1):
-        for i in range(n // 2):
-            p, q = players[i], players[n - 1 - i]
-            out[r, i] = (min(p, q), max(p, q))
-        players = [players[0]] + [players[-1]] + players[1:-1]
-    return out
-
-
-@functools.lru_cache(maxsize=16)
-def _pairs(n: int, device: torch.device) -> torch.Tensor:
-    """:func:`_round_robin_pairs` on ``device``, uploaded once."""
-    return torch.from_numpy(_round_robin_pairs(n)).to(device)
-
-
 def css_cmds(
     dis: torch.Tensor,    # [B, m, m] window dissimilarities (compute dtype)
     npos: torch.Tensor,   # [B] SNPs per window (a window with none is invalid)
     asize: int,
     bsize: int,
+    steps: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """CMDS scores of every window: (scores [B], dist [B, m, m], valid
     [B]), ``valid`` False for empty and discarded windows, whose score is
-    0 (``divergence_tpu/kernels/css.py:_score_pipeline``, ``mds=0``)."""
+    0 (``divergence_tpu/kernels/css.py:_score_pipeline``, ``mds=0``).
+    ``steps``, an int32 [B] tensor on the card, receives each window's
+    multisection steps (a diagnostic of the kernel's eigensolver; the
+    plain version leaves it untouched)."""
     if is_cpu(dis):
         return css_cmds_plain(dis, npos, asize, bsize)
     dev = dis.device
@@ -498,15 +482,18 @@ def css_cmds(
     valid = torch.empty(B, dtype=torch.bool, device=dev)
     if B == 0:
         return scores, dist, valid
-    mp = m + (m % 2)
+    if steps is not None and (steps.shape != (B,) or steps.dtype != torch.int32
+                              or steps.device != dev or not steps.is_contiguous()):
+        raise ValueError("css_cmds writes steps into a contiguous int32 [B] tensor "
+                         "on the card")
     w = chain_weights_host(asize, bsize)
     wa = float(w[0]) if asize > 1 else 0.0
     wb = float(w[-1]) if bsize > 1 else 0.0
     npos_d = npos.to(dev, torch.int64).contiguous()
     launch(
         LAUNCHES, "css_cmds", f"css_cmds_{dtype_suffix(dis.dtype)}", dev,
-        ptr(dis), ptr(npos_d), B, asize, bsize, ptr(_pairs(mp, dev)),
-        wa, wb, ptr(scores), ptr(dist), ptr(valid),
+        ptr(dis), ptr(npos_d), B, asize, bsize, wa, wb, ptr(scores), ptr(dist),
+        ptr(valid), ptr(steps),
     )
     return scores, dist, valid
 
@@ -586,7 +573,7 @@ def css_smacof(
         LAUNCHES, "css_smacof", f"css_smacof_{dtype_suffix(dis.dtype)}", dev,
         ptr(dis), ptr(npos_d), ptr(slots_d), B, ctypes.c_uint32(k0),
         ctypes.c_uint32(k1), asize, bsize, mds, n_init, max_iters,
-        float(epsilon), ptr(_pairs(m + (m % 2), dev)), wa, wb, ptr(scores),
+        float(epsilon), wa, wb, ptr(scores),
         ptr(dist), ptr(valid), ptr(restart), ptr(ntrans),
     )
     return scores, dist, valid, restart, ntrans

@@ -35,9 +35,11 @@ Kernels (``csrc/``) carry the work on a CUDA device:
   and its hit test, packed into words (:func:`mc_hit_words`);
 * ``css_mc_scan``   (K7) — the adaptive stop through a range's hit words,
   the position of the threshold-th hit (:func:`mc_scan`);
-* ``css_mc_window`` (K8) — the window-stream MC, one warp per window
-  carrying its own stream to its own stop, in float32 (the terms of
-  :func:`_scores_from_ranks`) or float64 (``mc_native``'s order);
+* ``css_mc_window`` (K8) — the hits of a range of the window stream,
+  packed in K7's words (:func:`mc_window_hit_words`), in float32 (the
+  nonzero terms of :func:`_scores_from_ranks`, in its order) or float64
+  (``mc_native``'s order); ``css_mc_scan`` then stops each window
+  (:func:`mc_window`);
 * ``css_mc_power``  (K9) — per-chunk float64 power sums of the permuted
   scores (:func:`null_power_sums`), shared or window stream, for
   :func:`approx_significance`;
@@ -180,7 +182,7 @@ def _scores_from_ranks(distf: torch.Tensor, r: torch.Tensor, asize: int,
     ``form="broadcast"``): the float32 products D[j, l] C[j, l] added one
     after another in row-major (j, l) order, from 0.  That is the order of
     XLA's fused reduction on the CPU, so the scores equal the JAX
-    package's bit for bit; K8 adds the same products in the same order."""
+    package's bit for bit; K8 adds the nonzero ones in the same order."""
     prod = distf[..., None] * _rank_coeff(r, asize, bsize)   # [B, m, m, K]
     m = distf.shape[-1]
     acc = torch.zeros_like(prod[:, 0, 0])
@@ -609,23 +611,28 @@ def mc_scan(
     )
 
 
-def range_chunks(k: int, n_chunks: int, nact: int, mm: int, chunk: int) -> int:
-    """Chunks of the shared stream's range that starts at chunk ``k`` with
-    ``nact`` windows running.  A range's product costs nact x nk*chunk x
-    mm FMAs and every running window pays for all of it, though it may
-    stop in the first chunk; each range ends with one host sync.  So a
-    range takes as many chunks as came before it (a window that stops
-    inside pays at most as much again as it consumed) and at least enough
-    for ``_RANGE_FMAS`` of work (the sync stays small beside it), the first
-    at most ``_FIRST_RANGE_CHUNKS``; and never more M than
-    ``_RANGE_COEFF_BYTES`` or hit words than ``_RANGE_HIT_BYTES`` (one
-    chunk at least)."""
+def range_chunks(k: int, n_chunks: int, nact: int, mm: int, chunk: int,
+                 per_perm: int | None = None) -> int:
+    """Chunks of the range that starts at chunk ``k`` with ``nact``
+    windows running.  A range costs nact x nk*chunk x ``per_perm`` (the
+    shared stream's product: mm FMAs a permutation) and every running
+    window pays for all of it, though it may stop in the first chunk; each
+    range ends with one host sync.  So a range takes as many chunks as
+    came before it (a window that stops inside pays at most as much again
+    as it consumed) and at least enough for ``_RANGE_FMAS`` of work (the
+    sync stays small beside it), the first at most
+    ``_FIRST_RANGE_CHUNKS``; and never more M (``mm`` > 0: the shared
+    stream's coefficients) than ``_RANGE_COEFF_BYTES`` or hit words than
+    ``_RANGE_HIT_BYTES`` (one chunk at least)."""
     cs = chunk_stride(chunk)
     nact = max(nact, 1)
-    want = max(k, _RANGE_FMAS // (nact * mm * chunk))
+    cost = mm if per_perm is None else per_perm
+    want = max(k, _RANGE_FMAS // (nact * cost * chunk))
     if k == 0:
         want = min(want, _FIRST_RANGE_CHUNKS)
-    cap = min(_RANGE_COEFF_BYTES // (4 * mm * cs), _RANGE_HIT_BYTES // (nact * cs // 8))
+    cap = _RANGE_HIT_BYTES // (nact * cs // 8)
+    if mm:
+        cap = min(cap, _RANGE_COEFF_BYTES // (4 * mm * cs))
     return max(1, min(want, cap, n_chunks - k))
 
 
@@ -689,9 +696,100 @@ def _window_key_words(wkeys: torch.Tensor, dev: torch.device) -> torch.Tensor:
     return wkeys.to(device=dev, dtype=torch.int64).contiguous()
 
 
+def window_perm_cost(m: int, asize: int, bitgen: str = "mix") -> int:
+    """Operations of one window-stream permutation in K8, the unit of
+    :func:`range_chunks` (an FMA of the shared stream's product): m draws
+    (two mix32, ~12 integer operations each, or a threefry-2x32, ~70),
+    m(m-1) rank compares and adds, a*b + m - 2 float32 multiply-adds."""
+    draws = (70 if bitgen == "threefry" else 12) * m
+    return draws + 2 * m * (m - 1) + 2 * (asize * (m - asize) + m - 2)
+
+
+def mc_window_hit_words_plain(distf, obs, keys, active, k0, nk, asize, bsize, chunk,
+                              runs, bitgen: str = "mix", native: bool = False):
+    """Plain torch version of :func:`mc_window_hit_words`: each chunk's
+    scores by :func:`_perm_scores` (float32) or :func:`_native_scores`
+    (float64), the hit test, the words packed per chunk."""
+    dev = distf.device
+    m = asize + bsize
+    cs = chunk_stride(chunk)
+    A = active.numel()
+    D = distf[active].reshape(A, m, m)
+    o = obs[active]
+    ks = keys[active]
+    if native:
+        D64 = D.to(torch.float64)
+        rowtot = _row_totals(D64)
+    hit = torch.zeros((A, nk, cs), dtype=torch.bool, device=dev)
+    for kk in range(nk):
+        ck = rng.fold_in(ks, k0 + kk)
+        if native:
+            s = _native_scores(D64, rowtot, _ranks(ck, chunk, m, "mix"), asize, bsize)
+            h = s >= o.to(torch.float64)[:, None]
+        else:
+            h = _perm_scores(D, ck, asize, bsize, chunk, bitgen) >= o[:, None]
+        counted = (k0 + kk) * chunk + torch.arange(chunk, device=dev) < runs
+        hit[:, kk, :chunk] = h & counted[None, :]
+    return _pack_words(hit)
+
+
+def mc_window_hit_words(
+    distf: torch.Tensor,    # [B, m*m] float32 distances
+    obs: torch.Tensor,      # [B] float32 observed scores
+    keys: torch.Tensor,     # [B, 2] int64 window keys
+    active: torch.Tensor,   # [A] int64 rows taking part
+    k0: int,
+    nk: int,
+    asize: int,
+    bsize: int,
+    chunk: int,
+    runs: int,
+    bitgen: str = "mix",
+    native: bool = False,
+) -> torch.Tensor:
+    """The hits of a range of the window stream (K8 ``css_mc_window``):
+    int32 words [A, nk, cs/32] in :func:`mc_hit_words`' layout, bit b of
+    word q of chunk kk set where permutation K = 32 q + b of chunk k0 + kk
+    of window ``active[a]``'s stream counts (K < chunk, (k0 + kk)*chunk +
+    K < runs) and scores ``>=`` its observed score: float32 scores of the
+    ``bitgen`` draws, or (``native``) ``mc_native``'s float64 scores of the
+    ``mix`` draws against the float32 observed score widened.  The kernel
+    on a CUDA ``distf``, the plain version on a CPU one."""
+    gen = _check_bitgen(bitgen)
+    if native and bitgen != "mix":
+        raise ValueError("perm_backend='native' replays the 'mix' stream only")
+    if is_cpu(distf):
+        return mc_window_hit_words_plain(distf, obs, keys, active, k0, nk, asize, bsize,
+                                         chunk, runs, bitgen, native)
+    m = asize + bsize
+    _check_m(m, "css_mc_window")
+    if (distf.dim() != 2 or distf.shape[1] != m * m or distf.dtype != torch.float32
+            or not distf.is_contiguous()):
+        raise ValueError("css_mc_window takes contiguous float32 [B, m*m] distances")
+    if obs.shape != distf.shape[:1] or obs.dtype != torch.float32 or not obs.is_contiguous():
+        raise ValueError("css_mc_window takes contiguous float32 [B] observed scores")
+    if keys.shape != (distf.shape[0], 2) or keys.dtype != torch.int64 or not keys.is_contiguous():
+        raise ValueError("css_mc_window takes contiguous int64 [B, 2] window keys")
+    if active.dtype != torch.int64 or not active.is_contiguous():
+        raise ValueError("css_mc_window takes contiguous int64 active rows")
+    cs = chunk_stride(chunk)
+    words = torch.empty((active.numel(), nk, cs // WORD_BITS), dtype=torch.int32,
+                        device=distf.device)
+    between, ca, cb = _coeff_constants(asize, bsize)
+    wa, wb = _chain_weights(asize, bsize)
+    launch(
+        LAUNCHES, "css_mc_window", "css_mc_window", distf.device,
+        ptr(distf), ptr(obs), ptr(keys), ptr(active), active.numel(), m, asize, k0, nk,
+        chunk, cs, runs, gen, int(native), ctypes.c_float(between), ctypes.c_float(ca),
+        ctypes.c_float(cb), ctypes.c_double(wa), ctypes.c_double(wb),
+        ctypes.c_double(1.0 / (asize * bsize)), ptr(words),
+    )
+    return words
+
+
 def mc_window(
-    dist: torch.Tensor,    # [B, m, m] on the card
-    obs: torch.Tensor,     # [B] float32 observed scores on the card
+    dist: torch.Tensor,    # [B, m, m]
+    obs: torch.Tensor,     # [B] float32 observed scores
     wkeys: torch.Tensor,   # [B, 2] window keys
     asize: int,
     bsize: int,
@@ -700,29 +798,42 @@ def mc_window(
     threshold: int,
     bitgen: str = "mix",
     native: bool = False,
+    ranges: list | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The window-stream MC on the card (K8): (nscores, hits) int32 [B],
-    one launch, each window to its own stop.  ``native=True`` scores in
-    float64 in ``mc_native``'s order (``mix`` draws only)."""
+    """The window-stream MC in ranges of chunks (K8): (nscores, hits)
+    int32 [B].  For each range (:func:`range_chunks` at
+    :func:`window_perm_cost`) the hit words of every running window
+    (:func:`mc_window_hit_words`) and the adaptive stop (:func:`mc_scan`,
+    K7's), then the running windows are compacted, one host sync per
+    range: the results of the single-pass loop.  ``native=True`` scores
+    in float64 in ``mc_native``'s order (``mix`` draws only).  The kernels
+    on the card, their plain versions on the CPU.  ``ranges``, if given,
+    gets (first chunk, chunks, running windows) of each range."""
     dev = dist.device
     B = dist.shape[0]
-    distf = _flat_f32(dist, "css_mc_window")
-    gen = _check_bitgen(bitgen)
-    if native and bitgen != "mix":
-        raise ValueError("perm_backend='native' replays the 'mix' stream only")
+    m = asize + bsize
+    if dist.dim() != 3 or dist.shape[1:] != (m, m):
+        raise ValueError(f"css_mc_window takes [B, m, m] distances, got {tuple(dist.shape)}")
+    distf = dist.to(torch.float32).reshape(B, m * m).contiguous()
     keys = _window_key_words(wkeys, dev)
     obs = obs.to(device=dev, dtype=torch.float32).contiguous()
-    hits = torch.empty(B, dtype=torch.int32, device=dev)
-    nsc = torch.empty(B, dtype=torch.int32, device=dev)
-    between, ca, cb = _coeff_constants(asize, bsize)
-    wa, wb = _chain_weights(asize, bsize)
-    launch(
-        LAUNCHES, "css_mc_window", "css_mc_window", dev,
-        ptr(distf), ptr(obs), ptr(keys), B, asize + bsize, asize, chunk, runs,
-        threshold, gen, int(native), ctypes.c_float(between), ctypes.c_float(ca),
-        ctypes.c_float(cb), ctypes.c_double(wa), ctypes.c_double(wb),
-        ctypes.c_double(1.0 / (asize * bsize)), ptr(hits), ptr(nsc),
-    )
+    hits = torch.zeros(B, dtype=torch.int32, device=dev)
+    nsc = torch.zeros(B, dtype=torch.int32, device=dev)
+    done = torch.zeros(B, dtype=torch.uint8, device=dev)
+    n_chunks = (runs + chunk - 1) // chunk
+    cost = window_perm_cost(m, asize, bitgen)
+    active = torch.arange(B, dtype=torch.int64, device=dev)
+    k = 0
+    while k < n_chunks and active.numel():
+        nk = range_chunks(k, n_chunks, active.numel(), 0, chunk, per_perm=cost)
+        words = mc_window_hit_words(distf, obs, keys, active, k, nk, asize, bsize, chunk,
+                                    runs, bitgen, native)
+        mc_scan(words, active, k, chunk, runs, threshold, hits, nsc, done)
+        if ranges is not None:
+            ranges.append((k, nk, active.numel()))
+        k += nk
+        if k < n_chunks:
+            active = active[done[active] == 0]
     return nsc, hits
 
 

@@ -206,13 +206,3 @@ def test_css_phase1_rejects_descriptors_outside_the_matrix():
         tcss.css_phase1(vals, np.array([8]), np.array([5]), 2, 2)
 
 
-@pytest.mark.parametrize("n", [2, 4, 22, 64])
-def test_jacobi_schedule_covers_every_pair_once(n):
-    """The CMDS kernel's round-robin table: each round a perfect matching
-    (disjoint rotations), every pair exactly once per sweep."""
-    t = tcss._round_robin_pairs(n)
-    assert t.shape == (n - 1, n // 2, 2)
-    assert (t[..., 0] < t[..., 1]).all()
-    for rnd in t:
-        assert sorted(rnd.ravel().tolist()) == list(range(n))
-    assert len({tuple(p) for rnd in t for p in rnd}) == n * (n - 1) // 2

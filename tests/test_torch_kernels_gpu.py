@@ -304,23 +304,47 @@ def test_css_dissim_kernel_dense_windows(cuda):
     assert torch.equal(k, kcss.dissimilarity_plain(vals, lo, npos))
 
 
+def _negative_windows(n, m, dt, device, seed=0):
+    """Windows whose diagonal (2) exceeds every off-diagonal entry (~1):
+    the filled f^2 is ~11' + 3I, so B = -0.5 J f^2 J is ~-1.5 J, lambda2
+    truly negative and the scores NaN (outside the dust band)."""
+    d = 1.0 + 0.01 * np.random.default_rng(seed).random((n, m, m))
+    d = (d + d.transpose(0, 2, 1)) / 2
+    d[:, np.arange(m), np.arange(m)] = 2.0
+    return torch.from_numpy(d).to(device, dt)
+
+
+# m = 2, 3, 21, 33, 64: the tridiagonal solver's edges (no reflector, one,
+# a single lane's rows, rows l and l + 32, the largest slab)
+CMDS_SHAPES = [(1, 1), (2, 1), (11, 10), (17, 16), (32, 32)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("prec", ["exact", "fast"])
-@pytest.mark.parametrize("asize,bsize", [(11, 10), (5, 4), (32, 32)])
+@pytest.mark.parametrize("asize,bsize", CMDS_SHAPES)
 def test_css_cmds_kernel(cuda, prec, asize, bsize):
     dt = torch.float64 if prec == "exact" else torch.float32
+    m = asize + bsize
     vals, lo, npos = _css_windows(cuda, asize, bsize)
-    dis = kcss.dissimilarity_plain(vals, lo, npos).to(dt)
-    npos_d = npos.to(cuda)
-    ks, kd, kv = kcss.css_cmds(dis, npos_d, asize, bsize)
+    real = kcss.dissimilarity_plain(vals, lo, npos).to(dt)
+    nneg = 8
+    dis = torch.cat([real, _negative_windows(nneg, m, dt, cuda)]).contiguous()
+    npos_d = torch.cat([npos, torch.ones(nneg, dtype=npos.dtype)]).to(cuda)
+    B = dis.shape[0]
+    steps = torch.full((B,), -1, dtype=torch.int32, device=cuda)
+    ks, kd, kv = kcss.css_cmds(dis, npos_d, asize, bsize, steps=steps)
     ps, pd, pv = kcss.css_cmds_plain(dis, npos_d, asize, bsize)
     torch.cuda.synchronize()
     assert torch.equal(kv, pv)
     assert torch.equal(ks.isnan(), ps.isnan())
+    assert torch.equal(kd.isnan(), pd.isnan())
+    assert ps[-nneg:].isnan().all()
+    assert int(steps.min()) > 0 and int(steps.max()) <= 64
     filled, _ = kcss.fill_averages(dis.double())
     ev = torch.linalg.eigvalsh(kcss.double_centre(filled)).flip(-1)
-    ok = ((ev[:, 1] - ev[:, 2]) / ev[:, 0].abs().clamp(min=1.0) > 1e-6) & ~ps.isnan()
-    assert int((~ok).sum()) <= 0.01 * ok.numel()
+    gap = ev[:, 1] - ev[:, 2] if m > 2 else torch.ones_like(ev[:, 0])
+    ok = (gap / ev[:, 0].abs().clamp(min=1.0) > 1e-6) & ~ps.isnan()
+    assert int((~ok[:-nneg]).sum()) <= 0.01 * (B - nneg)
     got, want = ks.double()[ok].cpu().numpy(), ps.double()[ok].cpu().numpy()
     if prec == "exact":
         assert np.max(np.abs(got - want) / np.maximum(np.abs(want), 1.0)) <= 1e-9
@@ -501,30 +525,64 @@ def _mc_windows(cuda, m, limit):
 FORMS = [("mix", "xla"), ("threefry", "xla"), ("mix", "native")]
 
 
+def _window_plain(dist, scores, wkeys, asize, bsize, chunk, runs, bitgen, backend):
+    if backend == "native":
+        return kperm.mc_native_plain(dist, scores, wkeys, asize, bsize, chunk, runs, 10)
+    return kperm.mc_significance(dist, scores, wkeys, asize, bsize, chunk, runs, 10,
+                                 stream="window", bitgen=bitgen)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("bitgen,backend", FORMS)
-@pytest.mark.parametrize("m", [2, 9, 21, 64])
-def test_css_mc_window_kernel(cuda, m, bitgen, backend):
-    limit, runs = (64, 2000) if m == 64 else (512, 5000)
-    dist, scores, asize, bsize, chroms, slots = _mc_windows(cuda, m, limit)
+@pytest.mark.parametrize("chunk", [100, 256])
+@pytest.mark.parametrize("m", [2, 9, 21, 33, 64])
+@pytest.mark.parametrize("nwin", [1, 31, 33, 997])
+def test_css_mc_window_kernel(cuda, nwin, m, chunk, bitgen, backend):
+    """K8's ranges of hit words and K7's scan against the single-pass
+    plain loops: window counts around a warp's 32 and the 997 of the 10 k
+    workload, m across the unrolled buckets (8, 16, 24, 32, 64), a chunk
+    padded to whole words (100) and one that is not."""
+    runs = 2000 if m > 32 else 5000
+    dist, scores, asize, bsize, chroms, slots = _mc_windows(cuda, m, nwin)
+    assert dist.shape[0] == nwin
     key = rng.fold_in(rng.prng_key(6), 2)
-    before = kperm.LAUNCHES["css_mc_window"]
-    got = kperm.significance(dist, scores, asize, bsize, 10, runs, key, chroms=chroms,
-                             slots=slots, backend=backend, bitgen=bitgen, stream="window")
+    before = {k: kperm.LAUNCHES[k] for k in ("css_mc_window", "css_mc_scan")}
+    got = kperm.significance(dist, scores, asize, bsize, 10, runs, key, chunk=chunk,
+                             chroms=chroms, slots=slots, backend=backend, bitgen=bitgen,
+                             stream="window")
     torch.cuda.synchronize()
-    assert kperm.LAUNCHES["css_mc_window"] == before + 1
+    for k, v in before.items():
+        assert kperm.LAUNCHES[k] > v, k
     wkeys = rng.window_keys(key.to(cuda), chroms, slots)
-    if backend == "native":
-        pv, n, h = kperm.mc_native_plain(dist, scores, wkeys, asize, bsize, 256, runs, 10)
-    else:
-        pv, n, h = kperm.mc_significance(dist, scores, wkeys, asize, bsize, 256, runs, 10,
-                                         stream="window", bitgen=bitgen)
+    pv, n, h = _window_plain(dist, scores, wkeys, asize, bsize, chunk, runs, bitgen, backend)
     differ = (got.nscores != n) | (got.hits != h) | (got.pvals != pv)
     assert differ.sum() <= 1e-3 * len(scores), int(differ.sum())
     if m == 2:
         assert (got.pvals == 1.0).all() and (got.nscores == 10).all()
-    else:
+    elif nwin == 997:
         assert (n < runs).any() and (n == runs).any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bitgen,backend", FORMS)
+def test_css_mc_window_kernel_non_finite(cuda, bitgen, backend):
+    """A NaN row, and a NaN only on the diagonal: the float32 forms flag
+    the window (no hits, n = runs), as the twin's NaN products give; the
+    float64 form scores as mc_native does."""
+    dist, scores, asize, bsize, chroms, slots = _mc_windows(cuda, 21, 64)
+    dist = dist.clone()
+    dist[3, 5, :] = float("nan")
+    dist[3, :, 5] = float("nan")
+    dist[7, 2, 2] = float("nan")
+    dist[11, 12, 12] = float("inf")
+    key = rng.fold_in(rng.prng_key(6), 2)
+    got = kperm.significance(dist, scores, asize, bsize, 10, 3000, key, chroms=chroms,
+                             slots=slots, backend=backend, bitgen=bitgen, stream="window")
+    wkeys = rng.window_keys(key.to(cuda), chroms, slots)
+    pv, n, h = _window_plain(dist, scores, wkeys, asize, bsize, 256, 3000, bitgen, backend)
+    assert np.array_equal(got.nscores, n) and np.array_equal(got.hits, h)
+    if backend != "native":
+        assert (n[[3, 7, 11]] == 3000).all() and (h[[3, 7, 11]] == 0).all()
 
 
 # K7 / K9 tile edges: window counts around the 128-window tile, m of 2,
@@ -730,7 +788,9 @@ def test_run_css_new_options_cuda_matches_cpu(cuda, kw):
     if kw.get("p_mode") == "approx":
         assert kperm.LAUNCHES["css_mc_power"] >= 1, kperm.LAUNCHES
     elif kw.get("mc_stream") == "window" or kw.get("perm_backend") == "native":
-        assert kperm.LAUNCHES["css_mc_window"] == 1, kperm.LAUNCHES
+        # one css_mc_window and one css_mc_scan launch per range
+        assert kperm.LAUNCHES["css_mc_window"] >= 1, kperm.LAUNCHES
+        assert kperm.LAUNCHES["css_mc_scan"] == kperm.LAUNCHES["css_mc_window"]
     else:
         assert kperm.COEFF_LAUNCHES["threefry"] >= 1, kperm.COEFF_LAUNCHES
     c = run_css(SnpPair(pos, am, bm), 250_000, cfg, device="cpu", seqid="c")
