@@ -10,7 +10,8 @@ Usage, from the repository root, on a machine with one CUDA GPU::
 Phases (any failure exits non-zero and prints no result line):
 
 1. the card (``nvidia-smi`` name and power limit) and the nvcc build of
-   ``divergence_tpu_torch/csrc``;
+   ``divergence_tpu_torch/csrc``, with the registers, stack and spills of
+   K11's buckets and K6's two forms;
 2. every FET kernel against its plain torch version on the card, at the
    main path's shapes, in both precisions: K1's LUT build at 11+10, K1 per
    SNP at 8 M SNPs (11+10, LUT) and at 1 M SNPs on a 48+48 panel (no LUT),
@@ -45,7 +46,8 @@ Phases (any failure exits non-zero and prints no result line):
    CMDS) on the 19,997 windows of the 200 k-SNP / 10 Mbp workload;
    drosophila mode on a 1 M-SNP / 25 Mbp frequency chromosome through
    ``css_cmds`` + K7 and ``css_smacof`` mode 1 at m = 2; and the kernel
-   alone, mode 1 fast, on the ~800 k bench windows;
+   alone, mode 1 fast, on the ~800 k bench windows; K6's bound counts the
+   transforms of every restart (the kernel's ``transforms`` output);
 9. the library and CLI with the new options: ``run_css`` with
    ``mds=SMACOF`` and ``mds=CMDS_SMACOF`` on the 200 k-SNP workload and
    with ``drosophila=True`` on the frequency chromosome (warm wall,
@@ -72,9 +74,10 @@ Phases (any failure exits non-zero and prints no result line):
 12. K10 ``fet_window`` (both precisions) and K11 ``css_perm_chunk`` (both
    draw streams) against their plain versions on the 19,997 windows of the
    200 k-SNP workload, K11 again on a 200 k-SNP stickleback-shaped panel
-   (whose null is hit) and against K8's first chunk there, and K10 on the
+   (whose null is hit) and against K8's first chunk there, K10 on the
    ~800 k bench windows gathered at P = 128, bit-equal to phase 2's K1 ->
-   K2;
+   K2, and K11 at the step's size (those windows x 128 permutations, both
+   draw streams) against its plain version on every window, timed alone;
 13. the sharded step (``make_divergence_step(11, 10)`` at its defaults) on
    those ~800 k windows: warm wall and a torch.profiler call, four shares
    of the card against one (bit-equal), the all-plain step on 20,000 of
@@ -251,7 +254,7 @@ SOURCES = {
     "css_mc_window": "divergence_tpu_torch/csrc/css_mc_window.cu",
     "css_mc_power": "divergence_tpu_torch/csrc/css_mc_power.cu",
     "fet_window": "divergence_tpu_torch/csrc/fet_window.cu",
-    "css_perm_chunk": "divergence_tpu_torch/csrc/css_perm_chunk.cu",
+    "css_perm_chunk": "divergence_tpu_torch/csrc/css_mc_window.cu",
     "fet_lut_rank": "divergence_tpu_torch/csrc/fet_rank.cu",
     "fet_snp_ranks": "divergence_tpu_torch/csrc/fet_rank.cu",
     "fet_aggregate_ranks": "divergence_tpu_torch/csrc/fet_aggregate_ranks.cu",
@@ -328,12 +331,46 @@ def card_line() -> str:
     return proc.stdout.strip().splitlines()[0]
 
 
-def phase_build(kfet_build) -> None:
+def ptxas_summary(log: str, names: tuple) -> dict:
+    """{kernel<template argument>: (registers, stack bytes, spill store
+    bytes, spill load bytes)} of the kernels of ``-Xptxas -v``'s log whose
+    mangled entry name holds one of ``names``."""
+    import re
+
+    out, entry = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            t = re.search(r"(" + "|".join(names) + r")I(?:Li(\d+)E|([fd]))E", m.group(1))
+            entry = None if t is None else (
+                f"{t.group(1)}<{t.group(2) or {'f': 'float', 'd': 'double'}[t.group(3)]}>")
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads", line)
+        if m:
+            out[entry] = [None, *map(int, m.groups())]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry in out:
+            out[entry][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def phase_build(kfet_build, results) -> None:
     info = kfet_build.build()
     say(f"[build] nvcc {info.seconds:.2f} s -> {info.path.name}")
     for line in info.log.splitlines():
         if "Used" in line or "spill" in line or "Compiling entry" in line:
             say("[build]", line.strip())
+    # K11's buckets (perm_chunk<MB>) and K6's two forms (css_smacof<T>)
+    for name, key in (("css_perm_chunk", "perm_chunk"), ("css_smacof", "css_smacof")):
+        summary = ptxas_summary(info.log, (key,))
+        check(bool(summary), f"the build log shows no {key} kernel")
+        for entry, (regs, stack, st, ld) in summary.items():
+            say(f"[build] {name} {entry}: {regs} registers, {stack} bytes stack, "
+                f"spills {st} / {ld} bytes")
+        results[name]["ptxas"] = {e: list(v) for e, v in summary.items()}
 
 
 def phase_kernels(torch, kfet, pair, plan_ids, dev, results) -> None:
@@ -1011,14 +1048,26 @@ def event_ms(torch, fn):
     return out, start.elapsed_time(end)
 
 
+def smacof_ops(m: int) -> int:
+    """Operations of one Guttman transform with its stress: per pair i < j
+    a distance (2 differences, 2 products, a sum, a square root), its
+    residual (a difference, a product, a sum) and b_ij (a division), 10;
+    per ordered pair i != j the row sums (2 products, 3 sums), 5; a square
+    root or division counted as one operation, an underestimate of its
+    time."""
+    return 10 * m * (m - 1) // 2 + 5 * m * (m - 1)
+
+
 def smacof_check(torch, kcss, dis, npos, asize, bsize, mds, key, slots, prec, label):
     """css_smacof against css_smacof_plain on the card at one precision.
     Returns ((max_abs_err, max_rel_err, kernel ms, plain ms), windows whose
-    chosen restart or transform count differ, Guttman transforms of the
-    chosen restarts summed over the windows)."""
+    chosen restart or transform count differ, Guttman transforms of every
+    restart summed over the windows)."""
     dt = torch.float32 if prec == "fast" else torch.float64
     d = dis.to(dt).contiguous()
-    kern = lambda: kcss.css_smacof(d, npos, asize, bsize, mds, key, slots)  # noqa: E731
+    total = torch.zeros(d.shape[0], dtype=torch.int32, device=d.device)
+    kern = lambda: kcss.css_smacof(d, npos, asize, bsize, mds, key, slots,  # noqa: E731
+                                   transforms=total)
     ks, kd, kv, kr, kn = kern()
     (ps, pd, pv, pr, pn), pms = event_ms(
         torch, lambda: kcss.css_smacof_plain(d, npos, asize, bsize, mds, key, slots)
@@ -1048,11 +1097,13 @@ def smacof_check(torch, kcss, dis, npos, asize, bsize, mds, key, slots, prec, la
         check(err <= top and q <= q90, f"{label} {prec}: {err}, q90 {q} beyond the band")
     ms = cuda_ms(torch, kern, 2)
     steps = kn[kv].double()
+    check(bool((total >= kn).all()), f"{label} {prec}: transforms below the chosen restart's")
     say(f"[K6 {label} {prec}] B={B} windows, {int(kv.sum())} valid, "
         f"{int(ks.isnan().sum())} NaN in both, mean {float(steps.mean()):.1f} / max "
-        f"{int(kn.max())} Guttman transforms on the chosen restart: {tol_txt}; "
+        f"{int(kn.max())} Guttman transforms on the chosen restart, "
+        f"{float(total.double().mean()):.1f} a window over every restart: {tol_txt}; "
         f"kernel {ms:.3f} ms plain {pms:.3f} ms")
-    return (abs_err(got, want), err, ms, pms), differ, int(kn.sum())
+    return (abs_err(got, want), err, ms, pms), differ, int(total.sum())
 
 
 def phase_smacof_kernels(torch, pair, plan_ids, dev, results) -> None:
@@ -1081,12 +1132,16 @@ def phase_smacof_kernels(torch, pair, plan_ids, dev, results) -> None:
             tag = prec if mds == 1 else f"mds2_{prec}"
             r[tag] = out
             r.setdefault("differ", {})[f"mds{mds}_{prec}"] = differ
-            if tag == "fast":   # D in, distances out; a transform is at
-                # least 3 m^2 flops and 2 m^2 square roots and divisions,
-                # counted on the chosen restarts only
+            if mds == 1:   # D in, distances out; every restart's transforms
+                # (the chosen restart's alone would be about n_init-fold too
+                # few), each at least smacof_ops(m)
                 m = ASIZE + BSIZE
-                r["bound"] = bound(dis.shape[0] * (2 * m * m * 4 + 9),
-                                   {"f32": 5 * m * m * steps})
+                size = 4 if prec == "fast" else 8
+                kind = "f32" if prec == "fast" else "f64"
+                b = bound(dis.shape[0] * (2 * m * m * size + 9 + size),
+                          {kind: smacof_ops(m) * steps})
+                r["bound" if prec == "fast" else "bound_exact"] = b
+                r.setdefault("transforms", {})[prec] = steps
     del dis
     torch.cuda.empty_cache()
 
@@ -1136,16 +1191,21 @@ def phase_smacof_kernels(torch, pair, plan_ids, dev, results) -> None:
     lo8, npos8, slot8 = plan_ids
     d8 = kcss.css_dissim(pair.to_device(dev), lo8, npos8, torch.float32)
     npos8_d, slot8_d = npos8.to(dev), slot8.to(dev)
+    total8 = torch.zeros(d8.shape[0], dtype=torch.int32, device=dev)
     (s8, _, v8, _, n8), ms = event_ms(
-        torch, lambda: kcss.css_smacof(d8, npos8_d, ASIZE, BSIZE, 1, key, slot8_d)
+        torch, lambda: kcss.css_smacof(d8, npos8_d, ASIZE, BSIZE, 1, key, slot8_d,
+                                       transforms=total8)
     )
     check(bool(torch.isfinite(s8[v8]).all()) and int(v8.sum()) > 0, "css_smacof bench: non-finite")
+    m = ASIZE + BSIZE
+    b8 = bound(d8.shape[0] * (2 * m * m * 4 + 13), {"f32": smacof_ops(m) * int(total8.sum())})
     say(f"[K6 css_smacof mds=1 fast bench] B={d8.shape[0]} windows, {int(v8.sum())} valid, "
-        f"mean {float(n8[v8].double().mean()):.1f} transforms: kernel {ms:.1f} ms "
-        f"({d8.shape[0] / ms * 1e3:,.0f} windows/s, one call); plain version not run "
-        "at this size")
-    r["bench_fast_ms"] = ms
-    del d8, s8, v8, n8
+        f"mean {float(n8[v8].double().mean()):.1f} transforms on the chosen restart, "
+        f"{float(total8.double().mean()):.1f} over every restart: kernel {ms:.1f} ms "
+        f"({d8.shape[0] / ms * 1e3:,.0f} windows/s, one call), bound {b8[0]:.3f} ms "
+        f"({b8[1]}); plain version not run at this size")
+    r["bench_fast_ms"], r["bound_bench"] = ms, b8
+    del d8, s8, v8, n8, total8
     torch.cuda.empty_cache()
 
 
@@ -1683,8 +1743,10 @@ def phase_step_kernels(torch, pair, plan, ids, dev, results, k2_bench) -> dict:
     """Phase 12: K10 and K11 against their plain versions on the 19,997
     windows of the 200 k workload (K10 both precisions, K11 both draw
     streams; K11 also on a 200 k-SNP stickleback-shaped panel, where the
-    null is hit), K11 against K8's first chunk on that panel, and K10 on
-    the ~800 k bench windows bit-equal to phase 2's K1 -> K2.  Returns the
+    null is hit), K11 against K8's first chunk on that panel, K10 on the
+    ~800 k bench windows bit-equal to phase 2's K1 -> K2, and K11 at the
+    step's size (those windows' distances, 128 permutations each, both
+    draw streams) against its plain version and timed alone.  Returns the
     bench windows, gathered for phase 13."""
     import numpy as np
 
@@ -1755,11 +1817,12 @@ def phase_step_kernels(torch, pair, plan, ids, dev, results, k2_bench) -> dict:
         WB = wn.numel()
         ones = torch.ones(WB, dtype=torch.int32, device=dev)
         perms = WB * PERM_CHUNK
+        dist32, obs32 = dist.float().contiguous(), css_s.float().contiguous()
         for bitgen in ("mix", "threefry"):
             kern = lambda: kperm.permutation_chunk(  # noqa: E731
-                dist, css_s, ones, PERM_CHUNK, wkeys, ASIZE, BSIZE, PERM_CHUNK, bitgen)
+                dist32, obs32, ones, PERM_CHUNK, wkeys, ASIZE, BSIZE, PERM_CHUNK, bitgen)
             plain = lambda: kperm.permutation_chunk_plain(  # noqa: E731
-                dist, css_s, ones, PERM_CHUNK, wkeys, ASIZE, BSIZE, PERM_CHUNK, bitgen)
+                dist32, obs32, ones, PERM_CHUNK, wkeys, ASIZE, BSIZE, PERM_CHUNK, bitgen)
             k, q = kern(), plain()
             torch.cuda.synchronize()
             differ = (k[0] != q[0]) | (k[1] != q[1]) | (k[2] != q[2])
@@ -1770,15 +1833,12 @@ def phase_step_kernels(torch, pair, plan, ids, dev, results, k2_bench) -> dict:
                 pms = cuda_ms(torch, plain, 1)
                 timing = (f"; kernel {ms:.4f} ms plain {pms:.4f} ms "
                           f"({perms / ms * 1e3:,.0f} permutations/s)")
-                r11[bitgen] = (float((k[0] - q[0]).abs().max()), 0.0, ms, pms)
-                ops = {t: v * perms for t, v in window_ops(bitgen, m, ASIZE).items()}
-                r11[f"bound_{bitgen}"] = bound(WB * (m * m * 4 + 4 + 4 + 16) + WB * 9, ops)
+                r11[f"{bitgen}_20k"] = (float((k[0] - q[0]).abs().max()), 0.0, ms, pms)
             say(f"[K11 css_perm_chunk {bitgen}, {label}] {WB} windows x {PERM_CHUNK} "
                 f"permutations ({int(k[0].sum())} hits, {int(k[1].sum())} windows reach "
                 f"need = 1): {nd} windows differ from the plain version (allowed 0){timing}")
             check(nd == 0, f"css_perm_chunk {bitgen} ({label}): {nd} windows differ")
             r11["differ"][f"{bitgen}_{label}"] = nd
-    r11["fast"], r11["bound"] = r11["mix"], r11["bound_mix"]
     check(int(k[0].sum()) > 0, "css_perm_chunk: the panel's null is never hit")
 
     # K11 against K8's first chunk on the panel: keys fold_in(wkey, 0), need =
@@ -1799,7 +1859,7 @@ def phase_step_kernels(torch, pair, plan, ids, dev, results, k2_bench) -> dict:
     check(same, "css_perm_chunk disagrees with css_mc_window's first chunk")
     check(int(stopped.sum()) > 0, "css_mc_window stops no panel window in its first chunk")
     r11["k8_stopped"] = int(stopped.sum())
-    del av, bv, hav, hbv, dist, css_s, wkeys
+    del av, bv, hav, hbv, dist, css_s, wkeys, dist32, obs32
     torch.cuda.empty_cache()
 
     # K10 on the ~800 k bench windows: phase 2's K1 -> K2 bit for bit
@@ -1817,6 +1877,40 @@ def phase_step_kernels(torch, pair, plan, ids, dev, results, k2_bench) -> dict:
             f"2's K1 -> K2: {eq}; kernel {ms:.3f} ms (one call)")
         check(eq, f"fet_window {prec} differs from K1 -> K2 on the bench windows")
         r10["bench_ms"][prec] = ms
+
+    # K11 alone at the step's size: the bench windows' exact CSS distances
+    # and keys as make_divergence_step gives them, against the plain version
+    # on every window; the kernel timed by CUDA events
+    k_css, k_mc = (rng.fold_in(rng.prng_key(0), i) for i in (1, 2))
+    css_s, dist, _ = kcss.css_window_batch(bav[:B8], bbv[:B8], npos8, k_css, ASIZE, BSIZE,
+                                           slot=slot8)
+    dist32, obs32 = dist.float().contiguous(), css_s.float().contiguous()
+    del dist, css_s
+    wkeys = rng.fold_in(rng.fold_in(k_mc.to(dev), 0), slot8.to(dev))
+    ones = torch.ones(B8, dtype=torch.int32, device=dev)
+    perms = B8 * PERM_CHUNK
+    for bitgen in ("mix", "threefry"):
+        kern = lambda: kperm.permutation_chunk(  # noqa: E731
+            dist32, obs32, ones, PERM_CHUNK, wkeys, ASIZE, BSIZE, PERM_CHUNK, bitgen)
+        k = kern()
+        q, pms = event_ms(torch, lambda: kperm.permutation_chunk_plain(
+            dist32, obs32, ones, PERM_CHUNK, wkeys, ASIZE, BSIZE, PERM_CHUNK, bitgen))
+        nd = int(((k[0] != q[0]) | (k[1] != q[1]) | (k[2] != q[2])).sum())
+        del q
+        ms = cuda_ms(torch, kern, 10)
+        ops = {t: v * perms for t, v in window_ops(bitgen, m, ASIZE).items()}
+        b = bound(B8 * (m * m * 4 + 4 + 4 + 16) + B8 * 9, ops)
+        say(f"[K11 css_perm_chunk {bitgen}, step size] {B8} windows x {PERM_CHUNK} "
+            f"permutations ({int(k[0].sum())} hits): {nd} windows differ from the plain "
+            f"version (allowed 0); kernel {ms:.4f} ms ({perms / ms * 1e3:,.0f} "
+            f"permutations/s), plain {pms:.1f} ms (one call), bound {b[0]:.3f} ms ({b[1]})")
+        check(nd == 0, f"css_perm_chunk {bitgen} (step size): {nd} windows differ")
+        r11["differ"][f"{bitgen}_step"] = nd
+        r11[bitgen] = (0.0, 0.0, ms, pms)
+        r11[f"bound_{bitgen}"] = b
+    r11["fast"], r11["bound"] = r11["mix"], r11["bound_mix"]
+    del dist32, obs32, wkeys, ones, k
+    torch.cuda.empty_cache()
     pad = Bp - B8
     return {
         "av": bav, "bv": bbv, "B": B8,
@@ -2213,7 +2307,6 @@ def smoke(torch, dev) -> tuple[str, list[dict]]:
 
     card = card_line()
     say(f"[card] {card} | torch {torch.__version__} CUDA {torch.version.cuda}")
-    phase_build(_build)
 
     t0 = time.perf_counter()
     positions, amat, bmat = make_chromosome(
@@ -2237,6 +2330,7 @@ def smoke(torch, dev) -> tuple[str, list[dict]]:
         return out
 
     results = {name: {} for name in REPLACES}
+    phase_build(_build, results)
     timed_phase("2", phase_kernels, torch, kfet, pair, (lo, npos, slot), dev, results)
     k2_out = {
         "fast": results["fet_aggregate"].pop("fast_out"),
@@ -2391,6 +2485,11 @@ def smoke(torch, dev) -> tuple[str, list[dict]]:
                 entry[f"ms_{tag}"], entry[f"plain_ms_{tag}"] = r[tag][2], r[tag][3]
                 entry["max_abs_err"] = max(entry["max_abs_err"], r[tag][0])
             entry["ms_bench_800k_fast"] = r["bench_fast_ms"]
+            entry["bound_ms_bench_800k_fast"] = r["bound_bench"][0]
+            entry["bound_ms_exact"], entry["bound_by_exact"] = r["bound_exact"]
+            entry["transforms_all_restarts_mds1"] = r["transforms"]
+            entry["bound_counts"] = "every restart's transforms"
+            entry["ptxas"] = r["ptxas"]
         if name == "css_mc_window":
             # ms / plain_ms: float32 mix on the 997 windows of the 10 k
             # workload to the 200 k cap; then threefry, the float64 form and
@@ -2416,10 +2515,16 @@ def smoke(torch, dev) -> tuple[str, list[dict]]:
             entry["ms_bench_800k"] = r["bench_ms"]
             entry["bit_equal_k1_k2_800k"] = r["bit_equal"]
         if name == "css_perm_chunk":
-            # ms / plain_ms: mix draws; then threefry, on the same windows
+            # ms / plain_ms: mix draws at the step's size (799,997 windows x
+            # 128); then threefry there, and both on the 19,997 windows of
+            # the 200 k workload
             entry["ms_threefry"], entry["plain_ms_threefry"] = r["threefry"][2], r["threefry"][3]
             entry["bound_ms_threefry"], entry["bound_by_threefry"] = r["bound_threefry"]
+            for form in ("mix", "threefry"):
+                entry[f"ms_{form}_20k"] = r[f"{form}_20k"][2]
+                entry[f"plain_ms_{form}_20k"] = r[f"{form}_20k"][3]
             entry["k8_first_chunk_windows_stopped"] = r["k8_stopped"]
+            entry["ptxas"] = r["ptxas"]
         if name in FET_PATH + CSS_CMDS_PATH:
             entry["launches_run_all"] = all_launches[name]
         if name == "fet_lut_rank":

@@ -2,19 +2,18 @@
 // and K6 (css_smacof.cu): fill-averages, one CMDS embedding run by one
 // warp, and the distance + score epilogue.
 //
-//   fill_stats   — cells < 1e-5 are unset; avg = (sum of set cells) / m^2;
+//   fill_stats_warp — cells < 1e-5 are unset; avg = (sum of set cells) / m^2;
 //                  the window is discarded when more than m*m/2 cells are
-//                  unset (reference statistics/css/css.c:337-366); a
-//                  block form (K6) and a warp form (K5);
+//                  unset (reference statistics/css/css.c:337-366), by
+//                  one warp;
 //   cmds_embed   — one warp: B = -0.5 (f^2 - (row_i + row_j) + grand) of
 //                  the filled matrix f, then the top-2 eigenpairs by the
 //                  subset route of LAPACK's dsyevx (dsytrd, dstebz, dstein,
 //                  dormtr), X = Q sqrt(L) with the dust clamp
 //                  (divergence_tpu/kernels/css.py:133-160);
-//   score_window — dist_ij = sqrt(dx0^2 + dx1^2) written out, score =
+//   score_window_warp — dist_ij = sqrt(dx0^2 + dx1^2) written out, score =
 //                  mean(dist[:a, a:]) - m * sum_k w_k dist[k][k+1], and the
-//                  valid flag; an invalid window scores 0; a block form
-//                  (K6) and a warp form (K5).
+//                  valid flag; an invalid window scores 0; by one warp.
 //
 // cmds_embed, step by step (lane l owns rows l and l + 32 of the warp's
 // shared-memory slab A [m][m | 1]; the odd row stride keeps a column read
@@ -102,20 +101,6 @@ __device__ __forceinline__ T warp_max(T v) {
     return v;
 }
 
-// Sum of v over the block (every thread gets the result).
-template <typename T>
-__device__ T block_sum(T v, T* red) {
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-    const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
-    __syncthreads();
-    if (lane == 0) red[warp] = v;
-    __syncthreads();
-    T total = T(0);
-    for (int k = 0; k < static_cast<int>(blockDim.x >> 5); ++k) total += red[k];
-    return total;
-}
-
 template <typename T>
 struct Fill {
     T avg;
@@ -127,25 +112,7 @@ __device__ __forceinline__ T filled(T d, T avg) {
     return d < T(0.00001) ? avg : d;
 }
 
-// Fill average and discard rule of the m x m window D, by the block.
-template <typename T>
-__device__ Fill<T> fill_stats(const T* D, int m, T* red) {
-    T part = T(0);
-    int nun = 0;
-    for (int p = threadIdx.x; p < m * m; p += blockDim.x) {
-        const T d = D[p];
-        if (d < T(0.00001)) {
-            ++nun;
-        } else {
-            part += d;
-        }
-    }
-    const T total = block_sum<T>(part, red);
-    const int nunset = static_cast<int>(block_sum<T>(static_cast<T>(nun), red));
-    return {total / static_cast<T>(m * m), nunset <= (m * m) / 2};
-}
-
-// The same, by one warp.
+// Fill average and discard rule of the m x m window D, by one warp.
 template <typename T>
 __device__ Fill<T> fill_stats_warp(const T* D, int m, int lane) {
     T part = T(0);
@@ -508,19 +475,7 @@ __device__ __forceinline__ void score_store(T bsum, T csum, int asize, int bsize
     *valid_out = valid ? 1 : 0;
 }
 
-// Distances, score and valid flag of one window, by the block.
-template <typename T>
-__device__ void score_window(const T* X, int asize, int bsize, T wa, T wb,
-                             bool valid, T* dout, T* red, T* score_out,
-                             uint8_t* valid_out) {
-    T bet, chain;
-    score_terms(X, asize, asize + bsize, wa, wb, threadIdx.x, blockDim.x, dout, bet, chain);
-    const T bsum = block_sum<T>(bet, red);
-    const T csum = block_sum<T>(chain, red);
-    if (threadIdx.x == 0) score_store(bsum, csum, asize, bsize, valid, score_out, valid_out);
-}
-
-// The same, by one warp.
+// Distances, score and valid flag of one window, by one warp.
 template <typename T>
 __device__ void score_window_warp(const T* X, int asize, int bsize, T wa, T wb,
                                   bool valid, T* dout, T* score_out, uint8_t* valid_out) {

@@ -1,4 +1,5 @@
-// K8: the per-window-stream permutation Monte-Carlo of CSS significance.
+// K8: the per-window-stream permutation Monte-Carlo of CSS significance,
+// and K11: one fixed chunk of it per window, the sharded step's MC.
 //
 // Replaces divergence_tpu/kernels/perm.py: mc_significance with
 // stream="window" (_ranks, _scores_from_ranks, _perm_scores and its
@@ -54,6 +55,27 @@
 // (the old kernel ran one warp per window to its stop, 997 warps on 132
 // SMs), and a window that stops inside a range pays for the rest of it:
 // range_chunks bounds that waste.
+//
+// K11 — css_perm_chunk (kernel perm_chunk) replaces
+// divergence_tpu/kernels/perm.py: permutation_chunk (_perm_scores on
+// keys used as given, then the counted / cumsum / argmax epilogue); plain
+// torch version: kernels/perm.py permutation_chunk_plain.  It is one chunk
+// of K8's float32 stream with the window's key used as given (no chunk
+// fold) and K < limit counted, on K8's device body (stage_entry, perm_hit):
+// the same draws, ranks, nonzero-term scores and non-finite flag, so its
+// hits are K8's first chunk's when given fold_in(wkey, 0).  A chunk is
+// only wpc = ceil(chunk/32) words (4 at the step's 128), so a block takes
+// wpb windows (perm_chunk_windows: two words a warp, within 48 KB of
+// products) and stages each window once for all of its words; its warps
+// walk the (window, word) pairs, one ballot a word into shared memory.
+// Then one thread a window folds its words in permutation order:
+// chunk_hits (the whole chunk, no early exit), reached = chunk_hits >=
+// need, and pos, the 0-based index of the need-th hit picked from its word
+// by __ffs, or 0 where it never comes (the all-false argmax of
+// perm.py:420) or need <= 0 (the first index meets cum >= need).
+#include <algorithm>
+#include <type_traits>
+
 #include "css_perm_common.cuh"
 #include "fet_common.cuh"
 #include "threefry.cuh"
@@ -113,6 +135,45 @@ __device__ __forceinline__ uint64_t rank_tables(const int (&r)[MB], int m, int a
     return bmask;
 }
 
+// Stage entry i of a window's D into its matrices (the float64 form: D;
+// the float32 form: its products with the three nonzero coefficients, dm
+// floats apart); true where the entry is not finite.
+template <bool kF64>
+__device__ __forceinline__ bool stage_entry(float d, int i, float* mats, int dm,
+                                            permk::CoeffConst cc) {
+    if (kF64) {
+        mats[i] = d;
+    } else {
+        mats[i] = __fmul_rn(d, cc.between);
+        mats[dm + i] = __fmul_rn(d, -cc.ca);
+        mats[2 * dm + i] = __fmul_rn(d, -cc.cb);
+    }
+    return !isfinite(d);
+}
+
+// Whether permutation K of the chunk keyed by ckey scores >= the observed
+// score o32: this lane's draws and ranks in registers, its tables in the
+// warp's lane-interleaved slabs, the score over the staged matrices.
+template <int MB, bool kF64>
+__device__ __forceinline__ bool perm_hit(uint2 ckey, int K, int m, int asize, int bitgen,
+                                         const float* mats, const double* rowtot,
+                                         uint8_t* rk, uint8_t* ord, uint8_t* bl,
+                                         permk::NativeConst nc, float o32) {
+    uint32_t x[MB];
+    int r[MB];
+    permk::draw_unrolled<MB>(ckey, static_cast<uint32_t>(K), m, bitgen, x);
+    permk::rank_unrolled<MB>(x, m, r);
+    const uint64_t bmask = rank_tables<MB>(r, m, asize, rk, ord, bl);
+    if constexpr (kF64) {
+        return permk::score_f64(mats, rowtot, ord, 32, m, asize, nc) >=
+               static_cast<double>(o32);
+    } else {
+        const int dm = d_floats(m);
+        return permk::score_f32_nonzero<MB>(mats, mats + dm, mats + 2 * dm, m, asize, rk,
+                                            ord, bl, bmask) >= o32;
+    }
+}
+
 template <int MB, bool kF64>
 __global__ void __launch_bounds__(kThreads, 2)
 window_hits(const float* __restrict__ dist, const float* __restrict__ obs,
@@ -122,11 +183,8 @@ window_hits(const float* __restrict__ dist, const float* __restrict__ obs,
             uint32_t* __restrict__ words) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
     const int mm = m * m;
-    float* D = reinterpret_cast<float*>(smem_raw);        // float64 form
-    float* pb = D;                                        // float32 form
-    float* pa = pb + d_floats(m);
-    float* pc = pa + d_floats(m);
-    double* rowtot = reinterpret_cast<double*>(D + mat_floats(m, kF64));
+    float* mats = reinterpret_cast<float*>(smem_raw);
+    double* rowtot = reinterpret_cast<double*>(mats + mat_floats(m, kF64));
     uint2* ckeys = reinterpret_cast<uint2*>(rowtot + rowtot_doubles(m));
     uint8_t* ord_all = reinterpret_cast<uint8_t*>(ckeys + kWordsPerBlock);
     uint8_t* bl_all = ord_all + kWarps * MB * 32;
@@ -142,15 +200,7 @@ window_hits(const float* __restrict__ dist, const float* __restrict__ obs,
 
     bool bad = false;
     for (int i = threadIdx.x; i < mm; i += kThreads) {
-        const float d = dist[row * mm + i];
-        if (kF64) {
-            D[i] = d;
-        } else {
-            pb[i] = __fmul_rn(d, cc.between);
-            pa[i] = __fmul_rn(d, -cc.ca);
-            pc[i] = __fmul_rn(d, -cc.cb);
-        }
-        bad |= !isfinite(d);
+        bad |= stage_entry<kF64>(dist[row * mm + i], i, mats, d_floats(m), cc);
     }
     const uint2 wkey = make_uint2(static_cast<uint32_t>(wkeys[2 * row]),
                                   static_cast<uint32_t>(wkeys[2 * row + 1]));
@@ -159,7 +209,9 @@ window_hits(const float* __restrict__ dist, const float* __restrict__ obs,
     }
     const bool flagged = __syncthreads_or(bad) != 0;
     if (kF64) {
-        for (int j = threadIdx.x; j < m; j += kThreads) rowtot[j] = permk::row_total(D, m, j);
+        for (int j = threadIdx.x; j < m; j += kThreads) {
+            rowtot[j] = permk::row_total(mats, m, j);
+        }
         __syncthreads();
     }
 
@@ -169,7 +221,6 @@ window_hits(const float* __restrict__ dist, const float* __restrict__ obs,
     uint8_t* bl = bl_all + warp * MB * 32 + lane;
     uint8_t* rk = rk_all + warp * MB * 32 + lane;
     const float o32 = obs[row];
-    const double o64 = static_cast<double>(o32);
     for (int q = q0 + warp; q < q1; q += kWarps) {
         const int kk = q / wpc;
         const int qq = q - kk * wpc;
@@ -177,20 +228,90 @@ window_hits(const float* __restrict__ dist, const float* __restrict__ obs,
         const int64_t g = static_cast<int64_t>(k0 + kk) * chunk + K;
         bool hit = false;
         if (K < chunk && g < runs && (kF64 || !flagged)) {
-            uint32_t x[MB];
-            int r[MB];
-            permk::draw_unrolled<MB>(ckeys[kk - kk0], static_cast<uint32_t>(K), m, bitgen, x);
-            permk::rank_unrolled<MB>(x, m, r);
-            const uint64_t bmask = rank_tables<MB>(r, m, asize, rk, ord, bl);
-            if constexpr (kF64) {
-                hit = permk::score_f64(D, rowtot, ord, 32, m, asize, nc) >= o64;
-            } else {
-                hit = permk::score_f32_nonzero<MB>(pb, pa, pc, m, asize, rk, ord, bl,
-                                                   bmask) >= o32;
-            }
+            hit = perm_hit<MB, kF64>(ckeys[kk - kk0], K, m, asize, bitgen, mats, rowtot, rk,
+                                     ord, bl, nc, o32);
         }
         const uint32_t b = __ballot_sync(0xffffffffu, hit);
         if (lane == 0) words[(a * nk + kk) * wpc + qq] = b;
+    }
+}
+
+// K11: one chunk of wpc words per window, the window's key used as given,
+// wpb windows a block (perm_chunk_windows), then the stop epilogue.
+template <int MB>
+__global__ void __launch_bounds__(kThreads, 2)
+perm_chunk(const float* __restrict__ dist, const float* __restrict__ obs,
+           const int* __restrict__ need, const int64_t* __restrict__ keys, int64_t B,
+           int m, int asize, int wpc, int limit, int wpb, int bitgen, permk::CoeffConst cc,
+           int* __restrict__ hits_out, uint8_t* __restrict__ reached_out,
+           int* __restrict__ pos_out) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const int mm = m * m;
+    const int dm = d_floats(m);
+    float* mats = reinterpret_cast<float*>(smem_raw);                  // [wpb][3][dm]
+    uint32_t* cwords = reinterpret_cast<uint32_t*>(mats + wpb * mat_floats(m, false));
+    int* flag = reinterpret_cast<int*>(cwords + wpb * wpc);            // [wpb]
+    uint8_t* ord_all = reinterpret_cast<uint8_t*>(flag + wpb);
+    uint8_t* bl_all = ord_all + kWarps * MB * 32;
+    uint8_t* rk_all = bl_all + kWarps * MB * 32;
+
+    const int64_t w0 = static_cast<int64_t>(blockIdx.x) * wpb;
+    const int nw = static_cast<int>(min(static_cast<int64_t>(wpb), B - w0));
+    for (int s = threadIdx.x; s < nw; s += kThreads) flag[s] = 0;
+    __syncthreads();
+    const float* src = dist + w0 * mm;   // the block's windows are contiguous
+    for (int i = threadIdx.x; i < nw * mm; i += kThreads) {
+        const int s = i / mm;
+        if (stage_entry<false>(src[i], i - s * mm, mats + s * mat_floats(m, false), dm, cc)) {
+            flag[s] = 1;
+        }
+    }
+    __syncthreads();
+
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    uint8_t* ord = ord_all + warp * MB * 32 + lane;
+    uint8_t* bl = bl_all + warp * MB * 32 + lane;
+    uint8_t* rk = rk_all + warp * MB * 32 + lane;
+    for (int q = warp; q < nw * wpc; q += kWarps) {
+        const int s = q / wpc;
+        const int K = (q - s * wpc) * 32 + lane;
+        const int64_t w = w0 + s;
+        bool hit = false;
+        if (K < limit && !flag[s]) {
+            const uint2 key = make_uint2(static_cast<uint32_t>(keys[2 * w]),
+                                         static_cast<uint32_t>(keys[2 * w + 1]));
+            hit = perm_hit<MB, false>(key, K, m, asize, bitgen,
+                                      mats + s * mat_floats(m, false), nullptr, rk, ord, bl,
+                                      permk::NativeConst{}, obs[w]);
+        }
+        const uint32_t b = __ballot_sync(0xffffffffu, hit);
+        if (lane == 0) cwords[q] = b;
+    }
+    __syncthreads();
+
+    // the stop epilogue, one thread a window: the words in permutation
+    // order, the need-th hit's index picked from its word by __ffs
+    if (threadIdx.x < nw) {
+        const int s = threadIdx.x;
+        const int64_t w = w0 + s;
+        const int nd = need[w];
+        int hits = 0;
+        int pos = 0;
+        bool found = nd <= 0;
+        for (int qq = 0; qq < wpc; ++qq) {
+            uint32_t b = cwords[s * wpc + qq];
+            const int c = __popc(b);
+            if (!found && hits + c >= nd) {
+                for (int k = nd - hits; k > 1; --k) b &= b - 1;
+                pos = qq * 32 + __ffs(b) - 1;
+                found = true;
+            }
+            hits += c;
+        }
+        hits_out[w] = hits;
+        reached_out[w] = hits >= nd;
+        pos_out[w] = pos;
     }
 }
 
@@ -213,20 +334,44 @@ int launch_hits(const float* dist, const float* obs, const int64_t* wkeys,
     return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kF64>
-int dispatch_hits(const float* dist, const float* obs, const int64_t* wkeys,
-                  const int64_t* active, int64_t nact, int m, int asize, int k0, int nk,
-                  int chunk, int wpc, int runs, int bitgen, permk::CoeffConst cc,
-                  permk::NativeConst nc, uint32_t* words, cudaStream_t s) {
-#define DIVERGENCE_HITS(MB)                                                              \
-    launch_hits<MB, kF64>(dist, obs, wkeys, active, nact, m, asize, k0, nk, chunk, wpc, \
-                          runs, bitgen, cc, nc, words, s)
-    if (m <= 8) return DIVERGENCE_HITS(8);
-    if (m <= 16) return DIVERGENCE_HITS(16);
-    if (m <= 24) return DIVERGENCE_HITS(24);
-    if (m <= 32) return DIVERGENCE_HITS(32);
-    return DIVERGENCE_HITS(kMaxM);
-#undef DIVERGENCE_HITS
+// f(std::integral_constant<int, MB>) for the unrolled bucket MB of m.
+template <typename F>
+int by_bucket(int m, F&& f) {
+    if (m <= 8) return f(std::integral_constant<int, 8>{});
+    if (m <= 16) return f(std::integral_constant<int, 16>{});
+    if (m <= 24) return f(std::integral_constant<int, 24>{});
+    if (m <= 32) return f(std::integral_constant<int, 32>{});
+    return f(std::integral_constant<int, kMaxM>{});
+}
+
+// Windows a K11 block takes: two words a warp where the chunk is short
+// (4 windows at 128 permutations), as many as keep their products within
+// 48 KB, at least one.
+int perm_chunk_windows(int m, int wpc) {
+    const int by_words = std::max(1, 2 * kWarps / wpc);
+    const int by_smem =
+        std::max(1, 49152 / static_cast<int>(sizeof(float) * mat_floats(m, false)));
+    return std::min(by_words, by_smem);
+}
+
+template <int MB>
+int launch_perm_chunk(const float* dist, const float* obs, const int* need,
+                      const int64_t* keys, int64_t B, int m, int asize, int chunk, int limit,
+                      int bitgen, permk::CoeffConst cc, int* hits, uint8_t* reached,
+                      int* pos, cudaStream_t s) {
+    const int wpc = (chunk + permk::kWordBits - 1) / permk::kWordBits;
+    const int wpb = perm_chunk_windows(m, wpc);
+    const size_t smem = sizeof(float) * wpb * mat_floats(m, false) +
+                        sizeof(uint32_t) * wpb * wpc + sizeof(int) * wpb +
+                        3 * static_cast<size_t>(kWarps) * MB * 32;
+    const cudaError_t attr = cudaFuncSetAttribute(
+        perm_chunk<MB>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    const int64_t blocks = (B + wpb - 1) / wpb;
+    if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidConfiguration);
+    perm_chunk<MB><<<static_cast<unsigned>(blocks), kThreads, smem, s>>>(
+        dist, obs, need, keys, B, m, asize, wpc, limit, wpb, bitgen, cc, hits, reached, pos);
+    return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -246,8 +391,29 @@ FET_EXPORT int css_mc_window(const float* dist, const float* obs, const int64_t*
     const permk::NativeConst nc{wa, wb, inv_ab};
     const int wpc = cstride / permk::kWordBits;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    return f64 ? dispatch_hits<true>(dist, obs, wkeys, active, nact, m, asize, k0, nk, chunk,
-                                     wpc, runs, bitgen, cc, nc, words, s)
-               : dispatch_hits<false>(dist, obs, wkeys, active, nact, m, asize, k0, nk,
-                                      chunk, wpc, runs, bitgen, cc, nc, words, s);
+    return by_bucket(m, [&](auto mb) {
+        constexpr int MB = decltype(mb)::value;
+        return f64 ? launch_hits<MB, true>(dist, obs, wkeys, active, nact, m, asize, k0, nk,
+                                           chunk, wpc, runs, bitgen, cc, nc, words, s)
+                   : launch_hits<MB, false>(dist, obs, wkeys, active, nact, m, asize, k0, nk,
+                                            chunk, wpc, runs, bitgen, cc, nc, words, s);
+    });
+}
+
+FET_EXPORT int css_perm_chunk(const float* dist, const float* obs, const int* need,
+                              const int64_t* keys, int64_t B, int m, int asize, int chunk,
+                              int limit, int bitgen, float between, float ca, float cb,
+                              int* hits, uint8_t* reached, int* pos, void* stream) {
+    if (m > kMaxM || m < 2 || asize < 1 || asize >= m || chunk <= 0 || bitgen < 0 ||
+        bitgen > 1) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    if (B == 0) return 0;
+    const permk::CoeffConst cc{between, ca, cb};
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    return by_bucket(m, [&](auto mb) {
+        return launch_perm_chunk<decltype(mb)::value>(dist, obs, need, keys, B, m, asize,
+                                                      chunk, std::min(limit, chunk), bitgen, cc,
+                                                      hits, reached, pos, s);
+    });
 }

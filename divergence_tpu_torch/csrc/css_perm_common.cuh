@@ -1,6 +1,6 @@
 // Permutation draws, ranks and scores shared by the CSS Monte-Carlo
-// kernels: K7 (css_mc.cu), K8 (css_mc_window.cu), K9 (css_mc_power.cu) and
-// K11 (css_perm_chunk.cu).
+// kernels: K7 (css_mc.cu), K8 and K11 (css_mc_window.cu) and K9
+// (css_mc_power.cu).
 //
 // A permutation of chunk k is drawn from the chunk key fold_in(key, k)
 // (threefry.cuh) as m words, and individual j's rank is its position in
@@ -15,8 +15,8 @@
 //                       floats are equal words and tie on the index.
 //   r_j = #{l : x_l < x_j, or x_l == x_j and l < j}.
 // draw / rank run loops to a runtime m (K7's css_mc_coeff, K9's window
-// stream, K11); draw_unrolled / rank_unrolled do the same draws and
-// compares for m up to a compile-time bound, so K8's x and r stay in
+// stream); draw_unrolled / rank_unrolled do the same draws and compares
+// for m up to a compile-time bound, so K8's and K11's x and r stay in
 // registers (m <= 32; up to 24 with one compare per pair).
 //
 // Scores of one permutation against D (row-major m x m float32, in shared
@@ -27,10 +27,10 @@
 //                cw(r_j) : 0, u_j = r_j < a, added one after another in
 //                row-major (j, l) order from 0 — the twin's order
 //                (kernels/perm.py:_scores_from_ranks), so the two agree bit
-//                for bit (K9, K11);
+//                for bit (K9);
 //   score_f32_nonzero — the same sum over the a*b + m - 2 nonzero terms
-//                only, in the same order (K8; see its note for why the
-//                hits are the same);
+//                only, in the same order (K8, K11; see its note for why
+//                the hits are the same);
 //   score_f64  — native/mc_native.cpp:272-294 step for step, in float64:
 //                row totals over the smaller group, between = rt -
 //                2 within, the a- and b-chains over rank-adjacent pairs,

@@ -72,9 +72,10 @@ _SIGNATURES = {
     # (nullable), stream
     "css_cmds_{t}": (_P, _P, _I64, _I, _I, _D, _D, _P, _P, _P, _P, _P),
     # dis, npos, slots, B, key0, key1, asize, bsize, mode, n_init,
-    # max_iters, eps, wa, wb, scores, dist, valid, restart, ntrans, stream
+    # max_iters, eps, wa, wb, scores, dist, valid, restart, ntrans, total
+    # (nullable), counters, sig / x / n scratch, stream
     "css_smacof_{t}": (_P, _P, _P, _I64, _U32, _U32, _I, _I, _I, _I, _I, _D,
-                       _D, _D, _P, _P, _P, _P, _P, _P),
+                       _D, _D, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
     # key0, key1, k0, nk, chunk, cstride, m, asize, bitgen, between, ca, cb,
     # out, stream
     "css_mc_coeff": (_U32, _U32, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P, _P),

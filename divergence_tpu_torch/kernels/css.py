@@ -30,7 +30,9 @@ a CUDA device, and run the plain torch version on the CPU:
   eigenpairs (tridiagonal reduction, bisection, inverse iteration; one
   warp per window), embedding, distances and score per window (K5);
 * :func:`css_smacof` — ``csrc/css_smacof.cu``: fill, the restarts'
-  SMACOF loops, the best restart, distances and score per window (K6).
+  SMACOF loops (one warp a restart, one pass over the pairs a transform),
+  the best restart, distances and score per window (K6);
+  :func:`smacof_pairs` mirrors its order of operations for tests.
 
 There is no fallback: on a CUDA tensor the kernel runs or the call
 raises.  Each launch adds one to :data:`LAUNCHES`.  The drosophila metric
@@ -60,7 +62,6 @@ _COUNT_BATCH_ELEMS = 1 << 24   # [b, P, m] elements per step of the counts form
 # batches of 65 536 21x21 matrices on the card (CUSOLVER_STATUS_INVALID_VALUE)
 _CMDS_BATCH = 16_384
 CMDS_MAX_M = 64                # css_cmds / css_smacof keep a window in shared memory
-SMACOF_MAX_INITS = 8           # css_smacof runs one warp per restart
 _SMEM_LIMIT = 232_448          # bytes of shared memory a Hopper block may use
 _DISSIM_WORDS = 8              # css_dissim packs 8 x 32 SNPs per pass
 
@@ -229,7 +230,10 @@ def fill_averages(dis: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     m = dis.shape[-1]
     unval = dis < 0.00001
     total = m * m
-    avg = torch.where(unval, 0.0, dis).sum(dim=(-1, -2)) / total
+    # divided by a tensor: torch on CUDA multiplies by the reciprocal of a
+    # Python-number divisor, the kernels (and the CPU) divide
+    avg = (torch.where(unval, 0.0, dis).sum(dim=(-1, -2))
+           / torch.full((), total, dtype=dis.dtype, device=dis.device))
     n_unval = unval.sum(dim=(-1, -2))
     keep = n_unval <= total // 2
     filled = torch.where(unval, avg[..., None, None], dis)
@@ -358,18 +362,28 @@ def _argmin_nan_first(sig: torch.Tensor) -> torch.Tensor:
     return torch.where(sig.isnan(), -torch.inf, sig).argmin(dim=0)
 
 
+def _smacof_restarts(
+    dis: torch.Tensor, wkeys: torch.Tensor, n_init: int, max_iters: int,
+    epsilon: float,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`smacof_runs` plus each window's chosen restart, that
+    restart's transform count and the transforms of every restart summed:
+    (x [B, m, 2], restart, ntrans, total)."""
+    B, m = dis.shape[0], dis.shape[-1]
+    x0 = rng.smacof_inits(wkeys.to(dis.device), n_init, m, dis.dtype)   # [B, I, m, 2]
+    x, sig, n = _smacof_loop(dis[None], x0.movedim(1, 0), max_iters, epsilon)
+    best = _argmin_nan_first(sig)                                      # [B]
+    cols = torch.arange(B, device=dis.device)
+    return x[best, cols], best.to(torch.int32), n[best, cols], n.sum(dim=0, dtype=torch.int32)
+
+
 def _smacof_best(
     dis: torch.Tensor, wkeys: torch.Tensor, n_init: int, max_iters: int,
     epsilon: float,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """:func:`smacof_runs` plus each window's chosen restart and that
     restart's transform count: (x [B, m, 2], restart, ntrans)."""
-    B, m = dis.shape[0], dis.shape[-1]
-    x0 = rng.smacof_inits(wkeys.to(dis.device), n_init, m, dis.dtype)   # [B, I, m, 2]
-    x, sig, n = _smacof_loop(dis[None], x0.movedim(1, 0), max_iters, epsilon)
-    best = _argmin_nan_first(sig)                                      # [B]
-    cols = torch.arange(B, device=dis.device)
-    return x[best, cols], best.to(torch.int32), n[best, cols]
+    return _smacof_restarts(dis, wkeys, n_init, max_iters, epsilon)[:3]
 
 
 def smacof_runs(
@@ -387,6 +401,90 @@ def smacof_runs(
     return _smacof_best(dis, wkeys, n_init, max_iters, epsilon)[0]
 
 
+# ------------------------------------------------ K6's order of operations
+
+
+def _lane_sum(v: torch.Tensor) -> torch.Tensor:
+    """K6's warp sum of v [..., P] (``csrc/css_smacof.cu``: element p on
+    lane p % 32, each lane's partial added in p order from 0, then the
+    xor butterfly of ``css_common.cuh:warp_sum``)."""
+    P = v.shape[-1]
+    K = -(-P // 32)
+    lanes = torch.nn.functional.pad(v, (0, 32 * K - P)).reshape(*v.shape[:-1], K, 32)
+    acc = torch.zeros_like(lanes[..., 0, :])
+    for k in range(K):
+        acc = acc + lanes[..., k, :]
+    idx = torch.arange(32, device=v.device)
+    for o in (16, 8, 4, 2, 1):
+        acc = acc + acc[..., idx ^ o]
+    return acc[..., 0]
+
+
+def _pair_pass(fp: torch.Tensor, x: torch.Tensor, i: torch.Tensor, j: torch.Tensor,
+               diag: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K6's pair pass over x [..., m, 2]: (the stress of x, B(x) [..., m,
+    m] with a zero diagonal), d_ij and b_ij once a pair i < j."""
+    dx = x[..., i, :] - x[..., j, :]
+    d = torch.sqrt(dx[..., 0] * dx[..., 0] + dx[..., 1] * dx[..., 1])
+    r = d - fp
+    b = torch.where(d >= 0.00001, -fp / torch.where(d == 0, 1.0, d), 0.0)
+    m = x.shape[-2]
+    bm = torch.zeros((*x.shape[:-1], m), dtype=x.dtype, device=x.device)
+    bm[..., i, j] = b
+    bm[..., j, i] = b
+    return _lane_sum(r * r) + diag, bm
+
+
+def _row_pass(bm: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """K6's row pass: XN_i = (sum_{j != i} b_ij x_j - rowsum_i x_i) / m,
+    each row's sums in j order."""
+    m = x.shape[-2]
+    zero = torch.zeros_like(x[..., 0])
+    rs, a0, a1 = zero, zero, zero
+    rows = torch.arange(m, device=x.device)
+    for j in range(m):
+        b = bm[..., :, j]
+        off = rows != j
+        rs = torch.where(off, rs + b, rs)
+        a0 = torch.where(off, a0 + b * x[..., j, 0][..., None], a0)
+        a1 = torch.where(off, a1 + b * x[..., j, 1][..., None], a1)
+    # a divisor tensor on x's device: torch on CUDA multiplies by the
+    # reciprocal of a Python-number divisor, the kernel divides
+    mt = torch.full((), m, dtype=x.dtype, device=x.device)
+    return torch.stack([(a0 - rs * x[..., 0]) / mt, (a1 - rs * x[..., 1]) / mt], dim=-1)
+
+
+def smacof_pairs(
+    dis: torch.Tensor, x0: torch.Tensor, max_iters: int = 300, epsilon: float = 1e-6
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`_smacof_loop` in K6's order of operations, for tests
+    (``csrc/css_smacof.cu``): one pair pass a transform gives the stress
+    of the new configuration and the next transform's B, the stress as
+    sum_{i<j} (d_ij - F_ij)^2 + 0.5 sum_i F_ii^2 in the kernel's lane
+    order.  ``dis`` must be symmetric.  Returns (x, sigma, transforms)."""
+    m = dis.shape[-1]
+    i, j = torch.triu_indices(m, m, 1, device=dis.device)
+    fp = dis[..., i, j]
+    dd = torch.diagonal(dis, dim1=-2, dim2=-1)
+    diag = 0.5 * _lane_sum(dd * dd)
+    x = x0
+    sig, bm = _pair_pass(fp, x, i, j, diag)
+    active = sig == sig
+    n = torch.zeros(sig.shape, dtype=torch.int32, device=sig.device)
+    for _ in range(max_iters + 1):
+        if not bool(active.any()):
+            break
+        xn = _row_pass(bm, x)
+        sign, bn = _pair_pass(fp, xn, i, j, diag)
+        improved = (sig - sign) > epsilon
+        x = torch.where(active[..., None, None], xn, x)
+        bm = torch.where(active[..., None, None], bn, bm)
+        sig = torch.where(active, sign, sig)
+        n = n + active.to(torch.int32)
+        active = active & improved
+    return x, sig, n
+
+
 def _score_pipeline(
     dis: torch.Tensor,        # [B, m, m] window dissimilarities (dtype set)
     npos: torch.Tensor,
@@ -399,25 +497,27 @@ def _score_pipeline(
     smacof_eps: float = 1e-6,
 ) -> tuple[torch.Tensor, ...]:
     """``divergence_tpu/kernels/css.py:_score_pipeline`` for one batch:
-    (scores, dist, valid, restart, ntrans).  The last two are the SMACOF
-    diagnostics (the chosen restart and its transform count; zeros for
-    CMDS)."""
+    (scores, dist, valid, restart, ntrans, total).  The last three are the
+    SMACOF diagnostics (the chosen restart, its transform count and the
+    transforms of every restart summed; zeros for CMDS)."""
     filled, keep = fill_averages(dis)
     B = dis.shape[0]
     restart = torch.zeros(B, dtype=torch.int32, device=dis.device)
     ntrans = torch.zeros(B, dtype=torch.int32, device=dis.device)
+    total = ntrans
     if mds == 0:
         x = cmds(filled)
     elif mds == 1:
-        x, restart, ntrans = _smacof_best(
+        x, restart, ntrans, total = _smacof_restarts(
             filled, wkeys, smacof_inits, smacof_iters, smacof_eps
         )
     else:
         x, _, ntrans = _smacof_loop(filled, cmds(filled), smacof_iters, smacof_eps)
+        total = ntrans
     dist = calc_dist(x)
     scores = css_from_dist(dist, a_sz, b_sz)
     valid = keep & (npos > 0)
-    return torch.where(valid, scores, 0.0), dist, valid, restart, ntrans
+    return torch.where(valid, scores, 0.0), dist, valid, restart, ntrans, total
 
 
 def _score_plain(
@@ -432,6 +532,7 @@ def _score_plain(
         return (torch.zeros(0, dtype=torch.float64, device=dev),
                 torch.zeros((0, m, m), dtype=dis.dtype, device=dev),
                 torch.zeros(0, dtype=torch.bool, device=dev),
+                torch.zeros(0, dtype=torch.int32, device=dev),
                 torch.zeros(0, dtype=torch.int32, device=dev),
                 torch.zeros(0, dtype=torch.int32, device=dev))
     parts = []
@@ -502,22 +603,34 @@ def css_cmds(
 # K6: fill-averages, SMACOF, distances, score
 # --------------------------------------------------------------------------
 
+def _check_transforms(transforms, B, dev) -> None:
+    if transforms is not None and (
+            transforms.shape != (B,) or transforms.dtype != torch.int32
+            or transforms.device != dev or not transforms.is_contiguous()):
+        raise ValueError("css_smacof writes transforms into a contiguous int32 [B] tensor "
+                         f"on {dev}")
+
+
 def css_smacof_plain(
     dis: torch.Tensor, npos: torch.Tensor, asize: int, bsize: int, mds: int,
     key: torch.Tensor, slots: torch.Tensor, n_init: int = 4,
-    max_iters: int = 300, epsilon: float = 1e-6,
+    max_iters: int = 300, epsilon: float = 1e-6, transforms: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, ...]:
     """Plain torch version of :func:`css_smacof`
     (``divergence_tpu/kernels/css.py:_score_pipeline`` with ``mds`` 1 or
     2), over window batches of ``_CMDS_BATCH``."""
+    _check_transforms(transforms, dis.shape[0], dis.device)
     wkeys = None
     if mds == 1:
         slots = torch.as_tensor(slots, dtype=torch.int64).to(dis.device)
         wkeys = rng.slot_keys(key.to(dis.device), slots)
-    return _score_plain(
+    out = _score_plain(
         dis, npos, asize, bsize, mds, wkeys, smacof_iters=max_iters,
         smacof_inits=n_init, smacof_eps=epsilon,
     )
+    if transforms is not None:
+        transforms.copy_(out[5])
+    return out[:5]
 
 
 def css_smacof(
@@ -531,17 +644,23 @@ def css_smacof(
     n_init: int = 4,
     max_iters: int = 300,
     epsilon: float = 1e-6,
+    transforms: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, ...]:
     """SMACOF scores of every window: (scores [B], dist [B, m, m], valid
     [B], restart [B], ntrans [B]) (``divergence_tpu/kernels/css.py:
-    _score_pipeline``, ``mds`` 1 or 2).  ``restart`` and ``ntrans`` (int32)
-    are diagnostics for testing: each window's chosen restart and that
-    restart's number of Guttman transforms."""
+    _score_pipeline``, ``mds`` 1 or 2; ``dis`` symmetric, as every
+    dissimilarity is).  ``restart`` and ``ntrans`` (int32) are diagnostics
+    for testing: each window's chosen restart and that restart's number of
+    Guttman transforms.  ``transforms``, an int32 [B] tensor on ``dis``'s
+    device, receives each window's transforms summed over every restart
+    (the work the kernel did)."""
     if mds not in (1, 2):
         raise ValueError(f"css_smacof runs mds 1 or 2, got {mds}")
+    if mds == 1 and n_init < 1:
+        raise ValueError(f"css_smacof runs at least 1 restart, got {n_init}")
     if is_cpu(dis):
         return css_smacof_plain(
-            dis, npos, asize, bsize, mds, key, slots, n_init, max_iters, epsilon
+            dis, npos, asize, bsize, mds, key, slots, n_init, max_iters, epsilon, transforms
         )
     dev = dis.device
     B, m = dis.shape[0], dis.shape[-1]
@@ -552,10 +671,7 @@ def css_smacof(
             f"css_smacof runs panels of at most {CMDS_MAX_M} individuals on "
             f"CUDA (m={m}); larger panels are ROADMAP item P12"
         )
-    if mds == 1 and not 1 <= n_init <= SMACOF_MAX_INITS:
-        raise ValueError(
-            f"css_smacof runs 1 to {SMACOF_MAX_INITS} restarts on CUDA, got {n_init}"
-        )
+    _check_transforms(transforms, B, dev)
     scores = torch.empty(B, dtype=dis.dtype, device=dev)
     dist = torch.empty_like(dis)
     valid = torch.empty(B, dtype=torch.bool, device=dev)
@@ -569,12 +685,20 @@ def css_smacof(
     npos_d = npos.to(dev, torch.int64).contiguous()
     slots_d = torch.as_tensor(slots, dtype=torch.int64).to(dev).contiguous()
     k0, k1 = (int(v) for v in key.tolist())
+    tasks = B * (n_init if mds == 1 else 1)
+    # the task counter, then each window's finished restarts; each task's
+    # stress, transforms and final X
+    counters = torch.zeros(B + 1, dtype=torch.int32, device=dev)
+    sig_s = torch.empty(tasks, dtype=dis.dtype, device=dev)
+    x_s = torch.empty((tasks, m, 2), dtype=dis.dtype, device=dev)
+    n_s = torch.empty(tasks, dtype=torch.int32, device=dev)
     launch(
         LAUNCHES, "css_smacof", f"css_smacof_{dtype_suffix(dis.dtype)}", dev,
         ptr(dis), ptr(npos_d), ptr(slots_d), B, ctypes.c_uint32(k0),
         ctypes.c_uint32(k1), asize, bsize, mds, n_init, max_iters,
         float(epsilon), wa, wb, ptr(scores),
-        ptr(dist), ptr(valid), ptr(restart), ptr(ntrans),
+        ptr(dist), ptr(valid), ptr(restart), ptr(ntrans), ptr(transforms), ptr(counters),
+        ptr(sig_s), ptr(x_s), ptr(n_s),
     )
     return scores, dist, valid, restart, ntrans
 

@@ -43,8 +43,10 @@ Kernels (``csrc/``) carry the work on a CUDA device:
 * ``css_mc_power``  (K9) — per-chunk float64 power sums of the permuted
   scores (:func:`null_power_sums`), shared or window stream, for
   :func:`approx_significance`;
-* ``css_perm_chunk`` (K11) — one fixed chunk of the null per window with a
-  hit target (:func:`permutation_chunk`), the sharded step's MC.
+* ``css_perm_chunk`` (K11) — one fixed chunk of the window stream per
+  window, keys used as given, with a hit target and its stop epilogue in
+  the kernel (:func:`permutation_chunk`), the sharded step's MC, on K8's
+  device code.
 
 :func:`significance`, :func:`null_power_sums`,
 :func:`approx_significance` and :func:`permutation_chunk` launch them on a
@@ -545,27 +547,34 @@ def mc_hit_words(
     return words
 
 
+def _nth_hit(w: torch.Tensor, need: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(total, pos) of the words w [A, wpc] (int64 holding uint32 bits),
+    word by word as the kernels go: the set bits, and the 0-based index of
+    the need-th one, found from the first word whose running count reaches
+    ``need`` and the set bit within it that does (0 where need <= 0; any
+    value where the words hold fewer than ``need``)."""
+    bit = torch.arange(WORD_BITS, device=w.device)
+    pc = _popcount32(w)
+    cum = torch.cumsum(pc, dim=1)
+    q = torch.argmax((cum >= need[:, None]).to(torch.int8), dim=1)
+    before = (cum - pc).gather(1, q[:, None])[:, 0]
+    word = w.gather(1, q[:, None])[:, 0]
+    inword = torch.cumsum((word[:, None] >> bit) & 1, dim=1)
+    b = torch.argmax((inword >= (need - before)[:, None]).to(torch.int8), dim=1)
+    return cum[:, -1], torch.where(need <= 0, 0, q * WORD_BITS + b)
+
+
 def mc_scan_plain(words, active, k0, chunk, runs, threshold, hits, nsc, done) -> None:
     """Plain torch version of :func:`mc_scan`, word by word as the kernel
-    goes: per chunk the words' popcounts, the first word whose running
-    count reaches ``need``, and the set bit within it that does."""
+    goes (:func:`_nth_hit` on each chunk's words)."""
     nk = words.shape[1]
     w = words.to(torch.int64) & 0xFFFFFFFF                     # [A, nk, wpc]
     h, n, d = hits[active].long(), nsc[active].long(), done[active] != 0
-    bit = torch.arange(WORD_BITS, device=words.device)
     for kk in range(nk):
         offset = (k0 + kk) * chunk
-        pc = _popcount32(w[:, kk])                             # [A, wpc]
-        cum = torch.cumsum(pc, dim=1)
-        total = cum[:, -1]
         need = threshold - h
+        total, pos = _nth_hit(w[:, kk], need)
         reached = ~d & (total >= need)
-        q = torch.argmax((cum >= need[:, None]).to(torch.int8), dim=1)
-        before = (cum - pc).gather(1, q[:, None])[:, 0]
-        word = w[:, kk].gather(1, q[:, None])[:, 0]
-        inword = torch.cumsum((word[:, None] >> bit) & 1, dim=1)
-        b = torch.argmax((inword >= (need - before)[:, None]).to(torch.int8), dim=1)
-        pos = torch.where(need <= 0, 0, q * WORD_BITS + b)
         h = torch.where(d, h, torch.where(reached, threshold, h + total))
         n = torch.where(d, n, torch.where(reached, offset + pos + 1,
                                           offset + min(chunk, runs - offset)))
@@ -1196,6 +1205,37 @@ def permutation_chunk_plain(dist, scores, need, limit, keys, asize, bsize, chunk
     return total, total >= need, pos.to(torch.int32)
 
 
+def perm_chunk_words_plain(dist, scores, keys, limit, asize, bsize, chunk,
+                           bitgen: str = "mix") -> torch.Tensor:
+    """K11's hit words as plain torch (tests hold the kernel's composition
+    to :func:`permutation_chunk_plain` with it): int32 [B, ceil(chunk/32)],
+    bit b of word q set where permutation K = 32 q + b < min(limit, chunk)
+    of the chunk keyed by ``keys`` as given scores ``>=`` the float32
+    observed score; a window with a non-finite distance has none (the
+    kernel's staging flag; the twin's NaN sums give the same)."""
+    dev = dist.device
+    B = dist.shape[0]
+    distf = dist.to(torch.float32)
+    new = _perm_scores(distf, keys.to(dev, torch.int64), asize, bsize, chunk, bitgen)
+    obs = torch.as_tensor(scores).to(dev).to(torch.float32)
+    hit = torch.zeros((B, chunk_stride(chunk)), dtype=torch.bool, device=dev)
+    finite = torch.isfinite(distf).reshape(B, -1).all(dim=1)
+    counted = torch.arange(chunk, device=dev) < int(limit)
+    hit[:, :chunk] = (new >= obs[:, None]) & counted[None, :] & finite[:, None]
+    return _pack_words(hit)
+
+
+def chunk_epilogue_plain(words: torch.Tensor, need: torch.Tensor):
+    """K11's stop epilogue as plain torch: (chunk_hits, reached, pos) of a
+    window's chunk words [B, wpc] folded in permutation order
+    (:func:`_nth_hit`); pos 0 where ``need`` is never reached or <= 0."""
+    need = torch.as_tensor(need).to(words.device, torch.int64)
+    total, pos = _nth_hit(words.to(torch.int64) & 0xFFFFFFFF, need)
+    reached = total >= need
+    return (total.to(torch.int32), reached,
+            torch.where(reached, pos, 0).to(torch.int32))
+
+
 def permutation_chunk(
     dist: torch.Tensor,     # [B, m, m] distances (scored in float32)
     scores: torch.Tensor,   # [B] observed CSS (compared in float32)
@@ -1211,8 +1251,9 @@ def permutation_chunk(
     (``perm.py:permutation_chunk``): (chunk_hits [B] int32, reached [B]
     bool, pos [B] int32), ``pos`` the 0-based in-chunk index of the
     permutation that delivered the ``need``-th hit (0 where it is not
-    reached).  K11 on a CUDA ``dist`` (m <= 64), the plain version on a
-    CPU one."""
+    reached).  K11 on a CUDA ``dist`` (m <= 64; the hit words of
+    :func:`perm_chunk_words_plain` folded by :func:`chunk_epilogue_plain`,
+    in one launch), the plain version on a CPU one."""
     gen = _check_bitgen(bitgen)
     if is_cpu(dist):
         return permutation_chunk_plain(dist, scores, need, limit, keys, asize, bsize,

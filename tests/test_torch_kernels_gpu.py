@@ -31,10 +31,14 @@ chromosome's windows.  K1r (``fet_lut_rank``, ``fet_snp_ranks``): the
 sorted LUT and every rank equal to the plain version's on the kernel's own
 LUT (signed zeros tied), the scores lut_sorted[ranks] at the FET
 tolerances.  K2r (``fet_aggregate_ranks``): FET tolerances against its
-plain version and bit-equal to K1 -> K2.  K11 (``css_perm_chunk``): (hits, reached, pos)
-identical to the plain version on every window (the twin's scores, bit
-for bit).  The sharded step: bit-equal per window across a 1- and a
-4-share mesh of one card."""
+plain version and bit-equal to K1 -> K2.  K11 (``css_perm_chunk``):
+(hits, reached, pos) identical to the plain version on every window
+(non-finite windows included), and its words those of K8's first chunk.
+K6 also reports the transforms over every restart, equal to the plain
+version's on all but 0.1 % of windows (+1) in exact mode, and in mode 1
+equals its torch mirror of the kernel's order (``smacof_pairs``) bit for
+bit.  The sharded step: bit-equal per window across a 1- and a 4-share
+mesh of one card."""
 
 import shutil
 from pathlib import Path
@@ -415,20 +419,29 @@ def _smacof_dis(cuda, m, dt):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("prec", ["exact", "fast"])
-@pytest.mark.parametrize("mds", [1, 2])
-@pytest.mark.parametrize("m", [2, 9, 21, 64])
-def test_css_smacof_kernel(cuda, prec, mds, m):
+@pytest.mark.parametrize("mds,n_init", [(1, 1), (1, 4), (1, 8), (2, 1)])
+@pytest.mark.parametrize("m", [2, 3, 21, 33, 64])
+def test_css_smacof_kernel(cuda, prec, mds, n_init, m):
+    """K6 against its plain version: restarts 1, 4 and 8 (mode 1) and the
+    CMDS start (mode 2), m across one warp's pairs (1, 3, 210, 528 and
+    2016 pairs); the transforms over every restart counted alike."""
     dt = torch.float64 if prec == "exact" else torch.float32
     dis, asize, bsize, npos, slots = _smacof_dis(cuda, m, dt)
     key = rng.fold_in(rng.prng_key(3), rng.chrom_hash("chrK"))
+    B = dis.shape[0]
+    kt = torch.zeros(B, dtype=torch.int32, device=cuda)
+    pt = torch.zeros(B, dtype=torch.int32, device=cuda)
     before = kcss.LAUNCHES["css_smacof"]
-    ks, kd, kv, kr, kn = kcss.css_smacof(dis, npos, asize, bsize, mds, key, slots)
-    ps, pd, pv, pr, pn = kcss.css_smacof_plain(dis, npos, asize, bsize, mds, key, slots)
+    ks, kd, kv, kr, kn = kcss.css_smacof(dis, npos, asize, bsize, mds, key, slots, n_init,
+                                         transforms=kt)
+    ps, pd, pv, pr, pn = kcss.css_smacof_plain(dis, npos, asize, bsize, mds, key, slots,
+                                               n_init, transforms=pt)
     torch.cuda.synchronize()
     assert kcss.LAUNCHES["css_smacof"] == before + 1
     assert torch.equal(kv, pv) and torch.equal(ks.isnan(), ps.isnan())
     assert int(kn.max()) <= 301 and int(kn.min()) >= 1
-    B = dis.shape[0]
+    assert bool(((kt >= kn) & (kt <= n_init * 301)).all())
+    assert bool((kr >= 0).all() and (kr < n_init).all())
     sel = ~ps.isnan() & pv
     got, want = ks.double()[sel].cpu().numpy(), ps.double()[sel].cpu().numpy()
     rel = np.abs(got - want) / np.maximum(np.abs(want), 1.0)
@@ -436,9 +449,32 @@ def test_css_smacof_kernel(cuda, prec, mds, m):
         agree = ((kr == pr) & (kn == pn))[sel].cpu().numpy()
         assert rel[agree].max(initial=0.0) <= 1e-9
         assert int((~agree).sum()) <= 1e-3 * B + 1
+        assert int((kt != pt).sum()) <= 1e-3 * B + 1
     else:
         top, q90 = FAST_BAND[mds]
         assert rel.max(initial=0.0) <= top and np.quantile(rel, 0.9) <= q90
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prec", ["exact", "fast"])
+@pytest.mark.parametrize("m", [3, 9, 21, 33, 64])
+def test_css_smacof_kernel_is_its_mirror(cuda, monkeypatch, prec, m):
+    """Mode 1 in K6's order of operations (kernels/css.py smacof_pairs,
+    held to the JAX package on the CPU by tests/test_torch_smacof_pairs.py)
+    run on the card: the same distances, chosen restart, transform count
+    and transforms over every restart, bit for bit, in both precisions
+    (integer counts, so the fill average has no order)."""
+    dt = torch.float64 if prec == "exact" else torch.float32
+    dis, asize, bsize, npos, slots = _smacof_dis(cuda, m, dt)
+    key = rng.fold_in(rng.prng_key(3), rng.chrom_hash("chrK"))
+    B = dis.shape[0]
+    kt = torch.zeros(B, dtype=torch.int32, device=cuda)
+    mt = torch.zeros(B, dtype=torch.int32, device=cuda)
+    k = kcss.css_smacof(dis, npos, asize, bsize, 1, key, slots, 4, transforms=kt)
+    monkeypatch.setattr(kcss, "_smacof_loop", kcss.smacof_pairs)
+    p = kcss.css_smacof_plain(dis, npos, asize, bsize, 1, key, slots, 4, transforms=mt)
+    assert torch.equal(k[1], p[1])
+    assert torch.equal(k[3], p[3]) and torch.equal(k[4], p[4]) and torch.equal(kt, mt)
 
 
 @pytest.mark.gpu
@@ -448,8 +484,11 @@ def test_css_smacof_kernel_refuses(cuda):
     key = rng.prng_key(0)
     with pytest.raises(NotImplementedError, match="P12"):
         kcss.css_smacof(dis, one, 33, 32, 1, key, one)
-    with pytest.raises(ValueError, match="restarts"):
-        kcss.css_smacof(dis[:, :8, :8].contiguous(), one, 4, 4, 1, key, one, n_init=9)
+    with pytest.raises(ValueError, match="restart"):
+        kcss.css_smacof(dis[:, :8, :8].contiguous(), one, 4, 4, 1, key, one, n_init=0)
+    with pytest.raises(ValueError, match="transforms"):
+        kcss.css_smacof(dis[:, :8, :8].contiguous(), one, 4, 4, 1, key, one,
+                        transforms=torch.zeros(2, dtype=torch.int64, device=cuda))
 
 
 @pytest.mark.gpu
@@ -492,6 +531,7 @@ def test_run_css_smacof_and_drosophila_cuda_matches_cpu(cuda, kw):
     g = run_css(SnpPair(pos, am, bm), region, cfg, device=cuda, seqid="c")
     name = "css_cmds" if kw.get("drosophila") else "css_smacof"
     assert kcss.LAUNCHES[name] == 1, kcss.LAUNCHES
+    assert kcss.LAUNCHES["css_smacof"] == (0 if kw.get("drosophila") else 1)
     c = run_css(SnpPair(pos, am, bm), region, cfg, device="cpu", seqid="c")
     assert np.array_equal(g[0] != 0, c[0] != 0) and (c[0] != 0).sum() > 100
     err = np.abs(g[0] - c[0]) / np.maximum(np.abs(c[0]), 1.0)
@@ -875,16 +915,24 @@ def test_fet_window_kernel_refuses(cuda):
         kfet.fet_window_batch(big, big, torch.tensor([4500]), 0.95, key, 10, 5, 8)
 
 
+PERM_CHUNKS = [(128, 128), (256, 200), (100, 100), (16, 16)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("bitgen", ["mix", "threefry"])
-@pytest.mark.parametrize("m", [2, 9, 21, 64])
-def test_perm_chunk_kernel(cuda, m, bitgen):
-    dist, scores, asize, bsize, chroms, slots = _mc_windows(cuda, m, 4096)
-    B = dist.shape[0]
+@pytest.mark.parametrize("m", [2, 9, 21, 33, 64])
+@pytest.mark.parametrize("nwin", [1, 31, 33, 997])
+def test_perm_chunk_kernel(cuda, nwin, m, bitgen):
+    """K11 against its plain version on every window: window counts around
+    a block's windows (4 at chunk 128, 16 at 16, 1 at 256), m across the
+    unrolled buckets, a chunk padded to whole words (100), limit < chunk,
+    need from -1 (reached at 0) to past the chunk's hits."""
+    dist, scores, asize, bsize, chroms, slots = _mc_windows(cuda, m, nwin)
+    assert dist.shape[0] == nwin
     keys = rng.window_keys(rng.fold_in(rng.prng_key(5), 2).to(cuda), chroms, slots)
-    need = torch.from_numpy(np.random.default_rng(m).integers(0, 12, size=B)).to(cuda)
+    need = torch.from_numpy(np.random.default_rng(m).integers(-1, 12, size=nwin)).to(cuda)
     obs = torch.from_numpy(scores).to(cuda)
-    for chunk, limit in ((128, 128), (256, 200)):
+    for chunk, limit in PERM_CHUNKS:
         before = kperm.LAUNCHES["css_perm_chunk"]
         k = kperm.permutation_chunk(dist, obs, need, limit, keys, asize, bsize, chunk, bitgen)
         p = kperm.permutation_chunk_plain(dist, obs, need, limit, keys, asize, bsize, chunk,
@@ -896,6 +944,53 @@ def test_perm_chunk_kernel(cuda, m, bitgen):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("bitgen", ["mix", "threefry"])
+def test_perm_chunk_kernel_non_finite(cuda, bitgen):
+    """A NaN row, a NaN only on the diagonal, a symmetric +Inf and a -Inf
+    on the diagonal: K11 flags those windows (no hits), as the plain
+    version's NaN sums give; every window equal to the plain version."""
+    dist, scores, asize, bsize, chroms, slots = _mc_windows(cuda, 21, 64)
+    dist = dist.clone()
+    dist[3, 5, :] = float("nan")
+    dist[3, :, 5] = float("nan")
+    dist[7, 2, 2] = float("nan")
+    dist[11, 4, 9] = dist[11, 9, 4] = float("inf")
+    dist[13, 0, 0] = -float("inf")
+    keys = rng.window_keys(rng.fold_in(rng.prng_key(5), 2).to(cuda), chroms, slots)
+    obs = torch.from_numpy(scores).to(cuda)
+    need = torch.ones(64, dtype=torch.int32, device=cuda)
+    # scores far below the null: every counted permutation of a finite window hits
+    low = obs - 1e3
+    for o in (obs, low):
+        k = kperm.permutation_chunk(dist, o, need, 128, keys, asize, bsize, 128, bitgen)
+        p = kperm.permutation_chunk_plain(dist, o, need, 128, keys, asize, bsize, 128, bitgen)
+        for a, b in zip(k, p):
+            assert torch.equal(a.cpu(), b.cpu())
+        assert (k[0][[3, 7, 11, 13]] == 0).all()
+    assert (k[0][[0, 1, 2]] == 128).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [21, 64])
+def test_perm_chunk_kernel_equals_k8_first_chunk(cuda, m):
+    """K11 on the window keys fold_in(wkey, 0) scores the permutations of
+    K8's first chunk: its words, folded, give K8's hits and stops."""
+    dist, scores, asize, bsize, chroms, slots = _mc_windows(cuda, m, 997)
+    wkeys = rng.window_keys(rng.fold_in(rng.prng_key(5), 2).to(cuda), chroms, slots)
+    obs = torch.from_numpy(scores).to(cuda).float()
+    B = dist.shape[0]
+    active = torch.arange(B, device=cuda)
+    flat = dist.reshape(B, -1).contiguous()
+    words = kperm.mc_window_hit_words(flat, obs, wkeys, active, 0, 1, asize, bsize, 256, 256)
+    need = torch.full((B,), 10, dtype=torch.int32, device=cuda)
+    k = kperm.permutation_chunk(dist, obs, need, 256, rng.fold_in(wkeys, 0), asize, bsize,
+                                256)
+    want = kperm.chunk_epilogue_plain(words[:, 0].cpu(), need.cpu())
+    for a, b in zip(k, want):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.gpu
 def test_sharded_step_one_vs_four_shares(cuda):
     from divergence_tpu_torch.parallel import make_divergence_step, make_mesh
 
@@ -904,8 +999,12 @@ def test_sharded_step_one_vs_four_shares(cuda):
     ids = np.nonzero(plan.valid_mask() & (plan.npos > 0))[0][:1996]
     av, bv, npos, slot = _gathered(plan, ids, am, bm)
     key = rng.prng_key(1)
-    outs = [make_divergence_step(make_mesh(devices=[cuda] * n), 11, 10)(
-        av.to(cuda), bv.to(cuda), npos, slot, key) for n in (1, 4)]
+    outs = []
+    for n in (1, 4):
+        kperm.reset_launches()
+        outs.append(make_divergence_step(make_mesh(devices=[cuda] * n), 11, 10)(
+            av.to(cuda), bv.to(cuda), npos, slot, key))
+        assert kperm.LAUNCHES["css_perm_chunk"] == n   # one chunk a share
     for name in ("fet_scores", "fet_stddev", "css_scores", "css_valid", "mc_hits"):
         assert torch.equal(outs[0][name], outs[1][name]), name
     assert float(outs[0]["windows_evaluated"]) == len(ids)
