@@ -25,8 +25,9 @@ Phases (any failure exits non-zero and prints no result line):
    on the card against the plain torch path on the CPU on a small genome;
 5. every CSS kernel against its plain torch version on the card:
    ``css_dissim`` on the bench chromosome's ~800 k windows (against the
-   per-window counts) and on a 500 k-SNP stickleback panel (against the
-   prefix), exact integer equality; ``css_cmds`` on the ~800 k windows'
+   per-window counts), on a 500 k-SNP stickleback panel (against the
+   prefix) and on windows of 0 to 4,096 SNPs starting at lo % 32 in {0, 1,
+   31}, exact integer equality; ``css_cmds`` on the ~800 k windows'
    counts in both precisions; ``css_mc_coeff`` for the first 16 chunks,
    bit-equal; K7 (``css_mc_coeff``, ``css_mc_shared``, ``css_mc_scan``)
    on the bench's 16x worst case (160 k SNPs, nearly every window to the
@@ -73,13 +74,19 @@ Phases (any failure exits non-zero and prints no result line):
    phase 9's small files;
 12. K10 ``fet_window`` (both precisions) and K11 ``css_perm_chunk`` (both
    draw streams) against their plain versions on the 19,997 windows of the
-   200 k-SNP workload, K11 again on a 200 k-SNP stickleback-shaped panel
-   (whose null is hit) and against K8's first chunk there, K10 on the
-   ~800 k bench windows gathered at P = 128, bit-equal to phase 2's K1 ->
-   K2, and K11 at the step's size (those windows x 128 permutations, both
-   draw streams) against its plain version on every window, timed alone;
+   200 k-SNP workload, K10's block body on synthetic windows at P = 256 and
+   4,096, K3's gather form ``css_dissim_gathered`` on those windows, K11
+   again on a 200 k-SNP stickleback-shaped panel (whose null is hit) and
+   against K8's first chunk there, K10 on the ~800 k bench windows gathered
+   at P = 128, against its plain version and bit-equal to phase 2's K1 ->
+   K2, K3's gather form there against its plain twin with the
+   ``torch.bmm`` yardstick, and K11 at the step's size (those windows x 128
+   permutations, both draw streams) against its plain version on every
+   window, timed alone;
 13. the sharded step (``make_divergence_step(11, 10)`` at its defaults) on
-   those ~800 k windows: warm wall and a torch.profiler call, four shares
+   those ~800 k windows: warm wall and a torch.profiler call (K5's, K11's,
+   K10's and K3's time by CUDA events around their launches, and no
+   concatenation of the codes on the card), four shares
    of the card against one (bit-equal), the all-plain step on 20,000 of
    them; ``bench-scaling`` at its defaults; ``run-fet`` and ``run-css``
    with ``--shard`` and with ``--num-hosts 2`` + ``merge-tracks`` on phase
@@ -102,12 +109,14 @@ FET path), reset before phase 6 and read after phase 7 (the CMDS CSS
 path), reset before phase 9 and read after it (the SMACOF and drosophila
 CSS path), reset before phase 11 and read after it (K8, K9 and K7 under
 threefry), reset before phase 13 and read after it (the sharded step:
-K10, K3, K5, K11), and reset before phase 15 and read after it (run-all:
+K10, K3's gather form, K5, K11), and reset before phase 15 and read after it (run-all:
 K1, K2, K1r, K2r, K3, K5, K7).  The last three lines are a JSON line of per-kernel
 results (with each kernel's ``bound_ms``: the larger of its bytes over
 3.35 TB/s and its operations over 67 TFLOP/s float32 / 34 TFLOP/s
-float64, from this run's inputs; and ``library_ms``, one PyTorch call
-computing the same product where one exists), the card's name and power
+float64, from this run's inputs — K2's, K2r's and K10's count the
+threefry hashes and pows these windows' bootstraps need; and
+``library_ms``, one PyTorch call computing the same product where one
+exists), the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
 
 Tolerances (relative to max(|reference|, 1)): FET exact (float64) 1e-12,
@@ -133,8 +142,8 @@ identical on at least 99.9 % of windows, each differing window shown to
 be a near tie (TIE_RTOL float32, TIE_RTOL_F64 float64).  K9: power sums
 within POWER_RTOL, approx nscores identical on 99.9 % of windows and
 |log10 p| within LOG10_P_BAND where they agree (tests/test_torch_approx.py,
-measured on the CPU).  K10: as K2, and bit-equal to K1 -> K2 on the bench
-windows.  K1r: the sorted LUT and its ranks equal to the plain version's,
+measured on the CPU).  K10: as K2 (its block body too), and bit-equal to K1 -> K2 on the
+bench windows.  K1r: the sorted LUT and its ranks equal to the plain version's,
 bit for bit; the 8 M SNPs' ranks those of the kernel's own LUT, their
 scores within the FET tolerances of the plain version's.  K2r: as K2, and
 equal to K1 -> K2 on every bench window (-0.0 == 0.0).  K11: (hits,
@@ -228,6 +237,7 @@ REPLACES = {
     "fet_snp_logs": "divergence_tpu/kernels/fet.py:318",
     "fet_aggregate": "divergence_tpu/kernels/fet.py:630",
     "css_dissim": "divergence_tpu/kernels/css.py:55",
+    "css_dissim_gathered": "divergence_tpu/kernels/css.py:34",
     "css_cmds": "divergence_tpu/kernels/css.py:478",
     "css_smacof": "divergence_tpu/kernels/css.py:225",
     "css_mc_coeff": "divergence_tpu/kernels/perm.py:249",
@@ -246,6 +256,7 @@ SOURCES = {
     "fet_snp_logs": "divergence_tpu_torch/csrc/fet_snp.cu",
     "fet_aggregate": "divergence_tpu_torch/csrc/fet_aggregate.cu",
     "css_dissim": "divergence_tpu_torch/csrc/css_dissim.cu",
+    "css_dissim_gathered": "divergence_tpu_torch/csrc/css_dissim.cu",
     "css_cmds": "divergence_tpu_torch/csrc/css_cmds.cu",
     "css_smacof": "divergence_tpu_torch/csrc/css_smacof.cu",
     "css_mc_coeff": "divergence_tpu_torch/csrc/css_mc.cu",
@@ -388,6 +399,9 @@ def phase_kernels(torch, kfet, pair, plan_ids, dev, results) -> None:
     check(not kfet.lut_active(48, 48), "48+48 panel must take the direct scan")
     big_maxs, big_nmax = kfet.support_size(48, 48), 48 + 48 + 2
     lo, npos, slot = plan_ids
+    # the kernels are timed with their descriptors on the card, as the
+    # engines hand them over (an upload from the host is not kernel time)
+    lo_d, npos_d, slot_d = (t.to(dev) for t in plan_ids)
     key = chromosome_key(0, "chrBench")
 
     for prec in ("fast", "exact"):
@@ -454,7 +468,7 @@ def phase_kernels(torch, kfet, pair, plan_ids, dev, results) -> None:
                 vals.numel() * 2 + ks.numel() * 4, {"f32": 2 * vals.numel()})
 
         # K2 on every window of the bench chromosome
-        agg = lambda: kfet.fet_aggregate(ks, lo, npos, slot, key, 0.95, 100)  # noqa: E731
+        agg = lambda: kfet.fet_aggregate(ks, lo_d, npos_d, slot_d, key, 0.95, 100)  # noqa: E731
         ka = agg()
         pa = kfet.fet_aggregate_plain(ks, lo, npos, slot, key, 0.95, 100)
         torch.cuda.synchronize()
@@ -483,10 +497,12 @@ def phase_kernels(torch, kfet, pair, plan_ids, dev, results) -> None:
         )
         results["fet_aggregate"][prec + "_beyond"] = beyond
         results["fet_aggregate"][prec + "_out"] = ka
-        if fast:   # logs and descriptors in, 2 values out; at least one
-            # threefry draw (~60 integer operations) per bootstrap sample
-            results["fet_aggregate"]["bound"] = bound(
-                ks.numel() * 4 + B * 3 * 8 + B * 2 * 4, {"f32": B * 100 * 60})
+        # logs and descriptors in, 2 values out; the bootstrap's hashes,
+        # pows and compares (bootstrap_ops)
+        size = ks.element_size()
+        results["fet_aggregate"]["bound" if fast else "bound_exact"] = bound(
+            ks.numel() * size + B * 3 * 8 + B * 2 * size,
+            bootstrap_ops(npos, 0.95, 100, fast))
 
 
 def phase_cli(torch, kfet, dev, tmp: Path) -> tuple[Path, Path, Path]:
@@ -631,7 +647,7 @@ def phase_css_kernels(torch, pair, plan_ids, dev, results) -> None:
 
     vals = pair.to_device(dev)
     lo, npos, _ = plan_ids
-    npos_d = npos.to(dev)
+    lo_d, npos_d = lo.to(dev), npos.to(dev)
     pos, am, bm = make_panel(CLI_SNPS, CLI_REGION, ASIZE, BSIZE, seed=5)
     panel = SnpPair(pos, am, bm)
     p_vals = panel.to_device(dev)
@@ -650,9 +666,10 @@ def phase_css_kernels(torch, pair, plan_ids, dev, results) -> None:
         kp = kcss.css_dissim(p_vals, p_lo, p_npos, dt)
         torch.cuda.synchronize()
         diff = max(abs_err(k, plain64), abs_err(kp, p_plain))
-        ms = cuda_ms(torch, lambda: kcss.css_dissim(vals, lo, npos, dt), 5)
+        ms = cuda_ms(torch, lambda: kcss.css_dissim(vals, lo_d, npos_d, dt), 5)
         pms = cuda_ms(torch, lambda: kcss.dissimilarity_plain(vals, lo, npos).to(dt), 1)
-        ms_p = cuda_ms(torch, lambda: kcss.css_dissim(p_vals, p_lo, p_npos, dt), 5)
+        ms_p = cuda_ms(torch, lambda: kcss.css_dissim(p_vals, p_lo.to(dev), p_npos.to(dev), dt),
+                       5)
         pms_p = cuda_ms(torch, lambda: kcss.dissimilarity_plain(p_vals, p_lo, p_npos).to(dt), 1)
         say(f"[K3 css_dissim {prec}] bench B={lo.numel()} windows vs the counts "
             f"twin, panel B={p_lo.numel()} vs the prefix twin: max_abs_diff={diff} "
@@ -660,15 +677,32 @@ def phase_css_kernels(torch, pair, plan_ids, dev, results) -> None:
             f"{ms_p:.4f} ms plain {pms_p:.4f} ms")
         check(diff == 0.0, f"css_dissim {prec}: counts differ by {diff}")
         results["css_dissim"][prec] = (diff, diff, ms, pms)
-        if prec == "fast":   # codes in once, m x m counts out; the pair
-            # popcounts (2 per pair and 32-SNP word) are integer operations
-            m = ASIZE + BSIZE
-            words = int(((npos + 31) // 32).sum())
-            results["css_dissim"]["bound"] = bound(
-                vals.numel() * 2 + lo.numel() * (16 + m * m * 4),
-                {"f32": 4 * words * m * (m - 1) // 2})
+        # codes in once, m x m counts out in the precision's dtype (8 bytes
+        # exact); the pair popcounts (two ANDs, two popcounts and two adds
+        # a pair and 32-SNP word) are integer operations
+        m = ASIZE + BSIZE
+        words = int(((npos + 31) // 32).sum())
+        results["css_dissim"]["bound" if prec == "fast" else "bound_exact"] = bound(
+            vals.numel() * 2 + lo.numel() * (16 + m * m * k.element_size()),
+            {"f32": 6 * words * m * (m - 1) // 2})
         del kp
     del p_plain, p_vals
+
+    # K3 at the funnel shift's edges: windows starting at lo % 32 in
+    # {0, 1, 31} of 0 to 4,096 SNPs, the longest ending on the last SNP
+    edge_rs = np.random.default_rng(5)
+    for shift in (0, 1, 31):
+        ev = torch.from_numpy(edge_rs.choice(np.array([3, -3, 0, -10000], np.int16),
+                                             size=(4096 + 64 + shift, ASIZE + BSIZE)))
+        e_lo = torch.tensor([96 * i + shift for i in range(6)] + [64 + shift])
+        e_n = torch.tensor([0, 1, 31, 32, 33, 87, 4096])
+        want = kcss.dissimilarity_plain(ev, e_lo, e_n)
+        for dt in (torch.float32, torch.float64):
+            got = kcss.css_dissim(ev.to(dev), e_lo, e_n, dt)
+            check(torch.equal(got.double().cpu(), want),
+                  f"css_dissim at lo % 32 == {shift}: counts differ")
+    say("[K3 css_dissim edges] windows of 0, 1, 31, 32, 33, 87, 4096 SNPs at lo % 32 in "
+        "{0, 1, 31}: counts equal to the plain twin in both precisions")
 
     # K5: CMDS on the bench windows' counts
     ok = gap_ok(torch, kcss, plain64)
@@ -1056,6 +1090,31 @@ def smacof_ops(m: int) -> int:
     root or division counted as one operation, an underestimate of its
     time."""
     return 10 * m * (m - 1) // 2 + 5 * m * (m - 1)
+
+
+# the FET bootstrap's operations (K2, K2r, K10): a threefry-2x32 hash is
+# 20 rounds of an add, a rotate (one funnel shift) and an xor, plus 12
+# key-injection adds; a pow counts as 20 operations of its precision (a log
+# and an exp, each a range reduction and a short polynomial)
+THREEFRY_OPS, POW_OPS = 72, 20
+
+
+def bootstrap_ops(npos, perc: float, nsamples: int, fast: bool) -> dict:
+    """Operations the windows' bootstrap needs, from their SNP counts:
+    per window (t1 + 1) x (nsamples + 1) threefry hashes (a fold_in a step
+    and a draw a sample; t1 = n - 1 - floor((n - 1) perc)), (t1 + 1) x
+    nsamples pows at the precision's rate, and the bitonic network's
+    compares (P/2 a stage, log2 P (log2 P + 1) / 2 stages)."""
+    import numpy as np
+
+    n = np.asarray(npos, dtype=np.int64)
+    n = n[n > 0]
+    steps = np.maximum(n - 1 - np.floor((n - 1) * perc), 0) + 1
+    lg = np.maximum(5, np.ceil(np.log2(np.maximum(n, 1))))
+    compares = float((2.0 ** lg / 2 * lg * (lg + 1) / 2).sum())
+    ints = float((steps * (nsamples + 1)).sum()) * THREEFRY_OPS + compares
+    pows = float((steps * nsamples).sum()) * POW_OPS
+    return {"f32": ints + pows} if fast else {"f32": ints, "f64": pows}
 
 
 def smacof_check(torch, kcss, dis, npos, asize, bsize, mds, key, slots, prec, label):
@@ -1739,6 +1798,48 @@ def gather_windows(torch, vals, lo, npos, P: int, pad_to: int = 1):
     return av, bv, Bp
 
 
+def k10_bound(kfet, npos, fast: bool) -> tuple[float, str]:
+    """K10's bound on gathered windows of the 11 + 10 panel: each window's
+    n (a + b) int16 codes, npos and slot in, 2 values out, the LUT read
+    once; two compares a code for the tables, and the bootstrap's
+    operations (bootstrap_ops)."""
+    m = ASIZE + BSIZE
+    n_tests = int(npos.sum())
+    size = 4 if fast else 8
+    lut = (ASIZE + 1) ** 2 * (BSIZE + 1) ** 2 * size
+    ops = bootstrap_ops(npos, 0.95, 100, fast)
+    ops["f32"] += 2 * m * n_tests
+    return bound(n_tests * m * 2 + npos.numel() * (16 + 2 * size) + lut, ops)
+
+
+def gathered_bound(npos, m: int, size: int) -> tuple[float, str]:
+    """K4's gather form: each window's n m int16 codes and npos in, m x m
+    counts of ``size`` bytes out; two ANDs, two popcounts and two adds a
+    pair and 32-SNP word."""
+    words = int(((npos + 31) // 32).sum())
+    return bound(int(npos.sum()) * m * 2 + npos.numel() * (8 + m * m * size),
+                 {"f32": 6 * words * m * (m - 1) // 2})
+
+
+def onehot_operands(torch, av, bv, npos, P: int):
+    """The float32 one-hots of gathered windows: [B, m, 2P] = [maj | mnr]
+    and [B, 2P, m] = [mnr ; maj], rows past npos zero, built in chunks;
+    their product is the windows' counts (JAX's K4 body)."""
+    B, m = av.shape[0], av.shape[2] + bv.shape[2]
+    dev = av.device
+    A = torch.empty((B, m, 2 * P), dtype=torch.float32, device=dev)
+    Bm = torch.empty((B, 2 * P, m), dtype=torch.float32, device=dev)
+    npos_d = npos.to(dev)
+    for s0 in range(0, B, 50_000):
+        sl = slice(s0, min(s0 + 50_000, B))
+        codes = torch.cat([av[sl], bv[sl]], dim=-1)
+        valid = (torch.arange(P, device=dev)[None, :] < npos_d[sl, None])[..., None]
+        maj, mnr = (((codes == c) & valid).float() for c in (3, -3))
+        A[sl, :, :P], A[sl, :, P:] = maj.transpose(1, 2), mnr.transpose(1, 2)
+        Bm[sl, :P], Bm[sl, P:] = mnr, maj
+    return A, Bm
+
+
 def phase_step_kernels(torch, pair, plan, ids, dev, results, k2_bench) -> dict:
     """Phase 12: K10 and K11 against their plain versions on the 19,997
     windows of the 200 k workload (K10 both precisions, K11 both draw
@@ -1769,13 +1870,14 @@ def phase_step_kernels(torch, pair, plan, ids, dev, results, k2_bench) -> dict:
     P = kfet._window_pad(int(npos.max()))
     av, bv, B = gather_windows(torch, SnpPair(pos, am, bm).to_device(dev), lo, npos, P)
     n_tests = int(npos.sum())
+    npos_d, slot_d = npos.to(dev), slot.to(dev)   # kernels timed with descriptors on the card
     key = rng.fold_in(rng.prng_key(0), 0)
     r10["differ"] = {}
     for prec in ("fast", "exact"):
         fast = prec == "fast"
         tol = TOL[prec]
         kern = lambda: kfet.fet_window_batch(  # noqa: E731
-            av, bv, npos, 0.95, key, 100, maxs, nmax, fast, slot)
+            av, bv, npos_d, 0.95, key, 100, maxs, nmax, fast, slot_d)
         plain = lambda: kfet.fet_window_batch_plain(  # noqa: E731
             av, bv, npos, 0.95, key, 100, maxs, nmax, fast, slot)
         (ks, kd), (ps, pd) = kern(), plain()
@@ -1796,10 +1898,48 @@ def phase_step_kernels(torch, pair, plan, ids, dev, results, k2_bench) -> dict:
         r10[prec] = (max(abs_err(ks, ps), abs_err(kd, pd)), max(err_sc, float(sd_rel.max())),
                      ms, pms)
         r10["differ"][prec] = beyond
-        if fast:   # the windows' codes in, 2 values out; two compares a code and
-            # at least one threefry draw (~60 integer operations) per sample
-            r10["bound"] = bound(n_tests * m * 2 + B * 16 + B * 2 * 4,
-                                 {"f32": 2 * m * n_tests + B * 100 * 60})
+        r10["bound" if fast else "bound_exact"] = k10_bound(kfet, npos, fast)
+
+    # K10's block body (P > 128) on synthetic windows at P = 256 and 4,096
+    rs = np.random.default_rng(12)
+    for Pb, Bb in ((256, 2000), (4096, 200)):
+        codes = np.array([3, -3, 0, -10000], np.int16)
+        sa = torch.from_numpy(rs.choice(codes, size=(Bb, Pb, ASIZE))).to(dev)
+        sb = torch.from_numpy(rs.choice(codes, size=(Bb, Pb, BSIZE))).to(dev)
+        sn = torch.from_numpy(rs.integers(Pb // 2 + 1, Pb + 1, size=Bb))
+        ss = torch.arange(Bb) * 5
+        for prec in ("fast", "exact"):
+            fast, tol = prec == "fast", TOL[prec]
+            (ks, kd), (ps, pd) = (f(sa, sb, sn, 0.95, key, 100, maxs, nmax, fast, ss) for f in (
+                kfet.fet_window_batch, kfet.fet_window_batch_plain))
+            err_sc = rel_err(ks, ps)
+            beyond = int(((kd.double() - pd.double()).abs()
+                          / pd.double().abs().clamp(min=1.0) > tol).sum())
+            ms = cuda_ms(torch, lambda: kfet.fet_window_batch(
+                sa, sb, sn, 0.95, key, 100, maxs, nmax, fast, ss), 3)
+            say(f"[K10 fet_window {prec}, block body] {Bb} synthetic windows at P={Pb}: scores "
+                f"max_rel_err={err_sc:.3e} (tol {tol:g}); stddev {beyond} windows beyond tol "
+                f"(allowed {int(STDDEV_BEYOND_SHARE * Bb) + 1}); kernel {ms:.4f} ms")
+            check(err_sc <= tol and beyond <= STDDEV_BEYOND_SHARE * Bb + 1,
+                  f"fet_window {prec} block body at P={Pb}: {err_sc}, {beyond}")
+            r10[f"block_{Pb}_{prec}_ms"] = ms
+        del sa, sb
+
+    # K3's gather form on the same windows: the plain twin's counts exactly
+    rg = results["css_dissim_gathered"]
+    for prec in ("fast", "exact"):
+        dt = torch.float32 if prec == "fast" else torch.float64
+        k = kcss.css_dissim_gathered(av, bv, npos_d, dt)
+        q = kcss.dissimilarity_gathered_plain(av, bv, npos)
+        diff = abs_err(k, q)
+        ms = cuda_ms(torch, lambda: kcss.css_dissim_gathered(av, bv, npos_d, dt), 10)
+        pms = cuda_ms(torch, lambda: kcss.dissimilarity_gathered_plain(av, bv, npos), 2)
+        say(f"[K3 css_dissim_gathered {prec}] {B} windows (P={P}): max_abs_diff={diff} "
+            f"(exact counts); kernel {ms:.4f} ms plain {pms:.4f} ms")
+        check(diff == 0.0, f"css_dissim_gathered {prec}: counts differ by {diff}")
+        rg[f"{prec}_20k"] = (diff, diff, ms, pms)
+        rg[f"bound_20k_{prec}"] = gathered_bound(npos, m, k.element_size())
+        del k, q
 
     # K11 against its plain version on the windows' exact CSS distances (as
     # the step gives them), timed on the workload's; then on the panel's
@@ -1866,17 +2006,75 @@ def phase_step_kernels(torch, pair, plan, ids, dev, results, k2_bench) -> dict:
     lo8, npos8, slot8 = (torch.from_numpy(a[ids].copy()) for a in (plan.lo, plan.npos, plan.slot))
     bav, bbv, Bp = gather_windows(torch, pair.to_device(dev), lo8, npos8, STEP_P, STEP_SHARES)
     B8 = lo8.numel()
+    npos8_d, slot8_d = npos8.to(dev), slot8.to(dev)
     ckey = chromosome_key(0, "chrBench")
     r10["bench_ms"], r10["bit_equal"] = {}, True
     for prec in ("fast", "exact"):
-        fast = prec == "fast"
-        (s, d), ms = event_ms(torch, lambda: kfet.fet_window_batch(
-            bav[:B8], bbv[:B8], npos8, 0.95, ckey, 100, maxs, nmax, fast, slot8))
+        fast, tol = prec == "fast", TOL[prec]
+        kern = lambda: kfet.fet_window_batch(  # noqa: E731
+            bav[:B8], bbv[:B8], npos8_d, 0.95, ckey, 100, maxs, nmax, fast, slot8_d)
+        s, d = kern()
         eq = torch.equal(s, k2_bench[prec][0]) and torch.equal(d, k2_bench[prec][1])
+        ms = cuda_ms(torch, kern, 5)
+        # the plain version in chunks of windows (its [B, P, support]
+        # intermediates), one pass timed
+        chunks = [slice(i, min(i + 100_000, B8)) for i in range(0, B8, 100_000)]
+        (ps, pd), pms = event_ms(torch, lambda: tuple(torch.cat(c) for c in zip(*(
+            kfet.fet_window_batch_plain(bav[c], bbv[c], npos8[c], 0.95, ckey, 100, maxs,
+                                        nmax, fast, slot8[c])
+            for c in chunks))))
+        err_sc = rel_err(s, ps)
+        beyond = int(((d.double() - pd.double()).abs() / pd.double().abs().clamp(min=1.0)
+                      > tol).sum())
+        b = k10_bound(kfet, npos8, fast)
         say(f"[K10 fet_window {prec}, bench] {B8} windows at P={STEP_P}: bit-equal to phase "
-            f"2's K1 -> K2: {eq}; kernel {ms:.3f} ms (one call)")
+            f"2's K1 -> K2: {eq}; against the plain version scores max_rel_err={err_sc:.3e}, "
+            f"stddev {beyond} windows beyond tol (allowed {int(STDDEV_BEYOND_SHARE * B8)}); "
+            f"kernel {ms:.3f} ms (mean of 5 warm calls), plain {pms:.1f} ms (one call), bound "
+            f"{b[0]:.3f} ms ({b[1]})")
         check(eq, f"fet_window {prec} differs from K1 -> K2 on the bench windows")
+        check(err_sc <= tol and beyond <= STDDEV_BEYOND_SHARE * B8,
+              f"fet_window {prec} on the bench windows: {err_sc}, {beyond}")
         r10["bench_ms"][prec] = ms
+        r10[f"bench_plain_ms_{prec}"] = pms
+        r10[f"bound_800k_{prec}"] = b
+        del s, d, ps, pd
+
+    # K3's gather form on the bench windows: the plain twin's counts, and
+    # the library yardstick, one torch.bmm of the windows' one-hots
+    # [B, m, 2P] @ [B, 2P, m] (the one-hots built beforehand, not timed)
+    lib_counts = None
+    for prec in ("fast", "exact"):
+        dt = torch.float32 if prec == "fast" else torch.float64
+        k = kcss.css_dissim_gathered(bav[:B8], bbv[:B8], npos8_d, dt)
+        q = kcss.dissimilarity_gathered_plain(bav[:B8], bbv[:B8], npos8)
+        diff = abs_err(k, q)
+        del q
+        ms = cuda_ms(torch, lambda: kcss.css_dissim_gathered(bav[:B8], bbv[:B8], npos8_d, dt),
+                     5)
+        _, pms = event_ms(torch, lambda: kcss.dissimilarity_gathered_plain(
+            bav[:B8], bbv[:B8], npos8))
+        say(f"[K3 css_dissim_gathered {prec}, bench] {B8} windows at P={STEP_P}: "
+            f"max_abs_diff={diff} (exact counts); kernel {ms:.4f} ms (mean of 5 warm calls), "
+            f"plain {pms:.1f} ms (one call)")
+        check(diff == 0.0, f"css_dissim_gathered {prec} on the bench windows: {diff}")
+        rg[prec] = (diff, diff, ms, pms)
+        rg["bound" if prec == "fast" else "bound_exact"] = gathered_bound(
+            npos8, m, k.element_size())
+        if prec == "exact":
+            lib_counts = k
+        else:
+            del k
+    A, Bm = onehot_operands(torch, bav[:B8], bbv[:B8], npos8, STEP_P)
+    same = torch.equal(torch.bmm(A, Bm).double(), lib_counts)
+    lib = cuda_ms(torch, lambda: torch.bmm(A, Bm), 3)
+    say(f"[K3 library yardstick] torch.bmm [{B8}, {m}, {2 * STEP_P}] @ [{B8}, {2 * STEP_P}, "
+        f"{m}] float32 one-hots (not timed: their construction): {lib:.4f} ms; equal to the "
+        f"kernel's counts: {same}")
+    check(same, "torch.bmm of the one-hots differs from css_dissim_gathered")
+    rg["library_ms"] = results["css_dissim"]["library_ms"] = lib
+    del A, Bm, lib_counts
+    torch.cuda.empty_cache()
 
     # K11 alone at the step's size: the bench windows' exact CSS distances
     # and keys as make_divergence_step gives them, against the plain version
@@ -1921,7 +2119,8 @@ def phase_step_kernels(torch, pair, plan, ids, dev, results, k2_bench) -> dict:
 
 def phase_step_library(torch, gathered, dev, card, tmp: Path, results) -> None:
     """Phase 13: the sharded step at full width on the ~800 k bench windows
-    (warm min of 3, profiled), over 4 shares of the card against 1 (bit-
+    (warm min of 3, profiled, its kernels timed by CUDA events and its
+    concatenations on the card measured), over 4 shares of the card against 1 (bit-
     equal), against its all-plain version on 20,000 windows; bench-scaling
     at its defaults; run-fet and run-css with --shard and with
     --num-hosts 2 + merge-tracks on phase 9's small files, byte-equal to
@@ -1930,6 +2129,8 @@ def phase_step_library(torch, gathered, dev, card, tmp: Path, results) -> None:
 
     from divergence_tpu_torch import rng
     from divergence_tpu_torch.kernels import css as kcss
+    from divergence_tpu_torch.kernels import fet as kfet
+    from divergence_tpu_torch.kernels import perm as kperm
     from divergence_tpu_torch.parallel import make_divergence_step, make_mesh
     from divergence_tpu_torch.tools import cli
     from divergence_tpu_torch.tools.bench_scaling import run_scaling_bench
@@ -1960,16 +2161,52 @@ def phase_step_library(torch, gathered, dev, card, tmp: Path, results) -> None:
     check(np.isfinite(float(out1["score_sum"])) and n_valid > 0.9 * B, "step: score_sum / valid")
     wall, dev_ms, top = device_profile(torch, lambda: one(av, bv, npos, slot, key))
     check(dev_ms > 0, "step: the profiler saw no device time")
-    k5_ms = sum(ms for ms, name in top if "css_cmds" in name)
-    check(k5_ms > 0, "step: the profiler saw no css_cmds time")
+    # each kernel's time by CUDA events around its launches, in one warm
+    # call (one run's profiler table lacked css_cmds' record: its
+    # per-kernel rows are printed beside these, not relied on), and the
+    # bytes of every concatenation on the card in that call (a joint copy
+    # of the codes would be 4.3 GB)
+    path = {kfet: ("fet_window",), kcss: ("css_dissim_gathered", "css_cmds"),
+            kperm: ("css_perm_chunk",)}
+    cat_bytes = [0]
+    real_cat = torch.cat
+
+    def counting_cat(tensors, *args, **kwargs):
+        out = real_cat(tensors, *args, **kwargs)
+        if out.is_cuda:
+            cat_bytes.append(out.numel() * out.element_size())
+        return out
+
+    with contextlib.ExitStack() as stack:
+        spans = {}
+        for mod, kernel_names in path.items():
+            spans.update(stack.enter_context(timed_launches(torch, mod, kernel_names)))
+        torch.cat = counting_cat
+        try:
+            one(av, bv, npos, slot, key)
+        finally:
+            torch.cat = real_cat
+        torch.cuda.synchronize()
+    kms_by = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in spans.items()}
+    k5_ms, k10_ms = kms_by["css_cmds"], kms_by["fet_window"]
+    k3_ms, k11_ms = kms_by["css_dissim_gathered"], kms_by["css_perm_chunk"]
+    check(all(v > 0 for v in kms_by.values()), f"step: a kernel of the path took no time {kms_by}")
+    check(max(cat_bytes) < 100e6, f"step: a concatenation of {max(cat_bytes)} bytes on the card")
+    seen = {k: sum(ms for ms, name in top if key in name)
+            for k, key in (("K5", "css_cmds"), ("K11", "perm_chunk"), ("K10", "fet_window"),
+                           ("K3", "css_dissim"))}
     say(f"[step] make_divergence_step(11, 10) defaults on {B} bench windows (+{Bp - B} empty, "
         f"P={STEP_P}), 1 device: warm wall min {min(walls1):.1f} ms median "
         f"{float(np.median(walls1)):.1f} ms ({B / min(walls1) * 1e3:,.0f} windows/s); "
         f"{n_valid} CSS-valid windows, score_sum {float(out1['score_sum']):.6f}, "
         f"{int(out1['mc_hits'].sum())} MC hits; profiled wall {wall:.1f} ms, device "
         f"{dev_ms:.1f} ms ({100 * dev_ms / wall:.1f} % busy); most device time: "
-        + "; ".join(f"{name[:50]} {ms:.2f} ms" for ms, name in top[:3]) + f"; K5 css_cmds "
-        f"{k5_ms:.2f} ms, {100 * k5_ms / wall:.1f} % of the wall, on {card}")
+        + "; ".join(f"{name[:50]} {ms:.2f} ms" for ms, name in top[:3]) + "; the profiler's "
+        + ", ".join(f"{k} {v:.2f}" for k, v in seen.items()) + f" ms; by CUDA events: K5 "
+        f"css_cmds {k5_ms:.2f} ms ({100 * k5_ms / wall:.1f} % of the wall), K11 perm_chunk "
+        f"{k11_ms:.2f} ms, K10 fet_window {k10_ms:.2f} ms, K3 css_dissim_gathered "
+        f"{k3_ms:.2f} ms, the four {100 * sum(kms_by.values()) / min(walls1):.1f} % of the "
+        f"warm wall; largest concatenation on the card {max(cat_bytes):,} bytes, on {card}")
 
     out4, walls4 = step_walls(four)
     same = {k: torch.equal(out1[k], out4[k]) for k in names}
@@ -1993,8 +2230,7 @@ def phase_step_library(torch, gathered, dev, card, tmp: Path, results) -> None:
     sd_rel = ((outk["fet_stddev"] - outp["fet_stddev"]).abs()
               / outp["fet_stddev"].abs().clamp(min=1.0))
     sd_beyond = int((sd_rel > TOL["exact"]).sum())
-    joint = torch.cat([av[:n], bv[:n]], dim=-1).reshape(n * STEP_P, ASIZE + BSIZE)
-    dis = kcss.css_dissim(joint, torch.arange(n) * STEP_P, npos[:n], torch.float64)
+    dis = kcss.css_dissim_gathered(av[:n], bv[:n], npos[:n], torch.float64)
     ok = gap_ok(torch, kcss, dis)
     dcss = (outk["css_scores"] - outp["css_scores"]).abs()
     err_c = float((dcss / outp["css_scores"].abs().clamp(min=1.0))[ok].max())
@@ -2014,9 +2250,12 @@ def phase_step_library(torch, gathered, dev, card, tmp: Path, results) -> None:
     check(float(outk["windows_evaluated"]) == float(outp["windows_evaluated"]) and
           dsum <= allowed_sum, "step vs plain: summaries")
     results["step"] = {"wall_ms": min(walls1), "wall_4_ms": min(walls4), "busy": dev_ms / wall,
-                       "k5_ms": k5_ms, "k5_share": k5_ms / wall,
+                       "k5_ms": k5_ms, "k5_share": k5_ms / wall, "k10_ms": k10_ms,
+                       "k3_ms": k3_ms, "k11_ms": k11_ms, "cat_bytes": max(cat_bytes),
+                       "kernel_share": sum(kms_by.values()) / min(walls1),
+                       "device_ms": dev_ms, "profiler_ms": seen,
                        "plain_ms": pms, "kernel_ms_20k": kms}
-    del outk, outp, joint, dis
+    del outk, outp, dis
 
     # bench-scaling at its defaults over the card's devices
     t0 = time.perf_counter()
@@ -2078,6 +2317,7 @@ def phase_rank_kernels(torch, pair, plan_ids, dev, results, k2_bench, card) -> N
     maxs, nmax = kfet.support_size(ASIZE, BSIZE), ASIZE + BSIZE + 2
     vals = pair.to_device(dev)
     lo, npos, slot = plan_ids
+    lo_d, npos_d, slot_d = (t.to(dev) for t in plan_ids)   # timed as phase 2 times K2
     B, N = lo.numel(), vals.shape[0]
     key = chromosome_key(0, "chrBench")
     idx = kfet._lut_index(kfet.count_tables(vals[:, :ASIZE], vals[:, ASIZE:]), ASIZE, BSIZE)
@@ -2132,7 +2372,8 @@ def phase_rank_kernels(torch, pair, plan_ids, dev, results, k2_bench, card) -> N
         del got, want, pls, prr, own
 
         # K2r on every window of the bench chromosome
-        agg = lambda: kfet.fet_aggregate_ranks(ls, r, lo, npos, slot, key, 0.95, 100)  # noqa: E731
+        agg = lambda: kfet.fet_aggregate_ranks(  # noqa: E731
+            ls, r, lo_d, npos_d, slot_d, key, 0.95, 100)
         plain = lambda: kfet.fet_aggregate_ranks_plain(  # noqa: E731
             ls, r, lo, npos, slot, key, 0.95, 100)
         ka, pa = agg(), plain()
@@ -2157,10 +2398,12 @@ def phase_rank_kernels(torch, pair, plan_ids, dev, results, k2_bench, card) -> N
         ra[prec] = (max(abs_err(ka[0], pa[0]), abs_err(ka[1], pa[1])),
                     max(err_sc, float(sd_rel.max())), ms, pms)
         ra[prec + "_beyond"] = beyond
-        if fast:   # ranks, LUT and descriptors in, 2 values out; at least one
-            # threefry draw (~60 integer operations) per bootstrap sample
-            ra["bound"] = bound(N * 4 + ls.numel() * 4 + B * 3 * 8 + B * 2 * 4,
-                                {"f32": B * 100 * 60})
+        # ranks, LUT and descriptors in, 2 values out; the bootstrap's
+        # hashes, pows and compares (bootstrap_ops)
+        size = ls.element_size()
+        ra["bound" if fast else "bound_exact"] = bound(
+            N * 4 + ls.numel() * size + B * 3 * 8 + B * 2 * size,
+            bootstrap_ops(npos, 0.95, 100, fast))
         del ls, r, ka, pa
     ra["equal_k1_k2_800k"] = True
 
@@ -2396,11 +2639,12 @@ def smoke(torch, dev) -> tuple[str, list[dict]]:
         timed_phase("13", phase_step_library, torch, gathered, dev, card, tmp, results)
         step_launches = {**kfet.LAUNCHES, **kcss.LAUNCHES, **kperm.LAUNCHES}
         say(f"[sharded step main path] kernel launches: {step_launches}")
-        step_path = ("fet_window", "fet_lut_build", "css_dissim", "css_cmds",
+        step_path = ("fet_window", "fet_lut_build", "css_dissim_gathered", "css_cmds",
                      "css_perm_chunk")
         check(all(step_launches[k] > 0 for k in step_path),
               f"the sharded step did not launch every kernel: {step_launches}")
         launches["fet_window"] = step_launches["fet_window"]
+        launches["css_dissim_gathered"] = step_launches["css_dissim_gathered"]
         launches["css_perm_chunk"] = step_launches["css_perm_chunk"]
         del gathered
         torch.cuda.empty_cache()
@@ -2443,18 +2687,29 @@ def smoke(torch, dev) -> tuple[str, list[dict]]:
                 "ms_exact": e_ms, "plain_ms_exact": e_pms,
                 "max_rel_err_fast": f_rel, "max_rel_err_exact": e_rel,
             })
+        if "bound_exact" in r:
+            entry["bound_ms_exact"], entry["bound_by_exact"] = r["bound_exact"]
         if name == "fet_aggregate":
             entry["stddev_windows_beyond_tol"] = {
                 "fast": r["fast_beyond"], "exact": r["exact_beyond"]
             }
             entry["windows_differ"] = entry["stddev_windows_beyond_tol"]
+        if name in ("css_dissim", "css_dissim_gathered"):
+            entry["library_is"] = ("torch.bmm of the bench windows' float32 one-hots [B, m, 2P] "
+                                   "@ [B, 2P, m], P = 128 (the one-hots built beforehand)")
+        if name == "css_dissim_gathered":
+            # ms / plain_ms: the ~800 k bench windows at P = 128; then the
+            # 19,997 windows of the 200 k workload
+            for prec in ("fast", "exact"):
+                entry[f"ms_20k_{prec}"], entry[f"plain_ms_20k_{prec}"] = r[f"{prec}_20k"][2:]
+                entry[f"bound_ms_20k_{prec}"] = r[f"bound_20k_{prec}"][0]
+            entry["step_self_ms"] = results["step"]["k3_ms"]
         if name == "css_cmds":
             # library_ms: torch.linalg.eigh on the centred matrices alone
             entry["windows_excluded_eigengap"] = r["exact_excluded"]
             entry["library_ms"] = r["fast_library_ms"]
             entry["library_is"] = "torch.linalg.eigh of the centred matrices (eigen step alone)"
             entry["library_ms_exact"] = r["exact_library_ms"]
-            entry["bound_ms_exact"], entry["bound_by_exact"] = r["bound_exact"]
             entry["multisection_steps_mean_max"] = {
                 "fast": r["fast_steps"], "exact": r["exact_steps"]}
             entry["step_wall_ms"] = results["step"]["wall_ms"]
@@ -2486,7 +2741,6 @@ def smoke(torch, dev) -> tuple[str, list[dict]]:
                 entry["max_abs_err"] = max(entry["max_abs_err"], r[tag][0])
             entry["ms_bench_800k_fast"] = r["bench_fast_ms"]
             entry["bound_ms_bench_800k_fast"] = r["bound_bench"][0]
-            entry["bound_ms_exact"], entry["bound_by_exact"] = r["bound_exact"]
             entry["transforms_all_restarts_mds1"] = r["transforms"]
             entry["bound_counts"] = "every restart's transforms"
             entry["ptxas"] = r["ptxas"]
@@ -2511,9 +2765,16 @@ def smoke(torch, dev) -> tuple[str, list[dict]]:
                 entry[f"ranges_{tag}"] = len(lt["ranges"])
         if name == "fet_window":
             # ms / plain_ms: 19,997 windows of the 200 k workload; then the
-            # ~800 k bench windows, bit-equal to phase 2's K1 -> K2
+            # ~800 k bench windows, bit-equal to phase 2's K1 -> K2, and the
+            # block body on synthetic windows at P = 256 and 4,096
             entry["ms_bench_800k"] = r["bench_ms"]
             entry["bit_equal_k1_k2_800k"] = r["bit_equal"]
+            for prec in ("fast", "exact"):
+                entry[f"plain_ms_bench_800k_{prec}"] = r[f"bench_plain_ms_{prec}"]
+                entry[f"bound_ms_bench_800k_{prec}"] = r[f"bound_800k_{prec}"][0]
+                for Pb in (256, 4096):
+                    entry[f"ms_block_{Pb}_{prec}"] = r[f"block_{Pb}_{prec}_ms"]
+            entry["step_self_ms"] = results["step"]["k10_ms"]
         if name == "css_perm_chunk":
             # ms / plain_ms: mix draws at the step's size (799,997 windows x
             # 128); then threefry there, and both on the 19,997 windows of

@@ -1,128 +1,341 @@
-// K3 (and K4): opposite-homozygote pair counts of every window of a
-// chromosome, in one launch.
+// K3 (and K4): opposite-homozygote pair counts of every window, in two
+// forms: the windows of a chromosome (K3) and pre-gathered windows (K4's
+// gather form, the sharded step's).
 //
 // Replaces divergence_tpu/kernels/css.py: dissimilarity_prefix +
 // dissimilarity_from_prefix (the [N+1, m, m] chromosome prefix, K3) and
 // dissimilarity_counts (the one-hot product over gathered windows, K4).
-// Both give the same integer counts; this kernel counts each window
-// directly, so it needs neither the prefix (N m^2 elements, the JAX
-// engine's memory cliff) nor a gather.  Plain torch version:
-// divergence_tpu_torch/kernels/css.py dissimilarity_plain.
+// All give the same integer counts.  Plain torch versions:
+// divergence_tpu_torch/kernels/css.py dissimilarity_plain and
+// dissimilarity_gathered_plain; the bit-plane mirrors pack_bitplanes_plain,
+// dissimilarity_bitplanes_plain and gathered_bitplanes_plain follow the
+// kernels' words step by step.
 //
 // D[i][j] = #{SNPs s in the window : (c_si == 3 && c_sj == -3) ||
 //                                     (c_si == -3 && c_sj == 3)}
 // (reference statistics/css/css.c:277-327).  The missing code -10000
 // and heterozygotes 0 never count; the diagonal is 0.
 //
-// One block per window:
-//   1. pack: for up to 8 words of 32 SNPs at a time (as many as the
-//      window needs), one warp per (word, individual) reads 32 codes and
-//      ballots them into a hom-major and a hom-minor bit set (bits past
-//      the window are 0);
-//   2. count: threads own pairs i < j and add
-//      popc(maj_i & mnr_j) + popc(mnr_i & maj_j) over the words into an
-//      int32 count in shared memory;
-//   3. write both triangles and a zero diagonal in the compute dtype
-//      (exact: counts are at most 2501 at wsize 2500).
+// Chromosome form, two launches in one call:
+//   1. css_pack: the chromosome's codes once into a hom-major (== 3) and
+//      a hom-minor (== -3) bit plane, word-major [W + 1][m] uint32 each
+//      (W = ceil(N/32); bit b of word k of individual i is SNP 32 k + b;
+//      the last word is 0 so a window's funnel shift may read one past
+//      its end).  One warp a word: lane b holds SNP 32 k + b, a ballot per
+//      individual, coalesced stores of 32 individuals' words.  It mirrors
+//      JAX's two phases: one chromosome-wide pass, then a read per window.
+//   2. css_dissim: one warp per window [lo, lo + n).  In passes of up to
+//      kWords words it reads word k of individual i as
+//      __funnelshift_r(plane[w0 + k][i], plane[w0 + k + 1][i], lo % 32)
+//      (w0 = lo / 32; individuals fastest, so the reads are coalesced),
+//      clears the bits past n, and keeps the window's words in shared
+//      memory.
+// Gathered form (css_dissim_gathered): [B, P, a] and [B, P, b] int16
+// codes as two pointers, window w's rows 0 .. npos[w]; one warp per
+// window stages 128 rows at a time of its contiguous a and b blocks in
+// shared memory (16-byte cp.async copies where the batch's rows allow,
+// else 2-byte copies) and packs its words from them (lane b holds row
+// 32 k + b, a ballot per individual, a's individuals then b's), with no
+// joint copy of the codes.
+// Both forms then count alike: each lane owns pairs i < j of the upper
+// triangle (row-major, pair p = lane + 32 t, about 7 a lane at m = 21)
+// and adds popc(maj_i & mnr_j) + popc(mnr_i & maj_j) over the words into
+// both triangles of an int32 [m][m] count in shared memory (set, with the
+// zero diagonal, by the first pass); the warp copies it out in one
+// coalesced pass in the compute dtype (exact: a count is at most the
+// window's n).
 //
-// What bounds it on H100: latency and the strided reads of the codes.  A
-// window of n SNPs reads n*m int16 codes (about 2 KB at n=50, m=21), as
-// 32-lane ballots whose rows are m*2 bytes apart; L1 serves the m
-// individuals' passes over the same rows.  The count is m(m-1)/2 pairs x
-// ceil(n/32) words of popcounts: small.  Windows overlap wsize/wstep-fold,
-// so each code is read about 5 times, from L2.
+// What bounds it on H100: the output.  A window writes m^2 counts (3.5 KB
+// at m = 21 in float64) and reads its m (ceil(n/32) + 1) words of each
+// plane (~500 bytes at n = 50, from L2: the planes of an 8 M-SNP
+// chromosome at m = 21 take 42 MB); the gathered form reads its n m codes
+// once.  The popcounts are m(m-1)/2 pairs x 2 x ceil(n/32) words: small.
+// No block barrier: each warp owns its window.
 #include "fet_common.cuh"
 
 namespace {
 
+using fetk::kAsync16;
+using fetk::kCopy2;
+
+constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kThreads = 128;
-constexpr int kWords = 8;   // 32-SNP words packed per pass
+constexpr int kWarps = kThreads / 32;
+constexpr int kWords = 8;                 // words of 32 SNPs a chromosome pass keeps
+constexpr int kGatherWords = 4;           // words (and 32-row blocks) a gathered pass stages
+constexpr size_t kSmemLimit = 232448;     // bytes a Hopper block may use
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-css_dissim(const int16_t* __restrict__ vals, const int64_t* __restrict__ lo_arr,
-           const int64_t* __restrict__ npos_arr, int64_t nwin, int m,
-           T* __restrict__ out) {
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    const int mm = m * m;
-    int* cnt = reinterpret_cast<int*>(smem_raw);                    // [m*m]
-    uint32_t* maj = reinterpret_cast<uint32_t*>(cnt + mm);          // [m][kWords]
-    uint32_t* mnr = maj + m * kWords;                               // [m][kWords]
+__host__ __device__ __forceinline__ size_t align16(size_t bytes) {
+    return (bytes + 15) & ~static_cast<size_t>(15);
+}
 
-    const int64_t w = blockIdx.x;
-    const int64_t lo = lo_arr[w];
-    const int n = static_cast<int>(npos_arr[w]);
-    const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
-    const int nwarps = blockDim.x >> 5;
+// Shared memory of one window's warp, 16-byte aligned: the staged codes
+// of a pass (the gathered form: a and b codes of 32 words rows each, each
+// block 16-byte aligned), then the maj and mnr words [m][words], then the
+// pair counts [m][m] (the upper triangle used).
+__host__ __device__ __forceinline__ size_t codes_bytes(int asize, int bsize, int words) {
+    return align16(static_cast<size_t>(32) * words * asize * 2) +
+           align16(static_cast<size_t>(32) * words * bsize * 2);
+}
 
-    for (int p = threadIdx.x; p < mm; p += blockDim.x) cnt[p] = 0;
-    for (int s0 = 0; s0 < n; s0 += 32 * kWords) {
-        const int words = min(kWords, (n - s0 + 31) / 32);
-        __syncthreads();   // the previous pass has read maj / mnr
-        for (int task = warp; task < words * m; task += nwarps) {
-            const int wd = task / m;
-            const int i = task - wd * m;
-            const int s = s0 + wd * 32 + lane;
-            const int16_t v = s < n ? vals[(lo + s) * m + i] : int16_t(0);
-            const uint32_t bmaj = __ballot_sync(0xffffffffu, v == 3);
-            const uint32_t bmnr = __ballot_sync(0xffffffffu, v == -3);
-            if (lane == 0) {
-                maj[i * kWords + wd] = bmaj;
-                mnr[i * kWords + wd] = bmnr;
-            }
+__host__ __device__ __forceinline__ size_t warp_bytes(int m, int words, size_t codes) {
+    return align16(codes + (2 * static_cast<size_t>(m) * words + static_cast<size_t>(m) * m) * 4);
+}
+
+inline int warps_per_block(size_t bytes) {
+    const size_t fit = kSmemLimit / bytes;
+    return static_cast<int>(fit < kWarps ? fit : kWarps);
+}
+
+// Add the pairs' popcounts over `words` words of the shared slabs (row
+// stride `stride` words) to both triangles of cnt, or set them (and the
+// zero diagonal) on the first pass.  Lane l owns pairs p = l + 32 t of
+// the row-major upper triangle, pair (i, i + 1 + t') found by walking
+// whole rows.
+__device__ __forceinline__ void count_pairs(const uint32_t* maj, const uint32_t* mnr,
+                                            int stride, int* cnt, int m, int words,
+                                            bool first, int lane) {
+    int i = 0, t = lane;
+    for (;;) {
+        while (i < m - 1 && t >= m - 1 - i) {
+            t -= m - 1 - i;
+            ++i;
         }
-        __syncthreads();
-        for (int p = threadIdx.x; p < mm; p += blockDim.x) {
-            const int i = p / m;
-            const int j = p - i * m;
-            if (j <= i) continue;
-            int acc = 0;
-            for (int k = 0; k < words; ++k) {
-                acc += __popc(maj[i * kWords + k] & mnr[j * kWords + k]) +
-                       __popc(mnr[i * kWords + k] & maj[j * kWords + k]);
-            }
-            cnt[p] += acc;
+        if (i >= m - 1) break;
+        const int j = i + 1 + t;
+        int acc = 0;
+        for (int k = 0; k < words; ++k) {
+            acc += __popc(maj[i * stride + k] & mnr[j * stride + k]) +
+                   __popc(mnr[i * stride + k] & maj[j * stride + k]);
         }
+        const int c = first ? acc : cnt[i * m + j] + acc;
+        cnt[i * m + j] = c;
+        cnt[j * m + i] = c;
+        t += 32;
     }
-    __syncthreads();
-    T* o = out + w * mm;
-    for (int p = threadIdx.x; p < mm; p += blockDim.x) {
-        const int i = p / m;
-        const int j = p - i * m;
-        const int c = i < j ? cnt[p] : (i > j ? cnt[j * m + i] : 0);
-        o[p] = static_cast<T>(c);
+    if (first) {
+        for (int d = lane; d < m; d += 32) cnt[d * m + d] = 0;
+    }
+}
+
+// The window's [m][m] counts (all zero when `empty`), element p by lane
+// p % 32: one coalesced pass.
+template <typename T>
+__device__ __forceinline__ void write_counts(const int* cnt, int m, bool empty,
+                                             T* __restrict__ o, int lane) {
+    for (int p = lane; p < m * m; p += 32) o[p] = static_cast<T>(empty ? 0 : cnt[p]);
+}
+
+__global__ void __launch_bounds__(kThreads)
+css_pack(const int16_t* __restrict__ vals, int64_t N, int m, int64_t words,
+         uint32_t* __restrict__ maj, uint32_t* __restrict__ mnr) {
+    const int lane = threadIdx.x & 31;
+    const int64_t k = static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+    if (k >= words) return;
+    const int64_t s = k * 32 + lane;
+    const int16_t* row = vals + s * m;
+    for (int i0 = 0; i0 < m; i0 += 32) {
+        uint32_t my_maj = 0, my_mnr = 0;
+        const int span = min(32, m - i0);
+        for (int d = 0; d < span; ++d) {
+            const int v = s < N ? row[i0 + d] : 0;
+            const uint32_t bmaj = __ballot_sync(kFullMask, v == 3);
+            const uint32_t bmnr = __ballot_sync(kFullMask, v == -3);
+            if (lane == d) {
+                my_maj = bmaj;
+                my_mnr = bmnr;
+            }
+        }
+        if (lane < span) {
+            maj[k * m + i0 + lane] = my_maj;
+            mnr[k * m + i0 + lane] = my_mnr;
+        }
     }
 }
 
 template <typename T>
-int launch_dissim(const int16_t* vals, const int64_t* lo, const int64_t* npos,
-                  int64_t nwin, int m, T* out, void* stream) {
-    if (nwin == 0) return 0;
-    const size_t smem = static_cast<size_t>(m) * m * sizeof(int) +
-                        2 * static_cast<size_t>(m) * kWords * sizeof(uint32_t);
-    if (smem > 48 * 1024) {
+__global__ void __launch_bounds__(kThreads)
+css_dissim(const uint32_t* __restrict__ maj, const uint32_t* __restrict__ mnr,
+           const int64_t* __restrict__ lo_arr, const int64_t* __restrict__ npos_arr,
+           int64_t nwin, int m, T* __restrict__ out) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    const int64_t w = static_cast<int64_t>(blockIdx.x) * (blockDim.x >> 5) + warp;
+    if (w >= nwin) return;
+    uint32_t* smaj = reinterpret_cast<uint32_t*>(smem_raw + warp * warp_bytes(m, kWords, 0));
+    uint32_t* smnr = smaj + m * kWords;
+    int* cnt = reinterpret_cast<int*>(smnr + m * kWords);
+
+    const int64_t lo = lo_arr[w];
+    const int n = static_cast<int>(npos_arr[w]);
+    const int64_t w0 = lo >> 5;
+    const int sh = static_cast<int>(lo & 31);
+    const int nwords = (n + 31) / 32;
+    for (int k0 = 0; k0 < nwords; k0 += kWords) {
+        const int kw = min(kWords, nwords - k0);
+        __syncwarp();   // the previous pass has read the slabs
+        for (int k = 0; k < kw; ++k) {
+            const int rem = n - (k0 + k) * 32;   // >= 1: the window's SNPs in this word
+            const uint32_t keep = rem < 32 ? (1u << rem) - 1u : ~0u;
+            const int64_t g = (w0 + k0 + k) * m;
+            for (int i = lane; i < m; i += 32) {
+                smaj[i * kWords + k] = __funnelshift_r(maj[g + i], maj[g + m + i], sh) & keep;
+                smnr[i * kWords + k] = __funnelshift_r(mnr[g + i], mnr[g + m + i], sh) & keep;
+            }
+        }
+        __syncwarp();
+        count_pairs(smaj, smnr, kWords, cnt, m, kw, k0 == 0, lane);
+    }
+    __syncwarp();
+    write_counts(cnt, m, nwords == 0, out + w * m * m, lane);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+css_dissim_gathered(const int16_t* __restrict__ av, const int16_t* __restrict__ bv,
+                    const int64_t* __restrict__ npos_arr, int64_t nwin, int p_in,
+                    int asize, int bsize, int stage, T* __restrict__ out) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const int m = asize + bsize;
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    const int64_t w = static_cast<int64_t>(blockIdx.x) * (blockDim.x >> 5) + warp;
+    if (w >= nwin) return;
+    const size_t codes = codes_bytes(asize, bsize, kGatherWords);
+    unsigned char* mine = smem_raw + warp * warp_bytes(m, kGatherWords, codes);
+    int16_t* sa = reinterpret_cast<int16_t*>(mine);
+    int16_t* sb = reinterpret_cast<int16_t*>(
+        mine + align16(static_cast<size_t>(32) * kGatherWords * asize * 2));
+    uint32_t* smaj = reinterpret_cast<uint32_t*>(mine + codes);
+    uint32_t* smnr = smaj + m * kGatherWords;
+    int* cnt = reinterpret_cast<int*>(smnr + m * kGatherWords);
+
+    const int n = static_cast<int>(npos_arr[w]);
+    const int nwords = (n + 31) / 32;
+    for (int k0 = 0; k0 < nwords; k0 += kGatherWords) {
+        const int kw = min(kGatherWords, nwords - k0);
+        const int r0 = 32 * k0;                  // the pass's first row
+        const int rows = min(32 * kw, n - r0);
+        __syncwarp();   // the previous pass has read the slabs
+        fetk::stage_codes(sa, av + (w * p_in + r0) * asize, rows * asize, stage, lane);
+        fetk::stage_codes(sb, bv + (w * p_in + r0) * bsize, rows * bsize, stage, lane);
+        fetk::stage_wait(stage);
+        for (int k = 0; k < kw; ++k) {
+            const int r = 32 * k + lane;         // this lane's row of the pass
+            const bool row_in = r < rows;
+            for (int i0 = 0; i0 < m; i0 += 32) {
+                uint32_t my_maj = 0, my_mnr = 0;
+                const int span = min(32, m - i0);
+                for (int d = 0; d < span; ++d) {
+                    const int i = i0 + d;
+                    const int v = !row_in ? 0 : (i < asize ? sa[r * asize + i]
+                                                           : sb[r * bsize + i - asize]);
+                    const uint32_t bmaj = __ballot_sync(kFullMask, v == 3);
+                    const uint32_t bmnr = __ballot_sync(kFullMask, v == -3);
+                    if (lane == d) {
+                        my_maj = bmaj;
+                        my_mnr = bmnr;
+                    }
+                }
+                if (lane < span) {
+                    smaj[(i0 + lane) * kGatherWords + k] = my_maj;
+                    smnr[(i0 + lane) * kGatherWords + k] = my_mnr;
+                }
+            }
+        }
+        __syncwarp();
+        count_pairs(smaj, smnr, kGatherWords, cnt, m, kw, k0 == 0, lane);
+    }
+    __syncwarp();
+    write_counts(cnt, m, nwords == 0, out + w * m * m, lane);
+}
+
+// Block size and shared memory of a warp-per-window launch.
+template <typename K>
+int configure(K kernel, size_t bytes, int* wpb, size_t* smem) {
+    *wpb = warps_per_block(bytes);
+    if (*wpb < 1) return static_cast<int>(cudaErrorInvalidValue);
+    *smem = *wpb * bytes;
+    if (*smem > 48 * 1024) {
         const cudaError_t e = cudaFuncSetAttribute(
-            css_dissim<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            static_cast<int>(smem));
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(*smem));
         if (e != cudaSuccess) return static_cast<int>(e);
     }
-    css_dissim<T><<<static_cast<unsigned>(nwin), kThreads, smem,
-                    static_cast<cudaStream_t>(stream)>>>(vals, lo, npos, nwin,
-                                                         m, out);
+    return 0;
+}
+
+template <typename T>
+int launch_dissim(const int16_t* vals, int64_t N, const int64_t* lo,
+                  const int64_t* npos, int64_t nwin, int m, uint32_t* planes,
+                  T* out, void* stream) {
+    if (nwin == 0) return 0;
+    if (m < 1) return static_cast<int>(cudaErrorInvalidValue);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const int64_t words = (N + 31) / 32 + 1;
+    uint32_t* maj = planes;
+    uint32_t* mnr = planes + words * m;
+    css_pack<<<static_cast<unsigned>((words + kWarps - 1) / kWarps), kThreads, 0, st>>>(
+        vals, N, m, words, maj, mnr);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    int wpb;
+    size_t smem;
+    const int rc = configure(css_dissim<T>, warp_bytes(m, kWords, 0), &wpb, &smem);
+    if (rc != 0) return rc;
+    css_dissim<T><<<static_cast<unsigned>((nwin + wpb - 1) / wpb), wpb * 32, smem, st>>>(
+        maj, mnr, lo, npos, nwin, m, out);
+    return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_gathered(const int16_t* av, const int16_t* bv, const int64_t* npos,
+                    int64_t nwin, int p_in, int asize, int bsize, T* out,
+                    void* stream) {
+    if (nwin == 0) return 0;
+    if (asize < 1 || bsize < 1 || p_in < 1) return static_cast<int>(cudaErrorInvalidValue);
+    // 16-byte copies need every pass's blocks 16-byte aligned: the bases and
+    // the window strides p_in a 2 and p_in b 2 (a pass starts 64 a bytes
+    // further, a multiple of 16)
+    const bool aligned = reinterpret_cast<uintptr_t>(av) % 16 == 0 &&
+                         reinterpret_cast<uintptr_t>(bv) % 16 == 0 &&
+                         (static_cast<int64_t>(p_in) * asize * 2) % 16 == 0 &&
+                         (static_cast<int64_t>(p_in) * bsize * 2) % 16 == 0;
+    const int m = asize + bsize;
+    int wpb;
+    size_t smem;
+    const int rc = configure(css_dissim_gathered<T>,
+                             warp_bytes(m, kGatherWords, codes_bytes(asize, bsize, kGatherWords)),
+                             &wpb, &smem);
+    if (rc != 0) return rc;
+    css_dissim_gathered<T><<<static_cast<unsigned>((nwin + wpb - 1) / wpb), wpb * 32, smem,
+                             static_cast<cudaStream_t>(stream)>>>(
+        av, bv, npos, nwin, p_in, asize, bsize, aligned ? kAsync16 : kCopy2, out);
     return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-FET_EXPORT int css_dissim_f64(const int16_t* vals, const int64_t* lo,
+FET_EXPORT int css_dissim_f64(const int16_t* vals, int64_t N, const int64_t* lo,
                               const int64_t* npos, int64_t nwin, int m,
-                              double* out, void* stream) {
-    return launch_dissim<double>(vals, lo, npos, nwin, m, out, stream);
+                              uint32_t* planes, double* out, void* stream) {
+    return launch_dissim<double>(vals, N, lo, npos, nwin, m, planes, out, stream);
 }
 
-FET_EXPORT int css_dissim_f32(const int16_t* vals, const int64_t* lo,
+FET_EXPORT int css_dissim_f32(const int16_t* vals, int64_t N, const int64_t* lo,
                               const int64_t* npos, int64_t nwin, int m,
-                              float* out, void* stream) {
-    return launch_dissim<float>(vals, lo, npos, nwin, m, out, stream);
+                              uint32_t* planes, float* out, void* stream) {
+    return launch_dissim<float>(vals, N, lo, npos, nwin, m, planes, out, stream);
+}
+
+FET_EXPORT int css_dissim_gathered_f64(const int16_t* av, const int16_t* bv,
+                                       const int64_t* npos, int64_t nwin, int p_in,
+                                       int asize, int bsize, double* out, void* stream) {
+    return launch_gathered<double>(av, bv, npos, nwin, p_in, asize, bsize, out, stream);
+}
+
+FET_EXPORT int css_dissim_gathered_f32(const int16_t* av, const int16_t* bv,
+                                       const int64_t* npos, int64_t nwin, int p_in,
+                                       int asize, int bsize, float* out, void* stream) {
+    return launch_gathered<float>(av, bv, npos, nwin, p_in, asize, bsize, out, stream);
 }

@@ -6,19 +6,21 @@
 // _steps_max and _order_stat_uniforms.  Plain torch version:
 // divergence_tpu_torch/kernels/fet.py fet_aggregate_plain.
 //
-// One block per window: load logs[lo, lo+n) contiguously into shared
-// memory, -inf pads up to P = the next power of two >= n (at least 32),
-// then fet_window_stats.cuh:window_stats (sort, picks, bootstrap, stddev,
-// the steps shared with K10) with wkey = fold_in(chrom_key, slot).
+// The window body is fet_window_stats.cuh's, with wkey = fold_in(
+// chrom_key, slot):
+//   * warp path (the launch's widest window has P <= 128, the bench's 87
+//     SNPs included): one warp per window, 4 windows a block; each lane
+//     loads its P/32 keys logs[lo + (P/32) lane + r] (the window's run is
+//     contiguous) and warp_window_stats sorts them in registers;
+//   * block path (P up to 4,096): one block per window loads logs[lo,
+//     lo+n) into shared memory, -inf pads up to P, block_window_stats.
 //
-// What bounds it on H100: latency of small blocks, not bytes or FLOPs.
-// A window reads n (about 50 at the bench's density) scores once and
-// runs ~21 sort stages plus (t1+1) x nsamples x 2 threefry hashes and
-// pow calls (t1 ~ 0.05 n).  The design keeps everything of a window in
-// shared memory and registers, reads its scores as one contiguous run,
-// and launches every window at once so ~800k blocks keep all 132 SMs
-// busy.  Threads past P/2 idle during the sort: that is the first thing
-// a faster version would change (one warp per small window).
+// What bounds it on H100: the bootstrap's arithmetic, not bytes.  A
+// window reads n (about 50 at the bench's density) scores once; its
+// draws need (t1+1) x (nsamples+1) threefry hashes (a fold_in a step,
+// which each lane computes for itself) and (t1+1) x nsamples pows
+// (t1 ~ 0.05 n).  A warp per window keeps the sort in registers with no
+// block barrier, and no lane sits idle past P/2.
 #include "fet_window_stats.cuh"
 
 namespace {
@@ -52,8 +54,38 @@ fet_aggregate(const T* __restrict__ logs, const int64_t* __restrict__ rows,
         sorted[i] = i < n ? logs[lo + i] : neg_inf<T>();
     }
     __syncthreads();
-    window_stats(sorted, reps, n, P, tf::fold_in(chrom_key, slot), perc,
-                 nsamples, KeyIsValue<T>{}, out + w, out + nwin + w);
+    block_window_stats(sorted, reps, n, P, tf::fold_in(chrom_key, slot), perc,
+                       nsamples, KeyIsValue<T>{}, out + w, out + nwin + w);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+fet_aggregate_warp(const T* __restrict__ logs, const int64_t* __restrict__ rows,
+                   int64_t nwin, uint2 chrom_key, T perc, int nsamples, int pmax,
+                   T* __restrict__ out) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    const int64_t w = static_cast<int64_t>(blockIdx.x) * (blockDim.x >> 5) + warp;
+    if (w >= nwin) return;
+    using Slabs = WarpSlabs<T, T>;
+    unsigned char* mine = smem_raw + warp * Slabs::bytes(nsamples, pmax);
+    T* reps = reinterpret_cast<T*>(mine);
+    T* slab = reinterpret_cast<T*>(mine + Slabs::slab_offset(nsamples));
+
+    const int64_t lo = rows[w];
+    const int n = static_cast<int>(rows[nwin + w]);
+    const uint32_t slot = static_cast<uint32_t>(rows[2 * nwin + w]);
+    if (n <= 0) {
+        if (lane == 0) {
+            out[w] = T(0);
+            out[nwin + w] = T(0);
+        }
+        return;
+    }
+    warp_window_stats([=](int i) { return logs[lo + i]; }, neg_inf<T>(), slab, reps, n,
+                      tf::fold_in(chrom_key, slot), perc, nsamples, KeyIsValue<T>{},
+                      out + w, out + nwin + w);
 }
 
 template <typename T>
@@ -61,6 +93,25 @@ int launch_aggregate(const T* logs, const int64_t* rows, int64_t nwin,
                      uint32_t key0, uint32_t key1, double perc, int nsamples,
                      int pmax, T* out, void* stream) {
     if (nwin == 0) return 0;
+    if (pmax < 32 || nsamples < 1) return static_cast<int>(cudaErrorInvalidValue);
+    const uint2 key = make_uint2(key0, key1);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (pmax <= kWarpMaxPad) {
+        const size_t warp_bytes = WarpSlabs<T, T>::bytes(nsamples, pmax);
+        const int wpb = warps_per_block(warp_bytes);
+        if (wpb < 1) return static_cast<int>(cudaErrorInvalidValue);
+        const size_t smem = wpb * warp_bytes;
+        if (smem > 48 * 1024) {
+            const cudaError_t e = cudaFuncSetAttribute(
+                fet_aggregate_warp<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                static_cast<int>(smem));
+            if (e != cudaSuccess) return static_cast<int>(e);
+        }
+        const int64_t blocks = (nwin + wpb - 1) / wpb;
+        fet_aggregate_warp<T><<<static_cast<unsigned>(blocks), wpb * 32, smem, st>>>(
+            logs, rows, nwin, key, static_cast<T>(perc), nsamples, pmax, out);
+        return static_cast<int>(cudaGetLastError());
+    }
     const size_t smem = static_cast<size_t>(pmax + nsamples) * sizeof(T);
     if (smem > 48 * 1024) {
         const cudaError_t e = cudaFuncSetAttribute(
@@ -68,10 +119,8 @@ int launch_aggregate(const T* logs, const int64_t* rows, int64_t nwin,
             static_cast<int>(smem));
         if (e != cudaSuccess) return static_cast<int>(e);
     }
-    fet_aggregate<T><<<static_cast<unsigned>(nwin), kThreads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-        logs, rows, nwin, make_uint2(key0, key1), static_cast<T>(perc),
-        nsamples, pmax, out);
+    fet_aggregate<T><<<static_cast<unsigned>(nwin), kThreads, smem, st>>>(
+        logs, rows, nwin, key, static_cast<T>(perc), nsamples, pmax, out);
     return static_cast<int>(cudaGetLastError());
 }
 

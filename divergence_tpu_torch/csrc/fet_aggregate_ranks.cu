@@ -8,18 +8,17 @@
 // torch version: divergence_tpu_torch/kernels/fet.py
 // fet_aggregate_ranks_plain.
 //
-// One block per window: load ranks[lo, lo+n) contiguously into shared
-// memory, -1 pads up to P = the next power of two >= n (at least 32),
-// then fet_window_stats.cuh:window_stats with value_of = a read of
-// lut_sorted.  The sort, picks, Renyi bootstrap and stddev are K2's own
+// The window body is fet_window_stats.cuh's with value_of = a read of
+// lut_sorted, launched as K2 launches it (a warp per window where the
+// launch's widest window has P <= 128, else a block per window; -1 pads
+// up to P).  The sort, picks, Renyi bootstrap and stddev are K2's own
 // code, so the result equals K1 -> K2 bit for bit: the window's ranks map
 // to the same multiset of scores in the same order.
 //
-// What bounds it on H100: as K2, the latency of small blocks (about 50
-// ranks a window, ~21 sort stages, (t1+1) x nsamples threefry hashes and
-// pow calls).  Against K2 the sort moves 4-byte keys instead of 8-byte
-// doubles in exact mode, and each pick adds one read of lut_sorted (139 KB
-// in float64 at 11 + 10, resident in L1/L2).
+// What bounds it on H100: as K2, the bootstrap's hashes and pows.
+// Against K2 the sort moves 4-byte keys instead of 8-byte doubles in
+// exact mode, and each pick adds one read of lut_sorted (139 KB in
+// float64 at 11 + 10, resident in L1/L2).
 #include "fet_window_stats.cuh"
 
 namespace {
@@ -66,8 +65,40 @@ fet_aggregate_ranks(const T* __restrict__ lut_sorted, int G,
         sorted[i] = i < n ? ranks[lo + i] : -1;
     }
     __syncthreads();
-    window_stats(sorted, reps, n, P, tf::fold_in(chrom_key, slot), perc,
-                 nsamples, LutValue<T>{lut_sorted, G}, out + w, out + nwin + w);
+    block_window_stats(sorted, reps, n, P, tf::fold_in(chrom_key, slot), perc,
+                       nsamples, LutValue<T>{lut_sorted, G}, out + w, out + nwin + w);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+fet_aggregate_ranks_warp(const T* __restrict__ lut_sorted, int G,
+                         const int* __restrict__ ranks,
+                         const int64_t* __restrict__ rows, int64_t nwin,
+                         uint2 chrom_key, T perc, int nsamples, int pmax,
+                         T* __restrict__ out) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    const int64_t w = static_cast<int64_t>(blockIdx.x) * (blockDim.x >> 5) + warp;
+    if (w >= nwin) return;
+    using Slabs = WarpSlabs<T, int>;
+    unsigned char* mine = smem_raw + warp * Slabs::bytes(nsamples, pmax);
+    T* reps = reinterpret_cast<T*>(mine);
+    int* slab = reinterpret_cast<int*>(mine + Slabs::slab_offset(nsamples));
+
+    const int64_t lo = rows[w];
+    const int n = static_cast<int>(rows[nwin + w]);
+    const uint32_t slot = static_cast<uint32_t>(rows[2 * nwin + w]);
+    if (n <= 0) {
+        if (lane == 0) {
+            out[w] = T(0);
+            out[nwin + w] = T(0);
+        }
+        return;
+    }
+    warp_window_stats([=](int i) { return ranks[lo + i]; }, -1, slab, reps, n,
+                      tf::fold_in(chrom_key, slot), perc, nsamples,
+                      LutValue<T>{lut_sorted, G}, out + w, out + nwin + w);
 }
 
 template <typename T>
@@ -79,6 +110,25 @@ int launch_aggregate_ranks(const T* lut_sorted, int G, const int* ranks,
     if (G < 1 || pmax < 32 || nsamples < 1) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
+    const uint2 key = make_uint2(key0, key1);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (pmax <= kWarpMaxPad) {
+        const size_t warp_bytes = WarpSlabs<T, int>::bytes(nsamples, pmax);
+        const int wpb = warps_per_block(warp_bytes);
+        if (wpb < 1) return static_cast<int>(cudaErrorInvalidValue);
+        const size_t smem = wpb * warp_bytes;
+        if (smem > 48 * 1024) {
+            const cudaError_t e = cudaFuncSetAttribute(
+                fet_aggregate_ranks_warp<T>,
+                cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+            if (e != cudaSuccess) return static_cast<int>(e);
+        }
+        const int64_t blocks = (nwin + wpb - 1) / wpb;
+        fet_aggregate_ranks_warp<T><<<static_cast<unsigned>(blocks), wpb * 32, smem, st>>>(
+            lut_sorted, G, ranks, rows, nwin, key, static_cast<T>(perc), nsamples, pmax,
+            out);
+        return static_cast<int>(cudaGetLastError());
+    }
     const size_t smem = static_cast<size_t>(nsamples) * sizeof(T) +
                         static_cast<size_t>(pmax) * sizeof(int);
     if (smem > 48 * 1024) {
@@ -87,10 +137,8 @@ int launch_aggregate_ranks(const T* lut_sorted, int G, const int* ranks,
             static_cast<int>(smem));
         if (e != cudaSuccess) return static_cast<int>(e);
     }
-    fet_aggregate_ranks<T><<<static_cast<unsigned>(nwin), kThreads, smem,
-                             static_cast<cudaStream_t>(stream)>>>(
-        lut_sorted, G, ranks, rows, nwin, make_uint2(key0, key1),
-        static_cast<T>(perc), nsamples, pmax, out);
+    fet_aggregate_ranks<T><<<static_cast<unsigned>(nwin), kThreads, smem, st>>>(
+        lut_sorted, G, ranks, rows, nwin, key, static_cast<T>(perc), nsamples, pmax, out);
     return static_cast<int>(cudaGetLastError());
 }
 

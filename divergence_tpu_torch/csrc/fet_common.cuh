@@ -35,4 +35,35 @@ __device__ __forceinline__ T neg_inf() {
     return -static_cast<T>(INFINITY);
 }
 
+// How a warp stages int16 codes in shared memory: 16-byte cp.async copies
+// where source and destination are 16-byte aligned, else 2-byte copies.
+enum CodeStage : int { kCopy2 = 1, kAsync16 = 2 };
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" :: "r"(s), "l"(gmem)
+                 : "memory");
+}
+
+// Copy the first `elems` int16 codes of src to dst, by the 32 lanes of a
+// warp; kAsync16 copies whole 16-byte chunks (src readable up to the
+// chunk's end) and returns before they land: stage_wait publishes them.
+__device__ __forceinline__ void stage_codes(int16_t* dst, const int16_t* src, int elems,
+                                            int stage, int lane) {
+    if (stage == kAsync16) {
+        const int chunks = (elems + 7) / 8;
+        for (int c = lane; c < chunks; c += 32) cp_async16(dst + 8 * c, src + 8 * c);
+    } else {
+        for (int e = lane; e < elems; e += 32) dst[e] = src[e];
+    }
+}
+
+__device__ __forceinline__ void stage_wait(int stage) {
+    if (stage == kAsync16) {
+        asm volatile("cp.async.commit_group;\n" ::: "memory");
+        asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    }
+    __syncwarp();
+}
+
 }  // namespace fetk

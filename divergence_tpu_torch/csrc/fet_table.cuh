@@ -156,11 +156,13 @@ struct Table {
 __device__ __forceinline__ Table count_table(const int16_t* ra, int asize,
                                              const int16_t* rb, int bsize) {
     Table t{0, 0, 0, 0};
+#pragma unroll 4
     for (int k = 0; k < asize; ++k) {
         const int c = ra[k];
         t.f0 += c == 3;
         t.f1 += c == -3;
     }
+#pragma unroll 4
     for (int k = 0; k < bsize; ++k) {
         const int c = rb[k];
         t.f2 += c == 3;

@@ -66,8 +66,11 @@ _SIGNATURES = {
     # maxs, key0, key1, perc, nsamples, pmax, out, stream
     "fet_window_{t}": (_P, _P, _P, _P, _I64, _I, _I, _I, _P, _P, _I, _I, _U32,
                        _U32, _D, _I, _I, _P, _P),
-    # vals, lo, npos, B, m, out, stream
-    "css_dissim_{t}": (_P, _P, _P, _I64, _I, _P, _P),
+    # vals, N, lo, npos, B, m, planes scratch [2, ceil(N/32) + 1, m], out,
+    # stream
+    "css_dissim_{t}": (_P, _I64, _P, _P, _I64, _I, _P, _P, _P),
+    # av, bv, npos, B, p_in, asize, bsize, out, stream
+    "css_dissim_gathered_{t}": (_P, _P, _P, _I64, _I, _I, _I, _P, _P),
     # dis, npos, B, asize, bsize, wa, wb, scores, dist, valid, steps
     # (nullable), stream
     "css_cmds_{t}": (_P, _P, _I64, _I, _I, _D, _D, _P, _P, _P, _P, _P),

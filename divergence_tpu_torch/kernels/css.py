@@ -20,12 +20,16 @@ name and semantics:
 * the CSS score (css.c:608-647): between-group mean minus the weighted
   adjacent-chain terms.
 
-Three wrappers launch hand-written CUDA kernels when their tensors lie on
+Four wrappers launch hand-written CUDA kernels when their tensors lie on
 a CUDA device, and run the plain torch version on the CPU:
 
 * :func:`css_dissim` — ``csrc/css_dissim.cu``: every window's counts
-  straight from the joint int16 codes (K3, and K4's gather form: the
-  same integer counts);
+  from the chromosome's hom-major / hom-minor bit planes, packed once a
+  call (K3); :func:`css_dissim_gathered`, its second kernel, counts
+  pre-gathered windows from their separate a and b codes (K4's gather
+  form: the same integer counts).  :func:`pack_bitplanes_plain`,
+  :func:`dissimilarity_bitplanes_plain` and
+  :func:`gathered_bitplanes_plain` mirror their words for tests;
 * :func:`css_cmds`   — ``csrc/css_cmds.cu``: fill, centring, the top-2
   eigenpairs (tridiagonal reduction, bisection, inverse iteration; one
   warp per window), embedding, distances and score per window (K5);
@@ -50,7 +54,7 @@ import torch
 
 from divergence_tpu_torch import compute_dtype, rng
 from divergence_tpu_torch.kernels._cuda import dtype_suffix, is_cpu, launch, ptr
-from divergence_tpu_torch.kernels.fet import _window_pad, codes_int16
+from divergence_tpu_torch.kernels.fet import _lane_sum, _window_pad, codes_int16
 from divergence_tpu_torch.kernels.linalg import top2_eig
 
 # the JAX engine's memory guardrail for the prefix form
@@ -63,10 +67,11 @@ _COUNT_BATCH_ELEMS = 1 << 24   # [b, P, m] elements per step of the counts form
 _CMDS_BATCH = 16_384
 CMDS_MAX_M = 64                # css_cmds / css_smacof keep a window in shared memory
 _SMEM_LIMIT = 232_448          # bytes of shared memory a Hopper block may use
-_DISSIM_WORDS = 8              # css_dissim packs 8 x 32 SNPs per pass
+_DISSIM_WORDS = 8              # css_dissim keeps 8 words of 32 SNPs a pass
+_GATHER_WORDS = 4              # css_dissim_gathered stages 4 x 32 rows a pass
 
 # kernel launches since the last reset_launches(), by kernel name
-LAUNCHES = {"css_dissim": 0, "css_cmds": 0, "css_smacof": 0}
+LAUNCHES = {"css_dissim": 0, "css_dissim_gathered": 0, "css_cmds": 0, "css_smacof": 0}
 
 
 def reset_launches() -> None:
@@ -141,6 +146,40 @@ def dissimilarity_plain(
     return out
 
 
+def dissimilarity_gathered_plain(
+    avals: torch.Tensor, bvals: torch.Tensor, npos: torch.Tensor
+) -> torch.Tensor:
+    """Plain torch version of :func:`css_dissim_gathered`, float64 counts:
+    :func:`dissimilarity_counts` over window batches of the joint codes."""
+    B, P = avals.shape[:2]
+    m = avals.shape[2] + bvals.shape[2]
+    dev = avals.device
+    npos = torch.as_tensor(npos).to(dev, torch.int64)
+    out = torch.empty((B, m, m), dtype=torch.float64, device=dev)
+    offs = torch.arange(P, device=dev)[None, :]
+    step = max(1, _COUNT_BATCH_ELEMS // max(P * m, 1))
+    for s in range(0, B, step):
+        sl = slice(s, min(s + step, B))
+        joint = torch.cat([avals[sl], bvals[sl]], dim=-1)
+        out[sl] = dissimilarity_counts(joint, offs < npos[sl, None])
+    return out
+
+
+def _align16(nbytes: int) -> int:
+    return -(-nbytes // 16) * 16
+
+
+def _smem_check(kernel: str, m: int, words: int, codes: int = 0) -> None:
+    """A window's warp keeps ``codes`` bytes of staged codes, its words
+    and its pair counts in shared memory."""
+    smem = codes + 4 * m * m + 2 * 4 * m * words
+    if smem > _SMEM_LIMIT:
+        raise ValueError(
+            f"{kernel} needs {smem} B of shared memory per window at m={m}; a "
+            f"block has {_SMEM_LIMIT}"
+        )
+
+
 def css_dissim(
     vals: torch.Tensor,   # [N, m] joint genotype codes (SnpPair.to_device)
     lo: torch.Tensor,     # [B] first SNP of each window
@@ -150,7 +189,9 @@ def css_dissim(
     """Opposite-homozygote pair counts of every window, [B, m, m] in
     ``dtype`` (``divergence_tpu/kernels/css.py:dissimilarity_prefix`` +
     ``dissimilarity_from_prefix``, and ``dissimilarity_counts``).  On a
-    CUDA ``vals`` the descriptors may lie on the host or the card."""
+    CUDA ``vals`` the descriptors may lie on the host or the card; the
+    kernel packs the chromosome's bit planes into a scratch of
+    2 (ceil(N/32) + 1) m words, then counts every window from them."""
     if is_cpu(vals):
         return dissimilarity_plain(vals, lo, npos).to(dtype)
     if vals.dtype != torch.int16:
@@ -158,23 +199,143 @@ def css_dissim(
     if vals.dim() != 2 or not vals.is_contiguous():
         raise ValueError("css_dissim kernel takes a contiguous [N, m] tensor")
     dev = vals.device
-    m = vals.shape[1]
+    N, m = vals.shape
     B = lo.shape[0]
     out = torch.empty((B, m, m), dtype=dtype, device=dev)
     if B == 0:
         return out
-    smem = 4 * m * m + 2 * 4 * m * _DISSIM_WORDS
-    if smem > _SMEM_LIMIT:
-        raise ValueError(
-            f"css_dissim needs {smem} B of shared memory at m={m}; a block "
-            f"has {_SMEM_LIMIT}"
-        )
+    _smem_check("css_dissim", m, _DISSIM_WORDS)
+    planes = torch.empty((2, (N + 31) // 32 + 1, m), dtype=torch.int32, device=dev)
     lo_d, npos_d = (t.to(dev, torch.int64).contiguous() for t in (lo, npos))
     launch(
         LAUNCHES, "css_dissim", f"css_dissim_{dtype_suffix(dtype)}", dev,
-        ptr(vals), ptr(lo_d), ptr(npos_d), B, m, ptr(out),
+        ptr(vals), N, ptr(lo_d), ptr(npos_d), B, m, ptr(planes), ptr(out),
     )
     return out
+
+
+def css_dissim_gathered(
+    avals: torch.Tensor,   # [B, P, asize] int16 codes
+    bvals: torch.Tensor,   # [B, P, bsize]
+    npos: torch.Tensor,    # [B] SNPs per window (rows 0 .. npos[b])
+    dtype: torch.dtype,
+) -> torch.Tensor:
+    """:func:`css_dissim` on pre-gathered windows
+    (``divergence_tpu/kernels/css.py:dissimilarity_counts``), [B, m, m] in
+    ``dtype`` with the a individuals first: the kernel reads the a and b
+    codes where they lie, with no joint copy.  ``npos`` may lie on the
+    host or the card."""
+    if is_cpu(avals):
+        return dissimilarity_gathered_plain(avals, bvals, npos).to(dtype)
+    if avals.dtype != torch.int16 or bvals.dtype != torch.int16:
+        raise TypeError("css_dissim_gathered kernel takes int16 genotype codes")
+    if (avals.dim() != 3 or bvals.dim() != 3 or avals.shape[:2] != bvals.shape[:2]
+            or not avals.is_contiguous() or not bvals.is_contiguous()):
+        raise ValueError(
+            "css_dissim_gathered kernel takes contiguous [B, P, a] and [B, P, b] codes"
+        )
+    dev = avals.device
+    B, P, asize = avals.shape
+    bsize = bvals.shape[2]
+    m = asize + bsize
+    out = torch.empty((B, m, m), dtype=dtype, device=dev)
+    if B == 0:
+        return out
+    npos = torch.as_tensor(npos)
+    if int(npos.max()) > P:
+        raise ValueError(f"a window claims {int(npos.max())} SNPs; the batch holds {P} rows")
+    rows = 32 * _GATHER_WORDS
+    _smem_check("css_dissim_gathered", m, _GATHER_WORDS,
+                _align16(rows * asize * 2) + _align16(rows * bsize * 2))
+    npos_d = npos.to(dev, torch.int64).contiguous()
+    launch(
+        LAUNCHES, "css_dissim_gathered", f"css_dissim_gathered_{dtype_suffix(dtype)}", dev,
+        ptr(avals), ptr(bvals), ptr(npos_d), B, P, asize, bsize, ptr(out),
+    )
+    return out
+
+
+# the kernels' bit planes, mirrored in torch: words hold 32 SNPs each as
+# int64 values in [0, 2^32), bit b of word k the SNP 32 k + b
+
+def _words(bits: torch.Tensor, nwords: int) -> torch.Tensor:
+    """[..., S, c] bools -> [..., nwords, c] words of 32 rows (rows past S
+    are 0): the kernels' ballots."""
+    S = bits.shape[-2]
+    pad = 32 * nwords - S
+    b = torch.nn.functional.pad(bits.to(torch.int64), (0, 0, 0, pad))
+    b = b.reshape(*bits.shape[:-2], nwords, 32, bits.shape[-1])
+    weight = torch.ones(32, dtype=torch.int64, device=bits.device) << torch.arange(
+        32, device=bits.device)
+    return (b * weight[:, None]).sum(-2)
+
+
+def _popcount32(x: torch.Tensor) -> torch.Tensor:
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) & 0xFFFFFFFF) >> 24
+
+
+def _pair_counts(maj: torch.Tensor, mnr: torch.Tensor) -> torch.Tensor:
+    """[B, K, m] words -> [B, m, m] float64 counts: the sum over words of
+    popc(maj_i & mnr_j) + popc(mnr_i & maj_j)."""
+    d = (_popcount32(maj[:, :, :, None] & mnr[:, :, None, :])
+         + _popcount32(mnr[:, :, :, None] & maj[:, :, None, :]))
+    return d.sum(1).to(torch.float64)
+
+
+def pack_bitplanes_plain(vals: torch.Tensor) -> torch.Tensor:
+    """``css_pack``'s planes of the codes [N, m]: [2, ceil(N/32) + 1, m]
+    (hom-major, hom-minor), word-major, the last word 0."""
+    W = (vals.shape[0] + 31) // 32 + 1
+    return torch.stack([_words(vals == 3, W), _words(vals == -3, W)])
+
+
+def dissimilarity_bitplanes_plain(
+    planes: torch.Tensor, lo: torch.Tensor, npos: torch.Tensor
+) -> torch.Tensor:
+    """``css_dissim``'s counts from :func:`pack_bitplanes_plain` planes,
+    float64 [B, m, m]: word k of a window is the funnel shift of plane
+    words lo // 32 + k and + 1 right by lo % 32, its bits past npos
+    cleared."""
+    W = planes.shape[1]
+    m = planes.shape[2]
+    lo = torch.as_tensor(lo).to(planes.device, torch.int64)
+    npos = torch.as_tensor(npos).to(planes.device, torch.int64)
+    B = lo.shape[0]
+    if B == 0:
+        return torch.zeros((0, m, m), dtype=torch.float64, device=planes.device)
+    K = max(1, (int(npos.max()) + 31) // 32)
+    k = torch.arange(K, device=planes.device)
+    at = (lo // 32)[:, None] + k[None, :]                        # [B, K]
+    sh = (lo % 32)[:, None, None]
+    rem = (npos[:, None] - 32 * k[None, :]).clamp(0, 32)[..., None]
+    keep = (torch.ones_like(rem) << rem) - 1
+
+    def window_words(plane):
+        first = plane[at.clamp(max=W - 1)]                       # [B, K, m]
+        second = plane[(at + 1).clamp(max=W - 1)]
+        return (((second << 32) | first) >> sh) & 0xFFFFFFFF & keep
+
+    return _pair_counts(window_words(planes[0]), window_words(planes[1]))
+
+
+def gathered_bitplanes_plain(
+    avals: torch.Tensor, bvals: torch.Tensor, npos: torch.Tensor
+) -> torch.Tensor:
+    """``css_dissim_gathered``'s counts, float64 [B, m, m]: each window's
+    words packed from its a codes, then its b codes, rows past npos 0."""
+    B, P = avals.shape[:2]
+    npos = torch.as_tensor(npos).to(avals.device, torch.int64)
+    K = max(1, (P + 31) // 32)
+    row_in = (torch.arange(P, device=avals.device)[None, :] < npos[:, None])[..., None]
+    planes = [
+        torch.cat([_words((avals == c) & row_in, K), _words((bvals == c) & row_in, K)],
+                  dim=-1)
+        for c in (3, -3)
+    ]
+    return _pair_counts(*planes)
 
 
 def dissimilarity_freq(
@@ -402,22 +563,6 @@ def smacof_runs(
 
 
 # ------------------------------------------------ K6's order of operations
-
-
-def _lane_sum(v: torch.Tensor) -> torch.Tensor:
-    """K6's warp sum of v [..., P] (``csrc/css_smacof.cu``: element p on
-    lane p % 32, each lane's partial added in p order from 0, then the
-    xor butterfly of ``css_common.cuh:warp_sum``)."""
-    P = v.shape[-1]
-    K = -(-P // 32)
-    lanes = torch.nn.functional.pad(v, (0, 32 * K - P)).reshape(*v.shape[:-1], K, 32)
-    acc = torch.zeros_like(lanes[..., 0, :])
-    for k in range(K):
-        acc = acc + lanes[..., k, :]
-    idx = torch.arange(32, device=v.device)
-    for o in (16, 8, 4, 2, 1):
-        acc = acc + acc[..., idx ^ o]
-    return acc[..., 0]
 
 
 def _pair_pass(fp: torch.Tensor, x: torch.Tensor, i: torch.Tensor, j: torch.Tensor,
@@ -749,6 +894,13 @@ def css_phase1(
         asize = bsize = 1
     else:
         dis = css_dissim(vals, lo, npos, dtype)
+    return _score_windows(dis, npos, asize, bsize, mds, key, slots, smacof_iters,
+                          smacof_inits, smacof_eps)
+
+
+def _score_windows(dis, npos, asize, bsize, mds, key, slots, smacof_iters, smacof_inits,
+                   smacof_eps):
+    """K5 (``mds=0``) or K6 on the windows' dissimilarities."""
     if mds == 0:
         return css_cmds(dis, npos, asize, bsize)
     return css_smacof(
@@ -778,36 +930,41 @@ def css_window_batch(
     dist [B, m, m], valid [B]).  ``valid`` is False for empty windows and
     fill-averages discards, whose score is 0.
 
-    The windows are one joint ``[B*P, a+b]`` matrix with window b at rows
-    ``b*P .. b*P + npos[b]``, scored by :func:`css_phase1` (K3's counts,
-    then K5 or K6; the same integer counts as ``dissimilarity_counts``).
     Genotype codes go in as int16 (``codes_int16``: the counts only
-    ``==``-compare them); drosophila frequencies keep their float values
-    (columns 0 and ``asize``).  ``plain=True`` runs the plain torch
-    versions on any device (the twin a card run is held against)."""
+    ``==``-compare them) and their counts come from
+    :func:`css_dissim_gathered`, which reads the a and b codes where they
+    lie (K4's gather form; the same integer counts as
+    ``dissimilarity_counts``), then K5 or K6.  Drosophila frequencies keep
+    their float values (column 0 of each group).  ``plain=True`` runs the
+    plain torch versions on any device (the twin a card run is held
+    against)."""
     B, P = avals.shape[:2]
     npos = torch.as_tensor(npos).to(torch.int64)
     slot = torch.arange(B) if slot is None else torch.as_tensor(slot).to(torch.int64)
-    joint = torch.cat([avals, bvals], dim=-1).reshape(B * P, asize + bsize)
-    if not drosophila:
-        joint = codes_int16(joint).contiguous()
-    lo = torch.arange(B, dtype=torch.int64) * P
-    if not plain:
-        return css_phase1(
-            joint, lo, npos.cpu(), asize, bsize, fast=fast, mds=mds, key=key,
-            slots=slot.cpu(), drosophila=drosophila, smacof_iters=smacof_iters,
-            smacof_inits=smacof_inits, smacof_eps=smacof_eps,
-        )
     dtype = compute_dtype("fast" if fast else "exact")
-    dev = joint.device
-    lo, npos = lo.to(dev), npos.to(dev)
+    dev = avals.device
+    if not plain and not is_cpu(avals):
+        # one pinned upload serves every kernel
+        rows = torch.stack([npos.cpu(), slot.cpu()]).pin_memory().to(dev, non_blocking=True)
+        npos_d, slot_d = rows[0], rows[1]
+    else:
+        npos_d, slot_d = npos.to(dev), slot.to(dev)
     if drosophila:
-        dis = dissimilarity_freq_windows(joint[:, 0], joint[:, asize], lo, npos).to(dtype)
+        lo = torch.arange(B, dtype=torch.int64, device=dev) * P
+        dis = dissimilarity_freq_windows(avals[..., 0].reshape(B * P),
+                                         bvals[..., 0].reshape(B * P), lo, npos_d).to(dtype)
         asize = bsize = 1
     else:
-        dis = dissimilarity_plain(joint, lo, npos).to(dtype)
+        a16, b16 = (codes_int16(v).contiguous() for v in (avals, bvals))
+        if plain:
+            dis = dissimilarity_gathered_plain(a16, b16, npos_d).to(dtype)
+        else:
+            dis = css_dissim_gathered(a16, b16, npos, dtype)
+    if not plain:
+        return _score_windows(dis, npos_d, asize, bsize, mds, key, slot_d, smacof_iters,
+                              smacof_inits, smacof_eps)
     if mds == 0:
-        return css_cmds_plain(dis, npos, asize, bsize)
+        return css_cmds_plain(dis, npos_d, asize, bsize)
     return css_smacof_plain(
-        dis, npos, asize, bsize, mds, key, slot, smacof_inits, smacof_iters, smacof_eps
+        dis, npos_d, asize, bsize, mds, key, slot_d, smacof_inits, smacof_iters, smacof_eps
     )[:3]

@@ -416,6 +416,34 @@ def _order_stat_uniforms(wkeys, nf, t1, t2, nsamples, steps_max, dtype):
     return u1, u2
 
 
+def _lane_sum(v: torch.Tensor) -> torch.Tensor:
+    """The kernels' warp sum of v [..., P] (K2's stddev,
+    ``csrc/fet_window_stats.cuh:lane_order_stddev``, and K6's stress,
+    ``csrc/css_smacof.cu``): element p on lane p % 32, each lane's partial
+    added in p order from 0, then the xor butterfly over the lanes.  The
+    zero padding of the last row adds +0.0 to partials that are never
+    -0.0, so it changes no bit."""
+    P = v.shape[-1]
+    K = -(-P // 32)
+    lanes = torch.nn.functional.pad(v, (0, 32 * K - P)).reshape(*v.shape[:-1], K, 32)
+    acc = torch.zeros_like(lanes[..., 0, :])
+    for k in range(K):
+        acc = acc + lanes[..., k, :]
+    idx = torch.arange(32, device=v.device)
+    for o in (16, 8, 4, 2, 1):
+        acc = acc + acc[..., idx ^ o]
+    return acc[..., 0]
+
+
+def _lane_stddev(reps: torch.Tensor) -> torch.Tensor:
+    """Population stddev of each row of ``reps`` [B, S] as the kernels
+    take it: the mean is the lane-order total over S, then the squared
+    deviations d * d are summed alike."""
+    count = torch.tensor(reps.shape[-1], dtype=reps.dtype, device=reps.device)
+    d = reps - (_lane_sum(reps) / count)[:, None]
+    return torch.sqrt(_lane_sum(d * d) / count)
+
+
 def _aggregate_sorted(keys_sorted, npos, perc, wkeys, nsamples, dtype, value_of):
     """Window score (interpolated percentile) and bootstrap stddev from
     each window's ascending sort keys ``keys_sorted`` [B, P], the n valid
@@ -447,8 +475,7 @@ def _aggregate_sorted(keys_sorted, npos, perc, wkeys, nsamples, dtype, value_of)
     same = (hi_idx == idx)[:, None]
     x2 = torch.where(same, x1, value_of(_sorted_pick(keys_sorted, npos, rank_of(u2))))
     reps = (1.0 - delta[:, None]) * x1 + delta[:, None] * x2
-    mu = reps.mean(-1, keepdim=True)
-    stddev = torch.sqrt(((reps - mu) ** 2).mean(-1))
+    stddev = _lane_stddev(reps)
 
     valid_w = npos > 0
     return (

@@ -15,8 +15,11 @@ differing window and each differing hit bit of K7's words a near tie
 (TIE_RTOL); K7's stop scan equal to its plain version on every window.
 SMACOF (K6): exact 1e-9 on windows whose chosen restart and transform count
 agree with the plain version's, the rest at most 0.1 % of windows (+1);
-fast within FAST_BAND, the JAX package's float32-vs-float64 band measured
-on the CPU (tests/test_torch_smacof.py; this file runs without jax).  K8
+fast mode 2 within FAST_BAND, the JAX package's float32-vs-float64 band
+measured on the CPU (tests/test_torch_smacof.py; this file runs without
+jax); fast mode 1 against the float64 plain version on the same panel,
+within the larger of FAST_BAND and the JAX package's own float32-vs-float64
+maximum on that panel (SMACOF_F32_BAND, tests/measure_smacof_band.py).  K8
 (``css_mc_window``, float32 mix / threefry and the float64 native form):
 (p, n, hits) identical to the plain versions on >= 99.9 % of windows (the
 float32 form adds the twin's products in the twin's order).  K9
@@ -27,7 +30,11 @@ edges the shared stream's sums within the float32 rounding of the plain
 version's scores (see the test), and the same bits in two calls.  K10
 (``fet_window``): FET tolerances against its plain version (stddev beyond
 them on at most 0.01 % of windows, + 1) and bit-equal to K1 -> K2 on a
-chromosome's windows.  K1r (``fet_lut_rank``, ``fet_snp_ranks``): the
+chromosome's windows; a window's bits do not depend on whether its
+launch took the warp body (P <= 128) or the block body, in K2, K2r and
+K10 alike.  K3 (``css_dissim``, ``css_dissim_gathered``): counts equal to
+the plain twins exactly, at unaligned window starts and tail masks, and
+``css_window_batch`` equal to the joint-matrix route it replaced.  K1r (``fet_lut_rank``, ``fet_snp_ranks``): the
 sorted LUT and every rank equal to the plain version's on the kernel's own
 LUT (signed zeros tied), the scores lut_sorted[ranks] at the FET
 tolerances.  K2r (``fet_aggregate_ranks``): FET tolerances against its
@@ -69,6 +76,10 @@ def band(table: dict, m: int) -> float:
 
 # mds -> (max, 90th percentile): tests/test_torch_smacof.py FAST_BAND
 FAST_BAND = {1: (5.5e-2, 7e-4), 2: (1.53e-1, 7e-4)}
+# m -> the JAX package's own float32-vs-float64 maximum of the mode-1 score
+# on test_css_smacof_kernel's panel (tests/measure_smacof_band.py: 8.64e-2,
+# 6.83e-2, 1.57e-2), rounded up in its second significant digit
+SMACOF_F32_BAND = {21: 8.7e-2, 33: 6.9e-2, 64: 1.6e-2}
 
 
 @pytest.fixture
@@ -308,6 +319,83 @@ def test_css_dissim_kernel_dense_windows(cuda):
     assert torch.equal(k, kcss.dissimilarity_plain(vals, lo, npos))
 
 
+def _edge_windows(m, shift, seed):
+    """Codes [N, m] and windows (lo, npos) of lengths 0, 1, 31, 32, 33, 87
+    and 4096 starting at lo % 32 == shift; the longest ends on the last
+    SNP (tests/test_torch_css_bitplanes.py's windows)."""
+    rs = np.random.default_rng(seed)
+    N = 4096 + 64 + shift
+    vals = rs.choice(np.array([3, -3, 0, -10000], np.int16), size=(N, m),
+                     p=[0.35, 0.3, 0.25, 0.1])
+    lengths = [0, 1, 31, 32, 33, 87, 4096]
+    lo = np.array([96 * i + shift for i in range(6)] + [N - 4096], dtype=np.int64)
+    return torch.from_numpy(vals), torch.from_numpy(lo), torch.tensor(lengths)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shift", [0, 1, 31])
+@pytest.mark.parametrize("m", [2, 21, 64])
+def test_css_dissim_kernel_edges(cuda, m, shift):
+    """K3's funnel shift and tail mask: windows at lo % 32 in {0, 1, 31}
+    of 0 to 4,096 SNPs, equal to the plain twin and to the bit-plane
+    mirror."""
+    vals, lo, npos = _edge_windows(m, shift, seed=m + shift)
+    want = kcss.dissimilarity_plain(vals, lo, npos)
+    mirror = kcss.dissimilarity_bitplanes_plain(kcss.pack_bitplanes_plain(vals), lo, npos)
+    assert torch.equal(mirror, want)
+    for dt in (torch.float64, torch.float32):
+        k = kcss.css_dissim(vals.to(cuda), lo, npos, dt)
+        assert k.dtype == dt and torch.equal(k.double().cpu(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("P", [32, 128, 4096])
+@pytest.mark.parametrize("asize,bsize", [(11, 10), (1, 1), (32, 32), (48, 48)])
+def test_css_dissim_gathered_kernel(cuda, asize, bsize, P):
+    """K4's gather form from separate a and b codes: equal to the plain
+    twin on every window, rows past npos holding codes that must not
+    count; one launch a call."""
+    rs = np.random.default_rng(asize + bsize + P)
+    B = 37
+    codes = np.array([3, -3, 0, -10000], np.int16)
+    av = torch.from_numpy(rs.choice(codes, size=(B, P, asize)))
+    bv = torch.from_numpy(rs.choice(codes, size=(B, P, bsize)))
+    npos = torch.from_numpy(rs.integers(0, P + 1, size=B))
+    npos[:4] = torch.tensor([0, 1, P, P - 1])
+    want = kcss.dissimilarity_gathered_plain(av, bv, npos)
+    for dt in (torch.float64, torch.float32):
+        before = kcss.LAUNCHES["css_dissim_gathered"]
+        k = kcss.css_dissim_gathered(av.to(cuda), bv.to(cuda), npos, dt)
+        torch.cuda.synchronize()
+        assert kcss.LAUNCHES["css_dissim_gathered"] == before + 1
+        assert k.dtype == dt and torch.equal(k.double().cpu(), want)
+    with pytest.raises(ValueError, match="rows"):
+        kcss.css_dissim_gathered(av.to(cuda), bv.to(cuda), npos + P, torch.float64)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prec", ["exact", "fast"])
+@pytest.mark.parametrize("mds", [0, 1])
+def test_css_window_batch_equals_joint_route(cuda, prec, mds):
+    """css_window_batch on the card (K4's gather form on the a and b codes)
+    equals the route it replaced — one joint [B P, a + b] matrix through
+    css_phase1 (K3 on windows at b P) — bit for bit."""
+    pos, am, bm = make_panel(20_000, 1_000_000, 11, 10, seed=6)
+    plan = plan_windows(pos, 1_000_000, 2500, 500)
+    ids = np.nonzero(plan.valid_mask() & (plan.npos > 0))[0]
+    av, bv, npos, slot = _gathered(plan, ids, am, bm)
+    av, bv = av.to(cuda), bv.to(cuda)
+    key = rng.fold_in(rng.prng_key(4), 1)
+    fast = prec == "fast"
+    got = kcss.css_window_batch(av, bv, npos, key, 11, 10, mds=mds, fast=fast, slot=slot)
+    B, P = av.shape[:2]
+    joint = torch.cat([av, bv], dim=-1).reshape(B * P, 21).contiguous()
+    want = kcss.css_phase1(joint, torch.arange(B) * P, npos, 11, 10, fast=fast, mds=mds,
+                           key=key, slots=slot)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
+
+
 def _negative_windows(n, m, dt, device, seed=0):
     """Windows whose diagonal (2) exceeds every off-diagonal entry (~1):
     the filled f^2 is ~11' + 3I, so B = -0.5 J f^2 J is ~-1.5 J, lambda2
@@ -421,10 +509,17 @@ def _smacof_dis(cuda, m, dt):
 @pytest.mark.parametrize("prec", ["exact", "fast"])
 @pytest.mark.parametrize("mds,n_init", [(1, 1), (1, 4), (1, 8), (2, 1)])
 @pytest.mark.parametrize("m", [2, 3, 21, 33, 64])
-def test_css_smacof_kernel(cuda, prec, mds, n_init, m):
+def test_css_smacof_kernel(cuda, monkeypatch, prec, mds, n_init, m):
     """K6 against its plain version: restarts 1, 4 and 8 (mode 1) and the
     CMDS start (mode 2), m across one warp's pairs (1, 3, 210, 528 and
-    2016 pairs); the transforms over every restart counted alike."""
+    2016 pairs); the transforms over every restart counted alike.  Fast
+    mode 1 is held to the float64 plain version on the same panel from the
+    same float32 restarts (as tests/measure_smacof_band.py measures JAX's
+    band), within the larger of FAST_BAND and the JAX package's own
+    float32 band there: two float32 orders may stop a restart at different
+    transforms (the stop's epsilon is below a float32 ulp of the stress)
+    and so pick different restarts, as JAX's float32 does against its
+    float64."""
     dt = torch.float64 if prec == "exact" else torch.float32
     dis, asize, bsize, npos, slots = _smacof_dis(cuda, m, dt)
     key = rng.fold_in(rng.prng_key(3), rng.chrom_hash("chrK"))
@@ -452,6 +547,18 @@ def test_css_smacof_kernel(cuda, prec, mds, n_init, m):
         assert int((kt != pt).sum()) <= 1e-3 * B + 1
     else:
         top, q90 = FAST_BAND[mds]
+        if mds == 1:
+            dis64 = _smacof_dis(cuda, m, torch.float64)[0]
+            draw = rng.smacof_inits
+            monkeypatch.setattr(rng, "smacof_inits", lambda wkeys, n, width, dtype: draw(
+                wkeys, n, width, torch.float32).to(dtype))
+            ps, _, pv, _, _ = kcss.css_smacof_plain(dis64, npos, asize, bsize, mds, key,
+                                                    slots, n_init)
+            assert torch.equal(kv, pv) and torch.equal(ks.isnan(), ps.isnan())
+            sel = ~ps.isnan() & pv
+            got, want = ks.double()[sel].cpu().numpy(), ps[sel].cpu().numpy()
+            rel = np.abs(got - want) / np.maximum(np.abs(want), 1.0)
+            top = max(top, SMACOF_F32_BAND.get(m, 0.0))
         assert rel.max(initial=0.0) <= top and np.quantile(rel, 0.9) <= q90
 
 
@@ -913,6 +1020,117 @@ def test_fet_window_kernel_refuses(cuda):
     big = torch.zeros((1, 5000, 3), dtype=torch.int16, device=cuda)
     with pytest.raises(ValueError, match="at most"):
         kfet.fet_window_batch(big, big, torch.tensor([4500]), 0.95, key, 10, 5, 8)
+
+
+def _synthetic_gathered(B, P, npos_max, asize, bsize, seed):
+    """[B, P, a] / [B, P, b] codes with npos in [1, npos_max] (the first
+    window holds npos_max) and their slots."""
+    rs = np.random.default_rng(seed)
+    codes = np.array([3, -3, 0, -10000], np.int16)
+    av = torch.from_numpy(rs.choice(codes, size=(B, P, asize), p=[0.4, 0.3, 0.25, 0.05]))
+    bv = torch.from_numpy(rs.choice(codes, size=(B, P, bsize), p=[0.4, 0.3, 0.25, 0.05]))
+    npos = torch.from_numpy(rs.integers(1, npos_max + 1, size=B))
+    npos[0] = npos_max
+    return av, bv, npos, torch.arange(B, dtype=torch.int64) * 3 + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prec", ["exact", "fast"])
+@pytest.mark.parametrize("P", [256, 4096])
+def test_fet_window_kernel_block_path(cuda, prec, P):
+    """K10's block body (P > 128) against its plain version."""
+    av, bv, npos, slot = _synthetic_gathered(24, P, P - 3, 11, 10, seed=P)
+    maxs, nmax = kfet.support_size(11, 10), 23
+    key = rng.fold_in(rng.prng_key(7), 0)
+    fast = prec == "fast"
+    k = kfet.fet_window_batch(av.to(cuda), bv.to(cuda), npos, 0.95, key, 100, maxs, nmax,
+                              fast, slot)
+    p = kfet.fet_window_batch_plain(av, bv, npos, 0.95, key, 100, maxs, nmax, fast, slot)
+    assert _rel(k[0], p[0]) <= TOL[prec]
+    sd = (k[1].double().cpu() - p[1].double()).abs() / p[1].double().abs().clamp(min=1.0)
+    assert int((sd > TOL[prec]).sum()) <= 1
+
+
+def _float_bits(t):
+    return t.view(torch.int64 if t.dtype == torch.float64 else torch.int32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prec", ["exact", "fast"])
+def test_window_body_is_path_independent(cuda, prec):
+    """The warp body (a launch whose windows all have P <= 128) and the
+    block body (the same windows beside one of 200 SNPs) give every window
+    the same bits, in K10, K2 and K2r; and K10 equals K2 and K2r on the
+    same tables either way."""
+    fast = prec == "fast"
+    maxs, nmax = kfet.support_size(11, 10), 23
+    av, bv, npos, slot = _synthetic_gathered(301, 256, 128, 11, 10, seed=11)
+    npos[1:40] = torch.arange(1, 40)
+    small = slice(1, None)                  # every window but the first has n <= 128
+    npos_s = npos.clone()
+    npos[0] = 200
+    key = rng.fold_in(rng.prng_key(8), 3)
+    a_d, b_d = av.to(cuda), bv.to(cuda)
+    warp = kfet.fet_window_batch(a_d[small, :128].contiguous(), b_d[small, :128].contiguous(),
+                                 npos_s[small], 0.95, key, 100, maxs, nmax, fast, slot[small])
+    block = kfet.fet_window_batch(a_d, b_d, npos, 0.95, key, 100, maxs, nmax, fast, slot)
+    for w, b in zip(warp, block):
+        assert torch.equal(_float_bits(w), _float_bits(b[small]))
+    # the windows' rows laid end to end as a chromosome: K1 -> K2 and K1r -> K2r
+    B, P = av.shape[:2]
+    rows = torch.arange(P)[None, :] < npos[:, None]
+    vals = torch.cat([av, bv], dim=-1)[rows].to(cuda)
+    lo = torch.cumsum(npos, 0) - npos
+    logs = kfet.fet_snp_logs(vals, 11, maxs, nmax, fast)
+    ls, r = kfet.fet_snp_ranks(vals, 11, maxs, nmax, fast)
+    for sl in (small, slice(None)):
+        k2 = kfet.fet_aggregate(logs, lo[sl], npos[sl], slot[sl], key, 0.95, 100)
+        k2r = kfet.fet_aggregate_ranks(ls, r, lo[sl], npos[sl], slot[sl], key, 0.95, 100)
+        assert torch.equal(k2, k2r)
+        assert torch.equal(k2[0], block[0][sl]) and torch.equal(k2[1], block[1][sl])
+    k2_block = kfet.fet_aggregate(logs, lo, npos, slot, key, 0.95, 100)
+    k2_warp = kfet.fet_aggregate(logs, lo[small], npos[small], slot[small], key, 0.95, 100)
+    assert torch.equal(_float_bits(k2_warp), _float_bits(k2_block[:, small]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prec", ["exact", "fast"])
+def test_unaligned_rows_stage_alike(cuda, prec):
+    """Batches whose window blocks are not 16-byte aligned (P_in = 100 at
+    11 + 10) take 2-byte copies in K10's warp body and K3's gather form:
+    the same bits as the aligned batch of the same windows."""
+    fast = prec == "fast"
+    maxs, nmax = kfet.support_size(11, 10), 23
+    av, bv, npos, slot = _synthetic_gathered(300, 128, 100, 11, 10, seed=21)
+    key = rng.fold_in(rng.prng_key(9), 1)
+    a_d, b_d = av.to(cuda), bv.to(cuda)
+    a_u, b_u = a_d[:, :100].contiguous(), b_d[:, :100].contiguous()
+    assert (100 * 11 * 2) % 16   # the a blocks are not 16-byte aligned
+    aligned = kfet.fet_window_batch(a_d, b_d, npos, 0.95, key, 100, maxs, nmax, fast, slot)
+    unaligned = kfet.fet_window_batch(a_u, b_u, npos, 0.95, key, 100, maxs, nmax, fast, slot)
+    for x, y in zip(aligned, unaligned):
+        assert torch.equal(_float_bits(x), _float_bits(y))
+    dt = torch.float32 if fast else torch.float64
+    assert torch.equal(kcss.css_dissim_gathered(a_d, b_d, npos, dt),
+                       kcss.css_dissim_gathered(a_u, b_u, npos, dt))
+
+
+@pytest.mark.gpu
+def test_fet_window_kernel_wide_panel(cuda):
+    """A panel too wide for a warp to stage its codes (500 + 500 at
+    P = 128: 256 KB) takes the block body: FET tolerances against the
+    plain version (stddev beyond them on at most one window)."""
+    av, bv, npos, slot = _synthetic_gathered(8, 128, 100, 500, 500, seed=22)
+    maxs, nmax = kfet.support_size(500, 500), 1002
+    key = rng.fold_in(rng.prng_key(9), 2)
+    for prec in ("exact", "fast"):
+        fast = prec == "fast"
+        k = kfet.fet_window_batch(av.to(cuda), bv.to(cuda), npos, 0.95, key, 100, maxs, nmax,
+                                  fast, slot)
+        p = kfet.fet_window_batch_plain(av, bv, npos, 0.95, key, 100, maxs, nmax, fast, slot)
+        assert _rel(k[0], p[0]) <= TOL[prec]
+        sd = (k[1].double().cpu() - p[1].double()).abs() / p[1].double().abs().clamp(min=1.0)
+        assert int((sd > TOL[prec]).sum()) <= 1
 
 
 PERM_CHUNKS = [(128, 128), (256, 200), (100, 100), (16, 16)]
