@@ -102,22 +102,43 @@ Phases (any failure exits non-zero and prints no result line):
    at ``--precision exact`` (tracks byte-equal to phases 3 and 6's staged
    runs; walls and the stage split of ``*_summary.json``), on phase 9's
    small files against the staged subcommands (byte-equal), and with
-   ``--num-hosts 2`` (no regions; merged shards = the one-host tracks).
+   ``--num-hosts 2`` (no regions; merged shards = the one-host tracks);
+16. the large panels (70 + 58 and 110 + 90, BASELINE.md's envelope):
+   (a) the large-panel kernels against their plain versions, both
+   precisions — K3's tile form (``css_dissim_tiles``) and K7's
+   coefficients (``css_mc_coeff_block``, 16 chunks, both draw streams)
+   on the 19,997 windows of the 200 k-SNP workload (K3 beside one
+   ``torch.bmm`` of the windows' one-hots), K5's block form
+   (``css_cmds_block``) timed on them and, beside its plain version, on
+   the first LARGE_PLAIN_WINDOWS (cuSOLVER's ``torch.linalg.eigh``, timed
+   on the same centred matrices, is the plain version's solver), K6's
+   block form (``css_smacof_block``, modes 1 and 2) on the 997 windows of
+   the 10 k workload; K3, K5 and K7 at 150 + 150 on 300 windows (the
+   device-memory slabs); every kernel on both sides of each
+   shared-memory switch the main path crosses up to m = 300; (b) their main path: ``run_css`` at its
+   defaults with 20,000 permutations in both precisions at both sizes
+   (warm wall, windows/s, MC permutations/s, the MC's ranges), with
+   ``rng="threefry"``, and with
+   ``mds=SMACOF`` / ``CMDS_SMACOF`` at 70 + 58, ``run_css`` on the card
+   against the CPU at 70 + 58, and ``run-css`` and ``run-all`` on a
+   20 k-SNP / 1 Mbp GTrack pair at 110 + 90, both precisions, run-all's
+   tracks equal to run-css's and to the library's.
 
 Kernel launch counts are reset before phase 3 and read after phase 4 (the
 FET path), reset before phase 6 and read after phase 7 (the CMDS CSS
 path), reset before phase 9 and read after it (the SMACOF and drosophila
 CSS path), reset before phase 11 and read after it (K8, K9 and K7 under
 threefry), reset before phase 13 and read after it (the sharded step:
-K10, K3's gather form, K5, K11), and reset before phase 15 and read after it (run-all:
-K1, K2, K1r, K2r, K3, K5, K7).  The last three lines are a JSON line of per-kernel
-results (with each kernel's ``bound_ms``: the larger of its bytes over
-3.35 TB/s and its operations over 67 TFLOP/s float32 / 34 TFLOP/s
-float64, from this run's inputs — K2's, K2r's and K10's count the
-threefry hashes and pows these windows' bootstraps need; and
-``library_ms``, one PyTorch call computing the same product where one
-exists), the card's name and power
-limit, and ``{"ok": true, "device": {...}}``.
+K10, K3's gather form, K5, K11), reset before phase 15 and read after it
+(run-all: K1, K2, K1r, K2r, K3, K5, K7), and reset before phase 16b and
+read after it (the large-panel kernels, K7's product and scan).  The
+last three lines are a JSON line of per-kernel results (with each
+kernel's ``bound_ms``: the larger of its bytes over 3.35 TB/s and its
+operations over 67 TFLOP/s float32 / 34 TFLOP/s float64, from this run's
+inputs — K2's, K2r's and K10's count the threefry hashes and pows these
+windows' bootstraps need; and ``library_ms``, one PyTorch call computing
+the same product where one exists), the card's name and power limit, and
+``{"ok": true, "device": {...}}``.
 
 Tolerances (relative to max(|reference|, 1)): FET exact (float64) 1e-12,
 fast (float32) 1e-5; K2's stddev must meet them on at least 99.99 % of
@@ -150,7 +171,13 @@ equal to K1 -> K2 on every bench window (-0.0 == 0.0).  K11: (hits,
 reached, pos) identical on every window.  The step:
 per-window outputs bit-equal across 1 and 4 shares; against its all-plain
 version FET exact 1e-12, CSS 1e-9 on the eigengap windows, hits equal on
-99.9 % of windows.
+99.9 % of windows.  The large panels (phase 16): as above; K6's fast
+band at m = 128 and 200 is the JAX package's own float32-vs-float64 band
+measured at that m in that mode (LARGE_SMACOF_BAND), SMACOF_FAST_BAND
+at the switch points, where none was measured; run_css on the card against the CPU:
+scores at the CSS tolerances, p equal on 99.9 % of windows, each
+differing window a near tie; run-all's tracks equal to the library's
+bit for bit.
 """
 
 from __future__ import annotations
@@ -232,6 +259,32 @@ STEP_WORKLOAD = CSS_WORKLOADS[2]   # K10 / K11 against their plain versions
 # panel of the same size, which K11 and K8's first chunk also meet on
 HIT_PANEL = (200_000, 10_000_000, 7)
 PERM_CHUNK = 128                   # make_divergence_step's mc_chunk default
+# phase 16, the large panels (BASELINE.md's envelope cells,
+# baseline/exp_large_panel.py): 70 + 58 and 110 + 90 on the 200 k-SNP /
+# 10 Mbp chromosome (K3, K5, K7's coefficients: 19,997 windows; K5's plain
+# version, cuSOLVER's eigh at ~1.7 ms a matrix, on the first
+# LARGE_PLAIN_WINDOWS) and the 10 k-SNP / 500 kbp one (K6 and run_css: 997
+# windows, LARGE_MC_RUNS permutations); the device-memory paths at 150 +
+# 150 on LARGE_DEVICE_WINDOWS windows; each kernel's shared-memory
+# switches up to m = 300 on a small chromosome; run_css on the card against the CPU on a
+# stickleback-shaped panel; the CLI on a 20 k-SNP / 1 Mbp GTrack pair
+LARGE_PANELS = ((70, 58), (110, 90))
+LARGE_KERNEL_WORKLOAD = (200_000, 10_000_000, 7)
+LARGE_CSS_WORKLOAD = (10_000, 500_000, 11)
+LARGE_SWITCH_WORKLOAD = (2_000, 100_000, 3)
+LARGE_MC_RUNS = 20_000
+LARGE_PLAIN_WINDOWS = 1_000
+LARGE_DEVICE_PANEL, LARGE_DEVICE_WINDOWS = (150, 150), 300
+LARGE_CPU_PANEL = (3_000, 150_000)
+LARGE_CLI = (20_000, 1_000_000, 9)
+# (mode, m) -> the JAX package's own float32-vs-float64 maximum and 90th
+# percentile of the SMACOF score at that panel size, rounded up in the
+# second digit (tests/measure_smacof_band.py 128:300:256 200:200:256 and
+# --mds 2 128:300 200:200, on the CPU: mode 1 3.157e-4 / 1.540e-5 and
+# 1.039e-4 / 2.962e-7, mode 2 2.265e-3 / 1.141e-4 and 2.568e-3 /
+# 6.127e-5); K6's fast mode is held to these at those m
+LARGE_SMACOF_BAND = {(1, 128): (3.2e-4, 1.6e-5), (1, 200): (1.1e-4, 3.0e-7),
+                     (2, 128): (2.3e-3, 1.2e-4), (2, 200): (2.6e-3, 6.2e-5)}
 REPLACES = {
     "fet_lut_build": "divergence_tpu/kernels/fet.py:372",
     "fet_snp_logs": "divergence_tpu/kernels/fet.py:318",
@@ -250,6 +303,10 @@ REPLACES = {
     "fet_lut_rank": "divergence_tpu/kernels/fet.py:454",
     "fet_snp_ranks": "divergence_tpu/kernels/fet.py:454",
     "fet_aggregate_ranks": "divergence_tpu/kernels/fet.py:495",
+    "css_dissim_tiles": "divergence_tpu/kernels/css.py:55",
+    "css_cmds_block": "divergence_tpu/kernels/linalg.py:247",
+    "css_smacof_block": "divergence_tpu/kernels/css.py:225",
+    "css_mc_coeff_block": "divergence_tpu/kernels/perm.py:249",
 }
 SOURCES = {
     "fet_lut_build": "divergence_tpu_torch/csrc/fet_snp.cu",
@@ -269,7 +326,15 @@ SOURCES = {
     "fet_lut_rank": "divergence_tpu_torch/csrc/fet_rank.cu",
     "fet_snp_ranks": "divergence_tpu_torch/csrc/fet_rank.cu",
     "fet_aggregate_ranks": "divergence_tpu_torch/csrc/fet_aggregate_ranks.cu",
+    "css_dissim_tiles": "divergence_tpu_torch/csrc/css_dissim.cu",
+    "css_cmds_block": "divergence_tpu_torch/csrc/css_cmds.cu",
+    "css_smacof_block": "divergence_tpu_torch/csrc/css_smacof.cu",
+    "css_mc_coeff_block": "divergence_tpu_torch/csrc/css_mc.cu",
 }
+# the large-panel path (phase 16b): these launch there, with K7's product
+# and scan
+LARGE_PATH = ("css_dissim_tiles", "css_cmds_block", "css_smacof_block", "css_mc_coeff_block",
+              "css_mc_shared", "css_mc_scan")
 # K1r's LUT sort also at the largest symmetric panel where the LUT is on
 # (39^4 = 2,313,441 entries; 39 + 39 fails lut_active's 1e8 bound)
 RANK_BIG_PANEL = 38
@@ -1117,11 +1182,13 @@ def bootstrap_ops(npos, perc: float, nsamples: int, fast: bool) -> dict:
     return {"f32": ints + pows} if fast else {"f32": ints, "f64": pows}
 
 
-def smacof_check(torch, kcss, dis, npos, asize, bsize, mds, key, slots, prec, label):
-    """css_smacof against css_smacof_plain on the card at one precision.
-    Returns ((max_abs_err, max_rel_err, kernel ms, plain ms), windows whose
-    chosen restart or transform count differ, Guttman transforms of every
-    restart summed over the windows)."""
+def smacof_check(torch, kcss, dis, npos, asize, bsize, mds, key, slots, prec, label,
+                 band=None):
+    """css_smacof against css_smacof_plain on the card at one precision
+    (fast: within ``band``, (max, 90th percentile), by default
+    SMACOF_FAST_BAND).  Returns ((max_abs_err, max_rel_err, kernel ms,
+    plain ms), windows whose chosen restart or transform count differ,
+    Guttman transforms of every restart summed over the windows)."""
     dt = torch.float32 if prec == "fast" else torch.float64
     d = dis.to(dt).contiguous()
     total = torch.zeros(d.shape[0], dtype=torch.int32, device=d.device)
@@ -1148,7 +1215,7 @@ def smacof_check(torch, kcss, dis, npos, asize, bsize, mds, key, slots, prec, la
         check(err <= TOL_CSS, f"{label} {prec}: {err} > {TOL_CSS}")
         check(differ <= SMACOF_DIFFER_SHARE * B, f"{label} {prec}: {differ} windows differ")
     else:
-        top, q90 = SMACOF_FAST_BAND[mds]
+        top, q90 = band or SMACOF_FAST_BAND[mds]
         err = float(rel.max()) if rel.numel() else 0.0
         q = float(torch.quantile(rel, 0.9)) if rel.numel() else 0.0
         tol_txt = (f"max_rel_err={err:.3e} (band {top:g}), 90th percentile {q:.3e} "
@@ -1163,6 +1230,12 @@ def smacof_check(torch, kcss, dis, npos, asize, bsize, mds, key, slots, prec, la
         f"{float(total.double().mean()):.1f} a window over every restart: {tol_txt}; "
         f"kernel {ms:.3f} ms plain {pms:.3f} ms")
     return (abs_err(got, want), err, ms, pms), differ, int(total.sum())
+
+
+def large_smacof_band(mds: int, m: int) -> tuple:
+    """K6's fast band at panel size m: the JAX package's own float32 band
+    measured at that m in that mode, else SMACOF_FAST_BAND."""
+    return LARGE_SMACOF_BAND.get((mds, m), SMACOF_FAST_BAND[mds])
 
 
 def phase_smacof_kernels(torch, pair, plan_ids, dev, results) -> None:
@@ -2535,6 +2608,433 @@ def phase_run_all(torch, dev, tmp: Path, files) -> dict:
     return walls
 
 
+def large_cells(torch, a, b, workload, dev):
+    """(codes [N, m] on the card, lo, npos, slot host tensors) of a
+    make_chromosome workload's valid windows at panel a + b."""
+    from divergence_tpu_torch.engine import SnpPair
+    from divergence_tpu_torch.tools.synth import make_chromosome
+
+    npos_, region, seed = workload
+    pos, am, bm = make_chromosome(npos_, region, a, b, seed)
+    return (SnpPair(pos, am, bm).to_device(dev), *windows_of(torch, pos, region))
+
+
+def form_switches(form, lo: int, hi: int) -> list:
+    """The panel sizes m where ``form(m)`` changes between lo and hi: each
+    switch as (m - 1, m), the last m of one form and the first of the next."""
+    out, prev = [], form(lo)
+    for m in range(lo + 1, hi + 1):
+        cur = form(m)
+        if cur != prev:
+            out.append((m - 1, m))
+        prev = cur
+    return out
+
+
+def cmds_case(torch, kcss, dis, npos, a, b, prec, label) -> tuple:
+    """K5 against css_cmds_plain on the windows ``dis`` at one precision
+    (exact 1e-9 / fast rtol 2e-3 atol 1e-4 where the eigengap exceeds 1e-6;
+    valid flags and NaN patterns equal).  Returns (max_abs_err,
+    max_rel_err, windows excluded by the eigengap)."""
+    dt = torch.float32 if prec == "fast" else torch.float64
+    d = dis.to(dt).contiguous()
+    ks, _, kv = kcss.css_cmds(d, npos, a, b)
+    ps, _, pv = kcss.css_cmds_plain(d, npos, a, b)
+    torch.cuda.synchronize()
+    check(torch.equal(kv, pv), f"{label} {prec}: valid flags differ")
+    check(torch.equal(ks.isnan(), ps.isnan()), f"{label} {prec}: NaN patterns differ")
+    ok = gap_ok(torch, kcss, dis)
+    sel = ok & ~ps.isnan() & pv
+    got, want = ks.double()[sel], ps.double()[sel]
+    if prec == "exact":
+        bad = int((((got - want).abs() / want.abs().clamp(min=1.0)) > TOL_CSS).sum())
+    else:
+        bad = int(((got - want).abs() > FAST_ATOL + FAST_RTOL * want.abs()).sum())
+    excluded = int((~ok).sum())
+    check(bad == 0, f"{label} {prec}: {bad} windows beyond tolerance")
+    check(excluded <= 0.01 * d.shape[0] + 1, f"{label}: {excluded} degenerate windows")
+    return abs_err(got, want), rel_err(got, want), excluded
+
+
+def phase_large_kernels(torch, dev, card, results) -> None:
+    """Phase 16a: the large-panel forms of K3, K5, K7's coefficients and K6
+    against their plain versions on the card, both precisions, at 70 + 58
+    and 110 + 90 (timed by CUDA events with their bounds and library
+    yardsticks), the device-memory paths at 150 + 150, and each kernel on
+    both sides of each shared-memory switch the main path crosses up to
+    m = 300."""
+    import numpy as np
+
+    from divergence_tpu_torch import rng
+    from divergence_tpu_torch.kernels import css as kcss
+    from divergence_tpu_torch.kernels import perm as kperm
+
+    for a, b in LARGE_PANELS:
+        m = a + b
+        vals, lo, npos, slot = large_cells(torch, a, b, LARGE_KERNEL_WORKLOAD, dev)
+        B = lo.numel()
+        lo_d, npos_d = lo.to(dev), npos.to(dev)
+        tag = f"{a}+{b}"
+        # K3: exact integer counts, the tile form at both sizes
+        plain64 = kcss.dissimilarity_plain(vals, lo, npos)
+        check(kcss.dissim_form(m) == "tiles", f"css_dissim at m = {m} takes the warp form")
+        words = int(((npos + 31) // 32).sum())
+        for prec in ("fast", "exact"):
+            dt = torch.float32 if prec == "fast" else torch.float64
+            k = kcss.css_dissim(vals, lo, npos, dt)
+            torch.cuda.synchronize()
+            diff = abs_err(k, plain64)
+            ms = cuda_ms(torch, lambda: kcss.css_dissim(vals, lo_d, npos_d, dt), 3)
+            pms = cuda_ms(torch, lambda: kcss.dissimilarity_plain(vals, lo, npos).to(dt), 1)
+            bnd = bound(vals.numel() * 2 + B * (16 + m * m * k.element_size()),
+                        {"f32": 6 * words * m * (m - 1) // 2})
+            say(f"[K3 css_dissim_tiles {tag} {prec}] B={B} windows: max_abs_diff={diff} "
+                f"(exact counts); kernel {ms:.4f} ms plain {pms:.4f} ms, bound {bnd[0]:.4f} "
+                f"ms ({bnd[1]}) on {card}")
+            check(diff == 0.0, f"css_dissim {tag} {prec}: counts differ by {diff}")
+            results["css_dissim_tiles"][f"{prec}_{m}"] = (diff, diff, ms, pms)
+            results["css_dissim_tiles"][f"bound_{prec}_{m}"] = bnd
+            del k
+        # the library yardstick, as phase 12's: one torch.bmm of the
+        # windows' float32 one-hots [B, m, 2P] @ [B, 2P, m], P the widest
+        # window (the gather and the one-hots built beforehand, not timed)
+        P = int(npos.max())
+        offs = torch.arange(P, device=dev)[None, :]
+        idx = torch.where(offs < npos_d[:, None], lo_d[:, None] + offs, lo_d[:, None])
+        g = vals[idx]
+        A, Bm = onehot_operands(torch, g[..., :a], g[..., a:], npos, P)
+        del g, idx
+        same = torch.equal(torch.bmm(A, Bm).double(), plain64)
+        lib = cuda_ms(torch, lambda: torch.bmm(A, Bm), 3)
+        say(f"[K3 library yardstick {tag}] torch.bmm [{B}, {m}, {2 * P}] @ [{B}, {2 * P}, "
+            f"{m}] float32 one-hots (not timed: their construction): {lib:.4f} ms; equal to "
+            f"the plain counts: {same}")
+        check(same, f"torch.bmm of the one-hots at {tag} differs from the plain counts")
+        results["css_dissim_tiles"][f"library_{m}"] = lib
+        del A, Bm
+        torch.cuda.empty_cache()
+        # K5 on every window, held to its plain version on the first
+        # LARGE_PLAIN_WINDOWS (cuSOLVER's eigh takes ~1.7 ms a matrix here)
+        n = min(B, LARGE_PLAIN_WINDOWS)
+        r = results["css_cmds_block"]
+        for prec in ("fast", "exact"):
+            dt = torch.float32 if prec == "fast" else torch.float64
+            dis = plain64.to(dt)
+            form = kcss.cmds_form(m, dt)
+            err = cmds_case(torch, kcss, plain64[:n], npos_d[:n], a, b, prec,
+                            f"css_cmds {tag}")
+            steps = torch.zeros(B, dtype=torch.int32, device=dev)
+            kcss.css_cmds(dis, npos_d, a, b, steps=steps)
+            ms_all = cuda_ms(torch, lambda: kcss.css_cmds(dis, npos_d, a, b), 2)
+            ms = cuda_ms(torch, lambda: kcss.css_cmds(dis[:n], npos_d[:n], a, b), 2)
+            pms = cuda_ms(torch, lambda: kcss.css_cmds_plain(dis[:n], npos_d[:n], a, b), 1)
+            centred = kcss.double_centre(kcss.fill_averages(dis[:n])[0])
+            lib = cuda_ms(torch, lambda: torch.linalg.eigh(centred), 1)
+            del centred
+            esize, rate = (4, "f32") if prec == "fast" else (8, "f64")
+            bnd, bnd_all = (bound(w * (2 * m * m * esize + 8 + esize + 1),
+                                  {rate: w * 4 * m**3 // 3}) for w in (n, B))
+            say(f"[K5 css_cmds_block {tag} {prec}] form {form}: against the plain version "
+                f"on the first {n} windows ({err[2]} excluded by the eigengap): "
+                f"max_rel_err={err[1]:.3e}; on those {n}: kernel {ms:.3f} ms, plain "
+                f"{pms:.1f} ms, torch.linalg.eigh of the centred matrices {lib:.1f} ms, bound "
+                f"{bnd[0]:.3f} ms ({bnd[1]}); on all {B}: kernel {ms_all:.3f} ms, bound "
+                f"{bnd_all[0]:.3f} ms; multisection steps mean "
+                f"{float(steps.float().mean()):.2f} max {int(steps.max())} on {card}")
+            r[f"{prec}_{m}"] = (err[0], err[1], ms, pms)
+            r[f"bound_{prec}_{m}"] = bnd
+            r[f"subset_{prec}_{m}"] = {"windows": n, "eigh_ms": lib, "excluded": err[2],
+                                       "all_windows": B, "ms_all_windows": ms_all,
+                                       "bound_ms_all_windows": bnd_all[0]}
+            del dis, steps
+        # K7's coefficients, 16 chunks of 256, both draw streams
+        key = rng.fold_in(rng.prng_key(5), 2)
+        for bitgen in ("mix", "threefry"):
+            k = kperm.coeff_range(key, 0, 16, m, a, b, 256, dev, bitgen)
+            p = kperm.coeff_range_plain(key, 0, 16, m, a, b, 256, dev, bitgen)
+            torch.cuda.synchronize()
+            same = torch.equal(k.view(torch.int32), p.view(torch.int32))
+            ms = cuda_ms(torch, lambda: kperm.coeff_range(key, 0, 16, m, a, b, 256, dev,
+                                                           bitgen), 3)
+            pms = cuda_ms(torch, lambda: kperm.coeff_range_plain(key, 0, 16, m, a, b, 256, dev,
+                                                                 bitgen), 1)
+            bnd = bound(k.numel() * 4, {})
+            say(f"[K7 css_mc_coeff_block {tag} {bitgen}] 16 chunks of 256, M [{m * m}, "
+                f"{k.shape[1]}]: bit-equal {same}; kernel {ms:.4f} ms plain {pms:.2f} ms, "
+                f"bound {bnd[0]:.4f} ms ({bnd[1]})")
+            check(same, f"css_mc_coeff_block {tag} {bitgen}: M differs")
+            results["css_mc_coeff_block"][f"{bitgen}_{m}"] = (0.0, 0.0, ms, pms)
+            results["css_mc_coeff_block"][f"bound_{bitgen}_{m}"] = bnd
+            del k, p
+        del plain64, vals
+        torch.cuda.empty_cache()
+
+        # K6: modes 1 and 2 on the 997 windows of the 10 k workload
+        vals, lo, npos, slot = large_cells(torch, a, b, LARGE_CSS_WORKLOAD, dev)
+        dis = kcss.dissimilarity_plain(vals, lo, npos)
+        key = rng.fold_in(rng.prng_key(0), rng.chrom_hash("_"))   # run_css's default
+        npos_d, slot_d = npos.to(dev), slot.to(dev)
+        r = results["css_smacof_block"]
+        for mds in (1, 2):
+            for prec in ("fast", "exact"):
+                dt = torch.float32 if prec == "fast" else torch.float64
+                out, differ, transforms = smacof_check(
+                    torch, kcss, dis, npos_d, a, b, mds, key, slot_d, prec,
+                    f"css_smacof_block mds={mds} {tag} ({kcss.smacof_form(m, mds, dt)})",
+                    band=large_smacof_band(mds, m))
+                r[f"mds{mds}_{prec}_{m}"] = out
+                r.setdefault("differ", {})[f"mds{mds}_{prec}_{m}"] = differ
+                r.setdefault("transforms", {})[f"mds{mds}_{prec}_{m}"] = transforms
+                size = 4 if prec == "fast" else 8
+                r[f"bound_mds{mds}_{prec}_{m}"] = bound(
+                    dis.shape[0] * (2 * m * m * size + 9 + size),
+                    {"f32" if prec == "fast" else "f64": smacof_ops(m) * transforms})
+        del dis, vals
+        torch.cuda.empty_cache()
+
+    # the device-memory paths: 150 + 150 on LARGE_DEVICE_WINDOWS windows
+    a, b = LARGE_DEVICE_PANEL
+    m = a + b
+    vals, lo, npos, slot = large_cells(torch, a, b, LARGE_KERNEL_WORKLOAD, dev)
+    lo, npos = lo[:LARGE_DEVICE_WINDOWS], npos[:LARGE_DEVICE_WINDOWS]
+    plain64 = kcss.dissimilarity_plain(vals, lo, npos)
+    got = kcss.css_dissim(vals, lo, npos, torch.float64)
+    check(torch.equal(got, plain64), f"css_dissim {a}+{b}: counts differ")
+    forms = {"css_cmds": {}}
+    for prec in ("fast", "exact"):
+        dt = torch.float32 if prec == "fast" else torch.float64
+        forms["css_cmds"][prec] = kcss.cmds_form(m, dt)
+        err = cmds_case(torch, kcss, plain64, npos.to(dev), a, b, prec, f"css_cmds {a}+{b}")
+        results["css_cmds_block"][f"device_{prec}_{m}"] = err
+    key = rng.fold_in(rng.prng_key(5), 2)
+    same = torch.equal(kperm.coeff_range(key, 0, 2, m, a, b, 256, dev).view(torch.int32),
+                       kperm.coeff_range_plain(key, 0, 2, m, a, b, 256, dev).view(torch.int32))
+    check(same, f"css_mc_coeff_block {a}+{b}: M differs")
+    say(f"[large panels {a}+{b}] {lo.numel()} windows: css_dissim ({kcss.dissim_form(m)}) "
+        f"counts equal; css_cmds forms {forms['css_cmds']} within the CMDS tolerances "
+        f"({results['css_cmds_block'][f'device_exact_{m}'][1]:.3e} exact); "
+        f"css_mc_coeff ({kperm.coeff_form(m)}) bit-equal")
+    del plain64, vals, got
+
+    # every kernel of the main path on both sides of each shared-memory
+    # switch it crosses up to m = 300, the largest panel above, on a few
+    # windows of a small chromosome (tests/test_torch_kernels_gpu.py
+    # checks every switch, the gathered form's and those above 300 too)
+    checked = []
+    top = sum(LARGE_DEVICE_PANEL)
+
+    def small(m, limit):
+        a, b = (m + 1) // 2, m // 2
+        vals, lo, npos, slot = large_cells(torch, a, b, LARGE_SWITCH_WORKLOAD, dev)
+        return a, b, vals, lo[:limit], npos[:limit], slot[:limit]
+
+    for lo_m, hi_m in form_switches(kcss.dissim_form, 2, top):
+        for m in (lo_m, hi_m):
+            a, b, vals, lo, npos, _ = small(m, 64)
+            check(torch.equal(kcss.css_dissim(vals, lo, npos, torch.float32).double(),
+                              kcss.dissimilarity_plain(vals, lo, npos)),
+                  f"css_dissim at m = {m}: counts differ")
+            checked.append(f"css_dissim {m} {kcss.dissim_form(m)}")
+    for dt, prec in ((torch.float32, "fast"), (torch.float64, "exact")):
+        for lo_m, hi_m in form_switches(lambda m: kcss.cmds_form(m, dt), 2, top):
+            for m in (lo_m, hi_m):
+                a, b, vals, lo, npos, _ = small(m, 32)
+                cmds_case(torch, kcss, kcss.dissimilarity_plain(vals, lo, npos),
+                          npos.to(dev), a, b, prec, f"css_cmds at m = {m}")
+                checked.append(f"css_cmds {prec} {m} {kcss.cmds_form(m, dt)}")
+        key = rng.fold_in(rng.prng_key(0), rng.chrom_hash("_"))
+        for mds in (1, 2):
+            for lo_m, hi_m in form_switches(lambda m: kcss.smacof_form(m, mds, dt), 2, top):
+                for m in (lo_m, hi_m):
+                    a, b, vals, lo, npos, slot = small(m, 16)
+                    smacof_check(torch, kcss, kcss.dissimilarity_plain(vals, lo, npos),
+                                 npos.to(dev), a, b, mds, key, slot.to(dev), prec,
+                                 f"css_smacof at m = {m}", band=large_smacof_band(mds, m))
+                    checked.append(f"css_smacof mds={mds} {prec} {m} "
+                                   f"{kcss.smacof_form(m, mds, dt)}")
+    key = rng.fold_in(rng.prng_key(5), 2)
+    for lo_m, hi_m in form_switches(kperm.coeff_form, 2, top):
+        for m in (lo_m, hi_m):
+            for bitgen in ("mix", "threefry"):
+                args = (key, 1, 2, m, (m + 1) // 2, m // 2, 32, dev, bitgen)
+                check(torch.equal(kperm.coeff_range(*args).view(torch.int32),
+                                  kperm.coeff_range_plain(*args).view(torch.int32)),
+                      f"css_mc_coeff at m = {m} {bitgen}: M differs")
+            checked.append(f"css_mc_coeff {m} {kperm.coeff_form(m)}")
+    say(f"[large panels, switches] equal to the plain versions on both sides of each "
+        f"shared-memory switch: {'; '.join(checked)}")
+    results["large_switches"] = checked
+    torch.cuda.empty_cache()
+
+
+def phase_large_library(torch, dev, card, tmp: Path, results) -> None:
+    """Phase 16b, the large panels' main path: run_css at its defaults
+    (CMDS, the shared stream) with LARGE_MC_RUNS permutations on the 10 k
+    workload at 70 + 58 and 110 + 90, both precisions (warm walls,
+    windows/s, MC permutations/s, the MC's ranges), with threefry draws,
+    and with mds=SMACOF and CMDS_SMACOF at 70 + 58; run_css on the card against run_css on the CPU
+    at 70 + 58; run-css and run-all on a 20 k-SNP GTrack pair at 110 + 90,
+    run-all's tracks equal to run-css's and to the library's."""
+    import numpy as np
+
+    from divergence_tpu_torch import rng
+    from divergence_tpu_torch.config import CssConfig, MdsAlgorithm
+    from divergence_tpu_torch.core.windows import plan_windows
+    from divergence_tpu_torch.engine import SnpPair, run_css, run_fet
+    from divergence_tpu_torch.io import read_score_track
+    from divergence_tpu_torch.kernels import css as kcss
+    from divergence_tpu_torch.kernels import perm as kperm
+    from divergence_tpu_torch.tools import cli, synth
+
+    npos_, region, seed = LARGE_CSS_WORKLOAD
+    walls = results["large_library"] = {}
+    for a, b in LARGE_PANELS:
+        m = a + b
+        pair = SnpPair(*synth.make_chromosome(npos_, region, a, b, seed))
+        modes = [("cmds", {}), ("cmds threefry", {"rng": "threefry"})]
+        if (a, b) == LARGE_PANELS[0]:
+            modes += [("smacof", {"mds": MdsAlgorithm.SMACOF}),
+                      ("cmds+smacof", {"mds": MdsAlgorithm.CMDS_SMACOF})]
+        for mode, kw in modes:
+            for prec in ("fast", "exact"):
+                cfg = CssConfig(precision=prec, mc_runs=LARGE_MC_RUNS, **kw)
+                scans = kperm.LAUNCHES["css_mc_scan"]
+                (scores, pvals), summary, w = warm_runs(
+                    lambda sm: run_css(pair, region, cfg, device=dev, summary=sm))
+                ranges = (kperm.LAUNCHES["css_mc_scan"] - scans) // (len(w) + 1)
+                c, t = summary.counters, summary.timings_s
+                scored = scores != 0
+                check(scores.shape == (region // 500,) and not np.isnan(scores).any()
+                      and not np.isnan(pvals).any(), f"run_css {a}+{b} {mode} {prec}: shape or NaN")
+                check(c["windows_scored"] == int(scored.sum()) > 0, f"run_css {a}+{b}: scored")
+                check(bool(((pvals[scored] > 0) & (pvals[scored] <= 1)).all()),
+                      f"run_css {a}+{b} {mode} {prec}: p outside (0, 1]")
+                best = min(w)
+                say(f"[large library {a}+{b} {mode} {prec}] run_css {npos_} SNPs / {region} bp, "
+                    f"{LARGE_MC_RUNS} permutations: {c['windows_scored']} windows scored, "
+                    f"{c['mc_permutations']} MC permutations; warm wall min {best:.4f} s "
+                    f"median {float(np.median(w)):.4f} s; {c['windows_scored'] / best:,.0f} "
+                    f"windows/s, {c['mc_permutations'] / best:,.0f} perms/s; {ranges} MC "
+                    f"ranges (a host sync each); stages dispatch "
+                    f"{t.get('css_dispatch', 0):.4f} s, phase-1 sync "
+                    f"{t.get('css_phase1_sync', 0):.4f} s, MC {t.get('css_mc', 0):.4f} s "
+                    f"on {card}")
+                walls[f"{mode}_{prec}_{m}"] = {
+                    "wall_s": best, "windows_per_s": c["windows_scored"] / best,
+                    "perms_per_s": c["mc_permutations"] / best, "mc_ranges": ranges}
+        del pair
+
+    # the card against the CPU, 70 + 58, a stickleback-shaped panel whose
+    # null is hit (windows stop early, so the CPU's plain MC stays short)
+    a, b = LARGE_PANELS[0]
+    m = a + b
+    cpos, cam, cbm = synth.make_panel(*LARGE_CPU_PANEL, a, b, seed=5)
+    cpu_region = LARGE_CPU_PANEL[1]
+    pair = SnpPair(cpos, cam, cbm)
+    plan = plan_windows(cpos, cpu_region, 2500, 500)
+    ids = np.nonzero(plan.valid_mask() & (plan.npos > 0))[0]
+    lo, npos = (torch.from_numpy(x[ids].copy()) for x in (plan.lo, plan.npos))
+    dis = kcss.dissimilarity_plain(pair.to_device(dev), lo, npos)
+    gap = np.zeros(cpu_region // 500, dtype=bool)
+    gap[plan.slot[ids]] = gap_ok(torch, kcss, dis).cpu().numpy()
+    for prec in ("fast", "exact"):
+        cfg = CssConfig(precision=prec, mc_runs=LARGE_MC_RUNS, seed=3)
+        g_s, g_p = run_css(pair, cpu_region, cfg, device=dev)
+        c_s, c_p = run_css(pair, cpu_region, cfg, device="cpu")
+        check(np.array_equal(g_s != 0, c_s != 0), f"card vs CPU {prec}: scored windows differ")
+        ok = (c_s != 0) & gap
+        rel = np.abs(g_s - c_s)[ok] / np.maximum(np.abs(c_s[ok]), 1.0)
+        if prec == "exact":
+            check(rel.max(initial=0.0) <= TOL_CSS, f"card vs CPU exact: {rel.max()}")
+        else:
+            check(np.allclose(g_s[ok], c_s[ok], rtol=FAST_RTOL, atol=FAST_ATOL),
+                  "card vs CPU fast scores")
+        differ = np.nonzero(g_p != c_p)[0]
+        if len(differ):   # each a float32 near tie among the permutations
+            _, dist, _ = kcss.css_phase1(pair.to_device(dev), lo, npos, a, b,
+                                         fast=prec == "fast")
+            M = kperm.shared_coeff(rng.fold_in(rng.prng_key(cfg.seed), 2), 0,
+                                   -(-LARGE_MC_RUNS // cfg.mc_chunk), m, a, b, cfg.mc_chunk,
+                                   dev).double()
+            row = {int(s): i for i, s in enumerate(plan.slot[ids])}
+            for s in differ:
+                obs = float(np.float32(g_s[s]))
+                s64 = dist[row[int(s)]].reshape(-1).double() @ M
+                tie = float((s64[:LARGE_MC_RUNS] - obs).abs().min()) / max(abs(obs), 1.0)
+                check(tie <= TIE_RTOL, f"card vs CPU {prec}: slot {s} p differs without a "
+                                       f"near tie ({tie})")
+            del M, dist
+        n_sc = int((c_s != 0).sum())
+        say(f"[large library {a}+{b} card vs CPU {prec}] run_css on {n_sc} windows "
+            f"({int((~gap[c_s != 0]).sum())} excluded by the eigengap): scores max_rel_err="
+            f"{rel.max(initial=0.0):.3e}; p differs on {len(differ)} windows (allowed "
+            f"{int(MC_DIFFER_SHARE * n_sc)}, each a float32 near tie)")
+        check(len(differ) <= MC_DIFFER_SHARE * n_sc, f"card vs CPU {prec}: {len(differ)} p differ")
+    del pair, dis
+
+    # the CLI at 110 + 90: run-css and run-all, both precisions
+    a, b = LARGE_PANELS[1]
+    snps, cli_region, cli_seed = LARGE_CLI
+    pos, am, bm = synth.make_chromosome(snps, cli_region, a, b, cli_seed)
+    a_path, b_path = tmp / "large_popA.gtrack", tmp / "large_popB.gtrack"
+    synth.write_gtrack(a_path, "chrI", pos, am)
+    synth.write_gtrack(b_path, "chrI", pos, bm)
+    sizes = tmp / "large_chrom.sizes"
+    sizes.write_text(f"chrI\t{cli_region}\n")
+    pair = SnpPair(pos, am, bm)
+    inputs = ["--pop-a", str(a_path), "--pop-b", str(b_path), "--chrom-sizes", str(sizes),
+              "--device", str(dev)]
+    for prec in ("fast", "exact"):
+        css_out, out = tmp / f"large_css_{prec}.track", tmp / f"large_all_{prec}"
+        t0 = time.perf_counter()
+        cli.main(["run-css", *inputs, "--out", str(css_out), "--precision", prec])
+        w_css = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cli.main(["run-all", *inputs, "--outdir", str(out), "--precision", prec])
+        w_all = time.perf_counter() - t0
+        args = cli.build_parser().parse_args(["run-all", *inputs, "--outdir", str(out),
+                                              "--precision", prec])
+        lib = {"fet.track": run_fet(pair, cli_region, cli._fet_config(args), device=dev,
+                                    seqid="chrI"),
+               "css.track": run_css(pair, cli_region, cli._css_config(args), device=dev,
+                                    seqid="chrI")}
+        same = {}
+        for name, (sc, aux) in lib.items():
+            _, starts, tsc, taux = read_score_track(out / name)
+            slots = starts // 500
+            nz = np.nonzero(sc)[0]
+            same[name] = (np.array_equal(slots, nz) and np.array_equal(tsc, sc[nz])
+                          and np.array_equal(taux, aux[nz]))
+        same["css.track = run-css"] = (out / "css.track").read_bytes() == css_out.read_bytes()
+        html = (out / "report.html").read_text()
+        _, cstarts, _, cp = read_score_track(out / "css.track")
+        say(f"[large cli {a}+{b} {prec}] {snps} SNPs / {cli_region} bp GTrack pair: run-css "
+            f"{w_css:.2f} s, run-all {w_all:.2f} s (GTrack parse included), {len(cstarts)} "
+            f"CSS rows, p in [{cp.min():.3g}, {cp.max():.3g}]; equal to the library and "
+            f"run-css: {same}")
+        check(all(same.values()), f"large run-all {prec}: {same}")
+        check(len(cstarts) > 0 and bool(((cp > 0) & (cp <= 1)).all()), f"large run-all {prec}")
+        check("FET score track" in html and "CSS regions" in html, f"large run-all {prec}: report")
+        walls[f"cli_{prec}"] = {"run_css_s": w_css, "run_all_s": w_all}
+
+
+def large_entries(results) -> None:
+    """The kernels line's fast / exact / bound fields of the large-panel
+    kernels at 110 + 90 (K6: mode 1), and each one's every case under
+    ``large``."""
+    m = sum(LARGE_PANELS[1])
+    for name, fast, exact in (
+            ("css_dissim_tiles", f"fast_{m}", f"exact_{m}"),
+            ("css_cmds_block", f"fast_{m}", f"exact_{m}"),
+            ("css_smacof_block", f"mds1_fast_{m}", f"mds1_exact_{m}"),
+            ("css_mc_coeff_block", f"mix_{m}", None)):
+        r = results[name]
+        r["large"] = dict(r)
+        r["fast"], r["bound"] = r[fast], r["bound_" + fast]
+        if exact:
+            r["exact"], r["bound_exact"] = r[exact], r["bound_" + exact]
+
+
 def smoke(torch, dev) -> tuple[str, list[dict]]:
     """Every phase on ``dev``; returns (card line, per-kernel results).
     Raises on the first failure."""
@@ -2663,9 +3163,28 @@ def smoke(torch, dev) -> tuple[str, list[dict]]:
         for k in ("fet_lut_rank", "fet_snp_ranks", "fet_aggregate_ranks"):
             launches[k] = all_launches[k]
         results["run_all_walls_s"] = pipeline_walls
+
+        # the large panels: the kernels against their plain versions, then
+        # their main path (run_css in every MDS mode, run-css, run-all)
+        timed_phase("16a", phase_large_kernels, torch, dev, card, results)
+        for mod in (kfet, kcss, kperm):
+            mod.reset_launches()
+        timed_phase("16b", phase_large_library, torch, dev, card, tmp, results)
+        large_launches = {**kcss.LAUNCHES, **kperm.LAUNCHES}
+        coeff_by_bitgen = dict(kperm.COEFF_LAUNCHES)
+        say(f"[large-panel main path] kernel launches: {large_launches}; coefficients by "
+            f"draw stream: {coeff_by_bitgen}")
+        check(all(large_launches[k] > 0 for k in LARGE_PATH)
+              and all(v > 0 for v in coeff_by_bitgen.values()),
+              f"the large-panel path did not launch every kernel: {large_launches}, "
+              f"{coeff_by_bitgen}")
+        for k in ("css_dissim_tiles", "css_cmds_block", "css_smacof_block",
+                  "css_mc_coeff_block"):
+            launches[k] = large_launches[k]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    large_entries(results)
     kernels = []
     for name in REPLACES:
         r = results[name]
@@ -2788,6 +3307,31 @@ def smoke(torch, dev) -> tuple[str, list[dict]]:
             entry["ptxas"] = r["ptxas"]
         if name in FET_PATH + CSS_CMDS_PATH:
             entry["launches_run_all"] = all_launches[name]
+        if name in LARGE_PATH:
+            entry["launches_large_panels"] = large_launches[name]
+        if "large" in r:
+            # ms / plain_ms / bound_ms: 110 + 90 (K5's plain version on the
+            # first LARGE_PLAIN_WINDOWS); every measured case under
+            # large_panels
+            entry["large_panels"] = r["large"]
+        if name == "css_cmds_block":
+            # ms / plain_ms / library_ms / bound_ms: the first
+            # LARGE_PLAIN_WINDOWS windows; then every window of the workload
+            m = sum(LARGE_PANELS[1])
+            entry["windows"] = r["large"][f"subset_fast_{m}"]["windows"]
+            for prec, sfx in (("fast", ""), ("exact", "_exact")):
+                sub = r["large"][f"subset_{prec}_{m}"]
+                entry[f"ms{sfx}_{sub['all_windows']}"] = sub["ms_all_windows"]
+                entry[f"bound_ms{sfx}_{sub['all_windows']}"] = sub["bound_ms_all_windows"]
+            entry["library_ms"] = r["large"][f"subset_fast_{m}"]["eigh_ms"]
+            entry["library_ms_exact"] = r["large"][f"subset_exact_{m}"]["eigh_ms"]
+            entry["library_is"] = ("torch.linalg.eigh of the centred matrices (the eigen "
+                                   "step alone)")
+        if name == "css_dissim_tiles":
+            entry["library_ms"] = r["large"][f"library_{sum(LARGE_PANELS[1])}"]
+            entry["library_is"] = ("torch.bmm of the windows' float32 one-hots [B, m, 2P] "
+                                   "@ [B, 2P, m], P the widest window (the one-hots built "
+                                   "beforehand)")
         if name == "fet_lut_rank":
             # ms / plain_ms: 11 + 10 (one counting pass); then the largest
             # symmetric panel with a LUT (runs and merge passes)

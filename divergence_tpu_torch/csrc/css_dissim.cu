@@ -45,6 +45,25 @@
 // coalesced pass in the compute dtype (exact: a count is at most the
 // window's n).
 //
+// Large panels: the chromosome form takes the warp form where a block
+// holds all kWarps windows' slabs (4 m^2 + 64 m bytes each, to m = 112);
+// above that fewer warps an SM write the counts (one at m = 200: 24.4 ms
+// against the tiles' 2.9 on 19,997 windows, tests/measure_large_panels.py).
+// The gathered form keeps its warp form while one window's slab fits (to
+// m = 207 at an even split).  Above those css_dissim_tile counts a
+// window by tiles of its pair matrix: one block of 32 x 8 threads per
+// (window, 32 x 32 tile), thread (ty, tx) owning cells (i0 + ty + 8q,
+// j0 + tx), q = 0..3, with its four counts in registers.  Each pass
+// stages the tile's 32 row and 32 column individuals' words
+// (funnel-shifted as above, 8 words a pass) in shared memory, and the
+// block writes its tile straight out, a warp per row segment
+// (coalesced).  Both triangles are counted
+// (the diagonal is 0 by itself: no SNP is both homozygotes).  The
+// gathered form first packs its windows' words (css_pack_gathered: one
+// warp per (window, word), a ballot per individual, the last word of a
+// window 0) into per-window planes, then runs the same tile kernel with
+// window w's planes starting at bit 32 w (ceil(P/32) + 1).
+//
 // What bounds it on H100: the output.  A window writes m^2 counts (3.5 KB
 // at m = 21 in float64) and reads its m (ceil(n/32) + 1) words of each
 // plane (~500 bytes at n = 50, from L2: the planes of an 8 M-SNP
@@ -63,7 +82,6 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kWords = 8;                 // words of 32 SNPs a chromosome pass keeps
 constexpr int kGatherWords = 4;           // words (and 32-row blocks) a gathered pass stages
-constexpr size_t kSmemLimit = 232448;     // bytes a Hopper block may use
 
 __host__ __device__ __forceinline__ size_t align16(size_t bytes) {
     return (bytes + 15) & ~static_cast<size_t>(15);
@@ -83,7 +101,7 @@ __host__ __device__ __forceinline__ size_t warp_bytes(int m, int words, size_t c
 }
 
 inline int warps_per_block(size_t bytes) {
-    const size_t fit = kSmemLimit / bytes;
+    const size_t fit = fetk::smem_optin() / bytes;
     return static_cast<int>(fit < kWarps ? fit : kWarps);
 }
 
@@ -251,6 +269,124 @@ css_dissim_gathered(const int16_t* __restrict__ av, const int16_t* __restrict__ 
     write_counts(cnt, m, nwords == 0, out + w * m * m, lane);
 }
 
+constexpr int kTile = 32;                   // individuals per tile side
+constexpr int kTileRows = 8;                // thread rows: each owns 4 rows of the tile
+constexpr int kTileThreads = kTile * kTileRows;
+constexpr int kTileWords = kTileRows;       // words a tile pass stages (one per thread row)
+
+template <typename T>
+__global__ void __launch_bounds__(kTileThreads)
+css_dissim_tile(const uint32_t* __restrict__ maj, const uint32_t* __restrict__ mnr,
+                const int64_t* __restrict__ lo_arr, const int64_t* __restrict__ npos_arr,
+                int64_t nwin, int m, int tiles, T* __restrict__ out) {
+    // [i maj, i mnr, j maj, j mnr][individual][word]; the odd stride keeps
+    // the column words' reads (tx varying) free of bank conflicts
+    __shared__ uint32_t sw[4][kTile][kTileWords + 1];
+    const int tx = threadIdx.x & 31;
+    const int ty = threadIdx.x >> 5;
+    const int64_t per = static_cast<int64_t>(tiles) * tiles;
+    const int64_t w = blockIdx.x / per;
+    if (w >= nwin) return;
+    const int t = static_cast<int>(blockIdx.x - w * per);
+    const int i0 = (t / tiles) * kTile;
+    const int j0 = (t % tiles) * kTile;
+    const int64_t lo = lo_arr[w];
+    const int n = static_cast<int>(npos_arr[w]);
+    const int64_t w0 = lo >> 5;
+    const int sh = static_cast<int>(lo & 31);
+    const int nwords = (n + 31) / 32;
+    int acc[4] = {0, 0, 0, 0};
+    for (int k0 = 0; k0 < nwords; k0 += kTileWords) {
+        const int kw = min(kTileWords, nwords - k0);
+        __syncthreads();   // the previous pass has read the words
+        if (ty < kw) {
+            const int k = k0 + ty;
+            const int rem = n - k * 32;
+            const uint32_t keep = rem < 32 ? (1u << rem) - 1u : ~0u;
+            const int64_t g = (w0 + k) * m;
+            const int ii = i0 + tx;
+            const int jj = j0 + tx;
+            uint32_t a = 0, b = 0, c = 0, d = 0;
+            if (ii < m) {
+                a = __funnelshift_r(maj[g + ii], maj[g + m + ii], sh) & keep;
+                b = __funnelshift_r(mnr[g + ii], mnr[g + m + ii], sh) & keep;
+            }
+            if (jj < m) {
+                c = __funnelshift_r(maj[g + jj], maj[g + m + jj], sh) & keep;
+                d = __funnelshift_r(mnr[g + jj], mnr[g + m + jj], sh) & keep;
+            }
+            sw[0][tx][ty] = a;
+            sw[1][tx][ty] = b;
+            sw[2][tx][ty] = c;
+            sw[3][tx][ty] = d;
+        }
+        __syncthreads();
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+            const int r = ty + kTileRows * q;
+            for (int k = 0; k < kw; ++k) {
+                acc[q] += __popc(sw[0][r][k] & sw[3][tx][k]) + __popc(sw[1][r][k] & sw[2][tx][k]);
+            }
+        }
+    }
+    const int j = j0 + tx;
+    if (j >= m) return;
+    T* o = out + w * m * m;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+        const int i = i0 + ty + kTileRows * q;
+        if (i < m) o[static_cast<int64_t>(i) * m + j] = static_cast<T>(acc[q]);
+    }
+}
+
+// The gathered windows' words into per-window planes [nwin][wpw][m] (word
+// wpw - 1 of every window, past its P rows, is 0): one warp per (window,
+// word), lane b holding row 32 k + b, a's individuals then b's.
+__global__ void __launch_bounds__(kThreads)
+css_pack_gathered(const int16_t* __restrict__ av, const int16_t* __restrict__ bv,
+                  const int64_t* __restrict__ npos_arr, int64_t nwin, int p_in, int asize,
+                  int bsize, int wpw, uint32_t* __restrict__ maj, uint32_t* __restrict__ mnr) {
+    const int lane = threadIdx.x & 31;
+    const int64_t gw = static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+    if (gw >= nwin * wpw) return;
+    const int64_t w = gw / wpw;
+    const int k = static_cast<int>(gw - w * wpw);
+    const int m = asize + bsize;
+    const int r = 32 * k + lane;
+    const bool row_in = r < npos_arr[w];
+    const int16_t* ra = av + (w * p_in + r) * asize;
+    const int16_t* rb = bv + (w * p_in + r) * bsize;
+    for (int i0 = 0; i0 < m; i0 += 32) {
+        uint32_t my_maj = 0, my_mnr = 0;
+        const int span = min(32, m - i0);
+        for (int d = 0; d < span; ++d) {
+            const int i = i0 + d;
+            const int v = !row_in ? 0 : (i < asize ? ra[i] : rb[i - asize]);
+            const uint32_t bmaj = __ballot_sync(kFullMask, v == 3);
+            const uint32_t bmnr = __ballot_sync(kFullMask, v == -3);
+            if (lane == d) {
+                my_maj = bmaj;
+                my_mnr = bmnr;
+            }
+        }
+        if (lane < span) {
+            maj[gw * m + i0 + lane] = my_maj;
+            mnr[gw * m + i0 + lane] = my_mnr;
+        }
+    }
+}
+
+template <typename T>
+int launch_tiles(const uint32_t* maj, const uint32_t* mnr, const int64_t* lo,
+                 const int64_t* npos, int64_t nwin, int m, T* out, cudaStream_t st) {
+    const int tiles = (m + kTile - 1) / kTile;
+    const int64_t blocks = nwin * tiles * tiles;
+    if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+    css_dissim_tile<T><<<static_cast<unsigned>(blocks), kTileThreads, 0, st>>>(
+        maj, mnr, lo, npos, nwin, m, tiles, out);
+    return static_cast<int>(cudaGetLastError());
+}
+
 // Block size and shared memory of a warp-per-window launch.
 template <typename K>
 int configure(K kernel, size_t bytes, int* wpb, size_t* smem) {
@@ -314,7 +450,71 @@ int launch_gathered(const int16_t* av, const int16_t* bv, const int64_t* npos,
     return static_cast<int>(cudaGetLastError());
 }
 
+// The tile form of the chromosome counts: css_pack, then css_dissim_tile.
+template <typename T>
+int launch_dissim_tiles(const int16_t* vals, int64_t N, const int64_t* lo,
+                        const int64_t* npos, int64_t nwin, int m, uint32_t* planes,
+                        T* out, void* stream) {
+    if (nwin == 0) return 0;
+    if (m < 1) return static_cast<int>(cudaErrorInvalidValue);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const int64_t words = (N + 31) / 32 + 1;
+    uint32_t* maj = planes;
+    uint32_t* mnr = planes + words * m;
+    css_pack<<<static_cast<unsigned>((words + kWarps - 1) / kWarps), kThreads, 0, st>>>(
+        vals, N, m, words, maj, mnr);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    return launch_tiles(maj, mnr, lo, npos, nwin, m, out, st);
+}
+
+// The tile form of the gathered counts: css_pack_gathered into planes
+// [2][nwin][wpw][m], then css_dissim_tile with lo = the windows' first
+// bits (32 wpw w, on the card).
+template <typename T>
+int launch_gathered_tiles(const int16_t* av, const int16_t* bv, const int64_t* npos,
+                          const int64_t* lo, int64_t nwin, int p_in, int asize, int bsize,
+                          uint32_t* planes, T* out, void* stream) {
+    if (nwin == 0) return 0;
+    if (asize < 1 || bsize < 1 || p_in < 1) return static_cast<int>(cudaErrorInvalidValue);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const int m = asize + bsize;
+    const int wpw = (p_in + 31) / 32 + 1;
+    uint32_t* maj = planes;
+    uint32_t* mnr = planes + nwin * wpw * m;
+    const int64_t warps = nwin * wpw;
+    css_pack_gathered<<<static_cast<unsigned>((warps + kWarps - 1) / kWarps), kThreads, 0,
+                        st>>>(av, bv, npos, nwin, p_in, asize, bsize, wpw, maj, mnr);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    return launch_tiles(maj, mnr, lo, npos, nwin, m, out, st);
+}
+
 }  // namespace
+
+// The form css_dissim takes at panel size m: 0, css_dissim (a warp per
+// window), where a block holds all kWarps windows' slabs (to m = 112 on
+// Hopper; with fewer warps a block it is the slower), else 1,
+// css_dissim_tiles; neither takes a device slab (*slab_elems = 0).  -1
+// where the device cannot be asked.
+FET_EXPORT int css_dissim_form(int m, int64_t* slab_elems) {
+    *slab_elems = 0;
+    const size_t limit = fetk::smem_optin();
+    if (limit == 0) return -1;
+    return kWarps * warp_bytes(m, kWords, 0) <= limit ? 0 : 1;
+}
+
+// The form css_dissim_gathered takes: 0, a warp per window, while one
+// window's staged codes, words and counts fit a block (to m = 207 at an
+// even split on Hopper), else 1, the tiles.
+FET_EXPORT int css_dissim_gathered_form(int asize, int bsize, int64_t* slab_elems) {
+    *slab_elems = 0;
+    const size_t limit = fetk::smem_optin();
+    if (limit == 0) return -1;
+    const size_t bytes =
+        warp_bytes(asize + bsize, kGatherWords, codes_bytes(asize, bsize, kGatherWords));
+    return bytes <= limit ? 0 : 1;
+}
 
 FET_EXPORT int css_dissim_f64(const int16_t* vals, int64_t N, const int64_t* lo,
                               const int64_t* npos, int64_t nwin, int m,
@@ -338,4 +538,32 @@ FET_EXPORT int css_dissim_gathered_f32(const int16_t* av, const int16_t* bv,
                                        const int64_t* npos, int64_t nwin, int p_in,
                                        int asize, int bsize, float* out, void* stream) {
     return launch_gathered<float>(av, bv, npos, nwin, p_in, asize, bsize, out, stream);
+}
+
+FET_EXPORT int css_dissim_tiles_f64(const int16_t* vals, int64_t N, const int64_t* lo,
+                                    const int64_t* npos, int64_t nwin, int m,
+                                    uint32_t* planes, double* out, void* stream) {
+    return launch_dissim_tiles<double>(vals, N, lo, npos, nwin, m, planes, out, stream);
+}
+
+FET_EXPORT int css_dissim_gathered_tiles_f64(const int16_t* av, const int16_t* bv,
+                                             const int64_t* npos, const int64_t* lo,
+                                             int64_t nwin, int p_in, int asize, int bsize,
+                                             uint32_t* planes, double* out, void* stream) {
+    return launch_gathered_tiles<double>(av, bv, npos, lo, nwin, p_in, asize, bsize, planes,
+                                       out, stream);
+}
+
+FET_EXPORT int css_dissim_tiles_f32(const int16_t* vals, int64_t N, const int64_t* lo,
+                                    const int64_t* npos, int64_t nwin, int m,
+                                    uint32_t* planes, float* out, void* stream) {
+    return launch_dissim_tiles<float>(vals, N, lo, npos, nwin, m, planes, out, stream);
+}
+
+FET_EXPORT int css_dissim_gathered_tiles_f32(const int16_t* av, const int16_t* bv,
+                                             const int64_t* npos, const int64_t* lo,
+                                             int64_t nwin, int p_in, int asize, int bsize,
+                                             uint32_t* planes, float* out, void* stream) {
+    return launch_gathered_tiles<float>(av, bv, npos, lo, nwin, p_in, asize, bsize, planes,
+                                       out, stream);
 }

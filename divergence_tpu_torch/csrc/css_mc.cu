@@ -21,6 +21,22 @@
 // M is bit-equal to _shared_coeff.  Each thread writes one column, so a
 // warp writes 32 consecutive floats of a row.
 //
+// css_mc_coeff_block (kernel css_mc_coeff_groups) — the same M for
+// panels past permk::kMaxM (whose per-thread x / r / ord arrays K8, K9
+// and K11's register designs size):
+// one block of kCoeffBlockThreads threads per (group of 32 columns, slab
+// of M's rows).  A group lies in one chunk (cstride is a multiple of 32).
+// The block draws the group's 32 m words into shared memory [m][32],
+// ranks them there (thread e: column e % 32, individual e / 32, m
+// compares), and writes its rows of M a warp per row, lane = column, so
+// each store is 32 consecutive floats.  Slabs of rows split one group's
+// m^2 rows over several blocks (each ranks the group again: 32 m^2
+// compares, against 32 m^2 stores) so that a range of a few chunks
+// still fills the card.  Where 256 m bytes of draws and ranks exceed a
+// block's shared memory (m > 908) they go to device scratch, one per
+// block.  The same draws, ranks, constants and subtraction: bit-equal to
+// css_mc_coeff and _shared_coeff.
+//
 // css_mc_shared (kernel css_mc_shared_tile) — the range's product for
 // every active window and its hit-mask epilogue, over a 2-D grid of
 // (window tile, column tile), window tiles varying fastest so the blocks
@@ -51,6 +67,8 @@
 // pay for the rest of it: the host keeps the first range short and grows
 // later ones (perm.py:range_chunks).  The hit words are 1/32 of the
 // scores' bytes; the scan reads them once.
+#include <algorithm>
+
 #include "css_perm_common.cuh"
 #include "fet_common.cuh"
 #include "threefry.cuh"
@@ -96,6 +114,66 @@ css_mc_coeff(uint2 mc_key, int k0, int nk, int chunk, int cstride, int m, int as
             const float chain = r[l] == r[j] + 1 ? cw : 0.0f;
             out[static_cast<int64_t>(j * m + l) * ncols + col] = bet - chain;
         }
+    }
+}
+
+constexpr int kCoeffBlockThreads = 256;
+constexpr int kGroup = 32;                  // columns a block draws and ranks
+constexpr int kCoeffBlocksPerSm = 4;        // blocks the row slabs aim at
+
+__global__ void __launch_bounds__(kCoeffBlockThreads)
+css_mc_coeff_groups(uint2 mc_key, int k0, int chunk, int cstride, int m, int asize,
+                   int bitgen, float between, float ca, float cb, int64_t ncols,
+                   int rows_per_slab, uint32_t* __restrict__ gscratch,
+                   float* __restrict__ out) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const int64_t blk = static_cast<int64_t>(blockIdx.y) * gridDim.x + blockIdx.x;
+    uint32_t* xs = gscratch ? gscratch + blk * 2 * kGroup * m
+                            : reinterpret_cast<uint32_t*>(smem_raw);   // [m][32] draws
+    int* rs = reinterpret_cast<int*>(xs + kGroup * m);                 // [m][32] ranks
+    const int tid = threadIdx.x;
+    const int lane = tid & 31;
+    const int warp = tid >> 5;
+    const int mm = m * m;
+    const int64_t c0 = static_cast<int64_t>(blockIdx.x) * kGroup;
+    const int kc = k0 + static_cast<int>(c0 / cstride);
+    const uint32_t K0 = static_cast<uint32_t>(c0 % cstride);
+    const uint2 key = tf::fold_in(mc_key, static_cast<uint32_t>(kc));
+    for (int e = tid; e < kGroup * m; e += kCoeffBlockThreads) {
+        const uint32_t K = K0 + static_cast<uint32_t>(e & (kGroup - 1));
+        const int j = e / kGroup;
+        xs[e] = K < static_cast<uint32_t>(chunk)
+                    ? permk::draw_one(key, K * static_cast<uint32_t>(m) + static_cast<uint32_t>(j),
+                                      bitgen)
+                    : 0u;
+    }
+    __syncthreads();
+    for (int e = tid; e < kGroup * m; e += kCoeffBlockThreads) {
+        const int q = e & (kGroup - 1);
+        const int j = e / kGroup;
+        const uint32_t xj = xs[e];
+        int rj = 0;
+        for (int l = 0; l < m; ++l) rj += permk::precedes(xs[l * kGroup + q], xj, l, j);
+        rs[e] = rj;
+    }
+    __syncthreads();
+    const bool valid = K0 + static_cast<uint32_t>(lane) < static_cast<uint32_t>(chunk);
+    const int e0 = static_cast<int>(blockIdx.y) * rows_per_slab;
+    const int e1 = min(mm, e0 + rows_per_slab);
+    for (int e = e0 + warp; e < e1; e += kCoeffBlockThreads / 32) {
+        float v = 0.0f;
+        if (valid) {
+            const int j = e / m;
+            const int l = e - j * m;
+            const int rj = rs[j * kGroup + lane];
+            const int rl = rs[l * kGroup + lane];
+            const bool uj = rj < asize;
+            const float cw = rj < asize - 1 ? ca : (rj >= asize && rj < m - 1 ? cb : 0.0f);
+            const float bet = uj && !(rl < asize) ? between : 0.0f;
+            const float chain = rl == rj + 1 ? cw : 0.0f;
+            v = bet - chain;
+        }
+        out[static_cast<int64_t>(e) * ncols + c0 + lane] = v;
     }
 }
 
@@ -207,6 +285,85 @@ FET_EXPORT int css_mc_coeff(uint32_t key0, uint32_t key1, int k0, int nk,
     css_mc_coeff<<<blocks, kCoeffThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         make_uint2(key0, key1), k0, nk, chunk, cstride, m, asize, bitgen, between, ca,
         cb, out);
+    return static_cast<int>(cudaGetLastError());
+}
+
+namespace {
+
+// css_mc_coeff_groups' grid for ncols columns: 32-column groups by slabs
+// of *rows rows of M, the m^2 rows cut so that groups times slabs reach
+// kCoeffBlocksPerSm blocks an SM (each slab at least 32 rows).
+int coeff_grid(int m, int64_t ncols, int* rows, dim3* grid) {
+    int device = 0, sms = 0;
+    cudaError_t e;
+    if ((e = cudaGetDevice(&device)) != cudaSuccess ||
+        (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
+            cudaSuccess) {
+        return static_cast<int>(e);
+    }
+    const int64_t mm = static_cast<int64_t>(m) * m;
+    const int64_t groups = std::max<int64_t>(1, ncols / kGroup);
+    int64_t slabs = (static_cast<int64_t>(kCoeffBlocksPerSm) * sms + groups - 1) / groups;
+    slabs = std::min((mm + 31) / 32, std::max<int64_t>(1, slabs));
+    *rows = static_cast<int>((mm + slabs - 1) / slabs);
+    slabs = (mm + *rows - 1) / *rows;
+    if (groups > 0x7fffffff || slabs > kMaxGridY) return static_cast<int>(cudaErrorInvalidValue);
+    *grid = dim3(static_cast<unsigned>(groups), static_cast<unsigned>(slabs));
+    return 0;
+}
+
+// Shared memory of a group's draws and ranks, 2 * 32 * m words.
+size_t coeff_group_bytes(int m) { return static_cast<size_t>(2) * kGroup * m * 4; }
+
+}  // namespace
+
+// The form K7's coefficients take at panel size m for ncols columns: 0,
+// css_mc_coeff (a column a thread, m <= kMaxM); 1, css_mc_coeff_block
+// with a group's draws and ranks in shared memory (to m = 908 on Hopper);
+// 2, css_mc_coeff_block with them in a device scratch of *scratch_words
+// words.  Negative where the device cannot be asked.
+FET_EXPORT int css_mc_coeff_form(int m, int64_t ncols, int64_t* scratch_words) {
+    *scratch_words = 0;
+    if (m <= kMaxM) return 0;
+    const size_t limit = fetk::smem_optin();
+    if (limit == 0) return -1;
+    if (coeff_group_bytes(m) <= limit) return 1;
+    int rows;
+    dim3 grid;
+    const int rc = coeff_grid(m, ncols, &rows, &grid);
+    if (rc != 0) return -rc;
+    *scratch_words = static_cast<int64_t>(grid.x) * grid.y * 2 * kGroup * m;
+    return 2;
+}
+
+// The large-panel coefficients (m > kMaxM), on coeff_grid's grid;
+// gscratch, when not null, holds 2 * 32 * m words for each of its blocks
+// (css_mc_coeff_form's form 2).
+FET_EXPORT int css_mc_coeff_block(uint32_t key0, uint32_t key1, int k0, int nk,
+                                  int chunk, int cstride, int m, int asize, int bitgen,
+                                  float between, float ca, float cb, uint32_t* gscratch,
+                                  float* out, void* stream) {
+    if (m < 1 || bitgen < 0 || bitgen > 1 || chunk <= 0 || cstride < chunk ||
+        cstride % kGroup != 0) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const int64_t ncols = static_cast<int64_t>(nk) * cstride;
+    if (ncols == 0) return 0;
+    const size_t smem = gscratch ? 0 : coeff_group_bytes(m);
+    if (smem > fetk::smem_optin()) return static_cast<int>(cudaErrorInvalidValue);
+    if (smem > 48 * 1024) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            css_mc_coeff_groups, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            static_cast<int>(smem));
+        if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    int rows;
+    dim3 grid;
+    const int rc = coeff_grid(m, ncols, &rows, &grid);
+    if (rc != 0) return rc;
+    css_mc_coeff_groups<<<grid, kCoeffBlockThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+        make_uint2(key0, key1), k0, chunk, cstride, m, asize, bitgen, between, ca, cb, ncols,
+        rows, gscratch, out);
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -13,6 +13,20 @@
 
 namespace fetk {
 
+// Bytes of dynamic shared memory a block may opt in to on the current
+// device (232,448 on Hopper), or 0 where the device cannot be asked.  The
+// large-panel kernels' launchers and their *_form queries hold their
+// slabs against it.
+inline size_t smem_optin() {
+    int dev = 0, bytes = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
+            cudaSuccess) {
+        return 0;
+    }
+    return static_cast<size_t>(bytes);
+}
+
 __device__ __forceinline__ float t_exp(float x) { return expf(x); }
 __device__ __forceinline__ double t_exp(double x) { return exp(x); }
 __device__ __forceinline__ float t_log(float x) { return logf(x); }

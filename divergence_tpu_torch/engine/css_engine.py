@@ -112,6 +112,8 @@ def run_css(
     """CSS scan of one chromosome on ``device``, or over the ``sharding``
     mesh's devices (a ``parallel.make_mesh`` tuple; it takes the place of
     ``device``).
+    ``device`` defaults to the card (``"cuda"``); without one the call
+    raises RuntimeError, and ``device="cpu"`` runs the plain torch path.
 
     Returns (scores, pvals) float64, each of ``regend // wstep`` slots
     (reference statistics/CategoryClusterSeparationStat.py:70-80).
@@ -139,7 +141,7 @@ def run_css_multi(
     packed host sync (one per device), and phase 2 runs over all valid
     windows of a panel-size group (asize, bsize) at once, split over the
     mesh when ``sharding`` is given.  ``slot_ranges`` maps a chromosome to
-    the slot range this host owns."""
+    the slot range this host owns.  ``device`` as in :func:`run_css`."""
     cfg = cfg or CssConfig()
     devices = mesh_devices(device, sharding)
     if not pairs:

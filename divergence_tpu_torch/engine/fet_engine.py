@@ -139,6 +139,8 @@ def run_fet(
     """FET scan of one chromosome on ``device``, or over the ``sharding``
     mesh's devices (a ``parallel.make_mesh`` tuple; it takes the place of
     ``device``).
+    ``device`` defaults to the card (``"cuda"``); without one the call
+    raises RuntimeError, and ``device="cpu"`` runs the plain torch path.
 
     Returns (scores, stddev) float64, each of ``regend // wstep`` slots —
     slot ``w.start // wstep`` like the reference adapter
@@ -169,7 +171,7 @@ def run_fet_multi(
     """Genome-wide FET: every chromosome's kernels are enqueued before the
     device-to-host copies, one per device (the per-chromosome result is
     identical to :func:`run_fet`).  ``slot_ranges`` maps a chromosome to
-    the slot range this host owns."""
+    the slot range this host owns.  ``device`` as in :func:`run_fet`."""
     cfg = cfg or FetConfig()
     devices = mesh_devices(device, sharding)
     summary = summary or RunSummary()

@@ -44,6 +44,7 @@ _I64 = ctypes.c_int64
 _U32 = ctypes.c_uint32
 _D = ctypes.c_double
 _F = ctypes.c_float
+_PI64 = ctypes.POINTER(ctypes.c_int64)
 # symbol -> argtypes (every pointer and the trailing stream as c_void_p);
 # a {t} symbol exists once per dtype, f64 and f32
 _SIGNATURES = {
@@ -71,17 +72,31 @@ _SIGNATURES = {
     "css_dissim_{t}": (_P, _I64, _P, _P, _I64, _I, _P, _P, _P),
     # av, bv, npos, B, p_in, asize, bsize, out, stream
     "css_dissim_gathered_{t}": (_P, _P, _P, _I64, _I, _I, _I, _P, _P),
+    # vals, N, lo, npos, B, m, planes scratch, out, stream (the tile form)
+    "css_dissim_tiles_{t}": (_P, _I64, _P, _P, _I64, _I, _P, _P, _P),
+    # av, bv, npos, lo (first bits), B, p_in, asize, bsize, planes scratch
+    # [2, B, ceil(p_in/32) + 1, m], out, stream
+    "css_dissim_gathered_tiles_{t}": (_P, _P, _P, _P, _I64, _I, _I, _I, _P, _P, _P),
     # dis, npos, B, asize, bsize, wa, wb, scores, dist, valid, steps
     # (nullable), stream
     "css_cmds_{t}": (_P, _P, _I64, _I, _I, _D, _D, _P, _P, _P, _P, _P),
+    # ... css_cmds's arguments, then gslab (nullable), nslab, stream
+    "css_cmds_block_{t}": (_P, _P, _I64, _I, _I, _D, _D, _P, _P, _P, _P, _P, _I64, _P),
     # dis, npos, slots, B, key0, key1, asize, bsize, mode, n_init,
     # max_iters, eps, wa, wb, scores, dist, valid, restart, ntrans, total
     # (nullable), counters, sig / x / n scratch, stream
     "css_smacof_{t}": (_P, _P, _P, _I64, _U32, _U32, _I, _I, _I, _I, _I, _D,
                        _D, _D, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
+    # ... css_smacof's arguments, then gslab (nullable), nslab, stream
+    "css_smacof_block_{t}": (_P, _P, _P, _I64, _U32, _U32, _I, _I, _I, _I, _I, _D,
+                             _D, _D, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64,
+                             _P),
     # key0, key1, k0, nk, chunk, cstride, m, asize, bitgen, between, ca, cb,
     # out, stream
     "css_mc_coeff": (_U32, _U32, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P, _P),
+    # ... css_mc_coeff's arguments to cb, then gscratch (nullable), out,
+    # stream
+    "css_mc_coeff_block": (_U32, _U32, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P, _P, _P),
     # dist, m, active, nact, obs, M, k0, nk, chunk, cstride, runs, words,
     # stream
     "css_mc_shared": (_P, _I, _P, _I64, _P, _P, _I, _I, _I, _I, _I, _P, _P),
@@ -102,6 +117,16 @@ _SIGNATURES = {
     # stream
     "css_mc_power_window": (_P, _P, _I64, _I, _I, _I, _I, _I, _I, _F, _F, _F,
                             _P, _P),
+}
+# the large-panel kernels' form queries (no stream): the form a wrapper
+# launches for these arguments on the current device, and the device
+# slab's or scratch's elements
+_FORM_QUERIES = {
+    "css_dissim_form": (_I, _PI64),                       # m, 0
+    "css_dissim_gathered_form": (_I, _I, _PI64),          # asize, bsize, 0
+    "css_cmds_form_{t}": (_I, _PI64),                     # m, slab elems
+    "css_smacof_form_{t}": (_I, _I, _PI64),               # m, mode, slab elems
+    "css_mc_coeff_form": (_I, _I64, _PI64),               # m, ncols, scratch words
 }
 
 
@@ -190,7 +215,7 @@ def library() -> ctypes.CDLL:
     """The kernel library, built on first use, with every entry point's
     ``argtypes`` and ``restype`` declared."""
     lib = ctypes.CDLL(str(build().path))
-    for pattern, argtypes in _SIGNATURES.items():
+    for pattern, argtypes in {**_SIGNATURES, **_FORM_QUERIES}.items():
         for t in ("f64", "f32") if "{t}" in pattern else ("",):
             fn = getattr(lib, pattern.format(t=t))
             fn.argtypes = argtypes

@@ -51,3 +51,22 @@ def launch(counts: dict, kernel: str, symbol: str, device: torch.device,
         msg = lib.fet_cuda_error_string(rc).decode()
         raise RuntimeError(f"{symbol} launch failed: CUDA error {rc} ({msg})")
     counts[kernel] += 1
+
+
+def query_form(names: tuple[str, ...], symbol: str, device: torch.device | None,
+               *args) -> tuple[str, int]:
+    """The form a large-panel kernel takes for ``args`` on ``device`` (the
+    current device for None), as the kernel library's ``symbol`` query
+    reckons it from the kernels' own slab layouts and the device's
+    shared memory: (``names[form]``, the elements of its device slab or
+    scratch).  Builds the library on first use."""
+    from divergence_tpu_torch.kernels import _build
+
+    lib = _build.library()
+    elems = ctypes.c_int64(0)
+    with torch.cuda.device(device):
+        rc = getattr(lib, symbol)(*args, ctypes.byref(elems))
+    if rc < 0:
+        raise RuntimeError(f"{symbol} could not ask the device for its shared memory "
+                           f"(CUDA error {-rc})")
+    return names[rc], elems.value

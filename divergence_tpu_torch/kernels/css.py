@@ -38,6 +38,17 @@ a CUDA device, and run the plain torch version on the CPU:
   the best restart, distances and score per window (K6);
   :func:`smacof_pairs` mirrors its order of operations for tests.
 
+Each has a second kernel for large panels, which its wrapper launches
+where the first one's per-window shared memory does not fit a block, as
+the kernel library's own form queries reckon it from the kernels' slab
+layouts and the device's shared memory (:func:`dissim_form`,
+:func:`gathered_form`, :func:`cmds_form`, :func:`smacof_form`):
+``css_dissim_tiles`` counts a window by 32 x 32
+tiles of its pair matrix, ``css_cmds_block`` and ``css_smacof_block``
+run a window (a restart) on a block of 256 threads (``css_block.cuh``),
+with their slabs in device memory where even one block's shared memory
+is too small.  So every panel size runs on the card.
+
 There is no fallback: on a CUDA tensor the kernel runs or the call
 raises.  Each launch adds one to :data:`LAUNCHES`.  The drosophila metric
 (:func:`dissimilarity_freq_windows`) is plain torch on every device.
@@ -53,7 +64,7 @@ import numpy as np
 import torch
 
 from divergence_tpu_torch import compute_dtype, rng
-from divergence_tpu_torch.kernels._cuda import dtype_suffix, is_cpu, launch, ptr
+from divergence_tpu_torch.kernels._cuda import dtype_suffix, is_cpu, launch, ptr, query_form
 from divergence_tpu_torch.kernels.fet import _lane_sum, _window_pad, codes_int16
 from divergence_tpu_torch.kernels.linalg import top2_eig
 
@@ -62,16 +73,20 @@ from divergence_tpu_torch.kernels.linalg import top2_eig
 # counts per window batch
 PREFIX_MAX_ELEMS = 1 << 28
 _COUNT_BATCH_ELEMS = 1 << 24   # [b, P, m] elements per step of the counts form
-# windows per step of the plain CMDS: cuSOLVER's batched eigh refuses
-# batches of 65 536 21x21 matrices on the card (CUSOLVER_STATUS_INVALID_VALUE)
+# windows per step of the plain CMDS / SMACOF: cuSOLVER's batched eigh
+# refuses batches of 65 536 21x21 matrices on the card
+# (CUSOLVER_STATUS_INVALID_VALUE); and at most _PLAIN_BATCH_ELEMS matrix
+# elements a step (SMACOF: over its restarts), so large panels stay
+# within the card's memory (m = 200: 6,710 windows, 2.1 GB a float64 copy)
 _CMDS_BATCH = 16_384
-CMDS_MAX_M = 64                # css_cmds / css_smacof keep a window in shared memory
-_SMEM_LIMIT = 232_448          # bytes of shared memory a Hopper block may use
-_DISSIM_WORDS = 8              # css_dissim keeps 8 words of 32 SNPs a pass
-_GATHER_WORDS = 4              # css_dissim_gathered stages 4 x 32 rows a pass
+_PLAIN_BATCH_ELEMS = 1 << 28
+_GATHER_PLANE_BYTES = 256 << 20   # the gathered tile form packs this much at once
 
-# kernel launches since the last reset_launches(), by kernel name
-LAUNCHES = {"css_dissim": 0, "css_dissim_gathered": 0, "css_cmds": 0, "css_smacof": 0}
+# kernel launches since the last reset_launches(), by kernel name; the
+# *_tiles / *_block kernels are the large-panel forms (css_dissim_tiles
+# counts the tile launches of both css_dissim and css_dissim_gathered)
+LAUNCHES = {"css_dissim": 0, "css_dissim_gathered": 0, "css_dissim_tiles": 0,
+            "css_cmds": 0, "css_cmds_block": 0, "css_smacof": 0, "css_smacof_block": 0}
 
 
 def reset_launches() -> None:
@@ -165,19 +180,27 @@ def dissimilarity_gathered_plain(
     return out
 
 
-def _align16(nbytes: int) -> int:
-    return -(-nbytes // 16) * 16
+def dissim_form(m: int, device: torch.device | None = None) -> str:
+    """The kernel :func:`css_dissim` launches at panel size m on
+    ``device``, by the kernel library's own reckoning
+    (``csrc/css_dissim.cu:css_dissim_form``): ``"warp"`` (a warp per
+    window) where a block holds all four warps' slabs (m <= 112 on an
+    H100), else ``"tiles"`` (32 x 32 tiles a block).  The warp form runs
+    while one warp's slab fits (m <= 233), but with fewer warps a block it
+    is the slower: 3 warps at m = 128, 3.8 ms against the tiles' 1.1 on
+    19,997 windows, one at m = 200, 24.4 ms against 2.9
+    (tests/measure_large_panels.py, H100 80GB HBM3, 700 W)."""
+    return query_form(("warp", "tiles"), "css_dissim_form", device, m)[0]
 
 
-def _smem_check(kernel: str, m: int, words: int, codes: int = 0) -> None:
-    """A window's warp keeps ``codes`` bytes of staged codes, its words
-    and its pair counts in shared memory."""
-    smem = codes + 4 * m * m + 2 * 4 * m * words
-    if smem > _SMEM_LIMIT:
-        raise ValueError(
-            f"{kernel} needs {smem} B of shared memory per window at m={m}; a "
-            f"block has {_SMEM_LIMIT}"
-        )
+def gathered_form(asize: int, bsize: int, device: torch.device | None = None) -> str:
+    """The kernel :func:`css_dissim_gathered` launches
+    (``css_dissim_gathered_form``): ``"warp"`` where one window's staged
+    codes, words and counts fit a block (m <= 207 at an even a + b split
+    on an H100), else ``"tiles"``.  (Only the sharded step calls it, and
+    its MC takes m <= 64; the two forms are not timed against each other
+    above that.)"""
+    return query_form(("warp", "tiles"), "css_dissim_gathered_form", device, asize, bsize)[0]
 
 
 def css_dissim(
@@ -204,11 +227,11 @@ def css_dissim(
     out = torch.empty((B, m, m), dtype=dtype, device=dev)
     if B == 0:
         return out
-    _smem_check("css_dissim", m, _DISSIM_WORDS)
     planes = torch.empty((2, (N + 31) // 32 + 1, m), dtype=torch.int32, device=dev)
     lo_d, npos_d = (t.to(dev, torch.int64).contiguous() for t in (lo, npos))
+    name = "css_dissim" if dissim_form(m, dev) == "warp" else "css_dissim_tiles"
     launch(
-        LAUNCHES, "css_dissim", f"css_dissim_{dtype_suffix(dtype)}", dev,
+        LAUNCHES, name, f"{name}_{dtype_suffix(dtype)}", dev,
         ptr(vals), N, ptr(lo_d), ptr(npos_d), B, m, ptr(planes), ptr(out),
     )
     return out
@@ -244,14 +267,27 @@ def css_dissim_gathered(
     npos = torch.as_tensor(npos)
     if int(npos.max()) > P:
         raise ValueError(f"a window claims {int(npos.max())} SNPs; the batch holds {P} rows")
-    rows = 32 * _GATHER_WORDS
-    _smem_check("css_dissim_gathered", m, _GATHER_WORDS,
-                _align16(rows * asize * 2) + _align16(rows * bsize * 2))
     npos_d = npos.to(dev, torch.int64).contiguous()
-    launch(
-        LAUNCHES, "css_dissim_gathered", f"css_dissim_gathered_{dtype_suffix(dtype)}", dev,
-        ptr(avals), ptr(bvals), ptr(npos_d), B, P, asize, bsize, ptr(out),
-    )
+    sfx = dtype_suffix(dtype)
+    if gathered_form(asize, bsize, dev) == "warp":
+        launch(
+            LAUNCHES, "css_dissim_gathered", f"css_dissim_gathered_{sfx}", dev,
+            ptr(avals), ptr(bvals), ptr(npos_d), B, P, asize, bsize, ptr(out),
+        )
+        return out
+    # the tile form: each batch's words packed into per-window planes of
+    # wpw words, window w's first bit at 32 wpw w
+    wpw = (P + 31) // 32 + 1
+    step = max(1, _GATHER_PLANE_BYTES // (2 * wpw * m * 4))
+    for s in range(0, B, step):
+        e = min(s + step, B)
+        planes = torch.empty((2, e - s, wpw, m), dtype=torch.int32, device=dev)
+        lo_d = torch.arange(e - s, dtype=torch.int64, device=dev) * (32 * wpw)
+        launch(
+            LAUNCHES, "css_dissim_tiles", f"css_dissim_gathered_tiles_{sfx}", dev,
+            ptr(avals[s:e]), ptr(bvals[s:e]), ptr(npos_d[s:e]), ptr(lo_d), e - s, P, asize,
+            bsize, ptr(planes), ptr(out[s:e]),
+        )
     return out
 
 
@@ -565,8 +601,45 @@ def smacof_runs(
 # ------------------------------------------------ K6's order of operations
 
 
+WARP_LANES = 32        # threads of K6's warp form (css_smacof)
+BLOCK_LANES = 256      # threads of K6's block form (css_smacof_block, kBlockThreads)
+
+
+def smacof_lanes(m: int, mode: int, dtype: torch.dtype,
+                 device: torch.device | None = None) -> int:
+    """Threads that share one restart in the kernel :func:`css_smacof`
+    launches at panel size m on ``device`` (the ``lanes`` of
+    :func:`smacof_pairs`; asks the kernel library, so the card)."""
+    return WARP_LANES if smacof_form(m, mode, dtype, device) == "warp" else BLOCK_LANES
+
+
+def _block_sum(v: torch.Tensor, lanes: int) -> torch.Tensor:
+    """The kernels' sum of v [..., P] over ``lanes`` threads (a multiple
+    of 32): element p on thread p % lanes, each thread's partial added in
+    p order, the xor butterfly in each warp, then the warps' sums added in
+    warp order (``css_block.cuh`` block_reduce; with 32 lanes
+    :func:`kernels.fet._lane_sum`).  The zero padding adds +0.0 to
+    partials that are never -0.0, so it changes no bit."""
+    if lanes == WARP_LANES:
+        return _lane_sum(v)
+    P = v.shape[-1]
+    K = -(-P // lanes)
+    t = torch.nn.functional.pad(v, (0, lanes * K - P)).reshape(*v.shape[:-1], K, lanes)
+    acc = torch.zeros_like(t[..., 0, :])
+    for k in range(K):
+        acc = acc + t[..., k, :]
+    acc = acc.reshape(*v.shape[:-1], lanes // 32, 32)
+    idx = torch.arange(32, device=v.device)
+    for o in (16, 8, 4, 2, 1):
+        acc = acc + acc[..., idx ^ o]
+    s = acc[..., 0, 0]
+    for q in range(1, lanes // 32):
+        s = s + acc[..., q, 0]
+    return s
+
+
 def _pair_pass(fp: torch.Tensor, x: torch.Tensor, i: torch.Tensor, j: torch.Tensor,
-               diag: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+               diag: torch.Tensor, lanes: int = WARP_LANES) -> tuple[torch.Tensor, torch.Tensor]:
     """K6's pair pass over x [..., m, 2]: (the stress of x, B(x) [..., m,
     m] with a zero diagonal), d_ij and b_ij once a pair i < j."""
     dx = x[..., i, :] - x[..., j, :]
@@ -577,7 +650,7 @@ def _pair_pass(fp: torch.Tensor, x: torch.Tensor, i: torch.Tensor, j: torch.Tens
     bm = torch.zeros((*x.shape[:-1], m), dtype=x.dtype, device=x.device)
     bm[..., i, j] = b
     bm[..., j, i] = b
-    return _lane_sum(r * r) + diag, bm
+    return _block_sum(r * r, lanes) + diag, bm
 
 
 def _row_pass(bm: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -600,27 +673,30 @@ def _row_pass(bm: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 def smacof_pairs(
-    dis: torch.Tensor, x0: torch.Tensor, max_iters: int = 300, epsilon: float = 1e-6
+    dis: torch.Tensor, x0: torch.Tensor, max_iters: int = 300, epsilon: float = 1e-6,
+    lanes: int = WARP_LANES,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """:func:`_smacof_loop` in K6's order of operations, for tests
     (``csrc/css_smacof.cu``): one pair pass a transform gives the stress
     of the new configuration and the next transform's B, the stress as
-    sum_{i<j} (d_ij - F_ij)^2 + 0.5 sum_i F_ii^2 in the kernel's lane
-    order.  ``dis`` must be symmetric.  Returns (x, sigma, transforms)."""
+    sum_{i<j} (d_ij - F_ij)^2 + 0.5 sum_i F_ii^2 in the kernel's thread
+    order over ``lanes`` threads (32: the warp form; BLOCK_LANES: the
+    block form, :func:`smacof_lanes`).  ``dis`` must be symmetric.
+    Returns (x, sigma, transforms)."""
     m = dis.shape[-1]
     i, j = torch.triu_indices(m, m, 1, device=dis.device)
     fp = dis[..., i, j]
     dd = torch.diagonal(dis, dim1=-2, dim2=-1)
-    diag = 0.5 * _lane_sum(dd * dd)
+    diag = 0.5 * _block_sum(dd * dd, lanes)
     x = x0
-    sig, bm = _pair_pass(fp, x, i, j, diag)
+    sig, bm = _pair_pass(fp, x, i, j, diag, lanes)
     active = sig == sig
     n = torch.zeros(sig.shape, dtype=torch.int32, device=sig.device)
     for _ in range(max_iters + 1):
         if not bool(active.any()):
             break
         xn = _row_pass(bm, x)
-        sign, bn = _pair_pass(fp, xn, i, j, diag)
+        sign, bn = _pair_pass(fp, xn, i, j, diag, lanes)
         improved = (sig - sign) > epsilon
         x = torch.where(active[..., None, None], xn, x)
         bm = torch.where(active[..., None, None], bn, bm)
@@ -669,7 +745,8 @@ def _score_plain(
     dis: torch.Tensor, npos: torch.Tensor, asize: int, bsize: int, mds: int,
     wkeys: torch.Tensor | None = None, **smacof_kw,
 ) -> tuple[torch.Tensor, ...]:
-    """:func:`_score_pipeline` over window batches of ``_CMDS_BATCH``."""
+    """:func:`_score_pipeline` over window batches of at most ``_CMDS_BATCH``
+    windows and ``_PLAIN_BATCH_ELEMS`` elements."""
     B, m = dis.shape[0], dis.shape[-1]
     npos = npos.to(dis.device)
     if B == 0:
@@ -680,9 +757,11 @@ def _score_plain(
                 torch.zeros(0, dtype=torch.int32, device=dev),
                 torch.zeros(0, dtype=torch.int32, device=dev),
                 torch.zeros(0, dtype=torch.int32, device=dev))
+    reps = smacof_kw.get("smacof_inits", 1) if mds == 1 else 1
+    step = max(1, min(_CMDS_BATCH, _PLAIN_BATCH_ELEMS // (m * m * reps)))
     parts = []
-    for s in range(0, B, _CMDS_BATCH):
-        sl = slice(s, min(s + _CMDS_BATCH, B))
+    for s in range(0, B, step):
+        sl = slice(s, min(s + step, B))
         parts.append(_score_pipeline(
             dis[sl], npos[sl], None if wkeys is None else wkeys[sl],
             asize, bsize, mds, **smacof_kw,
@@ -690,12 +769,56 @@ def _score_plain(
     return tuple(torch.cat(cols) for cols in zip(*parts))
 
 
+# ------------------------------------------------- K5 / K6 kernel forms
+
+_SCORE_FORMS = ("warp", "block", "device")
+
+
+def cmds_form(m: int, dtype: torch.dtype, device: torch.device | None = None) -> str:
+    """The kernel :func:`css_cmds` launches at panel size m on ``device``,
+    by the kernel library's own reckoning (``csrc/css_cmds.cu:
+    css_cmds_form``): ``"warp"`` (``css_cmds``, a warp per window: on an
+    H100 float64 to m = 75, float32 to 111), ``"block"``
+    (``css_cmds_block``, a block per window, its slab in shared memory:
+    float64 to 222, float32 to 321) or ``"device"`` (the same kernel, the
+    slabs in device memory)."""
+    return _cmds_form(m, dtype, device)[0]
+
+
+def _cmds_form(m, dtype, device):
+    return query_form(_SCORE_FORMS, f"css_cmds_form_{dtype_suffix(dtype)}", device, m)
+
+
+def smacof_form(m: int, mode: int, dtype: torch.dtype,
+                device: torch.device | None = None) -> str:
+    """The kernel :func:`css_smacof` launches, as :func:`cmds_form`
+    (``csrc/css_smacof.cu:css_smacof_form``): ``"warp"`` (``css_smacof``:
+    on an H100 float64 to m = 68, float32 to 97), ``"block"``
+    (``css_smacof_block``, slab in shared memory: float64 to 168, float32
+    to 239) or ``"device"``."""
+    return _smacof_form(m, mode, dtype, device)[0]
+
+
+def _smacof_form(m, mode, dtype, device):
+    return query_form(_SCORE_FORMS, f"css_smacof_form_{dtype_suffix(dtype)}", device, m, mode)
+
+
+def _device_slabs(form: str, elems: int, dtype: torch.dtype, dev: torch.device):
+    """(slabs, count) of a block form: one slab of ``elems`` per SM in
+    device memory for ``"device"`` (a grid of one block per SM, so the
+    slabs stay in L2), none (shared memory) for ``"block"``."""
+    if form != "device":
+        return None, 0
+    n = torch.cuda.get_device_properties(dev).multi_processor_count
+    return torch.empty(n * elems, dtype=dtype, device=dev), n
+
+
 def css_cmds_plain(
     dis: torch.Tensor, npos: torch.Tensor, asize: int, bsize: int
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain torch version of :func:`css_cmds`
     (``divergence_tpu/kernels/css.py:_score_pipeline`` with ``mds=0``),
-    over window batches of ``_CMDS_BATCH``."""
+    over window batches (:func:`_score_plain`)."""
     return _score_plain(dis, npos, asize, bsize, 0)[:3]
 
 
@@ -718,11 +841,6 @@ def css_cmds(
     B, m = dis.shape[0], dis.shape[-1]
     if m != asize + bsize or dis.shape != (B, m, m) or not dis.is_contiguous():
         raise ValueError("css_cmds kernel takes a contiguous [B, m, m] tensor, m = a + b")
-    if m > CMDS_MAX_M:
-        raise NotImplementedError(
-            f"css_cmds runs panels of at most {CMDS_MAX_M} individuals on "
-            f"CUDA (m={m}); larger panels are ROADMAP item P12"
-        )
     scores = torch.empty(B, dtype=dis.dtype, device=dev)
     dist = torch.empty_like(dis)
     valid = torch.empty(B, dtype=torch.bool, device=dev)
@@ -736,11 +854,15 @@ def css_cmds(
     wa = float(w[0]) if asize > 1 else 0.0
     wb = float(w[-1]) if bsize > 1 else 0.0
     npos_d = npos.to(dev, torch.int64).contiguous()
-    launch(
-        LAUNCHES, "css_cmds", f"css_cmds_{dtype_suffix(dis.dtype)}", dev,
-        ptr(dis), ptr(npos_d), B, asize, bsize, wa, wb, ptr(scores), ptr(dist),
-        ptr(valid), ptr(steps),
-    )
+    sfx = dtype_suffix(dis.dtype)
+    args = (ptr(dis), ptr(npos_d), B, asize, bsize, wa, wb, ptr(scores), ptr(dist),
+            ptr(valid), ptr(steps))
+    form, elems = _cmds_form(m, dis.dtype, dev)
+    if form == "warp":
+        launch(LAUNCHES, "css_cmds", f"css_cmds_{sfx}", dev, *args)
+    else:
+        slabs, n = _device_slabs(form, elems, dis.dtype, dev)
+        launch(LAUNCHES, "css_cmds_block", f"css_cmds_block_{sfx}", dev, *args, ptr(slabs), n)
     return scores, dist, valid
 
 
@@ -763,7 +885,7 @@ def css_smacof_plain(
 ) -> tuple[torch.Tensor, ...]:
     """Plain torch version of :func:`css_smacof`
     (``divergence_tpu/kernels/css.py:_score_pipeline`` with ``mds`` 1 or
-    2), over window batches of ``_CMDS_BATCH``."""
+    2), over window batches (:func:`_score_plain`)."""
     _check_transforms(transforms, dis.shape[0], dis.device)
     wkeys = None
     if mds == 1:
@@ -811,11 +933,6 @@ def css_smacof(
     B, m = dis.shape[0], dis.shape[-1]
     if m != asize + bsize or dis.shape != (B, m, m) or not dis.is_contiguous():
         raise ValueError("css_smacof kernel takes a contiguous [B, m, m] tensor, m = a + b")
-    if m > CMDS_MAX_M:
-        raise NotImplementedError(
-            f"css_smacof runs panels of at most {CMDS_MAX_M} individuals on "
-            f"CUDA (m={m}); larger panels are ROADMAP item P12"
-        )
     _check_transforms(transforms, B, dev)
     scores = torch.empty(B, dtype=dis.dtype, device=dev)
     dist = torch.empty_like(dis)
@@ -837,14 +954,19 @@ def css_smacof(
     sig_s = torch.empty(tasks, dtype=dis.dtype, device=dev)
     x_s = torch.empty((tasks, m, 2), dtype=dis.dtype, device=dev)
     n_s = torch.empty(tasks, dtype=torch.int32, device=dev)
-    launch(
-        LAUNCHES, "css_smacof", f"css_smacof_{dtype_suffix(dis.dtype)}", dev,
-        ptr(dis), ptr(npos_d), ptr(slots_d), B, ctypes.c_uint32(k0),
-        ctypes.c_uint32(k1), asize, bsize, mds, n_init, max_iters,
-        float(epsilon), wa, wb, ptr(scores),
-        ptr(dist), ptr(valid), ptr(restart), ptr(ntrans), ptr(transforms), ptr(counters),
-        ptr(sig_s), ptr(x_s), ptr(n_s),
-    )
+    sfx = dtype_suffix(dis.dtype)
+    args = (ptr(dis), ptr(npos_d), ptr(slots_d), B, ctypes.c_uint32(k0),
+            ctypes.c_uint32(k1), asize, bsize, mds, n_init, max_iters,
+            float(epsilon), wa, wb, ptr(scores),
+            ptr(dist), ptr(valid), ptr(restart), ptr(ntrans), ptr(transforms), ptr(counters),
+            ptr(sig_s), ptr(x_s), ptr(n_s))
+    form, elems = _smacof_form(m, mds, dis.dtype, dev)
+    if form == "warp":
+        launch(LAUNCHES, "css_smacof", f"css_smacof_{sfx}", dev, *args)
+    else:
+        slabs, n = _device_slabs(form, elems, dis.dtype, dev)
+        launch(LAUNCHES, "css_smacof_block", f"css_smacof_block_{sfx}", dev, *args,
+               ptr(slabs), n)
     return scores, dist, valid, restart, ntrans
 
 

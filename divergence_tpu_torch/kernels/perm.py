@@ -30,7 +30,9 @@ Kernels (``csrc/``) carry the work on a CUDA device:
 
 * ``css_mc_coeff``  (K7) — the columns of ``M`` for a range of chunks,
   bit-equal to :func:`_shared_coeff`, for either bitgen, each chunk's
-  columns padded to whole 32-bit hit words (:func:`coeff_range`);
+  columns padded to whole 32-bit hit words (:func:`coeff_range`); past
+  m = 64, ``css_mc_coeff_block`` writes the same columns, 32 a block
+  (:func:`coeff_form`);
 * ``css_mc_shared`` (K7) — the product ``D_flat[active] @ M`` of a range
   and its hit test, packed into words (:func:`mc_hit_words`);
 * ``css_mc_scan``   (K7) — the adaptive stop through a range's hit words,
@@ -74,15 +76,18 @@ import numpy as np
 import torch
 
 from divergence_tpu_torch import rng
-from divergence_tpu_torch.kernels._cuda import is_cpu, launch, ptr
+from divergence_tpu_torch.kernels._cuda import is_cpu, launch, ptr, query_form
 
-MC_MAX_M = 64                   # the MC kernels rank m words per thread
+MC_MAX_M = 64                   # K8, K9, K11 (and K7's thread form) rank m words per thread
 BITGENS = ("mix", "threefry")   # kernel argument: the index in this tuple
 STREAMS = ("shared", "window")
 # the shared stream's ranges (range_chunks)
 _FIRST_RANGE_CHUNKS = 16        # at most: 4096 permutations at chunk 256
 _RANGE_FMAS = 1 << 32           # product work a range reaches where it can
-_RANGE_COEFF_BYTES = 64 << 20   # at most this much of M at once
+# at most this much of M at once: 64 MB held m = 200 to one chunk a range
+# (16 blocks of product, 79 ranges, 441 ms against 82 at 1 GB on 997
+# windows x 20,000; tests/measure_large_panels.py)
+_RANGE_COEFF_BYTES = 1 << 30
 _RANGE_HIT_BYTES = 256 << 20    # at most this much of hit words at once
 WORD_BITS = 32                  # a chunk's columns are padded to whole words
 TILE_COLUMNS = 128              # columns of a product tile (csrc permk::kTC)
@@ -90,9 +95,9 @@ TILE_COLUMNS = 128              # columns of a product tile (csrc permk::kTC)
 _PLAIN_BATCH_ELEMS = {"cpu": 1 << 24, "cuda": 1 << 28}
 
 # kernel launches since the last reset_launches(), by kernel name
-LAUNCHES = {"css_mc_coeff": 0, "css_mc_shared": 0, "css_mc_scan": 0, "css_mc_window": 0,
-            "css_mc_power": 0, "css_perm_chunk": 0}
-# css_mc_coeff launches by bitgen (counted with LAUNCHES["css_mc_coeff"])
+LAUNCHES = {"css_mc_coeff": 0, "css_mc_coeff_block": 0, "css_mc_shared": 0,
+            "css_mc_scan": 0, "css_mc_window": 0, "css_mc_power": 0, "css_perm_chunk": 0}
+# css_mc_coeff and css_mc_coeff_block launches by bitgen
 COEFF_LAUNCHES = {name: 0 for name in BITGENS}
 
 
@@ -270,19 +275,37 @@ def coeff_range(
     gen = _check_bitgen(bitgen)
     if is_cpu(device):
         return coeff_range_plain(key, k0, nk, m, asize, bsize, chunk, device, bitgen)
-    _check_m(m, "css_mc_coeff")
     cs = chunk_stride(chunk)
     out = torch.empty((m * m, nk * cs), dtype=torch.float32, device=device)
     between, ca, cb = _coeff_constants(asize, bsize)
     k0w, k1w = (int(w) for w in key.tolist())
-    launch(
-        LAUNCHES, "css_mc_coeff", "css_mc_coeff", device,
-        ctypes.c_uint32(k0w), ctypes.c_uint32(k1w), k0, nk, chunk, cs, m, asize, gen,
-        ctypes.c_float(between), ctypes.c_float(ca), ctypes.c_float(cb),
-        ptr(out),
-    )
+    args = (ctypes.c_uint32(k0w), ctypes.c_uint32(k1w), k0, nk, chunk, cs, m, asize, gen,
+            ctypes.c_float(between), ctypes.c_float(ca), ctypes.c_float(cb))
+    form, words = _coeff_form(m, nk * cs, device)
+    if form == "thread":
+        launch(LAUNCHES, "css_mc_coeff", "css_mc_coeff", device, *args, ptr(out))
+    else:
+        scratch = (torch.empty(words, dtype=torch.int32, device=device)
+                   if form == "device" else None)
+        launch(LAUNCHES, "css_mc_coeff_block", "css_mc_coeff_block", device, *args,
+               ptr(scratch), ptr(out))
     COEFF_LAUNCHES[bitgen] += 1
     return out
+
+
+def coeff_form(m: int, device: torch.device | None = None) -> str:
+    """The kernel :func:`coeff_range` launches at panel size m on
+    ``device``, by the kernel library's own reckoning
+    (``csrc/css_mc.cu:css_mc_coeff_form``): ``"thread"``
+    (``css_mc_coeff``, a column a thread, m <= 64), ``"shared"``
+    (``css_mc_coeff_block``, 32 columns' draws and ranks in a block's
+    shared memory, m <= 908 on an H100) or ``"device"`` (the same kernel,
+    those in device scratch)."""
+    return _coeff_form(m, WORD_BITS, device)[0]
+
+
+def _coeff_form(m, ncols, device):
+    return query_form(("thread", "shared", "device"), "css_mc_coeff_form", device, m, ncols)
 
 
 def shared_coeff(key, k0, nk, m, asize, bsize, chunk, device,

@@ -66,13 +66,12 @@ def pad_to_multiple(n: int, m: int) -> int:
 
 def mesh_devices(device, sharding) -> tuple[torch.device, ...]:
     """The devices an engine runs on: the ``sharding`` mesh when one is
-    given, else the one ``device``.  Raises when a CUDA device is asked
-    for and none is present (there is no CPU fallback)."""
+    given, else the one ``device``, else the card (``"cuda"``).  Raises
+    when a CUDA device is asked for and none is present (there is no CPU
+    fallback: the caller asks for the CPU with ``device="cpu"``)."""
     if sharding is not None:
         return tuple(resolve_device(d) for d in sharding)
-    if device is None:
-        raise ValueError("pass device= (one device) or sharding= (a make_mesh tuple)")
-    return (resolve_device(device),)
+    return (resolve_device("cuda" if device is None else device),)
 
 
 def to_host(tensors: list, dim: int = 0) -> list:

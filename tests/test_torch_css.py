@@ -88,8 +88,9 @@ def test_css_dissim_wrapper_on_cpu_is_plain():
     for dt in (torch.float64, torch.float32):
         got = tcss.css_dissim(*args, dt)
         assert got.dtype == dt and torch.equal(got, tcss.dissimilarity_plain(*args).to(dt))
-    assert tcss.LAUNCHES == {"css_dissim": 0, "css_dissim_gathered": 0, "css_cmds": 0,
-                             "css_smacof": 0}
+    assert tcss.LAUNCHES == {"css_dissim": 0, "css_dissim_gathered": 0, "css_dissim_tiles": 0,
+                             "css_cmds": 0, "css_cmds_block": 0, "css_smacof": 0,
+                             "css_smacof_block": 0}
 
 
 def test_fill_averages_golden_and_discard():

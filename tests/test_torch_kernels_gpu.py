@@ -19,7 +19,9 @@ fast mode 2 within FAST_BAND, the JAX package's float32-vs-float64 band
 measured on the CPU (tests/test_torch_smacof.py; this file runs without
 jax); fast mode 1 against the float64 plain version on the same panel,
 within the larger of FAST_BAND and the JAX package's own float32-vs-float64
-maximum on that panel (SMACOF_F32_BAND, tests/measure_smacof_band.py).  K8
+maximum on that panel (SMACOF_F32_BAND, tests/measure_smacof_band.py);
+at m = 128 and 200 both modes within that band measured at that m
+(LARGE_SMACOF_BAND).  K8
 (``css_mc_window``, float32 mix / threefry and the float64 native form):
 (p, n, hits) identical to the plain versions on >= 99.9 % of windows (the
 float32 form adds the twin's products in the twin's order).  K9
@@ -80,6 +82,13 @@ FAST_BAND = {1: (5.5e-2, 7e-4), 2: (1.53e-1, 7e-4)}
 # on test_css_smacof_kernel's panel (tests/measure_smacof_band.py: 8.64e-2,
 # 6.83e-2, 1.57e-2), rounded up in its second significant digit
 SMACOF_F32_BAND = {21: 8.7e-2, 33: 6.9e-2, 64: 1.6e-2}
+# (mode, m) -> the JAX package's own float32-vs-float64 maximum and 90th
+# percentile of the SMACOF score at the large panel sizes, rounded up in
+# the second digit (tests/measure_smacof_band.py 128:300:256 200:200:256
+# and --mds 2 128:300 200:200: 3.157e-4 / 1.540e-5, 1.039e-4 / 2.962e-7,
+# 2.265e-3 / 1.141e-4, 2.568e-3 / 6.127e-5); FAST_BAND at other m
+LARGE_SMACOF_BAND = {(1, 128): (3.2e-4, 1.6e-5), (1, 200): (1.1e-4, 3.0e-7),
+                     (2, 128): (2.3e-3, 1.2e-4), (2, 200): (2.6e-3, 6.2e-5)}
 
 
 @pytest.fixture
@@ -444,11 +453,165 @@ def test_css_cmds_kernel(cuda, prec, asize, bsize):
         np.testing.assert_allclose(got, want, rtol=2e-3, atol=1e-4)
 
 
+# the large panels: m = 65, 128, 200, 300 and both sides of each kernel's
+# shared-memory switches (test_kernel_forms_switch_where_the_slabs_stop_fitting
+# pins where they fall on an H100)
+LARGE_M = [65, 128, 200, 300]
+DISSIM_SWITCH = [112, 113]                       # warp form | tiles
+GATHERED_SWITCH = [207, 208]                     # at a = (m + 1) // 2
+CMDS_SWITCH = {"exact": [75, 76, 222, 223], "fast": [111, 112, 321, 322]}
+SMACOF_SWITCH = {"exact": [68, 69, 168, 169], "fast": [97, 98, 239, 240]}
+COEFF_SWITCH = [64, 65, 908, 909]                # thread | shared | device
+
+
 @pytest.mark.gpu
-def test_css_cmds_kernel_refuses_large_panels(cuda):
-    dis = torch.zeros((2, 65, 65), dtype=torch.float64, device=cuda)
-    with pytest.raises(NotImplementedError, match="P12"):
-        kcss.css_cmds(dis, torch.ones(2, dtype=torch.int64), 33, 32)
+def test_kernel_forms_switch_where_the_slabs_stop_fitting(cuda):
+    """Where each wrapper leaves a kernel's small form on an H100 (232,448
+    bytes of shared memory a block), as the kernel library's form queries
+    reckon it from the kernels' own slab layouts (the tests above run both
+    sides of each switch)."""
+    f64, f32 = torch.float64, torch.float32
+    assert [kcss.dissim_form(m) for m in (112, 113, 300)] == ["warp", "tiles", "tiles"]
+    assert [kcss.gathered_form((m + 1) // 2, m // 2) for m in (207, 208)] == ["warp", "tiles"]
+    assert [kcss.cmds_form(m, f64) for m in (64, 75, 76, 222, 223)] == [
+        "warp", "warp", "block", "block", "device"]
+    assert [kcss.cmds_form(m, f32) for m in (111, 112, 321, 322)] == [
+        "warp", "block", "block", "device"]
+    for mds in (1, 2):
+        assert [kcss.smacof_form(m, mds, f64) for m in (64, 68, 69, 168, 169)] == [
+            "warp", "warp", "block", "block", "device"]
+        assert [kcss.smacof_form(m, mds, f32) for m in (97, 98, 239, 240)] == [
+            "warp", "block", "block", "device"]
+    assert [kperm.coeff_form(m) for m in (64, 65, 908, 909)] == [
+        "thread", "shared", "shared", "device"]
+    assert [kcss.smacof_lanes(m, 1, f64) for m in (68, 69)] == [kcss.WARP_LANES,
+                                                               kcss.BLOCK_LANES]
+    # at 70 + 58 and 110 + 90 every large-panel kernel runs
+    for m in (128, 200):
+        assert kcss.dissim_form(m) == "tiles" and kperm.coeff_form(m) == "shared"
+        assert kcss.cmds_form(m, f64) == "block" and kcss.smacof_form(m, 1, f32) == "block"
+
+
+def _large_windows(cuda, m, limit):
+    """(codes [N, m] on the card, lo, npos, slots on the card, asize, bsize)
+    of the first ``limit`` windows of a stickleback-shaped panel at m."""
+    asize, bsize = (m + 1) // 2, m // 2
+    pos, am, bm = make_panel(4_000, 200_000, asize, bsize, seed=m)
+    plan = plan_windows(pos, 200_000, 2500, 500)
+    ids = np.nonzero(plan.valid_mask() & (plan.npos > 0))[0][:limit]
+    vals = torch.from_numpy(np.concatenate([am, bm], axis=1).astype(np.int16)).to(cuda)
+    lo, npos, slots = (torch.from_numpy(x[ids].copy()) for x in (plan.lo, plan.npos, plan.slot))
+    return vals, lo, npos, slots.to(cuda), asize, bsize
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", LARGE_M + DISSIM_SWITCH + GATHERED_SWITCH)
+def test_css_dissim_kernels_large_panels(cuda, m):
+    """K3's counts at large m in both forms and both precisions, equal to
+    the plain twins (the tile form above the warp form's switch)."""
+    vals, lo, npos, _, asize, bsize = _large_windows(cuda, m, 96)
+    want = kcss.dissimilarity_plain(vals, lo, npos)
+    offs = torch.arange(int(npos.max()), device=cuda)[None, :]
+    lo_d, npos_d = lo.to(cuda)[:, None], npos.to(cuda)[:, None]
+    g = vals[torch.where(offs < npos_d, lo_d + offs, lo_d)]
+    av, bv = g[..., :asize].contiguous(), g[..., asize:].contiguous()
+    before = dict(kcss.LAUNCHES)
+    for dt in (torch.float32, torch.float64):
+        assert torch.equal(kcss.css_dissim(vals, lo, npos, dt).double(), want)
+        assert torch.equal(kcss.css_dissim_gathered(av, bv, npos, dt).double(), want)
+    torch.cuda.synchronize()
+    tiles = kcss.LAUNCHES["css_dissim_tiles"] - before["css_dissim_tiles"]
+    assert tiles == 2 * (kcss.dissim_form(m) == "tiles") + 2 * (
+        kcss.gathered_form(asize, bsize) == "tiles")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prec", ["exact", "fast"])
+@pytest.mark.parametrize("which", ["large", "switch"])
+def test_css_cmds_kernel_large_panels(cuda, prec, which):
+    """K5 at large m (the block form, its slab in shared or device memory)
+    against its plain version: exact 1e-9 / fast rtol 2e-3 atol 1e-4 on
+    windows whose eigengap exceeds 1e-6, valid flags and NaN patterns
+    equal (truly negative lambda2 windows included)."""
+    dt = torch.float64 if prec == "exact" else torch.float32
+    for m in (LARGE_M if which == "large" else CMDS_SWITCH[prec]):
+        vals, lo, npos, _, asize, bsize = _large_windows(cuda, m, 48)
+        real = kcss.dissimilarity_plain(vals, lo, npos).to(dt)
+        dis = torch.cat([real, _negative_windows(4, m, dt, cuda)]).contiguous()
+        npos_d = torch.cat([npos, torch.ones(4, dtype=npos.dtype)]).to(cuda)
+        steps = torch.full((dis.shape[0],), -1, dtype=torch.int32, device=cuda)
+        ks, kd, kv = kcss.css_cmds(dis, npos_d, asize, bsize, steps=steps)
+        ps, pd, pv = kcss.css_cmds_plain(dis, npos_d, asize, bsize)
+        torch.cuda.synchronize()
+        assert torch.equal(kv, pv) and torch.equal(ks.isnan(), ps.isnan()), m
+        assert ps[-4:].isnan().all() and int(steps.min()) > 0
+        filled, _ = kcss.fill_averages(dis.double())
+        ev = torch.linalg.eigvalsh(kcss.double_centre(filled)).flip(-1)
+        ok = ((ev[:, 1] - ev[:, 2]) / ev[:, 0].abs().clamp(min=1.0) > 1e-6) & ~ps.isnan()
+        got, want = ks.double()[ok].cpu().numpy(), ps.double()[ok].cpu().numpy()
+        if prec == "exact":
+            assert np.max(np.abs(got - want) / np.maximum(np.abs(want), 1.0)) <= 1e-9, m
+        else:
+            np.testing.assert_allclose(got, want, rtol=2e-3, atol=1e-4)
+        assert torch.equal(kd.isnan(), pd.isnan())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prec", ["exact", "fast"])
+@pytest.mark.parametrize("mds", [1, 2])
+@pytest.mark.parametrize("which", ["large", "switch"])
+def test_css_smacof_kernel_large_panels(cuda, prec, mds, which):
+    """K6 at large m (the block form) against its plain version: exact 1e-9
+    where restart and transform count agree (the rest at most 0.1 % + 1),
+    fast within the JAX package's own float32 band at m = 128 and 200
+    (LARGE_SMACOF_BAND), FAST_BAND at the other m."""
+    dt = torch.float64 if prec == "exact" else torch.float32
+    key = rng.fold_in(rng.prng_key(3), rng.chrom_hash("chrK"))
+    for m in (LARGE_M if which == "large" else SMACOF_SWITCH[prec]):
+        vals, lo, npos, slots, asize, bsize = _large_windows(cuda, m, 16)
+        dis = kcss.dissimilarity_plain(vals, lo, npos).to(dt).contiguous()
+        npos_d = npos.to(cuda)
+        kt = torch.zeros(dis.shape[0], dtype=torch.int32, device=cuda)
+        pt = torch.zeros(dis.shape[0], dtype=torch.int32, device=cuda)
+        ks, _, kv, kr, kn = kcss.css_smacof(dis, npos_d, asize, bsize, mds, key, slots,
+                                            transforms=kt)
+        ps, _, pv, pr, pn = kcss.css_smacof_plain(dis, npos_d, asize, bsize, mds, key, slots,
+                                                  transforms=pt)
+        torch.cuda.synchronize()
+        assert torch.equal(kv, pv) and torch.equal(ks.isnan(), ps.isnan()), m
+        sel = pv & ~ps.isnan()
+        got, want = ks.double()[sel].cpu().numpy(), ps.double()[sel].cpu().numpy()
+        rel = np.abs(got - want) / np.maximum(np.abs(want), 1.0)
+        if prec == "exact":
+            agree = ((kr == pr) & (kn == pn))[sel].cpu().numpy()
+            assert rel[agree].max(initial=0.0) <= 1e-9, m
+            assert int((~agree).sum()) <= 1e-3 * dis.shape[0] + 1
+            assert int((kt != pt).sum()) <= 1e-3 * dis.shape[0] + 1
+        else:
+            top, q90 = LARGE_SMACOF_BAND.get((mds, m), FAST_BAND[mds])
+            assert rel.max(initial=0.0) <= top and np.quantile(rel, 0.9) <= q90, m
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [69, 128, 200])
+def test_css_smacof_block_is_its_mirror(cuda, monkeypatch, m):
+    """Mode 1 float64 in the block form equals smacof_pairs with its thread
+    count (the stress summed over 256 threads: partials, warp butterflies,
+    warps in order) bit for bit."""
+    vals, lo, npos, slots, asize, bsize = _large_windows(cuda, m, 16)
+    dis = kcss.dissimilarity_plain(vals, lo, npos).contiguous()
+    npos_d = npos.to(cuda)
+    key = rng.fold_in(rng.prng_key(3), rng.chrom_hash("chrK"))
+    lanes = kcss.smacof_lanes(m, 1, torch.float64)
+    assert lanes == kcss.BLOCK_LANES
+    kt = torch.zeros(dis.shape[0], dtype=torch.int32, device=cuda)
+    mt = torch.zeros(dis.shape[0], dtype=torch.int32, device=cuda)
+    k = kcss.css_smacof(dis, npos_d, asize, bsize, 1, key, slots, 4, transforms=kt)
+    monkeypatch.setattr(kcss, "_smacof_loop", lambda d, x0, it, eps: kcss.smacof_pairs(
+        d, x0, it, eps, lanes=lanes))
+    p = kcss.css_smacof_plain(dis, npos_d, asize, bsize, 1, key, slots, 4, transforms=mt)
+    assert torch.equal(k[1], p[1])
+    assert torch.equal(k[3], p[3]) and torch.equal(k[4], p[4]) and torch.equal(kt, mt)
 
 
 @pytest.mark.gpu
@@ -586,11 +749,9 @@ def test_css_smacof_kernel_is_its_mirror(cuda, monkeypatch, prec, m):
 
 @pytest.mark.gpu
 def test_css_smacof_kernel_refuses(cuda):
-    dis = torch.zeros((2, 65, 65), dtype=torch.float64, device=cuda)
+    dis = torch.zeros((2, 8, 8), dtype=torch.float64, device=cuda)
     one = torch.ones(2, dtype=torch.int64)
     key = rng.prng_key(0)
-    with pytest.raises(NotImplementedError, match="P12"):
-        kcss.css_smacof(dis, one, 33, 32, 1, key, one)
     with pytest.raises(ValueError, match="restart"):
         kcss.css_smacof(dis[:, :8, :8].contiguous(), one, 4, 4, 1, key, one, n_init=0)
     with pytest.raises(ValueError, match="transforms"):
@@ -910,6 +1071,9 @@ def test_css_mc_coeff_threefry_kernel_bit_equal(cuda, asize, bsize):
 
 @pytest.mark.gpu
 def test_mc_kernels_refuse_large_panels(cuda):
+    """What still refuses m > 64 on the card (ROADMAP P12): the window
+    stream (K8), the power sums (K9) and the step's chunk (K11); the shared
+    stream's coefficients take any m (test_css_mc_coeff_kernel_large_panels)."""
     dist = torch.zeros((2, 65, 65), device=cuda)
     key = rng.prng_key(0)
     with pytest.raises(NotImplementedError, match="P12"):
@@ -918,7 +1082,75 @@ def test_mc_kernels_refuse_large_panels(cuda):
         kperm.null_power_sums(dist, rng.window_keys(key, [0, 0], [0, 1]), 33, 32, 512, 0, 2,
                               "window")
     with pytest.raises(NotImplementedError, match="P12"):
-        kperm.shared_coeff(key, 0, 1, 65, 33, 32, 256, cuda, "threefry")
+        kperm.permutation_chunk(dist, torch.zeros(2, device=cuda),
+                                torch.ones(2, dtype=torch.int32, device=cuda), 128,
+                                rng.window_keys(key, [0, 0], [0, 1]), 33, 32, 128)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", LARGE_M + COEFF_SWITCH)
+@pytest.mark.parametrize("bitgen", ["mix", "threefry"])
+def test_css_mc_coeff_kernel_large_panels(cuda, m, bitgen):
+    """K7's coefficients at large m (css_mc_coeff_block, its draws and ranks
+    in shared or device memory) bit-equal to the plain version, chunks of
+    100 (ragged) and 256."""
+    key = rng.fold_in(rng.prng_key(5), 2)
+    asize, bsize = (m + 1) // 2, m // 2
+    for nk, chunk in ((3, 100), (2, 256) if m < 900 else (1, 32)):
+        k = kperm.coeff_range(key, 2, nk, m, asize, bsize, chunk, cuda, bitgen)
+        p = kperm.coeff_range_plain(key, 2, nk, m, asize, bsize, chunk, cuda, bitgen)
+        torch.cuda.synchronize()
+        assert torch.equal(k.view(torch.int32), p.view(torch.int32)), (m, chunk)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mds,bitgen", [("cmds", "mix"), ("cmds", "threefry"),
+                                        ("smacof", "mix"), ("cmds+smacof", "mix")])
+@pytest.mark.parametrize("prec", ["exact", "fast"])
+def test_run_css_large_panel_cuda_matches_cpu(cuda, mds, bitgen, prec):
+    """run_css at 70 + 58 on the card against the CPU, each MDS mode (and
+    the shared stream's threefry draws): the large-panel kernels launch;
+    scores at the CSS tolerances (CMDS exact on windows whose eigengap
+    exceeds 1e-6; SMACOF fast within LARGE_SMACOF_BAND at m = 128), p
+    equal but for float32 near ties."""
+    from divergence_tpu_torch.config import MdsAlgorithm
+
+    mode = {"cmds": MdsAlgorithm.CMDS, "smacof": MdsAlgorithm.SMACOF,
+            "cmds+smacof": MdsAlgorithm.CMDS_SMACOF}[mds]
+    pos, am, bm = make_panel(3_000, 150_000, 70, 58, seed=12)
+    pair = SnpPair(pos, am, bm)
+    cfg = CssConfig(precision=prec, mc_runs=5000, mds=mode, rng=bitgen)
+    kcss.reset_launches()
+    kperm.reset_launches()
+    g = run_css(pair, 150_000, cfg, device=cuda, seqid="c")
+    score_kernel = "css_cmds_block" if mds == "cmds" else "css_smacof_block"
+    assert kcss.LAUNCHES["css_dissim_tiles"] >= 1 and kcss.LAUNCHES[score_kernel] >= 1
+    assert kperm.LAUNCHES["css_mc_coeff_block"] >= 1 and kperm.LAUNCHES["css_mc_scan"] >= 1
+    assert kperm.COEFF_LAUNCHES[bitgen] >= 1
+    c = run_css(pair, 150_000, cfg, device="cpu", seqid="c")
+    assert np.array_equal(g[0] != 0, c[0] != 0)
+    plan = plan_windows(pos, 150_000, 2500, 500)
+    ids = np.nonzero(plan.valid_mask() & (plan.npos > 0))[0]
+    dis = kcss.dissimilarity_plain(torch.from_numpy(np.concatenate([am, bm], axis=1)),
+                                   torch.from_numpy(plan.lo[ids]), torch.from_numpy(plan.npos[ids]))
+    filled, _ = kcss.fill_averages(dis)
+    ev = torch.linalg.eigvalsh(kcss.double_centre(filled)).flip(-1)
+    ok = np.zeros_like(c[0], dtype=bool)
+    ok[plan.slot[ids]] = ((ev[:, 1] - ev[:, 2]) / ev[:, 0].abs().clamp(min=1.0) > 1e-6).numpy()
+    ok &= c[0] != 0
+    if prec == "exact" and mds == "cmds":
+        rel = np.abs(g[0] - c[0])[ok] / np.maximum(np.abs(c[0][ok]), 1.0)
+        assert rel.max(initial=0.0) <= 1e-9
+    elif prec == "exact":   # SMACOF: a stop decision may flip between orders
+        rel = np.abs(g[0] - c[0]) / np.maximum(np.abs(c[0]), 1.0)
+        assert int((rel > 1e-9).sum()) <= 1e-3 * (c[0] != 0).sum() + 1
+    elif mds == "cmds":
+        np.testing.assert_allclose(g[0][ok], c[0][ok], rtol=2e-3, atol=1e-4)
+    else:
+        top, q90 = LARGE_SMACOF_BAND[(1 if mds == "smacof" else 2, 128)]
+        rel = np.abs(g[0] - c[0])[c[0] != 0] / np.maximum(np.abs(c[0][c[0] != 0]), 1.0)
+        assert rel.max(initial=0.0) <= top and np.quantile(rel, 0.9) <= q90
+    assert (g[1] != c[1]).sum() <= 0.01 * (c[0] != 0).sum()
 
 
 @pytest.mark.gpu

@@ -421,9 +421,12 @@ def test_run_css_sharded_and_split_equal_unsharded(chrom, kw):
     assert np.array_equal(multi["c"][1], ref[1])
 
 
-def test_engines_need_a_device_or_a_mesh(chrom):
+def test_engines_need_a_device_or_a_mesh(chrom, monkeypatch):
+    """Without a device or a mesh an engine asks for the card; with none
+    present it raises, naming device='cpu' (there is no CPU fallback)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     pair, regend = chrom
-    with pytest.raises(ValueError, match="sharding"):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         run_fet(pair, regend)
 
 
