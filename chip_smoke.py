@@ -122,7 +122,23 @@ Phases (any failure exits non-zero and prints no result line):
    ``mds=SMACOF`` / ``CMDS_SMACOF`` at 70 + 58, ``run_css`` on the card
    against the CPU at 70 + 58, and ``run-css`` and ``run-all`` on a
    20 k-SNP / 1 Mbp GTrack pair at 110 + 90, both precisions, run-all's
-   tracks equal to run-css's and to the library's.
+   tracks equal to run-css's and to the library's;
+17. the MC past m = 64 and FET windows of any width: (a) K8's large-panel
+   form (``css_mc_window_block``) in float32 mix, threefry and the float64
+   native form on the 997-window envelope cell at 70 + 58 and 110 + 90 to
+   20,000 permutations (the range loop's launches by CUDA events) and at
+   150 + 150 on 300 windows, held to the plain loop on a depth cut; (b)
+   K11's (``css_perm_chunk_block``) and K9's (``css_mc_power_window_block``
+   and the shared stream) on the 19,997 windows of the 200 k-SNP workload
+   against their plain versions, then the sharded step at both sizes
+   against plain=True; (c) run_css at 110 + 90 with the window stream,
+   threefry, native and approx mode (warm walls, the card against the
+   CPU), ``run-css --mc-stream window`` on phase 16's GTrack pair; (d) the
+   bench FET workload at 250 kb, 1 Mb and 2 Mb windows: K1 -> K2 and K1r ->
+   K2r (``fet_aggregate_wide``, ``fet_aggregate_ranks_wide`` past what a
+   block's shared memory holds) against their plain versions and K2r = K2
+   bit for bit, K10 at P = 8,192 and 65,536 (``fet_window_wide``) equal to
+   K1 -> K2, ``run_fet`` at each width, and the step on 1 Mb windows.
 
 Kernel launch counts are reset before phase 3 and read after phase 4 (the
 FET path), reset before phase 6 and read after phase 7 (the CMDS CSS
@@ -130,8 +146,10 @@ path), reset before phase 9 and read after it (the SMACOF and drosophila
 CSS path), reset before phase 11 and read after it (K8, K9 and K7 under
 threefry), reset before phase 13 and read after it (the sharded step:
 K10, K3's gather form, K5, K11), reset before phase 15 and read after it
-(run-all: K1, K2, K1r, K2r, K3, K5, K7), and reset before phase 16b and
-read after it (the large-panel kernels, K7's product and scan).  The
+(run-all: K1, K2, K1r, K2r, K3, K5, K7), reset before phase 16b and
+read after it (the large-panel kernels, K7's product and scan), and
+reset before phase 17's main path (17b's step, 17c, 17d's run_fet and
+step) and read after it (the large-panel MC and wide FET kernels).  The
 last three lines are a JSON line of per-kernel results (with each
 kernel's ``bound_ms``: the larger of its bytes over 3.35 TB/s and its
 operations over 67 TFLOP/s float32 / 34 TFLOP/s float64, from this run's
@@ -163,7 +181,9 @@ identical on at least 99.9 % of windows, each differing window shown to
 be a near tie (TIE_RTOL float32, TIE_RTOL_F64 float64).  K9: power sums
 within POWER_RTOL, approx nscores identical on 99.9 % of windows and
 |log10 p| within LOG10_P_BAND where they agree (tests/test_torch_approx.py,
-measured on the CPU).  K10: as K2 (its block body too), and bit-equal to K1 -> K2 on the
+measured on the CPU); past m = 64 (phase 17) the window stream within
+1e-12 and the shared stream within large_power_band(m) of the plain
+version's sums, each sum's error against its magnitude (power_err).  K10: as K2 (its block body too), and bit-equal to K1 -> K2 on the
 bench windows.  K1r: the sorted LUT and its ranks equal to the plain version's,
 bit for bit; the 8 M SNPs' ranks those of the kernel's own LUT, their
 scores within the FET tolerances of the plain version's.  K2r: as K2, and
@@ -246,9 +266,15 @@ TIE_RTOL_F64 = 1e-12             # float64 near tie (the native form)
 # relative to the plain version, and |log10 p| where nscores agree
 POWER_RTOL, LOG10_P_BAND, NSCORES_SAME_SHARE = 1e-6, 2e-5, 0.999   # m <= 21
 # the card's published peaks (NVIDIA's H100 SXM data sheet, dense, at
-# 700 W; float32 and float64 outside the tensor cores)
+# 700 W; float32 and float64 outside the tensor cores, a multiply-add two
+# operations), and the instruction rates of operations that are not
+# multiply-adds at the clock those peaks imply: per SM and clock, 128
+# float32 lanes, 64 int32 and 64 float64 lanes (NVIDIA's Hopper
+# whitepaper), so half the float32 peak, a quarter, and half the float64
+# peak
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"f32": 67e12, "f64": 34e12}
+PEAK_OPS_PER_S = {"f32": 67e12, "f64": 34e12, "f32_op": 33.5e12, "i32": 16.75e12,
+                  "f64_op": 17e12}
 # the sharded step (phases 12-13): the bench chromosome's windows gathered
 # at P = 128 and padded to a multiple of the 4-share check's mesh; the step
 # against its all-plain version on the first STEP_PLAIN_WINDOWS of them
@@ -277,6 +303,10 @@ LARGE_PLAIN_WINDOWS = 1_000
 LARGE_DEVICE_PANEL, LARGE_DEVICE_WINDOWS = (150, 150), 300
 LARGE_CPU_PANEL = (3_000, 150_000)
 LARGE_CLI = (20_000, 1_000_000, 9)
+# windows of phase 16's switch sweep for K3, K5 and K6 (cut from 64, 32
+# and 16 to make room for phase 17: the gpu tests hold every switch on
+# more windows)
+SWITCH_WINDOWS = (16, 8, 4)
 # (mode, m) -> the JAX package's own float32-vs-float64 maximum and 90th
 # percentile of the SMACOF score at that panel size, rounded up in the
 # second digit (tests/measure_smacof_band.py 128:300:256 200:200:256 and
@@ -285,6 +315,63 @@ LARGE_CLI = (20_000, 1_000_000, 9)
 # 6.127e-5); K6's fast mode is held to these at those m
 LARGE_SMACOF_BAND = {(1, 128): (3.2e-4, 1.6e-5), (1, 200): (1.1e-4, 3.0e-7),
                      (2, 128): (2.3e-3, 1.2e-4), (2, 200): (2.6e-3, 6.2e-5)}
+# phase 17, the MC past m = 64 and wide FET windows: K8's large-panel
+# form on the envelope cell (LARGE_CSS_WORKLOAD) to LARGE_MC_RUNS, held to
+# the plain loop on its first LARGE_MC_PLAIN windows to a shorter cap
+# (the plain score is m^2 torch launches a chunk), and at 150 + 150 on
+# LARGE_DEVICE_WINDOWS windows (LARGE_MC_PLAIN_300); K11 and K9's window
+# stream on the 19,997 windows of LARGE_KERNEL_WORKLOAD, their plain
+# versions on the first LARGE_CHUNK_PLAIN / LARGE_POWER_PLAIN of them;
+# the step against plain=True on LARGE_STEP_PLAIN windows; run_css with
+# the MC options card vs CPU on WINDOW_CPU_PANEL (the window stream's
+# plain loop on the host); the bench FET workload at WIDE_FET's widths,
+# each plain FET call ~2 / 8 / 17 s there (its Renyi steps grow with P),
+# so each is made once: K2 in both precisions at 250 kb (fast on the
+# block body, exact on the wide), both at 1 Mb and fast at 2 Mb (the wide
+# body); K2r's plain version timed at 250 kb (the block body) and 2 Mb
+# (K2r = K2 bit for bit at every width); K10 at 250 kb (fast block, exact
+# wide) and, exact, at 2 Mb (wide)
+FORMS_17 = [("mix", "mix", "xla"), ("threefry", "threefry", "xla"),
+            ("native", "mix", "native")]
+LARGE_MC_PLAIN, LARGE_MC_PLAIN_300 = (16, 2_048), (8, 1_024)
+LARGE_STEP_PLAIN, LARGE_CHUNK_PLAIN, LARGE_POWER_PLAIN = 512, 256, 64
+# approx mode past m = 64: |log10 p| card vs CPU (tests/
+# test_torch_large_panels_mc.py, measured on the CPU at m = 128 and 200)
+LARGE_LOG10_P_BAND = 1e-2
+
+
+def large_power_band(m: int) -> float:
+    """K9's shared stream past m = 64 against its plain version, by
+    power_err: m u (u = 2^-24).  The kernel adds a score's m^2 products
+    one after another in one float32 register (tile_gemm), the plain
+    version's matmul in blocks, so the kernel's sums drift like m
+    roundings of a score; measured 0.36-0.90 m u at m = 21 to 300, the
+    plain version's 0.12 m u or less (tests/measure_large_forms.py and
+    this script's 19,997 windows)."""
+    return m * 2.0 ** -24
+
+
+def power_err(kp, pp, n: int) -> float:
+    """Largest |kp - pp| of [chunks, 3, B] power sums of n scores against
+    n rms^q (rms^2 = pp[:, 1] / n): each sum's error against its
+    magnitude, which a sum near zero cannot inflate."""
+    import torch
+
+    rms = (pp[:, 1:2] / n).sqrt()
+    q = torch.arange(1, 4, device=pp.device, dtype=pp.dtype)[None, :, None]
+    return float(((kp - pp).abs() / (n * rms ** q)).max())
+LIBRARY_17 = [("window", {"mc_stream": "window"}),
+              ("window threefry", {"mc_stream": "window", "rng": "threefry"}),
+              ("native", {"perm_backend": "native"}),
+              ("approx shared", {"p_mode": "approx"}),
+              ("approx window", {"p_mode": "approx", "mc_stream": "window"})]
+WINDOW_CPU_PANEL = (60, 3_000)
+WIDE_FET = ((250_000, 50_000), (1_000_000, 200_000), (2_000_000, 400_000))
+WIDE_K10_WINDOWS, WIDE_STEP_WINDOWS = 1_000, 64
+# the (precision, index into WIDE_FET) cases each plain version runs on
+WIDE_PLAIN = {"fet_aggregate": {("fast", 0), ("exact", 0), ("exact", 1), ("fast", 1),
+                                ("fast", 2)},
+              "fet_aggregate_ranks": {("exact", 0), ("exact", 2)}}
 REPLACES = {
     "fet_lut_build": "divergence_tpu/kernels/fet.py:372",
     "fet_snp_logs": "divergence_tpu/kernels/fet.py:318",
@@ -307,6 +394,12 @@ REPLACES = {
     "css_cmds_block": "divergence_tpu/kernels/linalg.py:247",
     "css_smacof_block": "divergence_tpu/kernels/css.py:225",
     "css_mc_coeff_block": "divergence_tpu/kernels/perm.py:249",
+    "css_mc_window_block": "divergence_tpu/kernels/perm.py:164",
+    "css_mc_power_window_block": "divergence_tpu/kernels/perm.py:599",
+    "css_perm_chunk_block": "divergence_tpu/kernels/perm.py:396",
+    "fet_aggregate_wide": "divergence_tpu/kernels/fet.py:630",
+    "fet_aggregate_ranks_wide": "divergence_tpu/kernels/fet.py:495",
+    "fet_window_wide": "divergence_tpu/kernels/fet.py:668",
 }
 SOURCES = {
     "fet_lut_build": "divergence_tpu_torch/csrc/fet_snp.cu",
@@ -330,11 +423,21 @@ SOURCES = {
     "css_cmds_block": "divergence_tpu_torch/csrc/css_cmds.cu",
     "css_smacof_block": "divergence_tpu_torch/csrc/css_smacof.cu",
     "css_mc_coeff_block": "divergence_tpu_torch/csrc/css_mc.cu",
+    "css_mc_window_block": "divergence_tpu_torch/csrc/css_mc_window.cu",
+    "css_mc_power_window_block": "divergence_tpu_torch/csrc/css_mc_power.cu",
+    "css_perm_chunk_block": "divergence_tpu_torch/csrc/css_mc_window.cu",
+    "fet_aggregate_wide": "divergence_tpu_torch/csrc/fet_aggregate.cu",
+    "fet_aggregate_ranks_wide": "divergence_tpu_torch/csrc/fet_aggregate_ranks.cu",
+    "fet_window_wide": "divergence_tpu_torch/csrc/fet_window.cu",
 }
 # the large-panel path (phase 16b): these launch there, with K7's product
 # and scan
 LARGE_PATH = ("css_dissim_tiles", "css_cmds_block", "css_smacof_block", "css_mc_coeff_block",
               "css_mc_shared", "css_mc_scan")
+# phase 17's main path (the step, run_css's MC options, run_fet and the
+# step on wide windows): these launch there
+WIDE_PATH = ("css_mc_window_block", "css_mc_power_window_block", "css_perm_chunk_block",
+             "fet_aggregate_wide", "fet_aggregate_ranks_wide", "fet_window_wide")
 # K1r's LUT sort also at the largest symmetric panel where the LUT is on
 # (39^4 = 2,313,441 entries; 39 + 39 fails lut_active's 1e8 bound)
 RANK_BIG_PANEL = 38
@@ -376,9 +479,11 @@ def bound(nbytes: float, ops: dict) -> tuple[float, str]:
     """(bound_ms, bound_by): the least time the card could take for a
     kernel's work, the larger of ``nbytes`` (each input read once, each
     output written once) over the memory rate and the operations over the
-    peak rate of their type (``ops``: {"f32": n, "f64": n}; integer
-    operations are counted at the float32 rate, an underestimate of their
-    time).  A multiply-add is two operations."""
+    peak rate of their type (``ops``: {"f32": n, "f64": n} in the data
+    sheet's operations, a multiply-add two; "f32_op", "i32", "f64_op":
+    single operations that are not multiply-adds, at their instruction
+    rate; elsewhere integer operations are counted at the float32 rate, an
+    underestimate of their time)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = sum(n / PEAK_OPS_PER_S[t] for t, n in ops.items()) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -1466,22 +1571,20 @@ def device_profile(torch, fn) -> tuple[float, float, list]:
     return wall, sum(ms for ms, _ in rows), rows
 
 
-def mc_windows(torch, workload, dev):
+def mc_windows(torch, workload, dev, a=ASIZE, b=BSIZE, limit=None):
     """(dist [B, m, m] float32 on the card, float64 observed scores,
-    chromosome hashes, slots) of a CSS workload's valid windows: phase 1
-    in fast mode, as the engine gives them to phase 2."""
+    chromosome hashes, slots) of a CSS workload's valid windows at panel a
+    + b, at most ``limit``: phase 1 in fast mode, as the engine gives them
+    to phase 2."""
     import numpy as np
 
     from divergence_tpu_torch import rng
-    from divergence_tpu_torch.engine import SnpPair
     from divergence_tpu_torch.kernels import css as kcss
-    from divergence_tpu_torch.tools.synth import make_chromosome
 
-    npos_, region, seed = workload[:3]
-    pos, am, bm = make_chromosome(npos_, region, ASIZE, BSIZE, seed)
-    lo, npos, slot = windows_of(torch, pos, region)
-    s, d, v = kcss.css_phase1(SnpPair(pos, am, bm).to_device(dev), lo, npos, ASIZE, BSIZE,
-                              fast=True)
+    vals, lo, npos, slot = large_cells(torch, a, b, workload[:3], dev)
+    if limit is not None:
+        lo, npos, slot = lo[:limit], npos[:limit], slot[:limit]
+    s, d, v = kcss.css_phase1(vals, lo, npos, a, b, fast=True)
     keep = v.cpu().numpy()
     slots = slot.numpy()[keep]
     chroms = np.full(len(slots), rng.chrom_hash("_"), dtype=np.int64)
@@ -1490,20 +1593,25 @@ def mc_windows(torch, workload, dev):
 
 def window_ops(form: str, m: int, asize: int) -> dict:
     """Operations of one window-stream permutation, by type: m draws (two
-    mix32, ~12 integer operations, or a threefry-2x32, ~70), m^2 rank
-    compares, and the score: a*b + m - 2 float32 products and sums, or in
-    the float64 form about C(g, 2) + g + m float64 sums over the rank order
-    (g the smaller group)."""
+    mix32, 16 integer operations, or a threefry-2x32, ~70), the ranks as a
+    bitonic sort's compares of the m (draw, index) keys (p/2 log2 p
+    (log2 p + 1) / 2, p the power of two >= m: 1,792 at m = 128, not the
+    m^2 a rank count takes), and the score: a*b + m - 2 float32 products
+    and as many adds, each rounded on its own (no fused multiply-add, so
+    each an instruction), or in the float64 form about C(g, 2) + g + m
+    float64 adds over the rank order (g the smaller group)."""
     bsize = m - asize
-    draws = 70 * m if form == "threefry" else 12 * m
+    p = 1 << max(m - 1, 1).bit_length()
+    lg = p.bit_length() - 1
+    ints = (70 if form == "threefry" else 16) * m + p // 2 * lg * (lg + 1) // 2
     if form == "native":
         g = min(asize, bsize)
-        return {"f32": draws + m * m, "f64": g * (g - 1) // 2 + g + m + 6}
-    return {"f32": draws + m * m + 2 * (asize * bsize + m - 2)}
+        return {"i32": ints, "f64_op": g * (g - 1) // 2 + g + m + 6}
+    return {"i32": ints, "f32_op": 2 * (asize * bsize + m - 2)}
 
 
 def explain_differences(torch, kperm, rng, dist, scores, wkeys, got, n, h, chunk,
-                        bitgen, native) -> int:
+                        bitgen, native, a=ASIZE, b=BSIZE, label="K8") -> int:
     """Windows whose (nscores, hits) differ between a kernel and its plain
     version; each must hold a permutation, among those either consumed,
     whose score lies within TIE_RTOL (float32 forms, rescored in float64)
@@ -1511,40 +1619,40 @@ def explain_differences(torch, kperm, rng, dist, scores, wkeys, got, n, h, chunk
     observed score: a near tie.  Returns their count."""
     import numpy as np
 
-    m = ASIZE + BSIZE
     bad = np.nonzero((got.nscores != n) | (got.hits != h))[0]
     for w in bad:
         nn = int(max(got.nscores[w], n[w]))
-        r = torch.cat([kperm._ranks(rng.fold_in(wkeys[w:w + 1], k), chunk, m, bitgen)
+        r = torch.cat([kperm._ranks(rng.fold_in(wkeys[w:w + 1], k), chunk, a + b, bitgen)
                        for k in range(-(-nn // chunk))], dim=-1)
         D = dist[w:w + 1].double()
         obs = float(np.float32(scores[w]))
         if native:
-            s64 = kperm._native_scores(D, kperm._row_totals(D), r, ASIZE, BSIZE)[0]
+            s64 = kperm._native_scores(D, kperm._row_totals(D), r, a, b)[0]
         else:
-            s64 = (D[..., None] * kperm._rank_coeff(r, ASIZE, BSIZE).double()).sum(dim=(1, 2))[0]
+            s64 = (D[..., None] * kperm._rank_coeff(r, a, b).double()).sum(dim=(1, 2))[0]
         gap = float((s64[:nn] - obs).abs().min()) / max(abs(obs), 1.0)
-        say(f"[K8] window {w}: (n, hits) kernel ({got.nscores[w]}, {got.hits[w]}) plain "
+        say(f"[{label}] window {w}: (n, hits) kernel ({got.nscores[w]}, {got.hits[w]}) plain "
             f"({n[w]}, {h[w]}); nearest permuted score {gap:.2e} from the observed")
         check(gap <= (TIE_RTOL_F64 if native else TIE_RTOL),
-              f"css_mc_window: window {w} differs without a near tie ({gap})")
+              f"{label}: window {w} differs without a near tie ({gap})")
     return len(bad)
 
 
-def k8_launch_times(torch, kperm, dist, scores, wkeys, bitgen, native) -> dict:
-    """One call of K8's range loop to the MC_RUNS cap at chunk 256 with the
-    css_mc_window and css_mc_scan launches between CUDA events: their
-    summed device times, the host wall, the ranges and the permutations
-    computed (every running window pays for its whole range)."""
+def k8_launch_times(torch, kperm, dist, scores, wkeys, bitgen, native, a=ASIZE, b=BSIZE,
+                    runs=MC_RUNS, kernel="css_mc_window") -> dict:
+    """One call of K8's range loop to ``runs`` at chunk 256 with the
+    ``kernel`` (css_mc_window or css_mc_window_block) and css_mc_scan
+    launches between CUDA events: their summed device times, the host
+    wall, the ranges and the permutations computed (every running window
+    pays for its whole range) and consumed."""
     obs = torch.as_tensor(scores).to(dist.device).float()
     ranges = []
-    with timed_launches(torch, kperm, ("css_mc_window", "css_mc_scan")) as spans:
+    with timed_launches(torch, kperm, (kernel, "css_mc_scan")) as spans:
         (nsc, _), wall = host_ms(torch, lambda: kperm.mc_window(
-            dist, obs, wkeys, ASIZE, BSIZE, 256, MC_RUNS, 10, bitgen, native=native,
-            ranges=ranges))
-    kms = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in spans.items()}
-    computed = sum(a * (min(MC_RUNS, (k + nk) * 256) - k * 256) for k, nk, a in ranges)
-    return {"hits_ms": kms["css_mc_window"], "scan_ms": kms["css_mc_scan"], "wall_ms": wall,
+            dist, obs, wkeys, a, b, 256, runs, 10, bitgen, native=native, ranges=ranges))
+    kms = {k: sum(x.elapsed_time(y) for x, y in v) for k, v in spans.items()}
+    computed = sum(n * (min(runs, (k + nk) * 256) - k * 256) for k, nk, n in ranges)
+    return {"hits_ms": kms[kernel], "scan_ms": kms["css_mc_scan"], "wall_ms": wall,
             "ranges": ranges, "computed": computed, "nsc": nsc.cpu().numpy()}
 
 
@@ -1708,7 +1816,7 @@ def phase_window_kernels(torch, pair, plan_ids, dev, results) -> None:
                 f"{kms['css_mc_coeff']:.4f} ms")
             M = kperm.shared_coeff(key, 0, APPROX_CHUNKS, m, ASIZE, BSIZE, APPROX_CHUNK, dev)
             r9["bound_shared"] = bound(PB * m * m * 4 + M.numel() * 4 + out_bytes,
-                                       {"f32": 2 * m * m * nperm, "f64": 5 * nperm})
+                                       {"f32": 2 * m * m * nperm, "f64_op": 5 * nperm})
             flat = pdist.reshape(PB, m * m)
             r9["library_ms"] = cuda_ms(torch, lambda: flat @ M, 3)
             say(f"[K9] library yardstick torch.matmul [{PB}, {m * m}] @ [{m * m}, "
@@ -1716,7 +1824,7 @@ def phase_window_kernels(torch, pair, plan_ids, dev, results) -> None:
             del M
         else:
             ops = {t: v * nperm for t, v in window_ops("mix", m, ASIZE).items()}
-            ops["f64"] = 5 * nperm
+            ops["f64_op"] = 5 * nperm
             r9["bound_window"] = bound(PB * (m * m * 4 + 16) + out_bytes, ops)
         del kp, pp
     r9["fast"], r9["bound"] = r9["shared"], r9["bound_shared"]
@@ -2830,7 +2938,7 @@ def phase_large_kernels(torch, dev, card, results) -> None:
 
     for lo_m, hi_m in form_switches(kcss.dissim_form, 2, top):
         for m in (lo_m, hi_m):
-            a, b, vals, lo, npos, _ = small(m, 64)
+            a, b, vals, lo, npos, _ = small(m, SWITCH_WINDOWS[0])
             check(torch.equal(kcss.css_dissim(vals, lo, npos, torch.float32).double(),
                               kcss.dissimilarity_plain(vals, lo, npos)),
                   f"css_dissim at m = {m}: counts differ")
@@ -2838,7 +2946,7 @@ def phase_large_kernels(torch, dev, card, results) -> None:
     for dt, prec in ((torch.float32, "fast"), (torch.float64, "exact")):
         for lo_m, hi_m in form_switches(lambda m: kcss.cmds_form(m, dt), 2, top):
             for m in (lo_m, hi_m):
-                a, b, vals, lo, npos, _ = small(m, 32)
+                a, b, vals, lo, npos, _ = small(m, SWITCH_WINDOWS[1])
                 cmds_case(torch, kcss, kcss.dissimilarity_plain(vals, lo, npos),
                           npos.to(dev), a, b, prec, f"css_cmds at m = {m}")
                 checked.append(f"css_cmds {prec} {m} {kcss.cmds_form(m, dt)}")
@@ -2846,7 +2954,7 @@ def phase_large_kernels(torch, dev, card, results) -> None:
         for mds in (1, 2):
             for lo_m, hi_m in form_switches(lambda m: kcss.smacof_form(m, mds, dt), 2, top):
                 for m in (lo_m, hi_m):
-                    a, b, vals, lo, npos, slot = small(m, 16)
+                    a, b, vals, lo, npos, slot = small(m, SWITCH_WINDOWS[2])
                     smacof_check(torch, kcss, kcss.dissimilarity_plain(vals, lo, npos),
                                  npos.to(dev), a, b, mds, key, slot.to(dev), prec,
                                  f"css_smacof at m = {m}", band=large_smacof_band(mds, m))
@@ -3018,6 +3126,468 @@ def phase_large_library(torch, dev, card, tmp: Path, results) -> None:
         walls[f"cli_{prec}"] = {"run_css_s": w_css, "run_all_s": w_all}
 
 
+# ------------------------------------------------------------------ phase 17
+
+
+def phase_large_mc_kernels(torch, dev, card, results) -> None:
+    """Phase 17a-b: K8's large-panel form in its three forms on the
+    997-window envelope cell at 70 + 58 and 110 + 90 (the range loop's
+    launches to LARGE_MC_RUNS by CUDA events; held to the plain loop on
+    the depth cut LARGE_MC_PLAIN) and at 150 + 150 on LARGE_DEVICE_WINDOWS
+    windows; K11's and K9's large-panel forms (and K9's shared stream) on
+    the 19,997 windows of the 200 k-SNP workload against their plain
+    versions (K11 and K9's window stream on a depth cut)."""
+    import numpy as np
+
+    from divergence_tpu_torch import rng
+    from divergence_tpu_torch.kernels import perm as kperm
+
+    key = rng.fold_in(rng.prng_key(0), 2).to(dev)
+    r8 = results["css_mc_window_block"]
+    cut_w, cut_runs = LARGE_MC_PLAIN
+    cells = [(a, b, LARGE_CSS_WORKLOAD, None, FORMS_17) for a, b in LARGE_PANELS]
+    cells.append((*LARGE_DEVICE_PANEL, LARGE_KERNEL_WORKLOAD, LARGE_DEVICE_WINDOWS,
+                  FORMS_17[:1]))
+    for a, b, workload, limit, forms in cells:
+        m = a + b
+        dist, scores, chroms, slots = mc_windows(torch, workload, dev, a, b, limit)
+        B = dist.shape[0]
+        wkeys = rng.window_keys(key, chroms, slots)
+        obs = torch.as_tensor(scores).to(dev).float()
+        nw = min(B, cut_w if m < 300 else LARGE_MC_PLAIN_300[0])
+        runs_cut = cut_runs if m < 300 else LARGE_MC_PLAIN_300[1]
+        for form, bitgen, backend in forms:
+            native = backend == "native"
+            launch_times = lambda: k8_launch_times(  # noqa: E731
+                torch, kperm, dist, scores, wkeys, bitgen, native, a, b, LARGE_MC_RUNS,
+                "css_mc_window_block")
+            launch_times()   # warm-up
+            lt = launch_times()
+            lt["ranges"], lt["consumed"] = len(lt["ranges"]), int(lt.pop("nsc").sum())
+            kern = lambda: kperm.significance(  # noqa: E731
+                dist[:nw], scores[:nw], a, b, 10, runs_cut, key, chroms=chroms[:nw],
+                slots=slots[:nw], backend=backend, bitgen=bitgen, stream="window")
+            kern()
+            got, ms = host_ms(torch, kern)
+            if native:
+                plain = lambda: kperm.mc_native_plain(  # noqa: E731
+                    dist[:nw], scores[:nw], wkeys[:nw], a, b, 256, runs_cut, 10)
+            else:
+                plain = lambda: kperm.mc_significance(  # noqa: E731
+                    dist[:nw], scores[:nw], wkeys[:nw], a, b, 256, runs_cut, 10,
+                    stream="window", bitgen=bitgen)
+            (pv, n, h), pms = host_ms(torch, plain)
+            nd = explain_differences(torch, kperm, rng, dist, scores, wkeys, got, n, h, 256,
+                                     bitgen, native, a, b, f"K8 large {a}+{b} {form}")
+            check(nd <= MC_DIFFER_SHARE * nw + 1, f"css_mc_window_block {a}+{b} {form}: {nd}")
+            perms = lt["consumed"]
+            bnd = bound(B * (m * m * 4 + 4 + 16 + 8),
+                        {t: v * lt["computed"] for t, v in window_ops(form, m, a).items()})
+            cut_bnd = bound(nw * (m * m * 4 + 28),
+                            {t: v * int(n.sum()) for t, v in window_ops(form, m, a).items()})
+            say(f"[K8 css_mc_window_block {a}+{b} {form}] {B} windows to {LARGE_MC_RUNS}: "
+                f"launches alone {lt['hits_ms']:.2f} ms (+ css_mc_scan {lt['scan_ms']:.3f}) "
+                f"in a {lt['wall_ms']:.1f} ms call, {lt['ranges']} ranges, {lt['computed']} "
+                f"permutations computed for {perms} consumed "
+                f"({perms / lt['wall_ms'] * 1e3:,.0f} perms/s), bound {bnd[0]:.3f} ms "
+                f"({bnd[1]}); depth cut {nw} windows to {runs_cut}: kernel {ms:.1f} ms plain "
+                f"{pms:.1f} ms (host wall), {nd} windows differ (near ties), form "
+                f"{kperm.window_form(m, native)} on {card}")
+            r8[f"{form}_{m}"] = (float(np.abs(got.pvals - pv).max()), float(nd), ms, pms)
+            r8[f"bound_{form}_{m}"] = cut_bnd
+            r8[f"launches_{form}_{m}"] = {**lt, "bound_ms": bnd[0], "bound_by": bnd[1]}
+        del dist, wkeys, obs
+        torch.cuda.empty_cache()
+    mL = sum(LARGE_PANELS[-1])
+    r8["fast"], r8["bound"] = r8[f"mix_{mL}"], r8[f"bound_mix_{mL}"]
+
+    # K11 and K9 on the 19,997 windows of the 200 k-SNP workload
+    r11, r9 = results["css_perm_chunk_block"], results["css_mc_power_window_block"]
+    for a, b in LARGE_PANELS:
+        m = a + b
+        dist, scores, chroms, slots = mc_windows(torch, LARGE_KERNEL_WORKLOAD, dev, a, b)
+        B = dist.shape[0]
+        wkeys = rng.window_keys(key, chroms, slots)
+        obs = torch.as_tensor(scores).to(dev).float()
+        need = torch.full((B,), 10, dtype=torch.int32, device=dev)
+        for bitgen in ("mix", "threefry"):
+            kern = lambda: kperm.permutation_chunk(  # noqa: E731
+                dist, obs, need, PERM_CHUNK, wkeys, a, b, PERM_CHUNK, bitgen)
+            k = kern()
+            ms = cuda_ms(torch, kern, 3)
+            c = min(B, LARGE_CHUNK_PLAIN)
+            plain = lambda: kperm.permutation_chunk_plain(  # noqa: E731
+                dist[:c], obs[:c], need[:c], PERM_CHUNK, wkeys[:c], a, b, PERM_CHUNK, bitgen)
+            p, pms = event_ms(torch, plain)
+            nd = int(sum((x[:c].cpu() != y.cpu()).sum() for x, y in zip(k, p)))
+            check(nd == 0, f"css_perm_chunk_block {a}+{b} {bitgen}: {nd} outputs differ "
+                           f"from the plain version on the first {c} windows")
+            cms = cuda_ms(torch, lambda: kperm.permutation_chunk(
+                dist[:c], obs[:c], need[:c], PERM_CHUNK, wkeys[:c], a, b, PERM_CHUNK, bitgen), 3)
+            ops = {t: v * PERM_CHUNK for t, v in window_ops(bitgen, m, a).items()}
+            bnd = bound(B * (m * m * 4 + 4 + 4 + 16 + 9), {t: v * B for t, v in ops.items()})
+            cbnd = bound(c * (m * m * 4 + 4 + 4 + 16 + 9), {t: v * c for t, v in ops.items()})
+            say(f"[K11 css_perm_chunk_block {a}+{b} {bitgen}] {B} windows x {PERM_CHUNK}: "
+                f"kernel {ms:.3f} ms (bound {bnd[0]:.3f} ms, {bnd[1]}); the first {c} "
+                f"windows equal to the plain version: kernel {cms:.3f} ms plain {pms:.1f} ms "
+                f"(bound {cbnd[0]:.4f} ms) on {card}")
+            r11[f"{bitgen}_{m}"] = (0.0, 0.0, cms, pms)
+            r11[f"bound_{bitgen}_{m}"] = cbnd
+            r11[f"all_windows_{bitgen}_{m}"] = {"windows": B, "ms": ms, "bound_ms": bnd[0]}
+        nperm = B * APPROX_CHUNK * APPROX_CHUNKS
+        for stream in ("shared", "window"):
+            keys = key if stream == "shared" else wkeys
+            c = B if stream == "shared" else min(B, LARGE_POWER_PLAIN)
+            kern = lambda: kperm.null_power_sums(  # noqa: E731
+                dist, keys, a, b, APPROX_CHUNK, 0, APPROX_CHUNKS, stream)
+            kp = kern()
+            ms = cuda_ms(torch, kern, 2)
+            pk = keys if stream == "shared" else keys[:c]
+            pp, pms = event_ms(torch, lambda: kperm.null_power_sums_plain(
+                dist[:c], pk, a, b, APPROX_CHUNK, 0, APPROX_CHUNKS, stream))
+            prel = power_err(kp[..., :c], pp, APPROX_CHUNK)
+            rtol = 1e-12 if stream == "window" else large_power_band(m)
+            check(prel <= rtol, f"css_mc_power {stream} {a}+{b}: power sums {prel}")
+
+            def power_bound(nw):
+                n = nw * APPROX_CHUNK * APPROX_CHUNKS
+                ops = {"f32": 2 * m * m * n} if stream == "shared" else {
+                    t: v * n for t, v in window_ops("mix", m, a).items()}
+                ops["f64_op"] = 5 * n
+                return bound(nw * (m * m * 4 + 16) + APPROX_CHUNKS * 3 * nw * 8, ops)
+
+            bnd = power_bound(B)
+            say(f"[K9 css_mc_power {stream} {a}+{b}] {B} windows x {APPROX_CHUNKS} chunks of "
+                f"{APPROX_CHUNK}: kernel {ms:.2f} ms (bound {bnd[0]:.3f} ms, {bnd[1]}); power "
+                f"sums power_err={prel:.3e} (band {rtol:.3g}) against the plain version on "
+                f"{c} windows ({pms:.1f} ms there) on {card}")
+            if stream == "window":
+                cms = cuda_ms(torch, lambda: kperm.null_power_sums(
+                    dist[:c], pk, a, b, APPROX_CHUNK, 0, APPROX_CHUNKS, stream), 3)
+                say(f"[K9 css_mc_power window {a}+{b}] the first {c} windows: kernel "
+                    f"{cms:.3f} ms plain {pms:.1f} ms")
+                r9[f"window_{m}"] = (abs_err(kp[..., :c], pp), prel, cms, pms)
+                r9[f"bound_window_{m}"] = power_bound(c)
+                r9[f"all_windows_window_{m}"] = {"windows": B, "ms": ms, "bound_ms": bnd[0]}
+            else:
+                results["css_mc_power"][f"shared_{m}"] = (abs_err(kp, pp), prel, ms, pms)
+                results["css_mc_power"][f"bound_shared_{m}"] = bnd
+            del kp, pp
+        del dist, wkeys, obs
+        torch.cuda.empty_cache()
+    for name, key_ in ((r11, f"mix_{mL}"), (r9, f"window_{mL}")):
+        name["fast"], name["bound"] = name[key_], name["bound_" + key_]
+
+
+def phase_large_mc_library(torch, dev, card, tmp: Path, results) -> None:
+    """Phase 17b-c, the main path: make_divergence_step at 70 + 58 and
+    110 + 90 on the 19,997 windows of the 200 k-SNP workload gathered at P
+    = 128 (warm wall; against the step with plain=True on the first
+    LARGE_STEP_PLAIN windows); run_css at 110 + 90 with the window stream
+    (mix, threefry), the native evaluator and approx mode (both streams)
+    on the 997-window envelope cell with LARGE_MC_RUNS permutations (warm
+    walls), the card against the CPU on WINDOW_CPU_PANEL; run-css
+    --mc-stream window on phase 16's 20 k-SNP GTrack pair."""
+    import numpy as np
+
+    from divergence_tpu_torch import rng
+    from divergence_tpu_torch.config import CssConfig
+    from divergence_tpu_torch.engine import SnpPair, run_css
+    from divergence_tpu_torch.parallel import make_divergence_step, make_mesh
+    from divergence_tpu_torch.tools import cli, synth
+
+    walls = results["large_mc_library"] = {}
+    mesh = make_mesh(devices=[dev])
+    for a, b in LARGE_PANELS:
+        m = a + b
+        npos_, region, seed = LARGE_KERNEL_WORKLOAD
+        pos, am, bm = synth.make_chromosome(npos_, region, a, b, seed)
+        vals = SnpPair(pos, am, bm).to_device(dev)
+        lo, npos, slot = windows_of(torch, pos, region)
+        offs = torch.arange(STEP_P, device=dev)[None, :]
+        lo_d, npos_d = lo.to(dev), npos.to(dev)
+        g = vals[torch.where(offs < npos_d[:, None], lo_d[:, None] + offs, lo_d[:, None])]
+        av, bv = g[..., :a].contiguous(), g[..., a:].contiguous()
+        del g
+        key = rng.prng_key(1)
+        step = make_divergence_step(mesh, a, b)
+        step(av, bv, npos, slot, key)
+        out, ms = host_ms(torch, lambda: step(av, bv, npos, slot, key))
+        c = min(lo.numel(), LARGE_STEP_PLAIN)
+        want, pms = host_ms(torch, lambda: make_divergence_step(mesh, a, b, plain=True)(
+            av[:c], bv[:c], npos[:c], slot[:c], key))
+        fet_err = rel_err(out["fet_scores"][:c], want["fet_scores"])
+        check(fet_err <= TOL["exact"], f"step {a}+{b}: FET {fet_err}")
+        check(torch.equal(out["css_valid"][:c], want["css_valid"]), f"step {a}+{b}: valid")
+        css = ((out["css_scores"][:c] - want["css_scores"]).abs()
+               / want["css_scores"].abs().clamp(min=1.0))
+        beyond = int((css > TOL_CSS).sum())
+        hits_differ = int((out["mc_hits"][:c] != want["mc_hits"]).sum())
+        say(f"[step {a}+{b}] make_divergence_step on {lo.numel()} windows at P = {STEP_P}: "
+            f"warm wall {ms:.1f} ms ({lo.numel() / ms * 1e3:,.0f} windows/s); the first {c} "
+            f"against plain=True ({pms:.1f} ms): FET max_rel_err={fet_err:.3e}, CSS beyond "
+            f"1e-9 on {beyond} windows, mc_hits differ on {hits_differ} on {card}")
+        check(beyond <= 0.01 * c, f"step {a}+{b}: CSS beyond 1e-9 on {beyond} windows")
+        check(hits_differ <= 1, f"step {a}+{b}: mc_hits differ on {hits_differ} windows")
+        walls[f"step_{m}_ms"] = ms
+        del av, bv, vals, out, want
+        torch.cuda.empty_cache()
+
+    # run_css at 110 + 90 with the MC options, 997 windows
+    a, b = LARGE_PANELS[-1]
+    m = a + b
+    npos_, region, seed = LARGE_CSS_WORKLOAD
+    pair = SnpPair(*synth.make_chromosome(npos_, region, a, b, seed))
+    for label, kw in LIBRARY_17:
+        cfg = CssConfig(precision="fast", mc_runs=LARGE_MC_RUNS, **kw)
+        (scores, pvals), summary, w = warm_runs(
+            lambda sm: run_css(pair, region, cfg, device=dev, summary=sm), reps=1)
+        cnt = summary.counters
+        scored = scores != 0
+        check(not np.isnan(scores).any() and not np.isnan(pvals).any()
+              and bool(((pvals[scored] > 0) & (pvals[scored] <= 1)).all()),
+              f"run_css {a}+{b} {label}: NaN or p outside (0, 1]")
+        best = min(w)
+        say(f"[large mc library {a}+{b} {label}] run_css {npos_} SNPs / {region} bp, "
+            f"{LARGE_MC_RUNS} permutations: {cnt['windows_scored']} windows, "
+            f"{cnt['mc_permutations']} permutations; warm wall min {best:.4f} s "
+            f"({cnt['mc_permutations'] / best:,.0f} perms/s) on {card}")
+        walls[f"{label}_{m}_s"] = best
+
+    # the card against the CPU: p equal but near ties, approx in its band
+    cpos, cam, cbm = synth.make_panel(*WINDOW_CPU_PANEL, a, b, seed=5)
+    cpair = SnpPair(cpos, cam, cbm)
+    for label, kw in LIBRARY_17:
+        cfg = CssConfig(precision="exact", mc_runs=MULTI_MC_RUNS, seed=3, **kw)
+        g_s, g_p = run_css(cpair, WINDOW_CPU_PANEL[1], cfg, device=dev)
+        c_s, c_p = run_css(cpair, WINDOW_CPU_PANEL[1], cfg, device="cpu")
+        scored = c_s != 0
+        check(np.array_equal(g_s != 0, scored), f"card vs CPU {label}: scored windows differ")
+        if kw.get("p_mode") == "approx":
+            dl = np.abs(np.log10(g_p[scored]) - np.log10(c_p[scored]))
+            worst = float(dl.max(initial=0.0))
+            check(worst <= LARGE_LOG10_P_BAND, f"card vs CPU {label}: |dlog10 p| {worst}")
+            note = f"max |dlog10 p|={worst:.3e} (band {LARGE_LOG10_P_BAND:g})"
+        else:
+            differ = int((g_p != c_p).sum())
+            check(differ <= MC_DIFFER_SHARE * scored.sum() + 1,
+                  f"card vs CPU {label}: p differs on {differ} windows")
+            note = f"p differs on {differ} windows"
+        say(f"[large mc library {a}+{b} card vs CPU {label}] {int(scored.sum())} windows, "
+            f"{MULTI_MC_RUNS} permutations: {note}")
+
+    # the CLI: run-css --mc-stream window on phase 16's GTrack pair
+    a_path, b_path = tmp / "large_popA.gtrack", tmp / "large_popB.gtrack"
+    sizes = tmp / "large_chrom.sizes"
+    check(a_path.exists() and sizes.exists(), "phase 16's GTrack pair is missing")
+    out = tmp / "large_css_window.track"
+    t0 = time.perf_counter()
+    cli.main(["run-css", "--pop-a", str(a_path), "--pop-b", str(b_path), "--chrom-sizes",
+              str(sizes), "--device", str(dev), "--out", str(out), "--mc-stream", "window",
+              "--mc-runs", str(LARGE_MC_RUNS)])
+    w_cli = time.perf_counter() - t0
+    rows = [ln for ln in out.read_text().splitlines() if ln and not ln.startswith("#")]
+    check(len(rows) > 0, "run-css --mc-stream window wrote no rows")
+    say(f"[large mc cli {a}+{b}] run-css --mc-stream window --mc-runs {LARGE_MC_RUNS} on the "
+        f"{LARGE_CLI[0]}-SNP GTrack pair: {w_cli:.2f} s, {len(rows)} rows")
+    walls["cli_window_s"] = w_cli
+
+
+def wide_rows(torch, positions, region, wsize, wstep):
+    """(lo, npos, slot) host tensors of the valid windows at wsize / wstep."""
+    import numpy as np
+
+    from divergence_tpu_torch.core.windows import plan_windows
+
+    plan = plan_windows(positions, region, wsize, wstep)
+    ids = np.nonzero(plan.valid_mask() & (plan.npos > 0))[0]
+    return tuple(torch.from_numpy(x[ids].copy()) for x in (plan.lo, plan.npos, plan.slot))
+
+
+def phase_wide_fet_kernels(torch, kfet, pair, positions, dev, card, results) -> None:
+    """Phase 17d, the kernels: the bench FET workload at each of WIDE_FET's
+    window widths: K1 -> K2 in both precisions and K1r -> K2r exact against
+    their plain versions, K2r = K2 bit for bit (the block and wide bodies
+    side by side), timed by CUDA events; K10 on the first WIDE_K10_WINDOWS
+    250 kb windows gathered at P = 8,192 (fast: the block body, exact: the
+    wide body) and on the first
+    WIDE_STEP_WINDOWS 2 Mb windows at P = 65,536 (the wide body), against
+    its plain version and K1 -> K2 bit for bit."""
+    from divergence_tpu_torch import rng
+
+    vals = pair.to_device(dev)
+    maxs, nmax = kfet.support_size(ASIZE, BSIZE), ASIZE + BSIZE + 2
+    key = rng.fold_in(rng.prng_key(BENCH_SEED), rng.chrom_hash("chrB"))
+    ragg, rr, rw = (results[k] for k in ("fet_aggregate_wide", "fet_aggregate_ranks_wide",
+                                         "fet_window_wide"))
+    for wi, (wsize, wstep) in enumerate(WIDE_FET):
+        lo, npos, slot = wide_rows(torch, positions, BENCH_REGION, wsize, wstep)
+        B = lo.numel()
+        P = kfet._window_pad(int(npos.max()))
+        lo_d, npos_d, slot_d = lo.to(dev), npos.to(dev), slot.to(dev)
+        ls, ranks = kfet.fet_snp_ranks(vals, ASIZE, maxs, nmax, False)
+        for prec in ("fast", "exact"):
+            fast = prec == "fast"
+            logs = kfet.fet_snp_logs(vals, ASIZE, maxs, nmax, fast)
+            kern = lambda: kfet.fet_aggregate(  # noqa: E731
+                logs, lo_d, npos_d, slot_d, key, 0.95, 100)
+            k = kern()
+            ms = cuda_ms(torch, kern, 3)
+            if not fast:
+                kr = lambda: kfet.fet_aggregate_ranks(  # noqa: E731
+                    ls, ranks, lo_d, npos_d, slot_d, key, 0.95, 100)
+                got = kr()
+                check(torch.equal(got, k), f"K2r {wsize}: not equal to K1 -> K2")
+                if (prec, wi) in WIDE_PLAIN["fet_aggregate_ranks"]:
+                    rms = cuda_ms(torch, kr, 3)
+                    rp, rpms = event_ms(torch, lambda: kfet.fet_aggregate_ranks_plain(
+                        ls, ranks, lo, npos, slot, key, 0.95, 100))
+                    rerr = rel_err(got[0], rp[0])
+                    rform = kfet.window_form(P, 100, 4, 8)
+                    rbnd = bound(int(npos.sum()) * 4 + B * 40 + ls.numel() * 8,
+                                 bootstrap_ops(npos.numpy(), 0.95, 100, False))
+                    say(f"[K2r fet_aggregate_ranks exact, {wsize} / {wstep}] the {rform} "
+                        f"body: equal to K1 -> K2 on every window, score max_rel_err "
+                        f"{rerr:.3e} against its plain version; kernel {rms:.3f} ms plain "
+                        f"{rpms:.1f} ms, bound {rbnd[0]:.3f} ms on {card}")
+                    check(rerr <= TOL["exact"], f"K2r {wsize}: scores {rerr}")
+                    rr[f"exact_{wsize}"] = (abs_err(got, rp), rel_err(got, rp), rms, rpms)
+                    rr[f"bound_exact_{wsize}"] = rbnd
+                    rr[f"form_exact_{wsize}"] = rform
+                    del rp
+                del got
+            if (prec, wi) not in WIDE_PLAIN["fet_aggregate"]:
+                say(f"[K2 fet_aggregate {prec}, {wsize} / {wstep}] {B} windows (P = {P}): "
+                    f"kernel {ms:.3f} ms on {card}")
+                continue
+            p, pms = event_ms(torch, lambda: kfet.fet_aggregate_plain(
+                logs, lo, npos, slot, key, 0.95, 100))
+            sc_err, sd_rel = rel_err(k[0], p[0]), (k[1].double() - p[1].double()).abs() / \
+                p[1].double().abs().clamp(min=1.0)
+            beyond = int((sd_rel > TOL[prec]).sum())
+            bits = int((float_bits(torch, k) != float_bits(torch, p)).sum())
+            size = 4 if fast else 8
+            form = kfet.window_form(P, 100, size, size)
+            bnd = bound(int(npos.sum()) * size + B * (24 + 2 * size),
+                        bootstrap_ops(npos.numpy(), 0.95, 100, fast))
+            say(f"[K2 fet_aggregate {prec}, {wsize} / {wstep}] {B} windows, max "
+                f"{int(npos.max())} SNPs (P = {P}, the {form} body): score max_rel_err="
+                f"{sc_err:.3e}, stddev beyond {TOL[prec]:g} on {beyond}, {bits} of {2 * B} "
+                f"values not bit-equal to the plain version; kernel {ms:.3f} ms plain "
+                f"{pms:.1f} ms, bound {bnd[0]:.3f} ms ({bnd[1]}) on {card}")
+            check(sc_err <= TOL[prec], f"K2 {prec} {wsize}: scores {sc_err}")
+            check(beyond <= STDDEV_BEYOND_SHARE * B + 1, f"K2 {prec} {wsize}: stddev {beyond}")
+            tag = f"{prec}_{wsize}"
+            ragg[tag] = (abs_err(k, p), max(sc_err, float(sd_rel.max())), ms, pms)
+            ragg[f"bound_{tag}"] = bnd
+            ragg[f"form_{tag}"] = form
+            del logs, k, p
+        del ls, ranks
+        # K10: the block body on the first WIDE_K10_WINDOWS of the narrowest
+        # width's windows, the wide body on the first WIDE_STEP_WINDOWS of
+        # the widest's; K1 -> K2 bit for bit
+        if wsize in (WIDE_FET[0][0], WIDE_FET[-1][0]):
+            narrow = wsize == WIDE_FET[0][0]
+            c = min(B, WIDE_K10_WINDOWS if narrow else WIDE_STEP_WINDOWS)
+            offs = torch.arange(P, device=dev)[None, :]
+            g = vals[torch.where(offs < npos_d[:c, None], lo_d[:c, None] + offs,
+                                 lo_d[:c, None])]
+            av, bv = g[..., :ASIZE].contiguous(), g[..., ASIZE:].contiguous()
+            del g
+            for prec in ("fast", "exact") if narrow else ("exact",):
+                fast = prec == "fast"
+                want = kfet.fet_aggregate(kfet.fet_snp_logs(vals, ASIZE, maxs, nmax, fast),
+                                          lo_d[:c], npos_d[:c], slot_d[:c], key, 0.95, 100)
+                k10 = lambda: kfet.fet_window_batch(  # noqa: E731
+                    av, bv, npos[:c], 0.95, key, 100, maxs, nmax, fast, slot[:c])
+                s10, d10 = k10()
+                check(torch.equal(s10, want[0]) and torch.equal(d10, want[1]),
+                      f"K10 {prec} at P = {P}: not K1 -> K2 bit for bit")
+                ms10 = cuda_ms(torch, k10, 3)
+                (ps, pd), pms10 = event_ms(torch, lambda: kfet.fet_window_batch_plain(
+                    av, bv, npos[:c], 0.95, key, 100, maxs, nmax, fast, slot[:c]))
+                err = max(rel_err(s10, ps), rel_err(d10, pd))
+                b10 = k10_bound(kfet, npos[:c], fast)
+                size = 4 if fast else 8
+                form = kfet.window_form(P, 100, size, size)
+                say(f"[K10 fet_window {prec}, {wsize} / {wstep}] the first {c} windows "
+                    f"gathered at P = {P} ({(av.numel() + bv.numel()) * 2 / 1e9:.2f} GB of "
+                    f"codes), the {form} body: K1 -> K2 bit for bit, max_rel_err {err:.3e} "
+                    f"against the plain version; kernel {ms10:.3f} ms plain {pms10:.1f} ms, "
+                    f"bound {b10[0]:.3f} ms on {card}")
+                check(rel_err(s10, ps) <= TOL[prec], f"K10 {prec} at P = {P}: {err}")
+                target = results["fet_window"] if narrow else rw
+                target[f"{prec}_{wsize}"] = (abs_err(s10, ps), err, ms10, pms10)
+                target[f"bound_{prec}_{wsize}"] = b10
+            del av, bv
+        torch.cuda.empty_cache()
+    # the kernels line: the wide bodies' cases (K2 fast at 2 Mb, exact at
+    # 1 Mb; K2r and K10 exact at 2 Mb, under fast as the entry's first)
+    w1, w2 = WIDE_FET[1][0], WIDE_FET[-1][0]
+    ragg["fast"], ragg["bound"] = ragg[f"fast_{w2}"], ragg[f"bound_fast_{w2}"]
+    ragg["exact"], ragg["bound_exact"] = ragg[f"exact_{w1}"], ragg[f"bound_exact_{w1}"]
+    for r in (rr, rw):
+        r["fast"], r["bound"] = r[f"exact_{w2}"], r[f"bound_exact_{w2}"]
+    del vals
+    torch.cuda.empty_cache()
+
+
+def phase_wide_fet_library(torch, pair, positions, dev, card, results) -> None:
+    """Phase 17d, the main path: run_fet on the bench FET workload at each
+    of WIDE_FET's widths in both precisions (warm wall), and the sharded
+    step on WIDE_STEP_WINDOWS of the 1 Mb windows gathered at P = 32,768
+    (K10's wide body, float64), its FET outputs equal to K1 -> K2."""
+    import numpy as np
+
+    from divergence_tpu_torch import rng
+    from divergence_tpu_torch.config import FetConfig, WindowConfig
+    from divergence_tpu_torch.engine import run_fet
+    from divergence_tpu_torch.kernels import fet as kfet
+    from divergence_tpu_torch.parallel import make_divergence_step, make_mesh
+
+    walls = results["wide_fet_library"] = {}
+    for wsize, wstep in WIDE_FET:
+        for prec in ("fast", "exact"):
+            cfg = FetConfig(window=WindowConfig(wsize=wsize, wstep=wstep), precision=prec)
+            run = lambda: run_fet(pair, BENCH_REGION, cfg, device=dev, seqid="chrB")  # noqa: E731
+            run()
+            w = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                sc, sd = run()
+                w.append(time.perf_counter() - t0)
+            check(sc.shape == (BENCH_REGION // wstep,) and not np.isnan(sc).any()
+                  and (sc != 0).sum() > 0, f"run_fet {wsize} {prec}: shape, NaN or empty")
+            say(f"[wide fet library {wsize} / {wstep} {prec}] run_fet {BENCH_SNPS} SNPs: "
+                f"{int((sc != 0).sum())} windows, warm wall min {min(w):.4f} s on {card}")
+            walls[f"{prec}_{wsize}_s"] = min(w)
+    # the step on wide windows: K10's wide body
+    wsize, wstep = WIDE_FET[1]
+    lo, npos, slot = wide_rows(torch, positions, BENCH_REGION, wsize, wstep)
+    lo, npos, slot = lo[:WIDE_STEP_WINDOWS], npos[:WIDE_STEP_WINDOWS], slot[:WIDE_STEP_WINDOWS]
+    P = kfet._window_pad(int(npos.max()))
+    vals = pair.to_device(dev)
+    offs = torch.arange(P, device=dev)[None, :]
+    lo_d, npos_d = lo.to(dev), npos.to(dev)
+    g = vals[torch.where(offs < npos_d[:, None], lo_d[:, None] + offs, lo_d[:, None])]
+    av, bv = g[..., :ASIZE].contiguous(), g[..., ASIZE:].contiguous()
+    del g
+    key = rng.prng_key(1)
+    step = make_divergence_step(make_mesh(devices=[dev]), ASIZE, BSIZE)
+    out, ms = host_ms(torch, lambda: step(av, bv, npos, slot, key))
+    maxs, nmax = kfet.support_size(ASIZE, BSIZE), ASIZE + BSIZE + 2
+    want = kfet.fet_aggregate(kfet.fet_snp_logs(vals, ASIZE, maxs, nmax, False), lo_d, npos_d,
+                              slot.to(dev), rng.fold_in(key, 0), 0.95, 100)
+    same = (torch.equal(out["fet_scores"], want[0])
+            and torch.equal(out["fet_stddev"], want[1]))
+    say(f"[wide step] make_divergence_step on {lo.numel()} windows of {wsize} bp gathered at "
+        f"P = {P} (K10's {kfet.window_form(P, 100, 8, 8)} body): {ms:.1f} ms; FET equal to "
+        f"K1 -> K2 bit for bit: {same}")
+    check(same, "the wide step's FET differs from K1 -> K2")
+    walls["step_wide_ms"] = ms
+    del av, bv, vals
+
+
 def large_entries(results) -> None:
     """The kernels line's fast / exact / bound fields of the large-panel
     kernels at 110 + 90 (K6: mode 1), and each one's every case under
@@ -3181,6 +3751,22 @@ def smoke(torch, dev) -> tuple[str, list[dict]]:
         for k in ("css_dissim_tiles", "css_cmds_block", "css_smacof_block",
                   "css_mc_coeff_block"):
             launches[k] = large_launches[k]
+
+        # the MC past m = 64 and wide FET windows: the kernels against their
+        # plain versions, then their main path
+        timed_phase("17a-b", phase_large_mc_kernels, torch, dev, card, results)
+        timed_phase("17d kernels", phase_wide_fet_kernels, torch, kfet, pair, positions, dev,
+                    card, results)
+        for mod in (kfet, kcss, kperm):
+            mod.reset_launches()
+        timed_phase("17b-c", phase_large_mc_library, torch, dev, card, tmp, results)
+        timed_phase("17d", phase_wide_fet_library, torch, pair, positions, dev, card, results)
+        wide_launches = {**kfet.LAUNCHES, **kcss.LAUNCHES, **kperm.LAUNCHES}
+        say(f"[phase 17 main path] kernel launches: {wide_launches}")
+        check(all(wide_launches[k] > 0 for k in WIDE_PATH),
+              f"phase 17's path did not launch every kernel: {wide_launches}")
+        for k in WIDE_PATH:
+            launches[k] = wide_launches[k]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3350,6 +3936,14 @@ def smoke(torch, dev) -> tuple[str, list[dict]]:
             entry["equal_k1_k2_800k"] = r["equal_k1_k2_800k"]
             entry["run_fet_exact_wall_s"] = r["run_fet_exact_s"]
             entry["run_all_walls_s"] = results["run_all_walls_s"]
+        if name in WIDE_PATH:
+            # ms / plain_ms / bound_ms: 110 + 90 (K8: its depth cut, host
+            # wall; K11 and K9 on 19,997 windows, their plain versions on a
+            # depth cut) or the 2 Mb windows (K2, K2r, K10); every measured
+            # case, with K8's launches alone to LARGE_MC_RUNS, under cases
+            entry["cases"] = {k: v for k, v in r.items()
+                              if k not in ("fast", "bound", "exact", "bound_exact")}
+            entry["launches_phase17"] = wide_launches[name]
         if name == "css_mc_power":
             # ms / plain_ms: the shared stream on 19,997 windows x 1,024
             # permutations (the wrapper: coefficients, product, tile sum);

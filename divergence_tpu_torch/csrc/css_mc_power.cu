@@ -27,6 +27,14 @@
 //   per window, the draws, ranks and float32 score of css_perm_common.cuh,
 //   lane i taking columns i, i + 32, ... of each chunk and summing its
 //   powers in registers, then a shuffle sum over the warp.
+// css_mc_power_window_block (kernel power_window_block) — the window
+//   stream past kMaxM on the large-panel body of css_perm_block.cuh: a
+//   warp a (window, chunk) task, grid-strided, the chunk's words in
+//   order, lane i drawing and ranking permutation 32 q + i into its
+//   tables and scoring it with every product added in row-major order
+//   (score_scan<false>, score_f32 bit for bit); lane i sums columns i, i +
+//   32, ... and the same xor tree adds the lanes, so the sums keep the
+//   small form's order.
 //
 // What bounds it on H100: as K7 (float32 FMAs, m^2 per window and
 // permutation, in tile_gemm) for the shared stream and as K8 (the
@@ -35,6 +43,9 @@
 // per column tile from L2, M once per window tile, and 3 doubles per
 // window, chunk and column tile are written (then read once by
 // power_reduce).
+#include <algorithm>
+
+#include "css_perm_block.cuh"
 #include "css_perm_common.cuh"
 #include "fet_common.cuh"
 #include "threefry.cuh"
@@ -164,6 +175,49 @@ power_window(const float* __restrict__ dist, const int64_t* __restrict__ wkeys,
     }
 }
 
+__global__ void __launch_bounds__(permb::kMaxWarps * 32)
+power_window_block(const float* __restrict__ dist, const int64_t* __restrict__ wkeys,
+                   int64_t B, int m, int asize, int k0, int nk, int chunk, int bitgen,
+                   permk::CoeffConst cc, unsigned char* gscratch, double* __restrict__ out) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const int lane = threadIdx.x & 31;
+    const permb::Tables t = permb::warp_tables(smem_raw, gscratch, m, false);
+    const int mm = m * m;
+    const int wpc = (chunk + 31) / 32;
+    const int64_t ntasks = B * nk;
+    const int64_t wpb = blockDim.x >> 5;
+    for (int64_t task = blockIdx.x * wpb + (threadIdx.x >> 5); task < ntasks;
+         task += static_cast<int64_t>(gridDim.x) * wpb) {
+        const int64_t w = task / nk;
+        const int kk = static_cast<int>(task - w * nk);
+        const float* D = dist + w * mm;
+        const uint2 wkey = make_uint2(static_cast<uint32_t>(wkeys[2 * w]),
+                                      static_cast<uint32_t>(wkeys[2 * w + 1]));
+        const uint2 ck = tf::fold_in(wkey, static_cast<uint32_t>(k0 + kk));
+        double p1 = 0.0, p2 = 0.0, p3 = 0.0;
+        for (int q = 0; q < wpc; ++q) {
+            const int K = q * 32 + lane;
+            permb::draw_rank(t, ck, static_cast<uint32_t>(K), m, bitgen, false, lane);
+            if (K < chunk) {
+                const double v =
+                    static_cast<double>(permb::score_scan<false>(D, t.rk, m, asize, cc, lane));
+                const double v2 = __dmul_rn(v, v);
+                p1 = __dadd_rn(p1, v);
+                p2 = __dadd_rn(p2, v2);
+                p3 = __dadd_rn(p3, __dmul_rn(v2, v));
+            }
+        }
+        p1 = warp_sum(p1);
+        p2 = warp_sum(p2);
+        p3 = warp_sum(p3);
+        if (lane == 0) {
+            out[(static_cast<int64_t>(kk) * 3 + 0) * B + w] = p1;
+            out[(static_cast<int64_t>(kk) * 3 + 1) * B + w] = p2;
+            out[(static_cast<int64_t>(kk) * 3 + 2) * B + w] = p3;
+        }
+    }
+}
+
 }  // namespace
 
 FET_EXPORT int css_mc_power_shared(const float* dist, int64_t B, int m,
@@ -214,5 +268,43 @@ FET_EXPORT int css_mc_power_window(const float* dist, const int64_t* wkeys,
                           static_cast<cudaStream_t>(stream)>>>(
         dist, wkeys, B, m, asize, k0, nk, chunk, bitgen,
         permk::CoeffConst{between, ca, cb}, out);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// K9's window stream past kMaxM (any m >= 2): css_mc_power_window's
+// arguments to cb, then gscratch (as css_mc_window_block's).
+FET_EXPORT int css_mc_power_window_block(const float* dist, const int64_t* wkeys, int64_t B,
+                                         int m, int asize, int k0, int nk, int chunk,
+                                         int bitgen, float between, float ca, float cb,
+                                         void* gscratch, double* out, void* stream) {
+    if (m < 2 || m > 65535 || asize < 1 || asize >= m || chunk <= 0 || bitgen < 0 ||
+        bitgen > 1) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    if (B == 0 || nk == 0) return 0;
+    unsigned char* gs = static_cast<unsigned char*>(gscratch);
+    int warps;
+    int64_t blocks, bytes;
+    const int form = permb::table_form(m, false, &warps, &blocks, &bytes);
+    if (form < 0 || (form == 2 && gs == nullptr)) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    int64_t grid;
+    size_t smem = 0;
+    if (gs) {
+        warps = permb::kMaxWarps;
+        grid = std::min((B * nk + warps - 1) / warps, blocks);
+    } else {
+        smem = static_cast<size_t>(warps) * permb::warp_bytes(m, false);
+        const cudaError_t e = cudaFuncSetAttribute(
+            power_window_block, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            static_cast<int>(smem));
+        if (e != cudaSuccess) return static_cast<int>(e);
+        grid = std::min<int64_t>((B * nk + warps - 1) / warps, 0x7fffffff);
+    }
+    power_window_block<<<static_cast<unsigned>(grid), warps * 32, smem,
+                         static_cast<cudaStream_t>(stream)>>>(
+        dist, wkeys, B, m, asize, k0, nk, chunk, bitgen, permk::CoeffConst{between, ca, cb},
+        gs, out);
     return static_cast<int>(cudaGetLastError());
 }

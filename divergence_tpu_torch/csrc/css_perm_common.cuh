@@ -275,9 +275,11 @@ __device__ __forceinline__ double row_total(const float* D, int m, int j) {
     return acc;
 }
 
-// ord[p * stride] = the individual at rank p.
+// ord[p * stride] = the individual at rank p (uint8 in the small forms,
+// uint16 in the large-panel form, css_perm_block.cuh).
+template <typename Ord>
 __device__ __forceinline__ double score_f64(const float* D, const double* rowtot,
-                                            const uint8_t* ord, int stride, int m,
+                                            const Ord* ord, int stride, int m,
                                             int asize, NativeConst c) {
     const int bsize = m - asize;
     const bool use_b = bsize <= asize;

@@ -12,8 +12,12 @@
 //     SNPs included): one warp per window, 4 windows a block; each lane
 //     loads its P/32 keys logs[lo + (P/32) lane + r] (the window's run is
 //     contiguous) and warp_window_stats sorts them in registers;
-//   * block path (P up to 4,096): one block per window loads logs[lo,
-//     lo+n) into shared memory, -inf pads up to P, block_window_stats.
+//   * block path (P up to what a block's shared memory holds with the
+//     replicates, fet_window_form): one block per window loads logs[lo,
+//     lo+n) into shared memory, -inf pads up to P, block_window_stats;
+//   * wide path (fet_aggregate_wide, wider windows): a persistent grid,
+//     each block loading its window into its slab of device scratch and
+//     running wide_window_stats (the same network, picks and sums).
 //
 // What bounds it on H100: the bootstrap's arithmetic, not bytes.  A
 // window reads n (about 50 at the bench's density) scores once; its
@@ -89,6 +93,55 @@ fet_aggregate_warp(const T* __restrict__ logs, const int64_t* __restrict__ rows,
 }
 
 template <typename T>
+__global__ void __launch_bounds__(kWideThreads)
+fet_aggregate_wide(const T* __restrict__ logs, const int64_t* __restrict__ rows,
+                   int64_t nwin, uint2 chrom_key, T perc, int nsamples, int pmax,
+                   T* __restrict__ gscratch, T* __restrict__ out) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    T* buf = reinterpret_cast<T*>(smem_raw);
+    T* reps = reinterpret_cast<T*>(smem_raw + align16(sizeof(T) * kWideChunk));
+    T* g = gscratch + static_cast<int64_t>(blockIdx.x) * pmax;
+    for (int64_t w = blockIdx.x; w < nwin; w += gridDim.x) {
+        const int64_t lo = rows[w];
+        const int n = static_cast<int>(rows[nwin + w]);
+        const uint32_t slot = static_cast<uint32_t>(rows[2 * nwin + w]);
+        if (n <= 0) {
+            if (threadIdx.x == 0) {
+                out[w] = T(0);
+                out[nwin + w] = T(0);
+            }
+            continue;
+        }
+        const int P = window_pad(n);
+        for (int i = threadIdx.x; i < P; i += blockDim.x) {
+            g[i] = i < n ? logs[lo + i] : neg_inf<T>();
+        }
+        __syncthreads();
+        wide_window_stats(g, buf, reps, n, P, tf::fold_in(chrom_key, slot), perc, nsamples,
+                          KeyIsValue<T>{}, out + w, out + nwin + w);
+    }
+}
+
+template <typename T>
+int launch_aggregate_wide(const T* logs, const int64_t* rows, int64_t nwin, uint32_t key0,
+                          uint32_t key1, double perc, int nsamples, int pmax, T* gscratch,
+                          T* out, void* stream) {
+    if (nwin == 0) return 0;
+    if (pmax < 32 || nsamples < 1 || gscratch == nullptr) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    unsigned grid;
+    size_t smem;
+    const int rc = wide_config(fet_aggregate_wide<T>, nwin, nsamples, sizeof(T), sizeof(T),
+                               &grid, &smem);
+    if (rc != 0) return rc;
+    fet_aggregate_wide<T><<<grid, kWideThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+        logs, rows, nwin, make_uint2(key0, key1), static_cast<T>(perc), nsamples, pmax,
+        gscratch, out);
+    return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
 int launch_aggregate(const T* logs, const int64_t* rows, int64_t nwin,
                      uint32_t key0, uint32_t key1, double perc, int nsamples,
                      int pmax, T* out, void* stream) {
@@ -140,4 +193,30 @@ FET_EXPORT int fet_aggregate_f32(const float* logs, const int64_t* rows,
                                  float* out, void* stream) {
     return launch_aggregate<float>(logs, rows, nwin, key0, key1, perc,
                                    nsamples, pmax, out, stream);
+}
+
+// The body K2, K2r and K10 take for a launch whose widest window pads to
+// pmax (fet_window_stats.cuh window_form): 0 warp, 1 block, 2 wide with
+// *scratch_bytes of device scratch; negative where it cannot run.
+FET_EXPORT int fet_window_form(int pmax, int nsamples, int key_bytes, int value_bytes,
+                               int64_t* scratch_bytes) {
+    return window_form(pmax, nsamples, key_bytes, value_bytes, scratch_bytes);
+}
+
+// K2's wide path: fet_aggregate's arguments, then the scratch of
+// fet_window_form's form 2 (pmax keys a block of its grid).
+FET_EXPORT int fet_aggregate_wide_f64(const double* logs, const int64_t* rows, int64_t nwin,
+                                      uint32_t key0, uint32_t key1, double perc,
+                                      int nsamples, int pmax, double* gscratch, double* out,
+                                      void* stream) {
+    return launch_aggregate_wide<double>(logs, rows, nwin, key0, key1, perc, nsamples, pmax,
+                                         gscratch, out, stream);
+}
+
+FET_EXPORT int fet_aggregate_wide_f32(const float* logs, const int64_t* rows, int64_t nwin,
+                                      uint32_t key0, uint32_t key1, double perc,
+                                      int nsamples, int pmax, float* gscratch, float* out,
+                                      void* stream) {
+    return launch_aggregate_wide<float>(logs, rows, nwin, key0, key1, perc, nsamples, pmax,
+                                        gscratch, out, stream);
 }

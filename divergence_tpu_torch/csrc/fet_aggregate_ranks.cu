@@ -10,8 +10,9 @@
 //
 // The window body is fet_window_stats.cuh's with value_of = a read of
 // lut_sorted, launched as K2 launches it (a warp per window where the
-// launch's widest window has P <= 128, else a block per window; -1 pads
-// up to P).  The sort, picks, Renyi bootstrap and stddev are K2's own
+// launch's widest window has P <= 128, a block per window where it fits
+// shared memory, else fet_aggregate_ranks_wide's persistent blocks on
+// slabs of device scratch; -1 pads up to P).  The sort, picks, Renyi bootstrap and stddev are K2's own
 // code, so the result equals K1 -> K2 bit for bit: the window's ranks map
 // to the same multiset of scores in the same order.
 //
@@ -102,6 +103,56 @@ fet_aggregate_ranks_warp(const T* __restrict__ lut_sorted, int G,
 }
 
 template <typename T>
+__global__ void __launch_bounds__(kWideThreads)
+fet_aggregate_ranks_wide(const T* __restrict__ lut_sorted, int G,
+                         const int* __restrict__ ranks, const int64_t* __restrict__ rows,
+                         int64_t nwin, uint2 chrom_key, T perc, int nsamples, int pmax,
+                         int* __restrict__ gscratch, T* __restrict__ out) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    int* buf = reinterpret_cast<int*>(smem_raw);
+    T* reps = reinterpret_cast<T*>(smem_raw + align16(sizeof(int) * kWideChunk));
+    int* g = gscratch + static_cast<int64_t>(blockIdx.x) * pmax;
+    for (int64_t w = blockIdx.x; w < nwin; w += gridDim.x) {
+        const int64_t lo = rows[w];
+        const int n = static_cast<int>(rows[nwin + w]);
+        const uint32_t slot = static_cast<uint32_t>(rows[2 * nwin + w]);
+        if (n <= 0) {
+            if (threadIdx.x == 0) {
+                out[w] = T(0);
+                out[nwin + w] = T(0);
+            }
+            continue;
+        }
+        const int P = window_pad(n);
+        for (int i = threadIdx.x; i < P; i += blockDim.x) g[i] = i < n ? ranks[lo + i] : -1;
+        __syncthreads();
+        wide_window_stats(g, buf, reps, n, P, tf::fold_in(chrom_key, slot), perc, nsamples,
+                          LutValue<T>{lut_sorted, G}, out + w, out + nwin + w);
+    }
+}
+
+template <typename T>
+int launch_aggregate_ranks_wide(const T* lut_sorted, int G, const int* ranks,
+                                const int64_t* rows, int64_t nwin, uint32_t key0,
+                                uint32_t key1, double perc, int nsamples, int pmax,
+                                int* gscratch, T* out, void* stream) {
+    if (nwin == 0) return 0;
+    if (G < 1 || pmax < 32 || nsamples < 1 || gscratch == nullptr) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    unsigned grid;
+    size_t smem;
+    const int rc = wide_config(fet_aggregate_ranks_wide<T>, nwin, nsamples, sizeof(int),
+                               sizeof(T), &grid, &smem);
+    if (rc != 0) return rc;
+    fet_aggregate_ranks_wide<T><<<grid, kWideThreads, smem,
+                                  static_cast<cudaStream_t>(stream)>>>(
+        lut_sorted, G, ranks, rows, nwin, make_uint2(key0, key1), static_cast<T>(perc),
+        nsamples, pmax, gscratch, out);
+    return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
 int launch_aggregate_ranks(const T* lut_sorted, int G, const int* ranks,
                            const int64_t* rows, int64_t nwin, uint32_t key0,
                            uint32_t key1, double perc, int nsamples, int pmax,
@@ -164,4 +215,24 @@ FET_EXPORT int fet_aggregate_ranks_f32(const float* lut_sorted, int G,
     return launch_aggregate_ranks<float>(lut_sorted, G, ranks, rows, nwin,
                                          key0, key1, perc, nsamples, pmax,
                                          out, stream);
+}
+
+// K2r's wide path: fet_aggregate_ranks's arguments, then the scratch of
+// fet_window_form's form 2 (pmax int32 keys a block of its grid).
+FET_EXPORT int fet_aggregate_ranks_wide_f64(const double* lut_sorted, int G, const int* ranks,
+                                            const int64_t* rows, int64_t nwin, uint32_t key0,
+                                            uint32_t key1, double perc, int nsamples,
+                                            int pmax, int* gscratch, double* out,
+                                            void* stream) {
+    return launch_aggregate_ranks_wide<double>(lut_sorted, G, ranks, rows, nwin, key0, key1,
+                                               perc, nsamples, pmax, gscratch, out, stream);
+}
+
+FET_EXPORT int fet_aggregate_ranks_wide_f32(const float* lut_sorted, int G, const int* ranks,
+                                            const int64_t* rows, int64_t nwin, uint32_t key0,
+                                            uint32_t key1, double perc, int nsamples,
+                                            int pmax, int* gscratch, float* out,
+                                            void* stream) {
+    return launch_aggregate_ranks_wide<float>(lut_sorted, G, ranks, rows, nwin, key0, key1,
+                                              perc, nsamples, pmax, gscratch, out, stream);
 }

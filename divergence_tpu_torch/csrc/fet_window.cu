@@ -19,9 +19,13 @@
 //     snp_score: K1's code; the LUT entry in global memory where the
 //     panel's LUT is on, else the support scan), and warp_window_stats
 //     sorts them in registers;
-//   * block path (P up to 4,096, or panels too wide to stage): one block
-//     per window, each thread a row s < n read in place, -inf pads up to
-//     P, block_window_stats.
+//   * block path (P up to what a block's shared memory holds with the
+//     replicates, fet_window_form, or panels too wide to stage): one
+//     block per window, each thread a row s < n read in place, -inf pads
+//     up to P, block_window_stats;
+//   * wide path (fet_window_wide, wider windows): a persistent grid, each
+//     block scoring its window's rows into its slab of device scratch and
+//     running wide_window_stats.
 // K1 and K2 run the same device code, so on the windows of a chromosome
 // K10 equals K1 -> K2 bit for bit.
 //
@@ -133,6 +137,45 @@ fet_window_warp(const int16_t* __restrict__ av, const int16_t* __restrict__ bv,
 }
 
 template <typename T>
+__global__ void __launch_bounds__(kWideThreads)
+fet_window_wide(const int16_t* __restrict__ av, const int16_t* __restrict__ bv,
+                const int64_t* __restrict__ npos, const int64_t* __restrict__ slots,
+                int64_t nwin, int p_in, int asize, int bsize, const T* __restrict__ lut,
+                const T* __restrict__ lf, int nmax, int maxs, uint2 key, T perc,
+                int nsamples, int pmax, T* __restrict__ gscratch, T* __restrict__ out) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    T* buf = reinterpret_cast<T*>(smem_raw);
+    T* reps = reinterpret_cast<T*>(smem_raw + align16(sizeof(T) * kWideChunk));
+    T* g = gscratch + static_cast<int64_t>(blockIdx.x) * pmax;
+    for (int64_t w = blockIdx.x; w < nwin; w += gridDim.x) {
+        const int n = static_cast<int>(npos[w]);
+        if (n <= 0) {
+            if (threadIdx.x == 0) {
+                out[w] = T(0);
+                out[nwin + w] = T(0);
+            }
+            continue;
+        }
+        const int16_t* a = av + w * p_in * asize;
+        const int16_t* b = bv + w * p_in * bsize;
+        const int P = window_pad(n);
+        for (int i = threadIdx.x; i < P; i += blockDim.x) {
+            T v = neg_inf<T>();
+            if (i < n) {
+                const Table t = count_table(a + static_cast<int64_t>(i) * asize, asize,
+                                            b + static_cast<int64_t>(i) * bsize, bsize);
+                v = snp_score(t, asize, bsize, lut, lf, nmax, maxs);
+            }
+            g[i] = v;
+        }
+        __syncthreads();
+        const uint32_t slot = static_cast<uint32_t>(slots[w]);
+        wide_window_stats(g, buf, reps, n, P, tf::fold_in(key, slot), perc, nsamples,
+                          KeyIsValue<T>{}, out + w, out + nwin + w);
+    }
+}
+
+template <typename T>
 int launch_window(const int16_t* av, const int16_t* bv, const int64_t* npos,
                   const int64_t* slots, int64_t nwin, int p_in, int asize,
                   int bsize, const T* lut, const T* lf, int nmax, int maxs,
@@ -206,4 +249,54 @@ FET_EXPORT int fet_window_f32(const int16_t* av, const int16_t* bv,
     return launch_window<float>(av, bv, npos, slots, nwin, p_in, asize, bsize,
                                 lut, lf, nmax, maxs, key0, key1, perc,
                                 nsamples, pmax, out, stream);
+}
+
+namespace {
+
+template <typename T>
+int launch_window_wide(const int16_t* av, const int16_t* bv, const int64_t* npos,
+                       const int64_t* slots, int64_t nwin, int p_in, int asize, int bsize,
+                       const T* lut, const T* lf, int nmax, int maxs, uint32_t key0,
+                       uint32_t key1, double perc, int nsamples, int pmax, T* gscratch,
+                       T* out, void* stream) {
+    if (nwin == 0) return 0;
+    if (asize < 1 || bsize < 1 || p_in < 1 || pmax < 32 || nsamples < 1 ||
+        gscratch == nullptr) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    unsigned grid;
+    size_t smem;
+    const int rc = wide_config(fet_window_wide<T>, nwin, nsamples, sizeof(T), sizeof(T),
+                               &grid, &smem);
+    if (rc != 0) return rc;
+    fet_window_wide<T><<<grid, kWideThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+        av, bv, npos, slots, nwin, p_in, asize, bsize, lut, lf, nmax, maxs,
+        make_uint2(key0, key1), static_cast<T>(perc), nsamples, pmax, gscratch, out);
+    return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// K10's wide path: fet_window's arguments, then the scratch of
+// fet_window_form's form 2 (pmax keys a block of its grid).
+FET_EXPORT int fet_window_wide_f64(const int16_t* av, const int16_t* bv, const int64_t* npos,
+                                   const int64_t* slots, int64_t nwin, int p_in, int asize,
+                                   int bsize, const double* lut, const double* lf, int nmax,
+                                   int maxs, uint32_t key0, uint32_t key1, double perc,
+                                   int nsamples, int pmax, double* gscratch, double* out,
+                                   void* stream) {
+    return launch_window_wide<double>(av, bv, npos, slots, nwin, p_in, asize, bsize, lut, lf,
+                                      nmax, maxs, key0, key1, perc, nsamples, pmax, gscratch,
+                                      out, stream);
+}
+
+FET_EXPORT int fet_window_wide_f32(const int16_t* av, const int16_t* bv, const int64_t* npos,
+                                   const int64_t* slots, int64_t nwin, int p_in, int asize,
+                                   int bsize, const float* lut, const float* lf, int nmax,
+                                   int maxs, uint32_t key0, uint32_t key1, double perc,
+                                   int nsamples, int pmax, float* gscratch, float* out,
+                                   void* stream) {
+    return launch_window_wide<float>(av, bv, npos, slots, nwin, p_in, asize, bsize, lut, lf,
+                                     nmax, maxs, key0, key1, perc, nsamples, pmax, gscratch,
+                                     out, stream);
 }

@@ -45,10 +45,24 @@
 //     warp's shared slab for the picks.  The bootstrap runs step j on the
 //     outside (one fold_in(wkey, j) per lane and step) and the lane's
 //     kLaneSamples samples inside, in registers.
-//   * block_window_stats, one block per window up to 4,096 SNPs: the same
-//     network over shared memory with a barrier a stage, one thread a
-//     sample; warp 0 sums the replicates.
-// A launch takes the warp body when its widest window has P <= 128.
+//   * block_window_stats, one block per window whose P keys take at most
+//     kBlockKeyBytes (P up to 4,096 in float64, 8,192 in float32 and
+//     int32 ranks) and fit a block's shared memory with the nsamples
+//     replicates: the same network over shared memory with a barrier a
+//     stage, one thread a sample; warp 0 sums the replicates.
+//   * wide_window_stats, wider windows: the keys in a per-block slab of
+//     device scratch (a persistent grid of wide_grid blocks walks the
+//     windows, so the slabs stay few and L2-resident), the same
+//     comparators in the same stage order: every stage whose stride j is
+//     at least kWideChunk runs over the slab in device memory, and each
+//     run of consecutive stages with j < kWideChunk runs chunk by chunk
+//     in shared memory (their comparators never leave an aligned chunk of
+//     kWideChunk keys, and a comparator's direction is its global index's
+//     bit k, as in the one-pass network), so the sorted slab is the same
+//     bits.  The picks and bootstrap read the slab in place.
+// A launch takes the warp body when its widest window has P <= 128, the
+// block body up to kBlockKeyBytes of keys, else the wide body
+// (fet_window_form, which the wrappers ask).
 //
 // Numerics: the same operations in the same order and dtype as the plain
 // torch version (--fmad=false; the same libdevice pow, correctly rounded
@@ -65,7 +79,13 @@ constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kWarpMaxPad = 128;             // the widest window a warp sorts
 constexpr int kLaneSamples = 4;               // samples a lane carries per pass
 constexpr int kWarpsPerBlock = 4;             // windows a warp-body block takes
-constexpr size_t kSmemLimit = 232448;         // bytes a Hopper block may use
+constexpr int kWideThreads = 256;             // the wide body's block
+constexpr int kWideChunk = 4096;              // keys a shared-memory pass sorts
+constexpr int kWideBlocksPerSm = 2;           // the wide body's persistent grid
+// The widest key slab the block body takes: past it the wide body is
+// faster on an H100 (tests/measure_large_forms.py: block / wide 0.63-0.73
+// at 32 KB of keys, 0.98-1.20 at 64 KB, 2.95-3.15 at 128 KB).
+constexpr size_t kBlockKeyBytes = 32 * 1024;
 
 // The padded sort width of a window of n SNPs: the next power of two
 // >= n, at least 32 (kernels/fet.py:_window_pad).
@@ -82,8 +102,71 @@ __host__ __device__ __forceinline__ size_t align16(size_t bytes) {
 // Windows a warp-body block takes when each warp needs warp_bytes of
 // shared memory: up to kWarpsPerBlock, 0 when one warp does not fit.
 inline int warps_per_block(size_t warp_bytes) {
-    const size_t fit = kSmemLimit / warp_bytes;
+    const size_t fit = smem_optin() / warp_bytes;
     return static_cast<int>(fit < kWarpsPerBlock ? fit : kWarpsPerBlock);
+}
+
+// Shared memory of the block body: P keys and nsamples replicates.
+inline size_t block_bytes(int pmax, int nsamples, int key_bytes, int value_bytes) {
+    return static_cast<size_t>(pmax) * key_bytes + static_cast<size_t>(nsamples) * value_bytes;
+}
+
+// Shared memory of the wide body: kWideChunk keys, then the replicates.
+__host__ __device__ inline size_t wide_bytes(int nsamples, int key_bytes, int value_bytes) {
+    return align16(static_cast<size_t>(kWideChunk) * key_bytes) +
+           align16(static_cast<size_t>(nsamples) * value_bytes);
+}
+
+// The wide body's persistent grid on the current device (kWideBlocksPerSm
+// blocks an SM), 0 where the device cannot be asked.
+inline int64_t wide_grid() {
+    int dev = 0, sms = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
+        return 0;
+    }
+    return static_cast<int64_t>(sms) * kWideBlocksPerSm;
+}
+
+// The body a launch whose widest window pads to pmax takes: 0, the warp
+// body (pmax <= kWarpMaxPad); 1, the block body (its keys and replicates
+// in shared memory); 2, the wide body, with *scratch_bytes of device
+// scratch (a slab of pmax keys for each block of wide_grid).  Negative:
+// the device cannot be asked (-1) or not even the wide body's shared
+// memory fits (-2).
+inline int window_form(int pmax, int nsamples, int key_bytes, int value_bytes,
+                       int64_t* scratch_bytes) {
+    *scratch_bytes = 0;
+    if (pmax <= kWarpMaxPad) return 0;
+    const size_t limit = smem_optin();
+    if (limit == 0) return -1;
+    if (static_cast<size_t>(pmax) * key_bytes <= kBlockKeyBytes &&
+        block_bytes(pmax, nsamples, key_bytes, value_bytes) <= limit) {
+        return 1;
+    }
+    if (wide_bytes(nsamples, key_bytes, value_bytes) > limit) return -2;
+    const int64_t grid = wide_grid();
+    if (grid == 0) return -1;
+    *scratch_bytes = grid * pmax * key_bytes;
+    return 2;
+}
+
+// Launch shape of the wide body: the grid (at most one block a window) and
+// its shared memory, after opting the kernel in to it.
+template <typename Kernel>
+int wide_config(Kernel kernel, int64_t nwin, int nsamples, int key_bytes, int value_bytes,
+                unsigned* grid, size_t* smem) {
+    const int64_t full = wide_grid();
+    if (full == 0) return static_cast<int>(cudaErrorInvalidValue);
+    *grid = static_cast<unsigned>(nwin < full ? nwin : full);
+    *smem = wide_bytes(nsamples, key_bytes, value_bytes);
+    if (*smem > smem_optin()) return static_cast<int>(cudaErrorInvalidValue);
+    if (*smem > 48 * 1024) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(*smem));
+        if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    return 0;
 }
 
 // The value of a sort key that is the score itself (K2, K10).
@@ -147,32 +230,79 @@ __device__ __forceinline__ T lane_order_stddev(const T* reps, int nsamples, int 
     return t_sqrt(warp_sum(sq) / static_cast<T>(nsamples));
 }
 
-// Every thread of the block calls it, after a barrier that publishes
-// sorted[0, P).  reps holds nsamples values.  Thread 0 writes the window's
-// score and stddev.  Needs blockDim.x >= 32.
-template <typename T, typename K, typename ValueOf>
-__device__ void block_window_stats(K* sorted, T* reps, int n, int P, uint2 wkey,
-                                   T perc, int nsamples, ValueOf value_of,
-                                   T* __restrict__ score_out,
-                                   T* __restrict__ stddev_out) {
+// One stage (k, j) of the network over the keys s[0, n) by the block's
+// threads, i0 the global index of s[0] (a multiple of n when n < P): the
+// comparator (i, i ^ j) sorts ascending iff ((i0 + i) & k) == 0 and swaps
+// only when strictly out of order.  No barrier.
+template <typename K>
+__device__ __forceinline__ void bitonic_stage(K* s, int n, int i0, int k, int j) {
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+        const int ixj = i ^ j;
+        if (ixj > i) {
+            const K a = s[i];
+            const K b = s[ixj];
+            const bool up = ((i0 + i) & k) == 0;
+            if (up ? (a > b) : (a < b)) {
+                s[i] = b;
+                s[ixj] = a;
+            }
+        }
+    }
+}
+
+// The whole network over sorted[0, P) in one array, a barrier a stage.
+template <typename K>
+__device__ void block_sort(K* sorted, int P) {
     for (int k = 2; k <= P; k <<= 1) {
         for (int j = k >> 1; j > 0; j >>= 1) {
-            for (int i = threadIdx.x; i < P; i += blockDim.x) {
-                const int ixj = i ^ j;
-                if (ixj > i) {
-                    const K a = sorted[i];
-                    const K b = sorted[ixj];
-                    const bool up = (i & k) == 0;
-                    if (up ? (a > b) : (a < b)) {
-                        sorted[i] = b;
-                        sorted[ixj] = a;
-                    }
-                }
-            }
+            bitonic_stage(sorted, P, 0, k, j);
             __syncthreads();
         }
     }
+}
 
+// Stages (k, j_hi), (k, j_hi / 2), ..., (k, 1) of every k in [k_lo, k_hi]
+// (j_hi = k / 2 for all but k_lo, which starts at j_first) on each
+// aligned chunk of S keys of g[0, P), staged in buf (S keys of shared
+// memory): every comparator of those stages stays in its chunk.
+template <typename K>
+__device__ void chunk_pass(K* g, int P, K* buf, int S, int k_lo, int k_hi, int j_first) {
+    for (int c0 = 0; c0 < P; c0 += S) {
+        for (int i = threadIdx.x; i < S; i += blockDim.x) buf[i] = g[c0 + i];
+        __syncthreads();
+        for (int k = k_lo; k <= k_hi; k <<= 1) {
+            for (int j = k == k_lo ? j_first : k >> 1; j > 0; j >>= 1) {
+                bitonic_stage(buf, S, c0, k, j);
+                __syncthreads();
+            }
+        }
+        for (int i = threadIdx.x; i < S; i += blockDim.x) g[c0 + i] = buf[i];
+        __syncthreads();
+    }
+}
+
+// block_sort's comparators in block_sort's order over g[0, P) in device
+// memory: stages of stride >= S over g, each run of stages of stride < S
+// chunk by chunk in buf (kWideChunk keys, S = min(kWideChunk, P)).
+template <typename K>
+__device__ void wide_sort(K* g, int P, K* buf) {
+    const int S = P < kWideChunk ? P : kWideChunk;
+    chunk_pass(g, P, buf, S, 2, S, 1);   // every k <= S, whole
+    for (int k = 2 * S; k <= P; k <<= 1) {
+        for (int j = k >> 1; j >= S; j >>= 1) {
+            bitonic_stage(g, P, 0, k, j);
+            __syncthreads();
+        }
+        chunk_pass(g, P, buf, S, k, k, S >> 1);
+    }
+}
+
+// The picks, bootstrap and stddev of a window from its sorted keys (after
+// a barrier that publishes them).
+template <typename T, typename K, typename ValueOf>
+__device__ void window_picks(const K* sorted, T* reps, int n, int P, uint2 wkey, T perc,
+                             int nsamples, ValueOf value_of, T* __restrict__ score_out,
+                             T* __restrict__ stddev_out) {
     const T one = T(1);
     const Picks<T> w(n, perc);
     const int base = P - n;
@@ -199,6 +329,31 @@ __device__ void block_window_stats(K* sorted, T* reps, int n, int P, uint2 wkey,
         if (threadIdx.x == 0) *stddev_out = sd;
     }
 }
+
+// Every thread of the block calls it, after a barrier that publishes
+// sorted[0, P).  reps holds nsamples values.  Thread 0 writes the window's
+// score and stddev.  Needs blockDim.x >= 32.
+template <typename T, typename K, typename ValueOf>
+__device__ void block_window_stats(K* sorted, T* reps, int n, int P, uint2 wkey,
+                                   T perc, int nsamples, ValueOf value_of,
+                                   T* __restrict__ score_out,
+                                   T* __restrict__ stddev_out) {
+    block_sort(sorted, P);
+    window_picks(sorted, reps, n, P, wkey, perc, nsamples, value_of, score_out, stddev_out);
+}
+
+// The wide body: block_window_stats with the keys in g (device memory),
+// sorted by wide_sort through buf.  Ends with a barrier, so the block may
+// refill g and reps for its next window.
+template <typename T, typename K, typename ValueOf>
+__device__ void wide_window_stats(K* g, K* buf, T* reps, int n, int P, uint2 wkey, T perc,
+                                  int nsamples, ValueOf value_of, T* __restrict__ score_out,
+                                  T* __restrict__ stddev_out) {
+    wide_sort(g, P, buf);
+    window_picks(g, reps, n, P, wkey, perc, nsamples, value_of, score_out, stddev_out);
+    __syncthreads();
+}
+
 
 // One comparator of the network within a lane's registers.
 template <typename K>

@@ -54,6 +54,8 @@ _SIGNATURES = {
     "fet_snp_logs_{t}": (_P, _I64, _I, _I, _P, _P, _I, _I, _P, _P),
     # logs, rows[3, B], B, key0, key1, perc, nsamples, pmax, out, stream
     "fet_aggregate_{t}": (_P, _P, _I64, _U32, _U32, _D, _I, _I, _P, _P),
+    # ... fet_aggregate's arguments to pmax, then gscratch, out, stream
+    "fet_aggregate_wide_{t}": (_P, _P, _I64, _U32, _U32, _D, _I, _I, _P, _P, _P),
     # lut, G, span, scratch keys / index x 2 (nullable), lut_sorted,
     # rank_of_entry, stream
     "fet_lut_rank_{t}": (_P, _I, _I, _P, _P, _P, _P, _P, _P, _P),
@@ -63,10 +65,16 @@ _SIGNATURES = {
     # out, stream
     "fet_aggregate_ranks_{t}": (_P, _I, _P, _P, _I64, _U32, _U32, _D, _I, _I, _P,
                                 _P),
+    # ... fet_aggregate_ranks's arguments to pmax, then gscratch, out, stream
+    "fet_aggregate_ranks_wide_{t}": (_P, _I, _P, _P, _I64, _U32, _U32, _D, _I, _I, _P,
+                                     _P, _P),
     # av, bv, npos, slots, B, p_in, asize, bsize, lut (nullable), lf, nmax,
     # maxs, key0, key1, perc, nsamples, pmax, out, stream
     "fet_window_{t}": (_P, _P, _P, _P, _I64, _I, _I, _I, _P, _P, _I, _I, _U32,
                        _U32, _D, _I, _I, _P, _P),
+    # ... fet_window's arguments to pmax, then gscratch, out, stream
+    "fet_window_wide_{t}": (_P, _P, _P, _P, _I64, _I, _I, _I, _P, _P, _I, _I, _U32,
+                            _U32, _D, _I, _I, _P, _P, _P),
     # vals, N, lo, npos, B, m, planes scratch [2, ceil(N/32) + 1, m], out,
     # stream
     "css_dissim_{t}": (_P, _I64, _P, _P, _I64, _I, _P, _P, _P),
@@ -107,26 +115,41 @@ _SIGNATURES = {
     # bitgen, f64, between, ca, cb, wa, wb, inv_ab, words, stream
     "css_mc_window": (_P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                       _F, _F, _F, _D, _D, _D, _P, _P),
+    # ... css_mc_window's arguments to inv_ab, then gscratch (nullable),
+    # words, stream
+    "css_mc_window_block": (_P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                            _F, _F, _F, _D, _D, _D, _P, _P, _P),
     # dist, obs, need, keys, B, m, asize, chunk, limit, bitgen, between,
     # ca, cb, hits, reached, pos, stream
     "css_perm_chunk": (_P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _F, _F, _F,
                        _P, _P, _P, _P),
+    # ... css_perm_chunk's arguments to cb, then gscratch (nullable), hits,
+    # reached, pos, stream
+    "css_perm_chunk_block": (_P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _F, _F, _F,
+                             _P, _P, _P, _P, _P),
     # dist, B, m, M, nk, chunk, cstride, partial, out, stream
     "css_mc_power_shared": (_P, _I64, _I, _P, _I, _I, _I, _P, _P, _P),
     # dist, wkeys, B, m, asize, k0, nk, chunk, bitgen, between, ca, cb, out,
     # stream
     "css_mc_power_window": (_P, _P, _I64, _I, _I, _I, _I, _I, _I, _F, _F, _F,
                             _P, _P),
+    # ... css_mc_power_window's arguments to cb, then gscratch (nullable),
+    # out, stream
+    "css_mc_power_window_block": (_P, _P, _I64, _I, _I, _I, _I, _I, _I, _F, _F, _F,
+                                  _P, _P, _P),
 }
-# the large-panel kernels' form queries (no stream): the form a wrapper
-# launches for these arguments on the current device, and the device
-# slab's or scratch's elements
+# the large-panel and wide-window kernels' form queries (no stream): the
+# form a wrapper launches for these arguments on the current device, and
+# the device slab's or scratch's elements (or bytes)
 _FORM_QUERIES = {
     "css_dissim_form": (_I, _PI64),                       # m, 0
     "css_dissim_gathered_form": (_I, _I, _PI64),          # asize, bsize, 0
     "css_cmds_form_{t}": (_I, _PI64),                     # m, slab elems
     "css_smacof_form_{t}": (_I, _I, _PI64),               # m, mode, slab elems
     "css_mc_coeff_form": (_I, _I64, _PI64),               # m, ncols, scratch words
+    "css_mc_window_form": (_I, _I, _PI64),                # m, float64, scratch bytes
+    # pmax, nsamples, key bytes, value bytes, scratch bytes
+    "fet_window_form": (_I, _I, _I, _I, _PI64),
 }
 
 

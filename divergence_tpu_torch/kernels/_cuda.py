@@ -55,11 +55,11 @@ def launch(counts: dict, kernel: str, symbol: str, device: torch.device,
 
 def query_form(names: tuple[str, ...], symbol: str, device: torch.device | None,
                *args) -> tuple[str, int]:
-    """The form a large-panel kernel takes for ``args`` on ``device`` (the
-    current device for None), as the kernel library's ``symbol`` query
-    reckons it from the kernels' own slab layouts and the device's
-    shared memory: (``names[form]``, the elements of its device slab or
-    scratch).  Builds the library on first use."""
+    """The form a large-panel or wide-window kernel takes for ``args`` on
+    ``device`` (the current device for None), as the kernel library's
+    ``symbol`` query reckons it from the kernels' own slab layouts and the
+    device's shared memory: (``names[form]``, the elements or bytes of its
+    device slab or scratch).  Builds the library on first use."""
     from divergence_tpu_torch.kernels import _build
 
     lib = _build.library()
@@ -67,6 +67,7 @@ def query_form(names: tuple[str, ...], symbol: str, device: torch.device | None,
     with torch.cuda.device(device):
         rc = getattr(lib, symbol)(*args, ctypes.byref(elems))
     if rc < 0:
-        raise RuntimeError(f"{symbol} could not ask the device for its shared memory "
-                           f"(CUDA error {-rc})")
+        raise RuntimeError(f"{symbol}{args} found no form on the device (code {rc}: -1, "
+                           f"the device could not be asked; else too large for its "
+                           f"shared memory)")
     return names[rc], elems.value

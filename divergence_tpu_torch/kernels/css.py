@@ -197,9 +197,8 @@ def gathered_form(asize: int, bsize: int, device: torch.device | None = None) ->
     """The kernel :func:`css_dissim_gathered` launches
     (``css_dissim_gathered_form``): ``"warp"`` where one window's staged
     codes, words and counts fit a block (m <= 207 at an even a + b split
-    on an H100), else ``"tiles"``.  (Only the sharded step calls it, and
-    its MC takes m <= 64; the two forms are not timed against each other
-    above that.)"""
+    on an H100), else ``"tiles"``.  (Only the sharded step calls it; the
+    two forms are not timed against each other above m = 64.)"""
     return query_form(("warp", "tiles"), "css_dissim_gathered_form", device, asize, bsize)[0]
 
 

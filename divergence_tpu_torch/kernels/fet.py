@@ -27,6 +27,12 @@ lie on the CPU:
   score and K2's window body on pre-gathered windows (K10), the sharded
   step's FET part.
 
+K2, K2r and K10 take windows of any width: a warp per window up to 128
+SNPs' padding, a block per window while the window's keys fill at most
+32 KB of shared memory, and past that their ``*_wide`` kernels, which
+sort in a slab of device scratch with the same comparators
+(:func:`window_form` asks the kernel library which).
+
 There is no fallback: on a CUDA tensor the kernel runs or the call
 raises.  Each launch adds one to :data:`LAUNCHES`.
 
@@ -46,19 +52,16 @@ import numpy as np
 import torch
 
 from divergence_tpu_torch import compute_dtype, rng
-from divergence_tpu_torch.kernels._cuda import dtype_suffix, is_cpu, launch, ptr
+from divergence_tpu_torch.kernels._cuda import dtype_suffix, is_cpu, launch, ptr, query_form
 
 _LUT_MAX_BUILD_OPS = 100_000_000
 
-# K2 sorts a window's scores in shared memory: at most this many SNPs
-# (a 2500 bp window holds at most 2501 unique positions)
-MAX_WINDOW_SNPS = 4096
-_SMEM_LIMIT = 232_448          # bytes of shared memory a Hopper block may use
 _AGG_WINDOW_CHUNK = 65_536     # windows per step of the plain aggregate
 
 # kernel launches since the last reset_launches(), by kernel name
 LAUNCHES = {"fet_lut_build": 0, "fet_snp_logs": 0, "fet_aggregate": 0, "fet_window": 0,
-            "fet_lut_rank": 0, "fet_snp_ranks": 0, "fet_aggregate_ranks": 0}
+            "fet_lut_rank": 0, "fet_snp_ranks": 0, "fet_aggregate_ranks": 0,
+            "fet_aggregate_wide": 0, "fet_aggregate_ranks_wide": 0, "fet_window_wide": 0}
 
 # K1r's LUT sort: one counting pass over the whole LUT up to this many
 # entries (17,424 at 11 + 10); above it, counting runs of _LUT_RANK_RUN
@@ -510,6 +513,55 @@ def _aggregate_ranks(ranks, npos, perc, wkeys, nsamples, lut_sorted):
                              lambda r: lut_sorted[r.clamp(0, G - 1)])
 
 
+WIDE_CHUNK = 4096   # keys a shared-memory pass of the wide body sorts (csrc kWideChunk)
+
+
+def bitonic_schedule(P: int, chunk: int | None) -> list[tuple[int, int, int]]:
+    """The kernels' bitonic network over P keys as its stages (k, j, S):
+    ``chunk`` None gives the warp and block bodies' one pass (S = 0: each
+    stage over all P keys); else the wide body's grouping
+    (``csrc/fet_window_stats.cuh:wide_sort``): stages of stride j >= S over
+    the slab (S = 0), and each run of stages of stride j < S chunk by
+    chunk (S = min(chunk, P))."""
+    pairs = []
+    k = 2
+    while k <= P:
+        j = k // 2
+        while j > 0:
+            pairs.append((k, j))
+            j //= 2
+        k *= 2
+    if chunk is None:
+        return [(k, j, 0) for k, j in pairs]
+    S = min(chunk, P)
+    return [(k, j, S if j < S else 0) for k, j in pairs]
+
+
+def bitonic_network(keys: torch.Tensor, schedule) -> torch.Tensor:
+    """Run ``schedule``'s stages on keys [B, P] as the kernels do: the
+    comparator (i, i ^ j) ascending iff (i & k) == 0 of the key's index in
+    the slab, swapping only when strictly out of order; a stage with S > 0
+    runs on each aligned chunk of S keys in chunk-local indices, its
+    direction from the global index (a mirror of the kernels' sort; the
+    plain versions sort with torch.sort)."""
+    x = keys.clone()
+    B, P = x.shape
+    for k, j, S in schedule:
+        n = S or P
+        v = x.reshape(B, P // n, n)
+        i = torch.arange(n, device=x.device)
+        partner = i ^ j
+        glob = torch.arange(P // n, device=x.device)[:, None] * n + i[None, :]
+        up = (glob & k) == 0
+        xp = v[..., partner]
+        lower = (partner > i)[None, None, :]
+        lo = torch.where(lower, v, xp)
+        hi = torch.where(lower, xp, v)
+        swap = torch.where(up, lo > hi, lo < hi)
+        x = torch.where(swap, xp, v).reshape(B, P)
+    return x
+
+
 def _window_pad(max_npos: int) -> int:
     """Padded per-window SNP count: the next power of two >= the largest
     window, at least 32 (the JAX engine's ``P``)."""
@@ -552,22 +604,38 @@ def fet_aggregate_plain(
     )
 
 
-def _window_rows(kernel, lo, npos, slot, nsnps, dev, smem_bytes):
+def window_form(pmax: int, nsamples: int, key_bytes: int, value_bytes: int,
+                device: torch.device | None = None) -> str:
+    """The body K2 / K2r / K10 take on ``device`` for a launch whose widest
+    window pads to ``pmax`` (sort keys of ``key_bytes``, replicates of
+    ``value_bytes``), by the kernel library's own reckoning
+    (``csrc/fet_window_stats.cuh:window_form``): ``"warp"``, ``"block"``
+    or ``"wide"`` (on device scratch).  The block body takes windows
+    whose keys fill at most 32 KB (P up to 4,096 in float64, 8,192 in
+    float32 and int32 ranks), where it is the faster of the two."""
+    return _window_form(pmax, nsamples, key_bytes, value_bytes, device)[0]
+
+
+def _window_form(pmax, nsamples, key_bytes, value_bytes, device):
+    return query_form(("warp", "block", "wide"), "fet_window_form", device, pmax, nsamples,
+                      key_bytes, value_bytes)
+
+
+def _wide_scratch(pmax, nsamples, key_dtype, value_bytes, dev):
+    """(True, scratch) where the launch takes the wide body, else (False,
+    None)."""
+    key_bytes = torch.empty(0, dtype=key_dtype).element_size()
+    form, nbytes = _window_form(pmax, nsamples, key_bytes, value_bytes, dev)
+    if form != "wide":
+        return False, None
+    return True, torch.empty(nbytes // key_bytes, dtype=key_dtype, device=dev)
+
+
+def _window_rows(lo, npos, slot, nsnps, dev):
     """The window descriptors packed [3, B] int64 on ``dev``, after the
     checks every window kernel needs; and the largest window's padded
-    width P.  ``smem_bytes(P)`` is a block's shared memory."""
+    width P."""
     pmax = _window_pad(int(npos.max()))
-    if pmax > MAX_WINDOW_SNPS:
-        raise ValueError(
-            f"a window holds {int(npos.max())} SNPs; the {kernel} "
-            f"kernel sorts at most {MAX_WINDOW_SNPS} per window"
-        )
-    smem = smem_bytes(pmax)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(
-            f"{kernel} needs {smem} B of shared memory per window "
-            f"(P={pmax}); a block has {_SMEM_LIMIT}"
-        )
     if int(lo.min()) < 0 or int((lo + npos).max()) > nsnps:
         raise ValueError(f"window descriptors reach outside the {nsnps} SNPs")
     rows = torch.stack([lo, npos, slot]).to(torch.int64)
@@ -606,15 +674,17 @@ def fet_aggregate(
     out = torch.empty((2, B), dtype=dtype, device=dev)
     if B == 0:
         return out
-    size = snp_logs.element_size()
-    rows, pmax = _window_rows("fet_aggregate", lo, npos, slot, snp_logs.shape[0], dev,
-                              lambda P: (P + nsamples) * size)
+    rows, pmax = _window_rows(lo, npos, slot, snp_logs.shape[0], dev)
     k0, k1 = (int(w) for w in chrom_key.tolist())
-    launch(
-        LAUNCHES, "fet_aggregate", f"fet_aggregate_{dtype_suffix(dtype)}", dev,
-        ptr(snp_logs), ptr(rows), B, ctypes.c_uint32(k0),
-        ctypes.c_uint32(k1), ctypes.c_double(perc), nsamples, pmax, ptr(out),
-    )
+    args = (ptr(snp_logs), ptr(rows), B, ctypes.c_uint32(k0), ctypes.c_uint32(k1),
+            ctypes.c_double(perc), nsamples, pmax)
+    wide, scratch = _wide_scratch(pmax, nsamples, dtype, snp_logs.element_size(), dev)
+    if wide:
+        launch(LAUNCHES, "fet_aggregate_wide", f"fet_aggregate_wide_{dtype_suffix(dtype)}",
+               dev, *args, ptr(scratch), ptr(out))
+    else:
+        launch(LAUNCHES, "fet_aggregate", f"fet_aggregate_{dtype_suffix(dtype)}", dev, *args,
+               ptr(out))
     return out
 
 
@@ -751,16 +821,19 @@ def fet_aggregate_ranks(
     out = torch.empty((2, B), dtype=dtype, device=dev)
     if B == 0:
         return out
-    size = lut_sorted.element_size()
-    rows, pmax = _window_rows("fet_aggregate_ranks", lo, npos, slot, ranks.shape[0], dev,
-                              lambda P: P * 4 + nsamples * size)
+    rows, pmax = _window_rows(lo, npos, slot, ranks.shape[0], dev)
     k0, k1 = (int(w) for w in chrom_key.tolist())
-    launch(
-        LAUNCHES, "fet_aggregate_ranks", f"fet_aggregate_ranks_{dtype_suffix(dtype)}", dev,
-        ptr(lut_sorted), lut_sorted.shape[0], ptr(ranks), ptr(rows), B,
-        ctypes.c_uint32(k0), ctypes.c_uint32(k1), ctypes.c_double(perc), nsamples, pmax,
-        ptr(out),
-    )
+    args = (ptr(lut_sorted), lut_sorted.shape[0], ptr(ranks), ptr(rows), B,
+            ctypes.c_uint32(k0), ctypes.c_uint32(k1), ctypes.c_double(perc), nsamples, pmax)
+    wide, scratch = _wide_scratch(pmax, nsamples, torch.int32, lut_sorted.element_size(),
+                                  dev)
+    sfx = dtype_suffix(dtype)
+    if wide:
+        launch(LAUNCHES, "fet_aggregate_ranks_wide", f"fet_aggregate_ranks_wide_{sfx}", dev,
+               *args, ptr(scratch), ptr(out))
+    else:
+        launch(LAUNCHES, "fet_aggregate_ranks", f"fet_aggregate_ranks_{sfx}", dev, *args,
+               ptr(out))
     return out
 
 
@@ -839,27 +912,20 @@ def fet_window_batch(
     if nmax_win > P:
         raise ValueError(f"a window claims {nmax_win} SNPs; the batch holds {P} rows")
     pmax = _window_pad(nmax_win)
-    if pmax > MAX_WINDOW_SNPS:
-        raise ValueError(
-            f"a window holds {nmax_win} SNPs; the fet_window kernel sorts at "
-            f"most {MAX_WINDOW_SNPS} per window"
-        )
-    smem = (pmax + nsamples) * out.element_size()
-    if smem > _SMEM_LIMIT:
-        raise ValueError(
-            f"fet_window needs {smem} B of shared memory per window "
-            f"(P={pmax}, nsamples={nsamples}); a block has {_SMEM_LIMIT}"
-        )
     a16 = codes_int16(avals).contiguous()
     b16 = codes_int16(bvals).contiguous()
     npos_d, slot_d = (t.to(dev, torch.int64).contiguous() for t in (npos, slot))
     lut = fet_lut(asize, bsize, maxs, nmax, dtype, dev) if lut_active(asize, bsize) else None
     lf = _lf_table(nmax, dtype, dev)
     k0, k1 = (int(w) for w in key.tolist())
-    launch(
-        LAUNCHES, "fet_window", f"fet_window_{dtype_suffix(dtype)}", dev,
-        ptr(a16), ptr(b16), ptr(npos_d), ptr(slot_d), B, P, asize, bsize,
-        ptr(lut), ptr(lf), nmax, maxs, ctypes.c_uint32(k0), ctypes.c_uint32(k1),
-        ctypes.c_double(perc), nsamples, pmax, ptr(out),
-    )
+    args = (ptr(a16), ptr(b16), ptr(npos_d), ptr(slot_d), B, P, asize, bsize, ptr(lut),
+            ptr(lf), nmax, maxs, ctypes.c_uint32(k0), ctypes.c_uint32(k1),
+            ctypes.c_double(perc), nsamples, pmax)
+    wide, scratch = _wide_scratch(pmax, nsamples, dtype, out.element_size(), dev)
+    if wide:
+        launch(LAUNCHES, "fet_window_wide", f"fet_window_wide_{dtype_suffix(dtype)}", dev,
+               *args, ptr(scratch), ptr(out))
+    else:
+        launch(LAUNCHES, "fet_window", f"fet_window_{dtype_suffix(dtype)}", dev, *args,
+               ptr(out))
     return out[0], out[1]

@@ -48,7 +48,12 @@ Kernels (``csrc/``) carry the work on a CUDA device:
 * ``css_perm_chunk`` (K11) — one fixed chunk of the window stream per
   window, keys used as given, with a hit target and its stop epilogue in
   the kernel (:func:`permutation_chunk`), the sharded step's MC, on K8's
-  device code.
+  device code;
+* ``css_mc_window_block``, ``css_mc_power_window_block`` and
+  ``css_perm_chunk_block`` — K8, K9's window stream and K11 past m = 64
+  (``csrc/css_perm_block.cuh``: draws and 16-bit ranks in per-warp tables,
+  the score a walk over every column of D), the same hits and sums, at
+  any m; :func:`window_form` says which form a panel size takes.
 
 :func:`significance`, :func:`null_power_sums`,
 :func:`approx_significance` and :func:`permutation_chunk` launch them on a
@@ -78,7 +83,6 @@ import torch
 from divergence_tpu_torch import rng
 from divergence_tpu_torch.kernels._cuda import is_cpu, launch, ptr, query_form
 
-MC_MAX_M = 64                   # K8, K9, K11 (and K7's thread form) rank m words per thread
 BITGENS = ("mix", "threefry")   # kernel argument: the index in this tuple
 STREAMS = ("shared", "window")
 # the shared stream's ranges (range_chunks)
@@ -96,7 +100,9 @@ _PLAIN_BATCH_ELEMS = {"cpu": 1 << 24, "cuda": 1 << 28}
 
 # kernel launches since the last reset_launches(), by kernel name
 LAUNCHES = {"css_mc_coeff": 0, "css_mc_coeff_block": 0, "css_mc_shared": 0,
-            "css_mc_scan": 0, "css_mc_window": 0, "css_mc_power": 0, "css_perm_chunk": 0}
+            "css_mc_scan": 0, "css_mc_window": 0, "css_mc_power": 0, "css_perm_chunk": 0,
+            "css_mc_window_block": 0, "css_mc_power_window_block": 0,
+            "css_perm_chunk_block": 0}
 # css_mc_coeff and css_mc_coeff_block launches by bitgen
 COEFF_LAUNCHES = {name: 0 for name in BITGENS}
 
@@ -230,14 +236,6 @@ def shared_coeff_plain(key, k0, nk, m, asize, bsize, chunk, device,
          for k in range(k0, k0 + nk)],
         dim=1,
     )
-
-
-def _check_m(m: int, kernel: str) -> None:
-    if m > MC_MAX_M:
-        raise NotImplementedError(
-            f"{kernel} ranks panels of at most {MC_MAX_M} individuals on "
-            f"CUDA (m={m}); larger panels are ROADMAP item P12"
-        )
 
 
 def chunk_stride(chunk: int) -> int:
@@ -713,12 +711,36 @@ def mc_shared(
 
 
 def _flat_f32(dist: torch.Tensor, kernel: str) -> torch.Tensor:
-    """[B, m*m] contiguous float32 distances for a kernel, m checked."""
+    """[B, m*m] contiguous float32 distances for a kernel."""
     B, m = dist.shape[0], dist.shape[-1]
     if dist.dim() != 3 or dist.shape[1] != m:
         raise ValueError(f"{kernel} takes [B, m, m] distances, got {tuple(dist.shape)}")
-    _check_m(m, kernel)
     return dist.to(torch.float32).reshape(B, m * m).contiguous()
+
+
+def window_form(m: int, native: bool = False,
+                device: torch.device | None = None) -> str:
+    """The form K8 (``native``: its float64 form), K11 and K9's window
+    stream take at panel size m on ``device``, by the kernel library's own
+    reckoning (``csrc/css_mc_window.cu:css_mc_window_form``): ``"register"``
+    (the small forms, m <= 64), ``"shared"`` (the large-panel form with its
+    per-warp tables in a block's shared memory: m <= 1,210 float32 / 880
+    float64 on an H100) or ``"device"`` (those tables in device scratch)."""
+    return _window_form(m, native, device)[0]
+
+
+def _window_form(m, native, device):
+    return query_form(("register", "shared", "device"), "css_mc_window_form", device, m,
+                      int(native))
+
+
+def _block_scratch(m: int, native: bool, dev: torch.device):
+    """(form, device scratch or None) of a launch at panel size m, as the
+    kernel library's :func:`window_form` says."""
+    name, nbytes = _window_form(m, native, dev)
+    scratch = (torch.empty(nbytes, dtype=torch.uint8, device=dev) if name == "device"
+               else None)
+    return name, scratch
 
 
 def _window_key_words(wkeys: torch.Tensor, dev: torch.device) -> torch.Tensor:
@@ -786,7 +808,9 @@ def mc_window_hit_words(
     K < runs) and scores ``>=`` its observed score: float32 scores of the
     ``bitgen`` draws, or (``native``) ``mc_native``'s float64 scores of the
     ``mix`` draws against the float32 observed score widened.  The kernel
-    on a CUDA ``distf``, the plain version on a CPU one."""
+    on a CUDA ``distf`` (``css_mc_window`` up to m = 64,
+    ``css_mc_window_block`` past it, as :func:`window_form` says), the
+    plain version on a CPU one."""
     gen = _check_bitgen(bitgen)
     if native and bitgen != "mix":
         raise ValueError("perm_backend='native' replays the 'mix' stream only")
@@ -794,7 +818,6 @@ def mc_window_hit_words(
         return mc_window_hit_words_plain(distf, obs, keys, active, k0, nk, asize, bsize,
                                          chunk, runs, bitgen, native)
     m = asize + bsize
-    _check_m(m, "css_mc_window")
     if (distf.dim() != 2 or distf.shape[1] != m * m or distf.dtype != torch.float32
             or not distf.is_contiguous()):
         raise ValueError("css_mc_window takes contiguous float32 [B, m*m] distances")
@@ -809,13 +832,16 @@ def mc_window_hit_words(
                         device=distf.device)
     between, ca, cb = _coeff_constants(asize, bsize)
     wa, wb = _chain_weights(asize, bsize)
-    launch(
-        LAUNCHES, "css_mc_window", "css_mc_window", distf.device,
-        ptr(distf), ptr(obs), ptr(keys), ptr(active), active.numel(), m, asize, k0, nk,
-        chunk, cs, runs, gen, int(native), ctypes.c_float(between), ctypes.c_float(ca),
-        ctypes.c_float(cb), ctypes.c_double(wa), ctypes.c_double(wb),
-        ctypes.c_double(1.0 / (asize * bsize)), ptr(words),
-    )
+    args = (ptr(distf), ptr(obs), ptr(keys), ptr(active), active.numel(), m, asize, k0, nk,
+            chunk, cs, runs, gen, int(native), ctypes.c_float(between), ctypes.c_float(ca),
+            ctypes.c_float(cb), ctypes.c_double(wa), ctypes.c_double(wb),
+            ctypes.c_double(1.0 / (asize * bsize)))
+    name, scratch = _block_scratch(m, native, distf.device)
+    if name == "register":
+        launch(LAUNCHES, "css_mc_window", "css_mc_window", distf.device, *args, ptr(words))
+    else:
+        launch(LAUNCHES, "css_mc_window_block", "css_mc_window_block", distf.device, *args,
+               ptr(scratch), ptr(words))
     return words
 
 
@@ -1022,7 +1048,10 @@ def null_power_sums(
     """Power sums of the permutation null per chunk: [n_chunks, 3, B]
     float64, rows (sum s, sum s^2, sum s^3) over the float32 scores of
     chunks ``k0 .. k0+n_chunks-1`` (``perm.py:_null_power_sums``).  K9
-    on a CUDA ``dist``, the plain version on a CPU one."""
+    on a CUDA ``dist`` (the shared stream at any m; the window stream's
+    ``css_mc_power_window`` up to m = 64, ``css_mc_power_window_block``
+    past it, as :func:`window_form` says), the plain version on a CPU
+    one."""
     if stream not in STREAMS:
         raise ValueError(f"stream must be one of {STREAMS}, got {stream!r}")
     gen = _check_bitgen(bitgen)
@@ -1047,11 +1076,14 @@ def null_power_sums(
     else:
         wk = _window_key_words(keys, dev)
         between, ca, cb = _coeff_constants(asize, bsize)
-        launch(
-            LAUNCHES, "css_mc_power", "css_mc_power_window", dev,
-            ptr(distf), ptr(wk), B, m, asize, k0, n_chunks, chunk, gen,
-            ctypes.c_float(between), ctypes.c_float(ca), ctypes.c_float(cb), ptr(out),
-        )
+        args = (ptr(distf), ptr(wk), B, m, asize, k0, n_chunks, chunk, gen,
+                ctypes.c_float(between), ctypes.c_float(ca), ctypes.c_float(cb))
+        name, scratch = _block_scratch(m, False, dev)
+        if name == "register":
+            launch(LAUNCHES, "css_mc_power", "css_mc_power_window", dev, *args, ptr(out))
+        else:
+            launch(LAUNCHES, "css_mc_power_window_block", "css_mc_power_window_block", dev,
+                   *args, ptr(scratch), ptr(out))
     return out
 
 
@@ -1274,9 +1306,11 @@ def permutation_chunk(
     (``perm.py:permutation_chunk``): (chunk_hits [B] int32, reached [B]
     bool, pos [B] int32), ``pos`` the 0-based in-chunk index of the
     permutation that delivered the ``need``-th hit (0 where it is not
-    reached).  K11 on a CUDA ``dist`` (m <= 64; the hit words of
+    reached).  K11 on a CUDA ``dist`` (the hit words of
     :func:`perm_chunk_words_plain` folded by :func:`chunk_epilogue_plain`,
-    in one launch), the plain version on a CPU one."""
+    in one launch: ``css_perm_chunk`` up to m = 64, ``css_perm_chunk_block``
+    past it, as :func:`window_form` says), the plain version on a CPU
+    one."""
     gen = _check_bitgen(bitgen)
     if is_cpu(dist):
         return permutation_chunk_plain(dist, scores, need, limit, keys, asize, bsize,
@@ -1293,10 +1327,14 @@ def permutation_chunk(
     if B == 0:
         return hits, reached, pos
     between, ca, cb = _coeff_constants(asize, bsize)
-    launch(
-        LAUNCHES, "css_perm_chunk", "css_perm_chunk", dev,
-        ptr(distf), ptr(obs), ptr(need_d), ptr(wk), B, asize + bsize, asize, chunk,
-        min(int(limit), chunk), gen, ctypes.c_float(between), ctypes.c_float(ca),
-        ctypes.c_float(cb), ptr(hits), ptr(reached), ptr(pos),
-    )
+    args = (ptr(distf), ptr(obs), ptr(need_d), ptr(wk), B, asize + bsize, asize, chunk,
+            min(int(limit), chunk), gen, ctypes.c_float(between), ctypes.c_float(ca),
+            ctypes.c_float(cb))
+    outs = (ptr(hits), ptr(reached), ptr(pos))
+    name, scratch = _block_scratch(asize + bsize, False, dev)
+    if name == "register":
+        launch(LAUNCHES, "css_perm_chunk", "css_perm_chunk", dev, *args, *outs)
+    else:
+        launch(LAUNCHES, "css_perm_chunk_block", "css_perm_chunk_block", dev, *args,
+               ptr(scratch), *outs)
     return hits, reached, pos

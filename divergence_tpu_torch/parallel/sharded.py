@@ -70,10 +70,10 @@ def make_divergence_step(
     (float64), ``css_valid`` (bool), ``mc_hits`` (int32), and the scalars
     ``windows_evaluated``, ``score_sum`` (float64).  ``plain=True`` runs
     every kernel's plain torch version on the same devices (the twin a card
-    run is held against).  On the card the step takes panels of at most 64
-    individuals (not in drosophila mode): its MC chunk, K11
-    (``kperm.permutation_chunk``), raises NotImplementedError above that
-    (ROADMAP item P12), though its counts and scoring take any m."""
+    run is held against).  On the card the step takes any panel size: its
+    MC chunk, K11 (``kperm.permutation_chunk``), runs its large-panel form
+    past 64 individuals, and K10 its wide form on windows too wide for a
+    block's shared memory."""
     devices = tuple(mesh)
     maxs = kfet.support_size(asize, bsize)
     nmax = asize + bsize + 2

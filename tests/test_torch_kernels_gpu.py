@@ -47,7 +47,21 @@ K6 also reports the transforms over every restart, equal to the plain
 version's on all but 0.1 % of windows (+1) in exact mode, and in mode 1
 equals its torch mirror of the kernel's order (``smacof_pairs``) bit for
 bit.  The sharded step: bit-equal per window across a 1- and a 4-share
-mesh of one card."""
+mesh of one card.  Past m = 64 (the large-panel body of
+``csrc/css_perm_block.cuh``): K8's (p, n, hits) as above at m = 65 to
+300, and its hit words, K11's outputs and K9's window-stream sums equal
+to their plain versions on both sides of each switch of their form
+(register | tables in shared memory | tables in device scratch:
+WINDOW_SWITCH); K11 equal to its plain
+version on every window; K9's window stream within 1e-12 of its plain
+version (the same float32 scores, float64 sums in another order), the
+shared stream within m 2^-24 of each sum's magnitude (large_power_band:
+its product adds a score's m^2 terms one after another), approx p within
+the band the plain version meets against the JAX package at m = 128 and
+200 (LARGE_LOG10_P_BAND); the step at 70 + 58 against plain=True.  FET windows
+of P = 4,096 to 65,536 SNPs' padding (the block body to 32 KB of keys,
+then the wide body on device scratch): K2 at the FET tolerances, K2r = K2 and K10 = K1 -> K2
+bit for bit."""
 
 import shutil
 from pathlib import Path
@@ -71,6 +85,30 @@ TIE_RTOL = 1e-5   # float32 near tie (tests/test_torch_mc.py)
 # approx mode, keyed by the largest m they cover (tests/test_torch_approx.py)
 POWER_RTOL = {21: 1e-6, 64: 3e-6}
 LOG10_P_BAND = {21: 2e-5, 64: 3e-4}
+# approx mode past m = 64, keyed likewise: |log10 p| against the plain
+# version, the band the port's plain version meets against the JAX package
+# at m = 128 and 200, measured on the CPU (tests/test_torch_large_panels_mc.py)
+LARGE_LOG10_P_BAND = {128: 1e-2, 200: 1e-2}
+
+
+def large_power_band(m: int) -> float:
+    """K9's shared stream past m = 64 against its plain version, by
+    power_err: m u (u = 2^-24).  The kernel adds a score's m^2 products
+    one after another in one float32 register (tile_gemm), the plain
+    version's matmul in blocks, so the kernel's sums drift like m
+    roundings of a score: 0.36-0.55 m u on this file's panels at m = 21 to
+    300, 0.81-0.90 m u on chip_smoke.py's 19,997 windows, the plain
+    version's 0.12 m u or less (tests/measure_large_forms.py)."""
+    return m * 2.0 ** -24
+
+
+def power_err(k: torch.Tensor, p: torch.Tensor, n: int) -> float:
+    """Largest |k - p| of [chunks, 3, B] power sums of n scores against n
+    rms^q (rms^2 = p[:, 1] / n): each sum's error against its magnitude,
+    which a sum near zero cannot inflate."""
+    rms = (p[:, 1:2] / n).sqrt()
+    q = torch.arange(1, 4, device=p.device, dtype=p.dtype)[None, :, None]
+    return float(((k - p).abs() / (n * rms ** q)).max())
 
 
 def band(table: dict, m: int) -> float:
@@ -168,10 +206,14 @@ def test_aggregate_kernel(cuda, prec):
 
 @pytest.mark.gpu
 def test_aggregate_kernel_refuses_oversized_windows(cuda):
-    logs = torch.zeros(5000, dtype=torch.float64, device=cuda)
+    """A window past the old 4,096-SNP limit runs (float64 keys at P =
+    8,192: the wide body) and equals its plain version; a window reaching past the
+    chromosome's SNPs is still refused."""
+    logs = torch.from_numpy(np.random.default_rng(0).random(5000)).to(cuda)
     one = torch.zeros(1, dtype=torch.int64)
-    with pytest.raises(ValueError, match="at most"):
-        kfet.fet_aggregate(logs, one, one + 4500, one, rng.prng_key(0), 0.95, 100)
+    k = kfet.fet_aggregate(logs, one, one + 4500, one, rng.prng_key(0), 0.95, 100)
+    p = kfet.fet_aggregate_plain(logs, one, one + 4500, one, rng.prng_key(0), 0.95, 100)
+    assert _rel(k, p) <= TOL["exact"]
     with pytest.raises(ValueError, match="outside"):
         kfet.fet_aggregate(logs, one + 4990, one + 20, one, rng.prng_key(0), 0.95, 100)
 
@@ -287,9 +329,10 @@ def test_aggregate_ranks_kernel(cuda, prec):
         assert torch.equal(kr, k2), nsamples
     with pytest.raises(ValueError, match="int32"):
         kfet.fet_aggregate_ranks(ls, r.long(), lo, npos, slot, key, 0.95, 100)
+    # a window past the old 4,096-SNP limit: K2r = K2 there too
     one = torch.zeros(1, dtype=torch.int64)
-    with pytest.raises(ValueError, match="at most"):
-        kfet.fet_aggregate_ranks(ls, r, one, one + 4500, one, key, 0.95, 100)
+    assert torch.equal(kfet.fet_aggregate_ranks(ls, r, one, one + 4500, one, key, 0.95, 100),
+                       kfet.fet_aggregate(logs, one, one + 4500, one, key, 0.95, 100))
 
 
 def _css_windows(cuda, asize=11, bsize=10, npos=40_000, region=2_000_000, seed=3):
@@ -462,6 +505,11 @@ GATHERED_SWITCH = [207, 208]                     # at a = (m + 1) // 2
 CMDS_SWITCH = {"exact": [75, 76, 222, 223], "fast": [111, 112, 321, 322]}
 SMACOF_SWITCH = {"exact": [68, 69, 168, 169], "fast": [97, 98, 239, 240]}
 COEFF_SWITCH = [64, 65, 908, 909]                # thread | shared | device
+# K8 / K11 / K9 window stream: register | shared | device (float32, float64)
+WINDOW_SWITCH = {"f32": [64, 65, 1210, 1211], "f64": [64, 65, 880, 881]}
+# K2 / K2r / K10 by (key bytes, value bytes): warp | block | wide
+FET_SWITCH = {(8, 8): [128, 256, 4096, 8192], (4, 4): [128, 256, 8192, 16384],
+              (4, 8): [128, 256, 8192, 16384]}
 
 
 @pytest.mark.gpu
@@ -486,6 +534,15 @@ def test_kernel_forms_switch_where_the_slabs_stop_fitting(cuda):
         "thread", "shared", "shared", "device"]
     assert [kcss.smacof_lanes(m, 1, f64) for m in (68, 69)] == [kcss.WARP_LANES,
                                                                kcss.BLOCK_LANES]
+    # K8 (its float64 form too), K11 and K9's window stream: their per-warp
+    # tables; K2 / K2r / K10: a window's keys and replicates
+    assert [kperm.window_form(m) for m in WINDOW_SWITCH["f32"]] == [
+        "register", "shared", "shared", "device"]
+    assert [kperm.window_form(m, native=True) for m in WINDOW_SWITCH["f64"]] == [
+        "register", "shared", "shared", "device"]
+    for (kb, vb), sizes in FET_SWITCH.items():
+        assert [kfet.window_form(P, 100, kb, vb) for P in sizes] == [
+            "warp", "block", "block", "wide"], (kb, vb)
     # at 70 + 58 and 110 + 90 every large-panel kernel runs
     for m in (128, 200):
         assert kcss.dissim_form(m) == "tiles" and kperm.coeff_form(m) == "shared"
@@ -1070,22 +1127,260 @@ def test_css_mc_coeff_threefry_kernel_bit_equal(cuda, asize, bsize):
 
 
 @pytest.mark.gpu
-def test_mc_kernels_refuse_large_panels(cuda):
-    """What still refuses m > 64 on the card (ROADMAP P12): the window
-    stream (K8), the power sums (K9) and the step's chunk (K11); the shared
-    stream's coefficients take any m (test_css_mc_coeff_kernel_large_panels)."""
-    dist = torch.zeros((2, 65, 65), device=cuda)
-    key = rng.prng_key(0)
-    with pytest.raises(NotImplementedError, match="P12"):
-        kperm.significance(dist, np.zeros(2), 33, 32, 10, 100, key, stream="window")
-    with pytest.raises(NotImplementedError, match="P12"):
-        kperm.null_power_sums(dist, rng.window_keys(key, [0, 0], [0, 1]), 33, 32, 512, 0, 2,
-                              "window")
-    with pytest.raises(NotImplementedError, match="P12"):
-        kperm.permutation_chunk(dist, torch.zeros(2, device=cuda),
-                                torch.ones(2, dtype=torch.int32, device=cuda), 128,
-                                rng.window_keys(key, [0, 0], [0, 1]), 33, 32, 128)
+@pytest.mark.parametrize("bitgen,backend", FORMS)
+@pytest.mark.parametrize("m", LARGE_M)
+def test_css_mc_window_kernel_large_panels(cuda, m, bitgen, backend):
+    """K8's large-panel form (css_mc_window_block) against the single-pass
+    plain loops at m = 65, 128, 200, 300: (p, n, hits) equal on every
+    window but counted float32 near ties (at most 0.1 %, + 1)."""
+    runs, chunk = 1024, 256
+    dist, scores, asize, bsize, chroms, slots = _mc_windows(cuda, m, 33)
+    key = rng.fold_in(rng.prng_key(6), 2)
+    before = kperm.LAUNCHES["css_mc_window_block"]
+    got = kperm.significance(dist, scores, asize, bsize, 10, runs, key, chunk=chunk,
+                             chroms=chroms, slots=slots, backend=backend, bitgen=bitgen,
+                             stream="window")
+    torch.cuda.synchronize()
+    assert kperm.LAUNCHES["css_mc_window_block"] > before
+    wkeys = rng.window_keys(key.to(cuda), chroms, slots)
+    pv, n, h = _window_plain(dist, scores, wkeys, asize, bsize, chunk, runs, bitgen, backend)
+    differ = (got.nscores != n) | (got.hits != h) | (got.pvals != pv)
+    assert differ.sum() <= 1e-3 * len(scores) + 1, int(differ.sum())
 
+
+def _switch_windows(cuda, m, nwin=3):
+    """(dist [nwin, m, m] float32, float32 observed scores, asize, bsize,
+    window keys) at panel size m: the distances of random points in the
+    plane, window 1 all NaN in individual 1's row and column, each
+    observed score that of the identity labelling (a draw from the
+    window's own null, so some permutations hit and some do not)."""
+    rs = np.random.default_rng(m)
+    pts = rs.normal(size=(nwin, m, 2))
+    d = np.sqrt(((pts[:, :, None] - pts[:, None]) ** 2).sum(-1))
+    dist = torch.from_numpy(d).to(cuda, torch.float32).contiguous()
+    dist[1, 1, :] = dist[1, :, 1] = float("nan")
+    asize, bsize = (m + 1) // 2, m // 2
+    ident = torch.arange(m, device=cuda)[None, :, None]
+    coeff = kperm._rank_coeff(ident, asize, bsize)[0, ..., 0].double()
+    obs = (dist.double() * coeff).sum(dim=(1, 2)).float()
+    chroms = np.full(nwin, rng.chrom_hash("chrK"), dtype=np.int64)
+    wkeys = rng.window_keys(rng.fold_in(rng.prng_key(6), 2).to(cuda), chroms,
+                            np.arange(nwin, dtype=np.int64) * 3 + 1)
+    return dist, obs, asize, bsize, wkeys
+
+
+def _window_kernel(stem, m, native=False):
+    """The kernel a window-stream wrapper launches at panel size m."""
+    return stem if kperm.window_form(m, native) == "register" else stem + "_block"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bitgen,native,m",
+                         [(g, False, m) for g in ("mix", "threefry")
+                          for m in WINDOW_SWITCH["f32"]]
+                         + [("mix", True, m) for m in WINDOW_SWITCH["f64"]])
+def test_css_mc_window_kernel_at_its_switches(cuda, m, bitgen, native):
+    """K8's hit words of one chunk on both sides of each switch of its
+    form (register | tables in shared memory | tables in device scratch:
+    WINDOW_SWITCH), a NaN window included: equal to the plain version bit
+    for bit."""
+    dist, obs, asize, bsize, wkeys = _switch_windows(cuda, m)
+    B = dist.shape[0]
+    flat = dist.reshape(B, -1).contiguous()
+    active = torch.arange(B, device=cuda)
+    name = _window_kernel("css_mc_window", m, native)
+    before = kperm.LAUNCHES[name]
+    words = kperm.mc_window_hit_words(flat, obs, wkeys, active, 2, 1, asize, bsize, 32,
+                                      20_000, bitgen, native)
+    want = kperm.mc_window_hit_words_plain(flat, obs, wkeys, active, 2, 1, asize, bsize, 32,
+                                           20_000, bitgen, native)
+    torch.cuda.synchronize()
+    assert kperm.LAUNCHES[name] == before + 1
+    assert torch.equal(words, want)
+    assert int(words.ne(0).sum()) > 0 and int(words[1].ne(0).sum()) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bitgen", ["mix", "threefry"])
+@pytest.mark.parametrize("m", LARGE_M)
+def test_perm_chunk_kernel_large_panels(cuda, m, bitgen):
+    """K11's large-panel form against its plain version on every window:
+    (hits, reached, pos) equal, a chunk padded to whole words with limit
+    < chunk, need from -1 to past the chunk's hits."""
+    dist, scores, asize, bsize, chroms, slots = _mc_windows(cuda, m, 33)
+    nwin = dist.shape[0]
+    keys = rng.window_keys(rng.fold_in(rng.prng_key(5), 2).to(cuda), chroms, slots)
+    need = torch.from_numpy(np.random.default_rng(m).integers(-1, 12, size=nwin)).to(cuda)
+    obs = torch.from_numpy(scores).to(cuda)
+    for chunk, limit in ((128, 128), (100, 60)):
+        before = kperm.LAUNCHES["css_perm_chunk_block"]
+        k = kperm.permutation_chunk(dist, obs, need, limit, keys, asize, bsize, chunk, bitgen)
+        p = kperm.permutation_chunk_plain(dist, obs, need, limit, keys, asize, bsize, chunk,
+                                          bitgen)
+        torch.cuda.synchronize()
+        assert kperm.LAUNCHES["css_perm_chunk_block"] == before + 1
+        for a, b in zip(k, p):
+            assert torch.equal(a.cpu(), b.cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", WINDOW_SWITCH["f32"])
+def test_perm_chunk_kernel_at_its_switches(cuda, m):
+    """K11 on both sides of each switch of its form, a NaN window
+    included: (hits, reached, pos) equal to the plain version, need from
+    -1 to past the chunk, limit < chunk."""
+    dist, obs, asize, bsize, wkeys = _switch_windows(cuda, m)
+    need = torch.tensor([1, 0, 3], dtype=torch.int32, device=cuda)
+    name = _window_kernel("css_perm_chunk", m)
+    before = kperm.LAUNCHES[name]
+    k = kperm.permutation_chunk(dist, obs, need, 24, wkeys, asize, bsize, 32)
+    p = kperm.permutation_chunk_plain(dist, obs, need, 24, wkeys, asize, bsize, 32)
+    torch.cuda.synchronize()
+    assert kperm.LAUNCHES[name] == before + 1
+    for a, b in zip(k, p):
+        assert torch.equal(a.cpu(), b.cpu())
+    assert int(k[0][1]) == 0 and int(k[0].sum()) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bitgen", ["mix", "threefry"])
+@pytest.mark.parametrize("stream", ["shared", "window"])
+@pytest.mark.parametrize("m", [65, 128, 200])
+def test_css_mc_power_kernel_large_panels(cuda, m, stream, bitgen):
+    """K9 past m = 64: the shared stream's tile product at any m, the
+    window stream's large-panel form.  The window stream scores every
+    product in the plain version's order (the same float32 scores), so its
+    sums differ only in the float64 adds' order; the shared stream's
+    float32 scores in the product's order, within large_power_band(m) by
+    power_err.  Approx p within the measured log10 band where nscores
+    agree."""
+    dist, scores, asize, bsize, chroms, slots = _mc_windows(cuda, m, 48)
+    key = rng.fold_in(rng.prng_key(7), 2)
+    keys = key.to(cuda) if stream == "shared" else rng.window_keys(key.to(cuda), chroms, slots)
+    name = "css_mc_power" if stream == "shared" else "css_mc_power_window_block"
+    before = kperm.LAUNCHES[name]
+    k = kperm.null_power_sums(dist, keys, asize, bsize, 512, 3, 2, stream, bitgen)
+    p = kperm.null_power_sums_plain(dist, keys, asize, bsize, 512, 3, 2, stream, bitgen)
+    torch.cuda.synchronize()
+    assert kperm.LAUNCHES[name] == before + 1
+    if stream == "window":
+        rel = float(((k - p).abs() / p.abs().clamp(min=1e-300)).max())
+        assert rel <= 1e-12, rel
+    else:
+        err = power_err(k, p, 512)
+        assert err <= large_power_band(m), err
+    got = kperm.approx_significance(dist, scores, asize, bsize, key, chunk=512,
+                                    chroms=chroms, slots=slots, bitgen=bitgen, stream=stream)
+    want = kperm.approx_significance_plain(dist, scores, asize, bsize, key, chunk=512,
+                                           chroms=chroms, slots=slots, bitgen=bitgen,
+                                           stream=stream)
+    same = got.nscores == want.nscores
+    assert same.mean() >= 0.99
+    dl = np.abs(np.log10(got.pvals[same]) - np.log10(want.pvals[same]))
+    assert dl.max() <= band(LARGE_LOG10_P_BAND, m), dl.max()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", WINDOW_SWITCH["f32"])
+def test_css_mc_power_window_kernel_at_its_switches(cuda, m):
+    """K9's window stream on both sides of each switch of its form: the
+    float64 sums of the plain version's float32 scores, within 1e-12 (the
+    lanes' order of the adds); NaN where a window's scores are."""
+    dist, _, asize, bsize, wkeys = _switch_windows(cuda, m)
+    name = ("css_mc_power" if kperm.window_form(m) == "register"
+            else "css_mc_power_window_block")
+    before = kperm.LAUNCHES[name]
+    k = kperm.null_power_sums(dist, wkeys, asize, bsize, 32, 1, 1, "window")
+    p = kperm.null_power_sums_plain(dist, wkeys, asize, bsize, 32, 1, 1, "window")
+    torch.cuda.synchronize()
+    assert kperm.LAUNCHES[name] == before + 1
+    assert torch.isnan(k[:, :, 1]).all() and torch.isnan(p[:, :, 1]).all()
+    fin = [0, 2]
+    rel = float(((k[..., fin] - p[..., fin]).abs()
+                 / p[..., fin].abs().clamp(min=1e-300)).max())
+    assert rel <= 1e-12, rel
+
+
+@pytest.mark.gpu
+def test_sharded_step_large_panel(cuda):
+    """make_divergence_step(70, 58) on the card (K10, K3's gather tiles,
+    K5's block form, K11's large-panel form) against the same step with
+    plain=True: FET exact 1e-12, CSS 1e-9 on the eigengap windows, MC hits
+    equal but on near ties (at most one window)."""
+    from divergence_tpu_torch.parallel import make_divergence_step, make_mesh
+
+    pos, am, bm = make_panel(20_000, 1_000_000, 70, 58, seed=12)
+    plan = plan_windows(pos, 1_000_000, 2500, 500)
+    ids = np.nonzero(plan.valid_mask() & (plan.npos > 0))[0][:400]
+    av, bv, npos, slot = _gathered(plan, ids, am, bm)
+    key = rng.prng_key(1)
+    kperm.reset_launches()
+    got = make_divergence_step(make_mesh(devices=[cuda]), 70, 58)(
+        av.to(cuda), bv.to(cuda), npos, slot, key)
+    assert kperm.LAUNCHES["css_perm_chunk_block"] == 1
+    want = make_divergence_step(make_mesh(devices=[cuda]), 70, 58, plain=True)(
+        av.to(cuda), bv.to(cuda), npos, slot, key)
+    assert _rel(got["fet_scores"], want["fet_scores"]) <= TOL["exact"]
+    assert torch.equal(got["css_valid"], want["css_valid"])
+    err = ((got["css_scores"] - want["css_scores"]).abs()
+           / want["css_scores"].abs().clamp(min=1.0))
+    assert int((err > 1e-9).sum()) <= 0.01 * len(ids)
+    assert int((got["mc_hits"] != want["mc_hits"]).sum()) <= 1
+
+
+def _wide_logs(cuda, P, B, seed):
+    """Per-SNP scores (K1's, 11 + 10) of a chromosome and B windows on it
+    whose widest pads to P (n in (P / 2, P], the first exactly P - 5)."""
+    rs = np.random.default_rng(seed)
+    N = 3 * P
+    vals = _codes(N, 21, seed).to(cuda)
+    npos = rs.integers(P // 2 + 1, P + 1, size=B)
+    npos[0] = P - 5
+    lo = rs.integers(0, N - npos + 1)
+    return (vals, torch.from_numpy(lo), torch.from_numpy(npos),
+            torch.from_numpy(np.arange(B, dtype=np.int64) * 5 + 2))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prec", ["exact", "fast"])
+@pytest.mark.parametrize("P", [4096, 8192, 16384, 32768, 65536])
+def test_fet_wide_windows(cuda, prec, P):
+    """K2, K2r and K10 on windows of ~P SNPs (the block body up to 32 KB
+    of keys, the wide body past it: float64 from P = 8,192, float32 and
+    int32 ranks from 16,384): K2 against its plain
+    version at the FET tolerances (stddev beyond them on at most one
+    window), K2r = K2 and K10 = K1 -> K2 bit for bit."""
+    fast = prec == "fast"
+    maxs, nmax = kfet.support_size(11, 10), 23
+    vals, lo, npos, slot = _wide_logs(cuda, P, 6, seed=P)
+    key = rng.fold_in(rng.prng_key(3), rng.chrom_hash("chrW"))
+    logs = kfet.fet_snp_logs(vals, 11, maxs, nmax, fast)
+    ls, r = kfet.fet_snp_ranks(vals, 11, maxs, nmax, fast)
+    kfet.reset_launches()
+    k2 = kfet.fet_aggregate(logs, lo, npos, slot, key, 0.95, 100)
+    k2r = kfet.fet_aggregate_ranks(ls, r, lo, npos, slot, key, 0.95, 100)
+    wide = {k: v for k, v in kfet.LAUNCHES.items() if v}
+    vb = 4 if fast else 8
+    assert wide == {
+        ("fet_aggregate_wide" if kfet.window_form(P, 100, vb, vb) == "wide"
+         else "fet_aggregate"): 1,
+        ("fet_aggregate_ranks_wide" if kfet.window_form(P, 100, 4, vb) == "wide"
+         else "fet_aggregate_ranks"): 1}
+    p = kfet.fet_aggregate_plain(logs, lo, npos, slot, key, 0.95, 100)
+    torch.cuda.synchronize()
+    assert _rel(k2[0], p[0]) <= TOL[prec]
+    sd = (k2[1].double() - p[1].double()).abs() / p[1].double().abs().clamp(min=1.0)
+    assert int((sd > TOL[prec]).sum()) <= 1
+    assert torch.equal(k2, k2r)
+    # K10 on the same windows gathered at P: K1 -> K2 bit for bit
+    offs = torch.arange(P)[None, :]
+    idx = torch.where(offs < npos[:, None], lo[:, None] + offs, 0).to(cuda)
+    g = vals[idx]
+    s, d = kfet.fet_window_batch(g[..., :11].contiguous(), g[..., 11:].contiguous(), npos,
+                                 0.95, key, 100, maxs, nmax, fast, slot)
+    kk = kfet.fet_aggregate(logs, lo, npos, slot, key, 0.95, 100)
+    assert torch.equal(_float_bits(s), _float_bits(kk[0]))
+    assert torch.equal(_float_bits(d), _float_bits(kk[1]))
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("m", LARGE_M + COEFF_SWITCH)
@@ -1249,9 +1544,11 @@ def test_fet_window_kernel_refuses(cuda):
     key = rng.prng_key(0)
     with pytest.raises(ValueError, match="rows"):
         kfet.fet_window_batch(av, av, torch.tensor([3, 9]), 0.95, key, 10, 5, 8)
+    # a window past the old 4,096-SNP limit runs
     big = torch.zeros((1, 5000, 3), dtype=torch.int16, device=cuda)
-    with pytest.raises(ValueError, match="at most"):
-        kfet.fet_window_batch(big, big, torch.tensor([4500]), 0.95, key, 10, 5, 8)
+    k = kfet.fet_window_batch(big, big, torch.tensor([4500]), 0.95, key, 10, 5, 8)
+    p = kfet.fet_window_batch_plain(big, big, torch.tensor([4500]), 0.95, key, 10, 5, 8)
+    assert _rel(k[0], p[0]) <= TOL["exact"] and _rel(k[1], p[1]) <= TOL["exact"]
 
 
 def _synthetic_gathered(B, P, npos_max, asize, bsize, seed):
