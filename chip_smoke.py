@@ -138,7 +138,14 @@ Phases (any failure exits non-zero and prints no result line):
    K2r (``fet_aggregate_wide``, ``fet_aggregate_ranks_wide`` past what a
    block's shared memory holds) against their plain versions and K2r = K2
    bit for bit, K10 at P = 8,192 and 65,536 (``fet_window_wide``) equal to
-   K1 -> K2, ``run_fet`` at each width, and the step on 1 Mb windows.
+   K1 -> K2, ``run_fet`` at each width, and the step on 1 Mb windows;
+   (e) K8's large-panel body (mix, fast) over m = 65, 96, 128, 174, 200
+   and 300 and both sides of its shared / split switch on the envelope
+   cell's windows at a split of 11 : 9, to a depth cut, in the form the
+   kernel library picks there, its time per permutation against m^2 and
+   a*b.  Each line of (a) and (b) prints ns a permutation, the ratio to
+   the bound and the time of the body before the sort and the nonzero
+   walk for the same cell (OLD_BODY_MS).
 
 Kernel launch counts are reset before phase 3 and read after phase 4 (the
 FET path), reset before phase 6 and read after phase 7 (the CMDS CSS
@@ -335,6 +342,24 @@ FORMS_17 = [("mix", "mix", "xla"), ("threefry", "threefry", "xla"),
             ("native", "mix", "native")]
 LARGE_MC_PLAIN, LARGE_MC_PLAIN_300 = (16, 2_048), (8, 1_024)
 LARGE_STEP_PLAIN, LARGE_CHUNK_PLAIN, LARGE_POWER_PLAIN = 512, 256, 64
+# The times of phase 17's cells on the large-panel body before it ranked
+# by a sort and walked only the nonzero terms (m^2 rank compares, every
+# column scored; ms, PERF.md's kernel table, an H100 80GB HBM3 at 700 W),
+# printed beside this run's: K8 large's
+# launches on the envelope cell to LARGE_MC_RUNS (m = 300: 150 + 150 on
+# 300 windows), K11 and K9's window stream on the 19,997 windows
+OLD_BODY_MS = {("K8", "mix", 128): 443.5, ("K8", "threefry", 128): 452.1,
+           ("K8", "native", 128): 320.3, ("K8", "mix", 200): 1628.1,
+           ("K8", "threefry", 200): 1647.4, ("K8", "native", 200): 1089.4,
+           ("K8", "mix", 300): 1741.1, ("K11", "mix", 128): 78.2,
+           ("K11", "threefry", 128): 79.3, ("K11", "mix", 200): 257.2,
+           ("K11", "threefry", 200): 260.2, ("K9", "window", 128): 478.1,
+           ("K9", "window", 200): 1937.4}
+# phase 17e, K8's large-panel body over m at the envelope's 11 : 9 split,
+# on LARGE_CSS_WORKLOAD's windows to LARGE_MC_PLAIN's depth; the plain
+# loop on LARGE_MC_PLAIN's cut where phase 17a has no cell.  174: the last
+# m at which the shared form held 8 warps on an H100 before it needed 16
+LARGE_SWEEP_M = (65, 96, 128, 174, 200, 300)
 # approx mode past m = 64: |log10 p| card vs CPU (tests/
 # test_torch_large_panels_mc.py, measured on the CPU at m = 128 and 200)
 LARGE_LOG10_P_BAND = 1e-2
@@ -1608,6 +1633,13 @@ def window_ops(form: str, m: int, asize: int) -> dict:
         g = min(asize, bsize)
         return {"i32": ints, "f64_op": g * (g - 1) // 2 + g + m + 6}
     return {"i32": ints, "f32_op": 2 * (asize * bsize + m - 2)}
+
+
+def pace(ms: float, perms: int, bnd: tuple, old: float | None = None) -> str:
+    """ns a permutation, the ratio to the bound and (where given) the old body's
+    time of the same cell, for a phase 17 line."""
+    was = "" if old is None else f"; old body {old:,.1f} ms ({old / ms:.1f}x this)"
+    return f"{ms * 1e6 / max(perms, 1):.2f} ns a permutation, {ms / bnd[0]:.1f}x the bound{was}"
 
 
 def explain_differences(torch, kperm, rng, dist, scores, wkeys, got, n, h, chunk,
@@ -3190,7 +3222,9 @@ def phase_large_mc_kernels(torch, dev, card, results) -> None:
                 f"in a {lt['wall_ms']:.1f} ms call, {lt['ranges']} ranges, {lt['computed']} "
                 f"permutations computed for {perms} consumed "
                 f"({perms / lt['wall_ms'] * 1e3:,.0f} perms/s), bound {bnd[0]:.3f} ms "
-                f"({bnd[1]}); depth cut {nw} windows to {runs_cut}: kernel {ms:.1f} ms plain "
+                f"({bnd[1]}): "
+                f"{pace(lt['hits_ms'], lt['computed'], bnd, OLD_BODY_MS.get(('K8', form, m)))}; "
+                f"depth cut {nw} windows to {runs_cut}: kernel {ms:.1f} ms plain "
                 f"{pms:.1f} ms (host wall), {nd} windows differ (near ties), form "
                 f"{kperm.window_form(m, native)} on {card}")
             r8[f"{form}_{m}"] = (float(np.abs(got.pvals - pv).max()), float(nd), ms, pms)
@@ -3228,7 +3262,8 @@ def phase_large_mc_kernels(torch, dev, card, results) -> None:
             bnd = bound(B * (m * m * 4 + 4 + 4 + 16 + 9), {t: v * B for t, v in ops.items()})
             cbnd = bound(c * (m * m * 4 + 4 + 4 + 16 + 9), {t: v * c for t, v in ops.items()})
             say(f"[K11 css_perm_chunk_block {a}+{b} {bitgen}] {B} windows x {PERM_CHUNK}: "
-                f"kernel {ms:.3f} ms (bound {bnd[0]:.3f} ms, {bnd[1]}); the first {c} "
+                f"kernel {ms:.3f} ms (bound {bnd[0]:.3f} ms, {bnd[1]}): "
+                f"{pace(ms, B * PERM_CHUNK, bnd, OLD_BODY_MS.get(('K11', bitgen, m)))}; the first {c} "
                 f"windows equal to the plain version: kernel {cms:.3f} ms plain {pms:.1f} ms "
                 f"(bound {cbnd[0]:.4f} ms) on {card}")
             r11[f"{bitgen}_{m}"] = (0.0, 0.0, cms, pms)
@@ -3258,7 +3293,8 @@ def phase_large_mc_kernels(torch, dev, card, results) -> None:
 
             bnd = power_bound(B)
             say(f"[K9 css_mc_power {stream} {a}+{b}] {B} windows x {APPROX_CHUNKS} chunks of "
-                f"{APPROX_CHUNK}: kernel {ms:.2f} ms (bound {bnd[0]:.3f} ms, {bnd[1]}); power "
+                f"{APPROX_CHUNK}: kernel {ms:.2f} ms (bound {bnd[0]:.3f} ms, {bnd[1]}): "
+                f"{pace(ms, nperm, bnd, OLD_BODY_MS.get(('K9', stream, m)))}; power "
                 f"sums power_err={prel:.3e} (band {rtol:.3g}) against the plain version on "
                 f"{c} windows ({pms:.1f} ms there) on {card}")
             if stream == "window":
@@ -3277,6 +3313,63 @@ def phase_large_mc_kernels(torch, dev, card, results) -> None:
         torch.cuda.empty_cache()
     for name, key_ in ((r11, f"mix_{mL}"), (r9, f"window_{mL}")):
         name["fast"], name["bound"] = name[key_], name["bound_" + key_]
+
+
+def shared_switch(kperm, lo: int = 65, hi: int = 300) -> int:
+    """The largest m in [lo, hi] at which K8's float32 large-panel body
+    takes the shared form on this card (the kernel library's own
+    reckoning), lo where it takes none."""
+    return max((m for m in range(lo, hi + 1) if kperm.window_form(m) == "shared"), default=lo)
+
+
+def phase_large_mc_sweep(torch, dev, card, results) -> None:
+    """Phase 17e: K8's large-panel body (mix, fast) at each m of
+    LARGE_SWEEP_M and at the two sides of its shared / split switch (the
+    last m of the shared form and the first of the split form), a = 11 m /
+    20 rounded, on the envelope cell's windows to LARGE_MC_PLAIN's depth:
+    the range loop's launches by CUDA events, in the form the wrapper
+    takes; held to the plain loop on LARGE_MC_PLAIN's cut where phase 17a
+    has no cell (m < 128).  Time a permutation against m^2 (what the old
+    body's rank count and column walk grew with) and a*b (the nonzero
+    terms)."""
+    from divergence_tpu_torch import rng
+    from divergence_tpu_torch.kernels import perm as kperm
+
+    key = rng.fold_in(rng.prng_key(0), 2).to(dev)
+    nw, runs = LARGE_MC_PLAIN
+    sweep = results["css_mc_window_block"]["sweep"] = {}
+    last = shared_switch(kperm)
+    for m in sorted(set(LARGE_SWEEP_M) | {last, last + 1}):
+        a = (11 * m + 10) // 20
+        b = m - a
+        dist, scores, chroms, slots = mc_windows(torch, LARGE_CSS_WORKLOAD, dev, a, b)
+        B = dist.shape[0]
+        wkeys = rng.window_keys(key, chroms, slots)
+        f = kperm.window_form(m)
+        run = lambda: k8_launch_times(  # noqa: E731
+            torch, kperm, dist, scores, wkeys, "mix", False, a, b, runs, "css_mc_window_block")
+        run()
+        lt = run()
+        bnd = bound(B * (m * m * 4 + 28),
+                    {t: v * lt["computed"] for t, v in window_ops("mix", m, a).items()})
+        ns = lt["hits_ms"] * 1e6 / lt["computed"]
+        say(f"[K8 sweep {a}+{b} {f}] {B} windows to {runs}: launches {lt['hits_ms']:.3f} ms "
+            f"for {lt['computed']} permutations computed: "
+            f"{pace(lt['hits_ms'], lt['computed'], bnd)}; "
+            f"{ns / (m * m) * 1e3:.3f} ps per m^2, {ns / (a * b) * 1e3:.3f} ps per a*b "
+            f"term, bound {bnd[0]:.3f} ms ({bnd[1]}) on {card}")
+        sweep[f"{f}_{m}"] = {"a": a, "b": b, "ms": lt["hits_ms"], "computed": lt["computed"],
+                             "ns_per_perm": ns, "bound_ms": bnd[0]}
+        if m < LARGE_PANELS[0][0] + LARGE_PANELS[0][1]:
+            got = kperm.significance(dist[:nw], scores[:nw], a, b, 10, runs, key,
+                                     chroms=chroms[:nw], slots=slots[:nw], stream="window")
+            pv, n, h = kperm.mc_significance(dist[:nw], scores[:nw], wkeys[:nw], a, b, 256, runs,
+                                             10, stream="window")
+            nd = explain_differences(torch, kperm, rng, dist, scores, wkeys, got, n, h, 256,
+                                     "mix", False, a, b, f"K8 sweep {a}+{b}")
+            check(nd <= MC_DIFFER_SHARE * nw + 1, f"K8 sweep {a}+{b}: {nd} windows differ")
+        del dist, wkeys
+        torch.cuda.empty_cache()
 
 
 def phase_large_mc_library(torch, dev, card, tmp: Path, results) -> None:
@@ -3755,6 +3848,7 @@ def smoke(torch, dev) -> tuple[str, list[dict]]:
         # the MC past m = 64 and wide FET windows: the kernels against their
         # plain versions, then their main path
         timed_phase("17a-b", phase_large_mc_kernels, torch, dev, card, results)
+        timed_phase("17e", phase_large_mc_sweep, torch, dev, card, results)
         timed_phase("17d kernels", phase_wide_fet_kernels, torch, kfet, pair, positions, dev,
                     card, results)
         for mod in (kfet, kcss, kperm):

@@ -29,16 +29,16 @@
 //   powers in registers, then a shuffle sum over the warp.
 // css_mc_power_window_block (kernel power_window_block) — the window
 //   stream past kMaxM on the large-panel body of css_perm_block.cuh: a
-//   warp a (window, chunk) task, grid-strided, the chunk's words in
-//   order, lane i drawing and ranking permutation 32 q + i into its
-//   tables and scoring it with every product added in row-major order
-//   (score_scan<false>, score_f32 bit for bit); lane i sums columns i, i +
-//   32, ... and the same xor tree adds the lanes, so the sums keep the
-//   small form's order.
-//
+//   block a (window, chunk) task, its warps the chunk's words (the sort of
+//   (draw, index) keys, then each lane's walk over its permutation's
+//   nonzero terms: for finite D the sums of score_f32's scores); lane i
+//   sums its columns' powers in order, the xor tree adds a warp's lanes
+//   and thread 0 the warps' sums in warp order.  A window with a
+//   non-finite entry gets NaN sums, as score_f32's NaN scores give.
 // What bounds it on H100: as K7 (float32 FMAs, m^2 per window and
-// permutation, in tile_gemm) for the shared stream and as K8 (the
-// instruction rate) for the window stream; the float64 power sums add 5
+// permutation, in tile_gemm) for the shared stream and as K8 for the
+// window stream (the instruction rate; past kMaxM the gathers of the
+// terms, css_perm_block.cuh); the float64 power sums add 5
 // float64 operations per (window, permutation).  Memory is small: D is read once
 // per column tile from L2, M once per window tile, and 3 doubles per
 // window, chunk and column tile are written (then read once by
@@ -175,32 +175,43 @@ power_window(const float* __restrict__ dist, const int64_t* __restrict__ wkeys,
     }
 }
 
-__global__ void __launch_bounds__(permb::kMaxWarps * 32)
+// K9's window stream past kMaxM: a block task is a window's chunk; the
+// block stages the window, its warps take the chunk's words (word q on
+// warp q % warps), lane i summing the powers of its columns in order, the
+// xor tree adding a warp's lanes, and thread 0 the warps' sums in warp
+// order.  A window with a non-finite D gets NaN sums, as its scores are.
+template <int kForm>
+__global__ void __launch_bounds__(permb::kMaxWarps * 32, 1)
 power_window_block(const float* __restrict__ dist, const int64_t* __restrict__ wkeys,
                    int64_t B, int m, int asize, int k0, int nk, int chunk, int bitgen,
                    permk::CoeffConst cc, unsigned char* gscratch, double* __restrict__ out) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
     const int lane = threadIdx.x & 31;
-    const permb::Tables t = permb::warp_tables(smem_raw, gscratch, m, false);
-    const int mm = m * m;
+    const int warp = threadIdx.x >> 5;
+    const int nwarps = blockDim.x >> 5;
+    const permb::Block blk = permb::carve_block<kForm>(smem_raw, gscratch, m, false);
+    const permb::Warp w = permb::carve_warp<kForm>(blk, m, false);
+    const permb::Rows rw = permb::rows_of<kForm>(m, asize);
+    double* warp_sums = reinterpret_cast<double*>(blk.area);   // [nwarps][3]
     const int wpc = (chunk + 31) / 32;
     const int64_t ntasks = B * nk;
-    const int64_t wpb = blockDim.x >> 5;
-    for (int64_t task = blockIdx.x * wpb + (threadIdx.x >> 5); task < ntasks;
-         task += static_cast<int64_t>(gridDim.x) * wpb) {
-        const int64_t w = task / nk;
-        const int kk = static_cast<int>(task - w * nk);
-        const float* D = dist + w * mm;
-        const uint2 wkey = make_uint2(static_cast<uint32_t>(wkeys[2 * w]),
-                                      static_cast<uint32_t>(wkeys[2 * w + 1]));
+    for (int64_t task = blockIdx.x; task < ntasks; task += gridDim.x) {
+        const int64_t win = task / nk;
+        const int kk = static_cast<int>(task - win * nk);
+        const float* D = dist + win * int64_t(m) * m;
+        const bool flagged = permb::stage_window<kForm, false>(blk, D, m);
+        const float* mat = permb::window_mat<kForm>(blk, D);
+        const int ld = permb::window_ld<kForm>(m);
+        const uint2 wkey = make_uint2(static_cast<uint32_t>(wkeys[2 * win]),
+                                      static_cast<uint32_t>(wkeys[2 * win + 1]));
         const uint2 ck = tf::fold_in(wkey, static_cast<uint32_t>(k0 + kk));
         double p1 = 0.0, p2 = 0.0, p3 = 0.0;
-        for (int q = 0; q < wpc; ++q) {
+        for (int q = warp; q < wpc && !flagged; q += nwarps) {
             const int K = q * 32 + lane;
-            permb::draw_rank(t, ck, static_cast<uint32_t>(K), m, bitgen, false, lane);
+            permb::rank_word<kForm, false>(w, rw, ck, q, m, asize, bitgen, lane);
             if (K < chunk) {
-                const double v =
-                    static_cast<double>(permb::score_scan<false>(D, t.rk, m, asize, cc, lane));
+                const double v = static_cast<double>(
+                    permb::walk_f32<kForm>(w.cols, rw, mat, ld, m, asize, cc, lane));
                 const double v2 = __dmul_rn(v, v);
                 p1 = __dadd_rn(p1, v);
                 p2 = __dadd_rn(p2, v2);
@@ -211,10 +222,19 @@ power_window_block(const float* __restrict__ dist, const int64_t* __restrict__ w
         p2 = warp_sum(p2);
         p3 = warp_sum(p3);
         if (lane == 0) {
-            out[(static_cast<int64_t>(kk) * 3 + 0) * B + w] = p1;
-            out[(static_cast<int64_t>(kk) * 3 + 1) * B + w] = p2;
-            out[(static_cast<int64_t>(kk) * 3 + 2) * B + w] = p3;
+            warp_sums[3 * warp + 0] = p1;
+            warp_sums[3 * warp + 1] = p2;
+            warp_sums[3 * warp + 2] = p3;
         }
+        __syncthreads();
+        if (threadIdx.x < 3) {
+            const int q = threadIdx.x;
+            double t = 0.0;
+            for (int r = 0; r < nwarps; ++r) t = __dadd_rn(t, warp_sums[3 * r + q]);
+            out[(static_cast<int64_t>(kk) * 3 + q) * B + win] =
+                flagged ? __longlong_as_double(0x7ff8000000000000LL) : t;
+        }
+        __syncthreads();   // the next task restages the window and the sums
     }
 }
 
@@ -283,27 +303,14 @@ FET_EXPORT int css_mc_power_window_block(const float* dist, const int64_t* wkeys
     }
     if (B == 0 || nk == 0) return 0;
     unsigned char* gs = static_cast<unsigned char*>(gscratch);
-    int warps;
-    int64_t blocks, bytes;
-    const int form = permb::table_form(m, false, &warps, &blocks, &bytes);
-    if (form < 0 || (form == 2 && gs == nullptr)) {
-        return static_cast<int>(cudaErrorInvalidValue);
-    }
-    int64_t grid;
-    size_t smem = 0;
-    if (gs) {
-        warps = permb::kMaxWarps;
-        grid = std::min((B * nk + warps - 1) / warps, blocks);
-    } else {
-        smem = static_cast<size_t>(warps) * permb::warp_bytes(m, false);
-        const cudaError_t e = cudaFuncSetAttribute(
-            power_window_block, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            static_cast<int>(smem));
-        if (e != cudaSuccess) return static_cast<int>(e);
-        grid = std::min<int64_t>((B * nk + warps - 1) / warps, 0x7fffffff);
-    }
-    power_window_block<<<static_cast<unsigned>(grid), warps * 32, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
+    decltype(&power_window_block<permb::kShared>) const kernels[3] = {
+        power_window_block<permb::kShared>, power_window_block<permb::kSplit>,
+        power_window_block<permb::kDevice>};
+    permb::Launch L;
+    const int rc = permb::plan_launch(kernels, m, false, gs != nullptr, (chunk + 31) / 32, &L);
+    if (rc != 0) return rc;
+    kernels[L.form - 1]<<<L.grid_for(B * nk), L.threads, L.smem,
+                          static_cast<cudaStream_t>(stream)>>>(
         dist, wkeys, B, m, asize, k0, nk, chunk, bitgen, permk::CoeffConst{between, ca, cb},
         gs, out);
     return static_cast<int>(cudaGetLastError());

@@ -39,14 +39,15 @@
 //   lane-interleaved shared memory ([k][32] bytes per warp), from where
 //   the score reads them by data.
 // css_mc_window_block (kernel window_hits_block) — the same words past
-// kMaxM, on the large-panel body of css_perm_block.cuh (draws and 16-bit
-// ranks in per-warp tables in shared memory or device scratch, the score
-// a walk over every column of D's rows in row-major order): a warp task
-// is a window's slice of kBlockSliceWords words; the float32 form adds
-// score_f32_nonzero's terms in its order and the float64 form runs
-// score_f64 on the 16-bit rank order, so the words equal the small
-// forms' and the plain versions' as theirs do.  css_mc_window_form says
-// which form and scratch a panel size takes on the device.
+// kMaxM, on the large-panel body of css_perm_block.cuh: a block takes an
+// active window's slice of words at a time (its D staged in the block's
+// shared memory in the shared and split forms), a warp ranks a word's 32
+// permutations by a bitonic sort of their (draw, index) keys and each
+// lane scores its own: the float32 form over its a*b + m - 2 nonzero
+// terms in score_f32_nonzero's order, the float64 form score_f64 over
+// the rank order, so the words equal the small forms' and the plain
+// versions' as theirs do.  css_mc_window_form says which form and scratch
+// a panel size takes on the device.
 // css_mc_scan (css_mc.cu, K7's) then applies the stop rule of
 // perm.py:362-380 word by word, and the host compacts the running
 // windows: (p, n, hits) equal the single-pass loop's.
@@ -83,8 +84,8 @@
 // by __ffs, or 0 where it never comes (the all-false argmax of
 // perm.py:420) or need <= 0 (the first index meets cum >= need).
 // css_perm_chunk_block (kernel perm_chunk_block) is K11 past kMaxM on
-// window_hits_block's body: a warp a window, its words in order, the
-// epilogue folded word by word as the words come.
+// window_hits_block's body: a block a window, its warps a word each a
+// round, the epilogue folded by one thread round by round in word order.
 #include <algorithm>
 #include <type_traits>
 
@@ -330,79 +331,71 @@ perm_chunk(const float* __restrict__ dist, const float* __restrict__ obs,
 
 // ------------------------------------------------- the large-panel form
 
-// Words a warp takes per task in window_hits_block (a window's slice).
-constexpr int kBlockSliceWords = 8;
-
-// K8 past kMaxM (css_perm_block.cuh): the same hit words, every warp on
-// its own tables over (active window, slice of kBlockSliceWords words)
-// tasks, grid-strided.  A task flags a non-finite D (float32 forms) or
-// sums its row totals (float64), then scores its words in order, the
-// chunk key folded once a chunk.
-template <bool kF64>
-__global__ void __launch_bounds__(permb::kMaxWarps * 32)
+// K8 past kMaxM (css_perm_block.cuh): the same hit words.  A block task is
+// an active window's slice of `slice` words (its warps' kWordsPerWarp
+// words each): the block stages the window (and flags a non-finite D in
+// the float32 forms), then each warp ranks a word's 32 permutations and
+// scores them, a lane each, the chunk key folded once a word.
+template <int kForm, bool kF64>
+__global__ void __launch_bounds__(permb::kMaxWarps * 32, 1)
 window_hits_block(const float* __restrict__ dist, const float* __restrict__ obs,
                   const int64_t* __restrict__ wkeys, const int64_t* __restrict__ active,
                   int64_t nact, int m, int asize, int k0, int nk, int chunk, int wpc,
-                  int runs, int bitgen, permk::CoeffConst cc, permk::NativeConst nc,
+                  int runs, int bitgen, int slice, permk::CoeffConst cc, permk::NativeConst nc,
                   unsigned char* gscratch, uint32_t* __restrict__ words) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
     const int lane = threadIdx.x & 31;
-    const permb::Tables t = permb::warp_tables(smem_raw, gscratch, m, kF64);
-    const int mm = m * m;
+    const int nwarps = blockDim.x >> 5;
+    const permb::Block blk = permb::carve_block<kForm>(smem_raw, gscratch, m, kF64);
+    const permb::Warp w = permb::carve_warp<kForm>(blk, m, kF64);
+    const permb::Rows rw = permb::rows_of<kForm>(m, asize);
     const int nwords = nk * wpc;
-    const int slices = (nwords + kBlockSliceWords - 1) / kBlockSliceWords;
+    const int slices = (nwords + slice - 1) / slice;
     const int64_t ntasks = nact * slices;
-    const int64_t wpb = blockDim.x >> 5;
-    for (int64_t task = blockIdx.x * wpb + (threadIdx.x >> 5); task < ntasks;
-         task += static_cast<int64_t>(gridDim.x) * wpb) {
+    for (int64_t task = blockIdx.x; task < ntasks; task += gridDim.x) {
         const int64_t a = task / slices;
-        const int slice = static_cast<int>(task - a * slices);
+        const int q0 = static_cast<int>(task - a * slices) * slice;
         const int64_t row = active[a];
-        const float* D = dist + row * mm;
-        bool flagged = false;
-        if (kF64) {
-            permb::warp_row_totals(t, D, m, lane);
-        } else {
-            flagged = permb::warp_nonfinite(D, mm, lane);
-        }
+        const float* D = dist + row * int64_t(m) * m;
+        const bool flagged = permb::stage_window<kForm, kF64>(blk, D, m);
+        const float* mat = permb::window_mat<kForm>(blk, D);
+        const int ld = permb::window_ld<kForm>(m);
         const uint2 wkey = make_uint2(static_cast<uint32_t>(wkeys[2 * row]),
                                       static_cast<uint32_t>(wkeys[2 * row + 1]));
         const float o32 = obs[row];
-        const int q1 = min((slice + 1) * kBlockSliceWords, nwords);
-        int kc = -1;
-        uint2 ckey = wkey;
-        for (int q = slice * kBlockSliceWords; q < q1; ++q) {
+        const int q1 = min(q0 + slice, nwords);
+        for (int q = q0 + (threadIdx.x >> 5); q < q1; q += nwarps) {
             const int kk = q / wpc;
             const int qq = q - kk * wpc;
-            if (kk != kc) {
-                ckey = tf::fold_in(wkey, static_cast<uint32_t>(k0 + kk));
-                kc = kk;
-            }
             const int K = qq * 32 + lane;
-            const int64_t g = static_cast<int64_t>(k0 + kk) * chunk + K;
-            const bool counts = K < chunk && g < runs;
+            const bool counts = K < chunk && static_cast<int64_t>(k0 + kk) * chunk + K < runs;
             bool hit = false;
             if (__any_sync(permb::kFull, counts) && (kF64 || !flagged)) {
-                permb::draw_rank(t, ckey, static_cast<uint32_t>(K), m, bitgen, kF64, lane);
-                if (kF64) {
-                    hit = counts && permk::score_f64(D, t.rowtot, t.ord + lane, 32, m, asize,
-                                                     nc) >= static_cast<double>(o32);
-                } else {
-                    hit = counts &&
-                          permb::score_scan<true>(D, t.rk, m, asize, cc, lane) >= o32;
+                const uint2 ck = tf::fold_in(wkey, static_cast<uint32_t>(k0 + kk));
+                permb::rank_word<kForm, kF64>(w, rw, ck, qq, m, asize, bitgen, lane);
+                if (counts) {
+                    if (kF64) {
+                        hit = permb::walk_f64<kForm>(w.cols, blk, mat, ld, m, asize, nc, lane) >=
+                              static_cast<double>(o32);
+                    } else {
+                        hit = permb::walk_f32<kForm>(w.cols, rw, mat, ld, m, asize, cc,
+                                                     lane) >= o32;
+                    }
                 }
             }
             const uint32_t b = __ballot_sync(permb::kFull, hit);
             if (lane == 0) words[(a * nk + kk) * wpc + qq] = b;
         }
-        __syncwarp();   // the next task rewrites rowtot
+        __syncthreads();   // the next task restages the block's window
     }
 }
 
-// K11 past kMaxM: a warp a window (grid-strided), its wpc words in order,
-// each word's hits folded into the stop epilogue as it comes (the small
-// form's fold over its words in shared memory, the same order).
-__global__ void __launch_bounds__(permb::kMaxWarps * 32)
+// K11 past kMaxM: a block task is a window; its warps take the chunk's
+// words a round at a time (word q0 + warp), and after each round thread 0
+// folds the round's words into the stop epilogue in permutation order
+// (the small form's fold over its words, the same order).
+template <int kForm>
+__global__ void __launch_bounds__(permb::kMaxWarps * 32, 1)
 perm_chunk_block(const float* __restrict__ dist, const float* __restrict__ obs,
                  const int* __restrict__ need, const int64_t* __restrict__ keys, int64_t B,
                  int m, int asize, int wpc, int limit, int bitgen, permk::CoeffConst cc,
@@ -410,72 +403,61 @@ perm_chunk_block(const float* __restrict__ dist, const float* __restrict__ obs,
                  uint8_t* __restrict__ reached_out, int* __restrict__ pos_out) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
     const int lane = threadIdx.x & 31;
-    const permb::Tables t = permb::warp_tables(smem_raw, gscratch, m, false);
-    const int mm = m * m;
-    const int64_t wpb = blockDim.x >> 5;
-    for (int64_t w = blockIdx.x * wpb + (threadIdx.x >> 5); w < B;
-         w += static_cast<int64_t>(gridDim.x) * wpb) {
-        const float* D = dist + w * mm;
-        const bool flagged = permb::warp_nonfinite(D, mm, lane);
-        const uint2 key = make_uint2(static_cast<uint32_t>(keys[2 * w]),
-                                     static_cast<uint32_t>(keys[2 * w + 1]));
-        const float o32 = obs[w];
-        const int nd = need[w];
+    const int warp = threadIdx.x >> 5;
+    const int nwarps = blockDim.x >> 5;
+    const permb::Block blk = permb::carve_block<kForm>(smem_raw, gscratch, m, false);
+    const permb::Warp w = permb::carve_warp<kForm>(blk, m, false);
+    const permb::Rows rw = permb::rows_of<kForm>(m, asize);
+    uint32_t* round_words = reinterpret_cast<uint32_t*>(blk.area);   // [nwarps]
+    for (int64_t win = blockIdx.x; win < B; win += gridDim.x) {
+        const float* D = dist + win * int64_t(m) * m;
+        const bool flagged = permb::stage_window<kForm, false>(blk, D, m);
+        const float* mat = permb::window_mat<kForm>(blk, D);
+        const int ld = permb::window_ld<kForm>(m);
+        const uint2 key = make_uint2(static_cast<uint32_t>(keys[2 * win]),
+                                     static_cast<uint32_t>(keys[2 * win + 1]));
+        const float o32 = obs[win];
+        const int nd = need[win];
         int hits = 0;
         int pos = 0;
         bool found = nd <= 0;
-        for (int qq = 0; qq < wpc; ++qq) {
-            const int K = qq * 32 + lane;
-            const bool counts = K < limit;
-            bool hit = false;
-            if (__any_sync(permb::kFull, counts) && !flagged) {
-                permb::draw_rank(t, key, static_cast<uint32_t>(K), m, bitgen, false, lane);
-                hit = counts && permb::score_scan<true>(D, t.rk, m, asize, cc, lane) >= o32;
+        for (int q0 = 0; q0 < wpc; q0 += nwarps) {
+            const int qq = q0 + warp;
+            if (qq < wpc) {
+                const int K = qq * 32 + lane;
+                const bool counts = K < limit;
+                bool hit = false;
+                if (__any_sync(permb::kFull, counts) && !flagged) {
+                    permb::rank_word<kForm, false>(w, rw, key, qq, m, asize, bitgen, lane);
+                    if (counts) {
+                        hit = permb::walk_f32<kForm>(w.cols, rw, mat, ld, m, asize, cc,
+                                                     lane) >= o32;
+                    }
+                }
+                const uint32_t b = __ballot_sync(permb::kFull, hit);
+                if (lane == 0) round_words[warp] = b;
             }
-            uint32_t b = __ballot_sync(permb::kFull, hit);
-            const int c = __popc(b);
-            if (!found && hits + c >= nd) {
-                for (int k = nd - hits; k > 1; --k) b &= b - 1;
-                pos = qq * 32 + __ffs(b) - 1;
-                found = true;
+            __syncthreads();
+            if (threadIdx.x == 0) {
+                for (int r = 0; r < nwarps && q0 + r < wpc; ++r) {
+                    uint32_t b = round_words[r];
+                    const int c = __popc(b);
+                    if (!found && hits + c >= nd) {
+                        for (int k = nd - hits; k > 1; --k) b &= b - 1;
+                        pos = (q0 + r) * 32 + __ffs(b) - 1;
+                        found = true;
+                    }
+                    hits += c;
+                }
             }
-            hits += c;
+            __syncthreads();
         }
-        if (lane == 0) {
-            hits_out[w] = hits;
-            reached_out[w] = hits >= nd;
-            pos_out[w] = pos;
+        if (threadIdx.x == 0) {
+            hits_out[win] = hits;
+            reached_out[win] = hits >= nd;
+            pos_out[win] = pos;
         }
     }
-}
-
-// The grid, block and shared memory of a large-panel launch over `tasks`
-// warp tasks (permb::table_form): its tables in device scratch where
-// gscratch is given (at any m), else in shared memory, which must hold
-// one warp's.
-template <typename Kernel>
-int block_config(Kernel kernel, int m, bool f64, const void* gscratch, int64_t tasks,
-                 unsigned* grid, int* threads, size_t* smem) {
-    int warps;
-    int64_t blocks, bytes;
-    const int form = permb::table_form(m, f64, &warps, &blocks, &bytes);
-    if (form < 0 || (form == 2 && gscratch == nullptr)) {
-        return static_cast<int>(cudaErrorInvalidValue);
-    }
-    if (gscratch) {
-        warps = permb::kMaxWarps;
-        *smem = 0;
-        *grid = static_cast<unsigned>(std::min((tasks + warps - 1) / warps, blocks));
-    } else {
-        *smem = static_cast<size_t>(warps) * permb::warp_bytes(m, f64);
-        const cudaError_t e = cudaFuncSetAttribute(
-            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(*smem));
-        if (e != cudaSuccess) return static_cast<int>(e);
-        *grid = static_cast<unsigned>(
-            std::min<int64_t>((tasks + warps - 1) / warps, 0x7fffffff));
-    }
-    *threads = warps * 32;
-    return 0;
 }
 
 template <int MB, bool kF64>
@@ -583,22 +565,22 @@ FET_EXPORT int css_perm_chunk(const float* dist, const float* obs, const int* ne
 
 // The form K8 (f64: its float64 form), K11 and K9's window stream take at
 // panel size m (their float32 tables are one layout): 0, the register
-// forms (m <= kMaxM); 1, the large-panel form with its tables in a
-// block's shared memory; 2, the same with them in device scratch.  For
-// forms 1 and 2, *scratch_bytes is the scratch that a launch with its
-// tables in device memory takes (form 2 must be given it; form 1 may
-// be).  Negative where the device cannot be asked.
+// forms (m <= kMaxM); else the large-panel body's (permb::form_of): 1,
+// shared (the window's D and the warps' 8-bit tables in a block's shared
+// memory); 2, split (D there, the tables in device scratch); 3, device (D
+// in place, 16-bit tables in device scratch).  Past kMaxM *scratch_bytes
+// is the scratch a launch in forms 2 and 3 must be given (form 1 must be
+// given none).  Negative where the device cannot be asked.
 FET_EXPORT int css_mc_window_form(int m, int f64, int64_t* scratch_bytes) {
     *scratch_bytes = 0;
     if (m <= kMaxM) return 0;
-    int warps;
     int64_t blocks;
-    return permb::table_form(m, f64 != 0, &warps, &blocks, scratch_bytes);
+    return permb::form_of(m, f64 != 0, &blocks, scratch_bytes);
 }
 
 // K8's large-panel form (any m >= 2): css_mc_window's arguments, then
-// gscratch (null: the tables in shared memory; else css_mc_window_form's
-// scratch bytes).
+// gscratch (null: the shared form, which must be the form of m; else
+// css_mc_window_form's scratch bytes).
 FET_EXPORT int css_mc_window_block(const float* dist, const float* obs, const int64_t* wkeys,
                                    const int64_t* active, int64_t nact, int m, int asize,
                                    int k0, int nk, int chunk, int cstride, int runs,
@@ -612,32 +594,30 @@ FET_EXPORT int css_mc_window_block(const float* dist, const float* obs, const in
     }
     if (nact == 0 || nk == 0) return 0;
     const int wpc = cstride / permk::kWordBits;
-    const int64_t slices = (static_cast<int64_t>(nk) * wpc + kBlockSliceWords - 1) /
-                           kBlockSliceWords;
     const permk::CoeffConst cc{between, ca, cb};
     const permk::NativeConst nc{wa, wb, inv_ab};
     unsigned char* gs = static_cast<unsigned char*>(gscratch);
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    unsigned grid;
-    int threads;
-    size_t smem;
-    int rc;
-    if (f64) {
-        rc = block_config(window_hits_block<true>, m, true, gs, nact * slices, &grid,
-                          &threads, &smem);
+    const auto run = [&](auto shared, auto split, auto device) {
+        const decltype(shared) kernels[3] = {shared, split, device};
+        permb::Launch L;
+        const int rc = permb::plan_launch(kernels, m, f64 != 0, gs != nullptr, permb::kMaxWarps,
+                                          &L);
         if (rc != 0) return rc;
-        window_hits_block<true><<<grid, threads, smem, s>>>(
-            dist, obs, wkeys, active, nact, m, asize, k0, nk, chunk, wpc, runs, bitgen, cc,
-            nc, gs, words);
-    } else {
-        rc = block_config(window_hits_block<false>, m, false, gs, nact * slices, &grid,
-                          &threads, &smem);
-        if (rc != 0) return rc;
-        window_hits_block<false><<<grid, threads, smem, s>>>(
-            dist, obs, wkeys, active, nact, m, asize, k0, nk, chunk, wpc, runs, bitgen, cc,
-            nc, gs, words);
-    }
-    return static_cast<int>(cudaGetLastError());
+        // a task: a window's slice of kWordsPerWarp words for each warp
+        const int slice = (L.threads / 32) * permb::kWordsPerWarp;
+        const int64_t tasks = nact * ((static_cast<int64_t>(nk) * wpc + slice - 1) / slice);
+        kernels[L.form - 1]<<<L.grid_for(tasks), L.threads, L.smem, s>>>(
+            dist, obs, wkeys, active, nact, m, asize, k0, nk, chunk, wpc, runs, bitgen, slice,
+            cc, nc, gs, words);
+        return static_cast<int>(cudaGetLastError());
+    };
+    return f64 ? run(window_hits_block<permb::kShared, true>,
+                     window_hits_block<permb::kSplit, true>,
+                     window_hits_block<permb::kDevice, true>)
+               : run(window_hits_block<permb::kShared, false>,
+                     window_hits_block<permb::kSplit, false>,
+                     window_hits_block<permb::kDevice, false>);
 }
 
 // K11's large-panel form (any m >= 2): css_perm_chunk's arguments to cb,
@@ -653,13 +633,14 @@ FET_EXPORT int css_perm_chunk_block(const float* dist, const float* obs, const i
     }
     if (B == 0) return 0;
     unsigned char* gs = static_cast<unsigned char*>(gscratch);
-    unsigned grid;
-    int threads;
-    size_t smem;
-    const int rc = block_config(perm_chunk_block, m, false, gs, B, &grid, &threads, &smem);
-    if (rc != 0) return rc;
     const int wpc = (chunk + permk::kWordBits - 1) / permk::kWordBits;
-    perm_chunk_block<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+    decltype(&perm_chunk_block<permb::kShared>) const kernels[3] = {
+        perm_chunk_block<permb::kShared>, perm_chunk_block<permb::kSplit>,
+        perm_chunk_block<permb::kDevice>};
+    permb::Launch L;
+    const int rc = permb::plan_launch(kernels, m, false, gs != nullptr, wpc, &L);
+    if (rc != 0) return rc;
+    kernels[L.form - 1]<<<L.grid_for(B), L.threads, L.smem, static_cast<cudaStream_t>(stream)>>>(
         dist, obs, need, keys, B, m, asize, wpc, std::min(limit, chunk), bitgen,
         permk::CoeffConst{between, ca, cb}, gs, hits, reached, pos);
     return static_cast<int>(cudaGetLastError());

@@ -275,40 +275,47 @@ __device__ __forceinline__ double row_total(const float* D, int m, int j) {
     return acc;
 }
 
-// ord[p * stride] = the individual at rank p (uint8 in the small forms,
-// uint16 in the large-panel form, css_perm_block.cuh).
-template <typename Ord>
-__device__ __forceinline__ double score_f64(const float* D, const double* rowtot,
-                                            const Ord* ord, int stride, int m,
-                                            int asize, NativeConst c) {
+// ord(p) = the individual at rank p (score_f64: a table of uint8 in the
+// small forms; the large-panel body's column of its tables,
+// css_perm_block.cuh); D's rows ld floats apart.
+template <typename OrdAt>
+__device__ __forceinline__ double score_f64_at(const float* D, int ld, const double* rowtot,
+                                               OrdAt ord, int m, int asize, NativeConst c) {
     const int bsize = m - asize;
     const bool use_b = bsize <= asize;
     const int g_lo = use_b ? asize : 0;
     const int g_hi = use_b ? m : asize;
     double rt = 0.0, within = 0.0;
     for (int p = g_lo; p < g_hi; ++p) {
-        const int j = ord[p * stride];
+        const int j = ord(p);
         rt = __dadd_rn(rt, rowtot[j]);
-        const float* row = D + j * m;
+        const float* row = D + j * ld;
         double acc = 0.0;
         for (int q = p + 1; q < g_hi; ++q) {
-            acc = __dadd_rn(acc, static_cast<double>(row[ord[q * stride]]));
+            acc = __dadd_rn(acc, static_cast<double>(row[ord(q)]));
         }
         within = __dadd_rn(within, acc);
     }
     const double between = __dsub_rn(rt, __dmul_rn(2.0, within));
     double chain_a = 0.0, chain_b = 0.0;
     for (int p = 0; p + 1 < asize; ++p) {
-        chain_a = __dadd_rn(chain_a, static_cast<double>(
-                                         D[ord[p * stride] * m + ord[(p + 1) * stride]]));
+        chain_a = __dadd_rn(chain_a, static_cast<double>(D[ord(p) * ld + ord(p + 1)]));
     }
     for (int p = asize; p + 1 < m; ++p) {
-        chain_b = __dadd_rn(chain_b, static_cast<double>(
-                                         D[ord[p * stride] * m + ord[(p + 1) * stride]]));
+        chain_b = __dadd_rn(chain_b, static_cast<double>(D[ord(p) * ld + ord(p + 1)]));
     }
     const double chains = __dadd_rn(__dmul_rn(c.wa, chain_a), __dmul_rn(c.wb, chain_b));
     return __dsub_rn(__dmul_rn(between, c.inv_ab),
                      __dmul_rn(static_cast<double>(m), chains));
+}
+
+// score_f64_at over ord[p * stride].
+template <typename Ord>
+__device__ __forceinline__ double score_f64(const float* D, const double* rowtot,
+                                            const Ord* ord, int stride, int m,
+                                            int asize, NativeConst c) {
+    return score_f64_at(D, m, rowtot, [ord, stride](int p) { return int(ord[p * stride]); }, m,
+                        asize, c);
 }
 
 // ---------------------------------------------------------------- tile_gemm

@@ -51,9 +51,11 @@ Kernels (``csrc/``) carry the work on a CUDA device:
   device code;
 * ``css_mc_window_block``, ``css_mc_power_window_block`` and
   ``css_perm_chunk_block`` — K8, K9's window stream and K11 past m = 64
-  (``csrc/css_perm_block.cuh``: draws and 16-bit ranks in per-warp tables,
-  the score a walk over every column of D), the same hits and sums, at
-  any m; :func:`window_form` says which form a panel size takes.
+  (``csrc/css_perm_block.cuh``: a warp ranks each permutation by a bitonic
+  sort of its (draw, index) keys, :func:`rank_network`, and each lane
+  walks its permutation's a*b + m - 2 nonzero terms in the twin's order,
+  :func:`nonzero_walk`), the same hits and sums, at any m;
+  :func:`window_form` says which form a panel size takes.
 
 :func:`significance`, :func:`null_power_sums`,
 :func:`approx_significance` and :func:`permutation_chunk` launch them on a
@@ -82,6 +84,7 @@ import torch
 
 from divergence_tpu_torch import rng
 from divergence_tpu_torch.kernels._cuda import is_cpu, launch, ptr, query_form
+from divergence_tpu_torch.kernels.fet import bitonic_network, bitonic_schedule
 
 BITGENS = ("mix", "threefry")   # kernel argument: the index in this tuple
 STREAMS = ("shared", "window")
@@ -225,6 +228,127 @@ def _perm_scores(distf: torch.Tensor, keys: torch.Tensor, asize: int,
             distf[sl], _ranks(keys[sl], chunk, m, bitgen), asize, bsize
         )
     return out
+
+
+# the large-panel body's rank network (csrc/css_perm_block.cuh): keys
+# (x << 16) | j padded to RANK_KEYS_MIN or the power of two >= m with a key
+# above every real one
+RANK_KEYS_MIN = 128
+RANK_PAD_KEY = (0xFFFFFFFF << 16) | 0xFFFF
+
+
+def rank_keys(m: int) -> int:
+    """Keys of the rank network at panel size m: the power of two >= m, at
+    least RANK_KEYS_MIN (``csrc/css_perm_block.cuh:sort_keys``)."""
+    p = RANK_KEYS_MIN
+    while p < m:
+        p *= 2
+    return p
+
+
+def _draw_words(keys: torch.Tensor, chunk: int, m: int, bitgen: str) -> torch.Tensor:
+    """[B, chunk, m] int64: the uint32 words the kernels rank, the mix32
+    words or threefry's 23 mantissa bits of each float32 uniform (equal
+    floats are equal words)."""
+    _check_bitgen(bitgen)
+    if bitgen == "mix":
+        x = rng.mix_bits(keys, chunk * m)
+    else:
+        x = rng.uniform_bits32(keys, chunk * m) >> 9
+    return x.reshape(keys.shape[0], chunk, m)
+
+
+def network_ranks(x: torch.Tensor) -> torch.Tensor:
+    """Ranks [..., m] of the words x [..., m] (uint32 in int64) by the
+    large-panel body's sort: the keys (x_j << 16) | j, padded with
+    RANK_PAD_KEY to p = max(128, 2^ceil(log2 m)), through the bitonic
+    network of ``kernels/fet.py:bitonic_schedule`` (stage (k, j): the
+    comparator (g, g ^ j) ascending iff (g & k) == 0); the slot a key lands
+    in is its individual's rank.  The keys are distinct, so the ranks are
+    the stable order's with ties broken by the index (:func:`_ranks`)."""
+    m = x.shape[-1]
+    p = rank_keys(m)
+    lead = x.shape[:-1]
+    k = torch.full((*lead, p), RANK_PAD_KEY, dtype=torch.int64, device=x.device)
+    k[..., :m] = (x.to(torch.int64) << 16) | torch.arange(m, device=x.device)
+    srt = bitonic_network(k.reshape(-1, p), bitonic_schedule(p, None))
+    idx = srt[:, :m] & 0xFFFF
+    r = torch.empty((idx.shape[0], m), dtype=torch.int64, device=x.device)
+    r.scatter_(1, idx, torch.arange(m, device=x.device).expand_as(idx))
+    return r.reshape(*lead, m)
+
+
+def rank_network(keys: torch.Tensor, chunk: int, m: int, bitgen: str = "mix") -> torch.Tensor:
+    """:func:`_ranks` [B, m, K] as the large-panel body computes them
+    (:func:`network_ranks` of each permutation's draws)."""
+    return network_ranks(_draw_words(keys, chunk, m, bitgen)).transpose(-1, -2)
+
+
+def nonzero_walk(distf: torch.Tensor, r: torch.Tensor, asize: int, bsize: int) -> torch.Tensor:
+    """CSS [B, K] float32 of the ranks r [B, m, K] against distf [B, m, m]
+    as the large-panel body's lanes add them (``csrc/css_perm_block.cuh``
+    walk_f32), each permutation a lane: the a-rows in index order, before
+    each the b-rows of smaller index (one chain term each, D * -(a+b) w_b,
+    where the rank successor is in the b-group), and in an a-row the
+    b-group columns by index (D * 1/(ab)) with the star term (D * -(a+b)
+    w_a, its rank successor in the a-group) at p = #{b-group index <
+    star}; every product rounded, then added in float32.  These are
+    :func:`_scores_from_ranks`' nonzero terms in its order, so the sums are
+    its sums.  A window with a non-finite entry scores NaN: the kernels
+    flag it while staging it (K8 and K11 give it no hits, K9 NaN sums, as
+    the twin's NaN sums do)."""
+    B, m, K = r.shape
+    dev = distf.device
+    between, ca, cb = (torch.tensor(v, dtype=torch.float32, device=dev)
+                       for v in _coeff_constants(asize, bsize))
+    lanes = r.permute(0, 2, 1).reshape(B * K, m)                    # [N, m]
+    D = distf.to(torch.float32).repeat_interleave(K, dim=0).reshape(B * K, m * m)
+    n = torch.arange(B * K, device=dev)
+    idx = torch.arange(m, device=dev)
+    isb = lanes >= asize
+    grp = torch.argsort(isb.to(torch.int64) * m + idx, dim=1)      # a-group, then b, by index
+    AL, BL = grp[:, :asize], grp[:, asize:]
+    order = torch.empty_like(lanes)
+    order.scatter_(1, lanes, idx.expand_as(lanes))
+    nxt = order.gather(1, (lanes + 1).clamp(max=m - 1))
+    succ = torch.where(lanes + 1 < torch.where(isb, m, asize), nxt, -1)
+    AS, BS = succ.gather(1, AL), succ.gather(1, BL)
+    bbefore = torch.cumsum(isb.to(torch.int64), dim=1) - isb.to(torch.int64)
+
+    def d(j, l):
+        return D[n, j * m + l]
+
+    acc = torch.zeros(B * K, dtype=torch.float32, device=dev)
+    sb = torch.zeros(B * K, dtype=torch.int64, device=dev)
+
+    def b_rows(upto):
+        nonlocal acc, sb
+        while True:
+            go = sb < upto
+            if not bool(go.any()):
+                return
+            s = sb.clamp(max=bsize - 1)
+            jb, nx = BL[n, s], BS[n, s]
+            has = go & (nx >= 0)
+            acc = torch.where(has, acc + d(jb, nx.clamp(min=0)) * -cb, acc)
+            sb = sb + go.to(torch.int64)
+
+    for i in range(asize):
+        j = AL[:, i]
+        b_rows(j - i)
+        star = AS[:, i]
+        has = star >= 0
+        sterm = d(j, star.clamp(min=0)) * -ca
+        p = torch.where(has, bbefore[n, star.clamp(min=0)], -1)
+        for s in range(bsize):
+            v = d(j, BL[:, s]) * between
+            acc = torch.where(p == s, acc + sterm, acc)
+            acc = acc + v
+        acc = torch.where(p == bsize, acc + sterm, acc)
+    b_rows(torch.full_like(sb, bsize))
+    finite = torch.isfinite(distf).reshape(B, -1).all(dim=1).repeat_interleave(K)
+    acc = torch.where(finite, acc, float("nan"))
+    return acc.reshape(B, K)
 
 
 def shared_coeff_plain(key, k0, nk, m, asize, bsize, chunk, device,
@@ -723,23 +847,25 @@ def window_form(m: int, native: bool = False,
     """The form K8 (``native``: its float64 form), K11 and K9's window
     stream take at panel size m on ``device``, by the kernel library's own
     reckoning (``csrc/css_mc_window.cu:css_mc_window_form``): ``"register"``
-    (the small forms, m <= 64), ``"shared"`` (the large-panel form with its
-    per-warp tables in a block's shared memory: m <= 1,210 float32 / 880
-    float64 on an H100) or ``"device"`` (those tables in device scratch)."""
+    (the small forms, m <= 64), or the large-panel body's: ``"shared"`` (the
+    window's D and sixteen warps' 8-bit tables in a block's shared
+    memory: m <= 128 float32 / 184 float64 on an H100), ``"split"`` (D
+    there, the tables in device scratch: to m = 232 / 239) or ``"device"``
+    (D read in place, 16-bit tables in device scratch)."""
     return _window_form(m, native, device)[0]
 
 
 def _window_form(m, native, device):
-    return query_form(("register", "shared", "device"), "css_mc_window_form", device, m,
-                      int(native))
+    return query_form(("register", "shared", "split", "device"), "css_mc_window_form", device,
+                      m, int(native))
 
 
 def _block_scratch(m: int, native: bool, dev: torch.device):
     """(form, device scratch or None) of a launch at panel size m, as the
     kernel library's :func:`window_form` says."""
     name, nbytes = _window_form(m, native, dev)
-    scratch = (torch.empty(nbytes, dtype=torch.uint8, device=dev) if name == "device"
-               else None)
+    scratch = (torch.empty(nbytes, dtype=torch.uint8, device=dev)
+               if name in ("split", "device") else None)
     return name, scratch
 
 
@@ -751,12 +877,21 @@ def _window_key_words(wkeys: torch.Tensor, dev: torch.device) -> torch.Tensor:
 
 
 def window_perm_cost(m: int, asize: int, bitgen: str = "mix") -> int:
-    """Operations of one window-stream permutation in K8, the unit of
-    :func:`range_chunks` (an FMA of the shared stream's product): m draws
-    (two mix32, ~12 integer operations each, or a threefry-2x32, ~70),
-    m(m-1) rank compares and adds, a*b + m - 2 float32 multiply-adds."""
+    """Operations of one window-stream permutation in the body K8 runs at
+    panel size m, the unit of :func:`range_chunks` (an FMA of the shared
+    stream's product): m draws (two mix32, ~12 integer operations each, or
+    a threefry-2x32, ~70), the ranks, and a*b + m - 2 float32
+    multiply-adds.  The small forms (m <= 64) rank by m(m-1) compares and
+    adds, the large-panel body by a bitonic sort of :func:`rank_keys` keys
+    (p/2 log2 p (log2 p + 1) / 2 compares)."""
     draws = (70 if bitgen == "threefry" else 12) * m
-    return draws + 2 * m * (m - 1) + 2 * (asize * (m - asize) + m - 2)
+    if m <= 64:
+        ranks = 2 * m * (m - 1)
+    else:
+        p = rank_keys(m)
+        lg = p.bit_length() - 1
+        ranks = p // 2 * lg * (lg + 1) // 2
+    return draws + ranks + 2 * (asize * (m - asize) + m - 2)
 
 
 def mc_window_hit_words_plain(distf, obs, keys, active, k0, nk, asize, bsize, chunk,

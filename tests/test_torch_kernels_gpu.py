@@ -51,8 +51,7 @@ mesh of one card.  Past m = 64 (the large-panel body of
 ``csrc/css_perm_block.cuh``): K8's (p, n, hits) as above at m = 65 to
 300, and its hit words, K11's outputs and K9's window-stream sums equal
 to their plain versions on both sides of each switch of their form
-(register | tables in shared memory | tables in device scratch:
-WINDOW_SWITCH); K11 equal to its plain
+(register | shared | split | device: WINDOW_SWITCH); K11 equal to its plain
 version on every window; K9's window stream within 1e-12 of its plain
 version (the same float32 scores, float64 sums in another order), the
 shared stream within m 2^-24 of each sum's magnitude (large_power_band:
@@ -505,8 +504,14 @@ GATHERED_SWITCH = [207, 208]                     # at a = (m + 1) // 2
 CMDS_SWITCH = {"exact": [75, 76, 222, 223], "fast": [111, 112, 321, 322]}
 SMACOF_SWITCH = {"exact": [68, 69, 168, 169], "fast": [97, 98, 239, 240]}
 COEFF_SWITCH = [64, 65, 908, 909]                # thread | shared | device
-# K8 / K11 / K9 window stream: register | shared | device (float32, float64)
-WINDOW_SWITCH = {"f32": [64, 65, 1210, 1211], "f64": [64, 65, 880, 881]}
+# K8 / K11 / K9 window stream: register | shared | split | device (float32,
+# float64): the window's D and 16 warps' 8-bit tables in a block's
+# shared memory, then D there and the tables in device scratch, then D in
+# place and 16-bit tables in device scratch
+WINDOW_SWITCH = {"f32": [64, 65, 128, 129, 232, 233], "f64": [64, 65, 184, 185, 239, 240]}
+# the MC's large-panel body: its register sort (p = 128, 256) and key slab
+# (p = 512), both forms
+MC_LARGE_M = [65, 128, 200, 256, 257, 300]
 # K2 / K2r / K10 by (key bytes, value bytes): warp | block | wide
 FET_SWITCH = {(8, 8): [128, 256, 4096, 8192], (4, 4): [128, 256, 8192, 16384],
               (4, 8): [128, 256, 8192, 16384]}
@@ -537,9 +542,9 @@ def test_kernel_forms_switch_where_the_slabs_stop_fitting(cuda):
     # K8 (its float64 form too), K11 and K9's window stream: their per-warp
     # tables; K2 / K2r / K10: a window's keys and replicates
     assert [kperm.window_form(m) for m in WINDOW_SWITCH["f32"]] == [
-        "register", "shared", "shared", "device"]
+        "register", "shared", "shared", "split", "split", "device"]
     assert [kperm.window_form(m, native=True) for m in WINDOW_SWITCH["f64"]] == [
-        "register", "shared", "shared", "device"]
+        "register", "shared", "shared", "split", "split", "device"]
     for (kb, vb), sizes in FET_SWITCH.items():
         assert [kfet.window_form(P, 100, kb, vb) for P in sizes] == [
             "warp", "block", "block", "wide"], (kb, vb)
@@ -1128,11 +1133,11 @@ def test_css_mc_coeff_threefry_kernel_bit_equal(cuda, asize, bsize):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("bitgen,backend", FORMS)
-@pytest.mark.parametrize("m", LARGE_M)
+@pytest.mark.parametrize("m", MC_LARGE_M)
 def test_css_mc_window_kernel_large_panels(cuda, m, bitgen, backend):
     """K8's large-panel form (css_mc_window_block) against the single-pass
-    plain loops at m = 65, 128, 200, 300: (p, n, hits) equal on every
-    window but counted float32 near ties (at most 0.1 %, + 1)."""
+    plain loops at m = 65 to 300: (p, n, hits) equal on every window but
+    counted float32 near ties (at most 0.1 %, + 1)."""
     runs, chunk = 1024, 256
     dist, scores, asize, bsize, chroms, slots = _mc_windows(cuda, m, 33)
     key = rng.fold_in(rng.prng_key(6), 2)
@@ -1151,14 +1156,17 @@ def test_css_mc_window_kernel_large_panels(cuda, m, bitgen, backend):
 def _switch_windows(cuda, m, nwin=3):
     """(dist [nwin, m, m] float32, float32 observed scores, asize, bsize,
     window keys) at panel size m: the distances of random points in the
-    plane, window 1 all NaN in individual 1's row and column, each
-    observed score that of the identity labelling (a draw from the
-    window's own null, so some permutations hit and some do not)."""
+    plane, window 1 all NaN in individual 1's row and column (window 3,
+    where nwin > 3, +Inf at (0, 2) and (2, 0)), each observed score that
+    of the identity labelling (a draw from the window's own null, so some
+    permutations hit and some do not)."""
     rs = np.random.default_rng(m)
     pts = rs.normal(size=(nwin, m, 2))
     d = np.sqrt(((pts[:, :, None] - pts[:, None]) ** 2).sum(-1))
     dist = torch.from_numpy(d).to(cuda, torch.float32).contiguous()
     dist[1, 1, :] = dist[1, :, 1] = float("nan")
+    if nwin > 3:
+        dist[3, 0, 2] = dist[3, 2, 0] = float("inf")
     asize, bsize = (m + 1) // 2, m // 2
     ident = torch.arange(m, device=cuda)[None, :, None]
     coeff = kperm._rank_coeff(ident, asize, bsize)[0, ..., 0].double()
@@ -1181,9 +1189,8 @@ def _window_kernel(stem, m, native=False):
                          + [("mix", True, m) for m in WINDOW_SWITCH["f64"]])
 def test_css_mc_window_kernel_at_its_switches(cuda, m, bitgen, native):
     """K8's hit words of one chunk on both sides of each switch of its
-    form (register | tables in shared memory | tables in device scratch:
-    WINDOW_SWITCH), a NaN window included: equal to the plain version bit
-    for bit."""
+    form (register | shared | split | device: WINDOW_SWITCH), a NaN window
+    included: equal to the plain version bit for bit."""
     dist, obs, asize, bsize, wkeys = _switch_windows(cuda, m)
     B = dist.shape[0]
     flat = dist.reshape(B, -1).contiguous()
@@ -1202,7 +1209,7 @@ def test_css_mc_window_kernel_at_its_switches(cuda, m, bitgen, native):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("bitgen", ["mix", "threefry"])
-@pytest.mark.parametrize("m", LARGE_M)
+@pytest.mark.parametrize("m", MC_LARGE_M)
 def test_perm_chunk_kernel_large_panels(cuda, m, bitgen):
     """K11's large-panel form against its plain version on every window:
     (hits, reached, pos) equal, a chunk padded to whole words with limit
@@ -1295,6 +1302,27 @@ def test_css_mc_power_window_kernel_at_its_switches(cuda, m):
     torch.cuda.synchronize()
     assert kperm.LAUNCHES[name] == before + 1
     assert torch.isnan(k[:, :, 1]).all() and torch.isnan(p[:, :, 1]).all()
+    fin = [0, 2]
+    rel = float(((k[..., fin] - p[..., fin]).abs()
+                 / p[..., fin].abs().clamp(min=1e-300)).max())
+    assert rel <= 1e-12, rel
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bitgen", ["mix", "threefry"])
+@pytest.mark.parametrize("m", MC_LARGE_M)
+def test_css_mc_power_window_kernel_large_panels(cuda, m, bitgen):
+    """K9's window stream on the large-panel body at m = 65 to 300 (both
+    forms, the register sort and the key slab): the float64 sums of the
+    plain version's float32 scores within 1e-12, the sums of a window with
+    a NaN or an Inf distance NaN, as the plain version's."""
+    dist, _, asize, bsize, wkeys = _switch_windows(cuda, m, nwin=4)
+    before = kperm.LAUNCHES["css_mc_power_window_block"]
+    k = kperm.null_power_sums(dist, wkeys, asize, bsize, 100, 2, 2, "window", bitgen)
+    p = kperm.null_power_sums_plain(dist, wkeys, asize, bsize, 100, 2, 2, "window", bitgen)
+    torch.cuda.synchronize()
+    assert kperm.LAUNCHES["css_mc_power_window_block"] == before + 1
+    assert torch.isnan(k[:, :, [1, 3]]).all() and torch.isnan(p[:, :, [1, 3]]).all()
     fin = [0, 2]
     rel = float(((k[..., fin] - p[..., fin]).abs()
                  / p[..., fin].abs().clamp(min=1e-300)).max())
