@@ -113,7 +113,10 @@ Phases (any failure exits non-zero and prints no result line):
    the first LARGE_PLAIN_WINDOWS (cuSOLVER's ``torch.linalg.eigh``, timed
    on the same centred matrices, is the plain version's solver), K6's
    block form (``css_smacof_block``, modes 1 and 2) on the 997 windows of
-   the 10 k workload; K3, K5 and K7 at 150 + 150 on 300 windows (the
+   the 10 k workload (its exact plain version on the first
+   LARGE_SMACOF_PLAIN), K5's and K6's times printed beside their times
+   before the Householder step's and the fused pass's redesign
+   (OLD_BLOCK_MS); K3, K5 and K7 at 150 + 150 on 300 windows (the
    device-memory slabs); every kernel on both sides of each
    shared-memory switch the main path crosses up to m = 300; (b) their main path: ``run_css`` at its
    defaults with 20,000 permutations in both precisions at both sizes
@@ -306,7 +309,24 @@ LARGE_KERNEL_WORKLOAD = (200_000, 10_000_000, 7)
 LARGE_CSS_WORKLOAD = (10_000, 500_000, 11)
 LARGE_SWITCH_WORKLOAD = (2_000, 100_000, 3)
 LARGE_MC_RUNS = 20_000
-LARGE_PLAIN_WINDOWS = 1_000
+# K5's plain version (cuSOLVER's eigh, ~1.7-4 ms a matrix) and its
+# torch.linalg.eigh yardstick on the first LARGE_PLAIN_WINDOWS of the 19,997
+# windows, K6's exact plain version on the first LARGE_SMACOF_PLAIN of the
+# 997 (~1.5-5 ms a window over its restarts; its checks are per window;
+# fast mode's band is a percentile over the cell, so it runs on all 997);
+# the kernels on all
+LARGE_PLAIN_WINDOWS, LARGE_SMACOF_PLAIN = 256, 128
+# K5 and K6 large before the redesign of K5's Householder step and K6's
+# fused pass (ms, PERF.md's kernel table: an H100 80GB HBM3 at 700 W,
+# phase 16a of that tree), printed beside this run's and kept out of the
+# kernels line: K5 on the 19,997 windows, K6 on the 997 of the envelope
+# cell
+OLD_BLOCK_MS = {("K5", "fast", 128): 67.6, ("K5", "exact", 128): 91.3,
+                ("K5", "fast", 200): 144.9, ("K5", "exact", 200): 337.9,
+                ("K6", 1, "fast", 128): 54.6, ("K6", 1, "exact", 128): 131.0,
+                ("K6", 1, "fast", 200): 204.1, ("K6", 1, "exact", 200): 542.1,
+                ("K6", 2, "fast", 128): 15.6, ("K6", 2, "exact", 128): 42.2,
+                ("K6", 2, "fast", 200): 55.4, ("K6", 2, "exact", 200): 153.3}
 LARGE_DEVICE_PANEL, LARGE_DEVICE_WINDOWS = (150, 150), 300
 LARGE_CPU_PANEL = (3_000, 150_000)
 LARGE_CLI = (20_000, 1_000_000, 9)
@@ -393,6 +413,11 @@ LIBRARY_17 = [("window", {"mc_stream": "window"}),
 WINDOW_CPU_PANEL = (60, 3_000)
 WIDE_FET = ((250_000, 50_000), (1_000_000, 200_000), (2_000_000, 400_000))
 WIDE_K10_WINDOWS, WIDE_STEP_WINDOWS = 1_000, 64
+# depth cuts of phase 17d's plain versions (the plain bootstrap's cost is
+# its Renyi steps times the windows it carries): K2 and K2r against their
+# plain versions on the first WIDE_PLAIN_WINDOWS windows of each width,
+# K10 on the first WIDE_K10_PLAIN of its windows (the kernels on all)
+WIDE_PLAIN_WINDOWS, WIDE_K10_PLAIN = 128, 16
 # the (precision, index into WIDE_FET) cases each plain version runs on
 WIDE_PLAIN = {"fet_aggregate": {("fast", 0), ("exact", 0), ("exact", 1), ("fast", 1),
                                 ("fast", 2)},
@@ -1313,10 +1338,12 @@ def bootstrap_ops(npos, perc: float, nsamples: int, fast: bool) -> dict:
 
 
 def smacof_check(torch, kcss, dis, npos, asize, bsize, mds, key, slots, prec, label,
-                 band=None):
+                 band=None, plain_windows=None, old_ms=None):
     """css_smacof against css_smacof_plain on the card at one precision
     (fast: within ``band``, (max, 90th percentile), by default
-    SMACOF_FAST_BAND).  Returns ((max_abs_err, max_rel_err, kernel ms,
+    SMACOF_FAST_BAND), the kernel on every window, the plain version on the
+    first ``plain_windows`` (all by default; a window's result does not
+    depend on the others).  Returns ((max_abs_err, max_rel_err, kernel ms,
     plain ms), windows whose chosen restart or transform count differ,
     Guttman transforms of every restart summed over the windows)."""
     dt = torch.float32 if prec == "fast" else torch.float64
@@ -1325,13 +1352,17 @@ def smacof_check(torch, kcss, dis, npos, asize, bsize, mds, key, slots, prec, la
     kern = lambda: kcss.css_smacof(d, npos, asize, bsize, mds, key, slots,  # noqa: E731
                                    transforms=total)
     ks, kd, kv, kr, kn = kern()
+    n = d.shape[0] if plain_windows is None else min(d.shape[0], plain_windows)
     (ps, pd, pv, pr, pn), pms = event_ms(
-        torch, lambda: kcss.css_smacof_plain(d, npos, asize, bsize, mds, key, slots)
+        torch, lambda: kcss.css_smacof_plain(d[:n], npos[:n], asize, bsize, mds, key,
+                                             slots[:n])
     )
     torch.cuda.synchronize()
+    all_n, all_v = kn, kv
+    ks, kd, kv, kr, kn = ks[:n], kd[:n], kv[:n], kr[:n], kn[:n]
     check(torch.equal(kv, pv), f"{label} {prec}: valid flags differ")
     check(torch.equal(ks.isnan(), ps.isnan()), f"{label} {prec}: NaN patterns differ")
-    B = d.shape[0]
+    B = n
     sel = pv & ~ps.isnan()
     agree = ((kr == pr) & (kn == pn))[sel]
     got, want = ks.double()[sel], ps.double()[sel]
@@ -1352,13 +1383,15 @@ def smacof_check(torch, kcss, dis, npos, asize, bsize, mds, key, slots, prec, la
                    f"(band {q90:g}); {differ} windows stop differently")
         check(err <= top and q <= q90, f"{label} {prec}: {err}, q90 {q} beyond the band")
     ms = cuda_ms(torch, kern, 2)
-    steps = kn[kv].double()
-    check(bool((total >= kn).all()), f"{label} {prec}: transforms below the chosen restart's")
-    say(f"[K6 {label} {prec}] B={B} windows, {int(kv.sum())} valid, "
-        f"{int(ks.isnan().sum())} NaN in both, mean {float(steps.mean()):.1f} / max "
-        f"{int(kn.max())} Guttman transforms on the chosen restart, "
-        f"{float(total.double().mean()):.1f} a window over every restart: {tol_txt}; "
-        f"kernel {ms:.3f} ms plain {pms:.3f} ms")
+    steps = all_n[all_v].double()
+    check(bool((total >= all_n).all()), f"{label} {prec}: transforms below the chosen restart's")
+    old_txt = "" if old_ms is None else f" (before the redesign: {old_ms} ms)"
+    subset = "" if n == d.shape[0] else f" on the first {n}"
+    say(f"[K6 {label} {prec}] B={d.shape[0]} windows, {int(all_v.sum())} valid, "
+        f"{int(ks.isnan().sum())} NaN in both{subset}, mean {float(steps.mean()):.1f} / max "
+        f"{int(all_n.max())} Guttman transforms on the chosen restart, "
+        f"{float(total.double().mean()):.1f} a window over every restart: {tol_txt}{subset}; "
+        f"kernel {ms:.3f} ms{old_txt}, plain {pms:.3f} ms ({n} windows)")
     return (abs_err(got, want), err, ms, pms), differ, int(total.sum())
 
 
@@ -2775,11 +2808,12 @@ def cmds_case(torch, kcss, dis, npos, a, b, prec, label) -> tuple:
     """K5 against css_cmds_plain on the windows ``dis`` at one precision
     (exact 1e-9 / fast rtol 2e-3 atol 1e-4 where the eigengap exceeds 1e-6;
     valid flags and NaN patterns equal).  Returns (max_abs_err,
-    max_rel_err, windows excluded by the eigengap)."""
+    max_rel_err, windows excluded by the eigengap, the plain version's ms
+    by CUDA events)."""
     dt = torch.float32 if prec == "fast" else torch.float64
     d = dis.to(dt).contiguous()
     ks, _, kv = kcss.css_cmds(d, npos, a, b)
-    ps, _, pv = kcss.css_cmds_plain(d, npos, a, b)
+    (ps, _, pv), pms = event_ms(torch, lambda: kcss.css_cmds_plain(d, npos, a, b))
     torch.cuda.synchronize()
     check(torch.equal(kv, pv), f"{label} {prec}: valid flags differ")
     check(torch.equal(ks.isnan(), ps.isnan()), f"{label} {prec}: NaN patterns differ")
@@ -2793,7 +2827,7 @@ def cmds_case(torch, kcss, dis, npos, a, b, prec, label) -> tuple:
     excluded = int((~ok).sum())
     check(bad == 0, f"{label} {prec}: {bad} windows beyond tolerance")
     check(excluded <= 0.01 * d.shape[0] + 1, f"{label}: {excluded} degenerate windows")
-    return abs_err(got, want), rel_err(got, want), excluded
+    return abs_err(got, want), rel_err(got, want), excluded, pms
 
 
 def phase_large_kernels(torch, dev, card, results) -> None:
@@ -2867,7 +2901,8 @@ def phase_large_kernels(torch, dev, card, results) -> None:
             kcss.css_cmds(dis, npos_d, a, b, steps=steps)
             ms_all = cuda_ms(torch, lambda: kcss.css_cmds(dis, npos_d, a, b), 2)
             ms = cuda_ms(torch, lambda: kcss.css_cmds(dis[:n], npos_d[:n], a, b), 2)
-            pms = cuda_ms(torch, lambda: kcss.css_cmds_plain(dis[:n], npos_d[:n], a, b), 1)
+            pms = err[3]
+            old = OLD_BLOCK_MS.get(("K5", prec, m))
             centred = kcss.double_centre(kcss.fill_averages(dis[:n])[0])
             lib = cuda_ms(torch, lambda: torch.linalg.eigh(centred), 1)
             del centred
@@ -2878,12 +2913,13 @@ def phase_large_kernels(torch, dev, card, results) -> None:
                 f"on the first {n} windows ({err[2]} excluded by the eigengap): "
                 f"max_rel_err={err[1]:.3e}; on those {n}: kernel {ms:.3f} ms, plain "
                 f"{pms:.1f} ms, torch.linalg.eigh of the centred matrices {lib:.1f} ms, bound "
-                f"{bnd[0]:.3f} ms ({bnd[1]}); on all {B}: kernel {ms_all:.3f} ms, bound "
-                f"{bnd_all[0]:.3f} ms; multisection steps mean "
+                f"{bnd[0]:.3f} ms ({bnd[1]}); on all {B}: kernel {ms_all:.3f} ms (before the "
+                f"redesign: {old} ms), bound {bnd_all[0]:.3f} ms; multisection steps mean "
                 f"{float(steps.float().mean()):.2f} max {int(steps.max())} on {card}")
             r[f"{prec}_{m}"] = (err[0], err[1], ms, pms)
             r[f"bound_{prec}_{m}"] = bnd
-            r[f"subset_{prec}_{m}"] = {"windows": n, "eigh_ms": lib, "excluded": err[2],
+            r[f"windows_{prec}_{m}"] = (n, n)
+            r[f"subset_{prec}_{m}"] = {"eigh_ms": lib, "excluded": err[2],
                                        "all_windows": B, "ms_all_windows": ms_all,
                                        "bound_ms_all_windows": bnd_all[0]}
             del dis, steps
@@ -2921,8 +2957,13 @@ def phase_large_kernels(torch, dev, card, results) -> None:
                 out, differ, transforms = smacof_check(
                     torch, kcss, dis, npos_d, a, b, mds, key, slot_d, prec,
                     f"css_smacof_block mds={mds} {tag} ({kcss.smacof_form(m, mds, dt)})",
-                    band=large_smacof_band(mds, m))
+                    band=large_smacof_band(mds, m),
+                    plain_windows=LARGE_SMACOF_PLAIN if prec == "exact" else None,
+                    old_ms=OLD_BLOCK_MS.get(("K6", mds, prec, m)))
                 r[f"mds{mds}_{prec}_{m}"] = out
+                r[f"windows_mds{mds}_{prec}_{m}"] = (
+                    dis.shape[0], min(dis.shape[0], LARGE_SMACOF_PLAIN) if prec == "exact"
+                    else dis.shape[0])
                 r.setdefault("differ", {})[f"mds{mds}_{prec}_{m}"] = differ
                 r.setdefault("transforms", {})[f"mds{mds}_{prec}_{m}"] = transforms
                 size = 4 if prec == "fast" else 8
@@ -3533,19 +3574,23 @@ def phase_wide_fet_kernels(torch, kfet, pair, positions, dev, card, results) -> 
                 check(torch.equal(got, k), f"K2r {wsize}: not equal to K1 -> K2")
                 if (prec, wi) in WIDE_PLAIN["fet_aggregate_ranks"]:
                     rms = cuda_ms(torch, kr, 3)
+                    n = min(B, WIDE_PLAIN_WINDOWS)
                     rp, rpms = event_ms(torch, lambda: kfet.fet_aggregate_ranks_plain(
-                        ls, ranks, lo, npos, slot, key, 0.95, 100))
-                    rerr = rel_err(got[0], rp[0])
+                        ls, ranks, lo[:n], npos[:n], slot[:n], key, 0.95, 100))
+                    rerr = rel_err(got[0][:n], rp[0])
                     rform = kfet.window_form(P, 100, 4, 8)
                     rbnd = bound(int(npos.sum()) * 4 + B * 40 + ls.numel() * 8,
                                  bootstrap_ops(npos.numpy(), 0.95, 100, False))
                     say(f"[K2r fet_aggregate_ranks exact, {wsize} / {wstep}] the {rform} "
                         f"body: equal to K1 -> K2 on every window, score max_rel_err "
-                        f"{rerr:.3e} against its plain version; kernel {rms:.3f} ms plain "
-                        f"{rpms:.1f} ms, bound {rbnd[0]:.3f} ms on {card}")
+                        f"{rerr:.3e} against its plain version on the first {n}; kernel "
+                        f"{rms:.3f} ms ({B} windows) plain {rpms:.1f} ms ({n}), bound "
+                        f"{rbnd[0]:.3f} ms on {card}")
                     check(rerr <= TOL["exact"], f"K2r {wsize}: scores {rerr}")
-                    rr[f"exact_{wsize}"] = (abs_err(got, rp), rel_err(got, rp), rms, rpms)
+                    rr[f"exact_{wsize}"] = (abs_err(got[:, :n], rp), rel_err(got[:, :n], rp),
+                                            rms, rpms)
                     rr[f"bound_exact_{wsize}"] = rbnd
+                    rr[f"windows_exact_{wsize}"] = (B, n)
                     rr[f"form_exact_{wsize}"] = rform
                     del rp
                 del got
@@ -3553,26 +3598,30 @@ def phase_wide_fet_kernels(torch, kfet, pair, positions, dev, card, results) -> 
                 say(f"[K2 fet_aggregate {prec}, {wsize} / {wstep}] {B} windows (P = {P}): "
                     f"kernel {ms:.3f} ms on {card}")
                 continue
+            n = min(B, WIDE_PLAIN_WINDOWS)
             p, pms = event_ms(torch, lambda: kfet.fet_aggregate_plain(
-                logs, lo, npos, slot, key, 0.95, 100))
-            sc_err, sd_rel = rel_err(k[0], p[0]), (k[1].double() - p[1].double()).abs() / \
+                logs, lo[:n], npos[:n], slot[:n], key, 0.95, 100))
+            kn = k[:, :n]
+            sc_err, sd_rel = rel_err(kn[0], p[0]), (kn[1].double() - p[1].double()).abs() / \
                 p[1].double().abs().clamp(min=1.0)
             beyond = int((sd_rel > TOL[prec]).sum())
-            bits = int((float_bits(torch, k) != float_bits(torch, p)).sum())
+            bits = int((float_bits(torch, kn) != float_bits(torch, p)).sum())
             size = 4 if fast else 8
             form = kfet.window_form(P, 100, size, size)
             bnd = bound(int(npos.sum()) * size + B * (24 + 2 * size),
                         bootstrap_ops(npos.numpy(), 0.95, 100, fast))
             say(f"[K2 fet_aggregate {prec}, {wsize} / {wstep}] {B} windows, max "
                 f"{int(npos.max())} SNPs (P = {P}, the {form} body): score max_rel_err="
-                f"{sc_err:.3e}, stddev beyond {TOL[prec]:g} on {beyond}, {bits} of {2 * B} "
-                f"values not bit-equal to the plain version; kernel {ms:.3f} ms plain "
-                f"{pms:.1f} ms, bound {bnd[0]:.3f} ms ({bnd[1]}) on {card}")
+                f"{sc_err:.3e}, stddev beyond {TOL[prec]:g} on {beyond}, {bits} of {2 * n} "
+                f"values of the first {n} windows not bit-equal to the plain version; kernel "
+                f"{ms:.3f} ms ({B} windows) plain {pms:.1f} ms ({n}), bound {bnd[0]:.3f} ms "
+                f"({bnd[1]}) on {card}")
             check(sc_err <= TOL[prec], f"K2 {prec} {wsize}: scores {sc_err}")
-            check(beyond <= STDDEV_BEYOND_SHARE * B + 1, f"K2 {prec} {wsize}: stddev {beyond}")
+            check(beyond <= STDDEV_BEYOND_SHARE * n + 1, f"K2 {prec} {wsize}: stddev {beyond}")
             tag = f"{prec}_{wsize}"
-            ragg[tag] = (abs_err(k, p), max(sc_err, float(sd_rel.max())), ms, pms)
+            ragg[tag] = (abs_err(kn, p), max(sc_err, float(sd_rel.max())), ms, pms)
             ragg[f"bound_{tag}"] = bnd
+            ragg[f"windows_{tag}"] = (B, n)
             ragg[f"form_{tag}"] = form
             del logs, k, p
         del ls, ranks
@@ -3597,8 +3646,10 @@ def phase_wide_fet_kernels(torch, kfet, pair, positions, dev, card, results) -> 
                 check(torch.equal(s10, want[0]) and torch.equal(d10, want[1]),
                       f"K10 {prec} at P = {P}: not K1 -> K2 bit for bit")
                 ms10 = cuda_ms(torch, k10, 3)
+                n = min(c, WIDE_K10_PLAIN)
                 (ps, pd), pms10 = event_ms(torch, lambda: kfet.fet_window_batch_plain(
-                    av, bv, npos[:c], 0.95, key, 100, maxs, nmax, fast, slot[:c]))
+                    av[:n], bv[:n], npos[:n], 0.95, key, 100, maxs, nmax, fast, slot[:n]))
+                s10, d10 = s10[:n], d10[:n]
                 err = max(rel_err(s10, ps), rel_err(d10, pd))
                 b10 = k10_bound(kfet, npos[:c], fast)
                 size = 4 if fast else 8
@@ -3606,21 +3657,25 @@ def phase_wide_fet_kernels(torch, kfet, pair, positions, dev, card, results) -> 
                 say(f"[K10 fet_window {prec}, {wsize} / {wstep}] the first {c} windows "
                     f"gathered at P = {P} ({(av.numel() + bv.numel()) * 2 / 1e9:.2f} GB of "
                     f"codes), the {form} body: K1 -> K2 bit for bit, max_rel_err {err:.3e} "
-                    f"against the plain version; kernel {ms10:.3f} ms plain {pms10:.1f} ms, "
-                    f"bound {b10[0]:.3f} ms on {card}")
+                    f"against the plain version on the first {n}; kernel {ms10:.3f} ms plain "
+                    f"{pms10:.1f} ms ({n} windows), bound {b10[0]:.3f} ms on {card}")
                 check(rel_err(s10, ps) <= TOL[prec], f"K10 {prec} at P = {P}: {err}")
                 target = results["fet_window"] if narrow else rw
                 target[f"{prec}_{wsize}"] = (abs_err(s10, ps), err, ms10, pms10)
                 target[f"bound_{prec}_{wsize}"] = b10
+                target[f"windows_{prec}_{wsize}"] = (c, n)
             del av, bv
         torch.cuda.empty_cache()
     # the kernels line: the wide bodies' cases (K2 fast at 2 Mb, exact at
-    # 1 Mb; K2r and K10 exact at 2 Mb, under fast as the entry's first)
+    # 1 Mb; K2r and K10 exact at 2 Mb, under fast as the entry's first),
+    # with the windows the kernel's and the plain version's times cover
     w1, w2 = WIDE_FET[1][0], WIDE_FET[-1][0]
     ragg["fast"], ragg["bound"] = ragg[f"fast_{w2}"], ragg[f"bound_fast_{w2}"]
     ragg["exact"], ragg["bound_exact"] = ragg[f"exact_{w1}"], ragg[f"bound_exact_{w1}"]
+    ragg["windows"], ragg["windows_exact"] = ragg[f"windows_fast_{w2}"], ragg[f"windows_exact_{w1}"]
     for r in (rr, rw):
         r["fast"], r["bound"] = r[f"exact_{w2}"], r[f"bound_exact_{w2}"]
+        r["windows"] = r[f"windows_exact_{w2}"]
     del vals
     torch.cuda.empty_cache()
 
@@ -3683,8 +3738,9 @@ def phase_wide_fet_library(torch, pair, positions, dev, card, results) -> None:
 
 def large_entries(results) -> None:
     """The kernels line's fast / exact / bound fields of the large-panel
-    kernels at 110 + 90 (K6: mode 1), and each one's every case under
-    ``large``."""
+    kernels at 110 + 90 (K6: mode 1), with the windows each time covers
+    where the kernel and its plain version ran on different counts, and
+    each one's every case under ``large``."""
     m = sum(LARGE_PANELS[1])
     for name, fast, exact in (
             ("css_dissim_tiles", f"fast_{m}", f"exact_{m}"),
@@ -3694,8 +3750,12 @@ def large_entries(results) -> None:
         r = results[name]
         r["large"] = dict(r)
         r["fast"], r["bound"] = r[fast], r["bound_" + fast]
+        if "windows_" + fast in r:
+            r["windows"] = r["windows_" + fast]
         if exact:
             r["exact"], r["bound_exact"] = r[exact], r["bound_" + exact]
+            if "windows_" + exact in r:
+                r["windows_exact"] = r["windows_" + exact]
 
 
 def smoke(torch, dev) -> tuple[str, list[dict]]:
@@ -3888,6 +3948,11 @@ def smoke(torch, dev) -> tuple[str, list[dict]]:
             })
         if "bound_exact" in r:
             entry["bound_ms_exact"], entry["bound_by_exact"] = r["bound_exact"]
+        for sfx in ("", "_exact"):
+            # the windows that ms (and bound_ms) and plain_ms cover, where
+            # the plain version ran on a depth cut
+            if "windows" + sfx in r:
+                entry["windows" + sfx], entry["plain_windows" + sfx] = r["windows" + sfx]
         if name == "fet_aggregate":
             entry["stddev_windows_beyond_tol"] = {
                 "fast": r["fast_beyond"], "exact": r["exact_beyond"]
@@ -3998,7 +4063,6 @@ def smoke(torch, dev) -> tuple[str, list[dict]]:
             # ms / plain_ms / library_ms / bound_ms: the first
             # LARGE_PLAIN_WINDOWS windows; then every window of the workload
             m = sum(LARGE_PANELS[1])
-            entry["windows"] = r["large"][f"subset_fast_{m}"]["windows"]
             for prec, sfx in (("fast", ""), ("exact", "_exact")):
                 sub = r["large"][f"subset_{prec}_{m}"]
                 entry[f"ms{sfx}_{sub['all_windows']}"] = sub["ms_all_windows"]

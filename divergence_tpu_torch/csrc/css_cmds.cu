@@ -30,18 +30,25 @@
 //
 // Large panels (css_cmds_block): where kWarps warps' slabs do not fit a
 // block's shared memory (float64 from m = 76, float32 from m = 112), one
-// block of kBlockThreads threads per window runs css_block.cuh's
-// cmds_embed_block: the same steps, the matrix as its packed lower
-// triangle (m(m+1)/2 + 19m elements a window: float64 in shared memory up
-// to m = 222, float32 up to m = 321), rows over the block's threads.
-// Above that the slab lives in device memory, one per resident block (a
-// grid of one block per SM walks the windows, so the slabs stay in L2);
-// only device memory limits m.  Its least work is the same (4/3) m^3
-// flops a window: 10.7 M at m = 200, which is 6.3 ms for 19,997 windows
-// at the float64 peak; each Householder step is a matrix-vector product
-// (one row a thread, m - k dependent multiply-adds) and a rank-2 update
-// over the trailing triangle, with three block reductions (each two
-// __syncthreads) a step.
+// block per window runs css_block.cuh's cmds_embed_block: the same steps,
+// the matrix as its packed lower triangle (m(m+1)/2 + 19m elements a
+// window: float64 in shared memory up to m = 221, float32 up to m = 321),
+// the Householder step as two passes by the block's warps (css_block.cuh);
+// 512 threads where one block fits an SM, 256 where two do.  Above that
+// the slab lives in device memory, one per resident block (a grid of one
+// block per SM walks the windows, so the slabs stay in L2); only device
+// memory limits m.  Its least work is the same (4/3) m^3 flops a window:
+// 10.7 M at m = 200, which is 6.3 ms for 19,997 windows at the float64
+// peak.  Each Householder step moves the trailing matrix through shared
+// memory about twice (the product reads it, the rank-2 update reads and
+// writes its triangle); the product runs rows on groups of threads, the
+// update is dealt evenly over all the block's threads, and a step takes
+// two barriers.  What bounds this unblocked form is the step's
+// instructions and their latency, ~2.2-2.5 k cycles a pass even on a
+// short trailing matrix (tests/measure_cmds_block.py): a blocked
+// reduction (dsytrd / dlatrd: nb columns at a time, the trailing update a
+// rank-2nb product on the tensor cores) would cut that nb-fold; it is not
+// this kernel.
 //
 // What bounds it on H100: operations and their latency inside one warp.
 // The least work is the tridiagonal reduction, ~(4/3) m^3 flops a window
@@ -67,6 +74,15 @@ using namespace cssk;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
+// The block form's threads: 512 where one block an SM fits, 256 where
+// two do (the second block's parallel steps then fill the first's serial
+// ones: the multisection's Sturm counts, inverse iteration; 256 x 2 took
+// 0.56-0.70 of 512 x 1's time on an H100 where two fit, 512 x 1 0.97 of
+// 256's where one does: tests/measure_cmds_threads.py).  Both keep the
+// larger form's reduction bytes ahead of the slab.
+constexpr int kCmdsThreads = 512;
+constexpr int kCmdsPairThreads = 256;
+constexpr int kCmdsRed = red_bytes<kCmdsThreads>();
 
 // Elements of T of one warp's shared memory: scratch, then X [m][2],
 // rounded up to keep every warp's slab 16-byte aligned.
@@ -102,8 +118,12 @@ __host__ __device__ constexpr int block_elems(int m) {
     return ((cmds_block_scratch(m) + 2 * m + 1) / 2) * 2;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kBlockThreads)
+// kDevSlab: the slab lives in device memory (gslab), else in shared
+// memory, where the compiler then addresses it as shared (one kernel for
+// both, its slab pointer generic, took 1.08-1.26x the time on an H100:
+// tests/measure_cmds_threads.py).
+template <int NT, bool kDevSlab, typename T>
+__global__ void __launch_bounds__(NT, NT == kCmdsPairThreads ? 2 : 1)
 css_cmds_block(const T* __restrict__ dis, const int64_t* __restrict__ npos_arr,
                int64_t nwin, int asize, int bsize, T wa, T wb, T* __restrict__ scores,
                T* __restrict__ dist_out, uint8_t* __restrict__ valid_out,
@@ -111,15 +131,15 @@ css_cmds_block(const T* __restrict__ dis, const int64_t* __restrict__ npos_arr,
     extern __shared__ __align__(16) unsigned char smem_raw[];
     const int m = asize + bsize;
     void* red = smem_raw;
-    T* S = gslab ? gslab + static_cast<int64_t>(blockIdx.x) * block_elems(m)
-                 : reinterpret_cast<T*>(smem_raw + kRedBytes);
+    T* S = kDevSlab ? gslab + static_cast<int64_t>(blockIdx.x) * block_elems(m)
+                    : reinterpret_cast<T*>(smem_raw + kCmdsRed);
     T* X = S + cmds_block_scratch(m);                               // [m][2]
     for (int64_t w = blockIdx.x; w < nwin; w += gridDim.x) {
         const T* D = dis + w * m * m;
-        const Fill<T> fs = fill_stats_block(D, m, red);              // 1
-        const int steps = cmds_embed_block(D, m, fs.avg, S, X, red);  // 2-4
-        score_window_block(X, asize, bsize, wa, wb, fs.keep && npos_arr[w] > 0,  // 5-7
-                           dist_out + w * m * m, scores + w, valid_out + w, red);
+        const Fill<T> fs = fill_stats_block<NT>(D, m, red);              // 1
+        const int steps = cmds_embed_block<NT>(D, m, fs.avg, S, X, red);  // 2-4
+        score_window_block<NT>(X, asize, bsize, wa, wb, fs.keep && npos_arr[w] > 0,  // 5-7
+                               dist_out + w * m * m, scores + w, valid_out + w, red);
         if (steps_out && threadIdx.x == 0) steps_out[w] = steps;
         __syncthreads();   // the slab is the next window's
     }
@@ -129,7 +149,7 @@ css_cmds_block(const T* __restrict__ dis, const int64_t* __restrict__ npos_arr,
 // unless it lives in device memory.
 template <typename T>
 size_t block_smem(int m, bool in_device) {
-    return kRedBytes + (in_device ? 0 : static_cast<size_t>(block_elems(m)) * sizeof(T));
+    return kCmdsRed + (in_device ? 0 : static_cast<size_t>(block_elems(m)) * sizeof(T));
 }
 
 // Shared memory of the warp form's kWarps slabs.
@@ -141,7 +161,7 @@ size_t warps_smem(int m) {
 // The form css_cmds takes at panel size m: 0, css_cmds (a warp per
 // window), where kWarps warps' slabs fit a block (to m = 75 in float64,
 // 111 in float32 on Hopper); 1, css_cmds_block with its slab in shared
-// memory (to 222 / 321); 2, css_cmds_block with slabs of *slab_elems
+// memory (to 221 / 321); 2, css_cmds_block with slabs of *slab_elems
 // elements in device memory.  -1 where the device cannot be asked.
 template <typename T>
 int cmds_form(int m, int64_t* slab_elems) {
@@ -152,8 +172,23 @@ int cmds_form(int m, int64_t* slab_elems) {
     return block_smem<T>(m, false) <= limit ? 1 : 2;
 }
 
+template <int NT, bool kDevSlab, typename T>
+int launch_block_nt(size_t smem, const T* dis, const int64_t* npos, int64_t nwin, int asize,
+                    int bsize, double wa, double wb, T* scores, T* dist, uint8_t* valid,
+                    int* steps, T* gslab, int64_t grid, cudaStream_t stream) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        css_cmds_block<NT, kDevSlab, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    css_cmds_block<NT, kDevSlab, T><<<static_cast<unsigned>(grid), NT, smem, stream>>>(
+        dis, npos, nwin, asize, bsize, static_cast<T>(wa), static_cast<T>(wb), scores, dist,
+        valid, steps, gslab);
+    return static_cast<int>(cudaGetLastError());
+}
+
 // gslab: nslab slabs of block_elems(m) in device memory, or null for the
-// slab in shared memory (one block per window).
+// slab in shared memory (one block per window; 256 threads where the
+// device holds two such blocks an SM, else 512).
 template <typename T>
 int launch_cmds_block(const T* dis, const int64_t* npos, int64_t nwin, int asize,
                       int bsize, double wa, double wb, T* scores, T* dist, uint8_t* valid,
@@ -165,15 +200,30 @@ int launch_cmds_block(const T* dis, const int64_t* npos, int64_t nwin, int asize
     if (nwin == 0) return 0;
     const size_t smem = block_smem<T>(m, gslab != nullptr);
     if (smem > fetk::smem_optin()) return static_cast<int>(cudaErrorInvalidValue);
-    const cudaError_t e = cudaFuncSetAttribute(
-        css_cmds_block<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    const int64_t grid = gslab && nslab < nwin ? nslab : nwin;
-    css_cmds_block<T><<<static_cast<unsigned>(grid), kBlockThreads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-        dis, npos, nwin, asize, bsize, static_cast<T>(wa), static_cast<T>(wb), scores, dist,
-        valid, steps, gslab);
-    return static_cast<int>(cudaGetLastError());
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (gslab) {
+        return launch_block_nt<kCmdsThreads, true, T>(smem, dis, npos, nwin, asize, bsize, wa,
+                                                      wb, scores, dist, valid, steps, gslab,
+                                                      nslab < nwin ? nslab : nwin, st);
+    }
+    cudaError_t e = cudaFuncSetAttribute(css_cmds_block<kCmdsPairThreads, false, T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+    int per_sm = 0;
+    if (e != cudaSuccess ||
+        (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, css_cmds_block<kCmdsPairThreads, false, T>, kCmdsPairThreads, smem)) !=
+            cudaSuccess) {
+        return static_cast<int>(e);
+    }
+    if (per_sm >= 2) {
+        return launch_block_nt<kCmdsPairThreads, false, T>(smem, dis, npos, nwin, asize, bsize,
+                                                           wa, wb, scores, dist, valid, steps,
+                                                           nullptr, nwin, st);
+    }
+    return launch_block_nt<kCmdsThreads, false, T>(smem, dis, npos, nwin, asize, bsize, wa, wb,
+                                                   scores, dist, valid, steps, nullptr, nwin,
+                                                   st);
 }
 
 template <typename T>

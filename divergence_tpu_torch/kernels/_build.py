@@ -95,10 +95,10 @@ _SIGNATURES = {
     # (nullable), counters, sig / x / n scratch, stream
     "css_smacof_{t}": (_P, _P, _P, _I64, _U32, _U32, _I, _I, _I, _I, _I, _D,
                        _D, _D, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
-    # ... css_smacof's arguments, then gslab (nullable), nslab, stream
+    # ... css_smacof's arguments to total, then the task counter, gslab
+    # (nullable), nslab, stream
     "css_smacof_block_{t}": (_P, _P, _P, _I64, _U32, _U32, _I, _I, _I, _I, _I, _D,
-                             _D, _D, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64,
-                             _P),
+                             _D, _D, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _P),
     # key0, key1, k0, nk, chunk, cstride, m, asize, bitgen, between, ca, cb,
     # out, stream
     "css_mc_coeff": (_U32, _U32, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P, _P),

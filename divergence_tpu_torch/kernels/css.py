@@ -44,10 +44,11 @@ the kernel library's own form queries reckon it from the kernels' slab
 layouts and the device's shared memory (:func:`dissim_form`,
 :func:`gathered_form`, :func:`cmds_form`, :func:`smacof_form`):
 ``css_dissim_tiles`` counts a window by 32 x 32
-tiles of its pair matrix, ``css_cmds_block`` and ``css_smacof_block``
-run a window (a restart) on a block of 256 threads (``css_block.cuh``),
-with their slabs in device memory where even one block's shared memory
-is too small.  So every panel size runs on the card.
+tiles of its pair matrix, ``css_cmds_block`` runs a window on a block of
+256 or 512 threads and ``css_smacof_block`` a window's restarts on a
+block of 256 (``css_block.cuh``), with their slabs in device memory
+where even one block's shared memory is too small.  So every panel size
+runs on the card.
 
 There is no fallback: on a CUDA tensor the kernel runs or the call
 raises.  Each launch adds one to :data:`LAUNCHES`.  The drosophila metric
@@ -59,6 +60,7 @@ runs :func:`css_phase1` and needs no kernel of its own.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -601,7 +603,7 @@ def smacof_runs(
 
 
 WARP_LANES = 32        # threads of K6's warp form (css_smacof)
-BLOCK_LANES = 256      # threads of K6's block form (css_smacof_block, kBlockThreads)
+BLOCK_LANES = 256      # threads of K6's block form (css_smacof_block, kSmacofThreads)
 
 
 def smacof_lanes(m: int, mode: int, dtype: torch.dtype,
@@ -610,6 +612,15 @@ def smacof_lanes(m: int, mode: int, dtype: torch.dtype,
     launches at panel size m on ``device`` (the ``lanes`` of
     :func:`smacof_pairs`; asks the kernel library, so the card)."""
     return WARP_LANES if smacof_form(m, mode, dtype, device) == "warp" else BLOCK_LANES
+
+
+def _butterfly(acc: torch.Tensor) -> torch.Tensor:
+    """The kernels' xor butterfly over the last dim (32 lanes): lane 0's
+    value, which every lane holds."""
+    idx = torch.arange(32, device=acc.device)
+    for o in (16, 8, 4, 2, 1):
+        acc = acc + acc[..., idx ^ o]
+    return acc[..., 0]
 
 
 def _block_sum(v: torch.Tensor, lanes: int) -> torch.Tensor:
@@ -627,29 +638,33 @@ def _block_sum(v: torch.Tensor, lanes: int) -> torch.Tensor:
     acc = torch.zeros_like(t[..., 0, :])
     for k in range(K):
         acc = acc + t[..., k, :]
-    acc = acc.reshape(*v.shape[:-1], lanes // 32, 32)
-    idx = torch.arange(32, device=v.device)
-    for o in (16, 8, 4, 2, 1):
-        acc = acc + acc[..., idx ^ o]
-    s = acc[..., 0, 0]
+    acc = _butterfly(acc.reshape(*v.shape[:-1], lanes // 32, 32))
+    s = acc[..., 0]
     for q in range(1, lanes // 32):
-        s = s + acc[..., q, 0]
+        s = s + acc[..., q]
     return s
 
 
 def _pair_pass(fp: torch.Tensor, x: torch.Tensor, i: torch.Tensor, j: torch.Tensor,
-               diag: torch.Tensor, lanes: int = WARP_LANES) -> tuple[torch.Tensor, torch.Tensor]:
-    """K6's pair pass over x [..., m, 2]: (the stress of x, B(x) [..., m,
-    m] with a zero diagonal), d_ij and b_ij once a pair i < j."""
-    dx = x[..., i, :] - x[..., j, :]
-    d = torch.sqrt(dx[..., 0] * dx[..., 0] + dx[..., 1] * dx[..., 1])
-    r = d - fp
-    b = torch.where(d >= 0.00001, -fp / torch.where(d == 0, 1.0, d), 0.0)
+               diag: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K6's warp form's pair pass over x [..., m, 2]: (the stress of x,
+    B(x) [..., m, m] with a zero diagonal), d_ij and b_ij once a pair
+    i < j, the stress in lane order."""
+    r, b = _pair_terms(fp, x, i, j)
     m = x.shape[-2]
     bm = torch.zeros((*x.shape[:-1], m), dtype=x.dtype, device=x.device)
     bm[..., i, j] = b
     bm[..., j, i] = b
-    return _block_sum(r * r, lanes) + diag, bm
+    return _lane_sum(r * r) + diag, bm
+
+
+def _pair_terms(fp, x, i, j):
+    """Each pair's residual d_ij - F_ij and b_ij = -F_ij / d_ij (0 where
+    d_ij < 1e-5), d_ij = ||x_i - x_j|| once a pair i < j."""
+    dx = x[..., i, :] - x[..., j, :]
+    d = torch.sqrt(dx[..., 0] * dx[..., 0] + dx[..., 1] * dx[..., 1])
+    b = torch.where(d >= 0.00001, -fp / torch.where(d == 0, 1.0, d), 0.0)
+    return d - fp, b
 
 
 def _row_pass(bm: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -665,10 +680,96 @@ def _row_pass(bm: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         rs = torch.where(off, rs + b, rs)
         a0 = torch.where(off, a0 + b * x[..., j, 0][..., None], a0)
         a1 = torch.where(off, a1 + b * x[..., j, 1][..., None], a1)
+    return _transform(rs, a0, a1, x)
+
+
+def _transform(rs, a0, a1, x):
+    """XN = (a - rs x) / m from the row sums [..., m]."""
+    m = x.shape[-2]
     # a divisor tensor on x's device: torch on CUDA multiplies by the
     # reciprocal of a Python-number divisor, the kernel divides
     mt = torch.full((), m, dtype=x.dtype, device=x.device)
     return torch.stack([(a0 - rs * x[..., 0]) / mt, (a1 - rs * x[..., 1]) / mt], dim=-1)
+
+
+@functools.lru_cache(maxsize=16)
+def _block_plan(m: int, device: torch.device) -> tuple[torch.Tensor, ...]:
+    """Index tensors of the block form's fused pass at panel size m
+    (``csrc/css_smacof.cu`` pair_sums; pair p = (i, j), i < j, row-major,
+    P = m(m-1)/2 stands for an added zero):
+
+    * ``stress`` [NW, 32, L]: each lane's pairs in the order it adds their
+      residuals: warp w's rows s NW + w (s even) or s NW + NW - 1 - w (s
+      odd), s ascending, and in row i the pairs j = i + 1 + lane + 32t, t
+      ascending;
+    * ``rowp`` [m, 32, T]: row i's pairs on each lane, t ascending;
+    * ``colp`` [S, NW, m]: the pair of (row of warp w in slot s, column j),
+      P where that row does not precede j (or the slot is empty)."""
+    NW = BLOCK_LANES // 32
+    P = m * (m - 1) // 2
+    pid = np.full((m + 1, m), P, dtype=np.int64)
+    iu, ju = np.triu_indices(m, 1)
+    pid[iu, ju] = np.arange(P)
+    T = max(1, -(-(m - 1) // 32))
+    lane = np.arange(32)
+    cols = (np.arange(m)[:, None, None] + 1 + lane[None, :, None]
+            + 32 * np.arange(T)[None, None, :])                        # [m, 32, T]
+    rowp = np.where(cols < m, pid[np.arange(m)[:, None, None], np.minimum(cols, m - 1)],
+                    P)                                                 # [m, 32, T]
+    S = -(-m // NW)
+    s = np.arange(S)[:, None]
+    w = np.arange(NW)[None, :]
+    rows = s * NW + np.where(s % 2 == 1, NW - 1 - w, w)                # [S, NW]
+    rows = np.where(rows < m, rows, m)
+    colp = pid[rows]                                                   # [S, NW, m]
+    seq = np.concatenate([rowp, np.full((1, 32, T), P)])[rows]         # [S, NW, 32, T]
+    seq = seq.transpose(1, 2, 0, 3).reshape(NW, 32, S * T)
+    keep = seq != P
+    L = int(keep.sum(-1).max()) if P else 1
+    stress = np.full((NW, 32, max(L, 1)), P, dtype=np.int64)
+    for wi in range(NW):
+        for li in range(32):
+            got = seq[wi, li][keep[wi, li]]
+            stress[wi, li, :len(got)] = got
+    return tuple(torch.from_numpy(a).to(device) for a in (stress, rowp, colp))
+
+
+def _fused_pass(fp, x, i, j, diag, plan):
+    """K6's block form's pass over x [..., m, 2] (``css_smacof.cu``
+    pair_sums and guttman_finish): (the stress of x, its transform XN).
+    The stress: each lane's residuals in its order, the warps' butterflies,
+    the warps in order, then diag.  Row i's sums: its column partials
+    (each warp's, added over its rows in row order) in warp order, then
+    its own row partial (each lane's in t order, a butterfly)."""
+    stress_idx, rowp_idx, colp_idx = plan
+    r, b = _pair_terms(fp, x, i, j)
+    zero = torch.zeros_like(r[..., :1])
+    r2 = torch.cat([r * r, zero], dim=-1)
+    acc = torch.zeros((*r.shape[:-1], *stress_idx.shape[:2]), dtype=r.dtype, device=r.device)
+    for k in range(stress_idx.shape[-1]):
+        acc = acc + r2[..., stress_idx[..., k]]
+    spw = _butterfly(acc)
+    st = spw[..., 0]
+    for q in range(1, spw.shape[-1]):
+        st = st + spw[..., q]
+    # row partials (b, b x_j0, b x_j1) and column partials (b, b x_i0, b x_i1)
+    xi, xj = x[..., i, :], x[..., j, :]
+    rv = torch.cat([torch.stack([b, b * xj[..., 0], b * xj[..., 1]], dim=-2),
+                    zero[..., None, :].expand(*zero.shape[:-1], 3, 1)], dim=-1)
+    cv = torch.cat([torch.stack([b, b * xi[..., 0], b * xi[..., 1]], dim=-2),
+                    zero[..., None, :].expand(*zero.shape[:-1], 3, 1)], dim=-1)
+    racc = torch.zeros((*rv.shape[:-1], *rowp_idx.shape[:2]), dtype=r.dtype, device=r.device)
+    for t in range(rowp_idx.shape[-1]):
+        racc = racc + rv[..., rowp_idx[..., t]]
+    rowp = _butterfly(racc)                                  # [..., 3, m]
+    cacc = torch.zeros((*cv.shape[:-1], *colp_idx.shape[1:]), dtype=r.dtype, device=r.device)
+    for s_ in range(colp_idx.shape[0]):
+        cacc = cacc + cv[..., colp_idx[s_]]                  # [..., 3, NW, m]
+    tot = cacc[..., 0, :]
+    for q in range(1, cacc.shape[-2]):
+        tot = tot + cacc[..., q, :]
+    tot = tot + rowp
+    return st + diag, _transform(tot[..., 0, :], tot[..., 1, :], tot[..., 2, :], x)
 
 
 def smacof_pairs(
@@ -676,26 +777,44 @@ def smacof_pairs(
     lanes: int = WARP_LANES,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """:func:`_smacof_loop` in K6's order of operations, for tests
-    (``csrc/css_smacof.cu``): one pair pass a transform gives the stress
-    of the new configuration and the next transform's B, the stress as
-    sum_{i<j} (d_ij - F_ij)^2 + 0.5 sum_i F_ii^2 in the kernel's thread
-    order over ``lanes`` threads (32: the warp form; BLOCK_LANES: the
-    block form, :func:`smacof_lanes`).  ``dis`` must be symmetric.
+    (``csrc/css_smacof.cu``), over ``lanes`` threads (:func:`smacof_lanes`;
+    ``dis`` must be symmetric; the stress is sum_{i<j} (d_ij - F_ij)^2 +
+    0.5 sum_i F_ii^2 and d_ij is formed once a pair a pass):
+
+    * 32, the warp form: one pair pass a transform gives the stress of the
+      new configuration and the next transform's B, the stress in lane
+      order and a warp butterfly, then a row pass, each row's sums in j
+      order;
+    * BLOCK_LANES, the block form: one fused pass over the pairs gives the
+      stress of a configuration and its transform at once
+      (:func:`_fused_pass`); the stop test reads the pass that made the
+      next configuration, whose transform is then left unused.
+
     Returns (x, sigma, transforms)."""
     m = dis.shape[-1]
     i, j = torch.triu_indices(m, m, 1, device=dis.device)
     fp = dis[..., i, j]
     dd = torch.diagonal(dis, dim1=-2, dim2=-1)
     diag = 0.5 * _block_sum(dd * dd, lanes)
+    if lanes == WARP_LANES:
+        sig, bm = _pair_pass(fp, x0, i, j, diag)
+
+        def step(x, bm):
+            xn = _row_pass(bm, x)
+            return (xn, *_pair_pass(fp, xn, i, j, diag))
+    else:
+        plan = _block_plan(m, dis.device)
+        sig, bm = _fused_pass(fp, x0, i, j, diag, plan)   # bm: the transform of x
+
+        def step(x, xn):
+            return (xn, *_fused_pass(fp, xn, i, j, diag, plan))
     x = x0
-    sig, bm = _pair_pass(fp, x, i, j, diag, lanes)
     active = sig == sig
     n = torch.zeros(sig.shape, dtype=torch.int32, device=sig.device)
     for _ in range(max_iters + 1):
         if not bool(active.any()):
             break
-        xn = _row_pass(bm, x)
-        sign, bn = _pair_pass(fp, xn, i, j, diag, lanes)
+        xn, sign, bn = step(x, bm)
         improved = (sig - sign) > epsilon
         x = torch.where(active[..., None, None], xn, x)
         bm = torch.where(active[..., None, None], bn, bm)
@@ -779,7 +898,7 @@ def cmds_form(m: int, dtype: torch.dtype, device: torch.device | None = None) ->
     css_cmds_form``): ``"warp"`` (``css_cmds``, a warp per window: on an
     H100 float64 to m = 75, float32 to 111), ``"block"``
     (``css_cmds_block``, a block per window, its slab in shared memory:
-    float64 to 222, float32 to 321) or ``"device"`` (the same kernel, the
+    float64 to 221, float32 to 321) or ``"device"`` (the same kernel, the
     slabs in device memory)."""
     return _cmds_form(m, dtype, device)[0]
 
@@ -793,8 +912,8 @@ def smacof_form(m: int, mode: int, dtype: torch.dtype,
     """The kernel :func:`css_smacof` launches, as :func:`cmds_form`
     (``csrc/css_smacof.cu:css_smacof_form``): ``"warp"`` (``css_smacof``:
     on an H100 float64 to m = 68, float32 to 97), ``"block"``
-    (``css_smacof_block``, slab in shared memory: float64 to 168, float32
-    to 239) or ``"device"``."""
+    (``css_smacof_block``, a window a block, slab in shared memory:
+    float64 to 203, float32 to 302) or ``"device"``."""
     return _smacof_form(m, mode, dtype, device)[0]
 
 
@@ -946,26 +1065,29 @@ def css_smacof(
     npos_d = npos.to(dev, torch.int64).contiguous()
     slots_d = torch.as_tensor(slots, dtype=torch.int64).to(dev).contiguous()
     k0, k1 = (int(v) for v in key.tolist())
-    tasks = B * (n_init if mds == 1 else 1)
-    # the task counter, then each window's finished restarts; each task's
-    # stress, transforms and final X
-    counters = torch.zeros(B + 1, dtype=torch.int32, device=dev)
-    sig_s = torch.empty(tasks, dtype=dis.dtype, device=dev)
-    x_s = torch.empty((tasks, m, 2), dtype=dis.dtype, device=dev)
-    n_s = torch.empty(tasks, dtype=torch.int32, device=dev)
     sfx = dtype_suffix(dis.dtype)
     args = (ptr(dis), ptr(npos_d), ptr(slots_d), B, ctypes.c_uint32(k0),
             ctypes.c_uint32(k1), asize, bsize, mds, n_init, max_iters,
             float(epsilon), wa, wb, ptr(scores),
-            ptr(dist), ptr(valid), ptr(restart), ptr(ntrans), ptr(transforms), ptr(counters),
-            ptr(sig_s), ptr(x_s), ptr(n_s))
+            ptr(dist), ptr(valid), ptr(restart), ptr(ntrans), ptr(transforms))
     form, elems = _smacof_form(m, mds, dis.dtype, dev)
     if form == "warp":
-        launch(LAUNCHES, "css_smacof", f"css_smacof_{sfx}", dev, *args)
+        tasks = B * (n_init if mds == 1 else 1)
+        # the task counter, then each window's finished restarts; each
+        # task's stress, transforms and final X
+        counters = torch.zeros(B + 1, dtype=torch.int32, device=dev)
+        sig_s = torch.empty(tasks, dtype=dis.dtype, device=dev)
+        x_s = torch.empty((tasks, m, 2), dtype=dis.dtype, device=dev)
+        n_s = torch.empty(tasks, dtype=torch.int32, device=dev)
+        launch(LAUNCHES, "css_smacof", f"css_smacof_{sfx}", dev, *args, ptr(counters),
+               ptr(sig_s), ptr(x_s), ptr(n_s))
     else:
+        # the block form: a window a task (its restarts in turn), the task
+        # counter alone
+        counter = torch.zeros(1, dtype=torch.int32, device=dev)
         slabs, n = _device_slabs(form, elems, dis.dtype, dev)
         launch(LAUNCHES, "css_smacof_block", f"css_smacof_block_{sfx}", dev, *args,
-               ptr(slabs), n)
+               ptr(counter), ptr(slabs), n)
     return scores, dist, valid, restart, ntrans
 
 

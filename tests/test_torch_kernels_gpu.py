@@ -501,8 +501,9 @@ def test_css_cmds_kernel(cuda, prec, asize, bsize):
 LARGE_M = [65, 128, 200, 300]
 DISSIM_SWITCH = [112, 113]                       # warp form | tiles
 GATHERED_SWITCH = [207, 208]                     # at a = (m + 1) // 2
-CMDS_SWITCH = {"exact": [75, 76, 222, 223], "fast": [111, 112, 321, 322]}
-SMACOF_SWITCH = {"exact": [68, 69, 168, 169], "fast": [97, 98, 239, 240]}
+# K5 and K6: both sides of each switch their form queries report up to
+# SWITCH_TOP (warp | block | device), read on the card by _switch_sizes
+SWITCH_TOP = 400
 COEFF_SWITCH = [64, 65, 908, 909]                # thread | shared | device
 # K8 / K11 / K9 window stream: register | shared | split | device (float32,
 # float64): the window's D and 16 warps' 8-bit tables in a block's
@@ -517,6 +518,18 @@ FET_SWITCH = {(8, 8): [128, 256, 4096, 8192], (4, 4): [128, 256, 8192, 16384],
               (4, 8): [128, 256, 8192, 16384]}
 
 
+def _switch_sizes(form, lo: int = 2, hi: int = SWITCH_TOP) -> list:
+    """The panel sizes on both sides of each switch of ``form(m)`` between
+    lo and hi: the last m of one form and the first of the next."""
+    out, prev = [], form(lo)
+    for m in range(lo + 1, hi + 1):
+        cur = form(m)
+        if cur != prev:
+            out += [m - 1, m]
+        prev = cur
+    return out
+
+
 @pytest.mark.gpu
 def test_kernel_forms_switch_where_the_slabs_stop_fitting(cuda):
     """Where each wrapper leaves a kernel's small form on an H100 (232,448
@@ -526,15 +539,19 @@ def test_kernel_forms_switch_where_the_slabs_stop_fitting(cuda):
     f64, f32 = torch.float64, torch.float32
     assert [kcss.dissim_form(m) for m in (112, 113, 300)] == ["warp", "tiles", "tiles"]
     assert [kcss.gathered_form((m + 1) // 2, m // 2) for m in (207, 208)] == ["warp", "tiles"]
-    assert [kcss.cmds_form(m, f64) for m in (64, 75, 76, 222, 223)] == [
+    assert [kcss.cmds_form(m, f64) for m in (64, 75, 76, 221, 222)] == [
         "warp", "warp", "block", "block", "device"]
     assert [kcss.cmds_form(m, f32) for m in (111, 112, 321, 322)] == [
         "warp", "block", "block", "device"]
     for mds in (1, 2):
-        assert [kcss.smacof_form(m, mds, f64) for m in (64, 68, 69, 168, 169)] == [
+        assert [kcss.smacof_form(m, mds, f64) for m in (64, 68, 69, 203, 204)] == [
             "warp", "warp", "block", "block", "device"]
-        assert [kcss.smacof_form(m, mds, f32) for m in (97, 98, 239, 240)] == [
+        assert [kcss.smacof_form(m, mds, f32) for m in (97, 98, 302, 303)] == [
             "warp", "block", "block", "device"]
+    assert _switch_sizes(lambda m: kcss.cmds_form(m, f64)) == [75, 76, 221, 222]
+    assert _switch_sizes(lambda m: kcss.smacof_form(m, 1, f32)) == [97, 98, 302, 303]
+    # at 110 + 90 in float64 K6 keeps its slab in shared memory
+    assert kcss.smacof_form(200, 1, f64) == "block"
     assert [kperm.coeff_form(m) for m in (64, 65, 908, 909)] == [
         "thread", "shared", "shared", "device"]
     assert [kcss.smacof_lanes(m, 1, f64) for m in (68, 69)] == [kcss.WARP_LANES,
@@ -596,7 +613,8 @@ def test_css_cmds_kernel_large_panels(cuda, prec, which):
     windows whose eigengap exceeds 1e-6, valid flags and NaN patterns
     equal (truly negative lambda2 windows included)."""
     dt = torch.float64 if prec == "exact" else torch.float32
-    for m in (LARGE_M if which == "large" else CMDS_SWITCH[prec]):
+    switches = _switch_sizes(lambda m: kcss.cmds_form(m, dt))
+    for m in (LARGE_M if which == "large" else switches):
         vals, lo, npos, _, asize, bsize = _large_windows(cuda, m, 48)
         real = kcss.dissimilarity_plain(vals, lo, npos).to(dt)
         dis = torch.cat([real, _negative_windows(4, m, dt, cuda)]).contiguous()
@@ -629,7 +647,8 @@ def test_css_smacof_kernel_large_panels(cuda, prec, mds, which):
     (LARGE_SMACOF_BAND), FAST_BAND at the other m."""
     dt = torch.float64 if prec == "exact" else torch.float32
     key = rng.fold_in(rng.prng_key(3), rng.chrom_hash("chrK"))
-    for m in (LARGE_M if which == "large" else SMACOF_SWITCH[prec]):
+    switches = _switch_sizes(lambda m: kcss.smacof_form(m, mds, dt))
+    for m in (LARGE_M if which == "large" else switches):
         vals, lo, npos, slots, asize, bsize = _large_windows(cuda, m, 16)
         dis = kcss.dissimilarity_plain(vals, lo, npos).to(dt).contiguous()
         npos_d = npos.to(cuda)
@@ -658,8 +677,10 @@ def test_css_smacof_kernel_large_panels(cuda, prec, mds, which):
 @pytest.mark.parametrize("m", [69, 128, 200])
 def test_css_smacof_block_is_its_mirror(cuda, monkeypatch, m):
     """Mode 1 float64 in the block form equals smacof_pairs with its thread
-    count (the stress summed over 256 threads: partials, warp butterflies,
-    warps in order) bit for bit."""
+    count (the block form's fused pass: rows snaked over 8 warps, each
+    row's sums from the warps' column partials in warp order and its own
+    butterflied row partial, the stress from the lanes' partials, the
+    warps' butterflies in warp order) bit for bit."""
     vals, lo, npos, slots, asize, bsize = _large_windows(cuda, m, 16)
     dis = kcss.dissimilarity_plain(vals, lo, npos).contiguous()
     npos_d = npos.to(cuda)

@@ -167,12 +167,13 @@ def test_top2_eig_tridiag_large_panels(m):
     _close(dist(x), dist(xw), 1e-9)
 
 
-@pytest.mark.parametrize("m", MODULE_M)
+@pytest.mark.parametrize("m", sorted(MODULE_M + [69]))
 def test_smacof_pairs_block_order_matches_jax(m):
-    """K6's order of operations with the block form's 256 threads (its
-    stress: thread partials, warp butterflies, warps in order) against
-    JAX's smacof in float64, where the transform counts agree; and the
-    block sum equals the 32-lane sum's value to rounding."""
+    """K6's order of operations in the block form (256 threads: the fused
+    pass over the pairs, the transform's sums from the warps' column
+    partials and each row's own, the stress from the lanes' partials)
+    against JAX's smacof in float64, where the transform counts agree; and
+    the block sum equals the 32-lane sum's value to rounding."""
     rs = np.random.default_rng(m)
     lanes = tcss.BLOCK_LANES
     dis = tcss.fill_averages(torch.from_numpy(_sym(rs, 2, m)))[0]
@@ -187,6 +188,81 @@ def test_smacof_pairs_block_order_matches_jax(m):
     _close(sig.numpy()[agree], np.asarray(jsig)[agree])
     v = torch.from_numpy(rs.random((4, 3 * lanes + 17)))
     _close(tcss._block_sum(v, lanes).numpy(), v.sum(-1).numpy(), 1e-14)
+
+
+def _fused_pass_in_order(dis, x):
+    """One pass of css_smacof.cu's pair_sums and guttman_finish written out
+    in plain loops, in the kernel's order: warp w's rows snaked (s NW + w
+    for even s, s NW + NW - 1 - w for odd); each pair's residual and b_ij
+    from torch (as the
+    mirror forms them), each lane on the pairs j = i + 1 + lane + 32t of
+    row i, the lanes' partials, butterflies, the warps' column partials
+    added in warp order, then the row's own."""
+    m, NW = dis.shape[0], tcss.BLOCK_LANES // 32
+    iu, ju = np.triu_indices(m, 1)
+    r, b = tcss._pair_terms(torch.from_numpy(dis[iu, ju]), torch.from_numpy(x),
+                            torch.from_numpy(iu), torch.from_numpy(ju))
+    r, b = r.numpy(), b.numpy()
+    pair = {(i, j): k for k, (i, j) in enumerate(zip(iu, ju))}
+    xor = [np.arange(32) ^ o for o in (16, 8, 4, 2, 1)]
+    colp, rowp, spw = np.zeros((NW, 3, m)), np.zeros((3, m)), []
+    for w in range(NW):
+        sp = np.zeros(32)
+        for s in range(-(-m // NW)):
+            i = s * NW + (NW - 1 - w if s % 2 else w)
+            if i >= m:
+                continue
+            lp = np.zeros((3, 32))
+            for lane in range(32):
+                for j in range(i + 1 + lane, m, 32):
+                    k = pair[(i, j)]
+                    sp[lane] += r[k] * r[k]
+                    lp[:, lane] += (b[k], b[k] * x[j, 0], b[k] * x[j, 1])
+                    colp[w, :, j] += (b[k], b[k] * x[i, 0], b[k] * x[i, 1])
+            for ix in xor:
+                lp = lp + lp[:, ix]
+            rowp[:, i] = lp[:, 0]
+        for ix in xor:
+            sp = sp + sp[ix]
+        spw.append(sp[0])
+    st, tot = spw[0], colp[0]
+    for q in range(1, NW):
+        st, tot = st + spw[q], tot + colp[q]
+    tot = tot + rowp
+    return st, np.stack([(tot[1] - tot[0] * x[:, 0]) / m, (tot[2] - tot[0] * x[:, 1]) / m], -1)
+
+
+@pytest.mark.parametrize("m", [9, 40, 69])
+def test_fused_pass_is_the_block_order(m):
+    """The mirror's fused pass (kernels/css.py _fused_pass, _block_plan)
+    equals the kernel's order written out in loops, bit for bit."""
+    rs = np.random.default_rng(m)
+    dis = tcss.fill_averages(torch.from_numpy(_sym(rs, 1, m)))[0][0].numpy()
+    x = rs.random((m, 2))
+    i, j = torch.triu_indices(m, m, 1)
+    st, xn = tcss._fused_pass(torch.from_numpy(dis)[i, j], torch.from_numpy(x), i, j,
+                              torch.zeros((), dtype=torch.float64),
+                              tcss._block_plan(m, torch.device("cpu")))
+    want_st, want_xn = _fused_pass_in_order(dis, x)
+    assert float(st) == want_st
+    assert np.array_equal(xn.numpy(), want_xn)
+
+
+@pytest.mark.parametrize("m", [69, 128, 200])
+def test_fused_pass_is_stress_and_guttman(m):
+    """One fused pass gives _stress of x and _guttman's transform of x, to
+    rounding, on a few windows (a coincident pair: b = 0)."""
+    rs = np.random.default_rng(m + 1)
+    dis = tcss.fill_averages(torch.from_numpy(_sym(rs, 3, m)))[0]
+    x = torch.from_numpy(rs.random((3, m, 2)))
+    x[1, 5] = x[1, 60]
+    i, j = torch.triu_indices(m, m, 1)
+    dd = torch.diagonal(dis, dim1=-2, dim2=-1)
+    st, xn = tcss._fused_pass(dis[..., i, j], x, i, j, 0.5 * tcss._block_sum(dd * dd, 256),
+                              tcss._block_plan(m, torch.device("cpu")))
+    d = tcss.calc_dist(x)
+    _close(st.numpy(), tcss._stress(dis, d).numpy(), 1e-13)
+    _close(xn.numpy(), tcss._guttman(x, d, dis).numpy(), 1e-13)
 
 
 def test_block_sum_is_the_block_order():
