@@ -74,8 +74,8 @@ Phases (any failure exits non-zero and prints no result line):
    phase 9's small files;
 12. K10 ``fet_window`` (both precisions) and K11 ``css_perm_chunk`` (both
    draw streams) against their plain versions on the 19,997 windows of the
-   200 k-SNP workload, K10's block body on synthetic windows at P = 256 and
-   4,096, K3's gather form ``css_dissim_gathered`` on those windows, K11
+   200 k-SNP workload, K10's block and wide bodies on synthetic windows at
+   P = 256 and 4,096, K3's gather form ``css_dissim_gathered`` on those windows, K11
    again on a 200 k-SNP stickleback-shaped panel (whose null is hit) and
    against K8's first chunk there, K10 on the ~800 k bench windows gathered
    at P = 128, against its plain version and bit-equal to phase 2's K1 ->
@@ -117,8 +117,10 @@ Phases (any failure exits non-zero and prints no result line):
    LARGE_SMACOF_PLAIN), K5's and K6's times printed beside their times
    before the Householder step's and the fused pass's redesign
    (OLD_BLOCK_MS); K3, K5 and K7 at 150 + 150 on 300 windows (the
-   device-memory slabs); every kernel on both sides of each
-   shared-memory switch the main path crosses up to m = 300; (b) their main path: ``run_css`` at its
+   device-memory slabs); K7's coefficients bit-equal at COEFF_CASES
+   (m = 65, 300, 909; one chunk and 16, ragged and whole); every kernel
+   on both sides of each shared-memory switch the main path crosses up
+   to m = 300; (b) their main path: ``run_css`` at its
    defaults with 20,000 permutations in both precisions at both sizes
    (warm wall, windows/s, MC permutations/s, the MC's ranges), with
    ``rng="threefry"``, and with
@@ -141,7 +143,11 @@ Phases (any failure exits non-zero and prints no result line):
    K2r (``fet_aggregate_wide``, ``fet_aggregate_ranks_wide`` past what a
    block's shared memory holds) against their plain versions and K2r = K2
    bit for bit, K10 at P = 8,192 and 65,536 (``fet_window_wide``) equal to
-   K1 -> K2, ``run_fet`` at each width, and the step on 1 Mb windows;
+   K1 -> K2, each wide row's bound beside its reckoning before the wide
+   body stopped sorting (old_reckoning), the wide body's edge cases (a
+   tie-heavy cell, every band in device scratch, 37 samples, perc 0.5 and
+   0.999, windows of 1 to 40 SNPs; K2r = K2 byte for byte), ``run_fet``
+   at each width, and the step on 1 Mb windows;
    (e) K8's large-panel body (mix, fast) over m = 65, 96, 128, 174, 200
    and 300 and both sides of its shared / split switch on the envelope
    cell's windows at a split of 11 : 9, to a depth cut, in the form the
@@ -270,6 +276,10 @@ MC_RUNS = 200_000                # the MC cap of phases 10-11 (CssConfig's defau
 POWER_WORKLOAD = CSS_WORKLOADS[2]
 APPROX_CHUNK, APPROX_CHUNKS = 512, 2
 MULTI_MC_RUNS = 2_000
+# phase 11's card-vs-CPU comparison: three chromosomes at MULTI_SNPS's
+# density on 100 kbp each (591 windows; 1,491 on MULTI_REGION took ~45 s of
+# host time, the window stream's plain MC on the CPU)
+WINDOW_MULTI_SNPS, WINDOW_MULTI_REGION = 2_000, 100_000
 TIE_RTOL = 1e-5                  # float32 near tie (tests/test_torch_mc.py)
 TIE_RTOL_F64 = 1e-12             # float64 near tie (the native form)
 # approx mode (tests/test_torch_approx.py, measured on the CPU): power sums
@@ -328,6 +338,11 @@ OLD_BLOCK_MS = {("K5", "fast", 128): 67.6, ("K5", "exact", 128): 91.3,
                 ("K6", 2, "fast", 128): 15.6, ("K6", 2, "exact", 128): 42.2,
                 ("K6", 2, "fast", 200): 55.4, ("K6", 2, "exact", 200): 153.3}
 LARGE_DEVICE_PANEL, LARGE_DEVICE_WINDOWS = (150, 150), 300
+# K7's coefficients against their plain version past the timed cells
+# (phase 16a): (m, chunks, chunk), ragged chunks of 100 and whole ones of
+# 256, one chunk and a range of 16; at m = 909 M [826,281, 2,048] is 6.8 GB
+COEFF_CASES = [(65, 1, 100), (65, 16, 256), (300, 1, 100), (300, 16, 256), (909, 1, 256),
+               (909, 16, 100)]
 LARGE_CPU_PANEL = (3_000, 150_000)
 LARGE_CLI = (20_000, 1_000_000, 9)
 # windows of phase 16's switch sweep for K3, K5 and K6 (cut from 64, 32
@@ -353,11 +368,11 @@ LARGE_SMACOF_BAND = {(1, 128): (3.2e-4, 1.6e-5), (1, 200): (1.1e-4, 3.0e-7),
 # the MC options card vs CPU on WINDOW_CPU_PANEL (the window stream's
 # plain loop on the host); the bench FET workload at WIDE_FET's widths,
 # each plain FET call ~2 / 8 / 17 s there (its Renyi steps grow with P),
-# so each is made once: K2 in both precisions at 250 kb (fast on the
-# block body, exact on the wide), both at 1 Mb and fast at 2 Mb (the wide
-# body); K2r's plain version timed at 250 kb (the block body) and 2 Mb
-# (K2r = K2 bit for bit at every width); K10 at 250 kb (fast block, exact
-# wide) and, exact, at 2 Mb (wide)
+# so each is made once: K2 in both precisions at 250 kb, exact at 1 Mb
+# (fast there too before the wide body's edge cases were added) and fast
+# at 2 Mb; K2r's plain version timed at 250 kb and 2 Mb (K2r = K2 bit
+# for bit at every width); K10 at 250 kb in both precisions and, exact, at
+# 2 Mb (every one of these on the wide body, past P = 256)
 FORMS_17 = [("mix", "mix", "xla"), ("threefry", "threefry", "xla"),
             ("native", "mix", "native")]
 LARGE_MC_PLAIN, LARGE_MC_PLAIN_300 = (16, 2_048), (8, 1_024)
@@ -418,9 +433,12 @@ WIDE_K10_WINDOWS, WIDE_STEP_WINDOWS = 1_000, 64
 # plain versions on the first WIDE_PLAIN_WINDOWS windows of each width,
 # K10 on the first WIDE_K10_PLAIN of its windows (the kernels on all)
 WIDE_PLAIN_WINDOWS, WIDE_K10_PLAIN = 128, 16
+# the wide body's edge cases (phase 17d): a few windows at P = 4,096 (the
+# plain bootstrap walks n / 2 steps one at a time at perc 0.5: at P =
+# 16,384 the phase took 123 s)
+WIDE_EDGE_P, WIDE_EDGE_WINDOWS = 4_096, 6
 # the (precision, index into WIDE_FET) cases each plain version runs on
-WIDE_PLAIN = {"fet_aggregate": {("fast", 0), ("exact", 0), ("exact", 1), ("fast", 1),
-                                ("fast", 2)},
+WIDE_PLAIN = {"fet_aggregate": {("fast", 0), ("exact", 0), ("exact", 1), ("fast", 2)},
               "fet_aggregate_ranks": {("exact", 0), ("exact", 2)}}
 REPLACES = {
     "fet_lut_build": "divergence_tpu/kernels/fet.py:372",
@@ -545,6 +563,25 @@ def cuda_ms(torch, fn, reps: int) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def queued_ms(torch, fn, reps: int) -> float:
+    """Mean device time of ``fn`` over ``reps`` warm calls (CUDA events),
+    enqueued behind a busy kernel (``torch.cuda._sleep``) so that the
+    card runs them back to back, as the main path's range loop queues K7's
+    coefficients behind the last range's product: a short kernel's
+    wrapper time on the host does not show."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -1314,27 +1351,42 @@ def smacof_ops(m: int) -> int:
 
 # the FET bootstrap's operations (K2, K2r, K10): a threefry-2x32 hash is
 # 20 rounds of an add, a rotate (one funnel shift) and an xor, plus 12
-# key-injection adds; a pow counts as 20 operations of its precision (a log
-# and an exp, each a range reduction and a short polynomial)
+# key-injection adds, at the int32 rate; a pow counts as 20 operations of
+# its precision (a log and an exp, each a range reduction and a short
+# polynomial)
 THREEFRY_OPS, POW_OPS = 72, 20
 
 
-def bootstrap_ops(npos, perc: float, nsamples: int, fast: bool) -> dict:
+def bootstrap_ops(npos, perc: float, nsamples: int, fast: bool, sort: bool = True) -> dict:
     """Operations the windows' bootstrap needs, from their SNP counts:
     per window (t1 + 1) x (nsamples + 1) threefry hashes (a fold_in a step
-    and a draw a sample; t1 = n - 1 - floor((n - 1) perc)), (t1 + 1) x
-    nsamples pows at the precision's rate, and the bitonic network's
-    compares (P/2 a stage, log2 P (log2 P + 1) / 2 stages)."""
+    and a draw a sample; t1 = n - 1 - floor((n - 1) perc)) at the int32
+    rate, (t1 + 1) x nsamples pows at the precision's rate, and where the
+    body sorts (the warp and block bodies; ``sort``) the bitonic network's
+    compares (P/2 a stage, log2 P (log2 P + 1) / 2 stages) at the rate of
+    float32 operations that are not multiply-adds.  The wide body sorts
+    nothing: its picks need the order statistics, which a select finds
+    reading each key a few times (bytes, counted by the caller once)."""
     import numpy as np
 
     n = np.asarray(npos, dtype=np.int64)
     n = n[n > 0]
     steps = np.maximum(n - 1 - np.floor((n - 1) * perc), 0) + 1
-    lg = np.maximum(5, np.ceil(np.log2(np.maximum(n, 1))))
-    compares = float((2.0 ** lg / 2 * lg * (lg + 1) / 2).sum())
-    ints = float((steps * (nsamples + 1)).sum()) * THREEFRY_OPS + compares
-    pows = float((steps * nsamples).sum()) * POW_OPS
-    return {"f32": ints + pows} if fast else {"f32": ints, "f64": pows}
+    ops = {"i32": float((steps * (nsamples + 1)).sum()) * THREEFRY_OPS,
+           "f32" if fast else "f64": float((steps * nsamples).sum()) * POW_OPS}
+    if sort:
+        lg = np.maximum(5, np.ceil(np.log2(np.maximum(n, 1))))
+        ops["f32_op"] = float((2.0 ** lg / 2 * lg * (lg + 1) / 2).sum())
+    return ops
+
+
+def old_reckoning(npos, perc: float, nsamples: int, fast: bool) -> dict:
+    """The bootstrap's operations as PR 12-14 counted them, printed beside
+    bootstrap_ops's on the wide rows: the hashes and the network's
+    compares at the float32 multiply-add peak."""
+    ops = bootstrap_ops(npos, perc, nsamples, fast, sort=True)
+    ops["f32"] = ops.get("f32", 0.0) + ops.pop("i32") + ops.pop("f32_op")
+    return ops
 
 
 def smacof_check(torch, kcss, dis, npos, asize, bsize, mds, key, slots, prec, label,
@@ -1970,8 +2022,9 @@ def phase_window_library(torch, dev, card, tmp: Path) -> None:
     # the card against the CPU, exact, the MC cut to MULTI_MC_RUNS
     pairs = {}
     for i, seqid in enumerate(("chrII", "chrIII", "chrIV")):
-        p, a, b = synth.make_panel(MULTI_SNPS, MULTI_REGION, ASIZE, BSIZE, seed=30 + i)
-        pairs[seqid] = (SnpPair(p, a, b), MULTI_REGION)
+        p, a, b = synth.make_panel(WINDOW_MULTI_SNPS, WINDOW_MULTI_REGION, ASIZE, BSIZE,
+                                   seed=30 + i)
+        pairs[seqid] = (SnpPair(p, a, b), WINDOW_MULTI_REGION)
     for kw, _ in PHASE11_OPTIONS:
         cfg = CssConfig(precision="exact", seed=3, mc_runs=MULTI_MC_RUNS, **kw)
         t0 = time.perf_counter()
@@ -1996,7 +2049,7 @@ def phase_window_library(torch, dev, card, tmp: Path) -> None:
         t_cpu = time.perf_counter() - t0
         rule = f"|dlog10 p| > {LOG10_P_BAND:g}" if kw.get("p_mode") == "approx" else "p differs"
         say(f"[window library exact] run_css_multi {kw} on the card vs run_css on the CPU "
-            f"(3 x {MULTI_SNPS} SNPs, {n_scored} windows, mc_runs {MULTI_MC_RUNS}): "
+            f"(3 x {WINDOW_MULTI_SNPS} SNPs, {n_scored} windows, mc_runs {MULTI_MC_RUNS}): "
             f"scores max_rel_err {worst:.3e}, {n_beyond} beyond {TOL_CSS:g}; {rule} on "
             f"{n_pdiff} windows; card {t_gpu:.2f} s, CPU {t_cpu:.2f} s")
         check(n_scored > 0 and n_beyond == 0, f"run_css_multi {kw}: {n_beyond} windows beyond")
@@ -2044,17 +2097,17 @@ def gather_windows(torch, vals, lo, npos, P: int, pad_to: int = 1):
     return av, bv, Bp
 
 
-def k10_bound(kfet, npos, fast: bool) -> tuple[float, str]:
+def k10_bound(kfet, npos, fast: bool, sort: bool = True) -> tuple[float, str]:
     """K10's bound on gathered windows of the 11 + 10 panel: each window's
     n (a + b) int16 codes, npos and slot in, 2 values out, the LUT read
     once; two compares a code for the tables, and the bootstrap's
-    operations (bootstrap_ops)."""
+    operations (bootstrap_ops; ``sort`` False for the wide body)."""
     m = ASIZE + BSIZE
     n_tests = int(npos.sum())
     size = 4 if fast else 8
     lut = (ASIZE + 1) ** 2 * (BSIZE + 1) ** 2 * size
-    ops = bootstrap_ops(npos, 0.95, 100, fast)
-    ops["f32"] += 2 * m * n_tests
+    ops = bootstrap_ops(npos, 0.95, 100, fast, sort)
+    ops["i32"] += 2 * m * n_tests
     return bound(n_tests * m * 2 + npos.numel() * (16 + 2 * size) + lut, ops)
 
 
@@ -2146,7 +2199,8 @@ def phase_step_kernels(torch, pair, plan, ids, dev, results, k2_bench) -> dict:
         r10["differ"][prec] = beyond
         r10["bound" if fast else "bound_exact"] = k10_bound(kfet, npos, fast)
 
-    # K10's block body (P > 128) on synthetic windows at P = 256 and 4,096
+    # K10 on synthetic windows at P = 256 (the block body) and 4,096 (the
+    # wide body)
     rs = np.random.default_rng(12)
     for Pb, Bb in ((256, 2000), (4096, 200)):
         codes = np.array([3, -3, 0, -10000], np.int16)
@@ -2163,12 +2217,13 @@ def phase_step_kernels(torch, pair, plan, ids, dev, results, k2_bench) -> dict:
                           / pd.double().abs().clamp(min=1.0) > tol).sum())
             ms = cuda_ms(torch, lambda: kfet.fet_window_batch(
                 sa, sb, sn, 0.95, key, 100, maxs, nmax, fast, ss), 3)
-            say(f"[K10 fet_window {prec}, block body] {Bb} synthetic windows at P={Pb}: scores "
+            form = kfet.window_form(Pb, 100, 4 if fast else 8, 4 if fast else 8)
+            say(f"[K10 fet_window {prec}, {form} body] {Bb} synthetic windows at P={Pb}: scores "
                 f"max_rel_err={err_sc:.3e} (tol {tol:g}); stddev {beyond} windows beyond tol "
                 f"(allowed {int(STDDEV_BEYOND_SHARE * Bb) + 1}); kernel {ms:.4f} ms")
             check(err_sc <= tol and beyond <= STDDEV_BEYOND_SHARE * Bb + 1,
-                  f"fet_window {prec} block body at P={Pb}: {err_sc}, {beyond}")
-            r10[f"block_{Pb}_{prec}_ms"] = ms
+                  f"fet_window {prec} {form} body at P={Pb}: {err_sc}, {beyond}")
+            r10[f"synthetic_{Pb}_{prec}_ms"] = ms
         del sa, sb
 
     # K3's gather form on the same windows: the plain twin's counts exactly
@@ -2930,14 +2985,14 @@ def phase_large_kernels(torch, dev, card, results) -> None:
             p = kperm.coeff_range_plain(key, 0, 16, m, a, b, 256, dev, bitgen)
             torch.cuda.synchronize()
             same = torch.equal(k.view(torch.int32), p.view(torch.int32))
-            ms = cuda_ms(torch, lambda: kperm.coeff_range(key, 0, 16, m, a, b, 256, dev,
-                                                           bitgen), 3)
+            ms = queued_ms(torch, lambda: kperm.coeff_range(key, 0, 16, m, a, b, 256, dev,
+                                                             bitgen), 5)
             pms = cuda_ms(torch, lambda: kperm.coeff_range_plain(key, 0, 16, m, a, b, 256, dev,
                                                                  bitgen), 1)
             bnd = bound(k.numel() * 4, {})
             say(f"[K7 css_mc_coeff_block {tag} {bitgen}] 16 chunks of 256, M [{m * m}, "
-                f"{k.shape[1]}]: bit-equal {same}; kernel {ms:.4f} ms plain {pms:.2f} ms, "
-                f"bound {bnd[0]:.4f} ms ({bnd[1]})")
+                f"{k.shape[1]}]: bit-equal {same}; kernel {ms:.4f} ms (calls queued back to "
+                f"back) plain {pms:.2f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}) on {card}")
             check(same, f"css_mc_coeff_block {tag} {bitgen}: M differs")
             results["css_mc_coeff_block"][f"{bitgen}_{m}"] = (0.0, 0.0, ms, pms)
             results["css_mc_coeff_block"][f"bound_{bitgen}_{m}"] = bnd
@@ -2996,6 +3051,20 @@ def phase_large_kernels(torch, dev, card, results) -> None:
         f"({results['css_cmds_block'][f'device_exact_{m}'][1]:.3e} exact); "
         f"css_mc_coeff ({kperm.coeff_form(m)}) bit-equal")
     del plain64, vals, got
+    # K7's coefficients at more panel sizes, chunks and ranges
+    checked = []
+    for cm, nk, chunk in COEFF_CASES:
+        for bitgen in ("mix", "threefry"):
+            args = (key, 3, nk, cm, (cm + 1) // 2, cm // 2, chunk, dev, bitgen)
+            k = kperm.coeff_range(*args)
+            p = kperm.coeff_range_plain(*args)
+            check(torch.equal(k.view(torch.int32), p.view(torch.int32)),
+                  f"css_mc_coeff_block m = {cm}, {nk} x {chunk} {bitgen}: M differs")
+            del k, p
+            torch.cuda.empty_cache()
+        checked.append(f"m = {cm}: {nk} x {chunk}")
+    say(f"[K7 css_mc_coeff_block] bit-equal to the plain version in both draw streams at "
+        f"{'; '.join(checked)}")
 
     # every kernel of the main path on both sides of each shared-memory
     # switch it crosses up to m = 300, the largest panel above, on a few
@@ -3543,8 +3612,7 @@ def phase_wide_fet_kernels(torch, kfet, pair, positions, dev, card, results) -> 
     window widths: K1 -> K2 in both precisions and K1r -> K2r exact against
     their plain versions, K2r = K2 bit for bit (the block and wide bodies
     side by side), timed by CUDA events; K10 on the first WIDE_K10_WINDOWS
-    250 kb windows gathered at P = 8,192 (fast: the block body, exact: the
-    wide body) and on the first
+    250 kb windows gathered at P = 8,192 and on the first
     WIDE_STEP_WINDOWS 2 Mb windows at P = 65,536 (the wide body), against
     its plain version and K1 -> K2 bit for bit."""
     from divergence_tpu_torch import rng
@@ -3579,13 +3647,16 @@ def phase_wide_fet_kernels(torch, kfet, pair, positions, dev, card, results) -> 
                         ls, ranks, lo[:n], npos[:n], slot[:n], key, 0.95, 100))
                     rerr = rel_err(got[0][:n], rp[0])
                     rform = kfet.window_form(P, 100, 4, 8)
-                    rbnd = bound(int(npos.sum()) * 4 + B * 40 + ls.numel() * 8,
-                                 bootstrap_ops(npos.numpy(), 0.95, 100, False))
+                    rbytes = int(npos.sum()) * 4 + B * 40 + ls.numel() * 8
+                    rbnd = bound(rbytes, bootstrap_ops(npos.numpy(), 0.95, 100, False,
+                                                       sort=rform != "wide"))
+                    rold = bound(rbytes, old_reckoning(npos.numpy(), 0.95, 100, False))
                     say(f"[K2r fet_aggregate_ranks exact, {wsize} / {wstep}] the {rform} "
                         f"body: equal to K1 -> K2 on every window, score max_rel_err "
                         f"{rerr:.3e} against its plain version on the first {n}; kernel "
                         f"{rms:.3f} ms ({B} windows) plain {rpms:.1f} ms ({n}), bound "
-                        f"{rbnd[0]:.3f} ms on {card}")
+                        f"{rbnd[0]:.3f} ms ({rbnd[1]}; the old reckoning {rold[0]:.3f}) on "
+                        f"{card}")
                     check(rerr <= TOL["exact"], f"K2r {wsize}: scores {rerr}")
                     rr[f"exact_{wsize}"] = (abs_err(got[:, :n], rp), rel_err(got[:, :n], rp),
                                             rms, rpms)
@@ -3608,14 +3679,16 @@ def phase_wide_fet_kernels(torch, kfet, pair, positions, dev, card, results) -> 
             bits = int((float_bits(torch, kn) != float_bits(torch, p)).sum())
             size = 4 if fast else 8
             form = kfet.window_form(P, 100, size, size)
-            bnd = bound(int(npos.sum()) * size + B * (24 + 2 * size),
-                        bootstrap_ops(npos.numpy(), 0.95, 100, fast))
+            nbytes = int(npos.sum()) * size + B * (24 + 2 * size)
+            bnd = bound(nbytes, bootstrap_ops(npos.numpy(), 0.95, 100, fast,
+                                              sort=form != "wide"))
+            old_bnd = bound(nbytes, old_reckoning(npos.numpy(), 0.95, 100, fast))
             say(f"[K2 fet_aggregate {prec}, {wsize} / {wstep}] {B} windows, max "
                 f"{int(npos.max())} SNPs (P = {P}, the {form} body): score max_rel_err="
                 f"{sc_err:.3e}, stddev beyond {TOL[prec]:g} on {beyond}, {bits} of {2 * n} "
                 f"values of the first {n} windows not bit-equal to the plain version; kernel "
                 f"{ms:.3f} ms ({B} windows) plain {pms:.1f} ms ({n}), bound {bnd[0]:.3f} ms "
-                f"({bnd[1]}) on {card}")
+                f"({bnd[1]}; the old reckoning {old_bnd[0]:.3f} ms) on {card}")
             check(sc_err <= TOL[prec], f"K2 {prec} {wsize}: scores {sc_err}")
             check(beyond <= STDDEV_BEYOND_SHARE * n + 1, f"K2 {prec} {wsize}: stddev {beyond}")
             tag = f"{prec}_{wsize}"
@@ -3625,9 +3698,9 @@ def phase_wide_fet_kernels(torch, kfet, pair, positions, dev, card, results) -> 
             ragg[f"form_{tag}"] = form
             del logs, k, p
         del ls, ranks
-        # K10: the block body on the first WIDE_K10_WINDOWS of the narrowest
-        # width's windows, the wide body on the first WIDE_STEP_WINDOWS of
-        # the widest's; K1 -> K2 bit for bit
+        # K10 (the wide body) on the first WIDE_K10_WINDOWS of the narrowest
+        # width's windows and on the first WIDE_STEP_WINDOWS of the
+        # widest's; K1 -> K2 bit for bit
         if wsize in (WIDE_FET[0][0], WIDE_FET[-1][0]):
             narrow = wsize == WIDE_FET[0][0]
             c = min(B, WIDE_K10_WINDOWS if narrow else WIDE_STEP_WINDOWS)
@@ -3651,9 +3724,9 @@ def phase_wide_fet_kernels(torch, kfet, pair, positions, dev, card, results) -> 
                     av[:n], bv[:n], npos[:n], 0.95, key, 100, maxs, nmax, fast, slot[:n]))
                 s10, d10 = s10[:n], d10[:n]
                 err = max(rel_err(s10, ps), rel_err(d10, pd))
-                b10 = k10_bound(kfet, npos[:c], fast)
                 size = 4 if fast else 8
                 form = kfet.window_form(P, 100, size, size)
+                b10 = k10_bound(kfet, npos[:c], fast, sort=form != "wide")
                 say(f"[K10 fet_window {prec}, {wsize} / {wstep}] the first {c} windows "
                     f"gathered at P = {P} ({(av.numel() + bv.numel()) * 2 / 1e9:.2f} GB of "
                     f"codes), the {form} body: K1 -> K2 bit for bit, max_rel_err {err:.3e} "
@@ -3678,6 +3751,73 @@ def phase_wide_fet_kernels(torch, kfet, pair, positions, dev, card, results) -> 
         r["windows"] = r[f"windows_exact_{w2}"]
     del vals
     torch.cuda.empty_cache()
+
+
+def phase_wide_fet_edges(torch, kfet, dev, card, results) -> None:
+    """Phase 17d, the wide body's edge cases, on WIDE_EDGE_WINDOWS windows
+    of n in (P / 2, P] SNPs at P = WIDE_EDGE_P over synthetic per-SNP
+    scores (a third zeros, one +inf, the rest exponential): a tie-heavy
+    cell (97 % zeros), every band sorted in device scratch (band_keys = 0:
+    the bytes of the shared-memory band), 37 samples, perc 0.5 and 0.999,
+    and windows of 1, 2 and 40 SNPs among the wide ones.  K2 within TOL of
+    its plain version (the windows whose score or stddev is not finite
+    byte for byte); K2r on the scores' ranks into their sorted distinct
+    values equal to K2 byte for byte."""
+    import numpy as np
+
+    from divergence_tpu_torch import rng
+
+    key = rng.fold_in(rng.prng_key(9), rng.chrom_hash("chrE"))
+    P, B = WIDE_EDGE_P, WIDE_EDGE_WINDOWS
+    out = results["fet_aggregate_wide"].setdefault("edges", {})
+    for prec in ("fast", "exact"):
+        dt = torch.float32 if prec == "fast" else torch.float64
+        zero = 0.0 if prec == "fast" else -0.0   # the sign K1 gives a zero score
+        for case in ("ties", "forced_band", "nsamples37", "perc0.5", "perc0.999", "small_n"):
+            rs = np.random.default_rng(len(case) + (prec == "fast"))
+            N = 3 * P
+            share = 0.97 if case == "ties" else 0.33
+            x = np.where(rs.random(N) < share, zero, rs.exponential(size=N))
+            x[N // 2] = np.inf
+            logs = torch.from_numpy(x).to(dt).to(dev)
+            npos = rs.integers(P // 2 + 1, P + 1, size=B)
+            npos[0] = P
+            if case == "small_n":
+                npos[1:4] = (1, 2, 40)
+            lo = torch.from_numpy(rs.integers(0, N - npos + 1))
+            npos = torch.from_numpy(npos)
+            slot = torch.arange(B, dtype=torch.int64) * 3 + 1
+            perc = float(case[4:]) if case.startswith("perc") else 0.95
+            ns = 37 if case == "nsamples37" else 100
+            form = kfet.window_form(P, ns, dt.itemsize, dt.itemsize)
+            k2 = kfet.fet_aggregate(logs, lo, npos, slot, key, perc, ns)
+            p = kfet.fet_aggregate_plain(logs, lo, npos, slot, key, perc, ns)
+            # a window that holds the +inf score: its non-finite values byte for byte
+            fin = torch.isfinite(p).all(dim=0)
+            err = rel_err(k2[0][fin], p[0][fin])
+            same = torch.equal(k2[:, ~fin].contiguous().view(torch.uint8),
+                               p[:, ~fin].contiguous().view(torch.uint8))
+            sd_rel = (k2[1][fin].double() - p[1][fin].double()).abs() / \
+                p[1][fin].double().abs().clamp(min=1.0)
+            beyond = int((sd_rel > TOL[prec]).sum())
+            if case == "forced_band":
+                forced = kfet.fet_aggregate(logs, lo, npos, slot, key, perc, ns, band_keys=0)
+                same &= torch.equal(forced.view(torch.uint8), k2.view(torch.uint8))
+            lut, ranks = torch.unique(logs, sorted=True, return_inverse=True)
+            k2r = kfet.fet_aggregate_ranks(lut.contiguous(), ranks.to(torch.int32).contiguous(),
+                                           lo, npos, slot, key, perc, ns,
+                                           band_keys=0 if case == "forced_band" else None)
+            same_r = torch.equal(k2r.view(torch.uint8), k2.view(torch.uint8))
+            say(f"[K2 / K2r wide body, {case} {prec}] {B} windows at P = {P} ({form}): "
+                f"score max_rel_err {err:.3e} against the plain version, stddev beyond "
+                f"{TOL[prec]:g} on {beyond}, K2r = K2 bytes {same_r}"
+                + f", {int((~fin).sum())} windows with the +inf score equal byte for byte "
+                f"{same}" + f" on {card}")
+            check(form == "wide", f"K2 edge {case} {prec}: the {form} body, not the wide one")
+            check(err <= TOL[prec] and beyond <= 1, f"K2 edge {case} {prec}: {err}, {beyond}")
+            check(same and same_r, f"K2 / K2r edge {case} {prec}: bytes differ")
+            out[f"{case}_{prec}"] = (err, beyond)
+            del logs, k2, p, k2r
 
 
 def phase_wide_fet_library(torch, pair, positions, dev, card, results) -> None:
@@ -3911,6 +4051,7 @@ def smoke(torch, dev) -> tuple[str, list[dict]]:
         timed_phase("17e", phase_large_mc_sweep, torch, dev, card, results)
         timed_phase("17d kernels", phase_wide_fet_kernels, torch, kfet, pair, positions, dev,
                     card, results)
+        timed_phase("17d edges", phase_wide_fet_edges, torch, kfet, dev, card, results)
         for mod in (kfet, kcss, kperm):
             mod.reset_launches()
         timed_phase("17b-c", phase_large_mc_library, torch, dev, card, tmp, results)
@@ -4029,15 +4170,15 @@ def smoke(torch, dev) -> tuple[str, list[dict]]:
                 entry[f"ranges_{tag}"] = len(lt["ranges"])
         if name == "fet_window":
             # ms / plain_ms: 19,997 windows of the 200 k workload; then the
-            # ~800 k bench windows, bit-equal to phase 2's K1 -> K2, and the
-            # block body on synthetic windows at P = 256 and 4,096
+            # ~800 k bench windows, bit-equal to phase 2's K1 -> K2, and
+            # synthetic windows at P = 256 (block body) and 4,096 (wide)
             entry["ms_bench_800k"] = r["bench_ms"]
             entry["bit_equal_k1_k2_800k"] = r["bit_equal"]
             for prec in ("fast", "exact"):
                 entry[f"plain_ms_bench_800k_{prec}"] = r[f"bench_plain_ms_{prec}"]
                 entry[f"bound_ms_bench_800k_{prec}"] = r[f"bound_800k_{prec}"][0]
                 for Pb in (256, 4096):
-                    entry[f"ms_block_{Pb}_{prec}"] = r[f"block_{Pb}_{prec}_ms"]
+                    entry[f"ms_synthetic_{Pb}_{prec}"] = r[f"synthetic_{Pb}_{prec}_ms"]
             entry["step_self_ms"] = results["step"]["k10_ms"]
         if name == "css_perm_chunk":
             # ms / plain_ms: mix draws at the step's size (799,997 windows x

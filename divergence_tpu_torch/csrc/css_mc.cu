@@ -21,21 +21,30 @@
 // M is bit-equal to _shared_coeff.  Each thread writes one column, so a
 // warp writes 32 consecutive floats of a row.
 //
-// css_mc_coeff_block (kernel css_mc_coeff_groups) — the same M for
-// panels past permk::kMaxM (whose per-thread x / r / ord arrays K8, K9
-// and K11's register designs size):
-// one block of kCoeffBlockThreads threads per (group of 32 columns, slab
-// of M's rows).  A group lies in one chunk (cstride is a multiple of 32).
-// The block draws the group's 32 m words into shared memory [m][32],
-// ranks them there (thread e: column e % 32, individual e / 32, m
-// compares), and writes its rows of M a warp per row, lane = column, so
-// each store is 32 consecutive floats.  Slabs of rows split one group's
-// m^2 rows over several blocks (each ranks the group again: 32 m^2
-// compares, against 32 m^2 stores) so that a range of a few chunks
-// still fills the card.  Where 256 m bytes of draws and ranks exceed a
-// block's shared memory (m > 908) they go to device scratch, one per
-// block.  The same draws, ranks, constants and subtraction: bit-equal to
-// css_mc_coeff and _shared_coeff.
+// css_mc_coeff_block — the same M for panels past permk::kMaxM (whose
+// per-thread x / r / ord arrays K8, K9 and K11's register designs size),
+// in two passes over a table of per-individual facts in device scratch:
+//   css_mc_coeff_rank, a warp a column: the bitonic sort of the column's
+//     m keys (x_j << 16) | j (css_perm_block.cuh: in registers to 256
+//     keys, else in the warp's slab of shared memory), whose slot g holds
+//     the individual of rank g (the stable ascending order of
+//     permk::precedes); for each individual j the fact word succ_j |
+//     cls_j << 16 (succ_j the individual in the next slot, 0xffff for
+//     none; cls_j 1 on the a-chain, 2 on the b-chain, else 0) and the
+//     byte u_j, each [m][ncols].  No column is ranked twice.
+//   css_mc_coeff_write, a block per (128 columns, 8 rows j), a warp per j,
+//     4 adjacent columns a lane: the lane reads its 4 facts of j once,
+//     then walks l = 0 .. m-1 reading the 4 bytes u_l and storing
+//     M[j*m + l][c .. c+3] as one float4 with st.global.cs (__stcs: the
+//     whole M is written once and read later, so it need not stay in L2).
+//     A warp's store is 512 contiguous bytes of a row; no division a row.
+//   Padding columns (K >= chunk) get u = 0 and no successor, so they come
+//   out +0.0 as bet - chain = 0.0f - 0.0f.
+// The same draws, ranks, constants and subtraction (bet - chain, bet from
+// u_j && !u_l, chain where l == succ_j, i.e. r_l == r_j + 1): bit-equal to
+// css_mc_coeff and _shared_coeff.  What bounds it: M's bytes (m^2 x
+// ncols x 4); the table is 5 m ncols bytes and a column's sort
+// O(m log^2 m) compare-exchanges.
 //
 // css_mc_shared (kernel css_mc_shared_tile) — the range's product for
 // every active window and its hit-mask epilogue, over a 2-D grid of
@@ -67,8 +76,8 @@
 // pay for the rest of it: the host keeps the first range short and grows
 // later ones (perm.py:range_chunks).  The hit words are 1/32 of the
 // scores' bytes; the scan reads them once.
-#include <algorithm>
 
+#include "css_perm_block.cuh"
 #include "css_perm_common.cuh"
 #include "fet_common.cuh"
 #include "threefry.cuh"
@@ -117,63 +126,112 @@ css_mc_coeff(uint2 mc_key, int k0, int nk, int chunk, int cstride, int m, int as
     }
 }
 
-constexpr int kCoeffBlockThreads = 256;
-constexpr int kGroup = 32;                  // columns a block draws and ranks
-constexpr int kCoeffBlocksPerSm = 4;        // blocks the row slabs aim at
+constexpr int kRankWarps = 8;         // columns a ranking block takes, a warp each
+constexpr int kWriteWarps = 8;        // rows j a writing block takes, a warp each
+constexpr int kWriteCols = 128;       // columns a writing block takes, 4 a lane
+constexpr uint32_t kNoSucc = 0xffffu; // a fact word's successor field: none
+constexpr int kMaxCoeffM = 65534;     // successors and the sort's indices fit 16 bits
+constexpr unsigned kFullMask = 0xffffffffu;
 
-__global__ void __launch_bounds__(kCoeffBlockThreads)
-css_mc_coeff_groups(uint2 mc_key, int k0, int chunk, int cstride, int m, int asize,
-                   int bitgen, float between, float ca, float cb, int64_t ncols,
-                   int rows_per_slab, uint32_t* __restrict__ gscratch,
-                   float* __restrict__ out) {
+// Column col's facts from the individual idx of rank g and the individual
+// `next` of rank g + 1 (meaningless where g + 1 = m).
+__device__ __forceinline__ void put_facts(int g, int idx, int next, int m, int asize,
+                                          int64_t ncols, int64_t col, uint32_t* fact,
+                                          uint8_t* ub) {
+    const uint32_t succ = g + 1 < m ? static_cast<uint32_t>(next) : kNoSucc;
+    const uint32_t cls = g < asize - 1 ? 1u : (g >= asize && g < m - 1 ? 2u : 0u);
+    fact[idx * ncols + col] = succ | (cls << 16);
+    ub[idx * ncols + col] = static_cast<uint8_t>(g < asize);
+}
+
+// The column's m keys (x_j << 16) | j sorted in the warp's registers, E a
+// lane (permb::sort_registers): slot g holds the individual of rank g.
+template <int E, int LOGE>
+__device__ __forceinline__ void rank_column(uint2 key, uint32_t K, int m, int asize, int bitgen,
+                                            int64_t ncols, int64_t col, uint32_t* fact,
+                                            uint8_t* ub, int lane) {
+    uint64_t k[E];
+    const uint32_t base = K * static_cast<uint32_t>(m);
+#pragma unroll
+    for (int e = 0; e < E; ++e) k[e] = permb::draw_key(key, base, lane * E + e, m, bitgen);
+    permb::sort_registers<E, LOGE>(k, lane);
+    const int next0 = __shfl_down_sync(kFullMask, static_cast<int>(k[0] & 0xFFFF), 1);
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+        const int g = lane * E + e;
+        const int next = e + 1 < E ? static_cast<int>(k[e + 1 < E ? e + 1 : e] & 0xFFFF) : next0;
+        if (g < m) put_facts(g, static_cast<int>(k[e] & 0xFFFF), next, m, asize, ncols, col, fact, ub);
+    }
+}
+
+__global__ void __launch_bounds__(kRankWarps * 32)
+css_mc_coeff_rank(uint2 mc_key, int k0, int chunk, int cstride, int m, int asize, int bitgen,
+                  int64_t ncols, uint32_t* __restrict__ fact, uint8_t* __restrict__ ub) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    const int64_t blk = static_cast<int64_t>(blockIdx.y) * gridDim.x + blockIdx.x;
-    uint32_t* xs = gscratch ? gscratch + blk * 2 * kGroup * m
-                            : reinterpret_cast<uint32_t*>(smem_raw);   // [m][32] draws
-    int* rs = reinterpret_cast<int*>(xs + kGroup * m);                 // [m][32] ranks
-    const int tid = threadIdx.x;
-    const int lane = tid & 31;
-    const int warp = tid >> 5;
-    const int mm = m * m;
-    const int64_t c0 = static_cast<int64_t>(blockIdx.x) * kGroup;
-    const int kc = k0 + static_cast<int>(c0 / cstride);
-    const uint32_t K0 = static_cast<uint32_t>(c0 % cstride);
-    const uint2 key = tf::fold_in(mc_key, static_cast<uint32_t>(kc));
-    for (int e = tid; e < kGroup * m; e += kCoeffBlockThreads) {
-        const uint32_t K = K0 + static_cast<uint32_t>(e & (kGroup - 1));
-        const int j = e / kGroup;
-        xs[e] = K < static_cast<uint32_t>(chunk)
-                    ? permk::draw_one(key, K * static_cast<uint32_t>(m) + static_cast<uint32_t>(j),
-                                      bitgen)
-                    : 0u;
-    }
-    __syncthreads();
-    for (int e = tid; e < kGroup * m; e += kCoeffBlockThreads) {
-        const int q = e & (kGroup - 1);
-        const int j = e / kGroup;
-        const uint32_t xj = xs[e];
-        int rj = 0;
-        for (int l = 0; l < m; ++l) rj += permk::precedes(xs[l * kGroup + q], xj, l, j);
-        rs[e] = rj;
-    }
-    __syncthreads();
-    const bool valid = K0 + static_cast<uint32_t>(lane) < static_cast<uint32_t>(chunk);
-    const int e0 = static_cast<int>(blockIdx.y) * rows_per_slab;
-    const int e1 = min(mm, e0 + rows_per_slab);
-    for (int e = e0 + warp; e < e1; e += kCoeffBlockThreads / 32) {
-        float v = 0.0f;
-        if (valid) {
-            const int j = e / m;
-            const int l = e - j * m;
-            const int rj = rs[j * kGroup + lane];
-            const int rl = rs[l * kGroup + lane];
-            const bool uj = rj < asize;
-            const float cw = rj < asize - 1 ? ca : (rj >= asize && rj < m - 1 ? cb : 0.0f);
-            const float bet = uj && !(rl < asize) ? between : 0.0f;
-            const float chain = rl == rj + 1 ? cw : 0.0f;
-            v = bet - chain;
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    const int64_t col = static_cast<int64_t>(blockIdx.x) * (blockDim.x >> 5) + warp;
+    if (col >= ncols) return;
+    const uint32_t K = static_cast<uint32_t>(col % cstride);
+    if (K >= static_cast<uint32_t>(chunk)) {
+        for (int j = lane; j < m; j += 32) {
+            fact[j * ncols + col] = kNoSucc;
+            ub[j * ncols + col] = 0;
         }
-        out[static_cast<int64_t>(e) * ncols + c0 + lane] = v;
+        return;
+    }
+    const uint2 key = tf::fold_in(mc_key, static_cast<uint32_t>(k0 + col / cstride));
+    const int p = permb::sort_keys(m);
+    if (p <= 128) {
+        rank_column<4, 2>(key, K, m, asize, bitgen, ncols, col, fact, ub, lane);
+    } else if (p <= permb::kRegSortKeys) {
+        rank_column<8, 3>(key, K, m, asize, bitgen, ncols, col, fact, ub, lane);
+    } else {   // the keys in the warp's slab of shared memory
+        uint64_t* keys = reinterpret_cast<uint64_t*>(smem_raw) + static_cast<size_t>(warp) * p;
+        const uint32_t base = K * static_cast<uint32_t>(m);
+        for (int g = lane; g < p; g += 32) keys[g] = permb::draw_key(key, base, g, m, bitgen);
+        permb::sort_memory(keys, p, lane);
+        for (int g = lane; g < m; g += 32) {
+            const int next = g + 1 < m ? static_cast<int>(keys[g + 1] & 0xFFFF) : 0;
+            put_facts(g, static_cast<int>(keys[g] & 0xFFFF), next, m, asize, ncols, col, fact, ub);
+        }
+    }
+}
+
+__global__ void __launch_bounds__(kWriteWarps * 32)
+css_mc_coeff_write(int m, int64_t ncols, float between, float ca, float cb,
+                   const uint32_t* __restrict__ fact, const uint8_t* __restrict__ ub,
+                   float* __restrict__ out) {
+    const int lane = threadIdx.x & 31;
+    const int j = blockIdx.y * kWriteWarps + (threadIdx.x >> 5);
+    const int64_t c = static_cast<int64_t>(blockIdx.x) * kWriteCols + 4 * lane;
+    if (j >= m || c >= ncols) return;
+    const int64_t jc = j * ncols + c;
+    const uint4 f = *reinterpret_cast<const uint4*>(fact + jc);
+    const uint32_t uj = *reinterpret_cast<const uint32_t*>(ub + jc);
+    const uint32_t fq[4] = {f.x, f.y, f.z, f.w};
+    float bet[4], cw[4];
+    int succ[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+        bet[q] = (uj >> (8 * q)) & 0xffu ? between : 0.0f;   // u_j && !u_l: between
+        const uint32_t cls = fq[q] >> 16;
+        cw[q] = cls == 1u ? ca : (cls == 2u ? cb : 0.0f);
+        succ[q] = static_cast<int>(fq[q] & 0xffffu);
+    }
+    float* row = out + static_cast<int64_t>(j) * m * ncols + c;
+    const uint8_t* ul_p = ub + c;
+#pragma unroll 4
+    for (int l = 0; l < m; ++l) {
+        const uint32_t ul = __ldg(reinterpret_cast<const uint32_t*>(ul_p + l * ncols));
+        float v[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+            const float b = (ul >> (8 * q)) & 0xffu ? 0.0f : bet[q];
+            const float chain = l == succ[q] ? cw[q] : 0.0f;
+            v[q] = b - chain;
+        }
+        __stcs(reinterpret_cast<float4*>(row + l * ncols), make_float4(v[0], v[1], v[2], v[3]));
     }
 }
 
@@ -290,80 +348,81 @@ FET_EXPORT int css_mc_coeff(uint32_t key0, uint32_t key1, int k0, int nk,
 
 namespace {
 
-// css_mc_coeff_groups' grid for ncols columns: 32-column groups by slabs
-// of *rows rows of M, the m^2 rows cut so that groups times slabs reach
-// kCoeffBlocksPerSm blocks an SM (each slab at least 32 rows).
-int coeff_grid(int m, int64_t ncols, int* rows, dim3* grid) {
-    int device = 0, sms = 0;
-    cudaError_t e;
-    if ((e = cudaGetDevice(&device)) != cudaSuccess ||
-        (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
-            cudaSuccess) {
-        return static_cast<int>(e);
-    }
-    const int64_t mm = static_cast<int64_t>(m) * m;
-    const int64_t groups = std::max<int64_t>(1, ncols / kGroup);
-    int64_t slabs = (static_cast<int64_t>(kCoeffBlocksPerSm) * sms + groups - 1) / groups;
-    slabs = std::min((mm + 31) / 32, std::max<int64_t>(1, slabs));
-    *rows = static_cast<int>((mm + slabs - 1) / slabs);
-    slabs = (mm + *rows - 1) / *rows;
-    if (groups > 0x7fffffff || slabs > kMaxGridY) return static_cast<int>(cudaErrorInvalidValue);
-    *grid = dim3(static_cast<unsigned>(groups), static_cast<unsigned>(slabs));
-    return 0;
+// Words of css_mc_coeff_block's scratch: the fact words [m][ncols], then
+// the bytes u [m][ncols].
+int64_t coeff_scratch_words(int m, int64_t ncols) {
+    const int64_t e = static_cast<int64_t>(m) * ncols;
+    return e + (e + 3) / 4;
 }
 
-// Shared memory of a group's draws and ranks, 2 * 32 * m words.
-size_t coeff_group_bytes(int m) { return static_cast<size_t>(2) * kGroup * m * 4; }
+// Shared memory a ranking warp takes: its key slab where the sort leaves
+// the registers (p > kRegSortKeys keys).
+size_t rank_warp_bytes(int m) {
+    const int p = permb::sort_keys(m);
+    return p > permb::kRegSortKeys ? static_cast<size_t>(p) * 8 : 0;
+}
+
+// Columns a ranking block takes: kRankWarps while their key slabs fit a
+// block's shared memory, 0 where one does not.
+int rank_warps(int m) {
+    const size_t bytes = rank_warp_bytes(m);
+    if (bytes == 0) return kRankWarps;
+    const size_t fit = fetk::smem_optin() / bytes;
+    return static_cast<int>(fit < kRankWarps ? fit : kRankWarps);
+}
 
 }  // namespace
 
 // The form K7's coefficients take at panel size m for ncols columns: 0,
-// css_mc_coeff (a column a thread, m <= kMaxM); 1, css_mc_coeff_block
-// with a group's draws and ranks in shared memory (to m = 908 on Hopper);
-// 2, css_mc_coeff_block with them in a device scratch of *scratch_words
-// words.  Negative where the device cannot be asked.
+// css_mc_coeff (a column a thread, m <= kMaxM); 1, css_mc_coeff_block,
+// with *scratch_words words of device scratch for its table of facts.
+// Negative: the device cannot be asked (-1) or m is past kMaxCoeffM or a
+// column's draws and ranks do not fit a block's shared memory (-2).
 FET_EXPORT int css_mc_coeff_form(int m, int64_t ncols, int64_t* scratch_words) {
     *scratch_words = 0;
     if (m <= kMaxM) return 0;
-    const size_t limit = fetk::smem_optin();
-    if (limit == 0) return -1;
-    if (coeff_group_bytes(m) <= limit) return 1;
-    int rows;
-    dim3 grid;
-    const int rc = coeff_grid(m, ncols, &rows, &grid);
-    if (rc != 0) return -rc;
-    *scratch_words = static_cast<int64_t>(grid.x) * grid.y * 2 * kGroup * m;
-    return 2;
+    if (fetk::smem_optin() == 0) return -1;
+    if (m > kMaxCoeffM || rank_warps(m) < 1) return -2;
+    *scratch_words = coeff_scratch_words(m, ncols);
+    return 1;
 }
 
-// The large-panel coefficients (m > kMaxM), on coeff_grid's grid;
-// gscratch, when not null, holds 2 * 32 * m words for each of its blocks
-// (css_mc_coeff_form's form 2).
+// The large-panel coefficients (m > kMaxM): css_mc_coeff_rank, then
+// css_mc_coeff_write; gscratch holds css_mc_coeff_form's scratch words.
 FET_EXPORT int css_mc_coeff_block(uint32_t key0, uint32_t key1, int k0, int nk,
                                   int chunk, int cstride, int m, int asize, int bitgen,
                                   float between, float ca, float cb, uint32_t* gscratch,
                                   float* out, void* stream) {
-    if (m < 1 || bitgen < 0 || bitgen > 1 || chunk <= 0 || cstride < chunk ||
-        cstride % kGroup != 0) {
+    if (m < 1 || m > kMaxCoeffM || bitgen < 0 || bitgen > 1 || chunk <= 0 ||
+        cstride < chunk || cstride % kWordBits != 0 || gscratch == nullptr) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
     const int64_t ncols = static_cast<int64_t>(nk) * cstride;
     if (ncols == 0) return 0;
-    const size_t smem = gscratch ? 0 : coeff_group_bytes(m);
-    if (smem > fetk::smem_optin()) return static_cast<int>(cudaErrorInvalidValue);
+    const int warps = rank_warps(m);
+    if (warps < 1) return static_cast<int>(cudaErrorInvalidValue);
+    const size_t smem = warps * rank_warp_bytes(m);
     if (smem > 48 * 1024) {
         const cudaError_t e = cudaFuncSetAttribute(
-            css_mc_coeff_groups, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            css_mc_coeff_rank, cudaFuncAttributeMaxDynamicSharedMemorySize,
             static_cast<int>(smem));
         if (e != cudaSuccess) return static_cast<int>(e);
     }
-    int rows;
-    dim3 grid;
-    const int rc = coeff_grid(m, ncols, &rows, &grid);
-    if (rc != 0) return rc;
-    css_mc_coeff_groups<<<grid, kCoeffBlockThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-        make_uint2(key0, key1), k0, chunk, cstride, m, asize, bitgen, between, ca, cb, ncols,
-        rows, gscratch, out);
+    const int64_t ytiles = (m + kWriteWarps - 1) / kWriteWarps;
+    const int64_t xtiles = (ncols + kWriteCols - 1) / kWriteCols;
+    const int64_t rblocks = (ncols + warps - 1) / warps;
+    if (ytiles > kMaxGridY || xtiles > 0x7fffffff || rblocks > 0x7fffffff) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    uint32_t* fact = gscratch;
+    uint8_t* ub = reinterpret_cast<uint8_t*>(gscratch + static_cast<int64_t>(m) * ncols);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    css_mc_coeff_rank<<<static_cast<unsigned>(rblocks), warps * 32, smem, st>>>(
+        make_uint2(key0, key1), k0, chunk, cstride, m, asize, bitgen, ncols, fact, ub);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    css_mc_coeff_write<<<dim3(static_cast<unsigned>(xtiles), static_cast<unsigned>(ytiles)),
+                         kWriteWarps * 32, 0, st>>>(m, ncols, between, ca, cb, fact, ub, out);
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -16,8 +16,9 @@
 //     replicates, fet_window_form): one block per window loads logs[lo,
 //     lo+n) into shared memory, -inf pads up to P, block_window_stats;
 //   * wide path (fet_aggregate_wide, wider windows): a persistent grid,
-//     each block loading its window into its slab of device scratch and
-//     running wide_window_stats (the same network, picks and sums).
+//     each block running band_window_stats on its window's keys in place
+//     (no sort: the bootstrap first, then a radix select of the band of
+//     ranks its picks need).
 //
 // What bounds it on H100: the bootstrap's arithmetic, not bytes.  A
 // window reads n (about 50 at the bench's density) scores once; its
@@ -96,11 +97,10 @@ template <typename T>
 __global__ void __launch_bounds__(kWideThreads)
 fet_aggregate_wide(const T* __restrict__ logs, const int64_t* __restrict__ rows,
                    int64_t nwin, uint2 chrom_key, T perc, int nsamples, int pmax,
-                   T* __restrict__ gscratch, T* __restrict__ out) {
+                   int band_keys, T* __restrict__ gscratch, T* __restrict__ out) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    T* buf = reinterpret_cast<T*>(smem_raw);
-    T* reps = reinterpret_cast<T*>(smem_raw + align16(sizeof(T) * kWideChunk));
-    T* g = gscratch + static_cast<int64_t>(blockIdx.x) * pmax;
+    using U = typename Radix<T>::U;
+    U* gband = reinterpret_cast<U*>(gscratch + static_cast<int64_t>(blockIdx.x) * 2 * pmax);
     for (int64_t w = blockIdx.x; w < nwin; w += gridDim.x) {
         const int64_t lo = rows[w];
         const int n = static_cast<int>(rows[nwin + w]);
@@ -112,22 +112,19 @@ fet_aggregate_wide(const T* __restrict__ logs, const int64_t* __restrict__ rows,
             }
             continue;
         }
-        const int P = window_pad(n);
-        for (int i = threadIdx.x; i < P; i += blockDim.x) {
-            g[i] = i < n ? logs[lo + i] : neg_inf<T>();
-        }
-        __syncthreads();
-        wide_window_stats(g, buf, reps, n, P, tf::fold_in(chrom_key, slot), perc, nsamples,
-                          KeyIsValue<T>{}, out + w, out + nwin + w);
+        const T* x = logs + lo;
+        band_window_stats(smem_raw, [=](int i) { return Radix<T>::to(x[i]); }, gband, n,
+                          tf::fold_in(chrom_key, slot), perc, nsamples, band_keys,
+                          [](U u) { return Radix<T>::from(u); }, out + w, out + nwin + w);
     }
 }
 
 template <typename T>
 int launch_aggregate_wide(const T* logs, const int64_t* rows, int64_t nwin, uint32_t key0,
-                          uint32_t key1, double perc, int nsamples, int pmax, T* gscratch,
-                          T* out, void* stream) {
+                          uint32_t key1, double perc, int nsamples, int pmax, int band_keys,
+                          T* gscratch, T* out, void* stream) {
     if (nwin == 0) return 0;
-    if (pmax < 32 || nsamples < 1 || gscratch == nullptr) {
+    if (pmax < 32 || nsamples < 1 || band_keys < 0 || gscratch == nullptr) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
     unsigned grid;
@@ -137,7 +134,7 @@ int launch_aggregate_wide(const T* logs, const int64_t* rows, int64_t nwin, uint
     if (rc != 0) return rc;
     fet_aggregate_wide<T><<<grid, kWideThreads, smem, static_cast<cudaStream_t>(stream)>>>(
         logs, rows, nwin, make_uint2(key0, key1), static_cast<T>(perc), nsamples, pmax,
-        gscratch, out);
+        band_keys, gscratch, out);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -203,20 +200,21 @@ FET_EXPORT int fet_window_form(int pmax, int nsamples, int key_bytes, int value_
     return window_form(pmax, nsamples, key_bytes, value_bytes, scratch_bytes);
 }
 
-// K2's wide path: fet_aggregate's arguments, then the scratch of
-// fet_window_form's form 2 (pmax keys a block of its grid).
+// K2's wide path: fet_aggregate's arguments, then the band keys a block
+// sorts in shared memory before it takes device scratch (at most
+// kBandKeys) and the scratch of fet_window_form's form 2.
 FET_EXPORT int fet_aggregate_wide_f64(const double* logs, const int64_t* rows, int64_t nwin,
                                       uint32_t key0, uint32_t key1, double perc,
-                                      int nsamples, int pmax, double* gscratch, double* out,
-                                      void* stream) {
+                                      int nsamples, int pmax, int band_keys, double* gscratch,
+                                      double* out, void* stream) {
     return launch_aggregate_wide<double>(logs, rows, nwin, key0, key1, perc, nsamples, pmax,
-                                         gscratch, out, stream);
+                                         band_keys, gscratch, out, stream);
 }
 
 FET_EXPORT int fet_aggregate_wide_f32(const float* logs, const int64_t* rows, int64_t nwin,
                                       uint32_t key0, uint32_t key1, double perc,
-                                      int nsamples, int pmax, float* gscratch, float* out,
-                                      void* stream) {
+                                      int nsamples, int pmax, int band_keys, float* gscratch,
+                                      float* out, void* stream) {
     return launch_aggregate_wide<float>(logs, rows, nwin, key0, key1, perc, nsamples, pmax,
-                                        gscratch, out, stream);
+                                        band_keys, gscratch, out, stream);
 }

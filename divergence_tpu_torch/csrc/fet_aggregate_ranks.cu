@@ -107,11 +107,11 @@ __global__ void __launch_bounds__(kWideThreads)
 fet_aggregate_ranks_wide(const T* __restrict__ lut_sorted, int G,
                          const int* __restrict__ ranks, const int64_t* __restrict__ rows,
                          int64_t nwin, uint2 chrom_key, T perc, int nsamples, int pmax,
-                         int* __restrict__ gscratch, T* __restrict__ out) {
+                         int band_keys, int* __restrict__ gscratch, T* __restrict__ out) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    int* buf = reinterpret_cast<int*>(smem_raw);
-    T* reps = reinterpret_cast<T*>(smem_raw + align16(sizeof(int) * kWideChunk));
-    int* g = gscratch + static_cast<int64_t>(blockIdx.x) * pmax;
+    using U = Radix<int>::U;
+    U* gband = reinterpret_cast<U*>(gscratch + static_cast<int64_t>(blockIdx.x) * 2 * pmax);
+    const LutValue<T> lut{lut_sorted, G};
     for (int64_t w = blockIdx.x; w < nwin; w += gridDim.x) {
         const int64_t lo = rows[w];
         const int n = static_cast<int>(rows[nwin + w]);
@@ -123,11 +123,11 @@ fet_aggregate_ranks_wide(const T* __restrict__ lut_sorted, int G,
             }
             continue;
         }
-        const int P = window_pad(n);
-        for (int i = threadIdx.x; i < P; i += blockDim.x) g[i] = i < n ? ranks[lo + i] : -1;
-        __syncthreads();
-        wide_window_stats(g, buf, reps, n, P, tf::fold_in(chrom_key, slot), perc, nsamples,
-                          LutValue<T>{lut_sorted, G}, out + w, out + nwin + w);
+        const int* x = ranks + lo;
+        band_window_stats(smem_raw, [=](int i) { return Radix<int>::to(x[i]); }, gband, n,
+                          tf::fold_in(chrom_key, slot), perc, nsamples, band_keys,
+                          [=](U u) { return lut(Radix<int>::from(u)); }, out + w,
+                          out + nwin + w);
     }
 }
 
@@ -135,9 +135,9 @@ template <typename T>
 int launch_aggregate_ranks_wide(const T* lut_sorted, int G, const int* ranks,
                                 const int64_t* rows, int64_t nwin, uint32_t key0,
                                 uint32_t key1, double perc, int nsamples, int pmax,
-                                int* gscratch, T* out, void* stream) {
+                                int band_keys, int* gscratch, T* out, void* stream) {
     if (nwin == 0) return 0;
-    if (G < 1 || pmax < 32 || nsamples < 1 || gscratch == nullptr) {
+    if (G < 1 || pmax < 32 || nsamples < 1 || band_keys < 0 || gscratch == nullptr) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
     unsigned grid;
@@ -148,7 +148,7 @@ int launch_aggregate_ranks_wide(const T* lut_sorted, int G, const int* ranks,
     fet_aggregate_ranks_wide<T><<<grid, kWideThreads, smem,
                                   static_cast<cudaStream_t>(stream)>>>(
         lut_sorted, G, ranks, rows, nwin, make_uint2(key0, key1), static_cast<T>(perc),
-        nsamples, pmax, gscratch, out);
+        nsamples, pmax, band_keys, gscratch, out);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -217,22 +217,25 @@ FET_EXPORT int fet_aggregate_ranks_f32(const float* lut_sorted, int G,
                                          out, stream);
 }
 
-// K2r's wide path: fet_aggregate_ranks's arguments, then the scratch of
-// fet_window_form's form 2 (pmax int32 keys a block of its grid).
+// K2r's wide path: fet_aggregate_ranks's arguments, then the band keys a
+// block sorts in shared memory (at most kBandKeys) and the scratch of
+// fet_window_form's form 2 (int32 keys).
 FET_EXPORT int fet_aggregate_ranks_wide_f64(const double* lut_sorted, int G, const int* ranks,
                                             const int64_t* rows, int64_t nwin, uint32_t key0,
                                             uint32_t key1, double perc, int nsamples,
-                                            int pmax, int* gscratch, double* out,
-                                            void* stream) {
+                                            int pmax, int band_keys, int* gscratch,
+                                            double* out, void* stream) {
     return launch_aggregate_ranks_wide<double>(lut_sorted, G, ranks, rows, nwin, key0, key1,
-                                               perc, nsamples, pmax, gscratch, out, stream);
+                                               perc, nsamples, pmax, band_keys, gscratch, out,
+                                               stream);
 }
 
 FET_EXPORT int fet_aggregate_ranks_wide_f32(const float* lut_sorted, int G, const int* ranks,
                                             const int64_t* rows, int64_t nwin, uint32_t key0,
                                             uint32_t key1, double perc, int nsamples,
-                                            int pmax, int* gscratch, float* out,
-                                            void* stream) {
+                                            int pmax, int band_keys, int* gscratch,
+                                            float* out, void* stream) {
     return launch_aggregate_ranks_wide<float>(lut_sorted, G, ranks, rows, nwin, key0, key1,
-                                              perc, nsamples, pmax, gscratch, out, stream);
+                                              perc, nsamples, pmax, band_keys, gscratch, out,
+                                              stream);
 }

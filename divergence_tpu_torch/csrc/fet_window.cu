@@ -24,8 +24,8 @@
 //     block per window, each thread a row s < n read in place, -inf pads
 //     up to P, block_window_stats;
 //   * wide path (fet_window_wide, wider windows): a persistent grid, each
-//     block scoring its window's rows into its slab of device scratch and
-//     running wide_window_stats.
+//     block scoring its window's rows once into its slab of device
+//     scratch and running band_window_stats on them.
 // K1 and K2 run the same device code, so on the windows of a chromosome
 // K10 equals K1 -> K2 bit for bit.
 //
@@ -142,11 +142,12 @@ fet_window_wide(const int16_t* __restrict__ av, const int16_t* __restrict__ bv,
                 const int64_t* __restrict__ npos, const int64_t* __restrict__ slots,
                 int64_t nwin, int p_in, int asize, int bsize, const T* __restrict__ lut,
                 const T* __restrict__ lf, int nmax, int maxs, uint2 key, T perc,
-                int nsamples, int pmax, T* __restrict__ gscratch, T* __restrict__ out) {
+                int nsamples, int pmax, int band_keys, T* __restrict__ gscratch,
+                T* __restrict__ out) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    T* buf = reinterpret_cast<T*>(smem_raw);
-    T* reps = reinterpret_cast<T*>(smem_raw + align16(sizeof(T) * kWideChunk));
-    T* g = gscratch + static_cast<int64_t>(blockIdx.x) * pmax;
+    using U = typename Radix<T>::U;
+    T* g = gscratch + static_cast<int64_t>(blockIdx.x) * 2 * pmax;   // the window's scores
+    U* gband = reinterpret_cast<U*>(g + pmax);
     for (int64_t w = blockIdx.x; w < nwin; w += gridDim.x) {
         const int n = static_cast<int>(npos[w]);
         if (n <= 0) {
@@ -158,20 +159,16 @@ fet_window_wide(const int16_t* __restrict__ av, const int16_t* __restrict__ bv,
         }
         const int16_t* a = av + w * p_in * asize;
         const int16_t* b = bv + w * p_in * bsize;
-        const int P = window_pad(n);
-        for (int i = threadIdx.x; i < P; i += blockDim.x) {
-            T v = neg_inf<T>();
-            if (i < n) {
-                const Table t = count_table(a + static_cast<int64_t>(i) * asize, asize,
-                                            b + static_cast<int64_t>(i) * bsize, bsize);
-                v = snp_score(t, asize, bsize, lut, lf, nmax, maxs);
-            }
-            g[i] = v;
+        for (int i = threadIdx.x; i < n; i += blockDim.x) {
+            const Table t = count_table(a + static_cast<int64_t>(i) * asize, asize,
+                                        b + static_cast<int64_t>(i) * bsize, bsize);
+            g[i] = snp_score(t, asize, bsize, lut, lf, nmax, maxs);
         }
         __syncthreads();
         const uint32_t slot = static_cast<uint32_t>(slots[w]);
-        wide_window_stats(g, buf, reps, n, P, tf::fold_in(key, slot), perc, nsamples,
-                          KeyIsValue<T>{}, out + w, out + nwin + w);
+        band_window_stats(smem_raw, [=](int i) { return Radix<T>::to(g[i]); }, gband, n,
+                          tf::fold_in(key, slot), perc, nsamples, band_keys,
+                          [](U u) { return Radix<T>::from(u); }, out + w, out + nwin + w);
     }
 }
 
@@ -257,10 +254,10 @@ template <typename T>
 int launch_window_wide(const int16_t* av, const int16_t* bv, const int64_t* npos,
                        const int64_t* slots, int64_t nwin, int p_in, int asize, int bsize,
                        const T* lut, const T* lf, int nmax, int maxs, uint32_t key0,
-                       uint32_t key1, double perc, int nsamples, int pmax, T* gscratch,
-                       T* out, void* stream) {
+                       uint32_t key1, double perc, int nsamples, int pmax, int band_keys,
+                       T* gscratch, T* out, void* stream) {
     if (nwin == 0) return 0;
-    if (asize < 1 || bsize < 1 || p_in < 1 || pmax < 32 || nsamples < 1 ||
+    if (asize < 1 || bsize < 1 || p_in < 1 || pmax < 32 || nsamples < 1 || band_keys < 0 ||
         gscratch == nullptr) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
@@ -271,32 +268,33 @@ int launch_window_wide(const int16_t* av, const int16_t* bv, const int64_t* npos
     if (rc != 0) return rc;
     fet_window_wide<T><<<grid, kWideThreads, smem, static_cast<cudaStream_t>(stream)>>>(
         av, bv, npos, slots, nwin, p_in, asize, bsize, lut, lf, nmax, maxs,
-        make_uint2(key0, key1), static_cast<T>(perc), nsamples, pmax, gscratch, out);
+        make_uint2(key0, key1), static_cast<T>(perc), nsamples, pmax, band_keys, gscratch, out);
     return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// K10's wide path: fet_window's arguments, then the scratch of
-// fet_window_form's form 2 (pmax keys a block of its grid).
+// K10's wide path: fet_window's arguments, then the band keys a block
+// sorts in shared memory (at most kBandKeys) and the scratch of
+// fet_window_form's form 2.
 FET_EXPORT int fet_window_wide_f64(const int16_t* av, const int16_t* bv, const int64_t* npos,
                                    const int64_t* slots, int64_t nwin, int p_in, int asize,
                                    int bsize, const double* lut, const double* lf, int nmax,
                                    int maxs, uint32_t key0, uint32_t key1, double perc,
-                                   int nsamples, int pmax, double* gscratch, double* out,
-                                   void* stream) {
+                                   int nsamples, int pmax, int band_keys, double* gscratch,
+                                   double* out, void* stream) {
     return launch_window_wide<double>(av, bv, npos, slots, nwin, p_in, asize, bsize, lut, lf,
-                                      nmax, maxs, key0, key1, perc, nsamples, pmax, gscratch,
-                                      out, stream);
+                                      nmax, maxs, key0, key1, perc, nsamples, pmax, band_keys,
+                                      gscratch, out, stream);
 }
 
 FET_EXPORT int fet_window_wide_f32(const int16_t* av, const int16_t* bv, const int64_t* npos,
                                    const int64_t* slots, int64_t nwin, int p_in, int asize,
                                    int bsize, const float* lut, const float* lf, int nmax,
                                    int maxs, uint32_t key0, uint32_t key1, double perc,
-                                   int nsamples, int pmax, float* gscratch, float* out,
-                                   void* stream) {
+                                   int nsamples, int pmax, int band_keys, float* gscratch,
+                                   float* out, void* stream) {
     return launch_window_wide<float>(av, bv, npos, slots, nwin, p_in, asize, bsize, lut, lf,
-                                     nmax, maxs, key0, key1, perc, nsamples, pmax, gscratch,
-                                     out, stream);
+                                     nmax, maxs, key0, key1, perc, nsamples, pmax, band_keys,
+                                     gscratch, out, stream);
 }

@@ -45,24 +45,44 @@
 //     warp's shared slab for the picks.  The bootstrap runs step j on the
 //     outside (one fold_in(wkey, j) per lane and step) and the lane's
 //     kLaneSamples samples inside, in registers.
-//   * block_window_stats, one block per window whose P keys take at most
-//     kBlockKeyBytes (P up to 4,096 in float64, 8,192 in float32 and
-//     int32 ranks) and fit a block's shared memory with the nsamples
+//   * block_window_stats, one block per window of P <= kBlockMaxPad
+//     whose keys fit a block's shared memory with the nsamples
 //     replicates: the same network over shared memory with a barrier a
 //     stage, one thread a sample; warp 0 sums the replicates.
-//   * wide_window_stats, wider windows: the keys in a per-block slab of
-//     device scratch (a persistent grid of wide_grid blocks walks the
-//     windows, so the slabs stay few and L2-resident), the same
-//     comparators in the same stage order: every stage whose stride j is
-//     at least kWideChunk runs over the slab in device memory, and each
-//     run of consecutive stages with j < kWideChunk runs chunk by chunk
-//     in shared memory (their comparators never leave an aligned chunk of
-//     kWideChunk keys, and a comparator's direction is its global index's
-//     bit k, as in the one-pass network), so the sorted slab is the same
-//     bits.  The picks and bootstrap read the slab in place.
+//   * band_window_stats, wider windows (the *_wide kernels; a
+//     persistent grid, as many 256-thread blocks an SM as fit, at most
+//     kWideBlocksPerSm, walks the windows).  It sorts nothing: the
+//     output reads only the order statistics at idx, hi and the 2 x
+//     nsamples bootstrap ranks, and those ranks come from the Renyi
+//     recursion on wkey alone.  So, by all the block's threads:
+//       1. the bootstrap first, the keys unread, in tiles of steps: the
+//          step keys fold_in(wkey, j) and exponents 1 / max(n - j, 1)
+//          once a window; the terms pow(V_{s,j}, e_j) over the tile's
+//          (step, sample) pairs; then each sample folds its terms into u
+//          in j order, capturing u2 at j == t2 (the same product chain,
+//          so the same bits as the other bodies);
+//       2. the band [r_lo, r_hi] that covers idx, hi and every sample's
+//          ranks; a radix select of the keys at r_lo and r_hi (8-bit
+//          digits, most significant first, warp-aggregated shared
+//          histograms, 8 keys in flight a thread) over the window's n
+//          keys mapped to unsigned integers in order (Radix: a float's
+//          sign-flipped bits, an int rank offset by 2^31), read in place
+//          (K10: from its per-SNP scores, computed once into device
+//          scratch).  It stops after the first pass whose bins from
+//          r_lo's to r_hi's hold at most kEarlyKeys keys: those keys are
+//          the band.  Where it runs every digit (ends tied over more keys)
+//          the band is the keys strictly between the two ends, at most
+//          r_hi - r_lo - 1 of them.  The band is gathered and sorted in
+//          shared memory (up to band_keys), else in device scratch by
+//          wide_sort;
+//       3. a pick at rank r is the band's key at r less the keys before
+//          the band; below the band (ends tied) the low end's key, past
+//          it the high end's: the values at those ranks are a property of
+//          the multiset of keys, so they equal the sorted bodies' picks.
+//     The replicates, stddev and score are computed as in the others.
 // A launch takes the warp body when its widest window has P <= 128, the
-// block body up to kBlockKeyBytes of keys, else the wide body
-// (fet_window_form, which the wrappers ask).
+// block body to P = kBlockMaxPad, else the wide body (fet_window_form,
+// which the wrappers ask).
 //
 // Numerics: the same operations in the same order and dtype as the plain
 // torch version (--fmad=false; the same libdevice pow, correctly rounded
@@ -80,12 +100,18 @@ constexpr int kWarpMaxPad = 128;             // the widest window a warp sorts
 constexpr int kLaneSamples = 4;               // samples a lane carries per pass
 constexpr int kWarpsPerBlock = 4;             // windows a warp-body block takes
 constexpr int kWideThreads = 256;             // the wide body's block
-constexpr int kWideChunk = 4096;              // keys a shared-memory pass sorts
-constexpr int kWideBlocksPerSm = 2;           // the wide body's persistent grid
-// The widest key slab the block body takes: past it the wide body is
-// faster on an H100 (tests/measure_large_forms.py: block / wide 0.63-0.73
-// at 32 KB of keys, 0.98-1.20 at 64 KB, 2.95-3.15 at 128 KB).
-constexpr size_t kBlockKeyBytes = 32 * 1024;
+constexpr int kWideChunk = 4096;              // keys a shared-memory pass of wide_sort sorts
+constexpr int kWideBlocksPerSm = 4;           // the wide body's persistent grid, at most
+constexpr int kBandKeys = kWideChunk;         // band keys sorted in shared memory
+constexpr int kTermTile = 4096;               // bootstrap terms a tile holds
+constexpr int kRadixBins = 256;               // the select's digit: 8 bits
+constexpr int kKeysInFlight = 8;              // keys a thread loads at once in the select
+constexpr int kEarlyKeys = 512;               // the select stops once its band fits this
+// The widest window the block body takes: past it the band body is
+// faster on an H100 (tests/measure_large_forms.py, block / band body time:
+// at P = 256 0.87 / 0.75 / 0.70 for K2 float32, K2 float64, K2r; at 512
+// 1.36 / 1.13 / 0.82; at 1,024 1.91 / 1.55 / 1.48).
+constexpr int kBlockMaxPad = 256;
 
 // The padded sort width of a window of n SNPs: the next power of two
 // >= n, at least 32 (kernels/fet.py:_window_pad).
@@ -111,10 +137,20 @@ inline size_t block_bytes(int pmax, int nsamples, int key_bytes, int value_bytes
     return static_cast<size_t>(pmax) * key_bytes + static_cast<size_t>(nsamples) * value_bytes;
 }
 
-// Shared memory of the wide body: kWideChunk keys, then the replicates.
+// Steps of the bootstrap a tile of the wide body takes.
+__host__ __device__ inline int band_tile_steps(int nsamples) {
+    return nsamples < kTermTile ? kTermTile / nsamples : 1;
+}
+
+// Shared memory of the wide body, in BandSmem's order: the band's keys,
+// the tile's terms, the samples' u and u2, the tile's step keys and
+// exponents, two histograms and the select's scalars.
 __host__ __device__ inline size_t wide_bytes(int nsamples, int key_bytes, int value_bytes) {
-    return align16(static_cast<size_t>(kWideChunk) * key_bytes) +
-           align16(static_cast<size_t>(nsamples) * value_bytes);
+    const size_t J = static_cast<size_t>(band_tile_steps(nsamples));
+    return align16(static_cast<size_t>(kBandKeys) * key_bytes) +
+           align16(J * nsamples * value_bytes) +
+           2 * align16(static_cast<size_t>(nsamples) * value_bytes) +
+           align16(J * 8) + align16(J * value_bytes) + 2 * kRadixBins * 4 + 64;
 }
 
 // The wide body's persistent grid on the current device (kWideBlocksPerSm
@@ -131,7 +167,8 @@ inline int64_t wide_grid() {
 // The body a launch whose widest window pads to pmax takes: 0, the warp
 // body (pmax <= kWarpMaxPad); 1, the block body (its keys and replicates
 // in shared memory); 2, the wide body, with *scratch_bytes of device
-// scratch (a slab of pmax keys for each block of wide_grid).  Negative:
+// scratch (two slabs of pmax keys for each block of wide_grid: K10's
+// per-SNP scores, and a band too wide for shared memory).  Negative:
 // the device cannot be asked (-1) or not even the wide body's shared
 // memory fits (-2).
 inline int window_form(int pmax, int nsamples, int key_bytes, int value_bytes,
@@ -140,25 +177,24 @@ inline int window_form(int pmax, int nsamples, int key_bytes, int value_bytes,
     if (pmax <= kWarpMaxPad) return 0;
     const size_t limit = smem_optin();
     if (limit == 0) return -1;
-    if (static_cast<size_t>(pmax) * key_bytes <= kBlockKeyBytes &&
-        block_bytes(pmax, nsamples, key_bytes, value_bytes) <= limit) {
+    if (pmax <= kBlockMaxPad && block_bytes(pmax, nsamples, key_bytes, value_bytes) <= limit) {
         return 1;
     }
     if (wide_bytes(nsamples, key_bytes, value_bytes) > limit) return -2;
     const int64_t grid = wide_grid();
     if (grid == 0) return -1;
-    *scratch_bytes = grid * pmax * key_bytes;
+    *scratch_bytes = grid * 2 * pmax * key_bytes;
     return 2;
 }
 
-// Launch shape of the wide body: the grid (at most one block a window) and
-// its shared memory, after opting the kernel in to it.
+// Launch shape of the wide body: the grid (the blocks that fit an SM at
+// once, at most kWideBlocksPerSm, and at most one block a window) and its
+// shared memory, after opting the kernel in to it.
 template <typename Kernel>
 int wide_config(Kernel kernel, int64_t nwin, int nsamples, int key_bytes, int value_bytes,
                 unsigned* grid, size_t* smem) {
     const int64_t full = wide_grid();
     if (full == 0) return static_cast<int>(cudaErrorInvalidValue);
-    *grid = static_cast<unsigned>(nwin < full ? nwin : full);
     *smem = wide_bytes(nsamples, key_bytes, value_bytes);
     if (*smem > smem_optin()) return static_cast<int>(cudaErrorInvalidValue);
     if (*smem > 48 * 1024) {
@@ -166,6 +202,13 @@ int wide_config(Kernel kernel, int64_t nwin, int nsamples, int key_bytes, int va
             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(*smem));
         if (e != cudaSuccess) return static_cast<int>(e);
     }
+    int fit = 0;
+    const cudaError_t e =
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fit, kernel, kWideThreads, *smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const int64_t blocks = full / kWideBlocksPerSm * (fit < kWideBlocksPerSm ? fit : kWideBlocksPerSm);
+    if (blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
+    *grid = static_cast<unsigned>(nwin < blocks ? nwin : blocks);
     return 0;
 }
 
@@ -196,15 +239,19 @@ struct Picks {
     }
 };
 
+// The resample's order statistic an order-statistic uniform picks:
+// ceil(n u) - 1, clamped to [0, n - 1].
+template <typename T>
+__device__ __forceinline__ int rank_of(const Picks<T>& w, T u) {
+    return static_cast<int>(t_min(t_max(t_ceil(w.nf * u) - T(1), T(0)), w.rank_max));
+}
+
 // One replicate percentile from its pair of order-statistic uniforms.
 template <typename T, typename Pick>
 __device__ __forceinline__ T replicate(const Picks<T>& w, T u1, T u2, Pick pick) {
     const T one = T(1);
-    const T zero = T(0);
-    const T r1 = t_min(t_max(t_ceil(w.nf * u1) - one, zero), w.rank_max);
-    const T r2 = t_min(t_max(t_ceil(w.nf * u2) - one, zero), w.rank_max);
-    const T x1 = pick(static_cast<int>(r1));
-    const T x2 = w.hi == w.idx ? x1 : pick(static_cast<int>(r2));
+    const T x1 = pick(rank_of(w, u1));
+    const T x2 = w.hi == w.idx ? x1 : pick(rank_of(w, u2));
     return (one - w.delta) * x1 + w.delta * x2;
 }
 
@@ -342,18 +389,343 @@ __device__ void block_window_stats(K* sorted, T* reps, int n, int P, uint2 wkey,
     window_picks(sorted, reps, n, P, wkey, perc, nsamples, value_of, score_out, stddev_out);
 }
 
-// The wide body: block_window_stats with the keys in g (device memory),
-// sorted by wide_sort through buf.  Ends with a barrier, so the block may
-// refill g and reps for its next window.
-template <typename T, typename K, typename ValueOf>
-__device__ void wide_window_stats(K* g, K* buf, T* reps, int n, int P, uint2 wkey, T perc,
-                                  int nsamples, ValueOf value_of, T* __restrict__ score_out,
-                                  T* __restrict__ stddev_out) {
-    wide_sort(g, P, buf);
-    window_picks(g, reps, n, P, wkey, perc, nsamples, value_of, score_out, stddev_out);
-    __syncthreads();
+// Order-preserving maps of a sort key to an unsigned integer of its
+// width, and back: a float's bits with the sign bit set when positive and
+// all bits flipped when negative; an int32 rank offset by 2^31.
+template <typename K>
+struct Radix;
+
+template <>
+struct Radix<float> {
+    using U = uint32_t;
+    static __device__ __forceinline__ U to(float x) {
+        const U b = __float_as_uint(x);
+        return b & 0x80000000u ? ~b : b | 0x80000000u;
+    }
+    static __device__ __forceinline__ float from(U u) {
+        return __uint_as_float(u & 0x80000000u ? u & 0x7fffffffu : ~u);
+    }
+};
+
+template <>
+struct Radix<double> {
+    using U = unsigned long long;
+    static __device__ __forceinline__ U to(double x) {
+        const U b = static_cast<U>(__double_as_longlong(x));
+        return b >> 63 ? ~b : b | (1ull << 63);
+    }
+    static __device__ __forceinline__ double from(U u) {
+        return __longlong_as_double(static_cast<long long>(u >> 63 ? u & ~(1ull << 63) : ~u));
+    }
+};
+
+template <>
+struct Radix<int> {
+    using U = uint32_t;
+    static __device__ __forceinline__ U to(int x) { return static_cast<U>(x) ^ 0x80000000u; }
+    static __device__ __forceinline__ int from(U u) { return static_cast<int>(u ^ 0x80000000u); }
+};
+
+// The wide body's shared memory, carved in wide_bytes's order.
+template <typename T, typename U>
+struct BandSmem {
+    struct Scalars {
+        U plo, phi;      // the select's prefixes, then the keys at r_lo and r_hi
+        int klo, khi;    // the targets' ranks among the keys with the prefix
+        int eq_lo;       // keys equal to the key at r_lo
+        int rmin, rmax;  // the band's ends
+        int count;       // band keys gathered
+        U first, last;   // the last pass's bins of r_lo and r_hi, as a key range
+        int below, upto; // keys below first, keys up to last
+    };
+    static_assert(sizeof(Scalars) <= 64, "wide_bytes keeps 64 bytes for the select's scalars");
+    U* band;
+    T* term;
+    T* u1;
+    T* u2;
+    uint2* kj;
+    T* ej;
+    int* hist;           // [2][kRadixBins]: the low target's, the high one's
+    Scalars* sc;
+    __device__ BandSmem(unsigned char* p, int nsamples) {
+        const size_t J = static_cast<size_t>(band_tile_steps(nsamples));
+        band = reinterpret_cast<U*>(p);
+        p += align16(sizeof(U) * kBandKeys);
+        term = reinterpret_cast<T*>(p);
+        p += align16(J * nsamples * sizeof(T));
+        u1 = reinterpret_cast<T*>(p);
+        p += align16(sizeof(T) * nsamples);
+        u2 = reinterpret_cast<T*>(p);
+        p += align16(sizeof(T) * nsamples);
+        kj = reinterpret_cast<uint2*>(p);
+        p += align16(J * 8);
+        ej = reinterpret_cast<T*>(p);
+        p += align16(J * sizeof(T));
+        hist = reinterpret_cast<int*>(p);
+        p += 2 * kRadixBins * 4;
+        sc = reinterpret_cast<Scalars*>(p);
+    }
+};
+
+// key with its bits below `bit` cleared (0 when bit is the key's width).
+template <typename U>
+__device__ __forceinline__ U high_bits(U key, int bit) {
+    return bit >= static_cast<int>(8 * sizeof(U)) ? U(0) : key & ~((U(1) << bit) - U(1));
 }
 
+// Add the lanes with pred to hist[d], one shared atomic a digit a warp.
+// All 32 lanes of the warp call it.
+__device__ __forceinline__ void warp_count(int* hist, unsigned d, bool pred) {
+    const unsigned act = __ballot_sync(kFullMask, pred);
+    if (pred) {
+        const unsigned peers = __match_any_sync(act, d);
+        const unsigned lower = (1u << (threadIdx.x & 31)) - 1u;
+        if ((peers & lower) == 0) atomicAdd(hist + d, __popc(peers));
+    }
+}
+
+// One warp, every lane: the bin of h[0, kRadixBins) that holds the k-th
+// key (from 0) in bin order, and the count of keys in the bins before it.
+__device__ __forceinline__ void radix_bin(const int* h, int k, unsigned* bin, int* below) {
+    constexpr int kPer = kRadixBins / 32;
+    const int lane = threadIdx.x & 31;
+    int c[kPer];
+    int sum = 0;
+#pragma unroll
+    for (int q = 0; q < kPer; ++q) {
+        c[q] = h[kPer * lane + q];
+        sum += c[q];
+    }
+    int incl = sum;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+        const int t = __shfl_up_sync(kFullMask, incl, o);
+        if (lane >= o) incl += t;
+    }
+    int acc = incl - sum;
+    const int src = __ffs(__ballot_sync(kFullMask, acc <= k && k < incl)) - 1;
+    int found = -1;
+#pragma unroll
+    for (int q = 0; q < kPer; ++q) {
+        if (found < 0) {
+            if (acc + c[q] > k) {
+                found = q;
+            } else {
+                acc += c[q];
+            }
+        }
+    }
+    *bin = static_cast<unsigned>(__shfl_sync(kFullMask, kPer * lane + found, src));
+    *below = __shfl_sync(kFullMask, acc, src);
+}
+
+// The wide body (see the top of this file).  Every thread of the block
+// calls it; key_at(i) is key i < n of the window mapped by Radix, and
+// value_of maps a mapped key to its score.  gband holds pmax mapped keys
+// of device scratch for a band wider than band_keys (at most kBandKeys).
+// Thread 0 writes the score and stddev.  Needs blockDim.x >= 64.  Ends
+// with a barrier, so the block may take its next window.
+template <typename T, typename U, typename KeyAt, typename ValueOf>
+__device__ void band_window_stats(unsigned char* smem, KeyAt key_at, U* gband, int n,
+                                  uint2 wkey, T perc, int nsamples, int band_keys,
+                                  ValueOf value_of, T* __restrict__ score_out,
+                                  T* __restrict__ stddev_out) {
+    constexpr int kUBits = 8 * sizeof(U);
+    const BandSmem<T, U> L(smem, nsamples);
+    typename BandSmem<T, U>::Scalars* sc = L.sc;
+    const T one = T(1);
+    const Picks<T> w(n, perc);
+    const int tid = threadIdx.x;
+    const int nt = blockDim.x;
+    const int lane = tid & 31;
+    const int warp = tid >> 5;
+
+    // 1. the bootstrap, tile by tile of steps
+    for (int s = tid; s < nsamples; s += nt) {
+        L.u1[s] = one;
+        L.u2[s] = one;
+    }
+    if (tid == 0) {
+        sc->plo = sc->phi = U(0);
+        sc->rmin = w.idx;
+        sc->rmax = w.hi;
+        sc->count = 0;
+    }
+    const int J = band_tile_steps(nsamples);
+    for (int j0 = 0; j0 <= w.steps; j0 += J) {
+        const int jn = min(J, w.steps + 1 - j0);
+        for (int t = tid; t < jn; t += nt) {
+            const T jf = static_cast<T>(j0 + t);
+            L.kj[t] = tf::fold_in(wkey, static_cast<uint32_t>(j0 + t));
+            L.ej[t] = one / t_max(w.nf - jf, one);
+        }
+        __syncthreads();
+        const int items = jn * nsamples;
+        for (int i = tid; i < items; i += nt) {
+            const int j = i / nsamples;
+            const int s = i - j * nsamples;
+            L.term[i] = t_pow(tf::uniform<T>(L.kj[j], static_cast<uint32_t>(s)), L.ej[j]);
+        }
+        __syncthreads();
+        for (int s = tid; s < nsamples; s += nt) {
+            T u = L.u1[s];
+            T u2 = L.u2[s];
+            for (int j = 0; j < jn; ++j) {
+                u = u * L.term[j * nsamples + s];
+                if (static_cast<T>(j0 + j) == w.t2) u2 = u;
+            }
+            L.u1[s] = u;   // after the last tile: U_(k1), the step t1's u
+            L.u2[s] = u2;
+        }
+        __syncthreads();
+    }
+
+    // 2. the band of ranks every pick falls in
+    int rmin = w.idx;
+    int rmax = w.hi;
+    for (int s = tid; s < nsamples; s += nt) {
+        const int r1 = rank_of(w, L.u1[s]);
+        rmin = min(rmin, r1);
+        rmax = max(rmax, r1);
+        if (w.hi != w.idx) {
+            const int r2 = rank_of(w, L.u2[s]);
+            rmin = min(rmin, r2);
+            rmax = max(rmax, r2);
+        }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+        rmin = min(rmin, __shfl_xor_sync(kFullMask, rmin, o));
+        rmax = max(rmax, __shfl_xor_sync(kFullMask, rmax, o));
+    }
+    if (lane == 0) {
+        atomicMin(&sc->rmin, rmin);
+        atomicMax(&sc->rmax, rmax);
+    }
+    __syncthreads();
+    const int r_lo = sc->rmin;
+    const int r_hi = sc->rmax;
+    if (tid == 0) {
+        sc->klo = r_lo;
+        sc->khi = r_hi;
+    }
+
+    // the keys at r_lo and r_hi, digit by digit from the top, until the
+    // keys in the bins from r_lo's to r_hi's are few enough to sort
+    const int cap = min(band_keys, kBandKeys);
+    bool early = false;
+    for (int shift = kUBits - 8; shift >= 0; shift -= 8) {
+        for (int b = tid; b < 2 * kRadixBins; b += nt) L.hist[b] = 0;
+        __syncthreads();
+        const U plo = sc->plo;
+        const U phi = sc->phi;
+        const bool same = plo == phi;
+        for (int i0 = 0; i0 < n; i0 += kKeysInFlight * nt) {
+            U key[kKeysInFlight];   // the loads first, so they are in flight together
+#pragma unroll
+            for (int q = 0; q < kKeysInFlight; ++q) {
+                const int i = i0 + q * nt + tid;
+                key[q] = i < n ? key_at(i) : U(0);
+            }
+#pragma unroll
+            for (int q = 0; q < kKeysInFlight; ++q) {
+                const bool in = i0 + q * nt + tid < n;
+                const U top = high_bits(key[q], shift + 8);
+                const unsigned d = static_cast<unsigned>(key[q] >> shift) & (kRadixBins - 1);
+                warp_count(L.hist, d, in && top == plo);
+                if (!same) warp_count(L.hist + kRadixBins, d, in && top == phi);
+            }
+        }
+        __syncthreads();
+        if (warp < 2) {   // warp 0 the low target's bin, warp 1 the high one's
+            const int* h = L.hist + (warp == 1 && !same ? kRadixBins : 0);
+            unsigned bin;
+            int below;
+            radix_bin(h, warp == 0 ? sc->klo : sc->khi, &bin, &below);
+            if (lane == 0) {
+                const U digit = static_cast<U>(bin) << shift;
+                if (warp == 0) {
+                    sc->first = plo | digit;
+                    sc->below = r_lo - sc->klo + below;   // keys below the bin
+                    sc->plo = plo | digit;
+                    sc->klo -= below;
+                    if (shift == 0) sc->eq_lo = h[bin];
+                } else {
+                    sc->last = phi | digit | ((U(1) << shift) - U(1));
+                    sc->upto = r_hi - sc->khi + below + h[bin];   // keys up to the bin's end
+                    sc->phi = phi | digit;
+                    sc->khi -= below;
+                }
+            }
+        }
+        __syncthreads();
+        if (sc->upto - sc->below <= min(cap, kEarlyKeys)) {
+            early = true;
+            break;
+        }
+    }
+    // the picks' keys: past the low end's count and before the high end's,
+    // the band of keys in [first, last] sorted; else the key at r_lo below
+    // and the key at r_hi above
+    const U vlo = sc->plo;
+    const U vhi = sc->phi;
+    int le_lo, lt_hi;   // keys before the band, keys before its end
+    U first, last;
+    if (early) {
+        le_lo = sc->below;
+        lt_hi = sc->upto;
+        first = sc->first;
+        last = sc->last;
+    } else {
+        le_lo = r_lo - sc->klo + sc->eq_lo;   // keys <= vlo
+        lt_hi = r_hi - sc->khi;               // keys < vhi
+        first = vlo + U(1);
+        last = vhi - U(1);
+    }
+    const int nb = lt_hi - le_lo;
+    U* band = nb <= cap ? L.band : gband;
+    if (nb > 0) {
+        for (int i0 = 0; i0 < n; i0 += kKeysInFlight * nt) {
+            U key[kKeysInFlight];
+#pragma unroll
+            for (int q = 0; q < kKeysInFlight; ++q) {
+                const int i = i0 + q * nt + tid;
+                key[q] = i < n ? key_at(i) : U(0);
+            }
+#pragma unroll
+            for (int q = 0; q < kKeysInFlight; ++q) {
+                const bool take = i0 + q * nt + tid < n && key[q] >= first && key[q] <= last;
+                const unsigned mask = __ballot_sync(kFullMask, take);
+                int base = 0;
+                if (lane == 0 && mask) base = atomicAdd(&sc->count, __popc(mask));
+                base = __shfl_sync(kFullMask, base, 0);
+                if (take) band[base + __popc(mask & ((1u << lane) - 1u))] = key[q];
+            }
+        }
+        int pb = 1;
+        while (pb < nb) pb <<= 1;
+        for (int i = nb + tid; i < pb; i += nt) band[i] = ~U(0);   // pads sort last
+        __syncthreads();
+        if (band == L.band) {
+            block_sort(band, pb);
+        } else {
+            wide_sort(band, pb, L.band);
+        }
+    }
+
+    // 3. the picks, replicates and stddev
+    auto pick = [&](int r) {
+        return value_of(r < le_lo ? vlo : (r >= lt_hi ? vhi : band[r - le_lo]));
+    };
+    if (tid == 0) *score_out = (one - w.delta) * pick(w.idx) + w.delta * pick(w.hi);
+    for (int s = tid; s < nsamples; s += nt) L.u1[s] = replicate(w, L.u1[s], L.u2[s], pick);
+    __syncthreads();
+    if (tid < 32) {
+        const T sd = lane_order_stddev(L.u1, nsamples, tid);
+        if (tid == 0) *stddev_out = sd;
+    }
+    __syncthreads();
+}
 
 // One comparator of the network within a lane's registers.
 template <typename K>

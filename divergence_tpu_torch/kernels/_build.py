@@ -54,8 +54,9 @@ _SIGNATURES = {
     "fet_snp_logs_{t}": (_P, _I64, _I, _I, _P, _P, _I, _I, _P, _P),
     # logs, rows[3, B], B, key0, key1, perc, nsamples, pmax, out, stream
     "fet_aggregate_{t}": (_P, _P, _I64, _U32, _U32, _D, _I, _I, _P, _P),
-    # ... fet_aggregate's arguments to pmax, then gscratch, out, stream
-    "fet_aggregate_wide_{t}": (_P, _P, _I64, _U32, _U32, _D, _I, _I, _P, _P, _P),
+    # ... fet_aggregate's arguments to pmax, then band_keys, gscratch, out,
+    # stream
+    "fet_aggregate_wide_{t}": (_P, _P, _I64, _U32, _U32, _D, _I, _I, _I, _P, _P, _P),
     # lut, G, span, scratch keys / index x 2 (nullable), lut_sorted,
     # rank_of_entry, stream
     "fet_lut_rank_{t}": (_P, _I, _I, _P, _P, _P, _P, _P, _P, _P),
@@ -65,16 +66,18 @@ _SIGNATURES = {
     # out, stream
     "fet_aggregate_ranks_{t}": (_P, _I, _P, _P, _I64, _U32, _U32, _D, _I, _I, _P,
                                 _P),
-    # ... fet_aggregate_ranks's arguments to pmax, then gscratch, out, stream
-    "fet_aggregate_ranks_wide_{t}": (_P, _I, _P, _P, _I64, _U32, _U32, _D, _I, _I, _P,
-                                     _P, _P),
+    # ... fet_aggregate_ranks's arguments to pmax, then band_keys, gscratch,
+    # out, stream
+    "fet_aggregate_ranks_wide_{t}": (_P, _I, _P, _P, _I64, _U32, _U32, _D, _I, _I, _I,
+                                     _P, _P, _P),
     # av, bv, npos, slots, B, p_in, asize, bsize, lut (nullable), lf, nmax,
     # maxs, key0, key1, perc, nsamples, pmax, out, stream
     "fet_window_{t}": (_P, _P, _P, _P, _I64, _I, _I, _I, _P, _P, _I, _I, _U32,
                        _U32, _D, _I, _I, _P, _P),
-    # ... fet_window's arguments to pmax, then gscratch, out, stream
+    # ... fet_window's arguments to pmax, then band_keys, gscratch, out,
+    # stream
     "fet_window_wide_{t}": (_P, _P, _P, _P, _I64, _I, _I, _I, _P, _P, _I, _I, _U32,
-                            _U32, _D, _I, _I, _P, _P, _P),
+                            _U32, _D, _I, _I, _I, _P, _P, _P),
     # vals, N, lo, npos, B, m, planes scratch [2, ceil(N/32) + 1, m], out,
     # stream
     "css_dissim_{t}": (_P, _I64, _P, _P, _I64, _I, _P, _P, _P),
@@ -102,8 +105,8 @@ _SIGNATURES = {
     # key0, key1, k0, nk, chunk, cstride, m, asize, bitgen, between, ca, cb,
     # out, stream
     "css_mc_coeff": (_U32, _U32, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P, _P),
-    # ... css_mc_coeff's arguments to cb, then gscratch (nullable), out,
-    # stream
+    # ... css_mc_coeff's arguments to cb, then gscratch (the words
+    # css_mc_coeff_form names), out, stream
     "css_mc_coeff_block": (_U32, _U32, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P, _P, _P),
     # dist, m, active, nact, obs, M, k0, nk, chunk, cstride, runs, words,
     # stream

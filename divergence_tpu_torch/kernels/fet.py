@@ -28,10 +28,11 @@ lie on the CPU:
   step's FET part.
 
 K2, K2r and K10 take windows of any width: a warp per window up to 128
-SNPs' padding, a block per window while the window's keys fill at most
-32 KB of shared memory, and past that their ``*_wide`` kernels, which
-sort in a slab of device scratch with the same comparators
-(:func:`window_form` asks the kernel library which).
+SNPs' padding, a block per window to 256, and past that their ``*_wide``
+kernels, which sort nothing: the bootstrap first, then a radix select of the band of ranks its
+picks need (:func:`window_form` asks the kernel library which; the body's
+orders in torch: :func:`order_stat_uniforms_tiled`, :func:`band_picks`,
+:func:`aggregate_band`).
 
 There is no fallback: on a CUDA tensor the kernel runs or the call
 raises.  Each launch adds one to :data:`LAUNCHES`.
@@ -562,6 +563,170 @@ def bitonic_network(keys: torch.Tensor, schedule) -> torch.Tensor:
     return x
 
 
+WIDE_BAND_KEYS = 4096    # band keys the wide body sorts in shared memory (csrc kBandKeys)
+WIDE_EARLY_KEYS = 512    # the wide body's select stops once its band fits (csrc kEarlyKeys)
+WIDE_TERM_TILE = 4096    # bootstrap terms a tile of the wide body holds (csrc kTermTile)
+
+
+def _band_keys(band_keys: int | None) -> int:
+    return WIDE_BAND_KEYS if band_keys is None else int(band_keys)
+
+
+def band_tile_steps(nsamples: int) -> int:
+    """Steps of the bootstrap a tile of the wide body takes
+    (``csrc/fet_window_stats.cuh:band_tile_steps``)."""
+    return WIDE_TERM_TILE // nsamples if nsamples < WIDE_TERM_TILE else 1
+
+
+def order_stat_uniforms_tiled(wkeys, nf, t1, t2, nsamples, steps_max, dtype, tile=None):
+    """:func:`_order_stat_uniforms` in the wide body's order: the steps in
+    tiles of ``tile`` (default :func:`band_tile_steps`), each tile's terms
+    V_j^(1/max(n-j, 1)) drawn and raised for all its steps and samples at
+    once, then folded into u one step after another, u2 captured at j ==
+    t2.  The same product chain, so the same bits."""
+    B = nf.shape[0]
+    J = tile or band_tile_steps(nsamples)
+    u = torch.ones((B, nsamples), dtype=dtype, device=nf.device)
+    u2 = u
+    for j0 in range(0, steps_max + 1, J):
+        js = range(j0, min(j0 + J, steps_max + 1))
+        v = torch.stack([rng.uniform(rng.fold_in(wkeys, j), nsamples, dtype) for j in js],
+                        dim=1)                                             # [B, J, S]
+        e = torch.stack([torch.ones_like(nf) / torch.clamp(nf - float(j), min=1.0)
+                         for j in js], dim=1)                              # [B, J, 1]
+        terms = v ** e
+        for q, j in enumerate(js):
+            u = torch.where(float(j) <= t1, u * terms[:, q], u)
+            u2 = torch.where(float(j) == t2, u, u2)
+    return u, u2
+
+
+def _ordered_ints(keys: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """Keys as int64 in the order of the wide body's unsigned map
+    (``csrc/fet_window_stats.cuh:Radix``; the map with its top bit
+    flipped, so signed order is the map's order) and the map's width."""
+    if keys.dtype == torch.float64:
+        b = keys.view(torch.int64)
+        return torch.where(b < 0, b ^ 0x7FFFFFFFFFFFFFFF, b), 64
+    if keys.dtype == torch.float32:
+        b = keys.view(torch.int32)
+        return torch.where(b < 0, b ^ 0x7FFFFFFF, b).to(torch.int64), 32
+    return keys.to(torch.int64), 32                                        # int32 ranks
+
+
+def _from_ordered(s: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The inverse of :func:`_ordered_ints`."""
+    if dtype == torch.float64:
+        return torch.where(s < 0, s ^ 0x7FFFFFFFFFFFFFFF, s).view(torch.float64)
+    if dtype == torch.float32:
+        s32 = s.to(torch.int32)
+        return torch.where(s32 < 0, s32 ^ 0x7FFFFFFF, s32).view(torch.float32)
+    return s.to(torch.int32)
+
+
+def _digits(s: torch.Tensor, shift: int, width: int) -> torch.Tensor:
+    """The 8-bit digit at ``shift`` of the unsigned map of ordered keys."""
+    d = (s >> shift) & 0xFF
+    return d ^ 0x80 if shift == width - 8 else d                        # the flipped top bit
+
+
+def band_picks(keys: torch.Tensor, ranks: torch.Tensor, early: int = WIDE_EARLY_KEYS
+               ) -> torch.Tensor:
+    """The wide body's picks: the values of the ascending order statistics
+    ``ranks`` (0-based) of one window's keys [n] (float or int32), found
+    without sorting them all.  A radix select runs for the lowest and the
+    highest rank at once (8-bit digits of the ordered map from the top, a
+    histogram a pass of the keys that share each target's prefix); after
+    a pass whose bins from the low target's to the high target's hold at
+    most ``early`` keys (the kernel's min(band_keys, kEarlyKeys)), those
+    keys alone are sorted and a rank picks the band's key at its offset
+    from the keys below.  Past the last digit (the ends tied over more
+    than ``early`` keys) a rank below the count of
+    keys <= the low key picks the low key, one at or past the count of
+    keys < the high key the high key, and only the keys strictly between
+    the two are sorted.  Equal to ``torch.sort(keys)`` picked at
+    ``ranks``, bit for bit."""
+    s, width = _ordered_ints(keys)
+    r_lo, r_hi = int(ranks.min()), int(ranks.max())
+    cand_lo = torch.ones_like(s, dtype=torch.bool)
+    cand_hi = cand_lo.clone()
+    k_lo, k_hi = r_lo, r_hi
+    band = None
+    for shift in range(width - 8, -1, -8):
+        d = _digits(s, shift, width)
+        ends = []
+        for cand, k in ((cand_lo, k_lo), (cand_hi, k_hi)):
+            hist = torch.bincount(d[cand], minlength=256)
+            cum = torch.cumsum(hist, 0)
+            b = int(torch.searchsorted(cum, torch.tensor(k, dtype=cum.dtype), right=True))
+            ends.append((b, int(cum[b - 1]) if b > 0 else 0, int(hist[b])))
+        (b_lo, below_lo, _), (b_hi, below_hi, count_hi) = ends
+        below = r_lo - k_lo + below_lo                  # keys before the low bin
+        upto = r_hi - k_hi + below_hi + count_hi        # keys up to the high bin's end
+        first = s[cand_lo & (d == b_lo)].min()
+        last = s[cand_hi & (d == b_hi)].max()
+        k_lo, k_hi = k_lo - below_lo, k_hi - below_hi
+        cand_lo &= d == b_lo
+        cand_hi &= d == b_hi
+        if upto - below <= early:
+            band = torch.sort(s[(s >= first) & (s <= last)]).values
+            le_lo, lt_hi = below, upto
+            break
+    if band is None:
+        vlo, vhi = s[cand_lo][0], s[cand_hi][0]
+        le_lo = r_lo - k_lo + int(cand_lo.sum())       # keys <= vlo
+        lt_hi = r_hi - k_hi                             # keys < vhi
+        band = torch.sort(s[(s > vlo) & (s < vhi)]).values
+    if band.numel() != max(lt_hi - le_lo, 0):
+        raise AssertionError("band count differs from the select's counts")
+    out = torch.empty_like(ranks)
+    inside = (ranks >= le_lo) & (ranks < lt_hi)
+    out[inside] = band[ranks[inside] - le_lo]
+    if not bool(inside.all()):
+        out[ranks < le_lo] = vlo
+        out[ranks >= lt_hi] = vhi
+    return _from_ordered(out, keys.dtype)
+
+
+def aggregate_band(keys, npos, perc, wkeys, nsamples, dtype, value_of, tile=None,
+                   early=WIDE_EARLY_KEYS):
+    """The wide body's window score and bootstrap stddev (keys [B, P],
+    each window's n valid keys first and in any order): the tiled
+    bootstrap (:func:`order_stat_uniforms_tiled`) before any key is read,
+    then the picks by :func:`band_picks`, the replicates and the
+    lane-order stddev as :func:`_aggregate_sorted`.  Equal to
+    :func:`_aggregate` / :func:`_aggregate_ranks` bit for bit."""
+    P = keys.shape[-1]
+    idx, hi_idx, delta = _interp_ranks(npos, perc, dtype=dtype)
+    nf = npos.to(dtype)[:, None]
+    t1 = torch.clamp(nf - 1.0 - idx.to(dtype)[:, None], min=0.0)
+    t2 = nf - 1.0 - hi_idx.to(dtype)[:, None]
+    u1, u2 = order_stat_uniforms_tiled(wkeys, nf, t1, t2, nsamples,
+                                       _steps_max(P, perc, dtype), dtype, tile)
+
+    def rank_of(u):
+        r = torch.ceil(nf * u) - 1.0
+        r = torch.minimum(torch.clamp(r, min=0.0), torch.clamp(nf - 1.0, min=0.0))
+        return r.to(torch.int64)
+
+    r1, r2 = rank_of(u1), rank_of(u2)
+    B = keys.shape[0]
+    scores = torch.zeros(B, dtype=dtype, device=keys.device)
+    stddev = torch.zeros(B, dtype=dtype, device=keys.device)
+    for b in range(B):
+        n = int(npos[b])
+        if n <= 0:
+            continue
+        want = torch.cat([torch.stack([idx[b], hi_idx[b]]), r1[b], r2[b]])
+        x = value_of(band_picks(keys[b, :n], want, early))
+        d = delta[b]
+        scores[b] = (1.0 - d) * x[0] + d * x[1]
+        x1 = x[2:2 + nsamples]
+        x2 = x1 if bool(hi_idx[b] == idx[b]) else x[2 + nsamples:]
+        stddev[b] = _lane_stddev(((1.0 - d) * x1 + d * x2)[None])[0]
+    return scores, stddev
+
+
 def _window_pad(max_npos: int) -> int:
     """Padded per-window SNP count: the next power of two >= the largest
     window, at least 32 (the JAX engine's ``P``)."""
@@ -610,9 +775,9 @@ def window_form(pmax: int, nsamples: int, key_bytes: int, value_bytes: int,
     window pads to ``pmax`` (sort keys of ``key_bytes``, replicates of
     ``value_bytes``), by the kernel library's own reckoning
     (``csrc/fet_window_stats.cuh:window_form``): ``"warp"``, ``"block"``
-    or ``"wide"`` (on device scratch).  The block body takes windows
-    whose keys fill at most 32 KB (P up to 4,096 in float64, 8,192 in
-    float32 and int32 ranks), where it is the faster of the two."""
+    or ``"wide"`` (the band body, no sort).  The block body takes
+    windows to P = 256, where it is the faster of the two
+    (``tests/measure_large_forms.py``)."""
     return _window_form(pmax, nsamples, key_bytes, value_bytes, device)[0]
 
 
@@ -654,6 +819,7 @@ def fet_aggregate(
     chrom_key: torch.Tensor,  # [2] chromosome key; windows fold in their slot
     perc: float,
     nsamples: int,
+    band_keys: int | None = None,
 ) -> torch.Tensor:
     """Window percentile + bootstrap stddev of every window of one
     chromosome (``divergence_tpu/kernels/fet.py:fet_aggregate_all``).
@@ -661,7 +827,10 @@ def fet_aggregate(
 
     Window descriptors may live on the host; on a CUDA ``snp_logs`` the
     wrapper reads the largest window from them (host tensors avoid a
-    device sync) and uploads them packed."""
+    device sync) and uploads them packed.  ``band_keys``: the widest band
+    of keys the wide body sorts in shared memory before it takes device
+    scratch (default and most :data:`WIDE_BAND_KEYS`; 0 sends every band
+    to device scratch)."""
     if is_cpu(snp_logs):
         return fet_aggregate_plain(
             snp_logs, lo, npos, slot, chrom_key, perc, nsamples
@@ -681,7 +850,7 @@ def fet_aggregate(
     wide, scratch = _wide_scratch(pmax, nsamples, dtype, snp_logs.element_size(), dev)
     if wide:
         launch(LAUNCHES, "fet_aggregate_wide", f"fet_aggregate_wide_{dtype_suffix(dtype)}",
-               dev, *args, ptr(scratch), ptr(out))
+               dev, *args, _band_keys(band_keys), ptr(scratch), ptr(out))
     else:
         launch(LAUNCHES, "fet_aggregate", f"fet_aggregate_{dtype_suffix(dtype)}", dev, *args,
                ptr(out))
@@ -799,12 +968,14 @@ def fet_aggregate_ranks(
     chrom_key: torch.Tensor,   # [2] chromosome key; windows fold in their slot
     perc: float,
     nsamples: int,
+    band_keys: int | None = None,
 ) -> torch.Tensor:
     """:func:`fet_aggregate` in LUT-rank space
     (``divergence_tpu/kernels/fet.py:fet_aggregate_all_ranks``): every
     window's percentile and bootstrap stddev from its SNPs' ranks, equal
     bit for bit to :func:`fet_aggregate` on ``lut_sorted[ranks]``.
-    Returns [2, B] in ``lut_sorted.dtype``; descriptors as there."""
+    Returns [2, B] in ``lut_sorted.dtype``; descriptors and ``band_keys``
+    as there."""
     if is_cpu(ranks):
         return fet_aggregate_ranks_plain(
             lut_sorted, ranks, lo, npos, slot, chrom_key, perc, nsamples
@@ -830,7 +1001,7 @@ def fet_aggregate_ranks(
     sfx = dtype_suffix(dtype)
     if wide:
         launch(LAUNCHES, "fet_aggregate_ranks_wide", f"fet_aggregate_ranks_wide_{sfx}", dev,
-               *args, ptr(scratch), ptr(out))
+               *args, _band_keys(band_keys), ptr(scratch), ptr(out))
     else:
         launch(LAUNCHES, "fet_aggregate_ranks", f"fet_aggregate_ranks_{sfx}", dev, *args,
                ptr(out))
@@ -880,6 +1051,7 @@ def fet_window_batch(
     nmax: int,
     fast: bool = False,
     slot: torch.Tensor | None = None,   # [B] window slots; default arange(B)
+    band_keys: int | None = None,       # as fet_aggregate's
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """FET scores and bootstrap stddev of a batch of pre-gathered windows
     (``divergence_tpu/kernels/fet.py:fet_window_batch``), the sharded
@@ -924,7 +1096,7 @@ def fet_window_batch(
     wide, scratch = _wide_scratch(pmax, nsamples, dtype, out.element_size(), dev)
     if wide:
         launch(LAUNCHES, "fet_window_wide", f"fet_window_wide_{dtype_suffix(dtype)}", dev,
-               *args, ptr(scratch), ptr(out))
+               *args, _band_keys(band_keys), ptr(scratch), ptr(out))
     else:
         launch(LAUNCHES, "fet_window", f"fet_window_{dtype_suffix(dtype)}", dev, *args,
                ptr(out))

@@ -31,8 +31,8 @@ Kernels (``csrc/``) carry the work on a CUDA device:
 * ``css_mc_coeff``  (K7) — the columns of ``M`` for a range of chunks,
   bit-equal to :func:`_shared_coeff`, for either bitgen, each chunk's
   columns padded to whole 32-bit hit words (:func:`coeff_range`); past
-  m = 64, ``css_mc_coeff_block`` writes the same columns, 32 a block
-  (:func:`coeff_form`);
+  m = 64, ``css_mc_coeff_block`` ranks each column once and writes the
+  same columns from a table of its facts (:func:`coeff_form`);
 * ``css_mc_shared`` (K7) — the product ``D_flat[active] @ M`` of a range
   and its hit test, packed into words (:func:`mc_hit_words`);
 * ``css_mc_scan``   (K7) — the adaptive stop through a range's hit words,
@@ -284,6 +284,41 @@ def rank_network(keys: torch.Tensor, chunk: int, m: int, bitgen: str = "mix") ->
     return network_ranks(_draw_words(keys, chunk, m, bitgen)).transpose(-1, -2)
 
 
+def coeff_facts(r: torch.Tensor, asize: int, bsize: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """K7's large-panel table of facts (``csrc/css_mc.cu:css_mc_coeff_rank``)
+    of the ranks r [m, K] of K columns: (fact [m, K] int64, u [m, K] bool)
+    with fact_j = succ_j | cls_j << 16 (succ_j the individual of rank r_j
+    + 1, 0xFFFF for none; cls_j 1 on the a-chain, 2 on the b-chain, else 0)
+    and u_j = r_j < a."""
+    m = asize + bsize
+    order = torch.empty_like(r)
+    order.scatter_(0, r, torch.arange(m, device=r.device)[:, None].expand_as(r))
+    succ = torch.where(r + 1 < m, order.gather(0, (r + 1).clamp(max=m - 1)), 0xFFFF)
+    cls = torch.where(r < asize - 1, 1, torch.where((r >= asize) & (r < m - 1), 2, 0))
+    return succ | (cls << 16), r < asize
+
+
+def coeff_from_facts(fact: torch.Tensor, u: torch.Tensor, asize: int,
+                     bsize: int) -> torch.Tensor:
+    """M [m*m, K] float32 from :func:`coeff_facts` as K7's write pass
+    (``css_mc_coeff_write``) builds it: row j*m + l of column c is
+    (u_l ? 0 : (u_j ? 1/(ab) : 0)) - (l == succ_j ? cw_j : 0), one float32
+    subtraction; a padding column (u = 0, no successor) gives +0.0."""
+    m = asize + bsize
+    between, ca, cb = _coeff_constants(asize, bsize)
+    f32 = torch.float32
+    bet = torch.where(u, torch.tensor(between, dtype=f32), torch.tensor(0.0, dtype=f32))
+    cls = fact >> 16
+    cw = torch.where(cls == 1, torch.tensor(ca, dtype=f32),
+                     torch.where(cls == 2, torch.tensor(cb, dtype=f32),
+                                 torch.tensor(0.0, dtype=f32)))
+    succ = fact & 0xFFFF
+    ell = torch.arange(m, device=fact.device)[None, :, None]            # [1, l, 1]
+    b = torch.where(u[None, :, :], torch.tensor(0.0, dtype=f32), bet[:, None, :])
+    chain = torch.where(ell == succ[:, None, :], cw[:, None, :], torch.tensor(0.0, dtype=f32))
+    return (b - chain).reshape(m * m, -1)
+
+
 def nonzero_walk(distf: torch.Tensor, r: torch.Tensor, asize: int, bsize: int) -> torch.Tensor:
     """CSS [B, K] float32 of the ranks r [B, m, K] against distf [B, m, m]
     as the large-panel body's lanes add them (``csrc/css_perm_block.cuh``
@@ -407,8 +442,7 @@ def coeff_range(
     if form == "thread":
         launch(LAUNCHES, "css_mc_coeff", "css_mc_coeff", device, *args, ptr(out))
     else:
-        scratch = (torch.empty(words, dtype=torch.int32, device=device)
-                   if form == "device" else None)
+        scratch = torch.empty(words, dtype=torch.int32, device=device)
         launch(LAUNCHES, "css_mc_coeff_block", "css_mc_coeff_block", device, *args,
                ptr(scratch), ptr(out))
     COEFF_LAUNCHES[bitgen] += 1
@@ -419,15 +453,15 @@ def coeff_form(m: int, device: torch.device | None = None) -> str:
     """The kernel :func:`coeff_range` launches at panel size m on
     ``device``, by the kernel library's own reckoning
     (``csrc/css_mc.cu:css_mc_coeff_form``): ``"thread"``
-    (``css_mc_coeff``, a column a thread, m <= 64), ``"shared"``
-    (``css_mc_coeff_block``, 32 columns' draws and ranks in a block's
-    shared memory, m <= 908 on an H100) or ``"device"`` (the same kernel,
-    those in device scratch)."""
+    (``css_mc_coeff``, a column a thread, m <= 64) or ``"block"``
+    (``css_mc_coeff_block``: each column ranked once by a warp into a
+    table of per-individual facts in device scratch, then M written 16
+    bytes a lane from it)."""
     return _coeff_form(m, WORD_BITS, device)[0]
 
 
 def _coeff_form(m, ncols, device):
-    return query_form(("thread", "shared", "device"), "css_mc_coeff_form", device, m, ncols)
+    return query_form(("thread", "block"), "css_mc_coeff_form", device, m, ncols)
 
 
 def shared_coeff(key, k0, nk, m, asize, bsize, chunk, device,

@@ -14,11 +14,12 @@ kernels, on one CUDA card:
    largest relative error, and the error against the sums' magnitude,
    |k - p| / (n rms^q) with rms^2 = s^2 / n (``power_err``).
 
-2. The FET window body by padded width P = 4,096 to 32,768: K2
+2. The FET window body by padded width P = 256 to 32,768: K2
    (float32 and float64 logs) and K2r (int32 rank keys, float64 values)
    on the block body (the window's keys in shared memory, one block a
-   window) and on the wide body (keys in device scratch, a persistent
-   grid), launched directly, on windows of ~0.6 P SNPs at a fifth of a
+   window) and on the wide body (no sort: the bootstrap, then a radix
+   select of the band of ranks it picks; a persistent grid), launched
+   directly, on windows of ~0.6 P SNPs at a fifth of a
    window's step over 8 M random per-SNP scores (the bench FET workload's
    widths at 125 kb to 1 Mb); CUDA event ms, mean of 3 after a
    warm call, and whether the two bodies give the same bits.
@@ -46,7 +47,7 @@ from divergence_tpu_torch.kernels._cuda import dtype_suffix, launch, ptr  # noqa
 from divergence_tpu_torch.tools.synth import make_panel  # noqa: E402
 
 PANELS = (21, 64, 128, 200, 300)
-WIDTHS = (4096, 8192, 16384, 32768)
+WIDTHS = (256, 512, 1024, 2048, 4096, 8192, 16384, 32768)
 NSNPS = 8_000_000
 PERC, NSAMPLES = 0.95, 100
 
@@ -144,8 +145,9 @@ def fet_bodies(dev) -> None:
             kb = torch.empty(0, dtype=kdt).element_size()
             vb = torch.empty(0, dtype=vdt).element_size()
             big = 1 << 20
-            grid = kfet._window_form(big, NSAMPLES, kb, vb, dev)[1] // (big * kb)
-            scratch = torch.empty(grid * P, dtype=kdt, device=dev)
+            # the wide body's slabs of P keys (two a block of its grid)
+            slabs = kfet._window_form(big, NSAMPLES, kb, vb, dev)[1] // (big * kb)
+            scratch = torch.empty(slabs * P, dtype=kdt, device=dev)
             sfx = dtype_suffix(vdt)
             if name == "K2":
                 src = logs64.to(vdt)
@@ -159,7 +161,8 @@ def fet_bodies(dev) -> None:
             outs = {f: torch.empty((2, B), dtype=vdt, device=dev) for f in ("block", "wide")}
             counts = dict(kfet.LAUNCHES)
             ms = {"wide": event_ms(lambda: launch(  # noqa: B023
-                counts, f"{stem}_wide", f"{stem}_wide_{sfx}", dev, *args, ptr(scratch),  # noqa: B023
+                counts, f"{stem}_wide", f"{stem}_wide_{sfx}", dev, *args,  # noqa: B023
+                kfet.WIDE_BAND_KEYS, ptr(scratch),  # noqa: B023
                 ptr(outs["wide"])))}  # noqa: B023
             if kb * P + vb * NSAMPLES > smem:
                 print(f"{name} {str(vdt)[6:]} keys {str(kdt)[6:]} P = {P}: {B} windows, "

@@ -97,3 +97,30 @@ def test_lane_stddev_is_the_kernels_order(prec, nsamples):
     assert got.dtype == ndt and np.array_equal(got, want)
     np.testing.assert_allclose(got, reps.astype(np.float64).std(axis=1),
                                rtol=TOL[prec] * 10, atol=0)
+
+
+@pytest.mark.parametrize("nsamples", [37, 100])
+@pytest.mark.parametrize("perc", [0.95, 1.0, 0.5, 0.0])
+@pytest.mark.parametrize("prec", ["exact", "fast"])
+def test_band_body_matches_jax_aggregate(prec, perc, nsamples):
+    """The wide body's order (aggregate_band: the bootstrap in tiles of
+    steps before any key is read, then the picks from a radix select of
+    the band of ranks) on the same windows: within TOL of JAX's _aggregate
+    and bit for bit the sorting bodies' plain version, _aggregate."""
+    tdt, jdt, ndt = DTYPES[prec]
+    logs, npos = _windows(ndt, seed=int(perc * 100) + nsamples + 1)
+    slot = np.arange(len(npos), dtype=np.int64) * 5 + 1
+    key = jax.random.fold_in(jax.random.PRNGKey(6), 2)
+    want = jfet._aggregate(jnp.asarray(logs), jnp.asarray(npos), perc,
+                           jslot_keys(key, jnp.asarray(slot)), nsamples, jdt)
+    wkeys = rng.slot_keys(rng.fold_in(rng.prng_key(6), 2), torch.from_numpy(slot))
+    got = tfet.aggregate_band(torch.from_numpy(logs), torch.from_numpy(npos), perc, wkeys,
+                              nsamples, tdt, lambda v: v, tile=5)
+    for g, w in zip(got, want):
+        w = np.asarray(w, dtype=np.float64)
+        err = np.abs(g.double().numpy() - w) / np.maximum(np.abs(w), 1.0)
+        assert err.max() <= TOL[prec], (err.max(), np.argmax(err))
+    plain = tfet._aggregate(torch.from_numpy(logs), torch.from_numpy(npos), perc, wkeys,
+                            nsamples, tdt)
+    for g, p in zip(got, plain):
+        assert torch.equal(g.view(torch.uint8), p.view(torch.uint8))

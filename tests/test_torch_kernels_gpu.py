@@ -58,10 +58,12 @@ shared stream within m 2^-24 of each sum's magnitude (large_power_band:
 its product adds a score's m^2 terms one after another), approx p within
 the band the plain version meets against the JAX package at m = 128 and
 200 (LARGE_LOG10_P_BAND); the step at 70 + 58 against plain=True.  FET windows
-of P = 4,096 to 65,536 SNPs' padding (the block body to 32 KB of keys,
-then the wide body on device scratch): K2 at the FET tolerances, K2r = K2 and K10 = K1 -> K2
-bit for bit."""
+of P = 4,096 to 65,536 SNPs' padding (the wide body past P = 256: the
+bootstrap first, then a radix select of the band of ranks it picks): K2 at
+the FET tolerances, K2r = K2 and K10 = K1 -> K2 bit for bit; the wide body's
+edge cases and its bytes equal to the block body's at the crossover."""
 
+import ctypes
 import shutil
 from pathlib import Path
 
@@ -77,6 +79,7 @@ from divergence_tpu_torch.kernels import _build
 from divergence_tpu_torch.kernels import css as kcss
 from divergence_tpu_torch.kernels import fet as kfet
 from divergence_tpu_torch.kernels import perm as kperm
+from divergence_tpu_torch.kernels._cuda import launch, ptr
 from divergence_tpu_torch.tools.synth import make_chromosome, make_freq_chromosome, make_panel
 
 TOL = {"exact": 1e-12, "fast": 1e-5}
@@ -504,7 +507,9 @@ GATHERED_SWITCH = [207, 208]                     # at a = (m + 1) // 2
 # K5 and K6: both sides of each switch their form queries report up to
 # SWITCH_TOP (warp | block | device), read on the card by _switch_sizes
 SWITCH_TOP = 400
-COEFF_SWITCH = [64, 65, 908, 909]                # thread | shared | device
+# K7's coefficients: thread | block (each column ranked once into device
+# scratch; 908 | 909 was the switch from shared to device memory before)
+COEFF_SWITCH = [64, 65, 908, 909]
 # K8 / K11 / K9 window stream: register | shared | split | device (float32,
 # float64): the window's D and 16 warps' 8-bit tables in a block's
 # shared memory, then D there and the tables in device scratch, then D in
@@ -513,9 +518,10 @@ WINDOW_SWITCH = {"f32": [64, 65, 128, 129, 232, 233], "f64": [64, 65, 184, 185, 
 # the MC's large-panel body: its register sort (p = 128, 256) and key slab
 # (p = 512), both forms
 MC_LARGE_M = [65, 128, 200, 256, 257, 300]
-# K2 / K2r / K10 by (key bytes, value bytes): warp | block | wide
-FET_SWITCH = {(8, 8): [128, 256, 4096, 8192], (4, 4): [128, 256, 8192, 16384],
-              (4, 8): [128, 256, 8192, 16384]}
+# K2 / K2r / K10 by (key bytes, value bytes): warp | block | wide (the
+# block body takes P = 256 alone, tests/measure_large_forms.py)
+FET_SWITCH = {(8, 8): [128, 256, 256, 512], (4, 4): [128, 256, 256, 512],
+              (4, 8): [128, 256, 256, 512]}
 
 
 def _switch_sizes(form, lo: int = 2, hi: int = SWITCH_TOP) -> list:
@@ -552,8 +558,8 @@ def test_kernel_forms_switch_where_the_slabs_stop_fitting(cuda):
     assert _switch_sizes(lambda m: kcss.smacof_form(m, 1, f32)) == [97, 98, 302, 303]
     # at 110 + 90 in float64 K6 keeps its slab in shared memory
     assert kcss.smacof_form(200, 1, f64) == "block"
-    assert [kperm.coeff_form(m) for m in (64, 65, 908, 909)] == [
-        "thread", "shared", "shared", "device"]
+    assert [kperm.coeff_form(m) for m in COEFF_SWITCH] == [
+        "thread", "block", "block", "block"]
     assert [kcss.smacof_lanes(m, 1, f64) for m in (68, 69)] == [kcss.WARP_LANES,
                                                                kcss.BLOCK_LANES]
     # K8 (its float64 form too), K11 and K9's window stream: their per-warp
@@ -567,7 +573,7 @@ def test_kernel_forms_switch_where_the_slabs_stop_fitting(cuda):
             "warp", "block", "block", "wide"], (kb, vb)
     # at 70 + 58 and 110 + 90 every large-panel kernel runs
     for m in (128, 200):
-        assert kcss.dissim_form(m) == "tiles" and kperm.coeff_form(m) == "shared"
+        assert kcss.dissim_form(m) == "tiles" and kperm.coeff_form(m) == "block"
         assert kcss.cmds_form(m, f64) == "block" and kcss.smacof_form(m, 1, f32) == "block"
 
 
@@ -1394,9 +1400,8 @@ def _wide_logs(cuda, P, B, seed):
 @pytest.mark.parametrize("prec", ["exact", "fast"])
 @pytest.mark.parametrize("P", [4096, 8192, 16384, 32768, 65536])
 def test_fet_wide_windows(cuda, prec, P):
-    """K2, K2r and K10 on windows of ~P SNPs (the block body up to 32 KB
-    of keys, the wide body past it: float64 from P = 8,192, float32 and
-    int32 ranks from 16,384): K2 against its plain
+    """K2, K2r and K10 on windows of ~P SNPs (the wide body, past the
+    block body's P = 256): K2 against its plain
     version at the FET tolerances (stddev beyond them on at most one
     window), K2r = K2 and K10 = K1 -> K2 bit for bit."""
     fast = prec == "fast"
@@ -1431,20 +1436,139 @@ def test_fet_wide_windows(cuda, prec, P):
     assert torch.equal(_float_bits(s), _float_bits(kk[0]))
     assert torch.equal(_float_bits(d), _float_bits(kk[1]))
 
+def coeff_cases(m: int) -> list:
+    """(nk, chunk) cases of K7's large-panel coefficients at m: 1 and 16
+    chunks of 100 (ragged: 28 padding columns a chunk) and 256; at m >= 900
+    16 chunks of 100 only (M [m^2, 2,048]: 6.8 GB at m = 909)."""
+    if m >= 900:
+        return [(1, 100), (1, 256), (16, 100)]
+    return [(1, 100), (1, 256), (16, 100), (16, 256)]
+
+
+def _direct_bodies(cuda, logs, lo, npos, slot, key, perc, nsamples):
+    """K2 on the same windows by its block body and by its wide body,
+    both launched directly at the launch's own P (whichever the form
+    query would pick), as (block out, wide out)."""
+    dev = logs.device
+    rows, pmax = kfet._window_rows(lo, npos, slot, logs.shape[0], dev)
+    kb = logs.element_size()
+    big = 1 << 20
+    slabs = kfet._window_form(big, nsamples, kb, kb, dev)[1] // (big * kb)
+    scratch = torch.empty(slabs * pmax, dtype=logs.dtype, device=dev)
+    args = (ptr(logs), ptr(rows), lo.numel(),
+            *(ctypes.c_uint32(int(w)) for w in key.tolist()), ctypes.c_double(perc), nsamples,
+            pmax)
+    sfx = "f32" if logs.dtype == torch.float32 else "f64"
+    counts = dict(kfet.LAUNCHES)
+    outs = [torch.empty((2, lo.numel()), dtype=logs.dtype, device=dev) for _ in range(2)]
+    launch(counts, "fet_aggregate", f"fet_aggregate_{sfx}", dev, *args, ptr(outs[0]))
+    launch(counts, "fet_aggregate_wide", f"fet_aggregate_wide_{sfx}", dev, *args,
+           kfet.WIDE_BAND_KEYS, ptr(scratch), ptr(outs[1]))
+    return outs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prec", ["exact", "fast"])
+def test_fet_wide_body_bytes_equal_block_body_at_crossover(cuda, prec):
+    """At the crossover (the widest P the block body takes and the next)
+    K2's block and wide bodies give the same bytes on the same windows."""
+    fast = prec == "fast"
+    vb = 4 if fast else 8
+    P0 = max(P for P in (256, 512, 1024, 2048, 4096, 8192, 16384)
+             if kfet.window_form(P, 100, vb, vb) == "block")
+    maxs, nmax = kfet.support_size(11, 10), 23
+    key = rng.fold_in(rng.prng_key(3), rng.chrom_hash("chrW"))
+    for P in (P0, 2 * P0):
+        vals, lo, npos, slot = _wide_logs(cuda, P, 8, seed=P)
+        logs = kfet.fet_snp_logs(vals, 11, maxs, nmax, fast)
+        block, wide = _direct_bodies(cuda, logs, lo, npos, slot, key, 0.95, 100)
+        torch.cuda.synchronize()
+        assert torch.equal(block.view(torch.uint8), wide.view(torch.uint8)), P
+
+
+def _edge_logs(cuda, kind, P, dtype, seed):
+    """Per-SNP scores for the wide body's edge cases: "ties" (97 % zeros of
+    the precision's sign, the rest exponential, one +inf), else K1-like
+    exponential scores with a third zeros."""
+    rs = np.random.default_rng(seed)
+    N = 3 * P
+    zero = -0.0 if dtype == torch.float64 else 0.0
+    share = 0.97 if kind == "ties" else 0.33
+    x = np.where(rs.random(N) < share, zero, rs.exponential(size=N))
+    x[N // 2] = np.inf
+    return torch.from_numpy(x).to(dtype).to(cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prec", ["exact", "fast"])
+@pytest.mark.parametrize("case", ["ties", "forced_band", "nsamples37", "perc0.5",
+                                  "perc0.999", "small_n"])
+def test_fet_wide_body_edges(cuda, prec, case):
+    """K2 and K2r's wide body on its edge cases against the plain versions
+    (scores within TOL, stddev beyond it on at most one window, as
+    test_fet_wide_windows): a tie-heavy window, every band sorted in device scratch
+    (band_keys=0) and equal bit for bit to the shared-memory band, 37
+    samples, perc 0.5 and 0.999, windows of 1 .. 40 SNPs among wide ones;
+    K2r = K2 where the ranks index the scores' sorted LUT."""
+    dtype = torch.float32 if prec == "fast" else torch.float64
+    P = 16384 if prec == "fast" else 8192
+    perc, nsamples = 0.95, 100
+    if case == "nsamples37":
+        nsamples = 37
+    if case.startswith("perc"):
+        perc = float(case[4:])
+    logs = _edge_logs(cuda, "ties" if case == "ties" else "plain", P, dtype, seed=len(case))
+    rs = np.random.default_rng(11)
+    B = 7
+    npos = rs.integers(P // 2 + 1, P + 1, size=B)
+    npos[0] = P
+    if case == "small_n":
+        npos[1:4] = (1, 2, 40)
+    lo = rs.integers(0, logs.shape[0] - npos + 1)
+    lo, npos = torch.from_numpy(lo), torch.from_numpy(npos)
+    slot = torch.arange(B, dtype=torch.int64) * 3 + 1
+    key = rng.fold_in(rng.prng_key(9), rng.chrom_hash("chrE"))
+    assert kfet.window_form(P, nsamples, dtype.itemsize, dtype.itemsize) == "wide"
+    kfet.reset_launches()
+    k2 = kfet.fet_aggregate(logs, lo, npos, slot, key, perc, nsamples)
+    assert kfet.LAUNCHES["fet_aggregate_wide"] == 1
+    p = kfet.fet_aggregate_plain(logs, lo, npos, slot, key, perc, nsamples)
+    torch.cuda.synchronize()
+    fin = torch.isfinite(p).all(dim=0)   # a window holding the +inf score: byte for byte
+    assert torch.equal(k2[:, ~fin].contiguous().view(torch.uint8),
+                       p[:, ~fin].contiguous().view(torch.uint8))
+    assert _rel(k2[0][fin], p[0][fin]) <= TOL[prec]
+    sd = (k2[1][fin].double() - p[1][fin].double()).abs() / \
+        p[1][fin].double().abs().clamp(min=1.0)
+    assert int((sd > TOL[prec]).sum()) <= 1
+    if case == "forced_band":
+        forced = kfet.fet_aggregate(logs, lo, npos, slot, key, perc, nsamples, band_keys=0)
+        assert torch.equal(forced.view(torch.uint8), k2.view(torch.uint8))
+    # K2r on the ranks of the scores into their sorted distinct values
+    lut, ranks = torch.unique(logs, sorted=True, return_inverse=True)
+    k2r = kfet.fet_aggregate_ranks(lut.contiguous(), ranks.to(torch.int32).contiguous(), lo,
+                                   npos, slot, key, perc, nsamples,
+                                   band_keys=0 if case == "forced_band" else None)
+    assert torch.equal(k2r.view(torch.uint8), k2.view(torch.uint8))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("m", LARGE_M + COEFF_SWITCH)
 @pytest.mark.parametrize("bitgen", ["mix", "threefry"])
 def test_css_mc_coeff_kernel_large_panels(cuda, m, bitgen):
-    """K7's coefficients at large m (css_mc_coeff_block, its draws and ranks
-    in shared or device memory) bit-equal to the plain version, chunks of
-    100 (ragged) and 256."""
+    """K7's coefficients at large m (css_mc_coeff_block: each column ranked
+    once into a table of facts, then M written 16 bytes a lane) bit-equal
+    to the plain version (coeff_range_plain, shared_coeff_plain padded)
+    for coeff_cases(m)."""
     key = rng.fold_in(rng.prng_key(5), 2)
     asize, bsize = (m + 1) // 2, m // 2
-    for nk, chunk in ((3, 100), (2, 256) if m < 900 else (1, 32)):
+    for nk, chunk in coeff_cases(m):
         k = kperm.coeff_range(key, 2, nk, m, asize, bsize, chunk, cuda, bitgen)
         p = kperm.coeff_range_plain(key, 2, nk, m, asize, bsize, chunk, cuda, bitgen)
         torch.cuda.synchronize()
-        assert torch.equal(k.view(torch.int32), p.view(torch.int32)), (m, chunk)
+        assert torch.equal(k.view(torch.int32), p.view(torch.int32)), (m, nk, chunk)
+        del k, p
+        torch.cuda.empty_cache()
 
 
 @pytest.mark.gpu
@@ -1616,7 +1740,8 @@ def _synthetic_gathered(B, P, npos_max, asize, bsize, seed):
 @pytest.mark.parametrize("prec", ["exact", "fast"])
 @pytest.mark.parametrize("P", [256, 4096])
 def test_fet_window_kernel_block_path(cuda, prec, P):
-    """K10's block body (P > 128) against its plain version."""
+    """K10 against its plain version at P = 256 (the block body) and 4,096
+    (the wide body)."""
     av, bv, npos, slot = _synthetic_gathered(24, P, P - 3, 11, 10, seed=P)
     maxs, nmax = kfet.support_size(11, 10), 23
     key = rng.fold_in(rng.prng_key(7), 0)

@@ -158,3 +158,23 @@ def test_window_perm_cost_counts_the_sort(m, bitgen):
             assert nk >= kperm.range_chunks(k, n_chunks, nact, 0, chunk, per_perm=old)
             k += nk
         assert k == n_chunks
+
+
+@pytest.mark.parametrize("bitgen", ["mix", "threefry"])
+@pytest.mark.parametrize("m", [65, 128, 200, 300])
+def test_coeff_facts_rebuild_the_coefficients(m, bitgen):
+    """K7's large-panel passes mirrored (kernels/perm.py:coeff_facts of the
+    network's ranks, then coeff_from_facts): M bit-equal to _shared_coeff
+    for a chunk of 100 columns, and +0.0 in a padding column (u = 0, no
+    successor)."""
+    asize, bsize = (m + 1) // 2, m // 2
+    key = rng.fold_in(rng.prng_key(5), 2)
+    kc = rng.fold_in(key, 3)
+    r = kperm.rank_network(kc[None], 100, m, bitgen)[0]                  # [m, K]
+    fact, u = kperm.coeff_facts(r, asize, bsize)
+    got = kperm.coeff_from_facts(fact, u, asize, bsize)
+    want = kperm._shared_coeff(key, 3, m, asize, bsize, 100, bitgen)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    pad = kperm.coeff_from_facts(torch.full((m, 1), 0xFFFF), torch.zeros((m, 1), dtype=torch.bool),
+                                 asize, bsize)
+    assert torch.equal(pad.view(torch.int32), torch.zeros_like(pad).view(torch.int32))
