@@ -61,8 +61,11 @@ Phases (any failure exits non-zero and prints no result line):
    workload to the 200 k cap against its plain versions, K8 alone on the
    16x worst case with K7 beside it, K9 ``css_mc_power`` in both streams on
    the 19,997 windows of the 200 k-SNP workload against its plain version
-   (and approx p against the plain approx; two calls bit-equal), K9 alone
-   on the ~800 k bench windows;
+   (and approx p against the plain approx; two calls bit-equal; the median
+   of 5 calls), the window stream bit-equal to its sum order mirrored in
+   torch (``window_power_order``) and its launches alone (the kernels
+   line's ``css_mc_power_window`` row, with its own launch count), K9
+   alone on the ~800 k bench windows;
 11. the library and CLI with the phase-2 options: ``run_css`` on the 200 k
    workload with approx mode (both streams), the window stream (mix, and
    threefry fast), the shared stream with threefry (fast) and the native
@@ -453,6 +456,7 @@ REPLACES = {
     "css_mc_scan": "divergence_tpu/kernels/perm.py:362",
     "css_mc_window": "divergence_tpu/kernels/perm.py:164",
     "css_mc_power": "divergence_tpu/kernels/perm.py:599",
+    "css_mc_power_window": "divergence_tpu/kernels/perm.py:599",
     "fet_window": "divergence_tpu/kernels/fet.py:668",
     "css_perm_chunk": "divergence_tpu/kernels/perm.py:396",
     "fet_lut_rank": "divergence_tpu/kernels/fet.py:454",
@@ -482,6 +486,7 @@ SOURCES = {
     "css_mc_scan": "divergence_tpu_torch/csrc/css_mc.cu",
     "css_mc_window": "divergence_tpu_torch/csrc/css_mc_window.cu",
     "css_mc_power": "divergence_tpu_torch/csrc/css_mc_power.cu",
+    "css_mc_power_window": "divergence_tpu_torch/csrc/css_mc_window.cu",
     "fet_window": "divergence_tpu_torch/csrc/fet_window.cu",
     "css_perm_chunk": "divergence_tpu_torch/csrc/css_mc_window.cu",
     "fet_lut_rank": "divergence_tpu_torch/csrc/fet_rank.cu",
@@ -569,6 +574,25 @@ def cuda_ms(torch, fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def median_ms(torch, fn, reps: int) -> float:
+    """Median device time of ``fn`` over ``reps`` warm calls, each between
+    its own two CUDA events."""
+    import statistics
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
 
 
 def queued_ms(torch, fn, reps: int) -> float:
@@ -1899,7 +1923,7 @@ def phase_window_kernels(torch, pair, plan_ids, dev, results) -> None:
         prel = float(((kp - pp).abs() / pp.abs().clamp(min=1e-300)).max())
         repeat = torch.equal(kp.view(torch.int64), kern().view(torch.int64))
         check(repeat, f"css_mc_power {stream}: two calls differ")
-        ms = cuda_ms(torch, kern, 3)
+        ms = median_ms(torch, kern, 5)
         pms = cuda_ms(torch, plain, 1)
         akw = dict(chunk=APPROX_CHUNK, chroms=pchroms, slots=pslots, stream=stream)
         ap = kperm.approx_significance(pdist, pscores, ASIZE, BSIZE, key, **akw)
@@ -1912,7 +1936,8 @@ def phase_window_kernels(torch, pair, plan_ids, dev, results) -> None:
             f"approx: nscores differ on {nd} windows (allowed "
             f"{int((1 - NSCORES_SAME_SHARE) * PB)}), max |dlog10 p|={dl.max():.3e} "
             f"(band {LOG10_P_BAND:g}), {int((ap.nscores > 1024).sum())} windows escalated; "
-            f"two calls bit-equal={repeat}; kernel {ms:.3f} ms plain {pms:.3f} ms")
+            f"two calls bit-equal={repeat}; kernel {ms:.3f} ms (median of 5 calls) plain "
+            f"{pms:.3f} ms")
         check(prel <= POWER_RTOL, f"css_mc_power {stream}: power sums {prel}")
         check(same.mean() >= NSCORES_SAME_SHARE, f"css_mc_power {stream}: {nd} nscores differ")
         check(float(dl.max()) <= LOG10_P_BAND, f"css_mc_power {stream}: p {dl.max()}")
@@ -1943,6 +1968,27 @@ def phase_window_kernels(torch, pair, plan_ids, dev, results) -> None:
             ops = {t: v * nperm for t, v in window_ops("mix", m, ASIZE).items()}
             ops["f64_op"] = 5 * nperm
             r9["bound_window"] = bound(PB * (m * m * 4 + 16) + out_bytes, ops)
+            # the kernel's sum order, mirrored in torch on the plain
+            # scores: the same bits on every window
+            mirror = kperm.window_power_order(torch.stack([
+                kperm._perm_scores(pdist, rng.fold_in(pwkeys, c), ASIZE, BSIZE, APPROX_CHUNK)
+                for c in range(APPROX_CHUNKS)], dim=1))
+            same_bits = torch.equal(kp.view(torch.int64), mirror.view(torch.int64))
+            del mirror
+            # the launches alone, each call between two CUDA events
+            with timed_launches(torch, kperm, ("css_mc_power",)) as spans:
+                for _ in range(5):
+                    kern()
+            torch.cuda.synchronize()
+            kms = sorted(a.elapsed_time(b) for a, b in spans["css_mc_power"])[2]
+            say(f"[K9 css_mc_power window] bit-equal to its sum order mirrored in torch "
+                f"(window_power_order) on all {PB} windows: {same_bits}; the launches alone "
+                f"(CUDA events, median of 5 calls) {kms:.3f} ms, bound "
+                f"{r9['bound_window'][0]:.3f} ms ({r9['bound_window'][1]})")
+            check(same_bits, "css_mc_power window: the sums differ from window_power_order")
+            results["css_mc_power_window"].update({
+                "fast": (abs_err(kp, pp), prel, ms, pms), "bound": r9["bound_window"],
+                "kernel_ms": kms, "mirror_bit_equal": same_bits, "differ": nd})
         del kp, pp
     r9["fast"], r9["bound"] = r9["shared"], r9["bound_shared"]
     del pdist, pwkeys
@@ -1963,6 +2009,7 @@ def phase_window_kernels(torch, pair, plan_ids, dev, results) -> None:
             f"chunks of {APPROX_CHUNK}: kernel {ms:.1f} ms "
             f"({d8.shape[0] * APPROX_CHUNK * APPROX_CHUNKS / ms * 1e3:,.0f} permutations/s, "
             "one call)")
+    results["css_mc_power_window"]["bench_ms"] = r9["bench_ms"]["window"]
     del d8, wk8
     torch.cuda.empty_cache()
 
@@ -2914,14 +2961,16 @@ def phase_large_kernels(torch, dev, card, results) -> None:
             torch.cuda.synchronize()
             diff = abs_err(k, plain64)
             ms = cuda_ms(torch, lambda: kcss.css_dissim(vals, lo_d, npos_d, dt), 3)
+            med = median_ms(torch, lambda: kcss.css_dissim(vals, lo_d, npos_d, dt), 5)
             pms = cuda_ms(torch, lambda: kcss.dissimilarity_plain(vals, lo, npos).to(dt), 1)
             bnd = bound(vals.numel() * 2 + B * (16 + m * m * k.element_size()),
                         {"f32": 6 * words * m * (m - 1) // 2})
             say(f"[K3 css_dissim_tiles {tag} {prec}] B={B} windows: max_abs_diff={diff} "
-                f"(exact counts); kernel {ms:.4f} ms plain {pms:.4f} ms, bound {bnd[0]:.4f} "
-                f"ms ({bnd[1]}) on {card}")
+                f"(exact counts); kernel {ms:.4f} ms (mean of 3 calls; median of 5 "
+                f"{med:.4f}) plain {pms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}) on {card}")
             check(diff == 0.0, f"css_dissim {tag} {prec}: counts differ by {diff}")
             results["css_dissim_tiles"][f"{prec}_{m}"] = (diff, diff, ms, pms)
+            results["css_dissim_tiles"][f"median_{prec}_{m}"] = med
             results["css_dissim_tiles"][f"bound_{prec}_{m}"] = bnd
             del k
         # the library yardstick, as phase 12's: one torch.bmm of the
@@ -3986,14 +4035,18 @@ def smoke(torch, dev) -> tuple[str, list[dict]]:
         timed_phase("11", phase_window_library, torch, dev, card, tmp)
         window_launches = {**kperm.LAUNCHES}
         coeff_by_bitgen = dict(kperm.COEFF_LAUNCHES)
+        power_by_stream = dict(kperm.POWER_LAUNCHES)
         say(f"[CSS main path, phase-2 options] kernel launches: {window_launches}; "
-            f"css_mc_coeff by draw stream: {coeff_by_bitgen}")
+            f"css_mc_coeff by draw stream: {coeff_by_bitgen}; K9 by stream: {power_by_stream}")
         check(window_launches["css_mc_window"] > 0 and window_launches["css_mc_scan"] > 0
-              and window_launches["css_mc_power"] > 0 and coeff_by_bitgen["threefry"] > 0,
-              f"the phase-2 options did not launch K8, K9 and threefry K7: "
-              f"{window_launches}, {coeff_by_bitgen}")
+              and window_launches["css_mc_power"] > 0 and coeff_by_bitgen["threefry"] > 0
+              and all(v > 0 for v in power_by_stream.values()),
+              f"the phase-2 options did not launch K8, K9 in both streams and threefry K7: "
+              f"{window_launches}, {coeff_by_bitgen}, {power_by_stream}")
         launches["css_mc_window"] = window_launches["css_mc_window"]
         launches["css_mc_power"] = window_launches["css_mc_power"]
+        launches["css_mc_power_window"] = power_by_stream["window"]
+        results["css_mc_power"]["launches_by_stream"] = power_by_stream
 
         gathered = timed_phase("12", phase_step_kernels, torch, pair, plan, ids, dev,
                                results, k2_bench)
@@ -4213,7 +4266,11 @@ def smoke(torch, dev) -> tuple[str, list[dict]]:
             entry["library_is"] = ("torch.linalg.eigh of the centred matrices (the eigen "
                                    "step alone)")
         if name == "css_dissim_tiles":
-            entry["library_ms"] = r["large"][f"library_{sum(LARGE_PANELS[1])}"]
+            m = sum(LARGE_PANELS[1])
+            entry["ms_median"] = r["large"][f"median_fast_{m}"]
+            entry["ms_exact_median"] = r["large"][f"median_exact_{m}"]
+            entry["ms_is"] = "mean of 3 calls with css_pack (CUDA events); ms_median: of 5"
+            entry["library_ms"] = r["large"][f"library_{m}"]
             entry["library_is"] = ("torch.bmm of the windows' float32 one-hots [B, m, 2P] "
                                    "@ [B, 2P, m], P the widest window (the one-hots built "
                                    "beforehand)")
@@ -4246,13 +4303,21 @@ def smoke(torch, dev) -> tuple[str, list[dict]]:
         if name == "css_mc_power":
             # ms / plain_ms: the shared stream on 19,997 windows x 1,024
             # permutations (the wrapper: coefficients, product, tile sum);
-            # then its launches alone, the window stream and the ~800 k
-            # bench windows
+            # then its launches alone and the ~800 k bench windows (both
+            # streams; the window stream's own row is css_mc_power_window)
             entry["kernel_ms"], entry["coeff_ms"] = r["kernel_ms"], r["coeff_ms"]
-            entry["ms_window"], entry["plain_ms_window"] = r["window"][2], r["window"][3]
-            entry["bound_ms_window"], entry["bound_by_window"] = r["bound_window"]
-            entry["max_rel_err_power_sums"] = max(f_rel, r["window"][1])
-            entry["max_abs_err"] = max(f_abs, r["window"][0])
+            entry["max_rel_err_power_sums"] = f_rel
+            entry["ms_bench_800k"] = r["bench_ms"]
+            entry["launches_by_stream"] = r["launches_by_stream"]
+            entry["ms_is"] = "median of 5 calls (CUDA events)"
+        if name == "css_mc_power_window":
+            # ms / plain_ms: the window stream to m = 64 on 19,997 windows
+            # x 1,024 permutations through the wrapper (median of 5 calls);
+            # kernel_ms its launches alone; launches: phase 11's, this
+            # stream's only (kernels/perm.py POWER_LAUNCHES)
+            entry["kernel_ms"] = r["kernel_ms"]
+            entry["ms_is"] = "median of 5 calls (CUDA events)"
+            entry["mirror_bit_equal"] = r["mirror_bit_equal"]
             entry["ms_bench_800k"] = r["bench_ms"]
         kernels.append(entry)
     return card, kernels

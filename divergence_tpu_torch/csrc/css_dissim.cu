@@ -8,8 +8,9 @@
 // All give the same integer counts.  Plain torch versions:
 // divergence_tpu_torch/kernels/css.py dissimilarity_plain and
 // dissimilarity_gathered_plain; the bit-plane mirrors pack_bitplanes_plain,
-// dissimilarity_bitplanes_plain and gathered_bitplanes_plain follow the
-// kernels' words step by step.
+// dissimilarity_bitplanes_plain, gathered_bitplanes_plain and (the
+// large-panel kernel's slabs and popcounts) dissimilarity_rows_plain follow
+// the kernels' words step by step.
 //
 // D[i][j] = #{SNPs s in the window : (c_si == 3 && c_sj == -3) ||
 //                                     (c_si == -3 && c_sj == 3)}
@@ -50,26 +51,26 @@
 // above that fewer warps an SM write the counts (one at m = 200: 24.4 ms
 // against the tiles' 2.9 on 19,997 windows, tests/measure_large_panels.py).
 // The gathered form keeps its warp form while one window's slab fits (to
-// m = 207 at an even split).  Above those css_dissim_tile counts a
-// window by tiles of its pair matrix: one block of 32 x 8 threads per
-// (window, 32 x 32 tile), thread (ty, tx) owning cells (i0 + ty + 8q,
-// j0 + tx), q = 0..3, with its four counts in registers.  Each pass
-// stages the tile's 32 row and 32 column individuals' words
-// (funnel-shifted as above, 8 words a pass) in shared memory, and the
-// block writes its tile straight out, a warp per row segment
-// (coalesced).  Both triangles are counted
-// (the diagonal is 0 by itself: no SNP is both homozygotes).  The
-// gathered form first packs its windows' words (css_pack_gathered: one
-// warp per (window, word), a ballot per individual, the last word of a
-// window 0) into per-window planes, then runs the same tile kernel with
-// window w's planes starting at bit 32 w (ceil(P/32) + 1).
+// m = 207 at an even split).  Above those css_dissim_rows counts a window
+// with one block (a few past kRowTasksPerBlock tasks): its words staged
+// once, four output rows' runs counted in registers at a time, each row
+// written as one stream of streaming stores (see the kernel).  The gathered form
+// first packs its windows' words (css_pack_gathered: one warp per
+// (window, word), a ballot per individual, the last word of a window 0)
+// into per-window planes, then runs the same kernel with window w's
+// planes starting at bit 32 w (ceil(P/32) + 1).  Past the panel size
+// where a block cannot stage one word a plane (m > 29,056),
+// css_dissim_tile takes over: one block of 32 x 8 threads per (window,
+// 32 x 32 tile) of the pair matrix, its counts in registers.
 //
 // What bounds it on H100: the output.  A window writes m^2 counts (3.5 KB
-// at m = 21 in float64) and reads its m (ceil(n/32) + 1) words of each
-// plane (~500 bytes at n = 50, from L2: the planes of an 8 M-SNP
-// chromosome at m = 21 take 42 MB); the gathered form reads its n m codes
-// once.  The popcounts are m(m-1)/2 pairs x 2 x ceil(n/32) words: small.
-// No block barrier: each warp owns its window.
+// at m = 21 in float64, 160 KB at m = 200 in float32) and reads its m
+// (ceil(n/32) + 1) words of each plane (~500 bytes at n = 50, from L2: the
+// planes of an 8 M-SNP chromosome at m = 21 take 42 MB); the gathered
+// form reads its n m codes once.  The popcounts are m(m-1)/2 pairs x 2 x
+// ceil(n/32) words in the warp form (m^2 x ceil(n/32) in the large-panel
+// form, one a word and cell): small at n = 50.  No block barrier in the
+// warp form: each warp owns its window.
 #include "fet_common.cuh"
 
 namespace {
@@ -339,6 +340,150 @@ css_dissim_tile(const uint32_t* __restrict__ maj, const uint32_t* __restrict__ m
     }
 }
 
+// css_dissim_rows: a block (or, past kRowTasksPerBlock tasks, a few) owns
+// a window.  It stages the window's words, funnel-shifted and masked, in
+// slabs of up to row_slab_words(m) words [S][m] a plane (individuals
+// fastest: a warp's 32 columns read 32 banks); a warp then takes a task,
+// kRowsPerTask output rows over one run of their columns, lane l counting
+// columns c0 + l + 32 u of each row in registers: each column word is
+// loaded once for the task's rows, and each cell adds
+// popc((maj_i & mnr_j) | (mnr_i & maj_j)) a word (the two terms never
+// share a bit: no individual is both homozygotes at a SNP).  Each row's
+// run is then written as one stream of coalesced streaming stores, 128
+// contiguous bytes a warp store in float32 (16-byte stores through a
+// shared buffer took 6-11 % longer at m = 200, tests/measure_dissim_large.py).
+// A window of one slab is staged once; a longer one restages its slabs for
+// each round of tasks, its counts kept in registers between slabs.
+constexpr int kRowWarps = 8;
+constexpr int kRowThreads = 32 * kRowWarps;
+constexpr int kRowRegs = 8;                    // columns a lane counts: runs of 256
+constexpr int kRowRun = 32 * kRowRegs;
+constexpr int kRowsPerTask = 4;                // rows a warp counts at once
+constexpr int kRowSlabWords = 8;               // words a slab stages at most (256 SNPs)
+constexpr size_t kRowStageBytes = 16 * 1024;   // fewer words a slab past it
+constexpr int kRowTasksPerBlock = 256;         // (row group, run) tasks a block takes at most
+
+__host__ __device__ __forceinline__ int row_slab_words(int m) {
+    const size_t fit = kRowStageBytes / (8 * static_cast<size_t>(m));
+    return fit < 1 ? 1 : (fit > kRowSlabWords ? kRowSlabWords : static_cast<int>(fit));
+}
+
+// Columns of a run: a row's runs balanced, each a multiple of 32.
+__host__ __device__ __forceinline__ int run_width(int m) {
+    const int runs = (m + kRowRun - 1) / kRowRun;
+    return 32 * (((m + runs - 1) / runs + 31) / 32);
+}
+
+// (row group, run) tasks of a window.
+__host__ __device__ __forceinline__ int row_tasks(int m) {
+    const int width = run_width(m);
+    return (m + kRowsPerTask - 1) / kRowsPerTask * ((m + width - 1) / width);
+}
+
+__host__ __device__ __forceinline__ size_t rows_smem(int m) {
+    return sizeof(uint32_t) * 2 * row_slab_words(m) * static_cast<size_t>(m);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kRowThreads)
+css_dissim_rows(const uint32_t* __restrict__ maj, const uint32_t* __restrict__ mnr,
+                const int64_t* __restrict__ lo_arr, const int64_t* __restrict__ npos_arr,
+                int64_t nwin, int m, int groups, T* __restrict__ out) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const int S = row_slab_words(m);
+    uint32_t* smaj = reinterpret_cast<uint32_t*>(smem_raw);   // [S][m]
+    uint32_t* smnr = smaj + S * m;
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    const int64_t w = blockIdx.x / groups;
+    const int g = static_cast<int>(blockIdx.x - w * groups);
+    const int width = run_width(m);
+    const int runs = (m + width - 1) / width;
+    const int ntasks = row_tasks(m);
+    const int per = (ntasks + groups - 1) / groups;
+    const int t0 = g * per;
+    const int t1 = min(ntasks, t0 + per);
+    const int64_t lo = lo_arr[w];
+    const int n = static_cast<int>(npos_arr[w]);
+    const int64_t w0 = lo >> 5;
+    const int sh = static_cast<int>(lo & 31);
+    const int nwords = (n + 31) / 32;
+    const int nslab = nwords == 0 ? 1 : (nwords + S - 1) / S;
+
+    const auto stage = [&](int slab) {
+        const int k0 = slab * S;
+        const int kw = min(S, nwords - k0);
+        for (int k = 0; k < kw; ++k) {
+            const int rem = n - (k0 + k) * 32;   // >= 1: the window's SNPs in this word
+            const uint32_t keep = rem < 32 ? (1u << rem) - 1u : ~0u;
+            const int64_t gk = (w0 + k0 + k) * m;
+            for (int i = threadIdx.x; i < m; i += kRowThreads) {
+                smaj[k * m + i] = __funnelshift_r(maj[gk + i], maj[gk + m + i], sh) & keep;
+                smnr[k * m + i] = __funnelshift_r(mnr[gk + i], mnr[gk + m + i], sh) & keep;
+            }
+        }
+    };
+    if (nslab == 1) {
+        stage(0);
+        __syncthreads();
+    }
+    for (int tb = t0; tb < t1; tb += kRowWarps) {   // a round: a task a warp
+        const int task = tb + warp;
+        const int i0 = task < t1 ? task / runs * kRowsPerTask : m;
+        const int c0 = task < t1 ? (task - i0 / kRowsPerTask * runs) * width : 0;
+        const int len = i0 < m ? min(width, m - c0) : 0;    // columns of the run
+        const int rows = min(kRowsPerTask, m - i0);         // <= 0 past the last task
+        int acc[kRowsPerTask][kRowRegs];
+#pragma unroll
+        for (int r = 0; r < kRowsPerTask; ++r) {
+#pragma unroll
+            for (int u = 0; u < kRowRegs; ++u) acc[r][u] = 0;
+        }
+        for (int slab = 0; slab < nslab; ++slab) {
+            if (nslab > 1) {
+                __syncthreads();   // the last slab is read
+                stage(slab);
+                __syncthreads();
+            }
+            const int kw = len > 0 ? min(S, nwords - slab * S) : 0;
+            for (int k = 0; k < kw; ++k) {
+                uint32_t a[kRowsPerTask], b[kRowsPerTask];
+#pragma unroll
+                for (int r = 0; r < kRowsPerTask; ++r) {
+                    const int i = min(i0 + r, m - 1);
+                    a[r] = smaj[k * m + i];
+                    b[r] = smnr[k * m + i];
+                }
+                const uint32_t* cmaj = smaj + k * m + c0 + lane;
+                const uint32_t* cmnr = smnr + k * m + c0 + lane;
+#pragma unroll
+                for (int u = 0; u < kRowRegs; ++u) {
+                    if (32 * u >= len) break;
+                    if (32 * u + lane < len) {
+                        const uint32_t cj = cmnr[32 * u];
+                        const uint32_t dj = cmaj[32 * u];
+#pragma unroll
+                        for (int r = 0; r < kRowsPerTask; ++r) {
+                            acc[r][u] += __popc((a[r] & cj) | (b[r] & dj));
+                        }
+                    }
+                }
+            }
+        }
+        // each row's run as one stream of coalesced streaming stores
+#pragma unroll
+        for (int r = 0; r < kRowsPerTask; ++r) {
+            if (r >= rows) break;
+            T* dst = out + (w * m + i0 + r) * static_cast<int64_t>(m) + c0 + lane;
+#pragma unroll
+            for (int u = 0; u < kRowRegs; ++u) {
+                if (32 * u >= len) break;
+                if (32 * u + lane < len) __stcs(dst + 32 * u, static_cast<T>(acc[r][u]));
+            }
+        }
+    }
+}
+
 // The gathered windows' words into per-window planes [nwin][wpw][m] (word
 // wpw - 1 of every window, past its P rows, is 0): one warp per (window,
 // word), lane b holding row 32 k + b, a's individuals then b's.
@@ -376,9 +521,27 @@ css_pack_gathered(const int16_t* __restrict__ av, const int16_t* __restrict__ bv
     }
 }
 
+// The large-panel counts from packed planes: css_dissim_rows where its
+// slab of one word a plane fits a block's shared memory (to m = 29,056 on
+// Hopper), else css_dissim_tile.
 template <typename T>
 int launch_tiles(const uint32_t* maj, const uint32_t* mnr, const int64_t* lo,
                  const int64_t* npos, int64_t nwin, int m, T* out, cudaStream_t st) {
+    const size_t smem = rows_smem(m);
+    if (smem <= fetk::smem_optin()) {
+        const int groups = (row_tasks(m) + kRowTasksPerBlock - 1) / kRowTasksPerBlock;
+        const int64_t blocks = nwin * groups;
+        if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+        if (smem > 48 * 1024) {
+            const cudaError_t e = cudaFuncSetAttribute(
+                css_dissim_rows<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                static_cast<int>(smem));
+            if (e != cudaSuccess) return static_cast<int>(e);
+        }
+        css_dissim_rows<T><<<static_cast<unsigned>(blocks), kRowThreads, smem, st>>>(
+            maj, mnr, lo, npos, nwin, m, groups, out);
+        return static_cast<int>(cudaGetLastError());
+    }
     const int tiles = (m + kTile - 1) / kTile;
     const int64_t blocks = nwin * tiles * tiles;
     if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);

@@ -23,18 +23,19 @@
 //   sums are the same bits run to run.  (A grid of one block per window
 //   tile and chunk, walking the chunk's tiles, would launch 314 blocks for
 //   19,997 windows x 2 chunks: 1.2 waves of 2 blocks per SM.)
-// css_mc_power_window (kernel power_window) — the window stream: one warp
-//   per window, the draws, ranks and float32 score of css_perm_common.cuh,
-//   lane i taking columns i, i + 32, ... of each chunk and summing its
-//   powers in registers, then a shuffle sum over the warp.
+// css_mc_power_window — the window stream to m = 64: css_mc_window.cu's
+//   kernel power_sums on K8's small-panel body (a block a window's chunk,
+//   its warps the chunk's words, each lane's draws, ranks and nonzero-term
+//   score in registers and lane-interleaved tables), the sums in the same
+//   order as the block form below.
 // css_mc_power_window_block (kernel power_window_block) — the window
 //   stream past kMaxM on the large-panel body of css_perm_block.cuh: a
 //   block a (window, chunk) task, its warps the chunk's words (the sort of
 //   (draw, index) keys, then each lane's walk over its permutation's
-//   nonzero terms: for finite D the sums of score_f32's scores); lane i
+//   nonzero terms: for finite D the plain version's scores); lane i
 //   sums its columns' powers in order, the xor tree adds a warp's lanes
 //   and thread 0 the warps' sums in warp order.  A window with a
-//   non-finite entry gets NaN sums, as score_f32's NaN scores give.
+//   non-finite entry gets NaN sums, as the plain score's NaN products give.
 // What bounds it on H100: as K7 (float32 FMAs, m^2 per window and
 // permutation, in tile_gemm) for the shared stream and as K8 for the
 // window stream (the instruction rate; past kMaxM the gathers of the
@@ -52,14 +53,11 @@
 
 namespace {
 
-using permk::kMaxM;
 using permk::kTC;
 using permk::kThreads;
 using permk::kTW;
 using permk::kWordBits;
 
-constexpr int kWarpsPerBlock = 4;        // window stream: windows per block
-constexpr int kWindowThreads = 32 * kWarpsPerBlock;
 constexpr int kReduceThreads = 256;
 constexpr int64_t kMaxGridY = 65535;
 
@@ -132,47 +130,6 @@ power_reduce(const double* __restrict__ partial, int64_t B, int64_t n, int tpc,
     double s = 0.0;
     for (int t = 0; t < tpc; ++t) s = __dadd_rn(s, partial[((kk * tpc + t) * 3 + q) * B + w]);
     out[idx] = s;
-}
-
-__global__ void __launch_bounds__(kWindowThreads)
-power_window(const float* __restrict__ dist, const int64_t* __restrict__ wkeys,
-                    int64_t B, int m, int asize, int k0, int nk, int chunk,
-                    int bitgen, permk::CoeffConst cc, double* __restrict__ out) {
-    extern __shared__ __align__(16) float smem[];
-    const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
-    const int64_t w = static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + warp;
-    if (w >= B) return;   // warp-uniform; no block-wide barrier follows
-    const int mm = m * m;
-    float* D = smem + warp * mm;
-    for (int i = lane; i < mm; i += 32) D[i] = dist[w * mm + i];
-    __syncwarp();
-    const uint2 wkey = make_uint2(static_cast<uint32_t>(wkeys[2 * w]),
-                                  static_cast<uint32_t>(wkeys[2 * w + 1]));
-    uint32_t x[kMaxM];
-    int r[kMaxM];
-    int ord[kMaxM];
-    for (int kk = 0; kk < nk; ++kk) {
-        const uint2 ck = tf::fold_in(wkey, static_cast<uint32_t>(k0 + kk));
-        double p1 = 0.0, p2 = 0.0, p3 = 0.0;
-        for (int K = lane; K < chunk; K += 32) {
-            permk::draw(ck, static_cast<uint32_t>(K), m, bitgen, x);
-            permk::rank(x, m, r, ord);
-            const double v = static_cast<double>(permk::score_f32(D, r, m, asize, cc));
-            const double v2 = __dmul_rn(v, v);
-            p1 = __dadd_rn(p1, v);
-            p2 = __dadd_rn(p2, v2);
-            p3 = __dadd_rn(p3, __dmul_rn(v2, v));
-        }
-        p1 = warp_sum(p1);
-        p2 = warp_sum(p2);
-        p3 = warp_sum(p3);
-        if (lane == 0) {
-            out[(static_cast<int64_t>(kk) * 3 + 0) * B + w] = p1;
-            out[(static_cast<int64_t>(kk) * 3 + 1) * B + w] = p2;
-            out[(static_cast<int64_t>(kk) * 3 + 2) * B + w] = p3;
-        }
-    }
 }
 
 // K9's window stream past kMaxM: a block task is a window's chunk; the
@@ -265,29 +222,6 @@ FET_EXPORT int css_mc_power_shared(const float* dist, int64_t B, int m,
     const int64_t n = static_cast<int64_t>(nk) * 3 * B;
     power_reduce<<<static_cast<unsigned>((n + kReduceThreads - 1) / kReduceThreads),
                    kReduceThreads, 0, st>>>(partial, B, n, tpc, out);
-    return static_cast<int>(cudaGetLastError());
-}
-
-FET_EXPORT int css_mc_power_window(const float* dist, const int64_t* wkeys,
-                                   int64_t B, int m, int asize, int k0, int nk,
-                                   int chunk, int bitgen, float between, float ca,
-                                   float cb, double* out, void* stream) {
-    if (m > kMaxM || m < 2 || asize < 1 || asize >= m || chunk <= 0 || bitgen < 0 ||
-        bitgen > 1) {
-        return static_cast<int>(cudaErrorInvalidValue);
-    }
-    if (B == 0 || nk == 0) return 0;
-    const unsigned blocks =
-        static_cast<unsigned>((B + kWarpsPerBlock - 1) / kWarpsPerBlock);
-    const size_t smem = sizeof(float) * kWarpsPerBlock * m * m;
-    const cudaError_t attr = cudaFuncSetAttribute(
-        power_window, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (attr != cudaSuccess) return static_cast<int>(attr);
-    power_window<<<blocks, kWindowThreads, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-        dist, wkeys, B, m, asize, k0, nk, chunk, bitgen,
-        permk::CoeffConst{between, ca, cb}, out);
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -21,7 +21,7 @@
 // words), so every range fills the card whatever the number of windows:
 //   a block stages its window's D once in shared memory (the float64
 //   form, with the row totals) or its products with the three nonzero
-//   coefficients (the float32 form: the rounded products score_f32
+//   coefficients (the float32 form: the rounded products the plain score
 //   forms), computes fold_in(wkey, k) once for each chunk of its slice,
 //   and flags a D with a non-finite entry;
 //   a warp takes one word, 32 consecutive permutations of one chunk: lane
@@ -86,6 +86,16 @@
 // css_perm_chunk_block (kernel perm_chunk_block) is K11 past kMaxM on
 // window_hits_block's body: a block a window, its warps a word each a
 // round, the epilogue folded by one thread round by round in word order.
+//
+// K9's window stream to kMaxM — css_mc_power_window (kernel power_sums)
+// replaces divergence_tpu/kernels/perm.py:_null_power_sums (stream=
+// "window"); plain torch version: kernels/perm.py null_power_sums_plain,
+// its sum order mirrored by window_power_order.  On K8's device body
+// (stage_entry, perm_score: the same draws, ranks, nonzero-term scores and
+// non-finite flag): a block a (window, chunk) task, the chunk key folded
+// once, its warps the chunk's words, each lane the float64 s, s^2, s^3 of
+// its permutations in word order, then the xor tree and the warps in warp
+// order (no atomics: the same bits call to call).
 #include <algorithm>
 #include <type_traits>
 
@@ -165,26 +175,40 @@ __device__ __forceinline__ bool stage_entry(float d, int i, float* mats, int dm,
     return !isfinite(d);
 }
 
-// Whether permutation K of the chunk keyed by ckey scores >= the observed
-// score o32: this lane's draws and ranks in registers, its tables in the
-// warp's lane-interleaved slabs, the score over the staged matrices.
-template <int MB, bool kF64>
-__device__ __forceinline__ bool perm_hit(uint2 ckey, int K, int m, int asize, int bitgen,
-                                         const float* mats, const double* rowtot,
-                                         uint8_t* rk, uint8_t* ord, uint8_t* bl,
-                                         permk::NativeConst nc, float o32) {
+// The float32 score of permutation K of the chunk keyed by ckey: this
+// lane's draws and ranks in registers, its tables in the warp's
+// lane-interleaved slabs, the nonzero terms over the staged products.
+template <int MB>
+__device__ __forceinline__ float perm_score(uint2 ckey, int K, int m, int asize, int bitgen,
+                                            const float* mats, uint8_t* rk, uint8_t* ord,
+                                            uint8_t* bl) {
     uint32_t x[MB];
     int r[MB];
     permk::draw_unrolled<MB>(ckey, static_cast<uint32_t>(K), m, bitgen, x);
     permk::rank_unrolled<MB>(x, m, r);
     const uint64_t bmask = rank_tables<MB>(r, m, asize, rk, ord, bl);
+    const int dm = d_floats(m);
+    return permk::score_f32_nonzero<MB>(mats, mats + dm, mats + 2 * dm, m, asize, rk, ord, bl,
+                                        bmask);
+}
+
+// Whether permutation K of the chunk keyed by ckey scores >= the observed
+// score o32 (the float64 form: score_f64 over the rank order).
+template <int MB, bool kF64>
+__device__ __forceinline__ bool perm_hit(uint2 ckey, int K, int m, int asize, int bitgen,
+                                         const float* mats, const double* rowtot,
+                                         uint8_t* rk, uint8_t* ord, uint8_t* bl,
+                                         permk::NativeConst nc, float o32) {
     if constexpr (kF64) {
+        uint32_t x[MB];
+        int r[MB];
+        permk::draw_unrolled<MB>(ckey, static_cast<uint32_t>(K), m, bitgen, x);
+        permk::rank_unrolled<MB>(x, m, r);
+        rank_tables<MB>(r, m, asize, rk, ord, bl);
         return permk::score_f64(mats, rowtot, ord, 32, m, asize, nc) >=
                static_cast<double>(o32);
     } else {
-        const int dm = d_floats(m);
-        return permk::score_f32_nonzero<MB>(mats, mats + dm, mats + 2 * dm, m, asize, rk,
-                                            ord, bl, bmask) >= o32;
+        return perm_score<MB>(ckey, K, m, asize, bitgen, mats, rk, ord, bl) >= o32;
     }
 }
 
@@ -326,6 +350,81 @@ perm_chunk(const float* __restrict__ dist, const float* __restrict__ obs,
         hits_out[w] = hits;
         reached_out[w] = hits >= nd;
         pos_out[w] = pos;
+    }
+}
+
+// K9's window stream (css_mc_power_window): the float64 power sums of a
+// window's chunks on this body.  A block takes window w's chunks [kk0,
+// kk0 + nck) (cpb a block, power_chunks_per_block), stages its products
+// once and folds each chunk key once; for each chunk warp q takes the
+// chunk's words q, q + kWarps, ..., lane i summing the powers of its
+// permutations in word order; the xor tree adds a warp's lanes, and the
+// warps' sums go through shared memory to be added in warp order (the
+// order kernels/perm.py:window_power_order mirrors).  A flagged window
+// gets NaN sums, as the plain score's NaN products give it.
+template <int MB>
+__global__ void __launch_bounds__(kThreads, 2)
+power_sums(const float* __restrict__ dist, const int64_t* __restrict__ wkeys, int64_t B, int m,
+           int asize, int k0, int nk, int chunk, int wpc, int cpb, int groups, int bitgen,
+           permk::CoeffConst cc, double* __restrict__ out) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const int mm = m * m;
+    float* mats = reinterpret_cast<float*>(smem_raw);
+    uint2* ckeys = reinterpret_cast<uint2*>(mats + mat_floats(m, false));
+    double* sums = reinterpret_cast<double*>(ckeys + ((cpb + 1) & ~1));   // [cpb][kWarps][3]
+    uint8_t* ord_all = reinterpret_cast<uint8_t*>(sums + 3 * kWarps * cpb);
+    uint8_t* bl_all = ord_all + kWarps * MB * 32;
+    uint8_t* rk_all = bl_all + kWarps * MB * 32;
+
+    const int64_t w = blockIdx.x / groups;
+    const int kk0 = static_cast<int>(blockIdx.x - w * groups) * cpb;
+    const int nck = min(cpb, nk - kk0);
+    bool bad = false;
+    for (int i = threadIdx.x; i < mm; i += kThreads) {
+        bad |= stage_entry<false>(dist[w * mm + i], i, mats, d_floats(m), cc);
+    }
+    const uint2 wkey = make_uint2(static_cast<uint32_t>(wkeys[2 * w]),
+                                  static_cast<uint32_t>(wkeys[2 * w + 1]));
+    for (int t = threadIdx.x; t < nck; t += kThreads) {
+        ckeys[t] = tf::fold_in(wkey, static_cast<uint32_t>(k0 + kk0 + t));
+    }
+    const bool flagged = __syncthreads_or(bad) != 0;
+
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    uint8_t* ord = ord_all + warp * MB * 32 + lane;
+    uint8_t* bl = bl_all + warp * MB * 32 + lane;
+    uint8_t* rk = rk_all + warp * MB * 32 + lane;
+    for (int c = 0; c < nck; ++c) {
+        double p[3] = {0.0, 0.0, 0.0};
+        for (int q = warp; q < wpc && !flagged; q += kWarps) {
+            const int K = q * 32 + lane;
+            if (K < chunk) {
+                const double v =
+                    static_cast<double>(perm_score<MB>(ckeys[c], K, m, asize, bitgen, mats, rk,
+                                                       ord, bl));
+                const double v2 = __dmul_rn(v, v);
+                p[0] = __dadd_rn(p[0], v);
+                p[1] = __dadd_rn(p[1], v2);
+                p[2] = __dadd_rn(p[2], __dmul_rn(v2, v));
+            }
+        }
+#pragma unroll
+        for (int e = 0; e < 3; ++e) {
+            for (int o = 16; o > 0; o >>= 1) {
+                p[e] = __dadd_rn(p[e], __shfl_xor_sync(0xffffffffu, p[e], o));
+            }
+            if (lane == 0) sums[(c * kWarps + warp) * 3 + e] = p[e];
+        }
+    }
+    __syncthreads();
+    for (int t = threadIdx.x; t < 3 * nck; t += kThreads) {
+        const int c = t / 3;
+        const int e = t - 3 * c;
+        double acc = 0.0;
+        for (int r = 0; r < kWarps; ++r) acc = __dadd_rn(acc, sums[(c * kWarps + r) * 3 + e]);
+        out[(static_cast<int64_t>(kk0 + c) * 3 + e) * B + w] =
+            flagged ? __longlong_as_double(0x7ff8000000000000LL) : acc;
     }
 }
 
@@ -519,6 +618,31 @@ int launch_perm_chunk(const float* dist, const float* obs, const int* need,
     return static_cast<int>(cudaGetLastError());
 }
 
+// Chunks a K9 block takes: one, so a call on few windows (approx mode's
+// escalation rounds) still spreads over the card.
+constexpr int kPowerChunksPerBlock = 1;
+
+int power_chunks_per_block(int nk) { return std::min(nk, kPowerChunksPerBlock); }
+
+template <int MB>
+int launch_power(const float* dist, const int64_t* wkeys, int64_t B, int m, int asize, int k0,
+                 int nk, int chunk, int bitgen, permk::CoeffConst cc, double* out,
+                 cudaStream_t s) {
+    const int wpc = (chunk + permk::kWordBits - 1) / permk::kWordBits;
+    const int cpb = power_chunks_per_block(nk);
+    const int groups = (nk + cpb - 1) / cpb;
+    const size_t smem = sizeof(float) * mat_floats(m, false) + sizeof(uint2) * ((cpb + 1) & ~1) +
+                        sizeof(double) * 3 * kWarps * cpb + 3 * static_cast<size_t>(kWarps) * MB * 32;
+    const cudaError_t attr = cudaFuncSetAttribute(
+        power_sums<MB>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    const int64_t blocks = B * groups;
+    if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidConfiguration);
+    power_sums<MB><<<static_cast<unsigned>(blocks), kThreads, smem, s>>>(
+        dist, wkeys, B, m, asize, k0, nk, chunk, wpc, cpb, groups, bitgen, cc, out);
+    return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 FET_EXPORT int css_mc_window(const float* dist, const float* obs, const int64_t* wkeys,
@@ -560,6 +684,25 @@ FET_EXPORT int css_perm_chunk(const float* dist, const float* obs, const int* ne
         return launch_perm_chunk<decltype(mb)::value>(dist, obs, need, keys, B, m, asize,
                                                       chunk, std::min(limit, chunk), bitgen, cc,
                                                       hits, reached, pos, s);
+    });
+}
+
+// K9's window stream to kMaxM: out[(kk*3 + q)*B + w], the sums of s^(q+1)
+// over chunk k0 + kk's float32 scores of window w, widened to float64.
+FET_EXPORT int css_mc_power_window(const float* dist, const int64_t* wkeys, int64_t B, int m,
+                                   int asize, int k0, int nk, int chunk, int bitgen,
+                                   float between, float ca, float cb, double* out,
+                                   void* stream) {
+    if (m > kMaxM || m < 2 || asize < 1 || asize >= m || chunk <= 0 || bitgen < 0 ||
+        bitgen > 1) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    if (B == 0 || nk == 0) return 0;
+    const permk::CoeffConst cc{between, ca, cb};
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    return by_bucket(m, [&](auto mb) {
+        return launch_power<decltype(mb)::value>(dist, wkeys, B, m, asize, k0, nk, chunk, bitgen,
+                                                 cc, out, s);
     });
 }
 

@@ -33,11 +33,11 @@
 //    a-rows of b + (0 or 1) terms, so the a-row loop runs converged; only
 //    the short b-row runs between a-rows differ by lane.  A term is one
 //    load of D, its product with 1/(ab) or -(a+b) w rounded (the bits of
-//    score_f32's D[j][l] * C[j][l]) and one __fadd_rn.  So K8's and K11's
-//    hits equal the small forms' (and score_f32's: skipped zero products
+//    the plain score's D[j][l] * C[j][l]) and one __fadd_rn.  So K8's and K11's
+//    hits equal the small forms' (and the plain score's: skipped zero products
 //    leave a sum unchanged but for the sign of a zero), and K9's power
 //    sums equal the plain version's for finite D.  A window with a non-finite entry is flagged
-//    while it is staged: no hits (K8, K11) or NaN sums (K9), as score_f32
+//    while it is staged: no hits (K8, K11) or NaN sums (K9), as the plain score
 //    gives (NaN times a zero coefficient).  The float64 form runs score_f64
 //    (mc_native's order) over ORD.
 //
@@ -556,7 +556,7 @@ __device__ __forceinline__ float dload(const float* p) {
 }
 
 // This lane's float32 score: score_f32_nonzero's terms in its order (see
-// the header), each product rounded as score_f32 rounds D[j][l] * C[j][l].
+// the header), each product rounded as the plain score rounds D[j][l] * C[j][l].
 // mat: the window's D (window_mat), rows ld floats apart.
 template <int kForm>
 __device__ __forceinline__ float walk_f32(const uint32_t* cols, const Rows& rw, const float* mat,

@@ -14,23 +14,19 @@
 //                       u = 1.m - 1 is monotone in those bits, so equal
 //                       floats are equal words and tie on the index.
 //   r_j = #{l : x_l < x_j, or x_l == x_j and l < j}.
-// draw / rank run loops to a runtime m (K7's css_mc_coeff, K9's window
-// stream); draw_unrolled / rank_unrolled do the same draws and compares
-// for m up to a compile-time bound, so K8's and K11's x and r stay in
-// registers (m <= 32; up to 24 with one compare per pair).
+// draw / rank run loops to a runtime m (K7's css_mc_coeff); draw_unrolled
+// / rank_unrolled do the same draws and compares for m up to a
+// compile-time bound, so K8's, K9's and K11's x and r stay in registers
+// (m <= 32; up to 24 with one compare per pair).
 //
 // Scores of one permutation against D (row-major m x m float32, in shared
-// memory):
-//   score_f32  — the float32 products D[j][l] * C[j][l] of perm.py:
-//                _scores_from_ranks, C[j][l] = bet - chain with
-//                bet = u_j && !u_l ? 1/(ab) : 0, chain = r_l == r_j + 1 ?
-//                cw(r_j) : 0, u_j = r_j < a, added one after another in
-//                row-major (j, l) order from 0 — the twin's order
-//                (kernels/perm.py:_scores_from_ranks), so the two agree bit
-//                for bit (K9);
+// memory).  The plain score (kernels/perm.py:_scores_from_ranks) adds the
+// float32 products D[j][l] * C[j][l], C[j][l] = bet - chain with bet = u_j
+// && !u_l ? 1/(ab) : 0, chain = r_l == r_j + 1 ? cw(r_j) : 0, u_j = r_j <
+// a, one after another in row-major (j, l) order from 0:
 //   score_f32_nonzero — the same sum over the a*b + m - 2 nonzero terms
-//                only, in the same order (K8, K11; see its note for why
-//                the hits are the same);
+//                only, in the same order (K8, K9, K11; see its note for
+//                why the hits and power sums are the same);
 //   score_f64  — native/mc_native.cpp:272-294 step for step, in float64:
 //                row totals over the smaller group, between = rt -
 //                2 within, the a- and b-chains over rank-adjacent pairs,
@@ -184,27 +180,8 @@ struct CoeffConst {
     float between, ca, cb;
 };
 
-__device__ __forceinline__ float score_f32(const float* D, const int* r, int m,
-                                           int asize, CoeffConst c) {
-    float acc = 0.0f;
-    for (int j = 0; j < m; ++j) {
-        const int rj = r[j];
-        const bool uj = rj < asize;
-        const float cw = rj < asize - 1 ? c.ca
-                         : (rj >= asize && rj < m - 1 ? c.cb : 0.0f);
-        const float* row = D + j * m;
-        for (int l = 0; l < m; ++l) {
-            const int rl = r[l];
-            const float bet = uj && !(rl < asize) ? c.between : 0.0f;
-            const float chain = rl == rj + 1 ? cw : 0.0f;
-            acc = __fadd_rn(acc, __fmul_rn(row[l], __fsub_rn(bet, chain)));
-        }
-    }
-    return acc;
-}
-
-// score_f32 over its nonzero terms only, in the same row-major (j, l)
-// order.  Row j of an a-group individual (r_j < a) holds the b-group
+// The plain score over its nonzero terms only, in the same row-major (j,
+// l) order.  Row j of an a-group individual (r_j < a) holds the b-group
 // columns (coefficient 1/(ab)) and, when r_j < a - 1, its rank successor
 // in the a-group (-(a+b) w_a); row j of a b-group individual holds only
 // its rank successor when r_j < m - 1 (-(a+b) w_b).  Those are the
@@ -213,13 +190,15 @@ __device__ __forceinline__ float score_f32(const float* D, const int* r, int m,
 // values are exact (1/(ab) - 0, 0 - cw).  For finite D each skipped
 // product is a zero, and adding a zero leaves the sum unchanged but for
 // the sign of a zero sum, which a >= compare does not see: the hits equal
-// score_f32's.  Non-finite D differs (Inf or NaN times a zero
-// coefficient is NaN in score_f32), so the caller gives a window with
-// any non-finite entry no hits (score_f32 gives it none: NaN anywhere
-// poisons every sum, and an Inf of a symmetric D meets a zero coefficient
-// at (j, l) or (l, j) in every permutation, as the diagonal always does).
+// the plain score's, and so do the power sums (+0 + -0 is +0, and a power
+// sum that starts at +0 is never -0).  Non-finite D differs (Inf or NaN
+// times a zero coefficient is NaN in the plain score), so the caller gives
+// a window with any non-finite entry no hits and NaN power sums, as the
+// plain score does (NaN anywhere poisons every sum, and an Inf of a
+// symmetric D meets a zero coefficient at (j, l) or (l, j) in every
+// permutation, as the diagonal always does).
 // The products are the window's, rounded once: pb = D * 1/(ab), pa =
-// D * -(a+b) w_a, pc = D * -(a+b) w_b (the same bits as score_f32's
+// D * -(a+b) w_a, pc = D * -(a+b) w_b (the same bits as the plain score's
 // D[j][l] * C[j][l] for those coefficients), so a term is one load and
 // one add.  The tables are lane-interleaved shared memory: rk[j * 32] =
 // r_j, ord[p * 32] = the individual at rank p, bl[s * 32] = the s-th

@@ -29,7 +29,9 @@ a CUDA device, and run the plain torch version on the CPU:
   pre-gathered windows from their separate a and b codes (K4's gather
   form: the same integer counts).  :func:`pack_bitplanes_plain`,
   :func:`dissimilarity_bitplanes_plain` and
-  :func:`gathered_bitplanes_plain` mirror their words for tests;
+  :func:`gathered_bitplanes_plain` mirror their words for tests, and
+  :func:`dissimilarity_rows_plain` the large-panel kernel's slabs and
+  popcounts (``css_dissim_rows``, :func:`dissim_form` ``"tiles"``);
 * :func:`css_cmds`   — ``csrc/css_cmds.cu``: fill, centring, the top-2
   eigenpairs (tridiagonal reduction, bisection, inverse iteration; one
   warp per window), embedding, distances and score per window (K5);
@@ -187,11 +189,14 @@ def dissim_form(m: int, device: torch.device | None = None) -> str:
     ``device``, by the kernel library's own reckoning
     (``csrc/css_dissim.cu:css_dissim_form``): ``"warp"`` (a warp per
     window) where a block holds all four warps' slabs (m <= 112 on an
-    H100), else ``"tiles"`` (32 x 32 tiles a block).  The warp form runs
-    while one warp's slab fits (m <= 233), but with fewer warps a block it
-    is the slower: 3 warps at m = 128, 3.8 ms against the tiles' 1.1 on
-    19,997 windows, one at m = 200, 24.4 ms against 2.9
-    (tests/measure_large_panels.py, H100 80GB HBM3, 700 W)."""
+    H100), else ``"tiles"``, the large-panel form: ``css_dissim_rows``, a
+    block a window, its words staged once and each output row written as
+    one stream (32 x 32 tiles a block past m = 29,056, where a block
+    cannot stage one word of a window's individuals).  The warp form runs while one warp's
+    slab fits (m <= 233), but with fewer warps a block it is the slower: 3
+    warps at m = 128, 3.8 ms against the tiles' 1.1 on 19,997 windows, one
+    at m = 200, 24.4 ms against 2.9 (tests/measure_large_panels.py, H100
+    80GB HBM3, 700 W)."""
     return query_form(("warp", "tiles"), "css_dissim_form", device, m)[0]
 
 
@@ -329,20 +334,14 @@ def pack_bitplanes_plain(vals: torch.Tensor) -> torch.Tensor:
     return torch.stack([_words(vals == 3, W), _words(vals == -3, W)])
 
 
-def dissimilarity_bitplanes_plain(
+def _window_words(
     planes: torch.Tensor, lo: torch.Tensor, npos: torch.Tensor
-) -> torch.Tensor:
-    """``css_dissim``'s counts from :func:`pack_bitplanes_plain` planes,
-    float64 [B, m, m]: word k of a window is the funnel shift of plane
-    words lo // 32 + k and + 1 right by lo % 32, its bits past npos
-    cleared."""
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The (hom-major, hom-minor) words [B, K, m] of each window of
+    :func:`pack_bitplanes_plain` planes: word k is the funnel shift of
+    plane words lo // 32 + k and + 1 right by lo % 32, its bits past npos
+    cleared (K = the widest window's words, at least 1)."""
     W = planes.shape[1]
-    m = planes.shape[2]
-    lo = torch.as_tensor(lo).to(planes.device, torch.int64)
-    npos = torch.as_tensor(npos).to(planes.device, torch.int64)
-    B = lo.shape[0]
-    if B == 0:
-        return torch.zeros((0, m, m), dtype=torch.float64, device=planes.device)
     K = max(1, (int(npos.max()) + 31) // 32)
     k = torch.arange(K, device=planes.device)
     at = (lo // 32)[:, None] + k[None, :]                        # [B, K]
@@ -355,7 +354,58 @@ def dissimilarity_bitplanes_plain(
         second = plane[(at + 1).clamp(max=W - 1)]
         return (((second << 32) | first) >> sh) & 0xFFFFFFFF & keep
 
-    return _pair_counts(window_words(planes[0]), window_words(planes[1]))
+    return window_words(planes[0]), window_words(planes[1])
+
+
+def _descriptors(planes, lo, npos):
+    return (torch.as_tensor(x).to(planes.device, torch.int64) for x in (lo, npos))
+
+
+def dissimilarity_bitplanes_plain(
+    planes: torch.Tensor, lo: torch.Tensor, npos: torch.Tensor
+) -> torch.Tensor:
+    """``css_dissim``'s counts from :func:`pack_bitplanes_plain` planes,
+    float64 [B, m, m], from each window's words (:func:`_window_words`)."""
+    m = planes.shape[2]
+    lo, npos = _descriptors(planes, lo, npos)
+    if lo.shape[0] == 0:
+        return torch.zeros((0, m, m), dtype=torch.float64, device=planes.device)
+    return _pair_counts(*_window_words(planes, lo, npos))
+
+
+# css_dissim_rows' slabs (csrc/css_dissim.cu kRowSlabWords, kRowStageBytes)
+ROW_SLAB_WORDS = 8
+ROW_STAGE_BYTES = 16 * 1024
+
+
+def row_slab_words(m: int) -> int:
+    """Words a plane a slab of ``css_dissim_rows`` stages at panel size m:
+    ROW_SLAB_WORDS while both planes' [S, m] words fit ROW_STAGE_BYTES,
+    fewer past it, at least one."""
+    return max(1, min(ROW_SLAB_WORDS, ROW_STAGE_BYTES // (8 * m)))
+
+
+def dissimilarity_rows_plain(
+    planes: torch.Tensor, lo: torch.Tensor, npos: torch.Tensor
+) -> torch.Tensor:
+    """The large-panel kernel's counts (``css_dissim_rows``), float64 [B,
+    m, m]: each window's words (:func:`_window_words`) in slabs of
+    :func:`row_slab_words` words, each cell adding popc((maj_i & mnr_j) |
+    (mnr_i & maj_j)) a word, slab by slab.  The two terms never share a
+    bit (an individual is not both homozygotes at a SNP), so one popcount
+    is :func:`dissimilarity_bitplanes_plain`'s two."""
+    m = planes.shape[2]
+    lo, npos = _descriptors(planes, lo, npos)
+    if lo.shape[0] == 0:
+        return torch.zeros((0, m, m), dtype=torch.float64, device=planes.device)
+    maj, mnr = _window_words(planes, lo, npos)
+    S = row_slab_words(m)
+    cnt = torch.zeros((lo.shape[0], m, m), dtype=torch.int64, device=planes.device)
+    for k0 in range(0, maj.shape[1], S):
+        a, b = maj[:, k0:k0 + S], mnr[:, k0:k0 + S]
+        merged = (a[..., :, None] & b[..., None, :]) | (b[..., :, None] & a[..., None, :])
+        cnt += _popcount32(merged).sum(1)
+    return cnt.to(torch.float64)
 
 
 def gathered_bitplanes_plain(

@@ -108,10 +108,13 @@ LAUNCHES = {"css_mc_coeff": 0, "css_mc_coeff_block": 0, "css_mc_shared": 0,
             "css_perm_chunk_block": 0}
 # css_mc_coeff and css_mc_coeff_block launches by bitgen
 COEFF_LAUNCHES = {name: 0 for name in BITGENS}
+# K9's launches by stream (LAUNCHES["css_mc_power"] counts both streams to
+# m = 64, LAUNCHES["css_mc_power_window_block"] the window stream past it)
+POWER_LAUNCHES = {name: 0 for name in STREAMS}
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, COEFF_LAUNCHES):
+    for counts in (LAUNCHES, COEFF_LAUNCHES, POWER_LAUNCHES):
         for name in counts:
             counts[name] = 0
 
@@ -1218,9 +1221,11 @@ def null_power_sums(
     float64, rows (sum s, sum s^2, sum s^3) over the float32 scores of
     chunks ``k0 .. k0+n_chunks-1`` (``perm.py:_null_power_sums``).  K9
     on a CUDA ``dist`` (the shared stream at any m; the window stream's
-    ``css_mc_power_window`` up to m = 64, ``css_mc_power_window_block``
-    past it, as :func:`window_form` says), the plain version on a CPU
-    one."""
+    ``css_mc_power_window`` up to m = 64, on K8's small-panel body with
+    the sums in :func:`window_power_order`'s order, and
+    ``css_mc_power_window_block`` past it, as :func:`window_form` says),
+    the plain version on a CPU one.  Each call adds one to
+    :data:`POWER_LAUNCHES` under its stream."""
     if stream not in STREAMS:
         raise ValueError(f"stream must be one of {STREAMS}, got {stream!r}")
     gen = _check_bitgen(bitgen)
@@ -1253,6 +1258,45 @@ def null_power_sums(
         else:
             launch(LAUNCHES, "css_mc_power_window_block", "css_mc_power_window_block", dev,
                    *args, ptr(scratch), ptr(out))
+    POWER_LAUNCHES[stream] += 1
+    return out
+
+
+# the warps of a K9 window-stream block to m = 64 (csrc/css_mc_window.cu
+# kWarps), which its sum order follows
+POWER_WARPS = 8
+
+
+def window_power_order(s: torch.Tensor) -> torch.Tensor:
+    """[n_chunks, 3, B] power sums of the float32 scores s [B, n_chunks,
+    chunk] (:func:`_perm_scores` or :func:`nonzero_walk` of each chunk) in
+    the order K9's window stream adds them to m = 64
+    (``csrc/css_mc_window.cu:power_sums``): permutation K on lane K % 32 of
+    warp (K // 32) % POWER_WARPS, each lane's s, s*s and (s*s)*s added in
+    float64 in word order from +0.0, the xor tree (16, 8, 4, 2, 1) over a
+    warp's lanes, then the warps' sums in warp order from +0.0.  Every add
+    is a tensor op of its own in that order.  A lane past the chunk adds
+    nothing (here it adds +0.0 to a partial that is never -0.0: the same
+    bits).  A window with a NaN score gets NaN sums, as the kernel's
+    flagged windows do.  For tests: the kernel equals it bit for bit."""
+    B, nk, chunk = s.shape
+    wpc = -(-chunk // WORD_BITS)
+    v = torch.nn.functional.pad(s.to(torch.float64), (0, WORD_BITS * wpc - chunk))
+    v = v.reshape(B, nk, wpc, WORD_BITS)
+    v2 = v * v
+    terms = (v, v2, v2 * v)
+    lanes = torch.arange(WORD_BITS, device=s.device)
+    out = torch.empty((nk, 3, B), dtype=torch.float64, device=s.device)
+    for e, t in enumerate(terms):
+        total = torch.zeros((B, nk), dtype=torch.float64, device=s.device)
+        for warp in range(POWER_WARPS):
+            acc = torch.zeros((B, nk, WORD_BITS), dtype=torch.float64, device=s.device)
+            for q in range(warp, wpc, POWER_WARPS):
+                acc = acc + t[:, :, q]
+            for o in (16, 8, 4, 2, 1):
+                acc = acc + acc[..., lanes ^ o]
+            total = total + acc[..., 0]
+        out[:, e] = total.T
     return out
 
 

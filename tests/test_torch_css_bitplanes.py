@@ -117,3 +117,27 @@ def test_gathered_twin_batches_alike(monkeypatch):
     whole = tcss.dissimilarity_gathered_plain(av, bv, npos)
     monkeypatch.setattr(tcss, "_COUNT_BATCH_ELEMS", 64 * 21 * 2)
     assert torch.equal(tcss.dissimilarity_gathered_plain(av, bv, npos), whole)
+
+
+@pytest.mark.parametrize("shift", [0, 1, 31])
+@pytest.mark.parametrize("m", [65, 129, 200, 209])
+def test_rows_mirror_equals_jax_counts(m, shift):
+    """The large-panel kernel's counting (``css_dissim_rows``: the words
+    in slabs, one popcount of the two opposite-homozygote masks a word)
+    at panel sizes past the warp forms, against the one-hot product (K4):
+    the 4,096-SNP window takes 16 slabs of 8 words (m = 65 .. 209 all
+    stage 8 words a slab; row_slab_words says fewer past m = 256)."""
+    vals, lo, npos = _chromosome(m, shift, seed=7 * m + shift)
+    assert tcss.row_slab_words(m) == 8
+    assert [tcss.row_slab_words(k) for k in (256, 257, 1024, 2048, 2049)] == [8, 7, 2, 1, 1]
+    P = 4096
+    offs = np.arange(P)[None, :]
+    mask = offs < npos[:, None]
+    g = vals[np.where(mask, lo[:, None] + offs, 0)]
+    want = np.asarray(jcss.dissimilarity_counts(jnp.asarray(g), jnp.asarray(mask)))
+    planes = tcss.pack_bitplanes_plain(torch.from_numpy(vals))
+    lo_t, npos_t = torch.from_numpy(lo), torch.from_numpy(npos)
+    got = tcss.dissimilarity_rows_plain(planes, lo_t, npos_t).numpy()
+    assert np.array_equal(got, want)
+    assert np.array_equal(got, tcss.dissimilarity_bitplanes_plain(planes, lo_t, npos_t).numpy())
+    assert got[0].sum() == 0 and got[-1].sum() > 0

@@ -29,13 +29,17 @@ float32 form adds the twin's products in the twin's order).  K9
 approx p within LOG10_P_BAND where nscores agree (>= 99.9 % of windows),
 the bands measured on the CPU (tests/test_torch_approx.py); at the tile
 edges the shared stream's sums within the float32 rounding of the plain
-version's scores (see the test), and the same bits in two calls.  K10
+version's scores (see the test), and the same bits in two calls; the
+window stream to m = 64 bit-equal to its sum order mirrored in torch
+(``window_power_order`` of the plain scores) at each of its kernel's
+instantiations, on few windows and on 997.  K10
 (``fet_window``): FET tolerances against its plain version (stddev beyond
 them on at most 0.01 % of windows, + 1) and bit-equal to K1 -> K2 on a
 chromosome's windows; a window's bits do not depend on whether its
 launch took the warp body (P <= 128) or the block body, in K2, K2r and
 K10 alike.  K3 (``css_dissim``, ``css_dissim_gathered``): counts equal to
-the plain twins exactly, at unaligned window starts and tail masks, and
+the plain twins exactly, at unaligned window starts and tail masks (the
+large-panel kernel too, at odd and even m, both forms), and
 ``css_window_batch`` equal to the joint-matrix route it replaced.  K1r (``fet_lut_rank``, ``fet_snp_ranks``): the
 sorted LUT and every rank equal to the plain version's on the kernel's own
 LUT (signed zeros tied), the scores lut_sorted[ranks] at the FET
@@ -607,6 +611,42 @@ def test_css_dissim_kernels_large_panels(cuda, m):
     torch.cuda.synchronize()
     tiles = kcss.LAUNCHES["css_dissim_tiles"] - before["css_dissim_tiles"]
     assert tiles == 2 * (kcss.dissim_form(m) == "tiles") + 2 * (
+        kcss.gathered_form(asize, bsize) == "tiles")
+
+
+# K3's large-panel kernel (css_dissim_rows): odd and even m past the warp
+# form's switch, the gathered form's tiles at 209
+LARGE_DISSIM_M = [113, 129, 200, 209]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shift", [0, 1, 31])
+@pytest.mark.parametrize("m", LARGE_DISSIM_M)
+def test_css_dissim_large_kernel_edges(cuda, m, shift):
+    """K3's large-panel kernel at the funnel shift's edges: windows at lo %
+    32 in {0, 1, 31} of 0 to 4,096 SNPs (the longest in 16 slabs of 8
+    words), in both forms and both precisions, equal to the plain twins
+    and to the rows mirror; at odd m the rows of a window start off a
+    16-byte boundary (the scalar head and tail)."""
+    vals, lo, npos = _edge_windows(m, shift, seed=3 * m + shift)
+    want = kcss.dissimilarity_plain(vals, lo, npos)
+    mirror = kcss.dissimilarity_rows_plain(kcss.pack_bitplanes_plain(vals), lo, npos)
+    assert torch.equal(mirror, want)
+    asize, bsize = (m + 1) // 2, m // 2
+    P = int(npos.max())
+    offs = torch.arange(P)[None, :]
+    g = vals[torch.where(offs < npos[:, None], lo[:, None] + offs, lo[:, None])]
+    av, bv = g[..., :asize].contiguous().to(cuda), g[..., asize:].contiguous().to(cuda)
+    vd = vals.to(cuda)
+    before = kcss.LAUNCHES["css_dissim_tiles"]
+    for dt in (torch.float32, torch.float64):
+        k = kcss.css_dissim(vd, lo, npos, dt)
+        assert k.dtype == dt and torch.equal(k.double().cpu(), want)
+        kg = kcss.css_dissim_gathered(av, bv, npos, dt)
+        assert kg.dtype == dt and torch.equal(kg.double().cpu(), want)
+    torch.cuda.synchronize()
+    assert kcss.dissim_form(m) == "tiles"
+    assert kcss.LAUNCHES["css_dissim_tiles"] - before == 2 + 2 * (
         kcss.gathered_form(asize, bsize) == "tiles")
 
 
@@ -1333,6 +1373,66 @@ def test_css_mc_power_window_kernel_at_its_switches(cuda, m):
     rel = float(((k[..., fin] - p[..., fin]).abs()
                  / p[..., fin].abs().clamp(min=1e-300)).max())
     assert rel <= 1e-12, rel
+
+
+# K9's window stream to m = 64: both sides of each instantiation of its
+# kernel (m <= 8, 16, 24, 32, 64)
+POWER_BUCKETS = [2, 8, 9, 16, 17, 24, 25, 32, 33, 64]
+
+
+def _power_order(dist, wkeys, asize, bsize, chunk, k0, nk, bitgen):
+    """kernels/perm.py:window_power_order of the plain float32 scores of
+    chunks k0 .. k0 + nk - 1."""
+    s = torch.stack([kperm._perm_scores(dist, rng.fold_in(wkeys, c), asize, bsize, chunk,
+                                        bitgen) for c in range(k0, k0 + nk)], dim=1)
+    return kperm.window_power_order(s)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk", [32, 100, 512])
+@pytest.mark.parametrize("bitgen", ["mix", "threefry"])
+@pytest.mark.parametrize("m", POWER_BUCKETS)
+def test_css_mc_power_window_kernel_equals_its_order(cuda, m, bitgen, chunk):
+    """K9's window stream to m = 64 (css_mc_power_window on K8's
+    small-panel body) on a few windows, as approx mode's escalation rounds
+    call it, at k0 > 0: bit-equal to its sum order mirrored in torch
+    (window_power_order) on the plain scores, the same bits in two calls,
+    NaN where a window holds a NaN or an Inf; each call counted under the
+    window stream."""
+    nwin = 4 if m > 2 else 3
+    dist, _, asize, bsize, wkeys = _switch_windows(cuda, m, nwin=nwin)
+    before = (kperm.LAUNCHES["css_mc_power"], kperm.POWER_LAUNCHES["window"])
+    args = (dist, wkeys, asize, bsize, chunk, 5, 3, "window", bitgen)
+    k = kperm.null_power_sums(*args)
+    k2 = kperm.null_power_sums(*args)
+    want = _power_order(dist, wkeys, asize, bsize, chunk, 5, 3, bitgen)
+    torch.cuda.synchronize()
+    assert (kperm.LAUNCHES["css_mc_power"], kperm.POWER_LAUNCHES["window"]) == (
+        before[0] + 2, before[1] + 2)
+    assert torch.equal(k.view(torch.int64), k2.view(torch.int64))
+    bad = [1, 3][:nwin - 2]
+    fin = [0, 2]
+    assert torch.isnan(k[:, :, bad]).all() and torch.isnan(want[:, :, bad]).all()
+    assert torch.equal(k[..., fin].view(torch.int64), want[..., fin].view(torch.int64))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bitgen", ["mix", "threefry"])
+@pytest.mark.parametrize("m", [9, 21, 64])
+def test_css_mc_power_window_kernel_equals_its_order_many_windows(cuda, m, bitgen):
+    """The same on up to 997 windows of a chromosome at chunk 512 (approx
+    mode's first call), against the mirror bit for bit and the plain
+    version within 1e-12 of each sum's magnitude."""
+    dist, _, asize, bsize, chroms, slots = _mc_windows(cuda, m, 997)
+    wkeys = rng.window_keys(rng.fold_in(rng.prng_key(7), 2).to(cuda), chroms, slots)
+    k = kperm.null_power_sums(dist, wkeys, asize, bsize, 512, 2, 2, "window", bitgen)
+    want = _power_order(dist, wkeys, asize, bsize, 512, 2, 2, bitgen)
+    p = kperm.null_power_sums_plain(dist, wkeys, asize, bsize, 512, 2, 2, "window", bitgen)
+    torch.cuda.synchronize()
+    assert torch.equal(k.view(torch.int64), want.view(torch.int64))
+    rms = (p[:, 1:2] / 512).sqrt()
+    q = torch.arange(1, 4, device=cuda, dtype=p.dtype)[None, :, None]
+    assert float(((k - p).abs() / (512 * rms ** q)).max()) <= 1e-12
 
 
 @pytest.mark.gpu
