@@ -96,9 +96,10 @@ Phases (any failure exits non-zero and prints no result line):
    9's small files, byte-equal to the unsharded tracks;
 14. K1r (``fet_lut_rank``, ``fet_snp_ranks``) and K2r
    (``fet_aggregate_ranks``) on the bench FET workload in both precisions:
-   the LUT sort against its plain version, exactly, at 11+10 and at 38+38
-   (the largest symmetric panel with a LUT, 2.3 M entries); the ranks of 8 M
-   SNPs; K2r on the ~800 k windows against its plain version and equal to
+   the LUT sort against its plain version, exactly, at 11+10, 15+15, 20+20
+   and 38+38 (the largest symmetric panel with a LUT, 2.3 M entries),
+   timed beside ``torch.sort(lut + 0.0, stable=True)`` alone; the ranks of 8 M SNPs; K2r on the ~800 k windows
+   against its plain version and equal to
    phase 2's K1 -> K2 on every window, timed beside K2; ``run_fet`` exact
    by the old route (K1 -> K2) and the rank route, warm walls in turns;
 15. ``run-all`` on phase 3's 500 k-SNP pair at the CLI default (fast) and
@@ -511,9 +512,10 @@ LARGE_PATH = ("css_dissim_tiles", "css_cmds_block", "css_smacof_block", "css_mc_
 # step on wide windows): these launch there
 WIDE_PATH = ("css_mc_window_block", "css_mc_power_window_block", "css_perm_chunk_block",
              "fet_aggregate_wide", "fet_aggregate_ranks_wide", "fet_window_wide")
-# K1r's LUT sort also at the largest symmetric panel where the LUT is on
-# (39^4 = 2,313,441 entries; 39 + 39 fails lut_active's 1e8 bound)
-RANK_BIG_PANEL = 38
+# K1r's LUT sort at these panels (G = 17,424; 65,536; 194,481; 2,313,441),
+# the last the largest symmetric panel where the LUT is on (39 + 39 fails
+# lut_active's 1e8 bound)
+RANK_PANELS = ((11, 10), (15, 15), (20, 20), (38, 38))
 # the FET kernels of run-fet / run_fet: K1 -> K2 in fast mode, K1's LUT
 # build -> K1r -> K2r in exact mode (the LUT regime)
 FET_PATH = ("fet_lut_build", "fet_snp_logs", "fet_aggregate", "fet_lut_rank",
@@ -576,9 +578,11 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def median_ms(torch, fn, reps: int) -> float:
+def median_ms(torch, fn, reps: int, queued: bool = False) -> float:
     """Median device time of ``fn`` over ``reps`` warm calls, each between
-    its own two CUDA events."""
+    its own two CUDA events; ``queued``: each enqueued behind a busy kernel
+    (``torch.cuda._sleep``), so that the host's time to enqueue its
+    launches does not show."""
     import statistics
 
     fn()
@@ -587,6 +591,8 @@ def median_ms(torch, fn, reps: int) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(2_000_000)
         start.record()
         fn()
         end.record()
@@ -2649,7 +2655,9 @@ def float_bits(torch, t):
 def phase_rank_kernels(torch, pair, plan_ids, dev, results, k2_bench, card) -> None:
     """Phase 14: K1r and K2r on the bench FET workload, both precisions:
     ``fet_lut_rank`` against its plain version on K1's LUT, exactly, at
-    11 + 10 and at RANK_BIG_PANEL; ``fet_snp_ranks`` on the 8 M SNPs (the
+    each of RANK_PANELS, timed (median of 5, queued) beside
+    ``torch.sort(lut + 0.0, stable=True)`` alone; ``fet_snp_ranks`` on the
+    8 M SNPs (the
     ranks of the kernel's own LUT exactly, the scores against the plain
     version's); ``fet_aggregate_ranks`` on the ~800 k windows against its
     plain version and equal to phase 2's K1 -> K2 on every window (-0.0 ==
@@ -2670,7 +2678,7 @@ def phase_rank_kernels(torch, pair, plan_ids, dev, results, k2_bench, card) -> N
     key = chromosome_key(0, "chrBench")
     idx = kfet._lut_index(kfet.count_tables(vals[:, :ASIZE], vals[:, ASIZE:]), ASIZE, BSIZE)
     rl, rs, ra = (results[k] for k in ("fet_lut_rank", "fet_snp_ranks", "fet_aggregate_ranks"))
-    big = RANK_BIG_PANEL
+    big = RANK_PANELS[-1][0]
     check(kfet.lut_active(big, big) and not kfet.lut_active(big + 1, big + 1),
           f"{big} + {big} must be the largest symmetric panel with a LUT")
     for prec in ("fast", "exact"):
@@ -2678,27 +2686,36 @@ def phase_rank_kernels(torch, pair, plan_ids, dev, results, k2_bench, card) -> N
         dt = torch.float32 if fast else torch.float64
         tol = TOL[prec]
 
-        # K1r's LUT sort: one counting pass at 11 + 10, runs + merges at 38 + 38
-        for a, b in ((ASIZE, BSIZE), (big, big)):
+        # K1r's LUT sort at each panel
+        for a, b in RANK_PANELS:
             label = f"{a}+{b}"
             lut = kfet.fet_lut(a, b, kfet.support_size(a, b), a + b + 2, dt, dev)
+            G = lut.numel()
             (ks, kr), (ps, pr) = kfet.fet_lut_rank(lut), kfet.fet_lut_rank_plain(lut)
             torch.cuda.synchronize()
             eq = torch.equal(kr, pr) and torch.equal(float_bits(torch, ks), float_bits(torch, ps))
-            ms = cuda_ms(torch, lambda: kfet.fet_lut_rank(lut), 20)
-            pms = cuda_ms(torch, lambda: kfet.fet_lut_rank_plain(lut), 5)
-            G = lut.numel()
-            say(f"[K1r fet_lut_rank {prec}, {label}] G={G}: sorted LUT and ranks equal to the "
-                f"plain version's: {eq}; kernel {ms:.4f} ms plain {pms:.4f} ms")
+            ms = median_ms(torch, lambda: kfet.fet_lut_rank(lut), 5, queued=True)  # noqa: B023
+            pms = median_ms(torch, lambda: kfet.fet_lut_rank_plain(lut), 5,  # noqa: B023
+                            queued=True)
+            lms = median_ms(torch, lambda: torch.sort(lut + 0.0, stable=True), 5,  # noqa: B023
+                            queued=True)
+            # G values in, G values and ranks out; a comparison sort's G
+            # log2 G compares of (value, index)
+            bnd = bound(G * (2 * lut.element_size() + 4),
+                        {"f32": 2 * G * int(np.ceil(np.log2(G)))})
+            say(f"[K1r fet_lut_rank {prec}, {label}] G={G}: sorted LUT and ranks "
+                f"equal to the plain version's: {eq}; kernel {ms:.4f} ms, torch.sort(lut + 0.0, "
+                f"stable=True) alone {lms:.4f} ms ({ms / lms:.2f}x), plain {pms:.4f} ms, bound "
+                f"{bnd[0]:.5f} ms ({bnd[1]}); medians of 5, queued")
             check(eq, f"fet_lut_rank {prec} {label} differs from its plain version")
-            if a == ASIZE:
+            rl[f"{a}_{b}_{prec}"] = {"G": G, "ms": ms, "plain_ms": pms,
+                                      "library_ms": lms, "bound_ms": bnd[0]}
+            if (a, b) == (ASIZE, BSIZE):
                 rl[prec] = (0.0, 0.0, ms, pms)
-                if fast:   # G values in, G values and ranks out; a comparison
-                    # sort's G log2 G compares of (value, index)
+                rl["library_ms" if fast else "library_ms_exact"] = lms
+                if fast:   # the row's bound keeps the float32 sizes
                     rl["bound"] = bound(G * 4 * 3, {"f32": 2 * G * int(np.ceil(np.log2(G)))})
-            else:
-                rl[f"big_{prec}"] = (G, ms, pms)
-        del lut, ks, kr, ps, pr
+            del lut, ks, kr, ps, pr
 
         # K1r per SNP: the 8 M SNPs (K1's LUT build, the sort, the lookup)
         ls, r = kfet.fet_snp_ranks(vals, ASIZE, maxs, nmax, fast)
@@ -4275,13 +4292,15 @@ def smoke(torch, dev) -> tuple[str, list[dict]]:
                                    "@ [B, 2P, m], P the widest window (the one-hots built "
                                    "beforehand)")
         if name == "fet_lut_rank":
-            # ms / plain_ms: 11 + 10 (one counting pass); then the largest
-            # symmetric panel with a LUT (runs and merge passes)
-            for prec in ("fast", "exact"):
-                G, ms, pms = r[f"big_{prec}"]
-                entry[f"ms_{RANK_BIG_PANEL}_{RANK_BIG_PANEL}_{prec}"] = ms
-                entry[f"plain_ms_{RANK_BIG_PANEL}_{RANK_BIG_PANEL}_{prec}"] = pms
-            entry["entries_big"] = r["big_fast"][0]
+            # ms / plain_ms / library_ms: 11 + 10 fast; then every panel of
+            # RANK_PANELS in both precisions: G, the sort's, the plain version's and torch.sort(lut + 0.0,
+            # stable=True)'s medians of 5 (queued) and the bound
+            entry["library_ms_exact"] = r["library_ms_exact"]
+            entry["library_is"] = "torch.sort(lut + 0.0, stable=True), values and indices"
+            entry["panels"] = {f"{a}+{b}_{prec}": r[f"{a}_{b}_{prec}"]
+                               for a, b in RANK_PANELS for prec in ("fast", "exact")}
+            entry["no_slower_than_library"] = all(
+                c["ms"] <= c["library_ms"] for c in entry["panels"].values())
         if name == "fet_snp_ranks":
             entry["ms_includes"] = "K1's LUT build, the LUT sort and the per-SNP lookup"
         if name == "fet_aggregate_ranks":

@@ -389,43 +389,6 @@ __device__ void block_window_stats(K* sorted, T* reps, int n, int P, uint2 wkey,
     window_picks(sorted, reps, n, P, wkey, perc, nsamples, value_of, score_out, stddev_out);
 }
 
-// Order-preserving maps of a sort key to an unsigned integer of its
-// width, and back: a float's bits with the sign bit set when positive and
-// all bits flipped when negative; an int32 rank offset by 2^31.
-template <typename K>
-struct Radix;
-
-template <>
-struct Radix<float> {
-    using U = uint32_t;
-    static __device__ __forceinline__ U to(float x) {
-        const U b = __float_as_uint(x);
-        return b & 0x80000000u ? ~b : b | 0x80000000u;
-    }
-    static __device__ __forceinline__ float from(U u) {
-        return __uint_as_float(u & 0x80000000u ? u & 0x7fffffffu : ~u);
-    }
-};
-
-template <>
-struct Radix<double> {
-    using U = unsigned long long;
-    static __device__ __forceinline__ U to(double x) {
-        const U b = static_cast<U>(__double_as_longlong(x));
-        return b >> 63 ? ~b : b | (1ull << 63);
-    }
-    static __device__ __forceinline__ double from(U u) {
-        return __longlong_as_double(static_cast<long long>(u >> 63 ? u & ~(1ull << 63) : ~u));
-    }
-};
-
-template <>
-struct Radix<int> {
-    using U = uint32_t;
-    static __device__ __forceinline__ U to(int x) { return static_cast<U>(x) ^ 0x80000000u; }
-    static __device__ __forceinline__ int from(U u) { return static_cast<int>(u ^ 0x80000000u); }
-};
-
 // The wide body's shared memory, carved in wide_bytes's order.
 template <typename T, typename U>
 struct BandSmem {

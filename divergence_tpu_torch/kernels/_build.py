@@ -57,9 +57,8 @@ _SIGNATURES = {
     # ... fet_aggregate's arguments to pmax, then band_keys, gscratch, out,
     # stream
     "fet_aggregate_wide_{t}": (_P, _P, _I64, _U32, _U32, _D, _I, _I, _I, _P, _P, _P),
-    # lut, G, span, scratch keys / index x 2 (nullable), lut_sorted,
-    # rank_of_entry, stream
-    "fet_lut_rank_{t}": (_P, _I, _I, _P, _P, _P, _P, _P, _P, _P),
+    # lut, G, scratch, lut_sorted, rank_of_entry, stream
+    "fet_lut_rank_{t}": (_P, _I, _P, _P, _P, _P),
     # vals, n, asize, bsize, rank_of_entry, out, stream
     "fet_snp_ranks": (_P, _I64, _I, _I, _P, _P, _P),
     # lut_sorted, G, ranks, rows[3, B], B, key0, key1, perc, nsamples, pmax,
@@ -153,6 +152,7 @@ _FORM_QUERIES = {
     "css_mc_window_form": (_I, _I, _PI64),                # m, float64, scratch bytes
     # pmax, nsamples, key bytes, value bytes, scratch bytes
     "fet_window_form": (_I, _I, _I, _I, _PI64),
+    "fet_lut_rank_scratch": (_I, _I, _PI64),              # G, key bytes, scratch bytes
 }
 
 

@@ -64,13 +64,6 @@ LAUNCHES = {"fet_lut_build": 0, "fet_snp_logs": 0, "fet_aggregate": 0, "fet_wind
             "fet_lut_rank": 0, "fet_snp_ranks": 0, "fet_aggregate_ranks": 0,
             "fet_aggregate_wide": 0, "fet_aggregate_ranks_wide": 0, "fet_window_wide": 0}
 
-# K1r's LUT sort: one counting pass over the whole LUT up to this many
-# entries (17,424 at 11 + 10); above it, counting runs of _LUT_RANK_RUN
-# entries and merge passes (2.3 M entries at 38 + 38, the largest
-# symmetric panel where the LUT is on)
-_LUT_RANK_WHOLE = 1 << 16
-_LUT_RANK_RUN = 1024
-
 
 def reset_launches() -> None:
     for name in LAUNCHES:
@@ -879,11 +872,47 @@ def fet_lut_rank_plain(lut: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return lut[order], rank_of_entry
 
 
+def lut_radix_keys(lut: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """The keys K1r's radix sort orders the LUT by, as :func:`_ordered_ints`
+    gives them (``csrc/fet_common.cuh:Radix``), and their width: each value
+    canonicalised by ``+ 0.0`` first, so -0.0 and +0.0 share a key.  This
+    and :func:`lut_radix_rank` mirror the kernel for the tests."""
+    return _ordered_ints(lut + 0.0)
+
+
+def lut_radix_rank(lut: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(lut_sorted, rank_of_entry)`` by K1r's passes mirrored in torch:
+    the (key, index) pairs of :func:`lut_radix_keys`, then one stable pass
+    an 8-bit digit, least significant first (each entry to its digit's
+    start plus the entries of that digit before it, the order a stable
+    sort by the digit gives).  Equal to :func:`fet_lut_rank_plain` bit for
+    bit on a LUT without NaN."""
+    keys, width = lut_radix_keys(lut)
+    G = lut.shape[0]
+    order = torch.arange(G, device=lut.device)
+    for shift in range(0, width, 8):
+        order = order[torch.sort(_digits(keys[order], shift, width), stable=True).indices]
+    rank_of_entry = torch.empty(G, dtype=torch.int32, device=lut.device)
+    rank_of_entry[order] = torch.arange(G, dtype=torch.int32, device=lut.device)
+    return lut[order], rank_of_entry
+
+
+def lut_rank_scratch(G: int, key_bytes: int, device: torch.device | None = None) -> int:
+    """The bytes of device scratch K1r's sort takes for a LUT of ``G``
+    keys of ``key_bytes`` on ``device``, by the kernel library's reckoning
+    (``csrc/fet_rank.cu:fet_lut_rank_scratch``: the histograms, the
+    look-back words of a tile size that follows the device's SMs, and two
+    (value, index) buffers)."""
+    return query_form(("onesweep",), "fet_lut_rank_scratch", device, G, key_bytes)[1]
+
+
 def fet_lut_rank(lut: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """``(lut_sorted, rank_of_entry)``: the LUT in ascending order and each
     entry's place in it, int32 (``divergence_tpu/kernels/fet.py:
     fet_snp_ranks_joint``'s stable ``jnp.argsort``: IEEE ``<`` on the
-    values, ties by index, -0.0 == +0.0)."""
+    values, ties by index, -0.0 == +0.0).  On the card a stable LSD radix
+    sort of (canonical key, index) pairs, a onesweep pass an 8-bit digit;
+    one launch count a call."""
     if is_cpu(lut):
         return fet_lut_rank_plain(lut)
     if lut.dim() != 1 or not lut.is_contiguous():
@@ -892,16 +921,13 @@ def fet_lut_rank(lut: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     if G >= 1 << 24:
         raise ValueError(f"fet_lut_rank takes fewer than 2^24 entries, got {G}")
     dev = lut.device
-    span = G if G <= _LUT_RANK_WHOLE else _LUT_RANK_RUN
     lut_sorted = torch.empty_like(lut)
     rank_of_entry = torch.empty(G, dtype=torch.int32, device=dev)
-    scratch = [None] * 4         # two (keys, index) run buffers for the merges
-    if span < G:
-        scratch = [torch.empty_like(lut), torch.empty_like(rank_of_entry),
-                   torch.empty_like(lut), torch.empty_like(rank_of_entry)]
+    scratch = torch.empty(lut_rank_scratch(G, lut.element_size(), dev), dtype=torch.uint8,
+                          device=dev)
     launch(
         LAUNCHES, "fet_lut_rank", f"fet_lut_rank_{dtype_suffix(lut.dtype)}", dev,
-        ptr(lut), G, span, *map(ptr, scratch), ptr(lut_sorted), ptr(rank_of_entry),
+        ptr(lut), G, ptr(scratch), ptr(lut_sorted), ptr(rank_of_entry),
     )
     return lut_sorted, rank_of_entry
 

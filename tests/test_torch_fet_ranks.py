@@ -83,10 +83,11 @@ def test_lut_rank_is_jax_stable_argsort(dtype):
 
 
 @pytest.mark.parametrize("prec", ["exact", "fast"])
-@pytest.mark.parametrize("asize,bsize", [(3, 2), (11, 10)])
+@pytest.mark.parametrize("asize,bsize", [(3, 2), (11, 10), (15, 15)])
 def test_rank_step_on_jax_lut_gives_jax_ranks(prec, asize, bsize):
     """The state carried across: the port's sort of the JAX package's LUT
-    reproduces JAX's lut_sorted bit for bit and every SNP's rank exactly."""
+    reproduces JAX's lut_sorted bit for bit and every SNP's rank exactly
+    (15 + 15: G = 2^16, the largest LUT whose indices fit 16 bits)."""
     rs = np.random.default_rng(6)
     vals = _codes(rs, (3000, asize + bsize))
     maxs, nmax = jfet.support_size(asize, bsize), asize + bsize + 2

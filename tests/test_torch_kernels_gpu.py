@@ -41,10 +41,11 @@ K10 alike.  K3 (``css_dissim``, ``css_dissim_gathered``): counts equal to
 the plain twins exactly, at unaligned window starts and tail masks (the
 large-panel kernel too, at odd and even m, both forms), and
 ``css_window_batch`` equal to the joint-matrix route it replaced.  K1r (``fet_lut_rank``, ``fet_snp_ranks``): the
-sorted LUT and every rank equal to the plain version's on the kernel's own
-LUT (signed zeros tied), the scores lut_sorted[ranks] at the FET
-tolerances.  K2r (``fet_aggregate_ranks``): FET tolerances against its
-plain version and bit-equal to K1 -> K2.  K11 (``css_perm_chunk``):
+sorted LUT's bits and every rank equal to the plain version's on the
+kernel's own LUT (signed zeros tied) and at the sort's tile edges; the
+scores lut_sorted[ranks] at the FET tolerances.  K2r
+(``fet_aggregate_ranks``): FET tolerances against its plain version and
+bit-equal to K1 -> K2.  K11 (``css_perm_chunk``):
 (hits, reached, pos) identical to the plain version on every window
 (non-finite windows included), and its words those of K8's first chunk.
 K6 also reports the transforms over every restart, equal to the plain
@@ -245,31 +246,64 @@ def _bits(t):
     return t.view(torch.int64 if t.dtype == torch.float64 else torch.int32)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("G", [5000, 100_000])
-def test_lut_rank_kernel_ties_signed_zeros(cuda, dtype, G):
-    """K1r's sort on a LUT of few values with both signed zeros: the CPU
-    plain version's order (IEEE <, ties by index), in one counting pass
-    (5,000 entries) and through runs and merge passes (100,000)."""
-    rs = np.random.default_rng(G)
-    lut = torch.from_numpy(rs.choice(np.array([0.0, -0.0, 2.5, 0.125, 7.0]), size=G)).to(dtype)
-    ks, kr = kfet.fet_lut_rank(lut.to(cuda))
-    ps, pr = kfet.fet_lut_rank_plain(lut)
+def _lut_rank_agrees(lut):
+    """K1r's sort of a LUT on the card against its plain version on the
+    CPU, bit for bit (ranks and the sorted values' bits), with one launch
+    counted."""
+    before = kfet.LAUNCHES["fet_lut_rank"]
+    ks, kr = kfet.fet_lut_rank(lut)
+    ps, pr = kfet.fet_lut_rank_plain(lut.cpu())
     torch.cuda.synchronize()
+    assert kfet.LAUNCHES["fet_lut_rank"] == before + 1
+    assert kr.dtype == torch.int32
     assert torch.equal(kr.cpu(), pr)
     assert torch.equal(_bits(ks.cpu()), _bits(ps))
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("G", [5000, 100_000])
+def test_lut_rank_kernel_ties_signed_zeros(cuda, dtype, G):
+    """K1r's sort on a LUT of few values with both signed zeros: the CPU
+    plain version's order (IEEE <, ties by index), on 5,000 entries (five
+    tiles) and 100,000."""
+    rs = np.random.default_rng(G)
+    lut = torch.from_numpy(rs.choice(np.array([0.0, -0.0, 2.5, 0.125, 7.0]), size=G)).to(dtype)
+    _lut_rank_agrees(lut.to(cuda))
+
+
+# where a LUT's size meets an edge of the sort's tiles: one entry; one
+# tile of 256 x 4 entries and one more; 17 tiles (past a look-back window
+# of 16 tiles' words); 2^16 and one more; the switch from 4 to 16 entries
+# a thread (2 x 132 SMs x 4,096 entries on an H100) and one below
+LUT_RANK_EDGES = ("1", "1024", "1025", "16385", "65536", "65537", "items_edge-1",
+                  "items_edge")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("edge", LUT_RANK_EDGES)
+def test_lut_rank_kernel_tile_edges(cuda, dtype, edge):
+    """K1r's sort at its tiles' edges: LUT-like values (runs of +0.0 and
+    -0.0, long runs of duplicates, subnormals, 1e-300, values whose every
+    digit varies) equal to the plain version's order bit for bit."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    G = (2 * sms * 4096 - (edge == "items_edge-1") if edge.startswith("items_edge")
+         else int(edge))
+    rs = np.random.default_rng(G)
+    pool = np.array([0.0, -0.0, 1e-300, 5e-324, 2.2e-308, 1e-40, 1e-16, 1.0, 3.5, 40.0])
+    vals = np.where(rs.random(G) < 0.5, rs.choice(pool, size=G), rs.random(G) * 8.0)
+    vals[: G // 8] = -0.0                      # a long run of one key, both zeros
+    _lut_rank_agrees(torch.from_numpy(vals).to(dtype).to(cuda))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("prec", ["exact", "fast"])
-@pytest.mark.parametrize("asize,bsize,whole", [(11, 10, None), (11, 10, 1024), (38, 38, None)])
-def test_lut_rank_kernel(cuda, monkeypatch, prec, asize, bsize, whole):
-    """K1r's LUT sort against its plain version on K1's LUT, exactly: one
-    counting pass at 11 + 10, runs and merges at 11 + 10 (forced) and at
-    38 + 38, the largest symmetric panel with a LUT (2.3 M entries)."""
-    if whole is not None:
-        monkeypatch.setattr(kfet, "_LUT_RANK_WHOLE", whole)
+@pytest.mark.parametrize("asize,bsize", [(11, 10), (15, 15), (20, 20), (38, 38)])
+def test_lut_rank_kernel(cuda, prec, asize, bsize):
+    """K1r's LUT sort against its plain version on K1's LUT, exactly, at
+    11 + 10, 15 + 15, 20 + 20 and 38 + 38, the largest symmetric panel
+    with a LUT (2.3 M entries)."""
     dt = torch.float64 if prec == "exact" else torch.float32
     maxs, nmax = kfet.support_size(asize, bsize), asize + bsize + 2
     assert kfet.lut_active(asize, bsize)
