@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of ``divergence_tpu_torch`` — the FET scan (``run-fet``), the
-CSS scan (``run-css``), the sharded divergence step and the whole pipeline
-(``run-all``) on one CUDA GPU, at the JAX package's bench scale.
+CSS scan (``run-css``), the sharded divergence step, the whole pipeline
+(``run-all``), and the ingestion path (``convert-vcf``, the native GTrack
+parse) with ``doctor`` and ``bench-mc`` on one CUDA GPU, at the JAX
+package's bench scale.
 
 Usage, from the repository root, on a machine with one CUDA GPU::
 
@@ -11,7 +13,8 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. the card (``nvidia-smi`` name and power limit) and the nvcc build of
    ``divergence_tpu_torch/csrc``, with the registers, stack and spills of
-   K11's buckets and K6's two forms;
+   K11's buckets and K6's two forms, and beside it the g++ build of the
+   native host library (``divergence_tpu_torch/native``);
 2. every FET kernel against its plain torch version on the card, at the
    main path's shapes, in both precisions: K1's LUT build at 11+10, K1 per
    SNP at 8 M SNPs (11+10, LUT) and at 1 M SNPs on a 48+48 panel (no LUT),
@@ -93,7 +96,9 @@ Phases (any failure exits non-zero and prints no result line):
    of the card against one (bit-equal), the all-plain step on 20,000 of
    them; ``bench-scaling`` at its defaults; ``run-fet`` and ``run-css``
    with ``--shard`` and with ``--num-hosts 2`` + ``merge-tracks`` on phase
-   9's small files, byte-equal to the unsharded tracks;
+   9's small files, byte-equal to the unsharded tracks, and ``run-fet``
+   fast with ``--num-hosts 2`` + ``merge-tracks`` on a 40 + 40 panel (off
+   the LUT), byte-equal to the one-host track;
 14. K1r (``fet_lut_rank``, ``fet_snp_ranks``) and K2r
    (``fet_aggregate_ranks``) on the bench FET workload in both precisions:
    the LUT sort against its plain version, exactly, at 11+10, 15+15, 20+20
@@ -158,7 +163,21 @@ Phases (any failure exits non-zero and prints no result line):
    kernel library picks there, its time per permutation against m^2 and
    a*b.  Each line of (a) and (b) prints ns a permutation, the ratio to
    the bound and the time of the body before the sort and the nonzero
-   walk for the same cell (OLD_BODY_MS).
+   walk for the same cell (OLD_BODY_MS);
+18. the ingestion path and the remaining tools: (a) a VCF of phase 3's
+   500 k-SNP chromosome (21 sample columns, ``tools/synth.py:write_vcf``);
+   (b) ``convert-vcf`` per population (the native converter, timed),
+   byte-equal to the Python ``_convert_stream`` on its first 20,000 SNPs,
+   then ``run-fet`` on the converted pair, its score lines byte-equal to
+   phase 3's; (c) ``read_gtrack_points`` on phase 3's files by the native
+   parser (each, both at once) and by the Python reader on one, s per
+   10 M rows, the native path asserted taken; (d) phase 15's ``run-all``
+   walls and stage split beside those the Python parse gave; (e) ``doctor`` in
+   a subprocess (the card, ``nvcc``, the built kernel library, the native
+   parser); (f) ``bench-mc`` at its defaults with ``inloop``,
+   ``inloop_threefry``, ``inloop_shared``, ``native`` and ``xla``, then
+   on a 64-window cut, checksums equal to the plain versions'; (g)
+   ``convert-snp-table`` on a small table.
 
 Kernel launch counts are reset before phase 3 and read after phase 4 (the
 FET path), reset before phase 6 and read after phase 7 (the CMDS CSS
@@ -169,7 +188,9 @@ K10, K3's gather form, K5, K11), reset before phase 15 and read after it
 (run-all: K1, K2, K1r, K2r, K3, K5, K7), reset before phase 16b and
 read after it (the large-panel kernels, K7's product and scan), and
 reset before phase 17's main path (17b's step, 17c, 17d's run_fet and
-step) and read after it (the large-panel MC and wide FET kernels).  The
+step) and read after it (the large-panel MC and wide FET kernels), and
+reset before phase 18's ``run-fet`` on the converted pair and read after
+its ``bench-mc`` at the defaults (K1, K2, K7, K8, K11).  The
 last three lines are a JSON line of per-kernel results (with each
 kernel's ``bound_ms``: the larger of its bytes over 3.35 TB/s and its
 operations over 67 TFLOP/s float32 / 34 TFLOP/s float64, from this run's
@@ -266,6 +287,21 @@ SMACOF_WORKLOAD = CSS_WORKLOADS[2]
 DROS_SNPS, DROS_REGION, DROS_SEED = 1_000_000, 25_000_000, 13
 MULTI_SNPS, MULTI_REGION = 5_000, 250_000
 SMALL_SNPS, SMALL_REGION = 20_000, 1_000_000   # phase 9's CLI files
+OFF_LUT_PANEL = (40, 40)         # phase 13's slot-range merge off the LUT
+# phase 18: the Python converter's share of the byte check, bench-mc's
+# variants and its cut against the plain versions, and run-all's walls
+# with the Python GTrack reader (this script on an H100 80GB HBM3 at 700 W,
+# before the native parser)
+INGEST_PY_SNPS = 20_000
+INGEST_MC_BACKENDS = ("inloop", "inloop_threefry", "inloop_shared", "native", "xla")
+INGEST_MC_CUT = 64
+RUN_ALL_PYTHON_PARSE_S = {"fast": 18.9, "exact": 19.8}
+# the FET fast path of run-fet and bench-mc's kernels (K7, K8, K11)
+INGEST_PATH = ("fet_lut_build", "fet_snp_logs", "fet_aggregate", "css_mc_coeff",
+               "css_mc_shared", "css_mc_scan", "css_mc_window", "css_perm_chunk")
+# convert-snp-table's rows on phase 18's table (tests/test_cli.py)
+SNP_TABLE_ROWS = ["chrI\t100\t3\tfish0", "chrI\t100\t0\tfish1", "chrI\t100\t-3\tfish2",
+                  "chrI\t200\t3\tfish0", "chrI\t200\t-10000\tfish1", "chrI\t200\t0\tfish2"]
 SMACOF_DIFFER_SHARE = 1e-3       # exact: windows whose restart or count differ
 # fast: mds -> (max, 90th percentile) of |f32 - f64| / max(|f64|, 1), the
 # JAX package's own band measured on the CPU (tests/test_torch_smacof.py)
@@ -656,8 +692,28 @@ def ptxas_summary(log: str, names: tuple) -> dict:
 
 
 def phase_build(kfet_build, results) -> None:
+    """The kernel library (nvcc, one process a source) and, beside it on a
+    thread, the native host library (g++: the GTrack parser and the VCF
+    converter)."""
+    import threading
+
+    from divergence_tpu_torch import native
+
+    host = {}
+
+    def build_host():
+        t0 = time.perf_counter()
+        host["ok"] = native.native_available()
+        host["s"] = time.perf_counter() - t0
+
+    th = threading.Thread(target=build_host)
+    th.start()
     info = kfet_build.build()
+    th.join()
     say(f"[build] nvcc {info.seconds:.2f} s -> {info.path.name}")
+    say(f"[build] g++ host library {host['s']:.2f} s -> "
+        f"{native.library_path().name if host['ok'] else native.build_error()}")
+    check(host["ok"], f"the native host library did not build: {native.build_error()}")
     for line in info.log.splitlines():
         if "Used" in line or "spill" in line or "Compiling entry" in line:
             say("[build]", line.strip())
@@ -2486,7 +2542,7 @@ def phase_step_library(torch, gathered, dev, card, tmp: Path, results) -> None:
     from divergence_tpu_torch.kernels import fet as kfet
     from divergence_tpu_torch.kernels import perm as kperm
     from divergence_tpu_torch.parallel import make_divergence_step, make_mesh
-    from divergence_tpu_torch.tools import cli
+    from divergence_tpu_torch.tools import cli, synth
     from divergence_tpu_torch.tools.bench_scaling import run_scaling_bench
 
     av, bv, npos, slot, B = (gathered[k] for k in ("av", "bv", "npos", "slot", "B"))
@@ -2645,6 +2701,29 @@ def phase_step_library(torch, gathered, dev, card, tmp: Path, results) -> None:
             f"{rows} rows merged byte-equal {eq_merge}; walls "
             + ", ".join(f"{k} {v:.2f} s" for k, v in walls.items()))
         check(eq_shard and eq_merge and min(rows) > 0, f"{sub}: sharded or merged track differs")
+
+    # a slot-range merge in fast mode on a panel off the LUT: per-SNP
+    # float32 scores with no table to read them from
+    a, b = OFF_LUT_PANEL
+    check(not kfet.lut_active(a, b), f"{a} + {b} should be off the LUT")
+    pos, am, bm = synth.make_panel(SMALL_SNPS, SMALL_REGION, a, b, seed=42)
+    off = [tmp / f"offlut_pop{g}.gtrack" for g in "AB"]
+    synth.write_gtrack(off[0], "chrI", pos, am)
+    synth.write_gtrack(off[1], "chrI", pos, bm)
+    base = ["run-fet", "--pop-a", str(off[0]), "--pop-b", str(off[1]), "--device", str(dev),
+            "--precision", "fast"]
+    ref = tmp / "offlut_ref.track"
+    cli.main(base + ["--out", str(ref)])
+    shards = [tmp / f"offlut_h{h}.track" for h in (0, 1)]
+    for h, out in enumerate(shards):
+        cli.main(base + ["--out", str(out), "--num-hosts", "2", "--host-id", str(h)])
+    merged = tmp / "offlut_merged.track"
+    cli.main(["merge-tracks", "--inputs", *map(str, shards), "--out", str(merged)])
+    rows = [len(p.read_text().splitlines()) - 1 for p in shards]
+    eq_merge = merged.read_bytes() == ref.read_bytes()
+    say(f"[step cli] run-fet fast at {a} + {b} (off the LUT): --num-hosts 2 shards of {rows} "
+        f"rows merged byte-equal {eq_merge}")
+    check(eq_merge and min(rows) > 0, f"run-fet fast at {a} + {b}: merged track differs")
 
 
 def float_bits(torch, t):
@@ -2807,11 +2886,12 @@ def phase_run_all(torch, dev, tmp: Path, files) -> dict:
 
     import numpy as np
 
-    from divergence_tpu_torch.io import read_score_track
+    from divergence_tpu_torch.io import gtrack, read_score_track
     from divergence_tpu_torch.tools import cli
 
     a_path, b_path, sizes = files
     walls = {}
+    gtrack.PARSES.update(native=0, python=0)
     for prec in ("fast", "exact"):
         out = tmp / f"all_{prec}"
         t0 = time.perf_counter()
@@ -2820,6 +2900,7 @@ def phase_run_all(torch, dev, tmp: Path, files) -> dict:
         walls[prec] = time.perf_counter() - t0
         split = {name: json.loads((out / f"{name}_summary.json").read_text())["timings_s"]
                  for name in ("fet", "css")}
+        walls[f"split_{prec}"] = split
         _, fstarts, fsc, fsd = read_score_track(out / "fet.track")
         _, cstarts, csc, cp = read_score_track(out / "css.track")
         regions = {f: len([ln for ln in (out / f).read_text().splitlines()
@@ -2897,6 +2978,7 @@ def phase_run_all(torch, dev, tmp: Path, files) -> dict:
     say(f"[run-all --num-hosts 2] no region files or report: {no_regions}; merged shards "
         f"byte-equal to the one-host tracks {merged}; both hosts {walls['small 2 hosts']:.2f} s")
     check(no_regions and all(merged.values()), "run-all --num-hosts 2")
+    walls["parses"] = dict(gtrack.PARSES)
     return walls
 
 
@@ -3942,6 +4024,224 @@ def phase_wide_fet_library(torch, pair, positions, dev, card, results) -> None:
     del av, bv, vals
 
 
+def phase_ingest(torch, dev, tmp: Path, files, results) -> dict:
+    """Phase 18: the ingestion path and the remaining tools at full width.
+    (a) a VCF of phase 3's 500 k-SNP / 25 Mbp chromosome (11 + 10, 21
+    sample columns); (b) ``convert-vcf`` per population by the native
+    converter, byte-equal to the Python ``_convert_stream`` on the first
+    INGEST_PY_SNPS SNPs, and ``run-fet`` (fast) on the converted pair,
+    its score lines byte-equal to phase 3's; (c) ``read_gtrack_points`` on
+    phase 3's files, native (each, and both at once as ``_load_pairs``
+    reads them) and the Python reader on one, s per 10 M rows; (d)
+    phase 15's ``run-all`` walls and stage split beside those the Python
+    reader gave (RUN_ALL_PYTHON_PARSE_S) and which parser it took, with the host's share outside the
+    engines (``_load_pairs``; the region callers and the report); (e) ``doctor`` as a subprocess; (f)
+    ``bench-mc`` at its defaults on INGEST_MC_BACKENDS, then the same on
+    a 64-window cut, on the card and on the CPU (the plain versions),
+    checksums equal; (g) ``convert-snp-table`` on a small table against
+    its expected rows.  The launch counts are reset before (b) and read
+    after (f)'s run at the defaults; returns them."""
+    import argparse
+    import contextlib
+    import io
+    import threading
+
+    import numpy as np
+
+    from divergence_tpu_torch.io import gtrack, read_gtrack_points
+    from divergence_tpu_torch.io.vcf import _convert_stream
+    from divergence_tpu_torch.kernels import css as kcss
+    from divergence_tpu_torch.kernels import fet as kfet
+    from divergence_tpu_torch.kernels import perm as kperm
+    from divergence_tpu_torch.native import library_path, native_available
+    from divergence_tpu_torch.tools import cli, synth
+    from divergence_tpu_torch.tools.bench_mc import run_mc_bench
+
+    a_path, b_path, sizes = files
+    check(native_available(), "the native host library did not build")
+    say(f"[ingest] native host library {library_path().name}")
+
+    # (a) the VCF of phase 3's chromosome
+    t0 = time.perf_counter()
+    pos, am, bm = synth.make_panel(CLI_SNPS, CLI_REGION, ASIZE, BSIZE, seed=5)
+    vcf = tmp / "cli.vcf"
+    names = synth.write_vcf(vcf, "chrI", pos, am, bm)
+    say(f"[ingest vcf] wrote {CLI_SNPS} SNPs x {len(names)} samples, "
+        f"{vcf.stat().st_size / 1e6:.1f} MB in {time.perf_counter() - t0:.2f} s")
+
+    # (b) convert-vcf per population, then run-fet on the converted pair
+    for mod in (kfet, kcss, kperm):
+        mod.reset_launches()
+    groups = {"A": names[:ASIZE], "B": names[ASIZE:]}
+    conv, walls = {}, {}
+    for g, members in groups.items():
+        conv[g] = tmp / f"vcf_pop{g}.gtrack"
+        t0 = time.perf_counter()
+        cli.main(["convert-vcf", "--vcf", str(vcf), "--population", ",".join(members),
+                  "--out", str(conv[g])])
+        walls[f"convert_{g}"] = time.perf_counter() - t0
+    head, n_data = [], 0
+    with open(vcf) as fh:
+        for line in fh:
+            head.append(line)
+            n_data += not line.startswith("#")
+            if n_data == INGEST_PY_SNPS:
+                break
+    same_py = {}
+    for g, members in groups.items():
+        ref = io.StringIO()
+        ref.write(gtrack.gtrack_points_header("unknown"))
+        check(_convert_stream(io.StringIO("".join(head)), members, ref) == members,
+              f"_convert_stream population {g}")
+        want = ref.getvalue().encode()
+        with open(conv[g], "rb") as fh:
+            same_py[g] = fh.read(len(want)) == want
+    say(f"[ingest convert-vcf] native converter {walls['convert_A']:.3f} / "
+        f"{walls['convert_B']:.3f} s (A / B, {CLI_SNPS} SNPs); first {INGEST_PY_SNPS} SNPs "
+        f"byte-equal to the Python _convert_stream {same_py}")
+    check(all(same_py.values()), f"convert-vcf differs from _convert_stream: {same_py}")
+    out = tmp / "vcf_fet_fast.track"
+    t0 = time.perf_counter()
+    cli.main(["run-fet", "--pop-a", str(conv["A"]), "--pop-b", str(conv["B"]), "--out", str(out),
+              "--chrom-sizes", str(sizes), "--device", str(dev)])
+    walls["run_fet"] = time.perf_counter() - t0
+
+    def score_lines(path):
+        return [ln for ln in path.read_text().splitlines() if not ln.startswith("#")]
+
+    got, want = score_lines(out), score_lines(tmp / "fet_fast.track")
+    say(f"[ingest run-fet] on the converted pair: {len(got)} score lines, byte-equal to "
+        f"phase 3's run-fet on the write_gtrack pair: {got == want}; wall "
+        f"{walls['run_fet']:.2f} s")
+    check(len(got) > 0 and got == want, "run-fet on the converted pair differs from phase 3's")
+
+    # (c) the parse alone on phase 3's files
+    gtrack.PARSES.update(native=0, python=0)
+    rows = {}
+    for name, path in (("A", a_path), ("B", b_path)):
+        t0 = time.perf_counter()
+        tracks = read_gtrack_points(path)
+        walls[f"native_{name}"] = time.perf_counter() - t0
+        rows[name] = len(tracks["chrI"].pos)
+    both = {}
+    t0 = time.perf_counter()
+    th = threading.Thread(target=lambda: both.update(b=read_gtrack_points(b_path)))
+    th.start()
+    both["a"] = read_gtrack_points(a_path)
+    th.join()
+    walls["native_both"] = time.perf_counter() - t0
+    native_parses = dict(gtrack.PARSES)
+    t0 = time.perf_counter()
+    py = gtrack._group_rows_indexed(*gtrack._read_rows_chunked(a_path))
+    walls["python_A"] = time.perf_counter() - t0
+    same = (np.array_equal(py["chrI"].pos, both["a"]["chrI"].pos)
+            and np.array_equal(py["chrI"].vals, both["a"]["chrI"].vals))
+    per10m = {k: walls[k] / rows[k[-1]] * 1e7 for k in ("native_A", "native_B", "python_A")}
+    per10m["native_both"] = walls["native_both"] / (rows["A"] + rows["B"]) * 1e7
+    say(f"[ingest parse] {rows['A']} + {rows['B']} rows: native {walls['native_A']:.3f} / "
+        f"{walls['native_B']:.3f} s, both at once {walls['native_both']:.3f} s, Python reader "
+        f"(A) {walls['python_A']:.3f} s ({walls['python_A'] / walls['native_A']:.1f}x); s per "
+        f"10 M rows {json.dumps({k: round(v, 4) for k, v in per10m.items()})}; native parses "
+        f"{native_parses}; arrays equal to the Python reader's {same}")
+    check(native_parses == {"native": 4, "python": 0}, f"the parse fell back: {native_parses}")
+    check(same, "the native parse differs from the Python reader")
+
+    # (d) phase 15's run-all, parsed natively
+    ra = results["run_all_walls_s"]
+    for prec in ("fast", "exact"):
+        split = ra[f"split_{prec}"]
+        engines = sum(split[n].get("device_init", 0.0) + split[n]["chrI"] for n in split)
+        say(f"[ingest run-all {prec}] wall {ra[prec]:.2f} s (with the Python reader: "
+            f"{RUN_ALL_PYTHON_PARSE_S[prec]} s); engines {engines:.2f} s, the rest (parse, align, "
+            f"upload, regions, report) {ra[prec] - engines:.2f} s; split {split}")
+    check(ra["parses"]["python"] == 0 and ra["parses"]["native"] > 0,
+          f"phase 15's run-all did not parse natively: {ra['parses']}")
+    # the host's share of run-all outside the engines: the load (both
+    # parses at once and the alignment) and the region callers + report
+    t0 = time.perf_counter()
+    cli._load_pairs(argparse.Namespace(pop_a=str(a_path), pop_b=str(b_path),
+                                       chrom_sizes=str(sizes)))
+    walls["load_pairs"] = time.perf_counter() - t0
+    done, redo = tmp / "all_fast", tmp / "all_fast_regions"
+    redo.mkdir()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli.main(["filter-fet", "--scores", str(done / "fet.track"), "--out",
+                  str(redo / "fet_regions.gtrack"), "--chrom-sizes", str(sizes)])
+        cli.main(["call-css-regions", "--scores", str(done / "css.track"), "--out",
+                  str(redo / "css_regions.gtrack"), "--chrom-sizes", str(sizes)])
+        cli.main(["report", "--fet-track", str(done / "fet.track"), "--css-track",
+                  str(done / "css.track"), "--fet-regions", str(redo / "fet_regions.gtrack"),
+                  "--css-regions", str(redo / "css_regions.gtrack"), "--run-summary",
+                  str(done / "fet_summary.json"), "--out", str(redo / "report.html")])
+    walls["regions_report"] = time.perf_counter() - t0
+    say(f"[ingest run-all] outside the engines: _load_pairs (both parses at once, the "
+        f"alignment) {walls['load_pairs']:.3f} s, both region callers and the report "
+        f"{walls['regions_report']:.3f} s")
+
+    # (e) doctor in its own process
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "divergence_tpu_torch.tools.cli", "doctor", "--timeout", "120"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600, check=False,
+    )
+    check(proc.returncode == 0, f"doctor failed: {proc.stderr[-2000:]}")
+    doc = json.loads(proc.stdout)
+    probe, cache = doc["default_backend_probe"], doc["compile_cache"]
+    say(f"[ingest doctor] {time.perf_counter() - t0:.1f} s: torch {doc['torch']} CUDA "
+        f"{doc['torch_cuda']}; devices {probe}; nvidia-smi {doc['nvidia_smi']}; nvcc "
+        f"{doc['nvcc']}; kernel library built {cache.get('kernel_library_built')} "
+        f"({cache.get('entries')} entries); native_parser {doc['native_parser']}; cpu "
+        f"{doc['cpu_compute']}")
+    check(probe.get("ok") and probe.get("platform") == "cuda" and probe.get("n", 0) >= 1
+          and probe.get("kind") == torch.cuda.get_device_name(0), f"doctor: devices {probe}")
+    check(doc["nvcc"].get("ok") is True, f"doctor: nvcc {doc['nvcc']}")
+    check(cache.get("kernel_library_built") is True, f"doctor: kernel cache {cache}")
+    check(doc["native_parser"] is True, f"doctor: native_parser {doc.get('native_error')}")
+    check(doc["nvidia_smi"].get("ok") is True, f"doctor: nvidia-smi {doc['nvidia_smi']}")
+
+    # (f) bench-mc at its defaults, then a 64-window cut against the plain
+    # versions
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["bench-mc", "--backends", ",".join(INGEST_MC_BACKENDS), "--device", str(dev)])
+    walls["bench_mc"] = time.perf_counter() - t0
+    bench = json.loads(buf.getvalue())
+    launches = {**kfet.LAUNCHES, **kcss.LAUNCHES, **kperm.LAUNCHES}
+    say(f"[ingest bench-mc] defaults ({walls['bench_mc']:.1f} s): {json.dumps(bench)}")
+    say(f"[phase 18 main path] kernel launches: {launches}")
+    errors = {k: bench[k]["error"] for k in INGEST_MC_BACKENDS if "error" in bench[k]}
+    check(not errors, f"bench-mc variants failed: {errors}")
+    check(all(launches[k] > 0 for k in INGEST_PATH),
+          f"phase 18's path did not launch every kernel: {launches}")
+    cut = {d: run_mc_bench(window_batch=INGEST_MC_CUT, backends=INGEST_MC_BACKENDS, device=d)
+           for d in (dev, "cpu")}
+    sums = {k: (cut[dev][k]["checksum"], cut["cpu"][k]["checksum"]) for k in INGEST_MC_BACKENDS}
+    say(f"[ingest bench-mc] {INGEST_MC_CUT}-window cut, checksums card / plain: {sums}")
+    check(all(a == b for a, b in sums.values())
+          and all(cut[dev][k].get("nscores") == cut["cpu"][k].get("nscores")
+                  for k in INGEST_MC_BACKENDS),
+          f"bench-mc checksums differ from the plain versions: {sums}")
+
+    # (g) convert-snp-table
+    table = tmp / "snps.tsv"
+    table.write_text(
+        "#seqid\tpos\tallele1\tallele2\tfish0\tfish1\tfish2\n"
+        "chrI\t100\tA\tG\tAA\tAG\tGG\n"
+        "chrI\t200\tC\tT\tCC\tNN\tTC\n"
+    )
+    cli.main(["convert-snp-table", "--table", str(table), "--ids", "fish0,fish1,fish2",
+              "--out", str(tmp / "snps.gtrack")])
+    got = [ln for ln in (tmp / "snps.gtrack").read_text().splitlines()
+           if ln and not ln.startswith("#")]
+    say(f"[ingest convert-snp-table] rows {got}")
+    check(got == SNP_TABLE_ROWS, "convert-snp-table rows differ")
+    results["ingest"] = {"walls_s": walls, "rows": rows, "s_per_10m_rows": per10m,
+                         "bench_mc": bench}
+    return launches
+
+
 def large_entries(results) -> None:
     """The kernels line's fast / exact / bound fields of the large-panel
     kernels at 110 + 90 (K6: mode 1), with the windows each time covers
@@ -4132,6 +4432,10 @@ def smoke(torch, dev) -> tuple[str, list[dict]]:
               f"phase 17's path did not launch every kernel: {wide_launches}")
         for k in WIDE_PATH:
             launches[k] = wide_launches[k]
+
+        # the ingestion path and the remaining tools: convert-vcf ->
+        # run-fet, the native parse, doctor, bench-mc (counts reset inside)
+        ingest_launches = timed_phase("18", phase_ingest, torch, dev, tmp, files, results)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -4311,6 +4615,8 @@ def smoke(torch, dev) -> tuple[str, list[dict]]:
             entry["equal_k1_k2_800k"] = r["equal_k1_k2_800k"]
             entry["run_fet_exact_wall_s"] = r["run_fet_exact_s"]
             entry["run_all_walls_s"] = results["run_all_walls_s"]
+        if name in INGEST_PATH:
+            entry["launches_phase18"] = ingest_launches[name]
         if name in WIDE_PATH:
             # ms / plain_ms / bound_ms: 110 + 90 (K8: its depth cut, host
             # wall; K11 and K9 on 19,997 windows, their plain versions on a

@@ -23,13 +23,19 @@ Layers (bottom up):
   ``run_css`` / ``run_css_multi``
 * :mod:`divergence_tpu_torch.parallel` — device meshes, the sharded
   divergence step (``make_divergence_step``), multi-host partitioning
-* :mod:`divergence_tpu_torch.io`      — GTrack reading / score-track and
-  segments writing
+* :mod:`divergence_tpu_torch.native`  — the threaded C++ GTrack parser
+  and VCF converter (the JAX package's sources, built by ``g++`` on first
+  use), loaded with ctypes
+* :mod:`divergence_tpu_torch.io`      — GTrack reading (native first) /
+  score-track and segments writing, VCF and SNP-table conversion
+* :mod:`divergence_tpu_torch.compat`  — the HyperBrowser ``analysisDef``
+  strings to and from the configs
 * :mod:`divergence_tpu_torch.stats`   — region calling (Burke limit, BH-FDR,
   top-N) over score tracks, host numpy
-* :mod:`divergence_tpu_torch.tools`   — the CLI (``run-fet``, ``run-css``,
-  ``filter-fet``, ``call-css-regions``, ``report``, ``run-all``,
-  ``merge-tracks``, ``bench-scaling``) and the HTML report
+* :mod:`divergence_tpu_torch.tools`   — the CLI (``convert-vcf``,
+  ``convert-snp-table``, ``run-fet``, ``run-css``, ``filter-fet``,
+  ``call-css-regions``, ``report``, ``run-all``, ``merge-tracks``,
+  ``bench-scaling``, ``bench-mc``, ``doctor``) and the HTML report
 
 No device is global: every entry point takes ``device=`` or a
 ``sharding=`` mesh.

@@ -11,10 +11,14 @@ Genotype codes: 3 homozygous major, -3 homozygous minor, 0 heterozygous,
 
 Copied from ``divergence_tpu/io/gtrack.py`` (the JAX package imports
 jax, and the port runs where jax is not installed): the Python reader,
-the score-track writer and reader and the segments writer, verbatim.  The JAX package's native
-C++ parser is not used here; :func:`read_gtrack_points` always takes the
-Python reader.  ``tests/test_torch_host_copies.py`` holds the copies
-equal to the originals.
+the score-track writer and reader and the segments writer, verbatim.
+:func:`read_gtrack_points` takes the threaded C++ parser of
+``divergence_tpu_torch/native`` first, as the JAX package does, and the
+Python reader, which defines the semantics, where the library is
+unavailable (no ``g++``, ``DIVERGENCE_TPU_NO_NATIVE`` set) or refuses a
+malformed file (the Python reader then raises).  ``PARSES`` counts the
+files each path read.  ``tests/test_torch_host_copies.py`` holds the
+copies equal to the originals.
 """
 
 from __future__ import annotations
@@ -25,6 +29,9 @@ from pathlib import Path
 from typing import Iterable
 
 import numpy as np
+
+# files read by each path of read_gtrack_points (a caller may set them to 0)
+PARSES = {"native": 0, "python": 0}
 
 
 @dataclasses.dataclass
@@ -61,7 +68,6 @@ def _infer_population_size(pos: np.ndarray) -> int:
     return n if n > 0 else len(pos)
 
 
-
 def read_gtrack_points(
     path: str | Path,
     seqids: Iterable[str] | None = None,
@@ -72,7 +78,15 @@ def read_gtrack_points(
     harness skips a fixed 5-line header, reference statistics/css/testcss.c:213-219; we accept any
     number of ``#`` lines anywhere).
     """
-    names, seq_idx, pos, vals = _read_rows_chunked(Path(path))
+    from divergence_tpu_torch.native import parse_gtrack_native_indexed
+
+    path = Path(path)
+    parsed = parse_gtrack_native_indexed(path)
+    if parsed is not None:
+        PARSES["native"] += 1
+        return _group_rows_indexed(*parsed, seqids=seqids)
+    PARSES["python"] += 1
+    names, seq_idx, pos, vals = _read_rows_chunked(path)
     return _group_rows_indexed(names, seq_idx, pos, vals, seqids=seqids)
 
 

@@ -1,4 +1,7 @@
 """Command-line tool of the port (``divergence_tpu/tools/cli.py``):
+``convert-vcf`` and ``convert-snp-table``, the converters to GTrack
+valued points (reference tools/ConvertVCFToGtrackTool.py with
+tools/VCFConvert.py, and tools/ConvertSticklebackSnpsToGtrack.py);
 ``run-fet``, the windowed Fisher's Exact Test scan, and ``run-css``, the
 windowed Cluster Separation Score scan (they replace reference
 tools/FisherExactTestSNPTool.py and tools/ClusterSeparationScore.py);
@@ -6,10 +9,18 @@ tools/FisherExactTestSNPTool.py and tools/ClusterSeparationScore.py);
 tools/FilterFisherScores.py and tools/SignificantCSSRegions.py);
 ``report``, an HTML summary; ``run-all``, the whole pipeline in one
 process; ``merge-tracks``, which joins the score-track shards of a
-multi-host run; and ``bench-scaling``, the sharded step over 1..N devices.
+multi-host run; ``bench-scaling``, the sharded step over 1..N devices;
+``bench-mc``, the MC evaluators' permutations/s (K7 against K8, its
+float64 form and K11); and ``doctor``, a JSON report of the environment.
 
 Usage::
 
+    # one GTrack per population from a VCF (.vcf by the native converter,
+    # .vcf.gz by the Python one), or from a Jones-et-al SNP table
+    python -m divergence_tpu_torch.tools.cli convert-vcf --vcf calls.vcf \\
+        --population A0,A1,A2 --out A.gtrack [--genome NAME]
+    python -m divergence_tpu_torch.tools.cli convert-snp-table \\
+        --table snps.tsv --ids fish0,fish1 --out A.gtrack
     python -m divergence_tpu_torch.tools.cli run-fet --pop-a A.gtrack \\
         --pop-b B.gtrack --out fet.track [--device cuda|cpu] ...
     python -m divergence_tpu_torch.tools.cli run-css --pop-a A.gtrack \\
@@ -26,12 +37,16 @@ Usage::
         --host-id k --out fet.hk.track
     python -m divergence_tpu_torch.tools.cli merge-tracks \\
         --inputs fet.h*.track --out fet.track
+    python -m divergence_tpu_torch.tools.cli bench-mc [--device cuda|cpu] \\
+        [--backends inloop,inloop_threefry,inloop_shared,native,xla]
+    python -m divergence_tpu_torch.tools.cli doctor [--timeout 60]
 
 Flags are the JAX CLI's, plus ``--device`` (default ``cuda``; without a
 CUDA device that default raises, there is no CPU fallback).  ``--shard``
 cuts each chromosome's windows over every CUDA device (``(cpu,)`` with
 ``--device cpu``); ``--profile DIR`` writes a ``torch.profiler`` trace
-(``DIR/trace.json``) of the scan.
+(``DIR/trace.json``) of the scan.  The two tracks of a scan are parsed
+concurrently, by the native parser where it builds.
 """
 
 from __future__ import annotations
@@ -47,15 +62,64 @@ import numpy as np
 import torch
 
 
+def _read_population(args) -> list[str]:
+    """Population members from a file (one per line) or a comma list
+    (reference tools/ConvertVCFToGtrackTool.py:133-141)."""
+    if args.population_file:
+        with open(args.population_file) as fh:
+            return [ln.strip() for ln in fh if ln.strip()]
+    if args.population:
+        return [x.strip() for x in args.population.split(",") if x.strip()]
+    raise SystemExit("one of --population / --population-file is required")
+
+
+def cmd_convert_vcf(args) -> None:
+    from divergence_tpu_torch.io import vcf_to_gtrack
+
+    found = vcf_to_gtrack(
+        args.vcf, _read_population(args), args.out, args.genome
+    )
+    print(f"wrote {args.out}: {len(found)} individuals ({', '.join(found)})")
+
+
+def cmd_convert_snp_table(args) -> None:
+    from divergence_tpu_torch.io.snptable import snp_table_to_gtrack
+
+    ids = [x.strip() for x in args.ids.split(",") if x.strip()]
+    labels = snp_table_to_gtrack(args.table, ids, args.out, args.genome)
+    print(f"wrote {args.out}: {len(labels)} individuals")
+
+
 def _load_pairs(args):
     """Read both population tracks, align per chromosome, return
     {seqid: (SnpPair, regend)}; regend is the chrom-sizes length or the
-    last SNP position + 1."""
+    last SNP position + 1.
+
+    The two tracks parse concurrently (``divergence_tpu/tools/cli.py:
+    _load_pairs``): the native parser is a ctypes call, which releases the
+    GIL, so population B's file parses on a thread while A's parses here.
+    An error on the thread is raised again on this one."""
+    import threading
+
     from divergence_tpu_torch.engine.snp import SnpPair
     from divergence_tpu_torch.io import read_chrom_sizes, read_gtrack_points
 
-    ta = read_gtrack_points(args.pop_a)
-    tb = read_gtrack_points(args.pop_b)
+    tracks: dict[str, object] = {}
+    errs: list[BaseException] = []
+
+    def _parse(key, path):
+        try:
+            tracks[key] = read_gtrack_points(path)
+        except BaseException as e:  # re-raised on the main thread
+            errs.append(e)
+
+    th = threading.Thread(target=_parse, args=("b", args.pop_b))
+    th.start()
+    _parse("a", args.pop_a)
+    th.join()
+    if errs:
+        raise errs[0]
+    ta, tb = tracks["a"], tracks["b"]
     sizes = read_chrom_sizes(args.chrom_sizes) if args.chrom_sizes else {}
     common = sorted(set(ta) & set(tb))
     if not common:
@@ -552,6 +616,18 @@ def cmd_bench_scaling(args) -> None:
     bench_main(args)
 
 
+def cmd_bench_mc(args) -> None:
+    from divergence_tpu_torch.tools.bench_mc import main as bench_main
+
+    bench_main(args)
+
+
+def cmd_doctor(args) -> None:
+    from divergence_tpu_torch.tools.doctor import main as doctor_main
+
+    doctor_main(args)
+
+
 def _add_run_common(p: argparse.ArgumentParser, with_out: bool = True) -> None:
     p.add_argument("--pop-a", required=True, help="population A GTrack file")
     p.add_argument("--pop-b", required=True, help="population B GTrack file")
@@ -654,6 +730,23 @@ def build_parser() -> argparse.ArgumentParser:
     )
     sub = ap.add_subparsers(dest="cmd", required=True)
 
+    p = sub.add_parser("convert-vcf", help="VCF → GTrack valued points")
+    p.add_argument("--vcf", required=True)
+    p.add_argument("--population", default=None, help="comma-separated names")
+    p.add_argument("--population-file", default=None, help="one name per line")
+    p.add_argument("--out", required=True)
+    p.add_argument("--genome", default="unknown")
+    p.set_defaults(fn=cmd_convert_vcf)
+
+    p = sub.add_parser(
+        "convert-snp-table", help="Jones-et-al SNP table → GTrack"
+    )
+    p.add_argument("--table", required=True)
+    p.add_argument("--ids", required=True, help="comma list of IDs/offsets")
+    p.add_argument("--out", required=True)
+    p.add_argument("--genome", default="unknown")
+    p.set_defaults(fn=cmd_convert_snp_table)
+
     p = sub.add_parser("run-fet", help="windowed Fisher's Exact Test scan")
     _add_run_common(p)
     _add_fet_args(p)
@@ -741,6 +834,28 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mc-chunk", type=int, default=128)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.set_defaults(fn=cmd_bench_scaling)
+
+    p = sub.add_parser(
+        "bench-mc",
+        help="permutation-MC throughput: evaluator A/B (K8's window stream in "
+        "the loop against K7's shared stream, K8's float64 native form, K11's "
+        "standalone chunk)",
+    )
+    p.add_argument("--window-batch", type=int, default=1024)
+    p.add_argument("--chunk", type=int, default=256)
+    p.add_argument("--iters", type=int, default=4)
+    p.add_argument("--backends", default="inloop,inloop_shared")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu (the plain torch versions)")
+    p.set_defaults(fn=cmd_bench_mc)
+
+    p = sub.add_parser(
+        "doctor",
+        help="environment diagnostics: torch/CUDA, devices, nvcc, kernel "
+        "cache, native parser",
+    )
+    p.add_argument("--timeout", type=int, default=60)
+    p.set_defaults(fn=cmd_doctor)
     return ap
 
 

@@ -11,6 +11,9 @@
   allele-frequency column per population (``tests/test_engines.py``
   drosophila test, vectorised).
 * :func:`write_gtrack` — one population as a GTrack valued-points file.
+* :func:`write_vcf` — both populations as one VCF (a sample column per
+  individual), whose ``convert-vcf`` per population gives
+  :func:`write_gtrack`'s rows and values.
 
 Genotype codes: 3 / -3 homozygous, 0 heterozygous, -10000 missing
 (reference tools/VCFConvert.py:8-17).  Genotype matrices are int16,
@@ -123,3 +126,34 @@ def write_gtrack(
         for p, row in zip(positions.tolist(), mat.tolist()):
             head = f"{seqid}\t{p}\t"
             fh.write("".join(f"{head}{v}{tail}" for v in row))
+
+
+# genotype code -> the VCF GT string the converters map back to it
+VCF_GT = {3: "0/0", 0: "0/1", -3: "1/1", -10000: "./."}
+
+
+def write_vcf(
+    path: str | Path,
+    seqid: str,
+    positions: np.ndarray,
+    amat: np.ndarray,
+    bmat: np.ndarray,
+) -> list[str]:
+    """A VCF 4.2 of both populations, one data line per SNP, a sample
+    column per individual (``A0 ..``, then ``B0 ..``), GT and a read depth
+    in FORMAT; returns the sample names.  The genotype codes map to GT
+    strings by :data:`VCF_GT`."""
+    names = [f"A{i}" for i in range(amat.shape[1])] + [f"B{i}" for i in range(bmat.shape[1])]
+    codes = np.concatenate([amat, bmat], axis=1)
+    lookup = {c: f"{gt}:{0 if c == -10000 else 12}" for c, gt in VCF_GT.items()}
+    with open(path, "w") as fh:
+        fh.write("##fileformat=VCFv4.2\n")
+        fh.write(f"##contig=<ID={seqid}>\n")
+        fh.write('##FORMAT=<ID=GT,Number=1,Type=String,Description="Genotype">\n')
+        fh.write('##FORMAT=<ID=DP,Number=1,Type=Integer,Description="Read depth">\n')
+        fh.write("#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\t"
+                 + "\t".join(names) + "\n")
+        for p, row in zip(positions.tolist(), codes.tolist()):
+            fh.write(f"{seqid}\t{p}\t.\tA\tT\t50\tPASS\t.\tGT:DP\t"
+                     + "\t".join([lookup[c] for c in row]) + "\n")
+    return names

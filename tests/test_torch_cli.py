@@ -23,7 +23,7 @@ import torch
 
 from divergence_tpu.io.gtrack import read_score_track as jax_read_score_track
 from divergence_tpu.tools.cli import main as jax_cli
-from divergence_tpu_torch.io import read_score_track
+from divergence_tpu_torch.io import read_gtrack_points, read_score_track
 from divergence_tpu_torch.tools import synth
 from divergence_tpu_torch.tools.cli import main as torch_cli
 from test_torch_css_engine import assert_new_option_pvals_match
@@ -527,10 +527,12 @@ def test_run_all_matches_jax_run_all(toy_pair, tmp_path, prec):
 
 
 @pytest.mark.parametrize("sub", ["run-all", "filter-fet", "call-css-regions", "report",
-                                 "run-fet", "run-css"])
+                                 "run-fet", "run-css", "convert-vcf", "convert-snp-table",
+                                 "doctor", "bench-mc"])
 def test_subcommands_take_the_jax_cli_flags(sub):
     """Each subcommand has the JAX CLI's flags with the same defaults,
-    choices and required-ness; the port adds only --device to the scans."""
+    choices and required-ness; the port adds only --device to the scans
+    and to bench-mc."""
     from divergence_tpu.tools.cli import build_parser as jax_parser
     from divergence_tpu_torch.tools.cli import build_parser as torch_parser
 
@@ -542,6 +544,208 @@ def test_subcommands_take_the_jax_cli_flags(sub):
         }
 
     got, want = flags(torch_parser()), flags(jax_parser())
-    if sub.startswith("run-"):
+    if sub.startswith("run-") or sub == "bench-mc":
         assert got.pop("--device")[0] == "cuda"
     assert got == want
+
+
+# ------------------------------------------------------------ converters, tools
+
+
+@pytest.fixture(scope="module")
+def toy_vcf(tmp_path_factory):
+    """A two-population VCF (6 + 5 samples) on one chromosome, plain and
+    gzipped, and the JAX CLI's conversions of the .vcf.gz (its Python
+    converter, which defines the bytes)."""
+    import gzip
+
+    tmp = tmp_path_factory.mktemp("torch_cli_vcf")
+    pos, am, bm = synth.make_panel(300, 20_000, 6, 5, seed=17)
+    names = synth.write_vcf(tmp / "toy.vcf", "chrT", pos, am, bm)
+    with gzip.open(tmp / "toy.vcf.gz", "wt") as f:
+        f.write((tmp / "toy.vcf").read_text())
+    (tmp / "chrom.sizes").write_text("chrT\t20000\n")
+    groups = {"A": names[:6], "B": names[6:]}
+    for g, members in groups.items():
+        jax_cli(["convert-vcf", "--vcf", str(tmp / "toy.vcf.gz"), "--population",
+                 ",".join(members), "--out", str(tmp / f"jax_pop{g}.gtrack"), "--genome", "toy"])
+    return tmp, groups, (pos, am, bm)
+
+
+def test_convert_vcf_writes_the_jax_cli_bytes(toy_vcf, tmp_path, capsys):
+    """--population and --population-file on the plain VCF (the native
+    converter) write the JAX CLI's bytes from the .vcf.gz, and print its
+    line; the .vcf.gz through the port's Python path too."""
+    tmp, groups, (_, am, _) = toy_vcf
+    for g, members in groups.items():
+        want = (tmp / f"jax_pop{g}.gtrack").read_bytes()
+        listed = tmp_path / f"list{g}.txt"
+        listed.write_text("\n".join(members) + "\n\n")
+        outs = []
+        for vcf, how in ((tmp / "toy.vcf", ["--population", ",".join(members)]),
+                         (tmp / "toy.vcf", ["--population-file", str(listed)]),
+                         (tmp / "toy.vcf.gz", ["--population", ",".join(members)])):
+            outs.append(tmp_path / f"pop{g}_{len(outs)}.gtrack")
+            torch_cli(["convert-vcf", "--vcf", str(vcf), *how, "--out", str(outs[-1]),
+                       "--genome", "toy"])
+        assert all(o.read_bytes() == want for o in outs), g
+        out = capsys.readouterr().out
+        assert f"wrote {outs[0]}: {len(members)} individuals ({', '.join(members)})" in out
+    track = read_gtrack_points(tmp_path / "popA_0.gtrack")["chrT"]
+    assert track.size == 6 and np.array_equal(track.values_matrix(), am)
+    with pytest.raises(SystemExit):
+        torch_cli(["convert-vcf", "--vcf", str(tmp / "toy.vcf"), "--out",
+                   str(tmp_path / "x.gtrack")])
+
+
+def test_convert_vcf_then_run_fet_matches_jax_cli(toy_vcf, tmp_path):
+    """convert-vcf -> run-fet --device cpu gives the JAX CLI's convert-vcf
+    -> run-fet track (rows identical, scores within TOL)."""
+    tmp, groups, _ = toy_vcf
+    for g, members in groups.items():
+        torch_cli(["convert-vcf", "--vcf", str(tmp / "toy.vcf"), "--population",
+                   ",".join(members), "--out", str(tmp_path / f"pop{g}.gtrack")])
+    for prec in ("fast", "exact"):
+        common = ["--chrom-sizes", str(tmp / "chrom.sizes"), "--precision", prec]
+        jax_cli(["run-fet", "--pop-a", str(tmp / "jax_popA.gtrack"), "--pop-b",
+                 str(tmp / "jax_popB.gtrack"), "--out", str(tmp_path / "j.track"), *common])
+        torch_cli(["run-fet", "--pop-a", str(tmp_path / "popA.gtrack"), "--pop-b",
+                   str(tmp_path / "popB.gtrack"), "--out", str(tmp_path / "t.track"),
+                   "--device", "cpu", *common])
+        js, jstart, jsc, jsd = jax_read_score_track(tmp_path / "j.track")
+        ts, tstart, tsc, tsd = read_score_track(tmp_path / "t.track")
+        assert ts == js and np.array_equal(tstart, jstart) and len(ts) > 20
+        for got, want in ((tsc, jsc), (tsd, jsd)):
+            err = np.abs(got - want) / np.maximum(np.abs(want), 1.0)
+            assert err.max() <= TOL[prec], (prec, err.max())
+
+
+SNP_TABLES = {
+    "header": ("#seqid\tpos\tallele1\tallele2\tfish0\tfish1\tfish2\n"
+               "chrI\t100\tA\tG\tAA\tAG\tGG\n"
+               "chrI\t200\tC\tT\tCC\tNN\tTC\n", "fish0,fish1,fish2"),
+    "preamble": ("# Jones et al. 2012 SNP table\n# free text\n"
+                 "#seqid\tpos\tallele1\tallele2\tfish0\tfish1\tfish2\n"
+                 "chrI\t100\tA\tG\tAA\tAG\tGG\nchrII\t5\tC\tT\tCT\t--\tCX\n",
+                 "fish2,fish0"),
+    "offsets": ("chrI\t100\tA\tG\tAA\tAG\tGG\nchrI\t200\tC\tT\tCC\tNN\tTC\n", "0,2"),
+}
+
+
+@pytest.mark.parametrize("kind", list(SNP_TABLES))
+def test_convert_snp_table_writes_the_jax_cli_bytes(tmp_path, capsys, kind):
+    text, ids = SNP_TABLES[kind]
+    table = tmp_path / "snps.tsv"
+    table.write_text(text)
+    for cli, out in ((torch_cli, "t.gtrack"), (jax_cli, "j.gtrack")):
+        cli(["convert-snp-table", "--table", str(table), "--ids", ids, "--out",
+             str(tmp_path / out)])
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0].replace("t.gtrack", "j.gtrack") == lines[1]
+    assert (tmp_path / "t.gtrack").read_bytes() == (tmp_path / "j.gtrack").read_bytes()
+    if kind == "header":
+        rows = [ln for ln in (tmp_path / "t.gtrack").read_text().splitlines()
+                if ln and not ln.startswith("#")]
+        assert rows == ["chrI\t100\t3\tfish0", "chrI\t100\t0\tfish1",
+                        "chrI\t100\t-3\tfish2", "chrI\t200\t3\tfish0",
+                        "chrI\t200\t-10000\tfish1", "chrI\t200\t0\tfish2"]
+    for bad in ("fish9", "7"):
+        with pytest.raises(ValueError):
+            torch_cli(["convert-snp-table", "--table", str(table), "--ids", bad, "--out",
+                       str(tmp_path / "bad.gtrack")])
+
+
+def test_load_pairs_raises_a_thread_error_on_the_main_thread(toy_pair, tmp_path):
+    """Population B parses on a thread: its error reaches the caller."""
+    with pytest.raises(FileNotFoundError):
+        torch_cli(["run-fet", "--pop-a", str(toy_pair / "popA.gtrack"), "--pop-b",
+                   str(tmp_path / "missing.gtrack"), "--out", str(tmp_path / "x.track"),
+                   "--device", "cpu"])
+    bad = tmp_path / "bad.gtrack"
+    bad.write_text("#h\nchrA\t12\n")
+    with pytest.raises((ValueError, IndexError)):
+        torch_cli(["run-fet", "--pop-a", str(toy_pair / "popA.gtrack"), "--pop-b", str(bad),
+                   "--out", str(tmp_path / "x.track"), "--device", "cpu"])
+
+
+def test_doctor_reports_json(capsys):
+    """Here: no CUDA device (the probe says so), no nvcc or nvidia-smi
+    (reported in their fields), the native parser built."""
+    torch_cli(["doctor", "--timeout", "120"])
+    report = json.loads(capsys.readouterr().out)
+    for key in ("python", "torch", "torch_cuda", "default_backend_probe", "nvidia_smi",
+                "nvcc", "compile_cache", "native_parser", "cpu_compute"):
+        assert key in report, key
+    probe = report["default_backend_probe"]
+    assert probe["ok"] and probe["cuda_available"] == torch.cuda.is_available()
+    if not torch.cuda.is_available():
+        assert probe["platform"] == "cpu" and probe["n"] == 0
+    assert report["native_parser"] is True and report["native_library"].endswith(".so")
+    cache = report["compile_cache"]
+    assert cache["dir"].endswith("_build") and cache["kernel_library"].startswith(
+        "libdivergence_kernels_")
+    assert isinstance(cache["kernel_library_built"], bool)
+    assert report["cpu_compute"] == "ok"
+    assert isinstance(report["nvcc"]["ok"], bool)
+
+
+def test_bench_mc_cli_runs_every_variant(capsys):
+    """bench-mc on the CPU (the plain versions): every variant with a
+    counterpart runs, the in-loop variants spend their whole budget with
+    the JAX tool's checksum, the XLA layouts without one are named, and
+    K11's hit counts equal those of the JAX package's chunk scores."""
+    import jax
+    import jax.numpy as jnp
+
+    from divergence_tpu.kernels import perm as jperm
+    from divergence_tpu_torch.tools.bench_mc import STANDALONE_SCORE, bench_distances
+
+    variants = "inloop,inloop_threefry,inloop_shared,native,xla,xla_threefry"
+    torch_cli(["bench-mc", "--device", "cpu", "--window-batch", "8", "--chunk", "16",
+               "--iters", "2", "--backends", variants + ",xla_matmul,xla_mlast,inloop_matmul"])
+    report = json.loads(capsys.readouterr().out)
+    assert (report["backend"], report["window_batch"], report["m"]) == ("cpu", 8, 21)
+    runs = 16 * 2
+    for name in variants.split(",")[:4]:
+        r = report[name]
+        assert "error" not in r, r
+        assert r["nscores"] == 8 * runs and r["perms_per_s"] > 0
+        assert r["checksum"] == round(8 / (runs + 1), 2) and r["loop_chunks"] == 2
+    for name in ("xla_matmul", "xla_mlast", "inloop_matmul"):
+        assert "no counterpart" in report[name]["error"]
+    d = jnp.asarray(bench_distances(8, 21), dtype=jnp.float32)
+    keys = jperm.window_keys(jax.random.PRNGKey(1), jnp.zeros(8, jnp.int32),
+                             jnp.arange(8, dtype=jnp.int32))
+    for name, bitgen in (("xla", "mix"), ("xla_threefry", "threefry")):
+        want = sum(
+            int(jnp.sum(jperm._perm_scores(d, jperm._fold_chunk(keys, k), 11, 10, 16,
+                                           bitgen=bitgen) >= jnp.float32(STANDALONE_SCORE)))
+            for k in (1, 2))
+        assert report[name]["checksum"] == want > 0, name
+
+
+def test_multihost_merge_off_the_lut_fast(tmp_path, capsys):
+    """A slot-range merge in fast mode on a 40 + 40 panel, where the FET
+    scores are computed per SNP without the LUT: the merged shards equal
+    the one-host track byte for byte."""
+    from divergence_tpu_torch.kernels.fet import lut_active
+
+    assert not lut_active(40, 40)
+    pos, am, bm = synth.make_panel(1200, 60_000, 40, 40, seed=93)
+    synth.write_gtrack(tmp_path / "popA.gtrack", "chrS", pos, am)
+    synth.write_gtrack(tmp_path / "popB.gtrack", "chrS", pos, bm)
+    (tmp_path / "chrom.sizes").write_text("chrS\t60000\n")
+    common = ["run-fet", "--pop-a", str(tmp_path / "popA.gtrack"), "--pop-b",
+              str(tmp_path / "popB.gtrack"), "--chrom-sizes", str(tmp_path / "chrom.sizes"),
+              "--device", "cpu", "--precision", "fast"]
+    single = tmp_path / "single.track"
+    torch_cli(common + ["--out", str(single)])
+    shards = [tmp_path / f"h{h}.track" for h in (0, 1)]
+    for h, out in enumerate(shards):
+        torch_cli(common + ["--out", str(out), "--num-hosts", "2", "--host-id", str(h)])
+    assert "host 1/2 takes ['chrS[60:120]']" in capsys.readouterr().out
+    assert all(_rows(s) for s in shards)
+    merged = tmp_path / "merged.track"
+    torch_cli(["merge-tracks", "--inputs", *map(str, shards), "--out", str(merged)])
+    assert len(_rows(single)) > 50
+    assert merged.read_bytes() == single.read_bytes()

@@ -4,23 +4,32 @@ These tests hold each copy equal to its original: same source for the
 verbatim parts, same output on the same input."""
 
 import inspect
+from pathlib import Path
 
 import numpy as np
 import pytest
 
+import divergence_tpu.compat.analysisdef as jcompat
 import divergence_tpu.config as jconfig
 import divergence_tpu.core.windows as jwindows
 import divergence_tpu.io.genome as jgenome
 import divergence_tpu.io.gtrack as jgtrack
+import divergence_tpu.io.snptable as jsnptable
+import divergence_tpu.io.vcf as jvcf
+import divergence_tpu.native as jnative
 import divergence_tpu.parallel.mesh as jmesh
 import divergence_tpu.parallel.multihost as jmultihost
 import divergence_tpu.stats.regions as jregions
 import divergence_tpu.tools.report as jreport
 import divergence_tpu.utils.summary as jsummary
+import divergence_tpu_torch.compat.analysisdef as tcompat
 import divergence_tpu_torch.config as tconfig
 import divergence_tpu_torch.core.windows as twindows
 import divergence_tpu_torch.io.genome as tgenome
 import divergence_tpu_torch.io.gtrack as tgtrack
+import divergence_tpu_torch.io.snptable as tsnptable
+import divergence_tpu_torch.io.vcf as tvcf
+import divergence_tpu_torch.native as tnative
 import divergence_tpu_torch.parallel.mesh as tmesh
 import divergence_tpu_torch.parallel.multihost as tmultihost
 import divergence_tpu_torch.stats.regions as tregions
@@ -66,6 +75,18 @@ VERBATIM = [
     (jreport, treport, "_track_section"),
     (jreport, treport, "_regions_section"),
     (jreport, treport, "write_report"),
+    (jvcf, tvcf, "_convert_stream"),
+    (jsnptable, tsnptable, "snp_table_to_gtrack"),
+    (jcompat, tcompat, "parse_analysis_def"),
+    (jcompat, tcompat, "_require"),
+    (jcompat, tcompat, "config_from_analysis_def"),
+    (jcompat, tcompat, "build_analysis_def"),
+    (jnative, tnative, "_host_cpu_tag"),
+    (jnative, tnative, "_GtrackResult"),
+    (jnative, tnative, "parse_gtrack_native_indexed"),
+    (jnative, tnative, "parse_gtrack_native"),
+    (jnative, tnative, "vcf_convert_native"),
+    (jnative, tnative, "native_available"),
 ]
 
 
@@ -240,3 +261,27 @@ def test_report_style_and_segments_writer_equal(tmp_path):
         jgtrack.write_segments_track(tmp_path / "j.gtrack", segs, sorted_elements)
         tgtrack.write_segments_track(tmp_path / "t.gtrack", segs, sorted_elements)
         assert (tmp_path / "j.gtrack").read_bytes() == (tmp_path / "t.gtrack").read_bytes()
+
+
+def test_converter_tables_equal():
+    assert tvcf.GENOTYPE_CODES == jvcf.GENOTYPE_CODES
+    assert tsnptable.MISSING_MARKERS == jsnptable.MISSING_MARKERS
+    assert (tcompat.FET_STAT, tcompat.CSS_STAT) == (jcompat.FET_STAT, jcompat.CSS_STAT)
+    assert tcompat._KWARG_RE.pattern == jcompat._KWARG_RE.pattern
+    assert tcompat._STAT_RE.pattern == jcompat._STAT_RE.pattern
+
+
+@pytest.mark.parametrize("name", ["gtrack_parser.cpp", "vcf_convert.cpp"])
+def test_native_sources_are_byte_copies(name):
+    orig = Path(jnative.__file__).parent / name
+    copy = Path(tnative.__file__).parent / name
+    assert copy.read_bytes() == orig.read_bytes()
+
+
+def test_native_carries_no_mc_evaluator():
+    """The port's host library is the parser and the converter only:
+    perm_backend="native" runs K8's float64 form on the card."""
+    here = Path(tnative.__file__).parent
+    assert sorted(p.name for p in here.glob("*.cpp")) == ["gtrack_parser.cpp",
+                                                          "vcf_convert.cpp"]
+    assert not hasattr(tnative, "mc_native") and not hasattr(tnative, "fold_in_native")

@@ -3,8 +3,10 @@
 package and runs run_fet, run_css (CMDS, SMACOF, drosophila, approx mode,
 the window stream with threefry draws, the native evaluator), the sharded
 step and the engines over a CPU mesh, bench-scaling, both CLI scans (one
-of them split over two hosts and merged), and ``run-all`` with the exact
-FET rank path, the region callers and the report, on the CPU."""
+of them split over two hosts and merged), ``run-all`` with the exact
+FET rank path, the region callers and the report, ``convert-vcf`` and the
+native GTrack parse, the analysisDef protocol and ``bench-mc``, on the
+CPU."""
 
 import subprocess
 import sys
@@ -86,6 +88,19 @@ import os
 for f in ("fet.track", "css.track", "fet_regions.gtrack", "css_regions.gtrack", "report.html"):
     assert os.path.getsize(tmp + "/all/" + f) > 0, f
 cli.main(["report", "--fet-track", tmp + "/all/fet.track", "--out", tmp + "/r.html"])
+names = synth.write_vcf(tmp + "/p.vcf", "chrZ", pos, am, bm)
+cli.main(["convert-vcf", "--vcf", tmp + "/p.vcf", "--population", ",".join(names[:11]),
+          "--out", tmp + "/va.gtrack"])
+from divergence_tpu_torch.io import gtrack, read_gtrack_points
+assert np.array_equal(read_gtrack_points(tmp + "/va.gtrack")["chrZ"].values_matrix(), am)
+assert gtrack.PARSES["native"] > 0
+from divergence_tpu_torch.compat import config_from_analysis_def
+from divergence_tpu_torch.tools import bench_mc, doctor
+assert config_from_analysis_def(
+    "x ([wStep=500] [wSize=2500] [percentile=0.95])-> FisherExactScoreStat").percentile == 0.95
+rep = bench_mc.run_mc_bench(window_batch=4, chunk=8, iters=1, backends=("inloop", "xla"),
+                            device="cpu")
+assert "error" not in rep["inloop"] and "error" not in rep["xla"]
 no_jax()
 print("NOJAX-OK")
 """
