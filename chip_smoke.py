@@ -2,8 +2,9 @@
 """Smoke run of ``divergence_tpu_torch`` — the FET scan (``run-fet``), the
 CSS scan (``run-css``), the sharded divergence step, the whole pipeline
 (``run-all``), and the ingestion path (``convert-vcf``, the native GTrack
-parse) with ``doctor`` and ``bench-mc`` on one CUDA GPU, at the JAX
-package's bench scale.
+parse) with ``doctor`` and ``bench-mc``, and the differential fuzz lane
+against the NumPy oracle, on one CUDA GPU, at the JAX package's bench
+scale.
 
 Usage, from the repository root, on a machine with one CUDA GPU::
 
@@ -177,7 +178,20 @@ Phases (any failure exits non-zero and prints no result line):
    parser); (f) ``bench-mc`` at its defaults with ``inloop``,
    ``inloop_threefry``, ``inloop_shared``, ``native`` and ``xla``, then
    on a 64-window cut, checksums equal to the plain versions'; (g)
-   ``convert-snp-table`` on a small table.
+   ``convert-snp-table`` on a small table;
+19. the differential fuzz lanes (``tools/fuzz_ref.py``, FUZZ_LANES): random
+   panels (1-13 and 20-110 individuals a population, three genotype mixes
+   with missing codes, drosophila frequency tracks, windows of 200-5,000
+   bp, sparse steps) through ``run_fet`` and ``run_css`` on the card in
+   both precisions, each score column held against the NumPy oracle (the
+   compiled reference C where it builds) with the JAX tool's attribution;
+   each trial's m, MDS mode and the forms the kernel library's queries
+   name (``dissim_form``, ``cmds_form``, ``smacof_form``, ``coeff_form``,
+   the FET route) beside the kernels each engine call launched; every
+   launched kernel must be the named form, and the lanes together must
+   reach both sides of K3's, K5's and K7's coefficient switches in both
+   precisions, both exact FET routes and K6's forms wherever mds = 2 drew
+   them.  Any unattributed mismatch fails the run.
 
 Kernel launch counts are reset before phase 3 and read after phase 4 (the
 FET path), reset before phase 6 and read after phase 7 (the CMDS CSS
@@ -190,7 +204,9 @@ read after it (the large-panel kernels, K7's product and scan), and
 reset before phase 17's main path (17b's step, 17c, 17d's run_fet and
 step) and read after it (the large-panel MC and wide FET kernels), and
 reset before phase 18's ``run-fet`` on the converted pair and read after
-its ``bench-mc`` at the defaults (K1, K2, K7, K8, K11).  The
+its ``bench-mc`` at the defaults (K1, K2, K7, K8, K11), and reset
+before each of phase 19's lanes and read after it (``launches_phase19``:
+their sum).  Phase 19's coverage table is printed after ``[done]``.  The
 last three lines are a JSON line of per-kernel results (with each
 kernel's ``bound_ms``: the larger of its bytes over 3.35 TB/s and its
 operations over 67 TFLOP/s float32 / 34 TFLOP/s float64, from this run's
@@ -296,6 +312,21 @@ INGEST_PY_SNPS = 20_000
 INGEST_MC_BACKENDS = ("inloop", "inloop_threefry", "inloop_shared", "native", "xla")
 INGEST_MC_CUT = 64
 RUN_ALL_PYTHON_PARSE_S = {"fast": 18.9, "exact": 19.8}
+# phase 19: the differential fuzz lanes (divergence_tpu_torch/tools/fuzz_ref.py),
+# (name, seed0, trials, options): the default lane with the float32 lane
+# from seed 5000 (the JAX tool's default), a sparse lane, and the big panels
+# (20-110 a population) with the float32 lane, from the seeds where the JAX
+# package's campaigns ran those lanes (docs/FUZZ_LOG.md)
+FUZZ_LANES = (("default", 5_000, 24, {"fast": True}),
+              ("sparse", 30_000, 12, {"sparse": True}),
+              ("big", 3_000, 8, {"big": True, "fast": True}))
+# the form switches the lanes must reach on both sides, in both precisions
+# (small-form kernel, large-form kernel)
+FUZZ_SWITCHES = (("K3", "css_dissim", "css_dissim_tiles"),
+                 ("K5", "css_cmds", "css_cmds_block"),
+                 ("K7 coeff", "css_mc_coeff", "css_mc_coeff_block"))
+FUZZ_RANKS = ("fet_lut_rank", "fet_snp_ranks", "fet_aggregate_ranks",
+              "fet_aggregate_ranks_wide")
 # the FET fast path of run-fet and bench-mc's kernels (K7, K8, K11)
 INGEST_PATH = ("fet_lut_build", "fet_snp_logs", "fet_aggregate", "css_mc_coeff",
                "css_mc_shared", "css_mc_scan", "css_mc_window", "css_perm_chunk")
@@ -4242,6 +4273,182 @@ def phase_ingest(torch, dev, tmp: Path, files, results) -> dict:
     return launches
 
 
+FUZZ_FORM_KERNELS = {
+    "dissim": {"warp": "css_dissim", "tiles": "css_dissim_tiles"},
+    "cmds": {"warp": "css_cmds", "block": "css_cmds_block", "device": "css_cmds_block"},
+    "smacof": {"warp": "css_smacof", "block": "css_smacof_block", "device": "css_smacof_block"},
+    "coeff": {"thread": "css_mc_coeff", "block": "css_mc_coeff_block"},
+}
+
+
+def fuzz_trials(np, fuzz_ref, seed0: int, trials: int, opts: dict) -> list[dict]:
+    """The trials a lane runs (those with a slot), replayed from
+    ``fuzz_ref.draw_trial``'s canonical sequence: index, panel, MDS mode
+    and geometry of each."""
+    out = []
+    for t in range(trials):
+        rng = np.random.default_rng(seed0 + t)
+        dros = t % 6 == 5
+        pos, _, _, a, b, wsize, wstep = fuzz_ref.draw_trial(
+            rng, dros, sparse=opts.get("sparse", False), big=opts.get("big", False))
+        slots = (int(pos[-1]) + 1) // wstep
+        if slots:
+            out.append({"t": t, "a": a, "b": b, "m": a + b, "dros": dros, "n": len(pos),
+                        "slots": slots, "w": f"{wsize}/{wstep}",
+                        "mds": int(rng.integers(0, 2)) * 2})
+    return out
+
+
+def fuzz_forms(torch, kfet, kcss, kperm, trial: dict, dev) -> dict:
+    """The form each switch takes for a trial's panel on ``dev``, by
+    precision, as the kernel library's form queries name it, and the FET
+    route (K1r -> K2r in exact mode where the panel's LUT is on)."""
+    m, forms = trial["m"], {}
+    for prec, dtype in (("exact", torch.float64), ("fast", torch.float32)):
+        f = {"dissim": kcss.dissim_form(m, dev), "cmds": kcss.cmds_form(m, dtype, dev),
+             "coeff": kperm.coeff_form(m, dev),
+             "fet": "ranks" if prec == "exact" and kfet.lut_active(trial["a"], trial["b"])
+             else "logs"}
+        if trial["mds"] == 2:
+            f["smacof"] = kcss.smacof_form(m, 2, dtype, dev)
+        forms[prec] = f
+    return forms
+
+
+def phase_fuzz(torch, dev, results) -> tuple[dict, list[str]]:
+    """Phase 19: the differential fuzz lane on the card.  Each lane of
+    FUZZ_LANES runs ``fuzz_ref.fuzz`` (random panels through ``run_fet`` /
+    ``run_css`` on ``dev``, each score column held against the NumPy
+    oracle, or the compiled C where it builds, with the JAX tool's
+    attribution), its launch counts reset before it and read after.  Each
+    engine call's launches are read apart (a wrapper around the tool's
+    ``run_fet`` / ``run_css``): every launched kernel must be the form the
+    kernel library's queries name for the trial's m and precision, and the
+    lanes together must launch both sides of K3's, K5's and K7's
+    coefficient switches in both precisions, both exact FET routes (K1r ->
+    K2r, K1 -> K2), and K6's small and large forms wherever mds = 2 drew
+    panels on both sides.  Any bug fails the phase.  Returns the launches
+    over all lanes and the coverage table's lines."""
+    import numpy as np
+
+    from divergence_tpu_torch.kernels import css as kcss
+    from divergence_tpu_torch.kernels import fet as kfet
+    from divergence_tpu_torch.kernels import perm as kperm
+    from divergence_tpu_torch.tools import fuzz_ref
+
+    def counts():
+        return {**kfet.LAUNCHES, **kcss.LAUNCHES, **kperm.LAUNCHES,
+                "css_mc_power_window": kperm.POWER_LAUNCHES["window"]}
+
+    calls = []
+
+    def counted(engine, name):
+        def run(pair, regend, cfg, **kw):
+            before, t0 = counts(), time.perf_counter()
+            out = engine(pair, regend, cfg, **kw)
+            took = time.perf_counter() - t0
+            after = counts()
+            calls.append({"engine": name, "prec": cfg.precision, "positions": pair.positions,
+                          "m": pair.avals.shape[1] + pair.bvals.shape[1], "s": took,
+                          "launches": {k: after[k] - before[k] for k in after
+                                       if after[k] > before[k]}})
+            return out
+        return run
+
+    engines = (fuzz_ref.run_fet, fuzz_ref.run_css)
+    fuzz_ref.run_fet, fuzz_ref.run_css = counted(engines[0], "fet"), counted(engines[1], "css")
+    total, table, lanes, bugs = dict.fromkeys(counts(), 0), [], {}, []
+    seen = {"exact": set(), "fast": set(), "fet_exact": set()}
+    k6_forms = {"exact": set(), "fast": set()}
+    try:
+        for lane, seed0, trials, opts in FUZZ_LANES:
+            for mod in (kfet, kcss, kperm):
+                mod.reset_launches()
+            calls.clear()
+            t0 = time.perf_counter()
+            stats = fuzz_ref.fuzz(trials, seed0, device=dev, **opts)
+            wall = time.perf_counter() - t0
+            lane_launches = counts()
+            engine_s = sum(c["s"] for c in calls)
+            # group the engine calls by trial (one panel a trial)
+            groups = []
+            for c in calls:
+                if not groups or groups[-1][0]["positions"] is not c["positions"]:
+                    groups.append([])
+                groups[-1].append(c)
+            run = fuzz_trials(np, fuzz_ref, seed0, trials, opts)
+            check(len(groups) == len(run) == stats["trials"]
+                  and all(g[0]["m"] == r["m"] for g, r in zip(groups, run)),
+                  f"phase 19 {lane}: {len(groups)} trials called the engines, "
+                  f"{len(run)} replayed, {stats['trials']} run")
+            check(all(sum(c["launches"].get(k, 0) for c in calls) == v
+                      for k, v in lane_launches.items()),
+                  f"phase 19 {lane}: launches outside the engine calls")
+            for r, group in zip(run, groups):
+                forms = fuzz_forms(torch, kfet, kcss, kperm, r, dev)
+                got = {"exact": set(), "fast": set()}
+                for c in group:
+                    f, launched = forms[c["prec"]], set(c["launches"])
+                    got[c["prec"]] |= launched
+                    if c["engine"] == "fet":
+                        wrong = (launched & {"fet_snp_logs"} if f["fet"] == "ranks"
+                                 else launched & set(FUZZ_RANKS))
+                        if c["prec"] == "exact" and launched:
+                            seen["fet_exact"].add(f["fet"])
+                    else:
+                        seen[c["prec"]] |= launched
+                        wrong = set()
+                        for key, names in FUZZ_FORM_KERNELS.items():
+                            if key in f:
+                                wrong |= launched & (set(names.values()) - {names[f[key]]})
+                        if "smacof" in f and launched:   # the call scored windows
+                            k6_forms[c["prec"]].add(FUZZ_FORM_KERNELS["smacof"][f["smacof"]])
+                    check(not wrong, f"phase 19 {lane} t{r['t']} (m = {r['m']}, {c['prec']}): "
+                                     f"{c['engine']} launched {sorted(wrong)}, not the forms "
+                                     f"the queries name: {f}")
+                table.append(
+                    f"[fuzz {lane}] t{r['t']} m={r['m']} ({r['a']}+{r['b']}) mds={r['mds']} "
+                    f"dros={r['dros']} n={r['n']} slots={r['slots']} w={r['w']} | "
+                    + " | ".join(f"{prec}: " + " ".join(f"{k}={v}" for k, v in forms[prec].items())
+                                 + f" launched {sorted(got[prec])}" for prec in ("exact", "fast")))
+            for k, v in lane_launches.items():
+                total[k] += v
+            summary = {k: v for k, v in stats.items() if k not in ("bugs", "workdir")}
+            lanes[lane] = {"seed0": seed0, "trials": trials, "options": opts, "wall_s": wall,
+                           "engine_s": engine_s, "oracle_and_probes_s": wall - engine_s,
+                           "bugs": len(stats["bugs"]), **summary}
+            bugs += [f"{lane}: {b}" for b in stats["bugs"]]
+            table.append(f"[fuzz {lane}] seed0 {seed0}, {trials} trials, options {opts}: "
+                         f"{wall:.1f} s ({engine_s:.1f} s in the engines, "
+                         f"{wall - engine_s:.1f} s oracle and probes); {json.dumps(lanes[lane])}")
+            table.append(f"[fuzz {lane}] kernel launches: "
+                         f"{ {k: v for k, v in lane_launches.items() if v} }")
+        results["fuzz"] = lanes
+        check(not bugs, f"phase 19: {len(bugs)} bugs, first: {bugs[:8]}")
+        for prec in ("exact", "fast"):
+            for name, small, large in FUZZ_SWITCHES:
+                check(small in seen[prec] and large in seen[prec],
+                      f"phase 19: {name} ({small} / {large}) not reached on both sides in "
+                      f"{prec} mode: {sorted(seen[prec])}")
+            check(k6_forms[prec] <= seen[prec],
+                  f"phase 19: K6 forms {sorted(k6_forms[prec])} drawn in {prec} mode, "
+                  f"launched {sorted(seen[prec])}")
+        check(seen["fet_exact"] == {"ranks", "logs"},
+              f"phase 19: exact FET routes reached: {sorted(seen['fet_exact'])} (want K1r -> "
+              f"K2r and K1 -> K2)")
+    except Exception:
+        for line in table:   # the coverage so far, where the phase failed
+            say(line)
+        raise
+    finally:
+        fuzz_ref.run_fet, fuzz_ref.run_css = engines
+    table.append(f"[fuzz coverage] both sides of K3, K5 and K7's coefficients in both "
+                 f"precisions; K6 forms exact {sorted(k6_forms['exact'])}, fast "
+                 f"{sorted(k6_forms['fast'])}; exact FET routes K1r -> K2r and K1 -> K2; "
+                 f"K8, K9 and K11 are not on the lane's path (mc_runs=2 holds score columns)")
+    return total, table
+
+
 def large_entries(results) -> None:
     """The kernels line's fast / exact / bound fields of the large-panel
     kernels at 110 + 90 (K6: mode 1), with the windows each time covers
@@ -4264,9 +4471,9 @@ def large_entries(results) -> None:
                 r["windows_exact"] = r["windows_" + exact]
 
 
-def smoke(torch, dev) -> tuple[str, list[dict]]:
-    """Every phase on ``dev``; returns (card line, per-kernel results).
-    Raises on the first failure."""
+def smoke(torch, dev) -> tuple[str, list[dict], list[str]]:
+    """Every phase on ``dev``; returns (card line, per-kernel results,
+    phase 19's coverage table).  Raises on the first failure."""
     import numpy as np
 
     from divergence_tpu_torch.core.windows import plan_windows
@@ -4436,6 +4643,10 @@ def smoke(torch, dev) -> tuple[str, list[dict]]:
         # the ingestion path and the remaining tools: convert-vcf ->
         # run-fet, the native parse, doctor, bench-mc (counts reset inside)
         ingest_launches = timed_phase("18", phase_ingest, torch, dev, tmp, files, results)
+
+        # the differential fuzz lanes: random panels through every kernel
+        # form, held against the NumPy oracle (counts reset around each lane)
+        fuzz_launches, fuzz_table = timed_phase("19", phase_fuzz, torch, dev, results)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -4617,6 +4828,7 @@ def smoke(torch, dev) -> tuple[str, list[dict]]:
             entry["run_all_walls_s"] = results["run_all_walls_s"]
         if name in INGEST_PATH:
             entry["launches_phase18"] = ingest_launches[name]
+        entry["launches_phase19"] = fuzz_launches[name]
         if name in WIDE_PATH:
             # ms / plain_ms / bound_ms: 110 + 90 (K8: its depth cut, host
             # wall; K11 and K9 on 19,997 windows, their plain versions on a
@@ -4645,7 +4857,7 @@ def smoke(torch, dev) -> tuple[str, list[dict]]:
             entry["mirror_bit_equal"] = r["mirror_bit_equal"]
             entry["ms_bench_800k"] = r["bench_ms"]
         kernels.append(entry)
-    return card, kernels
+    return card, kernels, fuzz_table
 
 
 def main() -> int:
@@ -4670,7 +4882,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     try:
-        card, kernels = smoke(torch, torch.device("cuda", 0))
+        card, kernels, fuzz_table = smoke(torch, torch.device("cuda", 0))
     except Exception as e:  # report any phase's failure, then exit non-zero
         import traceback
 
@@ -4678,6 +4890,8 @@ def main() -> int:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     say(f"[done] {time.perf_counter() - t_start:.1f} s")
+    for line in fuzz_table:
+        print(line)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

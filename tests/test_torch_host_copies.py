@@ -17,6 +17,7 @@ import divergence_tpu.io.gtrack as jgtrack
 import divergence_tpu.io.snptable as jsnptable
 import divergence_tpu.io.vcf as jvcf
 import divergence_tpu.native as jnative
+import divergence_tpu.oracle.reference as jorc
 import divergence_tpu.parallel.mesh as jmesh
 import divergence_tpu.parallel.multihost as jmultihost
 import divergence_tpu.stats.regions as jregions
@@ -30,6 +31,7 @@ import divergence_tpu_torch.io.gtrack as tgtrack
 import divergence_tpu_torch.io.snptable as tsnptable
 import divergence_tpu_torch.io.vcf as tvcf
 import divergence_tpu_torch.native as tnative
+import divergence_tpu_torch.oracle.reference as torc
 import divergence_tpu_torch.parallel.mesh as tmesh
 import divergence_tpu_torch.parallel.multihost as tmultihost
 import divergence_tpu_torch.stats.regions as tregions
@@ -87,6 +89,14 @@ VERBATIM = [
     (jnative, tnative, "parse_gtrack_native"),
     (jnative, tnative, "vcf_convert_native"),
     (jnative, tnative, "native_available"),
+] + [
+    # the oracle's exports and the helpers the fuzz lane calls
+    (jorc, torc, name)
+    for name in ("fet_count", "fet_point_prob", "fet_two_tailed", "percentile_interp",
+                 "window_fet", "compute_fet", "compare_all", "compare_freq", "fill_averages",
+                 "cmds", "calc_dist", "css_score", "smacof", "smacof_runs", "significance",
+                 "window_css", "compute_css", "window_bounds", "fet_two_tailed_c_replica",
+                 "fet_c_binomial_overflows", "_stress", "_guttman")
 ]
 
 

@@ -125,3 +125,30 @@ def test_port_sources_never_import_jax():
             assert not stripped.startswith(
                 ("import divergence_tpu.", "from divergence_tpu.", "from divergence_tpu ")
             ), path
+
+
+FUZZ_SCRIPT = r"""
+import sys
+sys.modules["jax"] = None
+sys.path.insert(0, sys.argv[1])
+import torch
+torch.set_num_threads(1)
+import divergence_tpu_torch.oracle
+from divergence_tpu_torch.tools import fuzz_ref
+stats = fuzz_ref.fuzz(trials=2, seed0=5000, device="cpu")
+assert stats["bugs"] == [] and stats["trials"] == 2 and stats["reference"] == "oracle", stats
+assert "divergence_tpu" not in sys.modules
+for name, mod in list(sys.modules.items()):
+    assert mod is None or not name.startswith("jax"), name
+print("FUZZ-NOJAX-OK")
+"""
+
+
+def test_fuzz_lane_runs_without_jax():
+    """The oracle copy and the fuzz lane import and run with jax absent."""
+    proc = subprocess.run(
+        [sys.executable, "-c", FUZZ_SCRIPT, str(ROOT)],
+        capture_output=True, text=True, timeout=300, check=False,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "FUZZ-NOJAX-OK" in proc.stdout
