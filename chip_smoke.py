@@ -2,9 +2,9 @@
 """Smoke run of ``divergence_tpu_torch`` — the FET scan (``run-fet``), the
 CSS scan (``run-css``), the sharded divergence step, the whole pipeline
 (``run-all``), and the ingestion path (``convert-vcf``, the native GTrack
-parse) with ``doctor`` and ``bench-mc``, and the differential fuzz lane
-against the NumPy oracle, on one CUDA GPU, at the JAX package's bench
-scale.
+parse) with ``doctor`` and ``bench-mc``, the differential fuzz lane
+against the NumPy oracle, and the sharded MC's shares at once, on one CUDA
+GPU, at the JAX package's bench scale.
 
 Usage, from the repository root, on a machine with one CUDA GPU::
 
@@ -191,7 +191,29 @@ Phases (any failure exits non-zero and prints no result line):
    launched kernel must be the named form, and the lanes together must
    reach both sides of K3's, K5's and K7's coefficient switches in both
    precisions, both exact FET routes and K6's forms wherever mds = 2 drew
-   them.  Any unattributed mismatch fails the run.
+   them.  Any unattributed mismatch fails the run;
+20. the sharded MC's shares at once (``kernels/perm.py:_over_shares``: a
+   host thread and a CUDA stream a share; approx mode's power sums
+   enqueued on every share's stream from one thread, then read back, and
+   one fit: ``_sums_over_shares``) on four shares of the card
+   (``make_mesh(devices=[dev] * 4)``): ``significance`` and
+   ``approx_significance`` on the 16x worst case at 11 + 10 on every route
+   (K7 shared, K8 window, K8 native, K9 shared, K9 window) and on the
+   envelope cell at 110 + 90 on the large-panel forms (K7 coeff large, K8
+   large; phase 17's depth), three ways: unsharded, the four shares one
+   after another (the single-share call on each slice in turn), and the
+   four shares at once.  Walls (median of 3 warm calls, host clock
+   around a synchronise), each share's device interval (CUDA events on its
+   stream at its first and last launch) and their overlap; (p, n, hits) of
+   both four-share runs byte-equal to the unsharded run and the launches
+   of the four at once equal to the four shares counted one at a time (a
+   difference fails the run).  Then the host syncs
+   (``torch.cuda.set_sync_debug_mode("warn")``) between one share's
+   launches and the next share's in the loops that stay single-threaded:
+   phase 1 (``engine/css_engine.py:_phase1_dispatch``), the FET engine
+   (``engine/fet_engine.py:_fet_dispatch``, both precisions) and the
+   sharded step (``parallel/sharded.py``), by the port's line that made
+   each.
 
 Kernel launch counts are reset before phase 3 and read after phase 4 (the
 FET path), reset before phase 6 and read after phase 7 (the CMDS CSS
@@ -206,8 +228,10 @@ step) and read after it (the large-panel MC and wide FET kernels), and
 reset before phase 18's ``run-fet`` on the converted pair and read after
 its ``bench-mc`` at the defaults (K1, K2, K7, K8, K11), and reset
 before each of phase 19's lanes and read after it (``launches_phase19``:
-their sum).  Phase 19's coverage table is printed after ``[done]``.  The
-last three lines are a JSON line of per-kernel results (with each
+their sum), and reset around each single-share and four-share call of
+phase 20 (its launch check; phase 20 adds nothing to the kernels line).
+Phase 19's coverage table is printed after ``[done]``.  The last three
+lines are a JSON line of per-kernel results (with each
 kernel's ``bound_ms``: the larger of its bytes over 3.35 TB/s and its
 operations over 67 TFLOP/s float32 / 34 TFLOP/s float64, from this run's
 inputs — K2's, K2r's and K10's count the threefry hashes and pows these
@@ -469,6 +493,26 @@ LARGE_SWEEP_M = (65, 96, 128, 174, 200, 300)
 # approx mode past m = 64: |log10 p| card vs CPU (tests/
 # test_torch_large_panels_mc.py, measured on the CPU at m = 128 and 200)
 LARGE_LOG10_P_BAND = 1e-2
+
+
+# phase 20, the sharded MC's shares at once: (label, approx mode,
+# significance's backend, stream) on the 16x worst case at 11 + 10 (at
+# MC_RUNS; approx mode at APPROX_CHUNK x APPROX_CHUNKS, the engine's), the
+# first two on the envelope cell at MC_SHARE_LARGE (LARGE_MC_RUNS, phase
+# 17's depth); the four shares of STEP_SHARES
+MC_SHARE_ROUTES = [
+    ("K7 shared", False, "xla", "shared"),
+    ("K8 window", False, "xla", "window"),
+    ("K8 native", False, "native", "window"),
+    ("K9 approx shared", True, None, "shared"),
+    ("K9 approx window", True, None, "window"),
+]
+MC_SHARE_LARGE = LARGE_PANELS[1]
+MC_FIELDS = ("pvals", "nscores", "hits")
+# the sharded step of phase 20's sync census: the first windows of the 200 k
+# workload, a multiple of STEP_SHARES (the syncs follow the loop, not the
+# size)
+SYNC_STEP_WINDOWS = 4_000
 
 
 def large_power_band(m: int) -> float:
@@ -1356,14 +1400,19 @@ def warm_runs(run, reps: int = 3):
 
 def profile_css(torch, run, label) -> None:
     """One profiled call of ``run()`` (a run_css): wall, device time and
-    busy share, and K7's device time (css_mc_coeff, css_mc_shared_tile,
-    css_mc_scan) and share of the wall."""
-    wall, dev_ms, rows = device_profile(torch, run)
+    busy share from the profiler, and K7's device time (css_mc_coeff and
+    its block form, css_mc_shared, css_mc_scan) and share of the wall from
+    CUDA events around its launches in that call (the profiler's
+    per-kernel table loses records late in a long process)."""
+    from divergence_tpu_torch.kernels import perm as kperm
+
+    names = ("css_mc_coeff", "css_mc_coeff_block", "css_mc_shared", "css_mc_scan")
+    with timed_launches(torch, kperm, names) as spans:
+        wall, dev_ms, rows = device_profile(torch, run)
     check(dev_ms > 0, f"run_css {label}: the profiler saw no device time")
-    k7 = {k: sum(ms for ms, name in rows if k in name)
-          for k in ("css_mc_coeff", "css_mc_shared_tile", "css_mc_scan")}
+    k7 = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in spans.items()}
     say(f"[css profile] run_css {label}: wall {wall:.1f} ms, device {dev_ms:.1f} ms "
-        f"({100 * dev_ms / wall:.1f} % busy); K7 {sum(k7.values()):.2f} ms "
+        f"({100 * dev_ms / wall:.1f} % busy); K7 by CUDA events {sum(k7.values()):.2f} ms "
         f"({100 * sum(k7.values()) / wall:.1f} % of the wall: "
         + ", ".join(f"{k} {v:.3f} ms" for k, v in k7.items()) + "); most device time: "
         + "; ".join(f"{name[:50]} {ms:.2f} ms" for ms, name in rows[:4]))
@@ -3897,7 +3946,7 @@ def phase_wide_fet_kernels(torch, kfet, pair, positions, dev, card, results) -> 
                 s10, d10 = k10()
                 check(torch.equal(s10, want[0]) and torch.equal(d10, want[1]),
                       f"K10 {prec} at P = {P}: not K1 -> K2 bit for bit")
-                ms10 = cuda_ms(torch, k10, 3)
+                ms10 = median_ms(torch, k10, 5, queued=True)
                 n = min(c, WIDE_K10_PLAIN)
                 (ps, pd), pms10 = event_ms(torch, lambda: kfet.fet_window_batch_plain(
                     av[:n], bv[:n], npos[:n], 0.95, key, 100, maxs, nmax, fast, slot[:n]))
@@ -3909,7 +3958,8 @@ def phase_wide_fet_kernels(torch, kfet, pair, positions, dev, card, results) -> 
                 say(f"[K10 fet_window {prec}, {wsize} / {wstep}] the first {c} windows "
                     f"gathered at P = {P} ({(av.numel() + bv.numel()) * 2 / 1e9:.2f} GB of "
                     f"codes), the {form} body: K1 -> K2 bit for bit, max_rel_err {err:.3e} "
-                    f"against the plain version on the first {n}; kernel {ms10:.3f} ms plain "
+                    f"against the plain version on the first {n}; kernel {ms10:.3f} ms (median "
+                    f"of 5 queued calls) plain "
                     f"{pms10:.1f} ms ({n} windows), bound {b10[0]:.3f} ms on {card}")
                 check(rel_err(s10, ps) <= TOL[prec], f"K10 {prec} at P = {P}: {err}")
                 target = results["fet_window"] if narrow else rw
@@ -4449,6 +4499,290 @@ def phase_fuzz(torch, dev, results) -> tuple[dict, list[str]]:
     return total, table
 
 
+@contextlib.contextmanager
+def share_spans(torch, kperm):
+    """A context in which every kernel launch of ``kperm`` is bracketed by
+    CUDA events on the launching thread's current stream (a share's own
+    under ``kernels/perm.py:_over_shares``); it yields {stream: [event
+    before its first launch, event after its last]} (read after a
+    synchronise)."""
+    spans = {}
+    orig = kperm.launch
+
+    def timed(counts, kernel, symbol, device, *args):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        span = spans.get(stream)
+        if span is None:
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+            span = spans[stream] = [start, None]
+        orig(counts, kernel, symbol, device, *args)
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        span[1] = end
+
+    kperm.launch = timed
+    try:
+        yield spans
+    finally:
+        kperm.launch = orig
+
+
+def mc_launches(kperm) -> dict:
+    """Every MC launch count of ``kperm``: the kernels, K7's coefficients by
+    draw stream and K9 by permutation stream."""
+    return {**kperm.LAUNCHES, **{f"coeff {k}": v for k, v in kperm.COEFF_LAUNCHES.items()},
+            **{f"power {k}": v for k, v in kperm.POWER_LAUNCHES.items()}}
+
+
+def mc_share_cell(torch, kperm, mesh, data, a, b, runs, route, card) -> dict:
+    """One route of phase 20 on one cell: the unsharded call, the four
+    shares one after another (the single-share call on each slice in
+    turn) and the four at once (``sharding=mesh``); checks byte-identity
+    and the launch counts, times each way and the shares' intervals."""
+    import statistics
+
+    import numpy as np
+
+    from divergence_tpu_torch import rng
+    from divergence_tpu_torch.parallel import window_slices
+
+    label, approx, backend, stream = route
+    dist, scores, chroms, slots = data
+    B = len(scores)
+    key = rng.fold_in(rng.prng_key(0), 2)
+    shares = window_slices(B, mesh)
+
+    def call(d, sc, ch, sl, sharding=None):
+        if approx:
+            return kperm.approx_significance(d, sc, a, b, key, chunk=APPROX_CHUNK, chroms=ch,
+                                             slots=sl, n_chunks=APPROX_CHUNKS, stream=stream,
+                                             sharding=sharding)
+        return kperm.significance(d, sc, a, b, 10, runs, key, chunk=256, chroms=ch, slots=sl,
+                                  backend=backend, stream=stream, sharding=sharding)
+
+    def joined(parts):
+        return kperm.McResult(*(np.concatenate([getattr(r, f) for r in parts])
+                                for f in MC_FIELDS))
+
+    ways = {
+        "unsharded": lambda: call(dist, scores, chroms, slots),
+        "serial": lambda: joined([call(dist[sl], scores[sl], chroms[sl], slots[sl])
+                                  for sl in shares]),
+        "concurrent": lambda: call(dist, scores, chroms, slots, mesh),
+    }
+    ref = ways["unsharded"]()                    # warm
+    differ = {"serial": 0, "concurrent": 0}
+
+    def same(out) -> bool:
+        return all(getattr(out, f).tobytes() == getattr(ref, f).tobytes() for f in MC_FIELDS)
+
+    # the launches: each share counted on its own, then the four at once
+    serial_counts = dict.fromkeys(mc_launches(kperm), 0)
+    parts = []
+    for sl in shares:
+        kperm.reset_launches()
+        parts.append(call(dist[sl], scores[sl], chroms[sl], slots[sl]))
+        for k, v in mc_launches(kperm).items():
+            serial_counts[k] += v
+    differ["serial"] += not same(joined(parts))
+    kperm.reset_launches()
+    differ["concurrent"] += not same(ways["concurrent"]())
+    four_counts = mc_launches(kperm)
+    # each share's device interval in one more call at once, from the
+    # call's first event on the caller's stream
+    torch.cuda.synchronize()
+    origin = torch.cuda.Event(enable_timing=True)
+    origin.record()
+    with share_spans(torch, kperm) as spans:
+        differ["concurrent"] += not same(ways["concurrent"]())
+    torch.cuda.synchronize()
+    intervals = sorted((origin.elapsed_time(s), origin.elapsed_time(e))
+                       for s, e in spans.values())
+    busy = sum(e - s for s, e in intervals)
+    union, reach = 0.0, float("-inf")
+    for s, e in intervals:
+        union += max(0.0, e - max(s, reach))
+        reach = max(reach, e)
+    all_overlap = all(max(s1, s2) < min(e1, e2) for i, (s1, e1) in enumerate(intervals)
+                      for s2, e2 in intervals[i + 1:])
+    walls = {w: [] for w in ways}
+    for _ in range(3):
+        for w, fn in ways.items():
+            out, ms = host_ms(torch, fn)
+            walls[w].append(ms)
+            if w != "unsharded":
+                differ[w] += not same(out)
+    med = {w: statistics.median(v) for w, v in walls.items()}
+    equal_counts = four_counts == serial_counts
+    n_launch = sum(v for k, v in four_counts.items() if " " not in k)
+    say(f"[mc shares {label}] {B} windows at {a} + {b}, {len(mesh)} shares of the card "
+        f"({[sl.stop - sl.start for sl in shares]}): walls unsharded {med['unsharded']:.1f} ms, "
+        f"serial {med['serial']:.1f} ms, concurrent {med['concurrent']:.1f} ms (median of 3 "
+        f"warm calls, host clock; concurrent / serial {med['concurrent'] / med['serial']:.3f}, "
+        f"/ unsharded {med['concurrent'] / med['unsharded']:.3f}); (p, n, hits) byte-equal to "
+        f"unsharded in every call: serial {differ['serial'] == 0}, concurrent "
+        f"{differ['concurrent'] == 0}; share device intervals (ms from the call's start) "
+        + ", ".join(f"[{s:.1f}, {e:.1f}]" for s, e in intervals)
+        + f": {busy:.1f} ms of share time over a {union:.1f} ms union (overlap "
+        f"{busy - union:.1f} ms, every pair overlaps: {all_overlap}); {n_launch} launches at "
+        f"once, the shares one at a time {sum(v for k, v in serial_counts.items() if ' ' not in k)}"
+        f" (every count equal: {equal_counts}) on {card}")
+    check(differ["serial"] == 0 and differ["concurrent"] == 0,
+          f"mc shares {label} at {a} + {b}: a four-share run differs from the unsharded run "
+          f"({differ})")
+    check(equal_counts and n_launch > 0,
+          f"mc shares {label} at {a} + {b}: launches {four_counts} != {serial_counts}")
+    check(len(intervals) == len(mesh), f"mc shares {label}: {len(intervals)} share streams")
+    return {"windows": B, "walls_ms": walls, "median_ms": med, "intervals_ms": intervals,
+            "share_ms": busy, "union_ms": union, "all_overlap": all_overlap,
+            "launches": n_launch, "launches_equal": equal_counts}
+
+
+def host_syncs(torch, fn, marks) -> dict:
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("warn")``, every
+    kernel launch of the kernel modules and every call of ``marks``
+    ((module, name): the function a share begins with) logged in order:
+    the host syncs between the first launch and the last, each by the
+    port's innermost line that made it and the share it fell in, and those
+    before the first launch and after the last, counted."""
+    import collections
+    import traceback
+    import warnings
+
+    from divergence_tpu_torch.kernels import css as kcss
+    from divergence_tpu_torch.kernels import fet as kfet
+    from divergence_tpu_torch.kernels import perm as kperm
+
+    log = []
+    pkg = str(ROOT / "divergence_tpu_torch")
+
+    def logged_launch(orig):
+        def launch(counts, kernel, *args):
+            orig(counts, kernel, *args)
+            log.append(("launch", kernel))
+        return launch
+
+    def marked(orig):
+        def share(*args, **kwargs):
+            log.append(("share", None))
+            return orig(*args, **kwargs)
+        return share
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchronizing CUDA operation" not in str(message):
+            return
+        stack = traceback.extract_stack()[:-1]
+        f = ([f for f in stack if f.filename.startswith(pkg)]
+             or [f for f in stack if f.filename.startswith(str(ROOT))])[-1]
+        where = f"{Path(f.filename).name}:{f.lineno} {f.name}: {(f.line or '').strip()[:70]}"
+        log.append(("sync", where))
+
+    saved = [(mod, "launch", mod.launch) for mod in (kfet, kcss, kperm)]
+    saved += [(mod, name, getattr(mod, name)) for mod, name in marks]
+    for mod, name, orig in saved:
+        setattr(mod, name, logged_launch(orig) if name == "launch" else marked(orig))
+    try:
+        torch.cuda.synchronize()
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = record
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    finally:
+        for mod, name, orig in saved:
+            setattr(mod, name, orig)
+    at = [i for i, (kind, _) in enumerate(log) if kind == "launch"]
+    check(bool(at), "host_syncs: the call launched no kernel")
+    between, per_share = collections.Counter(), collections.Counter()
+    before = after = 0
+    share = -1
+    for i, (kind, where) in enumerate(log):
+        if kind == "share":
+            share += 1
+        elif kind == "sync":
+            if i < at[0]:
+                before += 1
+            elif i > at[-1]:
+                after += 1
+            else:
+                between[where] += 1
+                per_share[share] += 1
+    return {"shares": share + 1, "launches": len(at), "between": dict(between.most_common()),
+            "per_share": [per_share[i] for i in range(share + 1)], "before": before,
+            "after": after}
+
+
+def phase_mc_shares(torch, dev, card, results) -> None:
+    """Phase 20: the sharded MC's shares at once on four shares of the
+    card (mc_share_cell on every route of MC_SHARE_ROUTES at 11 + 10 on
+    the 16x worst case, and on the large-panel forms at MC_SHARE_LARGE on
+    the envelope cell), then the host syncs between shares of phase 1, the
+    FET engine and the sharded step (host_syncs)."""
+    from divergence_tpu_torch import rng
+    from divergence_tpu_torch.config import CssConfig, FetConfig
+    from divergence_tpu_torch.engine import SnpPair, css_engine, fet_engine
+    from divergence_tpu_torch.kernels import css as kcss
+    from divergence_tpu_torch.kernels import fet as kfet
+    from divergence_tpu_torch.kernels import perm as kperm
+    from divergence_tpu_torch.parallel import make_divergence_step, make_mesh
+    from divergence_tpu_torch.tools.synth import make_chromosome
+
+    mesh = make_mesh(devices=[dev] * STEP_SHARES)
+    out = results["mc_shares"] = {}
+    a, b = MC_SHARE_LARGE
+    for cell, data, (pa, pb), runs, routes in (
+            ("16x", mc_windows(torch, (*WORST_CSS, WORST_SEED), dev), (ASIZE, BSIZE), MC_RUNS,
+             MC_SHARE_ROUTES),
+            ("envelope", mc_windows(torch, LARGE_CSS_WORKLOAD, dev, a, b), (a, b),
+             LARGE_MC_RUNS, MC_SHARE_ROUTES[:2])):
+        for route in routes:
+            out[f"{cell} {route[0]}"] = mc_share_cell(torch, kperm, mesh, data, pa, pb, runs,
+                                                     route, card)
+        del data
+        torch.cuda.empty_cache()
+
+    # the host syncs between one share's launches and the next share's in
+    # the loops that stay single-threaded, each call once warm
+    npos_, region, seed = CSS_WORKLOADS[2][:3]
+    pos, am, bm = make_chromosome(npos_, region, ASIZE, BSIZE, seed)
+    pair = SnpPair(pos, am, bm)
+    css_cfg = CssConfig(precision="fast")
+    calls = {
+        "phase 1": (lambda: css_engine._phase1_dispatch(pair, region, css_cfg, mesh,
+                                                        rng.prng_key(0), "chrS"),
+                    [(kcss, "css_phase1")]),
+    }
+    for prec in ("fast", "exact"):
+        fcfg = FetConfig(precision=prec)
+        calls[f"FET engine {prec}"] = (
+            lambda fcfg=fcfg: fet_engine._fet_dispatch(
+                pair, region, fcfg, None, fet_engine.chromosome_key(0, "chrS"), mesh),
+            [(kfet, "fet_aggregate"), (kfet, "fet_aggregate_ranks")])
+    lo, npos, slot = (t[:SYNC_STEP_WINDOWS] for t in windows_of(torch, pos, region))
+    av, bv, _ = gather_windows(torch, pair.to_device(dev), lo, npos,
+                               kfet._window_pad(int(npos.max())))
+    key = rng.prng_key(0)
+    # the step binds K10's wrapper (its share mark) when it is made
+    calls["step"] = (lambda: make_divergence_step(mesh, ASIZE, BSIZE)(av, bv, npos, slot, key),
+                     [(kfet, "fet_window_batch")])
+    syncs = out["host_syncs"] = {}
+    for name, (fn, marks) in calls.items():
+        fn()                                           # warm
+        syncs[name] = r = host_syncs(torch, fn, marks)
+        say(f"[mc shares syncs] {name} over {len(mesh)} shares of the card: {r['launches']} "
+            f"launches in {r['shares']} shares; host syncs between the first launch and the "
+            f"last {sum(r['between'].values())} (per share {r['per_share']}), before "
+            f"{r['before']}, after {r['after']}; between, by line: "
+            + "; ".join(f"{k} x{v}" for k, v in r["between"].items()))
+        check(r["shares"] == len(mesh), f"{name}: {r['shares']} shares marked")
+    del av, bv
+
+
 def large_entries(results) -> None:
     """The kernels line's fast / exact / bound fields of the large-panel
     kernels at 110 + 90 (K6: mode 1), with the windows each time covers
@@ -4647,6 +4981,11 @@ def smoke(torch, dev) -> tuple[str, list[dict], list[str]]:
         # the differential fuzz lanes: random panels through every kernel
         # form, held against the NumPy oracle (counts reset around each lane)
         fuzz_launches, fuzz_table = timed_phase("19", phase_fuzz, torch, dev, results)
+
+        # the sharded MC's shares at once on four shares of the card, and
+        # the syncs between shares of the other sharded loops (counts reset
+        # inside)
+        timed_phase("20", phase_mc_shares, torch, dev, card, results)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

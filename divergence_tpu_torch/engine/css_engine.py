@@ -26,7 +26,8 @@ window's result depends on its own stream only).  ``mc_window_batch`` and
 
 ``sharding=`` (a ``parallel.make_mesh`` tuple) cuts phase 1's windows of
 each chromosome, and phase 2's valid windows, into contiguous shares, one
-per device (``kernels/perm.py`` ``sharding=``); ``slot_range(s)=``
+per device (``kernels/perm.py`` ``sharding=``: the MC's shares run at
+once, phase 1's are enqueued one after another); ``slot_range(s)=``
 restricts a chromosome to the slots a host owns (multi-host
 partitioning).  Every window's result depends on its own streams and
 stop, so both give the unsplit run's values.

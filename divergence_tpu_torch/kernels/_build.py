@@ -6,7 +6,8 @@ takes seconds): one ``nvcc -c`` per source, all started together, then
 one link.  The library lands in ``divergence_tpu_torch/_build/`` under a
 name keyed by a hash of the sources and flags, so an edit rebuilds and an
 unchanged tree reuses the last build.  Nothing here runs at import:
-:func:`library` builds on first use.
+:func:`library` builds on first use, once per process under one lock (the
+threads of a sharded MC may all reach it first).
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, and ``--fmad=false`` — the plain
 torch versions run multiplies and adds as separate rounded operations,
@@ -20,11 +21,11 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -187,10 +188,23 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
-@functools.cache
+# the process's build and library, made once under _LOCK
+_LOCK = threading.RLock()
+_built: BuildInfo | None = None
+_lib: ctypes.CDLL | None = None
+
+
 def build() -> BuildInfo:
     """Compile ``csrc/*.cu`` unless a library of the same sources and
-    flags is already in ``_build/``."""
+    flags is already in ``_build/``; once per process."""
+    global _built
+    with _LOCK:
+        if _built is None:
+            _built = _compile()
+        return _built
+
+
+def _compile() -> BuildInfo:
     BUILD_DIR.mkdir(exist_ok=True)
     lib = BUILD_DIR / f"libdivergence_kernels_{_digest()}.so"
     log_path = lib.with_suffix(".log")
@@ -199,7 +213,7 @@ def build() -> BuildInfo:
         return BuildInfo(lib, 0.0, log)
     # unique temporary names, then an atomic rename: concurrent builds
     # never load a half-written library
-    tag = f"{lib.stem}.{os.getpid()}"
+    tag = f"{lib.stem}.{os.getpid()}.{threading.get_ident()}"
     nvcc = _nvcc()
     objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
     tmp = BUILD_DIR / f"{tag}.tmp.so"
@@ -236,11 +250,21 @@ def build() -> BuildInfo:
     return BuildInfo(lib, seconds, log)
 
 
-@functools.cache
 def library() -> ctypes.CDLL:
-    """The kernel library, built on first use, with every entry point's
-    ``argtypes`` and ``restype`` declared."""
-    lib = ctypes.CDLL(str(build().path))
+    """The kernel library, built and loaded on first use (once per
+    process), with every entry point's ``argtypes`` and ``restype``
+    declared."""
+    global _lib
+    if _lib is not None:     # every launch asks: no lock once loaded
+        return _lib
+    with _LOCK:
+        if _lib is None:
+            _lib = _load(build().path)
+        return _lib
+
+
+def _load(path: Path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
     for pattern, argtypes in {**_SIGNATURES, **_FORM_QUERIES}.items():
         for t in ("f64", "f32") if "{t}" in pattern else ("",):
             fn = getattr(lib, pattern.format(t=t))

@@ -3,14 +3,20 @@
 A wrapper decides by its tensor's device: a CPU tensor runs the plain
 torch version, a CUDA tensor launches the kernel from the library that
 ``_build`` compiles (there is no fallback: a refused launch raises).
-Each launch adds one to the wrapper module's launch count.
+Each launch adds one to the wrapper module's launch count (:func:`count`:
+exact when the shares of a sharded MC launch from threads of their own).
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
+
+# guards every launch count of kernels/ (a dict's += is a read, an add and
+# a write, which two threads can interleave)
+_COUNT_LOCK = threading.Lock()
 
 
 def dtype_suffix(dtype: torch.dtype) -> str:
@@ -32,6 +38,12 @@ def is_cpu(t: torch.Tensor | torch.device) -> bool:
     return False
 
 
+def count(counts: dict, name: str, n: int = 1) -> None:
+    """``counts[name] += n``, exact under concurrent callers."""
+    with _COUNT_LOCK:
+        counts[name] += n
+
+
 def ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
     return ctypes.c_void_p(None if t is None else t.data_ptr())
 
@@ -50,7 +62,7 @@ def launch(counts: dict, kernel: str, symbol: str, device: torch.device,
     if rc != 0:
         msg = lib.fet_cuda_error_string(rc).decode()
         raise RuntimeError(f"{symbol} launch failed: CUDA error {rc} ({msg})")
-    counts[kernel] += 1
+    count(counts, kernel)
 
 
 def query_form(names: tuple[str, ...], symbol: str, device: torch.device | None,

@@ -62,10 +62,13 @@ Kernels (``csrc/``) carry the work on a CUDA device:
 CUDA ``dist`` (or raise) and run the plain torch versions on a CPU one.
 ``sharding=`` (a ``parallel.make_mesh`` tuple) splits the windows of
 :func:`significance` and :func:`approx_significance` into contiguous
-shares, one per device, run one after another: every window's result
-depends on its own stream and stop only, so the union equals the
-unsharded run.  Each stop is per window, so
-there is no window batching, padding or two-stage compaction (the JAX
+shares, one per device, all run at once (a host thread and, on CUDA, a
+stream a share, as the JAX package's one SPMD program runs every
+device's share; approx mode enqueues every share's power sums from one
+thread and fits once): every
+window's result depends on its own stream and stop only, so the union
+equals the unsharded run.  Each stop is per window, so there is no
+window batching, padding or two-stage compaction (the JAX
 package's ``lax.map`` slices existed for XLA on the TPU); the results are
 those of the JAX package's single-pass loop.  The JAX ``perm_form``
 ("broadcast" / "matmul") scores the same permutations in two float32
@@ -75,15 +78,17 @@ The function defaults follow ``CssConfig`` (``stream="shared"``).
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import ctypes
 import dataclasses
+import threading
 
 import numpy as np
 import torch
 
 from divergence_tpu_torch import rng
-from divergence_tpu_torch.kernels._cuda import is_cpu, launch, ptr, query_form
+from divergence_tpu_torch.kernels._cuda import count, is_cpu, launch, ptr, query_form
 from divergence_tpu_torch.kernels.fet import bitonic_network, bitonic_schedule
 
 BITGENS = ("mix", "threefry")   # kernel argument: the index in this tuple
@@ -448,7 +453,7 @@ def coeff_range(
         scratch = torch.empty(words, dtype=torch.int32, device=device)
         launch(LAUNCHES, "css_mc_coeff_block", "css_mc_coeff_block", device, *args,
                ptr(scratch), ptr(out))
-    COEFF_LAUNCHES[bitgen] += 1
+    count(COEFF_LAUNCHES, bitgen)
     return out
 
 
@@ -475,16 +480,43 @@ def shared_coeff(key, k0, nk, m, asize, bsize, chunk, device,
     return M.reshape(m * m, nk, -1)[:, :, :chunk].reshape(m * m, nk * chunk)
 
 
+# TF32 is one setting of the process, and the shares of a sharded MC run
+# _full_f32_matmul from threads of their own: the first to enter saves
+# and clears it, the last to leave restores it
+_F32_LOCK = threading.Lock()
+_f32_users = 0
+_f32_saved = False
+
+
 @contextlib.contextmanager
 def _full_f32_matmul():
     """float32 products in full float32 on CUDA (no TF32), whatever the
     caller's setting: the hits compare float32 scores."""
-    saved = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
+    global _f32_users, _f32_saved
+    with _F32_LOCK:
+        if _f32_users == 0:
+            _f32_saved = torch.backends.cuda.matmul.allow_tf32
+            torch.backends.cuda.matmul.allow_tf32 = False
+        _f32_users += 1
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = saved
+        with _F32_LOCK:
+            _f32_users -= 1
+            if _f32_users == 0:
+                torch.backends.cuda.matmul.allow_tf32 = _f32_saved
+
+
+def _product_f32(rows: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
+    """``rows`` [b, K] @ ``M`` [K, C] in full float32, each row's result
+    the same whatever the other rows (the shares of a sharded MC cut the
+    batch elsewhere than one share would): a BLAS multiplies a single row
+    by its matrix-vector path, whose sums run in another order than its
+    matrix product's (MKL's), so one row goes in as two."""
+    with _full_f32_matmul():
+        if rows.shape[0] == 1:
+            return (torch.cat([rows, rows]) @ M)[:1]
+        return rows @ M
 
 
 def _chunk_update(hit, k, chunk, runs, threshold, hits, nsc):
@@ -557,8 +589,7 @@ def mc_significance(
 
         def chunk_hits(k, rows):
             M = _shared_coeff(key, k, m, asize, bsize, chunk, bitgen)
-            with _full_f32_matmul():
-                return (flat[rows] @ M) >= obs[rows, None]
+            return _product_f32(flat[rows], M) >= obs[rows, None]
     elif stream == "window":
         def chunk_hits(k, rows):
             s = _perm_scores(distf[rows], rng.fold_in(key[rows], k), asize, bsize,
@@ -692,8 +723,7 @@ def mc_hit_words_plain(flat, obs, active, M, k0, nk, chunk, runs) -> torch.Tenso
     """Plain torch version of :func:`mc_hit_words`: the product in full
     float32, the hit test, the words packed per chunk."""
     cs = chunk_stride(chunk)
-    with _full_f32_matmul():
-        s = (flat[active] @ M).reshape(-1, nk, cs)
+    s = _product_f32(flat[active], M).reshape(-1, nk, cs)
     K = torch.arange(cs, device=flat.device)
     offset = (k0 + torch.arange(nk, device=flat.device))[:, None] * chunk
     counted = (K < chunk)[None, :] & (offset + K[None, :] < runs)      # [nk, cs]
@@ -1074,32 +1104,99 @@ class McResult:
     hits: np.ndarray       # [B]
 
 
-def _over_shares(sharding, dist, scores, chroms, slots, run) -> McResult:
-    """``run(dist, scores, chroms, slots)`` on each device's contiguous
-    share of the windows, in device order, the results concatenated.  The
-    window-stream defaults (chromosome 0, slot = window index) are fixed
-    over the whole batch first, so a share keeps its windows' streams."""
+# a stream per (CUDA device, share index) for the process: the caching
+# allocator keeps a freed block for the stream that used it, so a new
+# stream a call would leave every earlier call's blocks idle
+_SHARE_STREAMS: dict = {}
+_SHARE_STREAMS_LOCK = threading.Lock()
+
+
+def _share_stream(dev: torch.device, i: int):
+    with _SHARE_STREAMS_LOCK:
+        if (dev, i) not in _SHARE_STREAMS:
+            _SHARE_STREAMS[dev, i] = torch.cuda.Stream(dev)
+        return _SHARE_STREAMS[dev, i]
+
+
+def _shares(sharding, B: int) -> list:
+    """(index, device, slice) of every share of B windows that holds one."""
     from divergence_tpu_torch.parallel.mesh import window_slices
 
-    B = dist.shape[0]
-    scores = np.asarray(scores, dtype=np.float64)
-    chroms = np.zeros(B, dtype=np.int64) if chroms is None else np.asarray(chroms)
-    slots = np.arange(B, dtype=np.int64) if slots is None else np.asarray(slots)
-    parts = [
-        run(dist[sl].to(dev), scores[sl], chroms[sl], slots[sl])
-        for dev, sl in zip(sharding, window_slices(B, sharding))
-    ]
-    return McResult(*(np.concatenate([getattr(r, f) for r in parts])
-                      for f in ("pvals", "nscores", "hits")))
+    return [(i, dev, sl) for i, (dev, sl) in enumerate(zip(sharding, window_slices(B, sharding)))
+            if sl.stop > sl.start]
+
+
+@contextlib.contextmanager
+def _on_share(i: int, dev: torch.device, made):
+    """On CUDA, the device and share i's stream (:func:`_share_stream`),
+    which first waits for ``made`` (the caller's stream, None for no wait);
+    yields the stream, or None on the CPU."""
+    if is_cpu(dev):
+        yield None
+        return
+    with torch.cuda.device(dev):
+        stream = _share_stream(dev, i)
+        if made is not None:
+            stream.wait_stream(made)
+        with torch.cuda.stream(stream):
+            yield stream
+
+
+def _share_inputs(dist, keys, sl, dev, stream, made):
+    """The share's rows of ``dist`` and of ``keys`` ([B, 2] window keys;
+    the run-level key is every share's) on ``dev``, for use on
+    ``stream``."""
+    per_window = keys.dim() == 2
+    ks = keys[sl] if per_window else keys
+    if stream is not None and dist.device == dev:
+        d = dist[sl]
+        # read on the share's stream: their memory is not reused before
+        # that stream is done with it
+        for t in (d, ks) if per_window else (d,):
+            t.record_stream(stream)
+        return d, ks
+    with contextlib.ExitStack() as on_source:
+        if made is not None:
+            # a copy from another card runs on the source's stream
+            on_source.enter_context(torch.cuda.stream(made))
+        return dist[sl].to(dev), ks.to(dev) if per_window else ks
+
+
+def _over_shares(sharding, dist, keys, run) -> list:
+    """``run(dist, keys, sl)`` on each device's contiguous share ``sl`` of
+    the windows (none for an empty share), every share at once in a host
+    thread of its own (as ``torch.nn.parallel.parallel_apply`` runs
+    DataParallel's replicas), on CUDA under its device and stream
+    (:func:`_on_share`), so that a share's syncs wait for its own launches
+    only.  ``keys``: the run-level key or [B, 2] window keys, which the
+    callers make over the whole batch (:func:`_stream_keys`: its ~100
+    small ops, run in every share's thread at once, queue for the
+    interpreter lock; four shares of an H100 then launched first at
+    77-146 ms against 9-12, ``tests/measure_mc_shares.py``).
+    Returns the results in device order.  A share that raises makes the
+    call raise its error once every share has ended."""
+    made = None if is_cpu(dist) else torch.cuda.current_stream(dist.device)
+
+    def share(i, dev, sl):
+        with _on_share(i, dev, made) as stream:
+            return run(*_share_inputs(dist, keys, sl, dev, stream, made), sl)
+
+    work = _shares(sharding, dist.shape[0])
+    with concurrent.futures.ThreadPoolExecutor(max_workers=max(len(work), 1),
+                                               thread_name_prefix="mc-share") as pool:
+        futures = [pool.submit(share, *w) for w in work]
+    return [f.result() for f in futures]
 
 
 def _stream_keys(key, B, chroms, slots, stream, dev) -> torch.Tensor:
-    """The run-level key (shared) or the [B, 2] window keys (window)."""
+    """The run-level key on the host (shared: :func:`coeff_range` reads
+    its words there every range, so a copy on the card would cost a sync
+    a range) or the [B, 2] window keys on ``dev`` (window)."""
     if stream not in STREAMS:
         raise ValueError(f"stream must be one of {STREAMS}, got {stream!r}")
-    key = key.to(dev)
     if stream == "shared":
-        return key
+        return key.cpu()
+    key = key.to(dev)
     chroms = np.zeros(B, dtype=np.int64) if chroms is None else chroms
     slots = np.arange(B, dtype=np.int64) if slots is None else slots
     return rng.window_keys(key, chroms, slots)
@@ -1126,15 +1223,26 @@ def significance(
     chunk loops on a CPU one.  Window w of the window stream is keyed by
     (chroms[w], slots[w]); ``backend="native"`` needs that stream and
     ``mix`` draws, as in the JAX package.  With ``sharding`` each device
-    takes a contiguous share of the windows."""
-    if sharding is not None:
-        return _over_shares(
-            sharding, dist, scores, chroms, slots,
-            lambda d, sc, ch, sl: significance(
-                d, sc, asize, bsize, threshold, runs, key, chunk, ch, sl, backend,
-                bitgen, stream,
-            ),
-        )
+    takes a contiguous share of the windows, every share at once
+    (:func:`_over_shares`)."""
+    keys = _stream_keys(key, dist.shape[0], chroms, slots, stream, dist.device)
+    if sharding is None or dist.shape[0] == 0:
+        return _significance(dist, scores, keys, asize, bsize, threshold, runs, chunk,
+                             backend, bitgen, stream)
+    scores = np.asarray(scores, dtype=np.float64)
+    parts = _over_shares(
+        sharding, dist, keys,
+        lambda d, ks, sl: _significance(d, scores[sl], ks, asize, bsize, threshold, runs,
+                                        chunk, backend, bitgen, stream),
+    )
+    return McResult(*(np.concatenate([getattr(r, f) for r in parts])
+                      for f in ("pvals", "nscores", "hits")))
+
+
+def _significance(dist, scores, keys, asize, bsize, threshold, runs, chunk, backend, bitgen,
+                  stream) -> McResult:
+    """:func:`significance` on one device (a share of a sharded call), the
+    keys made (:func:`_stream_keys`)."""
     if backend not in ("xla", "native"):
         raise ValueError(f"backend must be 'xla' or 'native', got {backend!r}")
     if backend == "native" and stream == "shared":
@@ -1145,7 +1253,6 @@ def significance(
         raise ValueError("perm_backend='native' replays the 'mix' stream only")
     _check_bitgen(bitgen)
     B = dist.shape[0]
-    keys = _stream_keys(key, B, chroms, slots, stream, dist.device)
     if B == 0:
         z = np.zeros(0, dtype=np.int64)
         return McResult(pvals=np.zeros(0), nscores=z, hits=z.copy())
@@ -1195,8 +1302,7 @@ def null_power_sums_plain(
     for i, k in enumerate(range(k0, k0 + n_chunks)):
         if stream == "shared":
             M = _shared_coeff(keys, k, m, asize, bsize, chunk, bitgen)
-            with _full_f32_matmul():
-                s = distf.reshape(B, m * m) @ M
+            s = _product_f32(distf.reshape(B, m * m), M)
         else:
             s = _perm_scores(distf, rng.fold_in(keys, k), asize, bsize, chunk, bitgen)
         s64 = s.to(torch.float64)
@@ -1258,7 +1364,7 @@ def null_power_sums(
         else:
             launch(LAUNCHES, "css_mc_power_window_block", "css_mc_power_window_block", dev,
                    *args, ptr(scratch), ptr(out))
-    POWER_LAUNCHES[stream] += 1
+    count(POWER_LAUNCHES, stream)
     return out
 
 
@@ -1370,10 +1476,11 @@ def _approx(power, scores, B, chunk, n_chunks, stable_log10, max_rounds) -> McRe
     return McResult(pvals=pvals, nscores=nsc, hits=np.zeros(B, dtype=np.int64))
 
 
-def _approx_dispatch(sums_fn, dist, scores, asize, bsize, key, chunk, chroms, slots,
-                     n_chunks, stable_log10, max_rounds, bitgen, stream) -> McResult:
+def _approx_dispatch(sums_fn, dist, scores, keys, asize, bsize, chunk, n_chunks,
+                     stable_log10, max_rounds, bitgen, stream) -> McResult:
+    """Approx p-values on one device (a share of a sharded call), the keys
+    made (:func:`_stream_keys`), ``sums_fn`` the power sums."""
     B = dist.shape[0]
-    keys = _stream_keys(key, B, chroms, slots, stream, dist.device)
     if B == 0:
         z = np.zeros(0)
         return McResult(pvals=z, nscores=z.astype(np.int64), hits=z.astype(np.int64))
@@ -1412,18 +1519,39 @@ def approx_significance(
     from scipy, escalation as :func:`_approx` says.  ``nscores`` records
     the permutations spent; ``hits`` is 0.  K9 on a CUDA ``dist``, the
     plain power sums on a CPU one.  With ``sharding`` each device takes a
-    contiguous share of the windows (escalation is per window)."""
-    if sharding is not None:
-        return _over_shares(
-            sharding, dist, scores, chroms, slots,
-            lambda d, sc, ch, sl: approx_significance(
-                d, sc, asize, bsize, key, chunk, ch, sl, n_chunks, stable_log10,
-                max_rounds, bitgen, stream,
-            ),
-        )
-    return _approx_dispatch(null_power_sums, dist, scores, asize, bsize, key, chunk,
-                            chroms, slots, n_chunks, stable_log10, max_rounds, bitgen,
-                            stream)
+    contiguous share of every round's windows, all enqueued before any is
+    read back (:func:`_sums_over_shares`; escalation is per window)."""
+    keys = _stream_keys(key, dist.shape[0], chroms, slots, stream, dist.device)
+    sums = null_power_sums if sharding is None else _sums_over_shares(sharding, null_power_sums)
+    return _approx_dispatch(sums, dist, scores, keys, asize, bsize, chunk, n_chunks,
+                            stable_log10, max_rounds, bitgen, stream)
+
+
+def _sums_over_shares(sharding, sums_fn):
+    """``sums_fn`` (:func:`null_power_sums`' signature) with each call's
+    windows cut over the mesh: every share's sums enqueued on its own
+    stream from the calling thread (:func:`_on_share`), then each brought
+    to the host, joined in window order.  Approx mode shards its power
+    sums this way and fits and escalates once over all windows on the
+    calling thread.  Threads lose here: a round's sums are well under a
+    millisecond of K9 a share, and the fit a thread would run takes turns
+    at the interpreter lock (approx shared at 16x, four shares of an
+    H100: 80.1 ms with a thread a share fitting its windows, 26.8 ms so,
+    23.6 unsharded; ``tests/measure_mc_shares.py``)."""
+    def sums(dist, keys, *args):
+        made = None if is_cpu(dist) else torch.cuda.current_stream(dist.device)
+        pending = []
+        for i, dev, sl in _shares(sharding, dist.shape[0]):
+            with _on_share(i, dev, made) as stream:
+                pending.append((i, dev, sums_fn(*_share_inputs(dist, keys, sl, dev, stream, made),
+                                                *args)))
+        parts = []
+        for i, dev, out in pending:
+            with _on_share(i, dev, None):
+                parts.append(out.cpu())
+        return torch.cat(parts, dim=2)
+
+    return sums
 
 
 def approx_significance_plain(
@@ -1443,9 +1571,9 @@ def approx_significance_plain(
 ) -> McResult:
     """:func:`approx_significance` with the plain power sums on any device
     (the twin a card run is held against)."""
-    return _approx_dispatch(null_power_sums_plain, dist, scores, asize, bsize, key,
-                            chunk, chroms, slots, n_chunks, stable_log10, max_rounds,
-                            bitgen, stream)
+    keys = _stream_keys(key, dist.shape[0], chroms, slots, stream, dist.device)
+    return _approx_dispatch(null_power_sums_plain, dist, scores, keys, asize, bsize, chunk,
+                            n_chunks, stable_log10, max_rounds, bitgen, stream)
 
 
 # ------------------------------------------------------- the sharded step's chunk

@@ -5,9 +5,11 @@ contiguous shares, one per device.  Windows are embarrassingly parallel
 (disjoint output slots, reference statistics/css/threadcss.c:262-269), so
 no collective is needed for scoring; only the chromosome-level summary
 statistics are summed (``sharded.py``).  A device may appear more than
-once: its shares then run one after another, which is how the CPU tests
-stand in for an 8-device mesh (``devices=[cpu] * 8``) and how one card
-checks a 4-way split (``[cuda:0] * 4``).  JAX's ``replicated`` placement
+once, which is how the CPU tests stand in for an 8-device mesh
+(``devices=[cpu] * 8``) and how one card checks a 4-way split
+(``[cuda:0] * 4``): the MC's shares run at once there too, a thread and a
+stream each (``kernels/perm.py:_over_shares``); the other sharded loops
+enqueue one share after another.  JAX's ``replicated`` placement
 has no counterpart: keys are ``[2]`` host tensors, copied to each device.
 """
 

@@ -93,7 +93,9 @@ def make_divergence_step(
         )
         # one fixed chunk of the null per window, per-window streams
         npos_d, slot_d = npos.to(dev), slot.to(dev)
-        keys = rng.fold_in(rng.fold_in(k_mc.to(dev), 0), slot_d)
+        # the constant folded in on the host: folded on the card, it is a
+        # scalar uploaded from the host (a sync a share)
+        keys = rng.fold_in(rng.fold_in(k_mc, 0).to(dev), slot_d)
         ones = torch.ones(npos.shape[0], dtype=torch.int32, device=dev)
         hits, _, _ = chunk_fn(dist, css_s, ones, mc_chunk, keys, a_mc, b_mc, mc_chunk)
         stats = torch.stack(

@@ -52,7 +52,9 @@ K6 also reports the transforms over every restart, equal to the plain
 version's on all but 0.1 % of windows (+1) in exact mode, and in mode 1
 equals its torch mirror of the kernel's order (``smacof_pairs``) bit for
 bit.  The sharded step: bit-equal per window across a 1- and a 4-share
-mesh of one card.  Past m = 64 (the large-panel body of
+mesh of one card; the sharded MC (K7 and K8, m = 21 and 128) over four
+shares of the card at once byte-equal to one share, its launches those of
+the four shares counted one at a time.  Past m = 64 (the large-panel body of
 ``csrc/css_perm_block.cuh``): K8's (p, n, hits) as above at m = 65 to
 300, and its hit words, K11's outputs and K9's window-stream sums equal
 to their plain versions on both sides of each switch of their form
@@ -2065,3 +2067,40 @@ def test_sharded_step_one_vs_four_shares(cuda):
     assert float(outs[0]["windows_evaluated"]) == len(ids)
     s1, s4 = float(outs[0]["score_sum"]), float(outs[1]["score_sum"])
     assert abs(s1 - s4) <= 1e-9 * abs(s1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stream", ["shared", "window"])
+@pytest.mark.parametrize("m", [21, 128])
+def test_mc_four_shares_of_one_card(cuda, m, stream):
+    """significance over [cuda:0] * 4 runs its shares at once, a host
+    thread and a stream each (K7 / K7 coeff large, K8 / K8 large): (p, n,
+    hits) byte-equal to one share, and the launches those of the four
+    shares run one at a time, each counted."""
+    from divergence_tpu_torch.parallel import make_mesh, window_slices
+
+    dist, scores, asize, bsize, chroms, slots = _mc_windows(cuda, m, 400)
+    key = rng.fold_in(rng.prng_key(5), 2)
+
+    def run(d, sc, ch, sl, sharding=None):
+        return kperm.significance(d, sc, asize, bsize, 10, 4096, key, chunk=256, chroms=ch,
+                                  slots=sl, stream=stream, sharding=sharding)
+
+    def counts():
+        return dict(kperm.LAUNCHES), dict(kperm.COEFF_LAUNCHES)
+
+    one = run(dist, scores, chroms, slots)
+    mesh = make_mesh(devices=[cuda] * 4)
+    serial = ({}, {})
+    for sl in window_slices(len(scores), mesh):
+        kperm.reset_launches()
+        run(dist[sl], scores[sl], chroms[sl], slots[sl])
+        for total, part in zip(serial, counts()):
+            for k, v in part.items():
+                total[k] = total.get(k, 0) + v
+    kperm.reset_launches()
+    four = run(dist, scores, chroms, slots, mesh)
+    assert counts() == serial and sum(serial[0].values()) > 0
+    assert (one.nscores < 4096).any() and (one.nscores == 4096).any()
+    for f in ("pvals", "nscores", "hits"):
+        assert getattr(four, f).tobytes() == getattr(one, f).tobytes(), f
