@@ -17,10 +17,14 @@ Phases (any failure exits non-zero and prints no result line):
    K11's buckets and K6's two forms, and beside it the g++ build of the
    native host library (``divergence_tpu_torch/native``);
 2. every FET kernel against its plain torch version on the card, at the
-   main path's shapes, in both precisions: K1's LUT build at 11+10, K1 per
-   SNP at 8 M SNPs (11+10, LUT) and at 1 M SNPs on a 48+48 panel (no LUT),
-   K2 on the ~800 k windows of the bench chromosome; plus the reference's
-   golden tables;
+   main path's shapes, in both precisions: K1's LUT build at 11+10, 15+15,
+   20+20 and 38+38 (within TOL of its plain version, both timed queued
+   beside the bound; at 13+2 and 350+1 too), K1 per SNP at 8 M SNPs
+   (11+10, LUT) and at 1 M SNPs on a 48+48 panel (no LUT), K2 on the
+   ~800 k windows of the bench chromosome; plus the reference's golden
+   tables; then the LUT builds and sorts of one ``run_fet``, one
+   ``run-fet`` (four chromosomes) and one step call, cold (the LUT cache
+   cleared) and warm;
 3. the FET CLI: a seeded 500 k-SNP / 25 Mbp GTrack pair (11+10) through
    ``run-fet`` in both precisions (exact mode takes the rank path, K1r ->
    K2r);
@@ -230,6 +234,12 @@ its ``bench-mc`` at the defaults (K1, K2, K7, K8, K11), and reset
 before each of phase 19's lanes and read after it (``launches_phase19``:
 their sum), and reset around each single-share and four-share call of
 phase 20 (its launch check; phase 20 adds nothing to the kernels line).
+Before phases 3, 13, 15, 17's main path, 18's ``run-fet`` and each of
+phase 19's lanes the LUT cache is cleared too
+(``kernels/fet.py:clear_lut_cache``), so that each of those paths builds
+K1's LUT (and, exact, sorts it) once a (panel, precision); each phase-19
+lane's builds must equal the distinct LUT keys its FET calls met, and its
+sorts the exact ones.
 Phase 19's coverage table is printed after ``[done]``.  The last three
 lines are a JSON line of per-kernel results (with each
 kernel's ``bound_ms``: the larger of its bytes over 3.35 TB/s and its
@@ -387,9 +397,20 @@ POWER_RTOL, LOG10_P_BAND, NSCORES_SAME_SHARE = 1e-6, 2e-5, 0.999   # m <= 21
 # float32 lanes, 64 int32 and 64 float64 lanes (NVIDIA's Hopper
 # whitepaper), so half the float32 peak, a quarter, and half the float64
 # peak
+# "sfu": the special-function unit's exp2 / log2 (the core of expf and
+# logf), 16 a clock on each of the 132 SMs (NVIDIA's Hopper whitepaper), at
+# 1,980 MHz, the clock the data sheet's float32 peak implies (67e12 / (128
+# x 2 x 132)); phase 2 puts in the SM clock nvidia-smi reports as the
+# card's maximum (clocks.max.sm)
 HBM_BYTES_PER_S = 3.35e12
+SMS, SFU_PER_SM_CLOCK = 132, 16
 PEAK_OPS_PER_S = {"f32": 67e12, "f64": 34e12, "f32_op": 33.5e12, "i32": 16.75e12,
-                  "f64_op": 17e12}
+                  "f64_op": 17e12, "sfu": SFU_PER_SM_CLOCK * SMS * 1.98e9}
+# phase 2's census of LUT builds: run-fet over CENSUS_PAIR's (chromosomes,
+# SNPs each, bp each) GTrack pair, the step on the first
+# STEP_CENSUS_WINDOWS bench windows
+CENSUS_PAIR = (4, 20_000, 1_000_000)
+STEP_CENSUS_WINDOWS = 2_000
 # the sharded step (phases 12-13): the bench chromosome's windows gathered
 # at P = 128 and padded to a multiple of the 4-share check's mesh; the step
 # against its all-plain version on the first STEP_PLAIN_WINDOWS of them
@@ -627,6 +648,9 @@ WIDE_PATH = ("css_mc_window_block", "css_mc_power_window_block", "css_perm_chunk
 # the last the largest symmetric panel where the LUT is on (39 + 39 fails
 # lut_active's 1e8 bound)
 RANK_PANELS = ((11, 10), (15, 15), (20, 20), (38, 38))
+# K1's LUT build also at lopsided panels (phase 2, against its plain
+# version): a fuzz-lane shape and one of 177 support points
+LUT_LOPSIDED = ((13, 2), (350, 1))
 # the FET kernels of run-fet / run_fet: K1 -> K2 in fast mode, K1's LUT
 # build -> K1r -> K2r in exact mode (the LUT regime)
 FET_PATH = ("fet_lut_build", "fet_snp_logs", "fet_aggregate", "fet_lut_rank",
@@ -731,6 +755,63 @@ def queued_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def lut_support(np, a: int, b: int) -> tuple[int, int]:
+    """(G, P) of K1's LUT at a + b: the grid's tables and their support
+    points, each table's min(hi, maxs - 1) + 1 after the minimum cell is
+    rotated first (``csrc/fet_table.cuh:shift_min_first``), reckoned in
+    numpy."""
+    A1, B1 = a + 1, b + 1
+    f0, f1, f2, f3 = np.indices((A1, A1, B1, B1)).reshape(4, -1)
+    cw = np.stack([f0, f1, f3, f2], axis=1)
+    first = np.argmin(cw, axis=1)
+    rows = np.arange(cw.shape[0])
+    s0, s1, s2 = (cw[rows, (first + k) % 4] for k in (0, 1, 3))
+    top = np.minimum(np.minimum(s0 + s1, s0 + s2), (a + b) // 2 + 1)
+    return int(cw.shape[0]), int((top + 1).sum())
+
+
+def lut_bound(G: int, P: int, fast: bool) -> tuple[float, str]:
+    """K1's LUT build's bound from its grid (``lut_support``): G values
+    out; each of the P support points' log p once (six adds of lchoose
+    terms) and its add to the sum; exact, also its exp, counted as one
+    operation, all at the float64 rate of single operations; fast, also
+    its shift by the max, at the float32 rate, and an expf a point and a
+    logf a table at the SFU rate."""
+    if fast:
+        return bound(G * 4, {"f32_op": 8 * P, "sfu": P + G})
+    return bound(G * 8, {"f64_op": 8 * P})
+
+
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock, as nvidia-smi reports it."""
+    proc = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=False,
+    )
+    check(proc.returncode == 0, f"nvidia-smi failed: {proc.stderr.strip()}")
+    return float(proc.stdout.strip().splitlines()[0]) * 1e6
+
+
+def write_fet_pair(tmp: Path, chroms: int, snps: int, region: int) -> tuple[Path, Path, Path]:
+    """A GTrack pair of ``chroms`` chromosomes (``snps`` SNPs on ``region``
+    bp each, 11 + 10, seeds 40, 41, ...) and its chrom.sizes."""
+    from divergence_tpu_torch.io.gtrack import gtrack_points_header
+    from divergence_tpu_torch.tools.synth import make_panel
+
+    paths = (tmp / "multi_popA.gtrack", tmp / "multi_popB.gtrack")
+    with open(paths[0], "w") as fa, open(paths[1], "w") as fb:
+        for fh in (fa, fb):
+            fh.write(gtrack_points_header("synthetic"))
+        for c in range(chroms):
+            pos, am, bm = make_panel(snps, region, ASIZE, BSIZE, seed=40 + c)
+            for fh, mat in ((fa, am), (fb, bm)):
+                fh.write("".join(f"chr{c}\t{q}\t{v}\tsynthetic\n"
+                                 for q, row in zip(pos.tolist(), mat.tolist()) for v in row))
+    sizes = tmp / "multi.sizes"
+    sizes.write_text("".join(f"chr{c}\t{region}\n" for c in range(chroms)))
+    return paths[0], paths[1], sizes
+
+
 def card_line() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -809,6 +890,9 @@ def phase_kernels(torch, kfet, pair, plan_ids, dev, results) -> None:
     from divergence_tpu_torch.engine.fet_engine import chromosome_key
     from divergence_tpu_torch.tools.synth import make_chromosome
 
+    PEAK_OPS_PER_S["sfu"] = SFU_PER_SM_CLOCK * SMS * sm_clock_hz()
+    say(f"[peaks] SFU {PEAK_OPS_PER_S['sfu']:.4g} /s: {SFU_PER_SM_CLOCK} a clock on each of "
+        f"{SMS} SMs at the card's maximum SM clock (nvidia-smi clocks.max.sm)")
     maxs = kfet.support_size(ASIZE, BSIZE)
     nmax = ASIZE + BSIZE + 2
     vals = pair.to_device(dev)
@@ -827,25 +911,46 @@ def phase_kernels(torch, kfet, pair, plan_ids, dev, results) -> None:
         dt = torch.float32 if fast else torch.float64
         tol = TOL[prec]
 
-        # K1: LUT build at 11 + 10
-        k = kfet.fet_lut(ASIZE, BSIZE, maxs, nmax, dt, dev)
-        p = kfet.fet_lut_plain(ASIZE, BSIZE, maxs, nmax, dt, dev)
-        torch.cuda.synchronize()
-        err = rel_err(k, p)
-        ms = cuda_ms(torch, lambda: kfet.fet_lut(ASIZE, BSIZE, maxs, nmax, dt, dev), 20)
-        pms = cuda_ms(torch, lambda: kfet.fet_lut_plain(ASIZE, BSIZE, maxs, nmax, dt, dev), 5)
-        say(f"[K1 fet_lut_build {prec}] G={k.numel()} max_rel_err={err:.3e} "
-            f"(tol {tol:g}) kernel {ms:.4f} ms plain {pms:.4f} ms")
-        check(err <= tol, f"fet_lut_build {prec}: {err} > {tol}")
-        results["fet_lut_build"][prec] = (abs_err(k, p), err, ms, pms)
-        if fast:   # a table's support scan: ~4 operations per support point
-            results["fet_lut_build"]["bound"] = bound(
-                k.numel() * k.element_size(), {"f32": 4 * k.numel() * maxs})
+        # K1: the LUT build at K1r's panels within tol of its plain version;
+        # queued medians (the kernel alone) beside the bound
+        for a, b in RANK_PANELS:
+            am, an = kfet.support_size(a, b), a + b + 2
+            build = lambda: kfet.fet_lut(a, b, am, an, dt, dev)  # noqa: E731, B023
+            plain = lambda: kfet.fet_lut_plain(a, b, am, an, dt, dev)  # noqa: E731, B023
+            k, p = build(), plain()
+            torch.cuda.synchronize()
+            err = rel_err(k, p)
+            ms = median_ms(torch, build, 11, queued=True)
+            pms = median_ms(torch, plain, 3, queued=True)
+            G, P = lut_support(np, a, b)
+            bms, by = lut_bound(G, P, fast)
+            say(f"[K1 fet_lut_build {prec}, {a}+{b}] G={G} support points {P}: "
+                f"max_rel_err={err:.3e} (tol {tol:g}) against the plain version; build "
+                f"{ms:.4f} ms, plain {pms:.4f} ms (queued medians of 11, 3); bound {bms:.5f} ms "
+                f"({by})")
+            check(err <= tol, f"fet_lut_build {prec} {a}+{b}: {err} > {tol}")
+            results["fet_lut_build"][f"{a}_{b}_{prec}"] = {
+                "G": G, "support_points": P, "ms": ms, "plain_ms": pms, "bound_ms": bms,
+                "bound_by": by, "max_rel_err": err}
+            if (a, b) == (ASIZE, BSIZE):   # the main path's panel: the kernels line's row
+                results["fet_lut_build"][prec] = (abs_err(k, p), err, ms, pms)
+                results["fet_lut_build"]["bound" if fast else "bound_exact"] = (bms, by)
+                lut = k
+            del k, p
+        # lopsided panels, whose unreachable grid entries' margins pass nmax
+        # (lchoose's clamps)
+        for a, b in LUT_LOPSIDED:
+            am, an = kfet.support_size(a, b), a + b + 2
+            err = rel_err(kfet.fet_lut(a, b, am, an, dt, dev),
+                          kfet.fet_lut_plain(a, b, am, an, dt, dev))
+            say(f"[K1 fet_lut_build {prec}, {a}+{b}] max_rel_err={err:.3e} (tol {tol:g}) "
+                f"against the plain version")
+            check(err <= tol, f"fet_lut_build {prec} {a}+{b}: {err} > {tol}")
 
         # golden tables through the LUT (11 + 10) and the direct scan (48 + 48)
         t = torch.tensor(GOLDEN_TABLES, device=dev)
         idx = ((t[:, 0] * (ASIZE + 1) + t[:, 1]) * (BSIZE + 1) + t[:, 2]) * (BSIZE + 1) + t[:, 3]
-        p_lut = torch.pow(10.0, -k[idx].double()).cpu()
+        p_lut = torch.pow(10.0, -lut[idx].double()).cpu()
         rows = torch.zeros((4, 96), dtype=torch.int16)
         for r, (f0, f1, f2, f3) in enumerate(GOLDEN_TABLES):
             rows[r, :f0] = 3
@@ -860,18 +965,23 @@ def phase_kernels(torch, kfet, pair, plan_ids, dev, results) -> None:
             f"max_rel_err={gerr:.2e} (tol 1e-5, the golden values' digits)")
         check(gerr <= 1e-5, f"golden tables {prec}: {gerr}")
 
-        # K1 per SNP: 8 M SNPs (LUT) and 1 M SNPs at 48 + 48 (direct scan)
+        # K1 per SNP: 8 M SNPs (LUT) and 1 M SNPs at 48 + 48 (direct scan);
+        # at 8 M both time the lookup alone, the kernel's LUT from the cache
+        # and the plain version's made beforehand
         ks = kfet.fet_snp_logs(vals, ASIZE, maxs, nmax, fast)
-        ps = kfet.fet_snp_logs_plain(vals, ASIZE, maxs, nmax, fast)
+        plut = kfet.fet_lut_plain(ASIZE, BSIZE, maxs, nmax, dt, dev)
+        ps = kfet.fet_snp_logs_plain(vals, ASIZE, maxs, nmax, fast, plut)
         kb = kfet.fet_snp_logs(big_vals, 48, big_maxs, big_nmax, fast)
         pb = kfet.fet_snp_logs_plain(big_vals, 48, big_maxs, big_nmax, fast)
         torch.cuda.synchronize()
         err_s, err_b = rel_err(ks, ps), rel_err(kb, pb)
         ms = cuda_ms(torch, lambda: kfet.fet_snp_logs(vals, ASIZE, maxs, nmax, fast), 10)
-        pms = cuda_ms(torch, lambda: kfet.fet_snp_logs_plain(vals, ASIZE, maxs, nmax, fast), 3)
+        pms = cuda_ms(torch, lambda: kfet.fet_snp_logs_plain(vals, ASIZE, maxs, nmax, fast,
+                                                             plut), 3)
         ms_b = cuda_ms(torch, lambda: kfet.fet_snp_logs(big_vals, 48, big_maxs, big_nmax, fast), 5)
         pms_b = cuda_ms(torch, lambda: kfet.fet_snp_logs_plain(big_vals, 48, big_maxs, big_nmax, fast), 2)
-        say(f"[K1 fet_snp_logs {prec}] N={ks.numel()} 11+10 LUT: "
+        say(f"[K1 fet_snp_logs {prec}] N={ks.numel()} 11+10 LUT (the lookup, the LUT made "
+            f"beforehand): "
             f"max_rel_err={err_s:.3e} kernel {ms:.4f} ms plain {pms:.4f} ms; "
             f"N={kb.numel()} 48+48 scan: max_rel_err={err_b:.3e} kernel "
             f"{ms_b:.4f} ms plain {pms_b:.4f} ms (tol {tol:g})")
@@ -921,6 +1031,62 @@ def phase_kernels(torch, kfet, pair, plan_ids, dev, results) -> None:
         results["fet_aggregate"]["bound" if fast else "bound_exact"] = bound(
             ks.numel() * size + B * 3 * 8 + B * 2 * size,
             bootstrap_ops(npos, 0.95, 100, fast))
+    del ks, kb, ka
+    results["fet_lut_build"]["cold_warm"] = lut_census(torch, kfet, pair, plan_ids, dev)
+
+
+def lut_census(torch, kfet, pair, plan_ids, dev) -> dict:
+    """The LUT builds and sorts (``fet_lut_build``, ``fet_lut_rank``) of one
+    ``run_fet`` on the bench chromosome, one ``run-fet`` over four
+    chromosomes and one call of the sharded step (float64) on the bench
+    chromosome's first STEP_CENSUS_WINDOWS windows: each cold (the LUT
+    cache cleared) and then warm.  A cold call builds once a (panel,
+    precision) and, on the rank path, sorts once; a warm one neither."""
+    from divergence_tpu_torch import rng
+    from divergence_tpu_torch.config import FetConfig
+    from divergence_tpu_torch.engine import run_fet
+    from divergence_tpu_torch.parallel import make_divergence_step, make_mesh
+    from divergence_tpu_torch.tools import cli
+
+    def counted(fn) -> dict:
+        kfet.reset_launches()
+        fn()
+        return {k: kfet.LAUNCHES[k] for k in ("fet_lut_build", "fet_lut_rank")}
+
+    def census(label, fn, sorts: int) -> dict:
+        kfet.clear_lut_cache()
+        cold, warm = counted(fn), counted(fn)
+        say(f"[LUT census] {label}: cold {cold}, warm {warm}")
+        check(cold == {"fet_lut_build": 1, "fet_lut_rank": sorts}
+              and warm == {"fet_lut_build": 0, "fet_lut_rank": 0},
+              f"{label}: cold {cold}, warm {warm}")
+        return {"cold": cold, "warm": warm}
+
+    out = {}
+    for prec in ("fast", "exact"):
+        cfg = FetConfig(precision=prec)
+        out[f"run_fet_{prec}"] = census(
+            f"run_fet {prec}, {BENCH_SNPS} SNPs",
+            lambda: run_fet(pair, BENCH_REGION, cfg, device=dev, seqid="chrBench"),  # noqa: B023
+            int(prec == "exact"))
+    tmp = Path(tempfile.mkdtemp(prefix=".chip_smoke_", dir=ROOT))
+    try:
+        a_path, b_path, sizes = write_fet_pair(tmp, *CENSUS_PAIR)
+        for prec in ("fast", "exact"):
+            args = ["run-fet", "--pop-a", str(a_path), "--pop-b", str(b_path), "--chrom-sizes",
+                    str(sizes), "--precision", prec, "--device", str(dev), "--out",
+                    str(tmp / f"fet_{prec}.track")]
+            out[f"run-fet_{prec}"] = census(f"run-fet {prec}, {CENSUS_PAIR[0]} chromosomes",
+                                            lambda: cli.main(args),  # noqa: B023
+                                            int(prec == "exact"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    lo, npos, slot = (t[:STEP_CENSUS_WINDOWS] for t in plan_ids)
+    av, bv, _ = gather_windows(torch, pair.to_device(dev), lo, npos, STEP_P)
+    step = make_divergence_step(make_mesh(devices=[dev]), ASIZE, BSIZE)
+    out["step_exact"] = census(f"step, {lo.numel()} windows",
+                               lambda: step(av, bv, npos, slot, rng.prng_key(0)), 0)
+    return out
 
 
 def phase_cli(torch, kfet, dev, tmp: Path) -> tuple[Path, Path, Path]:
@@ -2876,24 +3042,29 @@ def phase_rank_kernels(torch, pair, plan_ids, dev, results, k2_bench, card) -> N
                     rl["bound"] = bound(G * 4 * 3, {"f32": 2 * G * int(np.ceil(np.log2(G)))})
             del lut, ks, kr, ps, pr
 
-        # K1r per SNP: the 8 M SNPs (K1's LUT build, the sort, the lookup)
+        # K1r per SNP: the 8 M SNPs; both time the lookup alone, the
+        # kernel's LUT and sort from the cache and the plain version's made
+        # beforehand
         ls, r = kfet.fet_snp_ranks(vals, ASIZE, maxs, nmax, fast)
-        pls, prr = kfet.fet_snp_ranks_plain(vals, ASIZE, maxs, nmax, fast)
+        pranked = kfet.fet_lut_rank_plain(kfet.fet_lut_plain(ASIZE, BSIZE, maxs, nmax, dt, dev))
+        pls, prr = kfet.fet_snp_ranks_plain(vals, ASIZE, maxs, nmax, fast, pranked)
         _, own = kfet.fet_lut_rank_plain(kfet.fet_lut(ASIZE, BSIZE, maxs, nmax, dt, dev))
         torch.cuda.synchronize()
         same = torch.equal(r, own[idx])
         got, want = ls[r.long()], pls[prr.long()]
         err = rel_err(got, want)
         ms = cuda_ms(torch, lambda: kfet.fet_snp_ranks(vals, ASIZE, maxs, nmax, fast), 10)
-        pms = cuda_ms(torch, lambda: kfet.fet_snp_ranks_plain(vals, ASIZE, maxs, nmax, fast), 3)
+        pms = cuda_ms(torch, lambda: kfet.fet_snp_ranks_plain(vals, ASIZE, maxs, nmax, fast,
+                                                              pranked), 3)
         say(f"[K1r fet_snp_ranks {prec}] N={N}: ranks of the kernel's LUT exact: {same}; scores "
             f"lut_sorted[ranks] max_rel_err={err:.3e} (tol {tol:g}) against the plain "
-            f"version's; kernel {ms:.4f} ms plain {pms:.4f} ms (LUT build, sort and lookup)")
+            f"version's; kernel {ms:.4f} ms plain {pms:.4f} ms (the lookup alone: the LUT and "
+            f"its sort cached, the plain version's made beforehand)")
         check(same and err <= tol, f"fet_snp_ranks {prec}: ranks {same}, scores {err}")
         rs[prec] = (abs_err(got, want), err, ms, pms)
         if fast:   # the codes in, the ranks out; two compares a code
             rs["bound"] = bound(vals.numel() * 2 + N * 4, {"f32": 2 * vals.numel()})
-        del got, want, pls, prr, own
+        del got, want, pls, prr, own, pranked
 
         # K2r on every window of the bench chromosome
         agg = lambda: kfet.fet_aggregate_ranks(  # noqa: E731
@@ -4153,6 +4324,7 @@ def phase_ingest(torch, dev, tmp: Path, files, results) -> dict:
     # (b) convert-vcf per population, then run-fet on the converted pair
     for mod in (kfet, kcss, kperm):
         mod.reset_launches()
+    kfet.clear_lut_cache()
     groups = {"A": names[:ASIZE], "B": names[ASIZE:]}
     conv, walls = {}, {}
     for g, members in groups.items():
@@ -4407,13 +4579,14 @@ def phase_fuzz(torch, dev, results) -> tuple[dict, list[str]]:
 
     engines = (fuzz_ref.run_fet, fuzz_ref.run_css)
     fuzz_ref.run_fet, fuzz_ref.run_css = counted(engines[0], "fet"), counted(engines[1], "css")
-    total, table, lanes, bugs = dict.fromkeys(counts(), 0), [], {}, []
+    total, table, lanes, bugs, lut_keys = dict.fromkeys(counts(), 0), [], {}, [], {}
     seen = {"exact": set(), "fast": set(), "fet_exact": set()}
     k6_forms = {"exact": set(), "fast": set()}
     try:
         for lane, seed0, trials, opts in FUZZ_LANES:
             for mod in (kfet, kcss, kperm):
                 mod.reset_launches()
+            kfet.clear_lut_cache()
             calls.clear()
             t0 = time.perf_counter()
             stats = fuzz_ref.fuzz(trials, seed0, device=dev, **opts)
@@ -4461,6 +4634,21 @@ def phase_fuzz(torch, dev, results) -> tuple[dict, list[str]]:
                     f"dros={r['dros']} n={r['n']} slots={r['slots']} w={r['w']} | "
                     + " | ".join(f"{prec}: " + " ".join(f"{k}={v}" for k, v in forms[prec].items())
                                  + f" launched {sorted(got[prec])}" for prec in ("exact", "fast")))
+            # the LUT keys the lane met: each FET call that scored SNPs on a
+            # panel with a LUT, by (panel, precision); one build a key and,
+            # exact (the rank path), one sort
+            keys = {(r["a"], r["b"], c["prec"]) for r, group in zip(run, groups) for c in group
+                    if c["engine"] == "fet" and kfet.lut_active(r["a"], r["b"])
+                    and {"fet_snp_logs", "fet_snp_ranks"} & set(c["launches"])}
+            exact_keys = sum(prec == "exact" for _, _, prec in keys)
+            builds, sorts = lane_launches["fet_lut_build"], lane_launches["fet_lut_rank"]
+            table.append(f"[fuzz {lane}] LUT builds {builds} for {len(keys)} distinct (panel, "
+                         f"precision) keys with a LUT; sorts {sorts} for {exact_keys} exact keys")
+            check(builds == len(keys) and sorts == exact_keys,
+                  f"phase 19 {lane}: {builds} LUT builds for {len(keys)} keys, {sorts} sorts "
+                  f"for {exact_keys} exact keys")
+            lut_keys[lane] = {"builds": builds, "keys": len(keys), "sorts": sorts,
+                              "exact_keys": exact_keys}
             for k, v in lane_launches.items():
                 total[k] += v
             summary = {k: v for k, v in stats.items() if k not in ("bugs", "workdir")}
@@ -4474,6 +4662,7 @@ def phase_fuzz(torch, dev, results) -> tuple[dict, list[str]]:
             table.append(f"[fuzz {lane}] kernel launches: "
                          f"{ {k: v for k, v in lane_launches.items() if v} }")
         results["fuzz"] = lanes
+        results["fet_lut_build"]["phase19_keys"] = lut_keys
         check(not bugs, f"phase 19: {len(bugs)} bugs, first: {bugs[:8]}")
         for prec in ("exact", "fast"):
             for name, small, large in FUZZ_SWITCHES:
@@ -4851,7 +5040,10 @@ def smoke(torch, dev) -> tuple[str, list[dict], list[str]]:
         "slots": plan.slot[ids],
     }
 
+    # each main path below starts with its counts at 0 and the LUT cache
+    # empty, so that its first call builds (and, exact, sorts) the LUT
     kfet.reset_launches()
+    kfet.clear_lut_cache()
     tmp = Path(tempfile.mkdtemp(prefix=".chip_smoke_", dir=ROOT))
     try:
         files = timed_phase("3", phase_cli, torch, kfet, dev, tmp)
@@ -4910,6 +5102,7 @@ def smoke(torch, dev) -> tuple[str, list[dict], list[str]]:
                                results, k2_bench)
         for mod in (kfet, kcss, kperm):
             mod.reset_launches()
+        kfet.clear_lut_cache()
         timed_phase("13", phase_step_library, torch, gathered, dev, card, tmp, results)
         step_launches = {**kfet.LAUNCHES, **kcss.LAUNCHES, **kperm.LAUNCHES}
         say(f"[sharded step main path] kernel launches: {step_launches}")
@@ -4929,6 +5122,7 @@ def smoke(torch, dev) -> tuple[str, list[dict], list[str]]:
         # this slice's main path: run-all at the CLI default and exact
         for mod in (kfet, kcss, kperm):
             mod.reset_launches()
+        kfet.clear_lut_cache()
         pipeline_walls = timed_phase("15", phase_run_all, torch, dev, tmp, files)
         all_launches = {**kfet.LAUNCHES, **kcss.LAUNCHES, **kperm.LAUNCHES}
         say(f"[run-all main path] kernel launches: {all_launches}")
@@ -4965,6 +5159,7 @@ def smoke(torch, dev) -> tuple[str, list[dict], list[str]]:
         timed_phase("17d edges", phase_wide_fet_edges, torch, kfet, dev, card, results)
         for mod in (kfet, kcss, kperm):
             mod.reset_launches()
+        kfet.clear_lut_cache()
         timed_phase("17b-c", phase_large_mc_library, torch, dev, card, tmp, results)
         timed_phase("17d", phase_wide_fet_library, torch, pair, positions, dev, card, results)
         wide_launches = {**kfet.LAUNCHES, **kcss.LAUNCHES, **kperm.LAUNCHES}
@@ -5156,7 +5351,21 @@ def smoke(torch, dev) -> tuple[str, list[dict], list[str]]:
             entry["no_slower_than_library"] = all(
                 c["ms"] <= c["library_ms"] for c in entry["panels"].values())
         if name == "fet_snp_ranks":
-            entry["ms_includes"] = "K1's LUT build, the LUT sort and the per-SNP lookup"
+            entry["ms_includes"] = ("the per-SNP lookup alone, kernel and plain: the kernel's "
+                                    "LUT and sort cached, the plain version's made beforehand")
+        if name == "fet_snp_logs":
+            entry["ms_includes"] = ("at 8 M SNPs (11 + 10) the per-SNP lookup alone, kernel and "
+                                    "plain: the kernel's LUT cached, the plain version's made "
+                                    "beforehand; at 1 M SNPs (48 + 48) the support scan")
+        if name == "fet_lut_build":
+            # ms / plain_ms / bound_ms: 11 + 10 (queued medians: the kernel
+            # alone); every panel of RANK_PANELS in both precisions; the cold /
+            # warm census of phase 2
+            entry["ms_is"] = "median of 11 calls, each queued behind a busy kernel"
+            entry["panels"] = {f"{a}+{b}_{prec}": r[f"{a}_{b}_{prec}"]
+                               for a, b in RANK_PANELS for prec in ("fast", "exact")}
+            entry["cold_warm_launches"] = r["cold_warm"]
+            entry["phase19_builds_and_keys"] = r["phase19_keys"]
         if name == "fet_aggregate_ranks":
             entry["stddev_windows_beyond_tol"] = {
                 "fast": r["fast_beyond"], "exact": r["exact_beyond"]

@@ -37,6 +37,14 @@ orders in torch: :func:`order_stat_uniforms_tiled`, :func:`band_picks`,
 There is no fallback: on a CUDA tensor the kernel runs or the call
 raises.  Each launch adds one to :data:`LAUNCHES`.
 
+The LUT depends on the panel and precision only, so :func:`fet_snp_logs`,
+:func:`fet_snp_ranks` and :func:`fet_window_batch` read it (and K1r's sort
+of it) from a cache of one entry per (asize, bsize, maxs, nmax, dtype,
+device), built on first use (:func:`lut_cached`, :func:`lut_rank_cached`;
+:func:`clear_lut_cache`): one build and one sort a key per process, not
+one a chromosome call.  :func:`fet_lut` and :func:`fet_lut_rank` stay
+uncached.
+
 The rank path (K1r -> K2r) is the JAX package's exact-mode route in the
 LUT regime (``divergence_tpu/engine/fet_engine.py``): its window sort
 runs on int32 ranks, and its results equal the float path's (K1 -> K2)
@@ -46,8 +54,11 @@ one-hot MXU picks and the two-stage window gather.
 
 from __future__ import annotations
 
+import collections
 import ctypes
+import dataclasses
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -289,7 +300,8 @@ def fet_lut_plain(asize, bsize, maxs, nmax, dtype, device) -> torch.Tensor:
 def fet_lut(asize, bsize, maxs, nmax, dtype, device) -> torch.Tensor:
     """Score ``-log10 p`` of every table of the (asize+1)^2 (bsize+1)^2
     grid (``divergence_tpu/kernels/fet.py:fet_snp_logs``' LUT), row-major
-    in (f0, f1, f2, f3)."""
+    in (f0, f1, f2, f3).  Uncached: each call launches the build
+    (:func:`lut_cached` builds once a key)."""
     device = torch.device(device)
     if is_cpu(device):
         return fet_lut_plain(asize, bsize, maxs, nmax, dtype, device)
@@ -304,16 +316,123 @@ def fet_lut(asize, bsize, maxs, nmax, dtype, device) -> torch.Tensor:
     return out
 
 
+# --------------------------------------------------------------------------
+# K1's LUT and K1r's sort of it, once per key
+# --------------------------------------------------------------------------
+
+_LUT_CACHE_ENTRIES = 64    # keys kept, least recently used dropped first
+
+
+@dataclasses.dataclass
+class _LutEntry:
+    """One key's LUT and, once the rank path asks, K1r's ``(lut_sorted,
+    rank_of_entry)`` of it; each with the CUDA stream it was built on and
+    an event recorded there after the build (None on the CPU)."""
+
+    lut: torch.Tensor
+    stream: object
+    ready: object
+    ranked: tuple | None = None
+    ranked_stream: object = None
+    ranked_ready: object = None
+
+
+_lut_cache: collections.OrderedDict = collections.OrderedDict()
+_lut_cache_lock = threading.Lock()
+
+
+def clear_lut_cache() -> None:
+    """Drop every cached LUT and sort: the next use of a key builds anew."""
+    with _lut_cache_lock:
+        _lut_cache.clear()
+
+
+def _stamp(device: torch.device):
+    """(the current stream, an event recorded on it now), or (None, None)
+    on the CPU."""
+    if is_cpu(device):
+        return None, None
+    stream = torch.cuda.current_stream(device)
+    event = torch.cuda.Event()
+    event.record(stream)
+    return stream, event
+
+
+def _ready(tensors, device: torch.device, stream, event) -> None:
+    """Let the caller's current stream read ``tensors``, built on
+    ``stream``: another stream waits for the build's event first, and the
+    allocator learns of its use (an entry dropped from the cache keeps its
+    memory until that stream's work is done)."""
+    if stream is None:
+        return
+    current = torch.cuda.current_stream(device)
+    if current != stream:
+        current.wait_event(event)
+        for t in tensors:
+            t.record_stream(current)
+
+
+def _lut_entry(asize, bsize, maxs, nmax, dtype, device) -> _LutEntry:
+    key = (asize, bsize, maxs, nmax, dtype, device)
+    with _lut_cache_lock:
+        entry = _lut_cache.get(key)
+        if entry is None:
+            lut = fet_lut(asize, bsize, maxs, nmax, dtype, device)
+            entry = _lut_cache[key] = _LutEntry(lut, *_stamp(device))
+            while len(_lut_cache) > _LUT_CACHE_ENTRIES:
+                _lut_cache.popitem(last=False)
+        else:
+            _lut_cache.move_to_end(key)
+    return entry
+
+
+def _key_device(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def lut_cached(asize, bsize, maxs, nmax, dtype, device) -> torch.Tensor:
+    """:func:`fet_lut` of the key (asize, bsize, maxs, nmax, dtype,
+    device), built on the caller's current stream at the key's first use
+    and returned again after: the same storage, no second launch.
+    Read-only."""
+    device = _key_device(device)
+    entry = _lut_entry(asize, bsize, maxs, nmax, dtype, device)
+    _ready((entry.lut,), device, entry.stream, entry.ready)
+    return entry.lut
+
+
+def lut_rank_cached(asize, bsize, maxs, nmax, dtype, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`fet_lut_rank` of :func:`lut_cached`'s LUT, sorted at the
+    key's first use on the rank path and returned again after.
+    Read-only."""
+    device = _key_device(device)
+    entry = _lut_entry(asize, bsize, maxs, nmax, dtype, device)
+    with _lut_cache_lock:
+        if entry.ranked is None:
+            _ready((entry.lut,), device, entry.stream, entry.ready)
+            entry.ranked = fet_lut_rank(entry.lut)
+            entry.ranked_stream, entry.ranked_ready = _stamp(device)
+    _ready(entry.ranked, device, entry.ranked_stream, entry.ranked_ready)
+    return entry.ranked
+
+
 def fet_snp_logs_plain(
-    vals: torch.Tensor, asize: int, maxs: int, nmax: int, fast: bool = False
+    vals: torch.Tensor, asize: int, maxs: int, nmax: int, fast: bool = False,
+    lut: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Plain torch version of :func:`fet_snp_logs`."""
+    """Plain torch version of :func:`fet_snp_logs`: each SNP's entry of
+    ``lut`` (a LUT of its own, :func:`fet_lut_plain`, where None) where
+    :func:`lut_active`, else its own support scan."""
     dtype = compute_dtype("fast" if fast else "exact")
     bsize = vals.shape[1] - asize
     tables = count_tables(vals[:, :asize], vals[:, asize:])
     if not lut_active(asize, bsize):
         return _neglog10_p(tables, maxs, nmax, dtype)
-    lut = fet_lut_plain(asize, bsize, maxs, nmax, dtype, vals.device)
+    if lut is None:
+        lut = fet_lut_plain(asize, bsize, maxs, nmax, dtype, vals.device)
     return lut[_lut_index(tables, asize, bsize)]
 
 
@@ -325,23 +444,22 @@ def fet_snp_logs(
 
     ``vals``: [N, asize+bsize] joint genotype codes, group A first
     (:meth:`SnpPair.to_device`).  When :func:`lut_active`, the test is
-    evaluated once per possible table and each SNP reads its table's
-    score; otherwise each SNP scans its own support.  Returns [N] float64
-    (exact) or float32 (``fast``)."""
-    if is_cpu(vals):
-        return fet_snp_logs_plain(vals, asize, maxs, nmax, fast)
+    evaluated once per possible table (:func:`lut_cached`) and each SNP
+    reads its table's score; otherwise each SNP scans its own support.
+    Returns [N] float64 (exact) or float32 (``fast``)."""
     dtype = compute_dtype("fast" if fast else "exact")
-    if vals.dtype != torch.int16:
-        raise TypeError(
-            f"fet_snp_logs kernel takes int16 genotype codes, got {vals.dtype}"
-        )
-    if vals.dim() != 2 or not vals.is_contiguous():
-        raise ValueError("fet_snp_logs kernel takes a contiguous [N, a+b] tensor")
     bsize = vals.shape[1] - asize
-    lut = (
-        fet_lut(asize, bsize, maxs, nmax, dtype, vals.device)
-        if lut_active(asize, bsize) else None
-    )
+    if not is_cpu(vals):
+        if vals.dtype != torch.int16:
+            raise TypeError(
+                f"fet_snp_logs kernel takes int16 genotype codes, got {vals.dtype}"
+            )
+        if vals.dim() != 2 or not vals.is_contiguous():
+            raise ValueError("fet_snp_logs kernel takes a contiguous [N, a+b] tensor")
+    lut = (lut_cached(asize, bsize, maxs, nmax, dtype, vals.device)
+           if lut_active(asize, bsize) else None)
+    if is_cpu(vals):
+        return fet_snp_logs_plain(vals, asize, maxs, nmax, fast, lut)
     lf = _lf_table(nmax, dtype, vals.device)
     out = torch.empty(vals.shape[0], dtype=dtype, device=vals.device)
     launch(
@@ -933,15 +1051,18 @@ def fet_lut_rank(lut: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def fet_snp_ranks_plain(
-    vals: torch.Tensor, asize: int, maxs: int, nmax: int, fast: bool = False
+    vals: torch.Tensor, asize: int, maxs: int, nmax: int, fast: bool = False,
+    ranked: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain torch version of :func:`fet_snp_ranks`."""
+    """Plain torch version of :func:`fet_snp_ranks`, on ``ranked``'s
+    ``(lut_sorted, rank_of_entry)`` (a LUT and sort of its own where
+    None)."""
     bsize = vals.shape[1] - asize
     _require_lut(asize, bsize)
     dtype = compute_dtype("fast" if fast else "exact")
-    lut_sorted, rank_of_entry = fet_lut_rank_plain(
-        fet_lut_plain(asize, bsize, maxs, nmax, dtype, vals.device)
-    )
+    if ranked is None:
+        ranked = fet_lut_rank_plain(fet_lut_plain(asize, bsize, maxs, nmax, dtype, vals.device))
+    lut_sorted, rank_of_entry = ranked
     tables = count_tables(vals[:, :asize], vals[:, asize:])
     return lut_sorted, rank_of_entry[_lut_index(tables, asize, bsize)]
 
@@ -952,21 +1073,22 @@ def fet_snp_ranks(
     """``(lut_sorted [G], ranks [N] int32)``: the ascending table LUT and
     every SNP's rank into it, so ``lut_sorted[ranks]`` are the SNPs'
     scores (``divergence_tpu/kernels/fet.py:fet_snp_ranks_joint``).  Only
-    where :func:`lut_active`.  ``vals`` as :func:`fet_snp_logs`."""
-    if is_cpu(vals):
-        return fet_snp_ranks_plain(vals, asize, maxs, nmax, fast)
-    if vals.dtype != torch.int16:
-        raise TypeError(
-            f"fet_snp_ranks kernel takes int16 genotype codes, got {vals.dtype}"
-        )
-    if vals.dim() != 2 or not vals.is_contiguous():
-        raise ValueError("fet_snp_ranks kernel takes a contiguous [N, a+b] tensor")
+    where :func:`lut_active`.  ``vals`` as :func:`fet_snp_logs`; the LUT
+    and its sort from :func:`lut_rank_cached` (``lut_sorted`` read-only)."""
     bsize = vals.shape[1] - asize
     _require_lut(asize, bsize)
     dtype = compute_dtype("fast" if fast else "exact")
-    lut_sorted, rank_of_entry = fet_lut_rank(
-        fet_lut(asize, bsize, maxs, nmax, dtype, vals.device)
-    )
+    if not is_cpu(vals):
+        if vals.dtype != torch.int16:
+            raise TypeError(
+                f"fet_snp_ranks kernel takes int16 genotype codes, got {vals.dtype}"
+            )
+        if vals.dim() != 2 or not vals.is_contiguous():
+            raise ValueError("fet_snp_ranks kernel takes a contiguous [N, a+b] tensor")
+    ranked = lut_rank_cached(asize, bsize, maxs, nmax, dtype, vals.device)
+    if is_cpu(vals):
+        return fet_snp_ranks_plain(vals, asize, maxs, nmax, fast, ranked)
+    lut_sorted, rank_of_entry = ranked
     out = torch.empty(vals.shape[0], dtype=torch.int32, device=vals.device)
     launch(
         LAUNCHES, "fet_snp_ranks", "fet_snp_ranks", vals.device,
@@ -1087,8 +1209,8 @@ def fet_window_batch(
     the complete, ordered window set; callers pass genomic slots.
 
     On a CUDA tensor the codes go to K10 as int16 (:func:`codes_int16`),
-    with K1's LUT where :func:`lut_active`; ``npos`` and ``slot`` may lie
-    on the host or the card."""
+    with K1's LUT where :func:`lut_active` (:func:`lut_cached`); ``npos``
+    and ``slot`` may lie on the host or the card."""
     if is_cpu(avals):
         return fet_window_batch_plain(
             avals, bvals, npos, perc, key, nsamples, maxs, nmax, fast, slot
@@ -1113,7 +1235,8 @@ def fet_window_batch(
     a16 = codes_int16(avals).contiguous()
     b16 = codes_int16(bvals).contiguous()
     npos_d, slot_d = (t.to(dev, torch.int64).contiguous() for t in (npos, slot))
-    lut = fet_lut(asize, bsize, maxs, nmax, dtype, dev) if lut_active(asize, bsize) else None
+    lut = (lut_cached(asize, bsize, maxs, nmax, dtype, dev)
+           if lut_active(asize, bsize) else None)
     lf = _lf_table(nmax, dtype, dev)
     k0, k1 = (int(w) for w in key.tolist())
     args = (ptr(a16), ptr(b16), ptr(npos_d), ptr(slot_d), B, P, asize, bsize, ptr(lut),

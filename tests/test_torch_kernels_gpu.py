@@ -7,6 +7,9 @@ CUDA kernel has no CPU mode).  Run on a machine with one GPU:
 (``--noconftest``: ``tests/conftest.py`` imports jax for the JAX tests.)
 
 Tolerances, relative to max(|reference|, 1): FET exact 1e-12, fast 1e-5.
+K1's LUT build (``fet_lut``) is held to its plain version at 11 + 10 to
+38 + 38 and at lopsided panels, and the wrappers build it once a key
+(``lut_cached``: a warm call launches none).
 CSS: counts and the MC coefficients exactly equal; CMDS scores exact 1e-9
 on windows with eigengap above 1e-6, fast rtol 2e-3 atol 1e-4 (the JAX
 package's fast-vs-exact band); MC (nscores, hits) equal on >= 99.9 % of
@@ -170,6 +173,9 @@ def test_nvcc_missing_raises(monkeypatch):
 @pytest.mark.parametrize("prec", ["exact", "fast"])
 @pytest.mark.parametrize("asize,bsize", [(11, 10), (4, 3)])
 def test_lut_kernel(cuda, prec, asize, bsize):
+    """K1's LUT build against its plain version; ``fet_lut`` launches it
+    on every call, the cache once a key: a cleared cache builds once, a
+    warm call returns the same storage and launches nothing."""
     dt = torch.float64 if prec == "exact" else torch.float32
     maxs, nmax = kfet.support_size(asize, bsize), asize + bsize + 2
     before = kfet.LAUNCHES["fet_lut_build"]
@@ -179,6 +185,33 @@ def test_lut_kernel(cuda, prec, asize, bsize):
     assert kfet.LAUNCHES["fet_lut_build"] == before + 1
     assert k.dtype == dt and bool(torch.isfinite(k).all())
     assert _rel(k, p) <= TOL[prec]
+    kfet.clear_lut_cache()
+    before = kfet.LAUNCHES["fet_lut_build"]
+    cold = kfet.lut_cached(asize, bsize, maxs, nmax, dt, cuda)
+    assert kfet.LAUNCHES["fet_lut_build"] == before + 1
+    warm = kfet.lut_cached(asize, bsize, maxs, nmax, dt, cuda)
+    assert kfet.LAUNCHES["fet_lut_build"] == before + 1
+    assert warm.data_ptr() == cold.data_ptr() and torch.equal(_bits(cold), _bits(k))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prec", ["exact", "fast"])
+@pytest.mark.parametrize("asize,bsize", [(15, 15), (20, 20), (38, 38), (13, 2), (200, 1),
+                                         (350, 1)])
+def test_lut_kernel_panels(cuda, prec, asize, bsize):
+    """K1's LUT build against its plain version at K1r's larger panels and
+    at lopsided ones, whose unreachable entries' margins pass nmax
+    (lchoose's clamps) and whose support runs to 102 and 177 points; one
+    launch each."""
+    assert kfet.lut_active(asize, bsize)
+    dt = torch.float64 if prec == "exact" else torch.float32
+    maxs, nmax = kfet.support_size(asize, bsize), asize + bsize + 2
+    before = kfet.LAUNCHES["fet_lut_build"]
+    k = kfet.fet_lut(asize, bsize, maxs, nmax, dt, cuda)
+    p = kfet.fet_lut_plain(asize, bsize, maxs, nmax, dt, cuda)
+    torch.cuda.synchronize()
+    assert kfet.LAUNCHES["fet_lut_build"] == before + 1
+    assert bool(torch.isfinite(k).all()) and _rel(k, p) <= TOL[prec]
 
 
 @pytest.mark.gpu
@@ -233,6 +266,7 @@ def test_run_fet_cuda_matches_cpu(cuda, prec):
     pos, am, bm = make_panel(20_000, 1_000_000, 11, 10, seed=8)
     cfg = FetConfig(precision=prec)
     kfet.reset_launches()
+    kfet.clear_lut_cache()   # a cold run builds (and, exact, sorts) the LUT once
     g = run_fet(SnpPair(pos, am, bm), 1_000_000, cfg, device=cuda, seqid="c")
     # exact mode takes the rank path (K1r -> K2r), fast mode K1 -> K2
     path = (("fet_lut_build", "fet_lut_rank", "fet_snp_ranks", "fet_aggregate_ranks")
@@ -328,12 +362,18 @@ def test_snp_ranks_kernel(cuda, prec, asize, bsize):
     vals = _codes(200_000, asize + bsize, 4).to(cuda)
     maxs, nmax = kfet.support_size(asize, bsize), asize + bsize + 2
     fast = prec == "fast"
+    kfet.clear_lut_cache()
     before = dict(kfet.LAUNCHES)
     ls, r = kfet.fet_snp_ranks(vals, asize, maxs, nmax, fast)
     pls, pr = kfet.fet_snp_ranks_plain(vals, asize, maxs, nmax, fast)
     torch.cuda.synchronize()
+    # a cold call builds and sorts the LUT once; a warm one only looks up
     assert all(kfet.LAUNCHES[k] == before[k] + 1
                for k in ("fet_lut_build", "fet_lut_rank", "fet_snp_ranks")), kfet.LAUNCHES
+    ls2, r2 = kfet.fet_snp_ranks(vals, asize, maxs, nmax, fast)
+    assert [kfet.LAUNCHES[k] - before[k] for k in
+            ("fet_lut_build", "fet_lut_rank", "fet_snp_ranks")] == [1, 1, 2], kfet.LAUNCHES
+    assert ls2.data_ptr() == ls.data_ptr() and torch.equal(r2, r)
     assert r.dtype == torch.int32 and r.shape == (200_000,)
     assert _rel(ls[r.long()], pls[pr.long()]) <= TOL[prec]
     _, rank_of_entry = kfet.fet_lut_rank_plain(
