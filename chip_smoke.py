@@ -97,8 +97,13 @@ Phases (any failure exits non-zero and prints no result line):
 13. the sharded step (``make_divergence_step(11, 10)`` at its defaults) on
    those ~800 k windows: warm wall and a torch.profiler call (K5's, K11's,
    K10's and K3's time by CUDA events around their launches, and no
-   concatenation of the codes on the card), four shares
-   of the card against one (bit-equal), the all-plain step on 20,000 of
+   concatenation of the codes on the card); the step three ways, 1
+   share, the four shares of the card one after another (the one-share
+   step on each slice in turn) and the four at once (a stream a share),
+   each call's outputs byte-equal to 1 share, the launches at once equal
+   to the shares counted one at a time, walls (median of 3 warm calls),
+   each share's device interval (CUDA events on its stream) and their
+   overlap (step_shares); the all-plain step on 20,000 of
    them; ``bench-scaling`` at its defaults; ``run-fet`` and ``run-css``
    with ``--shard`` and with ``--num-hosts 2`` + ``merge-tracks`` on phase
    9's small files, byte-equal to the unsharded tracks, and ``run-fet``
@@ -213,11 +218,13 @@ Phases (any failure exits non-zero and prints no result line):
    of the four at once equal to the four shares counted one at a time (a
    difference fails the run).  Then the host syncs
    (``torch.cuda.set_sync_debug_mode("warn")``) between one share's
-   launches and the next share's in the loops that stay single-threaded:
-   phase 1 (``engine/css_engine.py:_phase1_dispatch``), the FET engine
-   (``engine/fet_engine.py:_fet_dispatch``, both precisions) and the
-   sharded step (``parallel/sharded.py``), by the port's line that made
-   each.
+   launches and the next share's in the loops that enqueue every share
+   from one thread: phase 1 (``engine/css_engine.py:_phase1_dispatch``),
+   the FET engine (``engine/fet_engine.py:_fet_dispatch``, both
+   precisions) and the sharded step (``parallel/sharded.py``) on card
+   codes and on host inputs over 1 and 4 shares, by the port's line that
+   made each; a sync between the step's first launch and its last fails
+   the run.
 
 Kernel launch counts are reset before phase 3 and read after phase 4 (the
 FET path), reset before phase 6 and read after phase 7 (the CMDS CSS
@@ -2773,6 +2780,119 @@ def phase_step_kernels(torch, pair, plan, ids, dev, results, k2_bench) -> dict:
     }
 
 
+def span_overlap(intervals) -> tuple[float, float, bool]:
+    """(busy ms summed over ``intervals``, ms of their union, whether
+    every pair overlaps) of [(start, end), ...] sorted by start."""
+    busy = sum(e - s for s, e in intervals)
+    union, reach = 0.0, float("-inf")
+    for s, e in intervals:
+        union += max(0.0, e - max(s, reach))
+        reach = max(reach, e)
+    every = all(max(s1, s2) < min(e1, e2) for i, (s1, e1) in enumerate(intervals)
+                for s2, e2 in intervals[i + 1:])
+    return busy, union, every
+
+
+def launch_counts(kfet, kcss, kperm) -> dict:
+    """Every kernel launch count of the three kernel modules."""
+    return {f"{mod.__name__.rsplit('.', 1)[1]} {k}": v
+            for mod in (kfet, kcss, kperm) for k, v in mod.LAUNCHES.items()}
+
+
+def step_shares(torch, kfet, kcss, kperm, one, four, args, ref, names, card) -> dict:
+    """Phase 13's shares: the step over 1 share, over STEP_SHARES shares
+    one after another (the one-share step on each slice in turn) and at
+    once (the STEP_SHARES-share step), on ``args``; ``ref`` is the one-share
+    step's output.  Gates: every per-window output and windows_evaluated
+    byte-equal to ``ref`` in every call, score_sum within 1e-9, and the
+    launches at once equal to the shares' counted one at a time.  Reports
+    the median of 3 warm walls each way, each share's device interval (CUDA
+    events around its launches, on its stream) and their overlap."""
+    import statistics
+
+    from divergence_tpu_torch.parallel import window_slices
+
+    av, bv, npos, slot, key = args
+    shares = window_slices(av.shape[0], [None] * STEP_SHARES)
+
+    def serial():
+        parts = [one(av[sl], bv[sl], npos[sl], slot[sl], key) for sl in shares]
+        out = {k: torch.cat([p[k] for p in parts]) for k in names}
+        for k in ("windows_evaluated", "score_sum"):
+            total = parts[0][k]
+            for p in parts[1:]:
+                total = total + p[k]
+            out[k] = total
+        return out
+
+    ways = {"one": lambda: one(*args), "serial": serial, "concurrent": lambda: four(*args)}
+    s_ref = float(ref["score_sum"])
+    differ = dict.fromkeys(ways, 0)
+
+    def tally(way, out) -> None:
+        same = (all(torch.equal(out[k], ref[k]) for k in names)
+                and float(out["windows_evaluated"]) == float(ref["windows_evaluated"])
+                and abs(float(out["score_sum"]) - s_ref) <= 1e-9 * abs(s_ref))
+        differ[way] += not same
+
+    for way, fn in ways.items():
+        tally(way, fn())                                     # warm
+    walls = {w: [] for w in ways}
+    for _ in range(3):
+        for way, fn in ways.items():
+            out, ms = host_ms(torch, fn)
+            walls[way].append(ms)
+            tally(way, out)
+    med = {w: statistics.median(v) for w, v in walls.items()}
+    # launches: each share counted on its own, then the shares at once (by
+    # differences: the phase's own counts go on)
+    counted = {}
+    for sl in shares:
+        c0 = launch_counts(kfet, kcss, kperm)
+        one(av[sl], bv[sl], npos[sl], slot[sl], key)
+        for k, v in launch_counts(kfet, kcss, kperm).items():
+            counted[k] = counted.get(k, 0) + v - c0[k]
+    c0 = launch_counts(kfet, kcss, kperm)
+    tally("concurrent", four(*args))
+    at_once = {k: v - c0[k] for k, v in launch_counts(kfet, kcss, kperm).items()}
+    # each share's device interval, from an event on the caller's stream
+    # just before the call: one share, then the shares at once
+    spans_of = {}
+    for way in ("one", "concurrent"):
+        torch.cuda.synchronize()
+        origin = torch.cuda.Event(enable_timing=True)
+        origin.record()
+        with share_spans(torch, kfet, kcss, kperm) as spans:
+            tally(way, ways[way]())
+        torch.cuda.synchronize()
+        spans_of[way] = sorted((origin.elapsed_time(a), origin.elapsed_time(b))
+                               for a, b in spans.values())
+    busy, union, every = span_overlap(spans_of["concurrent"])
+    n_at_once = sum(at_once.values())
+    say(f"[step shares] {av.shape[0]} windows, {STEP_SHARES} shares of the card: walls 1 "
+        f"share {med['one']:.1f} ms, the shares one after another {med['serial']:.1f} ms, at once "
+        f"{med['concurrent']:.1f} ms (median of 3 warm calls, host clock; at once / one after "
+        f"another {med['concurrent'] / med['serial']:.3f}, / 1 share "
+        f"{med['concurrent'] / med['one']:.3f}); every call byte-equal to 1 share: "
+        f"{differ}; device span of 1 share "
+        + ", ".join(f"[{a:.1f}, {b:.1f}]" for a, b in spans_of["one"])
+        + "; share intervals at once (ms from the call's start) "
+        + ", ".join(f"[{a:.1f}, {b:.1f}]" for a, b in spans_of["concurrent"])
+        + f": {busy:.1f} ms of share time over a {union:.1f} ms union (overlap "
+        f"{busy - union:.1f} ms, every pair overlaps: {every}); launches at once {n_at_once}, "
+        f"the shares one at a time {sum(counted.values())} (every count equal: "
+        f"{at_once == counted}) on {card}")
+    check(not any(differ.values()), f"step shares: a call differs from 1 share: {differ}")
+    check(at_once == counted and n_at_once > 0,
+          f"step shares: launches at once {at_once} != one at a time {counted}")
+    check(len(spans_of["concurrent"]) == STEP_SHARES,
+          f"step shares: {len(spans_of['concurrent'])} share streams launched")
+    return {"walls_ms": walls, "median_ms": med, "one_span_ms": spans_of["one"],
+            "intervals_ms": spans_of["concurrent"], "share_ms": busy, "union_ms": union,
+            "all_overlap": every, "launches": n_at_once, "launches_equal": at_once == counted,
+            "differ": differ}
+
+
 def phase_step_library(torch, gathered, dev, card, tmp: Path, results) -> None:
     """Phase 13: the sharded step at full width on the ~800 k bench windows
     (warm min of 3, profiled, its kernels timed by CUDA events and its
@@ -2864,16 +2984,12 @@ def phase_step_library(torch, gathered, dev, card, tmp: Path, results) -> None:
         f"{k3_ms:.2f} ms, the four {100 * sum(kms_by.values()) / min(walls1):.1f} % of the "
         f"warm wall; largest concatenation on the card {max(cat_bytes):,} bytes, on {card}")
 
-    out4, walls4 = step_walls(four)
-    same = {k: torch.equal(out1[k], out4[k]) for k in names}
-    s1, s4 = float(out1["score_sum"]), float(out4["score_sum"])
-    say(f"[step] {STEP_SHARES} shares of the card: warm wall min {min(walls4):.1f} ms; "
-        f"per-window outputs bit-equal to 1 share: {same}; score_sum rel diff "
-        f"{abs(s1 - s4) / abs(s1):.2e} (tol 1e-9)")
-    check(all(same.values()), f"step over {STEP_SHARES} shares differs: {same}")
-    check(abs(s1 - s4) <= 1e-9 * abs(s1), "step over shares: score_sum")
-    check(float(out4["windows_evaluated"]) == n_eval, "step over shares: windows_evaluated")
-    del out4
+    shares_out = step_shares(torch, kfet, kcss, kperm, one, four, (av, bv, npos, slot, key),
+                             out1, names, card)
+    walls4 = shares_out["walls_ms"]["concurrent"]
+    say(f"[step shares] 1 share's median {shares_out['median_ms']['one']:.1f} ms beside the "
+        f"93.6 ms PERF.md section 5 gives for these windows (another run, with the step's "
+        f"host syncs)")
 
     # the step against its all-plain version on the first windows
     n = STEP_PLAIN_WINDOWS
@@ -2905,7 +3021,8 @@ def phase_step_library(torch, gathered, dev, card, tmp: Path, results) -> None:
     check(hits_differ <= MC_DIFFER_SHARE * n + 1, f"step vs plain: {hits_differ} hits differ")
     check(float(outk["windows_evaluated"]) == float(outp["windows_evaluated"]) and
           dsum <= allowed_sum, "step vs plain: summaries")
-    results["step"] = {"wall_ms": min(walls1), "wall_4_ms": min(walls4), "busy": dev_ms / wall,
+    results["step"] = {"wall_ms": min(walls1), "wall_4_ms": min(walls4), "shares": shares_out,
+                       "busy": dev_ms / wall,
                        "k5_ms": k5_ms, "k5_share": k5_ms / wall, "k10_ms": k10_ms,
                        "k3_ms": k3_ms, "k11_ms": k11_ms, "cat_bytes": max(cat_bytes),
                        "kernel_share": sum(kms_by.values()) / min(walls1),
@@ -4689,32 +4806,36 @@ def phase_fuzz(torch, dev, results) -> tuple[dict, list[str]]:
 
 
 @contextlib.contextmanager
-def share_spans(torch, kperm):
-    """A context in which every kernel launch of ``kperm`` is bracketed by
-    CUDA events on the launching thread's current stream (a share's own
-    under ``kernels/perm.py:_over_shares``); it yields {stream: [event
-    before its first launch, event after its last]} (read after a
-    synchronise)."""
+def share_spans(torch, *mods):
+    """A context in which every kernel launch of the kernel modules
+    ``mods`` is bracketed by CUDA events on the launching thread's current
+    stream (a share's own under ``kernels/perm.py:_over_shares`` and the
+    sharded step); it yields {stream: [event before its first launch,
+    event after its last]} (read after a synchronise)."""
     spans = {}
-    orig = kperm.launch
+    origs = [mod.launch for mod in mods]
 
-    def timed(counts, kernel, symbol, device, *args):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        span = spans.get(stream)
-        if span is None:
-            start = torch.cuda.Event(enable_timing=True)
-            start.record()
-            span = spans[stream] = [start, None]
-        orig(counts, kernel, symbol, device, *args)
-        end = torch.cuda.Event(enable_timing=True)
-        end.record()
-        span[1] = end
+    def timed_by(orig):
+        def timed(counts, kernel, symbol, device, *args):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            span = spans.get(stream)
+            if span is None:
+                start = torch.cuda.Event(enable_timing=True)
+                start.record()
+                span = spans[stream] = [start, None]
+            orig(counts, kernel, symbol, device, *args)
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            span[1] = end
+        return timed
 
-    kperm.launch = timed
+    for mod, orig in zip(mods, origs):
+        mod.launch = timed_by(orig)
     try:
         yield spans
     finally:
-        kperm.launch = orig
+        for mod, orig in zip(mods, origs):
+            mod.launch = orig
 
 
 def mc_launches(kperm) -> dict:
@@ -4788,13 +4909,7 @@ def mc_share_cell(torch, kperm, mesh, data, a, b, runs, route, card) -> dict:
     torch.cuda.synchronize()
     intervals = sorted((origin.elapsed_time(s), origin.elapsed_time(e))
                        for s, e in spans.values())
-    busy = sum(e - s for s, e in intervals)
-    union, reach = 0.0, float("-inf")
-    for s, e in intervals:
-        union += max(0.0, e - max(s, reach))
-        reach = max(reach, e)
-    all_overlap = all(max(s1, s2) < min(e1, e2) for i, (s1, e1) in enumerate(intervals)
-                      for s2, e2 in intervals[i + 1:])
+    busy, union, all_overlap = span_overlap(intervals)
     walls = {w: [] for w in ways}
     for _ in range(3):
         for w, fn in ways.items():
@@ -4910,16 +5025,9 @@ def phase_mc_shares(torch, dev, card, results) -> None:
     """Phase 20: the sharded MC's shares at once on four shares of the
     card (mc_share_cell on every route of MC_SHARE_ROUTES at 11 + 10 on
     the 16x worst case, and on the large-panel forms at MC_SHARE_LARGE on
-    the envelope cell), then the host syncs between shares of phase 1, the
-    FET engine and the sharded step (host_syncs)."""
-    from divergence_tpu_torch import rng
-    from divergence_tpu_torch.config import CssConfig, FetConfig
-    from divergence_tpu_torch.engine import SnpPair, css_engine, fet_engine
-    from divergence_tpu_torch.kernels import css as kcss
-    from divergence_tpu_torch.kernels import fet as kfet
+    the envelope cell), then the host syncs between shares (sync_census)."""
     from divergence_tpu_torch.kernels import perm as kperm
-    from divergence_tpu_torch.parallel import make_divergence_step, make_mesh
-    from divergence_tpu_torch.tools.synth import make_chromosome
+    from divergence_tpu_torch.parallel import make_mesh
 
     mesh = make_mesh(devices=[dev] * STEP_SHARES)
     out = results["mc_shares"] = {}
@@ -4934,9 +5042,24 @@ def phase_mc_shares(torch, dev, card, results) -> None:
                                                      route, card)
         del data
         torch.cuda.empty_cache()
+    out["host_syncs"] = sync_census(torch, dev, mesh)
 
-    # the host syncs between one share's launches and the next share's in
-    # the loops that stay single-threaded, each call once warm
+
+def sync_census(torch, dev, mesh) -> dict:
+    """Phase 20's host syncs (host_syncs) between one share's launches and
+    the next share's in the loops that enqueue every share from one
+    thread, each call once warm: phase 1 and the FET engine over ``mesh``,
+    and the sharded step on card and host inputs over 1 share and over
+    ``mesh``, which fails the run on a sync between its first launch and
+    its last."""
+    from divergence_tpu_torch import rng
+    from divergence_tpu_torch.config import CssConfig, FetConfig
+    from divergence_tpu_torch.engine import SnpPair, css_engine, fet_engine
+    from divergence_tpu_torch.kernels import css as kcss
+    from divergence_tpu_torch.kernels import fet as kfet
+    from divergence_tpu_torch.parallel import make_divergence_step, sharded
+    from divergence_tpu_torch.tools.synth import make_chromosome
+
     npos_, region, seed = CSS_WORKLOADS[2][:3]
     pos, am, bm = make_chromosome(npos_, region, ASIZE, BSIZE, seed)
     pair = SnpPair(pos, am, bm)
@@ -4956,20 +5079,34 @@ def phase_mc_shares(torch, dev, card, results) -> None:
     av, bv, _ = gather_windows(torch, pair.to_device(dev), lo, npos,
                                kfet._window_pad(int(npos.max())))
     key = rng.prng_key(0)
-    # the step binds K10's wrapper (its share mark) when it is made
-    calls["step"] = (lambda: make_divergence_step(mesh, ASIZE, BSIZE)(av, bv, npos, slot, key),
-                     [(kfet, "fet_window_batch")])
-    syncs = out["host_syncs"] = {}
+    host_in = (av.cpu().numpy(), bv.cpu().numpy(), npos.numpy(), slot.numpy())
+    # the step on card codes (npos and slot on the host) and on host
+    # inputs, over 1 share and STEP_SHARES; a share begins with its upload
+    # (sharded._upload), and none may sync between its first launch and
+    # its last
+    steps = {}
+    for label, inputs in (("card", (av, bv, npos, slot)), ("host", host_in)):
+        for m in ([dev], mesh):
+            name = f"step {label} inputs, {len(m)} share{'s' * (len(m) > 1)}"
+            steps[name] = len(m)
+            calls[name] = (
+                lambda m=m, inputs=inputs: make_divergence_step(m, ASIZE, BSIZE)(*inputs, key),
+                [(sharded, "_upload")])
+    syncs = {}
     for name, (fn, marks) in calls.items():
         fn()                                           # warm
         syncs[name] = r = host_syncs(torch, fn, marks)
-        say(f"[mc shares syncs] {name} over {len(mesh)} shares of the card: {r['launches']} "
-            f"launches in {r['shares']} shares; host syncs between the first launch and the "
-            f"last {sum(r['between'].values())} (per share {r['per_share']}), before "
-            f"{r['before']}, after {r['after']}; between, by line: "
+        n_shares = steps.get(name, len(mesh))
+        say(f"[mc shares syncs] {name} over {n_shares} share{'s' * (n_shares > 1)} of the card: "
+            f"{r['launches']} launches in {r['shares']} shares; host syncs between the first "
+            f"launch and the last {sum(r['between'].values())} (per share {r['per_share']}), "
+            f"before {r['before']}, after {r['after']}; between, by line: "
             + "; ".join(f"{k} x{v}" for k, v in r["between"].items()))
-        check(r["shares"] == len(mesh), f"{name}: {r['shares']} shares marked")
-    del av, bv
+        check(r["shares"] == n_shares, f"{name}: {r['shares']} shares marked")
+        if name in steps:
+            check(not r["between"], f"{name}: host syncs between the step's launches "
+                                    f"{r['between']}")
+    return syncs
 
 
 def large_entries(results) -> None:

@@ -248,12 +248,15 @@ def css_dissim_gathered(
     bvals: torch.Tensor,   # [B, P, bsize]
     npos: torch.Tensor,    # [B] SNPs per window (rows 0 .. npos[b])
     dtype: torch.dtype,
+    npos_d: torch.Tensor | None = None,   # an int64 copy of npos on the card
 ) -> torch.Tensor:
     """:func:`css_dissim` on pre-gathered windows
     (``divergence_tpu/kernels/css.py:dissimilarity_counts``), [B, m, m] in
     ``dtype`` with the a individuals first: the kernel reads the a and b
     codes where they lie, with no joint copy.  ``npos`` may lie on the
-    host or the card."""
+    host or the card; the bound check reads it, the kernel ``npos_d``
+    where it is given (then nothing here waits for the card), else a
+    copy of ``npos``."""
     if is_cpu(avals):
         return dissimilarity_gathered_plain(avals, bvals, npos).to(dtype)
     if avals.dtype != torch.int16 or bvals.dtype != torch.int16:
@@ -273,7 +276,7 @@ def css_dissim_gathered(
     npos = torch.as_tensor(npos)
     if int(npos.max()) > P:
         raise ValueError(f"a window claims {int(npos.max())} SNPs; the batch holds {P} rows")
-    npos_d = npos.to(dev, torch.int64).contiguous()
+    npos_d = (npos if npos_d is None else npos_d).to(dev, torch.int64).contiguous()
     sfx = dtype_suffix(dtype)
     if gathered_form(asize, bsize, dev) == "warp":
         launch(
@@ -444,20 +447,23 @@ def dissimilarity_freq(
 
 
 def dissimilarity_freq_windows(
-    fa: torch.Tensor, fb: torch.Tensor, lo: torch.Tensor, npos: torch.Tensor
+    fa: torch.Tensor, fb: torch.Tensor, lo: torch.Tensor, npos: torch.Tensor,
+    pad: int | None = None,
 ) -> torch.Tensor:
     """Every window's drosophila matrix [B, 2, 2] float64 from the
     chromosome's frequency columns ``fa``/``fb`` [N] (the JAX engine's
     gather path, ``css_gather_all``): windows gathered at a padded width
     in batches of ``_COUNT_BATCH_ELEMS`` values, so memory stays bounded.
-    Plain torch on every device (ROADMAP queue 2: no hand kernel)."""
+    ``pad``: that width, ``_window_pad(max(npos))``, where the caller
+    knows it on the host (else it is read from ``npos``).  Plain torch on
+    every device (ROADMAP queue 2: no hand kernel)."""
     dev = fa.device
     lo, npos = lo.to(dev, torch.int64), npos.to(dev, torch.int64)
     B = lo.shape[0]
     out = torch.empty((B, 2, 2), dtype=torch.float64, device=dev)
     if B == 0:
         return out
-    P = _window_pad(int(npos.max()))
+    P = _window_pad(int(npos.max())) if pad is None else pad
     step = max(1, _COUNT_BATCH_ELEMS // P)
     offs = torch.arange(P, device=dev)[None, :]
     for s in range(0, B, step):
@@ -1217,6 +1223,8 @@ def css_window_batch(
     fast: bool = False,
     slot: torch.Tensor | None = None,   # [B] window slots; default arange(B)
     plain: bool = False,
+    npos_d: torch.Tensor | None = None,  # int64 copies of npos and slot on
+    slot_d: torch.Tensor | None = None,  # avals' device
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """CSS scores of a batch of pre-gathered windows
     (``divergence_tpu/kernels/css.py:css_window_batch``): (scores [B],
@@ -1230,29 +1238,36 @@ def css_window_batch(
     ``dissimilarity_counts``), then K5 or K6.  Drosophila frequencies keep
     their float values (column 0 of each group).  ``plain=True`` runs the
     plain torch versions on any device (the twin a card run is held
-    against)."""
+    against).  Given both ``npos_d`` and ``slot_d`` (the sharded step's
+    one upload a share), every kernel reads them and nothing is uploaded
+    here; the host decisions read ``npos`` (on the host, nothing here then
+    waits for the card)."""
     B, P = avals.shape[:2]
     npos = torch.as_tensor(npos).to(torch.int64)
     slot = torch.arange(B) if slot is None else torch.as_tensor(slot).to(torch.int64)
     dtype = compute_dtype("fast" if fast else "exact")
     dev = avals.device
-    if not plain and not is_cpu(avals):
-        # one pinned upload serves every kernel
-        rows = torch.stack([npos.cpu(), slot.cpu()]).pin_memory().to(dev, non_blocking=True)
-        npos_d, slot_d = rows[0], rows[1]
-    else:
-        npos_d, slot_d = npos.to(dev), slot.to(dev)
+    if npos_d is None or slot_d is None:
+        if not plain and not is_cpu(avals):
+            # one pinned upload serves every kernel
+            rows = torch.stack([npos.cpu(), slot.cpu()]).pin_memory().to(dev,
+                                                                         non_blocking=True)
+            npos_d, slot_d = rows[0], rows[1]
+        else:
+            npos_d, slot_d = npos.to(dev), slot.to(dev)
     if drosophila:
         lo = torch.arange(B, dtype=torch.int64, device=dev) * P
+        pad = _window_pad(int(npos.max())) if B else None
         dis = dissimilarity_freq_windows(avals[..., 0].reshape(B * P),
-                                         bvals[..., 0].reshape(B * P), lo, npos_d).to(dtype)
+                                         bvals[..., 0].reshape(B * P), lo, npos_d,
+                                         pad).to(dtype)
         asize = bsize = 1
     else:
         a16, b16 = (codes_int16(v).contiguous() for v in (avals, bvals))
         if plain:
             dis = dissimilarity_gathered_plain(a16, b16, npos_d).to(dtype)
         else:
-            dis = css_dissim_gathered(a16, b16, npos, dtype)
+            dis = css_dissim_gathered(a16, b16, npos, dtype, npos_d)
     if not plain:
         return _score_windows(dis, npos_d, asize, bsize, mds, key, slot_d, smacof_iters,
                               smacof_inits, smacof_eps)

@@ -1200,6 +1200,8 @@ def fet_window_batch(
     fast: bool = False,
     slot: torch.Tensor | None = None,   # [B] window slots; default arange(B)
     band_keys: int | None = None,       # as fet_aggregate's
+    npos_d: torch.Tensor | None = None,  # int64 copies of npos and slot on
+    slot_d: torch.Tensor | None = None,  # the card, for the kernel to read
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """FET scores and bootstrap stddev of a batch of pre-gathered windows
     (``divergence_tpu/kernels/fet.py:fet_window_batch``), the sharded
@@ -1210,7 +1212,13 @@ def fet_window_batch(
 
     On a CUDA tensor the codes go to K10 as int16 (:func:`codes_int16`),
     with K1's LUT where :func:`lut_active` (:func:`lut_cached`); ``npos``
-    and ``slot`` may lie on the host or the card."""
+    and ``slot`` may lie on the host or the card.  The host decisions
+    (the widest window, the key's words) read ``npos`` and ``key``; the
+    kernel reads ``npos_d`` and ``slot_d`` where they are given (the
+    sharded step's one upload a share: then nothing here waits for the
+    card once the key's LUT is built), else copies of ``npos`` and
+    ``slot``.  A CPU tensor runs the plain version on ``npos`` and
+    ``slot``."""
     if is_cpu(avals):
         return fet_window_batch_plain(
             avals, bvals, npos, perc, key, nsamples, maxs, nmax, fast, slot
@@ -1234,7 +1242,9 @@ def fet_window_batch(
     pmax = _window_pad(nmax_win)
     a16 = codes_int16(avals).contiguous()
     b16 = codes_int16(bvals).contiguous()
-    npos_d, slot_d = (t.to(dev, torch.int64).contiguous() for t in (npos, slot))
+    npos_d, slot_d = (t.to(dev, torch.int64).contiguous()
+                      for t in (npos if npos_d is None else npos_d,
+                                slot if slot_d is None else slot_d))
     lut = (lut_cached(asize, bsize, maxs, nmax, dtype, dev)
            if lut_active(asize, bsize) else None)
     lf = _lf_table(nmax, dtype, dev)

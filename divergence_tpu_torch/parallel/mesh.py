@@ -8,8 +8,9 @@ statistics are summed (``sharded.py``).  A device may appear more than
 once, which is how the CPU tests stand in for an 8-device mesh
 (``devices=[cpu] * 8``) and how one card checks a 4-way split
 (``[cuda:0] * 4``): the MC's shares run at once there too, a thread and a
-stream each (``kernels/perm.py:_over_shares``); the other sharded loops
-enqueue one share after another.  JAX's ``replicated`` placement
+stream each (``kernels/perm.py:_over_shares``), and the sharded step's, a
+stream each, enqueued from the calling thread (``sharded.py``); the other
+sharded loops enqueue one share after another.  JAX's ``replicated`` placement
 has no counterpart: keys are ``[2]`` host tensors, copied to each device.
 """
 

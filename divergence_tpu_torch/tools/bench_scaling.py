@@ -10,8 +10,9 @@ Two series:
 
 The mesh sizes are 1, 2, 4, ... up to the devices available: every CUDA
 device by default, or ``devices=`` (``[cpu] * N`` on the CPU checks the
-harness and the sharding; a device repeated in a mesh runs its shares one
-after another, so it measures no speedup).  Each timed call ends in one
+harness and the sharding; a card repeated in a mesh runs its shares at
+once, each on a CUDA stream of its own, but on one card's SMs, so it
+measures no speedup).  Each timed call ends in one
 device-to-host copy of a checksum that depends on every output, so the
 time covers the whole step.
 """

@@ -2144,3 +2144,122 @@ def test_mc_four_shares_of_one_card(cuda, m, stream):
     assert (one.nscores < 4096).any() and (one.nscores == 4096).any()
     for f in ("pvals", "nscores", "hits"):
         assert getattr(four, f).tobytes() == getattr(one, f).tobytes(), f
+
+
+# the sharded step's shares at once: (asize, bsize, windows); the windows
+# divide over four shares; 1 + 1 is drosophila mode on frequencies
+STEP_SHARE_PANELS = [(11, 10, 1996), (70, 58, 400), (1, 1, 400)]
+
+
+def _step_inputs(cuda, asize, bsize, n, kind):
+    """The first n windows of a 20,000-SNP panel (of frequencies at 1 + 1):
+    codes on the card and npos, slot as host tensors ("card"), or all four
+    as numpy arrays ("host")."""
+    if (asize, bsize) == (1, 1):
+        pos, fa, fb = make_freq_chromosome(20_000, 1_000_000, seed=3)
+        am, bm = fa, fb
+    else:
+        pos, am, bm = make_panel(20_000, 1_000_000, asize, bsize, seed=asize)
+    plan = plan_windows(pos, 1_000_000, 2500, 500)
+    ids = np.nonzero(plan.valid_mask() & (plan.npos > 0))[0][:n]
+    assert len(ids) == n
+    av, bv, npos, slot = _gathered(plan, ids, am, bm)
+    if kind == "card":
+        return av.to(cuda), bv.to(cuda), npos, slot
+    return av.numpy(), bv.numpy(), npos.numpy(), slot.numpy()
+
+
+def _step_launches() -> dict:
+    return {f"{mod.__name__.rsplit('.', 1)[1]} {k}": v
+            for mod in (kfet, kcss, kperm) for k, v in mod.LAUNCHES.items()}
+
+
+def _reset_step_launches() -> None:
+    for mod in (kfet, kcss, kperm):
+        mod.reset_launches()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["card", "host"])
+@pytest.mark.parametrize("asize,bsize,n", STEP_SHARE_PANELS)
+def test_step_shares_at_once_without_syncs(cuda, asize, bsize, n, kind):
+    """The warm step on [cuda] and on [cuda] * 4 makes no host sync
+    (``set_sync_debug_mode("error")`` raises on one): each share's rows go
+    up in one pinned copy and its kernels queue on its own stream.  Five
+    calls of each, with every share stream held back by a sleep before a
+    call and the caller's freed blocks refilled after it, so that a
+    gather that did not wait for a share, or a block reused too early,
+    would show: every output byte-equal to the one-share reference, and
+    the launches at once those of the four shares run one at a time."""
+    from divergence_tpu_torch.parallel import make_divergence_step, make_mesh, window_slices
+
+    av, bv, npos, slot = _step_inputs(cuda, asize, bsize, n, kind)
+    key = rng.prng_key(1)
+    mesh4 = make_mesh(devices=[cuda] * 4)
+    fly = (asize, bsize) == (1, 1)
+    one = make_divergence_step(make_mesh(devices=[cuda]), asize, bsize, drosophila=fly)
+    four = make_divergence_step(mesh4, asize, bsize, drosophila=fly)
+    ref = one(av, bv, npos, slot, key)                       # cold
+    four(av, bv, npos, slot, key)
+    torch.cuda.synchronize()
+    outs = []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(5):
+            for step in (one, four):
+                for i in range(4):
+                    with torch.cuda.stream(kperm._share_stream(cuda, i)):
+                        torch.cuda._sleep(200_000)
+                outs.append(step(av, bv, npos, slot, key))
+                torch.empty(1 << 22, device=cuda).fill_(float("nan"))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for out in outs:
+        for name in ("fet_scores", "fet_stddev", "css_scores", "css_valid", "mc_hits"):
+            assert torch.equal(out[name], ref[name]), name
+        assert float(out["windows_evaluated"]) == float(ref["windows_evaluated"]) == n
+        assert abs(float(out["score_sum"]) - float(ref["score_sum"])) <= (
+            1e-9 * abs(float(ref["score_sum"])))
+    serial: dict = {}
+    for sl in window_slices(n, mesh4):
+        _reset_step_launches()
+        one(av[sl], bv[sl], npos[sl], slot[sl], key)
+        for k, v in _step_launches().items():
+            serial[k] = serial.get(k, 0) + v
+    _reset_step_launches()
+    four(av, bv, npos, slot, key)
+    torch.cuda.synchronize()
+    assert _step_launches() == serial and serial["perm css_perm_chunk" if asize < 64 else
+                                                 "perm css_perm_chunk_block"] == 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prec", ["exact", "fast"])
+def test_step_wrappers_with_descriptors_on_the_card(cuda, prec):
+    """fet_window_batch, css_window_batch and css_dissim_gathered given
+    npos and slot already on the card give the bits they give on host
+    descriptors, and make no host sync once warm."""
+    av, bv, npos, slot = _step_inputs(cuda, 11, 10, 400, "card")
+    fast = prec == "fast"
+    dtype = torch.float32 if fast else torch.float64
+    npos_d, slot_d = npos.to(cuda), slot.to(cuda)
+    a16, b16 = kfet.codes_int16(av).contiguous(), kfet.codes_int16(bv).contiguous()
+    fet_args = (av, bv, npos, 0.95, rng.prng_key(2), 100, kfet.support_size(11, 10), 23, fast,
+                slot)
+    css_args = (av, bv, npos, rng.prng_key(3), 11, 10)
+
+    def calls(**on_card):
+        return (kfet.fet_window_batch(*fet_args, **on_card),
+                kcss.css_window_batch(*css_args, fast=fast, slot=slot, **on_card),
+                kcss.css_dissim_gathered(a16, b16, npos, dtype, on_card.get("npos_d")))
+
+    want = calls()
+    calls(npos_d=npos_d, slot_d=slot_d)                     # warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = calls(npos_d=npos_d, slot_d=slot_d)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for g, w in zip(got[0] + got[1] + (got[2],), want[0] + want[1] + (want[2],)):
+        assert torch.equal(g, w)
