@@ -31,6 +31,15 @@ once, phase 1's are enqueued one after another); ``slot_range(s)=``
 restricts a chromosome to the slots a host owns (multi-host
 partitioning).  Every window's result depends on its own streams and
 stop, so both give the unsplit run's values.
+
+Each step runs under a span (``utils/trace.py``), timed into the
+``RunSummary`` stage of its name and, under a profiler, on the trace's
+clock: ``css_dispatch`` (a chromosome's ``css_plan``, ``css_upload`` and
+``css_phase1_enqueue`` inside it), ``css_phase1_sync``, ``css_collect``,
+``css_mc`` (the MC's ``mc_*`` spans inside it) and ``css_assemble``.  The
+summary's counters add ``mc_ranges`` and ``mc_perms_run`` (the MC's ranges
+of chunks, and running windows x chunks x chunk over them) and
+``h2d_bytes`` (``SnpPair.to_device``'s uploads) to the window counts.
 """
 
 from __future__ import annotations
@@ -46,11 +55,13 @@ from divergence_tpu_torch.kernels import css as kcss
 from divergence_tpu_torch.kernels import perm as kperm
 from divergence_tpu_torch.parallel.mesh import mesh_devices, to_host, window_slices
 from divergence_tpu_torch.utils.summary import RunSummary
+from divergence_tpu_torch.utils.trace import span
 
 
 def _phase1_dispatch(pair: SnpPair, regend: int, cfg: CssConfig,
                      devices: tuple[torch.device, ...], key: torch.Tensor, seqid: str,
-                     slot_range: tuple[int, int] | None = None):
+                     slot_range: tuple[int, int] | None = None,
+                     summary: RunSummary | None = None):
     """Enqueue one chromosome's phase 1 (no host sync), the windows cut
     into one contiguous share per device.
 
@@ -58,18 +69,19 @@ def _phase1_dispatch(pair: SnpPair, regend: int, cfg: CssConfig,
     numpy, [(scores, dist, valid) per share, in window order]) on the
     devices, or None."""
     w = cfg.window
-    plan = plan_windows(pair.positions, regend, w.wsize, w.wstep)
-    if plan.num_windows == 0 or pair.npos == 0:
-        return plan.nslots, plan.num_windows, None
-    valid = plan.valid_mask() & (plan.npos > 0)
-    if slot_range is not None:
-        valid &= (plan.slot >= slot_range[0]) & (plan.slot < slot_range[1])
-    ids = np.nonzero(valid)[0]
-    if len(ids) == 0:
-        return plan.nslots, plan.num_windows, None
-    # chromosome-pinned restart keys: the scores do not depend on which
-    # other chromosomes share the run
-    ckey = rng.fold_in(key, rng.chrom_hash(seqid))
+    with span("css_plan", summary):
+        plan = plan_windows(pair.positions, regend, w.wsize, w.wstep)
+        if plan.num_windows == 0 or pair.npos == 0:
+            return plan.nslots, plan.num_windows, None
+        valid = plan.valid_mask() & (plan.npos > 0)
+        if slot_range is not None:
+            valid &= (plan.slot >= slot_range[0]) & (plan.slot < slot_range[1])
+        ids = np.nonzero(valid)[0]
+        if len(ids) == 0:
+            return plan.nslots, plan.num_windows, None
+        # chromosome-pinned restart keys: the scores do not depend on which
+        # other chromosomes share the run
+        ckey = rng.fold_in(key, rng.chrom_hash(seqid))
     sm = cfg.smacof
     parts = []
     for dev, sl in zip(devices, window_slices(len(ids), devices)):
@@ -77,14 +89,16 @@ def _phase1_dispatch(pair: SnpPair, regend: int, cfg: CssConfig,
             continue
         # int16 codes: the counts only ==-compare them (engine/snp.py);
         # drosophila frequencies keep their float values (css.c:245-264)
-        vals = pair.to_device(dev, compact=not cfg.drosophila)
+        with span("css_upload", summary):
+            vals = pair.to_device(dev, compact=not cfg.drosophila, summary=summary)
         share = ids[sl]
-        parts.append(kcss.css_phase1(
-            vals, plan.lo[share], plan.npos[share], pair.asize, pair.bsize,
-            fast=cfg.precision == "fast", mds=int(cfg.mds), key=ckey,
-            slots=plan.slot[share], drosophila=cfg.drosophila,
-            smacof_iters=sm.max_iters, smacof_inits=sm.n_init, smacof_eps=sm.epsilon,
-        ))
+        with span("css_phase1_enqueue", summary):
+            parts.append(kcss.css_phase1(
+                vals, plan.lo[share], plan.npos[share], pair.asize, pair.bsize,
+                fast=cfg.precision == "fast", mds=int(cfg.mds), key=ckey,
+                slots=plan.slot[share], drosophila=cfg.drosophila,
+                smacof_iters=sm.max_iters, smacof_inits=sm.n_init, smacof_eps=sm.epsilon,
+            ))
     return plan.nslots, plan.num_windows, (plan.slot[ids], parts)
 
 
@@ -152,10 +166,11 @@ def run_css_multi(
 
     per_chrom = []
     planned_total = 0
-    with summary.stage("css_dispatch"):
+    with span("css_dispatch", summary):
         for seqid, (pair, regend) in sorted(pairs.items()):
             nslots, planned, pending = _phase1_dispatch(
-                pair, regend, cfg, devices, key, seqid, (slot_ranges or {}).get(seqid)
+                pair, regend, cfg, devices, key, seqid, (slot_ranges or {}).get(seqid),
+                summary,
             )
             planned_total += planned
             # drosophila scores and permutes two pseudo-individuals
@@ -163,14 +178,14 @@ def run_css_multi(
             per_chrom.append((seqid, nslots, pending, *sizes))
 
     all_pending = [p for _, _, p, _, _ in per_chrom if p is not None]
-    with summary.stage("css_phase1_sync"):
+    with span("css_phase1_sync", summary):
         fetched = _phase1_fetch(all_pending) if all_pending else None
 
     # per chromosome: (seqid, nslots, slots, scores, valid, dist, a, b)
     chrom_data = []
     off = 0
     n_discarded = 0
-    with summary.stage("css_collect"):
+    with span("css_collect", summary):
         for seqid, nslots, pending, asz, bsz in per_chrom:
             if pending is None:
                 chrom_data.append((seqid, nslots, None, None, None, None, asz, bsz))
@@ -190,6 +205,7 @@ def run_css_multi(
     n_scored = int(sum(c[4].sum() for c in chrom_data if c[4] is not None))
     results: dict[str, tuple[np.ndarray, np.ndarray]] = {}
     mc_perms = 0
+    ranges = []     # (first chunk, chunks, running windows) of each MC range
     groups: dict[tuple[int, int], list] = {}
     for c in chrom_data:
         groups.setdefault((c[6], c[7]), []).append(c)
@@ -199,7 +215,7 @@ def run_css_multi(
         live = [c for c in group if c[4] is not None and c[4].any()]
         mc = None
         if live:
-            with summary.stage("css_mc"):
+            with span("css_mc", summary):
                 dist = torch.cat([c[5] for c in live])
                 scores = np.concatenate([c[3][c[4]] for c in live])
                 # the window streams' keys: (chromosome, slot) of each window
@@ -219,23 +235,27 @@ def run_css_multi(
                         dist, scores, asz, bsz, cfg.mc_threshold, cfg.mc_runs,
                         mc_key, chunk=cfg.mc_chunk, chroms=chroms, slots=slots,
                         backend=cfg.perm_backend, bitgen=cfg.rng,
-                        stream=cfg.mc_stream, sharding=mc_mesh,
+                        stream=cfg.mc_stream, sharding=mc_mesh, ranges=ranges,
                     )
         mc_off = 0
-        for seqid, nslots, slots, sc, valid, *_ in group:
-            scores = np.zeros(nslots, dtype=np.float64)
-            pvals = np.zeros(nslots, dtype=np.float64)
-            if valid is not None and valid.any():
-                n = int(valid.sum())
-                scores[slots[valid]] = sc[valid]
-                pvals[slots[valid]] = mc.pvals[mc_off: mc_off + n]
-                mc_perms += int(mc.nscores[mc_off: mc_off + n].sum())
-                mc_off += n
-            results[seqid] = (scores, pvals)
+        with span("css_assemble", summary):
+            for seqid, nslots, slots, sc, valid, *_ in group:
+                scores = np.zeros(nslots, dtype=np.float64)
+                pvals = np.zeros(nslots, dtype=np.float64)
+                if valid is not None and valid.any():
+                    n = int(valid.sum())
+                    scores[slots[valid]] = sc[valid]
+                    pvals[slots[valid]] = mc.pvals[mc_off: mc_off + n]
+                    mc_perms += int(mc.nscores[mc_off: mc_off + n].sum())
+                    mc_off += n
+                results[seqid] = (scores, pvals)
 
     c = summary.counters
     c["windows_planned"] = c.get("windows_planned", 0) + planned_total
     c["windows_scored"] = c.get("windows_scored", 0) + n_scored
     c["windows_discarded"] = c.get("windows_discarded", 0) + n_discarded
     c["mc_permutations"] = c.get("mc_permutations", 0) + mc_perms
+    c["mc_ranges"] = c.get("mc_ranges", 0) + len(ranges)
+    c["mc_perms_run"] = (c.get("mc_perms_run", 0)
+                         + sum(nk * nact for _, nk, nact in ranges) * cfg.mc_chunk)
     return results

@@ -3,6 +3,9 @@
 Window plan (host) -> per-SNP scores once per chromosome (K1) -> every
 window's percentile and bootstrap stddev in one launch (K2) -> dense
 score / stddev tracks, with one device-to-host copy per device and run.
+Its steps run under spans (``utils/trace.py``) of the ``RunSummary``
+stages' names: ``fet_dispatch`` (a chromosome's ``fet_plan`` and
+``fet_upload`` inside it), ``fet_sync`` and ``fet_scatter``.
 
 Exact mode in the LUT regime takes the JAX engine's rank route instead:
 K1r (the sorted LUT and each SNP's int32 rank into it) once per
@@ -35,6 +38,7 @@ from divergence_tpu_torch.engine.snp import SnpPair
 from divergence_tpu_torch.kernels import fet as kfet
 from divergence_tpu_torch.parallel.mesh import mesh_devices, to_host, window_slices
 from divergence_tpu_torch.utils.summary import RunSummary
+from divergence_tpu_torch.utils.trace import span
 
 
 def chromosome_key(seed: int, seqid: str) -> torch.Tensor:
@@ -64,16 +68,17 @@ def _fet_dispatch(
     Returns (nslots, pending) with pending = (slots, [out_2xb per
     device share, in window order]) or None."""
     w = cfg.window
-    plan = plan_windows(pair.positions, regend, w.wsize, w.wstep)
-    nslots = plan.nslots
-    if plan.num_windows == 0 or pair.npos == 0:
-        return nslots, None
-    valid = plan.valid_mask() & (plan.npos > 0)
-    if slot_range is not None:
-        # multi-host: only the owned slots (the halo SNPs they read are in
-        # this host's input span, parallel/multihost.py)
-        valid &= (plan.slot >= slot_range[0]) & (plan.slot < slot_range[1])
-    ids = np.nonzero(valid)[0]
+    with span("fet_plan", summary):
+        plan = plan_windows(pair.positions, regend, w.wsize, w.wstep)
+        nslots = plan.nslots
+        if plan.num_windows == 0 or pair.npos == 0:
+            return nslots, None
+        valid = plan.valid_mask() & (plan.npos > 0)
+        if slot_range is not None:
+            # multi-host: only the owned slots (the halo SNPs they read are in
+            # this host's input span, parallel/multihost.py)
+            valid &= (plan.slot >= slot_range[0]) & (plan.slot < slot_range[1])
+        ids = np.nonzero(valid)[0]
     if summary is not None:
         # accumulate across chromosomes (one summary spans a whole run)
         c = summary.counters
@@ -94,7 +99,8 @@ def _fet_dispatch(
         if dev not in per_snp:
             # int16 codes: FET only ==-compares them, so the compact upload
             # is result-identical (engine/snp.py)
-            vals = pair.to_device(dev, compact=True)
+            with span("fet_upload", summary):
+                vals = pair.to_device(dev, compact=True, summary=summary)
             snp_fn = kfet.fet_snp_ranks if ranked else kfet.fet_snp_logs
             per_snp[dev] = snp_fn(vals, pair.asize, maxs, nmax, fast=fast)
         lo, npos, slot = (
@@ -176,7 +182,7 @@ def run_fet_multi(
     devices = mesh_devices(device, sharding)
     summary = summary or RunSummary()
     per_chrom = []
-    with summary.stage("fet_dispatch"):
+    with span("fet_dispatch", summary):
         for seqid, (pair, regend) in sorted(pairs.items()):
             key = chromosome_key(cfg.seed, seqid)
             nslots, pending = _fet_dispatch(
@@ -186,12 +192,12 @@ def run_fet_multi(
             per_chrom.append((seqid, nslots, pending))
 
     all_pending = [p for _, _, p in per_chrom if p is not None]
-    with summary.stage("fet_sync"):
+    with span("fet_sync", summary):
         fetched = _fetch(all_pending) if all_pending else None
 
     results = {}
     off = 0
-    with summary.stage("fet_scatter"):
+    with span("fet_scatter", summary):
         for seqid, nslots, pending in per_chrom:
             if pending is None:
                 results[seqid] = (np.zeros(nslots), np.zeros(nslots))

@@ -29,11 +29,13 @@ class SnpPair:
     )
 
     def to_device(
-        self, device: str | torch.device, compact: bool = True
+        self, device: str | torch.device, compact: bool = True, summary=None
     ) -> torch.Tensor:
         """Both populations as ONE ``[npos, asize+bsize]`` tensor on
         ``device`` (group-A columns first), uploaded once and cached per
-        (device, compact).
+        (device, compact).  An upload adds its bytes to the ``RunSummary``
+        counter ``h2d_bytes`` where ``summary`` is given; a cached tensor
+        adds nothing.
 
         ``compact=True`` uploads int16 when every value is an integer in
         int16 range (always true for the converter's genotype codes
@@ -53,6 +55,9 @@ class SnpPair:
                 mat = mat.astype(np.int16)
             cached = torch.from_numpy(np.ascontiguousarray(mat)).to(device)
             self._device_cache[key] = cached
+            if summary is not None:
+                c = summary.counters
+                c["h2d_bytes"] = c.get("h2d_bytes", 0) + cached.nbytes
         return cached
 
     def _int16_safe(self) -> bool:

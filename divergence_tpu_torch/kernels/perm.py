@@ -73,6 +73,10 @@ package's ``lax.map`` slices existed for XLA on the TPU); the results are
 those of the JAX package's single-pass loop.  The JAX ``perm_form``
 ("broadcast" / "matmul") scores the same permutations in two float32
 layouts; the port has one.  Each launch adds one to :data:`LAUNCHES`.
+The host's steps run under spans (``utils/trace.py``): ``mc_keys`` (the
+stream keys and observed scores), ``mc_range`` a range of chunks (a
+chunk of the plain loops), ``mc_compact`` (its host sync for the windows
+still running) and ``mc_fetch`` (the results read back).
 The function defaults follow ``CssConfig`` (``stream="shared"``).
 """
 
@@ -90,6 +94,7 @@ import torch
 from divergence_tpu_torch import rng
 from divergence_tpu_torch.kernels._cuda import count, is_cpu, launch, ptr, query_form
 from divergence_tpu_torch.kernels.fet import bitonic_network, bitonic_schedule
+from divergence_tpu_torch.utils.trace import span
 
 BITGENS = ("mix", "threefry")   # kernel argument: the index in this tuple
 STREAMS = ("shared", "window")
@@ -537,24 +542,31 @@ def _chunk_update(hit, k, chunk, runs, threshold, hits, nsc):
     return hits, nsc, reached
 
 
-def _mc_loop(B, dev, chunk, runs, threshold, chunk_hits_of):
+def _mc_loop(B, dev, chunk, runs, threshold, chunk_hits_of, ranges=None):
     """The host-driven chunk loop shared by the plain MCs: chunk_hits_of(k,
     rows) gives hit [len(rows), chunk] for the windows still running;
-    stops once every window is done.  Returns (pvals, nscores, hits)."""
+    stops once every window is done.  ``ranges``, if given, gets each
+    chunk as a range of one chunk, as :func:`mc_shared` gives its ranges.
+    Returns (pvals, nscores, hits)."""
     hits = torch.zeros(B, dtype=torch.int64, device=dev)
     nsc = torch.zeros(B, dtype=torch.int64, device=dev)
     active = torch.arange(B, device=dev)
     for k in range((runs + chunk - 1) // chunk):
         if active.numel() == 0:
             break
-        h, n, reached = _chunk_update(
-            chunk_hits_of(k, active), k, chunk, runs, threshold, hits[active], nsc[active]
-        )
-        hits[active] = h
-        nsc[active] = n
-        active = active[~reached]
-    hits_np = hits.cpu().numpy()
-    nsc_np = nsc.cpu().numpy()
+        with span("mc_range"):
+            h, n, reached = _chunk_update(
+                chunk_hits_of(k, active), k, chunk, runs, threshold, hits[active], nsc[active]
+            )
+            hits[active] = h
+            nsc[active] = n
+            if ranges is not None:
+                ranges.append((k, 1, active.numel()))
+            with span("mc_compact"):
+                active = active[~reached]
+    with span("mc_fetch"):
+        hits_np = hits.cpu().numpy()
+        nsc_np = nsc.cpu().numpy()
     return (hits_np + 1.0) / (nsc_np + 1.0), nsc_np, hits_np
 
 
@@ -573,12 +585,14 @@ def mc_significance(
     threshold: int,
     stream: str = "shared",
     bitgen: str = "mix",
+    ranges: list | None = None,
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Plain torch version of the float32 MC (``perm.py:mc_significance``):
     a host-driven chunk loop with the same ``counted``/``cum``/``need``/
     ``pos`` arithmetic, on ``dist``'s device, carrying only the windows
     still running (each window's result depends on its own stream only).
-    Returns (pvals float64, nscores, hits) as numpy arrays."""
+    ``ranges`` as in :func:`_mc_loop`.  Returns (pvals float64, nscores,
+    hits) as numpy arrays."""
     dev = dist.device
     B, m = dist.shape[0], dist.shape[-1]
     distf = dist.to(torch.float32)
@@ -597,7 +611,7 @@ def mc_significance(
             return s >= obs[rows, None]
     else:
         raise ValueError(f"stream must be one of {STREAMS}, got {stream!r}")
-    return _mc_loop(B, dev, chunk, runs, threshold, chunk_hits)
+    return _mc_loop(B, dev, chunk, runs, threshold, chunk_hits, ranges)
 
 
 def _native_scores(D: torch.Tensor, rowtot: torch.Tensor, r: torch.Tensor,
@@ -653,12 +667,14 @@ def mc_native_plain(
     chunk: int,
     runs: int,
     threshold: int,
+    ranges: list | None = None,
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Plain torch version of ``perm_backend="native"``
     (``native/mc_native.cpp:mc_native``): the window stream with ``mix``
     draws, float32 distances widened to float64, scored by
     :func:`_native_scores`, a hit when the score is ``>=`` the float32
-    observed score widened to float64.  Returns (pvals, nscores, hits)."""
+    observed score widened to float64.  ``ranges`` as in :func:`_mc_loop`.
+    Returns (pvals, nscores, hits)."""
     dev = dist.device
     B, m = dist.shape[0], dist.shape[-1]
     D = dist.to(torch.float32).to(torch.float64)
@@ -675,7 +691,7 @@ def mc_native_plain(
             out[s:s + step] = _native_scores(D[sel], rowtot[sel], r, asize, bsize) >= obs[sel, None]
         return out
 
-    return _mc_loop(B, dev, chunk, runs, threshold, chunk_hits)
+    return _mc_loop(B, dev, chunk, runs, threshold, chunk_hits, ranges)
 
 
 def _pack_words(hit: torch.Tensor) -> torch.Tensor:
@@ -889,15 +905,17 @@ def mc_shared(
     active = torch.arange(B, dtype=torch.int64, device=dev)
     k = 0
     while k < n_chunks and active.numel():
-        nk = range_chunks(k, n_chunks, active.numel(), mm, chunk)
-        M = coeff_range(key, k, nk, m, asize, bsize, chunk, dev, bitgen)
-        words = mc_hit_words(distf, obs, active, M, k, nk, chunk, runs)
-        mc_scan(words, active, k, chunk, runs, threshold, hits, nsc, done)
-        if ranges is not None:
-            ranges.append((k, nk, active.numel()))
-        k += nk
-        if k < n_chunks:
-            active = active[done[active] == 0]
+        with span("mc_range"):
+            nk = range_chunks(k, n_chunks, active.numel(), mm, chunk)
+            M = coeff_range(key, k, nk, m, asize, bsize, chunk, dev, bitgen)
+            words = mc_hit_words(distf, obs, active, M, k, nk, chunk, runs)
+            mc_scan(words, active, k, chunk, runs, threshold, hits, nsc, done)
+            if ranges is not None:
+                ranges.append((k, nk, active.numel()))
+            k += nk
+            if k < n_chunks:
+                with span("mc_compact"):
+                    active = active[done[active] == 0]
     return nsc, hits
 
 
@@ -1085,15 +1103,17 @@ def mc_window(
     active = torch.arange(B, dtype=torch.int64, device=dev)
     k = 0
     while k < n_chunks and active.numel():
-        nk = range_chunks(k, n_chunks, active.numel(), 0, chunk, per_perm=cost)
-        words = mc_window_hit_words(distf, obs, keys, active, k, nk, asize, bsize, chunk,
-                                    runs, bitgen, native)
-        mc_scan(words, active, k, chunk, runs, threshold, hits, nsc, done)
-        if ranges is not None:
-            ranges.append((k, nk, active.numel()))
-        k += nk
-        if k < n_chunks:
-            active = active[done[active] == 0]
+        with span("mc_range"):
+            nk = range_chunks(k, n_chunks, active.numel(), 0, chunk, per_perm=cost)
+            words = mc_window_hit_words(distf, obs, keys, active, k, nk, asize, bsize,
+                                        chunk, runs, bitgen, native)
+            mc_scan(words, active, k, chunk, runs, threshold, hits, nsc, done)
+            if ranges is not None:
+                ranges.append((k, nk, active.numel()))
+            k += nk
+            if k < n_chunks:
+                with span("mc_compact"):
+                    active = active[done[active] == 0]
     return nsc, hits
 
 
@@ -1217,6 +1237,7 @@ def significance(
     bitgen: str = "mix",
     stream: str = "shared",
     sharding=None,          # a parallel.make_mesh tuple: one share per device
+    ranges: list | None = None,
 ) -> McResult:
     """Adaptive permutation p-values for a set of windows
     (``perm.py:significance``): the kernels on a CUDA ``dist``, the plain
@@ -1224,23 +1245,26 @@ def significance(
     (chroms[w], slots[w]); ``backend="native"`` needs that stream and
     ``mix`` draws, as in the JAX package.  With ``sharding`` each device
     takes a contiguous share of the windows, every share at once
-    (:func:`_over_shares`)."""
-    keys = _stream_keys(key, dist.shape[0], chroms, slots, stream, dist.device)
+    (:func:`_over_shares`).  ``ranges``, if given, gets (first chunk,
+    chunks, running windows) of every range run, every share's (the
+    plain loops' chunks as ranges of one chunk)."""
+    with span("mc_keys"):
+        keys = _stream_keys(key, dist.shape[0], chroms, slots, stream, dist.device)
     if sharding is None or dist.shape[0] == 0:
         return _significance(dist, scores, keys, asize, bsize, threshold, runs, chunk,
-                             backend, bitgen, stream)
+                             backend, bitgen, stream, ranges)
     scores = np.asarray(scores, dtype=np.float64)
     parts = _over_shares(
         sharding, dist, keys,
         lambda d, ks, sl: _significance(d, scores[sl], ks, asize, bsize, threshold, runs,
-                                        chunk, backend, bitgen, stream),
+                                        chunk, backend, bitgen, stream, ranges),
     )
     return McResult(*(np.concatenate([getattr(r, f) for r in parts])
                       for f in ("pvals", "nscores", "hits")))
 
 
 def _significance(dist, scores, keys, asize, bsize, threshold, runs, chunk, backend, bitgen,
-                  stream) -> McResult:
+                  stream, ranges=None) -> McResult:
     """:func:`significance` on one device (a share of a sharded call), the
     keys made (:func:`_stream_keys`)."""
     if backend not in ("xla", "native"):
@@ -1259,22 +1283,25 @@ def _significance(dist, scores, keys, asize, bsize, threshold, runs, chunk, back
     if is_cpu(dist):
         if backend == "native":
             pv, n, h = mc_native_plain(dist, scores, keys, asize, bsize, chunk,
-                                       runs, threshold)
+                                       runs, threshold, ranges)
         else:
             pv, n, h = mc_significance(dist, scores, keys, asize, bsize, chunk, runs,
-                                       threshold, stream=stream, bitgen=bitgen)
+                                       threshold, stream=stream, bitgen=bitgen,
+                                       ranges=ranges)
         return McResult(pvals=pv, nscores=n, hits=h)
-    obs = _observed_f32(scores, dist.device)
+    with span("mc_keys"):
+        obs = _observed_f32(scores, dist.device)
     if stream == "shared":
         m = dist.shape[-1]
         distf = dist.to(torch.float32).reshape(B, m * m).contiguous()
         nsc, hits = mc_shared(distf, obs, keys, asize, bsize, chunk, runs, threshold,
-                              bitgen)
+                              bitgen, ranges)
     else:
         nsc, hits = mc_window(dist, obs, keys, asize, bsize, chunk, runs, threshold,
-                              bitgen, native=backend == "native")
-    n = nsc.cpu().numpy().astype(np.int64)
-    h = hits.cpu().numpy().astype(np.int64)
+                              bitgen, native=backend == "native", ranges=ranges)
+    with span("mc_fetch"):
+        n = nsc.cpu().numpy().astype(np.int64)
+        h = hits.cpu().numpy().astype(np.int64)
     return McResult(pvals=(h + 1.0) / (n + 1.0), nscores=n, hits=h)
 
 

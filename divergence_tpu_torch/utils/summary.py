@@ -1,8 +1,10 @@
 """Structured run summaries and per-stage timing.
 
-Copied verbatim from ``divergence_tpu/utils/summary.py``: importing the JAX
-package imports jax, and the port runs where jax is not installed.
-``tests/test_torch_host_copies.py`` holds the two equal.
+``RunSummary`` is copied verbatim from ``divergence_tpu/utils/summary.py``:
+importing the JAX package imports jax, and the port runs where jax is not
+installed.  ``tests/test_torch_host_copies.py`` holds the two equal.  The
+JAX package's ``StageTimer`` has no copy: the port times its stages with
+``RunSummary.stage``, through ``utils/trace.py:span``.
 
 The reference's observability is printf + gettimeofday pairs
 (reference statistics/css/comparative.c:107-114, reference statistics/css/threadcss.c:55-107).  Here every run can emit a
@@ -58,13 +60,3 @@ class RunSummary:
     def write(self, path) -> None:
         with open(path, "w") as fh:
             fh.write(self.to_json() + "\n")
-
-
-class StageTimer:
-    """Minimal wall-clock timer (reference time_ddiff analogue)."""
-
-    def __init__(self) -> None:
-        self.t0 = time.perf_counter()
-
-    def elapsed(self) -> float:
-        return time.perf_counter() - self.t0

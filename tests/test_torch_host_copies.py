@@ -52,7 +52,6 @@ VERBATIM = [
     (jgenome, tgenome, "read_chrom_sizes"),
     (jgenome, tgenome, "write_chrom_sizes"),
     (jsummary, tsummary, "RunSummary"),
-    (jsummary, tsummary, "StageTimer"),
     (jconfig, tconfig, "WindowConfig"),
     (jconfig, tconfig, "FetConfig"),
     (jconfig, tconfig, "MdsAlgorithm"),
